@@ -1,0 +1,41 @@
+"""radtxfr_tpu_torch — the PyTorch/CUDA port of ``radtxfr_tpu``.
+
+Same subpackage layout as the JAX package (``core``, ``lines``, ``kernels``,
+``atmos``, ``products``, ``sensor``, ``io``, ``cli``); each module here is
+the counterpart of the module at the same relative path there. Plain tensor
+code is PyTorch; the two line-by-line kernels of the production TUD path are
+hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
+use (:mod:`radtxfr_tpu_torch._build`), never at import.
+
+The port imports neither JAX nor ``radtxfr_tpu`` (whose ``__init__`` pulls
+in JAX); it reads the packaged tables of ``radtxfr_tpu/data`` by file path.
+"""
+
+import os
+
+import torch
+
+__version__ = "0.1.0"
+
+# A float32 matmul or convolution in TF32 keeps ~3 decimal digits; every
+# number of this package is held to float32 bounds, so TF32 stays off
+# (the GPU form of the TPU bf16-MXU hazard the JAX package guards against).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def _settle_cpu_exp():
+    """torch's CPU ``exp`` (MKL build) intermittently returns low-precision
+    values on its first multi-threaded call in a process (3.3e-9 relative
+    in float64, 3e-5 of peak in a float32 TUD, in about one process in
+    five) and is exact on every later call; one large call per dtype spends
+    that first call, so the plain versions on the CPU are exact."""
+    for dt in (torch.float64, torch.float32):
+        torch.exp(torch.zeros(1 << 20, dtype=dt))
+
+
+_settle_cpu_exp()
+
+#: packaged data tables shared with the JAX package (read by path only)
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "radtxfr_tpu", "data")

@@ -1,0 +1,145 @@
+"""Line database as a structure of tensors (counterpart of
+``radtxfr_tpu/lines/store.py``).
+
+:class:`LineStore` holds the HITRAN columns sorted by line centre, as
+tensors on one device in one float dtype, plus float64 host copies of every
+column (``host``) for static planning: the bucket plans decompose line
+centres into exact (grid index, fraction) pairs in float64, which a float32
+copy would quantize by ~6e-5 cm^-1 at 1000 cm^-1.
+
+``parse_par`` and the native ``.par`` parser are not ported yet (ROADMAP
+queue 1, M9 remainder).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import numpy as np
+import torch
+
+from .. import DATA_DIR
+from .tips import iso_row_index, load_tips_tables
+
+_FLOAT_FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",
+                 "delta_air", "sd_air")
+_INT_FIELDS = ("iso_row", "mol_id")
+
+
+@functools.lru_cache(maxsize=1)
+def _iso_registry():
+    with np.load(os.path.join(DATA_DIR, "iso_registry.npz")) as f:
+        return {
+            (int(m), int(i)): (float(a), float(mm))
+            for m, i, a, mm in zip(
+                f["mol"], f["iso"], f["abundance"], f["molar_mass"]
+            )
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class IsoTables:
+    """Per-isotopologue physical data, indexed by compact row id."""
+
+    q: torch.Tensor           # (n_iso, 119) TIPS-2011 partition sums
+    abundance: torch.Tensor   # (n_iso,) natural abundance
+    molar_mass: torch.Tensor  # (n_iso,) [g/mol]
+    mol: torch.Tensor         # (n_iso,) HITRAN molecule number
+    iso: torch.Tensor         # (n_iso,) local isotopologue number
+
+    @staticmethod
+    def from_numpy(q, abundance, molar_mass, mol, iso, device=None,
+                   dtype=torch.float64) -> "IsoTables":
+        """Build from NumPy columns (e.g. the JAX ``IsoTables`` fields)."""
+        f = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
+                                   dtype=dtype, device=device)
+        i = lambda a: torch.tensor(np.asarray(a, dtype=np.int64),
+                                   device=device)
+        return IsoTables(q=f(q), abundance=f(abundance),
+                         molar_mass=f(molar_mass), mol=i(mol), iso=i(iso))
+
+    @staticmethod
+    def load(device=None, dtype=torch.float64) -> "IsoTables":
+        mol, iso, _gsi, q = load_tips_tables()
+        reg = _iso_registry()
+        miss = (np.nan, np.nan)
+        return IsoTables.from_numpy(
+            q=q,
+            abundance=[reg.get((int(m), int(i)), miss)[0]
+                       for m, i in zip(mol, iso)],
+            molar_mass=[reg.get((int(m), int(i)), miss)[1]
+                        for m, i in zip(mol, iso)],
+            mol=mol, iso=iso, device=device, dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LineStore:
+    """Structure-of-tensors HITRAN line list, sorted by ``nu0``."""
+
+    nu0: torch.Tensor         # (L,) line center [cm^-1]
+    sw: torch.Tensor          # (L,) intensity at 296 K [cm^-1/(molec cm^-2)]
+    elower: torch.Tensor      # (L,) lower-state energy [cm^-1]
+    gamma_air: torch.Tensor   # (L,) air-broadened HWHM [cm^-1/atm]
+    gamma_self: torch.Tensor  # (L,) self-broadened HWHM [cm^-1/atm]
+    n_air: torch.Tensor       # (L,) T-exponent for gamma_air
+    delta_air: torch.Tensor   # (L,) air pressure shift [cm^-1/atm]
+    iso_row: torch.Tensor     # (L,) int64 index into IsoTables
+    mol_id: torch.Tensor      # (L,) int64 HITRAN molecule number
+    sd_air: torch.Tensor      # (L,) speed-dependence ratio Gamma2/Gamma0
+    #: float64 / int64 NumPy copies of every column, for host planning
+    host: dict = dataclasses.field(repr=False, compare=False,
+                                   default_factory=dict)
+
+    def __len__(self) -> int:
+        return int(self.nu0.shape[0])
+
+    def host_view(self) -> "LineStore":
+        """A LineStore whose columns are the host NumPy copies."""
+        return dataclasses.replace(self, **self.host)
+
+    @staticmethod
+    def from_numpy(*, nu0, sw, elower, gamma_air, gamma_self, n_air,
+                   delta_air, iso_row, mol_id, sd_air, device=None,
+                   dtype=torch.float64) -> "LineStore":
+        """Build from NumPy columns already sorted by ``nu0`` (e.g. the
+        fields of the JAX ``LineStore.host_view()``)."""
+        host = {k: np.array(v, dtype=np.float64) for k, v in dict(
+            nu0=nu0, sw=sw, elower=elower, gamma_air=gamma_air,
+            gamma_self=gamma_self, n_air=n_air, delta_air=delta_air,
+            sd_air=sd_air).items()}
+        host.update(iso_row=np.array(iso_row, dtype=np.int64),
+                    mol_id=np.array(mol_id, dtype=np.int64))
+        if np.any(np.diff(host["nu0"]) < 0):
+            raise ValueError("line centers must be sorted")
+        cols = {k: torch.as_tensor(host[k], dtype=dtype, device=device)
+                for k in _FLOAT_FIELDS}
+        cols.update({k: torch.as_tensor(host[k], device=device)
+                     for k in _INT_FIELDS})
+        return LineStore(**cols, host=host)
+
+
+def from_arrays(nu0, sw, elower, gamma_air, gamma_self, n_air, delta_air,
+                mol_id, local_iso_id, sd_air=None, device=None,
+                dtype=torch.float64) -> LineStore:
+    """Build a sorted :class:`LineStore` from NumPy columns.
+
+    ``mol_id``/``local_iso_id`` are HITRAN numbers, mapped to the compact
+    ``iso_row`` index of :class:`IsoTables`; ``sd_air`` defaults to zero.
+    """
+    row_of = iso_row_index()
+    nu0 = np.asarray(nu0, dtype=np.float64)
+    order = np.argsort(nu0, kind="stable")
+    iso_row = np.array([row_of[(int(m), int(i))] for m, i in
+                        zip(np.asarray(mol_id), np.asarray(local_iso_id))],
+                       dtype=np.int64)
+    if sd_air is None:
+        sd_air = np.zeros_like(nu0)
+    s = lambda a: np.asarray(a, dtype=np.float64)[order]
+    return LineStore.from_numpy(
+        nu0=nu0[order], sw=s(sw), elower=s(elower), gamma_air=s(gamma_air),
+        gamma_self=s(gamma_self), n_air=s(n_air), delta_air=s(delta_air),
+        sd_air=s(sd_air), iso_row=iso_row[order],
+        mol_id=np.asarray(mol_id, dtype=np.int64)[order],
+        device=device, dtype=dtype)

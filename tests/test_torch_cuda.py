@@ -1,0 +1,105 @@
+"""The port's CUDA kernels on a card (marker ``cuda``; skipped where
+``torch.cuda.is_available()`` is false).
+
+This file imports no JAX, so it also runs on a machine with a card and no
+JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import pytest
+import torch
+
+from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+from radtxfr_tpu_torch.core.grid import arange_drift_free
+from radtxfr_tpu_torch.kernels import fused_tud, fused_xsect
+from radtxfr_tpu_torch.kernels.linemixing_data import y_air_for_store
+from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
+from radtxfr_tpu_torch.lines.store import IsoTables
+from radtxfr_tpu_torch.products.od import make_od_fn
+from radtxfr_tpu_torch.products.tud import _layers_below, downwelling_quadrature
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _od_fn(dev):
+    f32 = torch.float32
+    store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32),
+                       arange_drift_free(716.0, 726.0, 0.0005), base,
+                       line_mixing={"y_air": y_air_for_store(
+                           store.host_view())})
+    return od_fn, base
+
+
+def _tud_args(dev, od, x, base):
+    f32 = torch.float32
+    sec, w = (torch.as_tensor(a, dtype=f32, device=dev)
+              for a in downwelling_quadrature(30))
+    snap = torch.as_tensor(_layers_below(base.z0.cpu().numpy(), [1.0, 500.0]),
+                           dtype=torch.int32, device=dev)
+    return [od, x, (1.0 / base.T).contiguous(),
+            torch.ones(1, dtype=f32, device=dev), snap, sec, w]
+
+
+def test_fused_xsect_kernel_matches_plain(dev):
+    od_fn, base = _od_fn(dev)
+    prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)
+    line_od = torch.zeros((base.n_layers, od_fn.n_x), device=dev)
+    pairs = []
+    for call in od_fn.calls:
+        got = od_fn.run_call(call, prm, Y)
+        assert torch.equal(got, od_fn.run_call(call, prm, Y))  # no atomics
+        want = od_fn.run_call(call, prm, Y,
+                              kernel=fused_xsect.xsect_fused_plain)
+        line_od[call[0].long()] += want
+        pairs.append((call[0], call[2], got, want))
+    for lay, mode, got, want in pairs:
+        err = (got - want).abs().max()
+        # <= 2e-6 of the line-OD peak of the pass's layers (chip_smoke.py)
+        assert err <= 2e-6 * line_od[lay.long()].abs().max()
+        # and of the pass's own peak: 2e-6 (asym, mix), 5e-2 (core, a
+        # difference of near-equal float32 shapes; chip_smoke.K1_OWN_BOUND)
+        own = want.abs().max()
+        assert own > 0.0
+        assert err <= (5e-2 if mode == "core" else 2e-6) * own
+
+
+def test_fused_tud_kernel_matches_plain(dev):
+    base = std_atmosphere(device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    od = 0.2 * torch.rand((base.n_layers, 5000), generator=gen, device=dev)
+    x = torch.linspace(690.0, 1410.0, 5000, device=dev)
+    args = _tud_args(dev, od, x, base)
+    got = fused_tud.tud_compose(*args)
+    want = fused_tud.tud_compose_plain(*args)
+    for g, r in zip(got, want):
+        assert (g - r).abs().max() <= 5e-6 * r.abs().max()   # of peak
+
+
+def test_wrappers_raise_on_float64_and_non_contiguous(dev):
+    od_fn, base = _od_fn(dev)
+    prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)
+    lay, dplan, mode = od_fn.calls[0]
+    p = [prm.shift0, prm.strength, prm.gamma_d, prm.gamma_0, prm.wing]
+    with pytest.raises(TypeError, match="float32"):
+        fused_xsect.xsect_fused(dplan, lay, *[a.double() for a in p], Y,
+                                mode)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = [a.t().contiguous().t() for a in p]
+        fused_xsect.xsect_fused(dplan, lay, *strided, Y, mode)
+
+    x = torch.linspace(690.0, 1410.0, 300, device=dev)
+    od = torch.rand((base.n_layers, 300), device=dev)
+    args = _tud_args(dev, od, x, base)
+    with pytest.raises(TypeError, match="float32"):
+        fused_tud.tud_compose(od.double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_tud.tud_compose(od.t().contiguous().t(), *args[1:])
