@@ -7,6 +7,12 @@ code is PyTorch; the two line-by-line kernels of the production TUD path are
 hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use (:mod:`radtxfr_tpu_torch._build`), never at import.
 
+Every public constructor and builder takes ``device`` and runs on the card
+(CUDA) unless the caller passes another device, e.g. ``device="cpu"`` for
+the kernels' plain versions; float data defaults to float32, the kernels'
+type. Without a card, a call that leaves ``device`` at its default raises
+(:func:`resolve_device`): nothing falls back to the CPU.
+
 The port imports neither JAX nor ``radtxfr_tpu`` (whose ``__init__`` pulls
 in JAX); it reads the packaged tables of ``radtxfr_tpu/data`` by file path.
 """
@@ -35,6 +41,19 @@ def _settle_cpu_exp():
 
 
 _settle_cpu_exp()
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means the card
+    (``cuda``), and raises where torch sees none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: radtxfr_tpu_torch runs on the card unless "
+            "asked otherwise; pass device='cpu' to run the kernels' plain "
+            "versions on the CPU")
+    return torch.device("cuda")
 
 #: packaged data tables shared with the JAX package (read by path only)
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",

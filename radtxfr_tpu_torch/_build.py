@@ -1,12 +1,15 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface under ``_build/`` (listed in
-``.gitignore``), named by the hash of the sources and flags so an edited
-source is rebuilt; the library is loaded with ``ctypes``. Nothing here runs
-at import. A missing ``nvcc`` or a failed build raises: no kernel falls back
-to anything else. :func:`check_tensor` is the argument check both kernel
-wrappers run before they pass raw pointers.
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a
+shared library of its own with a plain C interface under ``_build/``
+(listed in ``.gitignore``), all sources at once in parallel processes; each
+library is named by the hash of its source and the flags, so an edited
+source is rebuilt, and is loaded with ``ctypes``. ``-Xptxas -v`` writes each
+kernel's registers, shared memory and spills into a log beside the library
+(:func:`build_log`). Nothing here runs at import. A missing ``nvcc`` or a
+failed build raises: no kernel falls back to anything else.
+:func:`check_tensor` is the argument check the kernel wrappers run before
+they pass raw pointers.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 
 import torch
 
@@ -26,7 +30,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -38,6 +42,13 @@ _SIGNATURES = {
     # tile, block, n_tiles, n_out, dx, out, stream
     "radtxfr_fused_xsect": [I, P, P, P, P, P, P, P, I, P, P, P, P, P, P, I,
                             P, I, I, I, I, I, ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
+    # lay_live, shift0, strength, gamma_d, gamma_0, wing, shift0_t,
+    # strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines, wei, n_wei,
+    # tile, block, n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_xsect_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
+                                P, P, P, I, I, I, P, I, I, I, I, I,
+                                ctypes.c_double, P, P],
     # od, x, inv_t, n_lay, n_x, mus, n_mu, snap, n_zs, sec, w, n_angles,
     # return_od, tau, lu, ld, stream
     "radtxfr_fused_tud": [P, P, P, I, I, P, I, P, I, P, P, I, I, P, P, P, P],
@@ -68,35 +79,62 @@ def _sources():
     return srcs
 
 
-def library_path() -> str:
-    """Path of the shared library for the current sources and flags."""
+def library_path(src: str) -> str:
+    """Path of the shared library for source ``src`` and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
-        with open(s, "rb") as f:
-            h.update(os.path.basename(s).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libradtxfr_{h.hexdigest()[:16]}.so")
+    with open(src, "rb") as f:
+        h.update(f.read())
+    name = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the sources if their library does not exist yet."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
+def build() -> list[str]:
+    """Compile every source whose library does not exist yet, one ``nvcc``
+    per source, all started together; the libraries' paths."""
+    outs = [library_path(s) for s in _sources()]
+    todo = [(s, o) for s, o in zip(_sources(), outs) if not os.path.exists(o)]
+    if not todo:
+        return outs
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    procs = []
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
+        for src, out in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs.append((src, out, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, out, tmp, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode})"
+                              f":\n{log}")
+                continue
+            with open(out + ".log", "w") as f:
+                f.write(log)
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+        for _, _, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return outs
+
+
+def build_log() -> str:
+    """The ``nvcc`` output of each library (``-Xptxas -v``: registers,
+    shared memory and spills per kernel)."""
+    parts = []
+    for path in build():
+        with open(path + ".log") as f:
+            parts.append(f"== {os.path.basename(path)}\n{f.read()}")
+    return "\n".join(parts)
 
 
 def check_tensor(name, t, dtype, device, shape=None):
@@ -116,11 +154,14 @@ def check_tensor(name, t, dtype, device, shape=None):
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The built kernel library, with argument types declared."""
-    lib = ctypes.CDLL(build())
+def library() -> types.SimpleNamespace:
+    """The built kernel entry points, argument types declared, as
+    attributes named after the C functions."""
+    libs = [ctypes.CDLL(p) for p in build()]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)

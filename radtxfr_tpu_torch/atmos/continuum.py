@@ -21,6 +21,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core.constants import (BARYE_PER_ATM, C2_CM_K, CM_PER_KM,
                               K_BOLTZMANN_CGS, PA_PER_ATM)
 
@@ -131,14 +132,16 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
 
     Every nu-only quantity (the log-interpolated H2O tables, the (T, nu)
     CO2 far-wing table, the O2 CIA Gaussian core, the Rayleigh sigma(nu))
-    is computed once here in float64 on the host and kept on ``device`` in
-    ``dtype``; the returned ``fn(T, p_pa, pl_km, vmr, cf) -> (nLay, nX)``
+    is computed once here in float64 on the host and kept on ``device``
+    (None: the card) in ``dtype``; the returned
+    ``fn(T, p_pa, pl_km, vmr, cf) -> (nLay, nX)``
     does one exp per (layer, point) for the H2O temperature law plus
     broadcast algebra. Same operations, in the same order, as
     ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``.
     """
     from .far_wing import co2_continuum_table
 
+    device = resolve_device(device)
     nu_h = np.asarray(nu, dtype=np.float64)
     mol_ids = tuple(mol_ids)
     tn = tables.nu

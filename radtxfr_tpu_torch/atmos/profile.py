@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR
+from .. import DATA_DIR, resolve_device
 
 #: HITRAN molecule numbers of the StdAtmos VMR columns (H2O CO2 O3 N2O CO
 #: CH4 O2 N2); reference ``MFs_ID`` (radiative_transfer.py:177).
@@ -41,8 +41,10 @@ class AtmosphericState:
 
     @staticmethod
     def from_numpy(z0, z1, pl, p, T, vmr, mol_ids=STD_ATMOS_MOL_IDS,
-                   device=None, dtype=torch.float64) -> "AtmosphericState":
-        """Build from NumPy fields (e.g. those of the JAX state)."""
+                   device=None, dtype=torch.float32) -> "AtmosphericState":
+        """Build from NumPy fields (e.g. those of the JAX state); ``device``
+        None is the card."""
+        device = resolve_device(device)
         f = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
                                    dtype=dtype, device=device)
         return AtmosphericState(z0=f(z0), z1=f(z1), pl=f(pl), p=f(p), T=f(T),
@@ -55,8 +57,9 @@ def _std_atmos_table() -> np.ndarray:
         return f["table"].copy()
 
 
-def std_atmosphere(device=None, dtype=torch.float64) -> AtmosphericState:
-    """The 66-layer 1976 US Standard Atmosphere of the reference."""
+def std_atmosphere(device=None, dtype=torch.float32) -> AtmosphericState:
+    """The 66-layer 1976 US Standard Atmosphere of the reference
+    (``device`` None is the card)."""
     t = _std_atmos_table()
     return AtmosphericState.from_numpy(
         z0=t[:, 1], z1=t[:, 2], pl=t[:, 3], p=t[:, 4], T=t[:, 5],

@@ -3,17 +3,22 @@
 
     python -m radtxfr_tpu_torch.cli.main tud --derived --line-mixing \\
         --continuum mt_ckd --numin 690 --numax 1410 --dv 0.0005 \\
-        --n-atmos N --batch B [--device cuda] [--output tud.h5]
+        --n-atmos N --batch B [--jacobian [--jacobian-wrt T,1,3]] \\
+        [--device cuda] [--output tud.h5]
 
 ``tud`` is configuration 3 of the reference (``Generate_LWIR_TUD.py``):
 66-layer multi-altitude transmittance / upwelling / downwelling over the
 LWIR band for an ensemble of perturbed standard atmospheres, reduced on the
 device to ``--dv-out``, written to HDF5. Members are processed in chunks of
 ``--batch``; each chunk's reduced products are copied to the host once.
+``--jacobian`` adds d(tau, Lu, Ld)/d(T, H2O, O3) of the standard
+atmosphere by forward-mode autodiff (the reference's 199-profile finite
+differences), 8 directions at a time, each batch reduced on the device as
+soon as it exists.
 
 Not ported yet (each raises ``NotImplementedError``): ``--par`` (parse_par
 and the native parser, ROADMAP M9), ``--synthetic`` (M2), ``--checkpoint``
-(M9), ``--jacobian`` (M11) and ``--mesh-*`` (M15).
+(M9) and ``--mesh-*`` (M15, with the sharded Jacobian).
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ def run_tud(args, device, timings: dict | None = None):
     """The ``tud`` production path on ``device``.
 
     Returns ``(x_lo, {"tau", "Lu", "Ld"})``: the reduced axis (n_out,) and
-    NumPy products tau/Lu (n_atmos, n_out, nZs), Ld (n_atmos, n_out).
-    ``timings``, when given, receives ``build_s`` (lines, plans, operators),
-    ``members_s`` (all members, products on the host) and ``chunk_s`` (the
-    seconds of each ``--batch`` chunk).
+    NumPy products tau/Lu (n_atmos, n_out, nZs), Ld (n_atmos, n_out); with
+    ``--jacobian`` also ``d{tau,Lu}_d{T,H2O,O3}`` (n_out, nZs, nLay) and
+    ``dLd_d*`` (n_out, nLay), the JAX CLI's keys. ``timings``, when given,
+    receives ``build_s`` (lines, plans, operators), ``members_s`` (all
+    members, products on the host), ``chunk_s`` (the seconds of each
+    ``--batch`` chunk) and, with ``--jacobian``, ``jacobian_s``.
     """
     from ..atmos.profile import std_atmosphere
     from ..core.grid import arange_drift_free
@@ -60,8 +67,6 @@ def run_tud(args, device, timings: dict | None = None):
         raise NotImplementedError(
             "--checkpoint: resumable ensemble checkpoints (dist/checkpoint.py)"
             " are ROADMAP M9")
-    if args.jacobian:
-        raise NotImplementedError("--jacobian: TUD Jacobians are ROADMAP M11")
     if args.mesh_spectrum * args.mesh_ensemble > 1:
         raise NotImplementedError("--mesh-*: multi-GPU runs are ROADMAP M15")
     if args.batch < 1 or args.n_atmos < 1:
@@ -130,13 +135,48 @@ def run_tud(args, device, timings: dict | None = None):
     if timings is not None:
         timings.update(build_s=build_s, members_s=time.perf_counter() - t1,
                        chunk_s=chunk_s)
+    if args.jacobian:
+        t2 = time.perf_counter()
+        out.update(_jacobian(args, store, iso, grid, base, op, line_mixing,
+                             device))
+        if timings is not None:
+            timings["jacobian_s"] = time.perf_counter() - t2
     return op.x_out, out
+
+
+def _jacobian(args, store, iso, grid, base, op, line_mixing, device):
+    """The ``--jacobian`` products of the standard atmosphere, reduced like
+    tau/Lu/Ld (the singleton mu axis dropped), as NumPy arrays under the
+    JAX CLI's keys."""
+    from ..products.jacobian import tud_with_jacobian
+
+    wrt = tuple(w if w == "T" else int(w)
+                for w in args.jacobian_wrt.split(","))
+    if line_mixing is not None:
+        print("jacobian: line-mixing tangents are not supported by the "
+              "differentiable kernels; the Jacobian runs without mixing")
+    alts = torch.as_tensor(args.altitudes, dtype=torch.float32,
+                           device=device)
+    _, jac = tud_with_jacobian(store, iso, grid, base, alts, wrt=wrt,
+                               n_angles=args.n_angles, tangent_batch=8,
+                               continuum=args.continuum, reduce=op)
+    names = {"T": "T", 1: "H2O", 3: "O3"}
+    out = {}
+    for key in wrt:
+        for prod in ("tau", "Lu", "Ld"):
+            a = jac[str(key)][prod]
+            a = a[:, :, 0] if a.dim() == 4 else a
+            out[f"d{prod}_d{names.get(key, str(key))}"] = a.cpu().numpy()
+    print(f"jacobian: {sum(v.size for v in out.values())} elements")
+    return out
 
 
 def _write_tud_h5(path, x_lo, out, altitudes):
     from ..io.h5 import Var, write_h5
 
     info = "(atmos, X, altitude)"
+    jac = {k: Var(v, info="TUD Jacobian (trailing axis = layer)")
+           for k, v in out.items() if k.startswith("d")}
     write_h5(path, {
         "X": Var(np.asarray(x_lo), units="cm^{-1}", name="Wavenumbers",
                  label=r"$\tilde{\nu}$"),
@@ -147,6 +187,7 @@ def _write_tud_h5(path, x_lo, out, altitudes):
                   name="Hemispherically averaged downwelling radiance"),
         "Altitudes": Var(np.asarray(altitudes), units="km",
                          name="Sensor altitudes"),
+        **jac,
     })
     print(f"wrote {path}")
 
@@ -158,7 +199,8 @@ def cmd_tud(args):
     print(f"tud [{args.device}]: {n} members x {x_lo.size} reduced points; "
           f"build {timings['build_s']:.3f} s, members "
           f"{timings['members_s']:.3f} s ({n / timings['members_s']:.3f} "
-          f"spectra/s)")
+          f"spectra/s)" + (f"; jacobian {timings['jacobian_s']:.3f} s"
+                           if args.jacobian else ""))
     if args.output:
         _write_tud_h5(args.output, x_lo, out, args.altitudes)
 
@@ -199,7 +241,15 @@ def build_parser():
                     default=1, help="(not ported)")
     p3.add_argument("--mesh-ensemble", dest="mesh_ensemble", type=int,
                     default=1, help="(not ported)")
-    p3.add_argument("--jacobian", action="store_true", help="(not ported)")
+    p3.add_argument("--jacobian", action="store_true",
+                    help="also write d(tau,Lu,Ld)/d(T,H2O,O3) for the "
+                         "standard atmosphere (forward-mode autodiff; "
+                         "replaces the reference's 199-profile finite "
+                         "differences)")
+    p3.add_argument("--jacobian-wrt", dest="jacobian_wrt", default="T,1,3",
+                    help="comma list of Jacobian variables: 'T' and/or "
+                         "HITRAN molecule ids (default T,1,3 = the "
+                         "reference's 199-profile set)")
     p3.set_defaults(fn=cmd_tud)
     return p
 

@@ -24,11 +24,15 @@
 // reruns.
 //
 // Bound. Per column and layer the kernel reads 4 bytes of od per pass and
-// evaluates nMu + nA exponentials plus one expm1 per pass; at nA = 30 the
-// down pass's 30 exps (~10 FP32 instructions each without fast math)
-// dominate, so it is bound by FP32 issue, not by the 380 MB of od it reads
-// twice. The design keeps every carry in registers and recomputes the
-// Planck source per pass (one expm1 per layer) rather than storing it.
+// evaluates nMu + nA exponentials plus one expm1 per pass: at the
+// production shape 3.1e9 special-function exp2 (0.75 ms at 16 per clock
+// per SM) and ~4.3e10 FP32 lane-ops (~8 per expf, ~20 per expm1f, ~5 per
+// carry update: 0.64 ms at 67 TFLOP/s), against 0.15 ms for the 495 MB it
+// must move. So the special-function units bound it, FP32 issue close
+// behind, not the 380 MB of od it reads twice (chip_smoke.py phase 4
+// states the bound). The design keeps every carry in registers and
+// recomputes the Planck source per pass (one expm1 per layer) rather than
+// storing it.
 //
 // Planck uses expm1f: the Pallas kernel uses exp - 1 only because Mosaic has
 // no expm1 lowering (pallas_tud.py:40-43).

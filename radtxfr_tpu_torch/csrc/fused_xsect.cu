@@ -4,7 +4,10 @@
 // _xsect_fused_call, entry xsect_pallas(fused_layers=True)) in the modes the
 // production OD path runs: asym (guarded Humlicek asymptotic Re w), core
 // (Weideman - guarded asym inside |x| + y < 15) and mix (unguarded K/L blend
-// scaled by K + Y L). For each nu-tile i and layer l it computes
+// scaled by K + Y L); and in the mode the differentiable (Jacobian) OD path
+// runs as its primal: full (the single-pass hum1_wei blend, Weideman inside
+// |x| + y < 15 and the UNGUARDED asymptotic form outside,
+// pallas_xsect.py::_voigt_wr). For each nu-tile i and layer l it computes
 //     out[l, i*tile + k] = sum over the tile's packed line slots of
 //                          mask(u) * f_mode(u),
 //     u = (k_grid - k_line) - frac0   (int32 difference, then float),
@@ -28,16 +31,27 @@
 // while staging.
 //
 // Bound. Hand counts of pallas_xsect.py::_ops_per_eval at n_weideman = 16:
-// 28 lane-ops per evaluation for asym, 175 for core, 190 for mix. Each
-// evaluation reads two float4 from shared memory (amortised over the PPT
-// points of a thread: 2/PPT 16-byte loads) and nothing from device memory;
-// the staged constants cost ~6 scattered global loads per (slot, layer),
-// shared by the 256 points of the slice. So every mode is bound by FP32
-// issue (and, for asym, by the IEEE reciprocal's multi-instruction
+// 28 lane-ops per evaluation for asym, 175 for core, 190 for mix and 173
+// for full (_flops_per_eval(16, "full"), the XLA scheduler's estimate, says
+// 168). Those count both region forms, as the Pallas kernel evaluates both
+// and selects; here the region test branches per point, so an evaluation
+// outside |x| + y < 15 costs the asymptotic form only (about 31 lane-ops in
+// full: the 11-op prelude, the 3-op region test, the 16-op unguarded form
+// and the accumulate) and Weideman runs only where some lane of a warp lies
+// in the core. Each evaluation reads two float4 from shared memory
+// (amortised over the PPT points of a thread) and nothing from device
+// memory; the staged constants cost ~6 scattered global loads per (slot,
+// layer), shared by the 256 points of the slice. So every mode is bound by
+// FP32 issue (and, for asym, by the IEEE reciprocal's multi-instruction
 // sequence), not by bytes: registers hold the LC x PPT accumulators and the
 // inner loop touches no device memory. The branch on the window mask (and,
-// in core and mix, on the region) skips evaluations whose contribution the
-// Pallas kernel computes and then discards.
+// in core, mix and full, on the region) skips evaluations whose
+// contribution the Pallas kernel computes and then discards; chip_smoke.py
+// recounts the in-window and in-core evaluations of each pass on the host
+// and states the bound from them: per production member 2.69 ms for asym
+// (6.4e9 evaluations, a third of the plan's 2.1e10 slot-points), 0.12 ms
+// core and 0.11 ms mix, and 3.06 ms for the Jacobian's full primal (H100
+// 80GB HBM3 at 700 W, against 12.4, 2.3, 0.7 and 19.3 ms measured).
 //
 // Numerics follow the Pallas kernel op for op, in float32: dx*cte, g0*cte
 // and strength*(1/sqrt(pi)*cte) per (line, layer); IEEE division for every
@@ -61,7 +75,7 @@ constexpr float INV_SQRT_PI = static_cast<float>(0.5641895835477563);
 constexpr float REGION_BOUND = 15.0f;
 constexpr float GUARD = 0.25f;
 
-enum Mode { ASYM = 0, CORE = 1, MIX = 2 };
+enum Mode { ASYM = 0, CORE = 1, MIX = 2, FULL = 3 };
 
 // a = (ds, xs, wingu, scale), b = (y, 0.5 + y*y, -2*y, Y_mix)
 struct LineConst {
@@ -129,6 +143,18 @@ __device__ __forceinline__ float eval(float u, const LineConst& c,
     float re, im;
     weideman_w<false>(x, y, wei, n_wei, &re, &im);
     return c.a.w * (re - asym_re_w(x, c.b));
+  }
+  if (MODE == FULL) {
+    float re, im;
+    if (in_core) {
+      weideman_w<false>(x, y, wei, n_wei, &re, &im);
+    } else {
+      // unguarded asymptotic Re w (pallas_xsect.py::_voigt_wr, mode 'full')
+      const float dr = c.b.y - x * x;
+      const float di = c.b.z * x;
+      re = INV_SQRT_PI * (y * dr - x * di) * (1.0f / (dr * dr + di * di));
+    }
+    return c.a.w * re;
   }
   float K, Lw;
   if (in_core) {
@@ -281,6 +307,7 @@ extern "C" int radtxfr_fused_xsect(
     case ASYM: RADTXFR_LAUNCH(ASYM); break;
     case CORE: RADTXFR_LAUNCH(CORE); break;
     case MIX: RADTXFR_LAUNCH(MIX); break;
+    case FULL: RADTXFR_LAUNCH(FULL); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RADTXFR_LAUNCH

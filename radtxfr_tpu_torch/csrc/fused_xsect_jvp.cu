@@ -1,0 +1,339 @@
+// K3: the tangent of the layered Voigt line-shape accumulation (mode full)
+// for Hopper (sm_90a), for a batch of tangent directions.
+//
+// Replaces radtxfr_tpu/kernels/pallas_xsect.py::_make_fused_jvp_kernel
+// (launcher _xsect_fused_jvp_call, the JVP rule of xsect_fused_voigt_diff).
+// For each nu-tile i, layer l and direction d it computes
+//     tan[d, l, i*tile + k] = sum over the tile's packed line slots of
+//         mask(u) * (cs_d K - cgd_d (K + x Kx + y Ky) + cg0_d Ky - cds_d Kx)
+// with x = (u - ds) dx cte, y = gamma_0 cte, cte = sqrt(ln2)/gamma_d,
+// A = cte/sqrt(pi), sA = strength A and the per-(line, layer, direction)
+// coefficients
+//     cs = strength_t A,  cgd = gamma_d_t (sA/gamma_d),
+//     cg0 = gamma_0_t (sA cte),  cds = (shift0_t/dx) (sA dx cte),
+// JAX's grouping of the four terms (pallas_xsect.py:1271-1274). (K, Kx, Ky)
+// are the region-consistent derivatives of each approximation: Weideman
+// inside |x| + y < 15 (P' by a second Horner accumulator), the asymptotic
+// form's own derivative outside (pallas_xsect.py::_voigt_K_grads), not the
+// exact-Faddeeva identity, which cancels ~4 digits in the far wing. The
+// window mask -wingu < u <= wingu is held fixed: wing tangents are dropped.
+//
+// Shape. K1's (fused_xsect.cu): one CTA per (SPAN-point slice of a tile,
+// LC layers), one thread per PPT points, the tile's slots staged CH at a
+// time in shared memory, every output written once by one thread in a fixed
+// order (no atomics; the same inputs give bit-identical outputs). The JAX
+// vmap over tangent directions becomes a direction axis written out: each
+// (slot, point, layer) evaluates (K, Kx, Ky) once and each of up to ND
+// directions adds its own four coefficients, staged per (line, layer,
+// direction) as one float4, so a batch of 8 directions costs about one
+// Voigt-gradient evaluation, not 8. Registers hold LC x PPT x ND
+// accumulators (64 at ND = 8), hence the smaller tile than K1's (PPT 2).
+//
+// Skipping. A (layer, slot) pair whose coefficients are zero for every
+// direction contributes exactly zero (K is finite everywhere it is
+// evaluated), so it is skipped; the test is uniform across the CTA. Layers
+// with no non-zero tangent at all (lay_live, from the wrapper) are not
+// staged, and a CTA without a live layer writes zeros and returns. For the
+// one-hot layer directions of a Jacobian that leaves the CTAs of the
+// directions' own layers.
+//
+// Bound. Hand counts per evaluation (lane-ops as in
+// pallas_xsect.py::_ops_per_eval, a*b+c = 2): prelude and window 11, region
+// test 3, asymptotic (K, Kx, Ky) 36 or Weideman (K, Kx, Ky) 30 + 16 n_wei
+// (two complex Horner accumulators), K + x Kx + y Ky 4, and 8 per direction
+// (four products, three adds, the accumulate): 54 + 8 nd outside the core,
+// 48 + 16 n_wei + 8 nd inside (118 and 368 at n_wei = 16, nd = 8). FP32
+// issue bounds it, as K1: the inner loop reads shared memory only.
+// chip_smoke.py recounts the live in-window and in-core evaluations on the
+// host: 1.50 ms for a batch of 8 one-hot directions at the production
+// width (H100 80GB HBM3 at 700 W, against 9.9 ms measured).
+//
+// Numerics: float32, IEEE division (no --use_fast_math); nvcc contracts
+// a*b+c into FMA, a float-rounding-level difference from XLA.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 64;            // threads per CTA
+constexpr int PPT = 2;                 // grid points per thread
+constexpr int SPAN = THREADS * PPT;    // points per CTA
+constexpr int LC = 4;                  // layers per CTA
+constexpr int CH = 32;                 // line slots staged per step
+constexpr int ND_MAX = 8;              // directions per launch at most
+constexpr int MAX_WEI = 32;            // Weideman terms at most
+
+constexpr float SQRT_LN2 = static_cast<float>(0.8325546111576977);
+constexpr float INV_SQRT_PI = static_cast<float>(0.5641895835477563);
+constexpr float REGION_BOUND = 15.0f;
+
+// a = (ds, xs, wingu, live), b = (y, 0.5 + y*y, -2*y, 0)
+struct LineConst {
+  float4 a;
+  float4 b;
+};
+
+struct KGrads {
+  float K, Kx, Ky;
+};
+
+// (K, dK/dx, dK/dy) of the unguarded asymptotic form
+// (pallas_xsect.py::_asym_K_grads).
+__device__ __forceinline__ KGrads asym_k_grads(float x, float y,
+                                               const float4& b) {
+  const float dr = b.y - x * x;        // 0.5 + y^2 - x^2
+  const float di = b.z * x;            // -2 x y
+  const float inv = 1.0f / (dr * dr + di * di);
+  KGrads g;
+  g.K = INV_SQRT_PI * (y * dr - x * di) * inv;
+  const float nr = 0.5f + x * x - y * y;
+  const float ni = -di;
+  const float d2r = dr * dr - di * di;
+  const float d2i = 2.0f * dr * di;
+  const float inv2 = inv * inv;
+  const float mr = nr * d2r + ni * d2i;
+  const float mi = ni * d2r - nr * d2i;
+  g.Kx = INV_SQRT_PI * mi * inv2;
+  g.Ky = INV_SQRT_PI * mr * inv2;
+  return g;
+}
+
+// (K, dK/dx, dK/dy) of the Weideman series (|x| + y < 15;
+// pallas_xsect.py::_weideman_K_grads); wei = [L, a_0 .. a_{n-1}].
+__device__ __forceinline__ KGrads weideman_k_grads(float x, float y,
+                                                   const float* wei,
+                                                   int n_wei) {
+  const float L = wei[0];
+  const float er = L + y, ei = -x;
+  const float inv_e = 1.0f / (er * er + ei * ei);
+  const float ier = er * inv_e, iei = -ei * inv_e;
+  const float nr = L - y, ni = x;
+  const float zr = (nr * er + ni * ei) * inv_e;
+  const float zi = (ni * er - nr * ei) * inv_e;
+  float pr = wei[1], pi = 0.0f, qr = 0.0f, qi = 0.0f;
+  for (int k = 2; k <= n_wei; ++k) {
+    const float tqr = qr * zr - qi * zi + pr;
+    qi = qr * zi + qi * zr + pi;
+    qr = tqr;
+    const float tpr = pr * zr - pi * zi + wei[k];
+    pi = pr * zi + pi * zr;
+    pr = tpr;
+  }
+  const float i2r = ier * ier - iei * iei, i2i = 2.0f * ier * iei;
+  const float i3r = i2r * ier - i2i * iei, i3i = i2r * iei + i2i * ier;
+  const float i4r = i2r * i2r - i2i * i2i, i4i = 2.0f * i2r * i2i;
+  const float c4 = 4.0f * L;
+  const float Qr = c4 * (qr * i4r - qi * i4i) + 4.0f * (pr * i3r - pi * i3i) +
+                   INV_SQRT_PI * i2r;
+  const float Qi = c4 * (qr * i4i + qi * i4r) + 4.0f * (pr * i3i + pi * i3r) +
+                   INV_SQRT_PI * i2i;
+  KGrads g;
+  g.K = 2.0f * (pr * i2r - pi * i2i) + INV_SQRT_PI * ier;
+  g.Kx = -Qi;
+  g.Ky = -Qr;
+  return g;
+}
+
+template <int ND>
+__global__ void __launch_bounds__(THREADS)
+fused_xsect_jvp_kernel(const int* __restrict__ starts,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ k_line,
+                       const float* __restrict__ frac0,
+                       const int* __restrict__ line,
+                       const float* __restrict__ wcap,
+                       const int* __restrict__ lay_idx, int n_lay_call,
+                       const int* __restrict__ lay_live,
+                       const float* __restrict__ shift0,
+                       const float* __restrict__ strength,
+                       const float* __restrict__ gamma_d,
+                       const float* __restrict__ gamma_0,
+                       const float* __restrict__ wing,
+                       const float* __restrict__ shift0_t,
+                       const float* __restrict__ strength_t,
+                       const float* __restrict__ gamma_d_t,
+                       const float* __restrict__ gamma_0_t, int n_dir,
+                       int n_lay, int n_lines,
+                       const float* __restrict__ wei_g, int n_wei, int tile,
+                       int block, int sub_per_tile, int n_out, float dx,
+                       float* __restrict__ out) {
+  __shared__ LineConst s_c[LC][CH];
+  __shared__ float4 s_t[LC][CH][ND];
+  __shared__ int s_k[CH];
+  __shared__ float s_f[CH];
+  __shared__ float s_wei[MAX_WEI + 1];
+  __shared__ int s_live[LC];
+
+  const int tid = threadIdx.x;
+  const int tile_i = blockIdx.x / sub_per_tile;
+  const int sub = blockIdx.x - tile_i * sub_per_tile;
+  const int l0 = blockIdx.y * LC;
+  const int nl = min(LC, n_lay_call - l0);
+
+  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
+  if (tid < LC) s_live[tid] = tid < nl ? lay_live[lay_idx[l0 + tid]] : 0;
+
+  int kg[PPT];
+  bool live[PPT];
+#pragma unroll
+  for (int p = 0; p < PPT; ++p) {
+    const int kloc = sub * SPAN + p * THREADS + tid;
+    kg[p] = tile_i * tile + kloc;
+    live[p] = kloc < tile && kg[p] < n_out;
+  }
+
+  float acc[LC][PPT][ND];
+#pragma unroll
+  for (int l = 0; l < LC; ++l)
+#pragma unroll
+    for (int p = 0; p < PPT; ++p)
+#pragma unroll
+      for (int d = 0; d < ND; ++d) acc[l][p][d] = 0.0f;
+
+  __syncthreads();
+  bool any_live = false;
+#pragma unroll
+  for (int l = 0; l < LC; ++l) any_live |= s_live[l] != 0;
+
+  const int slot0 = starts[tile_i] * block;
+  const int n_slots = any_live ? counts[tile_i] * block : 0;
+  for (int c0 = 0; c0 < n_slots; c0 += CH) {
+    const int nc = min(CH, n_slots - c0);
+    __syncthreads();   // the previous chunk is consumed
+    for (int j = tid; j < nc; j += THREADS) {
+      s_k[j] = k_line[slot0 + c0 + j];
+      s_f[j] = frac0[slot0 + c0 + j];
+    }
+    for (int i = tid; i < nl * nc; i += THREADS) {
+      const int l = i / nc;
+      const int j = i - l * nc;
+      const int s = slot0 + c0 + j;
+      const int g = line[s];
+      LineConst c;
+      bool pair_live = false;
+      if (g >= 0 && s_live[l]) {
+        const size_t off = static_cast<size_t>(lay_idx[l0 + l]) * n_lines + g;
+        const float gd = gamma_d[off];
+        const float cte = SQRT_LN2 / gd;
+        const float y = gamma_0[off] * cte;
+        const float xs = dx * cte;
+        const float A = INV_SQRT_PI * cte;
+        const float sA = strength[off] * A;
+        const float k_gd = sA / gd, k_g0 = sA * cte, k_ds = sA * xs;
+        c.a = make_float4(shift0[off] / dx, xs, fminf(wing[off], wcap[s]) / dx,
+                          0.0f);
+        c.b = make_float4(y, 0.5f + y * y, -2.0f * y, 0.0f);
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (d < n_dir) {
+            const size_t toff =
+                static_cast<size_t>(d) * n_lay * n_lines + off;
+            t = make_float4(strength_t[toff] * A, gamma_d_t[toff] * k_gd,
+                            gamma_0_t[toff] * k_g0,
+                            (shift0_t[toff] / dx) * k_ds);
+            pair_live |= t.x != 0.0f || t.y != 0.0f || t.z != 0.0f ||
+                         t.w != 0.0f;
+          }
+          s_t[l][j][d] = t;
+        }
+      } else {
+        // padding slot or dead layer: never evaluated
+        c.a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        c.b = make_float4(1.0f, 1.5f, -2.0f, 0.0f);
+      }
+      c.a.w = pair_live ? 1.0f : 0.0f;
+      s_c[l][j] = c;
+    }
+    __syncthreads();
+    for (int j = 0; j < nc; ++j) {
+      const int kl = s_k[j];
+      const float f0 = s_f[j];
+      float u[PPT];
+#pragma unroll
+      for (int p = 0; p < PPT; ++p) u[p] = static_cast<float>(kg[p] - kl) - f0;
+#pragma unroll
+      for (int l = 0; l < LC; ++l) {
+        if (l >= nl) continue;
+        const LineConst c = s_c[l][j];
+        if (c.a.w == 0.0f) continue;   // uniform across the CTA
+#pragma unroll
+        for (int p = 0; p < PPT; ++p) {
+          if (!(u[p] > -c.a.z && u[p] <= c.a.z)) continue;
+          const float x = (u[p] - c.a.x) * c.a.y;
+          const float y = c.b.x;
+          const KGrads g = fabsf(x) + y < REGION_BOUND
+                               ? weideman_k_grads(x, y, s_wei, n_wei)
+                               : asym_k_grads(x, y, c.b);
+          const float G = g.K + x * g.Kx + y * g.Ky;
+#pragma unroll
+          for (int d = 0; d < ND; ++d) {
+            const float4 t = s_t[l][j][d];
+            acc[l][p][d] += t.x * g.K - t.y * G + t.z * g.Ky - t.w * g.Kx;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    if (d >= n_dir) break;
+#pragma unroll
+    for (int l = 0; l < LC; ++l) {
+      if (l >= nl) break;
+#pragma unroll
+      for (int p = 0; p < PPT; ++p)
+        if (live[p])
+          out[(static_cast<size_t>(d) * n_lay_call + l0 + l) * n_out + kg[p]] =
+              acc[l][p][d];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int radtxfr_fused_xsect_jvp(
+    const void* starts, const void* counts, const void* k_line,
+    const void* frac0, const void* line, const void* wcap,
+    const void* lay_idx, int n_lay_call, const void* lay_live,
+    const void* shift0, const void* strength, const void* gamma_d,
+    const void* gamma_0, const void* wing, const void* shift0_t,
+    const void* strength_t, const void* gamma_d_t, const void* gamma_0_t,
+    int n_dir, int n_lay, int n_lines, const void* wei, int n_wei, int tile,
+    int block, int n_tiles, int n_out, double dx, void* out, void* stream) {
+  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
+      n_dir > ND_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
+  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
+                  (n_lay_call + LC - 1) / LC);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RADTXFR_LAUNCH(ND)                                                     \
+  fused_xsect_jvp_kernel<ND><<<grid, THREADS, 0, s>>>(                         \
+      static_cast<const int*>(starts), static_cast<const int*>(counts),        \
+      static_cast<const int*>(k_line), static_cast<const float*>(frac0),       \
+      static_cast<const int*>(line), static_cast<const float*>(wcap),          \
+      static_cast<const int*>(lay_idx), n_lay_call,                            \
+      static_cast<const int*>(lay_live), static_cast<const float*>(shift0),    \
+      static_cast<const float*>(strength), static_cast<const float*>(gamma_d), \
+      static_cast<const float*>(gamma_0), static_cast<const float*>(wing),     \
+      static_cast<const float*>(shift0_t),                                     \
+      static_cast<const float*>(strength_t),                                   \
+      static_cast<const float*>(gamma_d_t),                                    \
+      static_cast<const float*>(gamma_0_t), n_dir, n_lay, n_lines,             \
+      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out, \
+      static_cast<float>(dx), static_cast<float*>(out))
+  if (n_dir == 1) {
+    RADTXFR_LAUNCH(1);
+  } else if (n_dir == 2) {
+    RADTXFR_LAUNCH(2);
+  } else if (n_dir <= 4) {
+    RADTXFR_LAUNCH(4);
+  } else {
+    RADTXFR_LAUNCH(8);
+  }
+#undef RADTXFR_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

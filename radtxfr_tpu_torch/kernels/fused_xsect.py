@@ -1,23 +1,44 @@
-"""Bucketed lines x wavenumbers line-shape accumulation (K1).
+"""Bucketed lines x wavenumbers line-shape accumulation (K1) and its
+forward-mode derivative (K3).
 
 Counterpart of ``radtxfr_tpu/kernels/pallas_xsect.py`` for the production
-OD path: the host planning (:class:`UniformGrid`, :class:`BucketPlan`,
-:func:`auto_block`, :func:`plan_buckets_packed`, NumPy as in JAX) and the
-layer-fused kernel ``_make_fused_kernel`` in its modes
+and Jacobian OD paths: the host planning (:class:`UniformGrid`,
+:class:`BucketPlan`, :func:`auto_block`, :func:`plan_buckets_packed`, NumPy
+as in JAX), the layer-fused kernel ``_make_fused_kernel`` in its modes
 
 * ``asym`` — the guarded Humlicek asymptotic Re w everywhere in the window
   (the cheap far-wing pass);
 * ``core`` — (Weideman - guarded asym) inside hum1_wei's |x| + y < 15, zero
   outside, so asym + core equals the single-pass blend pointwise;
 * ``mix`` — the unguarded K/L blend scaled by K + Y L (first-order
-  Rosenkranz line mixing).
+  Rosenkranz line mixing);
+* ``full`` — the single-pass blend (Weideman inside |x| + y < 15, the
+  unguarded asymptotic form outside): the differentiable path's primal;
 
-:func:`xsect_fused` launches the hand-written CUDA kernel
-(``csrc/fused_xsect.cu``) for CUDA tensors and runs the plain PyTorch
-version :func:`xsect_fused_plain` for CPU tensors; :data:`LAUNCHES` counts
-kernel launches per mode. Both read the packed plan's per-slot line index
-(:class:`DevicePlan`) and index the (nLay, L) parameter rows directly,
-instead of materialising packed (n_blocks, nLay, block) copies.
+and the tangent kernel ``_make_fused_jvp_kernel`` (K3), the directional
+derivative of the ``full`` pass w.r.t. (shift0, strength, gamma_d, gamma_0)
+from the region-consistent analytic derivatives of each approximation
+(``pallas_xsect.py:469-559``), for a batch of tangent directions at once.
+
+:func:`xsect_fused` and :func:`xsect_fused_jvp` launch the hand-written
+CUDA kernels (``csrc/fused_xsect.cu``, ``csrc/fused_xsect_jvp.cu``) for
+CUDA tensors and run the plain PyTorch versions :func:`xsect_fused_plain`
+and :func:`xsect_fused_jvp_plain` for CPU tensors; :data:`LAUNCHES` counts
+kernel launches per mode (and ``"jvp"``). All read the packed plan's
+per-slot line index (:class:`DevicePlan`) and index the (nLay, L) parameter
+rows directly, instead of materialising packed (n_blocks, nLay, block)
+copies.
+
+:func:`xsect_fused_diff` is the differentiable ``full`` pass, the
+counterpart of ``xsect_fused_voigt_diff`` (a ``jax.custom_jvp``): a
+:class:`torch.autograd.Function` in the ``setup_context`` form, for
+``torch.func.jvp`` (and ``torch.func.vmap`` over it, as ``jacfwd`` does);
+its primal is K1 ``full`` and its ``jvp`` is K3, whose ``vmap`` rule turns
+a batch of tangent directions into K3's direction axis. The tensors the
+``jvp`` needs are kept with ``ctx.save_for_forward``, so dual tensors
+(``torch.autograd.forward_ad``) work as well. Wing-cutoff tangents are
+dropped: the window mask is piecewise constant, as in the reference's
+finite differences.
 
 Grid-index arithmetic (``pallas_xsect.py:16-20``): a point's distance from
 a line centre is (k_grid - k_line) in int32, converted to float, minus the
@@ -35,17 +56,19 @@ import math
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, resolve_device
 from .._build import check_tensor
 from .faddeeva import REGION_BOUND, weideman_coeffs
 
 __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
            "plan_buckets_packed", "device_plan", "xsect_fused",
-           "xsect_fused_plain", "LAUNCHES", "MODES"]
+           "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
+           "xsect_fused_diff", "LAUNCHES", "MODES"]
 
-MODES = ("asym", "core", "mix")
-#: kernel launches per mode since the last reset (plain runs not counted)
-LAUNCHES = {m: 0 for m in MODES}
+MODES = ("asym", "core", "mix", "full")
+#: kernel launches per K1 mode and of K3 ("jvp") since the last reset
+#: (plain runs not counted)
+LAUNCHES = {**{m: 0 for m in MODES}, "jvp": 0}
 
 _SQRT_LN2 = math.sqrt(math.log(2.0))
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
@@ -55,6 +78,8 @@ _GUARD = 0.25
 _MAX_WEIDEMAN = 32
 #: (layer, slot, point) elements the plain version evaluates per step
 _PLAIN_MAX_ELEMS = 1 << 23
+#: tangent directions one K3 launch carries at most (csrc: ND_MAX)
+_JVP_MAX_DIRS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,14 +244,15 @@ class DevicePlan:
 
 def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
                 dtype=torch.float32) -> DevicePlan:
-    """Move ``plan`` to ``device``; ``line_idx`` maps the plan's line list
-    (the call's lines) to rows of the full (nLay, L) parameter arrays, whose
-    float64 host centres are ``nu0``.
+    """Move ``plan`` to ``device`` (None: the card); ``line_idx`` maps the
+    plan's line list (the call's lines) to rows of the full (nLay, L)
+    parameter arrays, whose float64 host centres are ``nu0``.
 
     ``frac0`` is the plan's float32 fraction for float32 runs; a float64 run
     recomputes it from ``nu0`` in float64, so its line positions carry no
     float32 rounding (~3e-8 grid units) either.
     """
+    device = resolve_device(device)
     line_idx = np.asarray(line_idx, dtype=np.int64)
     g = plan.gather.reshape(-1)
     valid = g >= 0
@@ -290,6 +316,9 @@ def _mode_value(mode, x, y, ymix, a, L):
     """Re w (or K + Y L) of ``mode`` before the line scale."""
     if mode == "asym":
         return _asym_re_w(x, y, _GUARD)
+    if mode == "full":
+        return _select_core(x, y, lambda xc, yc: _weideman_w(xc, yc, a, L),
+                            lambda xf, yf: (_asym_re_w(xf, yf),))[0]
     in_core = (torch.abs(x) + y) < REGION_BOUND
     Kw, Lw = _weideman_w(x, y, a, L)
     if mode == "core":
@@ -303,10 +332,77 @@ def _mode_value(mode, x, y, ymix, a, L):
             + ymix * torch.where(in_core, Lw, La))
 
 
+def _asym_k_grads(x, y):
+    """(K, dK/dx, dK/dy) of the unguarded asymptotic form: the derivative
+    of the approximation (``pallas_xsect.py::_asym_K_grads``), not the
+    exact-Faddeeva identity, which cancels ~4 digits in the far wing."""
+    dr = 0.5 + y * y - x * x
+    di = -2.0 * x * y
+    inv = 1.0 / (dr * dr + di * di)
+    K = _INV_SQRT_PI * (y * dr - x * di) * inv
+    nr = 0.5 + x * x - y * y
+    ni = -di
+    d2r = dr * dr - di * di
+    d2i = 2.0 * dr * di
+    inv2 = inv * inv
+    mr = nr * d2r + ni * d2i
+    mi = ni * d2r - nr * d2i
+    return K, _INV_SQRT_PI * mi * inv2, _INV_SQRT_PI * mr * inv2
+
+
+def _weideman_k_grads(x, y, a, L):
+    """(K, dK/dx, dK/dy) of the Weideman series, P' by a second Horner
+    accumulator (``pallas_xsect.py::_weideman_K_grads``)."""
+    er, ei = L + y, -x
+    inv_e = 1.0 / (er * er + ei * ei)
+    ier, iei = er * inv_e, -ei * inv_e
+    nr, ni = L - y, x
+    zr = (nr * er + ni * ei) * inv_e
+    zi = (ni * er - nr * ei) * inv_e
+    pr = torch.full_like(zr, float(a[0]))
+    pi_ = torch.zeros_like(zr)
+    qr = torch.zeros_like(zr)
+    qi = torch.zeros_like(zr)
+    for c in a[1:]:
+        qr, qi = qr * zr - qi * zi + pr, qr * zi + qi * zr + pi_
+        pr, pi_ = pr * zr - pi_ * zi + float(c), pr * zi + pi_ * zr
+    i2r, i2i = ier * ier - iei * iei, 2.0 * ier * iei
+    i3r, i3i = i2r * ier - i2i * iei, i2r * iei + i2i * ier
+    i4r, i4i = i2r * i2r - i2i * i2i, 2.0 * i2r * i2i
+    K = 2.0 * (pr * i2r - pi_ * i2i) + _INV_SQRT_PI * ier
+    c4 = 4.0 * L
+    Qr = (c4 * (qr * i4r - qi * i4i) + 4.0 * (pr * i3r - pi_ * i3i)
+          + _INV_SQRT_PI * i2r)
+    Qi = (c4 * (qr * i4i + qi * i4r) + 4.0 * (pr * i3i + pi_ * i3r)
+          + _INV_SQRT_PI * i2i)
+    return K, -Qi, -Qr
+
+
+def _select_core(x, y, core_fn, far_fn):
+    """The hum1_wei region blend: ``core_fn`` where |x| + y < 15, ``far_fn``
+    elsewhere, each returning a tuple of tensors. ``core_fn`` runs on the
+    in-core elements only (the forms are elementwise, so the values are
+    those of a ``torch.where`` over both, at a fraction of the work)."""
+    y = y.expand_as(x)
+    in_core = (torch.abs(x) + y) < REGION_BOUND
+    out = far_fn(x, y)
+    for f, c in zip(out, core_fn(x[in_core], y[in_core])):
+        f[in_core] = c
+    return out
+
+
+def _voigt_k_grads(x, y, a, L):
+    """(K, dK/dx, dK/dy) with the hum1_wei region blend ('full' mode)."""
+    return _select_core(x, y,
+                        lambda xc, yc: _weideman_k_grads(xc, yc, a, L),
+                        _asym_k_grads)
+
+
 def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
                     ymix, mode):
     """(nl, n_slots) per-(layer, slot) line constants, padding slots filled
-    as the Pallas wrapper pads them (strength 0, gamma 1, wing 0)."""
+    as the Pallas wrapper pads them (strength 0, gamma 1, wing 0); ``gd``
+    and ``cte`` only feed the tangent's coefficients."""
     lay = lay_idx.long()
     valid = dplan.line >= 0
     safe = torch.where(valid, dplan.line, 0).long()
@@ -320,6 +416,7 @@ def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
     gd = take(gamma_d, 1.0)
     cte = _SQRT_LN2 / gd
     return dict(
+        gd=gd, cte=cte,
         ds=take(shift0 / dx, 0.0),
         xs=dx * cte,
         y=take(gamma_0, 1.0) * cte,
@@ -329,6 +426,27 @@ def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
             torch.tensor(0.0, dtype=dt, device=wing.device)),
         ymix=take(ymix, 1.0) if mode == "mix" else None,
     )
+
+
+def _plain_steps(dplan, n_rows, dt):
+    """The plain versions' walk over a plan: for each block position j, the
+    tiles with more than j blocks, in chunks of about ``_PLAIN_MAX_ELEMS``
+    (row, slot, point) elements; yields (tile indices, (n_t, block) slot
+    indices, (1, n_t, block, tile) u in grid units)."""
+    dev, tile, block = dplan.k_line.device, dplan.tile, dplan.block
+    kk = torch.arange(tile, dtype=torch.int32, device=dev)
+    bb = torch.arange(block, dtype=torch.int64, device=dev)
+    counts = dplan.counts.long()
+    chunk = max(1, _PLAIN_MAX_ELEMS // (n_rows * block * tile))
+    for j in range(dplan.max_blocks):
+        tiles = torch.nonzero(counts > j).reshape(-1)
+        for lo in range(0, tiles.numel(), chunk):
+            t_i = tiles[lo:lo + chunk]
+            slots = (dplan.starts.long()[t_i] + j)[:, None] * block + bb
+            k_grid = (t_i.to(torch.int32)[:, None] * tile + kk)[:, None, :]
+            rel = (k_grid - dplan.k_line[slots][:, :, None]).to(dt)
+            u = rel - dplan.frac0.to(dt)[slots][:, :, None]
+            yield t_i, slots, u[None]
 
 
 def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
@@ -349,27 +467,63 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                         wing, ymix, mode)
     nl = c["xs"].shape[0]
     L_w, a_w = weideman_coeffs(n_weideman)
-    tile, block = dplan.tile, dplan.block
-    out = torch.zeros((nl, dplan.n_tiles, tile), dtype=dt, device=dev)
-    kk = torch.arange(tile, dtype=torch.int32, device=dev)
-    bb = torch.arange(block, dtype=torch.int64, device=dev)
-    counts = dplan.counts.long()
-    chunk = max(1, _PLAIN_MAX_ELEMS // (nl * block * tile))
-    for j in range(dplan.max_blocks):
-        tiles = torch.nonzero(counts > j).reshape(-1)
-        for lo in range(0, tiles.numel(), chunk):
-            t_i = tiles[lo:lo + chunk]
-            slots = (dplan.starts.long()[t_i] + j)[:, None] * block + bb
-            k_grid = (t_i.to(torch.int32)[:, None] * tile + kk)[:, None, :]
-            rel = (k_grid - dplan.k_line[slots][:, :, None]).to(dt)
-            u = (rel - dplan.frac0.to(dt)[slots][:, :, None])[None]
-            s = {k: None if v is None else v[:, slots][..., None]
-                 for k, v in c.items()}
-            val = _mode_value(mode, (u - s["ds"]) * s["xs"], s["y"],
-                              s["ymix"], a_w, L_w)
-            mask = (u > -s["wingu"]) & (u <= s["wingu"])
-            out[:, t_i] += torch.where(mask, s["scale"] * val, 0.0).sum(dim=2)
+    out = torch.zeros((nl, dplan.n_tiles, dplan.tile), dtype=dt, device=dev)
+    for t_i, slots, u in _plain_steps(dplan, nl, dt):
+        s = {k: None if c[k] is None else c[k][:, slots][..., None]
+             for k in ("ds", "xs", "y", "scale", "wingu", "ymix")}
+        val = _mode_value(mode, (u - s["ds"]) * s["xs"], s["y"], s["ymix"],
+                          a_w, L_w)
+        mask = (u > -s["wingu"]) & (u <= s["wingu"])
+        out[:, t_i] += torch.where(mask, s["scale"] * val, 0.0).sum(dim=2)
     return out.reshape(nl, -1)[:, :dplan.n_out]
+
+
+def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
+                          gamma_d, gamma_0, wing, shift0_t, strength_t,
+                          gamma_d_t, gamma_0_t,
+                          n_weideman: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of the tangent kernel K3, in the parameters'
+    dtype on their device: the directional derivative of the ``full`` pass
+    for each of nd directions.
+
+    The primal parameters are (nLay, L) rows as in :func:`xsect_fused_plain`;
+    the tangents ``*_t`` are (nd, nLay, L). With A = cte/sqrt(pi), cte =
+    sqrt(ln2)/gamma_d, sA = strength A and (K, Kx, Ky) the region-consistent
+    Voigt value and derivatives at (x, y), each in-window slot adds
+    s_t A K - gd_t (sA/gd)(K + x Kx + y Ky) + g0_t (sA cte) Ky
+    - ds_t (sA dx cte) Kx, ds_t = shift0_t/dx (JAX's grouping,
+    ``pallas_xsect.py:1271-1274``). Returns (nd, len(lay_idx), n_out).
+    """
+    dt, dev = strength.dtype, strength.device
+    c = _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0,
+                        wing, None, "full")
+    nd, nl = strength_t.shape[0], c["xs"].shape[0]
+    lay = lay_idx.long()
+    valid = dplan.line >= 0
+    safe = torch.where(valid, dplan.line, 0).long()
+
+    def take_t(a):
+        return torch.where(valid, a[:, lay][:, :, safe],
+                           torch.zeros((), dtype=dt, device=dev))
+
+    cte, gd, sA = c["cte"], c["gd"], c["scale"]
+    co = dict(s=take_t(strength_t) * (_INV_SQRT_PI * cte),
+              gd=take_t(gamma_d_t) * (sA / gd),
+              g0=take_t(gamma_0_t) * (sA * cte),
+              ds=take_t(shift0_t / dplan.dx) * (sA * c["xs"]))
+    L_w, a_w = weideman_coeffs(n_weideman)
+    out = torch.zeros((nd, nl, dplan.n_tiles, dplan.tile), dtype=dt,
+                      device=dev)
+    for t_i, slots, u in _plain_steps(dplan, nl * (nd + 1), dt):
+        s = {k: c[k][:, slots][..., None] for k in ("ds", "xs", "y", "wingu")}
+        x, y = (u - s["ds"]) * s["xs"], s["y"]
+        K, Kx, Ky = _voigt_k_grads(x, y, a_w, L_w)
+        G = K + x * Kx + y * Ky
+        t = {k: v[:, :, slots][..., None] for k, v in co.items()}
+        tan = t["s"] * K - t["gd"] * G + t["g0"] * Ky - t["ds"] * Kx
+        mask = (u > -s["wingu"]) & (u <= s["wingu"])
+        out[:, :, t_i] += torch.where(mask, tan, 0.0).sum(dim=3)
+    return out.reshape(nd, nl, -1)[:, :, :dplan.n_out]
 
 
 # --------------------------------------------------------------------------
@@ -383,30 +537,14 @@ def _weideman_table(n: int, device) -> torch.Tensor:
     return torch.tensor([L, *a], dtype=torch.float32, device=device)
 
 
-def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
-                gamma_0, wing, ymix=None, mode: str = "asym",
-                n_weideman: int = 16) -> torch.Tensor:
-    """One fused line-shape pass: (len(lay_idx), n_out) float32.
-
-    CPU tensors run :func:`xsect_fused_plain`. CUDA tensors launch the
-    CUDA kernel on the current stream; anything it does not take (another
-    dtype than float32, non-contiguous or mismatched shapes, mixed devices)
-    raises, as does a non-zero CUDA error from the launch.
-    """
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "mix" and ymix is None:
-        raise ValueError("mode 'mix' needs the mixing coefficients ymix")
-    if strength.device.type == "cpu":
-        return xsect_fused_plain(dplan, lay_idx, shift0, strength, gamma_d,
-                                 gamma_0, wing, ymix, mode, n_weideman)
+def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
+    """Raise unless the arguments are what the kernels' raw pointers
+    assume: float32 (nLay, L) parameters, int32 layer indices and a
+    consistent plan, all on one CUDA device."""
+    strength = params["strength"]
     if strength.device.type != "cuda":
         raise ValueError(f"unsupported device {strength.device}")
     dev = strength.device
-    params = dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
-                  gamma_0=gamma_0, wing=wing)
-    if mode == "mix":
-        params["ymix"] = ymix
     if strength.dim() != 2:
         raise ValueError(f"strength must be (nLay, L), got "
                          f"{tuple(strength.shape)}")
@@ -428,6 +566,31 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         raise ValueError("the plan's tiles do not cover n_out points")
     if not 1 <= n_weideman <= _MAX_WEIDEMAN:
         raise ValueError(f"n_weideman must be in [1, {_MAX_WEIDEMAN}]")
+
+
+def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
+                gamma_0, wing, ymix=None, mode: str = "asym",
+                n_weideman: int = 16) -> torch.Tensor:
+    """One fused line-shape pass: (len(lay_idx), n_out) float32.
+
+    CPU tensors run :func:`xsect_fused_plain`. CUDA tensors launch the
+    CUDA kernel on the current stream; anything it does not take (another
+    dtype than float32, non-contiguous or mismatched shapes, mixed devices)
+    raises, as does a non-zero CUDA error from the launch.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "mix" and ymix is None:
+        raise ValueError("mode 'mix' needs the mixing coefficients ymix")
+    if strength.device.type == "cpu":
+        return xsect_fused_plain(dplan, lay_idx, shift0, strength, gamma_d,
+                                 gamma_0, wing, ymix, mode, n_weideman)
+    params = dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
+                  gamma_0=gamma_0, wing=wing)
+    if mode == "mix":
+        params["ymix"] = ymix
+    _check_call(dplan, lay_idx, params, n_weideman)
+    dev = strength.device
     n_lay_call = lay_idx.numel()
     n_lines = strength.shape[1]
     out = torch.empty((n_lay_call, dplan.n_out), dtype=torch.float32,
@@ -450,3 +613,147 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                            f"CUDA error {err}")
     LAUNCHES[mode] += 1
     return out
+
+
+def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
+                    gamma_0, wing, shift0_t, strength_t, gamma_d_t,
+                    gamma_0_t, n_weideman: int = 16) -> torch.Tensor:
+    """The tangent of one ``full`` pass for nd directions:
+    (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
+
+    CPU tensors run :func:`xsect_fused_jvp_plain`. CUDA tensors launch the
+    tangent kernel (``csrc/fused_xsect_jvp.cu``) once per
+    ``_JVP_MAX_DIRS`` directions on the current stream; anything it does
+    not take raises, as does a non-zero CUDA error from a launch.
+    """
+    if strength.device.type == "cpu":
+        return xsect_fused_jvp_plain(dplan, lay_idx, shift0, strength,
+                                     gamma_d, gamma_0, wing, shift0_t,
+                                     strength_t, gamma_d_t, gamma_0_t,
+                                     n_weideman)
+    _check_call(dplan, lay_idx, dict(shift0=shift0, strength=strength,
+                                     gamma_d=gamma_d, gamma_0=gamma_0,
+                                     wing=wing), n_weideman)
+    dev = strength.device
+    tangents = dict(shift0_t=shift0_t, strength_t=strength_t,
+                    gamma_d_t=gamma_d_t, gamma_0_t=gamma_0_t)
+    nd = strength_t.shape[0] if strength_t.dim() == 3 else -1
+    for name, t in tangents.items():
+        check_tensor(name, t, torch.float32, dev,
+                     (nd,) + tuple(strength.shape))
+    n_lay_call = lay_idx.numel()
+    n_lay, n_lines = strength.shape
+    out = torch.empty((nd, n_lay_call, dplan.n_out), dtype=torch.float32,
+                      device=dev)
+    if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
+        return out
+    wei = _weideman_table(n_weideman, dev)
+    # layers with any non-zero tangent: a CTA whose layers have none writes
+    # zeros without staging or evaluating anything
+    live = torch.zeros(n_lay, dtype=torch.bool, device=dev)
+    for t in tangents.values():
+        live |= (t != 0).any(dim=2).any(dim=0)
+    live = live.to(torch.int32)
+    per_dir = n_lay * n_lines * 4
+    for d0 in range(0, nd, _JVP_MAX_DIRS):
+        n = min(_JVP_MAX_DIRS, nd - d0)
+        err = _build.library().radtxfr_fused_xsect_jvp(
+            dplan.starts.data_ptr(), dplan.counts.data_ptr(),
+            dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
+            dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
+            n_lay_call, live.data_ptr(), shift0.data_ptr(),
+            strength.data_ptr(), gamma_d.data_ptr(), gamma_0.data_ptr(),
+            wing.data_ptr(), *(t.data_ptr() + d0 * per_dir
+                               for t in tangents.values()),
+            n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
+            dplan.block, dplan.n_tiles, dplan.n_out, dplan.dx,
+            out[d0].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fused_xsect_jvp kernel launch failed with "
+                               f"CUDA error {err}")
+        LAUNCHES["jvp"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# the differentiable 'full' pass (torch.func.jvp / vmap)
+# --------------------------------------------------------------------------
+
+def _unbatched(name, in_dims):
+    if any(d is not None for d in in_dims):
+        raise NotImplementedError(
+            f"{name}: vmap over the line parameters (a batch of states) is "
+            "not supported; batch tangent directions instead")
+
+
+class _VoigtTangent(torch.autograd.Function):
+    """K3 as a function of the primal parameters and one direction's
+    tangents; its ``vmap`` rule launches K3 once for a batch of directions.
+    """
+
+    @staticmethod
+    def forward(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
+                shift0_t, strength_t, gamma_d_t, gamma_0_t, n_weideman):
+        tans = (t[None] for t in (shift0_t, strength_t, gamma_d_t, gamma_0_t))
+        return xsect_fused_jvp(dplan, lay_idx, shift0, strength, gamma_d,
+                               gamma_0, wing, *tans, n_weideman)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, dplan, lay_idx, shift0, strength, gamma_d,
+             gamma_0, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t,
+             n_weideman):
+        _unbatched("the tangent pass", in_dims[:7])
+        tans = [t.expand((info.batch_size,) + t.shape) if d is None
+                else t.movedim(d, 0)
+                for t, d in zip((shift0_t, strength_t, gamma_d_t, gamma_0_t),
+                                in_dims[7:11])]
+        return xsect_fused_jvp(dplan, lay_idx, shift0, strength, gamma_d,
+                               gamma_0, wing, *(t.contiguous() for t in tans),
+                               n_weideman), 0
+
+
+class _FullVoigt(torch.autograd.Function):
+    """The ``full`` pass (K1) with K3 as its forward-mode derivative."""
+
+    @staticmethod
+    def forward(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
+                n_weideman):
+        return xsect_fused(dplan, lay_idx, shift0, strength, gamma_d,
+                           gamma_0, wing, None, "full", n_weideman)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dplan, lay_idx, *prm, n_weideman = inputs
+        ctx.save_for_forward(lay_idx, *prm)
+        ctx.dplan, ctx.n_weideman = dplan, n_weideman
+
+    @staticmethod
+    def jvp(ctx, _dplan_t, _lay_t, shift0_t, strength_t, gamma_d_t,
+            gamma_0_t, _wing_t, _n_t):
+        lay_idx, *prm = ctx.saved_tensors
+        # a missing tangent is zero; the wing's is dropped (the window is
+        # piecewise constant)
+        tans = [torch.zeros_like(p) if t is None else t for p, t in
+                zip(prm, (shift0_t, strength_t, gamma_d_t, gamma_0_t))]
+        return _VoigtTangent.apply(ctx.dplan, lay_idx, *prm, *tans,
+                                   ctx.n_weideman)
+
+    @staticmethod
+    def vmap(info, in_dims, dplan, lay_idx, shift0, strength, gamma_d,
+             gamma_0, wing, n_weideman):
+        _unbatched("the full pass", in_dims)
+        return _FullVoigt.forward(dplan, lay_idx, shift0, strength, gamma_d,
+                                  gamma_0, wing, n_weideman), None
+
+
+def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
+                     gamma_0, wing, n_weideman: int = 16) -> torch.Tensor:
+    """The ``full`` pass, differentiable in forward mode: K1 ``full`` for
+    the value, K3 for ``torch.func.jvp`` tangents (a ``vmap`` over
+    directions becomes K3's direction axis). (len(lay_idx), n_out)."""
+    return _FullVoigt.apply(dplan, lay_idx, shift0, strength, gamma_d,
+                            gamma_0, wing, n_weideman)

@@ -532,10 +532,11 @@ def h2o_lwir_lines(nu_min=500.0, nu_max=1500.0, j_max=30):
 # ---------------------------------------------------------------------------
 
 def derived_lwir_linelist(nu_min=500.0, nu_max=1500.0, device=None,
-                          dtype=torch.float64, min_sw=1e-27):
+                          dtype=torch.float32, min_sw=1e-27):
     """The packaged H2O+CO2+O3+N2O+CH4 LWIR :class:`LineStore` (derived;
     see module docstring) — the structural stand-in for the reference's
-    HITRAN fetch (``misc/RT_gen_AbsXS_files.py:36-41``)."""
+    HITRAN fetch (``misc/RT_gen_AbsXS_files.py:36-41``); ``device`` None is
+    the card."""
     cols = _derived_columns(float(nu_min), float(nu_max), float(min_sw))
     return from_arrays(**cols, device=device, dtype=dtype)
 

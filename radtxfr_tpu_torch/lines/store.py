@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR
+from .. import DATA_DIR, resolve_device
 from .tips import iso_row_index, load_tips_tables
 
 _FLOAT_FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",
@@ -51,8 +51,10 @@ class IsoTables:
 
     @staticmethod
     def from_numpy(q, abundance, molar_mass, mol, iso, device=None,
-                   dtype=torch.float64) -> "IsoTables":
-        """Build from NumPy columns (e.g. the JAX ``IsoTables`` fields)."""
+                   dtype=torch.float32) -> "IsoTables":
+        """Build from NumPy columns (e.g. the JAX ``IsoTables`` fields);
+        ``device`` None is the card."""
+        device = resolve_device(device)
         f = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
                                    dtype=dtype, device=device)
         i = lambda a: torch.tensor(np.asarray(a, dtype=np.int64),
@@ -61,7 +63,7 @@ class IsoTables:
                          molar_mass=f(molar_mass), mol=i(mol), iso=i(iso))
 
     @staticmethod
-    def load(device=None, dtype=torch.float64) -> "IsoTables":
+    def load(device=None, dtype=torch.float32) -> "IsoTables":
         mol, iso, _gsi, q = load_tips_tables()
         reg = _iso_registry()
         miss = (np.nan, np.nan)
@@ -102,9 +104,11 @@ class LineStore:
     @staticmethod
     def from_numpy(*, nu0, sw, elower, gamma_air, gamma_self, n_air,
                    delta_air, iso_row, mol_id, sd_air, device=None,
-                   dtype=torch.float64) -> "LineStore":
+                   dtype=torch.float32) -> "LineStore":
         """Build from NumPy columns already sorted by ``nu0`` (e.g. the
-        fields of the JAX ``LineStore.host_view()``)."""
+        fields of the JAX ``LineStore.host_view()``); ``device`` None is
+        the card."""
+        device = resolve_device(device)
         host = {k: np.array(v, dtype=np.float64) for k, v in dict(
             nu0=nu0, sw=sw, elower=elower, gamma_air=gamma_air,
             gamma_self=gamma_self, n_air=n_air, delta_air=delta_air,
@@ -122,7 +126,7 @@ class LineStore:
 
 def from_arrays(nu0, sw, elower, gamma_air, gamma_self, n_air, delta_air,
                 mol_id, local_iso_id, sd_air=None, device=None,
-                dtype=torch.float64) -> LineStore:
+                dtype=torch.float32) -> LineStore:
     """Build a sorted :class:`LineStore` from NumPy columns.
 
     ``mol_id``/``local_iso_id`` are HITRAN numbers, mapped to the compact

@@ -14,9 +14,14 @@ pass, and the line-mixing lines in a ``mix`` pass of their own. The plans
 (and therefore the work) are identical to the JAX builder's; each pass is
 one launch of the fused kernel K1 (:mod:`..kernels.fused_xsect`).
 
+``differentiable=True`` builds the single-pass ``full`` plans instead (as
+the JAX builder's ``two_pass=False``) and runs each pass through
+:func:`~..kernels.fused_xsect.xsect_fused_diff`, so ``torch.func.jvp``
+tangents of the OD go through the tangent kernel K3.
+
 Not ported yet (each raises ``NotImplementedError``): the coarse-far
-branch and SD-Voigt (ROADMAP M12), Hartmann-Tran (M13), the differentiable
-path (M11) and the pointwise continuum models other than 'mt_ckd' (M4).
+branch and SD-Voigt (ROADMAP M12), Hartmann-Tran (M13) and the pointwise
+continuum models other than 'mt_ckd' (M4).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
                               C_MASS_MOL, K_BOLTZMANN_CGS, PA_PER_ATM, T_REF)
 from ..kernels.fused_xsect import (UniformGrid, device_plan,
-                                   plan_buckets_packed, xsect_fused)
+                                   plan_buckets_packed, xsect_fused,
+                                   xsect_fused_diff)
 from ..kernels.lineparams import LineParams, compute_line_params
 from ..kernels.linemixing import mixing_coefficient
 
@@ -169,13 +175,16 @@ def _host_planning_views(lines, iso, atmos_class):
 
 
 def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
-                    tile, group_ratio, core_block=16, mix_idx=None):
+                    tile, group_ratio, core_block=16, mix_idx=None,
+                    two_pass: bool = True):
     """The static (layer-group x pass) call decomposition of the JAX
     builder's Voigt and line-mixing branches (``od.py:450-628`` there):
     a list of (layer indices, line indices, packed plan, mode).
 
     ``atmos_class`` may be one representative state or a list of envelope
     states; wing bounds are taken elementwise over all of them.
+    ``two_pass=False`` gives each layer group one ``full`` pass over
+    ``tile``-point tiles and no core passes.
     """
     from ..kernels.faddeeva import REGION_BOUND
 
@@ -214,7 +223,7 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     # the asym far-wing passes get twice the tile of the flop-heavy passes;
     # the block cap keeps block * tile <= 2**18 (the JAX builder's VMEM
     # guard, kept so both packages build identical plans)
-    f_tile = 2 * tile
+    f_tile = 2 * tile if two_pass else tile
     f_cap = max(8, ((1 << 18) // f_tile) // 8 * 8)
     for lay_idx, _ in lay_groups:
         lay_idx = np.sort(lay_idx)
@@ -223,7 +232,10 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
         if plan.block > f_cap:
             plan = plan_buckets_packed(nu0_v, g, w_line, tile=f_tile,
                                        block=f_cap)
-        calls.append((lay_idx, v_idx, plan, "asym"))
+        calls.append((lay_idx, v_idx, plan,
+                      "asym" if two_pass else "full"))
+    if not two_pass:
+        return calls
 
     # Core pass: the Weideman region exists only where y can drop below
     # hum1_wei's bound, so layer groups keep only lines whose y lower bound
@@ -294,6 +306,8 @@ class OpticalDepthFn:
     of one line list, grid and atmosphere class baked in (see
     :func:`make_od_fn`). ``calls`` lists the kernel passes as
     (layer indices int32, :class:`~..kernels.fused_xsect.DevicePlan`, mode).
+    Every operation on the state is differentiable in forward mode; the
+    ``full`` passes carry their tangents through K3.
     """
 
     def __init__(self, lines, iso, calls, cols, n_x, n_weideman, wing_abs,
@@ -336,8 +350,14 @@ class OpticalDepthFn:
         return prm, Y
 
     def run_call(self, call, prm: LineParams, Y, kernel=xsect_fused):
-        """One pass of ``calls``: (len(layers), nX) line OD."""
+        """One pass of ``calls``: (len(layers), nX) line OD; a ``full``
+        pass goes through the differentiable call, unless ``kernel`` names
+        another function (the plain version, in the checks)."""
         lay, dplan, mode = call
+        if mode == "full" and kernel is xsect_fused:
+            return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
+                                    prm.gamma_d, prm.gamma_0, prm.wing,
+                                    self.n_weideman)
         return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                       prm.gamma_0, prm.wing, Y if mode == "mix" else None,
                       mode, self.n_weideman)
@@ -347,8 +367,9 @@ class OpticalDepthFn:
         out = torch.zeros((T.shape[0], self.n_x), dtype=prm.strength.dtype,
                           device=prm.strength.device)
         for call in self.calls:
-            # each call's layers are distinct rows: a gather, add, scatter
-            out[call[0].long()] += self.run_call(call, prm, Y)
+            # each call's layers are distinct rows, so every element takes
+            # one addition; in place, and it carries forward-mode tangents
+            out.index_add_(0, call[0], self.run_call(call, prm, Y))
         if Y is not None:
             # first-order mixing can leave small negative excursions next
             # to a Q branch (a truncation artefact; LTE absorption is
@@ -374,14 +395,20 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     :class:`UniformGrid`; ``atmos_class`` one representative state (or a
     list of envelope states) sizing the plans. ``line_mixing`` carries
     ``y_air`` (and optionally ``y_self``, ``n_T``) for first-order mixing.
+    ``differentiable=True`` builds single-pass ``full`` plans whose passes
+    carry ``torch.func.jvp`` tangents through K3 (Voigt, no line mixing,
+    as the JAX builder).
     """
     if profile != "voigt":
         raise NotImplementedError(
             f"profile {profile!r} is not ported: SD-Voigt is ROADMAP M12, "
             "Hartmann-Tran M13, Lorentz/Doppler M14")
-    if differentiable:
+    if differentiable and line_mixing is not None:
+        # the JAX builder routes mixing Jacobians to its jnp engine
         raise NotImplementedError(
-            "the differentiable OD path (kernels K3/K4) is ROADMAP M11")
+            "differentiable OD with line mixing: the differentiable kernels "
+            "have no mixing tangent (the JAX package's mixing Jacobians ride "
+            "its jnp engine, ROADMAP M11)")
     if wing_abs > 0.0 and line_mixing is None:
         # the JAX builder may route this case to its coarse-far branch
         raise NotImplementedError(
@@ -401,7 +428,8 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
          device_plan(plan, line_idx, lines_h.nu0, device=dev, dtype=dt), mode)
         for lay, line_idx, plan, mode in _build_od_calls(
             lines_h, iso_h, states_h, g, wing_abs, wing_hw, max_groups, tile,
-            group_ratio, core_block=core_block, mix_idx=mix_idx)]
+            group_ratio, core_block=core_block, mix_idx=mix_idx,
+            two_pass=not differentiable)]
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
     return OpticalDepthFn(lines, iso, calls, cols, g.n, n_weideman, wing_abs,

@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..kernels.fused_tud import tud_compose
 
 __all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_quadrature"]
@@ -114,12 +115,13 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
     """Build the fused (K2) TUD composition for a static geometry.
 
     The altitude snapshot layer counts, slant secants and downwelling
-    quadrature are host values, moved once to ``device`` as small arrays.
-    Returns ``fn(x, od, T_layers) -> TUD`` (Planck source in-kernel);
-    inputs are cast to float32, outputs have ``make_tud_pallas_fn``'s
-    shapes.
+    quadrature are host values, moved once to ``device`` (None: the card)
+    as small arrays. Returns ``fn(x, od, T_layers) -> TUD`` (Planck source
+    in-kernel); inputs are cast to float32, outputs have
+    ``make_tud_pallas_fn``'s shapes.
     """
     f32 = torch.float32
+    device = resolve_device(device)
     snap = torch.as_tensor(_layers_below(z0, altitudes), dtype=torch.int32,
                            device=device)
     mus = torch.as_tensor(np.atleast_1d(np.asarray(mu, dtype=np.float64)),

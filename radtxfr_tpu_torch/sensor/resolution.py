@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 __all__ = ["ReduceOperator", "reduce_operator", "cubic_resample_weights"]
 
 _WINDOWS = {
@@ -72,7 +74,7 @@ class ReduceOperator:
                  weights: np.ndarray, device=None):
         self.x_out = np.asarray(x_out)
         self.n_out, self.width = weights.shape
-        self.device = device
+        self.device = device = resolve_device(device)
         self.starts = torch.as_tensor(np.asarray(starts, dtype=np.int64),
                                       device=device)
         self.weights = torch.as_tensor(weights, device=device)
@@ -141,7 +143,7 @@ def reduce_operator(X, dX, N: int = 4, window: str = "hanning", X_out=None,
     """Build the fused :class:`ReduceOperator` for a static fine axis ``X``,
     matching the reference's ``reduceResolution(X, Y, dX, N, window)`` for
     interior stencils; raises ValueError when there is nothing to reduce or
-    a stencil would cross the grid edge."""
+    a stencil would cross the grid edge. ``device`` None is the card."""
     X = np.asarray(X, dtype=np.float64)
     n = X.size
     dx_in = float(np.mean(np.diff(X)))

@@ -63,3 +63,34 @@ def test_port_cli_matches_jax_cli(port_products, tmp_path, engine, bound):
         assert got.shape == ref.shape, k
         assert np.isfinite(got).all(), k
         assert np.abs(got - ref).max() <= bound * np.abs(ref).max(), k
+
+
+def test_port_cli_jacobian_matches_jax_cli(tmp_path):
+    """`tud --jacobian --jacobian-wrt T`: the port CLI on the CPU against
+    the JAX CLI's Pallas engine (interpret mode, float32), the d*_dT arrays
+    of the HDF5 files within 5e-4 of each one's peak, the JAX package's
+    bound between its Jacobian engines (test_pallas_xsect.py:376);
+    measured <= 8e-6 (dtau_dT)."""
+    args = ["tud", "--derived", "--continuum", "mt_ckd", "--numin", "718",
+            "--numax", "723", "--dv", "0.005", "--n-atmos", "1", "--batch",
+            "1", "--jacobian", "--jacobian-wrt", "T"]
+    keys = ("dtau_dT", "dLu_dT", "dLd_dT")
+    port = str(tmp_path / "port.h5")
+    main(args + ["--device", "cpu", "--output", port])
+    ref = str(tmp_path / "jax.h5")
+    j_args = j_build_parser().parse_args(args + ["--engine", "pallas",
+                                                 "--output", ref])
+    jax.config.update("jax_enable_x64", False)
+    try:
+        j_args.fn(j_args)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    with h5py.File(port, "r") as f, h5py.File(ref, "r") as g:
+        assert set(f) == set(g)
+        for k in keys:
+            got, want = f[k][...], g[k][...]
+            assert got.shape == want.shape, k
+            assert np.isfinite(got).all(), k
+            peak = np.abs(want).max()
+            assert peak > 0.0, k
+            assert np.abs(got - want).max() <= 5e-4 * peak, k

@@ -53,7 +53,7 @@ def test_planckian_matches():
 @pytest.mark.parametrize("band", [(691.0, 751.0), (665.0, 1435.0)])
 def test_derived_linelist_and_y_air_exactly_equal(band):
     j_store = j_derived(*band)
-    store = derived_lwir_linelist(*band)
+    store = derived_lwir_linelist(*band, device="cpu", dtype=torch.float64)
     jh, th = j_store.host_view(), store.host_view()
     for f in FIELDS:
         a, b = np.asarray(getattr(jh, f)), np.asarray(getattr(th, f))
@@ -67,10 +67,12 @@ def test_derived_linelist_and_y_air_exactly_equal(band):
 def test_compute_line_params_matches(iso_tables):
     j_store = j_derived(700.0, 760.0)
     hv = j_store.host_view()
-    store = LineStore.from_numpy(**{f: getattr(hv, f) for f in FIELDS})
+    store = LineStore.from_numpy(**{f: getattr(hv, f) for f in FIELDS},
+                                 device="cpu", dtype=torch.float64)
     iso = IsoTables.from_numpy(
         **{f: np.asarray(getattr(iso_tables, f))
-           for f in ("q", "abundance", "molar_mass", "mol", "iso")})
+           for f in ("q", "abundance", "molar_mass", "mol", "iso")},
+        device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(3)
     n_lay, L = 5, len(store)
     T = np.array([296.0, 250.0, 220.0, 195.0, 240.0])
@@ -129,3 +131,47 @@ def test_port_never_imports_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def _default_calls():
+    """Each public constructor and builder of the port, called with its
+    device left at the default (the card)."""
+    from radtxfr_tpu_torch.atmos.continuum import make_layered_mt_ckd
+    from radtxfr_tpu_torch.atmos.profile import (AtmosphericState,
+                                                 std_atmosphere)
+    from radtxfr_tpu_torch.kernels.fused_xsect import (UniformGrid,
+                                                       device_plan,
+                                                       plan_buckets_packed)
+    from radtxfr_tpu_torch.products.tud import make_tud_fn
+    from radtxfr_tpu_torch.sensor.resolution import reduce_operator
+
+    X = arange_drift_free(700.0, 710.0, 0.01)
+    g = UniformGrid.from_axis(X)
+    plan = plan_buckets_packed(np.array([705.0]), g, 1.0, tile=256)
+    cols = {f: np.ones(3) for f in FIELDS[:8]}
+    cols["nu0"] = np.array([700.0, 701.0, 702.0])
+    return {
+        "std_atmosphere": lambda: std_atmosphere(),
+        "AtmosphericState.from_numpy": lambda: AtmosphericState.from_numpy(
+            *(np.ones(2) for _ in range(5)), np.ones((2, 8))),
+        "IsoTables.load": lambda: IsoTables.load(),
+        "IsoTables.from_numpy": lambda: IsoTables.from_numpy(
+            np.ones((2, 119)), np.ones(2), np.ones(2), [1, 2], [1, 1]),
+        "LineStore.from_numpy": lambda: LineStore.from_numpy(
+            **cols, iso_row=[0, 0, 0], mol_id=[1, 1, 1]),
+        "derived_lwir_linelist": lambda: derived_lwir_linelist(700.0, 710.0),
+        "device_plan": lambda: device_plan(plan, [0], [705.0]),
+        "make_tud_fn": lambda: make_tud_fn(np.arange(3.0), [1.0]),
+        "reduce_operator": lambda: reduce_operator(X, 0.25),
+        "make_layered_mt_ckd": lambda: make_layered_mt_ckd(X, (1, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_default_calls()))
+def test_defaults_need_a_card(monkeypatch, name):
+    """Left at its default device, every constructor asks for the card and
+    raises where there is none: nothing falls back to the CPU (the
+    ``cuda`` test in test_torch_cuda.py runs the same defaults on a card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _default_calls()[name]()

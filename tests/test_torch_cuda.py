@@ -15,7 +15,10 @@ from radtxfr_tpu_torch.kernels.linemixing_data import y_air_for_store
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
 from radtxfr_tpu_torch.lines.store import IsoTables
 from radtxfr_tpu_torch.products.od import make_od_fn
-from radtxfr_tpu_torch.products.tud import _layers_below, downwelling_quadrature
+from radtxfr_tpu_torch.products.tud import (_layers_below,
+                                            downwelling_quadrature,
+                                            make_tud_fn)
+from radtxfr_tpu_torch.sensor.resolution import reduce_operator
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +106,67 @@ def test_wrappers_raise_on_float64_and_non_contiguous(dev):
         fused_tud.tud_compose(od.double(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):
         fused_tud.tud_compose(od.t().contiguous().t(), *args[1:])
+
+
+def test_full_and_tangent_kernels_match_plain(dev):
+    """K1 'full' and K3 against their plain versions on every pass of the
+    differentiable builder: the primal within 2e-6 of its peak, each
+    direction's tangent within 2e-5 of its own peak (chip_smoke.py), for a
+    T direction over all layers and 8 one-hot T directions (9 directions:
+    two K3 launches); two launches bit-identical."""
+    f32 = torch.float32
+    store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32),
+                       arange_drift_free(716.0, 726.0, 0.0005), base,
+                       continuum="mt_ckd", differentiable=True)
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+    prm = od_fn.line_params(T, p, pl, vmr)[0]
+
+    def prm_of(T_):
+        q = od_fn.line_params(T_, p, pl, vmr)[0]
+        return q.shift0, q.strength, q.gamma_d, q.gamma_0
+
+    V = torch.cat([torch.linspace(0.5, 1.5, base.n_layers, device=dev)[None],
+                   torch.eye(base.n_layers, device=dev)[24:32]])
+    tans = [t.contiguous() for t in torch.func.vmap(
+        lambda v: torch.func.jvp(prm_of, (T,), (v,))[1])(V)]
+    jvp0 = fused_xsect.LAUNCHES["jvp"]
+    for lay, dplan, mode in od_fn.calls:
+        assert mode == "full"
+        args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
+                prm.gamma_0, prm.wing)
+        got = fused_xsect.xsect_fused(*args, None, "full")
+        assert torch.equal(got, fused_xsect.xsect_fused(*args, None, "full"))
+        want = fused_xsect.xsect_fused_plain(*args, None, "full")
+        assert (got - want).abs().max() <= 2e-6 * want.abs().max()
+        tan = fused_xsect.xsect_fused_jvp(*args, *tans)
+        assert tan.shape == (9, lay.numel(), od_fn.n_x)
+        assert torch.equal(tan, fused_xsect.xsect_fused_jvp(*args, *tans))
+        want_t = fused_xsect.xsect_fused_jvp_plain(*args, *tans)
+        for d in range(9):
+            own = want_t[d].abs().max()
+            err = (tan[d] - want_t[d]).abs().max()
+            assert err <= 2e-5 * own if own > 0 else err == 0
+    assert fused_xsect.LAUNCHES["jvp"] - jvp0 == 4 * len(od_fn.calls)
+
+
+def test_defaults_run_on_the_card():
+    """With no device and no dtype argument, the constructors and builders
+    run on the card, in float32, through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    before = dict(fused_xsect.LAUNCHES, tud=fused_tud.LAUNCHES["tud"])
+    X = arange_drift_free(716.0, 726.0, 0.0005)
+    base = std_atmosphere()
+    od_fn = make_od_fn(derived_lwir_linelist(691.0, 751.0),
+                       IsoTables.load(), X, base, continuum="mt_ckd")
+    od = od_fn(base.T, base.p, base.pl, base.vmr)
+    assert od.is_cuda and od.dtype == torch.float32
+    tud = make_tud_fn(base.z0.cpu().numpy(), [1.0, 500.0])(X, od, base.T)
+    ld = reduce_operator(X, 0.25)(tud.Ld)
+    assert ld.is_cuda and bool(torch.isfinite(ld).all())
+    for k in ("asym", "core"):
+        assert fused_xsect.LAUNCHES[k] > before[k], k
+    assert fused_tud.LAUNCHES["tud"] > before["tud"]

@@ -67,7 +67,8 @@ def _jax_refs(z0, T, od, x, alts, mu, n_angles, return_od, quad):
 def test_make_tud_fn_matches_jax(alts, mu, n_angles, return_od, quad):
     z0, T, od, x = _setup()
     got = make_tud_fn(z0, alts, mu=mu, n_angles=n_angles,
-                      return_od=return_od, quadrature=quad)(x, od, T)
+                      return_od=return_od, quadrature=quad,
+                      device="cpu")(x, od, T)
     # float32 against both JAX compositions: <= 5e-6 of peak
     # (test_pallas_tud.py:64)
     _compare(got, _jax_refs(z0, T, od, x, alts, mu, n_angles, return_od,
@@ -77,7 +78,7 @@ def test_make_tud_fn_matches_jax(alts, mu, n_angles, return_od, quad):
 def test_make_tud_fn_odd_layer_count():
     z0, T, od, x = _setup(n_lay=23)
     alts = [1.0, 500.0]
-    got = make_tud_fn(z0, alts, n_angles=12)(x, od, T)
+    got = make_tud_fn(z0, alts, n_angles=12, device="cpu")(x, od, T)
     _compare(got, _jax_refs(z0, T, od, x, alts, [1.0], 12, False,
                             "uniform"), 5e-6)
 
@@ -106,7 +107,7 @@ def test_tud_from_od_matches_jax_float64():
                           (800.0, 900.0, 0.01, 0.5)])   # non-affine axis
 def test_reduce_operator_matches_jax(lo, hi, dv, dv_out):
     X = arange_drift_free(lo, hi, dv)
-    op = reduce_operator(X, dv_out)
+    op = reduce_operator(X, dv_out, device="cpu")
     j_op = j_reduce_operator(X, dv_out)
     assert (op._affine is None) == (j_op._affine is None)
     np.testing.assert_array_equal(op.x_out, np.asarray(j_op.x_out))

@@ -45,7 +45,8 @@ from radtxfr_tpu_torch.products.od import _build_od_calls, _host_planning_views
 
 AXIS = arange_drift_free(550.0, 575.0, 0.0025)       # 10001 points
 PLAN_FIELDS = ("starts", "counts", "k_line", "frac0", "gather")
-MODE_PLANS = {"asym": (1024, 32), "core": (256, 16), "mix": (512, 24)}
+MODE_PLANS = {"asym": (1024, 32), "core": (256, 16), "mix": (512, 24),
+              "full": (512, 16)}
 PARAMS = ("shift0", "strength", "gamma_d", "gamma_0", "wing")
 
 
@@ -83,15 +84,17 @@ def test_od_calls_match(iso_tables):
     the derived list around the 720.8 cm^-1 CO2 Q branch."""
     axis = arange_drift_free(716.0, 726.0, 0.005)
     j_store = j_derived(691.0, 751.0)
-    store = derived_lwir_linelist(691.0, 751.0)
+    store = derived_lwir_linelist(691.0, 751.0, device="cpu",
+                                  dtype=torch.float64)
     mix = np.nonzero(y_air_for_store(store.host_view()))[0]
     np.testing.assert_array_equal(mix, np.nonzero(j_y_air(j_store))[0])
     want = j_build_od_calls(*j_host_views(j_store, iso_tables,
                                           j_std_atmosphere()),
                             JGrid.from_axis(axis), 0.0, 50.0, 8, 512, True,
                             None, None, 4.0, None, 16, "voigt", mix)
-    got = _build_od_calls(*_host_planning_views(store, IsoTables.load(),
-                                                std_atmosphere()),
+    f64 = dict(device="cpu", dtype=torch.float64)
+    got = _build_od_calls(*_host_planning_views(store, IsoTables.load(**f64),
+                                                std_atmosphere(**f64)),
                           UniformGrid.from_axis(axis), 0.0, 50.0, 8, 512,
                           4.0, core_block=16, mix_idx=mix)
     assert [c[3] for c in got] == [c[3] for c in want]
@@ -136,7 +139,7 @@ def _plain(case, plan, mode, dtype):
     store, params, y_mix, _ = case
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
     dp = device_plan(plan, np.arange(len(store)), np.asarray(store.nu0),
-                     dtype=dtype)
+                     device="cpu", dtype=dtype)
     return xsect_fused_plain(
         dp, torch.arange(3, dtype=torch.int32),
         *(t(getattr(params, f)) for f in PARAMS),
@@ -149,7 +152,7 @@ def single_pass(synthetic_case):
     return _pallas(synthetic_case, "full", 1024, 32)[1]
 
 
-@pytest.mark.parametrize("mode", ["asym", "core", "mix"])
+@pytest.mark.parametrize("mode", ["asym", "core", "mix", "full"])
 def test_plain_matches_pallas(synthetic_case, single_pass, mode):
     plan, want = _pallas(synthetic_case, mode, *MODE_PLANS[mode])
     got = _plain(synthetic_case, plan, mode, torch.float32)
@@ -250,7 +253,7 @@ def test_padding_sentinel_never_passes_the_mask(synthetic_case):
         line=torch.full((n_slots,), -1, dtype=torch.int32),
         wcap=torch.full((n_slots,), 1e30))
     one = lambda v: torch.full((1, 1), v)
-    for mode in ("asym", "core", "mix"):
+    for mode in ("asym", "core", "mix", "full"):
         out = xsect_fused(dp, torch.zeros(1, dtype=torch.int32), one(0.0),
                           one(1e3), one(1e-3), one(1e-2), one(1e30),
                           one(0.5), mode)

@@ -46,14 +46,14 @@ def _port_inputs(store, iso_tables, atm, dtype):
     hv = store.host_view()
     iso = jax.device_get(iso_tables)
     return (LineStore.from_numpy(**{f: getattr(hv, f) for f in FIELDS},
-                                 dtype=dtype),
+                                 device="cpu", dtype=dtype),
             IsoTables.from_numpy(**{f: getattr(iso, f) for f in
                                     ("q", "abundance", "molar_mass", "mol",
-                                     "iso")}, dtype=dtype),
+                                     "iso")}, device="cpu", dtype=dtype),
             AtmosphericState.from_numpy(
                 **{f: np.asarray(getattr(atm, f))
                    for f in ("z0", "z1", "pl", "p", "T", "vmr")},
-                mol_ids=atm.mol_ids, dtype=dtype))
+                mol_ids=atm.mol_ids, device="cpu", dtype=dtype))
 
 
 @pytest.mark.parametrize("dtype,n_weideman,bound", [
@@ -77,7 +77,8 @@ def test_make_od_fn_matches_jnp_engine(reference, iso_tables, dtype,
 def test_unported_branches_raise(reference, iso_tables):
     store, atm, lm, _ = reference
     lines, iso, state = _port_inputs(store, iso_tables, atm, torch.float32)
-    for kw in ({"profile": "sdvoigt"}, {"differentiable": True},
+    for kw in ({"profile": "sdvoigt"},
+               {"differentiable": True, "line_mixing": lm},
                {"wing_abs": 25.0}, {"continuum": "h2o_empirical"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_od_fn(lines, iso, AXIS, state, **kw)
