@@ -42,6 +42,29 @@ Phases, each printing its result on its own line:
 6. Where one member's time goes (CUDA events per stage), with each K1
    mode's bound at the production width.
 6b. Where one 8-direction tangent batch of the Jacobian goes.
+3c. The XS lattice's K1 modes (``sdvoigt*``, ``lorentz``, ``doppler``,
+   ``corr:64:*``) against their plain versions on every pass of
+   ``make_xsect_fn`` over a 1000-1010 cm^-1 sub-band at 0.0025 (the
+   bench's 30,000-line synthetic list, 10 states, 350 cm^-1 wings): the
+   coarse-far route, ``far_method="classic"``, ``two_pass=False``
+   (``sdvoigt``), the Lorentz and Doppler builds and direct
+   ``corr:64:{voigt,sdvoigt}full`` launches; each pass within
+   ``XS_BOUND`` of the lattice's peak and within ``XS_OWN_BOUND`` of its
+   own peak; coarse against classic within 1e-5 (SD-Voigt) and 1e-6
+   (Voigt) of peak.
+7. The ``xsect`` CLI at full width (``XS_CLI``: 2,680,001 points, 10
+   states) with the launch counts reset before and read after (the
+   coarse, correction and SD core passes must have run): finite, AFIT
+   files written and one read back, plan-build and wall seconds, states
+   per second and nominal hapi-window evaluations per second; the same
+   lattice built with ``far_method="classic"`` (no coarse grid, correction
+   or upsample) holds it within 1e-5 of peak at full width. Then the
+   bench's configuration through ``make_xsect_fn``, the ``--profile
+   lorentz|doppler`` and ``two_pass=False`` lattices on the sub-band (each
+   with its own counts), and a small lattice on the card and on the CPU
+   (plain versions) within 1e-5 of peak.
+8. Where the full-width lattice's time goes (CUDA events per stage), with
+   each mode's bound.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -54,10 +77,12 @@ Any failed check raises; the script then exits non-zero without the last
 line. There is no CPU fallback.
 """
 
+import collections
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,7 +92,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from radtxfr_tpu_torch import _build  # noqa: E402
 from radtxfr_tpu_torch.atmos.profile import std_atmosphere  # noqa: E402
-from radtxfr_tpu_torch.cli.main import build_parser, run_tud  # noqa: E402
+from radtxfr_tpu_torch.cli.main import (build_parser, run_tud,  # noqa: E402
+                                        run_xsect, write_xs)
+from radtxfr_tpu_torch.io.afit_xs import xs_read  # noqa: E402
+from radtxfr_tpu_torch.kernels.lineparams import (  # noqa: E402
+    compute_line_params)
+from radtxfr_tpu_torch.lines.synthetic import synthetic_lines  # noqa: E402
 from radtxfr_tpu_torch.core.grid import arange_drift_free  # noqa: E402
 from radtxfr_tpu_torch.kernels import fused_tud, fused_xsect  # noqa: E402
 from radtxfr_tpu_torch.kernels.linemixing_data import (  # noqa: E402
@@ -75,7 +105,8 @@ from radtxfr_tpu_torch.kernels.linemixing_data import (  # noqa: E402
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist  # noqa: E402
 from radtxfr_tpu_torch.lines.store import IsoTables  # noqa: E402
 from radtxfr_tpu_torch.core.planck import planckian  # noqa: E402
-from radtxfr_tpu_torch.products.od import make_od_fn  # noqa: E402
+from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
+                                           make_od_fn, make_xsect_fn)
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
@@ -114,6 +145,52 @@ N_WEI = 16
 # so an evaluation outside the core pays the asymptotic form only
 K1_OPS = {"asym": (28, 28), "core": (175, 14), "mix": (173, 36),
           "full": (157, 31)}
+
+
+# the XS lattice (reference configuration 2; the JAX bench's metric 4,
+# bench.py:588-619): the CLI run at full width, the bench's list and tile
+XS_CLI = ("xsect --synthetic 30000 --numin 400 --numax 7100 --dv 0.0025 "
+          "--profile sdvoigt --wing-abs 350 --T 275 --T-max 320 --T-step 5 "
+          "--p 1.0")
+XS_BENCH = dict(n_lines=30_000, nu_min=400.0, nu_max=7100.0, seed=1,
+                sd_zero_frac=0.25, tile=8192)
+XS_SUB = (1000.0, 1010.0, 0.0025)
+XS_T = np.arange(275.0, 321.0, 5.0)          # 10 states at 1 atm
+XS_WING = 350.0
+XS_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core", "lorentz", "doppler",
+            "corr:64:voigt", "corr:64:voigtfull", "corr:64:sdvoigt",
+            "corr:64:sdvoigtfull")
+# each XS pass against its plain version, of the lattice's peak (the JAX
+# package's float32 Pallas bound) and of the pass's own peak: the core and
+# correction passes are differences (full - asym; point term - cubic
+# interpolation of the same far field), so rounding is a larger share of
+# their own small peaks, as for the Voigt core pass (measured <= 1.1e-7
+# sdvoigt_core and <= 1.4e-6 corr, PERF.md)
+XS_BOUND = 2e-6
+XS_OWN_BOUND = {"asym": 2e-6, "core": 5e-2, "full": 2e-6, "sdvoigt": 2e-6,
+                "sdvoigt_asym": 2e-6, "sdvoigt_core": 1e-5, "lorentz": 2e-6,
+                "doppler": 2e-6, "corr:64:voigt": 1e-5,
+                "corr:64:voigtfull": 1e-5, "corr:64:sdvoigt": 1e-5,
+                "corr:64:sdvoigtfull": 1e-5}
+COARSE_BOUND = {"sdvoigt": 1e-5, "voigt": 1e-6}
+XS_SLICE_BOUND = 1e-5
+# SD-Voigt lane-ops per evaluation, from the building blocks in the header
+# of csrc/fused_xsect.cu ("Bound."): (inside the radius where a CPF point
+# can reach |Z| < 15, counted at two Weideman points; outside it, where
+# both points take the unguarded asymptotic form)
+SD_BASE = 11 + 24 + 2        # PRE, the SD prelude, the tail
+SD_SEL = 22                  # |Z1|, |Z2|, the CPF3 test and its selects
+SD_WEI = 3 + 35 + 7 * N_WEI  # region test + Weideman (y elementwise)
+SD_ASYM = 3 + 18             # region test + the unguarded asymptotic form
+SD_GUARDED = 19              # the guarded asymptotic form
+SD_OPS = {"sdvoigt_asym": (SD_BASE + 2 * SD_GUARDED,) * 2,
+          "sdvoigt": (SD_BASE + SD_SEL + 2 * SD_WEI,
+                      SD_BASE + SD_SEL + 2 * SD_ASYM)}
+SD_OPS["sdvoigt_core"] = tuple(n + 2 * (SD_GUARDED + 1)
+                               for n in SD_OPS["sdvoigt"])
+SIMPLE_OPS = {"lorentz": 18, "doppler": 20}
+SPAN = 256            # points of a K1 CTA's slice (csrc: SPAN)
+INTERP_OPS = 9        # a correction point's 4-node FMA interpolation + add
 
 
 def one_hot_batch(dev):
@@ -197,16 +274,28 @@ def phase_build():
             print(f"[2 build] {line.strip()}", flush=True)
 
 
-def window_counts(lay, dplan, prm, live=None):
+def slot_tiles(dplan):
+    """The tile of each plan slot (-1 past the last tile's blocks: a plan
+    with no line in any tile still holds one block of padding)."""
+    counts = dplan.counts.cpu().numpy().astype(np.int64)
+    t = np.repeat(np.arange(dplan.n_tiles), counts * dplan.block)
+    return np.concatenate([t, np.full(dplan.line.numel() - t.size, -1)])
+
+
+def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     """The evaluations one pass needs, recounted on the host from its plan
-    and the line parameters: (in-window, in-core) (layer, line, point)
+    and the line parameters: (in-window, in-region) (layer, line, point)
     triples, and the number of distinct lines it reads. ``live`` (nLay, L)
-    bool keeps only the pairs K3 evaluates (a non-zero tangent)."""
+    bool keeps only the pairs K3 evaluates (a non-zero tangent); ``cap``
+    False masks by the true window (the correction passes); ``region``
+    'voigt' is hum1_wei's |x| + y < 15 about the shifted centre, 'sd' the
+    SD-Voigt radius within which a CPF point can reach |Z| < 15
+    (|dnu - s0| < Gamma2 (225 + 30c + 2c^2), products/od.py's
+    sdvoigt_core_bound without its margin)."""
     line = dplan.line.cpu().numpy()
     valid = line >= 0
-    tile, block = dplan.tile, dplan.block
-    counts = dplan.counts.cpu().numpy().astype(np.int64)
-    tile_of = np.repeat(np.arange(dplan.n_tiles), counts * block)[valid]
+    tile = dplan.tile
+    tile_of = slot_tiles(dplan)[valid]
     g = line[valid]
     c = (dplan.k_line.cpu().numpy()[valid].astype(np.float64)
          + dplan.frac0.cpu().numpy()[valid].astype(np.float64))
@@ -214,10 +303,11 @@ def window_counts(lay, dplan, prm, live=None):
     hi_t = np.minimum(lo_t + tile, dplan.n_out) - 1
     wcap = dplan.wcap.cpu().numpy()[valid].astype(np.float64)
     host = {k: getattr(prm, k).detach().cpu().numpy().astype(np.float64)
-            for k in ("wing", "gamma_d", "gamma_0", "shift0")}
+            for k in ("wing", "gamma_d", "gamma_0", "shift0", "gamma_2")}
     n_win = n_core = 0
     for li in lay.cpu().numpy():
-        w = np.minimum(host["wing"][li, g], wcap) / dplan.dx
+        w = host["wing"][li, g]
+        w = (np.minimum(w, wcap) if cap else w) / dplan.dx
         # integers k with c - w < k <= c + w inside the slot's tile
         lo = np.maximum(np.floor(c - w) + 1, lo_t)
         hi = np.minimum(np.floor(c + w), hi_t)
@@ -225,14 +315,22 @@ def window_counts(lay, dplan, prm, live=None):
         if live is not None:
             keep &= live[li, g]
         n_win += int((hi - lo + 1)[keep].sum())
-        # and |x| + y < 15: |k - c - ds| < (15 - y) / xs
-        cte = np.sqrt(np.log(2.0)) / host["gamma_d"][li, g]
-        y = host["gamma_0"][li, g] * cte
-        r = (15.0 - y) / (dplan.dx * cte)
         mid = c + host["shift0"][li, g] / dplan.dx
+        gd, g0 = host["gamma_d"][li, g], host["gamma_0"][li, g]
+        if region == "voigt":
+            # |x| + y < 15: |k - c - ds| < (15 - y) / xs
+            cte = np.sqrt(np.log(2.0)) / gd
+            y = g0 * cte
+            r = (15.0 - y) / (dplan.dx * cte)
+            ok = y < 15.0
+        else:
+            g2 = np.maximum(host["gamma_2"][li, g], 1e-4 * g0 + 1e-12)
+            cc = gd / (2.0 * np.sqrt(np.log(2.0)) * g2)
+            r = g2 * (225.0 + 30.0 * cc + 2.0 * cc * cc) / dplan.dx
+            ok = np.ones_like(r, dtype=bool)
         clo = np.maximum(np.floor(mid - r) + 1, lo)
         chi = np.minimum(np.ceil(mid + r) - 1, hi)
-        kc = keep & (y < 15.0) & (chi >= clo)
+        kc = keep & ok & (chi >= clo)
         n_core += int((chi - clo + 1)[kc].sum())
     return n_win, n_core, int(np.unique(g).size)
 
@@ -258,6 +356,39 @@ def k1_bound_work(mode, lay, dplan, prm, counts=None):
     nbytes = (4 * n_par * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nl * dplan.n_out)
     return n_core * ops_in + (n_win - n_core) * ops_out, nbytes
+
+
+def xs_bound_work(mode, lay, dplan, prm):
+    """(lane-ops, bytes) one pass of the XS lattice needs on these inputs:
+    its in-window evaluations at their region's hand count; a correction
+    pass also interpolates at every point of each of its slots' tiles and
+    evaluates (256/R + 3) nodes per slot and 256-point slice."""
+    corr = mode.startswith("corr:")
+    sd = "sdvoigt" in mode
+    n_win, n_reg, n_lines = window_counts(lay, dplan, prm, cap=not corr,
+                                          region="sd" if sd else "voigt")
+    nl = lay.numel()
+    kind = mode
+    ops = 0
+    if corr:
+        _, r_s, variant = mode.split(":")
+        kind = {"voigt": "asym", "voigtfull": "full",
+                "sdvoigt": "sdvoigt_asym", "sdvoigtfull": "sdvoigt"}[variant]
+        tile_of = slot_tiles(dplan)[dplan.line.cpu().numpy() >= 0]
+        pts = np.minimum(dplan.tile, dplan.n_out - tile_of * dplan.tile)
+        n_nodes = (tile_of.size * -(-dplan.tile // SPAN)
+                   * (SPAN // int(r_s) + 3))
+        ops = nl * (INTERP_OPS * int(pts.sum())
+                    + n_nodes * (SD_OPS["sdvoigt_asym"][0] if sd
+                                 else K1_OPS["asym"][0]))
+    if kind in SIMPLE_OPS:
+        ops_in = ops_out = SIMPLE_OPS[kind]
+    else:
+        ops_in, ops_out = SD_OPS[kind] if kind in SD_OPS else K1_OPS[kind]
+    ops += n_reg * ops_in + (n_win - n_reg) * ops_out
+    nbytes = (4 * (6 if sd else 5) * nl * n_lines
+              + 16 * dplan.k_line.numel() + 4 * nl * dplan.n_out)
+    return ops, nbytes
 
 
 def k3_bound_work(lay, dplan, prm, tangents):
@@ -447,6 +578,107 @@ def phase_k1_diff(dev, card):
     return finish_stats(stats)
 
 
+def xs_lines(dev):
+    """The bench's synthetic list on ``dev``."""
+    spec = {k: XS_BENCH[k] for k in ("n_lines", "nu_min", "nu_max", "seed",
+                                     "sd_zero_frac")}
+    return synthetic_lines(spec.pop("n_lines"), device=dev,
+                           dtype=torch.float32, **spec)
+
+
+def xs_states(dev):
+    T = torch.as_tensor(XS_T, dtype=torch.float32, device=dev)
+    return T, torch.ones_like(T)
+
+
+def check_xs_passes(label, fn, prm, calls, card, stats=None):
+    """Each of ``calls`` (state indices, plan, mode) through its kernel
+    (all timed first) and its plain version: within XS_BOUND of the
+    lattice's peak and XS_OWN_BOUND of its own; the per-mode errors, times
+    and bound work go into ``stats`` when given."""
+    peak = fn.line_sum(prm).abs().max().item()
+    timed = time_kernels((f"K1 {c[2]}", lambda c=c: fn.run_call(c, prm))
+                         for c in calls)
+    for call, (k_ms, k_out) in zip(calls, timed):
+        lay, dplan, mode = call
+        p_ms, p_out = cuda_ms(lambda: fn.run_call(
+            call, prm, kernel=fused_xsect.xsect_fused_plain), 1)
+        err = (k_out - p_out).abs().max().item()
+        # a window-edge band may hold no line on the sub-band: then both
+        # are zero
+        own = p_out.abs().max().item() or 1.0
+        check(peak > 0.0 and bool(torch.isfinite(k_out).all()),
+              f"{label} {mode}: zero lattice or non-finite pass")
+        print(f"[3c {label}] {mode} tile {dplan.tile} block {dplan.block} "
+              f"tiles {dplan.n_tiles} points {dplan.n_out}: max|kernel-plain|"
+              f" {err:.3e} = {err / peak:.3e} of the lattice's peak "
+              f"{peak:.4e} = {err / own:.3e} of the pass's own peak "
+              f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+              f"[{card}]", flush=True)
+        check(err <= XS_BOUND * peak, f"{label} {mode}: {err / peak:.3e} of "
+              f"the lattice's peak > {XS_BOUND}")
+        check(err <= XS_OWN_BOUND[mode] * own, f"{label} {mode}: "
+              f"{err / own:.3e} of its own peak > {XS_OWN_BOUND[mode]}")
+        if stats is not None:
+            add_stats(stats, mode, err, k_ms, p_ms,
+                      *xs_bound_work(mode, lay, dplan, prm))
+
+
+def phase_xs_sub(dev, card):
+    """3c: every pass of the lattice builders on the 1000-1010 cm^-1
+    sub-band; returns the new modes' JSON fields and the launches of the
+    direct corr:64:*full runs."""
+    store = xs_lines(dev)
+    iso = IsoTables.load(device=dev, dtype=torch.float32)
+    X = arange_drift_free(*XS_SUB)
+    T, p = xs_states(dev)
+
+    def build(**kw):
+        return make_xsect_fn(store, iso, X, XS_T, np.ones_like(XS_T),
+                             wing_abs=XS_WING, tile=XS_BENCH["tile"], **kw)
+
+    fns = {"sdvoigt coarse": build(profile="sdvoigt"),
+           "sdvoigt classic": build(profile="sdvoigt", far_method="classic"),
+           "voigt coarse": build(profile="voigt"),
+           "voigt classic": build(profile="voigt", far_method="classic"),
+           "sdvoigt two_pass=False": build(profile="sdvoigt", two_pass=False),
+           "lorentz": build(profile="lorentz"),
+           "doppler": build(profile="doppler")}
+    main = fns["sdvoigt coarse"]
+    check({c[2] for c in main.corr_calls} == {"corr:64:sdvoigt",
+                                              "corr:64:voigt"},
+          "the sub-band lattice did not take the coarse-far route")
+    stats = {}
+    # the correction passes' '*full' variants: no builder plans them
+    # (products/od.py::_build_coarse_far_calls), so they run directly on
+    # the near-zone plans
+    full_calls = [(c[0], c[1], c[2] + "full") for c in main.corr_calls[::3]]
+    timed = {"sdvoigt coarse": main.all_calls() + full_calls,
+             "sdvoigt two_pass=False": None, "lorentz": None,
+             "doppler": None}
+    for label, fn in fns.items():
+        prm = fn.line_params(T, p)
+        calls = timed.get(label) or fn.all_calls()
+        check_xs_passes(label, fn, prm, calls, card,
+                        stats if label in timed else None)
+    for prof in ("sdvoigt", "voigt"):
+        a = fns[f"{prof} classic"](T, p)
+        b = fns[f"{prof} coarse"](T, p)
+        rel = ((a - b).abs().max() / a.abs().max()).item()
+        print(f"[3c coarse] {prof}: coarse-far vs classic on the card "
+              f"{rel:.3e} of peak [{card}]", flush=True)
+        check(rel <= COARSE_BOUND[prof], f"coarse {prof}: {rel:.3e} > "
+              f"{COARSE_BOUND[prof]}")
+    # the direct '*full' launches, counted on their own
+    prm = main.line_params(T, p)
+    reset_launches()
+    for c in full_calls:
+        main.run_call(c, prm)
+    torch.cuda.synchronize()
+    full_launches = read_launches()
+    return finish_stats({m: stats[m] for m in XS_MODES}), full_launches
+
+
 def phase_k2(dev, card):
     f32 = torch.float32
     base = std_atmosphere(device=dev, dtype=f32)
@@ -496,13 +728,14 @@ def phase_k2(dev, card):
 
 
 def reset_launches():
-    for k in fused_xsect.LAUNCHES:
-        fused_xsect.LAUNCHES[k] = 0
+    fused_xsect.LAUNCHES.clear()
     fused_tud.LAUNCHES["tud"] = 0
 
 
 def read_launches():
-    return dict(fused_xsect.LAUNCHES, tud=fused_tud.LAUNCHES["tud"])
+    """The launches since the last reset, per kernel (0 for any not run)."""
+    return collections.Counter(fused_xsect.LAUNCHES,
+                               tud=fused_tud.LAUNCHES["tud"])
 
 
 def phase_main(card):
@@ -511,7 +744,7 @@ def phase_main(card):
     reset_launches()
     x_lo, out = run_tud(args, "cuda", timings)
     launches = read_launches()
-    print(f"[5 main] launches during run_tud: {launches}", flush=True)
+    print(f"[5 main] launches during run_tud: {dict(launches)}", flush=True)
     for k in (*PRODUCTION_MODES, "tud"):
         check(launches[k] > 0, f"kernel {k} was not launched by the main "
               "path")
@@ -570,8 +803,8 @@ def phase_jacobian(card):
     x_lo, out = run_tud(args, "cuda", timings)
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[5b jacobian] launches during run_tud --jacobian: {launches}",
-          flush=True)
+    print(f"[5b jacobian] launches during run_tud --jacobian: "
+          f"{dict(launches)}", flush=True)
     for k in ("full", "jvp"):
         check(launches[k] > 0, f"kernel {k} was not launched by the "
               "Jacobian path")
@@ -610,6 +843,205 @@ def phase_jacobian(card):
     print(f"[5b slice] run_tud --jacobian: card {t1 - t0:.3f} s, CPU "
           f"{t2 - t1:.3f} s", flush=True)
     return launches
+
+
+def window_evals(store, X, T, p, profile, wing_abs):
+    """Nominal hapi-window evaluations of a lattice (bench.py's
+    _window_evals): the grid points inside each (state, line) window."""
+    f64 = dict(device="cpu", dtype=torch.float64)
+    lines = type(store).from_numpy(**{k: v for k, v in store.host.items()},
+                                   **f64)
+    prm = compute_line_params(lines, IsoTables.load(**f64),
+                              torch.as_tensor(T, **f64)[:, None],
+                              torch.as_tensor(p, **f64)[:, None],
+                              wing_abs=wing_abs, profile=profile)
+    nu0 = np.broadcast_to(store.host["nu0"], tuple(prm.wing.shape))
+    wing = prm.wing.numpy()
+    lo = np.searchsorted(X, (nu0 - wing).ravel(), side="right")
+    hi = np.searchsorted(X, (nu0 + wing).ravel(), side="right")
+    return int((hi - lo).sum())
+
+
+def xs_args(cmd):
+    return build_parser().parse_args(cmd.split())
+
+
+def phase_xs_main(dev, card):
+    """7: the xsect CLI at full width (held against the classic route),
+    the bench configuration, the Lorentz/Doppler and single-pass lattices
+    (each a path with its own launch counts) and a small lattice on the
+    card and the CPU."""
+    args = xs_args(XS_CLI)
+    timings = {}
+    reset_launches()
+    xs = run_xsect(args, dev, timings)
+    launches = read_launches()
+    print(f"[7 xsect] launches during run_xsect: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    # the CLI's list has sd_air != 0 on every line: the SD-Voigt passes
+    for k in ("sdvoigt_asym", "corr:64:sdvoigt", "sdvoigt_core"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the xsect "
+              "path")
+    K, X = xs["K"], xs["X"]
+    check(K.shape == (XS_T.size, X.size), f"lattice shape {K.shape}")
+    check(np.isfinite(K).all() and K.max() > 0.0,
+          "the lattice is not finite and positive somewhere")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_xs(os.path.join(tmp, "xs"), xs, "radtxfr_tpu synthetic")
+        rX, rY, meta = xs_read(paths[3])
+        check(len(paths) == XS_T.size and rX.size == X.size
+              and np.array_equal(rY, K[3].astype(np.float64))
+              and meta["T"] == XS_T[3], "AFIT file read back differs")
+    store = synthetic_lines(args.synthetic, nu_min=args.numin - XS_WING,
+                            nu_max=args.numax + XS_WING, seed=args.seed,
+                            device="cpu")
+    evals = window_evals(store, X, xs["T"], xs["p"], "sdvoigt", XS_WING)
+    n = XS_T.size
+    print(f"[7 xsect] {n} states x {X.size} points, max {K.max():.4e} "
+          f"cm^2/molec; plan build {timings['build_s']:.3f} s, lattice "
+          f"{timings['run_s']:.3f} s wall ({n / timings['run_s']:.3f} "
+          f"states/s, {evals:.4e} nominal window evaluations = "
+          f"{evals / timings['run_s']:.4e} /s); AFIT files written and "
+          f"read back [{card}]", flush=True)
+
+    # the CLI's lattice against the same lattice on the classic route (each
+    # line's whole window on the fine grid, no coarse grid, correction or
+    # upsample), so the coarse route's many-tile passes are held at the
+    # shapes the CLI launched
+    t0 = time.perf_counter()
+    classic = make_xsect_fn(type(store).from_numpy(
+        **store.host, device=dev, dtype=torch.float32),
+        IsoTables.load(device=dev), X, xs["T"], xs["p"], profile="sdvoigt",
+        wing_abs=XS_WING, wing_hw=args.wing_hw, far_method="classic")
+    build_c = time.perf_counter() - t0
+    check(not classic.coarse_calls, "the classic lattice took the coarse "
+          "route")
+    Tc, pc = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (xs["T"], xs["p"]))
+    ms_c, ref = cuda_ms(lambda: classic(Tc, pc), 1)
+    rel = ((torch.as_tensor(K, device=dev) - ref).abs().max()
+           / ref.abs().max()).item()
+    print(f"[7 xsect] the CLI's coarse-far lattice vs the classic route at "
+          f"full width: {rel:.3e} of peak; classic plan build {build_c:.3f} "
+          f"s, lattice {ms_c:.3f} ms (CUDA events), passes "
+          f"{sorted({c[2] for c in classic.all_calls()})} [{card}]",
+          flush=True)
+    check(rel <= COARSE_BOUND["sdvoigt"], f"full-width coarse vs classic: "
+          f"{rel:.3e} > {COARSE_BOUND['sdvoigt']}")
+    del classic, ref
+
+    # the bench's configuration (bench.py:588-619) through make_xsect_fn
+    store_b = xs_lines(dev)
+    Xb = arange_drift_free(XS_BENCH["nu_min"], XS_BENCH["nu_max"], 0.0025)
+    T, p = xs_states(dev)
+    t0 = time.perf_counter()
+    fn = make_xsect_fn(store_b, IsoTables.load(device=dev), Xb, XS_T,
+                       np.ones_like(XS_T), profile="sdvoigt",
+                       wing_abs=XS_WING, tile=XS_BENCH["tile"])
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    out = fn(T, p)
+    torch.cuda.synchronize()
+    bench_launches = read_launches()
+    # a quarter of the bench's lines have sd_air = 0: the Voigt passes too
+    for k in ("sdvoigt_asym", "asym", "corr:64:sdvoigt", "corr:64:voigt",
+              "sdvoigt_core"):
+        check(bench_launches[k] > 0, f"kernel {k} was not launched by the "
+              "bench configuration")
+    check(bool(torch.isfinite(out).all()), "bench lattice not finite")
+    ms, _ = cuda_ms(lambda: fn(T, p), 2)
+    evals_b = window_evals(store_b, Xb, XS_T, np.ones_like(XS_T), "sdvoigt",
+                           XS_WING)
+    print(f"[7 bench] make_xsect_fn, 30000 lines seed 1 (25% sd_air = 0), "
+          f"{Xb.size} points, tile 8192: launches "
+          f"{ {k: v for k, v in bench_launches.items() if v} }; plan build "
+          f"{build_s:.3f} s, lattice {ms:.3f} ms (CUDA events, warm), "
+          f"{evals_b:.4e} window evaluations = {evals_b / ms * 1e3:.4e} "
+          f"sdvoigt_window_evals_per_s [{card}]", flush=True)
+
+    # the single-pass modes: Lorentz and Doppler through the CLI, SD-Voigt
+    # without the far-wing split through the builder (sub-band)
+    sub = (f"xsect --synthetic 30000 --numin {XS_SUB[0]} --numax "
+           f"{XS_SUB[1]} --dv {XS_SUB[2]} --wing-abs {XS_WING} --T 275 "
+           f"--T-max 320 --T-step 5 --profile ")
+    path_launches = {}
+    for prof in ("lorentz", "doppler"):
+        reset_launches()
+        r = run_xsect(xs_args(sub + prof), dev)
+        path_launches[prof] = read_launches()[prof]
+        check(path_launches[prof] > 0 and np.isfinite(r["K"]).all(),
+              f"xsect --profile {prof} did not run its kernel")
+    fn1 = make_xsect_fn(store_b, IsoTables.load(device=dev),
+                        arange_drift_free(*XS_SUB), XS_T, np.ones_like(XS_T),
+                        profile="sdvoigt", wing_abs=XS_WING, two_pass=False)
+    reset_launches()
+    check(bool(torch.isfinite(fn1(T, p)).all()), "two_pass=False lattice")
+    torch.cuda.synchronize()
+    path_launches["sdvoigt"] = read_launches()["sdvoigt"]
+    check(path_launches["sdvoigt"] > 0, "two_pass=False ran no sdvoigt pass")
+    print(f"[7 paths] launches: lorentz and doppler CLI runs, the "
+          f"two_pass=False lattice: {path_launches}", flush=True)
+
+    small = ("xsect --synthetic 2000 --numin 1000 --numax 1010 --dv 0.0025 "
+             "--profile sdvoigt --wing-abs 350 --T 275 --T-max 320 "
+             "--T-step 5")
+    t0 = time.perf_counter()
+    gpu = run_xsect(xs_args(small), dev)
+    t1 = time.perf_counter()
+    cpu = run_xsect(xs_args(small), "cpu")
+    t2 = time.perf_counter()
+    check(any(m.startswith("corr:") for m in cpu["modes"]),
+          "the small lattice did not take the coarse-far route")
+    rel = np.abs(gpu["K"] - cpu["K"]).max() / np.abs(cpu["K"]).max()
+    print(f"[7 slice] 2000 lines, 1000-1010 cm^-1, 10 states: card vs CPU "
+          f"plain {rel:.3e} of peak; card {t1 - t0:.3f} s, CPU "
+          f"{t2 - t1:.3f} s", flush=True)
+    check(rel <= XS_SLICE_BOUND, f"xsect slice: {rel:.3e} > "
+          f"{XS_SLICE_BOUND}")
+    # each mode's launches from the first path that ran it: the CLI, the
+    # bench configuration, the single-pass lattices
+    return {m: path_launches.get(m) or launches[m] or bench_launches[m]
+            for m in XS_MODES}
+
+
+def phase_xs_breakdown(dev, card):
+    """8: where the full-width lattice's time goes, per stage."""
+    args = xs_args(XS_CLI)
+    store = synthetic_lines(args.synthetic, nu_min=args.numin - XS_WING,
+                            nu_max=args.numax + XS_WING, seed=args.seed,
+                            device=dev)
+    X = arange_drift_free(args.numin, args.numax, args.dv)
+    fn = make_xsect_fn(store, IsoTables.load(device=dev), X, XS_T,
+                       np.ones_like(XS_T), profile="sdvoigt",
+                       wing_abs=XS_WING)
+    T, p = xs_states(dev)
+    ms = {}
+    ms["line params"], prm = cuda_ms(lambda: fn.line_params(T, p), 3)
+
+    def passes(calls):
+        return [fn.run_call(c, prm) for c in calls]
+
+    ms["coarse passes"], out_c = cuda_ms(lambda: passes(fn.coarse_calls), 3)
+    out_c = sum(out_c)
+    ms["upsample"], _ = cuda_ms(
+        lambda: _coarse_upsample(out_c, fn.n_x, fn.coarse_r), 3)
+    ms["corr passes"], _ = cuda_ms(lambda: passes(fn.corr_calls), 3)
+    ms["core passes"], _ = cuda_ms(lambda: passes(fn.calls), 3)
+    ms["lattice (fn)"], _ = cuda_ms(lambda: fn(T, p), 3)
+    work = {}
+    for lay, dplan, mode in fn.all_calls():
+        o, b = xs_bound_work(mode, lay, dplan, prm)
+        w = work.setdefault(mode, [0, 0])
+        work[mode] = [w[0] + o, w[1] + b]
+    print("[8 xsect breakdown] full width (10 states x "
+          f"{X.size} points), ms per stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + "; passes " + ", ".join(
+              f"{m} x{sum(c[2] == m for c in fn.all_calls())}"
+              for m in work) + f" [{card}]", flush=True)
+    print("[8 bounds] per lattice, bound ms: " + ", ".join(
+        "{} {:.4f} ({})".format(m, *bound(*w)) for m, w in work.items())
+        + f" [{card}]", flush=True)
 
 
 def phase_breakdown(dev, card):
@@ -750,11 +1182,16 @@ def main():
     warm_up(dev)
     k1 = phase_k1(dev, card)
     k1d = phase_k1_diff(dev, card)
+    xs_stats, full_launches = phase_xs_sub(dev, card)
     k2 = phase_k2(dev, card)
     launches = phase_main(card)
     jac_launches = phase_jacobian(card)
+    xs_launches = {**phase_xs_main(dev, card),
+                   **{m: full_launches[m] for m in ("corr:64:voigtfull",
+                                                    "corr:64:sdvoigtfull")}}
     phase_breakdown(dev, card)
     phase_jac_breakdown(dev, card)
+    phase_xs_breakdown(dev, card)
     src = "radtxfr_tpu_torch/csrc/"
     xs = "radtxfr_tpu/kernels/pallas_xsect.py:"
     kernels = [
@@ -769,6 +1206,10 @@ def main():
                     "source": src + "fused_xsect_jvp.cu",
                     "replaces": xs + "1212",
                     "launches": jac_launches["jvp"], **k1d["jvp"]})
+    kernels += [{"name": f"fused_xsect_{m}", "route": "cuda",
+                 "source": src + "fused_xsect.cu", "replaces": xs + "710",
+                 "launches": xs_launches[m], **xs_stats[m]}
+                for m in XS_MODES]
     kernels.append({"name": "fused_tud", "route": "cuda",
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",

@@ -37,11 +37,13 @@ I = ctypes.c_int
 
 #: argument types of every C entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
-    # mode, starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # shift0, strength, gamma_d, gamma_0, wing, ymix, n_lines, wei, n_wei,
-    # tile, block, n_tiles, n_out, dx, out, stream
-    "radtxfr_fused_xsect": [I, P, P, P, P, P, P, P, I, P, P, P, P, P, P, I,
-                            P, I, I, I, I, I, ctypes.c_double, P, P],
+    # mode, R, starts, counts, k_line, frac0, line, wcap, lay_idx,
+    # n_lay_call, shift0, strength, gamma_d, gamma_0, wing, ymix, gamma_2,
+    # n_lines, wei, n_wei, tile, block, n_tiles, max_blocks, n_out, dx, out,
+    # stream
+    "radtxfr_fused_xsect": [I, I, P, P, P, P, P, P, P, I, P, P, P, P, P, P,
+                            P, I, P, I, I, I, I, I, I, ctypes.c_double, P,
+                            P],
     # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
     # lay_live, shift0, strength, gamma_d, gamma_0, wing, shift0_t,
     # strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines, wei, n_wei,

@@ -1,10 +1,21 @@
 """Command-line entry point of the port (counterpart of
-``radtxfr_tpu/cli/main.py``; the ``tud`` command, single device).
+``radtxfr_tpu/cli/main.py``; the ``xsect`` and ``tud`` commands, single
+device).
 
+    python -m radtxfr_tpu_torch.cli.main xsect --synthetic 30000 \\
+        --numin 400 --numax 7100 --dv 0.0025 --profile sdvoigt \\
+        --wing-abs 350 --T 275 --T-max 320 --T-step 5 --p 1.0 \\
+        [--device cuda] [--output DIR/xs]
     python -m radtxfr_tpu_torch.cli.main tud --derived --line-mixing \\
         --continuum mt_ckd --numin 690 --numax 1410 --dv 0.0005 \\
         --n-atmos N --batch B [--jacobian [--jacobian-wrt T,1,3]] \\
         [--device cuda] [--output tud.h5]
+
+``xsect`` is configuration 2 of the reference (``RT_gen_AbsXS_files.py``):
+absorption cross-sections of a (T, p) lattice on a fine grid, one AFIT_XS
+binary file per state. The states are the kernels' layers
+(:func:`~..products.od.make_xsect_fn`); absolute wings that dominate every
+halfwidth wing (the reference's 350 cm^-1) take the coarse-far route.
 
 ``tud`` is configuration 3 of the reference (``Generate_LWIR_TUD.py``):
 66-layer multi-altitude transmittance / upwelling / downwelling over the
@@ -16,9 +27,15 @@ atmosphere by forward-mode autodiff (the reference's 199-profile finite
 differences), 8 directions at a time, each batch reduced on the device as
 soon as it exists.
 
+Line data: ``--derived`` (the physics-derived LWIR list) or ``--synthetic
+N`` (the deterministic synthetic list; 20,000 lines when neither is given,
+as in the JAX CLI).
+
 Not ported yet (each raises ``NotImplementedError``): ``--par`` (parse_par
-and the native parser, ROADMAP M9), ``--synthetic`` (M2), ``--checkpoint``
-(M9) and ``--mesh-*`` (M15, with the sharded Jacobian).
+and the native parser, ROADMAP M9), ``xsect --profile ht`` (Hartmann-Tran,
+M13), ``xsect --engine jnp`` (the JAX package's jnp engine, whose SD-Voigt
+is pcqsdhc through ``htp.py``), ``--checkpoint`` (M9) and ``--mesh-*``
+(M15, with the sharded Jacobian).
 """
 
 from __future__ import annotations
@@ -31,17 +48,98 @@ import torch
 
 
 def _load_lines(args, device, margin=25.0):
+    """The run's line list, ``margin`` cm^-1 beyond each band edge: the
+    derived list, or ``--synthetic`` lines (20,000 by default)."""
     from ..lines.derived import derived_lwir_linelist
+    from ..lines.synthetic import synthetic_lines
 
     if args.par:
         raise NotImplementedError(
             "--par: parse_par and the native .par parser are ROADMAP M9")
-    if not args.derived:
+    if args.derived:
+        return derived_lwir_linelist(args.numin - margin,
+                                     args.numax + margin, device=device,
+                                     dtype=torch.float32)
+    return synthetic_lines(args.synthetic or 20000, nu_min=args.numin - margin,
+                           nu_max=args.numax + margin, seed=args.seed,
+                           device=device, dtype=torch.float32)
+
+
+def run_xsect(args, device, timings: dict | None = None) -> dict:
+    """The ``xsect`` lattice on ``device``.
+
+    Returns ``{"X", "T", "p", "K", "mol_id", "modes"}``: the axis (nX,),
+    the states' T [K] and p [atm] (nStates,), the NumPy float32
+    cross-sections (nStates, nX) [cm^2/molec], the AFIT molecule id (the
+    list's one molecule, else 0) and the modes of the kernel passes run.
+    ``timings``, when given, receives ``build_s`` (lines and plans) and
+    ``run_s`` (the lattice, on the host).
+    """
+    from ..core.grid import arange_drift_free
+    from ..lines.store import IsoTables
+    from ..products.od import make_xsect_fn
+
+    if args.profile == "ht":
         raise NotImplementedError(
-            "--synthetic line lists (lines/synthetic.py) are ROADMAP M2; "
-            "pass --derived")
-    return derived_lwir_linelist(args.numin - margin, args.numax + margin,
-                                 device=device, dtype=torch.float32)
+            "--profile ht: the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
+    if args.engine == "jnp":
+        raise NotImplementedError(
+            "--engine jnp: the JAX package's jnp engine (SD-Voigt through "
+            "htp.py's pcqsdhc) is not ported; the port runs the kernels")
+    device = torch.device(device)
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    store = _load_lines(args, device, margin=max(50.0, args.wing_abs))
+    iso = IsoTables.load(device=device, dtype=f32)
+    X = arange_drift_free(args.numin, args.numax, args.dv)
+    # the (T, p) lattice, reference XS-generator style
+    # (misc/RT_gen_AbsXS_files.py:25-30); defaults to the single state
+    T_states = (np.arange(args.T, args.T_max + 1e-9, args.T_step)
+                if args.T_max else np.array([args.T]))
+    p_states = (np.arange(args.p, args.p_max + 1e-9, args.p_step)
+                if args.p_max else np.array([args.p]))
+    TT, PP = [a.ravel() for a in np.meshgrid(T_states, p_states,
+                                             indexing="ij")]
+    fn = make_xsect_fn(store, iso, X, TT, PP, profile=args.profile,
+                       wing_abs=args.wing_abs, wing_hw=args.wing_hw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    K = fn(torch.as_tensor(TT, dtype=f32, device=device),
+           torch.as_tensor(PP, dtype=f32, device=device)).cpu().numpy()
+    if timings is not None:
+        timings.update(build_s=t1 - t0, run_s=time.perf_counter() - t1)
+    mols = np.unique(store.host["mol_id"])
+    return {"X": X, "T": TT, "p": PP, "K": K,
+            "mol_id": int(mols[0]) if mols.size == 1 else 0,
+            "modes": [c[2] for c in fn.all_calls()]}
+
+
+def write_xs(path, xs: dict, db_name: str) -> list:
+    """One AFIT_XS file per state: ``path`` for a single state, else
+    ``path.T<T>_p<p>`` (the JAX CLI's names); the paths written."""
+    from ..io.afit_xs import xs_write
+
+    T, p = xs["T"], xs["p"]
+    return [xs_write(xs["X"], xs["K"][i], float(T_s), float(p_s) * 101325.0,
+                     xs["mol_id"], db_name,
+                     fname=(path if T.size == 1
+                            else f"{path}.T{T_s:g}_p{p_s:g}"))
+            for i, (T_s, p_s) in enumerate(zip(T, p))]
+
+
+def cmd_xsect(args):
+    timings = {}
+    xs = run_xsect(args, args.device, timings)
+    n, n_x = xs["T"].size, xs["X"].size
+    print(f"xsect [{args.device}]: {n} (T,p) states x {n_x} points, max "
+          f"{xs['K'].max():.3e} cm^2/molec; build {timings['build_s']:.3f} "
+          f"s, lattice {timings['run_s']:.3f} s "
+          f"({n / timings['run_s']:.3f} states/s)")
+    if args.output:
+        db = "radtxfr_tpu synthetic" if not args.par else args.par
+        write_xs(args.output, xs, db)
+        print(f"wrote {n} file(s) at {args.output}")
 
 
 def run_tud(args, device, timings: dict | None = None):
@@ -205,25 +303,52 @@ def cmd_tud(args):
         _write_tud_h5(args.output, x_lo, out, args.altitudes)
 
 
+def _add_common(p):
+    p.add_argument("--par", help="HITRAN .par line database (not ported)")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="use N synthetic lines (default 20000 when neither "
+                        "--synthetic nor --derived is given)")
+    p.add_argument("--derived", action="store_true",
+                   help="use the physics-derived H2O+CO2+O3+N2O+CH4 LWIR "
+                        "list (lines/derived.py)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--numin", type=float, default=690.0)
+    p.add_argument("--numax", type=float, default=1410.0)
+    p.add_argument("--dv", type=float, default=0.0025)
+    p.add_argument("--output", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the run uses (e.g. cuda, cuda:1, cpu)")
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="radtxfr_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
+
+    p2 = sub.add_parser("xsect", help="config 2: (T, p) cross-section lattice")
+    _add_common(p2)
+    p2.add_argument("--engine", default="auto",
+                    choices=["auto", "jnp", "pallas"],
+                    help="'auto' and 'pallas' (the JAX CLI's name) run the "
+                         "kernels; 'jnp' is not ported")
+    p2.add_argument("--T", type=float, default=296.0)
+    p2.add_argument("--p", type=float, default=1.0, help="pressure [atm]")
+    p2.add_argument("--profile", default="voigt",
+                    choices=["voigt", "lorentz", "doppler", "sdvoigt", "ht"])
+    p2.add_argument("--wing-hw", dest="wing_hw", type=float, default=50.0)
+    p2.add_argument("--wing-abs", dest="wing_abs", type=float, default=0.0,
+                    help="absolute wing [cm^-1] (reference XS generator: 350)")
+    p2.add_argument("--T-max", dest="T_max", type=float, default=None,
+                    help="build a T lattice from --T to --T-max")
+    p2.add_argument("--T-step", dest="T_step", type=float, default=5.0)
+    p2.add_argument("--p-max", dest="p_max", type=float, default=None,
+                    help="build a p lattice from --p to --p-max [atm]")
+    p2.add_argument("--p-step", dest="p_step", type=float, default=0.05)
+    p2.set_defaults(fn=cmd_xsect)
+
     p3 = sub.add_parser("tud", help="config 3: ensemble TUD production")
-    p3.add_argument("--par", help="HITRAN .par line database (not ported)")
-    p3.add_argument("--synthetic", type=int, default=0,
-                    help="synthetic line list (not ported)")
-    p3.add_argument("--derived", action="store_true",
-                    help="use the physics-derived H2O+CO2+O3+N2O+CH4 LWIR "
-                         "list (lines/derived.py)")
-    p3.add_argument("--seed", type=int, default=0)
-    p3.add_argument("--numin", type=float, default=690.0)
-    p3.add_argument("--numax", type=float, default=1410.0)
-    p3.add_argument("--dv", type=float, default=0.0025)
-    p3.add_argument("--output", default=None)
-    p3.add_argument("--device", default="cuda",
-                    help="torch device the run uses (e.g. cuda, cuda:1, cpu)")
+    _add_common(p3)
     p3.add_argument("--n-atmos", type=int, default=4)
     p3.add_argument("--batch", type=int, default=24)
     p3.add_argument("--continuum", default="none",

@@ -1,10 +1,10 @@
 """Bucketed lines x wavenumbers line-shape accumulation (K1) and its
 forward-mode derivative (K3).
 
-Counterpart of ``radtxfr_tpu/kernels/pallas_xsect.py`` for the production
-and Jacobian OD paths: the host planning (:class:`UniformGrid`,
+Counterpart of ``radtxfr_tpu/kernels/pallas_xsect.py`` for the OD and
+cross-section paths: the host planning (:class:`UniformGrid`,
 :class:`BucketPlan`, :func:`auto_block`, :func:`plan_buckets_packed`, NumPy
-as in JAX), the layer-fused kernel ``_make_fused_kernel`` in its modes
+as in JAX), the layer-fused kernel ``_make_fused_kernel`` in every mode
 
 * ``asym`` — the guarded Humlicek asymptotic Re w everywhere in the window
   (the cheap far-wing pass);
@@ -14,6 +14,17 @@ as in JAX), the layer-fused kernel ``_make_fused_kernel`` in its modes
   Rosenkranz line mixing);
 * ``full`` — the single-pass blend (Weideman inside |x| + y < 15, the
   unguarded asymptotic form outside): the differentiable path's primal;
+* ``sdvoigt``, ``sdvoigt_asym``, ``sdvoigt_core`` — hapi's pcqsdhc with
+  Gamma2 real (the SD-Voigt driver), its double-asymptotic far-wing form and
+  their difference (``pallas_xsect.py:562-633``): the shift rides inside the
+  profile (``shift0``) and the grid shift is zero;
+* ``lorentz``, ``doppler`` — hapi's simple forms with its truncated
+  constants (``pallas_xsect.py:52-60``);
+* ``corr:R:{voigt,voigtfull,sdvoigt,sdvoigtfull}`` — the coarse-far
+  correction: the point term minus the 4-point Lagrange-cubic interpolation
+  of the guarded asymptotic far field through the coarse nodes (every R-th
+  grid point, node row 0 one coarse step left of the tile), masked by the
+  true window (no wing cap; ``pallas_xsect.py:762-879``);
 
 and the tangent kernel ``_make_fused_jvp_kernel`` (K3), the directional
 derivative of the ``full`` pass w.r.t. (shift0, strength, gamma_d, gamma_0)
@@ -24,7 +35,7 @@ from the region-consistent analytic derivatives of each approximation
 CUDA kernels (``csrc/fused_xsect.cu``, ``csrc/fused_xsect_jvp.cu``) for
 CUDA tensors and run the plain PyTorch versions :func:`xsect_fused_plain`
 and :func:`xsect_fused_jvp_plain` for CPU tensors; :data:`LAUNCHES` counts
-kernel launches per mode (and ``"jvp"``). All read the packed plan's
+kernel launches per mode string (and ``"jvp"``). All read the packed plan's
 per-slot line index (:class:`DevicePlan`) and index the (nLay, L) parameter
 rows directly, instead of materialising packed (n_blocks, nLay, block)
 copies.
@@ -49,6 +60,7 @@ pass the window mask.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -58,20 +70,29 @@ import torch
 
 from .. import _build, resolve_device
 from .._build import check_tensor
+from ..core.constants import LN2, SQRT_LN2_DIV_SQRT_PI
 from .faddeeva import REGION_BOUND, weideman_coeffs
 
 __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
            "plan_buckets_packed", "device_plan", "xsect_fused",
            "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
-           "xsect_fused_diff", "LAUNCHES", "MODES"]
+           "xsect_fused_diff", "cubic_weights", "corr_r_supported",
+           "LAUNCHES", "MODES", "CORR_VARIANTS", "SD_MODES"]
 
-MODES = ("asym", "core", "mix", "full")
-#: kernel launches per K1 mode and of K3 ("jvp") since the last reset
-#: (plain runs not counted)
-LAUNCHES = {**{m: 0 for m in MODES}, "jvp": 0}
+#: K1's modes other than the correction passes, in the CUDA switch's order
+MODES = ("asym", "core", "mix", "full", "sdvoigt", "sdvoigt_asym",
+         "sdvoigt_core", "lorentz", "doppler")
+#: point-term variants of the correction modes ``corr:R:<variant>``
+CORR_VARIANTS = ("voigt", "voigtfull", "sdvoigt", "sdvoigtfull")
+#: the modes whose profile carries the shift and needs Gamma2
+SD_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core")
+#: kernel launches per K1 mode string and of K3 ("jvp") since the last
+#: reset (plain runs not counted)
+LAUNCHES = collections.Counter()
 
 _SQRT_LN2 = math.sqrt(math.log(2.0))
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
+_INV_PI = 1.0 / math.pi
 #: the asym form's denominator clamp (``pallas_xsect.py:378-397``)
 _GUARD = 0.25
 #: Weideman terms the CUDA kernel stages in shared memory at most
@@ -80,6 +101,38 @@ _MAX_WEIDEMAN = 32
 _PLAIN_MAX_ELEMS = 1 << 23
 #: tangent directions one K3 launch carries at most (csrc: ND_MAX)
 _JVP_MAX_DIRS = 8
+#: points of a CUDA CTA's slice of a tile (csrc: SPAN); a correction pass's
+#: R must divide it, and be at least _CORR_MIN_R (csrc: NODES_MAX)
+_SPAN = 256
+_CORR_MIN_R = 8
+
+
+def parse_mode(mode: str):
+    """``(family, R, variant)`` of a K1 mode string: ``(mode, 0, None)``
+    for the modes of :data:`MODES`, ``("corr", R, variant)`` for
+    ``corr:R:variant``; raises on anything else."""
+    if mode in MODES:
+        return mode, 0, None
+    parts = mode.split(":")
+    if (len(parts) == 3 and parts[0] == "corr" and parts[1].isdigit()
+            and int(parts[1]) > 0 and parts[2] in CORR_VARIANTS):
+        return "corr", int(parts[1]), parts[2]
+    raise ValueError(f"mode must be one of {MODES} or corr:R:<variant> with "
+                     f"variant in {CORR_VARIANTS}, got {mode!r}")
+
+
+def corr_r_supported(R) -> bool:
+    """Whether the CUDA correction pass takes ``corr:R:*``: R divides its
+    256-point slice (a slice starts on a coarse node) and is at least 8
+    (which bounds its shared node buffer)."""
+    return int(R) >= _CORR_MIN_R and _SPAN % int(R) == 0
+
+
+def is_sd_mode(mode: str) -> bool:
+    """Whether ``mode`` evaluates SD-Voigt (zero grid shift, the shift
+    inside the profile, Gamma2 needed)."""
+    fam, _, variant = parse_mode(mode)
+    return fam in SD_MODES or (fam == "corr" and variant.startswith("sd"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,14 +196,17 @@ def auto_block(nu0, grid: UniformGrid, max_wing: float, tile: int,
 
 
 def plan_buckets_packed(nu0, grid: UniformGrid, max_wing, tile: int = 1024,
-                        block="auto") -> BucketPlan:
+                        block="auto", place_center=None) -> BucketPlan:
     """Per-tile packed bucketing: each tile's line list is materialised
     exactly (lines duplicated across the tiles their wings touch) and packed
     contiguously into blocks (``pallas_xsect.py:195-307``).
 
     ``max_wing`` may be a scalar or a per-line array; with an array each
     line lands only in the tiles its own wing bound touches and the kernel
-    clamps the runtime wing per line (``plan.wing_line``).
+    clamps the runtime wing per line (``plan.wing_line``). ``place_center``
+    (default: the line centres) centres the placement intervals elsewhere,
+    as the coarse-far correction passes place their window-edge bands at
+    nu0 +- wing; ``k_line`` and ``frac0`` always come from ``nu0``.
     """
     nu0 = np.asarray(nu0, dtype=np.float64)
     if nu0.size == 0:
@@ -161,16 +217,19 @@ def plan_buckets_packed(nu0, grid: UniformGrid, max_wing, tile: int = 1024,
     w = np.asarray(max_wing, dtype=np.float64)
     per_line = w.ndim > 0
     w = np.broadcast_to(w, nu0.shape)
+    pc = (nu0 if place_center is None
+          else np.broadcast_to(np.asarray(place_center, dtype=np.float64),
+                               nu0.shape))
 
     n_tiles = -(-grid.n // tile)
     span_pts = tile * grid.dx
     # widen by one grid step so float rounding can only add a tile
-    lo_t = np.floor((nu0 - w - grid.dx - grid.x0) / span_pts).astype(np.int64)
-    hi_t = np.floor((nu0 + w + grid.dx - grid.x0) / span_pts).astype(np.int64)
+    lo_t = np.floor((pc - w - grid.dx - grid.x0) / span_pts).astype(np.int64)
+    hi_t = np.floor((pc + w + grid.dx - grid.x0) / span_pts).astype(np.int64)
     # lines whose window cannot touch the grid get no tiles at all
     x_end = grid.x0 + grid.dx * (grid.n - 1)
-    in_range = ((nu0 + w >= grid.x0 - grid.dx)
-                & (nu0 - w <= x_end + grid.dx))
+    in_range = ((pc + w >= grid.x0 - grid.dx)
+                & (pc - w <= x_end + grid.dx))
     lo_t = np.clip(lo_t, 0, n_tiles - 1)
     hi_t = np.clip(hi_t, 0, n_tiles - 1)
 
@@ -312,24 +371,116 @@ def _weideman_w(x, y, a, L):
     return K, Lw
 
 
-def _mode_value(mode, x, y, ymix, a, L):
-    """Re w (or K + Y L) of ``mode`` before the line scale."""
-    if mode == "asym":
-        return _asym_re_w(x, y, _GUARD)
-    if mode == "full":
-        return _select_core(x, y, lambda xc, yc: _weideman_w(xc, yc, a, L),
-                            lambda xf, yf: (_asym_re_w(xf, yf),))[0]
+def _cpf3_re_w(x, y):
+    """Re w of hapi's 15-term asymptotic CPF (``cpf3``,
+    ``misc/hapi.py:9645-9670``; ``pallas_xsect.py::_cpf3_pair``) in real
+    arithmetic, |z|^2 clamped at 9 so that unselected evaluations at small
+    |z| stay finite."""
+    m = torch.clamp(x * x + y * y, min=9.0)
+    ar = x / m
+    ai = -y / m
+    m2r = ar * ar - ai * ai
+    m2i = 2.0 * ar * ai
+    sr = torch.ones_like(ar)
+    si = torch.zeros_like(ar)
+    tr, ti = torch.ones_like(ar), torch.zeros_like(ar)
+    for tt in (0.5, 1.5, 2.5, 3.5, 4.5, 5.5, 6.5, 7.5, 8.5, 9.5, 10.5,
+               11.5, 12.5, 13.5, 14.5):
+        tr, ti = (tr * m2r - ti * m2i) * tt, (tr * m2i + ti * m2r) * tt
+        sr = sr + tr
+        si = si + ti
+    return -(ar * si + ai * sr) * _INV_SQRT_PI
+
+
+def _re_w_select(x, y, a, L):
+    """Re w by hum1_wei's region rule (Weideman inside |x| + y < 15, the
+    unguarded asymptotic form outside)."""
+    return torch.where(torch.abs(x) + y < REGION_BOUND,
+                       _weideman_w(x, y, a, L)[0], _asym_re_w(x, y))
+
+
+def _sdvoigt_block(dnu, gd, g0, g2, s0, a, L, variant="full"):
+    """SD-Voigt profile (``pallas_xsect.py::_sdvoigt_block``): pcqsdhc with
+    anuVC = eta = Shift2 = 0 and Gamma2 real, op for op. ``variant``
+    'full' is hapi's CPF3-vs-CPF selection, 'asym' both CPF points in the
+    guarded asymptotic form, 'core' their difference."""
+    cte = _SQRT_LN2 / gd
+    # runtime-vanishing Gamma2 is clamped to the Voigt limit
+    g2 = torch.maximum(g2, 1e-4 * g0 + 1e-12)
+    inv_g2 = 1.0 / g2
+    c0tr = (g0 - 1.5 * g2) * inv_g2
+    xi = (s0 - dnu) * inv_g2
+    c = 0.5 / (cte * g2)
+    aa = c0tr + c * c
+    r = torch.sqrt(aa * aa + xi * xi)
+    u = torch.sqrt(torch.clamp((r + aa) * 0.5, min=0.0))
+    v = torch.sign(xi) * torch.sqrt(torch.clamp((r - aa) * 0.5, min=0.0))
+    x12 = -v
+    y1 = u - c
+    y2 = u + c
+    if variant == "asym":
+        return cte * _INV_SQRT_PI * (_asym_re_w(x12, y1, _GUARD)
+                                     - _asym_re_w(x12, y2, _GUARD))
+    sz1 = torch.sqrt(v * v + y1 * y1)
+    sz2 = torch.sqrt(v * v + y2 * y2)
+    szmx = torch.maximum(sz1, sz2)
+    szmn = torch.minimum(sz1, sz2)
+    use3 = (torch.abs(sz1 - sz2) <= 1.0) & (szmx > 8.0) & (szmn <= 8.0)
+    w1 = torch.where(use3, _cpf3_re_w(x12, y1), _re_w_select(x12, y1, a, L))
+    w2 = torch.where(use3, _cpf3_re_w(x12, y2), _re_w_select(x12, y2, a, L))
+    if variant == "core":
+        w1 = w1 - _asym_re_w(x12, y1, _GUARD)
+        w2 = w2 - _asym_re_w(x12, y2, _GUARD)
+    return cte * _INV_SQRT_PI * (w1 - w2)
+
+
+def _simple_profile(mode, dnu, gd, g0, strength):
+    """Lorentz or Doppler contribution, hapi's forms with its truncated
+    Doppler constants (``pallas_xsect.py::_simple_profile``)."""
+    if mode == "lorentz":
+        return strength * g0 * (_INV_PI * (1.0 / (g0 * g0 + dnu * dnu)))
+    inv_gd = 1.0 / gd
+    t = dnu * inv_gd
+    return ((strength * SQRT_LN2_DIV_SQRT_PI) * inv_gd
+            * torch.exp(-LN2 * t * t))
+
+
+def _value(kind, u, s, a, L):
+    """One slot's contribution at grid offsets ``u`` before the window
+    mask: ``kind`` is a mode of :data:`MODES` or 'voigtfull' (the
+    correction passes' blend, guarded outside the core); ``s`` holds the
+    slot constants of :func:`_slot_constants`."""
+    if kind in SD_MODES:
+        variant = {"sdvoigt": "full", "sdvoigt_asym": "asym",
+                   "sdvoigt_core": "core"}[kind]
+        return s["s"] * _sdvoigt_block((u - s["ds"]) * s["dx"], s["gd"],
+                                       s["g0"], s["g2"], s["s0"], a, L,
+                                       variant)
+    if kind in ("lorentz", "doppler"):
+        return _simple_profile(kind, (u - s["ds"]) * s["dx"], s["gd"],
+                               s["g0"], s["s"])
+    x, y = (u - s["ds"]) * s["xs"], s["y"]
+    if kind == "asym":
+        return s["scale"] * _asym_re_w(x, y, _GUARD)
+    if kind == "full":
+        return s["scale"] * _select_core(
+            x, y, lambda xc, yc: _weideman_w(xc, yc, a, L),
+            lambda xf, yf: (_asym_re_w(xf, yf),))[0]
     in_core = (torch.abs(x) + y) < REGION_BOUND
     Kw, Lw = _weideman_w(x, y, a, L)
-    if mode == "core":
-        return torch.where(in_core, Kw - _asym_re_w(x, y, _GUARD), 0.0)
+    if kind == "core":
+        return s["scale"] * torch.where(in_core, Kw - _asym_re_w(x, y, _GUARD),
+                                        0.0)
+    if kind == "voigtfull":
+        return s["scale"] * torch.where(in_core, Kw,
+                                        _asym_re_w(x, y, _GUARD))
     dr = 0.5 + y * y - x * x
     di = -2.0 * x * y
     inv = _INV_SQRT_PI * (1.0 / (dr * dr + di * di))
     Ka = (y * dr - x * di) * inv
     La = -(x * dr + y * di) * inv
-    return (torch.where(in_core, Kw, Ka)
-            + ymix * torch.where(in_core, Lw, La))
+    return s["scale"] * (torch.where(in_core, Kw, Ka)
+                         + s["ymix"] * torch.where(in_core, Lw, La))
 
 
 def _asym_k_grads(x, y):
@@ -399,10 +550,14 @@ def _voigt_k_grads(x, y, a, L):
 
 
 def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
-                    ymix, mode):
+                    ymix, mode, gamma_2=None):
     """(nl, n_slots) per-(layer, slot) line constants, padding slots filled
-    as the Pallas wrapper pads them (strength 0, gamma 1, wing 0); ``gd``
-    and ``cte`` only feed the tangent's coefficients."""
+    as the Pallas wrapper pads them (strength 0, gammas 1, shift 0, wing 0).
+    SD-Voigt modes have a zero grid shift ``ds`` and the shift ``s0`` inside
+    the profile; a correction pass masks by the true window (no wing cap).
+    ``gd`` and ``cte`` also feed the tangent's coefficients."""
+    fam = parse_mode(mode)[0]
+    sd = is_sd_mode(mode)
     lay = lay_idx.long()
     valid = dplan.line >= 0
     safe = torch.where(valid, dplan.line, 0).long()
@@ -415,17 +570,24 @@ def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
     dx = dplan.dx
     gd = take(gamma_d, 1.0)
     cte = _SQRT_LN2 / gd
-    return dict(
-        gd=gd, cte=cte,
-        ds=take(shift0 / dx, 0.0),
+    w = wing[lay][:, safe]
+    if fam != "corr":
+        w = torch.minimum(w, dplan.wcap.to(dt))
+    c = dict(
+        gd=gd, cte=cte, dx=dx,
+        ds=(torch.zeros_like(gd) if sd else take(shift0 / dx, 0.0)),
         xs=dx * cte,
         y=take(gamma_0, 1.0) * cte,
         scale=take(strength, 0.0) * (_INV_SQRT_PI * cte),
-        wingu=torch.where(valid, torch.minimum(
-            wing[lay][:, safe], dplan.wcap.to(dt)) / dx,
-            torch.tensor(0.0, dtype=dt, device=wing.device)),
+        wingu=torch.where(valid, w / dx,
+                          torch.tensor(0.0, dtype=dt, device=wing.device)),
         ymix=take(ymix, 1.0) if mode == "mix" else None,
     )
+    if sd or fam in ("lorentz", "doppler"):
+        c.update(s=take(strength, 0.0), g0=take(gamma_0, 1.0),
+                 s0=take(shift0, 0.0),
+                 g2=take(gamma_2, 1.0) if sd else None)
+    return c
 
 
 def _plain_steps(dplan, n_rows, dt):
@@ -449,33 +611,83 @@ def _plain_steps(dplan, n_rows, dt):
             yield t_i, slots, u[None]
 
 
+def cubic_weights(n, R, dt, dev):
+    """For fine points i = 0 .. n-1: the segment i // R (the first of the
+    four coarse nodes each interpolates) and the uniform 4-point
+    Lagrange-cubic weights at t = frac(i / R), the stencil the coarse-far
+    upsample (``products/od.py::_coarse_upsample``) and the correction
+    passes share (``pallas_xsect.py:798-811``)."""
+    i = torch.arange(n, device=dev)
+    seg = i // R
+    t = (i - seg * R).to(dt) / R
+    return seg, ((-t * (t - 1.0) * (t - 2.0) * (1.0 / 6.0)),
+                 ((t * t - 1.0) * (t - 2.0) * 0.5),
+                 (-t * (t + 1.0) * (t - 2.0) * 0.5),
+                 (t * (t * t - 1.0) * (1.0 / 6.0)))
+
+
 def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                       gamma_0, wing, ymix=None, mode: str = "asym",
-                      n_weideman: int = 16) -> torch.Tensor:
+                      n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, in the parameters' dtype
     (float32 or float64) on their device.
 
     Parameters are (nLay, L) rows over the full line list; ``lay_idx``
     selects this call's layers. For each tile and each of its blocks it
     evaluates the dense (layers, block, tile) line shapes, masks them to
-    hapi's window and sums over the block. Returns (len(lay_idx), n_out).
+    hapi's window and sums over the block. A correction pass ``corr:R:*``
+    adds, per slot, the masked point term minus the cubic interpolation of
+    the masked guarded-asymptotic node values (nodes every R points, row 0
+    one coarse step left of the tile start) at every point of the tile.
+    Returns (len(lay_idx), n_out).
     """
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check_mode_args(mode, ymix, gamma_2)
+    fam, R, variant = parse_mode(mode)
     dt, dev = strength.dtype, strength.device
     c = _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0,
-                        wing, ymix, mode)
+                        wing, ymix, mode, gamma_2)
     nl = c["xs"].shape[0]
     L_w, a_w = weideman_coeffs(n_weideman)
+    keys = [k for k, v in c.items() if isinstance(v, torch.Tensor)]
+    if fam == "corr":
+        if dplan.tile % R:
+            raise ValueError(f"{mode}: the tile ({dplan.tile}) must be a "
+                             f"multiple of R")
+        sd = variant.startswith("sd")
+        pt_kind = {"voigt": "asym", "voigtfull": "voigtfull",
+                   "sdvoigt": "sdvoigt_asym",
+                   "sdvoigtfull": "sdvoigt"}[variant]
+        nd_kind = "sdvoigt_asym" if sd else "asym"
+        seg, wts = cubic_weights(dplan.tile, R, dt, dev)
+        nodes = (torch.arange(dplan.tile // R + 3, device=dev) - 1) * R
     out = torch.zeros((nl, dplan.n_tiles, dplan.tile), dtype=dt, device=dev)
     for t_i, slots, u in _plain_steps(dplan, nl, dt):
-        s = {k: None if c[k] is None else c[k][:, slots][..., None]
-             for k in ("ds", "xs", "y", "scale", "wingu", "ymix")}
-        val = _mode_value(mode, (u - s["ds"]) * s["xs"], s["y"], s["ymix"],
-                          a_w, L_w)
-        mask = (u > -s["wingu"]) & (u <= s["wingu"])
-        out[:, t_i] += torch.where(mask, s["scale"] * val, 0.0).sum(dim=2)
+        s = {k: c[k][:, slots][..., None] for k in keys}
+        s["dx"] = c["dx"]
+        win = lambda uu: (uu > -s["wingu"]) & (uu <= s["wingu"])  # noqa
+        if fam != "corr":
+            val = _value(mode, u, s, a_w, L_w)
+            out[:, t_i] += torch.where(win(u), val, 0.0).sum(dim=2)
+            continue
+        k_nodes = (t_i.to(torch.int32)[:, None] * dplan.tile
+                   + nodes.to(torch.int32))[:, None, :]
+        u_n = ((k_nodes - dplan.k_line[slots][:, :, None]).to(dt)
+               - dplan.frac0.to(dt)[slots][:, :, None])[None]
+        v_n = torch.where(win(u_n), _value(nd_kind, u_n, s, a_w, L_w), 0.0)
+        interp = (v_n[..., seg] * wts[0] + v_n[..., seg + 1] * wts[1]
+                  + v_n[..., seg + 2] * wts[2] + v_n[..., seg + 3] * wts[3])
+        fm = torch.where(win(u), _value(pt_kind, u, s, a_w, L_w), 0.0)
+        out[:, t_i] += (fm - interp).sum(dim=2)
     return out.reshape(nl, -1)[:, :dplan.n_out]
+
+
+def _check_mode_args(mode, ymix, gamma_2):
+    """Raise on an unknown mode or a mode's missing extra parameters."""
+    parse_mode(mode)
+    if mode == "mix" and ymix is None:
+        raise ValueError("mode 'mix' needs the mixing coefficients ymix")
+    if is_sd_mode(mode) and gamma_2 is None:
+        raise ValueError(f"mode {mode!r} needs the SD widths gamma_2")
 
 
 def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
@@ -570,26 +782,35 @@ def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
 
 def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                 gamma_0, wing, ymix=None, mode: str = "asym",
-                n_weideman: int = 16) -> torch.Tensor:
+                n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
     """One fused line-shape pass: (len(lay_idx), n_out) float32.
 
-    CPU tensors run :func:`xsect_fused_plain`. CUDA tensors launch the
-    CUDA kernel on the current stream; anything it does not take (another
-    dtype than float32, non-contiguous or mismatched shapes, mixed devices)
-    raises, as does a non-zero CUDA error from the launch.
+    ``mode`` is one of :data:`MODES` or ``corr:R:<variant>``; ``mix`` needs
+    ``ymix`` and the SD-Voigt modes ``gamma_2`` ((nLay, L) like the other
+    parameters). CPU tensors run :func:`xsect_fused_plain`. CUDA tensors
+    launch the CUDA kernel on the current stream; anything it does not take
+    (another dtype than float32, non-contiguous or mismatched shapes, mixed
+    devices, a correction pass whose R does not divide the kernel's
+    256-point slice and the tile, or is below 8) raises, as does a non-zero
+    CUDA error from the launch.
     """
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "mix" and ymix is None:
-        raise ValueError("mode 'mix' needs the mixing coefficients ymix")
+    _check_mode_args(mode, ymix, gamma_2)
     if strength.device.type == "cpu":
         return xsect_fused_plain(dplan, lay_idx, shift0, strength, gamma_d,
-                                 gamma_0, wing, ymix, mode, n_weideman)
+                                 gamma_0, wing, ymix, mode, n_weideman,
+                                 gamma_2)
+    fam, R, variant = parse_mode(mode)
     params = dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
                   gamma_0=gamma_0, wing=wing)
     if mode == "mix":
         params["ymix"] = ymix
+    if is_sd_mode(mode):
+        params["gamma_2"] = gamma_2
     _check_call(dplan, lay_idx, params, n_weideman)
+    if fam == "corr" and (not corr_r_supported(R) or dplan.tile % R):
+        raise ValueError(f"{mode}: the CUDA correction pass needs an R that "
+                         f"divides its {_SPAN}-point slice and the tile "
+                         f"({dplan.tile}) and is at least {_CORR_MIN_R}")
     dev = strength.device
     n_lay_call = lay_idx.numel()
     n_lines = strength.shape[1]
@@ -598,15 +819,18 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     if n_lay_call == 0 or dplan.n_out == 0:
         return out
     wei = _weideman_table(n_weideman, dev)
+    code = (len(MODES) + CORR_VARIANTS.index(variant) if fam == "corr"
+            else MODES.index(mode))
     err = _build.library().radtxfr_fused_xsect(
-        MODES.index(mode), dplan.starts.data_ptr(), dplan.counts.data_ptr(),
+        code, R, dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
         dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
         n_lay_call, shift0.data_ptr(), strength.data_ptr(),
         gamma_d.data_ptr(), gamma_0.data_ptr(), wing.data_ptr(),
-        (ymix if mode == "mix" else strength).data_ptr(), n_lines,
+        params.get("ymix", strength).data_ptr(),
+        params.get("gamma_2", strength).data_ptr(), n_lines,
         wei.data_ptr(), n_weideman, dplan.tile, dplan.block, dplan.n_tiles,
-        dplan.n_out, dplan.dx, out.data_ptr(),
+        dplan.max_blocks, dplan.n_out, dplan.dx, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_xsect kernel ({mode}) launch failed with "

@@ -1,27 +1,35 @@
-"""Monochromatic optical depth of layered atmospheres (counterpart of
-``radtxfr_tpu/products/od.py``: the production builder
-``make_od_pallas_fn`` as :func:`make_od_fn`, with its static planning).
+"""Monochromatic optical depth of layered atmospheres and cross-section
+lattices (counterpart of ``radtxfr_tpu/products/od.py``: the builders
+``make_od_pallas_fn`` as :func:`make_od_fn` and ``make_xsect_pallas_fn`` as
+:func:`make_xsect_fn`, with their static planning).
 
     OD_l(nu) = sum_lines u_l(mol(line)) S_line(T_l) profile(nu)
 
-with u the species column density [molec/cm^2] of the layer.
+with u the species column density [molec/cm^2] of the layer (a lattice's
+cross-sections: u = 1, the states as layers).
 
 The static work decomposition is the JAX package's, NumPy on the host:
 layers grouped by wing bound, each line placed only in the nu-tiles its
 own wing touches (packed plans), the Voigt lines split into a cheap
 asymptotic far-wing pass over the whole window plus a narrow Weideman core
-pass, and the line-mixing lines in a ``mix`` pass of their own. The plans
-(and therefore the work) are identical to the JAX builder's; each pass is
-one launch of the fused kernel K1 (:mod:`..kernels.fused_xsect`).
+pass, the SD-Voigt lines likewise (``sdvoigt_asym`` + ``sdvoigt_core``),
+the line-mixing lines in a ``mix`` pass of their own and the Lorentz and
+Doppler profiles in single passes. Statically exact absolute wings
+(``wing_abs`` dominating every halfwidth wing) take the coarse-far route:
+the far field on an R-times coarser grid, a cubic upsample, and correction
+passes ``corr:R:*`` near line centres and window edges, beside the classic
+core passes. The plans (and therefore the work) are identical to the JAX
+builders'; each pass is one launch of the fused kernel K1
+(:mod:`..kernels.fused_xsect`).
 
 ``differentiable=True`` builds the single-pass ``full`` plans instead (as
 the JAX builder's ``two_pass=False``) and runs each pass through
 :func:`~..kernels.fused_xsect.xsect_fused_diff`, so ``torch.func.jvp``
 tangents of the OD go through the tangent kernel K3.
 
-Not ported yet (each raises ``NotImplementedError``): the coarse-far
-branch and SD-Voigt (ROADMAP M12), Hartmann-Tran (M13) and the pointwise
-continuum models other than 'mt_ckd' (M4).
+Not ported yet (each raises ``NotImplementedError``): Hartmann-Tran (ROADMAP
+M13), the differentiable SD-Voigt OD (its tangent kernel K4) and the
+pointwise continuum models other than 'mt_ckd' (M4).
 """
 
 from __future__ import annotations
@@ -33,15 +41,22 @@ import torch
 
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
                               C_MASS_MOL, K_BOLTZMANN_CGS, PA_PER_ATM, T_REF)
-from ..kernels.fused_xsect import (UniformGrid, device_plan,
+from ..atmos.profile import AtmosphericState
+from ..kernels.fused_xsect import (UniformGrid, corr_r_supported,
+                                   cubic_weights, device_plan, is_sd_mode,
                                    plan_buckets_packed, xsect_fused,
                                    xsect_fused_diff)
 from ..kernels.lineparams import LineParams, compute_line_params
 from ..kernels.linemixing import mixing_coefficient
 
-__all__ = ["species_column", "make_od_fn", "OpticalDepthFn",
-           "wing_bound_matrix", "core_wing_per_line", "core_y_matrix",
-           "group_by_wing"]
+__all__ = ["species_column", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
+           "CrossSectionFn", "wing_bound_matrix", "core_wing_per_line",
+           "core_y_matrix", "sdvoigt_core_bound", "group_by_wing"]
+
+#: the coarse-far near zone's half-width floor [cm^-1] (the JAX builders'
+#: ``near_width`` default; ``_coarse_near_width``'s 41 R dx outweighs it at
+#: every grid the port runs)
+_NEAR_WIDTH = 4.0
 
 
 def species_column(p_pa, T, pl_km, vmr):
@@ -129,6 +144,33 @@ def core_y_matrix(lines, iso, atmos) -> np.ndarray:
     return np.sqrt(np.log(2.0)) * g0 / gd
 
 
+def sdvoigt_core_bound(lines, iso, atmos, margin: float = 1.15) -> np.ndarray:
+    """Host-side (nLay, L) upper bound on the SD-Voigt core half-width.
+
+    Outside |dnu| >= |delta p| + Gamma2 (2c^2 + 30c + 225) both pcqsdhc CPF
+    points have |Z| >= 15, in hum1_wei's asymptotic region and past the
+    CPF3 sub-case, so the double-asymptotic ``sdvoigt_asym`` pass is exact
+    there; c = Gamma_D / (2 sqrt(ln2) Gamma2) at the nominal and at half
+    the nominal Gamma2 (the self-diluent mix shrinks it), the larger bound
+    kept; ``margin`` pads for states moderately outside the envelope.
+    """
+    sd = np.asarray(lines.sd_air, dtype=np.float64)
+    ga = np.asarray(lines.gamma_air, dtype=np.float64)
+    p_atm = np.asarray(atmos.p, dtype=np.float64)[:, None] / PA_PER_ATM
+    g2_nom = np.maximum(sd * ga, 1e-30)[None, :] * p_atm
+    k = (np.sqrt(np.asarray(atmos.T, dtype=np.float64))[:, None]
+         * _gd_coeff(lines, iso)[None, :]) / (2.0 * np.sqrt(np.log(2.0)))
+
+    def radius(g2):
+        c = k / g2
+        return g2 * (2.0 * c * c + 30.0 * c + 225.0)
+
+    b = np.maximum(radius(g2_nom), radius(0.5 * g2_nom))
+    shift = (np.abs(np.asarray(lines.delta_air, dtype=np.float64))[None, :]
+             * p_atm)
+    return margin * (shift + b)
+
+
 def group_by_wing(wings: np.ndarray, max_groups: int = 4, ratio: float = 2.5):
     """Partition indices so each group's wings are within ``ratio`` of the
     group max (sorted descending, contiguous groups); list of
@@ -176,15 +218,22 @@ def _host_planning_views(lines, iso, atmos_class):
 
 def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
                     tile, group_ratio, core_block=16, mix_idx=None,
-                    two_pass: bool = True):
+                    two_pass: bool = True, profile: str = "voigt",
+                    wing_passes: bool = True):
     """The static (layer-group x pass) call decomposition of the JAX
-    builder's Voigt and line-mixing branches (``od.py:450-628`` there):
-    a list of (layer indices, line indices, packed plan, mode).
+    builders (``od.py:450-628`` there): a list of (layer indices, line
+    indices, packed plan, mode).
 
     ``atmos_class`` may be one representative state or a list of envelope
     states; wing bounds are taken elementwise over all of them.
-    ``two_pass=False`` gives each layer group one ``full`` pass over
-    ``tile``-point tiles and no core passes.
+    ``profile='sdvoigt'`` gives the lines with ``sd_air != 0`` SD-Voigt
+    passes (``sdvoigt_asym`` over the windows plus ``sdvoigt_core`` within
+    :func:`sdvoigt_core_bound`, or one ``sdvoigt`` pass without
+    ``two_pass``) and the rest the Voigt passes; 'lorentz' and 'doppler'
+    one dense pass each. ``two_pass=False`` gives each Voigt layer group one
+    ``full`` pass over ``tile``-point tiles and no core passes.
+    ``wing_passes=False`` plans the core passes only (the coarse-far route
+    replaces the window passes; the JAX builders plan and then drop them).
     """
     from ..kernels.faddeeva import REGION_BOUND
 
@@ -192,26 +241,68 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     W = np.max([wing_bound_matrix(lines, iso, s, wing_abs=wing_abs,
                                   wing_hw=wing_hw) for s in states], axis=0)
     nu0 = np.asarray(lines.nu0, dtype=np.float64)
-    v_mask = np.ones(nu0.size, dtype=bool)
+    if profile == "sdvoigt":
+        sd_mask = np.asarray(lines.sd_air, dtype=np.float64) != 0.0
+        special = [(np.nonzero(sd_mask)[0], "sdvoigt")]
+        v_mask = ~sd_mask
+    elif profile == "voigt":
+        special = []
+        v_mask = np.ones(nu0.size, dtype=bool)
+    elif profile in ("lorentz", "doppler"):
+        # single dense passes: both forms are a handful of operations
+        special = [(np.arange(nu0.size), profile)]
+        v_mask = np.zeros(nu0.size, dtype=bool)
+    else:
+        raise NotImplementedError(
+            f"profile {profile!r}: the port implements 'voigt', 'sdvoigt', "
+            "'lorentz' and 'doppler' (Hartmann-Tran is ROADMAP M13)")
+    if mix_idx is not None and len(mix_idx):
+        if profile != "voigt":
+            raise NotImplementedError("line mixing composes with Voigt only")
+        mix_idx = np.sort(np.asarray(mix_idx, dtype=np.int64))
+        special.append((mix_idx, "mix"))
+        v_mask[mix_idx] = False
     calls = []
 
-    if mix_idx is not None and len(mix_idx):
-        # the mixing lines: one dense pass over each line's own window
-        # (no exact cheap far-wing split applies to K + Y L)
-        s_idx = np.sort(np.asarray(mix_idx, dtype=np.int64))
-        v_mask[s_idx] = False
+    for s_idx, s_mode in special:
+        if not s_idx.size:
+            continue
+        # the special lines: dense passes over each line's own window; the
+        # block cap keeps block * tile <= 2**17 (the JAX builder's VMEM
+        # guard, kept so both packages build identical plans)
         W_s = W[:, s_idx]
         blk_cap = max(8, ((1 << 17) // tile) // 8 * 8)
+        sd_split = two_pass and s_mode == "sdvoigt"
+        if sd_split:
+            B_core = np.max([sdvoigt_core_bound(lines, iso, s)
+                             for s in states], axis=0)[:, s_idx]
         for lay_idx, _ in group_by_wing(W_s.max(axis=1), max_groups=max_groups,
                                         ratio=group_ratio):
             lay_idx = np.sort(lay_idx)
             w_line = W_s[lay_idx].max(axis=0)
-            p = plan_buckets_packed(nu0[s_idx], g, w_line, tile=tile,
-                                    block="auto")
-            if p.block > blk_cap:
-                p = plan_buckets_packed(nu0[s_idx], g, w_line, tile=tile,
-                                        block=blk_cap)
-            calls.append((lay_idx, s_idx, p, "mix"))
+
+            def packed(w, t, blk):
+                p = plan_buckets_packed(nu0[s_idx], g, w, tile=t, block=blk)
+                if blk == "auto" and p.block > blk_cap:
+                    p = plan_buckets_packed(nu0[s_idx], g, w, tile=t,
+                                            block=blk_cap)
+                return p
+
+            if sd_split:
+                if wing_passes:
+                    calls.append((lay_idx, s_idx,
+                                  packed(w_line, tile, "auto"),
+                                  "sdvoigt_asym"))
+                w_core = np.minimum(w_line, B_core[lay_idx].max(axis=0))
+                c_tile = _pow2_tile(int(np.ceil(2.0 * w_core.max() / g.dx)),
+                                    lo=256, hi=min(512, max(256, tile)))
+                # the SD core keeps half the Voigt core's block, as JAX
+                calls.append((lay_idx, s_idx,
+                              packed(w_core, c_tile, max(8, core_block // 2)),
+                              "sdvoigt_core"))
+            elif wing_passes:
+                calls.append((lay_idx, s_idx, packed(w_line, tile, "auto"),
+                              s_mode))
 
     v_idx = np.nonzero(v_mask)[0]
     if not v_idx.size:
@@ -221,11 +312,10 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     lay_groups = group_by_wing(W_v.max(axis=1), max_groups=max_groups,
                                ratio=group_ratio)
     # the asym far-wing passes get twice the tile of the flop-heavy passes;
-    # the block cap keeps block * tile <= 2**18 (the JAX builder's VMEM
-    # guard, kept so both packages build identical plans)
+    # the block cap keeps block * tile <= 2**18
     f_tile = 2 * tile if two_pass else tile
     f_cap = max(8, ((1 << 18) // f_tile) // 8 * 8)
-    for lay_idx, _ in lay_groups:
+    for lay_idx, _ in (lay_groups if wing_passes else []):
         lay_idx = np.sort(lay_idx)
         w_line = W_v[lay_idx].max(axis=0)
         plan = plan_buckets_packed(nu0_v, g, w_line, tile=f_tile, block="auto")
@@ -273,6 +363,112 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     return calls
 
 
+def _coarse_near_width(coarse_r, dx, near_width):
+    """Near-zone half-width of the coarse-far scheme: the cubic upsample of
+    a smooth 1/d^2-class wing errs by ~2.8 (R dx / d)^4 of the local wing
+    value, so d >= 41 R dx keeps it under 1e-6 per line."""
+    return max(float(near_width), 41.0 * int(coarse_r) * dx)
+
+
+def _coarse_far_min_wing(g, coarse_r, near_width, tile_corr=512):
+    """Smallest statically safe ``wing_abs`` for the coarse-far scheme: a
+    line's near-zone plan and its window-edge band plans (the cubic
+    stencil's (2R + 2) dx reach about nu0 +- wing_abs) must never share a
+    ``tile_corr`` tile, or the correction (masked only by the true window)
+    would apply twice there."""
+    R = int(coarse_r)
+    nw = _coarse_near_width(R, g.dx, near_width)
+    return nw + (2 * R + 2 + int(tile_corr) + 4) * g.dx
+
+
+def _coarse_tile_corr(g, coarse_r, near_width, wing_abs,
+                      lo: int = 512, hi: int = 2048) -> int:
+    """The widest power-of-two correction tile (a multiple of R) whose
+    near/edge disjointness bound still clears ``wing_abs``, floored at
+    ``lo`` (eligibility itself is checked by the builders at ``lo``)."""
+    tc = hi
+    while tc > lo and (tc % int(coarse_r)
+                       or _coarse_far_min_wing(g, coarse_r, near_width,
+                                               tile_corr=tc)
+                       > float(wing_abs)):
+        tc //= 2
+    return max(tc, lo)
+
+
+def _coarse_upsample(out_c, n_fine, R):
+    """Uniform 4-point Lagrange-cubic upsample of the coarse far field
+    (nLay, n_coarse), column 0 one coarse step left of the fine origin:
+    fine point i in segment j = i // R interpolates columns j .. j+3 with
+    the weights the correction passes subtract (a float32 gather and
+    multiply-adds, not a matrix product)."""
+    j, (wm1, w0, w1, w2) = cubic_weights(n_fine, R, out_c.dtype,
+                                         out_c.device)
+    return (out_c[:, j] * wm1 + out_c[:, j + 1] * w0
+            + out_c[:, j + 2] * w1 + out_c[:, j + 3] * w2)
+
+
+def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
+                            near_width, tile_coarse, tile_corr):
+    """The coarse-far decomposition for statically exact absolute wings:
+    (coarse grid, coarse calls, correction calls), each call (line
+    indices, packed plan, mode).
+
+    The far field of every line runs in the guarded asymptotic form
+    (``asym``/``sdvoigt_asym``) on the extended coarse grid (x0 - R dx,
+    R dx, (n - 1)//R + 4 points: one extra node each side, so every fine
+    point has its four-node stencil); the correction passes ``corr:R:*``
+    make the upsampled field exact within ``near_width`` of each centre
+    and across the window-edge discontinuity (bands of 2 R dx + 2 dx about
+    nu0 +- wing_abs, the stencil's reach).
+    """
+    R = int(coarse_r)
+    if tile_corr % R:
+        raise ValueError(f"correction tile ({tile_corr}) must be a "
+                         f"multiple of coarse_r ({R})")
+    g_c = UniformGrid(x0=g.x0 - g.dx * R, dx=g.dx * R, n=(g.n - 1) // R + 4)
+    nu0 = np.asarray(lines_h.nu0, dtype=np.float64)
+    if profile == "sdvoigt":
+        sd_mask = np.asarray(lines_h.sd_air, dtype=np.float64) != 0.0
+        subsets = [(np.nonzero(sd_mask)[0], "sdvoigt_asym", "sdvoigt"),
+                   (np.nonzero(~sd_mask)[0], "asym", "voigt")]
+    else:
+        subsets = [(np.arange(nu0.size), "asym", "voigt")]
+    coarse_calls, corr_calls = [], []
+    h = R * g.dx
+    for idx, far_mode, corr_kind in subsets:
+        if not idx.size:
+            continue
+        nu_s = nu0[idx]
+        coarse_calls.append((idx, plan_buckets_packed(
+            nu_s, g_c, float(wing_abs), tile=tile_coarse, block="auto"),
+            far_mode))
+        corr_calls.append((idx, plan_buckets_packed(
+            nu_s, g, float(near_width), tile=tile_corr, block="auto"),
+            f"corr:{R}:{corr_kind}"))
+        for side in (-1.0, 1.0):
+            corr_calls.append((idx, plan_buckets_packed(
+                nu_s, g, 2.0 * h + 2.0 * g.dx, tile=tile_corr, block="auto",
+                place_center=nu_s + side * float(wing_abs)),
+                f"corr:{R}:{corr_kind}"))
+    return g_c, coarse_calls, corr_calls
+
+
+def _coarse_eligible(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
+                     coarse_r, near_width, vmr_margin) -> bool:
+    """Whether the coarse-far route is statically exact and wide enough:
+    every halfwidth wing over the class states is within ``wing_abs`` and
+    ``wing_abs`` clears both 16 coarse steps and the near/edge
+    disjointness bound."""
+    hw_wing = np.max([wing_bound_matrix(lines_h, iso_h, st, wing_abs=0.0,
+                                        wing_hw=wing_hw,
+                                        vmr_margin=vmr_margin)
+                      for st in states_h])
+    wide = float(wing_abs) >= max(16.0 * coarse_r * g.dx,
+                                  _coarse_far_min_wing(g, coarse_r,
+                                                       near_width))
+    return bool(hw_wing <= float(wing_abs)) and wide
+
+
 def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
                          dtype):
     """Per-layer continuum-OD term fn(T, p_pa, pl, vmr) -> (nLay, nX), or
@@ -301,22 +497,77 @@ def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
     return term
 
 
-class OpticalDepthFn:
-    """``(T, p_pa, pl, vmr) -> (nLay, nX)`` layer OD with the static plans
-    of one line list, grid and atmosphere class baked in (see
-    :func:`make_od_fn`). ``calls`` lists the kernel passes as
-    (layer indices int32, :class:`~..kernels.fused_xsect.DevicePlan`, mode).
-    Every operation on the state is differentiable in forward mode; the
-    ``full`` passes carry their tangents through K3.
+class _Passes:
+    """The kernel passes of one set of static plans and how they sum.
+
+    ``calls`` are the classic passes, ``coarse_calls`` and ``corr_calls``
+    the coarse-far route's (empty off it), each (layer or state indices
+    int32, :class:`~..kernels.fused_xsect.DevicePlan`, mode); the coarse
+    plans lie on ``grid_coarse``.
     """
 
-    def __init__(self, lines, iso, calls, cols, n_x, n_weideman, wing_abs,
-                 wing_hw, line_mixing, cont):
-        self.lines, self.iso = lines, iso
+    def __init__(self, calls, coarse_calls, corr_calls, grid, grid_coarse,
+                 coarse_r, n_weideman):
         self.calls = calls
-        self.cols = cols
-        self.n_x = n_x
+        self.coarse_calls = coarse_calls
+        self.corr_calls = corr_calls
+        self.grid, self.grid_coarse = grid, grid_coarse
+        self.coarse_r = coarse_r
+        self.n_x = grid.n
         self.n_weideman = n_weideman
+
+    def all_calls(self):
+        """Every pass: the coarse, correction and classic calls."""
+        return [*self.coarse_calls, *self.corr_calls, *self.calls]
+
+    def run_call(self, call, prm: LineParams, Y=None, kernel=xsect_fused):
+        """One pass: (len(layers), its plan's n_out); a ``full`` pass goes
+        through the differentiable call, unless ``kernel`` names another
+        function (the plain version, in the checks)."""
+        lay, dplan, mode = call
+        if mode == "full" and kernel is xsect_fused:
+            return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
+                                    prm.gamma_d, prm.gamma_0, prm.wing,
+                                    self.n_weideman)
+        return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
+                      prm.gamma_0, prm.wing, Y if mode == "mix" else None,
+                      mode, self.n_weideman,
+                      gamma_2=prm.gamma_2 if is_sd_mode(mode) else None)
+
+    def line_sum(self, prm: LineParams, Y=None):
+        """(nLay, nX) sum of the passes: the coarse far field upsampled,
+        plus the correction passes, plus each classic pass on its layers
+        (``index_add_``: in place, one addition per element, and it
+        carries forward-mode tangents)."""
+        n = prm.strength.shape[0]
+        dt, dev = prm.strength.dtype, prm.strength.device
+        if self.coarse_calls:
+            out_c = torch.zeros((n, self.grid_coarse.n), dtype=dt, device=dev)
+            for call in self.coarse_calls:
+                out_c += self.run_call(call, prm)
+            out = _coarse_upsample(out_c, self.n_x, self.coarse_r)
+            for call in self.corr_calls:
+                out += self.run_call(call, prm)
+        else:
+            out = torch.zeros((n, self.n_x), dtype=dt, device=dev)
+        for call in self.calls:
+            out.index_add_(0, call[0], self.run_call(call, prm, Y))
+        return out
+
+
+class OpticalDepthFn(_Passes):
+    """``(T, p_pa, pl, vmr) -> (nLay, nX)`` layer OD with the static plans
+    of one line list, grid and atmosphere class baked in (see
+    :func:`make_od_fn`). Every operation on the state is differentiable in
+    forward mode; the ``full`` passes carry their tangents through K3.
+    """
+
+    def __init__(self, lines, iso, passes, cols, profile, wing_abs, wing_hw,
+                 line_mixing, cont):
+        super().__init__(**passes)
+        self.lines, self.iso = lines, iso
+        self.cols = cols
+        self.profile = profile
         self.wing_abs, self.wing_hw = wing_abs, wing_hw
         self.cont = cont
         dev, dt = lines.sw.device, lines.sw.dtype
@@ -331,7 +582,7 @@ class OpticalDepthFn:
             self.n_T = float(line_mixing.get("n_T", 0.0))
 
     def line_params(self, T, p_pa, pl, vmr):
-        """(nLay, L) Voigt parameters with the OD strength scaling, and the
+        """(nLay, L) line parameters with the OD strength scaling, and the
         (nLay, L) mixing coefficients (None without line mixing)."""
         p_atm = p_pa / PA_PER_ATM
         u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
@@ -341,7 +592,8 @@ class OpticalDepthFn:
                                   p_atm[:, None], vmr_self=x_self,
                                   wing_abs=self.wing_abs,
                                   wing_hw=self.wing_hw,
-                                  strength_scale=u[:, self.cols])
+                                  strength_scale=u[:, self.cols],
+                                  profile=self.profile)
         Y = None
         if self.y_air is not None:
             Y = mixing_coefficient(self.y_air, p_atm[:, None], T[:, None],
@@ -349,27 +601,9 @@ class OpticalDepthFn:
                                    n_T=self.n_T)
         return prm, Y
 
-    def run_call(self, call, prm: LineParams, Y, kernel=xsect_fused):
-        """One pass of ``calls``: (len(layers), nX) line OD; a ``full``
-        pass goes through the differentiable call, unless ``kernel`` names
-        another function (the plain version, in the checks)."""
-        lay, dplan, mode = call
-        if mode == "full" and kernel is xsect_fused:
-            return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
-                                    prm.gamma_d, prm.gamma_0, prm.wing,
-                                    self.n_weideman)
-        return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
-                      prm.gamma_0, prm.wing, Y if mode == "mix" else None,
-                      mode, self.n_weideman)
-
     def __call__(self, T, p_pa, pl, vmr):
         prm, Y = self.line_params(T, p_pa, pl, vmr)
-        out = torch.zeros((T.shape[0], self.n_x), dtype=prm.strength.dtype,
-                          device=prm.strength.device)
-        for call in self.calls:
-            # each call's layers are distinct rows, so every element takes
-            # one addition; in place, and it carries forward-mode tangents
-            out.index_add_(0, call[0], self.run_call(call, prm, Y))
+        out = self.line_sum(prm, Y)
         if Y is not None:
             # first-order mixing can leave small negative excursions next
             # to a Q branch (a truncation artefact; LTE absorption is
@@ -380,12 +614,92 @@ class OpticalDepthFn:
         return out
 
 
+class CrossSectionFn(_Passes):
+    """``(T, p_atm) -> (nStates, nX)`` float cross-sections [cm^2/molec] of
+    a (T, p) lattice with the static plans baked in (see
+    :func:`make_xsect_fn`): the states are the kernels' layers."""
+
+    def __init__(self, lines, iso, passes, profile, wing_abs, wing_hw):
+        super().__init__(**passes)
+        self.lines, self.iso = lines, iso
+        self.profile = profile
+        self.wing_abs, self.wing_hw = wing_abs, wing_hw
+
+    def line_params(self, T, p_atm):
+        """(nStates, L) line parameters in HITRAN units (no column factor;
+        ``vmr_self = 0``: hapi's default Diluent {'air': 1})."""
+        return compute_line_params(self.lines, self.iso, T[:, None],
+                                   p_atm[:, None], vmr_self=0.0,
+                                   wing_abs=self.wing_abs,
+                                   wing_hw=self.wing_hw, profile=self.profile)
+
+    def __call__(self, T, p_atm):
+        return self.line_sum(self.line_params(T, p_atm))
+
+
+def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
+                   device, dtype):
+    """The host plans of :func:`_build_od_calls` (and of the coarse-far
+    route, ``coarse`` = (coarse grid, coarse calls, correction calls) or
+    None) as :class:`_Passes` keyword arguments on ``device``."""
+    dev_plan = lambda plan, idx: device_plan(  # noqa: E731
+        plan, idx, lines_h.nu0, device=device, dtype=dtype)
+    as_lay = lambda lay: torch.as_tensor(  # noqa: E731
+        np.asarray(lay), dtype=torch.int32, device=device)
+    g_c, coarse_calls, corr_calls = coarse or (None, [], [])
+    all_lay = np.arange(n_lay)
+    return dict(
+        calls=[(as_lay(lay), dev_plan(plan, idx), mode)
+               for lay, idx, plan, mode in calls],
+        coarse_calls=[(as_lay(all_lay), dev_plan(plan, idx), mode)
+                      for idx, plan, mode in coarse_calls],
+        corr_calls=[(as_lay(all_lay), dev_plan(plan, idx), mode)
+                    for idx, plan, mode in corr_calls],
+        grid=g, grid_coarse=g_c, coarse_r=int(coarse_r),
+        n_weideman=n_weideman)
+
+
+def _coarse_route(lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile,
+                  far_method, coarse_r, allowed, vmr_margin, profile):
+    """The coarse-far decomposition of a builder, or None for the classic
+    route: ``far_method`` 'auto' takes it where it is statically exact and
+    wide enough, 'coarse' requires it (raising where it is not), 'classic'
+    never; ``allowed`` is the builder's own precondition. The correction
+    kernel's ``coarse_r`` must divide its 256-point slice and be at least 8
+    (:func:`~..kernels.fused_xsect.corr_r_supported`), on the CPU too."""
+    if far_method not in ("auto", "coarse", "classic"):
+        raise ValueError(f"far_method must be 'auto', 'coarse' or "
+                         f"'classic', got {far_method!r}")
+    use = (far_method != "classic" and allowed and float(wing_abs) > 0.0
+           and corr_r_supported(coarse_r)
+           and _coarse_eligible(lines_h, iso_h, states_h, g, wing_abs,
+                                wing_hw, coarse_r, _NEAR_WIDTH, vmr_margin))
+    if far_method == "coarse" and not use:
+        raise ValueError(
+            "far_method='coarse' requires profile voigt/sdvoigt with "
+            "two_pass (no line mixing, not differentiable), a coarse_r that "
+            "divides 256 and is at least 8 (got "
+            f"{coarse_r!r}) and a wing_abs that dominates every line's "
+            "halfwidth wing over the class states while clearing the "
+            "near-zone/edge-band plan-disjointness bound "
+            f"({_coarse_far_min_wing(g, coarse_r, _NEAR_WIDTH):.3g} cm^-1 "
+            f"here); got wing_abs={wing_abs!r}")
+    if not use:
+        return None
+    nw = _coarse_near_width(coarse_r, g.dx, _NEAR_WIDTH)
+    return _build_coarse_far_calls(
+        lines_h, g, wing_abs, profile, coarse_r, nw,
+        tile_coarse=min(tile, 512),
+        tile_corr=_coarse_tile_corr(g, coarse_r, nw, wing_abs))
+
+
 def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                max_groups: int = 8, tile: int = 512, n_weideman: int = 16,
                group_ratio: float = 4.0, core_block: int = 16,
                continuum: str = "none", continuum_factors=None,
                line_mixing: dict | None = None, profile: str = "voigt",
-               differentiable: bool = False) -> OpticalDepthFn:
+               differentiable: bool = False,
+               coarse_r: int = 64) -> OpticalDepthFn:
     """Build the layer-OD function with static packed plans (the counterpart
     of ``make_od_pallas_fn``, with its defaults).
 
@@ -393,27 +707,31 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     in (float32 launches the CUDA kernels on a card; CPU tensors run the
     plain versions, float32 or float64). ``grid`` is a uniform axis or a
     :class:`UniformGrid`; ``atmos_class`` one representative state (or a
-    list of envelope states) sizing the plans. ``line_mixing`` carries
-    ``y_air`` (and optionally ``y_self``, ``n_T``) for first-order mixing.
-    ``differentiable=True`` builds single-pass ``full`` plans whose passes
-    carry ``torch.func.jvp`` tangents through K3 (Voigt, no line mixing,
-    as the JAX builder).
+    list of envelope states) sizing the plans. ``profile`` is 'voigt',
+    'sdvoigt', 'lorentz' or 'doppler'. ``line_mixing`` carries ``y_air``
+    (and optionally ``y_self``, ``n_T``) for first-order mixing (Voigt
+    only). ``differentiable=True`` builds single-pass ``full`` plans whose
+    passes carry ``torch.func.jvp`` tangents through K3 (Voigt, no line
+    mixing, as the JAX builder). Absolute wings (``wing_abs``) that
+    dominate every halfwidth wing and clear the coarse-far disjointness
+    bound take the coarse-far route (the JAX builder's ``far_method='auto'``
+    with its near width; ``coarse_r``: see :func:`_build_coarse_far_calls`).
     """
-    if profile != "voigt":
+    if profile == "ht":
         raise NotImplementedError(
-            f"profile {profile!r} is not ported: SD-Voigt is ROADMAP M12, "
-            "Hartmann-Tran M13, Lorentz/Doppler M14")
+            "profile 'ht': the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
     if differentiable and line_mixing is not None:
         # the JAX builder routes mixing Jacobians to its jnp engine
         raise NotImplementedError(
             "differentiable OD with line mixing: the differentiable kernels "
             "have no mixing tangent (the JAX package's mixing Jacobians ride "
             "its jnp engine, ROADMAP M11)")
-    if wing_abs > 0.0 and line_mixing is None:
-        # the JAX builder may route this case to its coarse-far branch
+    if differentiable and profile != "voigt":
         raise NotImplementedError(
-            "wing_abs > 0 without line mixing (the JAX builder's coarse-far "
-            "branch, K1 corr:* modes) is ROADMAP M12")
+            f"differentiable OD with profile {profile!r}: the port's tangent "
+            "kernel is the Voigt one (K3); the SD-Voigt tangent kernel K4 is "
+            "ROADMAP queue 2 (the JAX package has no Lorentz or Doppler "
+            "tangent)")
     g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
         np.asarray(grid))
     dev, dt = lines.sw.device, lines.sw.dtype
@@ -423,14 +741,72 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
     mol_ids = tuple(states_h[0].mol_ids)
     cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids), device=dev)
-    calls = [
-        (torch.as_tensor(lay, dtype=torch.int32, device=dev),
-         device_plan(plan, line_idx, lines_h.nu0, device=dev, dtype=dt), mode)
-        for lay, line_idx, plan, mode in _build_od_calls(
-            lines_h, iso_h, states_h, g, wing_abs, wing_hw, max_groups, tile,
-            group_ratio, core_block=core_block, mix_idx=mix_idx,
-            two_pass=not differentiable)]
+    coarse = _coarse_route(
+        lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile, "auto",
+        coarse_r, vmr_margin=1.5,
+        allowed=(profile in ("voigt", "sdvoigt") and not differentiable
+                 and line_mixing is None), profile=profile)
+    # on the coarse-far route the wing passes give way to the coarse far
+    # field and its corrections; the classic per-line-tight core passes stay
+    calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
+                            max_groups, tile, group_ratio,
+                            core_block=core_block, mix_idx=mix_idx,
+                            two_pass=not differentiable, profile=profile,
+                            wing_passes=coarse is None)
+    passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
+                            int(np.asarray(states_h[0].T).size), dev, dt)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
-    return OpticalDepthFn(lines, iso, calls, cols, g.n, n_weideman, wing_abs,
+    return OpticalDepthFn(lines, iso, passes, cols, profile, wing_abs,
                           wing_hw, line_mixing, cont)
+
+
+def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
+                  profile: str = "voigt", wing_abs=0.0, wing_hw=50.0,
+                  max_groups: int = 8, tile: int = 512, n_weideman: int = 16,
+                  two_pass: bool = True, group_ratio: float = 4.0,
+                  far_method: str = "auto",
+                  coarse_r: int = 64) -> CrossSectionFn:
+    """Build the (T_states, p_atm_states) -> (nStates, nX) cross-section
+    function [cm^2/molec] of a (T, p) lattice (the counterpart of
+    ``make_xsect_pallas_fn``, with its defaults): the reference's
+    XS-table generator (``misc/RT_gen_AbsXS_files.py:15-31,87-92``,
+    SD-Voigt at 0.0025 cm^-1 with 350 cm^-1 absolute wings). The states
+    are the fused kernel's layers: the whole lattice evaluates in one set
+    of launches. HITRAN units; ``vmr_self = 0`` (hapi's default diluent).
+
+    ``T_class``/``p_atm_class`` are the envelope states the static plans
+    are sized on; the returned function takes states of the same count
+    whose wings stay within them. ``far_method`` 'coarse' evaluates the far
+    wings on a ``coarse_r``-decimated grid with exact correction passes
+    near line centres and window edges (~R x less wing work) and requires
+    statically exact wings and a ``coarse_r`` that divides 256 and is at
+    least 8; 'auto' takes it where those hold and ``wing_abs`` spans many
+    tiles; 'classic' never. ``profile`` 'ht' is ROADMAP M13.
+    """
+    if profile == "ht":
+        raise NotImplementedError(
+            "profile 'ht': the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
+    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
+        np.asarray(grid))
+    dev, dt = lines.sw.device, lines.sw.dtype
+    T_c = np.asarray(T_class, dtype=np.float64).ravel()
+    p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
+    mol_ids = tuple(int(m) for m in np.unique(lines.host["mol_id"]))
+    n = T_c.size
+    pseudo = AtmosphericState.from_numpy(
+        z0=np.zeros(n), z1=np.ones(n), pl=np.ones(n), p=p_c * PA_PER_ATM,
+        T=T_c, vmr=np.zeros((n, len(mol_ids))), mol_ids=mol_ids,
+        device="cpu", dtype=torch.float64)
+    lines_h, iso_h, states_h = _host_planning_views(lines, iso, pseudo)
+    coarse = _coarse_route(
+        lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile, far_method,
+        coarse_r, vmr_margin=None,
+        allowed=profile in ("voigt", "sdvoigt") and two_pass,
+        profile=profile)
+    calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
+                            max_groups, tile, group_ratio, two_pass=two_pass,
+                            profile=profile, wing_passes=coarse is None)
+    passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
+                            n, dev, dt)
+    return CrossSectionFn(lines, iso, passes, profile, wing_abs, wing_hw)

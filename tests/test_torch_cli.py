@@ -1,7 +1,7 @@
-"""Both CLIs in-process on the production path, `tud --derived
---line-mixing --continuum mt_ckd`, on a 1001-point grid with 2 members:
-the port (CPU tensors: the kernels' plain versions) against the JAX CLI,
-HDF5 products compared.
+"""Both CLIs in-process: the production path, `tud --derived --line-mixing
+--continuum mt_ckd`, on a 1001-point grid with 2 members (HDF5 products
+compared), and the `xsect` lattice on a small band (AFIT_XS files compared):
+the port (CPU tensors: the kernels' plain versions) against the JAX CLI.
 
 The JAX CLI runs in float32 (x64 off for the call, as on its chip): its
 jnp engine cannot run line mixing under x64.
@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from radtxfr_tpu.cli.main import build_parser as j_build_parser
-from radtxfr_tpu_torch.cli.main import main
+from radtxfr_tpu_torch.cli.main import build_parser, main, run_xsect
+from radtxfr_tpu_torch.io.afit_xs import xs_read
 
 ARGS = ["tud", "--derived", "--line-mixing", "--continuum", "mt_ckd",
         "--numin", "718", "--numax", "723", "--dv", "0.005", "--n-atmos", "2",
@@ -94,3 +95,56 @@ def test_port_cli_jacobian_matches_jax_cli(tmp_path):
             peak = np.abs(want).max()
             assert peak > 0.0, k
             assert np.abs(got - want).max() <= 5e-4 * peak, k
+
+
+#: 200 synthetic lines, 800-820 cm^-1 at 0.01, three temperatures, 60 cm^-1
+#: absolute wings: a 2048-point correction tile clears the coarse-far
+#: disjointness bound (~48 cm^-1 here), so Voigt and SD-Voigt go coarse
+XS_ARGS = ["xsect", "--synthetic", "200", "--numin", "800", "--numax", "820",
+           "--dv", "0.01", "--wing-abs", "60", "--T", "280", "--T-max", "290",
+           "--T-step", "5"]
+
+
+def _run_jax_cli(args):
+    j_args = j_build_parser().parse_args(args)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        j_args.fn(j_args)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+@pytest.mark.parametrize("profile,bound", [
+    ("voigt", 2e-6), ("lorentz", 2e-6), ("doppler", 2e-6),
+    # the SD-Voigt float32 bound (tests/test_torch_xsect.py: MODE_BOUND)
+    ("sdvoigt", 1e-5)])
+def test_port_xsect_matches_jax_cli(tmp_path, profile, bound):
+    """`xsect` through both CLIs (JAX: --engine pallas, interpret mode),
+    one AFIT_XS file per state, read back with xs_read: the same axis and
+    header, cross-sections within ``bound`` of each file's peak; Voigt and
+    SD-Voigt take the coarse-far route."""
+    args = XS_ARGS + ["--profile", profile]
+    modes = run_xsect(build_parser().parse_args(args + ["--device", "cpu"]),
+                      "cpu")["modes"]
+    if profile in ("voigt", "sdvoigt"):
+        assert any(m.startswith("corr:64:") for m in modes), modes
+    else:
+        assert modes == [profile]
+    main(args + ["--device", "cpu", "--output", str(tmp_path / "port")])
+    _run_jax_cli(args + ["--engine", "pallas", "--output",
+                         str(tmp_path / "jax")])
+    for T in ("280", "285", "290"):
+        X, Y, meta = xs_read(str(tmp_path / f"port.T{T}_p1"))
+        jX, jY, j_meta = xs_read(str(tmp_path / f"jax.T{T}_p1"))
+        np.testing.assert_array_equal(X, jX)
+        assert meta == j_meta
+        assert np.isfinite(Y).all() and np.abs(jY).max() > 0.0
+        assert np.abs(Y - jY).max() <= bound * np.abs(jY).max(), T
+
+
+def test_port_xsect_unported_options_raise():
+    """Hartmann-Tran (ROADMAP M13) and the jnp engine raise."""
+    with pytest.raises(NotImplementedError, match="M13"):
+        main(XS_ARGS + ["--profile", "ht", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="jnp"):
+        main(XS_ARGS + ["--engine", "jnp", "--device", "cpu"])

@@ -5,6 +5,8 @@ This file imports no JAX, so it also runs on a machine with a card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
@@ -151,13 +153,77 @@ def test_full_and_tangent_kernels_match_plain(dev):
     assert fused_xsect.LAUNCHES["jvp"] - jvp0 == 4 * len(od_fn.calls)
 
 
+#: K1's modes of the XS lattice, checked against their plain versions on
+#: random parameters within 2e-6 of the pass's own peak (the SD-Voigt
+#: block, whose w(Z1) - w(Z2) difference amplifies float32 rounding, follows
+#: the plain version's operations uncontracted)
+NEW_MODES = ("lorentz", "doppler", "sdvoigt", "sdvoigt_asym", "sdvoigt_core",
+             "corr:64:voigt", "corr:64:voigtfull", "corr:64:sdvoigt",
+             "corr:64:sdvoigtfull", "corr:16:sdvoigt")
+
+
+def _random_case(dev, n_lines=600, n_lay=7, n_pts=40000, tile=512):
+    """Lines over 995-1105 cm^-1 on a 0.0025 grid, random (nLay, L)
+    parameters of the lattice's ranges, per-line wings 2-12 cm^-1."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    g = fused_xsect.UniformGrid(x0=1000.0, dx=0.0025, n=n_pts)
+    nu0 = np.sort(rng.uniform(995.0, 1105.0, n_lines))
+    wings = rng.uniform(2.0, 12.0, n_lines)
+    plan = fused_xsect.plan_buckets_packed(nu0, g, wings, tile=tile,
+                                           block=32)
+    dp = fused_xsect.device_plan(plan, np.arange(n_lines), nu0, device=dev)
+    mk = lambda lo, hi: torch.as_tensor(  # noqa: E731
+        rng.uniform(lo, hi, (n_lay, n_lines)), dtype=torch.float32,
+        device=dev)
+    prm = dict(shift0=mk(-0.01, 0.01), strength=mk(0.5, 2.0),
+               gamma_d=mk(0.0005, 0.002), gamma_0=mk(0.002, 0.1),
+               wing=torch.as_tensor(np.tile(wings, (n_lay, 1)),
+                                    dtype=torch.float32, device=dev))
+    prm["gamma_2"] = prm["gamma_0"] * mk(0.05, 0.15)    # sd_air ratios
+    return dp, torch.arange(n_lay, dtype=torch.int32, device=dev), prm
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_xs_lattice_modes_match_plain(dev, mode):
+    """Each mode the XS lattice adds against its plain version (a tile of
+    512 so that the correction passes' R = 16 and 64 both divide it)."""
+    dp, lay, prm = _random_case(dev)
+    g2 = prm.pop("gamma_2")
+    n0 = fused_xsect.LAUNCHES[mode]
+    got = fused_xsect.xsect_fused(dp, lay, *prm.values(), None, mode,
+                                  gamma_2=g2)
+    torch.cuda.synchronize()
+    assert fused_xsect.LAUNCHES[mode] == n0 + 1
+    want = fused_xsect.xsect_fused_plain(dp, lay, *prm.values(), None, mode,
+                                         gamma_2=g2)
+    own = want.abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() <= 2e-6 * own, \
+        float((got - want).abs().max() / own)
+
+
+def test_corr_pass_reruns_bit_identical_and_checks_R(dev):
+    """A correction pass gives bit-identical reruns (no atomics); an R that
+    does not divide the kernel's 256-point slice raises before any launch."""
+    dp, lay, prm = _random_case(dev)
+    g2 = prm.pop("gamma_2")
+    run = lambda m: fused_xsect.xsect_fused(  # noqa: E731
+        dp, lay, *prm.values(), None, m, gamma_2=g2)
+    assert torch.equal(run("corr:64:sdvoigt"), run("corr:64:sdvoigt"))
+    for bad in ("corr:48:voigt", "corr:4:voigt", "corr:512:voigt"):
+        with pytest.raises(ValueError, match="divides"):
+            run(bad)
+
+
 def test_defaults_run_on_the_card():
     """With no device and no dtype argument, the constructors and builders
     run on the card, in float32, through the kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
                     "false)")
-    before = dict(fused_xsect.LAUNCHES, tud=fused_tud.LAUNCHES["tud"])
+    before = Counter(fused_xsect.LAUNCHES, tud=fused_tud.LAUNCHES["tud"])
     X = arange_drift_free(716.0, 726.0, 0.0005)
     base = std_atmosphere()
     od_fn = make_od_fn(derived_lwir_linelist(691.0, 751.0),

@@ -61,17 +61,22 @@ def _same_plan(a, b):
     np.testing.assert_array_equal(a.wing_line, b.wing_line)
 
 
-@pytest.mark.parametrize("tile,block", [(512, "auto"), (1024, 32),
-                                        (256, 16)])
-def test_packed_plans_match(tile, block):
+@pytest.mark.parametrize("tile,block,side", [(512, "auto", 0.0),
+                                             (1024, 32, 0.0), (256, 16, 0.0),
+                                             (2048, "auto", -12.0),
+                                             (2048, "auto", 12.0)])
+def test_packed_plans_match(tile, block, side):
+    """Per-line and scalar wing bounds; ``side`` != 0 places each line's
+    interval at nu0 + side (``place_center``, the coarse-far edge bands)."""
     rng = np.random.default_rng(5)
     nu0 = np.sort(rng.uniform(545.0, 580.0, 400))
     wings = rng.uniform(0.01, 3.0, nu0.size)
+    pc = None if side == 0.0 else nu0 + side
     for w in (wings, 2.5):        # per-line and scalar wing bounds
         got = plan_buckets_packed(nu0, UniformGrid.from_axis(AXIS), w,
-                                  tile=tile, block=block)
+                                  tile=tile, block=block, place_center=pc)
         want = j_packed(nu0, JGrid.from_axis(AXIS), w, tile=tile,
-                        block=block)
+                        block=block, place_center=pc)
         if np.ndim(w) == 0:
             assert got.wing_line is None and want.wing_line is None
             got = dataclasses.replace(got, wing_line=np.zeros(1))
@@ -193,7 +198,8 @@ def test_two_pass_equals_single_pass(synthetic_case, single_pass):
 def _layer_params(params, i):
     return LineParams(**{f: torch.tensor(np.asarray(getattr(params, f))[i])
                          for f in ("nu0", "nu0_shifted", "strength",
-                                   "gamma_d", "gamma_0", "wing", "shift0")})
+                                   "gamma_d", "gamma_0", "wing", "shift0",
+                                   "gamma_2")})
 
 
 def test_reference_engines_match_jax(synthetic_case):

@@ -77,8 +77,9 @@ def test_make_od_fn_matches_jnp_engine(reference, iso_tables, dtype,
 def test_unported_branches_raise(reference, iso_tables):
     store, atm, lm, _ = reference
     lines, iso, state = _port_inputs(store, iso_tables, atm, torch.float32)
-    for kw in ({"profile": "sdvoigt"},
+    for kw in ({"profile": "ht"},
                {"differentiable": True, "line_mixing": lm},
-               {"wing_abs": 25.0}, {"continuum": "h2o_empirical"}):
+               {"differentiable": True, "profile": "sdvoigt"},
+               {"continuum": "h2o_empirical"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_od_fn(lines, iso, AXIS, state, **kw)
