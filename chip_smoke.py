@@ -65,6 +65,33 @@ Phases, each printing its result on its own line:
    (plain versions) within 1e-5 of peak.
 8. Where the full-width lattice's time goes (CUDA events per stage), with
    each mode's bound.
+3d. The Hartmann-Tran kernels against their plain versions on every pass
+   of ``make_ht_fn`` (the bench's 20,000-line list, 30% live HT, 10 states)
+   and ``make_od_ht_fn(differentiable=True)`` (2,000 lines, 40% live HT, 66
+   layers) over 800-810 cm^-1 at 0.0025: K5 (``csrc/fused_ht.cu``) and the
+   K1 ``sdvoigt``/``full`` passes within 2e-6 of the lattice's or OD's
+   peak and of their own; K6 (``csrc/fused_ht.cu``), K4
+   (``csrc/fused_xsect_jvp.cu``) and K3 for a T direction over all layers
+   and a batch of 8 one-hot T directions, within ``HT_JVP_BOUND``,
+   ``K4_BOUND`` and ``K3_BOUND`` of each tangent's own peak.
+9. The HT lattice at full width (the JAX bench's metric 5: 400,001 points,
+   10 states) with the launch counts reset before and read after (K5 must
+   have run): plan-build seconds, CUDA-event milliseconds, states and
+   window evaluations per second; a small lattice on the card and the CPU
+   within 1e-5 of peak; ``xsect --profile ht`` through the CLI on the
+   coarse-far route, AFIT files written and one read back.
+9b. The layered HT OD at full width (metric 5b: 66 layers): milliseconds,
+   window evaluations per second, the K5 and K1 launch counts.
+9c. The HT Jacobian (``ht_jacobian_jvp_per_s``: 2,000 lines, 790-830
+   cm^-1): d OD / d T[3], then all 66 one-hot T directions through ``vmap``
+   of ``jvp`` with the counts reset before and read after (K3, K4 and K6
+   must have run): wall seconds, directions per second, peak device
+   memory; d OD / d T[3] on a small band on the card and on the CPU within
+   1e-4 of its peak.
+9d. The differentiable SD-Voigt OD at full width (the bench's 20,000-line
+   list): a batch of 8 one-hot T directions, milliseconds and K4 launches.
+10. Where the time of 9, 9b and 9c goes: CUDA-event milliseconds per kind
+   of pass, each with its bound.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -105,8 +132,13 @@ from radtxfr_tpu_torch.kernels.linemixing_data import (  # noqa: E402
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist  # noqa: E402
 from radtxfr_tpu_torch.lines.store import IsoTables  # noqa: E402
 from radtxfr_tpu_torch.core.planck import planckian  # noqa: E402
+from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
+from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
+    resolve_ht_columns)
 from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
-                                           make_od_fn, make_xsect_fn)
+                                           ht_wing_bounds, make_ht_fn,
+                                           make_od_fn, make_od_ht_fn,
+                                           make_xsect_fn)
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
@@ -175,22 +207,75 @@ XS_OWN_BOUND = {"asym": 2e-6, "core": 5e-2, "full": 2e-6, "sdvoigt": 2e-6,
 COARSE_BOUND = {"sdvoigt": 1e-5, "voigt": 1e-6}
 XS_SLICE_BOUND = 1e-5
 # SD-Voigt lane-ops per evaluation, from the building blocks in the header
-# of csrc/fused_xsect.cu ("Bound."): (inside the radius where a CPF point
-# can reach |Z| < 15, counted at two Weideman points; outside it, where
-# both points take the unguarded asymptotic form)
+# of csrc/fused_xsect.cu ("Bound."): the per-evaluation part of each mode,
+# and per CPF point the branch it takes (sdvoigt, sdvoigt_core): Weideman
+# inside the radius where that point lies in |x| + y < 15 (region_radii),
+# the unguarded asymptotic form outside it. CPF3's sub-band is counted at
+# Weideman's price (it costs a little more there: an undercount)
 SD_BASE = 11 + 24 + 2        # PRE, the SD prelude, the tail
 SD_SEL = 22                  # |Z1|, |Z2|, the CPF3 test and its selects
 SD_WEI = 3 + 35 + 7 * N_WEI  # region test + Weideman (y elementwise)
 SD_ASYM = 3 + 18             # region test + the unguarded asymptotic form
 SD_GUARDED = 19              # the guarded asymptotic form
-SD_OPS = {"sdvoigt_asym": (SD_BASE + 2 * SD_GUARDED,) * 2,
-          "sdvoigt": (SD_BASE + SD_SEL + 2 * SD_WEI,
-                      SD_BASE + SD_SEL + 2 * SD_ASYM)}
-SD_OPS["sdvoigt_core"] = tuple(n + 2 * (SD_GUARDED + 1)
-                               for n in SD_OPS["sdvoigt"])
+SD_OPS = {"sdvoigt_asym": SD_BASE + 2 * SD_GUARDED,
+          "sdvoigt": SD_BASE + SD_SEL,
+          "sdvoigt_core": SD_BASE + SD_SEL + 2 * (SD_GUARDED + 1)}
 SIMPLE_OPS = {"lorentz": 18, "doppler": 20}
 SPAN = 256            # points of a K1 CTA's slice (csrc: SPAN)
 INTERP_OPS = 9        # a correction point's 4-node FMA interpolation + add
+
+# the Hartmann-Tran path (the JAX bench's metrics 5, 5b and
+# ht_jacobian_jvp_per_s, bench.py:543-585, 622-663, 697-726)
+HT_BAND = (500.0, 1500.0, 0.0025)            # 400,001 points
+HT_SUB = (800.0, 810.0, 0.0025)
+HT_LINES = dict(n_lines=20_000, nu_min=480.0, nu_max=1520.0)
+HT_JAC_LINES = dict(n_lines=2000, nu_min=780.0, nu_max=840.0, seed=77,
+                    sd_zero_frac=0.4)
+HT_JAC_BAND = (790.0, 830.0, 0.0025)
+HT_JAC_LAYER = 3
+HT_CLI = ("xsect --synthetic 2000 --numin 800 --numax 900 --dv 0.0025 "
+          "--profile ht --wing-abs 60 --T 275 --T-max 320 --T-step 5")
+# K5 against its plain version, of the pass's own peak: it follows the plain
+# version's operations uncontracted (K1's SD-Voigt bound); K6 likewise, of
+# each tangent's own peak: its dual numbers use torch's derivative formulas,
+# each operation rounded on its own, so it rounds as the plain version even
+# where the real-pair square root's tangent is ill-conditioned (Im(X + Y)
+# crossing zero; there two float32 versions rounding in different orders
+# part by 1e-3 of peak, tests/test_torch_ht_jacobian.py); K4 as K3
+HT_OWN_BOUND = 2e-6
+HT_JVP_BOUND = 2e-6
+K4_BOUND = 2e-6
+# lane-ops per evaluation, hand counts from the CUDA sources with the
+# conventions above (a negation is free) and the branch each evaluation
+# takes, by the radii of region_radii. K5 and K6 (csrc/fused_ht.cu
+# "Bound."): each piece's (value ops; ops a dual number adds once per
+# evaluation, the reciprocal's square and the square root's doubling; ops
+# per direction by the Dual operators as written: + or - 1, dual * dual 3,
+# float * dual 1, dual / dual 6, reciprocal 1, square root 4, the floor
+# 0). PART4 (Gamma2 != 0) evaluates two w(Z), PART1 one (and its |Z1| >
+# 4e3 form far out); K6 adds 5 per direction to accumulate
+HT_PIECES = {"part4": (214, 3, 283), "part1": (76, 0, 108),
+             "part1_big": (93, 0, 133),
+             "w_wei": (41 + 7 * N_WEI, 2, 65 + 14 * N_WEI),
+             "w_asym": (25, 1, 40)}
+HT_ACC_DIR = 5
+# K4 (csrc/fused_xsect_jvp.cu): the window, dnu, xi, S and the denominator
+# 37, per CPF point a (K, Kx, Ky) after its 3-op region test (Weideman
+# 49 + 15 n_wei or the asymptotic form's 38), 32 per direction
+K4_BASE, K4_DIR = 37, 32
+KG_WEI, KG_ASYM = 3 + 49 + 15 * N_WEI, 3 + 38
+
+
+def ht_piece(name, nd):
+    """K5's (nd = 0) or K6's lane-ops for one piece of an evaluation."""
+    value, once, per_dir = HT_PIECES[name]
+    return value + (once + nd * per_dir if nd else 0)
+
+
+def cpf_pair_ops(n_win, n_in, w_in, w_out):
+    """The two CPF points' w(Z) of ``n_win`` evaluations, of which
+    ``n_in[i]`` lie in point i's Weideman region."""
+    return sum(n * w_in + (n_win - n) * w_out for n in n_in)
 
 
 def one_hot_batch(dev):
@@ -282,16 +367,92 @@ def slot_tiles(dplan):
     return np.concatenate([t, np.full(dplan.line.numel() - t.size, -1)])
 
 
+SQRT_LN2 = float(np.sqrt(np.log(2.0)))
+
+
+def cpf_radius(R, P):
+    """The |Im(X + Y)| below which a CPF point Z = S -+ c, S = sqrt(X + Y)
+    = us + i vs with Re(X + Y) = P and c real, lies in hum1_wei's Weideman
+    region |x| + y = |vs| + us -+ c < 15, i.e. us + |vs| < R = 15 +- c:
+    (us + |vs|)^2 = m + sqrt(m^2 - P^2) with m = |X + Y| grows with
+    |Im(X + Y)| from |P|, and equals R^2 at m = (R^4 + P^2) / (2 R^2);
+    0 where it never does."""
+    R = np.asarray(R, dtype=np.float64)
+    R2 = np.where(R > 0.0, R * R, 1.0)
+    with np.errstate(over="ignore", invalid="ignore"):
+        m = (R2 * R2 + P * P) / (2.0 * R2)
+        q = np.sqrt(np.maximum(m * m - P * P, 0.0))
+    return np.where((R > 0.0) & (np.abs(P) < R2), q, 0.0)
+
+
+def region_radii(region, h, li, g):
+    """(centre, radii, direct) for the evaluations of layer ``li`` and
+    lines ``g``: the dnu (cm^-1) about which the profile's region tests are
+    centred, for each test the radius (cm^-1) inside which it takes the
+    Weideman branch (<= 0: nowhere), and a mask of the lines to count point
+    by point instead (ht_point_counts), or None. 'voigt': |x| + y < 15
+    about the shifted centre; 'sd': the two CPF points of the SD-Voigt
+    profile (K1 sdvoigt*, K4), exactly (cpf_radius); 'ht4': those of a
+    PART4 pcqsdhc evaluation (Gamma2 != 0) from its constants, by
+    cpf_radius where c2t and csqrtY are real (eta real, Shift2 = 0), point
+    by point where they are not; 'ht1': a PART1 evaluation's |x| + y < 15
+    and the |Z1| <= 4e3 radius of its near form."""
+    if region in ("voigt", "sd"):
+        gd, g0, s0 = (h[k][li, g] for k in ("gamma_d", "gamma_0", "shift0"))
+        if region == "voigt":
+            return s0, [15.0 * gd / SQRT_LN2 - g0], None
+        g2 = np.maximum(h["gamma_2"][li, g], 1e-4 * g0 + 1e-12)
+        c = gd / (2.0 * SQRT_LN2 * g2)
+        P = (g0 - 1.5 * g2) / g2 + c * c
+        return s0, [g2 * cpf_radius(15.0 + c, P),
+                    g2 * cpf_radius(15.0 - c, P)], None
+    cte, k1, k2, c2r, c2i, cyr, cyi = (a[li, g] for a in h["ht"][:7])
+    if region == "ht1":
+        return k2, [15.0 / cte - k1,
+                    np.sqrt(np.maximum((4e3 / cte) ** 2 - k1 * k1, 0.0))], None
+    real = (c2i == 0.0) & (cyi == 0.0)
+    P = k1 / np.where(real & (c2r != 0.0), c2r, 1.0) + cyr * cyr
+    return k2, [np.where(real, np.abs(c2r) * cpf_radius(15.0 + s * cyr, P),
+                         0.0) for s in (1.0, -1.0)], ~real
+
+
+def ht_point_counts(h, li, g, c, lo, hi, dx, chunk=1 << 22):
+    """The evaluations of PART4 lines ``g`` (layer ``li``; grid points
+    lo..hi about the centre index c) whose two CPF points lie in their
+    Weideman regions, tested as the kernel tests them (values, here in
+    float64): Z = sqrt(X + Y) -+ csqrtY, |Im Z| + Re Z < 15. Only the points
+    with |dnu - c0ti| < |c2t| ((15 + 3 |c|)^2 + |Y|) can be: there |S| <
+    15 + 3 |c|, since Re Z >= -|c|."""
+    cte, k1, k2, c2r, c2i, cyr, cyi = (a[li, g] for a in h["ht"][:7])
+    c2t, cy = c2r + 1j * c2i, cyr + 1j * cyi
+    r = np.abs(c2t) * ((15.0 + 3.0 * np.abs(cy)) ** 2
+                       + 1.0 / (2.0 * cte * np.abs(c2t)) ** 2) / dx
+    mid = c + k2 / dx
+    a = np.maximum(np.floor(mid - r) + 1, lo)
+    n = np.maximum(np.minimum(np.ceil(mid + r) - 1, hi) - a + 1,
+                   0).astype(np.int64)
+    counts = [0, 0]
+    for j in np.split(np.arange(g.size), np.searchsorted(
+            np.cumsum(n), np.arange(chunk, n.sum(), chunk))):
+        idx = np.repeat(j, n[j])
+        k = (np.repeat(a[j], n[j]) + np.arange(idx.size)
+             - np.repeat(np.cumsum(n[j]) - n[j], n[j]))
+        dnu = (k - c[idx]) * dx
+        S = np.sqrt((k1[idx] + 1j * (k2[idx] - dnu)) / c2t[idx]
+                    + (1.0 / (2.0 * cte[idx] * c2t[idx])) ** 2)
+        for i, Z in enumerate((S - cy[idx], S + cy[idx])):
+            counts[i] += int((np.abs(Z.imag) + Z.real < 15.0).sum())
+    return counts
+
+
 def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     """The evaluations one pass needs, recounted on the host from its plan
-    and the line parameters: (in-window, in-region) (layer, line, point)
-    triples, and the number of distinct lines it reads. ``live`` (nLay, L)
-    bool keeps only the pairs K3 evaluates (a non-zero tangent); ``cap``
-    False masks by the true window (the correction passes); ``region``
-    'voigt' is hum1_wei's |x| + y < 15 about the shifted centre, 'sd' the
-    SD-Voigt radius within which a CPF point can reach |Z| < 15
-    (|dnu - s0| < Gamma2 (225 + 30c + 2c^2), products/od.py's
-    sdvoigt_core_bound without its margin)."""
+    and the line parameters: the in-window (layer, line, point) triples, a
+    tuple with the number of them inside each radius of ``region``
+    (region_radii), and the number of distinct lines the pass reads.
+    ``live`` (nLay, L) bool keeps only the pairs a tangent kernel evaluates
+    (a non-zero tangent) or a part of the HT lines; ``cap`` False masks by
+    the true window (the correction passes)."""
     line = dplan.line.cpu().numpy()
     valid = line >= 0
     tile = dplan.tile
@@ -302,11 +463,15 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     lo_t = tile_of * tile
     hi_t = np.minimum(lo_t + tile, dplan.n_out) - 1
     wcap = dplan.wcap.cpu().numpy()[valid].astype(np.float64)
-    host = {k: getattr(prm, k).detach().cpu().numpy().astype(np.float64)
-            for k in ("wing", "gamma_d", "gamma_0", "shift0", "gamma_2")}
-    n_win = n_core = 0
+    f64 = lambda a: a.detach().cpu().numpy().astype(np.float64)  # noqa: E731
+    if region.startswith("ht"):
+        h = {"wing": f64(prm.wing), "ht": [f64(a) for a in prm.ht_consts]}
+    else:
+        h = {k: f64(getattr(prm, k)) for k in ("wing", "gamma_d", "gamma_0",
+                                               "shift0", "gamma_2")}
+    n_win, n_in = 0, None
     for li in lay.cpu().numpy():
-        w = host["wing"][li, g]
+        w = h["wing"][li, g]
         w = (np.minimum(w, wcap) if cap else w) / dplan.dx
         # integers k with c - w < k <= c + w inside the slot's tile
         lo = np.maximum(np.floor(c - w) + 1, lo_t)
@@ -315,24 +480,22 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
         if live is not None:
             keep &= live[li, g]
         n_win += int((hi - lo + 1)[keep].sum())
-        mid = c + host["shift0"][li, g] / dplan.dx
-        gd, g0 = host["gamma_d"][li, g], host["gamma_0"][li, g]
-        if region == "voigt":
-            # |x| + y < 15: |k - c - ds| < (15 - y) / xs
-            cte = np.sqrt(np.log(2.0)) / gd
-            y = g0 * cte
-            r = (15.0 - y) / (dplan.dx * cte)
-            ok = y < 15.0
-        else:
-            g2 = np.maximum(host["gamma_2"][li, g], 1e-4 * g0 + 1e-12)
-            cc = gd / (2.0 * np.sqrt(np.log(2.0)) * g2)
-            r = g2 * (225.0 + 30.0 * cc + 2.0 * cc * cc) / dplan.dx
-            ok = np.ones_like(r, dtype=bool)
-        clo = np.maximum(np.floor(mid - r) + 1, lo)
-        chi = np.minimum(np.ceil(mid + r) - 1, hi)
-        kc = keep & ok & (chi >= clo)
-        n_core += int((chi - clo + 1)[kc].sum())
-    return n_win, n_core, int(np.unique(g).size)
+        centre, radii, direct = region_radii(region, h, li, g)
+        mid = c + centre / dplan.dx
+        n_in = n_in or [0] * len(radii)
+        for i, r in enumerate(radii):
+            r = r / dplan.dx
+            clo = np.maximum(np.floor(mid - r) + 1, lo)
+            chi = np.minimum(np.ceil(mid + r) - 1, hi)
+            kc = keep & (r > 0.0) & (chi >= clo)
+            n_in[i] += int((chi - clo + 1)[kc].sum())
+        if direct is not None and (keep & direct).any():
+            sel = keep & direct
+            for i, n in enumerate(ht_point_counts(h, li, g[sel], c[sel],
+                                                  lo[sel], hi[sel],
+                                                  dplan.dx)):
+                n_in[i] += n
+    return n_win, tuple(n_in or ()), int(np.unique(g).size)
 
 
 def bound(ops, nbytes, sfu=0):
@@ -349,7 +512,7 @@ def k1_bound_work(mode, lay, dplan, prm, counts=None):
     evaluation at its region's hand count; each parameter of the lines it
     reads, each plan slot and each output element once. ``counts``: the
     pass's ``window_counts``, when already taken."""
-    n_win, n_core, n_lines = counts or window_counts(lay, dplan, prm)
+    n_win, (n_core,), n_lines = counts or window_counts(lay, dplan, prm)
     ops_in, ops_out = K1_OPS[mode]
     n_par = 6 if mode == "mix" else 5
     nl = lay.numel()
@@ -365,8 +528,8 @@ def xs_bound_work(mode, lay, dplan, prm):
     evaluates (256/R + 3) nodes per slot and 256-point slice."""
     corr = mode.startswith("corr:")
     sd = "sdvoigt" in mode
-    n_win, n_reg, n_lines = window_counts(lay, dplan, prm, cap=not corr,
-                                          region="sd" if sd else "voigt")
+    n_win, n_in, n_lines = window_counts(lay, dplan, prm, cap=not corr,
+                                         region="sd" if sd else "voigt")
     nl = lay.numel()
     kind = mode
     ops = 0
@@ -379,26 +542,37 @@ def xs_bound_work(mode, lay, dplan, prm):
         n_nodes = (tile_of.size * -(-dplan.tile // SPAN)
                    * (SPAN // int(r_s) + 3))
         ops = nl * (INTERP_OPS * int(pts.sum())
-                    + n_nodes * (SD_OPS["sdvoigt_asym"][0] if sd
+                    + n_nodes * (SD_OPS["sdvoigt_asym"] if sd
                                  else K1_OPS["asym"][0]))
     if kind in SIMPLE_OPS:
-        ops_in = ops_out = SIMPLE_OPS[kind]
+        ops += n_win * SIMPLE_OPS[kind]
+    elif kind in SD_OPS:
+        ops += n_win * SD_OPS[kind]
+        if kind != "sdvoigt_asym":
+            ops += cpf_pair_ops(n_win, n_in, SD_WEI, SD_ASYM)
     else:
-        ops_in, ops_out = SD_OPS[kind] if kind in SD_OPS else K1_OPS[kind]
-    ops += n_reg * ops_in + (n_win - n_reg) * ops_out
+        ops_in, ops_out = K1_OPS[kind]
+        ops += n_in[0] * ops_in + (n_win - n_in[0]) * ops_out
     nbytes = (4 * (6 if sd else 5) * nl * n_lines
               + 16 * dplan.k_line.numel() + 4 * nl * dplan.n_out)
     return ops, nbytes
+
+
+def live_pairs(prm, tangents):
+    """(nLay, L) bool: the pairs where any of the (nd, nLay, L) tangents is
+    non-zero."""
+    live = np.zeros(tuple(prm.strength.shape), dtype=bool)
+    for t in tangents:
+        live |= (t != 0).any(dim=0).cpu().numpy()
+    return live
 
 
 def k3_bound_work(lay, dplan, prm, tangents):
     """(lane-ops, bytes) of one K3 launch set for the (nd, nLay, L)
     tangents: the live evaluations only, as the kernel skips the rest."""
     nd = tangents[0].shape[0]
-    live = np.zeros(tuple(prm.strength.shape), dtype=bool)
-    for t in tangents:
-        live |= (t != 0).any(dim=0).cpu().numpy()
-    n_win, n_core, n_lines = window_counts(lay, dplan, prm, live)
+    n_win, (n_core,), n_lines = window_counts(lay, dplan, prm,
+                                              live_pairs(prm, tangents))
     ops_in, ops_out = k3_ops(nd)
     nl = lay.numel()
     nbytes = (4 * (5 + 4 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
@@ -1090,7 +1264,7 @@ def phase_breakdown(dev, card):
         slot_points[mode] += (lay.numel() * int(dplan.counts.sum())
                               * dplan.block * dplan.tile)
         counts = window_counts(lay, dplan, prm)
-        n_win, n_core, _ = counts
+        n_win, (n_core,), _ = counts
         ops, nbytes = k1_bound_work(mode, lay, dplan, prm, counts)
         work[mode] = [work[mode][0] + ops, work[mode][1] + nbytes]
         print(f"[6 evaluations] {mode} pass, {lay.numel()} layers: "
@@ -1174,6 +1348,529 @@ def phase_jac_breakdown(dev, card):
                       for k, w in work.items()) + f" [{card}]", flush=True)
 
 
+def ht_extras(n, seed, frac):
+    """The JAX bench's HT columns (bench.py:636-640): ``frac`` of the lines
+    with live nuVC and eta (the HT kernel), the rest resolving to pcqsdhc's
+    SD-Voigt and Voigt degenerations."""
+    rng = np.random.default_rng(seed)
+    rows = rng.random(n) < frac
+    return {"nu_HT_air": rng.uniform(0.01, 0.05, n) * rows,
+            "kappa_HT_air": rng.uniform(0.0, 1.0, n) * rows,
+            "eta_HT_air": rng.uniform(0.1, 0.3, n) * rows}
+
+
+def ht_lattice_case(dev):
+    """Metric 5's lines (bench.py:557's list with seed 0) and HT columns."""
+    store = synthetic_lines(HT_LINES["n_lines"], nu_min=HT_LINES["nu_min"],
+                            nu_max=HT_LINES["nu_max"], seed=0, device=dev)
+    return store, ht_extras(len(store), 3, 0.3)
+
+
+def ht_layered_case(dev):
+    """Metric 5b's lines (seed 2, 40% SD_air = 0) and HT columns."""
+    store = synthetic_lines(HT_LINES["n_lines"], nu_min=HT_LINES["nu_min"],
+                            nu_max=HT_LINES["nu_max"], seed=2,
+                            sd_zero_frac=0.4, device=dev)
+    return store, ht_extras(len(store), 5, 0.3)
+
+
+def ht_jac_case(dev):
+    """ht_jacobian_jvp_per_s's 2,000 lines and HT columns (40% live)."""
+    spec = dict(HT_JAC_LINES)
+    store = synthetic_lines(spec.pop("n_lines"), device=dev, **spec)
+    return store, ht_extras(len(store), 5, 0.4)
+
+
+def ht_window_evals(store, extras, diluent, X, T, p_atm):
+    """Nominal hapi-window evaluations as the JAX bench counts them
+    (bench.py:649-660): the grid points inside each (state, line) window
+    of ht_wing_bounds."""
+    resolved = resolve_ht_columns(store, extras, diluent)
+    W = ht_wing_bounds(resolved, store.host_view(),
+                       IsoTables.load(device="cpu", dtype=torch.float64),
+                       np.asarray(T, dtype=np.float64),
+                       np.asarray(p_atm, dtype=np.float64))
+    nu0 = np.broadcast_to(store.host["nu0"], W.shape)
+    lo = np.searchsorted(X, (nu0 - W).ravel(), side="right")
+    hi = np.searchsorted(X, (nu0 + W).ravel(), side="right")
+    return int((hi - lo).sum())
+
+
+def ht_bound_work(lay, dplan, prm, tangents=None):
+    """(lane-ops, bytes) of one K5 pass, or of one K6 launch set for the
+    (nd, nLay, L) ``tangents`` (the live evaluations only): PART4 pairs
+    (Gamma2 != 0) with each CPF point's w(Z) by its own region, PART1 pairs
+    by |x| + y < 15 and the |Z1| <= 4e3 radius."""
+    part4 = ((prm.ht_consts[3] != 0) | (prm.ht_consts[4] != 0)).cpu().numpy()
+    nd = 0 if tangents is None else tangents[0].shape[0]
+    live = np.ones_like(part4) if tangents is None else live_pairs(prm,
+                                                                   tangents)
+    n_win, n_in, n_lines = window_counts(lay, dplan, prm, part4 & live,
+                                         region="ht4")
+    ops = (n_win * (ht_piece("part4", nd) + nd * HT_ACC_DIR)
+           + cpf_pair_ops(n_win, n_in, ht_piece("w_wei", nd),
+                          ht_piece("w_asym", nd)))
+    n_win, (n_w, n_near), _ = window_counts(lay, dplan, prm, ~part4 & live,
+                                            region="ht1")
+    ops += (n_win * (ht_piece("part1", nd) + nd * HT_ACC_DIR)
+            + cpf_pair_ops(n_win, (n_w,), ht_piece("w_wei", nd),
+                           ht_piece("w_asym", nd))
+            + (n_win - n_near) * (ht_piece("part1_big", nd)
+                                  - ht_piece("part1", nd)))
+    nl = lay.numel()
+    nbytes = (4 * (13 + 12 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
+              + 4 * max(nd, 1) * nl * dplan.n_out)
+    return ops, nbytes
+
+
+def k4_bound_work(lay, dplan, prm, tangents):
+    """(lane-ops, bytes) of one K4 launch set for the (nd, nLay, L)
+    tangents: the live evaluations, each CPF point's (K, Kx, Ky) by its own
+    region."""
+    nd = tangents[0].shape[0]
+    n_win, n_in, n_lines = window_counts(lay, dplan, prm,
+                                         live_pairs(prm, tangents),
+                                         region="sd")
+    nl = lay.numel()
+    nbytes = (4 * (6 + 5 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
+              + 4 * nd * nl * dplan.n_out)
+    return (n_win * (K4_BASE + K4_DIR * nd)
+            + cpf_pair_ops(n_win, n_in, KG_WEI, KG_ASYM)), nbytes
+
+
+def ht_od_tangents(fn, base, V):
+    """The HT OD's line-parameter tangents of the T directions ``V`` (nd,
+    nLay): (shift0, strength, gamma_d, gamma_0, gamma_2, the 11 HT
+    constants), each (nd, nLay, L) and contiguous."""
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+
+    def prm_of(T_):
+        q = fn.line_params(T_, p, pl, vmr)
+        return (q.shift0, q.strength, q.gamma_d, q.gamma_0, q.gamma_2,
+                *q.ht_consts)
+
+    tans = torch.func.vmap(lambda v: torch.func.jvp(prm_of, (T,), (v,))[1])(V)
+    return [t.contiguous() for t in tans]
+
+
+def ht_primal(call, prm, plain=False):
+    """One pass of an HT builder through its kernel or its plain version."""
+    lay, dplan, mode = call
+    if mode == "ht":
+        f = fused_ht.xsect_ht_plain if plain else fused_ht.xsect_ht
+        return f(dplan, lay, prm.strength, prm.wing, prm.ht_consts, N_WEI)
+    f = fused_xsect.xsect_fused_plain if plain else fused_xsect.xsect_fused
+    return f(dplan, lay, prm.shift0, prm.strength, prm.gamma_d, prm.gamma_0,
+             prm.wing, None, mode, N_WEI,
+             gamma_2=prm.gamma_2 if mode == "sdvoigt" else None)
+
+
+def ht_tangent(call, prm, tans, plain=False):
+    """The tangent of one pass of the differentiable HT builder: K6 (ht),
+    K4 (sdvoigt) or K3 (full), or its plain version; ``tans`` as
+    :func:`ht_od_tangents` gives them."""
+    lay, dplan, mode = call
+    s0_t, s_t, gd_t, g0_t, g2_t, *c_t = tans
+    if mode == "ht":
+        f = fused_ht.xsect_ht_jvp_plain if plain else fused_ht.xsect_ht_jvp
+        return f(dplan, lay, prm.strength, prm.wing, prm.ht_consts, s_t, c_t,
+                 N_WEI)
+    args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d, prm.gamma_0)
+    if mode == "sdvoigt":
+        f = (fused_xsect.xsect_sdvoigt_jvp_plain if plain
+             else fused_xsect.xsect_sdvoigt_jvp)
+        return f(*args, prm.gamma_2, prm.wing, s0_t, s_t, gd_t, g0_t, g2_t,
+                 N_WEI)
+    f = (fused_xsect.xsect_fused_jvp_plain if plain
+         else fused_xsect.xsect_fused_jvp)
+    return f(*args, prm.wing, s0_t, s_t, gd_t, g0_t, N_WEI)
+
+
+HT_TANGENT_NAME = {"ht": "K6", "sdvoigt": "K4", "full": "K3"}
+
+
+def phase_ht_sub(dev, card):
+    """3d: every pass of make_ht_fn and make_od_ht_fn(differentiable=True)
+    over 800-810 cm^-1 against its plain version (K5, K1 sdvoigt and full),
+    and each tangent pass of the latter (K6, K4, K3) for a T direction over
+    all layers and 8 one-hot T directions; returns the JSON fields of K5,
+    K6 and K4 (times and bound from the 8-direction batch)."""
+    iso = IsoTables.load(device=dev)
+    X = arange_drift_free(*HT_SUB)
+    T, p = xs_states(dev)
+    store, extras = ht_lattice_case(dev)
+    lat = make_ht_fn(store, iso, X, XS_T, np.ones_like(XS_T), extras=extras)
+    jstore, jextras = ht_jac_case(dev)
+    base = std_atmosphere(device=dev)
+    odf = make_od_ht_fn(jstore, iso, X, base, extras=jextras,
+                        differentiable=True)
+    check({c[2] for c in odf.calls} == {"ht", "sdvoigt", "full"}
+          and "ht" in {c[2] for c in lat.calls}, "3d: the HT builders did "
+          "not plan all three routes")
+    prm_l = lat.line_params(T, p)
+    prm_o = odf.line_params(base.T, base.p, base.pl, base.vmr)
+    n_lay = base.n_layers
+    sets = {"T linspace(0.5, 1.5)": ht_od_tangents(
+                odf, base, torch.linspace(0.5, 1.5, n_lay, device=dev)[None]),
+            "8 one-hot T (layers 24-31)": ht_od_tangents(odf, base,
+                                                         one_hot_batch(dev))}
+    runs = [("lattice", lat, prm_l, c, None, None) for c in lat.calls]
+    runs += [("layered OD", odf, prm_o, c, None, None) for c in odf.calls]
+    runs += [("layered OD", odf, prm_o, c, name, tans) for c in odf.calls
+             for name, tans in sets.items()]
+    timed = time_kernels(
+        (f"3d {c[2]}", (lambda c=c, prm=prm, tans=tans:
+                        ht_primal(c, prm) if tans is None
+                        else ht_tangent(c, prm, tans)))
+        for _, _, prm, c, _, tans in runs)
+    peaks = {"lattice": lat.line_sum(prm_l).abs().max().item(),
+             "layered OD": odf.line_sum(prm_o).abs().max().item()}
+    stats = {}
+    for (label, fn, prm, call, name, tans), (k_ms, k_out) in zip(runs, timed):
+        lay, dplan, mode = call
+        if tans is None:
+            p_ms, p_out = cuda_ms(lambda: ht_primal(call, prm, plain=True), 1)
+            kname = "K5" if mode == "ht" else f"K1 {mode}"
+            bound_own = HT_OWN_BOUND if mode == "ht" else XS_OWN_BOUND[mode]
+            touched = True
+        else:
+            p_ms, p_out = cuda_ms(lambda: ht_tangent(call, prm, tans,
+                                                     plain=True), 1)
+            kname = f"{HT_TANGENT_NAME[mode]} {name}"
+            bound_own = {"ht": HT_JVP_BOUND, "sdvoigt": K4_BOUND,
+                         "full": K3_BOUND}[mode]
+            touched = any(bool((t != 0).any(dim=0).any(dim=1)[lay.long()]
+                               .any()) for t in tans)
+        err = (k_out - p_out).abs().max().item()
+        own = p_out.abs().max().item()
+        check(bool(torch.isfinite(k_out).all()) and (own > 0.0) == touched,
+              f"3d {label} {kname}: non-finite, or zero where touched")
+        rel = err / own if touched else err
+        print(f"[3d {label}] {kname} layers {lay.numel()} tile {dplan.tile} "
+              f"block {dplan.block} tiles {dplan.n_tiles}: max|kernel-plain| "
+              f"{err:.3e} = {rel:.3e} of its own peak {own:.4e}"
+              + (f" = {err / peaks[label]:.3e} of the {label}'s peak"
+                 if tans is None else "")
+              + f"; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]",
+              flush=True)
+        check(rel <= bound_own if touched else err == 0.0,
+              f"3d {label} {kname}: {rel:.3e} of its own peak > {bound_own}")
+        if tans is None:
+            check(err <= XS_BOUND * peaks[label], f"3d {label} {kname}: "
+                  f"{err / peaks[label]:.3e} of the {label}'s peak > "
+                  f"{XS_BOUND}")
+            if mode == "ht":
+                add_stats(stats, "ht", err, k_ms, p_ms,
+                          *ht_bound_work(lay, dplan, prm))
+        elif name.startswith("8") and mode == "ht":
+            add_stats(stats, "ht_jvp", err, k_ms, p_ms,
+                      *ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]]))
+        elif name.startswith("8") and mode == "sdvoigt":
+            add_stats(stats, "sdvoigt_jvp", err, k_ms, p_ms,
+                      *k4_bound_work(lay, dplan, prm, tans[:5]))
+    return finish_stats(stats)
+
+
+def phase_ht_lattice(dev, card):
+    """9: the HT lattice at full width, the JAX bench's metric 5
+    (bench.py:622-663), with the launch counts reset before and read after
+    (K5 must have run); a small lattice on the card and on the CPU; then
+    ``xsect --profile ht`` through the CLI on the coarse-far route."""
+    store, extras = ht_lattice_case(dev)
+    X = arange_drift_free(*HT_BAND)
+    T, p = xs_states(dev)
+    t0 = time.perf_counter()
+    fn = make_ht_fn(store, IsoTables.load(device=dev), X, XS_T,
+                    np.ones_like(XS_T), extras=extras)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    out = fn(T, p)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["ht"] > 0, "kernel ht was not launched by the HT "
+          "lattice")
+    check(out.shape == (XS_T.size, X.size) and bool(torch.isfinite(out).all())
+          and out.max().item() > 0.0, "the HT lattice is not finite and "
+          "positive somewhere")
+    ms, _ = cuda_ms(lambda: fn(T, p), 3)
+    evals = ht_window_evals(store, extras, {"air": 1.0}, X, XS_T,
+                            np.ones_like(XS_T))
+    print(f"[9 ht lattice] 20000 lines (seed 0, 30% live HT), {XS_T.size} "
+          f"states x {X.size} points: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; plan build "
+          f"{build_s:.3f} s, lattice {ms:.3f} ms (CUDA events, warm), "
+          f"{XS_T.size / ms * 1e3:.3f} states/s, {evals:.4e} window "
+          f"evaluations = {evals / ms * 1e3:.4e} "
+          f"ht_window_evals_per_s [{card}]", flush=True)
+    del out
+
+    # a small lattice, card against the CPU's plain versions
+    small = synthetic_lines(300, nu_min=790.0, nu_max=820.0, seed=4,
+                            sd_zero_frac=0.3, device="cpu")
+    sx = ht_extras(len(small), 6, 0.4)
+    Xs = arange_drift_free(800.0, 810.0, 0.0025)
+    res = {}
+    for d in (dev, "cpu"):
+        s_d = type(small).from_numpy(**small.host, device=d)
+        f = make_ht_fn(s_d, IsoTables.load(device=d), Xs, XS_T,
+                       np.ones_like(XS_T), extras=sx)
+        Td = torch.as_tensor(XS_T, dtype=torch.float32, device=d)
+        res[d] = f(Td, torch.ones_like(Td)).cpu().numpy()
+    rel = np.abs(res[dev] - res["cpu"]).max() / np.abs(res["cpu"]).max()
+    print(f"[9 slice] 300 lines, 800-810 cm^-1, 10 states: card vs CPU "
+          f"plain {rel:.3e} of peak", flush=True)
+    check(rel <= XS_SLICE_BOUND, f"HT slice: {rel:.3e} > {XS_SLICE_BOUND}")
+
+    # the CLI: no HT columns, so the SD-Voigt route, coarse-far
+    args = xs_args(HT_CLI)
+    timings = {}
+    reset_launches()
+    xs = run_xsect(args, dev, timings)
+    cli = read_launches()
+    check(cli["sdvoigt_asym"] > 0 and cli["corr:64:sdvoigt"] > 0,
+          f"xsect --profile ht did not take the coarse-far route: {cli}")
+    check(np.isfinite(xs["K"]).all() and xs["K"].max() > 0.0,
+          "xsect --profile ht: lattice not finite and positive")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_xs(os.path.join(tmp, "xs"), xs, "radtxfr_tpu synthetic")
+        rX, rY, meta = xs_read(paths[-1])
+        check(len(paths) == XS_T.size and rX.size == xs["X"].size
+              and np.array_equal(rY, xs["K"][-1].astype(np.float64))
+              and meta["T"] == XS_T[-1], "AFIT file read back differs")
+    print(f"[9 cli] {HT_CLI}: launches "
+          f"{ {k: v for k, v in cli.items() if v} }; plan build "
+          f"{timings['build_s']:.3f} s, lattice {timings['run_s']:.3f} s "
+          f"wall; AFIT files written and read back [{card}]", flush=True)
+    return launches
+
+
+def phase_ht_layered(dev, card):
+    """9b: the layered HT OD at full width, the JAX bench's metric 5b
+    (bench.py:543-585: 66 US-1976 layers, 30% live HT)."""
+    store, extras = ht_layered_case(dev)
+    X = arange_drift_free(*HT_BAND)
+    base = std_atmosphere(device=dev)
+    t0 = time.perf_counter()
+    fn = make_od_ht_fn(store, IsoTables.load(device=dev), X, base,
+                       extras=extras)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    args = (base.T, base.p, base.pl, base.vmr)
+    reset_launches()
+    od = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for k in ("ht", "sdvoigt", "full"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the layered "
+              "HT OD")
+    # non-negative but for float32 rounding (the SD-Voigt and HT far wings
+    # are differences w(Z1) - w(Z2) of near-equal values)
+    peak, low = od.max().item(), od.min().item()
+    n_bad, n_neg = int((~torch.isfinite(od)).sum()), int((od < 0).sum())
+    print(f"[9b ht layered] OD peak {peak:.4e}, min {low:.4e} "
+          f"({n_neg} negative values), {n_bad} non-finite", flush=True)
+    if n_bad or low < -XS_BOUND * peak:
+        prm = fn.line_params(*args)
+        for call in fn.calls:
+            o = fn.run_call(call, prm)
+            print(f"[9b pass] {call[2]} layers {call[0].tolist()}: "
+                  f"{int((~torch.isfinite(o)).sum())} non-finite, min "
+                  f"{o.min().item():.4e}, max {o.max().item():.4e}",
+                  flush=True)
+    check(n_bad == 0 and peak > 0.0 and low >= -XS_BOUND * peak,
+          "layered HT OD not finite, or negative beyond rounding")
+    del od
+    ms, _ = cuda_ms(lambda: fn(*args), 2)
+    evals = ht_window_evals(store, extras, {"air": 1.0, "self": 1.0}, X,
+                            base.T.cpu().numpy(),
+                            base.p.cpu().numpy() / 101325.0)
+    print(f"[9b ht layered] 20000 lines (seed 2, 40% SD_air = 0, 30% live "
+          f"HT), 66 layers x {X.size} points: launches K5 {launches['ht']}, "
+          f"K1 sdvoigt {launches['sdvoigt']}, K1 full {launches['full']}; "
+          f"plan build {build_s:.3f} s, OD {ms:.3f} ms (CUDA events, warm), "
+          f"{evals:.4e} window evaluations = {evals / ms * 1e3:.4e} "
+          f"ht_layered_od_window_evals_per_s [{card}]", flush=True)
+    return launches
+
+
+def phase_ht_jacobian(dev, card):
+    """9c: the HT Jacobian, the JAX bench's ht_jacobian_jvp_per_s
+    (bench.py:697-726): d OD / d T[3], then all 66 one-hot T directions
+    through ``vmap`` of ``jvp``, with the launch counts reset before and read
+    after (K3, K4 and K6 must have run); then a small band card vs CPU."""
+    store, extras = ht_jac_case(dev)
+    X = arange_drift_free(*HT_JAC_BAND)
+    base = std_atmosphere(device=dev)
+    fn = make_od_ht_fn(store, IsoTables.load(device=dev), X, base,
+                       extras=extras, differentiable=True)
+    p, pl, vmr = base.p, base.pl, base.vmr
+    e3 = torch.zeros_like(base.T)
+    e3[HT_JAC_LAYER] = 1.0
+    jvp3 = lambda: torch.func.jvp(  # noqa: E731
+        lambda T_: fn(T_, p, pl, vmr), (base.T,), (e3,))[1]
+    # single readings of this path swing about 2x between calls (its plain
+    # HT-parameter tangents are hundreds of small launches from the host):
+    # five timed calls and three runs of the 66 directions, with their range
+    ms3s = []
+    for _ in range(5):
+        ms, d3 = cuda_ms(jvp3, 1)
+        ms3s.append(ms)
+    check(bool(torch.isfinite(d3).all()) and d3.abs().max().item() > 0.0,
+          "d OD / d T[3] not finite or zero")
+    V = torch.eye(base.n_layers, device=dev)
+    walls = []
+    for rep in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, J = torch.func.vmap(lambda v: torch.func.jvp(
+            lambda T_: fn(T_, p, pl, vmr), (base.T,), (v,)),
+            out_dims=(None, 0))(V)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = read_launches()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for k in ("jvp", "sdvoigt_jvp", "ht_jvp"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the HT "
+              "Jacobian")
+    check(J.shape == (base.n_layers, base.n_layers, X.size)
+          and bool(torch.isfinite(J).all()), "HT Jacobian shape or values")
+    rel3 = ((J[HT_JAC_LAYER] - d3).abs().max() / d3.abs().max()).item()
+    check(rel3 <= 1e-6, f"the batched d/dT[3] differs from the single jvp: "
+          f"{rel3:.3e}")
+    ms3, wall = float(np.median(ms3s)), float(np.median(walls))
+    print(f"[9c ht jacobian] 2000 lines (40% live HT), 66 layers x {X.size} "
+          f"points: d OD/d T[3] median {ms3:.3f} ms of 5 calls (range "
+          f"{min(ms3s):.3f}-{max(ms3s):.3f}; CUDA events, warm; "
+          f"{1e3 / ms3:.3f} ht_jacobian_jvp_per_s); 66 one-hot directions "
+          f"median {wall:.3f} s wall of 3 runs (range {min(walls):.3f}-"
+          f"{max(walls):.3f}; {base.n_layers / wall:.3f} directions/s), "
+          f"peak device memory {peak_gib:.3f} GiB; launches (first run) "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]",
+          flush=True)
+    del J
+
+    # a small band, card against the CPU's plain versions
+    small = synthetic_lines(200, nu_min=795.0, nu_max=815.0, seed=77,
+                            sd_zero_frac=0.4, device="cpu")
+    sx = ht_extras(len(small), 5, 0.4)
+    res = {}
+    for d in (dev, "cpu"):
+        s_d = type(small).from_numpy(**small.host, device=d)
+        b = std_atmosphere(device=d)
+        f = make_od_ht_fn(s_d, IsoTables.load(device=d),
+                          arange_drift_free(800.0, 810.0, 0.005), b,
+                          extras=sx, differentiable=True)
+        e = torch.zeros_like(b.T)
+        e[HT_JAC_LAYER] = 1.0
+        res[d] = torch.func.jvp(lambda T_: f(T_, b.p, b.pl, b.vmr), (b.T,),
+                                (e,))[1].cpu().numpy()
+    rel = np.abs(res[dev] - res["cpu"]).max() / np.abs(res["cpu"]).max()
+    print(f"[9c slice] 200 lines, 800-810 cm^-1 at 5e-3, d OD/d T[3]: card "
+          f"vs CPU plain {rel:.3e} of peak", flush=True)
+    check(rel <= JAC_SLICE_BOUND, f"HT Jacobian slice: {rel:.3e} > "
+          f"{JAC_SLICE_BOUND}")
+    return launches
+
+
+def phase_sdvoigt_jacobian(dev, card):
+    """9d: the differentiable SD-Voigt OD at full width (the bench's
+    20,000-line list, seed 0), a batch of 8 one-hot T directions."""
+    store = synthetic_lines(HT_LINES["n_lines"], nu_min=HT_LINES["nu_min"],
+                            nu_max=HT_LINES["nu_max"], seed=0, device=dev)
+    X = arange_drift_free(*HT_BAND)
+    base = std_atmosphere(device=dev)
+    fn = make_od_fn(store, IsoTables.load(device=dev), X, base,
+                    profile="sdvoigt", differentiable=True)
+    check({c[2] for c in fn.calls} <= {"sdvoigt", "full"},
+          "the differentiable SD-Voigt builder planned other passes")
+    p, pl, vmr = base.p, base.pl, base.vmr
+    V = one_hot_batch(dev)
+
+    def batch():
+        return torch.func.vmap(lambda v: torch.func.jvp(
+            lambda T_: fn(T_, p, pl, vmr), (base.T,), (v,))[1])(V)
+
+    reset_launches()
+    tan = batch()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["sdvoigt_jvp"] > 0, "kernel sdvoigt_jvp was not launched "
+          "by the differentiable SD-Voigt OD")
+    check(bool(torch.isfinite(tan).all()) and tan.abs().max().item() > 0.0,
+          "SD-Voigt tangents not finite or zero")
+    del tan
+    ms, _ = cuda_ms(batch, 1)
+    print(f"[9d sdvoigt jacobian] 20000 lines, 66 layers x {X.size} points, "
+          f"8 one-hot T directions: {ms:.3f} ms (CUDA events, warm); "
+          f"launches {dict((k, v) for k, v in launches.items() if v)} "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def phase_ht_breakdown(dev, card):
+    """10: where the time of 9, 9b and 9c goes: CUDA-event ms per kind of
+    pass, each with its bound (evaluations recounted on the host)."""
+    T, p = xs_states(dev)
+    iso = IsoTables.load(device=dev)
+    X = arange_drift_free(*HT_BAND)
+    base = std_atmosphere(device=dev)
+    store, extras = ht_lattice_case(dev)
+    lat = make_ht_fn(store, iso, X, XS_T, np.ones_like(XS_T), extras=extras)
+    lstore, lextras = ht_layered_case(dev)
+    lay_fn = make_od_ht_fn(lstore, iso, X, base, extras=lextras)
+    jstore, jextras = ht_jac_case(dev)
+    jac = make_od_ht_fn(jstore, iso, arange_drift_free(*HT_JAC_BAND), base,
+                        extras=jextras, differentiable=True)
+    for label, fn, prm_fn in (
+            ("9 lattice", lat, lambda: lat.line_params(T, p)),
+            ("9b layered OD", lay_fn, lambda: lay_fn.line_params(
+                base.T, base.p, base.pl, base.vmr)),
+            ("9c jacobian primal", jac, lambda: jac.line_params(
+                base.T, base.p, base.pl, base.vmr))):
+        ms = {}
+        ms["line params"], prm = cuda_ms(prm_fn, 3)
+        work = {}
+        for call in fn.calls:
+            t, _ = cuda_ms(lambda: ht_primal(call, prm), 2)
+            mode = call[2]
+            ms[mode] = ms.get(mode, 0.0) + t
+            o, b = (ht_bound_work(call[0], call[1], prm) if mode == "ht"
+                    else xs_bound_work(mode, call[0], call[1], prm))
+            w = work.setdefault(mode, [0, 0])
+            work[mode] = [w[0] + o, w[1] + b]
+        print(f"[10 {label}] ms per stage: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
+            + ", ".join("{} {:.4f} ({})".format(m, *bound(*w))
+                        for m, w in work.items()) + f" [{card}]", flush=True)
+    prm = jac.line_params(base.T, base.p, base.pl, base.vmr)
+    tans = ht_od_tangents(jac, base, one_hot_batch(dev))
+    ms, work = {}, {}
+    reads = [cuda_ms(lambda: ht_od_tangents(jac, base, one_hot_batch(dev)),
+                     1)[0] for _ in range(3)]
+    ms["line params + tangents"] = float(np.median(reads))
+    for call in jac.calls:
+        mode = call[2]
+        t, _ = cuda_ms(lambda: ht_tangent(call, prm, tans), 2)
+        ms[HT_TANGENT_NAME[mode]] = ms.get(HT_TANGENT_NAME[mode], 0.0) + t
+        lay, dplan = call[0], call[1]
+        o, b = (ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
+                if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
+                if mode == "sdvoigt" else
+                k3_bound_work(lay, dplan, prm, tans[:4]))
+        w = work.setdefault(HT_TANGENT_NAME[mode], [0, 0])
+        work[HT_TANGENT_NAME[mode]] = [w[0] + o, w[1] + b]
+    print("[10 9c tangents] 8 one-hot T directions, ms per stage (line "
+          f"params + tangents: median of 3, range {min(reads):.3f}-"
+          f"{max(reads):.3f}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
+          + ", ".join("{} {:.4f} ({})".format(m, *bound(*w))
+                      for m, w in work.items()) + f" [{card}]", flush=True)
+
+
 def main():
     card, name = phase_device()
     dev = torch.device("cuda", 0)
@@ -1183,15 +1880,21 @@ def main():
     k1 = phase_k1(dev, card)
     k1d = phase_k1_diff(dev, card)
     xs_stats, full_launches = phase_xs_sub(dev, card)
+    ht_stats = phase_ht_sub(dev, card)
     k2 = phase_k2(dev, card)
     launches = phase_main(card)
     jac_launches = phase_jacobian(card)
     xs_launches = {**phase_xs_main(dev, card),
                    **{m: full_launches[m] for m in ("corr:64:voigtfull",
                                                     "corr:64:sdvoigtfull")}}
+    ht_launches = phase_ht_lattice(dev, card)
+    phase_ht_layered(dev, card)
+    ht_jac_launches = phase_ht_jacobian(dev, card)
+    phase_sdvoigt_jacobian(dev, card)
     phase_breakdown(dev, card)
     phase_jac_breakdown(dev, card)
     phase_xs_breakdown(dev, card)
+    phase_ht_breakdown(dev, card)
     src = "radtxfr_tpu_torch/csrc/"
     xs = "radtxfr_tpu/kernels/pallas_xsect.py:"
     kernels = [
@@ -1210,6 +1913,18 @@ def main():
                  "source": src + "fused_xsect.cu", "replaces": xs + "710",
                  "launches": xs_launches[m], **xs_stats[m]}
                 for m in XS_MODES]
+    kernels.append({"name": "fused_ht", "route": "cuda",
+                    "source": src + "fused_ht.cu", "replaces": xs + "929",
+                    "launches": ht_launches["ht"], **ht_stats["ht"]})
+    kernels.append({"name": "fused_ht_jvp", "route": "cuda",
+                    "source": src + "fused_ht.cu", "replaces": xs + "1058",
+                    "launches": ht_jac_launches["ht_jvp"],
+                    **ht_stats["ht_jvp"]})
+    kernels.append({"name": "fused_xsect_sdvoigt_jvp", "route": "cuda",
+                    "source": src + "fused_xsect_jvp.cu",
+                    "replaces": xs + "1324",
+                    "launches": ht_jac_launches["sdvoigt_jvp"],
+                    **ht_stats["sdvoigt_jvp"]})
     kernels.append({"name": "fused_tud", "route": "cuda",
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",

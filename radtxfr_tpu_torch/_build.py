@@ -51,6 +51,23 @@ _SIGNATURES = {
     "radtxfr_fused_xsect_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
                                 P, P, P, I, I, I, P, I, I, I, I, I,
                                 ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
+    # lay_live, shift0, strength, gamma_d, gamma_0, gamma_2, wing, shift0_t,
+    # strength_t, gamma_d_t, gamma_0_t, gamma_2_t, n_dir, n_lay, n_lines,
+    # wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_sdvoigt_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P,
+                                  P, P, P, P, P, P, I, I, I, P, I, I, I, I,
+                                  I, ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call, prm,
+    # n_lay, n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx, out,
+    # stream
+    "radtxfr_fused_ht": [P, P, P, P, P, P, P, I, P, I, I, P, I, I, I, I, I,
+                         ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
+    # lay_live, prm, tan, n_dir, n_lay, n_lines, wei, n_wei, tile, block,
+    # n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_ht_jvp": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, P, I,
+                             I, I, I, I, ctypes.c_double, P, P],
     # od, x, inv_t, n_lay, n_x, mus, n_mu, snap, n_zs, sec, w, n_angles,
     # return_od, tau, lu, ld, stream
     "radtxfr_fused_tud": [P, P, P, I, I, P, I, P, I, P, P, I, I, P, P, P, P],

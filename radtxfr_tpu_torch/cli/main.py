@@ -31,11 +31,16 @@ Line data: ``--derived`` (the physics-derived LWIR list) or ``--synthetic
 N`` (the deterministic synthetic list; 20,000 lines when neither is given,
 as in the JAX CLI).
 
+``xsect --profile ht`` runs the Hartmann-Tran lattice
+(:func:`~..products.od.make_ht_fn`), as the JAX CLI's Pallas engine does;
+the CLI takes no HT columns, so its lines route to the SD-Voigt and Voigt
+degenerations of pcqsdhc.
+
 Not ported yet (each raises ``NotImplementedError``): ``--par`` (parse_par
-and the native parser, ROADMAP M9), ``xsect --profile ht`` (Hartmann-Tran,
-M13), ``xsect --engine jnp`` (the JAX package's jnp engine, whose SD-Voigt
-is pcqsdhc through ``htp.py``), ``--checkpoint`` (M9) and ``--mesh-*``
-(M15, with the sharded Jacobian).
+and the native parser, ROADMAP M9), ``xsect --engine jnp`` (the JAX
+package's jnp engine, whose SD-Voigt and HT profiles are pcqsdhc through
+``htp.py``, M13), ``--checkpoint`` (M9) and ``--mesh-*`` (M15, with the
+sharded Jacobian).
 """
 
 from __future__ import annotations
@@ -77,11 +82,8 @@ def run_xsect(args, device, timings: dict | None = None) -> dict:
     """
     from ..core.grid import arange_drift_free
     from ..lines.store import IsoTables
-    from ..products.od import make_xsect_fn
+    from ..products.od import make_ht_fn, make_xsect_fn
 
-    if args.profile == "ht":
-        raise NotImplementedError(
-            "--profile ht: the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
     if args.engine == "jnp":
         raise NotImplementedError(
             "--engine jnp: the JAX package's jnp engine (SD-Voigt through "
@@ -100,8 +102,14 @@ def run_xsect(args, device, timings: dict | None = None) -> dict:
                 if args.p_max else np.array([args.p]))
     TT, PP = [a.ravel() for a in np.meshgrid(T_states, p_states,
                                              indexing="ij")]
-    fn = make_xsect_fn(store, iso, X, TT, PP, profile=args.profile,
-                       wing_abs=args.wing_abs, wing_hw=args.wing_hw)
+    if args.profile == "ht":
+        # the CLI takes no HT columns: the lines resolve eta = nuVC = Shift2
+        # = 0 and route to pcqsdhc's SD-Voigt and Voigt degenerations
+        fn = make_ht_fn(store, iso, X, TT, PP, wing_abs=args.wing_abs,
+                        wing_hw=args.wing_hw)
+    else:
+        fn = make_xsect_fn(store, iso, X, TT, PP, profile=args.profile,
+                           wing_abs=args.wing_abs, wing_hw=args.wing_hw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()

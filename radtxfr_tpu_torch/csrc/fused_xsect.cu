@@ -79,9 +79,10 @@
 //   18 (21); sdvoigt_core: + 2 x 20 (the guarded form subtracted).
 // JAX evaluates all three branches at both points (57 + 2 (227 + 7n) = 735,
 // 775 for sdvoigt_core); this kernel branches per point, so chip_smoke.py
-// counts an evaluation outside the radius where a CPF point can reach
-// |Z| < 15 at two asymptotic points (101; core 141) and one inside it at
-// two Weideman points (359; core 399). lorentz 18, doppler 20 (exp at 6).
+// counts each CPF point of an evaluation at Weideman's price inside the
+// exact radius where that point lies in |x| + y < 15 (Z2 = S + c leaves it
+// before Z1 = S - c) and at the asymptotic form's outside it (59 + 2 x 21 =
+// 101 to 59 + 2 x 150 = 359; core + 40). lorentz 18, doppler 20 (exp at 6).
 // A correction evaluation is its point term plus the 9-op interpolation
 // (four FMAs and the subtraction), plus (256/R + 3) node terms per (slot,
 // layer) shared by the slice's 256 points. Each evaluation reads two float4

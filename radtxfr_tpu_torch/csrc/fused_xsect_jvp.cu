@@ -1,5 +1,6 @@
 // K3: the tangent of the layered Voigt line-shape accumulation (mode full)
-// for Hopper (sm_90a), for a batch of tangent directions.
+// for Hopper (sm_90a), for a batch of tangent directions; K4, the SD-Voigt
+// tangent (mode sdvoigt), follows below with its own note.
 //
 // Replaces radtxfr_tpu/kernels/pallas_xsect.py::_make_fused_jvp_kernel
 // (launcher _xsect_fused_jvp_call, the JVP rule of xsect_fused_voigt_diff).
@@ -291,6 +292,278 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
   }
 }
 
+// ---- K4: the SD-Voigt tangent ----------------------------------------------
+//
+// Replaces pallas_xsect.py::_make_fused_sdvoigt_jvp_kernel (launcher
+// _xsect_fused_sdvoigt_jvp_call, the JVP rule of xsect_fused_sdvoigt_diff):
+// the directional derivative of the single-pass sdvoigt pass (K1 sdvoigt,
+// zero grid shift) w.r.t. (strength, gamma_d, gamma_0, gamma_2, shift0) by
+// the analytic formula of pallas_xsect.py:1382-1421, as written: the clamp
+// g2 = max(g2, 1e-4 g0 + 1e-12) passing dg2 above it and 1e-4 dg0 where it
+// clamps; S = sqrt(X + c^2) = us + i vs; the CPF points Z1,2 = S -+ c at
+// (x, y) = (-vs, us -+ c); dX, dc and dS; dK(Z) = Kx (-Im dZ) + Ky Re dZ.
+// (K, Kx, Ky) are the region-consistent derivatives of the Weideman or the
+// unguarded asymptotic form, also inside the primal's CPF3 sub-band (JAX's
+// kernel takes the blend's slope there; a dual-number K4 would take CPF3's
+// and differ from the reference). Per (line, layer) the kernel stages the
+// primal constants the point loop needs and, per direction, (num_r, dc,
+// shift0_t, g2e_t) and (strength_t A, gamma_d_t sA/gamma_d), the hoisted
+// per-line parts of the formula (the same operations on the same values as
+// the plain version's, so hoisting rounds nothing differently); each point
+// evaluates (K, Kx, Ky) at both CPF points once for all directions. The
+// point math is the non-contracting __f*_rn form in the plain version's
+// order: the w(Z1) - w(Z2) difference amplifies rounding, as in K1's
+// SD-Voigt block. Shape and skipping as K3 above. FP32 issue bounds it:
+// per evaluation 37 lane-ops (window, dnu, xi, the square root S, the
+// denominator, K1 - K2), per CPF point a (K, Kx, Ky) after its 3-op region
+// test (Weideman 49 + 15 n_wei, asymptotic 38) and 32 per direction
+// (chip_smoke.py K4_BASE, KG_WEI, KG_ASYM, K4_DIR; each CPF point counted
+// by its own region: Z2 = S + c leaves |x| + y < 15 before Z1 = S - c).
+
+__device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float xa(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float xs(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float xd(float a, float b) { return __fdiv_rn(a, b); }
+
+// (K, Kx, Ky) of the Weideman series or the unguarded asymptotic form by
+// hum1_wei's region rule, y elementwise, non-contracting
+// (fused_xsect.py::_voigt_k_grads)
+__device__ __forceinline__ KGrads k_grads_x(float x, float y, const float* wei,
+                                            int n_wei) {
+  KGrads g;
+  if (xa(fabsf(x), y) < REGION_BOUND) {
+    const float L = wei[0];
+    const float er = xa(L, y), ei = -x;
+    const float inv_e = xd(1.0f, xa(xm(er, er), xm(ei, ei)));
+    const float ier = xm(er, inv_e), iei = xm(-ei, inv_e);
+    const float nr = xs(L, y), ni = x;
+    const float zr = xm(xa(xm(nr, er), xm(ni, ei)), inv_e);
+    const float zi = xm(xs(xm(ni, er), xm(nr, ei)), inv_e);
+    float pr = wei[1], pi = 0.0f, qr = 0.0f, qi = 0.0f;
+    for (int k = 2; k <= n_wei; ++k) {
+      const float tqr = xa(xs(xm(qr, zr), xm(qi, zi)), pr);
+      qi = xa(xa(xm(qr, zi), xm(qi, zr)), pi);
+      qr = tqr;
+      const float tpr = xa(xs(xm(pr, zr), xm(pi, zi)), wei[k]);
+      pi = xa(xm(pr, zi), xm(pi, zr));
+      pr = tpr;
+    }
+    const float i2r = xs(xm(ier, ier), xm(iei, iei));
+    const float i2i = xm(xm(2.0f, ier), iei);
+    const float i3r = xs(xm(i2r, ier), xm(i2i, iei));
+    const float i3i = xa(xm(i2r, iei), xm(i2i, ier));
+    const float i4r = xs(xm(i2r, i2r), xm(i2i, i2i));
+    const float i4i = xm(xm(2.0f, i2r), i2i);
+    const float c4 = xm(4.0f, L);
+    const float Qr = xa(xa(xm(c4, xs(xm(qr, i4r), xm(qi, i4i))),
+                           xm(4.0f, xs(xm(pr, i3r), xm(pi, i3i)))),
+                        xm(INV_SQRT_PI, i2r));
+    const float Qi = xa(xa(xm(c4, xa(xm(qr, i4i), xm(qi, i4r))),
+                           xm(4.0f, xa(xm(pr, i3i), xm(pi, i3r)))),
+                        xm(INV_SQRT_PI, i2i));
+    g.K = xa(xm(2.0f, xs(xm(pr, i2r), xm(pi, i2i))), xm(INV_SQRT_PI, ier));
+    g.Kx = -Qi;
+    g.Ky = -Qr;
+    return g;
+  }
+  const float dr = xs(xa(0.5f, xm(y, y)), xm(x, x));
+  const float di = xm(xm(-2.0f, x), y);
+  const float inv = xd(1.0f, xa(xm(dr, dr), xm(di, di)));
+  g.K = xm(xm(INV_SQRT_PI, xs(xm(y, dr), xm(x, di))), inv);
+  const float nr = xs(xa(0.5f, xm(x, x)), xm(y, y));
+  const float ni = -di;
+  const float d2r = xs(xm(dr, dr), xm(di, di));
+  const float d2i = xm(xm(2.0f, dr), di);
+  const float inv2 = xm(inv, inv);
+  const float mr = xa(xm(nr, d2r), xm(ni, d2i));
+  const float mi = xs(xm(ni, d2r), xm(nr, d2i));
+  g.Kx = xm(xm(INV_SQRT_PI, mi), inv2);
+  g.Ky = xm(xm(INV_SQRT_PI, mr), inv2);
+  return g;
+}
+
+template <int ND>
+__global__ void __launch_bounds__(THREADS)
+fused_sdvoigt_jvp_kernel(const int* __restrict__ starts,
+                         const int* __restrict__ counts,
+                         const int* __restrict__ k_line,
+                         const float* __restrict__ frac0,
+                         const int* __restrict__ line,
+                         const float* __restrict__ wcap,
+                         const int* __restrict__ lay_idx, int n_lay_call,
+                         const int* __restrict__ lay_live,
+                         const float* __restrict__ shift0,
+                         const float* __restrict__ strength,
+                         const float* __restrict__ gamma_d,
+                         const float* __restrict__ gamma_0,
+                         const float* __restrict__ gamma_2,
+                         const float* __restrict__ wing,
+                         const float* __restrict__ shift0_t,
+                         const float* __restrict__ strength_t,
+                         const float* __restrict__ gamma_d_t,
+                         const float* __restrict__ gamma_0_t,
+                         const float* __restrict__ gamma_2_t, int n_dir,
+                         int n_lay, int n_lines,
+                         const float* __restrict__ wei_g, int n_wei, int tile,
+                         int block, int sub_per_tile, int n_out, float dx,
+                         float* __restrict__ out) {
+  // a = (s0, 1/g2, wingu, live), b = (xr + c^2, c, strength A, 0)
+  __shared__ LineConst s_c[LC][CH];
+  __shared__ float4 s_t4[LC][CH][ND];   // (num_r, dc, s0_t, g2e_t)
+  __shared__ float2 s_t2[LC][CH][ND];   // (s_t A, gd_t sA/gd)
+  __shared__ int s_k[CH];
+  __shared__ float s_f[CH];
+  __shared__ float s_wei[MAX_WEI + 1];
+  __shared__ int s_live[LC];
+
+  const int tid = threadIdx.x;
+  const int tile_i = blockIdx.x / sub_per_tile;
+  const int sub = blockIdx.x - tile_i * sub_per_tile;
+  const int l0 = blockIdx.y * LC;
+  const int nl = min(LC, n_lay_call - l0);
+
+  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
+  if (tid < LC) s_live[tid] = tid < nl ? lay_live[lay_idx[l0 + tid]] : 0;
+
+  int kg[PPT];
+  bool live[PPT];
+#pragma unroll
+  for (int p = 0; p < PPT; ++p) {
+    const int kloc = sub * SPAN + p * THREADS + tid;
+    kg[p] = tile_i * tile + kloc;
+    live[p] = kloc < tile && kg[p] < n_out;
+  }
+
+  float acc[LC][PPT][ND];
+#pragma unroll
+  for (int l = 0; l < LC; ++l)
+#pragma unroll
+    for (int p = 0; p < PPT; ++p)
+#pragma unroll
+      for (int d = 0; d < ND; ++d) acc[l][p][d] = 0.0f;
+
+  __syncthreads();
+  bool any_live = false;
+#pragma unroll
+  for (int l = 0; l < LC; ++l) any_live |= s_live[l] != 0;
+
+  const int slot0 = starts[tile_i] * block;
+  const int n_slots = any_live ? counts[tile_i] * block : 0;
+  for (int c0 = 0; c0 < n_slots; c0 += CH) {
+    const int nc = min(CH, n_slots - c0);
+    __syncthreads();   // the previous chunk is consumed
+    for (int j = tid; j < nc; j += THREADS) {
+      s_k[j] = k_line[slot0 + c0 + j];
+      s_f[j] = frac0[slot0 + c0 + j];
+    }
+    for (int i = tid; i < nl * nc; i += THREADS) {
+      const int l = i / nc;
+      const int j = i - l * nc;
+      const int s = slot0 + c0 + j;
+      const int g = line[s];
+      LineConst c;
+      bool pair_live = false;
+      if (g >= 0 && s_live[l]) {
+        const size_t off = static_cast<size_t>(lay_idx[l0 + l]) * n_lines + g;
+        // the plain version's per-line algebra (a scalar divided by a
+        // tensor being its reciprocal times the scalar)
+        const float gd = gamma_d[off], g0 = gamma_0[off], g2r = gamma_2[off];
+        const float cte = xm(1.0f / gd, SQRT_LN2);
+        const float clamp = xa(xm(1e-4f, g0), 1e-12f);
+        const float g2 = fmaxf(g2r, clamp);
+        const float inv_g2 = 1.0f / g2;
+        const float xr = xm(xs(g0, xm(1.5f, g2)), inv_g2);
+        const float cc = xm(1.0f / xm(cte, g2), 0.5f);
+        const float A = xm(INV_SQRT_PI, cte);
+        const float sA = xm(strength[off], A);
+        const float k_gd = xd(sA, gd);
+        c.a = make_float4(shift0[off], inv_g2, fminf(wing[off], wcap[s]) / dx,
+                          0.0f);
+        c.b = make_float4(xa(xr, xm(cc, cc)), cc, sA, 0.0f);
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          float4 t4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          float2 t2 = make_float2(0.0f, 0.0f);
+          if (d < n_dir) {
+            const size_t toff = static_cast<size_t>(d) * n_lay * n_lines + off;
+            const float s_t = strength_t[toff], gd_t = gamma_d_t[toff];
+            const float g0_t = gamma_0_t[toff], s0_t = shift0_t[toff];
+            const float g2e_t = g2r >= clamp ? gamma_2_t[toff] : xm(1e-4f, g0_t);
+            const float dXr = xm(inv_g2, xs(g0_t, xm(xa(1.5f, xr), g2e_t)));
+            const float dc = xm(cc, xs(xd(gd_t, gd), xm(inv_g2, g2e_t)));
+            t4 = make_float4(xa(dXr, xm(xm(2.0f, cc), dc)), dc, s0_t, g2e_t);
+            t2 = make_float2(xm(s_t, A), xm(gd_t, k_gd));
+            pair_live |= s_t != 0.0f || gd_t != 0.0f || g0_t != 0.0f ||
+                         s0_t != 0.0f || gamma_2_t[toff] != 0.0f;
+          }
+          s_t4[l][j][d] = t4;
+          s_t2[l][j][d] = t2;
+        }
+      } else {
+        // padding slot or dead layer: never evaluated
+        c.a = make_float4(0.0f, 1.0f, 0.0f, 0.0f);
+        c.b = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+      }
+      c.a.w = pair_live ? 1.0f : 0.0f;
+      s_c[l][j] = c;
+    }
+    __syncthreads();
+    for (int j = 0; j < nc; ++j) {
+      const int kl = s_k[j];
+      const float f0 = s_f[j];
+      float u[PPT];
+#pragma unroll
+      for (int p = 0; p < PPT; ++p) u[p] = static_cast<float>(kg[p] - kl) - f0;
+#pragma unroll
+      for (int l = 0; l < LC; ++l) {
+        if (l >= nl) continue;
+        const LineConst c = s_c[l][j];
+        if (c.a.w == 0.0f) continue;   // uniform across the CTA
+#pragma unroll
+        for (int p = 0; p < PPT; ++p) {
+          if (!(u[p] > -c.a.z && u[p] <= c.a.z)) continue;
+          const float inv_g2 = c.a.y, aa = c.b.x, cc = c.b.y;
+          const float xi = xm(xs(c.a.x, xm(u[p], dx)), inv_g2);
+          const float r = __fsqrt_rn(xa(xm(aa, aa), xm(xi, xi)));
+          const float us = __fsqrt_rn(fmaxf(xm(xa(r, aa), 0.5f), 0.0f));
+          const float sv = __fsqrt_rn(fmaxf(xm(xs(r, aa), 0.5f), 0.0f));
+          const float vs = xi > 0.0f ? sv : (xi < 0.0f ? -sv : 0.0f);
+          const KGrads g1 = k_grads_x(-vs, xs(us, cc), s_wei, n_wei);
+          const KGrads g2 = k_grads_x(-vs, xa(us, cc), s_wei, n_wei);
+          const float den = xm(2.0f, fmaxf(xa(xm(us, us), xm(vs, vs)), 1e-30f));
+          const float dK12 = xs(g1.K, g2.K);
+#pragma unroll
+          for (int d = 0; d < ND; ++d) {
+            const float4 t4 = s_t4[l][j][d];
+            const float2 t2 = s_t2[l][j][d];
+            const float dXi = xm(inv_g2, xs(t4.z, xm(xi, t4.w)));
+            const float dSr = xd(xa(xm(t4.x, us), xm(dXi, vs)), den);
+            const float dSi = xd(xs(xm(dXi, us), xm(t4.x, vs)), den);
+            const float dK1 = xa(xm(g1.Kx, -dSi), xm(g1.Ky, xs(dSr, t4.y)));
+            const float dK2 = xa(xm(g2.Kx, -dSi), xm(g2.Ky, xa(dSr, t4.y)));
+            acc[l][p][d] += xa(xs(xm(t2.x, dK12), xm(t2.y, dK12)),
+                               xm(c.b.z, xs(dK1, dK2)));
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    if (d >= n_dir) break;
+#pragma unroll
+    for (int l = 0; l < LC; ++l) {
+      if (l >= nl) break;
+#pragma unroll
+      for (int p = 0; p < PPT; ++p)
+        if (live[p])
+          out[(static_cast<size_t>(d) * n_lay_call + l0 + l) * n_out + kg[p]] =
+              acc[l][p][d];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int radtxfr_fused_xsect_jvp(
@@ -323,6 +596,53 @@ extern "C" int radtxfr_fused_xsect_jvp(
       static_cast<const float*>(strength_t),                                   \
       static_cast<const float*>(gamma_d_t),                                    \
       static_cast<const float*>(gamma_0_t), n_dir, n_lay, n_lines,             \
+      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out, \
+      static_cast<float>(dx), static_cast<float*>(out))
+  if (n_dir == 1) {
+    RADTXFR_LAUNCH(1);
+  } else if (n_dir == 2) {
+    RADTXFR_LAUNCH(2);
+  } else if (n_dir <= 4) {
+    RADTXFR_LAUNCH(4);
+  } else {
+    RADTXFR_LAUNCH(8);
+  }
+#undef RADTXFR_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int radtxfr_fused_sdvoigt_jvp(
+    const void* starts, const void* counts, const void* k_line,
+    const void* frac0, const void* line, const void* wcap,
+    const void* lay_idx, int n_lay_call, const void* lay_live,
+    const void* shift0, const void* strength, const void* gamma_d,
+    const void* gamma_0, const void* gamma_2, const void* wing,
+    const void* shift0_t, const void* strength_t, const void* gamma_d_t,
+    const void* gamma_0_t, const void* gamma_2_t, int n_dir, int n_lay,
+    int n_lines, const void* wei, int n_wei, int tile, int block, int n_tiles,
+    int n_out, double dx, void* out, void* stream) {
+  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
+      n_dir > ND_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
+  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
+                  (n_lay_call + LC - 1) / LC);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RADTXFR_LAUNCH(ND)                                                     \
+  fused_sdvoigt_jvp_kernel<ND><<<grid, THREADS, 0, s>>>(                       \
+      static_cast<const int*>(starts), static_cast<const int*>(counts),        \
+      static_cast<const int*>(k_line), static_cast<const float*>(frac0),       \
+      static_cast<const int*>(line), static_cast<const float*>(wcap),          \
+      static_cast<const int*>(lay_idx), n_lay_call,                            \
+      static_cast<const int*>(lay_live), static_cast<const float*>(shift0),    \
+      static_cast<const float*>(strength), static_cast<const float*>(gamma_d), \
+      static_cast<const float*>(gamma_0), static_cast<const float*>(gamma_2),  \
+      static_cast<const float*>(wing), static_cast<const float*>(shift0_t),    \
+      static_cast<const float*>(strength_t),                                   \
+      static_cast<const float*>(gamma_d_t),                                    \
+      static_cast<const float*>(gamma_0_t),                                    \
+      static_cast<const float*>(gamma_2_t), n_dir, n_lay, n_lines,             \
       static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out, \
       static_cast<float>(dx), static_cast<float*>(out))
   if (n_dir == 1) {

@@ -51,6 +51,13 @@ a batch of tangent directions into K3's direction axis. The tensors the
 dropped: the window mask is piecewise constant, as in the reference's
 finite differences.
 
+:func:`xsect_fused_sdvoigt_diff` is the single-pass ``sdvoigt`` pass built
+the same way (``xsect_fused_sdvoigt_diff`` there): K1 ``sdvoigt`` as the
+primal, the SD-Voigt tangent kernel K4 (:func:`xsect_sdvoigt_jvp`,
+``_make_fused_sdvoigt_jvp_kernel`` there, plain version
+:func:`xsect_sdvoigt_jvp_plain`) as its ``jvp``, launches counted under
+``"sdvoigt_jvp"``.
+
 Grid-index arithmetic (``pallas_xsect.py:16-20``): a point's distance from
 a line centre is (k_grid - k_line) in int32, converted to float, minus the
 float32 fraction ``frac0`` of the centre's grid position, so dnu carries
@@ -76,7 +83,8 @@ from .faddeeva import REGION_BOUND, weideman_coeffs
 __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
            "plan_buckets_packed", "device_plan", "xsect_fused",
            "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
-           "xsect_fused_diff", "cubic_weights", "corr_r_supported",
+           "xsect_fused_diff", "xsect_sdvoigt_jvp", "xsect_sdvoigt_jvp_plain",
+           "xsect_fused_sdvoigt_diff", "cubic_weights", "corr_r_supported",
            "LAUNCHES", "MODES", "CORR_VARIANTS", "SD_MODES"]
 
 #: K1's modes other than the correction passes, in the CUDA switch's order
@@ -86,8 +94,9 @@ MODES = ("asym", "core", "mix", "full", "sdvoigt", "sdvoigt_asym",
 CORR_VARIANTS = ("voigt", "voigtfull", "sdvoigt", "sdvoigtfull")
 #: the modes whose profile carries the shift and needs Gamma2
 SD_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core")
-#: kernel launches per K1 mode string and of K3 ("jvp") since the last
-#: reset (plain runs not counted)
+#: kernel launches since the last reset, per K1 mode string, of K3
+#: ("jvp"), K4 ("sdvoigt_jvp"), and of K5 and K6 ("ht", "ht_jvp", counted
+#: by :mod:`.fused_ht`); plain runs are not counted
 LAUNCHES = collections.Counter()
 
 _SQRT_LN2 = math.sqrt(math.log(2.0))
@@ -371,8 +380,8 @@ def _weideman_w(x, y, a, L):
     return K, Lw
 
 
-def _cpf3_re_w(x, y):
-    """Re w of hapi's 15-term asymptotic CPF (``cpf3``,
+def _cpf3_pair(x, y):
+    """(Re, Im) of hapi's 15-term asymptotic CPF (``cpf3``,
     ``misc/hapi.py:9645-9670``; ``pallas_xsect.py::_cpf3_pair``) in real
     arithmetic, |z|^2 clamped at 9 so that unselected evaluations at small
     |z| stay finite."""
@@ -389,7 +398,27 @@ def _cpf3_re_w(x, y):
         tr, ti = (tr * m2r - ti * m2i) * tt, (tr * m2i + ti * m2r) * tt
         sr = sr + tr
         si = si + ti
-    return -(ar * si + ai * sr) * _INV_SQRT_PI
+    return (-(ar * si + ai * sr) * _INV_SQRT_PI,
+            (ar * sr - ai * si) * _INV_SQRT_PI)
+
+
+def _cpf3_re_w(x, y):
+    """Re w of :func:`_cpf3_pair`."""
+    return _cpf3_pair(x, y)[0]
+
+
+def _voigt_w_KL(x, y, a, L):
+    """(Re w, Im w) with hum1_wei's region blend, y elementwise
+    (``pallas_xsect.py::_voigt_w_KL``): the Weideman series inside
+    |x| + y < 15, the unguarded asymptotic form outside."""
+    dr = 0.5 + y * y - x * x
+    di = -2.0 * x * y
+    inv = _INV_SQRT_PI * (1.0 / (dr * dr + di * di))
+    Ka = (y * dr - x * di) * inv
+    La = -(x * dr + y * di) * inv
+    Kw, Lw = _weideman_w(x, y, a, L)
+    in_core = (torch.abs(x) + y) < REGION_BOUND
+    return torch.where(in_core, Kw, Ka), torch.where(in_core, Lw, La)
 
 
 def _re_w_select(x, y, a, L):
@@ -738,6 +767,84 @@ def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
     return out.reshape(nd, nl, -1)[:, :, :dplan.n_out]
 
 
+def xsect_sdvoigt_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
+                            gamma_d, gamma_0, gamma_2, wing, shift0_t,
+                            strength_t, gamma_d_t, gamma_0_t, gamma_2_t,
+                            n_weideman: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of the SD-Voigt tangent kernel K4, in the
+    parameters' dtype on their device: the directional derivative of the
+    single-pass ``sdvoigt`` pass w.r.t. (strength, gamma_d, gamma_0,
+    gamma_2, shift0) for each of nd directions, by the analytic formula of
+    ``pallas_xsect.py:1382-1421`` in its order of operations.
+
+    With X = (Gamma0 - 1.5 Gamma2 + i (Shift0 - dnu))/Gamma2, c = GammaD /
+    (2 sqrt(ln2) Gamma2), S = sqrt(X + c^2) = us + i vs and the CPF points
+    Z1,2 = S -+ c at (x, y) = (-vs, us -+ c): dX = [dGamma0 - (1.5 + X)
+    dGamma2 + i dShift0]/Gamma2, dc = c (dGammaD/GammaD - dGamma2/Gamma2),
+    dS = (dX + 2 c dc)/(2 S), dK(Z) = Kx (-Im dZ) + Ky Re dZ with the
+    region-consistent (K, Kx, Ky) of the Weideman/asymptotic blend (also
+    inside the CPF3 sub-band, as JAX's kernel). The Voigt-limit clamp
+    Gamma2 -> max(Gamma2, 1e-4 Gamma0 + 1e-12) passes dGamma2 where Gamma2
+    is above it and 1e-4 dGamma0 where clamped. Primal parameters (nLay,
+    L), tangents (nd, nLay, L); returns (nd, len(lay_idx), n_out).
+    """
+    dt, dev = strength.dtype, strength.device
+    c = _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0,
+                        wing, None, "sdvoigt", gamma_2)
+    nd, nl = strength_t.shape[0], c["xs"].shape[0]
+    lay = lay_idx.long()
+    valid = dplan.line >= 0
+    safe = torch.where(valid, dplan.line, 0).long()
+
+    def take_t(a):
+        return torch.where(valid, a[:, lay][:, :, safe],
+                           torch.zeros((), dtype=dt, device=dev))
+
+    tans = dict(s=take_t(strength_t), gd=take_t(gamma_d_t),
+                g0=take_t(gamma_0_t), g2=take_t(gamma_2_t),
+                s0=take_t(shift0_t))
+    L_w, a_w = weideman_coeffs(n_weideman)
+    out = torch.zeros((nd, nl, dplan.n_tiles, dplan.tile), dtype=dt,
+                      device=dev)
+    for t_i, slots, u in _plain_steps(dplan, nl * (nd + 1) * 4, dt):
+        p = {k: c[k][:, slots][..., None]
+             for k in ("s", "gd", "g0", "g2", "s0", "wingu")}
+        t = {k: v[:, :, slots][..., None] for k, v in tans.items()}
+        dnu = u * dplan.dx
+        cte = _SQRT_LN2 / p["gd"]
+        clamp = 1e-4 * p["g0"] + 1e-12
+        g2 = torch.maximum(p["g2"], clamp)
+        g2e_t = torch.where(p["g2"] >= clamp, t["g2"], 1e-4 * t["g0"])
+        inv_g2 = 1.0 / g2
+        xr = (p["g0"] - 1.5 * g2) * inv_g2
+        xi = (p["s0"] - dnu) * inv_g2
+        cc = 0.5 / (cte * g2)
+        aa = xr + cc * cc
+        r = torch.sqrt(aa * aa + xi * xi)
+        us = torch.sqrt(torch.clamp((r + aa) * 0.5, min=0.0))
+        vs = torch.sign(xi) * torch.sqrt(torch.clamp((r - aa) * 0.5,
+                                                     min=0.0))
+        x12 = -vs
+        K1, Kx1, Ky1 = _voigt_k_grads(x12, us - cc, a_w, L_w)
+        K2, Kx2, Ky2 = _voigt_k_grads(x12, us + cc, a_w, L_w)
+        dXr = inv_g2 * (t["g0"] - (1.5 + xr) * g2e_t)
+        dXi = inv_g2 * (t["s0"] - xi * g2e_t)
+        dc = cc * (t["gd"] / p["gd"] - inv_g2 * g2e_t)
+        num_r = dXr + 2.0 * cc * dc
+        den = 2.0 * torch.clamp(us * us + vs * vs, min=1e-30)
+        dSr = (num_r * us + dXi * vs) / den
+        dSi = (dXi * us - num_r * vs) / den
+        dK1 = Kx1 * (-dSi) + Ky1 * (dSr - dc)
+        dK2 = Kx2 * (-dSi) + Ky2 * (dSr + dc)
+        A = _INV_SQRT_PI * cte
+        dK12 = K1 - K2
+        tan = (t["s"] * A * dK12 - t["gd"] * (p["s"] * A / p["gd"]) * dK12
+               + p["s"] * A * (dK1 - dK2))
+        mask = (u > -p["wingu"]) & (u <= p["wingu"])
+        out[:, :, t_i] += torch.where(mask, tan, 0.0).sum(dim=3)
+    return out.reshape(nd, nl, -1)[:, :, :dplan.n_out]
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernel's wrapper
 # --------------------------------------------------------------------------
@@ -839,6 +946,49 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     return out
 
 
+def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
+                      params: dict, tangents: dict,
+                      n_weideman: int) -> torch.Tensor:
+    """Check the arguments of a Voigt-family tangent kernel (K3 or K4) and
+    launch it once per ``_JVP_MAX_DIRS`` directions on the current stream:
+    ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the order of
+    the C function ``symbol``; (nd, len(lay_idx), n_out) float32. Launches
+    count under ``key``."""
+    _check_call(dplan, lay_idx, params, n_weideman)
+    strength, strength_t = params["strength"], tangents["strength_t"]
+    dev = strength.device
+    nd = strength_t.shape[0] if strength_t.dim() == 3 else -1
+    for name, t in tangents.items():
+        check_tensor(name, t, torch.float32, dev,
+                     (nd,) + tuple(strength.shape))
+    n_lay_call = lay_idx.numel()
+    n_lay, n_lines = strength.shape
+    out = torch.empty((nd, n_lay_call, dplan.n_out), dtype=torch.float32,
+                      device=dev)
+    if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
+        return out
+    wei = _weideman_table(n_weideman, dev)
+    live = live_layers(tangents.values(), n_lay, dev)
+    per_dir = n_lay * n_lines * 4
+    for d0 in range(0, nd, _JVP_MAX_DIRS):
+        n = min(_JVP_MAX_DIRS, nd - d0)
+        err = getattr(_build.library(), symbol)(
+            dplan.starts.data_ptr(), dplan.counts.data_ptr(),
+            dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
+            dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
+            n_lay_call, live.data_ptr(),
+            *(p.data_ptr() for p in params.values()),
+            *(t.data_ptr() + d0 * per_dir for t in tangents.values()),
+            n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
+            dplan.block, dplan.n_tiles, dplan.n_out, dplan.dx,
+            out[d0].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} kernel launch failed with CUDA "
+                               f"error {err}")
+        LAUNCHES[key] += 1
+    return out
+
+
 def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                     gamma_0, wing, shift0_t, strength_t, gamma_d_t,
                     gamma_0_t, n_weideman: int = 16) -> torch.Tensor:
@@ -855,52 +1005,51 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                                      gamma_d, gamma_0, wing, shift0_t,
                                      strength_t, gamma_d_t, gamma_0_t,
                                      n_weideman)
-    _check_call(dplan, lay_idx, dict(shift0=shift0, strength=strength,
-                                     gamma_d=gamma_d, gamma_0=gamma_0,
-                                     wing=wing), n_weideman)
-    dev = strength.device
-    tangents = dict(shift0_t=shift0_t, strength_t=strength_t,
-                    gamma_d_t=gamma_d_t, gamma_0_t=gamma_0_t)
-    nd = strength_t.shape[0] if strength_t.dim() == 3 else -1
-    for name, t in tangents.items():
-        check_tensor(name, t, torch.float32, dev,
-                     (nd,) + tuple(strength.shape))
-    n_lay_call = lay_idx.numel()
-    n_lay, n_lines = strength.shape
-    out = torch.empty((nd, n_lay_call, dplan.n_out), dtype=torch.float32,
-                      device=dev)
-    if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
-        return out
-    wei = _weideman_table(n_weideman, dev)
-    # layers with any non-zero tangent: a CTA whose layers have none writes
-    # zeros without staging or evaluating anything
+    return _tangent_launches(
+        "radtxfr_fused_xsect_jvp", "jvp", dplan, lay_idx,
+        dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
+             gamma_0=gamma_0, wing=wing),
+        dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
+             gamma_0_t=gamma_0_t), n_weideman)
+
+
+def live_layers(tangents, n_lay, dev) -> torch.Tensor:
+    """(n_lay,) int32: 1 for the layers where any of the (nd, n_lay, ...)
+    ``tangents`` is non-zero (a tangent kernel's CTA whose layers are all
+    dead writes zeros without staging or evaluating anything)."""
     live = torch.zeros(n_lay, dtype=torch.bool, device=dev)
-    for t in tangents.values():
-        live |= (t != 0).any(dim=2).any(dim=0)
-    live = live.to(torch.int32)
-    per_dir = n_lay * n_lines * 4
-    for d0 in range(0, nd, _JVP_MAX_DIRS):
-        n = min(_JVP_MAX_DIRS, nd - d0)
-        err = _build.library().radtxfr_fused_xsect_jvp(
-            dplan.starts.data_ptr(), dplan.counts.data_ptr(),
-            dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
-            dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-            n_lay_call, live.data_ptr(), shift0.data_ptr(),
-            strength.data_ptr(), gamma_d.data_ptr(), gamma_0.data_ptr(),
-            wing.data_ptr(), *(t.data_ptr() + d0 * per_dir
-                               for t in tangents.values()),
-            n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
-            dplan.block, dplan.n_tiles, dplan.n_out, dplan.dx,
-            out[d0].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused_xsect_jvp kernel launch failed with "
-                               f"CUDA error {err}")
-        LAUNCHES["jvp"] += 1
-    return out
+    for t in tangents:
+        live |= (t != 0).reshape(t.shape[0], n_lay, -1).any(dim=2).any(dim=0)
+    return live.to(torch.int32)
+
+
+def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
+                      gamma_0, gamma_2, wing, shift0_t, strength_t,
+                      gamma_d_t, gamma_0_t, gamma_2_t,
+                      n_weideman: int = 16) -> torch.Tensor:
+    """The tangent of one single-pass ``sdvoigt`` pass for nd directions:
+    (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
+
+    CPU tensors run :func:`xsect_sdvoigt_jvp_plain`. CUDA tensors launch
+    K4 (``csrc/fused_xsect_jvp.cu``) once per ``_JVP_MAX_DIRS`` directions
+    on the current stream; anything it does not take raises, as does a
+    non-zero CUDA error from a launch.
+    """
+    if strength.device.type == "cpu":
+        return xsect_sdvoigt_jvp_plain(dplan, lay_idx, shift0, strength,
+                                       gamma_d, gamma_0, gamma_2, wing,
+                                       shift0_t, strength_t, gamma_d_t,
+                                       gamma_0_t, gamma_2_t, n_weideman)
+    return _tangent_launches(
+        "radtxfr_fused_sdvoigt_jvp", "sdvoigt_jvp", dplan, lay_idx,
+        dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
+             gamma_0=gamma_0, gamma_2=gamma_2, wing=wing),
+        dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
+             gamma_0_t=gamma_0_t, gamma_2_t=gamma_2_t), n_weideman)
 
 
 # --------------------------------------------------------------------------
-# the differentiable 'full' pass (torch.func.jvp / vmap)
+# the differentiable passes (torch.func.jvp / vmap)
 # --------------------------------------------------------------------------
 
 def _unbatched(name, in_dims):
@@ -910,68 +1059,84 @@ def _unbatched(name, in_dims):
             "not supported; batch tangent directions instead")
 
 
-class _VoigtTangent(torch.autograd.Function):
-    """K3 as a function of the primal parameters and one direction's
-    tangents; its ``vmap`` rule launches K3 once for a batch of directions.
-    """
+def diff_pass(name: str, primal, tangent, diff):
+    """A pass differentiable in forward mode, as a
+    :class:`torch.autograd.Function` in the ``setup_context`` form applied
+    as ``(dplan, lay_idx, n_weideman, *prm)``: ``primal(dplan, lay_idx,
+    n_weideman, *prm)`` gives the value, ``tangent(dplan, lay_idx,
+    n_weideman, prm, tans)`` the (nd, nl, n_out) tangents of a batch of
+    directions from the (nd, nLay, L) tangents ``tans`` of ``prm[i]`` for i
+    in ``diff`` (a missing tangent is zero; the other parameters', the
+    wing's, are dropped: the window is piecewise constant). Under ``vmap``
+    the tangent pass makes the batch of directions its kernel's direction
+    axis; a batch of the parameters themselves raises."""
 
-    @staticmethod
-    def forward(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
-                shift0_t, strength_t, gamma_d_t, gamma_0_t, n_weideman):
-        tans = (t[None] for t in (shift0_t, strength_t, gamma_d_t, gamma_0_t))
-        return xsect_fused_jvp(dplan, lay_idx, shift0, strength, gamma_d,
-                               gamma_0, wing, *tans, n_weideman)[0]
+    class Tangent(torch.autograd.Function):
+        @staticmethod
+        def forward(dplan, lay_idx, n_weideman, n_prm, *tensors):
+            tans = [t[None].contiguous() for t in tensors[n_prm:]]
+            return tangent(dplan, lay_idx, n_weideman, tensors[:n_prm],
+                           tans)[0]
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
 
-    @staticmethod
-    def vmap(info, in_dims, dplan, lay_idx, shift0, strength, gamma_d,
-             gamma_0, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t,
-             n_weideman):
-        _unbatched("the tangent pass", in_dims[:7])
-        tans = [t.expand((info.batch_size,) + t.shape) if d is None
-                else t.movedim(d, 0)
-                for t, d in zip((shift0_t, strength_t, gamma_d_t, gamma_0_t),
-                                in_dims[7:11])]
-        return xsect_fused_jvp(dplan, lay_idx, shift0, strength, gamma_d,
-                               gamma_0, wing, *(t.contiguous() for t in tans),
-                               n_weideman), 0
+        @staticmethod
+        def vmap(info, in_dims, dplan, lay_idx, n_weideman, n_prm, *tensors):
+            _unbatched(f"the {name} tangent pass", in_dims[:4 + n_prm])
+            tans = [t.expand((info.batch_size,) + t.shape) if d is None
+                    else t.movedim(d, 0)
+                    for t, d in zip(tensors[n_prm:], in_dims[4 + n_prm:])]
+            return tangent(dplan, lay_idx, n_weideman, tensors[:n_prm],
+                           [t.contiguous() for t in tans]), 0
+
+    class Pass(torch.autograd.Function):
+        @staticmethod
+        def forward(dplan, lay_idx, n_weideman, *prm):
+            return primal(dplan, lay_idx, n_weideman, *prm)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            dplan, lay_idx, n_weideman, *prm = inputs
+            ctx.save_for_forward(lay_idx, *prm)
+            ctx.dplan, ctx.n_weideman = dplan, n_weideman
+
+        @staticmethod
+        def jvp(ctx, _dplan_t, _lay_t, _n_t, *prm_t):
+            lay_idx, *prm = ctx.saved_tensors
+            tans = [torch.zeros_like(prm[i]) if prm_t[i] is None else prm_t[i]
+                    for i in diff]
+            return Tangent.apply(ctx.dplan, lay_idx, ctx.n_weideman, len(prm),
+                                 *prm, *tans)
+
+        @staticmethod
+        def vmap(info, in_dims, dplan, lay_idx, n_weideman, *prm):
+            _unbatched(f"the {name} pass", in_dims)
+            return primal(dplan, lay_idx, n_weideman, *prm), None
+
+    Pass.__name__ = Pass.__qualname__ = f"_{name}Pass"
+    Tangent.__name__ = Tangent.__qualname__ = f"_{name}Tangent"
+    return Pass
 
 
-class _FullVoigt(torch.autograd.Function):
-    """The ``full`` pass (K1) with K3 as its forward-mode derivative."""
-
-    @staticmethod
-    def forward(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
-                n_weideman):
-        return xsect_fused(dplan, lay_idx, shift0, strength, gamma_d,
-                           gamma_0, wing, None, "full", n_weideman)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        dplan, lay_idx, *prm, n_weideman = inputs
-        ctx.save_for_forward(lay_idx, *prm)
-        ctx.dplan, ctx.n_weideman = dplan, n_weideman
-
-    @staticmethod
-    def jvp(ctx, _dplan_t, _lay_t, shift0_t, strength_t, gamma_d_t,
-            gamma_0_t, _wing_t, _n_t):
-        lay_idx, *prm = ctx.saved_tensors
-        # a missing tangent is zero; the wing's is dropped (the window is
-        # piecewise constant)
-        tans = [torch.zeros_like(p) if t is None else t for p, t in
-                zip(prm, (shift0_t, strength_t, gamma_d_t, gamma_0_t))]
-        return _VoigtTangent.apply(ctx.dplan, lay_idx, *prm, *tans,
-                                   ctx.n_weideman)
-
-    @staticmethod
-    def vmap(info, in_dims, dplan, lay_idx, shift0, strength, gamma_d,
-             gamma_0, wing, n_weideman):
-        _unbatched("the full pass", in_dims)
-        return _FullVoigt.forward(dplan, lay_idx, shift0, strength, gamma_d,
-                                  gamma_0, wing, n_weideman), None
+# K1 full with K3; prm (shift0, strength, gamma_d, gamma_0, wing)
+_FULL = diff_pass(
+    "full",
+    lambda dplan, lay, n, s0, s, gd, g0, w: xsect_fused(
+        dplan, lay, s0, s, gd, g0, w, None, "full", n),
+    lambda dplan, lay, n, prm, tans: xsect_fused_jvp(dplan, lay, *prm, *tans,
+                                                     n),
+    diff=(0, 1, 2, 3))
+# K1 sdvoigt (zero grid shift) with K4; prm (shift0, strength, gamma_d,
+# gamma_0, gamma_2, wing)
+_SDVOIGT = diff_pass(
+    "sdvoigt",
+    lambda dplan, lay, n, s0, s, gd, g0, g2, w: xsect_fused(
+        dplan, lay, s0, s, gd, g0, w, None, "sdvoigt", n, g2),
+    lambda dplan, lay, n, prm, tans: xsect_sdvoigt_jvp(dplan, lay, *prm,
+                                                       *tans, n),
+    diff=(0, 1, 2, 3, 4))
 
 
 def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
@@ -979,5 +1144,17 @@ def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     """The ``full`` pass, differentiable in forward mode: K1 ``full`` for
     the value, K3 for ``torch.func.jvp`` tangents (a ``vmap`` over
     directions becomes K3's direction axis). (len(lay_idx), n_out)."""
-    return _FullVoigt.apply(dplan, lay_idx, shift0, strength, gamma_d,
-                            gamma_0, wing, n_weideman)
+    return _FULL.apply(dplan, lay_idx, n_weideman, shift0, strength, gamma_d,
+                       gamma_0, wing)
+
+
+def xsect_fused_sdvoigt_diff(dplan: DevicePlan, lay_idx, shift0, strength,
+                             gamma_d, gamma_0, gamma_2, wing,
+                             n_weideman: int = 16) -> torch.Tensor:
+    """The single-pass ``sdvoigt`` pass, differentiable in forward mode
+    (the counterpart of ``xsect_fused_sdvoigt_diff``): K1 ``sdvoigt`` for
+    the value, K4 for ``torch.func.jvp`` tangents through (strength,
+    gamma_d, gamma_0, gamma_2, shift0); a ``vmap`` over directions becomes
+    K4's direction axis. (len(lay_idx), n_out)."""
+    return _SDVOIGT.apply(dplan, lay_idx, n_weideman, shift0, strength,
+                          gamma_d, gamma_0, gamma_2, wing)

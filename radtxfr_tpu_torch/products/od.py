@@ -22,14 +22,25 @@ core passes. The plans (and therefore the work) are identical to the JAX
 builders'; each pass is one launch of the fused kernel K1
 (:mod:`..kernels.fused_xsect`).
 
-``differentiable=True`` builds the single-pass ``full`` plans instead (as
-the JAX builder's ``two_pass=False``) and runs each pass through
-:func:`~..kernels.fused_xsect.xsect_fused_diff`, so ``torch.func.jvp``
-tangents of the OD go through the tangent kernel K3.
+``differentiable=True`` builds the single-pass ``full`` (and, for
+``profile='sdvoigt'``, ``sdvoigt``) plans instead (as the JAX builder's
+``two_pass=False``) and runs each pass through
+:func:`~..kernels.fused_xsect.xsect_fused_diff` or
+:func:`~..kernels.fused_xsect.xsect_fused_sdvoigt_diff`, so
+``torch.func.jvp`` tangents of the OD go through the tangent kernels K3 and
+K4.
 
-Not ported yet (each raises ``NotImplementedError``): Hartmann-Tran (ROADMAP
-M13), the differentiable SD-Voigt OD (its tangent kernel K4) and the
-pointwise continuum models other than 'mt_ckd' (M4).
+The Hartmann-Tran builders :func:`make_ht_fn` (a (T, p) lattice,
+``make_ht_pallas_fn``) and :func:`make_od_ht_fn` (a layered atmosphere,
+``make_od_ht_pallas_fn``) resolve the HT columns with hapi's fallbacks and
+route each line by its resolved columns: live eta/nuVC/Shift2 to the HT
+kernel K5 (:mod:`..kernels.fused_ht`; K6 for its tangents), Gamma2 != 0 to
+K1 ``sdvoigt``, the rest to K1 ``full`` (pcqsdhc's exact degenerations);
+on the lattice the two cheap subsets take the coarse-far route where the
+absolute wing allows it.
+
+Not ported yet (each raises ``NotImplementedError``): the pointwise
+continuum models other than 'mt_ckd' (ROADMAP M4).
 """
 
 from __future__ import annotations
@@ -40,18 +51,24 @@ import numpy as np
 import torch
 
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
-                              C_MASS_MOL, K_BOLTZMANN_CGS, PA_PER_ATM, T_REF)
+                              C_MASS_MOL, K_BOLTZMANN_CGS, P_REF, PA_PER_ATM,
+                              T_REF)
 from ..atmos.profile import AtmosphericState
+from ..kernels.fused_ht import xsect_ht_diff, xsect_ht_plain
 from ..kernels.fused_xsect import (UniformGrid, corr_r_supported,
                                    cubic_weights, device_plan, is_sd_mode,
                                    plan_buckets_packed, xsect_fused,
-                                   xsect_fused_diff)
+                                   xsect_fused_diff, xsect_fused_sdvoigt_diff)
+from ..kernels.ht_driver import ht_params, resolve_ht_columns
+from ..kernels.htp_real import HT_CONST_KEYS, ht_line_constants
 from ..kernels.lineparams import LineParams, compute_line_params
 from ..kernels.linemixing import mixing_coefficient
 
 __all__ = ["species_column", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
            "CrossSectionFn", "wing_bound_matrix", "core_wing_per_line",
-           "core_y_matrix", "sdvoigt_core_bound", "group_by_wing"]
+           "core_y_matrix", "sdvoigt_core_bound", "group_by_wing",
+           "ht_wing_bounds", "make_ht_fn", "make_od_ht_fn",
+           "HTCrossSectionFn", "HTOpticalDepthFn"]
 
 #: the coarse-far near zone's half-width floor [cm^-1] (the JAX builders'
 #: ``near_width`` default; ``_coarse_near_width``'s 41 R dx outweighs it at
@@ -254,8 +271,9 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
         v_mask = np.zeros(nu0.size, dtype=bool)
     else:
         raise NotImplementedError(
-            f"profile {profile!r}: the port implements 'voigt', 'sdvoigt', "
-            "'lorentz' and 'doppler' (Hartmann-Tran is ROADMAP M13)")
+            f"profile {profile!r}: these builders implement 'voigt', "
+            "'sdvoigt', 'lorentz' and 'doppler'; Hartmann-Tran is built by "
+            "make_ht_fn and make_od_ht_fn")
     if mix_idx is not None and len(mix_idx):
         if profile != "voigt":
             raise NotImplementedError("line mixing composes with Voigt only")
@@ -408,10 +426,13 @@ def _coarse_upsample(out_c, n_fine, R):
 
 
 def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
-                            near_width, tile_coarse, tile_corr):
+                            near_width, tile_coarse, tile_corr,
+                            subsets=None):
     """The coarse-far decomposition for statically exact absolute wings:
     (coarse grid, coarse calls, correction calls), each call (line
-    indices, packed plan, mode).
+    indices, packed plan, mode). ``subsets`` (line indices, far mode,
+    correction kind) replaces the routing by the store's ``sd_air`` column
+    (the HT builder routes by its resolved columns).
 
     The far field of every line runs in the guarded asymptotic form
     (``asym``/``sdvoigt_asym``) on the extended coarse grid (x0 - R dx,
@@ -427,11 +448,11 @@ def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
                          f"multiple of coarse_r ({R})")
     g_c = UniformGrid(x0=g.x0 - g.dx * R, dx=g.dx * R, n=(g.n - 1) // R + 4)
     nu0 = np.asarray(lines_h.nu0, dtype=np.float64)
-    if profile == "sdvoigt":
+    if subsets is None and profile == "sdvoigt":
         sd_mask = np.asarray(lines_h.sd_air, dtype=np.float64) != 0.0
         subsets = [(np.nonzero(sd_mask)[0], "sdvoigt_asym", "sdvoigt"),
                    (np.nonzero(~sd_mask)[0], "asym", "voigt")]
-    else:
+    elif subsets is None:
         subsets = [(np.arange(nu0.size), "asym", "voigt")]
     coarse_calls, corr_calls = [], []
     h = R * g.dx
@@ -451,22 +472,6 @@ def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
                 place_center=nu_s + side * float(wing_abs)),
                 f"corr:{R}:{corr_kind}"))
     return g_c, coarse_calls, corr_calls
-
-
-def _coarse_eligible(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
-                     coarse_r, near_width, vmr_margin) -> bool:
-    """Whether the coarse-far route is statically exact and wide enough:
-    every halfwidth wing over the class states is within ``wing_abs`` and
-    ``wing_abs`` clears both 16 coarse steps and the near/edge
-    disjointness bound."""
-    hw_wing = np.max([wing_bound_matrix(lines_h, iso_h, st, wing_abs=0.0,
-                                        wing_hw=wing_hw,
-                                        vmr_margin=vmr_margin)
-                      for st in states_h])
-    wide = float(wing_abs) >= max(16.0 * coarse_r * g.dx,
-                                  _coarse_far_min_wing(g, coarse_r,
-                                                       near_width))
-    return bool(hw_wing <= float(wing_abs)) and wide
 
 
 def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
@@ -521,14 +526,25 @@ class _Passes:
         return [*self.coarse_calls, *self.corr_calls, *self.calls]
 
     def run_call(self, call, prm: LineParams, Y=None, kernel=xsect_fused):
-        """One pass: (len(layers), its plan's n_out); a ``full`` pass goes
-        through the differentiable call, unless ``kernel`` names another
-        function (the plain version, in the checks)."""
+        """One pass: (len(layers), its plan's n_out). The ``full``,
+        ``sdvoigt`` and ``ht`` passes go through their differentiable calls
+        (K1 or K5 for the value, K3, K4 or K6 for tangents), unless
+        ``kernel`` names another function (the plain version, in the
+        checks: an ``ht`` pass then runs K5's plain version)."""
         lay, dplan, mode = call
-        if mode == "full" and kernel is xsect_fused:
+        plain = kernel is not xsect_fused
+        if mode == "ht":
+            fn = xsect_ht_plain if plain else xsect_ht_diff
+            return fn(dplan, lay, prm.strength, prm.wing, prm.ht_consts,
+                      self.n_weideman)
+        if mode == "full" and not plain:
             return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
                                     prm.gamma_d, prm.gamma_0, prm.wing,
                                     self.n_weideman)
+        if mode == "sdvoigt" and not plain:
+            return xsect_fused_sdvoigt_diff(
+                dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
+                prm.gamma_0, prm.gamma_2, prm.wing, self.n_weideman)
         return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                       prm.gamma_0, prm.wing, Y if mode == "mix" else None,
                       mode, self.n_weideman,
@@ -659,38 +675,51 @@ def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
         n_weideman=n_weideman)
 
 
-def _coarse_route(lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile,
-                  far_method, coarse_r, allowed, vmr_margin, profile):
+def _hw_wing_max(lines_h, iso_h, states_h, wing_hw, vmr_margin) -> float:
+    """The largest halfwidth wing of any line over the class states."""
+    return float(np.max([wing_bound_matrix(lines_h, iso_h, st, wing_abs=0.0,
+                                           wing_hw=wing_hw,
+                                           vmr_margin=vmr_margin)
+                         for st in states_h]))
+
+
+def _coarse_route(lines_h, g, wing_abs, tile, far_method, coarse_r, allowed,
+                  hw_wing, profile, subsets=None):
     """The coarse-far decomposition of a builder, or None for the classic
-    route: ``far_method`` 'auto' takes it where it is statically exact and
-    wide enough, 'coarse' requires it (raising where it is not), 'classic'
-    never; ``allowed`` is the builder's own precondition. The correction
-    kernel's ``coarse_r`` must divide its 256-point slice and be at least 8
-    (:func:`~..kernels.fused_xsect.corr_r_supported`), on the CPU too."""
+    route: ``far_method`` 'auto' takes it where it is statically exact
+    (``hw_wing()``, the largest halfwidth wing over the class states, is
+    within ``wing_abs``) and ``wing_abs`` clears both 16 coarse steps and
+    the near/edge disjointness bound, 'coarse' requires it (raising where it
+    is not), 'classic' never; ``allowed`` is the builder's own precondition
+    and ``subsets`` its routing (:func:`_build_coarse_far_calls`). The
+    correction kernel's ``coarse_r`` must divide its 256-point slice and be
+    at least 8 (:func:`~..kernels.fused_xsect.corr_r_supported`), on the CPU
+    too."""
     if far_method not in ("auto", "coarse", "classic"):
         raise ValueError(f"far_method must be 'auto', 'coarse' or "
                          f"'classic', got {far_method!r}")
+    min_wing = _coarse_far_min_wing(g, coarse_r, _NEAR_WIDTH)
     use = (far_method != "classic" and allowed and float(wing_abs) > 0.0
            and corr_r_supported(coarse_r)
-           and _coarse_eligible(lines_h, iso_h, states_h, g, wing_abs,
-                                wing_hw, coarse_r, _NEAR_WIDTH, vmr_margin))
+           and float(wing_abs) >= max(16.0 * coarse_r * g.dx, min_wing)
+           and hw_wing() <= float(wing_abs))
     if far_method == "coarse" and not use:
         raise ValueError(
             "far_method='coarse' requires profile voigt/sdvoigt with "
-            "two_pass (no line mixing, not differentiable), a coarse_r that "
-            "divides 256 and is at least 8 (got "
+            "two_pass (no line mixing, not differentiable) or the HT "
+            "lattice, a coarse_r that divides 256 and is at least 8 (got "
             f"{coarse_r!r}) and a wing_abs that dominates every line's "
             "halfwidth wing over the class states while clearing the "
             "near-zone/edge-band plan-disjointness bound "
-            f"({_coarse_far_min_wing(g, coarse_r, _NEAR_WIDTH):.3g} cm^-1 "
-            f"here); got wing_abs={wing_abs!r}")
+            f"({min_wing:.3g} cm^-1 here); got wing_abs={wing_abs!r}")
     if not use:
         return None
     nw = _coarse_near_width(coarse_r, g.dx, _NEAR_WIDTH)
     return _build_coarse_far_calls(
         lines_h, g, wing_abs, profile, coarse_r, nw,
         tile_coarse=min(tile, 512),
-        tile_corr=_coarse_tile_corr(g, coarse_r, nw, wing_abs))
+        tile_corr=_coarse_tile_corr(g, coarse_r, nw, wing_abs),
+        subsets=subsets)
 
 
 def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
@@ -711,27 +740,28 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     'sdvoigt', 'lorentz' or 'doppler'. ``line_mixing`` carries ``y_air``
     (and optionally ``y_self``, ``n_T``) for first-order mixing (Voigt
     only). ``differentiable=True`` builds single-pass ``full`` plans whose
-    passes carry ``torch.func.jvp`` tangents through K3 (Voigt, no line
-    mixing, as the JAX builder). Absolute wings (``wing_abs``) that
+    passes carry ``torch.func.jvp`` tangents through K3, and for
+    ``profile='sdvoigt'`` single-pass ``sdvoigt`` plans for the lines with
+    ``sd_air != 0`` whose tangents go through K4 (no line mixing, as the
+    JAX builder). Absolute wings (``wing_abs``) that
     dominate every halfwidth wing and clear the coarse-far disjointness
     bound take the coarse-far route (the JAX builder's ``far_method='auto'``
     with its near width; ``coarse_r``: see :func:`_build_coarse_far_calls`).
     """
     if profile == "ht":
         raise NotImplementedError(
-            "profile 'ht': the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
+            "profile 'ht': the layered Hartmann-Tran OD is make_od_ht_fn")
     if differentiable and line_mixing is not None:
         # the JAX builder routes mixing Jacobians to its jnp engine
         raise NotImplementedError(
             "differentiable OD with line mixing: the differentiable kernels "
             "have no mixing tangent (the JAX package's mixing Jacobians ride "
             "its jnp engine, ROADMAP M11)")
-    if differentiable and profile != "voigt":
+    if differentiable and profile not in ("voigt", "sdvoigt"):
         raise NotImplementedError(
-            f"differentiable OD with profile {profile!r}: the port's tangent "
-            "kernel is the Voigt one (K3); the SD-Voigt tangent kernel K4 is "
-            "ROADMAP queue 2 (the JAX package has no Lorentz or Doppler "
-            "tangent)")
+            f"differentiable OD with profile {profile!r}: the tangent "
+            "kernels are the Voigt (K3) and SD-Voigt (K4) ones; the JAX "
+            "package has no Lorentz or Doppler tangent")
     g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
         np.asarray(grid))
     dev, dt = lines.sw.device, lines.sw.dtype
@@ -742,10 +772,11 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     mol_ids = tuple(states_h[0].mol_ids)
     cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids), device=dev)
     coarse = _coarse_route(
-        lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile, "auto",
-        coarse_r, vmr_margin=1.5,
+        lines_h, g, wing_abs, tile, "auto", coarse_r,
         allowed=(profile in ("voigt", "sdvoigt") and not differentiable
-                 and line_mixing is None), profile=profile)
+                 and line_mixing is None),
+        hw_wing=lambda: _hw_wing_max(lines_h, iso_h, states_h, wing_hw, 1.5),
+        profile=profile)
     # on the coarse-far route the wing passes give way to the coarse far
     # field and its corrections; the classic per-line-tight core passes stay
     calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
@@ -782,11 +813,11 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
     near line centres and window edges (~R x less wing work) and requires
     statically exact wings and a ``coarse_r`` that divides 256 and is at
     least 8; 'auto' takes it where those hold and ``wing_abs`` spans many
-    tiles; 'classic' never. ``profile`` 'ht' is ROADMAP M13.
+    tiles; 'classic' never. ``profile`` 'ht' is :func:`make_ht_fn`.
     """
     if profile == "ht":
         raise NotImplementedError(
-            "profile 'ht': the Hartmann-Tran kernels (K5/K6) are ROADMAP M13")
+            "profile 'ht': the Hartmann-Tran lattice is make_ht_fn")
     g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
         np.asarray(grid))
     dev, dt = lines.sw.device, lines.sw.dtype
@@ -800,9 +831,9 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
         device="cpu", dtype=torch.float64)
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, pseudo)
     coarse = _coarse_route(
-        lines_h, iso_h, states_h, g, wing_abs, wing_hw, tile, far_method,
-        coarse_r, vmr_margin=None,
+        lines_h, g, wing_abs, tile, far_method, coarse_r,
         allowed=profile in ("voigt", "sdvoigt") and two_pass,
+        hw_wing=lambda: _hw_wing_max(lines_h, iso_h, states_h, wing_hw, None),
         profile=profile)
     calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
                             max_groups, tile, group_ratio, two_pass=two_pass,
@@ -810,3 +841,283 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
                             n, dev, dt)
     return CrossSectionFn(lines, iso, passes, profile, wing_abs, wing_hw)
+
+
+# --------------------------------------------------------------------------
+# Hartmann-Tran
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HTParams:
+    """(nLay, L) per-(state or layer, line) Hartmann-Tran parameters: the
+    K1 passes of the degenerate lines read the Voigt/SD-Voigt fields, the
+    ``ht`` passes the strength, the wing and the 11 constants of
+    :func:`~..kernels.htp_real.ht_line_constants` (``HT_CONST_KEYS``
+    order)."""
+
+    strength: torch.Tensor
+    gamma_d: torch.Tensor
+    gamma_0: torch.Tensor
+    shift0: torch.Tensor
+    gamma_2: torch.Tensor
+    wing: torch.Tensor
+    ht_consts: tuple
+
+
+def _ht_line_params(resolved, lines, iso, T, p_atm, wing_abs, wing_hw,
+                    abun=None, strength_scale=1.0) -> HTParams:
+    prm = ht_params(resolved, lines, iso, T, p_atm, wing_abs=wing_abs,
+                    wing_hw=wing_hw, abun=abun,
+                    strength_scale=strength_scale)
+    k = ht_line_constants(prm["gamma_d"], prm["gamma0"], prm["gamma2"],
+                          prm["shift0"], prm["shift2"], prm["nuvc"],
+                          prm["eta_r"], prm["eta_i"])
+    c = lambda a: a.contiguous()  # noqa: E731
+    return HTParams(strength=c(prm["strength"]), gamma_d=c(prm["gamma_d"]),
+                    gamma_0=c(prm["gamma0"]), shift0=c(prm["shift0"]),
+                    gamma_2=c(prm["gamma2"]), wing=c(prm["wing"]),
+                    ht_consts=tuple(c(k[key]) for key in HT_CONST_KEYS))
+
+
+def ht_wing_bounds(resolved, lines_h, iso_h, T_states, p_atm_states,
+                   wing_abs=0.0, wing_hw=50.0) -> np.ndarray:
+    """(nStates, nLines) hapi wing bounds from resolved HT columns
+    (``od.py:1193-1214``): max(wing_abs, wing_hw max(Gamma0(T, p),
+    GammaD(T))) with the diluent-summed Gamma0, in NumPy on the host views
+    of the lines and isotopologue tables."""
+    gd_coeff = _gd_coeff(lines_h, iso_h)
+    T_c = np.asarray(T_states, dtype=np.float64).ravel()
+    p_c = np.asarray(p_atm_states, dtype=np.float64).ravel()
+    W = np.zeros((T_c.size, np.asarray(lines_h.nu0).size))
+    for r, (T_s, p_s) in enumerate(zip(T_c, p_c)):
+        g0 = np.zeros_like(W[0])
+        for abun, g0db, ndb, *_ in resolved:
+            g0 = g0 + abun * np.asarray(g0db) * (p_s / P_REF) \
+                * (T_REF / T_s) ** np.asarray(ndb)
+        gd = np.sqrt(T_s) * gd_coeff
+        W[r] = np.maximum(wing_abs, wing_hw * np.maximum(g0, gd))
+    return W
+
+
+def _ht_subsets(resolved, n_lines, tile, differentiable=False):
+    """The per-line routing of the HT builders (``od.py:1265-1278``):
+    (mode, line indices, block cap) for the live-HT lines (eta, nuVC or
+    Shift2 non-zero in a diluent's resolved columns: K5), the SD-Voigt
+    degenerations (Gamma2 non-zero: K1 ``sdvoigt``) and the shifted Voigt
+    ones (K1 ``full``). The caps are the JAX builders' VMEM guards, a
+    quarter and a half of them for ``differentiable`` (``:1491-1496``):
+    they shape the plans, which stay integer-exact with JAX's."""
+    g2_any = np.zeros(n_lines, dtype=bool)
+    full_m = np.zeros(n_lines, dtype=bool)
+    for *_, g2db, d2db, nuvc_db, _kap, eta_db in resolved:
+        g2_any |= np.asarray(g2db) != 0.0
+        full_m |= ((np.asarray(d2db) != 0.0) | (np.asarray(nuvc_db) != 0.0)
+                   | (np.asarray(eta_db) != 0.0))
+    cap_ht = max(8, ((1 << 16) // tile) // 8 * 8)
+    cap_sd = max(8, ((1 << 17) // tile) // 8 * 8)
+    if differentiable:
+        cap_ht = max(8, cap_ht // 4)
+        cap_sd = max(8, cap_sd // 2)
+    return [("ht", np.nonzero(full_m)[0], cap_ht),
+            ("sdvoigt", np.nonzero(~full_m & g2_any)[0], cap_sd),
+            ("full", np.nonzero(~full_m & ~g2_any)[0], cap_sd)]
+
+
+def _ht_group_calls(nu0, g, W, mode, idx, cap, tile, max_groups,
+                    group_ratio):
+    """One subset's passes, a plan per layer group of similar wings."""
+    W_s = W[:, idx]
+    calls = []
+    for lay_idx, _ in group_by_wing(W_s.max(axis=1), max_groups=max_groups,
+                                    ratio=group_ratio):
+        lay_idx = np.sort(lay_idx)
+        w_line = W_s[lay_idx].max(axis=0)
+        plan = plan_buckets_packed(nu0[idx], g, w_line, tile=tile,
+                                   block="auto")
+        if plan.block > cap:
+            plan = plan_buckets_packed(nu0[idx], g, w_line, tile=tile,
+                                       block=cap)
+        calls.append((lay_idx, idx, plan, mode))
+    return calls
+
+
+class HTCrossSectionFn(_Passes):
+    """``(T, p_atm) -> (nStates, nX)`` Hartmann-Tran cross-sections
+    [cm^2/molec] of a (T, p) lattice with the static plans baked in (see
+    :func:`make_ht_fn`)."""
+
+    def __init__(self, lines, iso, passes, resolved, wing_abs, wing_hw):
+        super().__init__(**passes)
+        self.lines, self.iso = lines, iso
+        self.resolved = resolved
+        self.wing_abs, self.wing_hw = wing_abs, wing_hw
+
+    def line_params(self, T, p_atm) -> HTParams:
+        """(nStates, L) HT parameters in HITRAN units."""
+        return _ht_line_params(self.resolved, self.lines, self.iso,
+                               T[:, None], p_atm[:, None], self.wing_abs,
+                               self.wing_hw)
+
+    def __call__(self, T, p_atm):
+        return self.line_sum(self.line_params(T, p_atm))
+
+
+class HTOpticalDepthFn(_Passes):
+    """``(T, p_pa, pl, vmr) -> (nLay, nX)`` Hartmann-Tran layer OD with the
+    static plans baked in (see :func:`make_od_ht_fn`); differentiable in
+    forward mode, the ``ht``, ``sdvoigt`` and ``full`` passes carrying their
+    tangents through K6, K4 and K3."""
+
+    def __init__(self, lines, iso, passes, resolved, cols, wing_abs,
+                 wing_hw, cont):
+        super().__init__(**passes)
+        self.lines, self.iso = lines, iso
+        self.resolved, self.cols = resolved, cols
+        self.wing_abs, self.wing_hw = wing_abs, wing_hw
+        self.cont = cont
+
+    def line_params(self, T, p_pa, pl, vmr) -> HTParams:
+        """(nLay, L) HT parameters with the layer's air/self diluent mix
+        ``[1 - x_self, x_self]`` and column-density strengths."""
+        p_atm = p_pa / PA_PER_ATM
+        u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
+                           pl[:, None], vmr)
+        x_self = vmr[:, self.cols]
+        return _ht_line_params(self.resolved, self.lines, self.iso,
+                               T[:, None], p_atm[:, None], self.wing_abs,
+                               self.wing_hw, abun=[1.0 - x_self, x_self],
+                               strength_scale=u[:, self.cols])
+
+    def __call__(self, T, p_pa, pl, vmr):
+        out = self.line_sum(self.line_params(T, p_pa, pl, vmr))
+        if self.cont is not None:
+            out = out + self.cont(T, p_pa, pl, vmr)
+        return out
+
+
+def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
+               extras=None, wing_abs=0.0, wing_hw=50.0, tile: int = 128,
+               n_weideman: int = 16, max_groups: int = 4,
+               group_ratio: float = 4.0, far_method: str = "auto",
+               coarse_r: int = 64) -> HTCrossSectionFn:
+    """Build the (T_states, p_atm_states) -> (nStates, nX) Hartmann-Tran
+    cross-section function [cm^2/molec] (the counterpart of
+    ``make_ht_pallas_fn``, with its defaults): hapi's
+    ``absorptionCoefficient_HT`` (``misc/hapi.py:10302-10650``) over a
+    (T, p) lattice, HITRAN units, hapi's window.
+
+    The HT columns resolve with hapi's fallbacks from the store and the
+    NumPy ``extras`` dict (:func:`~..kernels.ht_driver.resolve_ht_columns`;
+    ``diluent`` defaults to ``{'air': 1}``). Lines with live eta, nuVC or
+    Shift2 run the HT kernel K5; the others pcqsdhc's exact degenerations,
+    K1 ``sdvoigt`` (Gamma2 != 0) or ``full``. With an absolute wing that
+    dominates every halfwidth wing and clears the coarse-far disjointness
+    bound, those two subsets take the coarse-far route (``far_method``
+    'auto'; 'coarse' requires it, 'classic' never; ``coarse_r`` must divide
+    256 and be at least 8), while the live-HT lines keep their full
+    windows.
+    """
+    if diluent is None:
+        diluent = {"air": 1.0}
+    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
+        np.asarray(grid))
+    dev, dt = lines.sw.device, lines.sw.dtype
+    T_c = np.asarray(T_class, dtype=np.float64).ravel()
+    p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
+    mol_ids = tuple(int(m) for m in np.unique(lines.host["mol_id"]))
+    n = T_c.size
+    pseudo = AtmosphericState.from_numpy(
+        z0=np.zeros(n), z1=np.ones(n), pl=np.ones(n), p=p_c * PA_PER_ATM,
+        T=T_c, vmr=np.zeros((n, len(mol_ids))), mol_ids=mol_ids,
+        device="cpu", dtype=torch.float64)
+    lines_h, iso_h, states_h = _host_planning_views(lines, iso, pseudo)
+    resolved = resolve_ht_columns(lines, extras, diluent)
+    W = ht_wing_bounds(resolved, lines_h, iso_h, T_c, p_c,
+                       wing_abs=wing_abs, wing_hw=wing_hw)
+    nu0 = np.asarray(lines_h.nu0, dtype=np.float64)
+    subsets = _ht_subsets(resolved, nu0.size, tile)
+
+    # the coarse-far route for the two degenerate subsets, eligible by the
+    # diluent-summed HT wing bounds
+    cf_subsets = [(idx, "sdvoigt_asym" if mode == "sdvoigt" else "asym",
+                   "sdvoigt" if mode == "sdvoigt" else "voigt")
+                  for mode, idx, _ in subsets[1:] if idx.size]
+    coarse = _coarse_route(
+        lines_h, g, wing_abs, tile, far_method, coarse_r, allowed=True,
+        hw_wing=lambda: float(ht_wing_bounds(
+            resolved, lines_h, iso_h, T_c, p_c, wing_abs=0.0,
+            wing_hw=wing_hw).max()),
+        profile="ht", subsets=cf_subsets)
+    if not cf_subsets:
+        coarse = None
+    coarse_modes = ("sdvoigt", "full") if coarse else ()
+
+    calls = []
+    for mode, idx, cap in subsets:
+        if not idx.size:
+            continue
+        if mode in coarse_modes:
+            # the coarse far field replaces the wing passes; the core
+            # corrections stay as classic passes on per-line tight windows
+            core_w = np.max([core_wing_per_line(lines_h, iso_h, st)
+                             for st in states_h], axis=0)[idx]
+            if mode == "sdvoigt":
+                core_w = np.maximum(core_w, np.max(
+                    [sdvoigt_core_bound(lines_h, iso_h, st)
+                     for st in states_h], axis=0)[:, idx].max(axis=0))
+            core_w = np.minimum(core_w, float(wing_abs))
+            c_tile = _pow2_tile(int(np.ceil(2.0 * core_w.max() / g.dx)),
+                                lo=256, hi=512)
+            calls.append((np.arange(n), idx,
+                          plan_buckets_packed(nu0[idx], g, core_w,
+                                              tile=c_tile, block=16),
+                          "sdvoigt_core" if mode == "sdvoigt" else "core"))
+            continue
+        calls += _ht_group_calls(nu0, g, W, mode, idx, cap, tile, max_groups,
+                                 group_ratio)
+    passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
+                            n, dev, dt)
+    return HTCrossSectionFn(lines, iso, passes, resolved, wing_abs, wing_hw)
+
+
+def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
+                  wing_hw=50.0, tile: int = 128, n_weideman: int = 16,
+                  max_groups: int = 8, group_ratio: float = 4.0,
+                  continuum: str = "none", continuum_factors=None,
+                  differentiable: bool = False) -> HTOpticalDepthFn:
+    """Build the (T, p_pa, pl, vmr) -> (nLay, nX) Hartmann-Tran layer OD
+    (the counterpart of ``make_od_ht_pallas_fn``, with its defaults): the
+    routing of :func:`make_ht_fn` with atmosphere layers in the role of
+    lattice states, the HT columns resolved for both diluents and mixed
+    per layer as ``[1 - x_self, x_self]`` (the line's own-molecule vmr),
+    column-density strengths, and the continuum term. The plans are sized
+    on ``atmos_class`` with the air+self column sum (a bound on any mix).
+    ``differentiable=True`` plans with the JAX builder's tangent-kernel
+    block caps; the passes carry ``torch.func.jvp`` tangents through K6
+    (``ht``), K4 (``sdvoigt``) and K3 (``full``) either way.
+    """
+    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
+        np.asarray(grid))
+    dev, dt = lines.sw.device, lines.sw.dtype
+    lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
+    mol_ids = tuple(states_h[0].mol_ids)
+    cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids), device=dev)
+    # placeholder abundances: the layer's mix is supplied per call
+    resolved = resolve_ht_columns(lines, extras, {"air": 1.0, "self": 1.0})
+    W = np.max([ht_wing_bounds(resolved, lines_h, iso_h, np.asarray(s.T),
+                               np.asarray(s.p) / PA_PER_ATM,
+                               wing_abs=wing_abs, wing_hw=wing_hw)
+                for s in states_h], axis=0)
+    nu0 = np.asarray(lines_h.nu0, dtype=np.float64)
+    calls = []
+    for mode, idx, cap in _ht_subsets(resolved, nu0.size, tile,
+                                      differentiable):
+        if idx.size:
+            calls += _ht_group_calls(nu0, g, W, mode, idx, cap, tile,
+                                     max_groups, group_ratio)
+    passes = _device_passes(calls, None, lines_h, g, 64, n_weideman,
+                            int(np.asarray(states_h[0].T).size), dev, dt)
+    cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
+                                dev, dt)
+    return HTOpticalDepthFn(lines, iso, passes, resolved, cols, wing_abs,
+                            wing_hw, cont)

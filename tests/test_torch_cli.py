@@ -16,6 +16,7 @@ import torch
 from radtxfr_tpu.cli.main import build_parser as j_build_parser
 from radtxfr_tpu_torch.cli.main import build_parser, main, run_xsect
 from radtxfr_tpu_torch.io.afit_xs import xs_read
+from port_fixtures import one_torch_thread  # noqa: F401
 
 ARGS = ["tud", "--derived", "--line-mixing", "--continuum", "mt_ckd",
         "--numin", "718", "--numax", "723", "--dv", "0.005", "--n-atmos", "2",
@@ -142,9 +143,35 @@ def test_port_xsect_matches_jax_cli(tmp_path, profile, bound):
         assert np.abs(Y - jY).max() <= bound * np.abs(jY).max(), T
 
 
+@pytest.mark.parametrize("T_max", [None, "290"])
+def test_port_xsect_ht_matches_jax_cli(tmp_path, T_max):
+    """`xsect --profile ht` through both CLIs (JAX: --engine pallas,
+    interpret mode): the CLI takes no HT columns, so the lines route to
+    pcqsdhc's SD-Voigt and Voigt degenerations, on the coarse-far route;
+    the AFIT_XS files within the SD-Voigt float32 bound of each file's
+    peak (tests/test_torch_xsect.py: MODE_BOUND)."""
+    args = XS_ARGS[:-4] + (["--T-max", T_max, "--T-step", "5"] if T_max
+                           else []) + ["--profile", "ht"]
+    modes = run_xsect(build_parser().parse_args(args + ["--device", "cpu"]),
+                      "cpu")["modes"]
+    assert "ht" not in modes and "corr:64:sdvoigt" in modes, modes
+    main(args + ["--device", "cpu", "--output", str(tmp_path / "port")])
+    _run_jax_cli(args + ["--engine", "pallas", "--output",
+                         str(tmp_path / "jax")])
+    names = [f".T{T}_p1" for T in ("280", "285", "290")] if T_max else [""]
+    for name in names:
+        X, Y, meta = xs_read(str(tmp_path / f"port{name}"))
+        jX, jY, j_meta = xs_read(str(tmp_path / f"jax{name}"))
+        np.testing.assert_array_equal(X, jX)
+        assert meta == j_meta
+        assert np.isfinite(Y).all() and np.abs(jY).max() > 0.0
+        assert np.abs(Y - jY).max() <= 1e-5 * np.abs(jY).max(), name
+
+
 def test_port_xsect_unported_options_raise():
-    """Hartmann-Tran (ROADMAP M13) and the jnp engine raise."""
-    with pytest.raises(NotImplementedError, match="M13"):
-        main(XS_ARGS + ["--profile", "ht", "--device", "cpu"])
+    """The jnp engine (the JAX package's pcqsdhc through htp.py) and --par
+    raise; --profile ht runs (test_port_xsect_ht_matches_jax_cli)."""
     with pytest.raises(NotImplementedError, match="jnp"):
         main(XS_ARGS + ["--engine", "jnp", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="par"):
+        main(XS_ARGS + ["--par", "lines.par", "--device", "cpu"])

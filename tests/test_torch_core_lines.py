@@ -25,6 +25,7 @@ from radtxfr_tpu_torch.kernels.lineparams import compute_line_params
 from radtxfr_tpu_torch.kernels.linemixing_data import y_air_for_store
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
 from radtxfr_tpu_torch.lines.store import IsoTables, LineStore
+from port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",

@@ -217,6 +217,136 @@ def test_corr_pass_reruns_bit_identical_and_checks_R(dev):
             run(bad)
 
 
+def _sd_tangents(dev, prm, nd, seed=3):
+    """(nd, nLay, L) random tangents of (shift0, strength, gamma_d, gamma_0,
+    gamma_2), each scaled like its parameter."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((nd,) + tuple(prm[k].shape), generator=gen,
+                         device=dev) * prm[k].abs().mean()).contiguous()
+            for k in ("shift0", "strength", "gamma_d", "gamma_0", "gamma_2")]
+
+
+def test_sdvoigt_tangent_kernel_matches_plain(dev):
+    """K4 against its plain version on random SD-Voigt parameters (3
+    directions, one launch): each direction within 2e-5 of its own peak
+    (K3's card bound above); two launches bit-identical; a float64 or
+    wrongly shaped tangent raises."""
+    dp, lay, prm = _random_case(dev, n_pts=20000)
+    args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+            prm["gamma_0"], prm["gamma_2"], prm["wing"])
+    tans = _sd_tangents(dev, prm, 3)
+    n0 = fused_xsect.LAUNCHES["sdvoigt_jvp"]
+    got = fused_xsect.xsect_sdvoigt_jvp(*args, *tans)
+    assert fused_xsect.LAUNCHES["sdvoigt_jvp"] == n0 + 1
+    assert torch.equal(got, fused_xsect.xsect_sdvoigt_jvp(*args, *tans))
+    want = fused_xsect.xsect_sdvoigt_jvp_plain(*args, *tans)
+    for d in range(3):
+        own = want[d].abs().max()
+        assert own > 0.0
+        assert (got[d] - want[d]).abs().max() <= 2e-5 * own, \
+            float((got[d] - want[d]).abs().max() / own)
+    with pytest.raises(TypeError, match="float32"):
+        fused_xsect.xsect_sdvoigt_jvp(*args, *[t.double() for t in tans])
+    with pytest.raises(ValueError, match="shape"):
+        fused_xsect.xsect_sdvoigt_jvp(*args, *[t[:, :-1].contiguous()
+                                               for t in tans])
+
+
+def _ht_case(dev, n_lines=300, n_lay=5, n_pts=20000):
+    """Lines over 995-1055 cm^-1 on a 0.0025 grid, tile 128 (the HT
+    builders'), random per-(layer, line) HT parameters: a third of the
+    lines Voigt-like (Gamma2 = Shift2 = 0: pcqsdhc's PART1), the rest with
+    live Gamma2, Shift2, nuVC and a complex eta; wings 1-5 cm^-1."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.kernels.htp_real import ht_line_constants
+
+    rng = np.random.default_rng(11)
+    g = fused_xsect.UniformGrid(x0=1000.0, dx=0.0025, n=n_pts)
+    nu0 = np.sort(rng.uniform(995.0, 1055.0, n_lines))
+    wings = rng.uniform(1.0, 5.0, n_lines)
+    plan = fused_xsect.plan_buckets_packed(nu0, g, wings, tile=128, block=32)
+    dp = fused_xsect.device_plan(plan, np.arange(n_lines), nu0, device=dev)
+    live = rng.random(n_lines) > 1.0 / 3.0
+    mk = lambda lo, hi, m=None: torch.as_tensor(  # noqa: E731
+        rng.uniform(lo, hi, (n_lay, n_lines)) * (1.0 if m is None else m),
+        dtype=torch.float32, device=dev)
+    g0 = mk(0.002, 0.1)
+    k = ht_line_constants(mk(0.0005, 0.002), g0, g0 * mk(0.05, 0.15, live),
+                          mk(-0.01, 0.01), mk(-5e-4, 5e-4, live),
+                          mk(0.0, 0.05, live), mk(0.0, 0.3, live),
+                          mk(-0.05, 0.05, live))
+    from radtxfr_tpu_torch.kernels.htp_real import HT_CONST_KEYS
+    consts = [k[key].contiguous() for key in HT_CONST_KEYS]
+    strength = mk(0.5, 2.0)
+    wing = torch.as_tensor(np.tile(wings, (n_lay, 1)), dtype=torch.float32,
+                           device=dev)
+    return dp, torch.arange(n_lay, dtype=torch.int32, device=dev), strength, \
+        wing, consts
+
+
+def test_ht_kernel_matches_plain(dev):
+    """K5 against its plain version: within 2e-6 of the pass's peak (the
+    kernel follows the plain version's operations uncontracted); two
+    launches bit-identical; a float64, non-contiguous or wrongly counted
+    constant set raises."""
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    dp, lay, s, w, consts = _ht_case(dev)
+    n0 = fused_xsect.LAUNCHES["ht"]
+    got = fused_ht.xsect_ht(dp, lay, s, w, consts)
+    assert fused_xsect.LAUNCHES["ht"] == n0 + 1
+    assert torch.equal(got, fused_ht.xsect_ht(dp, lay, s, w, consts))
+    want = fused_ht.xsect_ht_plain(dp, lay, s, w, consts)
+    own = want.abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() <= 2e-6 * own, \
+        float((got - want).abs().max() / own)
+    with pytest.raises(TypeError, match="float32"):
+        fused_ht.xsect_ht(dp, lay, s.double(), w, consts)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ht.xsect_ht(dp, lay, s, w, [c.t().contiguous().t()
+                                          for c in consts])
+    with pytest.raises(ValueError, match="HT constants"):
+        fused_ht.xsect_ht(dp, lay, s, w, consts[:-1])
+
+
+def test_ht_tangent_kernel_matches_plain(dev):
+    """K6 against its plain version (``torch.func.jvp`` through
+    pcqsdhc_real, non-finite tangents zeroed) for 3 random directions: each
+    within 2e-6 of its own peak (K5's bound: the dual numbers use torch's
+    derivative formulas, each operation rounded on its own, so K6 rounds as
+    the plain version does); two launches bit-identical; a batch of
+    directions under ``vmap`` of ``jvp`` of :func:`xsect_ht_diff` runs K6
+    once per ``HT_JVP_DIRS`` directions, not once per direction."""
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    dp, lay, s, w, consts = _ht_case(dev, n_pts=8000)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda a, nd: (torch.randn((nd,) + tuple(a.shape),  # noqa: E731
+                                     generator=gen, device=dev)
+                         * a.abs().mean()).contiguous()
+    s_t = rnd(s, 3)
+    c_t = [rnd(c, 3) for c in consts]
+    got = fused_ht.xsect_ht_jvp(dp, lay, s, w, consts, s_t, c_t)
+    assert torch.equal(got, fused_ht.xsect_ht_jvp(dp, lay, s, w, consts,
+                                                  s_t, c_t))
+    want = fused_ht.xsect_ht_jvp_plain(dp, lay, s, w, consts, s_t, c_t)
+    for d in range(3):
+        own = want[d].abs().max()
+        assert own > 0.0 and bool(torch.isfinite(got[d]).all())
+        assert (got[d] - want[d]).abs().max() <= 2e-6 * own, \
+            float((got[d] - want[d]).abs().max() / own)
+
+    n_dir = 2 * fused_ht.HT_JVP_DIRS
+    n0 = fused_xsect.LAUNCHES["ht_jvp"]
+    _, tan = torch.func.vmap(lambda v: torch.func.jvp(
+        lambda x: fused_ht.xsect_ht_diff(dp, lay, x, w, consts), (s,),
+        (v,)), out_dims=(None, 0))(rnd(s, n_dir))
+    assert tan.shape == (n_dir, lay.numel(), dp.n_out)
+    assert fused_xsect.LAUNCHES["ht_jvp"] == n0 + 2
+
+
 def test_defaults_run_on_the_card():
     """With no device and no dtype argument, the constructors and builders
     run on the card, in float32, through the kernels."""

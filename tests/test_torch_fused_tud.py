@@ -21,6 +21,7 @@ from radtxfr_tpu_torch.core.grid import arange_drift_free
 from radtxfr_tpu_torch.core.planck import planckian
 from radtxfr_tpu_torch.products.tud import make_tud_fn, tud_from_od
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator
+from port_fixtures import one_torch_thread  # noqa: F401
 
 
 def _setup(n_x=3000, n_lay=24, seed=0):

@@ -42,6 +42,7 @@ from radtxfr_tpu_torch.kernels.xsect import xsect_from_params
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
 from radtxfr_tpu_torch.lines.store import IsoTables
 from radtxfr_tpu_torch.products.od import _build_od_calls, _host_planning_views
+from port_fixtures import one_torch_thread  # noqa: F401
 
 AXIS = arange_drift_free(550.0, 575.0, 0.0025)       # 10001 points
 PLAN_FIELDS = ("starts", "counts", "k_line", "frac0", "gather")

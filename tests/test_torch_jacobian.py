@@ -31,6 +31,7 @@ from radtxfr_tpu_torch.products.jacobian import tud_with_jacobian
 from radtxfr_tpu_torch.products.od import (_build_od_calls,
                                            _host_planning_views, make_od_fn)
 from radtxfr_tpu_torch.products.tud import tud_from_od
+from port_fixtures import one_torch_thread  # noqa: F401
 
 FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",
           "delta_air", "sd_air", "iso_row", "mol_id")

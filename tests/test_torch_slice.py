@@ -21,6 +21,7 @@ from radtxfr_tpu_torch.atmos.profile import AtmosphericState
 from radtxfr_tpu_torch.core.grid import arange_drift_free
 from radtxfr_tpu_torch.lines.store import IsoTables, LineStore
 from radtxfr_tpu_torch.products.od import make_od_fn
+from port_fixtures import one_torch_thread  # noqa: F401
 
 FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",
           "delta_air", "sd_air", "iso_row", "mol_id")
@@ -77,9 +78,10 @@ def test_make_od_fn_matches_jnp_engine(reference, iso_tables, dtype,
 def test_unported_branches_raise(reference, iso_tables):
     store, atm, lm, _ = reference
     lines, iso, state = _port_inputs(store, iso_tables, atm, torch.float32)
-    for kw in ({"profile": "ht"},
-               {"differentiable": True, "line_mixing": lm},
-               {"differentiable": True, "profile": "sdvoigt"},
+    for kw in ({"differentiable": True, "line_mixing": lm},
                {"continuum": "h2o_empirical"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_od_fn(lines, iso, AXIS, state, **kw)
+    # Hartmann-Tran is the layered builder make_od_ht_fn's
+    with pytest.raises(NotImplementedError, match="make_od_ht_fn"):
+        make_od_fn(lines, iso, AXIS, state, profile="ht")

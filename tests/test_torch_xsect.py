@@ -31,6 +31,7 @@ from radtxfr_tpu_torch.kernels.lineparams import compute_line_params
 from radtxfr_tpu_torch.lines.store import IsoTables
 from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
 from radtxfr_tpu_torch.products import od
+from port_fixtures import one_torch_thread  # noqa: F401
 
 F64 = dict(device="cpu", dtype=torch.float64)
 F32 = dict(device="cpu", dtype=torch.float32)
@@ -401,16 +402,17 @@ def test_make_od_fn_profiles_match_jax(iso_tables, profile, wing_abs):
 
 
 def test_unported_branches_raise():
-    """Hartmann-Tran (M13) and the differentiable SD-Voigt OD (K4) raise
-    NotImplementedError naming what they wait for."""
+    """Hartmann-Tran has builders of its own (make_ht_fn, make_od_ht_fn):
+    profile 'ht' in the Voigt-family builders raises NotImplementedError
+    naming them; a differentiable OD has no Lorentz or Doppler tangent."""
     store = synthetic_lines(20, nu_min=795.0, nu_max=805.0, seed=1, **F32)
     iso = IsoTables.load(**F32)
     axis = arange_drift_free(798.0, 802.0, 0.01)
     atm = std_atmosphere(**F32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        od.make_od_fn(store, iso, axis, atm, profile="sdvoigt",
-                      differentiable=True)
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(NotImplementedError, match="make_od_ht_fn"):
         od.make_od_fn(store, iso, axis, atm, profile="ht")
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(NotImplementedError, match="make_ht_fn"):
         od.make_xsect_fn(store, iso, axis, [296.0], [1.0], profile="ht")
+    with pytest.raises(NotImplementedError, match="tangent"):
+        od.make_od_fn(store, iso, axis, atm, profile="lorentz",
+                      differentiable=True)
