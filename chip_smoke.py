@@ -9,6 +9,15 @@ Phases, each printing its result on its own line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives.
 2. Build: compile the CUDA kernels of ``radtxfr_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print ptxas's registers and spills.
+2b. The FP32 issue-rate probe (P1/P2, ``csrc/peak_probe.cu``): each mix of
+   the suite, at both unrolled depths (8 x 2 and 256 x 2 steps on every
+   SM's threads), against its plain chains within 4 float32 ulps, with
+   operands that move every step by many ulps (``fp32_peak.CHECK_A``,
+   ``CHECK_B``), so that no wrong or missing operation passes; P1's own
+   operands on the timed fma_dep workload; the measured peak (the dependent FMA and multiply
+   chains, best of 5) and the suite's rates, each under 1.05 x 67 TFLOP/s
+   or the probe fails. From here on every bound is printed at the data
+   sheet's 67 TFLOP/s and at the measured peak.
 3. K1 (``csrc/fused_xsect.cu``) against its plain PyTorch version on every
    pass of the production OD builder over a 700-740 cm^-1 sub-band at
    5e-4 cm^-1 (derived line list, 66 layers, line mixing): error <= 2e-6
@@ -92,12 +101,30 @@ Phases, each printing its result on its own line:
    list): a batch of 8 one-hot T directions, milliseconds and K4 launches.
 10. Where the time of 9, 9b and 9c goes: CUDA-event milliseconds per kind
    of pass, each with its bound.
+3e. K7, the unfused kernel (``csrc/fused_xsect.cu``), in each of its modes
+   (full, asym, core, lorentz, doppler) against its plain version on
+   ``make_od_plan``'s shared-block plan over the 700-740 cm^-1 sub-band at
+   5e-4 (derived list, 66 layers): within 2e-6 of the OD peak and within
+   its mode's own-output bound (K1's), bit-identical reruns; a packed plan
+   against the shared one within 5e-7 of peak.
+11. The prebuilt-plan route at full width: one ``make_od_plan``, then
+   ``compute_od_layers(engine="pallas", plan=plan, continuum="mt_ckd")``
+   for 4 members perturbed as ``run_tud`` perturbs them, with the launch
+   counts reset before and read after (K7 must have run once a member, K1
+   and K2 not); finite, >= 0; plan-build seconds and seconds a member;
+   against ``make_od_fn(continuum="mt_ckd")`` on the base state within
+   5e-6 of peak; where a member's time goes (line parameters, K7 with its
+   bound, the continuum) and K7 against its plain version at full width;
+   the route on a 5 cm^-1 band on the card against the CPU's float64 plain
+   run, and make_od_fn on the card against the same run, each within 2e-6
+   of peak.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
 exponentials also over the special-function units), with the evaluations
 the kernel needs recounted on the host from the plans and the line
-parameters (``window_counts``).
+parameters (``window_counts``); the JSON line also carries it at the
+measured FP32 peak (``bound_ms_measured_peak``).
 
 It ends with one JSON line of kernel results and, last, the device line.
 Any failed check raises; the script then exits non-zero without the last
@@ -105,6 +132,7 @@ line. There is no CPU fallback.
 """
 
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -119,8 +147,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from radtxfr_tpu_torch import _build  # noqa: E402
 from radtxfr_tpu_torch.atmos.profile import std_atmosphere  # noqa: E402
-from radtxfr_tpu_torch.cli.main import (build_parser, run_tud,  # noqa: E402
-                                        run_xsect, write_xs)
+from radtxfr_tpu_torch.cli.main import (  # noqa: E402
+    build_parser, ensemble_draws, ensemble_member, run_tud, run_xsect,
+    write_xs)
 from radtxfr_tpu_torch.io.afit_xs import xs_read  # noqa: E402
 from radtxfr_tpu_torch.kernels.lineparams import (  # noqa: E402
     compute_line_params)
@@ -136,9 +165,13 @@ from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
 from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
     resolve_ht_columns)
 from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
-                                           ht_wing_bounds, make_ht_fn,
+                                           _line_species_cols,
+                                           compute_od_layers, ht_wing_bounds,
+                                           layer_line_params, make_ht_fn,
                                            make_od_fn, make_od_ht_fn,
-                                           make_xsect_fn)
+                                           make_od_plan, make_xsect_fn)
+from radtxfr_tpu_torch.atmos.continuum import continuum_od  # noqa: E402
+from radtxfr_tpu_torch.tools import fp32_peak  # noqa: E402
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
@@ -171,6 +204,9 @@ MARGIN = 25.0           # cm^-1 of lines beyond each band edge (the CLI's)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+#: the FP32 issue rate the probe measures on this card (phase 2b), ops/s;
+#: every bound is also stated against it
+MEASURED = {}
 N_WEI = 16
 # lane-ops per evaluation (a*b+c = 2), (inside |x| + y < 15, outside), from
 # the hand counts in the CUDA sources: the region test branches per point,
@@ -223,6 +259,27 @@ SD_OPS = {"sdvoigt_asym": SD_BASE + 2 * SD_GUARDED,
 SIMPLE_OPS = {"lorentz": 18, "doppler": 20}
 SPAN = 256            # points of a K1 CTA's slice (csrc: SPAN)
 INTERP_OPS = 9        # a correction point's 4-node FMA interpolation + add
+
+# the prebuilt-plan route (compute_od_layers(engine="pallas", plan=...)):
+# K7's modes; a packed plan against the shared one
+# (tests/test_pallas_xsect.py:397); the route at full width for 4 members
+# against make_od_fn on the base state (README "<=2e-6 of peak" each from
+# the float64 reference, so 5e-6 between the two: their Weideman terms,
+# 24 against 16, and continua, pointwise against layer-hoisted, differ) and
+# on a 5 cm^-1 band against the CPU's float64 plain run
+K7_MODES = fused_xsect.UNFUSED_MODES
+K7_PACKED_BOUND = 5e-7
+OD_LAYERS_MEMBERS = 4
+OD_LAYERS_SMALL = (718.0, 723.0, 0.0005)
+ROUTE_VS_BUILDER = 5e-6
+# the FP32 probe (P1/P2): each mix against its plain chains at both
+# unrolled depths, 2 iterations each, with the check operands, within 4
+# float32 ulps (an FFMA rounds once, its plain step in float64 rounded to
+# float32), and the JSON entry's workload, fma_dep with P1's operands at
+# depth 256 x 40 iterations on every SM's threads, for both versions
+PROBE_CHECK = ((8, 2), (256, 2))      # (unrolled depth, iterations)
+PROBE_ULPS = 4
+PROBE_WORK_ITERS = 40
 
 # the Hartmann-Tran path (the JAX bench's metrics 5, 5b and
 # ht_jacobian_jvp_per_s, bench.py:543-585, 622-663, 697-726)
@@ -498,13 +555,23 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     return n_win, tuple(n_in or ()), int(np.unique(g).size)
 
 
-def bound(ops, nbytes, sfu=0):
+def bound(ops, nbytes, sfu=0, fp32=FP32_OPS_PER_S):
     """(bound ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over their peak rates."""
-    t_ops = max(ops / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)
+    rate and the operations over their peak rates (FP32 at ``fp32``, the
+    data sheet's unless given)."""
+    t_ops = max(ops / fp32, sfu / SFU_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_str(ops, nbytes, sfu=0):
+    """The bound at the data sheet's FP32 peak and at the measured one
+    (phase 2b), for the log lines."""
+    ms, by = bound(ops, nbytes, sfu)
+    return (f"{ms:.4f} ({by}; "
+            f"{bound(ops, nbytes, sfu, MEASURED['fp32'])[0]:.4f} at the "
+            "measured peak)")
 
 
 def k1_bound_work(mode, lay, dplan, prm, counts=None):
@@ -644,7 +711,10 @@ def finish_stats(stats):
         b_ms, b_by = bound(s["ops"], s["bytes"], s["sfu"])
         out[name] = {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None}
+                     "bound_by": b_by, "library_ms": None,
+                     "bound_ms_measured_peak": bound(
+                         s["ops"], s["bytes"], s["sfu"],
+                         MEASURED["fp32"])[0]}
     return out
 
 
@@ -894,7 +964,8 @@ def phase_k2(dev, card):
     stats = {}
     add_stats(stats, "tud", err_max, k_ms, p_ms, ops, nbytes, sfu)
     out = finish_stats(stats)["tud"]
-    print(f"[4 K2] bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+    print(f"[4 K2] bound {out['bound_ms']:.4f} ms ({out['bound_by']}; "
+          f"{out['bound_ms_measured_peak']:.4f} ms at the measured peak: "
           f"{sfu:.4g} special-function ops at {SFU_OPS_PER_S:.4g}/s, "
           f"{ops:.4g} lane-ops at {FP32_OPS_PER_S:.4g}/s, {nbytes:.4g} B "
           f"at {HBM_BYTES_PER_S:.4g} B/s) [{card}]", flush=True)
@@ -1214,7 +1285,7 @@ def phase_xs_breakdown(dev, card):
               f"{m} x{sum(c[2] == m for c in fn.all_calls())}"
               for m in work) + f" [{card}]", flush=True)
     print("[8 bounds] per lattice, bound ms: " + ", ".join(
-        "{} {:.4f} ({})".format(m, *bound(*w)) for m, w in work.items())
+        f"{m} {bound_str(*w)}" for m, w in work.items())
         + f" [{card}]", flush=True)
 
 
@@ -1275,7 +1346,7 @@ def phase_breakdown(dev, card):
           + f"; plan (layer x slot x point) counts per mode {slot_points} "
           f"[{card}]", flush=True)
     print("[6 bounds] per member, K1 bound ms: " + ", ".join(
-        "{} {:.4f} ({})".format(m, *bound(*w)) for m, w in work.items())
+        f"{m} {bound_str(*w)}" for m, w in work.items())
         + f" [{card}]", flush=True)
 
 
@@ -1344,7 +1415,7 @@ def phase_jac_breakdown(dev, card):
     print("[6b jacobian batch] 8 one-hot T directions at full width, ms per "
           "stage: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; peak device memory of a batch {peak_gib:.3f} GiB; bound ms: "
-          + ", ".join("{} {:.4f} ({})".format(k, *bound(*w))
+          + ", ".join(f"{k} {bound_str(*w)}"
                       for k, w in work.items()) + f" [{card}]", flush=True)
 
 
@@ -1844,7 +1915,7 @@ def phase_ht_breakdown(dev, card):
             work[mode] = [w[0] + o, w[1] + b]
         print(f"[10 {label}] ms per stage: " + ", ".join(
             f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
-            + ", ".join("{} {:.4f} ({})".format(m, *bound(*w))
+            + ", ".join(f"{m} {bound_str(*w)}"
                         for m, w in work.items()) + f" [{card}]", flush=True)
     prm = jac.line_params(base.T, base.p, base.pl, base.vmr)
     tans = ht_od_tangents(jac, base, one_hot_batch(dev))
@@ -1867,34 +1938,310 @@ def phase_ht_breakdown(dev, card):
           f"params + tangents: median of 3, range {min(reads):.3f}-"
           f"{max(reads):.3f}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
-          + ", ".join("{} {:.4f} ({})".format(m, *bound(*w))
+          + ", ".join(f"{m} {bound_str(*w)}"
                       for m, w in work.items()) + f" [{card}]", flush=True)
 
 
+def phase_probe(dev, card):
+    """2b: the FP32 issue-rate probe (P1/P2) against its plain chains, then
+    the measured peak and the suite; the JSON entry's times and bound on one
+    fma_dep workload both versions run."""
+    props = torch.cuda.get_device_properties(dev)
+    n = props.multi_processor_count * props.max_threads_per_multi_processor
+    gen = torch.Generator().manual_seed(5)
+    eps = torch.finfo(torch.float32).eps
+    ab = dict(a=fp32_peak.CHECK_A, b=fp32_peak.CHECK_B)
+    err_max = 0.0
+    for name, op, nch in fp32_peak.SUITE:
+        y0 = (0.25 + 0.75 * torch.rand((n, nch), generator=gen)).to(dev)
+        for depth, iters in PROBE_CHECK:
+            got = fp32_peak.probe(op, depth, iters, y0, **ab)
+            want = fp32_peak.probe_plain(op, depth, iters, y0, **ab)
+            err = (got - want).abs()
+            ulps = (err / (eps * want.abs())).max().item()
+            err_max = max(err_max, err.max().item())
+            print(f"[2b probe {name}] {n} threads x {nch} chains x {depth} "
+                  f"x {iters} steps: max|kernel-plain| {err.max().item():.3e}"
+                  f" = {ulps:.3f} float32 ulps", flush=True)
+            check(ulps <= PROBE_ULPS, f"probe {name} at depth {depth}: "
+                  f"{ulps:.3f} ulps from its plain chains > {PROBE_ULPS}")
+    y0 = torch.full((n, 1), 0.5, device=dev)
+    work = lambda f: f("fma", fp32_peak.DEPTH, PROBE_WORK_ITERS, y0)  # noqa
+    k_ms, got = cuda_ms(lambda: work(fp32_peak.probe), 5)
+    p_ms, want = cuda_ms(lambda: work(fp32_peak.probe_plain), 1)
+    err = (got - want).abs().max().item()
+    ulps = ((got - want).abs() / (eps * want.abs())).max().item()
+    check(ulps <= PROBE_ULPS, f"probe fma_dep workload: {ulps:.3f} ulps")
+    steps = n * fp32_peak.DEPTH * PROBE_WORK_ITERS
+    print(f"[2b probe] fma_dep workload ({n} threads x "
+          f"{fp32_peak.DEPTH * PROBE_WORK_ITERS} steps): kernel {k_ms:.4f} "
+          f"ms, plain {p_ms:.3f} ms, {ulps:.3f} ulps [{card}]", flush=True)
+    fp32_peak.LAUNCHES.clear()
+    peak, which = fp32_peak.measured_fp32_peak(dev)
+    suite = fp32_peak.probe_suite(dev)
+    launches = fp32_peak.LAUNCHES["fp32_peak_probe"]
+    MEASURED["fp32"] = peak
+    for rec in suite:
+        print(f"[2b suite] {json.dumps(rec)}", flush=True)
+    print(f"[2b peak] measured FP32 peak {peak:.6g} ops/s ({which}) = "
+          f"{peak / FP32_OPS_PER_S:.4f} of the data sheet's "
+          f"{FP32_OPS_PER_S:.4g}; {launches} probe launches; every bound "
+          f"below is stated at both [{card}]", flush=True)
+    stats = {}
+    add_stats(stats, "probe", max(err_max, err), k_ms, p_ms,
+              2 * steps, 8 * n)
+    return {"launches": launches, **finish_stats(stats)["probe"]}
+
+
+def unfused_case(dev, band, dtype=torch.float32):
+    """The prebuilt-plan route's inputs on ``band``, in compute_od_layers's
+    order: the derived list with the CLI's margin, the partition tables, the
+    axis and the standard atmosphere."""
+    store = derived_lwir_linelist(band[0] - MARGIN, band[1] + MARGIN,
+                                  device=dev, dtype=dtype)
+    iso = IsoTables.load(device=dev, dtype=dtype)
+    base = std_atmosphere(device=dev, dtype=dtype)
+    X = arange_drift_free(*band)
+    return store, iso, X, base
+
+
+def k7_bound_work(mode, plan, prm):
+    """(lane-ops, bytes) one K7 launch needs on these inputs: the in-window
+    evaluations of every (layer, line) pair over the whole grid (every tile
+    a window touches visits the line's block), at their region's hand count
+    (the header of csrc/fused_xsect.cu), as for K1; each parameter of each
+    line, each slot and each output element once."""
+    n_lay, n_lines = prm.strength.shape
+    dplan = fused_xsect.device_plan(plan, np.arange(n_lines), None,
+                                    device="cpu")
+    whole = dataclasses.replace(
+        dplan, tile=dplan.n_out, n_tiles=1,
+        starts=torch.zeros(1, dtype=torch.int32),
+        counts=torch.tensor([plan.n_blocks], dtype=torch.int32))
+    lay = torch.arange(n_lay, dtype=torch.int32)
+    if mode in SIMPLE_OPS:
+        return xs_bound_work(mode, lay, whole, prm)
+    return k1_bound_work(mode, lay, whole, prm)
+
+
+def event_ms(fn):
+    """Milliseconds of one call of ``fn`` (CUDA events, no warm-up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def phase_unfused_sub(dev, card):
+    """3e: K7 in each mode against its plain version on make_od_plan's
+    shared-block plan over the sub-band (derived list, 66 layers); a packed
+    plan against the shared one."""
+    store, iso, X, base = unfused_case(dev, SUB_BAND)
+    plan = make_od_plan(store, iso, X, base)
+    cols = _line_species_cols(store.host_view(), base.mol_ids)
+    prm = {p: layer_line_params(store, iso, base, cols, profile=p)
+           for p in ("voigt", "lorentz", "doppler")}
+    prm_of = lambda m: prm[m if m in SIMPLE_OPS else "voigt"]  # noqa
+    launch = lambda m: fused_xsect.xsect_unfused(plan, prm_of(m), m)  # noqa
+    reset_launches()        # one counted direct launch of each mode
+    for m in K7_MODES:
+        launch(m)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    timed = time_kernels((f"K7 {m}", lambda m=m: launch(m))
+                         for m in K7_MODES)
+    runs = {}
+    for m, (k_ms, k_out) in zip(K7_MODES, timed):
+        p_ms, p_out = event_ms(lambda m=m: fused_xsect.xsect_unfused_plain(
+            plan, prm_of(m), m))
+        runs[m] = (k_ms, k_out, p_ms, p_out)
+    od_peak = runs["full"][3].abs().max().item()
+    stats = {}
+    for m, (k_ms, k_out, p_ms, p_out) in runs.items():
+        own = p_out.abs().max().item()
+        check(own > 0.0, f"K7 {m}: the plain pass is zero on the band")
+        err = (k_out - p_out).abs().max().item()
+        peak = own if m in SIMPLE_OPS else od_peak
+        rel, rel_own = err / peak, err / own
+        print(f"[3e K7 {m}] 66 layers x {X.size} points, tile {plan.tile} "
+              f"block {plan.block}, {plan.n_tiles} tiles, max blocks "
+              f"{plan.max_blocks}: max|kernel-plain| {err:.3e} = {rel:.3e} "
+              f"of the OD peak {peak:.4e} = {rel_own:.3e} of its own peak "
+              f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+              f"[{card}]", flush=True)
+        check(rel <= K1_BOUND, f"K7 {m}: {rel:.3e} of the OD peak > "
+              f"{K1_BOUND}")
+        check(rel_own <= XS_OWN_BOUND[m], f"K7 {m}: {rel_own:.3e} of its own "
+              f"peak > {XS_OWN_BOUND[m]}")
+        add_stats(stats, m, err, k_ms, p_ms,
+                  *k7_bound_work(m, plan, prm_of(m)))
+    packed = fused_xsect.plan_buckets_packed(
+        store.host_view().nu0, plan.grid, plan.max_wing, tile=plan.tile,
+        block="auto")
+    got = fused_xsect.xsect_unfused(packed, prm["voigt"])
+    rel = (got - runs["full"][1]).abs().max().item() / od_peak
+    print(f"[3e K7 packed] full on a packed plan (block {packed.block}, "
+          f"{packed.n_blocks} blocks) against the shared one: {rel:.3e} of "
+          f"peak", flush=True)
+    check(rel <= K7_PACKED_BOUND, f"K7 packed plan: {rel:.3e} of peak > "
+          f"{K7_PACKED_BOUND}")
+    return finish_stats(stats), launches
+
+
+def members(base, n):
+    """``n`` perturbed states as ``run_tud`` draws them (seed 0)."""
+    draws = ensemble_draws(n, 0)
+    return [dataclasses.replace(base, **dict(zip(
+        ("T", "vmr"), ensemble_member(base, draws, i)))) for i in range(n)]
+
+
+def phase_od_layers(dev, card):
+    """11: compute_od_layers on the prebuilt-plan route at full width, with
+    the launch counts reset before and read after (K7 must have run, K1 and
+    K2 not); against make_od_fn on the base state; where its time goes;
+    then a 5 cm^-1 band on the card and on the CPU in float64."""
+    store, iso, X, base = unfused_case(dev, FULL_BAND)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = make_od_plan(store, iso, X, base)
+    build_s = time.perf_counter() - t0
+    n_cnt = int(plan.counts.sum())
+    print(f"[11 route] {len(store)} lines, 66 layers, {X.size} points: "
+          f"make_od_plan {build_s:.3f} s: max_wing {plan.max_wing:.6g} "
+          f"cm^-1, tile {plan.tile}, block {plan.block}, {plan.n_tiles} "
+          f"tiles, {plan.n_blocks} blocks, max blocks {plan.max_blocks}, "
+          f"sum of counts {n_cnt}: {66 * n_cnt * plan.block * plan.tile:.4g}"
+          f" slot-points a call", flush=True)
+    states = members(base, OD_LAYERS_MEMBERS)
+    route = lambda st: compute_od_layers(  # noqa: E731
+        store, iso, X, st, engine="pallas", plan=plan, continuum="mt_ckd")
+    reset_launches()
+    secs, lo, hi = [], np.inf, -np.inf
+    for st in states:
+        t1 = time.perf_counter()
+        od = route(st)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        check(od.shape == (66, X.size), f"route OD shape {tuple(od.shape)}")
+        check(bool(torch.isfinite(od).all()), "route OD has non-finite "
+              "values")
+        lo, hi = min(lo, od.min().item()), max(hi, od.max().item())
+        check(lo >= 0.0, f"route OD below zero: {lo}")
+        del od
+    launches = read_launches()
+    print(f"[11 route] launches during {len(states)} members: "
+          f"{dict(launches)}", flush=True)
+    check(launches["unfused_full"] == len(states), "K7 was not launched "
+          "once a member by the route")
+    check(not [k for k, v in launches.items() if v and k != "unfused_full"],
+          "the route launched another kernel than K7")
+    print(f"[11 route] {len(states)} members, OD in [{lo:.4g}, {hi:.4g}]: "
+          f"{['%.4f s' % t for t in secs]} a member (wall, synchronised) "
+          f"[{card}]", flush=True)
+
+    # against the production builder on the base state
+    od_route = route(base)
+    od_fn = make_od_fn(store, iso, X, base, continuum="mt_ckd")
+    od_b = od_fn(base.T, base.p, base.pl, base.vmr)
+    rel = (od_route - od_b).abs().max().item() / od_b.abs().max().item()
+    print(f"[11 route] base state against make_od_fn(continuum='mt_ckd'): "
+          f"{rel:.3e} of peak {od_b.abs().max().item():.4e}", flush=True)
+    check(rel <= ROUTE_VS_BUILDER, f"route vs make_od_fn: {rel:.3e} > "
+          f"{ROUTE_VS_BUILDER}")
+    del od_route, od_b, od_fn
+
+    # where a member's time goes, K7 against its plain version
+    cols = _line_species_cols(store.host_view(), base.mol_ids)
+    ms = {}
+    ms["line params"], prm = cuda_ms(
+        lambda: layer_line_params(store, iso, base, cols), 3)
+    ms["K7 full"], k_out = cuda_ms(
+        lambda: fused_xsect.xsect_unfused(plan, prm), 3)
+    nu = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    ms["continuum"], _ = cuda_ms(lambda: continuum_od(nu, base, "mt_ckd"), 3)
+    ms["route"], _ = cuda_ms(lambda: route(base), 3)
+    p_ms, p_out = event_ms(lambda: fused_xsect.xsect_unfused_plain(plan,
+                                                                   prm))
+    err = (k_out - p_out).abs().max().item()
+    rel = err / p_out.abs().max().item()
+    check(rel <= K1_BOUND, f"K7 full at full width: {rel:.3e} of peak > "
+          f"{K1_BOUND}")
+    del p_out
+    work = k7_bound_work("full", plan, prm)
+    print(f"[11 breakdown] base state, ms per stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; K7 full vs plain {rel:.3e} of peak, plain {p_ms:.3f} ms; K7 "
+          f"bound ms {bound_str(*work)} [{card}]", flush=True)
+    stats = {}
+    add_stats(stats, "full", err, ms["K7 full"], p_ms, *work)
+
+    # a 5 cm^-1 band: the card against the CPU's float64 plain run, and the
+    # production builder against the same float64 reference
+    small = unfused_case(dev, OD_LAYERS_SMALL)
+    gpu = compute_od_layers(*small, engine="pallas",
+                            plan=make_od_plan(*small), continuum="mt_ckd")
+    gpu_b = make_od_fn(*small, continuum="mt_ckd")(
+        small[3].T, small[3].p, small[3].pl, small[3].vmr)
+    t1 = time.perf_counter()
+    ref64 = unfused_case("cpu", OD_LAYERS_SMALL, torch.float64)
+    ref = compute_od_layers(*ref64, engine="pallas",
+                            plan=make_od_plan(*ref64), continuum="mt_ckd")
+    cpu_s = time.perf_counter() - t1
+    peak = ref.abs().max().item()
+    rel = (gpu.cpu().double() - ref).abs().max().item() / peak
+    rel_b = (gpu_b.cpu().double() - ref).abs().max().item() / peak
+    print(f"[11 slice] {OD_LAYERS_SMALL[0]:g}-{OD_LAYERS_SMALL[1]:g} cm^-1, "
+          f"66 layers: the route on the card against the CPU's float64 plain"
+          f" run ({cpu_s:.1f} s) {rel:.3e} of peak; make_od_fn on the card "
+          f"against it {rel_b:.3e}", flush=True)
+    check(rel <= K1_BOUND, f"route card vs CPU float64: {rel:.3e} > "
+          f"{K1_BOUND}")
+    check(rel_b <= K1_BOUND, f"make_od_fn card vs CPU float64: {rel_b:.3e} "
+          f"> {K1_BOUND}")
+    return finish_stats(stats)["full"], launches
+
+
 def main():
-    card, name = phase_device()
+    t0 = time.perf_counter()
+
+    def run(phase, *args):
+        """One phase, then the seconds since the start on a line of its
+        own (the script's time limit is the sum)."""
+        out = phase(*args)
+        print(f"[t] {phase.__name__} done at {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        return out
+
+    card, name = run(phase_device)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    run(phase_build)
     warm_up(dev)
-    k1 = phase_k1(dev, card)
-    k1d = phase_k1_diff(dev, card)
-    xs_stats, full_launches = phase_xs_sub(dev, card)
-    ht_stats = phase_ht_sub(dev, card)
-    k2 = phase_k2(dev, card)
-    launches = phase_main(card)
-    jac_launches = phase_jacobian(card)
-    xs_launches = {**phase_xs_main(dev, card),
+    probe = run(phase_probe, dev, card)
+    k1 = run(phase_k1, dev, card)
+    k1d = run(phase_k1_diff, dev, card)
+    xs_stats, full_launches = run(phase_xs_sub, dev, card)
+    ht_stats = run(phase_ht_sub, dev, card)
+    k7, k7_launches = run(phase_unfused_sub, dev, card)
+    k2 = run(phase_k2, dev, card)
+    launches = run(phase_main, card)
+    jac_launches = run(phase_jacobian, card)
+    xs_launches = {**run(phase_xs_main, dev, card),
                    **{m: full_launches[m] for m in ("corr:64:voigtfull",
                                                     "corr:64:sdvoigtfull")}}
-    ht_launches = phase_ht_lattice(dev, card)
-    phase_ht_layered(dev, card)
-    ht_jac_launches = phase_ht_jacobian(dev, card)
-    phase_sdvoigt_jacobian(dev, card)
-    phase_breakdown(dev, card)
-    phase_jac_breakdown(dev, card)
-    phase_xs_breakdown(dev, card)
-    phase_ht_breakdown(dev, card)
+    ht_launches = run(phase_ht_lattice, dev, card)
+    run(phase_ht_layered, dev, card)
+    ht_jac_launches = run(phase_ht_jacobian, dev, card)
+    run(phase_sdvoigt_jacobian, dev, card)
+    k7["full"], route_launches = run(phase_od_layers, dev, card)
+    run(phase_breakdown, dev, card)
+    run(phase_jac_breakdown, dev, card)
+    run(phase_xs_breakdown, dev, card)
+    run(phase_ht_breakdown, dev, card)
     src = "radtxfr_tpu_torch/csrc/"
     xs = "radtxfr_tpu/kernels/pallas_xsect.py:"
     kernels = [
@@ -1925,6 +2272,15 @@ def main():
                     "replaces": xs + "1324",
                     "launches": ht_jac_launches["sdvoigt_jvp"],
                     **ht_stats["sdvoigt_jvp"]})
+    kernels += [{"name": f"unfused_xsect_{m}", "route": "cuda",
+                 "source": src + "fused_xsect.cu", "replaces": xs + "659",
+                 "launches": (route_launches if m == "full"
+                              else k7_launches)[f"unfused_{m}"], **k7[m]}
+                for m in K7_MODES]
+    kernels.append({"name": "fp32_peak_probe", "route": "cuda",
+                    "source": src + "peak_probe.cu",
+                    "replaces": "bench.py:193, tools/vpu_peak_probe.py:62",
+                    **probe})
     kernels.append({"name": "fused_tud", "route": "cuda",
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",

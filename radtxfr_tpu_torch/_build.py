@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 #: argument types of every C entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
@@ -44,6 +45,13 @@ _SIGNATURES = {
     "radtxfr_fused_xsect": [I, I, P, P, P, P, P, P, P, I, P, P, P, P, P, P,
                             P, I, P, I, I, I, I, I, I, ctypes.c_double, P,
                             P],
+    # mode, starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay,
+    # shift0, strength, gamma_d, gamma_0, wing, n_lines, wei, n_wei, tile,
+    # block, n_tiles, n_out, dx, out, stream
+    "radtxfr_unfused_xsect": [I, P, P, P, P, P, P, P, I, P, P, P, P, P, I,
+                              P, I, I, I, I, I, ctypes.c_double, P, P],
+    # op, n_chains, depth, y0, a, b, iters, n, out, stream
+    "radtxfr_fp32_probe": [I, I, I, P, F, F, I, I, P, P],
     # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
     # lay_live, shift0, strength, gamma_d, gamma_0, wing, shift0_t,
     # strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines, wei, n_wei,

@@ -1,16 +1,25 @@
-"""Layered MT_CKD-formulation continuum (counterpart of
-``radtxfr_tpu/atmos/continuum.py``: the packaged water-vapour tables,
-``make_layered_mt_ckd`` and ``check_h2o_table_coverage``).
+"""Continuum absorption: additive models, MT_CKD-class default
+(counterpart of ``radtxfr_tpu/atmos/continuum.py``: the packaged
+water-vapour tables, :func:`continuum_od` with the pointwise models of
+:data:`CONTINUUM_MODELS` and :func:`register_continuum`,
+:func:`make_layered_mt_ckd` and :func:`check_h2o_table_coverage`).
 
 The 'mt_ckd' composite of the reference's LBLRTM ``ICNTNM=6`` production
 setup (``radiative_transfer.py:591-601,622``): the table-driven H2O
 self+foreign continuum in MT_CKD's formulation (two-table exponential
 temperature law), the constructed CO2 far-wing continuum
 (:mod:`.far_wing`), N2/O2 collision-induced bands and Rayleigh, with the
-7-element TAPE5 record-1.2a scale factors ``cf``. The H2O tables are the
-JAX package's literature-anchored reconstruction (see its module
-docstring for provenance); loading AER's coefficient file and the
-pointwise continuum models are not ported yet.
+7-element TAPE5 record-1.2a scale factors ``cf``; 'none' (hapi parity),
+'h2o_empirical' (Roberts et al. 1976), 'rayleigh' and 'empirical' (the
+two). The H2O tables are the JAX package's literature-anchored
+reconstruction (see its module docstring for provenance); loading AER's
+coefficient file (``load_mt_ckd_tables``, ``set_h2o_tables``) is not
+ported yet.
+
+The pointwise models take the layers as a batch dimension written out:
+``fn(nu, T, p_pa, vmr, mol_ids, pl_km, cf)`` with ``nu`` (nX,), ``T``,
+``p_pa`` and ``pl_km`` (nLay, 1), ``vmr`` (nLay, nM) returns the
+(nLay, nX) OD, the JAX models' per-layer forms under ``vmap``.
 """
 
 from __future__ import annotations
@@ -22,10 +31,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.constants import (BARYE_PER_ATM, C2_CM_K, CM_PER_KM,
-                              K_BOLTZMANN_CGS, PA_PER_ATM)
+from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, K_BOLTZMANN_CGS,
+                              PA_PER_ATM)
 
-__all__ = ["H2OContinuumTables", "H2O_CONTINUUM_LWIR", "make_layered_mt_ckd",
+__all__ = ["H2OContinuumTables", "H2O_CONTINUUM_LWIR", "continuum_od",
+           "register_continuum", "CONTINUUM_MODELS", "make_layered_mt_ckd",
            "LAYERED_CONTINUUM_FACTORIES", "check_h2o_table_coverage"]
 
 
@@ -126,6 +136,234 @@ H2O_CONTINUUM_LWIR = H2OContinuumTables(
 )
 
 
+def _interp(x, xp, fp):
+    """Piecewise-linear interpolation of ``fp`` (..., n) at ``x`` (nX,),
+    held constant beyond the ends (``jnp.interp``'s formula):
+    (..., nX)."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.numel() - 1)
+    lo, hi = fp[..., i - 1], fp[..., i]
+    f = lo + ((x - xp[i - 1]) / (xp[i] - xp[i - 1])) * (hi - lo)
+    f = torch.where(x < xp[0], fp[..., :1], f)
+    return torch.where(x > xp[-1], fp[..., -1:], f)
+
+
+def _interp_log(nu, table_nu, table_c):
+    """Log-space linear interpolation (coefficients vary exponentially)."""
+    t = lambda a: torch.as_tensor(a, dtype=nu.dtype, device=nu.device)
+    return torch.exp(_interp(nu, t(table_nu), torch.log(t(table_c))))
+
+
+def _n_h2o(T, p_pa, x):
+    """H2O number density [molec/cm^3]."""
+    p_barye = (p_pa / PA_PER_ATM) * BARYE_PER_ATM
+    return x * p_barye / (K_BOLTZMANN_CGS * T)
+
+
+def _mol_x(vmr, mol_ids, mol):
+    """The (nLay, 1) vmr column of HITRAN molecule ``mol``, or None."""
+    mol_ids = tuple(mol_ids)
+    return vmr[:, mol_ids.index(mol), None] if mol in mol_ids else None
+
+
+def _zeros(nu, T):
+    return torch.zeros((T.shape[0], nu.shape[0]), dtype=nu.dtype,
+                       device=nu.device)
+
+
+def _mt_ckd_h2o(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """Table-driven H2O self+foreign continuum (MT_CKD formulation)."""
+    x = _mol_x(vmr, mol_ids, 1)
+    if x is None:
+        return _zeros(nu, T)
+    tab = H2O_CONTINUUM_LWIR
+    cs296 = _interp_log(nu, tab.nu, tab.cs296)
+    cs260 = _interp_log(nu, tab.nu, tab.cs260)
+    cfor = _interp_log(nu, tab.nu, tab.cf)
+    # MT_CKD two-table exponential temperature inter/extrapolation
+    cs = cs296 * (cs260 / cs296) ** ((296.0 - T) / 36.0)
+    return _self_foreign_od(cs, cfor, x, T, p_pa, pl_km, cf)
+
+
+def _self_foreign_od(cs, cfor, x, T, p_pa, pl_km, cf):
+    """H2O continuum OD (TAPE5 slots 1 and 2) from the self and foreign
+    coefficients ``cs`` and ``cfor`` [cm^2 molec^-1 atm^-1] at the water
+    column ``x``: (cs e + cfor (p - e)) n_H2O path, e = x p."""
+    p_atm = p_pa / PA_PER_ATM
+    e_atm = x * p_atm
+    k = cs * cf[0] * e_atm + cfor * cf[1] * (p_atm - e_atm)
+    return k * _n_h2o(T, p_pa, x) * pl_km * CM_PER_KM
+
+
+def _zero(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    return _zeros(nu, T)
+
+
+def _h2o_empirical(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """Closed-form Roberts/Selby/Biberman (1976) LWIR H2O continuum:
+    C_s(nu, 296 K) = a + b exp(-beta nu), a = 4.18, b = 5578 cm^2 g^-1
+    atm^-1, beta = 7.87e-3 cm, per molecule; exp(T0 (1/T - 1/296)) with
+    T0 = 1800 K; foreign fraction 0.002 of the 296 K self coefficient."""
+    x = _mol_x(vmr, mol_ids, 1)
+    if x is None:
+        return _zeros(nu, T)
+    g_per_molec = 18.015 / 6.02214076e23
+    a, b, beta = 4.18 * g_per_molec, 5578.0 * g_per_molec, 7.87e-3
+    To = 1800.0
+    cs296 = a + b * torch.exp(-beta * nu)
+    cs = cs296 * torch.exp(To * (1.0 / T - 1.0 / 296.0))
+    return _self_foreign_od(cs, 0.002 * cs296, x, T, p_pa, pl_km, cf)
+
+
+def _rayleigh_sigma(nu):
+    """The long-wavelength molecular scattering cross-section [cm^2]
+    24 pi^3 nu^4 / N_s^2 ((n^2-1)/(n^2+2))^2 F_k (Bodhaine et al. 1999),
+    regrouped as (nu^2/N_s)^2 so that float32 does not overflow; ``nu`` a
+    NumPy array or a tensor."""
+    n_s = 2.546899e19            # molec/cm^3 at 288.15 K, 1013.25 hPa
+    n_ref = 1.0 + 2.79e-4        # dry air, long-wavelength limit
+    f_k = 1.061
+    lorentz = (n_ref**2 - 1.0) / (n_ref**2 + 2.0)
+    return 24.0 * np.pi**3 * (nu * nu / n_s)**2 * lorentz**2 * f_k
+
+
+def _rayleigh_od(sigma, T, p_pa, pl_km, cf):
+    """Rayleigh extinction OD (TAPE5 slot 7) of the cross-section
+    ``sigma``."""
+    n_air = (p_pa * 10.0) / (K_BOLTZMANN_CGS * T)   # molec/cm^3 (Pa->barye)
+    return cf[6] * sigma * n_air * pl_km * CM_PER_KM
+
+
+def _rayleigh(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """Rayleigh extinction OD (TAPE5 slot 7)."""
+    return _rayleigh_od(_rayleigh_sigma(nu), T, p_pa, pl_km, cf)
+
+
+def _co2_farwing(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """CO2 nu2-wing continuum (TAPE5 slot 3) from the chi-corrected
+    far-wing table (:func:`.far_wing.co2_continuum_table`), linear in T
+    between its rows."""
+    x = _mol_x(vmr, mol_ids, 2)
+    if x is None:
+        return _zeros(nu, T)
+    from .far_wing import co2_continuum_table
+
+    t = lambda a: torch.as_tensor(a, dtype=nu.dtype, device=nu.device)
+    nu_tab, t_tab, c_tab = (t(a) for a in co2_continuum_table())
+    c = _interp(nu, nu_tab, _co2_rows(T[:, 0], t_tab, c_tab))
+    return _co2_od(c, x, T, p_pa, pl_km, cf)
+
+
+def _co2_rows(T, t_tab, c_tab):
+    """The far-wing table's rows ``c_tab`` (nT, n) at the layers' ``T``
+    (nLay,), linear in T between the rows ``t_tab`` and held at the ends:
+    (nLay, n)."""
+    i = torch.clamp(torch.searchsorted(t_tab, T) - 1, 0, t_tab.numel() - 2)
+    w = torch.clamp((T - t_tab[i]) / (t_tab[i + 1] - t_tab[i]), 0.0,
+                    1.0)[:, None]
+    return (1.0 - w) * c_tab[i] + w * c_tab[i + 1]
+
+
+def _co2_od(c, x, T, p_pa, pl_km, cf):
+    """CO2 continuum OD (TAPE5 slot 3) of the coefficient ``c`` [cm^2
+    molec^-1 atm^-1] at the CO2 column ``x``."""
+    p_atm = p_pa / PA_PER_ATM
+    n_co2 = x * p_atm * BARYE_PER_ATM / (K_BOLTZMANN_CGS * T)
+    return cf[2] * c * n_co2 * p_atm * pl_km * CM_PER_KM
+
+
+def _cia(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """N2 rototranslational + O2 fundamental collision-induced absorption
+    (TAPE5 slots 6 and 5), amagat-squared density scaling."""
+    from .far_wing import cia_n2_rototranslational, cia_o2_fundamental
+
+    return _cia_od(cia_n2_rototranslational(nu, T),
+                   cia_o2_fundamental(nu, T), T, p_pa, vmr, mol_ids, pl_km,
+                   cf)
+
+
+def _cia_od(c_n2, c_o2, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """CIA OD (TAPE5 slots 6 and 5) of the N2 and O2 coefficients [cm^-1
+    amagat^-2], amagat-squared density scaling; the standard N2 and O2
+    columns where the atmosphere carries none."""
+    p_atm = p_pa / PA_PER_ATM
+    rho_air = p_atm * (273.15 / T)                # amagat
+    x_n2 = _mol_x(vmr, mol_ids, 22)
+    x_o2 = _mol_x(vmr, mol_ids, 7)
+    x_n2 = 0.7808 if x_n2 is None else x_n2
+    x_o2 = 0.2095 if x_o2 is None else x_o2
+    path_cm = pl_km * CM_PER_KM
+    return ((cf[5] * c_n2 * x_n2 + cf[4] * c_o2 * x_o2)
+            * rho_air * rho_air * path_cm)
+
+
+def _mt_ckd(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """The 'mt_ckd' production model: every TAPE5 record-1.2a slot but O3
+    (slot 4, a UV/visible continuum with no LWIR term): H2O self+foreign
+    tables, the CO2 far-wing continuum, O2/N2 CIA, Rayleigh."""
+    return (_mt_ckd_h2o(nu, T, p_pa, vmr, mol_ids, pl_km, cf)
+            + _co2_farwing(nu, T, p_pa, vmr, mol_ids, pl_km, cf)
+            + _cia(nu, T, p_pa, vmr, mol_ids, pl_km, cf)
+            + _rayleigh(nu, T, p_pa, vmr, mol_ids, pl_km, cf))
+
+
+def _empirical(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
+    """Closed-form empirical terms (Roberts H2O + Rayleigh)."""
+    return (_h2o_empirical(nu, T, p_pa, vmr, mol_ids, pl_km, cf)
+            + _rayleigh(nu, T, p_pa, vmr, mol_ids, pl_km, cf))
+
+
+#: the pointwise models by name (see the module docstring for their form)
+CONTINUUM_MODELS = {
+    "none": _zero,
+    "mt_ckd": _mt_ckd,
+    "h2o_empirical": _h2o_empirical,
+    "rayleigh": _rayleigh,
+    "empirical": _empirical,
+}
+
+
+def register_continuum(name: str, fn) -> None:
+    """Register a model fn(nu, T, p_pa, vmr, mol_ids, pl_km, cf) -> OD,
+    layers batched as in the module docstring."""
+    CONTINUUM_MODELS[name] = fn
+
+
+def continuum_factors_tensor(continuum_factors, model, dtype, device):
+    """The 7 TAPE5 record-1.2a scale factors as a tensor (all ones by
+    default); raises on another length and warns where 'mt_ckd' is given
+    an O3 factor, whose slot it leaves at zero."""
+    if continuum_factors is None:
+        return torch.ones(7, dtype=dtype, device=device)
+    cf_host = np.asarray(continuum_factors, dtype=np.float64)
+    if cf_host.shape != (7,):
+        raise ValueError(
+            f"continuum_factors must have exactly 7 elements (TAPE5 record "
+            f"1.2a convention), got shape {cf_host.shape}")
+    if model == "mt_ckd" and cf_host[3] not in (0.0, 1.0):
+        warnings.warn(
+            "continuum_factors[3] scales the O3 continuum slot, which is "
+            "zero in 'mt_ckd' (LBLRTM's O3 continuum is a UV/visible "
+            "electronic term with no LWIR part): the factor has no effect",
+            stacklevel=3)
+    return torch.as_tensor(cf_host, dtype=dtype, device=device)
+
+
+def continuum_od(nu, atmos, model: str = "none", continuum_factors=None):
+    """Additive continuum OD (nLayers, nX) of a layered atmosphere by the
+    pointwise model ``model``, on the device of ``atmos`` in the dtype of
+    ``nu`` (an axis [cm^-1]); ``continuum_factors`` follows the
+    reference's 7-element TAPE5 scale factors (all ones by default)."""
+    fn = CONTINUUM_MODELS[model]
+    dev = atmos.T.device
+    nu = torch.as_tensor(nu, device=dev)
+    if model == "mt_ckd":
+        check_h2o_table_coverage(float(nu.min()), float(nu.max()))
+    cf = continuum_factors_tensor(continuum_factors, model, nu.dtype, dev)
+    col = lambda a: a.to(nu.dtype)[:, None]  # noqa: E731
+    return fn(nu, col(atmos.T), col(atmos.p), atmos.vmr.to(nu.dtype),
+              atmos.mol_ids, col(atmos.pl), cf)
+
+
 def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
                         tables: H2OContinuumTables = H2O_CONTINUUM_LWIR):
     """Layer-hoisted evaluator of the 'mt_ckd' composite.
@@ -136,10 +374,14 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     (None: the card) in ``dtype``; the returned
     ``fn(T, p_pa, pl_km, vmr, cf) -> (nLay, nX)``
     does one exp per (layer, point) for the H2O temperature law plus
-    broadcast algebra. Same operations, in the same order, as
-    ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``.
+    broadcast algebra. The formulas of
+    ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``, each written once
+    with the pointwise models (the OD helpers ``_self_foreign_od``,
+    ``_co2_od``, ``_cia_od``, ``_rayleigh_od`` and the coefficients of
+    :mod:`.far_wing`).
     """
-    from .far_wing import co2_continuum_table
+    from .far_wing import (cia_n2_rototranslational, cia_o2_band,
+                           cia_o2_gaussian, co2_continuum_table)
 
     device = resolve_device(device)
     nu_h = np.asarray(nu, dtype=np.float64)
@@ -150,62 +392,30 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     cfor = np.exp(np.interp(nu_h, tn, np.log(tables.cf)))
     nu_tab, t_tab, c_tab = co2_continuum_table()
     ctab = np.stack([np.interp(nu_h, nu_tab, r) for r in c_tab])
-    n_s = 2.546899e19
-    n_ref = 1.0 + 2.79e-4
-    lorentz = (n_ref**2 - 1.0) / (n_ref**2 + 2.0)
-    sigma = 24.0 * np.pi**3 * (nu_h * nu_h / n_s)**2 * lorentz**2 * 1.061
-    d_o2 = nu_h - 1556.0
-    core_o2 = np.exp(-0.5 * (d_o2 / 110.0) ** 2)
+    d_o2, core_o2 = cia_o2_gaussian(nu_h)
 
     j = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    L296j, dLj, cforj = j(L296)[None, :], j(dL)[None, :], j(cfor)[None, :]
+    row = lambda a: j(a)[None, :]
+    L296j, dLj, cforj = row(L296), row(dL), row(cfor)
     ctabj, t_tabj = j(ctab), j(t_tab)
-    sigmaj, d_o2j = j(sigma)[None, :], j(d_o2)[None, :]
-    core_o2j, abs_nuj = j(core_o2)[None, :], j(np.abs(nu_h))[None, :]
-
-    def idx(mol):
-        return mol_ids.index(mol) if mol in mol_ids else None
-
-    i_h2o, i_co2, i_n2, i_o2 = idx(1), idx(2), idx(22), idx(7)
+    sigmaj, abs_nuj = row(_rayleigh_sigma(nu_h)), row(np.abs(nu_h))
+    d_o2j, core_o2j = row(d_o2), row(core_o2)
 
     def fn(T, p_pa, pl_km, vmr, cf):
         Tc, pc, plc = T[:, None], p_pa[:, None], pl_km[:, None]
-        p_atm = pc / PA_PER_ATM
         out = 0.0
-        if i_h2o is not None:
-            x = vmr[:, i_h2o][:, None]
-            a = (296.0 - Tc) / 36.0
-            cs = torch.exp(L296j + a * dLj)
-            e = x * p_atm
-            n_h2o = x * p_atm * BARYE_PER_ATM / (K_BOLTZMANN_CGS * Tc)
-            out = out + ((cs * cf[0] * e + cforj * cf[1] * (p_atm - e))
-                         * n_h2o * plc * CM_PER_KM)
-        if i_co2 is not None:
-            i = torch.clamp(torch.searchsorted(t_tabj, T) - 1, 0,
-                            t_tabj.numel() - 2)
-            w = torch.clamp((T - t_tabj[i]) / (t_tabj[i + 1] - t_tabj[i]),
-                            0.0, 1.0)[:, None]
-            row = (1.0 - w) * ctabj[i] + w * ctabj[i + 1]
-            n_co2 = (vmr[:, i_co2][:, None] * p_atm * BARYE_PER_ATM
-                     / (K_BOLTZMANN_CGS * Tc))
-            out = out + cf[2] * row * n_co2 * p_atm * plc * CM_PER_KM
-        # CIA (N2 rototranslational + O2 fundamental)
-        rho = p_atm * (273.15 / Tc)
-        nu_p = 55.0 * torch.sqrt(Tc / 296.0)
-        xx = abs_nuj / nu_p
-        c_n2 = (1.1e-6 * (296.0 / Tc) ** 1.5 * xx * xx * torch.exp(-xx)
-                * (np.e ** 2 / 4.0))
-        red = torch.where(d_o2j < 0,
-                          torch.exp(C2_CM_K * d_o2j / (2.0 * Tc)),
-                          torch.ones((), dtype=dtype, device=T.device))
-        c_o2 = 2.0e-7 * (296.0 / Tc) * core_o2j * red
-        x_n2 = 0.7808 if i_n2 is None else vmr[:, i_n2][:, None]
-        x_o2 = 0.2095 if i_o2 is None else vmr[:, i_o2][:, None]
-        out = out + ((cf[5] * c_n2 * x_n2 + cf[4] * c_o2 * x_o2)
-                     * rho * rho * plc * CM_PER_KM)
-        # Rayleigh
-        n_air = (pc * 10.0) / (K_BOLTZMANN_CGS * Tc)
-        return out + cf[6] * sigmaj * n_air * plc * CM_PER_KM
+        x = _mol_x(vmr, mol_ids, 1)
+        if x is not None:
+            cs = torch.exp(L296j + (296.0 - Tc) / 36.0 * dLj)
+            out = out + _self_foreign_od(cs, cforj, x, Tc, pc, plc, cf)
+        x = _mol_x(vmr, mol_ids, 2)
+        if x is not None:
+            out = out + _co2_od(_co2_rows(T, t_tabj, ctabj), x, Tc, pc, plc,
+                                cf)
+        out = out + _cia_od(cia_n2_rototranslational(abs_nuj, Tc),
+                            cia_o2_band(d_o2j, core_o2j, Tc), Tc, pc, vmr,
+                            mol_ids, plc, cf)
+        return out + _rayleigh_od(sigmaj, Tc, pc, plc, cf)
 
     return fn
 

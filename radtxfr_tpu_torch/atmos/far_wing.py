@@ -3,8 +3,8 @@
 
 C(nu, T) = sum_k S_k(T) chi(|nu - nu_k|, T) gamma_k(T, 1 atm)
 / (pi (nu - nu_k)^2) over the |nu - nu_k| > 25 cm^-1 wings of the derived
-CO2 band system, in cm^2 molec^-1 atm^-1. The N2/O2 collision-induced
-bands enter the layered MT_CKD evaluator of :mod:`.continuum` directly.
+CO2 band system, in cm^2 molec^-1 atm^-1; and the N2/O2 collision-induced
+band models that both MT_CKD evaluators of :mod:`.continuum` call.
 """
 
 from __future__ import annotations
@@ -12,10 +12,13 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from ..core.constants import C2_CM_K, T_REF
 
-__all__ = ["chi_factor_co2", "co2_continuum_table"]
+__all__ = ["chi_factor_co2", "co2_continuum_table",
+           "cia_n2_rototranslational", "cia_o2_gaussian", "cia_o2_band",
+           "cia_o2_fundamental"]
 
 _CUTOFF = 25.0     # cm^-1, the LBLRTM line/continuum split
 
@@ -77,3 +80,41 @@ def co2_continuum_table(nu_min=400.0, nu_max=1500.0, dnu_grid=2.0,
         chi = chi_factor_co2(dn, T)
         C[r] = np.where(far, chi * wing, 0.0) @ s_t
     return nu, np.asarray(t_grid, dtype=np.float64), C
+
+
+def cia_n2_rototranslational(nu, T):
+    """N2-N2 (+N2-O2, folded) rototranslational CIA coefficient
+    [cm^-1 amagat^-2]: a (nu/nu_p)^2 exp(-nu/nu_p) with the peak near
+    2 nu_p ~ 110 cm^-1 scaling ~T^-1.5 (Borysow & Frommhold 1986 class);
+    tensors ``nu`` and ``T`` broadcast."""
+    nu = torch.abs(nu)
+    nu_p = 55.0 * torch.sqrt(T / 296.0)
+    amp = 1.1e-6 * (296.0 / T) ** 1.5
+    x = nu / nu_p
+    # normalised so the maximum of x^2 e^-x (at x = 2) equals amp
+    return amp * x * x * torch.exp(-x) * (np.e ** 2 / 4.0)
+
+
+def cia_o2_gaussian(nu, xp=np):
+    """The O2 band's part that depends on nu alone: the offset d = nu - 1556
+    cm^-1 from its centre and its Gaussian exp(-(d / 110)^2 / 2); ``xp``
+    NumPy (the layered evaluator's host precompute) or torch."""
+    d = nu - 1556.0
+    return d, xp.exp(-0.5 * (d / 110.0) ** 2)
+
+
+def cia_o2_band(d, gaussian, T):
+    """The O2 CIA coefficient from :func:`cia_o2_gaussian`'s ``d`` and
+    ``gaussian``: amplitude 2e-7 (296/T) with the detailed-balance wing
+    ratio exp(-c2 |d| / 2T) on the red side."""
+    red = torch.where(d < 0, torch.exp(C2_CM_K * d / (2.0 * T)),
+                      torch.ones((), dtype=d.dtype, device=d.device))
+    return 2.0e-7 * (296.0 / T) * gaussian * red
+
+
+def cia_o2_fundamental(nu, T):
+    """O2 fundamental-band CIA coefficient [cm^-1 amagat^-2]: a Gaussian at
+    1556 cm^-1 with the detailed-balance wing ratio exp(-c2 dnu / T) on the
+    red side (Thibault et al. 1997 class); tensors ``nu`` and ``T``
+    broadcast."""
+    return cia_o2_band(*cia_o2_gaussian(nu, torch), T)

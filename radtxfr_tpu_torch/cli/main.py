@@ -150,6 +150,26 @@ def cmd_xsect(args):
         print(f"wrote {n} file(s) at {args.output}")
 
 
+def ensemble_draws(n_atmos: int, seed: int):
+    """The ensemble's perturbations, member for member as the JAX CLI draws
+    them: T offsets from N(0, 5 K), (n_atmos, 1), and H2O column scales from
+    U(0.5, 1.5), (n_atmos,), both float32."""
+    rng = np.random.default_rng(seed)
+    dT = rng.normal(0.0, 5.0, (n_atmos, 1)).astype(np.float32)
+    scale_h2o = rng.uniform(0.5, 1.5, n_atmos).astype(np.float32)
+    return dT, scale_h2o
+
+
+def ensemble_member(base, draws, i: int):
+    """Member ``i``'s (T, vmr): the state ``base`` with its T offset by
+    ``draws`` (:func:`ensemble_draws`) and its H2O column scaled."""
+    dT, scale_h2o = draws
+    T = base.T + torch.as_tensor(dT[i], device=base.T.device)
+    vmr = base.vmr.clone()
+    vmr[:, 0] *= float(scale_h2o[i])
+    return T, vmr
+
+
 def run_tud(args, device, timings: dict | None = None):
     """The ``tud`` production path on ``device``.
 
@@ -187,10 +207,7 @@ def run_tud(args, device, timings: dict | None = None):
     X = arange_drift_free(args.numin, args.numax, args.dv)
     grid = torch.as_tensor(X, dtype=f32, device=device)
 
-    # the JAX CLI's ensemble draws, member for member
-    rng = np.random.default_rng(args.seed)
-    dT = rng.normal(0.0, 5.0, (args.n_atmos, 1)).astype(np.float32)
-    scale_h2o = rng.uniform(0.5, 1.5, args.n_atmos).astype(np.float32)
+    draws = ensemble_draws(args.n_atmos, args.seed)
 
     line_mixing = None
     if args.line_mixing:
@@ -213,12 +230,6 @@ def run_tud(args, device, timings: dict | None = None):
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
 
-    def member(i):
-        T = base.T + torch.as_tensor(dT[i], device=device)
-        vmr = base.vmr.clone()
-        vmr[:, 0] *= float(scale_h2o[i])
-        return T, vmr
-
     t1 = time.perf_counter()
     parts = {"tau": [], "Lu": [], "Ld": []}
     chunk_s = []
@@ -226,7 +237,7 @@ def run_tud(args, device, timings: dict | None = None):
         tc = time.perf_counter()
         chunk = {"tau": [], "Lu": [], "Ld": []}
         for i in range(lo, min(lo + args.batch, args.n_atmos)):
-            T, vmr = member(i)
+            T, vmr = ensemble_member(base, draws, i)
             od = od_fn(T, base.p, base.pl, vmr)
             tud = tud_fn(grid, od, T)
             # all sensor altitudes, as the reference stores them

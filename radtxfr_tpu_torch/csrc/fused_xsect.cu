@@ -1,4 +1,6 @@
-// K1: bucketed layered line-shape accumulation for Hopper (sm_90a).
+// K1: bucketed layered line-shape accumulation for Hopper (sm_90a), and
+// K7, the unfused kernel of the prebuilt-plan route (below K1, sharing its
+// per-point code).
 //
 // Replaces radtxfr_tpu/kernels/pallas_xsect.py::_make_fused_kernel (launcher
 // _xsect_fused_call, entry xsect_pallas(fused_layers=True)) in all of its
@@ -618,7 +620,175 @@ fused_xsect_kernel(const int* __restrict__ starts,
   }
 }
 
+// K7: the unfused kernel (pallas_xsect.py::_make_kernel, launcher
+// _xsect_pallas_call, entry xsect_pallas(fused_layers=False)), the kernel of
+// the prebuilt-plan route compute_od_layers(engine='pallas', plan=...). It
+// computes the same sum as K1 in modes asym, core, full, lorentz and
+// doppler, over a shared-block plan (plan_buckets: a tile visits the block
+// range [starts[i], starts[i] + counts[i]) of the sorted lines) or a packed
+// one, with the wing capped at the plan's bound (wcap: the plan's max_wing,
+// or its per-line wing_line). The per-point formula is K1's (line_const and
+// eval above), so the two kernels cannot drift apart.
+//
+// Shape. One CTA per (layer, 256-point slice of a tile), as the Pallas grid
+// is (layer, tile, block): 64 threads of 4 points each, the slice's blocks
+// walked in order, each block staged CH slots at a time (grid position and
+// that layer's constants in shared memory) and summed into registers. Each
+// block's sum is kept apart before it joins the total, as the Pallas kernel
+// adds one block's sum per grid step, and both sums are compensated
+// (Kahan): a shared block holds a tile's strong lines beside hundreds of
+// far-wing ones, and in a running float32 sum the far wings' values below
+// half an ulp of a narrow Doppler line's peak were lost one by one (7e-6 of
+// the peak against the plain version's tree sum over 66 layers of the
+// derived list; three FP32 adds per in-window evaluation). Every output is
+// written once: no atomics, bit-identical reruns.
+//
+// Bound. The same evaluations as K1 (the header's hand counts: asym 28,
+// core 175 / 14, full 157 / 31 lane-ops inside / outside |x| + y < 15,
+// lorentz 18, doppler 20), but a shared-block plan visits whole blocks, so
+// most of a tile's slot-points fall outside their window and cost only the
+// offset, the two window compares and the branch: chip_smoke.py recounts
+// the in-window evaluations on the host and states the bound from them.
+// FP32 issue bounds it; per (layer, slot) it reads ~9 scalars, shared by the
+// slice's 256 points. A simple kernel: one layer per CTA stages each slot
+// once per layer (K1 shares a staged slot's position across 4 layers).
+// s + v with the rounding error carried in c (Kahan): s - c is the sum
+__device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
+  const float y = v - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+unfused_xsect_kernel(const int* __restrict__ starts,
+                     const int* __restrict__ counts,
+                     const int* __restrict__ k_line,
+                     const float* __restrict__ frac0,
+                     const int* __restrict__ line,
+                     const float* __restrict__ wcap,
+                     const int* __restrict__ lay_idx,
+                     const float* __restrict__ shift0,
+                     const float* __restrict__ strength,
+                     const float* __restrict__ gamma_d,
+                     const float* __restrict__ gamma_0,
+                     const float* __restrict__ wing, int n_lines,
+                     const float* __restrict__ wei_g, int n_wei, int tile,
+                     int block, int sub_per_tile, int n_out, float dx,
+                     float* __restrict__ out) {
+  static_assert(MODE == ASYM || MODE == CORE || MODE == FULL ||
+                    MODE == LORENTZ || MODE == DOPPLER,
+                "K7 evaluates the Voigt, Lorentz and Doppler modes");
+  __shared__ LineConst s_c[1][CH];
+  __shared__ int s_k[CH];
+  __shared__ float s_f[CH];
+  __shared__ float s_wei[MAX_WEI + 1];
+
+  const int tid = threadIdx.x;
+  const int tile_i = blockIdx.x / sub_per_tile;
+  const int sub = blockIdx.x - tile_i * sub_per_tile;
+  const int l = blockIdx.y;
+  if (tile_i * tile + sub * SPAN >= n_out) return;
+  if (MODE != ASYM) {
+    for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
+  }
+
+  int kg[PPT];
+  bool live[PPT];
+  float acc[PPT], acc_c[PPT];   // the total and its Kahan compensation
+#pragma unroll
+  for (int p = 0; p < PPT; ++p) {
+    const int kloc = sub * SPAN + p * THREADS + tid;
+    kg[p] = tile_i * tile + kloc;
+    live[p] = kloc < tile && kg[p] < n_out;
+    acc[p] = 0.0f;
+    acc_c[p] = 0.0f;
+  }
+
+  const int blk0 = starts[tile_i];
+  const int n_blk = counts[tile_i];
+  for (int b = 0; b < n_blk; ++b) {
+    const int slot0 = (blk0 + b) * block;
+    float part[PPT], part_c[PPT];   // this block's sum, compensated
+#pragma unroll
+    for (int p = 0; p < PPT; ++p) {
+      part[p] = 0.0f;
+      part_c[p] = 0.0f;
+    }
+    for (int c0 = 0; c0 < block; c0 += CH) {
+      const int nc = min(CH, block - c0);
+      __syncthreads();   // the previous chunk is consumed
+      stage<MODE, CH, true>(c0, nc, slot0, 1, l, tid, k_line, frac0, line,
+                            wcap, lay_idx, shift0, strength, gamma_d, gamma_0,
+                            wing, nullptr, nullptr, n_lines, dx, s_c, s_k,
+                            s_f);
+      __syncthreads();
+      for (int j = 0; j < nc; ++j) {
+        const int kl = s_k[j];
+        const float f0 = s_f[j];
+        const LineConst c = s_c[0][j];
+#pragma unroll
+        for (int p = 0; p < PPT; ++p) {
+          const float u = static_cast<float>(kg[p] - kl) - f0;
+          if (u > -c.a.z && u <= c.a.z)
+            kahan_add(part[p], part_c[p], eval<MODE>(u, c, s_wei, n_wei, dx));
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PPT; ++p)
+      kahan_add(acc[p], acc_c[p], part[p] - part_c[p]);
+  }
+
+#pragma unroll
+  for (int p = 0; p < PPT; ++p)
+    if (live[p])
+      out[static_cast<size_t>(l) * n_out + kg[p]] = acc[p] - acc_c[p];
+}
+
 }  // namespace
+
+// K7's entry: mode is K1's code (asym 0, core 1, full 3, lorentz 7,
+// doppler 8); lay_idx maps the n_lay output rows to parameter rows.
+extern "C" int radtxfr_unfused_xsect(
+    int mode, const void* starts, const void* counts, const void* k_line,
+    const void* frac0, const void* line, const void* wcap,
+    const void* lay_idx, int n_lay, const void* shift0, const void* strength,
+    const void* gamma_d, const void* gamma_0, const void* wing, int n_lines,
+    const void* wei, int n_wei, int tile, int block, int n_tiles, int n_out,
+    double dx, void* out, void* stream) {
+  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 ||
+      n_lay > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
+  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
+                  static_cast<unsigned>(n_lay));
+  if (grid.x == 0 || grid.y == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float dxf = static_cast<float>(dx);
+#define RADTXFR_LAUNCH_UNFUSED(M)                                            \
+  unfused_xsect_kernel<M><<<grid, THREADS, 0, s>>>(                          \
+      static_cast<const int*>(starts), static_cast<const int*>(counts),      \
+      static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
+      static_cast<const int*>(line), static_cast<const float*>(wcap),        \
+      static_cast<const int*>(lay_idx), static_cast<const float*>(shift0),   \
+      static_cast<const float*>(strength),                                   \
+      static_cast<const float*>(gamma_d), static_cast<const float*>(gamma_0), \
+      static_cast<const float*>(wing), n_lines,                              \
+      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile,      \
+      n_out, dxf, static_cast<float*>(out))
+  switch (mode) {
+    case ASYM: RADTXFR_LAUNCH_UNFUSED(ASYM); break;
+    case CORE: RADTXFR_LAUNCH_UNFUSED(CORE); break;
+    case FULL: RADTXFR_LAUNCH_UNFUSED(FULL); break;
+    case LORENTZ: RADTXFR_LAUNCH_UNFUSED(LORENTZ); break;
+    case DOPPLER: RADTXFR_LAUNCH_UNFUSED(DOPPLER); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RADTXFR_LAUNCH_UNFUSED
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int radtxfr_fused_xsect(
     int mode, int R, const void* starts, const void* counts,

@@ -1,10 +1,11 @@
-"""Bucketed lines x wavenumbers line-shape accumulation (K1) and its
+"""Bucketed lines x wavenumbers line-shape accumulation (K1, K7) and its
 forward-mode derivative (K3).
 
 Counterpart of ``radtxfr_tpu/kernels/pallas_xsect.py`` for the OD and
 cross-section paths: the host planning (:class:`UniformGrid`,
-:class:`BucketPlan`, :func:`auto_block`, :func:`plan_buckets_packed`, NumPy
-as in JAX), the layer-fused kernel ``_make_fused_kernel`` in every mode
+:class:`BucketPlan`, :func:`auto_block`, :func:`plan_buckets`,
+:func:`plan_buckets_packed`, NumPy as in JAX), the layer-fused kernel
+``_make_fused_kernel`` in every mode
 
 * ``asym`` — the guarded Humlicek asymptotic Re w everywhere in the window
   (the cheap far-wing pass);
@@ -26,6 +27,10 @@ as in JAX), the layer-fused kernel ``_make_fused_kernel`` in every mode
   grid point, node row 0 one coarse step left of the tile), masked by the
   true window (no wing cap; ``pallas_xsect.py:762-879``);
 
+the unfused kernel ``_make_kernel`` (K7: :func:`xsect_unfused`, plain
+version :func:`xsect_unfused_plain`; the prebuilt-plan route of
+``compute_od_layers``, one CTA per (layer, 256-point slice), K1's per-point
+code in modes ``full``, ``asym``, ``core``, ``lorentz`` and ``doppler``)
 and the tangent kernel ``_make_fused_jvp_kernel`` (K3), the directional
 derivative of the ``full`` pass w.r.t. (shift0, strength, gamma_d, gamma_0)
 from the region-consistent analytic derivatives of each approximation
@@ -81,11 +86,12 @@ from ..core.constants import LN2, SQRT_LN2_DIV_SQRT_PI
 from .faddeeva import REGION_BOUND, weideman_coeffs
 
 __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
-           "plan_buckets_packed", "device_plan", "xsect_fused",
+           "plan_buckets", "plan_buckets_packed", "device_plan", "xsect_fused",
            "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
            "xsect_fused_diff", "xsect_sdvoigt_jvp", "xsect_sdvoigt_jvp_plain",
-           "xsect_fused_sdvoigt_diff", "cubic_weights", "corr_r_supported",
-           "LAUNCHES", "MODES", "CORR_VARIANTS", "SD_MODES"]
+           "xsect_fused_sdvoigt_diff", "xsect_unfused", "xsect_unfused_plain",
+           "cubic_weights", "corr_r_supported", "LAUNCHES", "MODES",
+           "UNFUSED_MODES", "CORR_VARIANTS", "SD_MODES"]
 
 #: K1's modes other than the correction passes, in the CUDA switch's order
 MODES = ("asym", "core", "mix", "full", "sdvoigt", "sdvoigt_asym",
@@ -94,9 +100,9 @@ MODES = ("asym", "core", "mix", "full", "sdvoigt", "sdvoigt_asym",
 CORR_VARIANTS = ("voigt", "voigtfull", "sdvoigt", "sdvoigtfull")
 #: the modes whose profile carries the shift and needs Gamma2
 SD_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core")
-#: kernel launches since the last reset, per K1 mode string, of K3
-#: ("jvp"), K4 ("sdvoigt_jvp"), and of K5 and K6 ("ht", "ht_jvp", counted
-#: by :mod:`.fused_ht`); plain runs are not counted
+#: kernel launches since the last reset, per K1 mode string, of K7
+#: ("unfused_<mode>"), K3 ("jvp"), K4 ("sdvoigt_jvp"), and of K5 and K6
+#: ("ht", "ht_jvp", counted by :mod:`.fused_ht`); plain runs are not counted
 LAUNCHES = collections.Counter()
 
 _SQRT_LN2 = math.sqrt(math.log(2.0))
@@ -171,7 +177,9 @@ class UniformGrid:
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
-    """Host-side static packed bucketing of sorted lines onto nu-tiles."""
+    """Host-side static bucketing of sorted lines onto nu-tiles: shared
+    blocks (:func:`plan_buckets`) or packed per tile
+    (:func:`plan_buckets_packed`)."""
 
     grid: UniformGrid
     tile: int            # nu points per tile
@@ -184,7 +192,9 @@ class BucketPlan:
     k_line: np.ndarray   # (n_blocks, 1, block) int32 — floor grid index
     frac0: np.ndarray    # (n_blocks, 1, block) f32 — fractional grid offset
     max_wing: float      # cm^-1 — wing bound the bucketing guarantees
-    gather: np.ndarray   # (n_blocks, block) int32 line index, -1 = padding
+    # packed plans: (n_blocks, block) int32 line index, -1 = padding;
+    # None for shared-block plans (plan_buckets: slot s holds line s)
+    gather: np.ndarray | None = None
     wing_line: np.ndarray | None = None   # per-line wing bounds [cm^-1]
 
 
@@ -202,6 +212,53 @@ def auto_block(nu0, grid: UniformGrid, max_wing: float, tile: int,
         return lo
     q = float(np.quantile(counts, 0.75))
     return int(np.clip(8 * int(np.ceil(q / 8.0)), lo, hi))
+
+
+def plan_buckets(nu0, grid: UniformGrid, max_wing: float, tile: int = 1024,
+                 block="auto") -> BucketPlan:
+    """Shared-block bucketing (``pallas_xsect.py:134-192``): the sorted
+    lines in blocks of ``block`` (``'auto'``: :func:`auto_block`), each tile
+    visiting the block range that holds every line within ``max_wing`` of
+    it. ``max_wing`` must bound every runtime wing: the kernel clamps
+    wings to it. Padding slots park at ``k_line = -2**30``."""
+    nu0 = np.asarray(nu0, dtype=np.float64)
+    if nu0.size == 0:
+        raise ValueError("empty line list")
+    if np.any(np.diff(nu0) < 0):
+        raise ValueError("line centers must be sorted")
+    if block == "auto":
+        block = auto_block(nu0, grid, max_wing, tile)
+
+    n_tiles = -(-grid.n // tile)
+    n_lines_pad = -(-nu0.size // block) * block
+    n_blocks = n_lines_pad // block
+
+    # grid-index decomposition of each line centre (float64 -> int + frac)
+    u = (nu0 - grid.x0) / grid.dx
+    k_line = np.floor(u).astype(np.int64)
+    frac0 = (u - k_line).astype(np.float32)
+    k_line = k_line.astype(np.int32)
+
+    # tile i covers [x0 + i tile dx, x0 + (i + 1) tile dx); a line can touch
+    # it if its centre lies within max_wing of that interval
+    edges = grid.x0 + grid.dx * tile * np.arange(n_tiles + 1)
+    lo = np.searchsorted(nu0, edges[:-1] - max_wing, side="left")
+    hi = np.searchsorted(nu0, edges[1:] + max_wing, side="right")
+    b0 = (lo // block).astype(np.int32)
+    b1 = np.ceil(hi / block).astype(np.int32)
+    counts = np.maximum(b1 - b0, 0).astype(np.int32)
+    max_blocks = max(int(counts.max()) if counts.size else 0, 1)
+
+    pad = n_lines_pad - nu0.size
+    k_pad = np.full(pad, np.int32(-(2**30)), dtype=np.int32)
+    f_pad = np.zeros(pad, dtype=np.float32)
+    return BucketPlan(
+        grid=grid, tile=tile, block=block, n_tiles=n_tiles,
+        n_blocks=n_blocks, max_blocks=max_blocks, starts=b0, counts=counts,
+        k_line=np.concatenate([k_line, k_pad]).reshape(n_blocks, 1, block),
+        frac0=np.concatenate([frac0, f_pad]).reshape(n_blocks, 1, block),
+        max_wing=float(max_wing),
+    )
 
 
 def plan_buckets_packed(nu0, grid: UniformGrid, max_wing, tile: int = 1024,
@@ -314,7 +371,10 @@ def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
                 dtype=torch.float32) -> DevicePlan:
     """Move ``plan`` to ``device`` (None: the card); ``line_idx`` maps the
     plan's line list (the call's lines) to rows of the full (nLay, L)
-    parameter arrays, whose float64 host centres are ``nu0``.
+    parameter arrays, whose float64 host centres are ``nu0``. A packed
+    plan's slots hold the lines of its gather; a shared-block plan's slot
+    ``block * B + s`` holds line ``block * B + s``, and the slots beyond
+    the line list are padding (line -1).
 
     ``frac0`` is the plan's float32 fraction for float32 runs; a float64 run
     recomputes it from ``nu0`` in float64, so its line positions carry no
@@ -322,7 +382,11 @@ def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
     """
     device = resolve_device(device)
     line_idx = np.asarray(line_idx, dtype=np.int64)
-    g = plan.gather.reshape(-1)
+    if plan.gather is None:
+        g = np.arange(plan.n_blocks * plan.block, dtype=np.int64)
+        g = np.where(g < line_idx.size, g, -1)
+    else:
+        g = plan.gather.reshape(-1)
     valid = g >= 0
     safe = np.where(valid, g, 0)
     gl = np.where(valid, line_idx[safe], -1)
@@ -1158,3 +1222,105 @@ def xsect_fused_sdvoigt_diff(dplan: DevicePlan, lay_idx, shift0, strength,
     K4's direction axis. (len(lay_idx), n_out)."""
     return _SDVOIGT.apply(dplan, lay_idx, n_weideman, shift0, strength,
                           gamma_d, gamma_0, gamma_2, wing)
+
+
+# --------------------------------------------------------------------------
+# the unfused kernel K7 (the prebuilt-plan route)
+# --------------------------------------------------------------------------
+
+#: K7's modes (``pallas_xsect.py::_make_kernel``); the others are K1's only
+UNFUSED_MODES = ("full", "asym", "core", "lorentz", "doppler")
+
+
+def _unfused_args(plan: BucketPlan, params, mode: str, n_weideman: int,
+                  dtype=None):
+    """The (nLay, L) parameter rows of ``params`` (1-D fields taken as one
+    layer; cast to ``dtype`` and made contiguous when given), whether they
+    were 1-D, and the plan on their device with slot ``s`` of a shared-block
+    plan holding line ``s``; raises on a mode K7 does not evaluate or a line
+    count the plan was not built for."""
+    if mode not in UNFUSED_MODES:
+        raise ValueError(
+            f"the unfused kernel evaluates modes {UNFUSED_MODES}, got "
+            f"{mode!r}: the SD-Voigt, mixing and correction modes are the "
+            "fused kernel's (xsect_fused, through make_od_fn / "
+            "make_xsect_fn)")
+    if not 1 <= n_weideman <= _MAX_WEIDEMAN:
+        raise ValueError(f"n_weideman must be in [1, {_MAX_WEIDEMAN}]")
+    single = params.strength.dim() == 1
+    rows = {k: torch.atleast_2d(getattr(params, k))
+            for k in ("shift0", "strength", "gamma_d", "gamma_0", "wing")}
+    if dtype is not None:
+        rows = {k: v.to(dtype).contiguous() for k, v in rows.items()}
+    n_lay, n_lines = rows["strength"].shape
+    if plan.gather is None and not (
+            (plan.n_blocks - 1) * plan.block < n_lines
+            <= plan.n_blocks * plan.block):
+        raise ValueError(f"{n_lines} lines do not fill the plan's "
+                         f"{plan.n_blocks} blocks of {plan.block}")
+    dt, dev = rows["strength"].dtype, rows["strength"].device
+    nu0 = (torch.atleast_2d(params.nu0)[0].detach().cpu().numpy()
+           if dt == torch.float64 else None)
+    dplan = device_plan(plan, np.arange(n_lines), nu0, device=dev, dtype=dt)
+    return rows, single, dplan
+
+
+def xsect_unfused_plain(plan: BucketPlan, params, mode: str = "full",
+                        n_weideman: int = 24) -> torch.Tensor:
+    """Plain PyTorch version of K7 in the parameters' dtype on their device
+    (the counterpart of ``xsect_pallas(plan, params,
+    fused_layers=False)``): ``params`` holds (nLay, L) or (L,) tensors of
+    the plan's sorted lines; (nLay, n) spectra, squeezed to (n,) for 1-D
+    input. The sum is K1's (:func:`xsect_fused_plain`: per tile, block by
+    block) with the wing capped at the plan's bound."""
+    rows, single, dplan = _unfused_args(plan, params, mode, n_weideman)
+    lay = torch.arange(rows["strength"].shape[0], dtype=torch.int32,
+                       device=rows["strength"].device)
+    out = xsect_fused_plain(dplan, lay, rows["shift0"], rows["strength"],
+                            rows["gamma_d"], rows["gamma_0"], rows["wing"],
+                            None, mode, n_weideman)
+    return out[0] if single else out
+
+
+def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
+                  n_weideman: int = 24) -> torch.Tensor:
+    """Layered spectra through the unfused kernel K7 (``csrc/fused_xsect.cu``,
+    the counterpart of ``xsect_pallas(..., fused_layers=False)``): ``plan``
+    a :class:`BucketPlan` (shared-block from :func:`plan_buckets`, or
+    packed) of the same sorted lines as ``params``, whose fields are
+    (nLay, L) or (L,) tensors; ``mode`` one of :data:`UNFUSED_MODES`;
+    ``n_weideman`` up to 32. Returns (nLay, n) float32, squeezed to (n,)
+    for 1-D input.
+
+    CPU tensors run :func:`xsect_unfused_plain` in their dtype. CUDA
+    tensors are taken as float32 (the Pallas wrapper's cast) and launch K7
+    on the current stream, one CTA per (layer, 256-point slice); a
+    non-zero CUDA error from the launch raises. Launches count under
+    ``"unfused_<mode>"`` in :data:`LAUNCHES`.
+    """
+    if params.strength.device.type == "cpu":
+        return xsect_unfused_plain(plan, params, mode, n_weideman)
+    rows, single, dplan = _unfused_args(plan, params, mode, n_weideman,
+                                        torch.float32)
+    n_lay, n_lines = rows["strength"].shape
+    lay = torch.arange(n_lay, dtype=torch.int32, device=dplan.line.device)
+    _check_call(dplan, lay, rows, n_weideman)
+    dev = rows["strength"].device
+    out = torch.empty((n_lay, dplan.n_out), dtype=torch.float32, device=dev)
+    if dplan.n_out:
+        err = _build.library().radtxfr_unfused_xsect(
+            MODES.index(mode), dplan.starts.data_ptr(),
+            dplan.counts.data_ptr(), dplan.k_line.data_ptr(),
+            dplan.frac0.data_ptr(), dplan.line.data_ptr(),
+            dplan.wcap.data_ptr(), lay.data_ptr(), n_lay,
+            *(rows[k].data_ptr() for k in ("shift0", "strength", "gamma_d",
+                                            "gamma_0", "wing")),
+            n_lines, _weideman_table(n_weideman, dev).data_ptr(),
+            n_weideman, dplan.tile, dplan.block, dplan.n_tiles, dplan.n_out,
+            dplan.dx, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"unfused_xsect kernel ({mode}) launch failed "
+                               f"with CUDA error {err}")
+        LAUNCHES[f"unfused_{mode}"] += 1
+    return out[0] if single else out

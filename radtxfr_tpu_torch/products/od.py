@@ -1,7 +1,8 @@
 """Monochromatic optical depth of layered atmospheres and cross-section
 lattices (counterpart of ``radtxfr_tpu/products/od.py``: the builders
 ``make_od_pallas_fn`` as :func:`make_od_fn` and ``make_xsect_pallas_fn`` as
-:func:`make_xsect_fn`, with their static planning).
+:func:`make_xsect_fn`, with their static planning, and
+:func:`compute_od_layers`).
 
     OD_l(nu) = sum_lines u_l(mol(line)) S_line(T_l) profile(nu)
 
@@ -39,8 +40,15 @@ K1 ``sdvoigt``, the rest to K1 ``full`` (pcqsdhc's exact degenerations);
 on the lattice the two cheap subsets take the coarse-far route where the
 absolute wing allows it.
 
-Not ported yet (each raises ``NotImplementedError``): the pointwise
-continuum models other than 'mt_ckd' (ROADMAP M4).
+The layered-OD library API, :func:`compute_od_layers` (the README's quick
+start), routes as the JAX function does: ``engine='pallas'`` with a
+prebuilt :func:`make_od_plan` (a shared-block plan, reused over an
+ensemble) runs :func:`layer_line_params` and the unfused kernel K7
+(:func:`~..kernels.fused_xsect.xsect_unfused`); without a plan the
+builders above; any other engine the reference engine layer by layer
+(:func:`compute_od_layer`), whose SD-Voigt and HT profiles are not ported
+yet (``NotImplementedError``, ROADMAP M13). Its continuum is the pointwise
+:func:`~..atmos.continuum.continuum_od`.
 """
 
 from __future__ import annotations
@@ -55,16 +63,21 @@ from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
                               T_REF)
 from ..atmos.profile import AtmosphericState
 from ..kernels.fused_ht import xsect_ht_diff, xsect_ht_plain
-from ..kernels.fused_xsect import (UniformGrid, corr_r_supported,
-                                   cubic_weights, device_plan, is_sd_mode,
+from ..kernels.fused_xsect import (BucketPlan, UniformGrid,
+                                   corr_r_supported, cubic_weights,
+                                   device_plan, is_sd_mode, plan_buckets,
                                    plan_buckets_packed, xsect_fused,
-                                   xsect_fused_diff, xsect_fused_sdvoigt_diff)
+                                   xsect_fused_diff, xsect_fused_sdvoigt_diff,
+                                   xsect_unfused)
 from ..kernels.ht_driver import ht_params, resolve_ht_columns
 from ..kernels.htp_real import HT_CONST_KEYS, ht_line_constants
 from ..kernels.lineparams import LineParams, compute_line_params
-from ..kernels.linemixing import mixing_coefficient
+from ..kernels.linemixing import mixing_coefficient, xsect_voigt_mixing
+from ..kernels.xsect import xsect_from_params
 
-__all__ = ["species_column", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
+__all__ = ["species_column", "compute_od_layer", "compute_od_layers",
+           "layer_line_params", "max_wing_per_layer", "max_wing_bound",
+           "make_od_plan", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
            "CrossSectionFn", "wing_bound_matrix", "core_wing_per_line",
            "core_y_matrix", "sdvoigt_core_bound", "group_by_wing",
            "ht_wing_bounds", "make_ht_fn", "make_od_ht_fn",
@@ -204,6 +217,65 @@ def group_by_wing(wings: np.ndarray, max_groups: int = 4, ratio: float = 2.5):
             current.append(idx)
     groups.append((np.array(current), float(w_max)))
     return groups
+
+
+def _layer_params(lines, iso, T, p_pa, pl, vmr, cols, wing_abs, wing_hw,
+                  profile):
+    """(nLay, L) line parameters of every layer with the OD strength
+    scaling (species column x path), the counterpart of ``vmap`` over
+    ``compute_line_params`` in ``layer_line_params``; ``cols`` (L,) long
+    maps each line to its vmr column."""
+    p_atm = p_pa / PA_PER_ATM
+    u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
+                       pl[:, None], vmr)
+    return compute_line_params(lines, iso, T[:, None], p_atm[:, None],
+                               vmr_self=vmr[:, cols], wing_abs=wing_abs,
+                               wing_hw=wing_hw, strength_scale=u[:, cols],
+                               profile=profile)
+
+
+def layer_line_params(lines, iso, atmos, species_cols, wing_abs=0.0,
+                      wing_hw=50.0, profile="voigt") -> LineParams:
+    """:class:`LineParams` with (n_layers, n_lines) tensors whose
+    ``strength`` includes the species column density x path length, on the
+    device and in the dtype of ``lines``; ``species_cols`` maps each line to
+    its vmr column (:func:`_line_species_cols`)."""
+    cols = torch.as_tensor(np.asarray(species_cols), dtype=torch.long,
+                           device=lines.sw.device)
+    return _layer_params(lines, iso, atmos.T, atmos.p, atmos.pl, atmos.vmr,
+                         cols, wing_abs, wing_hw, profile)
+
+
+def max_wing_per_layer(lines, iso, atmos, wing_abs=0.0,
+                       wing_hw=50.0) -> np.ndarray:
+    """Host-side per-layer upper bound on line wing cutoffs (nL,)
+    [cm^-1]."""
+    lines_h, iso_h, (atmos_h,) = _host_planning_views(lines, iso, atmos)
+    return wing_bound_matrix(lines_h, iso_h, atmos_h, wing_abs,
+                             wing_hw).max(axis=1)
+
+
+def max_wing_bound(lines, iso, atmos, wing_abs=0.0, wing_hw=50.0) -> float:
+    """Host-side upper bound on every line's wing over all layers."""
+    return float(max_wing_per_layer(lines, iso, atmos, wing_abs,
+                                    wing_hw).max())
+
+
+def _uniform_grid(grid) -> UniformGrid:
+    return (grid if isinstance(grid, UniformGrid)
+            else UniformGrid.from_axis(np.asarray(_host(grid))))
+
+
+def make_od_plan(lines, iso, grid, atmos, wing_abs=0.0, wing_hw=50.0,
+                 tile: int = 1024, block: int = 256) -> BucketPlan:
+    """The static shared-block plan (:func:`plan_buckets`) of one line
+    list, grid and atmosphere class, built once and reused over an
+    ensemble by ``compute_od_layers(engine='pallas', plan=...)``: every
+    line's wing bounded by :func:`max_wing_bound` of ``atmos``."""
+    mw = max_wing_bound(lines, iso, atmos, wing_abs=wing_abs,
+                        wing_hw=wing_hw)
+    return plan_buckets(lines.host_view().nu0, _uniform_grid(grid), mw,
+                        tile=tile, block=block)
 
 
 def _pow2_tile(n: int, lo: int = 128, hi: int = 1024) -> int:
@@ -477,27 +549,34 @@ def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
 def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
                          dtype):
     """Per-layer continuum-OD term fn(T, p_pa, pl, vmr) -> (nLay, nX), or
-    None for ``continuum='none'``."""
-    from ..atmos.continuum import (LAYERED_CONTINUUM_FACTORIES,
-                                   check_h2o_table_coverage)
+    None for ``continuum='none'``: 'mt_ckd' through its layer-hoisted
+    evaluator, the other models of ``CONTINUUM_MODELS`` pointwise."""
+    from ..atmos.continuum import (CONTINUUM_MODELS,
+                                   LAYERED_CONTINUUM_FACTORIES,
+                                   check_h2o_table_coverage,
+                                   continuum_factors_tensor)
 
     if continuum == "none":
         return None
+    if continuum == "mt_ckd":
+        check_h2o_table_coverage(g.x0, g.x0 + g.dx * (g.n - 1))
+    cf = continuum_factors_tensor(continuum_factors, continuum, dtype,
+                                  device)
+    mol_ids = tuple(mol_ids)
     factory = LAYERED_CONTINUUM_FACTORIES.get(continuum)
-    if factory is None:
-        raise NotImplementedError(
-            f"continuum {continuum!r} is not ported: only 'mt_ckd' (the "
-            "layered evaluator) is; the pointwise models are ROADMAP M4")
-    check_h2o_table_coverage(g.x0, g.x0 + g.dx * (g.n - 1))
-    cf = (torch.ones(7, dtype=dtype, device=device)
-          if continuum_factors is None
-          else torch.as_tensor(continuum_factors, dtype=dtype, device=device))
-    if cf.shape != (7,):
-        raise ValueError("continuum_factors must have 7 elements")
-    layered = factory(g.values(), tuple(mol_ids), device=device, dtype=dtype)
+    if factory is not None:
+        layered = factory(g.values(), mol_ids, device=device, dtype=dtype)
+
+        def term(T, p_pa, pl, vmr):
+            return layered(T, p_pa, pl, vmr, cf).to(dtype)
+
+        return term
+    cfn = CONTINUUM_MODELS[continuum]
+    nu = torch.as_tensor(g.values(), dtype=dtype, device=device)
 
     def term(T, p_pa, pl, vmr):
-        return layered(T, p_pa, pl, vmr, cf).to(dtype)
+        return cfn(nu, T[:, None], p_pa[:, None], vmr, mol_ids, pl[:, None],
+                   cf).to(dtype)
 
     return term
 
@@ -600,21 +679,14 @@ class OpticalDepthFn(_Passes):
     def line_params(self, T, p_pa, pl, vmr):
         """(nLay, L) line parameters with the OD strength scaling, and the
         (nLay, L) mixing coefficients (None without line mixing)."""
-        p_atm = p_pa / PA_PER_ATM
-        u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
-                           pl[:, None], vmr)
-        x_self = vmr[:, self.cols]
-        prm = compute_line_params(self.lines, self.iso, T[:, None],
-                                  p_atm[:, None], vmr_self=x_self,
-                                  wing_abs=self.wing_abs,
-                                  wing_hw=self.wing_hw,
-                                  strength_scale=u[:, self.cols],
-                                  profile=self.profile)
+        prm = _layer_params(self.lines, self.iso, T, p_pa, pl, vmr,
+                            self.cols, self.wing_abs, self.wing_hw,
+                            self.profile)
         Y = None
         if self.y_air is not None:
-            Y = mixing_coefficient(self.y_air, p_atm[:, None], T[:, None],
-                                   y_self=self.y_self, x_self=x_self,
-                                   n_T=self.n_T)
+            Y = mixing_coefficient(self.y_air, (p_pa / PA_PER_ATM)[:, None],
+                                   T[:, None], y_self=self.y_self,
+                                   x_self=vmr[:, self.cols], n_T=self.n_T)
         return prm, Y
 
     def __call__(self, T, p_pa, pl, vmr):
@@ -1121,3 +1193,179 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
                                 dev, dt)
     return HTOpticalDepthFn(lines, iso, passes, resolved, cols, wing_abs,
                             wing_hw, cont)
+
+
+# --------------------------------------------------------------------------
+# the layered-OD library API (compute_od_layers and its engines)
+# --------------------------------------------------------------------------
+
+def compute_od_layer(lines, iso, grid, T, p_pa, pl_km, vmr_row, species_cols,
+                     profile: str = "voigt", wing_abs=0.0, wing_hw=50.0,
+                     chunk: int = 512) -> torch.Tensor:
+    """OD spectrum (nX,) of one homogeneous layer by the reference engine
+    (:func:`~..kernels.xsect.xsect_from_params`) on the ``grid`` tensor:
+    ``T``, ``p_pa`` and ``pl_km`` scalars, ``vmr_row`` (nM,), and
+    ``species_cols`` (L,) each line's vmr column. ``profile`` reaches both
+    the parameter rules and the line shape."""
+    cols = torch.as_tensor(np.asarray(species_cols), dtype=torch.long,
+                           device=vmr_row.device)
+    u = species_column(p_pa, T, pl_km, vmr_row)
+    params = compute_line_params(lines, iso, T, p_pa / PA_PER_ATM,
+                                 vmr_self=vmr_row[cols], wing_abs=wing_abs,
+                                 wing_hw=wing_hw, strength_scale=u[cols],
+                                 profile=profile)
+    return xsect_from_params(grid, params, profile=profile, chunk=chunk)
+
+
+def _grid_values(grid) -> np.ndarray:
+    """The float64 host values of an axis or a :class:`UniformGrid`."""
+    return (grid.values() if isinstance(grid, UniformGrid)
+            else np.asarray(_host(grid), dtype=np.float64))
+
+
+#: the Pallas kernels' evaluation options that have no counterpart here
+_TPU_ONLY_OPTS = {
+    "fast_rcp": "the port's kernels divide by IEEE division only",
+    "interpret": "the port runs a kernel's plain version for CPU inputs",
+}
+
+
+def _od_layers_pallas(lines, iso, grid, atmos, profile="voigt",
+                      wing_abs=0.0, wing_hw=50.0, plan=None, **pallas_opts):
+    """``compute_od_layers(engine='pallas')`` (``_od_layers_pallas``
+    there): a prebuilt ``plan`` runs the unfused kernel K7 on the layers'
+    line parameters (Voigt only, kernel options only); otherwise the
+    builders (:func:`make_od_fn`, :func:`make_od_ht_fn`) plan and run the
+    state."""
+    if profile == "ht":
+        if plan is not None:
+            raise ValueError("prebuilt plan= supports Voigt only")
+        fn = make_od_ht_fn(lines, iso, grid, atmos, wing_abs=wing_abs,
+                           wing_hw=wing_hw, **pallas_opts)
+        return fn(atmos.T, atmos.p, atmos.pl, atmos.vmr)
+    if profile not in ("voigt", "sdvoigt", "lorentz", "doppler"):
+        raise NotImplementedError(
+            "pallas engine implements 'voigt', 'sdvoigt', 'lorentz', "
+            f"'doppler' and 'ht'; use engine='jnp' for {profile!r}")
+    if plan is None:
+        fn = make_od_fn(lines, iso, grid, atmos, profile=profile,
+                        wing_abs=wing_abs, wing_hw=wing_hw, **pallas_opts)
+        return fn(atmos.T, atmos.p, atmos.pl, atmos.vmr)
+    if profile != "voigt":
+        raise ValueError(
+            "prebuilt plan= supports Voigt only; sdvoigt needs the "
+            "per-profile call split of make_od_fn(profile=...)")
+    # with a prebuilt plan only kernel options apply; plan-building options
+    # would be silently ignored, so they are refused
+    eval_opts = {k: pallas_opts.pop(k) for k in ("n_weideman",)
+                 if k in pallas_opts}
+    for k, why in _TPU_ONLY_OPTS.items():
+        if pallas_opts.pop(k, False):
+            raise NotImplementedError(f"{k}: {why}")
+    if pallas_opts:
+        raise ValueError(
+            f"options {sorted(pallas_opts)} affect plan construction and "
+            f"have no effect with a prebuilt plan=; build the plan with "
+            f"them (make_od_plan/make_od_fn) instead")
+    if _grid_values(grid).size != plan.grid.n:
+        raise ValueError(f"the plan covers {plan.grid.n} grid points, the "
+                         f"grid {_grid_values(grid).size}")
+    cols = _line_species_cols(lines.host_view(), atmos.mol_ids)
+    params = layer_line_params(lines, iso, atmos, cols, wing_abs=wing_abs,
+                               wing_hw=wing_hw)
+    return xsect_unfused(plan, params, **eval_opts)
+
+
+def compute_od_layers(lines, iso, grid, atmos, profile: str = "voigt",
+                      wing_abs: float = 0.0, wing_hw: float = 50.0,
+                      chunk: int = 512, engine: str = "jnp", plan=None,
+                      pallas_opts: dict | None = None,
+                      continuum: str = "none", continuum_factors=None,
+                      line_mixing: dict | None = None,
+                      ht_extras: dict | None = None) -> torch.Tensor:
+    """(nL, nX) optical-depth tensor of a layered atmosphere, on the device
+    and in the dtype of ``lines`` (the counterpart of ``compute_od_layers``,
+    with its signature, defaults and routing).
+
+    ``engine='pallas'``: with a prebuilt ``plan`` (:func:`make_od_plan`,
+    reused over an ensemble) the layers' line parameters go through the
+    unfused kernel K7 (Voigt, 24 Weideman terms unless
+    ``pallas_opts={'n_weideman': n}``); without one, :func:`make_od_fn`
+    (Voigt, SD-Voigt, Lorentz, Doppler, ``line_mixing``) or
+    :func:`make_od_ht_fn` (``profile='ht'``, ``ht_extras``) plans and runs
+    the state, ``pallas_opts`` passed to them. Any other engine (the
+    default ``'jnp'``, ``'auto'``) runs the reference engine layer by layer
+    (:func:`compute_od_layer`; with ``line_mixing``, the Voigt mixing
+    engine clamped at zero); its SD-Voigt and HT profiles are not ported
+    (ROADMAP M13). ``continuum`` adds :func:`~..atmos.continuum.continuum_od`
+    of that model ('mt_ckd' evaluated pointwise), ``continuum_factors`` the
+    7 TAPE5 record-1.2a scale factors. CUDA inputs run the kernels; CPU
+    inputs their plain versions.
+    """
+    dev, dt = lines.sw.device, lines.sw.dtype
+    if engine == "pallas":
+        opts = dict(pallas_opts or {})
+        if line_mixing is not None:
+            if profile == "ht":
+                raise NotImplementedError(
+                    "line mixing composes with Voigt only")
+            opts.setdefault("line_mixing", line_mixing)
+        if profile == "ht" and ht_extras is not None:
+            opts.setdefault("extras", ht_extras)
+        od = _od_layers_pallas(lines, iso, grid, atmos, profile=profile,
+                               wing_abs=wing_abs, wing_hw=wing_hw, plan=plan,
+                               **opts)
+    else:
+        if profile == "ht":
+            raise NotImplementedError(
+                "profile 'ht' in the reference engine needs the complex "
+                "pcqsdhc of kernels/htp.py and ht_xsect_from_params, not "
+                "ported yet (ROADMAP M13); engine='pallas' runs "
+                "make_od_ht_fn")
+        if line_mixing is not None and profile != "voigt":
+            raise NotImplementedError("line mixing composes with Voigt only")
+        cols = _line_species_cols(lines.host_view(), atmos.mol_ids)
+        X = torch.as_tensor(_grid_values(grid), dtype=dt, device=dev)
+        layers = zip(atmos.T, atmos.p, atmos.pl, atmos.vmr)
+        if line_mixing is None:
+            od = torch.stack([
+                compute_od_layer(lines, iso, X, T, p, pl, vmr, cols,
+                                 profile=profile, wing_abs=wing_abs,
+                                 wing_hw=wing_hw, chunk=chunk)
+                for T, p, pl, vmr in layers])
+        else:
+            od = torch.clamp(torch.stack([
+                _mixing_layer(lines, iso, X, T, p, pl, vmr, cols,
+                              line_mixing, wing_abs, wing_hw, chunk)
+                for T, p, pl, vmr in layers]), min=0.0)
+    if continuum != "none":
+        from ..atmos.continuum import continuum_od
+
+        nu = torch.as_tensor(_grid_values(grid), dtype=od.dtype,
+                             device=od.device)
+        od = od + continuum_od(nu, atmos, model=continuum,
+                               continuum_factors=continuum_factors
+                               ).to(od.dtype)
+    return od
+
+
+def _mixing_layer(lines, iso, X, T, p_pa, pl, vmr, cols, line_mixing,
+                  wing_abs, wing_hw, chunk):
+    """One layer's OD with first-order line mixing by the reference engine
+    (the mixing branch of ``compute_od_layers`` there), before the clamp:
+    first-order mixing can leave small negative excursions next to a Q
+    branch (a truncation artefact; LTE absorption is nonnegative)."""
+    dt, dev = X.dtype, X.device
+    cols_t = torch.as_tensor(cols, dtype=torch.long, device=dev)
+    as_t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=dt, device=dev)
+    p_atm = p_pa / PA_PER_ATM
+    u = species_column(p_pa, T, pl, vmr)
+    prm = compute_line_params(lines, iso, T, p_atm, vmr_self=vmr[cols_t],
+                              wing_abs=wing_abs, wing_hw=wing_hw,
+                              strength_scale=u[cols_t])
+    Y = mixing_coefficient(as_t(line_mixing["y_air"]), p_atm, T,
+                           y_self=as_t(line_mixing.get("y_self")),
+                           x_self=vmr[cols_t],
+                           n_T=float(line_mixing.get("n_T", 0.0)))
+    return xsect_voigt_mixing(X, prm, Y, chunk=chunk)

@@ -1,0 +1,2 @@
+"""Measurement tools of the port (counterpart of the repository's
+``tools/``)."""

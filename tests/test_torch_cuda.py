@@ -21,6 +21,7 @@ from radtxfr_tpu_torch.products.tud import (_layers_below,
                                             downwelling_quadrature,
                                             make_tud_fn)
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator
+from radtxfr_tpu_torch.tools import fp32_peak
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +367,65 @@ def test_defaults_run_on_the_card():
     for k in ("asym", "core"):
         assert fused_xsect.LAUNCHES[k] > before[k], k
     assert fused_tud.LAUNCHES["tud"] > before["tud"]
+
+
+def _unfused_case(dev):
+    """The derived list over 695-745 cm^-1, 66 layers, on 716-726 cm^-1 at
+    5e-4 through make_od_plan's shared-block plan (tile 1024, block 256)."""
+    from radtxfr_tpu_torch.products.od import (_line_species_cols,
+                                               layer_line_params,
+                                               make_od_plan)
+
+    f32 = torch.float32
+    store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    X = arange_drift_free(716.0, 726.0, 0.0005)
+    plan = make_od_plan(store, iso, X, base)
+    cols = _line_species_cols(store.host_view(), base.mol_ids)
+    return plan, {p: layer_line_params(store, iso, base, cols, profile=p)
+                  for p in ("voigt", "lorentz", "doppler")}
+
+
+@pytest.mark.parametrize("mode", fused_xsect.UNFUSED_MODES)
+def test_unfused_kernel_matches_plain(dev, mode):
+    """K7 in each mode against its plain version on the same float32
+    inputs (both on the card): within 2e-6 of the OD's peak (the 'full'
+    spectrum for the asym and core parts; chip_smoke.py phase 3e) and of
+    its own peak but for core (5e-2, a difference of near-equal float32
+    shapes, K1's bound); launched once, bit-identical reruns."""
+    plan, prm = _unfused_case(dev)
+    p = prm[mode if mode in ("lorentz", "doppler") else "voigt"]
+    n0 = fused_xsect.LAUNCHES[f"unfused_{mode}"]
+    got = fused_xsect.xsect_unfused(plan, p, mode)
+    torch.cuda.synchronize()
+    assert fused_xsect.LAUNCHES[f"unfused_{mode}"] == n0 + 1
+    assert torch.equal(got, fused_xsect.xsect_unfused(plan, p, mode))
+    want = fused_xsect.xsect_unfused_plain(plan, p, mode)
+    own = want.abs().max()
+    peak = (fused_xsect.xsect_unfused_plain(plan, p).abs().max()
+            if mode in ("asym", "core") else own)
+    err = (got - want).abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    assert err <= 2e-6 * peak, float(err / peak)
+    assert err <= (5e-2 if mode == "core" else 2e-6) * own, float(err / own)
+
+
+@pytest.mark.parametrize("name,op,n_chains", fp32_peak.SUITE)
+def test_peak_probe_matches_plain(dev, name, op, n_chains):
+    """Each probe mix on the card against its plain chains at both unrolled
+    depths (8 and 256, 2 iterations each), within 4 float32 ulps, with the
+    check operands that move every step by many ulps; the measured peak
+    stays under 1.05 x the data sheet's 67 TFLOP/s (a folded chain would
+    exceed it)."""
+    g = torch.Generator().manual_seed(5)
+    y0 = (0.25 + 0.75 * torch.rand((4096, n_chains), generator=g)).to(dev)
+    ab = dict(a=fp32_peak.CHECK_A, b=fp32_peak.CHECK_B)
+    for depth in (8, fp32_peak.DEPTH):
+        got = fp32_peak.probe(op, depth, 2, y0, **ab)
+        want = fp32_peak.probe_plain(op, depth, 2, y0.cpu(), **ab).to(dev)
+        ulp = torch.finfo(torch.float32).eps * want.abs()
+        assert bool(((got - want).abs() <= 4 * ulp).all()), depth
+    peak, which = fp32_peak.measured_fp32_peak(dev)
+    assert 0.0 < peak <= fp32_peak.FOLD_LIMIT
+    assert which in [m[0] for m in fp32_peak.PEAK_MIXES]

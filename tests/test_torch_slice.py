@@ -78,10 +78,10 @@ def test_make_od_fn_matches_jnp_engine(reference, iso_tables, dtype,
 def test_unported_branches_raise(reference, iso_tables):
     store, atm, lm, _ = reference
     lines, iso, state = _port_inputs(store, iso_tables, atm, torch.float32)
-    for kw in ({"differentiable": True, "line_mixing": lm},
-               {"continuum": "h2o_empirical"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_od_fn(lines, iso, AXIS, state, **kw)
+    # the pointwise continua are ported: test_torch_od_layers.py holds them
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_od_fn(lines, iso, AXIS, state, differentiable=True,
+                   line_mixing=lm)
     # Hartmann-Tran is the layered builder make_od_ht_fn's
     with pytest.raises(NotImplementedError, match="make_od_ht_fn"):
         make_od_fn(lines, iso, AXIS, state, profile="ht")
