@@ -32,8 +32,10 @@ Phases, each printing its result on its own line:
    float32 JVP bound) for a T direction over all layers, the H2O-column
    direction and a batch of 8 one-hot T directions.
 4. K2 (``csrc/fused_tud.cu``) against its plain version at the production
-   width (1,440,001 points, 66 layers, 9 altitudes, 30 angles): tau, Lu and
-   Ld within 5e-6 of peak.
+   width (1,440,001 points, 66 layers, 9 altitudes, 30 angles), in both
+   modes (the Planck source in-kernel; ``planck=False``, the source read
+   from an (nL, nX) input, one direct launch): tau, Lu and Ld within 5e-6
+   of peak.
 5. The main path: ``run_tud`` on the production configuration
    (``tud --derived --line-mixing --continuum mt_ckd --numin 690 --numax
    1410 --dv 0.0005``, 4 members, batch 2) with every kernel's launch count
@@ -124,7 +126,15 @@ operations over the card's rate for them (67 TFLOP/s FP32; K2's
 exponentials also over the special-function units), with the evaluations
 the kernel needs recounted on the host from the plans and the line
 parameters (``window_counts``); the JSON line also carries it at the
-measured FP32 peak (``bound_ms_measured_peak``).
+measured FP32 peak (``bound_ms_measured_peak``), and for K1's production
+modes, ``full`` and K2 in issue slots (``bound_ms_issue``: the SASS
+lane-instructions that the needed work takes, the line shape's arithmetic
+of each needed evaluation or K2's source and carry steps, counted from the
+built library by ``radtxfr_tpu_torch/tools/sass.py`` without the kernel's
+window tests, indexing or loop code, over 4 x 32 lanes x 132 SMs x 1.98
+GHz, or the special-function ops or bytes where those take longer;
+``bound_ms_issue_measured``: the instructions over phase 2b's measured
+FMUL-chain rate).
 
 It ends with one JSON line of kernel results and, last, the device line.
 Any failed check raises; the script then exits non-zero without the last
@@ -133,6 +143,7 @@ line. There is no CPU fallback.
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -160,6 +171,7 @@ from radtxfr_tpu_torch.kernels.linemixing_data import (  # noqa: E402
     y_air_for_store)
 from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist  # noqa: E402
 from radtxfr_tpu_torch.lines.store import IsoTables  # noqa: E402
+from radtxfr_tpu_torch.core.constants import C1, C2  # noqa: E402
 from radtxfr_tpu_torch.core.planck import planckian  # noqa: E402
 from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
 from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
@@ -171,7 +183,7 @@ from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
                                            make_od_fn, make_od_ht_fn,
                                            make_od_plan, make_xsect_fn)
 from radtxfr_tpu_torch.atmos.continuum import continuum_od  # noqa: E402
-from radtxfr_tpu_torch.tools import fp32_peak  # noqa: E402
+from radtxfr_tpu_torch.tools import fp32_peak, sass  # noqa: E402
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
@@ -204,6 +216,9 @@ MARGIN = 25.0           # cm^-1 of lines beyond each band edge (the CLI's)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# issue slots: one warp instruction per scheduler per clock, 4 schedulers
+# an SM, counted per lane (an FFMA, FMUL, FADD, compare or select is one)
+ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
 #: the FP32 issue rate the probe measures on this card (phase 2b), ops/s;
 #: every bound is also stated against it
 MEASURED = {}
@@ -574,6 +589,56 @@ def bound_str(ops, nbytes, sfu=0):
             "measured peak)")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_listing(stem):
+    """The parsed SASS of the built library of ``csrc/<stem>.cu``."""
+    path = next(p for p in _build.build()
+                if os.path.basename(p).rsplit("_", 1)[0] == f"lib{stem}")
+    return sass.parse(sass.disassemble(path))
+
+
+def csrc_text(stem):
+    with open(os.path.join(_build.CSRC, f"{stem}.cu")) as f:
+        return f.read()
+
+
+@functools.lru_cache(maxsize=None)
+def k1_issue(mode):
+    """SASS lane-instructions one K1 evaluation in ``mode`` (asym, core, mix,
+    full; the pass without SPLIT) needs: its line shape's arithmetic inside
+    and outside |x| + y < 15 (``sass.k1_eval_instructions``)."""
+    code = ("asym", "core", "mix", "full").index(mode)
+    instrs = sass.kernel(sass_listing("fused_xsect"),
+                         rf"fused_xsect_kernelILi{code}ELb0E")
+    return sass.k1_eval_instructions(instrs, csrc_text("fused_xsect"), code,
+                                     N_WEI)
+
+
+def k1_issue_work(mode, lay, dplan, prm, counts=None):
+    """The lane-instructions one K1 pass needs: each in-window evaluation at
+    its region's SASS count."""
+    n_win, (n_core,), _ = counts or window_counts(lay, dplan, prm)
+    c = k1_issue(mode)
+    return n_core * c["in"] + (n_win - n_core) * c["out"]
+
+
+@functools.lru_cache(maxsize=None)
+def k2_instructions(n_mu, n_a):
+    """SASS lane-instructions per column and layer that K2's work needs,
+    per mode (``sass.k2_instructions``)."""
+    listing = sass_listing("fused_tud")
+    out = {}
+    for name, planck in (("tud", 1), ("tud_b", 0)):
+        per = sass.k2_instructions(
+            sass.kernel(listing, rf"fused_tud_kernelILb{planck}E"),
+            csrc_text("fused_tud"), n_mu, n_a, bool(planck))
+        out[name] = per["total"]
+        print(f"[4 K2 {name}] SASS lane-instructions per column and layer: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in per.items()),
+              flush=True)
+    return out
+
+
 def k1_bound_work(mode, lay, dplan, prm, counts=None):
     """(lane-ops, bytes) one K1 pass needs on these inputs: every needed
     evaluation at its region's hand count; each parameter of the lines it
@@ -684,28 +749,52 @@ def phase_k1(dev, card):
               f"> {K1_BOUND}")
         check(rel_own <= K1_OWN_BOUND[mode], f"K1 {mode}: {rel_own:.3e} of "
               f"the pass's own peak > {K1_OWN_BOUND[mode]}")
+        counts = window_counts(lay, dplan, prm)
         add_stats(stats, mode, err, k_ms, p_ms,
-                  *k1_bound_work(mode, lay, dplan, prm))
+                  *k1_bound_work(mode, lay, dplan, prm, counts),
+                  instr=k1_issue_work(mode, lay, dplan, prm, counts))
+    for mode in PRODUCTION_MODES:
+        c = k1_issue(mode)
+        print(f"[3 K1 {mode}] SASS lane-instructions an evaluation needs: "
+              f"{c['in']:.2f} inside |x| + y < 15, {c['out']:.2f} outside; "
+              f"Weideman {c['weideman_term']:.2f} a term", flush=True)
     check(set(stats) == set(PRODUCTION_MODES),
           f"K1 sub-band exercised modes {sorted(stats)}")
     return finish_stats(stats)
 
 
-def add_stats(stats, name, err, k_ms, p_ms, ops, nbytes, sfu=0):
+def add_stats(stats, name, err, k_ms, p_ms, ops, nbytes, sfu=0,
+              instr=None):
+    """Accumulate one pass into ``stats[name]``; ``instr``: the issue slots
+    (SASS lane-instructions) its needed work takes, where counted."""
     s = stats.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                 "plain_ms": 0.0, "ops": 0, "bytes": 0,
-                                "sfu": 0})
+                                "sfu": 0, "instr": None})
     s["max_abs_err"] = max(s["max_abs_err"], err)
     s["ms"] += k_ms
     s["plain_ms"] += p_ms
     s["ops"] += ops
     s["bytes"] += nbytes
     s["sfu"] += sfu
+    if instr is not None:
+        s["instr"] = (s["instr"] or 0) + instr
+
+
+def issue_bounds(instr, nbytes=0, sfu=0):
+    """The issue-slot bound of work that needs ``instr`` lane-instructions,
+    ``nbytes`` bytes and ``sfu`` special-function ops: the larger of the
+    instructions at the card's issue rate (132 SMs x 4 schedulers x 32
+    lanes x 1.98 GHz), or at the FMUL-chain rate phase 2b measures, the
+    special-function ops at their rate and the bytes at the memory rate."""
+    floor = max(sfu / SFU_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    return {"bound_ms_issue": max(instr / ISSUE_PER_S, floor) * 1e3,
+            "bound_ms_issue_measured": max(instr / MEASURED["issue"],
+                                           floor) * 1e3}
 
 
 def finish_stats(stats):
     """The JSON fields of each kernel: errors, times, and the bound of the
-    work those times cover."""
+    work those times cover (and in issue slots, where counted)."""
     out = {}
     for name, s in stats.items():
         b_ms, b_by = bound(s["ops"], s["bytes"], s["sfu"])
@@ -715,6 +804,9 @@ def finish_stats(stats):
                      "bound_ms_measured_peak": bound(
                          s["ops"], s["bytes"], s["sfu"],
                          MEASURED["fp32"])[0]}
+        if s["instr"] is not None:
+            out[name].update(issue_bounds(s["instr"], s["bytes"],
+                                          s["sfu"]))
     return out
 
 
@@ -793,8 +885,10 @@ def phase_k1_diff(dev, card):
               flush=True)
         check(err / own <= K1_OWN_BOUND["full"],
               f"K1 full: {err / own:.3e} of peak > {K1_OWN_BOUND['full']}")
+        counts = window_counts(lay, dplan, prm)
         add_stats(stats, "full", err, k_ms, p_ms,
-                  *k1_bound_work("full", lay, dplan, prm))
+                  *k1_bound_work("full", lay, dplan, prm, counts),
+                  instr=k1_issue_work("full", lay, dplan, prm, counts))
         for name, tans in sets.items():
             k_ms, k_t = next(timed)
             p_ms, p_t = cuda_ms(lambda: fused_xsect.xsect_fused_jvp_plain(
@@ -939,48 +1033,78 @@ def phase_k2(dev, card):
     sec, w = (torch.as_tensor(a, dtype=f32, device=dev)
               for a in downwelling_quadrature(30))
     args = (od, x, inv_t, mus, snap, sec, w)
-    k_ms, got = cuda_ms(lambda: fused_tud.tud_compose(*args), 5)
-    again = fused_tud.tud_compose(*args)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "K2: two launches on the same inputs differ")
-    p_ms, want = cuda_ms(lambda: fused_tud.tud_compose_plain(*args), 1)
-    err_max = 0.0
-    for name, g, r in zip(("tau", "Lu", "Ld"), got, want):
-        err = (g - r).abs().max().item()
-        rel = err / r.abs().max().item()
-        err_max = max(err_max, err)
-        print(f"[4 K2 {name}] shape {tuple(g.shape)}: max|kernel-plain| "
-              f"{err:.3e} = {rel:.3e} of peak", flush=True)
-        check(rel <= K2_BOUND, f"K2 {name}: {rel:.3e} of peak > {K2_BOUND}")
-    print(f"[4 K2] {X.size} points x 66 layers, 9 altitudes, 30 angles: "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]", flush=True)
-    # per column and layer: two expm1 (Planck, both passes), one exp per
-    # secant and one per downwelling angle, each one special-function op;
-    # lane-ops by hand: expm1f ~20, expf ~8, each carry update ~5
+    # planck=False: the Planck source read from memory, (nL, nX)
+    nu = x * 100.0
+    B = (((nu * nu * nu) * (C1 * 1e4))[None, :] / torch.expm1(
+        (nu * C2)[None, :] * inv_t[:, None])).contiguous()
     n_x, n_l, n_zs, n_mu, n_a = X.size, base.n_layers, len(ALTITUDES), 1, 30
-    sfu = n_x * (n_l * (2 + n_mu + n_a) + n_zs * n_mu)
-    ops = n_x * n_l * (2 * (20 + 5) + (n_mu + n_a) * (8 + 5))
-    nbytes = 4 * (n_l * n_x + n_x + n_l) + 4 * n_x * (2 * n_zs * n_mu + 1)
-    stats = {}
-    add_stats(stats, "tud", err_max, k_ms, p_ms, ops, nbytes, sfu)
-    out = finish_stats(stats)["tud"]
-    print(f"[4 K2] bound {out['bound_ms']:.4f} ms ({out['bound_by']}; "
-          f"{out['bound_ms_measured_peak']:.4f} ms at the measured peak: "
-          f"{sfu:.4g} special-function ops at {SFU_OPS_PER_S:.4g}/s, "
-          f"{ops:.4g} lane-ops at {FP32_OPS_PER_S:.4g}/s, {nbytes:.4g} B "
-          f"at {HBM_BYTES_PER_S:.4g} B/s) [{card}]", flush=True)
+    instr = k2_instructions(n_mu, n_a)
+    out = {}
+    for name, kern, plain, planck in (
+            ("tud", lambda: fused_tud.tud_compose(*args),
+             lambda: fused_tud.tud_compose_plain(*args), True),
+            ("tud_b", lambda: fused_tud.tud_compose(*args, B=B),
+             lambda: fused_tud.tud_compose_plain(*args, B=B), False)):
+        reset_launches()
+        kern()
+        out[name] = {"launches": read_launches()[name]}
+        k_ms, got = cuda_ms(kern, 5)
+        again = kern()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K2 {name}: two launches on the same inputs differ")
+        p_ms, want = cuda_ms(plain, 1)
+        err_max = 0.0
+        for prod, g, r in zip(("tau", "Lu", "Ld"), got, want):
+            err = (g - r).abs().max().item()
+            rel = err / r.abs().max().item()
+            err_max = max(err_max, err)
+            print(f"[4 K2 {name} {prod}] shape {tuple(g.shape)}: "
+                  f"max|kernel-plain| {err:.3e} = {rel:.3e} of peak",
+                  flush=True)
+            check(rel <= K2_BOUND, f"K2 {name} {prod}: {rel:.3e} of peak > "
+                  f"{K2_BOUND}")
+        print(f"[4 K2 {name}] {n_x} points x 66 layers, 9 altitudes, 30 "
+              f"angles, Planck source {'in-kernel' if planck else 'read'}: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]",
+              flush=True)
+        # per column and layer: one exp2 per secant and one per
+        # downwelling angle, the Planck source's expm1 (an exp2) and divide
+        # (a reciprocal) once, each one special-function op; the expf of
+        # each snapshot. FP32 operations by hand: expm1f ~20 and the divide
+        # ~8, each exp2's argument 1, each carry update 2 (FADD, FFMA)
+        sfu = n_x * (n_l * (n_mu + n_a + (2 if planck else 0))
+                     + n_zs * n_mu)
+        ops = n_x * n_l * ((28 if planck else 0) + (n_mu + n_a) * 3)
+        nbytes = (4 * n_l * n_x * (1 if planck else 2)
+                  + (4 * (n_x + n_l) if planck else 0)
+                  + 4 * n_x * (2 * n_zs * n_mu + 1))
+        stats = {}
+        add_stats(stats, name, err_max, k_ms, p_ms, ops, nbytes, sfu,
+                  instr=n_x * n_l * instr[name])
+        out[name].update(finish_stats(stats)[name])
+        print(f"[4 K2 {name}] bound {out[name]['bound_ms']:.4f} ms "
+              f"({out[name]['bound_by']}; "
+              f"{out[name]['bound_ms_measured_peak']:.4f} ms at the measured"
+              f" peak: {sfu:.4g} special-function ops at "
+              f"{SFU_OPS_PER_S:.4g}/s, {ops:.4g} lane-ops at "
+              f"{FP32_OPS_PER_S:.4g}/s, {nbytes:.4g} B at "
+              f"{HBM_BYTES_PER_S:.4g} B/s); in issue slots "
+              f"{instr[name]:.2f} a column and layer (SASS): "
+              f"{out[name]['bound_ms_issue']:.4f} ms, "
+              f"{out[name]['bound_ms_issue_measured']:.4f} ms at the "
+              f"measured FMUL rate [{card}]", flush=True)
     return out
 
 
 def reset_launches():
     fused_xsect.LAUNCHES.clear()
-    fused_tud.LAUNCHES["tud"] = 0
+    for k in fused_tud.LAUNCHES:
+        fused_tud.LAUNCHES[k] = 0
 
 
 def read_launches():
     """The launches since the last reset, per kernel (0 for any not run)."""
-    return collections.Counter(fused_xsect.LAUNCHES,
-                               tud=fused_tud.LAUNCHES["tud"])
+    return collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
 
 
 def phase_main(card):
@@ -1330,6 +1454,7 @@ def phase_breakdown(dev, card):
     ms["member host wall"] = (time.perf_counter() - t0) / 3 * 1e3
     slot_points = {m: 0 for m in PRODUCTION_MODES}
     work = {m: [0, 0] for m in PRODUCTION_MODES}
+    issue = {m: 0.0 for m in PRODUCTION_MODES}
     prm, _ = od_fn.line_params(T, p, pl, vmr)
     for lay, dplan, mode in od_fn.calls:
         slot_points[mode] += (lay.numel() * int(dplan.counts.sum())
@@ -1338,6 +1463,7 @@ def phase_breakdown(dev, card):
         n_win, (n_core,), _ = counts
         ops, nbytes = k1_bound_work(mode, lay, dplan, prm, counts)
         work[mode] = [work[mode][0] + ops, work[mode][1] + nbytes]
+        issue[mode] += k1_issue_work(mode, lay, dplan, prm, counts)
         print(f"[6 evaluations] {mode} pass, {lay.numel()} layers: "
               f"in-window {n_win:.4g}, in-core {n_core:.4g}", flush=True)
     print(f"[6 breakdown] full-width plan build {build_s:.3f} s; one member "
@@ -1348,6 +1474,13 @@ def phase_breakdown(dev, card):
     print("[6 bounds] per member, K1 bound ms: " + ", ".join(
         f"{m} {bound_str(*w)}" for m, w in work.items())
         + f" [{card}]", flush=True)
+    print("[6 bounds] per member, K1 bound ms in issue slots (SASS "
+          "lane-instructions the in-window evaluations need): " + ", ".join(
+              f"{m} {b['bound_ms_issue']:.4f} "
+              f"({b['bound_ms_issue_measured']:.4f} at the measured FMUL "
+              f"rate)" for m, b in ((m, issue_bounds(i, work[m][1]))
+                                    for m, i in issue.items()))
+          + f" [{card}]", flush=True)
 
 
 def phase_jac_breakdown(dev, card):
@@ -1373,6 +1506,7 @@ def phase_jac_breakdown(dev, card):
     tans = [t.contiguous() for t in tans]
     prm = od_fn.line_params(T, p, pl, vmr)[0]
     ms["K1 full"] = ms["K3 (8 dirs)"] = 0.0
+    full_issue = 0.0
     work = {"full": [0, 0], "jvp": [0, 0]}
     for lay, dplan, _ in od_fn.calls:
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
@@ -1386,6 +1520,7 @@ def phase_jac_breakdown(dev, card):
         for k, (o, b) in (("full", k1_bound_work("full", lay, dplan, prm)),
                           ("jvp", k3_bound_work(lay, dplan, prm, tans))):
             work[k] = [work[k][0] + o, work[k][1] + b]
+        full_issue += k1_issue_work("full", lay, dplan, prm)
     ms["continuum + tangents"], _ = cuda_ms(
         lambda: vjvp(lambda T_: od_fn.cont(T_, p, pl, vmr), T), 3)
     ms["OD + tangents"], (od, od_t) = cuda_ms(
@@ -1416,7 +1551,11 @@ def phase_jac_breakdown(dev, card):
           "stage: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; peak device memory of a batch {peak_gib:.3f} GiB; bound ms: "
           + ", ".join(f"{k} {bound_str(*w)}"
-                      for k, w in work.items()) + f" [{card}]", flush=True)
+                      for k, w in work.items())
+          + "; K1 full in issue slots {bound_ms_issue:.4f} "
+          "({bound_ms_issue_measured:.4f} at the measured FMUL rate)".format(
+              **issue_bounds(full_issue, work["full"][1]))
+          + f" [{card}]", flush=True)
 
 
 def ht_extras(n, seed, frac):
@@ -1981,6 +2120,9 @@ def phase_probe(dev, card):
     suite = fp32_peak.probe_suite(dev)
     launches = fp32_peak.LAUNCHES["fp32_peak_probe"]
     MEASURED["fp32"] = peak
+    # P1's dependent FMUL chain: one lane-instruction a step
+    MEASURED["issue"] = next(r["ops_per_s"] for r in suite
+                             if r["probe"] == "mul_dep")
     for rec in suite:
         print(f"[2b suite] {json.dumps(rec)}", flush=True)
     print(f"[2b peak] measured FP32 peak {peak:.6g} ops/s ({which}) = "
@@ -2281,10 +2423,17 @@ def main():
                     "source": src + "peak_probe.cu",
                     "replaces": "bench.py:193, tools/vpu_peak_probe.py:62",
                     **probe})
+    k2["tud"]["launches"] = launches["tud"]
     kernels.append({"name": "fused_tud", "route": "cuda",
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",
-                    "launches": launches["tud"], **k2})
+                    **k2["tud"]})
+    # planck=False: no path of the package calls it; its launch is phase
+    # 4's direct one
+    kernels.append({"name": "fused_tud_source_input", "route": "cuda",
+                    "source": src + "fused_tud.cu",
+                    "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",
+                    **k2["tud_b"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -58,3 +58,7 @@ def resolve_device(device=None) -> torch.device:
 #: packaged data tables shared with the JAX package (read by path only)
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "radtxfr_tpu", "data")
+
+# the top-level names of radtxfr_tpu/__init__.py that are ported
+from .core.planck import planckian  # noqa: E402,F401
+from .core.grid import arange_drift_free  # noqa: E402,F401

@@ -29,8 +29,10 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
+# -lineinfo maps each SASS instruction to its source line (nvdisasm -g) and
+# leaves the generated code as it is
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -76,9 +78,10 @@ _SIGNATURES = {
     # n_tiles, n_out, dx, out, stream
     "radtxfr_fused_ht_jvp": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, P, I,
                              I, I, I, I, ctypes.c_double, P, P],
-    # od, x, inv_t, n_lay, n_x, mus, n_mu, snap, n_zs, sec, w, n_angles,
-    # return_od, tau, lu, ld, stream
-    "radtxfr_fused_tud": [P, P, P, I, I, P, I, P, I, P, P, I, I, P, P, P, P],
+    # od, src (x or B), inv_t, planck, n_lay, n_x, mus, n_mu, snap, n_zs,
+    # sec, w, n_angles, return_od, tau, lu, ld, stream
+    "radtxfr_fused_tud": [P, P, P, I, I, I, P, I, P, I, P, P, I, I, P, P, P,
+                          P],
 }
 
 
@@ -178,6 +181,12 @@ def check_tensor(name, t, dtype, device, shape=None):
     if shape is not None and tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
+
+
+def tool(name: str) -> str:
+    """A CUDA toolkit program beside ``nvcc`` (``cuobjdump``,
+    ``nvdisasm``)."""
+    return os.path.join(os.path.dirname(_find_nvcc()), name)
 
 
 @functools.lru_cache(maxsize=1)

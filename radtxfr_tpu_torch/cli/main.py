@@ -37,10 +37,11 @@ the CLI takes no HT columns, so its lines route to the SD-Voigt and Voigt
 degenerations of pcqsdhc.
 
 Not ported yet (each raises ``NotImplementedError``): ``--par`` (parse_par
-and the native parser, ROADMAP M9), ``xsect --engine jnp`` (the JAX
-package's jnp engine, whose SD-Voigt and HT profiles are pcqsdhc through
-``htp.py``, M13), ``--checkpoint`` (M9) and ``--mesh-*`` (M15, with the
-sharded Jacobian).
+and the native parser, ROADMAP M9), ``--engine jnp`` (the JAX package's
+jnp engine, whose SD-Voigt and HT profiles are pcqsdhc through ``htp.py``,
+M13; ROADMAP queue 1 item 3), ``--checkpoint`` (M9) and ``--mesh-*`` (M15,
+with the sharded Jacobian; ``tud --partition`` is accepted and matters only
+there).
 """
 
 from __future__ import annotations
@@ -189,6 +190,10 @@ def run_tud(args, device, timings: dict | None = None):
     from ..products.tud import make_tud_fn
     from ..sensor.resolution import reduce_operator
 
+    if args.engine == "jnp":
+        raise NotImplementedError(
+            "--engine jnp: the JAX package's reference engine for tud is "
+            "ROADMAP queue 1 item 3; the port runs the kernels")
     if args.checkpoint:
         raise NotImplementedError(
             "--checkpoint: resumable ensemble checkpoints (dist/checkpoint.py)"
@@ -337,6 +342,10 @@ def _add_common(p):
     p.add_argument("--output", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device the run uses (e.g. cuda, cuda:1, cpu)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "jnp", "pallas"],
+                   help="'auto' and 'pallas' (the JAX CLI's name) run the "
+                        "kernels; 'jnp' is not ported")
 
 
 def build_parser():
@@ -347,10 +356,6 @@ def build_parser():
 
     p2 = sub.add_parser("xsect", help="config 2: (T, p) cross-section lattice")
     _add_common(p2)
-    p2.add_argument("--engine", default="auto",
-                    choices=["auto", "jnp", "pallas"],
-                    help="'auto' and 'pallas' (the JAX CLI's name) run the "
-                         "kernels; 'jnp' is not ported")
     p2.add_argument("--T", type=float, default=296.0)
     p2.add_argument("--p", type=float, default=1.0, help="pressure [atm]")
     p2.add_argument("--profile", default="voigt",
@@ -385,6 +390,10 @@ def build_parser():
                     default=1, help="(not ported)")
     p3.add_argument("--mesh-ensemble", dest="mesh_ensemble", type=int,
                     default=1, help="(not ported)")
+    p3.add_argument("--partition", default="weighted",
+                    choices=["equal", "weighted"],
+                    help="spectral-shard assignment of the --mesh-* path "
+                         "(accepted; matters only with --mesh-*)")
     p3.add_argument("--jacobian", action="store_true",
                     help="also write d(tau,Lu,Ld)/d(T,H2O,O3) for the "
                          "standard atmosphere (forward-mode autodiff; "

@@ -30,13 +30,29 @@
 // the TRUE window (wing / dx, no wing cap): their plans place lines only
 // near their centres and at their window edges.
 //
-// Shape. One CTA per (256-point slice of a tile, chunk of LC layers); one
-// thread per PPT points of the slice (strided by THREADS so a warp covers
-// 32 consecutive points: coalesced stores, near-uniform window masks). The
-// CTA walks its tile's blocks [starts[i], starts[i] + counts[i]) in chunks
-// of CH slots: it stages each slot's grid position and, per layer, the
-// eight per-(line, layer) constants the evaluation needs (two float4: one
-// 16-byte shared-memory broadcast each) and accumulates in registers. Where
+// Shape. One CTA per (256-point slice of a tile, chunk of LC layers): two
+// warps, each owning 128 consecutive points of the slice (a lane its points
+// p*32 + lane, so every store is coalesced and each 32-point span is one
+// warp-uniform range). The CTA walks its tile's blocks [starts[i],
+// starts[i] + counts[i]) in chunks of KCH slots through a three-stage
+// pipeline in shared memory: cp.async copies each chunk's slot data (grid
+// index, fraction, line, wing cap) two chunks ahead and its scattered
+// per-(line, layer) parameters one chunk ahead, so those loads overlap the
+// evaluation of the chunk before. Per staged (slot, layer) pair the CTA
+// computes the eight constants the evaluation needs (two float4) and the
+// pair's integer window [k_line + floor(frac0 - wingu) - 2, k_line +
+// ceil(frac0 + wingu) + 2] (a superset of the indices the float window test
+// can pass), intersects it with the slice's points and keeps, per layer and
+// in slot order (warp ballot and prefix count), only the pairs that meet
+// them. Each warp then tests a kept pair against its 128 points and each of
+// its four 32-point spans with one warp-uniform integer compare before its
+// lanes evaluate: the production asym tiles are four slices wide and the
+// windows narrow, so 40-60% of the staged pairs miss the slice (host count
+// on the derived list), and in the core pass ~70% of the kept pairs' spans
+// miss their window. A
+// skipped pair or span holds only points whose window test fails, whose
+// terms were never added: each point adds the same terms in the same order
+// as a walk over every slot, and the outputs are the same bits. Where
 // a tile holds more than SPLIT_SLOTS line slots (350 cm^-1 windows put
 // thousands of lines on every point, and one running float32 sum over them
 // drifts by a few 1e-6 of the peak: measured 2.9e-6 against the plain
@@ -46,9 +62,10 @@
 // extra registers would cost them ~10% (spills).
 // Every output is written once by one thread, in a fixed order: no atomics,
 // and the same inputs give bit-identical outputs. A correction pass (the
-// same kernel, CORR) also evaluates, per staged (slot, layer), the slice's
+// same kernel, CORR) also evaluates, per kept (slot, layer), the slice's
 // node values once (256/R + 3 of them, so R must divide 256; R >= 8 bounds
-// the shared buffer) and each point interpolates its four with FP32 FMAs:
+// the shared buffer), keeps the pairs whose window meets the slice's node
+// rows, and each point interpolates its four with FP32 FMAs:
 // no tensor cores (the TPU kernel needed Precision.HIGHEST for the same
 // product).
 //
@@ -97,7 +114,11 @@
 // the window mask (and, in core, mix and full, on the region) skips
 // evaluations whose contribution the Pallas kernel computes and then
 // discards; chip_smoke.py recounts the in-window (and in-core) evaluations
-// of each pass on the host and states each mode's bound from them.
+// of each pass on the host and states each mode's bound from them, both in
+// the operations above and in issue slots: the SASS instructions of a
+// point in asym, core, mix and full, counted from this file's build
+// (tools/sass.py: asym 31.5 a point in its window, 6.25 a point whose
+// window test fails; PERF.md).
 //
 // Numerics follow the Pallas kernel op for op, in float32: dx*cte, g0*cte
 // and strength*(1/sqrt(pi)*cte) per (line, layer); IEEE division and square
@@ -116,11 +137,10 @@ constexpr int THREADS = 64;            // threads per CTA
 constexpr int PPT = 4;                 // grid points per thread
 constexpr int SPAN = THREADS * PPT;    // points per CTA
 constexpr int LC = 4;                  // layers per CTA
-constexpr int CH = 64;                 // line slots staged per step
-constexpr int CHC = 32;                // ... in the correction kernel
+constexpr int CH = 64;                 // line slots K7 stages per step
+constexpr int KCH = 32;                // ... K1 (a warp's ballot each)
 constexpr int SPLIT_SLOTS = 2048;      // a tile's slots that take SPLIT
 constexpr int MIN_R = 8;               // smallest correction R
-constexpr int NODES_MAX = SPAN / MIN_R + 3;
 constexpr int MAX_WEI = 32;            // Weideman terms at most
 
 constexpr float SQRT_LN2 = static_cast<float>(0.8325546111576977);
@@ -330,6 +350,65 @@ __device__ __forceinline__ float sdvoigt(float u, const LineConst& c,
   return xm(c.a.w, xm(c.b.z, xs(w1, w2)));
 }
 
+// unguarded asymptotic Re w (pallas_xsect.py::_voigt_wr, mode 'full')
+__device__ __forceinline__ float far_re_w(float x, float y, const float4& b) {
+  const float dr = b.y - x * x;
+  const float di = b.z * x;
+  return INV_SQRT_PI * (y * dr - x * di) * (1.0f / (dr * dr + di * di));
+}
+
+// unguarded asymptotic K and L (pallas_xsect.py::_voigt_w_KL)
+__device__ __forceinline__ void far_kl(float x, float y, const float4& b,
+                                       float* K, float* Lw) {
+  const float dr = b.y - x * x;
+  const float di = b.z * x;
+  const float inv = INV_SQRT_PI * (1.0f / (dr * dr + di * di));
+  *K = (y * dr - x * di) * inv;
+  *Lw = -(x * dr + y * di) * inv;
+}
+
+// a Voigt mode's masked-in contribution at grid offset u before the line's
+// scale c.a.w (eval multiplies; K1's asym adds c.a.w * value to its sum
+// with one FMA)
+template <int MODE>
+__device__ __forceinline__ float voigt_value(float u, const LineConst& c,
+                                             const float* wei, int n_wei) {
+  const float x = (u - c.a.x) * c.a.y;
+  const float y = c.b.x;
+  if (MODE == ASYM) return asym_re_w(x, c.b);
+  const bool in_core = fabsf(x) + y < REGION_BOUND;
+  if (MODE == CORE) {
+    if (!in_core) return 0.0f;
+    float re, im;
+    weideman_w<false>(x, y, wei, n_wei, &re, &im);
+    return re - asym_re_w(x, c.b);
+  }
+  if (MODE == FULL) {
+    float re, im;
+    if (in_core)
+      weideman_w<false>(x, y, wei, n_wei, &re, &im);
+    else
+      re = far_re_w(x, y, c.b);
+    return re;
+  }
+  float K, Lw;
+  if (in_core)
+    weideman_w<true>(x, y, wei, n_wei, &K, &Lw);
+  else
+    far_kl(x, y, c.b, &K, &Lw);
+  return K + c.b.w * Lw;
+}
+
+// the Lorentz or Doppler shape at grid offset u before the line's scale
+// c.a.w
+template <int MODE>
+__device__ __forceinline__ float ld_value(float u, const LineConst& c) {
+  const float x = (u - c.a.x) * c.a.y;
+  if (MODE == LORENTZ) return INV_PI * (1.0f / (c.b.x + x * x));
+  const float t = x * c.b.x;
+  return expf((-LN2_HAPI * t) * t);
+}
+
 // the masked-in contribution of one slot at grid offset u (all modes but
 // the correction passes)
 template <int MODE>
@@ -338,48 +417,12 @@ __device__ __forceinline__ float eval(float u, const LineConst& c,
   if (MODE == SDV) return sdvoigt<SD_FULL>(u, c, dx, wei, n_wei);
   if (MODE == SDV_ASYM) return sdvoigt<SD_ASYM>(u, c, dx, wei, n_wei);
   if (MODE == SDV_CORE) return sdvoigt<SD_CORE>(u, c, dx, wei, n_wei);
-  if (MODE == LORENTZ) {
-    const float dnu = (u - c.a.x) * c.a.y;
-    return c.a.w * (INV_PI * (1.0f / (c.b.x + dnu * dnu)));
-  }
-  if (MODE == DOPPLER) {
-    const float t = ((u - c.a.x) * c.a.y) * c.b.x;
-    return c.a.w * expf((-LN2_HAPI * t) * t);
-  }
-  const float x = (u - c.a.x) * c.a.y;
-  const float y = c.b.x;
-  if (MODE == ASYM) return c.a.w * asym_re_w(x, c.b);
-  const bool in_core = fabsf(x) + y < REGION_BOUND;
-  if (MODE == CORE) {
-    if (!in_core) return 0.0f;
-    float re, im;
-    weideman_w<false>(x, y, wei, n_wei, &re, &im);
-    return c.a.w * (re - asym_re_w(x, c.b));
-  }
-  if (MODE == FULL) {
-    float re, im;
-    if (in_core) {
-      weideman_w<false>(x, y, wei, n_wei, &re, &im);
-    } else {
-      // unguarded asymptotic Re w (pallas_xsect.py::_voigt_wr, mode 'full')
-      const float dr = c.b.y - x * x;
-      const float di = c.b.z * x;
-      re = INV_SQRT_PI * (y * dr - x * di) * (1.0f / (dr * dr + di * di));
-    }
-    return c.a.w * re;
-  }
-  float K, Lw;
-  if (in_core) {
-    weideman_w<true>(x, y, wei, n_wei, &K, &Lw);
-  } else {
-    // unguarded asymptotic K and L (pallas_xsect.py::_voigt_w_KL)
-    const float dr = c.b.y - x * x;
-    const float di = c.b.z * x;
-    const float inv = INV_SQRT_PI * (1.0f / (dr * dr + di * di));
-    K = (y * dr - x * di) * inv;
-    Lw = -(x * dr + y * di) * inv;
-  }
-  return c.a.w * (K + c.b.w * Lw);
+  if (MODE == LORENTZ || MODE == DOPPLER) return c.a.w * ld_value<MODE>(u, c);
+  const float r = voigt_value<MODE>(u, c, wei, n_wei);
+  // core: a point outside |x| + y < 15 adds an exact 0, not c.a.w * 0
+  // (so the add is not contracted with the scale)
+  if (MODE == CORE) return r == 0.0f ? 0.0f : c.a.w * r;
+  return c.a.w * r;
 }
 
 // a correction pass's node term: the guarded asymptotic far field the
@@ -410,9 +453,10 @@ __device__ __forceinline__ float corr_point(float u, const LineConst& c,
   return corr_node<MODE>(u, c, dx, wei, n_wei);
 }
 
-// Stage slots [c0, c0 + nc) of the tile's run: grid positions and, per
-// layer, the line constants (padding slots filled as the Pallas wrapper
-// pads them, never in-window). CAP: clamp the wing to the plan's cap.
+// Stage slots [c0, c0 + nc) of a block for K7 (unfused_xsect_kernel): grid
+// positions and, per layer, the line constants (padding slots filled as the
+// Pallas wrapper pads them, never in-window). CAP: clamp the wing to the
+// plan's cap.
 template <int MODE, int NCH, bool CAP>
 __device__ __forceinline__ void stage(
     int c0, int nc, int slot0, int nl, int l0, int tid,
@@ -446,14 +490,99 @@ __device__ __forceinline__ void stage(
   }
 }
 
-// One CTA per (256-point slice of a tile, LC layers). A correction pass
-// (pallas_xsect.py:762-879) stages CHC slots a chunk (its node buffer
-// shares the CTA's shared memory), masks by the true window, evaluates the
-// slice's node values once per staged (layer, slot) and adds, per point,
-// the point term minus the cubic interpolation of its four nodes; it always
-// keeps per-chunk sums (SPLIT).
+// ---- K1's staging pipeline: cp.async, window culling, compaction ----
+
+// a 4-byte asynchronous copy from device to shared memory (sm_80+)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The grid indices d - k_line (a superset) at which a slot can pass the
+// window test u > -wingu && u <= wingu, u = float(d) - frac0: the float
+// rounding of u and of frac0 -+ wingu stays under a grid step while
+// |d|, wingu < 2^22, and wider (or NaN) windows take every index.
+__device__ __forceinline__ int2 window_range(float f0, float wingu) {
+  if (!(wingu <= 4194304.0f)) return make_int2(-(1 << 30), 1 << 30);
+  return make_int2(static_cast<int>(floorf(f0 - wingu)) - 2,
+                   static_cast<int>(ceilf(f0 + wingu)) + 2);
+}
+
+// core adds only inside hum1_wei's |x| + y < 15, x = (d - frac0 - ds) xs
+// (outside it adds an exact 0): the indices |d - (frac0 + ds)| < (15 - y)
+// / xs, widened by 1e-4 of the radius and a grid step, intersected with the
+// window; empty (lo > hi) where y >= 15
+__device__ __forceinline__ int2 core_range(float f0, const LineConst& c,
+                                           int2 win) {
+  const float r = (REGION_BOUND - c.b.x) / c.a.y;
+  if (!(r > 0.0f)) return make_int2(1, 0);
+  const int2 cw = window_range(f0 + c.a.x, r * 1.0001f + 1.0f);
+  return make_int2(max(win.x, cw.x), min(win.y, cw.y));
+}
+
+// A K1 CTA's shared memory: a ring of three chunks of slot data (grid
+// index, fraction, line, wing cap), copied two chunks ahead; the raw
+// per-(layer, slot) parameters of the next chunk, copied one chunk ahead;
+// and this chunk's surviving (layer, slot) pairs, compacted per layer in
+// slot order: their constants and (window lo, hi, k_line, frac0 bits).
+constexpr int RING = 3;
+constexpr int NRAW = 6;   // shift0, strength, gamma_d, gamma_0, wing, extra
+template <int NCH>
+struct K1Smem {
+  int k[RING][NCH];
+  float f[RING][NCH];
+  int line[RING][NCH];
+  float cap[RING][NCH];
+  float raw[NRAW][LC][NCH];
+  LineConst c[LC][NCH];
+  int4 meta[LC][NCH];
+  int n[LC];
+};
+
+// One CTA per (256-point slice of a tile, LC layers): two warps, each
+// owning 128 consecutive points of the slice, a lane its points
+// warp*128 + p*32 + lane (p < PPT). The tile's slots are walked in chunks
+// of NCH. Each staged (slot, layer) pair's integer window is intersected
+// with the CTA's points (a correction pass: with its node rows) and only the
+// pairs that meet it are kept, in slot order; each warp then tests a kept
+// pair's window against its 128 points and each 32-point span with one
+// warp-uniform integer compare before its lanes evaluate. A culled pair or
+// span held only points outside the window, whose terms were never added,
+// so every point adds the same terms in the same order as a walk over
+// every slot. asym, lorentz and doppler, whose kept pairs are nearly all
+// in their window, evaluate a warp's four points without a branch and add
+// c.a.w * the shape (voigt_value, ld_value) with one FMA (the contraction
+// the compiler chose for the slot walk; a masked point adds c.a.w * 0), so
+// their four chains interleave. A SPLIT sum keeps each 64-slot group's
+// sum apart (two chunks; a correction pass's 32-slot chunk), as the slot
+// walk did. A correction pass (pallas_xsect.py:762-879) masks by the true
+// window, evaluates the slice's node values once per kept (layer, slot)
+// into dynamic shared memory (LC * KCH * (SPAN/R + 3) floats) and adds,
+// per point, the point term minus the cubic interpolation of its four
+// nodes; it always keeps per-chunk sums (SPLIT).
+//
+// Occupancy: 10.8 KB of static shared memory a CTA (plus 3.6 KB of nodes
+// at R = 64); k1_min_ctas caps the registers for 16 CTAs an SM (the Voigt
+// modes: 64 registers), 18 (core and the SD-Voigt modes: 56) or 13 (a
+// correction pass: 72), 26-36 warps, where shared memory alone let ptxas
+// take 96 registers and hold 10, slower than the slot walk's 45-70
+// registers (PERF.md)
+template <int MODE>
+__host__ __device__ constexpr int k1_min_ctas() {
+  return is_corr(MODE) ? 13 : is_sd(MODE) ? 18 : MODE == CORE ? 18 : 16;
+}
+
 template <int MODE, bool SPLIT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, k1_min_ctas<MODE>())
 fused_xsect_kernel(const int* __restrict__ starts,
                    const int* __restrict__ counts,
                    const int* __restrict__ k_line,
@@ -473,41 +602,64 @@ fused_xsect_kernel(const int* __restrict__ starts,
                    float* __restrict__ out) {
   constexpr bool CORR = is_corr(MODE);
   static_assert(SPLIT || !CORR, "a correction pass keeps per-chunk sums");
-  constexpr int NCH = CORR ? CHC : CH;
-  __shared__ LineConst s_c[LC][NCH];
-  __shared__ int s_k[NCH];
-  __shared__ float s_f[NCH];
+  constexpr int NCH = KCH;
+  // a warp's four points without a branch between them
+  constexpr bool DENSE = MODE == ASYM || MODE == LORENTZ || MODE == DOPPLER;
+  // SPLIT: slots whose sum is kept apart
+  constexpr int GROUP = CORR ? KCH : 2 * KCH;
+  constexpr int NWARP = THREADS / 32;
+  constexpr int WPTS = 32 * PPT;         // points of a warp
+  constexpr int LPW = LC / NWARP;        // layers each warp stages
+  static_assert(SPAN == NWARP * WPTS && LC % NWARP == 0 && NCH % 32 == 0,
+                "two warps of 128 points, LC layers split between them");
+  // the raw parameter beyond the five every mode reads
+  constexpr bool EXTRA = MODE == MIX || is_sd(MODE);
+  __shared__ K1Smem<NCH> sm;
   __shared__ float s_wei[MAX_WEI + 1];
-  // the correction pass's node values of each staged (layer, slot)
-  __shared__ float s_nv[CORR ? LC : 1][CORR ? NCH : 1][CORR ? NODES_MAX : 1];
+  // the correction pass's node values of each kept (layer, slot): rows of
+  // SPAN/R + 3
+  extern __shared__ float s_nv[];
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int tile_i = blockIdx.x / sub_per_tile;
   const int sub = blockIdx.x - tile_i * sub_per_tile;
   const int l0 = blockIdx.y * LC;
   const int nl = min(LC, n_lay_call - l0);
+  const int t0 = tile_i * tile;
   // a slice past the grid's end (the last tile of a short grid) has no
   // output: the whole CTA leaves
-  if (tile_i * tile + sub * SPAN >= n_out) return;
+  if (t0 + sub * SPAN >= n_out) return;
 
   if (MODE != ASYM) {
     for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
   }
 
   // CORR: the slice's node rows; point kloc of the tile takes rows
-  // kloc/R .. kloc/R + 3, row m at grid index tile_i*tile + (m - 1)*R
+  // kloc/R .. kloc/R + 3, row m at grid index t0 + (m - 1)*R
   const int kloc0 = sub * SPAN;
   const int last = min(kloc0 + SPAN, tile) - 1;
   const int row0 = CORR ? kloc0 / R : 0;
   const int n_nodes = CORR ? last / R - row0 + 4 : 0;
+  const int nv_row = CORR ? SPAN / R + 3 : 0;
+  // the grid indices whose windows matter to this CTA: its points, or a
+  // correction pass's node rows (which enclose its points)
+  const int r_lo = CORR ? t0 + (row0 - 1) * R : t0 + kloc0;
+  const int r_hi = CORR ? t0 + (row0 + n_nodes - 2) * R
+                        : min(t0 + last, n_out - 1);
+  // a point's four nodes lie within 2R of it: a span check's reach
+  const int reach = CORR ? 2 * R : 0;
+  const int wk0 = t0 + kloc0 + warp * WPTS;   // this warp's first point
+  const bool warp_live = kloc0 + warp * WPTS <= last && wk0 < n_out;
 
   int kg[PPT], seg[PPT];
   bool live[PPT];
   float w[PPT][4];
 #pragma unroll
   for (int p = 0; p < PPT; ++p) {
-    const int kloc = kloc0 + p * THREADS + tid;
-    kg[p] = tile_i * tile + kloc;
+    const int kloc = kloc0 + warp * WPTS + p * 32 + lane;
+    kg[p] = t0 + kloc;
     live[p] = kloc < tile && kg[p] < n_out;
     if constexpr (CORR) {
       const int ks = min(kloc, last);
@@ -524,90 +676,191 @@ fused_xsect_kernel(const int* __restrict__ starts,
   }
 
   float acc[LC][PPT];
+  float part[LC][PPT];   // SPLIT: this group's sum, then added to acc
 #pragma unroll
   for (int l = 0; l < LC; ++l)
 #pragma unroll
     for (int p = 0; p < PPT; ++p) acc[l][p] = 0.0f;
 
+  // the parameter rows of the layers this thread stages
+  size_t lay_off[LPW];
+#pragma unroll
+  for (int t = 0; t < LPW; ++t) {
+    const int l = warp + NWARP * t;
+    lay_off[t] = l < nl ? static_cast<size_t>(lay_idx[l0 + l]) * n_lines : 0;
+  }
+
   const int slot0 = starts[tile_i] * block;
   const int n_slots = counts[tile_i] * block;
-  for (int c0 = 0; c0 < n_slots; c0 += NCH) {
+  const int n_chunks = (n_slots + NCH - 1) / NCH;
+
+  // slot data of chunk ch into its ring entry
+  auto issue_slots = [&](int ch) {
+    const int c0 = ch * NCH;
     const int nc = min(NCH, n_slots - c0);
-    __syncthreads();   // the previous chunk is consumed
-    stage<MODE, NCH, !CORR>(c0, nc, slot0, nl, l0, tid, k_line, frac0, line,
-                            wcap, lay_idx, shift0, strength, gamma_d, gamma_0,
-                            wing, ymix, gamma_2, n_lines, dx, s_c, s_k, s_f);
+    const int r = ch % RING;
+    for (int j = tid; j < nc; j += THREADS) {
+      const int s = slot0 + c0 + j;
+      cp_async4(&sm.k[r][j], k_line + s);
+      cp_async4(&sm.f[r][j], frac0 + s);
+      cp_async4(&sm.line[r][j], line + s);
+      if (!CORR) cp_async4(&sm.cap[r][j], wcap + s);
+    }
+  };
+  // raw parameters of chunk ch's (layer, slot) pairs, rows by its lines
+  auto issue_params = [&](int ch) {
+    const int nc = min(NCH, n_slots - ch * NCH);
+    const int r = ch % RING;
+#pragma unroll
+    for (int t = 0; t < LPW; ++t) {
+      const int l = warp + NWARP * t;
+      if (l >= nl) continue;
+      for (int j = lane; j < nc; j += 32) {
+        const int g = sm.line[r][j];
+        if (g < 0) continue;
+        const size_t off = lay_off[t] + g;
+        cp_async4(&sm.raw[0][l][j], shift0 + off);
+        cp_async4(&sm.raw[1][l][j], strength + off);
+        cp_async4(&sm.raw[2][l][j], gamma_d + off);
+        cp_async4(&sm.raw[3][l][j], gamma_0 + off);
+        cp_async4(&sm.raw[4][l][j], wing + off);
+        if (EXTRA)
+          cp_async4(&sm.raw[5][l][j], (MODE == MIX ? ymix : gamma_2) + off);
+      }
+    }
+  };
+
+  if (n_chunks > 0) issue_slots(0);
+  cp_async_commit();
+  if (n_chunks > 1) issue_slots(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (n_chunks > 0) issue_params(0);
+  cp_async_commit();
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int nc = min(NCH, n_slots - ch * NCH);
+    const int r = ch % RING;
+    cp_async_wait<0>();
+    __syncthreads();   // chunk ch's parameters and ch + 1's slots are in;
+                       // the previous chunk is consumed
+    // constants, windows and the kept pairs of each layer, in slot order
+#pragma unroll
+    for (int t = 0; t < LPW; ++t) {
+      const int l = warp + NWARP * t;
+      int n_kept = 0;
+#pragma unroll
+      for (int q = 0; q < NCH / 32; ++q) {
+        const int j = q * 32 + lane;
+        bool keep = false;
+        LineConst c;
+        int2 win;
+        int kl = 0;
+        float f0 = 0.0f;
+        if (l < nl && j < nc && sm.line[r][j] >= 0) {
+          kl = sm.k[r][j];
+          f0 = sm.f[r][j];
+          const float wg = sm.raw[4][l][j];
+          const float wv = CORR ? wg : fminf(wg, sm.cap[r][j]);
+          c = line_const<MODE>(sm.raw[0][l][j], sm.raw[1][l][j],
+                               sm.raw[2][l][j], sm.raw[3][l][j],
+                               is_sd(MODE) ? sm.raw[5][l][j] : 1.0f, wv / dx,
+                               MODE == MIX ? sm.raw[5][l][j] : 0.0f, dx);
+          win = window_range(f0, c.a.z);
+          if (MODE == CORE) win = core_range(f0, c, win);
+          keep = win.x <= win.y && kl + win.y >= r_lo && kl + win.x <= r_hi;
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        if (keep) {
+          const int pos = n_kept + __popc(bal & ((1u << lane) - 1u));
+          sm.c[l][pos] = c;
+          sm.meta[l][pos] = make_int4(kl + win.x, kl + win.y, kl,
+                                      __float_as_int(f0));
+        }
+        n_kept += __popc(bal);
+      }
+      if (lane == 0) sm.n[l] = n_kept;
+    }
     __syncthreads();
+    if (ch + 1 < n_chunks) issue_params(ch + 1);
+    if (ch + 2 < n_chunks) issue_slots(ch + 2);
+    cp_async_commit();
+
     if constexpr (CORR) {
-      // the masked node values of every staged (layer, slot), once
-      const int per_l = nc * n_nodes;
-      for (int i = tid; i < nl * per_l; i += THREADS) {
-        const int l = i / per_l;
-        const int rem = i - l * per_l;
-        const int j = rem / n_nodes;
-        const int m = rem - j * n_nodes;
-        const int kn = tile_i * tile + (row0 + m - 1) * R;
-        const float un = static_cast<float>(kn - s_k[j]) - s_f[j];
-        const LineConst c = s_c[l][j];
-        s_nv[l][j][m] = (un > -c.a.z && un <= c.a.z)
-                            ? corr_node<MODE>(un, c, dx, s_wei, n_wei)
-                            : 0.0f;
+      // the masked node values of every kept (layer, slot), once
+      for (int l = 0; l < nl; ++l) {
+        const int per_l = sm.n[l] * n_nodes;
+        for (int i = tid; i < per_l; i += THREADS) {
+          const int j = i / n_nodes;
+          const int m = i - j * n_nodes;
+          const int kn = t0 + (row0 + m - 1) * R;
+          const int4 mt = sm.meta[l][j];
+          const float un = static_cast<float>(kn - mt.z) -
+                           __int_as_float(mt.w);
+          const LineConst c = sm.c[l][j];
+          s_nv[(l * NCH + j) * nv_row + m] =
+              (un > -c.a.z && un <= c.a.z)
+                  ? corr_node<MODE>(un, c, dx, s_wei, n_wei)
+                  : 0.0f;
+        }
       }
       __syncthreads();
     }
-    float part[LC][PPT];   // SPLIT: this chunk's sum, then added to acc
-    if (SPLIT) {
+    if (SPLIT && ch * NCH % GROUP == 0) {
 #pragma unroll
       for (int l = 0; l < LC; ++l)
 #pragma unroll
         for (int p = 0; p < PPT; ++p) part[l][p] = 0.0f;
     }
-    for (int j = 0; j < nc; ++j) {
-      const int kl = s_k[j];
-      const float f0 = s_f[j];
-      float u[PPT];
-#pragma unroll
-      for (int p = 0; p < PPT; ++p) u[p] = static_cast<float>(kg[p] - kl) - f0;
+    if (warp_live) {
 #pragma unroll
       for (int l = 0; l < LC; ++l) {
-        if (l < nl) {
-          const LineConst c = s_c[l][j];
-          if constexpr (CORR) {
-            const float* nv = s_nv[l][j];
+        const int n = sm.n[l];
+        for (int i = 0; i < n; ++i) {
+          const int4 mt = sm.meta[l][i];
+          // warp-uniform: does the window meet this warp's points?
+          if (mt.y < wk0 - reach || mt.x > wk0 + WPTS - 1 + reach) continue;
+          const LineConst c = sm.c[l][i];
+          const float f0 = __int_as_float(mt.w);
 #pragma unroll
-            for (int p = 0; p < PPT; ++p) {
+          for (int p = 0; p < PPT; ++p) {
+            const int a = wk0 + p * 32;
+            if (!DENSE && (mt.y < a - reach || mt.x > a + 31 + reach))
+              continue;
+            const float u = static_cast<float>(kg[p] - mt.z) - f0;
+            const bool in = u > -c.a.z && u <= c.a.z;
+            float& sum = SPLIT ? part[l][p] : acc[l][p];
+            if constexpr (CORR) {
               if (!live[p]) continue;
-              const float* q = nv + seg[p];
+              const float* q = s_nv + (l * NCH + i) * nv_row + seg[p];
               const float interp = q[0] * w[p][0] + q[1] * w[p][1] +
                                    q[2] * w[p][2] + q[3] * w[p][3];
               const float fm =
-                  (u[p] > -c.a.z && u[p] <= c.a.z)
-                      ? corr_point<MODE>(u[p], c, dx, s_wei, n_wei)
-                      : 0.0f;
-              part[l][p] += fm - interp;
-            }
-          } else {
-#pragma unroll
-            for (int p = 0; p < PPT; ++p) {
-              if (u[p] > -c.a.z && u[p] <= c.a.z) {
-                const float v = eval<MODE>(u[p], c, s_wei, n_wei, dx);
-                if (SPLIT)
-                  part[l][p] += v;
-                else
-                  acc[l][p] += v;
-              }
+                  in ? corr_point<MODE>(u, c, dx, s_wei, n_wei) : 0.0f;
+              sum += fm - interp;
+            } else if constexpr (DENSE) {
+              float v;
+              if constexpr (MODE == ASYM)
+                v = voigt_value<MODE>(u, c, s_wei, n_wei);
+              else
+                v = ld_value<MODE>(u, c);
+              sum = fmaf(c.a.w, in ? v : 0.0f, sum);
+            } else if (in) {
+              sum += eval<MODE>(u, c, s_wei, n_wei, dx);
             }
           }
         }
       }
     }
-    if (SPLIT) {
+    if (SPLIT && ((ch + 1) * NCH % GROUP == 0 || ch + 1 == n_chunks)) {
 #pragma unroll
       for (int l = 0; l < LC; ++l)
 #pragma unroll
         for (int p = 0; p < PPT; ++p) acc[l][p] += part[l][p];
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int l = 0; l < LC; ++l) {
@@ -812,8 +1065,11 @@ extern "C" int radtxfr_fused_xsect(
   const float dxf = static_cast<float>(dx);
   const bool split =
       static_cast<long long>(max_blocks) * block > SPLIT_SLOTS;
+  // the correction passes' node buffer
+  const size_t nv_bytes =
+      is_corr(mode) ? sizeof(float) * LC * KCH * (SPAN / R + 3) : 0;
 #define RADTXFR_LAUNCH_SPLIT(M, SPLIT)                                       \
-  fused_xsect_kernel<M, SPLIT><<<grid, THREADS, 0, s>>>(                     \
+  fused_xsect_kernel<M, SPLIT><<<grid, THREADS, nv_bytes, s>>>(              \
       static_cast<const int*>(starts), static_cast<const int*>(counts),      \
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
       static_cast<const int*>(line), static_cast<const float*>(wcap),        \

@@ -1,0 +1,5 @@
+"""Line lists and partition sums (counterpart of ``radtxfr_tpu/lines``)."""
+
+from .store import LineStore, IsoTables, from_arrays  # noqa: F401
+from .synthetic import synthetic_lines  # noqa: F401
+from .tips import partition_sum  # noqa: F401

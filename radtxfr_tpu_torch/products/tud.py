@@ -111,14 +111,15 @@ def tud_from_od(grid, od, B, z0, altitudes, mu=1.0, n_angles: int = 30,
 
 def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
                 quadrature: str = "uniform", return_od: bool = False,
-                device=None):
+                planck: bool = True, device=None):
     """Build the fused (K2) TUD composition for a static geometry.
 
     The altitude snapshot layer counts, slant secants and downwelling
     quadrature are host values, moved once to ``device`` (None: the card)
-    as small arrays. Returns ``fn(x, od, T_layers) -> TUD`` (Planck source
-    in-kernel); inputs are cast to float32, outputs have
-    ``make_tud_pallas_fn``'s shapes.
+    as small arrays. Returns ``fn(x, od, T_layers) -> TUD`` when ``planck``
+    (the Planck source computed in-kernel), else ``fn(x, od, B) -> TUD``
+    with ``B`` (nL, nX) the source per layer, as ``make_tud_pallas_fn``;
+    inputs are cast to float32, outputs have its shapes.
     """
     f32 = torch.float32
     device = resolve_device(device)
@@ -130,12 +131,17 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
     sec = torch.as_tensor(sec_np, dtype=f32, device=device)
     w = torch.as_tensor(w_np, dtype=f32, device=device)
 
-    def fn(x, od, T) -> TUD:
+    def fn(x, od, tb) -> TUD:
         x = torch.as_tensor(x, dtype=f32, device=device).reshape(-1)
         od = torch.as_tensor(od, dtype=f32, device=device).contiguous()
-        inv_t = 1.0 / torch.as_tensor(T, dtype=f32, device=device).reshape(-1)
-        tau, lu, ld = tud_compose(od, x.contiguous(), inv_t.contiguous(), mus,
-                                  snap, sec, w, return_od)
+        tb = torch.as_tensor(tb, dtype=f32, device=device)
+        if planck:
+            inv_t = (1.0 / tb.reshape(-1)).contiguous()
+            tau, lu, ld = tud_compose(od, x.contiguous(), inv_t, mus, snap,
+                                      sec, w, return_od)
+        else:
+            tau, lu, ld = tud_compose(od, None, None, mus, snap, sec, w,
+                                      return_od, B=tb.contiguous())
         return TUD(X=x, tau=tau, Lu=lu, Ld=ld)
 
     return fn

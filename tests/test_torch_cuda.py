@@ -90,6 +90,51 @@ def test_fused_tud_kernel_matches_plain(dev):
         assert (g - r).abs().max() <= 5e-6 * r.abs().max()   # of peak
 
 
+@pytest.mark.parametrize("n_x,n_angles,mu", [(5000, 30, [1.0]),
+                                             (777, 40, [1.0, 1.6])])
+def test_fused_tud_source_input_matches_plain(dev, n_x, n_angles, mu):
+    """planck=False: B (nL, nX) an input, read by the kernel (two angle
+    chunks and two secants in the second case)."""
+    base = std_atmosphere(device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    od = 0.2 * torch.rand((base.n_layers, n_x), generator=gen, device=dev)
+    B = torch.rand((base.n_layers, n_x), generator=gen, device=dev) + 0.5
+    args = _tud_args(dev, od, None, base)
+    args[1:3] = [None, None]
+    args[3] = torch.tensor(mu, device=dev)
+    args[5:7] = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in downwelling_quadrature(n_angles)]
+    before = fused_tud.LAUNCHES["tud_b"]
+    got = fused_tud.tud_compose(*args, B=B)
+    assert fused_tud.LAUNCHES["tud_b"] == before + 1
+    want = fused_tud.tud_compose_plain(*args, B=B)
+    for g, r in zip(got, want):
+        assert (g - r).abs().max() <= 5e-6 * r.abs().max()   # of peak
+    # make_tud_fn(planck=False) takes fn(x, od, B)
+    z0 = base.z0.cpu().numpy()
+    tud = make_tud_fn(z0, [1.0, 500.0], mu=mu, n_angles=n_angles,
+                      planck=False)(torch.arange(n_x, device=dev), od, B)
+    assert torch.equal(tud.tau, got[0]) and torch.equal(tud.Ld, got[2])
+
+
+def test_fused_tud_raises_before_launch_outside_its_limits(dev):
+    """65 altitudes, or more altitude-secant rows than a CTA's shared
+    memory holds, raise ValueError and launch nothing."""
+    base = std_atmosphere(device=dev, dtype=torch.float32)
+    od = torch.rand((base.n_layers, 300), device=dev)
+    args = _tud_args(dev, od, torch.linspace(690.0, 1410.0, 300, device=dev),
+                     base)
+    before = dict(fused_tud.LAUNCHES)
+    many = torch.zeros(fused_tud.MAX_ALTITUDES + 1, dtype=torch.int32,
+                       device=dev)
+    with pytest.raises(ValueError, match="at most 64 sensor altitudes"):
+        fused_tud.tud_compose(*args[:4], many, *args[5:])
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_tud.tud_compose(*args[:3], torch.ones(7, device=dev),
+                              many[:60], *args[5:])
+    assert fused_tud.LAUNCHES == before
+
+
 def test_wrappers_raise_on_float64_and_non_contiguous(dev):
     od_fn, base = _od_fn(dev)
     prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)

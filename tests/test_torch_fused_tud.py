@@ -19,6 +19,7 @@ from radtxfr_tpu.products.tud import tud_from_od as j_tud_from_od
 from radtxfr_tpu.sensor.resolution import reduce_operator as j_reduce_operator
 from radtxfr_tpu_torch.core.grid import arange_drift_free
 from radtxfr_tpu_torch.core.planck import planckian
+from radtxfr_tpu_torch.kernels import fused_tud
 from radtxfr_tpu_torch.products.tud import make_tud_fn, tud_from_od
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator
 from port_fixtures import one_torch_thread  # noqa: F401
@@ -76,6 +77,35 @@ def test_make_tud_fn_matches_jax(alts, mu, n_angles, return_od, quad):
                             quad), 5e-6)
 
 
+@pytest.mark.parametrize(
+    "alts,mu,n_angles,return_od,quad",
+    [
+        ([0.061, 1.524, 6.096, 15.24, 500.0], [1.0], 30, False, "uniform"),
+        ([-1.0, 5.0, 500.0], [1.0, 1.7], 10, True, "uniform"),
+        ([2.0, 500.0], [1.3], 8, False, "gauss"),
+    ],
+)
+def test_make_tud_fn_source_input_matches_jax(alts, mu, n_angles, return_od,
+                                              quad):
+    """planck=False: the source B (nL, nX) is an input, fn(x, od, B), against
+    JAX's make_tud_pallas_fn(planck=False) in interpret mode and the scan
+    composition."""
+    z0, T, od, x = _setup()
+    B = np.asarray(jnp.swapaxes(j_planckian(jnp.asarray(x, jnp.float32),
+                                            jnp.asarray(T)), 0, 1),
+                   dtype=np.float32)
+    got = make_tud_fn(z0, alts, mu=mu, n_angles=n_angles,
+                      return_od=return_od, quadrature=quad, planck=False,
+                      device="cpu")(x, od, B)
+    fused = make_tud_pallas_fn(z0, alts, mu=mu, n_angles=n_angles,
+                               return_od=return_od, quadrature=quad,
+                               planck=False, interpret=True)(x, od, B)
+    scan, _ = _jax_refs(z0, T, od, x, alts, mu, n_angles, return_od, quad)
+    # float32 against both JAX compositions: <= 5e-6 of peak
+    # (test_pallas_tud.py:64)
+    _compare(got, [fused, scan], 5e-6)
+
+
 def test_make_tud_fn_odd_layer_count():
     z0, T, od, x = _setup(n_lay=23)
     alts = [1.0, 500.0]
@@ -119,3 +149,38 @@ def test_reduce_operator_matches_jax(lo, hi, dv, dv_out):
         want = np.asarray(j_op(jnp.asarray(y)))
         # float64: <= 1e-12 of peak
         assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_lay,n_zs,n_mu,error", [
+    (66, 9, 1, None),                   # the production shape
+    (66, 64, 1, None),
+    (66, 60, 6, None),                  # 360 altitude-secant rows
+    (66, 65, 1, "at most 64 sensor altitudes"),
+    (66, 60, 7, "shared memory"),       # 420 rows: 232,472 bytes
+    (880, 1, 1, "shared memory"),
+])
+def test_kernel_launch_shape_limits(n_lay, n_zs, n_mu, error):
+    """The kernel's limits raise ValueError before any launch: 64 altitudes
+    (a 64-bit mask a layer) and a CTA's shared memory (the source of its
+    64 columns a layer and its staged tau and Lu) within the card's
+    227 KB."""
+    need = fused_tud.smem_bytes(n_lay, n_zs, n_mu)
+    assert need == 8 * (n_lay + 1) + 256 * (n_lay + 2 * n_zs * n_mu)
+    if error is None:
+        assert need <= fused_tud.MAX_SMEM
+        fused_tud.check_launch_shape(n_lay, n_zs, n_mu)
+    else:
+        with pytest.raises(ValueError, match=error):
+            fused_tud.check_launch_shape(n_lay, n_zs, n_mu)
+
+
+def test_plain_composition_takes_any_altitude_count():
+    """CPU tensors run the plain version, which has no altitude limit."""
+    z0, T, od, x = _setup(n_x=50, n_lay=5)
+    n = fused_tud.MAX_ALTITUDES + 1
+    snap = torch.arange(n, dtype=torch.int32) % (od.shape[0] + 1)
+    sec, w = torch.tensor([1.0, 2.0]), torch.tensor([0.5, 0.5])
+    od_t, x_t = torch.as_tensor(od), torch.as_tensor(x)
+    tau, lu, ld = fused_tud.tud_compose(
+        od_t, x_t, 1.0 / torch.as_tensor(T), torch.ones(1), snap, sec, w)
+    assert tau.shape == (x.size, n, 1) and bool(torch.isfinite(lu).all())
