@@ -125,14 +125,19 @@ Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
 exponentials also over the special-function units), with the evaluations
 the kernel needs recounted on the host from the plans and the line
-parameters (``window_counts``); the JSON line also carries it at the
+parameters (``window_counts``); K3's counts each live evaluation's
+(K, Kx, Ky) once and each live (pair, direction) product's term, the
+kernel skipping the rest (phase 3b also prints the count that charges every
+live pair all 8 directions). The JSON line also carries the bound at the
 measured FP32 peak (``bound_ms_measured_peak``), and for K1's production
-modes, ``full`` and K2 in issue slots (``bound_ms_issue``: the SASS
-lane-instructions that the needed work takes, the line shape's arithmetic
-of each needed evaluation or K2's source and carry steps, counted from the
-built library by ``radtxfr_tpu_torch/tools/sass.py`` without the kernel's
-window tests, indexing or loop code, over 4 x 32 lanes x 132 SMs x 1.98
-GHz, or the special-function ops or bytes where those take longer;
+modes, ``full``, K3, each K7 mode and K2 in issue slots
+(``bound_ms_issue``: the SASS lane-instructions that the needed work takes,
+the line shape's arithmetic of each needed evaluation (K7: K1's count of
+the same shape plus the compensated add's FADDs) or K2's source and carry
+steps, counted from the built library by
+``radtxfr_tpu_torch/tools/sass.py`` without the kernel's window tests,
+indexing or loop code, over 4 x 32 lanes x 132 SMs x 1.98 GHz, or the
+special-function ops or bytes where those take longer;
 ``bound_ms_issue_measured``: the instructions over phase 2b's measured
 FMUL-chain rate).
 
@@ -355,10 +360,13 @@ def one_hot_batch(dev):
     return torch.eye(66, device=dev)[24:32]
 
 
-def k3_ops(nd):
-    """K3's (in-core, outside) lane-ops per evaluation for nd directions
-    (csrc/fused_xsect_jvp.cu)."""
-    return 48 + 16 * N_WEI + 8 * nd, 54 + 8 * nd
+# K3 (csrc/fused_xsect_jvp.cu "Bound."): lane-ops of a live evaluation's
+# (K, Kx, Ky) and K + x Kx + y Ky inside and outside |x| + y < 15, and of
+# each live direction's term (four products, three adds, the accumulate)
+K3_OPS = (48 + 16 * N_WEI, 54, 8)
+# the compensated (Kahan) add's FADDs a K7 evaluation adds to K1's one
+# FFMA that scales and adds it (csrc/fused_xsect.cu, K7 "Sums.")
+KAHAN_ADDS = 3
 
 
 def check(ok, msg):
@@ -523,8 +531,10 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     tuple with the number of them inside each radius of ``region``
     (region_radii), and the number of distinct lines the pass reads.
     ``live`` (nLay, L) bool keeps only the pairs a tangent kernel evaluates
-    (a non-zero tangent) or a part of the HT lines; ``cap`` False masks by
-    the true window (the correction passes)."""
+    (a non-zero tangent) or a part of the HT lines; as integers it also
+    weights each pair's evaluations (K3's live directions of the pair; not
+    with ``region`` 'ht*', whose replayed points are counted once); ``cap``
+    False masks by the true window (the correction passes)."""
     line = dplan.line.cpu().numpy()
     valid = line >= 0
     tile = dplan.tile
@@ -549,9 +559,11 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
         lo = np.maximum(np.floor(c - w) + 1, lo_t)
         hi = np.minimum(np.floor(c + w), hi_t)
         keep = hi >= lo
+        wgt = 1
         if live is not None:
-            keep &= live[li, g]
-        n_win += int((hi - lo + 1)[keep].sum())
+            wgt = live[li, g]
+            keep &= wgt > 0
+        n_win += int(((hi - lo + 1) * wgt)[keep].sum())
         centre, radii, direct = region_radii(region, h, li, g)
         mid = c + centre / dplan.dx
         n_in = n_in or [0] * len(radii)
@@ -560,7 +572,7 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
             clo = np.maximum(np.floor(mid - r) + 1, lo)
             chi = np.minimum(np.ceil(mid + r) - 1, hi)
             kc = keep & (r > 0.0) & (chi >= clo)
-            n_in[i] += int((chi - clo + 1)[kc].sum())
+            n_in[i] += int(((chi - clo + 1) * wgt)[kc].sum())
         if direct is not None and (keep & direct).any():
             sel = keep & direct
             for i, n in enumerate(ht_point_counts(h, li, g[sel], c[sel],
@@ -602,16 +614,36 @@ def csrc_text(stem):
         return f.read()
 
 
+def kernel_sass(stem, pattern):
+    """The SASS of the one kernel of ``csrc/<stem>.cu`` whose mangled name
+    matches ``pattern``, without the instructions of included headers (their
+    line numbers are another file's)."""
+    return [i for i in sass.kernel(sass_listing(stem), pattern)
+            if i.file == f"{stem}.cu"]
+
+
 @functools.lru_cache(maxsize=None)
 def k1_issue(mode):
     """SASS lane-instructions one K1 evaluation in ``mode`` (asym, core, mix,
-    full; the pass without SPLIT) needs: its line shape's arithmetic inside
-    and outside |x| + y < 15 (``sass.k1_eval_instructions``)."""
-    code = ("asym", "core", "mix", "full").index(mode)
-    instrs = sass.kernel(sass_listing("fused_xsect"),
-                         rf"fused_xsect_kernelILi{code}ELb0E")
+    full, lorentz, doppler; the pass without SPLIT) needs: its line shape's
+    arithmetic inside and outside |x| + y < 15
+    (``sass.k1_eval_instructions``, ``sass.ld_eval_instructions``)."""
+    code = fused_xsect.MODES.index(mode)
+    instrs = kernel_sass("fused_xsect", rf"fused_xsect_kernelILi{code}ELb0E")
+    if mode in SIMPLE_OPS:
+        return sass.ld_eval_instructions(instrs, csrc_text("fused_xsect"),
+                                         code)
     return sass.k1_eval_instructions(instrs, csrc_text("fused_xsect"), code,
                                      N_WEI)
+
+
+@functools.lru_cache(maxsize=None)
+def k3_issue():
+    """SASS lane-instructions a K3 evaluation needs inside and outside
+    |x| + y < 15, and per live direction (``sass.k3_eval_instructions``)."""
+    return sass.k3_eval_instructions(
+        kernel_sass("fused_xsect_jvp", r"fused_xsect_jvp_kernel"),
+        csrc_text("fused_xsect_jvp"), N_WEI)
 
 
 def k1_issue_work(mode, lay, dplan, prm, counts=None):
@@ -690,26 +722,43 @@ def xs_bound_work(mode, lay, dplan, prm):
     return ops, nbytes
 
 
-def live_pairs(prm, tangents):
-    """(nLay, L) bool: the pairs where any of the (nd, nLay, L) tangents is
-    non-zero."""
-    live = np.zeros(tuple(prm.strength.shape), dtype=bool)
+def live_directions(tangents):
+    """(nd, nLay, L) bool: where each direction's (nd, nLay, L) tangents
+    are non-zero."""
+    live = None
     for t in tangents:
-        live |= (t != 0).any(dim=0).cpu().numpy()
+        nz = (t != 0).cpu().numpy()
+        live = nz if live is None else live | nz
     return live
 
 
+def live_pairs(tangents):
+    """(nLay, L) bool: the pairs where any of the (nd, nLay, L) tangents is
+    non-zero."""
+    return live_directions(tangents).any(axis=0)
+
+
 def k3_bound_work(lay, dplan, prm, tangents):
-    """(lane-ops, bytes) of one K3 launch set for the (nd, nLay, L)
-    tangents: the live evaluations only, as the kernel skips the rest."""
-    nd = tangents[0].shape[0]
+    """(lane-ops, bytes, lane-instructions, lane-ops counting every
+    direction) of one K3 launch set for the (nd, nLay, L) tangents: each
+    live (pair, point) evaluation's (K, Kx, Ky) once, at its region's count,
+    and each live direction's term of it (the kernel evaluates only those);
+    the same in the SASS lane-instructions of ``k3_issue``; and the count
+    that charges every pair all nd directions' terms, as a dense direction
+    axis would."""
+    live = live_directions(tangents)
     n_win, (n_core,), n_lines = window_counts(lay, dplan, prm,
-                                              live_pairs(prm, tangents))
-    ops_in, ops_out = k3_ops(nd)
-    nl = lay.numel()
+                                              live.any(axis=0))
+    n_dir = window_counts(lay, dplan, prm, live.sum(axis=0))[0]
+    ops_in, ops_out, per_dir = K3_OPS
+    nd, nl = len(live), lay.numel()
     nbytes = (4 * (5 + 4 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nd * nl * dplan.n_out)
-    return n_core * ops_in + (n_win - n_core) * ops_out, nbytes
+    ops = n_core * ops_in + (n_win - n_core) * ops_out
+    c = k3_issue()
+    instr = (n_core * c["in"] + (n_win - n_core) * c["out"]
+             + n_dir * c["dir"])
+    return ops + per_dir * n_dir, nbytes, instr, ops + per_dir * nd * n_win
 
 
 def phase_k1(dev, card):
@@ -867,7 +916,7 @@ def phase_k1_diff(dev, card):
                       fused_xsect.xsect_fused_jvp(*args, *tans, N_WEI))
                      for name, tans in sets.items()]
     timed = iter(time_kernels(launches))
-    stats, jvp_err = {}, 0.0
+    stats, jvp_err, k3_dense = {}, 0.0, 0
     for call in od_fn.calls:
         lay, dplan, _ = call
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
@@ -910,9 +959,24 @@ def phase_k1_diff(dev, card):
             jvp_err = max(jvp_err, err)
             if name.startswith("8"):
                 # the Jacobian's batch shape carries the times and bound
-                add_stats(stats, "jvp", err, k_ms, p_ms,
-                          *k3_bound_work(lay, dplan, prm, tans))
+                ops, nbytes, instr, dense = k3_bound_work(lay, dplan, prm,
+                                                          tans)
+                add_stats(stats, "jvp", err, k_ms, p_ms, ops, nbytes,
+                          instr=instr)
+                k3_dense += dense
     stats["jvp"]["max_abs_err"] = jvp_err
+    s = stats["jvp"]
+    c = k3_issue()
+    b_live = bound_str(s["ops"], s["bytes"])
+    print(f"[3b K3] 8 one-hot T directions: bound ms {b_live} (live "
+          "(pair, direction) products), "
+          f"{bound(k3_dense, s['bytes'])[0]:.4f} charging each live "
+          f"pair all 8 directions; issue slots "
+          "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
+          "measured FMUL rate)".format(**issue_bounds(s["instr"], s["bytes"]))
+          + f"; SASS lane-instructions an evaluation needs: {c['in']:.2f} "
+          f"inside |x| + y < 15, {c['out']:.2f} outside, {c['dir']:.2f} a "
+          f"live direction [{card}]", flush=True)
     return finish_stats(stats)
 
 
@@ -1506,7 +1570,7 @@ def phase_jac_breakdown(dev, card):
     tans = [t.contiguous() for t in tans]
     prm = od_fn.line_params(T, p, pl, vmr)[0]
     ms["K1 full"] = ms["K3 (8 dirs)"] = 0.0
-    full_issue = 0.0
+    full_issue = k3_instr = k3_dense = 0.0
     work = {"full": [0, 0], "jvp": [0, 0]}
     for lay, dplan, _ in od_fn.calls:
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
@@ -1517,8 +1581,11 @@ def phase_jac_breakdown(dev, card):
         t, _ = cuda_ms(lambda: fused_xsect.xsect_fused_jvp(
             *args, *tans, N_WEI), 3)
         ms["K3 (8 dirs)"] += t
+        o3, b3, instr, dense = k3_bound_work(lay, dplan, prm, tans)
+        k3_instr += instr
+        k3_dense += dense
         for k, (o, b) in (("full", k1_bound_work("full", lay, dplan, prm)),
-                          ("jvp", k3_bound_work(lay, dplan, prm, tans))):
+                          ("jvp", (o3, b3))):
             work[k] = [work[k][0] + o, work[k][1] + b]
         full_issue += k1_issue_work("full", lay, dplan, prm)
     ms["continuum + tangents"], _ = cuda_ms(
@@ -1555,7 +1622,11 @@ def phase_jac_breakdown(dev, card):
           + "; K1 full in issue slots {bound_ms_issue:.4f} "
           "({bound_ms_issue_measured:.4f} at the measured FMUL rate)".format(
               **issue_bounds(full_issue, work["full"][1]))
-          + f" [{card}]", flush=True)
+          + "; K3 in issue slots {bound_ms_issue:.4f} "
+          "({bound_ms_issue_measured:.4f} at the measured FMUL rate)".format(
+              **issue_bounds(k3_instr, work["jvp"][1]))
+          + f"; K3 charging each live pair all 8 directions "
+          f"{bound(k3_dense, work['jvp'][1])[0]:.4f} [{card}]", flush=True)
 
 
 def ht_extras(n, seed, frac):
@@ -1613,8 +1684,7 @@ def ht_bound_work(lay, dplan, prm, tangents=None):
     by |x| + y < 15 and the |Z1| <= 4e3 radius."""
     part4 = ((prm.ht_consts[3] != 0) | (prm.ht_consts[4] != 0)).cpu().numpy()
     nd = 0 if tangents is None else tangents[0].shape[0]
-    live = np.ones_like(part4) if tangents is None else live_pairs(prm,
-                                                                   tangents)
+    live = np.ones_like(part4) if tangents is None else live_pairs(tangents)
     n_win, n_in, n_lines = window_counts(lay, dplan, prm, part4 & live,
                                          region="ht4")
     ops = (n_win * (ht_piece("part4", nd) + nd * HT_ACC_DIR)
@@ -1639,8 +1709,7 @@ def k4_bound_work(lay, dplan, prm, tangents):
     region."""
     nd = tangents[0].shape[0]
     n_win, n_in, n_lines = window_counts(lay, dplan, prm,
-                                         live_pairs(prm, tangents),
-                                         region="sd")
+                                         live_pairs(tangents), region="sd")
     nl = lay.numel()
     nbytes = (4 * (6 + 5 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nd * nl * dplan.n_out)
@@ -2070,7 +2139,7 @@ def phase_ht_breakdown(dev, card):
         o, b = (ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
                 if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
                 if mode == "sdvoigt" else
-                k3_bound_work(lay, dplan, prm, tans[:4]))
+                k3_bound_work(lay, dplan, prm, tans[:4])[:2])
         w = work.setdefault(HT_TANGENT_NAME[mode], [0, 0])
         work[HT_TANGENT_NAME[mode]] = [w[0] + o, w[1] + b]
     print("[10 9c tangents] 8 one-hot T directions, ms per stage (line "
@@ -2148,11 +2217,14 @@ def unfused_case(dev, band, dtype=torch.float32):
 
 
 def k7_bound_work(mode, plan, prm):
-    """(lane-ops, bytes) one K7 launch needs on these inputs: the in-window
-    evaluations of every (layer, line) pair over the whole grid (every tile
-    a window touches visits the line's block), at their region's hand count
-    (the header of csrc/fused_xsect.cu), as for K1; each parameter of each
-    line, each slot and each output element once."""
+    """(lane-ops, bytes, lane-instructions) one K7 launch needs on these
+    inputs: the in-window evaluations of every (layer, line) pair over the
+    whole grid (every tile a window touches visits the line's block), at
+    their region's hand count (the header of csrc/fused_xsect.cu), as for
+    K1; each parameter of each line, each slot and each output element
+    once; in issue slots, each needed evaluation at K1's SASS count of the
+    same line shape (``k1_issue``) plus the compensated add's
+    ``KAHAN_ADDS`` FADDs (core: the evaluations inside |x| + y < 15)."""
     n_lay, n_lines = prm.strength.shape
     dplan = fused_xsect.device_plan(plan, np.arange(n_lines), None,
                                     device="cpu")
@@ -2161,9 +2233,17 @@ def k7_bound_work(mode, plan, prm):
         starts=torch.zeros(1, dtype=torch.int32),
         counts=torch.tensor([plan.n_blocks], dtype=torch.int32))
     lay = torch.arange(n_lay, dtype=torch.int32)
+    counts = window_counts(lay, whole, prm)
+    n_win, (n_core,), _ = counts
     if mode in SIMPLE_OPS:
-        return xs_bound_work(mode, lay, whole, prm)
-    return k1_bound_work(mode, lay, whole, prm)
+        ops, nbytes = n_win * SIMPLE_OPS[mode], k1_bound_work(
+            "asym", lay, whole, prm, counts)[1]
+        instr = n_win * (k1_issue(mode)["in"] + KAHAN_ADDS)
+    else:
+        ops, nbytes = k1_bound_work(mode, lay, whole, prm, counts)
+        instr = (k1_issue_work(mode, lay, whole, prm, counts)
+                 + KAHAN_ADDS * (n_core if mode == "core" else n_win))
+    return ops, nbytes, instr
 
 
 def event_ms(fn):
@@ -2219,8 +2299,12 @@ def phase_unfused_sub(dev, card):
               f"{K1_BOUND}")
         check(rel_own <= XS_OWN_BOUND[m], f"K7 {m}: {rel_own:.3e} of its own "
               f"peak > {XS_OWN_BOUND[m]}")
-        add_stats(stats, m, err, k_ms, p_ms,
-                  *k7_bound_work(m, plan, prm_of(m)))
+        ops, nbytes, instr = k7_bound_work(m, plan, prm_of(m))
+        add_stats(stats, m, err, k_ms, p_ms, ops, nbytes, instr=instr)
+        print(f"[3e K7 {m}] bound ms {bound_str(ops, nbytes)}; issue slots "
+              "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
+              "measured FMUL rate) [{card}]".format(
+                  card=card, **issue_bounds(instr, nbytes)), flush=True)
     packed = fused_xsect.plan_buckets_packed(
         store.host_view().nu0, plan.grid, plan.max_wing, tile=plan.tile,
         block="auto")
@@ -2313,13 +2397,17 @@ def phase_od_layers(dev, card):
     check(rel <= K1_BOUND, f"K7 full at full width: {rel:.3e} of peak > "
           f"{K1_BOUND}")
     del p_out
-    work = k7_bound_work("full", plan, prm)
+    ops, nbytes, instr = k7_bound_work("full", plan, prm)
     print(f"[11 breakdown] base state, ms per stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; K7 full vs plain {rel:.3e} of peak, plain {p_ms:.3f} ms; K7 "
-          f"bound ms {bound_str(*work)} [{card}]", flush=True)
+          f"bound ms {bound_str(ops, nbytes)}; issue slots "
+          "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
+          "measured FMUL rate) [{card}]".format(
+              card=card, **issue_bounds(instr, nbytes)), flush=True)
     stats = {}
-    add_stats(stats, "full", err, ms["K7 full"], p_ms, *work)
+    add_stats(stats, "full", err, ms["K7 full"], p_ms, ops, nbytes,
+              instr=instr)
 
     # a 5 cm^-1 band: the card against the CPU's float64 plain run, and the
     # production builder against the same float64 reference

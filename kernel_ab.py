@@ -18,6 +18,12 @@ same seeds:
   builders (``lorentz``, ``doppler``, the correction passes and their
   ``*full`` variants), milliseconds summed per mode, with a SHA-256 of
   each output;
+* K3 on every pass of the differentiable OD builder for the production
+  Jacobian's batch (8 one-hot T directions, ``chip_smoke.one_hot_batch``)
+  and for one T direction over all layers, and on the HT Jacobian's
+  ``full`` passes for the one-hot batch (phase 9c's builder); K7 in each of its modes on ``make_od_plan``'s plan over phase
+  3e's 700-740 cm^-1 sub-band and in ``full`` at full width (phase 11's
+  plan and base state); each with a SHA-256 of each output;
 * K2 at the production shape in each mode the checkout has;
 * d OD / d T[3] of the HT Jacobian (phase 9c's), over twice the calls.
 
@@ -30,8 +36,8 @@ Each time is the median of ``--reps`` calls, each timed on its own with
 CUDA events after a warm-up call.
 
 It prints each number as other -> this (each the mean of its
-processes), whether each K1 pass gave bit-identical outputs in all four
-processes, and, given ``--out``, writes everything there as JSON with the
+processes), whether each kernel pass gave bit-identical outputs in all
+four processes, and, given ``--out``, writes everything there as JSON with the
 card's name and power limit.
 """
 
@@ -97,13 +103,15 @@ def child(out_path, reps):
     from radtxfr_tpu_torch.atmos.profile import std_atmosphere
     from radtxfr_tpu_torch.core.constants import C1, C2
     from radtxfr_tpu_torch.core.grid import arange_drift_free
-    from radtxfr_tpu_torch.kernels import fused_tud
+    from radtxfr_tpu_torch.kernels import fused_tud, fused_xsect
     from radtxfr_tpu_torch.kernels.linemixing_data import y_air_for_store
     from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
     from radtxfr_tpu_torch.lines.store import IsoTables
     from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
-    from radtxfr_tpu_torch.products.od import (make_ht_fn, make_od_fn,
-                                               make_od_ht_fn, make_xsect_fn)
+    from radtxfr_tpu_torch.products.od import (_line_species_cols,
+                                               layer_line_params, make_ht_fn,
+                                               make_od_fn, make_od_ht_fn,
+                                               make_od_plan, make_xsect_fn)
     from radtxfr_tpu_torch.products.tud import (_layers_below,
                                                 downwelling_quadrature,
                                                 make_tud_fn)
@@ -113,20 +121,23 @@ def child(out_path, reps):
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     cs.warm_up(dev)
-    res = {"ms": {}, "k1": {}}
+    res = {"ms": {}, "passes": {}}
     ms = res["ms"]
+
+    def record(key, fn):
+        """Time one kernel pass; its ms add up under ``key``."""
+        t, out = events_ms(fn, reps)
+        r = res["passes"].setdefault(key, {"ms": 0.0, "passes": 0,
+                                           "sha": []})
+        r["ms"] += t
+        r["passes"] += 1
+        r["sha"].append(digest(out))
 
     def k1(case, fn, prm, calls, Y=None):
         for call in calls:
-            mode = call[2]
-            if mode == "ht":
-                continue
-            t, out = events_ms(lambda c=call: fn.run_call(c, prm, Y), reps)
-            r = res["k1"].setdefault(f"{case} {mode}",
-                                     {"ms": 0.0, "passes": 0, "sha": []})
-            r["ms"] += t
-            r["passes"] += 1
-            r["sha"].append(digest(out))
+            if call[2] != "ht":
+                record(f"K1 {case} {call[2]}",
+                       lambda c=call: fn.run_call(c, prm, Y))
 
     # d OD / d T[3] of the HT Jacobian (phase 9c), first: host-bound, so
     # measured before the rest of the process's allocations
@@ -144,7 +155,14 @@ def child(out_path, reps):
 
     ms["ht jacobian dOD/dT[3]"], _ = events_ms(jvp3, 2 * reps)
     ms["ht jacobian dOD/dT[3] on the card"] = device_ms(jvp3)
-    del fn, jac_store
+    # K3 on its passes, for the batch of 8 one-hot T directions
+    hprm = fn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
+    htans = cs.ht_od_tangents(fn, b64, cs.one_hot_batch(dev))
+    for call in fn.calls:
+        if call[2] == "full":
+            record("K3 ht jacobian one-hot",
+                   lambda c=call: cs.ht_tangent(c, hprm, htans))
+    del fn, jac_store, hprm, htans
 
     # the production member (phase 6)
     iso = IsoTables.load(device=dev, dtype=f32)
@@ -182,11 +200,41 @@ def child(out_path, reps):
     ms["member on the card"] = device_ms(member)
     del od_fn, od, tud, prm, Y
 
-    # the differentiable OD builder's full passes (the Jacobian path)
+    # the differentiable OD builder's full passes (the Jacobian path) and
+    # K3 on them for the production batch (8 one-hot T directions)
     jac = make_od_fn(store, iso, X, base, continuum="mt_ckd",
                      differentiable=True)
-    k1("jacobian", jac, jac.line_params(T, p, pl, vmr)[0], jac.calls)
-    del jac, store
+    jprm = jac.line_params(T, p, pl, vmr)[0]
+    k1("jacobian", jac, jprm, jac.calls)
+    tans = [t.contiguous() for t in cs.t_tangents(jac, base,
+                                                  cs.one_hot_batch(dev))]
+    dense = [t.contiguous() for t in cs.t_tangents(
+        jac, base, torch.linspace(0.5, 1.5, base.n_layers, device=dev)[None])]
+    for lay, dplan, _ in jac.calls:
+        args = (dplan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
+                jprm.gamma_0, jprm.wing)
+        record("K3 jacobian one-hot", lambda args=args:
+               fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI))
+        record("K3 jacobian dense T", lambda args=args:
+               fused_xsect.xsect_fused_jvp(*args, *dense, cs.N_WEI))
+    del jac, jprm, tans, dense
+
+    # K7: full at full width (phase 11), each mode on the sub-band (3e)
+    cols = _line_species_cols(store.host_view(), base.mol_ids)
+    plan = make_od_plan(store, iso, X, base)
+    kprm = layer_line_params(store, iso, base, cols)
+    record("K7 full width full",
+           lambda: fused_xsect.xsect_unfused(plan, kprm))
+    del store, plan, kprm
+    sstore, siso, sX, sbase = cs.unfused_case(dev, cs.SUB_BAND)
+    splan = make_od_plan(sstore, siso, sX, sbase)
+    scols = _line_species_cols(sstore.host_view(), sbase.mol_ids)
+    sprm = {m: layer_line_params(sstore, siso, sbase, scols, profile=m)
+            for m in ("voigt", "lorentz", "doppler")}
+    for m in fused_xsect.UNFUSED_MODES:
+        record(f"K7 sub-band {m}", lambda m=m: fused_xsect.xsect_unfused(
+            splan, sprm.get(m, sprm["voigt"]), m))
+    del sstore, splan, sprm
 
     # K2 at the production shape, in each mode this checkout has
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -290,7 +338,7 @@ def main(argv=None):
             print(f"[ab] {who} ({trees[who]}) measured in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
     res = {"card": card, "other": trees["other"], "runs": runs,
-           "ms": {}, "k1": {}}
+           "ms": {}, "passes": {}}
 
     def mean(vals):
         vals = [v for v in vals if v is not None]
@@ -306,17 +354,17 @@ def main(argv=None):
               f"{fmt([res['ms'][key]['this']])} ms (each process: "
               f"{fmt(per['other'])} -> {fmt(per['this'])}) [{card}]",
               flush=True)
-    for key in runs["this"][0]["k1"]:
-        shas = [r["k1"].get(key, {}).get("sha") for r in
+    for key in runs["this"][0]["passes"]:
+        shas = [r["passes"].get(key, {}).get("sha") for r in
                 runs["other"] + runs["this"]]
         same = all(s == shas[0] for s in shas)
-        o = mean(r["k1"].get(key, {}).get("ms") for r in runs["other"])
-        t = mean(r["k1"][key]["ms"] for r in runs["this"])
-        res["k1"][key] = {"other": o, "this": t, "identical": same,
-                          "passes": runs["this"][0]["k1"][key]["passes"]}
-        print(f"[ab] K1 {key} ({res['k1'][key]['passes']} passes): "
-              f"{fmt([o])} -> {fmt([t])} ms, bit-identical {same} "
-              f"[{card}]", flush=True)
+        o = mean(r["passes"].get(key, {}).get("ms") for r in runs["other"])
+        t = mean(r["passes"][key]["ms"] for r in runs["this"])
+        n = runs["this"][0]["passes"][key]["passes"]
+        res["passes"][key] = {"other": o, "this": t, "identical": same,
+                              "passes": n}
+        print(f"[ab] {key} ({n} passes): {fmt([o])} -> {fmt([t])} ms, "
+              f"bit-identical {same} [{card}]", flush=True)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

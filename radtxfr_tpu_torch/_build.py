@@ -3,11 +3,12 @@
 At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a
 shared library of its own with a plain C interface under ``_build/``
 (listed in ``.gitignore``), all sources at once in parallel processes; each
-library is named by the hash of its source and the flags, so an edited
-source is rebuilt, and is loaded with ``ctypes``. ``-Xptxas -v`` writes each
-kernel's registers, shared memory and spills into a log beside the library
-(:func:`build_log`). Nothing here runs at import. A missing ``nvcc`` or a
-failed build raises: no kernel falls back to anything else.
+library is named by the hash of the flags, its source and the headers it
+includes (``#include "..."``, followed into the headers' own), so an edited
+source or header is rebuilt, and is loaded with ``ctypes``. ``-Xptxas -v``
+writes each kernel's registers, shared memory and spills into a log beside
+the library (:func:`build_log`). Nothing here runs at import. A missing
+``nvcc`` or a failed build raises: no kernel falls back to anything else.
 :func:`check_tensor` is the argument check the kernel wrappers run before
 they pass raw pointers.
 """
@@ -19,6 +20,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -55,9 +57,9 @@ _SIGNATURES = {
     # op, n_chains, depth, y0, a, b, iters, n, out, stream
     "radtxfr_fp32_probe": [I, I, I, P, F, F, I, I, P, P],
     # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # lay_live, shift0, strength, gamma_d, gamma_0, wing, shift0_t,
-    # strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines, wei, n_wei,
-    # tile, block, n_tiles, n_out, dx, out, stream
+    # live ((n_dir, n_lay) int32), shift0, strength, gamma_d, gamma_0, wing,
+    # shift0_t, strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines,
+    # wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream
     "radtxfr_fused_xsect_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
                                 P, P, P, I, I, I, P, I, I, I, I, I,
                                 ctypes.c_double, P, P],
@@ -109,11 +111,31 @@ def _sources():
     return srcs
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _with_includes(src: str) -> list[str]:
+    """``src`` and the files its ``#include "..."`` lines name (relative to
+    the including file), followed into those, each once, in order."""
+    out, todo = [], [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.join(os.path.dirname(path), m.decode())
+                     for m in _INCLUDE.findall(f.read())]
+    return out
+
+
 def library_path(src: str) -> str:
-    """Path of the shared library for source ``src`` and the flags."""
+    """Path of the shared library for source ``src``, the headers it
+    includes and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in _with_includes(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

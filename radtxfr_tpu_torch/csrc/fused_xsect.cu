@@ -1,6 +1,6 @@
 // K1: bucketed layered line-shape accumulation for Hopper (sm_90a), and
-// K7, the unfused kernel of the prebuilt-plan route (below K1, sharing its
-// per-point code).
+// K7, the unfused kernel of the prebuilt-plan route (below K1, on its CTA
+// skeleton and per-point code).
 //
 // Replaces radtxfr_tpu/kernels/pallas_xsect.py::_make_fused_kernel (launcher
 // _xsect_fused_call, entry xsect_pallas(fused_layers=True)) in all of its
@@ -131,14 +131,16 @@
 
 #include <cuda_runtime.h>
 
+#include "k1_skeleton.cuh"
+
 namespace {
 
 constexpr int THREADS = 64;            // threads per CTA
 constexpr int PPT = 4;                 // grid points per thread
 constexpr int SPAN = THREADS * PPT;    // points per CTA
 constexpr int LC = 4;                  // layers per CTA
-constexpr int CH = 64;                 // line slots K7 stages per step
-constexpr int KCH = 32;                // ... K1 (a warp's ballot each)
+constexpr int KCH = 32;                // line slots staged per step (a
+                                       // warp's ballot each)
 constexpr int SPLIT_SLOTS = 2048;      // a tile's slots that take SPLIT
 constexpr int MIN_R = 8;               // smallest correction R
 constexpr int MAX_WEI = 32;            // Weideman terms at most
@@ -151,7 +153,6 @@ constexpr float INV_PI = static_cast<float>(0.3183098861837907);
 constexpr float LN2_HAPI = static_cast<float>(0.6931471805599);
 constexpr float SQRT_LN2_DIV_SQRT_PI = static_cast<float>(
     0.469718639319144059835);
-constexpr float REGION_BOUND = 15.0f;
 constexpr float GUARD = 0.25f;
 
 // the order of radtxfr_tpu_torch/kernels/fused_xsect.py: MODES, then
@@ -173,10 +174,7 @@ __host__ __device__ constexpr bool is_corr(int m) { return m >= CORR_VOIGT; }
 //   SD-Voigt a = (s0, 1/Gamma2, wingu, strength), b = (a_sd, c, cte/sqrt(pi), 0)
 //   Lorentz  a = (ds, dx, wingu, strength*g0), b = (g0*g0, 0, 0, 0)
 //   Doppler  a = (ds, dx, wingu, strength*K/gd), b = (1/gd, 0, 0, 0)
-struct LineConst {
-  float4 a;
-  float4 b;
-};
+// (struct LineConst: k1_skeleton.cuh)
 
 // non-contracting float operations (the SD-Voigt block)
 __device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); }
@@ -453,88 +451,15 @@ __device__ __forceinline__ float corr_point(float u, const LineConst& c,
   return corr_node<MODE>(u, c, dx, wei, n_wei);
 }
 
-// Stage slots [c0, c0 + nc) of a block for K7 (unfused_xsect_kernel): grid
-// positions and, per layer, the line constants (padding slots filled as the
-// Pallas wrapper pads them, never in-window). CAP: clamp the wing to the
-// plan's cap.
-template <int MODE, int NCH, bool CAP>
-__device__ __forceinline__ void stage(
-    int c0, int nc, int slot0, int nl, int l0, int tid,
-    const int* __restrict__ k_line, const float* __restrict__ frac0,
-    const int* __restrict__ line, const float* __restrict__ wcap,
-    const int* __restrict__ lay_idx, const float* __restrict__ shift0,
-    const float* __restrict__ strength, const float* __restrict__ gamma_d,
-    const float* __restrict__ gamma_0, const float* __restrict__ wing,
-    const float* __restrict__ ymix, const float* __restrict__ gamma_2,
-    int n_lines, float dx, LineConst (*s_c)[NCH], int* s_k, float* s_f) {
-  for (int j = tid; j < nc; j += THREADS) {
-    s_k[j] = k_line[slot0 + c0 + j];
-    s_f[j] = frac0[slot0 + c0 + j];
-  }
-  for (int i = tid; i < nl * nc; i += THREADS) {
-    const int l = i / nc;
-    const int j = i - l * nc;
-    const int s = slot0 + c0 + j;
-    const int g = line[s];
-    if (g >= 0) {
-      const size_t off = static_cast<size_t>(lay_idx[l0 + l]) * n_lines + g;
-      const float w = CAP ? fminf(wing[off], wcap[s]) : wing[off];
-      s_c[l][j] = line_const<MODE>(
-          shift0[off], strength[off], gamma_d[off], gamma_0[off],
-          is_sd(MODE) ? gamma_2[off] : 1.0f, w / dx,
-          MODE == MIX ? ymix[off] : 0.0f, dx);
-    } else {
-      s_c[l][j] = line_const<MODE>(0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f,
-                                   MODE == MIX ? 1.0f : 0.0f, dx);
-    }
-  }
-}
-
 // ---- K1's staging pipeline: cp.async, window culling, compaction ----
 
-// a 4-byte asynchronous copy from device to shared memory (sm_80+)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The grid indices d - k_line (a superset) at which a slot can pass the
-// window test u > -wingu && u <= wingu, u = float(d) - frac0: the float
-// rounding of u and of frac0 -+ wingu stays under a grid step while
-// |d|, wingu < 2^22, and wider (or NaN) windows take every index.
-__device__ __forceinline__ int2 window_range(float f0, float wingu) {
-  if (!(wingu <= 4194304.0f)) return make_int2(-(1 << 30), 1 << 30);
-  return make_int2(static_cast<int>(floorf(f0 - wingu)) - 2,
-                   static_cast<int>(ceilf(f0 + wingu)) + 2);
-}
-
-// core adds only inside hum1_wei's |x| + y < 15, x = (d - frac0 - ds) xs
-// (outside it adds an exact 0): the indices |d - (frac0 + ds)| < (15 - y)
-// / xs, widened by 1e-4 of the radius and a grid step, intersected with the
-// window; empty (lo > hi) where y >= 15
-__device__ __forceinline__ int2 core_range(float f0, const LineConst& c,
-                                           int2 win) {
-  const float r = (REGION_BOUND - c.b.x) / c.a.y;
-  if (!(r > 0.0f)) return make_int2(1, 0);
-  const int2 cw = window_range(f0 + c.a.x, r * 1.0001f + 1.0f);
-  return make_int2(max(win.x, cw.x), min(win.y, cw.y));
-}
+// cp.async copies, window_range and core_range: k1_skeleton.cuh
 
 // A K1 CTA's shared memory: a ring of three chunks of slot data (grid
 // index, fraction, line, wing cap), copied two chunks ahead; the raw
 // per-(layer, slot) parameters of the next chunk, copied one chunk ahead;
 // and this chunk's surviving (layer, slot) pairs, compacted per layer in
 // slot order: their constants and (window lo, hi, k_line, frac0 bits).
-constexpr int RING = 3;
 constexpr int NRAW = 6;   // shift0, strength, gamma_d, gamma_0, wing, extra
 template <int NCH>
 struct K1Smem {
@@ -883,28 +808,56 @@ fused_xsect_kernel(const int* __restrict__ starts,
 // or its per-line wing_line). The per-point formula is K1's (line_const and
 // eval above), so the two kernels cannot drift apart.
 //
-// Shape. One CTA per (layer, 256-point slice of a tile), as the Pallas grid
-// is (layer, tile, block): 64 threads of 4 points each, the slice's blocks
-// walked in order, each block staged CH slots at a time (grid position and
-// that layer's constants in shared memory) and summed into registers. Each
-// block's sum is kept apart before it joins the total, as the Pallas kernel
-// adds one block's sum per grid step, and both sums are compensated
-// (Kahan): a shared block holds a tile's strong lines beside hundreds of
-// far-wing ones, and in a running float32 sum the far wings' values below
-// half an ulp of a narrow Doppler line's peak were lost one by one (7e-6 of
-// the peak against the plain version's tree sum over 66 layers of the
-// derived list; three FP32 adds per in-window evaluation). Every output is
-// written once: no atomics, bit-identical reruns.
+// Shape: K1's skeleton. One CTA per (256-point slice of a tile, K7_LC layers),
+// two warps of 128 points; the tile's blocks walked in chunks of 2 KCH slots
+// that never cross a block's end, through the cp.async ring (slot data two
+// chunks ahead, the per-(layer, line) parameters one chunk ahead), so a staged
+// slot's position and fraction serve K7_LC layers. Each staged (slot, layer)
+// pair's integer window (window_range, wing capped by wcap; core: core_range)
+// is intersected with the slice and only the pairs that meet it are kept, per
+// layer in slot order (ballot and prefix count); each warp tests a kept pair
+// against its 128 points and each 32-point span with a warp-uniform compare
+// before its lanes evaluate. A make_od_plan plan bounds every line by the
+// widest layer's wing (max_wing_bound), so at full width 87.7% of the
+// slot-points its tiles visit lie outside their layer's window: the cull drops
+// them before anything is evaluated. asym, lorentz and doppler evaluate a
+// warp's four points without a branch. In full, a span wholly outside
+// core_range (no point in |x| + y < 15) runs only the unguarded asymptotic
+// form, branch-free (full_far: eval<FULL>'s far branch, the same operations,
+// which nvcc contracts otherwise in this block: within 2e-8 of the peak of the
+// slot walk's bits, PERF.md); only spans that meet the core branch per lane
+// into Weideman.
+//
+// Sums. Each block's sum is kept apart before it joins the total, as the
+// Pallas kernel adds one block's sum per grid step, and both sums are
+// compensated (Kahan): a shared block holds a tile's strong lines beside
+// hundreds of far-wing ones, and in a running float32 sum the far wings'
+// values below half an ulp of a narrow Doppler line's peak were lost one by
+// one (7e-6 of the peak against the plain version's tree sum over 66 layers
+// of the derived list). A culled pair or span holds only points whose window
+// test fails (core: that lie outside |x| + y < 15, where the slot walk added
+// an exact 0, a Kahan step that changes nothing but a rounding tie), and a
+// point's terms are added in slot order with the same Kahan steps (the
+// branch-free ones computed and kept by selects), so each output is the
+// slot walk's to the bit wherever the compiler contracts the same products
+// (PERF.md). Every output is written once: no atomics, bit-identical
+// reruns.
+//
+// Registers: four sums (acc, acc_c, part, part_c) per (layer, point), 32 at
+// K7_LC = 2 and PPT = 4. k7_min_ctas caps them for 12 CTAs an SM in full
+// and core (80 registers, 68-104 bytes of spills) and 16 in the others
+// (64), and chunks are 64 slots (fewer barriers a slot than 32), each
+// chosen by timing against 8-16 CTAs, 32-slot chunks and 4 layers a CTA
+// (128 registers, 40% slower in full; PERF.md).
 //
 // Bound. The same evaluations as K1 (the header's hand counts: asym 28,
 // core 175 / 14, full 157 / 31 lane-ops inside / outside |x| + y < 15,
-// lorentz 18, doppler 20), but a shared-block plan visits whole blocks, so
-// most of a tile's slot-points fall outside their window and cost only the
-// offset, the two window compares and the branch: chip_smoke.py recounts
-// the in-window evaluations on the host and states the bound from them.
-// FP32 issue bounds it; per (layer, slot) it reads ~9 scalars, shared by the
-// slice's 256 points. A simple kernel: one layer per CTA stages each slot
-// once per layer (K1 shares a staged slot's position across 4 layers).
+// lorentz 18, doppler 20): chip_smoke.py recounts the in-window evaluations
+// on the host and states the bound from them, at 67 TFLOP/s and in issue
+// slots (there with the compensated add's three more FADDs). FP32 issue
+// bounds it; per (layer, slot) it reads 5 parameters, shared by the slice's
+// 256 points.
+
 // s + v with the rounding error carried in c (Kahan): s - c is the sum
 __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   const float y = v - c;
@@ -913,15 +866,57 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   s = t;
 }
 
+// kahan_add where `in`, else nothing, without a branch: the step is
+// computed and kept by two selects
+__device__ __forceinline__ void kahan_add_if(bool in, float& s, float& c,
+                                             float v) {
+  const float y = v - c;
+  const float t = s + y;
+  const float e = (t - s) - y;
+  s = in ? t : s;
+  c = in ? e : c;
+}
+
+// eval<FULL> outside |x| + y < 15: voigt_value<FULL>'s far branch, scaled
+// as eval scales it
+__device__ __forceinline__ float full_far(float u, const LineConst& c) {
+  const float x = (u - c.a.x) * c.a.y;
+  return c.a.w * far_re_w(x, c.b.x, c.b);
+}
+
+constexpr int K7_LC = 2;   // layers per K7 CTA
+constexpr int K7_NRAW = 5;   // shift0, strength, gamma_d, gamma_0, wing
+
+// A K7 CTA's shared memory: K1's ring of slot data and raw parameters, the
+// kept pairs' constants and (window lo, hi, k_line, frac0 bits) per layer
+// in slot order, and in full their core ranges (lo, hi; absolute indices)
+template <int NCH>
+struct K7Smem {
+  int k[RING][NCH];
+  float f[RING][NCH];
+  int line[RING][NCH];
+  float cap[RING][NCH];
+  float raw[K7_NRAW][K7_LC][NCH];
+  LineConst c[K7_LC][NCH];
+  int4 meta[K7_LC][NCH];
+  int2 core[K7_LC][NCH];
+  int n[K7_LC];
+};
+
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int k7_min_ctas() {
+  return MODE == FULL || MODE == CORE ? 12 : 16;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, k7_min_ctas<MODE>())
 unfused_xsect_kernel(const int* __restrict__ starts,
                      const int* __restrict__ counts,
                      const int* __restrict__ k_line,
                      const float* __restrict__ frac0,
                      const int* __restrict__ line,
                      const float* __restrict__ wcap,
-                     const int* __restrict__ lay_idx,
+                     const int* __restrict__ lay_idx, int n_lay,
                      const float* __restrict__ shift0,
                      const float* __restrict__ strength,
                      const float* __restrict__ gamma_d,
@@ -933,77 +928,235 @@ unfused_xsect_kernel(const int* __restrict__ starts,
   static_assert(MODE == ASYM || MODE == CORE || MODE == FULL ||
                     MODE == LORENTZ || MODE == DOPPLER,
                 "K7 evaluates the Voigt, Lorentz and Doppler modes");
-  __shared__ LineConst s_c[1][CH];
-  __shared__ int s_k[CH];
-  __shared__ float s_f[CH];
+  constexpr int NL = K7_LC;
+  constexpr int NCH = 2 * KCH;           // slots a chunk (two ballots)
+  // a warp's four points without a branch between them
+  constexpr bool DENSE = MODE == ASYM || MODE == LORENTZ || MODE == DOPPLER;
+  constexpr int NWARP = THREADS / 32;
+  constexpr int WPTS = 32 * PPT;         // points of a warp
+  constexpr int LPW = NL / NWARP;        // layers each warp stages
+  static_assert(SPAN == NWARP * WPTS && NL % NWARP == 0 && NCH % 32 == 0,
+                "two warps of 128 points, K7_LC layers split between them");
+  __shared__ K7Smem<NCH> sm;
   __shared__ float s_wei[MAX_WEI + 1];
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int tile_i = blockIdx.x / sub_per_tile;
   const int sub = blockIdx.x - tile_i * sub_per_tile;
-  const int l = blockIdx.y;
-  if (tile_i * tile + sub * SPAN >= n_out) return;
-  if (MODE != ASYM) {
+  const int l0 = blockIdx.y * NL;
+  const int nl = min(NL, n_lay - l0);
+  const int t0 = tile_i * tile;
+  if (t0 + sub * SPAN >= n_out) return;
+  if (MODE == CORE || MODE == FULL) {
     for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
   }
 
+  const int kloc0 = sub * SPAN;
+  const int last = min(kloc0 + SPAN, tile) - 1;
+  const int r_lo = t0 + kloc0;                 // the slice's grid indices
+  const int r_hi = min(t0 + last, n_out - 1);
+  const int wk0 = t0 + kloc0 + warp * WPTS;   // this warp's first point
+  const bool warp_live = kloc0 + warp * WPTS <= last && wk0 < n_out;
+
   int kg[PPT];
   bool live[PPT];
-  float acc[PPT], acc_c[PPT];   // the total and its Kahan compensation
 #pragma unroll
   for (int p = 0; p < PPT; ++p) {
-    const int kloc = sub * SPAN + p * THREADS + tid;
-    kg[p] = tile_i * tile + kloc;
+    const int kloc = kloc0 + warp * WPTS + p * 32 + lane;
+    kg[p] = t0 + kloc;
     live[p] = kloc < tile && kg[p] < n_out;
-    acc[p] = 0.0f;
-    acc_c[p] = 0.0f;
+  }
+
+  // the total and this block's sum, each with its Kahan compensation
+  float acc[NL][PPT], acc_c[NL][PPT], part[NL][PPT], part_c[NL][PPT];
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+#pragma unroll
+    for (int p = 0; p < PPT; ++p) {
+      acc[l][p] = 0.0f;
+      acc_c[l][p] = 0.0f;
+    }
+
+  // the parameter rows of the layers this thread stages
+  size_t lay_off[LPW];
+#pragma unroll
+  for (int t = 0; t < LPW; ++t) {
+    const int l = warp + NWARP * t;
+    lay_off[t] = l < nl ? static_cast<size_t>(lay_idx[l0 + l]) * n_lines : 0;
   }
 
   const int blk0 = starts[tile_i];
-  const int n_blk = counts[tile_i];
-  for (int b = 0; b < n_blk; ++b) {
-    const int slot0 = (blk0 + b) * block;
-    float part[PPT], part_c[PPT];   // this block's sum, compensated
-#pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      part[p] = 0.0f;
-      part_c[p] = 0.0f;
+  const int cpb = (block + NCH - 1) / NCH;    // chunks a block
+  const int n_chunks = counts[tile_i] * cpb;
+  // chunk ch: slots [s0, s0 + nc) of block ch / cpb (none past its end)
+  auto chunk = [&](int ch, int& s0) {
+    const int b = ch / cpb;
+    const int c0 = (ch - b * cpb) * NCH;
+    s0 = (blk0 + b) * block + c0;
+    return min(NCH, block - c0);
+  };
+  // slot data of chunk ch into its ring entry
+  auto issue_slots = [&](int ch) {
+    int s0;
+    const int nc = chunk(ch, s0);
+    const int r = ch % RING;
+    for (int j = tid; j < nc; j += THREADS) {
+      cp_async4(&sm.k[r][j], k_line + s0 + j);
+      cp_async4(&sm.f[r][j], frac0 + s0 + j);
+      cp_async4(&sm.line[r][j], line + s0 + j);
+      cp_async4(&sm.cap[r][j], wcap + s0 + j);
     }
-    for (int c0 = 0; c0 < block; c0 += CH) {
-      const int nc = min(CH, block - c0);
-      __syncthreads();   // the previous chunk is consumed
-      stage<MODE, CH, true>(c0, nc, slot0, 1, l, tid, k_line, frac0, line,
-                            wcap, lay_idx, shift0, strength, gamma_d, gamma_0,
-                            wing, nullptr, nullptr, n_lines, dx, s_c, s_k,
-                            s_f);
-      __syncthreads();
-      for (int j = 0; j < nc; ++j) {
-        const int kl = s_k[j];
-        const float f0 = s_f[j];
-        const LineConst c = s_c[0][j];
+  };
+  // raw parameters of chunk ch's (layer, slot) pairs, rows by its lines
+  auto issue_params = [&](int ch) {
+    int s0;
+    const int nc = chunk(ch, s0);
+    const int r = ch % RING;
+#pragma unroll
+    for (int t = 0; t < LPW; ++t) {
+      const int l = warp + NWARP * t;
+      if (l >= nl) continue;
+      for (int j = lane; j < nc; j += 32) {
+        const int g = sm.line[r][j];
+        if (g < 0) continue;
+        const size_t off = lay_off[t] + g;
+        cp_async4(&sm.raw[0][l][j], shift0 + off);
+        cp_async4(&sm.raw[1][l][j], strength + off);
+        cp_async4(&sm.raw[2][l][j], gamma_d + off);
+        cp_async4(&sm.raw[3][l][j], gamma_0 + off);
+        cp_async4(&sm.raw[4][l][j], wing + off);
+      }
+    }
+  };
+
+  if (n_chunks > 0) issue_slots(0);
+  cp_async_commit();
+  if (n_chunks > 1) issue_slots(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (n_chunks > 0) issue_params(0);
+  cp_async_commit();
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    int s0;
+    const int nc = chunk(ch, s0);
+    const int r = ch % RING;
+    const int in_blk = ch % cpb;
+    cp_async_wait<0>();
+    __syncthreads();   // chunk ch's parameters and ch + 1's slots are in;
+                       // the previous chunk is consumed
+    // constants, windows and the kept pairs of each layer, in slot order
+#pragma unroll
+    for (int t = 0; t < LPW; ++t) {
+      const int l = warp + NWARP * t;
+      int n_kept = 0;
+#pragma unroll
+      for (int q = 0; q < NCH / 32; ++q) {
+        const int j = q * 32 + lane;
+        bool keep = false;
+        LineConst c;
+        int2 win, cr = make_int2(1, 0);
+        int kl = 0;
+        float f0 = 0.0f;
+        if (l < nl && j < nc && sm.line[r][j] >= 0) {
+          kl = sm.k[r][j];
+          f0 = sm.f[r][j];
+          c = line_const<MODE>(sm.raw[0][l][j], sm.raw[1][l][j],
+                               sm.raw[2][l][j], sm.raw[3][l][j], 1.0f,
+                               fminf(sm.raw[4][l][j], sm.cap[r][j]) / dx,
+                               0.0f, dx);
+          win = window_range(f0, c.a.z);
+          if (MODE == CORE) win = core_range(f0, c, win);
+          if (MODE == FULL) cr = core_range(f0, c, win);
+          keep = win.x <= win.y && kl + win.y >= r_lo && kl + win.x <= r_hi;
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        if (keep) {
+          const int pos = n_kept + __popc(bal & ((1u << lane) - 1u));
+          sm.c[l][pos] = c;
+          sm.meta[l][pos] = make_int4(kl + win.x, kl + win.y, kl,
+                                      __float_as_int(f0));
+          if (MODE == FULL) sm.core[l][pos] = make_int2(kl + cr.x, kl + cr.y);
+        }
+        n_kept += __popc(bal);
+      }
+      if (lane == 0) sm.n[l] = n_kept;
+    }
+    __syncthreads();
+    if (ch + 1 < n_chunks) issue_params(ch + 1);
+    if (ch + 2 < n_chunks) issue_slots(ch + 2);
+    cp_async_commit();
+
+    if (in_blk == 0) {
+#pragma unroll
+      for (int l = 0; l < NL; ++l)
 #pragma unroll
         for (int p = 0; p < PPT; ++p) {
-          const float u = static_cast<float>(kg[p] - kl) - f0;
-          if (u > -c.a.z && u <= c.a.z)
-            kahan_add(part[p], part_c[p], eval<MODE>(u, c, s_wei, n_wei, dx));
+          part[l][p] = 0.0f;
+          part_c[l][p] = 0.0f;
+        }
+    }
+    if (warp_live) {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const int n = sm.n[l];
+        for (int i = 0; i < n; ++i) {
+          const int4 mt = sm.meta[l][i];
+          // warp-uniform: does the window meet this warp's points?
+          if (mt.y < wk0 || mt.x > wk0 + WPTS - 1) continue;
+          const LineConst c = sm.c[l][i];
+          const float f0 = __int_as_float(mt.w);
+          const int2 cr = MODE == FULL ? sm.core[l][i] : make_int2(1, 0);
+#pragma unroll
+          for (int p = 0; p < PPT; ++p) {
+            const int a = wk0 + p * 32;
+            if (!DENSE && (mt.y < a || mt.x > a + 31)) continue;
+            const float u = static_cast<float>(kg[p] - mt.z) - f0;
+            const bool in = u > -c.a.z && u <= c.a.z;
+            if constexpr (DENSE) {
+              kahan_add_if(in, part[l][p], part_c[l][p],
+                           eval<MODE>(u, c, s_wei, n_wei, dx));
+            } else if (MODE == FULL && (cr.y < a || cr.x > a + 31)) {
+              // no point of the span in |x| + y < 15
+              kahan_add_if(in, part[l][p], part_c[l][p], full_far(u, c));
+            } else if (in) {
+              kahan_add(part[l][p], part_c[l][p],
+                        eval<MODE>(u, c, s_wei, n_wei, dx));
+            }
+          }
         }
       }
     }
+    if (in_blk == cpb - 1) {
 #pragma unroll
-    for (int p = 0; p < PPT; ++p)
-      kahan_add(acc[p], acc_c[p], part[p] - part_c[p]);
+      for (int l = 0; l < NL; ++l)
+#pragma unroll
+        for (int p = 0; p < PPT; ++p)
+          kahan_add(acc[l][p], acc_c[l][p], part[l][p] - part_c[l][p]);
+    }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int p = 0; p < PPT; ++p)
-    if (live[p])
-      out[static_cast<size_t>(l) * n_out + kg[p]] = acc[p] - acc_c[p];
+  for (int l = 0; l < NL; ++l) {
+    if (l < nl) {
+#pragma unroll
+      for (int p = 0; p < PPT; ++p)
+        if (live[p])
+          out[static_cast<size_t>(l0 + l) * n_out + kg[p]] =
+              acc[l][p] - acc_c[l][p];
+    }
+  }
 }
 
 }  // namespace
 
 // K7's entry: mode is K1's code (asym 0, core 1, full 3, lorentz 7,
-// doppler 8); lay_idx maps the n_lay output rows to parameter rows.
+// doppler 8); lay_idx maps the n_lay output rows to parameter rows (at most
+// 65535 x K7_LC of them: the grid's second dimension)
 extern "C" int radtxfr_unfused_xsect(
     int mode, const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
@@ -1011,12 +1164,13 @@ extern "C" int radtxfr_unfused_xsect(
     const void* gamma_d, const void* gamma_0, const void* wing, int n_lines,
     const void* wei, int n_wei, int tile, int block, int n_tiles, int n_out,
     double dx, void* out, void* stream) {
+  const int lay_groups = (n_lay + K7_LC - 1) / K7_LC;
   if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 ||
-      n_lay > 65535)
+      lay_groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int sub_per_tile = (tile + SPAN - 1) / SPAN;
   const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  static_cast<unsigned>(n_lay));
+                  static_cast<unsigned>(lay_groups));
   if (grid.x == 0 || grid.y == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float dxf = static_cast<float>(dx);
@@ -1025,7 +1179,8 @@ extern "C" int radtxfr_unfused_xsect(
       static_cast<const int*>(starts), static_cast<const int*>(counts),      \
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
       static_cast<const int*>(line), static_cast<const float*>(wcap),        \
-      static_cast<const int*>(lay_idx), static_cast<const float*>(shift0),   \
+      static_cast<const int*>(lay_idx), n_lay,                               \
+      static_cast<const float*>(shift0),                                     \
       static_cast<const float*>(strength),                                   \
       static_cast<const float*>(gamma_d), static_cast<const float*>(gamma_0), \
       static_cast<const float*>(wing), n_lines,                              \

@@ -19,60 +19,70 @@
 // exact-Faddeeva identity, which cancels ~4 digits in the far wing. The
 // window mask -wingu < u <= wingu is held fixed: wing tangents are dropped.
 //
-// Shape. K1's (fused_xsect.cu): one CTA per (SPAN-point slice of a tile,
-// LC layers), one thread per PPT points, the tile's slots staged CH at a
-// time in shared memory, every output written once by one thread in a fixed
-// order (no atomics; the same inputs give bit-identical outputs). The JAX
-// vmap over tangent directions becomes a direction axis written out: each
-// (slot, point, layer) evaluates (K, Kx, Ky) once and each of up to ND
-// directions adds its own four coefficients, staged per (line, layer,
-// direction) as one float4, so a batch of 8 directions costs about one
-// Voigt-gradient evaluation, not 8. Registers hold LC x PPT x ND
-// accumulators (64 at ND = 8), hence the smaller tile than K1's (PPT 2).
-//
-// Skipping. A (layer, slot) pair whose coefficients are zero for every
-// direction contributes exactly zero (K is finite everywhere it is
-// evaluated), so it is skipped; the test is uniform across the CTA. Layers
-// with no non-zero tangent at all (lay_live, from the wrapper) are not
-// staged, and a CTA without a live layer writes zeros and returns. For the
-// one-hot layer directions of a Jacobian that leaves the CTAs of the
-// directions' own layers.
+// Shape: K1's skeleton (fused_xsect.cu, k1_skeleton.cuh), over rows. The
+// JAX vmap over tangent directions becomes the rows (d, l) of the output,
+// r = d * n_lay_call + l: one CTA per (128-point slice of a tile, K3_LC
+// rows), two warps of 64 points. The rows whose direction has no non-zero
+// tangent on their layer (the wrapper's (nd, nLay) table `live`) stage
+// nothing; a CTA without a live row writes its zeros and stops. For the
+// one-hot directions of a Jacobian batch (a direction live on one layer)
+// only the rows (d, layer of d) work, and each evaluation updates the one
+// direction that is live (a dense direction axis would update all 8
+// directions of every evaluation, 7 of them with exact zeros). The
+// tile's slots go through the cp.async ring (slot data two chunks ahead;
+// the row's 5 primal and 4 tangent parameters one chunk ahead); each staged
+// (slot, row) pair gets its constants, its four coefficients and its integer
+// window (window_range, wing capped by wcap), and is kept, per row in slot
+// order (ballot and prefix count), only if a coefficient is non-zero and the
+// window meets the slice. Each warp tests a kept pair against its 64
+// points and its two 32-point spans with a warp-uniform compare; a span
+// wholly outside core_range runs the asymptotic gradients branch-free, and
+// only spans that meet the core branch per lane into Weideman. A culled
+// pair or span holds only points whose window test fails or whose terms are
+// exact zeros (all four coefficients zero), so each (direction, layer,
+// point) adds the same terms in slot order as a walk over every slot with
+// every direction would, up to nvcc's contraction of a lone direction's
+// term (PERF.md). Every output is written once by one thread: no atomics;
+// the same inputs give bit-identical outputs.
 //
 // Bound. Hand counts per evaluation (lane-ops as in
 // pallas_xsect.py::_ops_per_eval, a*b+c = 2): prelude and window 11, region
 // test 3, asymptotic (K, Kx, Ky) 36 or Weideman (K, Kx, Ky) 30 + 16 n_wei
-// (two complex Horner accumulators), K + x Kx + y Ky 4, and 8 per direction
-// (four products, three adds, the accumulate): 54 + 8 nd outside the core,
-// 48 + 16 n_wei + 8 nd inside (118 and 368 at n_wei = 16, nd = 8). FP32
-// issue bounds it, as K1: the inner loop reads shared memory only.
-// chip_smoke.py recounts the live in-window and in-core evaluations on the
-// host: 1.50 ms for a batch of 8 one-hot directions at the production
-// width (H100 80GB HBM3 at 700 W, against 9.9 ms measured).
+// (two complex Horner accumulators), K + x Kx + y Ky 4: 54 outside the core,
+// 48 + 16 n_wei inside, once per live (slot, layer) in-window evaluation,
+// and 8 per live direction (four products, three adds, the accumulate) of
+// each. The outputs' bytes bound a one-hot Jacobian batch (8 x nLay rows,
+// most of them zeros); FP32 issue bounds denser ones, the inner loop
+// reading shared memory only.
+// chip_smoke.py recounts the live in-window and in-core evaluations and the
+// live (evaluation, direction) products on the host, and the issue slots
+// from this file's SASS (tools/sass.py::k3_eval_instructions).
 //
 // Numerics: float32, IEEE division (no --use_fast_math); nvcc contracts
 // a*b+c into FMA, a float-rounding-level difference from XLA.
 
 #include <cuda_runtime.h>
 
+#include "k1_skeleton.cuh"
+
 namespace {
 
 constexpr int THREADS = 64;            // threads per CTA
-constexpr int PPT = 2;                 // grid points per thread
-constexpr int SPAN = THREADS * PPT;    // points per CTA
-constexpr int LC = 4;                  // layers per CTA
+constexpr int PPT = 2;                 // K4: grid points per thread
+constexpr int SPAN = THREADS * PPT;    // K4: points per CTA
+constexpr int LC = 4;                  // K4: layers per CTA
 constexpr int CH = 32;                 // line slots staged per step
-constexpr int ND_MAX = 8;              // directions per launch at most
+constexpr int ND_MAX = 8;              // K4: directions per launch at most
 constexpr int MAX_WEI = 32;            // Weideman terms at most
+constexpr int K3_PPT = 2;              // K3: grid points per thread
+constexpr int K3_SPAN = THREADS * K3_PPT;   // K3: points per CTA
+constexpr int K3_LC = 4;               // K3: (direction, layer) rows per CTA
 
 constexpr float SQRT_LN2 = static_cast<float>(0.8325546111576977);
 constexpr float INV_SQRT_PI = static_cast<float>(0.5641895835477563);
-constexpr float REGION_BOUND = 15.0f;
 
-// a = (ds, xs, wingu, live), b = (y, 0.5 + y*y, -2*y, 0)
-struct LineConst {
-  float4 a;
-  float4 b;
-};
+// (struct LineConst: k1_skeleton.cuh) K3: a = (ds, xs, wingu, 0),
+// b = (y, 0.5 + y*y, -2*y, 0)
 
 struct KGrads {
   float K, Kx, Ky;
@@ -135,8 +145,50 @@ __device__ __forceinline__ KGrads weideman_k_grads(float x, float y,
   return g;
 }
 
-template <int ND>
-__global__ void __launch_bounds__(THREADS)
+// One direction's term of a K3 evaluation at grid offset u: (K, Kx, Ky) by
+// hum1_wei's region rule (CORE false: the caller knows the point lies
+// outside |x| + y < 15, the asymptotic form's), combined with the
+// direction's coefficients t = (cs, cgd, cg0, cds)
+template <bool CORE>
+__device__ __forceinline__ float tangent_term(float u, const LineConst& c,
+                                              const float4& t,
+                                              const float* wei, int n_wei) {
+  const float x = (u - c.a.x) * c.a.y;
+  const float y = c.b.x;
+  const KGrads g = CORE && fabsf(x) + y < REGION_BOUND
+                       ? weideman_k_grads(x, y, wei, n_wei)
+                       : asym_k_grads(x, y, c.b);
+  const float G = g.K + x * g.Kx + y * g.Ky;
+  return t.x * g.K - t.y * G + t.z * g.Ky - t.w * g.Kx;
+}
+
+constexpr int K3_NRAW = 9;   // shift0, strength, gamma_d, gamma_0, wing,
+                             // shift0_t, strength_t, gamma_d_t, gamma_0_t
+
+// A K3 CTA's shared memory: K1's ring of slot data and raw parameters, and
+// each row's kept pairs in slot order: their constants, coefficients,
+// (window lo, hi, k_line, frac0 bits) and core range (lo, hi; absolute)
+template <int NCH>
+struct K3Smem {
+  int k[RING][NCH];
+  float f[RING][NCH];
+  int line[RING][NCH];
+  float cap[RING][NCH];
+  float raw[K3_NRAW][K3_LC][NCH];
+  LineConst c[K3_LC][NCH];
+  float4 t[K3_LC][NCH];
+  int4 meta[K3_LC][NCH];
+  int2 core[K3_LC][NCH];
+  int n[K3_LC];
+};
+
+// Occupancy: 15.4 KB of shared memory and at most 72 registers a thread
+// (14 CTAs an SM; 44 bytes of spills), chosen by timing 8-16 CTAs and
+// 128- against 256-point slices: a T direction over all layers is
+// evaluation-bound and slows with fewer CTAs or larger slices (PERF.md)
+constexpr int K3_MIN_CTAS = 14;
+
+__global__ void __launch_bounds__(THREADS, K3_MIN_CTAS)
 fused_xsect_jvp_kernel(const int* __restrict__ starts,
                        const int* __restrict__ counts,
                        const int* __restrict__ k_line,
@@ -144,7 +196,7 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
                        const int* __restrict__ line,
                        const float* __restrict__ wcap,
                        const int* __restrict__ lay_idx, int n_lay_call,
-                       const int* __restrict__ lay_live,
+                       const int* __restrict__ live,
                        const float* __restrict__ shift0,
                        const float* __restrict__ strength,
                        const float* __restrict__ gamma_d,
@@ -158,136 +210,239 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
                        const float* __restrict__ wei_g, int n_wei, int tile,
                        int block, int sub_per_tile, int n_out, float dx,
                        float* __restrict__ out) {
-  __shared__ LineConst s_c[LC][CH];
-  __shared__ float4 s_t[LC][CH][ND];
-  __shared__ int s_k[CH];
-  __shared__ float s_f[CH];
+  constexpr int NL = K3_LC;
+  constexpr int NCH = CH;
+  constexpr int NWARP = THREADS / 32;
+  constexpr int WPTS = 32 * K3_PPT;      // points of a warp
+  constexpr int LPW = NL / NWARP;        // rows each warp stages
+  static_assert(K3_SPAN == NWARP * WPTS && NL % NWARP == 0 &&
+                    NCH % 32 == 0,
+                "two warps of 32 K3_PPT points, K3_LC rows split between "
+                "them");
+  __shared__ K3Smem<NCH> sm;
   __shared__ float s_wei[MAX_WEI + 1];
-  __shared__ int s_live[LC];
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int tile_i = blockIdx.x / sub_per_tile;
   const int sub = blockIdx.x - tile_i * sub_per_tile;
-  const int l0 = blockIdx.y * LC;
-  const int nl = min(LC, n_lay_call - l0);
+  const int n_rows = n_dir * n_lay_call;
+  const int r0 = blockIdx.y * NL;
+  const int nr = min(NL, n_rows - r0);
+  const int t0 = tile_i * tile;
+  if (t0 + sub * K3_SPAN >= n_out) return;
 
-  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
-  if (tid < LC) s_live[tid] = tid < nl ? lay_live[lay_idx[l0 + tid]] : 0;
+  const int kloc0 = sub * K3_SPAN;
+  const int last = min(kloc0 + K3_SPAN, tile) - 1;
+  const int r_lo = t0 + kloc0;                 // the slice's grid indices
+  const int r_hi = min(t0 + last, n_out - 1);
+  const int wk0 = t0 + kloc0 + warp * WPTS;   // this warp's first point
+  const bool warp_live = kloc0 + warp * WPTS <= last && wk0 < n_out;
 
-  int kg[PPT];
-  bool live[PPT];
+  int kg[K3_PPT];
+  bool pt_live[K3_PPT];
 #pragma unroll
-  for (int p = 0; p < PPT; ++p) {
-    const int kloc = sub * SPAN + p * THREADS + tid;
-    kg[p] = tile_i * tile + kloc;
-    live[p] = kloc < tile && kg[p] < n_out;
+  for (int p = 0; p < K3_PPT; ++p) {
+    const int kloc = kloc0 + warp * WPTS + p * 32 + lane;
+    kg[p] = t0 + kloc;
+    pt_live[p] = kloc < tile && kg[p] < n_out;
   }
 
-  float acc[LC][PPT][ND];
+  float acc[NL][K3_PPT];
 #pragma unroll
-  for (int l = 0; l < LC; ++l)
+  for (int i = 0; i < NL; ++i)
 #pragma unroll
-    for (int p = 0; p < PPT; ++p)
-#pragma unroll
-      for (int d = 0; d < ND; ++d) acc[l][p][d] = 0.0f;
+    for (int p = 0; p < K3_PPT; ++p) acc[i][p] = 0.0f;
 
-  __syncthreads();
+  // row r's parameter layer and its liveness; every thread reads all rows
+  auto row_layer = [&](int r, int& d) {
+    d = r / n_lay_call;
+    return lay_idx[r - d * n_lay_call];
+  };
   bool any_live = false;
 #pragma unroll
-  for (int l = 0; l < LC; ++l) any_live |= s_live[l] != 0;
-
-  const int slot0 = starts[tile_i] * block;
-  const int n_slots = any_live ? counts[tile_i] * block : 0;
-  for (int c0 = 0; c0 < n_slots; c0 += CH) {
-    const int nc = min(CH, n_slots - c0);
-    __syncthreads();   // the previous chunk is consumed
-    for (int j = tid; j < nc; j += THREADS) {
-      s_k[j] = k_line[slot0 + c0 + j];
-      s_f[j] = frac0[slot0 + c0 + j];
-    }
-    for (int i = tid; i < nl * nc; i += THREADS) {
-      const int l = i / nc;
-      const int j = i - l * nc;
-      const int s = slot0 + c0 + j;
-      const int g = line[s];
-      LineConst c;
-      bool pair_live = false;
-      if (g >= 0 && s_live[l]) {
-        const size_t off = static_cast<size_t>(lay_idx[l0 + l]) * n_lines + g;
-        const float gd = gamma_d[off];
-        const float cte = SQRT_LN2 / gd;
-        const float y = gamma_0[off] * cte;
-        const float xs = dx * cte;
-        const float A = INV_SQRT_PI * cte;
-        const float sA = strength[off] * A;
-        const float k_gd = sA / gd, k_g0 = sA * cte, k_ds = sA * xs;
-        c.a = make_float4(shift0[off] / dx, xs, fminf(wing[off], wcap[s]) / dx,
-                          0.0f);
-        c.b = make_float4(y, 0.5f + y * y, -2.0f * y, 0.0f);
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (d < n_dir) {
-            const size_t toff =
-                static_cast<size_t>(d) * n_lay * n_lines + off;
-            t = make_float4(strength_t[toff] * A, gamma_d_t[toff] * k_gd,
-                            gamma_0_t[toff] * k_g0,
-                            (shift0_t[toff] / dx) * k_ds);
-            pair_live |= t.x != 0.0f || t.y != 0.0f || t.z != 0.0f ||
-                         t.w != 0.0f;
-          }
-          s_t[l][j][d] = t;
-        }
-      } else {
-        // padding slot or dead layer: never evaluated
-        c.a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        c.b = make_float4(1.0f, 1.5f, -2.0f, 0.0f);
-      }
-      c.a.w = pair_live ? 1.0f : 0.0f;
-      s_c[l][j] = c;
-    }
-    __syncthreads();
-    for (int j = 0; j < nc; ++j) {
-      const int kl = s_k[j];
-      const float f0 = s_f[j];
-      float u[PPT];
-#pragma unroll
-      for (int p = 0; p < PPT; ++p) u[p] = static_cast<float>(kg[p] - kl) - f0;
-#pragma unroll
-      for (int l = 0; l < LC; ++l) {
-        if (l >= nl) continue;
-        const LineConst c = s_c[l][j];
-        if (c.a.w == 0.0f) continue;   // uniform across the CTA
-#pragma unroll
-        for (int p = 0; p < PPT; ++p) {
-          if (!(u[p] > -c.a.z && u[p] <= c.a.z)) continue;
-          const float x = (u[p] - c.a.x) * c.a.y;
-          const float y = c.b.x;
-          const KGrads g = fabsf(x) + y < REGION_BOUND
-                               ? weideman_k_grads(x, y, s_wei, n_wei)
-                               : asym_k_grads(x, y, c.b);
-          const float G = g.K + x * g.Kx + y * g.Ky;
-#pragma unroll
-          for (int d = 0; d < ND; ++d) {
-            const float4 t = s_t[l][j][d];
-            acc[l][p][d] += t.x * g.K - t.y * G + t.z * g.Ky - t.w * g.Kx;
-          }
-        }
-      }
+  for (int i = 0; i < NL; ++i) {
+    if (i < nr) {
+      int d;
+      const int pl = row_layer(r0 + i, d);
+      any_live |= live[d * n_lay + pl] != 0;
     }
   }
 
+  if (any_live) {
+    for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
+    // the parameter and tangent rows of the rows this thread stages
+    size_t p_off[LPW], t_off[LPW];
+    bool row_live[LPW];
 #pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    if (d >= n_dir) break;
+    for (int t = 0; t < LPW; ++t) {
+      const int i = warp + NWARP * t;
+      p_off[t] = t_off[t] = 0;
+      row_live[t] = false;
+      if (i < nr) {
+        int d;
+        const int pl = row_layer(r0 + i, d);
+        row_live[t] = live[d * n_lay + pl] != 0;
+        p_off[t] = static_cast<size_t>(pl) * n_lines;
+        t_off[t] = static_cast<size_t>(d) * n_lay * n_lines + p_off[t];
+      }
+    }
+
+    const int slot0 = starts[tile_i] * block;
+    const int n_slots = counts[tile_i] * block;
+    const int n_chunks = (n_slots + NCH - 1) / NCH;
+
+    // slot data of chunk ch into its ring entry
+    auto issue_slots = [&](int ch) {
+      const int c0 = ch * NCH;
+      const int nc = min(NCH, n_slots - c0);
+      const int r = ch % RING;
+      for (int j = tid; j < nc; j += THREADS) {
+        const int s = slot0 + c0 + j;
+        cp_async4(&sm.k[r][j], k_line + s);
+        cp_async4(&sm.f[r][j], frac0 + s);
+        cp_async4(&sm.line[r][j], line + s);
+        cp_async4(&sm.cap[r][j], wcap + s);
+      }
+    };
+    // raw parameters of chunk ch's (row, slot) pairs, rows by its lines
+    auto issue_params = [&](int ch) {
+      const int nc = min(NCH, n_slots - ch * NCH);
+      const int r = ch % RING;
 #pragma unroll
-    for (int l = 0; l < LC; ++l) {
-      if (l >= nl) break;
+      for (int t = 0; t < LPW; ++t) {
+        if (!row_live[t]) continue;
+        const int i = warp + NWARP * t;
+        for (int j = lane; j < nc; j += 32) {
+          const int g = sm.line[r][j];
+          if (g < 0) continue;
+          const size_t off = p_off[t] + g, toff = t_off[t] + g;
+          cp_async4(&sm.raw[0][i][j], shift0 + off);
+          cp_async4(&sm.raw[1][i][j], strength + off);
+          cp_async4(&sm.raw[2][i][j], gamma_d + off);
+          cp_async4(&sm.raw[3][i][j], gamma_0 + off);
+          cp_async4(&sm.raw[4][i][j], wing + off);
+          cp_async4(&sm.raw[5][i][j], shift0_t + toff);
+          cp_async4(&sm.raw[6][i][j], strength_t + toff);
+          cp_async4(&sm.raw[7][i][j], gamma_d_t + toff);
+          cp_async4(&sm.raw[8][i][j], gamma_0_t + toff);
+        }
+      }
+    };
+
+    if (n_chunks > 0) issue_slots(0);
+    cp_async_commit();
+    if (n_chunks > 1) issue_slots(1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n_chunks > 0) issue_params(0);
+    cp_async_commit();
+
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int nc = min(NCH, n_slots - ch * NCH);
+      const int r = ch % RING;
+      cp_async_wait<0>();
+      __syncthreads();   // chunk ch's parameters and ch + 1's slots are in;
+                         // the previous chunk is consumed
+      // constants, coefficients, windows and each row's kept pairs
 #pragma unroll
-      for (int p = 0; p < PPT; ++p)
-        if (live[p])
-          out[(static_cast<size_t>(d) * n_lay_call + l0 + l) * n_out + kg[p]] =
-              acc[l][p][d];
+      for (int t = 0; t < LPW; ++t) {
+        const int i = warp + NWARP * t;
+        int n_kept = 0;
+#pragma unroll
+        for (int q = 0; q < NCH / 32; ++q) {
+          const int j = q * 32 + lane;
+          bool keep = false;
+          LineConst c;
+          float4 tc;
+          int2 win, cr;
+          int kl = 0;
+          float f0 = 0.0f;
+          if (row_live[t] && j < nc && sm.line[r][j] >= 0) {
+            kl = sm.k[r][j];
+            f0 = sm.f[r][j];
+            // the per-(line, layer) constants and coefficients
+            const float gd = sm.raw[2][i][j];
+            const float cte = SQRT_LN2 / gd;
+            const float y = sm.raw[3][i][j] * cte;
+            const float xs = dx * cte;
+            const float A = INV_SQRT_PI * cte;
+            const float sA = sm.raw[1][i][j] * A;
+            const float k_gd = sA / gd, k_g0 = sA * cte, k_ds = sA * xs;
+            c.a = make_float4(sm.raw[0][i][j] / dx, xs,
+                              fminf(sm.raw[4][i][j], sm.cap[r][j]) / dx,
+                              0.0f);
+            c.b = make_float4(y, 0.5f + y * y, -2.0f * y, 0.0f);
+            tc = make_float4(sm.raw[6][i][j] * A, sm.raw[7][i][j] * k_gd,
+                             sm.raw[8][i][j] * k_g0,
+                             (sm.raw[5][i][j] / dx) * k_ds);
+            win = window_range(f0, c.a.z);
+            cr = core_range(f0, c, win);
+            keep = (tc.x != 0.0f || tc.y != 0.0f || tc.z != 0.0f ||
+                    tc.w != 0.0f) &&
+                   win.x <= win.y && kl + win.y >= r_lo && kl + win.x <= r_hi;
+          }
+          const unsigned bal = __ballot_sync(0xffffffffu, keep);
+          if (keep) {
+            const int pos = n_kept + __popc(bal & ((1u << lane) - 1u));
+            sm.c[i][pos] = c;
+            sm.t[i][pos] = tc;
+            sm.meta[i][pos] = make_int4(kl + win.x, kl + win.y, kl,
+                                        __float_as_int(f0));
+            sm.core[i][pos] = make_int2(kl + cr.x, kl + cr.y);
+          }
+          n_kept += __popc(bal);
+        }
+        if (lane == 0) sm.n[i] = n_kept;
+      }
+      __syncthreads();
+      if (ch + 1 < n_chunks) issue_params(ch + 1);
+      if (ch + 2 < n_chunks) issue_slots(ch + 2);
+      cp_async_commit();
+
+      if (warp_live) {
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const int n = sm.n[i];
+          for (int k = 0; k < n; ++k) {
+            const int4 mt = sm.meta[i][k];
+            // warp-uniform: does the window meet this warp's points?
+            if (mt.y < wk0 || mt.x > wk0 + WPTS - 1) continue;
+            const LineConst c = sm.c[i][k];
+            const float4 tc = sm.t[i][k];
+            const int2 cr = sm.core[i][k];
+            const float f0 = __int_as_float(mt.w);
+#pragma unroll
+            for (int p = 0; p < K3_PPT; ++p) {
+              const int a = wk0 + p * 32;
+              if (mt.y < a || mt.x > a + 31) continue;
+              const float u = static_cast<float>(kg[p] - mt.z) - f0;
+              const bool in = u > -c.a.z && u <= c.a.z;
+              if (cr.y < a || cr.x > a + 31) {
+                // no point of the span in |x| + y < 15: branch-free
+                const float v = tangent_term<false>(u, c, tc, s_wei, n_wei);
+                acc[i][p] = in ? acc[i][p] + v : acc[i][p];
+              } else if (in) {
+                acc[i][p] += tangent_term<true>(u, c, tc, s_wei, n_wei);
+              }
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  // every row of the CTA, live or not (a dead row's sums are zeros)
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    if (i < nr) {
+#pragma unroll
+      for (int p = 0; p < K3_PPT; ++p)
+        if (pt_live[p])
+          out[static_cast<size_t>(r0 + i) * n_out + kg[p]] = acc[i][p];
     }
   }
 }
@@ -313,7 +468,14 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
 // evaluates (K, Kx, Ky) at both CPF points once for all directions. The
 // point math is the non-contracting __f*_rn form in the plain version's
 // order: the w(Z1) - w(Z2) difference amplifies rounding, as in K1's
-// SD-Voigt block. Shape and skipping as K3 above. FP32 issue bounds it:
+// SD-Voigt block. Shape: one CTA per (SPAN-point slice of a tile, LC
+// layers), one thread per PPT points, the tile's slots staged CH at a time
+// in shared memory, registers holding LC x PPT x ND accumulators (64 at
+// ND = 8), every output written once by one thread (no atomics). Skipping:
+// a (layer, slot) pair whose coefficients are zero for every direction is
+// skipped, uniformly across the CTA; layers with no non-zero tangent
+// (lay_live, from the wrapper) are not staged, and a CTA without a live
+// layer writes zeros and returns. FP32 issue bounds it:
 // per evaluation 37 lane-ops (window, dnu, xi, the square root S, the
 // denominator, K1 - K2), per CPF point a (K, Kx, Ky) after its 3-op region
 // test (Weideman 49 + 15 n_wei, asymptotic 38) and 32 per direction
@@ -566,48 +728,41 @@ fused_sdvoigt_jvp_kernel(const int* __restrict__ starts,
 
 }  // namespace
 
+// K3's entry: live is the (n_dir, n_lay) int32 table of the directions'
+// non-zero tangents per parameter layer; out (n_dir, n_lay_call, n_out)
 extern "C" int radtxfr_fused_xsect_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* lay_live,
+    const void* lay_idx, int n_lay_call, const void* live,
     const void* shift0, const void* strength, const void* gamma_d,
     const void* gamma_0, const void* wing, const void* shift0_t,
     const void* strength_t, const void* gamma_d_t, const void* gamma_0_t,
     int n_dir, int n_lay, int n_lines, const void* wei, int n_wei, int tile,
     int block, int n_tiles, int n_out, double dx, void* out, void* stream) {
+  const long long row_groups =
+      (static_cast<long long>(n_dir) * n_lay_call + K3_LC - 1) / K3_LC;
   if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
-      n_dir > ND_MAX)
+      row_groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
+  const int sub_per_tile = (tile + K3_SPAN - 1) / K3_SPAN;
   const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  (n_lay_call + LC - 1) / LC);
+                  static_cast<unsigned>(row_groups));
   if (grid.x == 0 || grid.y == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RADTXFR_LAUNCH(ND)                                                     \
-  fused_xsect_jvp_kernel<ND><<<grid, THREADS, 0, s>>>(                         \
-      static_cast<const int*>(starts), static_cast<const int*>(counts),        \
-      static_cast<const int*>(k_line), static_cast<const float*>(frac0),       \
-      static_cast<const int*>(line), static_cast<const float*>(wcap),          \
-      static_cast<const int*>(lay_idx), n_lay_call,                            \
-      static_cast<const int*>(lay_live), static_cast<const float*>(shift0),    \
-      static_cast<const float*>(strength), static_cast<const float*>(gamma_d), \
-      static_cast<const float*>(gamma_0), static_cast<const float*>(wing),     \
-      static_cast<const float*>(shift0_t),                                     \
-      static_cast<const float*>(strength_t),                                   \
-      static_cast<const float*>(gamma_d_t),                                    \
-      static_cast<const float*>(gamma_0_t), n_dir, n_lay, n_lines,             \
-      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out, \
-      static_cast<float>(dx), static_cast<float*>(out))
-  if (n_dir == 1) {
-    RADTXFR_LAUNCH(1);
-  } else if (n_dir == 2) {
-    RADTXFR_LAUNCH(2);
-  } else if (n_dir <= 4) {
-    RADTXFR_LAUNCH(4);
-  } else {
-    RADTXFR_LAUNCH(8);
-  }
-#undef RADTXFR_LAUNCH
+  fused_xsect_jvp_kernel<<<grid, THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const int*>(k_line), static_cast<const float*>(frac0),
+      static_cast<const int*>(line), static_cast<const float*>(wcap),
+      static_cast<const int*>(lay_idx), n_lay_call,
+      static_cast<const int*>(live), static_cast<const float*>(shift0),
+      static_cast<const float*>(strength), static_cast<const float*>(gamma_d),
+      static_cast<const float*>(gamma_0), static_cast<const float*>(wing),
+      static_cast<const float*>(shift0_t),
+      static_cast<const float*>(strength_t),
+      static_cast<const float*>(gamma_d_t),
+      static_cast<const float*>(gamma_0_t), n_dir, n_lay, n_lines,
+      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out,
+      static_cast<float>(dx), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

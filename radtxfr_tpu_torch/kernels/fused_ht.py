@@ -236,7 +236,7 @@ def xsect_ht_jvp(dplan: DevicePlan, lay_idx, strength, wing, consts,
     if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
         return out
     wei = _weideman_table(n_weideman, dev)
-    live = live_layers(tangents, n_lay, dev)
+    live = live_layers(tangents, n_lay)
     # (nd, 12, nLay, L): each direction's strength and constant tangents
     tan = torch.stack(tangents, dim=1)
     per_dir = (1 + _N_CONST) * n_lay * n_lines * 4

@@ -1011,12 +1011,14 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
 
 
 def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
-                      params: dict, tangents: dict,
-                      n_weideman: int) -> torch.Tensor:
+                      params: dict, tangents: dict, n_weideman: int,
+                      per_direction: bool = False) -> torch.Tensor:
     """Check the arguments of a Voigt-family tangent kernel (K3 or K4) and
     launch it once per ``_JVP_MAX_DIRS`` directions on the current stream:
     ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the order of
-    the C function ``symbol``; (nd, len(lay_idx), n_out) float32. Launches
+    the C function ``symbol``, which takes the (nLay,) table of
+    :func:`live_layers`, or with ``per_direction`` the launch's rows of
+    :func:`live_directions`; (nd, len(lay_idx), n_out) float32. Launches
     count under ``key``."""
     _check_call(dplan, lay_idx, params, n_weideman)
     strength, strength_t = params["strength"], tangents["strength_t"]
@@ -1032,7 +1034,8 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
     if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
         return out
     wei = _weideman_table(n_weideman, dev)
-    live = live_layers(tangents.values(), n_lay, dev)
+    live = (live_directions if per_direction else live_layers)(
+        tangents.values(), n_lay)
     per_dir = n_lay * n_lines * 4
     for d0 in range(0, nd, _JVP_MAX_DIRS):
         n = min(_JVP_MAX_DIRS, nd - d0)
@@ -1040,7 +1043,7 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
             dplan.starts.data_ptr(), dplan.counts.data_ptr(),
             dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
             dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-            n_lay_call, live.data_ptr(),
+            n_lay_call, (live[d0] if per_direction else live).data_ptr(),
             *(p.data_ptr() for p in params.values()),
             *(t.data_ptr() + d0 * per_dir for t in tangents.values()),
             n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
@@ -1060,9 +1063,11 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
 
     CPU tensors run :func:`xsect_fused_jvp_plain`. CUDA tensors launch the
-    tangent kernel (``csrc/fused_xsect_jvp.cu``) once per
-    ``_JVP_MAX_DIRS`` directions on the current stream; anything it does
-    not take raises, as does a non-zero CUDA error from a launch.
+    tangent kernel (``csrc/fused_xsect_jvp.cu``, one CTA per (128-point
+    slice, 4 (direction, layer) rows), the rows whose direction has no
+    non-zero tangent on their layer written as zeros without staging) once
+    per ``_JVP_MAX_DIRS`` directions on the current stream; anything it
+    does not take raises, as does a non-zero CUDA error from a launch.
     """
     if strength.device.type == "cpu":
         return xsect_fused_jvp_plain(dplan, lay_idx, shift0, strength,
@@ -1074,17 +1079,25 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
              gamma_0=gamma_0, wing=wing),
         dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
-             gamma_0_t=gamma_0_t), n_weideman)
+             gamma_0_t=gamma_0_t), n_weideman, per_direction=True)
 
 
-def live_layers(tangents, n_lay, dev) -> torch.Tensor:
-    """(n_lay,) int32: 1 for the layers where any of the (nd, n_lay, ...)
-    ``tangents`` is non-zero (a tangent kernel's CTA whose layers are all
-    dead writes zeros without staging or evaluating anything)."""
-    live = torch.zeros(n_lay, dtype=torch.bool, device=dev)
+def live_directions(tangents, n_lay) -> torch.Tensor:
+    """(nd, n_lay) int32: 1 where any of the (nd, n_lay, ...) ``tangents``
+    of direction d is non-zero on layer l (K3 stages and evaluates only
+    those (direction, layer) rows), computed on their device."""
+    live = None
     for t in tangents:
-        live |= (t != 0).reshape(t.shape[0], n_lay, -1).any(dim=2).any(dim=0)
+        nz = (t != 0).reshape(t.shape[0], n_lay, -1).any(dim=2)
+        live = nz if live is None else live | nz
     return live.to(torch.int32)
+
+
+def live_layers(tangents, n_lay) -> torch.Tensor:
+    """(n_lay,) int32: 1 for the layers where any of the (nd, n_lay, ...)
+    ``tangents`` is non-zero (a K4 or K6 CTA whose layers are all dead
+    writes zeros without staging or evaluating anything)."""
+    return live_directions(tangents, n_lay).amax(dim=0)
 
 
 def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
@@ -1294,8 +1307,9 @@ def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
 
     CPU tensors run :func:`xsect_unfused_plain` in their dtype. CUDA
     tensors are taken as float32 (the Pallas wrapper's cast) and launch K7
-    on the current stream, one CTA per (layer, 256-point slice); a
-    non-zero CUDA error from the launch raises. Launches count under
+    on the current stream, one CTA per (256-point slice, 2 layers), each
+    staged (slot, layer) pair culled by its integer window; a non-zero CUDA
+    error from the launch raises. Launches count under
     ``"unfused_<mode>"`` in :data:`LAUNCHES`.
     """
     if params.strength.device.type == "cpu":

@@ -187,6 +187,50 @@ def k1_eval_instructions(instrs, src: str, mode: int, n_wei: int) -> dict:
             + (mode != 1), "weideman_term": per_term}
 
 
+def ld_eval_instructions(instrs, src: str, mode: int) -> dict:
+    """Issue slots one Lorentz (``mode`` 7) or Doppler (8) evaluation
+    needs, from its kernel's SASS: the :data:`WORK` instructions of
+    ``ld_value`` per copy (counted by the one MUFU.RCP of Lorentz's
+    reciprocal or MUFU.EX2 of Doppler's ``expf`` each holds), plus the one
+    FFMA that scales and adds it; the same inside and outside the window's
+    core (``in``, ``out``)."""
+    fn = _fn(src, "float", "ld_value")
+    marker = {7: "MUFU.RCP", 8: "MUFU.EX2"}[mode]
+    per = _work(instrs, fn) / max(_count(instrs, fn, marker), 1) + 1
+    return {"in": per, "out": per}
+
+
+def k3_eval_instructions(instrs, src: str, n_wei: int) -> dict:
+    """Issue slots a K3 evaluation needs, from its kernel's SASS: per live
+    (slot, layer, point) the :data:`WORK` instructions of ``tangent_term``
+    but its return line (the offset x, the region test, K + x Kx + y Ky)
+    with the (K, Kx, Ky) it takes, Weideman's inside |x| + y < 15 (``in``,
+    its term taken ``n_wei - 1`` times) or the asymptotic form's outside
+    (``out``); per live direction of it (``dir``) the return line, which
+    combines the direction's four coefficients, and the FADD that adds it.
+    The kernel's window tests, indexing and loop code are not counted.
+    ``tangent_term``'s copies are counted by the one MUFU.RCP of
+    ``asym_k_grads`` each holds, Weideman's by its own one."""
+    fn = {"term": _fn(src, "float", "tangent_term"),
+          "asym": _fn(src, "KGrads", "asym_k_grads"),
+          "wei": _fn(src, "KGrads", "weideman_k_grads")}
+    rows = src.splitlines()
+    ret = [n for n in fn["term"] if rows[n - 1].lstrip().startswith("return")]
+    copies = max(_count(instrs, fn["asym"], "MUFU.RCP"), 1)
+    wei_copies = max(_count(instrs, fn["wei"], "MUFU.RCP"), 1)
+    loop = _loop(src, fn["wei"])
+    terms = sum({"LDS.64": 2, "LDS.128": 4}.get(i.op, 1) for i in instrs
+                if i.line in loop and i.op.startswith("LDS"))
+    per_term = _work(instrs, loop) / max(terms, 1)
+    weideman = ((_work(instrs, fn["wei"]) - _work(instrs, loop)) / wei_copies
+                + (n_wei - 1) * per_term)
+    base = (_work(instrs, fn["term"]) - _work(instrs, ret)) / copies
+    return {"in": base + weideman,
+            "out": base + _work(instrs, fn["asym"]) / copies,
+            "dir": _work(instrs, ret) / copies + 1,
+            "weideman_term": per_term}
+
+
 def k2_instructions(instrs, src: str, n_mu: int, n_angles: int,
                     planck: bool) -> dict:
     """Issue slots per column and layer that K2's work needs, from its

@@ -474,3 +474,132 @@ def test_peak_probe_matches_plain(dev, name, op, n_chains):
     peak, which = fp32_peak.measured_fp32_peak(dev)
     assert 0.0 < peak <= fp32_peak.FOLD_LIMIT
     assert which in [m[0] for m in fp32_peak.PEAK_MIXES]
+
+
+def _k7_case(dev, n_lay=5, n_lines=600, n_pts=40001, lines=(995.0, 1105.0),
+             wings=(2.0, 12.0), packed=False, block=256):
+    """Random Voigt parameters of the lattice's ranges on a 0.0025 grid
+    from 1000 cm^-1 (n_pts points: not a multiple of 256), sorted lines over
+    ``lines`` with per-line wings drawn from ``wings`` [cm^-1], and the
+    shared-block plan of plan_buckets (the last block padded where n_lines
+    is not a multiple of ``block``) or a packed plan."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.kernels.lineparams import LineParams
+
+    rng = np.random.default_rng(11)
+    g = fused_xsect.UniformGrid(x0=1000.0, dx=0.0025, n=n_pts)
+    nu0 = np.sort(rng.uniform(*lines, n_lines))
+    w = rng.uniform(*wings, n_lines)
+    plan = (fused_xsect.plan_buckets_packed(nu0, g, w, tile=1024, block=32)
+            if packed else
+            fused_xsect.plan_buckets(nu0, g, float(w.max()), tile=1024,
+                                     block=block))
+    mk = lambda lo, hi: torch.as_tensor(  # noqa: E731
+        rng.uniform(lo, hi, (n_lay, n_lines)), dtype=torch.float32,
+        device=dev)
+    t = lambda a: torch.as_tensor(  # noqa: E731
+        np.tile(a, (n_lay, 1)), dtype=torch.float32, device=dev)
+    zero = torch.zeros((n_lay, n_lines), device=dev)
+    prm = LineParams(nu0=t(nu0), nu0_shifted=t(nu0), strength=mk(0.5, 2.0),
+                     gamma_d=mk(0.0005, 0.002), gamma_0=mk(0.002, 0.1),
+                     wing=t(w), shift0=mk(-0.01, 0.01), gamma_2=zero)
+    return plan, prm
+
+
+#: K7's edge cases: layer counts that are not a multiple of its 2 layers a
+#: CTA, tiles that visit no block, padding slots, a packed plan and wings of
+#: more than 2^22 grid steps (window_range takes every index)
+K7_CASES = {
+    "5 layers, padded last block": dict(n_lay=5),
+    "66 layers": dict(n_lay=66, n_lines=200, n_pts=20001),
+    "tiles with no block": dict(lines=(1040.0, 1045.0), wings=(0.5, 2.0)),
+    "packed plan": dict(n_lay=3, packed=True),
+    "wings over 2^22 steps": dict(n_lay=3, n_lines=40, n_pts=12001,
+                                  wings=(1.1e4, 1.2e4), block=16),
+}
+
+
+@pytest.mark.parametrize("mode", ("full", "core", "asym"))
+@pytest.mark.parametrize("case", K7_CASES)
+def test_unfused_kernel_edge_cases(dev, case, mode):
+    """K7 against its plain version on the edge cases of its grid and plan:
+    within 2e-6 of the 'full' spectrum's peak and of its own peak but for
+    core (5e-2, K1's bound; test_unfused_kernel_matches_plain); two launches
+    bit-identical; a tile that visits no block writes zeros. The plain
+    version runs on the CPU: on the card torch divides a tensor by a Python
+    float through the float's reciprocal, so its wingu = wing / dx can be
+    an ulp off the kernel's IEEE quotient and move a window edge across a
+    grid point, a far-wing term of 2e-5 of the peak at a point of these
+    wide-wing cases."""
+    import dataclasses
+
+    plan, prm = _k7_case(dev, **K7_CASES[case])
+    if case == "tiles with no block":
+        assert (plan.counts == 0).any()
+    got = fused_xsect.xsect_unfused(plan, prm, mode)
+    assert torch.equal(got, fused_xsect.xsect_unfused(plan, prm, mode))
+    cpu = dataclasses.replace(prm, **{f.name: getattr(prm, f.name).cpu()
+                                      for f in dataclasses.fields(prm)})
+    want = fused_xsect.xsect_unfused_plain(plan, cpu, mode).to(dev)
+    peak = fused_xsect.xsect_unfused_plain(plan, cpu).abs().max().to(dev)
+    own = want.abs().max()
+    err = (got - want).abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    assert got.shape == (prm.strength.shape[0], plan.grid.n)
+    assert err <= 2e-6 * peak, float(err / peak)
+    assert err <= (5e-2 if mode == "core" else 2e-6) * own, float(err / own)
+    empty = torch.as_tensor(plan.counts == 0).repeat_interleave(plan.tile)
+    assert not got[:, empty[:plan.grid.n].to(dev)].any()
+
+
+def _k3_tangents(dev, prm, nd, kind, seed=5):
+    """(nd, nLay, L) tangents of (shift0, strength, gamma_d, gamma_0), each
+    scaled like its parameter: ``dense`` non-zero on every layer, ``one-hot``
+    direction d live on layer d only (mod nLay), ``zero`` dense but
+    direction 1 zero everywhere."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_lay = prm["strength"].shape[0]
+    mask = np.ones((nd, n_lay, 1))
+    if kind == "one-hot":
+        mask = np.zeros((nd, n_lay, 1))
+        mask[np.arange(nd), np.arange(nd) % n_lay] = 1.0
+    elif kind == "zero":
+        mask[1] = 0.0
+    return [torch.as_tensor(rng.standard_normal((nd,) + tuple(
+        prm[k].shape)) * mask * prm[k].abs().mean().item(),
+        dtype=torch.float32, device=dev).contiguous()
+        for k in ("shift0", "strength", "gamma_d", "gamma_0")]
+
+
+@pytest.mark.parametrize("nd,kind", [(1, "dense"), (1, "one-hot"),
+                                     (3, "dense"), (3, "zero"),
+                                     (8, "one-hot"), (8, "dense"),
+                                     (8, "zero")])
+def test_tangent_kernel_directions(dev, nd, kind):
+    """K3 on random Voigt parameters for 1, 3 and 8 directions, one-hot
+    (a direction live on one layer), dense, or with a direction zero
+    everywhere: each direction within 2e-5 of its own peak
+    (test_full_and_tangent_kernels_match_plain), a zero direction and every
+    layer a direction does not touch exactly zero; one launch; two launches
+    bit-identical."""
+    dp, lay, prm = _random_case(dev, n_pts=20000)
+    args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+            prm["gamma_0"], prm["wing"])
+    tans = _k3_tangents(dev, prm, nd, kind)
+    n0 = fused_xsect.LAUNCHES["jvp"]
+    got = fused_xsect.xsect_fused_jvp(*args, *tans)
+    assert fused_xsect.LAUNCHES["jvp"] == n0 + 1
+    assert torch.equal(got, fused_xsect.xsect_fused_jvp(*args, *tans))
+    want = fused_xsect.xsect_fused_jvp_plain(*args, *tans)
+    touched = torch.stack([(t != 0).any(dim=2) for t in tans]).any(dim=0)
+    for d in range(nd):
+        for li in range(lay.numel()):
+            if not touched[d, li]:
+                assert not got[d, li].any(), (d, li)
+        own = want[d].abs().max()
+        err = (got[d] - want[d]).abs().max()
+        assert (own > 0.0) == bool(touched[d].any())
+        assert err <= 2e-5 * own if own > 0 else err == 0, d

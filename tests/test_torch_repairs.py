@@ -7,12 +7,21 @@ rule against the plain version's window mask.
   (checked in a fresh interpreter: this process has JAX loaded).
 * ``tud`` takes the JAX CLI's ``--engine`` and ``--partition``; ``--engine
   jnp`` raises, naming the ROADMAP item.
-* K1 (``csrc/fused_xsect.cu::window_range``) keeps a staged (slot, layer)
+* K1 (``csrc/k1_skeleton.cuh::window_range``) keeps a staged (slot, layer)
   pair only where the integer range [k_line + floor(frac0 - wingu) - 2,
   k_line + ceil(frac0 + wingu) + 2] meets the CTA's points: that range must
   hold every grid index at which the plain version's float32 window test
   passes; in the core pass (``core_range``) every index where that test and
   hum1_wei's |x| + y < 15 both pass, the only points core adds to.
+* K7 on ``make_od_plan``'s shared-block plan (wings capped by the plan's
+  ``wcap``) culls by the same rule; in ``full`` a span outside
+  ``core_range`` runs the asymptotic form only, so ``core_range`` must hold
+  every in-window index inside |x| + y < 15.
+* K3 keeps a (slot, (direction, layer) row) pair only where the row is
+  live in ``fused_xsect.live_directions`` and the pair's coefficients are
+  not all zero: every pair and direction with a non-zero tangent whose
+  float window passes must be kept, with its in-window (and in-core)
+  indices inside its ranges.
 """
 
 import ast
@@ -160,6 +169,58 @@ def production_passes():
     return fn, prm
 
 
+def _check_cull(dp, prm, rows, mode, live=None):
+    """Assert, for the (slot, layer) pairs of the layers ``rows`` of the
+    plan ``dp`` (``live(li, g)``: the pairs' lines of layer ``li`` a kernel
+    keeps, None all), that the integer window range holds every grid index
+    at which the plain version's float32 window test passes (``core``: and
+    |x| + y < 15; ``full``: the in-window indices in |x| + y < 15 also lie
+    in ``core_range``); the (in-window indices, kept indices, pairs)."""
+    line = dp.line.numpy()
+    k_line = dp.k_line.numpy().astype(np.int64)
+    frac0 = dp.frac0.numpy()
+    tile_of = np.repeat(np.arange(dp.n_tiles),
+                        dp.counts.numpy().astype(np.int64) * dp.block)
+    s_all = np.nonzero(line[:tile_of.size] >= 0)[0]
+    n_in = n_kept = n_pairs = 0
+    for li in rows:
+        s = s_all if live is None else s_all[live(li, line[s_all])]
+        g, t = line[s], tile_of[s]
+        k = (t[:, None] * dp.tile + np.arange(dp.tile)[None, :])
+        # the plain version's u and mask, float32 (fused_xsect._plain_steps)
+        u = ((k - k_line[s][:, None]).astype(np.float32)
+             - frac0[s][:, None])
+        w = np.minimum(prm.wing.numpy()[li, g], dp.wcap.numpy()[s])
+        wingu = (torch.as_tensor(w) / dp.dx).numpy()[:, None]
+        mask = (u > -wingu) & (u <= wingu) & (k < dp.n_out)
+        lo, hi = _window_range(frac0[s], wingu[:, 0])
+        d = k - k_line[s][:, None]
+        inside = lambda lo, hi: (  # noqa: E731
+            (d >= lo[:, None]) & (d <= hi[:, None]) & (k < dp.n_out))
+        if mode in ("core", "full"):
+            # line_const's Voigt constants, float32 as in the kernel
+            cte = (torch.tensor(0.8325546111576977, dtype=torch.float32)
+                   / prm.gamma_d[li, g]).numpy()
+            ds = (prm.shift0[li, g] / dp.dx).numpy()
+            xs = (dp.dx * torch.as_tensor(cte)).numpy()
+            y = (prm.gamma_0[li, g] * torch.as_tensor(cte)).numpy()
+            x = (u - ds[:, None]) * xs[:, None]
+            core = (np.abs(x) + y[:, None]) < np.float32(15.0)
+            clo, chi = _core_range(frac0[s], ds, xs, y, lo, hi)
+            if mode == "core":
+                mask &= core
+                lo, hi = clo, chi
+            else:
+                assert not (mask & core & ~inside(clo, chi)).any(), (mode,
+                                                                     li)
+        kept = inside(lo, hi)
+        assert not (mask & ~kept).any(), (mode, li)
+        n_in += int(mask.sum())
+        n_kept += int(kept.sum())
+        n_pairs += mask.shape[0]
+    return n_in, n_kept, n_pairs
+
+
 @pytest.mark.parametrize("mode", ("asym", "core", "mix"))
 def test_window_range_holds_the_plain_window(production_passes, mode):
     fn, prm = production_passes
@@ -167,38 +228,109 @@ def test_window_range_holds_the_plain_window(production_passes, mode):
     assert calls
     n_in = n_kept = n_pairs = 0
     for lay, dp, _ in calls:
-        line = dp.line.numpy()
-        k_line = dp.k_line.numpy().astype(np.int64)
-        frac0 = dp.frac0.numpy()
-        tile_of = np.repeat(np.arange(dp.n_tiles),
-                            dp.counts.numpy().astype(np.int64) * dp.block)
-        s = np.nonzero(line[:tile_of.size] >= 0)[0]
-        g, t = line[s], tile_of[s]
-        k = (t[:, None] * dp.tile + np.arange(dp.tile)[None, :])
-        # the plain version's u and mask, float32 (fused_xsect._plain_steps)
-        u = ((k - k_line[s][:, None]).astype(np.float32)
-             - frac0[s][:, None])
-        for li in lay.numpy():
-            w = np.minimum(prm.wing.numpy()[li, g], dp.wcap.numpy()[s])
-            wingu = (torch.as_tensor(w) / dp.dx).numpy()[:, None]
-            mask = (u > -wingu) & (u <= wingu) & (k < dp.n_out)
-            lo, hi = _window_range(frac0[s], wingu[:, 0])
-            if mode == "core":
-                # line_const's Voigt constants, float32 as in the kernel
-                cte = (torch.tensor(0.8325546111576977, dtype=torch.float32)
-                       / prm.gamma_d[li, g]).numpy()
-                ds = (prm.shift0[li, g] / dp.dx).numpy()
-                xs = (dp.dx * torch.as_tensor(cte)).numpy()
-                y = (prm.gamma_0[li, g] * torch.as_tensor(cte)).numpy()
-                x = (u - ds[:, None]) * xs[:, None]
-                mask &= (np.abs(x) + y[:, None]) < np.float32(15.0)
-                lo, hi = _core_range(frac0[s], ds, xs, y, lo, hi)
-            d = k - k_line[s][:, None]
-            inside = (d >= lo[:, None]) & (d <= hi[:, None]) & (k < dp.n_out)
-            assert not (mask & ~inside).any(), (mode, li)
-            n_in += int(mask.sum())
-            n_kept += int(inside.sum())
-            n_pairs += mask.shape[0]
+        a, b, c = _check_cull(dp, prm, lay.numpy(), mode)
+        n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
     # the range is tight: at most 6 indices more than the window a pair
     # (core: than the window's part in |x| + y < 15, with its 1e-4 margin)
+    assert n_in > 0 and n_kept - n_in <= 6 * n_pairs
+
+
+@pytest.fixture(scope="module")
+def od_plan_case():
+    """make_od_plan's shared-block plan on 718-723 cm^-1 at 5e-4 (derived
+    list, standard atmosphere) on the CPU, its float32 Voigt parameters."""
+    from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+    from radtxfr_tpu_torch.core.grid import arange_drift_free
+    from radtxfr_tpu_torch.kernels.fused_xsect import device_plan
+    from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
+    from radtxfr_tpu_torch.lines.store import IsoTables
+    from radtxfr_tpu_torch.products.od import (_line_species_cols,
+                                               layer_line_params,
+                                               make_od_plan)
+
+    f32 = torch.float32
+    store = derived_lwir_linelist(693.0, 748.0, device="cpu", dtype=f32)
+    iso = IsoTables.load(device="cpu", dtype=f32)
+    base = std_atmosphere(device="cpu", dtype=f32)
+    plan = make_od_plan(store, iso, arange_drift_free(718.0, 723.0, 0.0005),
+                        base)
+    prm = layer_line_params(store, iso, base,
+                            _line_species_cols(store.host_view(),
+                                               base.mol_ids))
+    n_lay, n_lines = prm.strength.shape
+    dp = device_plan(plan, np.arange(n_lines), None, device="cpu")
+    return dp, prm, n_lay
+
+
+@pytest.mark.parametrize("mode", ("full", "core"))
+def test_k7_window_range_holds_the_plain_window(od_plan_case, mode):
+    """K7's cull on make_od_plan's plan, whose wing cap is the widest
+    layer's wing: every layer's in-window (core: in-core) indices lie in
+    the ranges, and the cap leaves most of a tile's slot-points outside
+    them in the upper layers."""
+    dp, prm, n_lay = od_plan_case
+    n_in, n_kept, n_pairs = _check_cull(dp, prm, range(n_lay), mode)
+    assert n_in > 0 and n_kept - n_in <= 6 * n_pairs
+    slot_points = int(dp.counts.sum()) * dp.block * dp.tile * n_lay
+    assert n_kept < slot_points / 2
+
+
+@pytest.fixture(scope="module")
+def jacobian_passes():
+    """The differentiable builder's full passes on 718-723 cm^-1 at 5e-4
+    (CPU, float32) and the line-parameter tangents of 8 one-hot T
+    directions (layers 24-31, one Jacobian batch) and of a T direction over
+    all layers."""
+    from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+    from radtxfr_tpu_torch.core.grid import arange_drift_free
+    from radtxfr_tpu_torch.lines.derived import derived_lwir_linelist
+    from radtxfr_tpu_torch.lines.store import IsoTables
+    from radtxfr_tpu_torch.products.od import make_od_fn
+
+    f32 = torch.float32
+    store = derived_lwir_linelist(693.0, 748.0, device="cpu", dtype=f32)
+    base = std_atmosphere(device="cpu", dtype=f32)
+    fn = make_od_fn(store, IsoTables.load(device="cpu", dtype=f32),
+                    arange_drift_free(718.0, 723.0, 0.0005), base,
+                    differentiable=True)
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+
+    def prm_of(T_):
+        q = fn.line_params(T_, p, pl, vmr)[0]
+        return q.shift0, q.strength, q.gamma_d, q.gamma_0
+
+    n = base.n_layers
+    sets = {"one-hot": torch.eye(n)[24:32],
+            "dense": torch.linspace(0.5, 1.5, n)[None]}
+    tans = {k: torch.func.vmap(lambda v: torch.func.jvp(
+        prm_of, (T,), (v,))[1])(V) for k, V in sets.items()}
+    return fn, fn.line_params(T, p, pl, vmr)[0], tans
+
+
+@pytest.mark.parametrize("kind", ("one-hot", "dense"))
+def test_k3_keeps_every_live_pair_in_its_window(jacobian_passes, kind):
+    """K3's rows and kept pairs: a (direction, layer) row is live in
+    live_directions exactly where a tangent of the direction is non-zero on
+    the layer, and each live row's pairs with a non-zero tangent keep every
+    in-window index inside their window range and every in-window index in
+    |x| + y < 15 inside core_range (the one-hot batch: one live row a
+    direction)."""
+    from radtxfr_tpu_torch.kernels.fused_xsect import live_directions
+
+    fn, prm, tans = jacobian_passes
+    tans = tans[kind]
+    nd, n_lay = tans[0].shape[0], tans[0].shape[1]
+    live = live_directions(tans, n_lay).numpy()
+    nz = np.stack([(t != 0).numpy() for t in tans]).any(axis=0)
+    assert (live == nz.any(axis=2)).all()
+    if kind == "one-hot":
+        assert (live.sum(axis=1) == 1).all()
+    n_in = n_kept = n_pairs = 0
+    for lay, dp, mode in fn.calls:
+        assert mode == "full"
+        for d in range(nd):
+            rows = [li for li in lay.numpy() if live[d, li]]
+            a, b, c = _check_cull(dp, prm, rows, "full",
+                                  live=lambda li, g: nz[d, li, g])
+            n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
     assert n_in > 0 and n_kept - n_in <= 6 * n_pairs

@@ -141,3 +141,89 @@ def test_k1_counts_one_evaluation_per_copy():
     assert c["in"] == 3 + (4 + 15 * 3.5) + 3 + 1
     # outside |x| + y < 15 core adds nothing: only the region test
     assert c["out"] == 3
+
+
+K3_SRC = """\
+__device__ __forceinline__ KGrads asym_k_grads(float x, float y,
+                                               const float4& b) {
+  const float inv = 1.0f / x;
+  return g;
+}
+__device__ __forceinline__ KGrads weideman_k_grads(float x, float y,
+                                                   const float* wei,
+                                                   int n_wei) {
+  const float inv_e = 1.0f / x;
+  for (int k = 2; k <= n_wei; ++k) {
+    const float tpr = pr * zr - pi * zi + wei[k];
+  }
+  return g;
+}
+template <bool CORE>
+__device__ __forceinline__ float tangent_term(float u, const LineConst& c,
+                                              const float4& t) {
+  const float x = (u - c.a.x) * c.a.y;
+  const KGrads g = CORE ? weideman_k_grads(x) : asym_k_grads(x);
+  return t.x * g.K - t.y * G + t.z * g.Ky - t.w * g.Kx;
+}
+"""
+
+# a copy of tangent_term<true> (the region test, Weideman with its loop
+# unrolled by two, the asymptotic form) and one of tangent_term<false>
+K3_COPIES = [
+    (18, "FADD R1, R2, -R3"), (18, "FMUL R1, R1, R4"),
+    (19, "FADD R5, |R1|, R6"), (19, "FSETP.GEU.AND P0, PT, R5, 15, PT"),
+    (9, "MUFU.RCP R7, R8"), (9, "FFMA R9, R7, R8, R10"),
+    (11, "LDS.64 R10, [R11]"), (11, "FFMA R12, R13, R14, R10"),
+    (11, "FFMA R12, R15, R16, R12"), (11, "FMUL R17, R13, R16"),
+    (10, "IADD3 R18, R18, 0x2, RZ"), (10, "BRA `(.L_x_3)"),
+    (3, "MUFU.RCP R19, R20"), (3, "FMUL R21, R19, R22"),
+    (20, "FMUL R23, R24, R25"), (20, "FFMA R23, -R26, R27, R23"),
+    (20, "FFMA R23, R28, R29, R23"), (20, "FFMA R23, -R30, R31, R23"),
+    (18, "FADD R1, R2, -R3"), (18, "FMUL R1, R1, R4"),
+    (3, "MUFU.RCP R19, R20"), (3, "FMUL R21, R19, R22"),
+    (20, "FMUL R23, R24, R25"), (20, "FFMA R23, -R26, R27, R23"),
+    (20, "FFMA R23, R28, R29, R23"), (20, "FFMA R23, -R30, R31, R23"),
+]
+
+
+def test_k3_counts_one_evaluation_and_one_direction():
+    kern = "_ZN12_GLOBAL__N_122fused_xsect_jvp_kernelEPKi"
+    instrs = sass.parse(_listing(kern, K3_COPIES))[kern]
+    c = sass.k3_eval_instructions(instrs, K3_SRC, 16)
+    # two copies (asym_k_grads' MUFU.RCP): tangent_term's offset and region
+    # test 6 over two copies; Weideman 2 outside its loop, a term 4 work
+    # instructions over two coefficients; the asymptotic form 2; a
+    # direction's four-coefficient line 4 and the FADD that adds it
+    assert c["weideman_term"] == 2.0
+    assert c["in"] == 3 + 2 + 15 * 2.0
+    assert c["out"] == 3 + 2
+    assert c["dir"] == 4 + 1
+
+
+LD_SRC = """\
+template <int MODE>
+__device__ __forceinline__ float ld_value(float u, const LineConst& c) {
+  const float x = (u - c.a.x) * c.a.y;
+  if (MODE == LORENTZ) return INV_PI * (1.0f / (c.b.x + x * x));
+  const float t = x * c.b.x;
+  return expf((-LN2_HAPI * t) * t);
+}
+"""
+
+
+@pytest.mark.parametrize("mode,rows,per", [
+    (7, [(3, "FADD R1, R2, -R3"), (3, "FMUL R1, R1, R4"),
+         (4, "FFMA R5, R1, R1, R6"), (4, "MUFU.RCP R7, R5"),
+         (4, "FFMA R8, -R5, R7, 1"), (4, "@P0 BRA `(.L_x_1)"),
+         (4, "FMUL R9, R7, R10")], 6 + 1),
+    (8, [(3, "FADD R1, R2, -R3"), (3, "FMUL R1, R1, R4"),
+         (5, "FMUL R5, R1, R6"), (6, "FMUL R7, R5, R8"),
+         (6, "FFMA.SAT R9, R7, R10, 0.5"), (6, "MUFU.EX2 R11, R9"),
+         (6, "FMUL R12, R11, R13")], 7 + 1)])
+def test_lorentz_and_doppler_count_per_copy(mode, rows, per):
+    kern = f"_Z18fused_xsect_kernelILi{mode}ELb0EEvPKi"
+    instrs = sass.parse(_listing(kern, rows * 2))[kern]
+    # two copies (the reciprocal's or expf's one MUFU each), plus the FFMA
+    # that scales and adds each evaluation
+    assert sass.ld_eval_instructions(instrs, LD_SRC, mode) == {"in": per,
+                                                               "out": per}
