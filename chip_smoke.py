@@ -84,7 +84,10 @@ Phases, each printing its result on its own line:
    peak and of their own; K6 (``csrc/fused_ht.cu``), K4
    (``csrc/fused_xsect_jvp.cu``) and K3 for a T direction over all layers
    and a batch of 8 one-hot T directions, within ``HT_JVP_BOUND``,
-   ``K4_BOUND`` and ``K3_BOUND`` of each tangent's own peak.
+   ``K4_BOUND`` and ``K3_BOUND`` of each tangent's own peak; each K5 and
+   K6 pass's bound at 67 TFLOP/s and in issue slots (K6 also charging
+   every live pair all 8 directions), and the SASS lane-instructions of
+   each piece of their evaluations.
 9. The HT lattice at full width (the JAX bench's metric 5: 400,001 points,
    10 states) with the launch counts reset before and read after (K5 must
    have run): plan-build seconds, CUDA-event milliseconds, states and
@@ -102,7 +105,7 @@ Phases, each printing its result on its own line:
 9d. The differentiable SD-Voigt OD at full width (the bench's 20,000-line
    list): a batch of 8 one-hot T directions, milliseconds and K4 launches.
 10. Where the time of 9, 9b and 9c goes: CUDA-event milliseconds per kind
-   of pass, each with its bound.
+   of pass, each with its bound (K5 and K6 also in issue slots).
 3e. K7, the unfused kernel (``csrc/fused_xsect.cu``), in each of its modes
    (full, asym, core, lorentz, doppler) against its plain version on
    ``make_od_plan``'s shared-block plan over the 700-740 cm^-1 sub-band at
@@ -330,23 +333,21 @@ K4_BOUND = 2e-6
 # per direction by the Dual operators as written: + or - 1, dual * dual 3,
 # float * dual 1, dual / dual 6, reciprocal 1, square root 4, the floor
 # 0). PART4 (Gamma2 != 0) evaluates two w(Z), PART1 one (and its |Z1| >
-# 4e3 form far out); K6 adds 5 per direction to accumulate
-HT_PIECES = {"part4": (214, 3, 283), "part1": (76, 0, 108),
-             "part1_big": (93, 0, 133),
+# 4e3 form far out); K6 adds 5 per direction to accumulate. cpf3_test
+# (|Z1|, |Z2| and PART4's CPF3 test) is charged only where a CPF point lies
+# in its Weideman region (the kernels skip it in spans outside every
+# region); pair4 and pair1 are the point-independent values (ht_pair),
+# once per (layer, line) with an in-window point
+HT_PIECES = {"part4": (133, 3, 202), "cpf3_test": (18, 0, 0),
+             "part1": (71, 0, 107), "part1_big": (88, 0, 132),
              "w_wei": (41 + 7 * N_WEI, 2, 65 + 14 * N_WEI),
-             "w_asym": (25, 1, 40)}
+             "w_asym": (25, 1, 40), "pair4": (63, 0, 81), "pair1": (5, 0, 1)}
 HT_ACC_DIR = 5
 # K4 (csrc/fused_xsect_jvp.cu): the window, dnu, xi, S and the denominator
 # 37, per CPF point a (K, Kx, Ky) after its 3-op region test (Weideman
 # 49 + 15 n_wei or the asymptotic form's 38), 32 per direction
 K4_BASE, K4_DIR = 37, 32
 KG_WEI, KG_ASYM = 3 + 49 + 15 * N_WEI, 3 + 38
-
-
-def ht_piece(name, nd):
-    """K5's (nd = 0) or K6's lane-ops for one piece of an evaluation."""
-    value, once, per_dir = HT_PIECES[name]
-    return value + (once + nd * per_dir if nd else 0)
 
 
 def cpf_pair_ops(n_win, n_in, w_in, w_out):
@@ -525,11 +526,14 @@ def ht_point_counts(h, li, g, c, lo, hi, dx, chunk=1 << 22):
     return counts
 
 
-def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
+def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt",
+                  pairs=False):
     """The evaluations one pass needs, recounted on the host from its plan
     and the line parameters: the in-window (layer, line, point) triples, a
     tuple with the number of them inside each radius of ``region``
-    (region_radii), and the number of distinct lines the pass reads.
+    (region_radii), and the number of distinct lines the pass reads (with
+    ``pairs``, also the number of (layer, line) pairs with an in-window
+    point).
     ``live`` (nLay, L) bool keeps only the pairs a tangent kernel evaluates
     (a non-zero tangent) or a part of the HT lines; as integers it also
     weights each pair's evaluations (K3's live directions of the pair; not
@@ -551,7 +555,7 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
     else:
         h = {k: f64(getattr(prm, k)) for k in ("wing", "gamma_d", "gamma_0",
                                                "shift0", "gamma_2")}
-    n_win, n_in = 0, None
+    n_win, n_in, n_pairs = 0, None, 0
     for li in lay.cpu().numpy():
         w = h["wing"][li, g]
         w = (np.minimum(w, wcap) if cap else w) / dplan.dx
@@ -564,6 +568,7 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
             wgt = live[li, g]
             keep &= wgt > 0
         n_win += int(((hi - lo + 1) * wgt)[keep].sum())
+        n_pairs += int(np.unique(g[keep]).size)
         centre, radii, direct = region_radii(region, h, li, g)
         mid = c + centre / dplan.dx
         n_in = n_in or [0] * len(radii)
@@ -579,7 +584,8 @@ def window_counts(lay, dplan, prm, live=None, cap=True, region="voigt"):
                                                   lo[sel], hi[sel],
                                                   dplan.dx)):
                 n_in[i] += n
-    return n_win, tuple(n_in or ()), int(np.unique(g).size)
+    out = (n_win, tuple(n_in or ()), int(np.unique(g).size))
+    return out + (n_pairs,) if pairs else out
 
 
 def bound(ops, nbytes, sfu=0, fp32=FP32_OPS_PER_S):
@@ -602,11 +608,12 @@ def bound_str(ops, nbytes, sfu=0):
 
 
 @functools.lru_cache(maxsize=None)
-def sass_listing(stem):
-    """The parsed SASS of the built library of ``csrc/<stem>.cu``."""
+def sass_listing(stem, inline=False):
+    """The parsed SASS of the built library of ``csrc/<stem>.cu`` (with
+    ``inline``, each instruction's chain of inlined call sites)."""
     path = next(p for p in _build.build()
                 if os.path.basename(p).rsplit("_", 1)[0] == f"lib{stem}")
-    return sass.parse(sass.disassemble(path))
+    return sass.parse(sass.disassemble(path, inline))
 
 
 def csrc_text(stem):
@@ -644,6 +651,17 @@ def k3_issue():
     return sass.k3_eval_instructions(
         kernel_sass("fused_xsect_jvp", r"fused_xsect_jvp_kernel"),
         csrc_text("fused_xsect_jvp"), N_WEI)
+
+
+@functools.lru_cache(maxsize=None)
+def ht_issue(tan):
+    """SASS lane-instructions of each piece of a K5 (``tan`` False) or K6
+    evaluation, per kept pair and to accumulate
+    (``sass.ht_eval_instructions``)."""
+    return sass.ht_eval_instructions(
+        sass.kernel(sass_listing("fused_ht", True),
+                    rf"fused_ht_kernelILb{int(tan)}E"),
+        csrc_text("fused_ht"), N_WEI)
 
 
 def k1_issue_work(mode, lay, dplan, prm, counts=None):
@@ -1677,30 +1695,75 @@ def ht_window_evals(store, extras, diluent, X, T, p_atm):
     return int((hi - lo).sum())
 
 
-def ht_bound_work(lay, dplan, prm, tangents=None):
-    """(lane-ops, bytes) of one K5 pass, or of one K6 launch set for the
-    (nd, nLay, L) ``tangents`` (the live evaluations only): PART4 pairs
-    (Gamma2 != 0) with each CPF point's w(Z) by its own region, PART1 pairs
-    by |x| + y < 15 and the |Z1| <= 4e3 radius."""
+def ht_evals(lay, dplan, prm, mask):
+    """{piece of HT_PIECES: count} of one HT pass over the (nLay, L) pairs
+    ``mask``: the in-window evaluations by the branch they take (PART4
+    pairs (Gamma2 != 0) with each CPF point's w(Z) by its own region, the
+    CPF3 test where the point of the wider region lies in it, PART1 pairs
+    by |x| + y < 15 and the |Z1| <= 4e3 radius), and the (layer, line)
+    pairs with an in-window evaluation; and the distinct lines read."""
     part4 = ((prm.ht_consts[3] != 0) | (prm.ht_consts[4] != 0)).cpu().numpy()
-    nd = 0 if tangents is None else tangents[0].shape[0]
-    live = np.ones_like(part4) if tangents is None else live_pairs(tangents)
-    n_win, n_in, n_lines = window_counts(lay, dplan, prm, part4 & live,
-                                         region="ht4")
-    ops = (n_win * (ht_piece("part4", nd) + nd * HT_ACC_DIR)
-           + cpf_pair_ops(n_win, n_in, ht_piece("w_wei", nd),
-                          ht_piece("w_asym", nd)))
-    n_win, (n_w, n_near), _ = window_counts(lay, dplan, prm, ~part4 & live,
-                                            region="ht1")
-    ops += (n_win * (ht_piece("part1", nd) + nd * HT_ACC_DIR)
-            + cpf_pair_ops(n_win, (n_w,), ht_piece("w_wei", nd),
-                           ht_piece("w_asym", nd))
-            + (n_win - n_near) * (ht_piece("part1_big", nd)
-                                  - ht_piece("part1", nd)))
+    n4, n_in, n_lines, p4 = window_counts(lay, dplan, prm, part4 & mask,
+                                          region="ht4", pairs=True)
+    n1, (n_w, n_near), _, p1 = window_counts(lay, dplan, prm, ~part4 & mask,
+                                             region="ht1", pairs=True)
+    return {"part4": n4, "cpf3_test": max(n_in), "part1": n_near,
+            "part1_big": n1 - n_near, "w_wei": sum(n_in) + n_w,
+            "w_asym": 2 * n4 - sum(n_in) + n1 - n_w,
+            "pair4": p4, "pair1": p1}, n_lines
+
+
+def ht_bound_work(lay, dplan, prm, tangents=None):
+    """(lane-ops, bytes, lane-instructions) of one K5 pass, or of one K6
+    launch set for the (nd, nLay, L) ``tangents``: each piece (ht_evals) at
+    its HT_PIECES value count, once for the pairs a tangent is live on, and
+    (K6) at its per-direction count once per live (pair, direction),
+    K6's rows evaluating each live direction alone; the same in the SASS
+    lane-instructions of ``ht_issue`` (a direction's: K6's count less
+    K5's). The bound charging every live pair all nd directions' tangent
+    work, as the dense direction axis of PR 4's K6 did, is the fourth
+    element (K6 only)."""
+    live = None if tangents is None else live_directions(tangents)
+    mask = (np.ones(tuple(prm.strength.shape), dtype=bool) if live is None
+            else live.any(axis=0))
+    ev, n_lines = ht_evals(lay, dplan, prm, mask)
+    n_eval = ev["part4"] + ev["part1"] + ev["part1_big"]
+    c5 = ht_issue(False)
+    ops = sum(n * HT_PIECES[k][0] for k, n in ev.items())
+    instr = sum(n * c5[k] for k, n in ev.items()) + n_eval * c5["acc"]
     nl = lay.numel()
+    nd = 0 if live is None else len(live)
     nbytes = (4 * (13 + 12 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * max(nd, 1) * nl * dplan.n_out)
-    return ops, nbytes
+    if live is None:
+        return ops, nbytes, instr
+    ops += sum(n * HT_PIECES[k][1] for k, n in ev.items())
+    dense = ops + nd * (sum(n * HT_PIECES[k][2] for k, n in ev.items())
+                        + n_eval * HT_ACC_DIR)
+    c6 = ht_issue(True)
+    for d in range(nd):
+        if not live[d].any():
+            continue
+        evd, _ = ht_evals(lay, dplan, prm, live[d])
+        n_d = evd["part4"] + evd["part1"] + evd["part1_big"]
+        ops += (sum(n * HT_PIECES[k][2] for k, n in evd.items())
+                + n_d * HT_ACC_DIR)
+        instr += (sum(n * (c6[k] - c5[k]) for k, n in evd.items())
+                  + n_d * (c6["acc"] - c5["acc"]))
+    return ops, nbytes, instr, dense
+
+
+def ht_bound_str(ops, nbytes, instr, dense=None):
+    """A K5 or K6 pass's bounds for the log lines: at 67 TFLOP/s (and the
+    measured peak), in issue slots, and (K6) charging every live pair all
+    the batch's directions."""
+    out = (bound_str(ops, nbytes) + "; in issue slots {bound_ms_issue:.4f} "
+           "({bound_ms_issue_measured:.4f} at the measured FMUL rate)".format(
+               **issue_bounds(instr, nbytes)))
+    if dense is not None:
+        out += (f"; charging each live pair every direction "
+                f"{bound(dense, nbytes)[0]:.4f}")
+    return out
 
 
 def k4_bound_work(lay, dplan, prm, tangents):
@@ -1839,14 +1902,24 @@ def phase_ht_sub(dev, card):
                   f"{err / peaks[label]:.3e} of the {label}'s peak > "
                   f"{XS_BOUND}")
             if mode == "ht":
-                add_stats(stats, "ht", err, k_ms, p_ms,
-                          *ht_bound_work(lay, dplan, prm))
-        elif name.startswith("8") and mode == "ht":
-            add_stats(stats, "ht_jvp", err, k_ms, p_ms,
-                      *ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]]))
+                work = ht_bound_work(lay, dplan, prm)
+                print(f"[3d {label}] K5 bound {ht_bound_str(*work)} "
+                      f"[{card}]", flush=True)
+                add_stats(stats, "ht", err, k_ms, p_ms, *work[:2],
+                          instr=work[2])
+        elif mode == "ht":
+            work = ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
+            print(f"[3d {label}] {kname} bound {ht_bound_str(*work)} "
+                  f"[{card}]", flush=True)
+            if name.startswith("8"):
+                add_stats(stats, "ht_jvp", err, k_ms, p_ms, *work[:2],
+                          instr=work[2])
         elif name.startswith("8") and mode == "sdvoigt":
             add_stats(stats, "sdvoigt_jvp", err, k_ms, p_ms,
                       *k4_bound_work(lay, dplan, prm, tans[:5]))
+    for tan, kname in ((False, "K5"), (True, "K6")):
+        print(f"[3d] {kname} SASS lane-instructions per piece: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ht_issue(tan).items()), flush=True)
     return finish_stats(stats)
 
 
@@ -2117,14 +2190,12 @@ def phase_ht_breakdown(dev, card):
             t, _ = cuda_ms(lambda: ht_primal(call, prm), 2)
             mode = call[2]
             ms[mode] = ms.get(mode, 0.0) + t
-            o, b = (ht_bound_work(call[0], call[1], prm) if mode == "ht"
-                    else xs_bound_work(mode, call[0], call[1], prm))
-            w = work.setdefault(mode, [0, 0])
-            work[mode] = [w[0] + o, w[1] + b]
+            add_work(work, mode, ht_bound_work(call[0], call[1], prm)
+                     if mode == "ht"
+                     else xs_bound_work(mode, call[0], call[1], prm))
         print(f"[10 {label}] ms per stage: " + ", ".join(
             f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
-            + ", ".join(f"{m} {bound_str(*w)}"
-                        for m, w in work.items()) + f" [{card}]", flush=True)
+            + work_str(work) + f" [{card}]", flush=True)
     prm = jac.line_params(base.T, base.p, base.pl, base.vmr)
     tans = ht_od_tangents(jac, base, one_hot_batch(dev))
     ms, work = {}, {}
@@ -2136,18 +2207,31 @@ def phase_ht_breakdown(dev, card):
         t, _ = cuda_ms(lambda: ht_tangent(call, prm, tans), 2)
         ms[HT_TANGENT_NAME[mode]] = ms.get(HT_TANGENT_NAME[mode], 0.0) + t
         lay, dplan = call[0], call[1]
-        o, b = (ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
-                if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
-                if mode == "sdvoigt" else
-                k3_bound_work(lay, dplan, prm, tans[:4])[:2])
-        w = work.setdefault(HT_TANGENT_NAME[mode], [0, 0])
-        work[HT_TANGENT_NAME[mode]] = [w[0] + o, w[1] + b]
+        add_work(work, HT_TANGENT_NAME[mode],
+                 ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
+                 if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
+                 if mode == "sdvoigt" else
+                 k3_bound_work(lay, dplan, prm, tans[:4])[:2])
     print("[10 9c tangents] 8 one-hot T directions, ms per stage (line "
           f"params + tangents: median of 3, range {min(reads):.3f}-"
           f"{max(reads):.3f}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
-          + ", ".join(f"{m} {bound_str(*w)}"
-                      for m, w in work.items()) + f" [{card}]", flush=True)
+          + work_str(work) + f" [{card}]", flush=True)
+
+
+def add_work(work, name, w):
+    """Add one pass's (ops, bytes[, instructions[, dense ops]]) to
+    ``work[name]`` (phase 10)."""
+    acc = work.setdefault(name, [0] * len(w))
+    work[name] = [a + b for a, b in zip(acc, w)]
+
+
+def work_str(work):
+    """Phase 10's bounds: K5 and K6 with their issue-slot (and K6 its
+    every-direction) bounds (ht_bound_str), the others at the FP32 peak."""
+    return ", ".join(f"{m} " + (ht_bound_str(*w) if len(w) > 2
+                                else bound_str(*w))
+                     for m, w in work.items())
 
 
 def phase_probe(dev, card):

@@ -18,6 +18,12 @@ same seeds:
   builders (``lorentz``, ``doppler``, the correction passes and their
   ``*full`` variants), milliseconds summed per mode, with a SHA-256 of
   each output;
+* K5 on every ``ht`` pass of the HT lattice (phase 9's) and of the
+  layered HT OD (phase 9b's), and K6 on the ``ht`` passes of the HT
+  Jacobian's builder (phase 9c's) for its batch of 8 one-hot T directions
+  (``chip_smoke.ht_od_tangents``, ``one_hot_batch``), for one T
+  direction over all layers (``linspace(0.5, 1.5)``) and for d OD / d
+  T[3]'s direction, each with a SHA-256 of each output;
 * K3 on every pass of the differentiable OD builder for the production
   Jacobian's batch (8 one-hot T directions, ``chip_smoke.one_hot_batch``)
   and for one T direction over all layers, and on the HT Jacobian's
@@ -134,10 +140,12 @@ def child(out_path, reps):
         r["sha"].append(digest(out))
 
     def k1(case, fn, prm, calls, Y=None):
+        """K1's passes of ``calls``, and K5's (``ht``) under their own key."""
         for call in calls:
-            if call[2] != "ht":
-                record(f"K1 {case} {call[2]}",
-                       lambda c=call: fn.run_call(c, prm, Y))
+            ht = call[2] == "ht"
+            record(f"K5 {case}" if ht else f"K1 {case} {call[2]}",
+                   lambda c=call, ht=ht: cs.ht_primal(c, prm) if ht
+                   else fn.run_call(c, prm, Y))
 
     # d OD / d T[3] of the HT Jacobian (phase 9c), first: host-bound, so
     # measured before the rest of the process's allocations
@@ -155,14 +163,33 @@ def child(out_path, reps):
 
     ms["ht jacobian dOD/dT[3]"], _ = events_ms(jvp3, 2 * reps)
     ms["ht jacobian dOD/dT[3] on the card"] = device_ms(jvp3)
-    # K3 on its passes, for the batch of 8 one-hot T directions
+    # K3 on its passes and K6 on the ht passes, for the batch of 8 one-hot
+    # T directions; K6 also for one T direction over all layers
     hprm = fn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
     htans = cs.ht_od_tangents(fn, b64, cs.one_hot_batch(dev))
+    hdense = cs.ht_od_tangents(fn, b64, torch.linspace(
+        0.5, 1.5, b64.n_layers, device=dev)[None])
+    h3 = cs.ht_od_tangents(fn, b64, e3[None])
     for call in fn.calls:
         if call[2] == "full":
             record("K3 ht jacobian one-hot",
                    lambda c=call: cs.ht_tangent(c, hprm, htans))
-    del fn, jac_store, hprm, htans
+        if call[2] == "ht":
+            record("K6 ht jacobian one-hot",
+                   lambda c=call: cs.ht_tangent(c, hprm, htans))
+            record("K6 ht jacobian dense T",
+                   lambda c=call: cs.ht_tangent(c, hprm, hdense))
+            record("K6 ht jacobian dOD/dT[3]",
+                   lambda c=call: cs.ht_tangent(c, hprm, h3))
+    del fn, jac_store, hprm, htans, hdense, h3
+
+    # K5 on the layered HT OD's ht passes (phase 9b)
+    lstore, lextras = cs.ht_layered_case(dev)
+    lfn = make_od_ht_fn(lstore, IsoTables.load(device=dev),
+                        arange_drift_free(*cs.HT_BAND), b64, extras=lextras)
+    lprm = lfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
+    k1("ht layered", lfn, lprm, [c for c in lfn.calls if c[2] == "ht"])
+    del lfn, lstore, lprm
 
     # the production member (phase 6)
     iso = IsoTables.load(device=dev, dtype=f32)

@@ -70,16 +70,18 @@ _SIGNATURES = {
     "radtxfr_fused_sdvoigt_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P,
                                   P, P, P, P, P, P, I, I, I, P, I, I, I, I,
                                   I, ctypes.c_double, P, P],
-    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call, prm,
-    # n_lay, n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx, out,
-    # stream
-    "radtxfr_fused_ht": [P, P, P, P, P, P, P, I, P, I, I, P, I, I, I, I, I,
-                         ctypes.c_double, P, P],
     # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # lay_live, prm, tan, n_dir, n_lay, n_lines, wei, n_wei, tile, block,
-    # n_tiles, n_out, dx, out, stream
-    "radtxfr_fused_ht_jvp": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, P, I,
-                             I, I, I, I, ctypes.c_double, P, P],
+    # strength, wing, the 11 HT constants, n_lay, n_lines, wei, n_wei, tile,
+    # block, n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_ht": [P] * 7 + [I] + [P] * 13 + [I, I, P, I, I, I, I, I,
+                                                    ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
+    # live ((n_dir, n_lay) int32), strength, wing, the 11 HT constants,
+    # strength_t, the 11 constants' tangents, n_dir, n_lay, n_lines, wei,
+    # n_wei, tile, block, n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_ht_jvp": [P] * 7 + [I] + [P] * 26 + [I, I, I, P, I, I, I,
+                                                        I, I, ctypes.c_double,
+                                                        P, P],
     # od, src (x or B), inv_t, planck, n_lay, n_x, mus, n_mu, snap, n_zs,
     # sec, w, n_angles, return_od, tau, lu, ld, stream
     "radtxfr_fused_tud": [P, P, P, I, I, I, P, I, P, I, P, P, I, I, P, P, P,

@@ -16,14 +16,14 @@
 // and the 11 constants, a non-finite tangent zeroed (pallas_xsect.py:1127).
 // The window is held fixed: the wing's tangent is dropped.
 //
-// One evaluation, two scalar types. The profile is written once
-// (pcqsdhc<T>), templated on its scalar type: K5 instantiates it with Rn, a
-// float whose operations are the non-contracting IEEE intrinsics
-// (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn) in the order of the plain
-// PyTorch version (kernels/htp_real.py::pcqsdhc_real), because the PART4
-// difference w(Z1) - w(Z2) and the final A / (1 - d0 A + e2 B) amplify
-// float32 rounding (as in K1's SD-Voigt block); K6 instantiates it with
-// Dual<ND>, a value and ND tangents, so that on the branch each point
+// One evaluation, two scalar types. The profile is written once, templated
+// on its scalar type: K5 instantiates it with Rn, a float whose operations
+// are the non-contracting IEEE intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn,
+// __fsqrt_rn) in the order of the plain PyTorch version
+// (kernels/htp_real.py::pcqsdhc_real), because the PART4 difference
+// w(Z1) - w(Z2) and the final A / (1 - d0 A + e2 B) amplify float32
+// rounding (as in K1's SD-Voigt block); K6 instantiates it with Dual<1>, a
+// value and the tangent of one direction, so that on the branch each point
 // selects it carries the derivative of the same approximation, which is
 // what jax.jvp of the Pallas kernel's compute-and-select gives. Comparisons
 // and branch choices read the value only. The tangents use torch's forward-
@@ -33,63 +33,99 @@
 // own, so that where the real-pair square root's tangent is ill-conditioned
 // (Im(X + Y) crossing zero) K6 rounds as the plain version does; division is
 // exact (JAX's tangent kernel forces fast=False, pallas_xsect.py:1143-1147).
+// A Dual<N>'s tangent lanes are computed independently by the same
+// intrinsics whatever N, so Dual<1> gives each direction the bits its lane
+// of a wider dual number would.
 //
-// Branches. JAX evaluates all four parts (and both hum1_wei forms of every
-// w) and selects; here each point branches into the part it selects, and
-// every w(Z) into Weideman (|x| + y < 15) or the asymptotic form (or CPF3
-// in PART4's sub-case), so an evaluation pays for the branch it takes.
-// PART1 (Gamma2 = Shift2 = 0) is uniform across a slot; PART2/3 never occur
-// for physical parameters but are carried.
+// The profile is split at the point: ht_pair computes, once per staged
+// (slot, row) pair, the values that do not depend on the grid point (PART1's
+// test, sqrt(pi) cte, and for Gamma2 or Shift2 live 1/c2t, Y = (1/(2 cte
+// c2t))^2, |Y|, csqrtY and sqrt(pi)/(2 csqrtY)); pcqsdhc computes the rest
+// at each point. Every value is produced by the same operations in the same
+// order as when the whole profile ran at each point, so the split changes
+// no bit. Branches. JAX evaluates all four parts (and both hum1_wei forms of
+// every w) and selects; here each point branches into the part it selects,
+// and every w(Z) into Weideman (|x| + y < 15) or the asymptotic form (or
+// CPF3 in PART4's sub-case), so an evaluation pays for the branch it takes.
+// PART1 (Gamma2 = Shift2 = 0) is uniform across a pair; PART2/3 never occur
+// for physical parameters but are carried, their w(Z) tested per point.
 //
-// Shape. One CTA per (SPAN-point slice of a tile, LC layers), one thread
-// per point: SPAN = 128, the tile of the JAX HT builders (od.py:1219), so a
-// CTA covers a whole plan tile and no thread idles. The CTA walks its
-// tile's slots in chunks of CH, stages each (layer, slot)'s strength, wingu
-// and 11 constants (and, in K6, its 12 x ND tangents) in shared memory,
-// accumulates in registers and writes each output once: no atomics, the
-// same inputs give bit-identical outputs. K6 skips a (layer, slot) whose
-// tangents are all zero (its contribution is exactly zero after the
-// non-finite guard) and a CTA none of whose layers has a tangent (lay_live).
+// Shape: K1's skeleton (fused_xsect.cu, k1_skeleton.cuh), over rows. The
+// output rows are K5's layers, or K6's (direction, layer) rows r = d *
+// n_lay_call + l (K3's design, fused_xsect_jvp.cu): one CTA per (128-point
+// slice of a tile, LC rows), four warps, each owning one 32-point span of
+// the slice and staging one row. A K6 row whose direction has no non-zero
+// tangent on its layer (the wrapper's (nd, nLay) table `live`) stages
+// nothing; a CTA without a live row writes its zeros and stops. The tile's
+// slots go through the cp.async ring (slot data two chunks ahead; the row's
+// 13 parameters, and in K6 its direction's 12 tangents, one chunk ahead).
+// Each staged (slot, row) pair gets its integer window (window_range on the
+// capped wing, as the per-point test computes it) and its Weideman range (a
+// superset of the grid offsets at which a CPF point of the pair can take
+// the Weideman branch, ht_near_range), and is kept, per row in slot order
+// (ballot and prefix count), only if the window meets the slice (and, in
+// K6, a tangent is non-zero: a pair whose 12 tangents are zero adds exact
+// zeros, or non-finite values the guard drops). A kept pair's ht_pair
+// values are computed once then. Each warp tests a kept pair's window
+// against its span with a warp-uniform compare before any lane evaluates,
+// and a span wholly outside the pair's Weideman range runs both CPF points
+// (PART1: its one) in the asymptotic form without the per-point region
+// test or PART4's CPF3 test: outside both regions |Z| >= 15/sqrt(2) > 8, so
+// CPF3 is never taken there. A culled pair or span holds only points whose
+// window test fails (or whose terms are exact zeros), and a span sent to
+// the asymptotic form holds only points the per-point test sends there, so
+// each (row, point) adds the same terms in slot order as a walk over every
+// slot: the outputs are the bits of the per-point kernel. Every output is
+// written once by one thread: no atomics; the same inputs give
+// bit-identical outputs.
 //
 // Bound. FP32 issue, as K1 and K3: the inner loop reads shared memory only,
 // and an evaluation is hundreds of lane-ops. Hand counts from this source
-// (a*b+c = 2, sqrt 3, divide 4, a negation free), per evaluation: the
-// window and accumulate 9, the prelude 8; PART4 the shared part through
-// 1/csqrtY 95, PART4 less its two w(Z) 71, the final A / (1 - d0 A + e2 B)
-// 31 (214), plus per CPF point the w(Z) it takes: the 3-op region test and
-// Weideman with its imaginary part (38 + 7 n_wei) or the unguarded
-// asymptotic pair (22); CPF3 175. PART1 76 (93 past |Z1| = 4e3) plus one
-// w(Z). K6 adds, per direction, the Dual operators' tangent work as written
-// (+ or - 1, dual * dual 3, float * dual 1, dual / dual 6, reciprocal 1,
-// square root 4): PART4 283, PART1 108 (133), Weideman 65 + 14 n_wei, the
-// asymptotic pair 40, and 5 to accumulate; and once per evaluation the
-// reciprocal's square and the square root's doubling (PART4 3, Weideman 2,
-// asymptotic 1). chip_smoke.py (HT_PIECES) recounts each evaluation's
-// branches on the host: a CPF point by its own Weideman region (Z2 = S + c
-// leaves it before Z1 = S - c), exactly (the closed-form radius where c2t and
-// csqrtY are real, point by point where Shift2 or a complex eta make them
-// complex); CPF3's sub-band at Weideman's price. JAX computes all four parts
-// and every form of every w, about 1300 + 42 n_wei lane-ops per evaluation;
-// this kernel branches instead, and K6 evaluates the profile once per
-// (slot, point) for all ND directions. Registers: pcqsdhc keeps ~40
-// complex temporaries live; ptxas's report (chip_smoke.py phase 2) decides
-// the ND the wrapper launches (fused_ht.py HT_JVP_DIRS).
+// (a*b+c = 2, sqrt 3, divide 4, a compare or a floor 1, a negation free),
+// per evaluation: the window and accumulate 9, the prelude 3; PART4
+// through sqrt(X + Y) 37, the rest less its two w(Z) 71 (18 of them |Z1|,
+// |Z2| and the CPF3 test, which spans outside the Weideman range skip),
+// the final A / (1 - d0 A + e2 B) 31 (151), plus per CPF point the w(Z)
+// it takes: the 3-op region test and Weideman with its imaginary part
+// (38 + 7 n_wei) or the unguarded asymptotic pair (22); CPF3 175. PART1
+// 71 (88 past |Z1| = 4e3) plus one w(Z). Per kept pair (ht_pair): PART4
+// 63, PART1 5. K6 adds, per direction, the Dual operators' tangent work as
+// written (+ or - 1, dual * dual 3, float * dual 1, dual / dual 6,
+// reciprocal 1, square root 4, the floor 0): PART4 202, PART1 107 (132),
+// Weideman 65 + 14 n_wei, the asymptotic pair 40, and 5 to accumulate;
+// per pair PART4 81, PART1 1; and once per evaluation the reciprocal's
+// square and the square root's doubling (PART4 3, Weideman 2, asymptotic
+// 1). chip_smoke.py (HT_PIECES) recounts each evaluation's branches on the
+// host: a CPF point by its own Weideman region (Z2 = S + c leaves it before
+// Z1 = S - c), exactly (the closed-form radius where c2t and csqrtY are
+// real, point by point where Shift2 or a complex eta make them complex);
+// CPF3's sub-band at Weideman's price; K6's tangent work once per live
+// (pair, direction). It also counts the SASS instructions of each piece
+// of this file's build (tools/sass.py::ht_eval_instructions) for the
+// issue-slot bounds.
+//
+// Occupancy, chosen by timing: 22.2 KB (K5) and 37.0 KB (K6) of shared
+// memory a CTA and no minimum of CTAs an SM: ptxas gives K5 61 registers
+// (8 CTAs an SM) and K6 80 (6), without spills. Asking for 4 and 3 CTAs
+// (71 and 88 registers) made K5 2-3% slower; register caps for 8 and 6
+// CTAs, 64-slot chunks and 8 layers a CTA were slower (PERF.md, PR 8).
 
 #include <cuda_runtime.h>
 #include <cfloat>
 
+#include "k1_skeleton.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;           // threads per CTA, one point each
+constexpr int NWARP = THREADS / 32;    // one 32-point span each
 constexpr int SPAN = THREADS;          // points per CTA
-constexpr int LC = 4;                  // layers per CTA (K5)
-constexpr int CH = 32;                 // line slots staged per step (K5)
-constexpr int LC_T = 2;                // ... K6
-constexpr int CH_T = 16;
+constexpr int LC = NWARP;              // rows per CTA, one staged per warp
+constexpr int CH = 32;                 // line slots staged a chunk, a lane each
+static_assert(CH == 32 && LC == NWARP, "a warp stages one row, a lane a slot");
 constexpr int NK = 11;                 // HT constants per (layer, line)
 constexpr int NP = 2 + NK;             // strength, wing, constants
 constexpr int NT = 1 + NK;             // tangents per direction
-constexpr int ND_MAX = 4;              // directions per K6 launch at most
 constexpr int MAX_WEI = 32;
 
 constexpr float INV_SQRT_PI = static_cast<float>(0.5641895835477563);
@@ -97,7 +133,8 @@ constexpr float RPI = static_cast<float>(1.7724538509055159);
 constexpr float HALF_RPI = static_cast<float>(0.5 * 1.7724538509055159);
 constexpr float TWO_RPI = static_cast<float>(2.0 * 1.7724538509055159);
 constexpr float INV_PI = static_cast<float>(0.3183098861837907);
-constexpr float REGION_BOUND = 15.0f;
+
+
 
 // ---- the two scalar types -------------------------------------------------
 
@@ -260,33 +297,48 @@ __device__ __forceinline__ Cx<T> csqrt(const Cx<T>& a) {
   return {u, a.i.v >= 0.0f ? vm : -vm};
 }
 
-// (Re w, Im w) by hum1_wei's region rule (fused_xsect.py::_voigt_w_KL)
+// (Re w, Im w) of the Weideman series, |x| + y < 15
+// (fused_xsect.py::_voigt_w_KL)
 template <class T>
-__device__ __forceinline__ Cx<T> voigt_w(const T& x, const T& y,
-                                         const float* wei, int n_wei) {
-  if (__fadd_rn(fabsf(x.v), y.v) < REGION_BOUND) {
-    const float L = wei[0];
-    const T nr = L - y, ni = x;
-    const T er = L + y, ei = -x;
-    const T inv_e = recip(er * er + ei * ei);
-    const T zr = (nr * er + ni * ei) * inv_e;
-    const T zi = (ni * er - nr * ei) * inv_e;
-    T pr = cst<T>(wei[1]), pi = cst<T>(0.0f);
-    for (int k = 2; k <= n_wei; ++k) {
-      const T t = (pr * zr - pi * zi) + wei[k];
-      pi = pr * zi + pi * zr;
-      pr = t;
-    }
-    const T sr = er * er - ei * ei;
-    const T si = (2.0f * er) * ei;
-    const T inv_s = recip(sr * sr + si * si);
-    return {(2.0f * (pr * sr + pi * si)) * inv_s + (INV_SQRT_PI * er) * inv_e,
-            (2.0f * (pi * sr - pr * si)) * inv_s - (INV_SQRT_PI * ei) * inv_e};
+__device__ __forceinline__ Cx<T> w_wei(const T& x, const T& y,
+                                       const float* wei, int n_wei) {
+  const float L = wei[0];
+  const T nr = L - y, ni = x;
+  const T er = L + y, ei = -x;
+  const T inv_e = recip(er * er + ei * ei);
+  const T zr = (nr * er + ni * ei) * inv_e;
+  const T zi = (ni * er - nr * ei) * inv_e;
+  T pr = cst<T>(wei[1]), pi = cst<T>(0.0f);
+  for (int k = 2; k <= n_wei; ++k) {
+    const T t = (pr * zr - pi * zi) + wei[k];
+    pi = pr * zi + pi * zr;
+    pr = t;
   }
+  const T sr = er * er - ei * ei;
+  const T si = (2.0f * er) * ei;
+  const T inv_s = recip(sr * sr + si * si);
+  return {(2.0f * (pr * sr + pi * si)) * inv_s + (INV_SQRT_PI * er) * inv_e,
+          (2.0f * (pi * sr - pr * si)) * inv_s - (INV_SQRT_PI * ei) * inv_e};
+}
+
+// (Re w, Im w) of the unguarded asymptotic form, outside |x| + y < 15
+template <class T>
+__device__ __forceinline__ Cx<T> w_asym(const T& x, const T& y) {
   const T dr = (0.5f + y * y) - x * x;
   const T di = (-2.0f * x) * y;
   const T inv = INV_SQRT_PI * recip(dr * dr + di * di);
   return {(y * dr - x * di) * inv, (-(x * dr + y * di)) * inv};
+}
+
+// (Re w, Im w) by hum1_wei's region rule; `far` (uniform across the warp):
+// the caller knows the point lies outside |x| + y < 15
+template <class T>
+__device__ __forceinline__ Cx<T> voigt_w(const T& x, const T& y,
+                                         const float* wei, int n_wei,
+                                         bool far) {
+  if (!far && __fadd_rn(fabsf(x.v), y.v) < REGION_BOUND)
+    return w_wei(x, y, wei, n_wei);
+  return w_asym(x, y);
 }
 
 // hapi's 15-term asymptotic CPF (fused_xsect.py::_cpf3_pair), |z|^2 >= 9
@@ -313,8 +365,8 @@ __device__ __forceinline__ Cx<T> cpf3(const T& x, const T& y) {
 // hapi's CPF convention: w at (x, y) = (-Im Z, Re Z)
 template <class T>
 __device__ __forceinline__ Cx<T> w_of(const Cx<T>& z, const float* wei,
-                                      int n_wei) {
-  return voigt_w(-z.i, z.r, wei, n_wei);
+                                      int n_wei, bool far) {
+  return voigt_w(-z.i, z.r, wei, n_wei, far);
 }
 
 // |z| on the values only (it decides branches)
@@ -323,369 +375,597 @@ __device__ __forceinline__ float mag(const Cx<T>& z) {
   return __fsqrt_rn(__fadd_rn(__fmul_rn(z.r.v, z.r.v), __fmul_rn(z.i.v, z.i.v)));
 }
 
-// Re LS of pcqsdhc at dnu from the constants k[0..10] (HT_CONST_KEYS order:
-// cte, c0t, c2t, csqrtY, d0, e2 as pairs); the operations of
-// kernels/htp_real.py::pcqsdhc_real on the part the point selects
+// ---- the profile: per pair, then per point -----------------------------------
+
+// The point-independent values of pcqsdhc for one (layer, line) from its
+// constants k[0..10] (HT_CONST_KEYS order: cte, c0t, c2t, csqrtY, d0, e2 as
+// pairs). PART1 pairs use cte, rc, k1, k2, d0 and e2 only.
 template <class T>
-__device__ T pcqsdhc(float dnu, const T* k, const float* wei, int n_wei) {
-  const T& cte = k[0];
-  const Cx<T> t0 = {k[1], (-dnu) + k[2]};     // i(sg0 - sg) + c0t
+struct HtPair {
+  T cte, rc, k1, k2;
+  Cx<T> ic2, Y, cy, hc, d0, e2;
+  float absY, thr2;   // |Y| and 3e-8 |Y| (PART2's test)
+  int part1;
+};
+
+// PART2-4's point-independent values
+template <class T>
+__device__ __forceinline__ void ht_pair234(HtPair<T>& h, const Cx<T>& c2t,
+                                           const T* k) {
+  h.ic2 = cinv(c2t);
+  const T c2x = 2.0f * k[0];
+  const Cx<T> y0 = cinv(Cx<T>{c2x * c2t.r, c2x * c2t.i});
+  h.Y = cmul(y0, y0);
+  h.absY = mag(h.Y);
+  h.thr2 = __fmul_rn(3.0e-8f, h.absY);
+  const bool cy0 = __fadd_rn(__fmul_rn(k[5].v, k[5].v),
+                             __fmul_rn(k[6].v, k[6].v)) == 0.0f;
+  h.cy = cy0 ? Cx<T>{cst<T>(1.0f), cst<T>(0.0f)} : Cx<T>{k[5], k[6]};
+  const Cx<T> icy = cinv(h.cy);
+  h.hc = {HALF_RPI * icy.r, HALF_RPI * icy.i};
+}
+
+template <class T>
+__device__ __forceinline__ HtPair<T> ht_pair(const T* k) {
+  HtPair<T> h;
+  h.cte = k[0];
+  h.rc = RPI * k[0];
+  h.k1 = k[1];
+  h.k2 = k[2];
+  h.d0 = {k[7], k[8]};
+  h.e2 = {k[9], k[10]};
   const Cx<T> c2t = {k[3], k[4]};
-  const T rc = RPI * cte;
-  const Cx<T> z1 = {t0.r * cte, t0.i * cte};
-  Cx<T> A, B;
-  if (__fadd_rn(__fmul_rn(c2t.r.v, c2t.r.v), __fmul_rn(c2t.i.v, c2t.i.v)) ==
-      0.0f) {
-    // PART1
-    const Cx<T> w1 = w_of(z1, wei, n_wei);
-    A = {rc * w1.r, rc * w1.i};
-    if (mag(z1) > 4.0e3f) {
-      const Cx<T> i1 = cinv(z1);
-      const Cx<T> i3 = cmul(i1, cmul(i1, i1));
-      B = {cte * ((RPI * w1.r + 0.5f * i1.r) - 0.75f * i3.r),
-           cte * ((RPI * w1.i + 0.5f * i1.i) - 0.75f * i3.i)};
-    } else {
-      const Cx<T> z2 = cmul(z1, z1);
-      const Cx<T> bw = cmul(Cx<T>{1.0f - z2.r, -z2.i}, w1);
-      B = {rc * (bw.r + z1.r * INV_SQRT_PI), rc * (bw.i + z1.i * INV_SQRT_PI)};
-    }
+  h.part1 = __fadd_rn(__fmul_rn(c2t.r.v, c2t.r.v),
+                      __fmul_rn(c2t.i.v, c2t.i.v)) == 0.0f;
+  if (!h.part1) {
+    ht_pair234(h, c2t, k);
   } else {
-    const Cx<T> ic2 = cinv(c2t);
-    const Cx<T> X = cmul(t0, ic2);
-    const T c2x = 2.0f * cte;
-    const Cx<T> y0 = cinv(Cx<T>{c2x * c2t.r, c2x * c2t.i});
-    const Cx<T> Y = cmul(y0, y0);
-    const float absX = mag(X), absY = mag(Y);
-    const bool part2 = absX <= __fmul_rn(3.0e-8f, absY);
-    const bool part3 = !part2 && absY <= __fmul_rn(1.0e-15f, absX);
-    const Cx<T> sxy = csqrt(Cx<T>{X.r + Y.r, X.i + Y.i});
-    const bool cy0 = __fadd_rn(__fmul_rn(k[5].v, k[5].v),
-                               __fmul_rn(k[6].v, k[6].v)) == 0.0f;
-    const Cx<T> cy = cy0 ? Cx<T>{cst<T>(1.0f), cst<T>(0.0f)} : Cx<T>{k[5], k[6]};
-    const Cx<T> icy = cinv(cy);
-    const Cx<T> hc = {HALF_RPI * icy.r, HALF_RPI * icy.i};
-    if (part2) {
-      const Cx<T> z2b = {sxy.r + cy.r, sxy.i + cy.i};
-      const Cx<T> w12 = w_of(z1, wei, n_wei);
-      const Cx<T> w22 = w_of(z2b, wei, n_wei);
-      A = {rc * (w12.r - w22.r), rc * (w12.i - w22.i)};
-      const Cx<T> s1 = cmul(z1, z1), s2 = cmul(z2b, z2b);
-      const Cx<T> u1 = cmul(Cx<T>{1.0f - s1.r, -s1.i}, w12);
-      const Cx<T> u2 = cmul(Cx<T>{1.0f - s2.r, -s2.i}, w22);
-      const Cx<T> h2 = cmul(hc, Cx<T>{u1.r - u2.r, u1.i - u2.i});
-      B = cmul(Cx<T>{h2.r - 1.0f, h2.i}, ic2);
-    } else if (part3) {
-      const Cx<T> wxy = w_of(sxy, wei, n_wei);
-      const Cx<T> sX = csqrt(X);
-      const Cx<T> cc = {(1.0f - X.r) - 2.0f * Y.r, (-X.i) - 2.0f * Y.i};
-      const Cx<T> sw = cmul(sxy, wxy);
-      if (mag(sX) <= 4.0e3f) {
-        const Cx<T> wx = w_of(sX, wei, n_wei);
-        const Cx<T> sxwx = cmul(sX, wx);
-        const Cx<T> g = {INV_SQRT_PI - sxwx.r, -sxwx.i};
-        A = cmul(Cx<T>{TWO_RPI * g.r, TWO_RPI * g.i}, ic2);
-        const Cx<T> cg = cmul(cc, g);
-        B = cmul(Cx<T>{(-1.0f + TWO_RPI * cg.r) + TWO_RPI * sw.r,
-                       TWO_RPI * cg.i + TWO_RPI * sw.i},
-                 ic2);
-      } else {
-        const Cx<T> iX = cinv(X);
-        const Cx<T> iX2 = cmul(iX, iX);
-        const Cx<T> hx = {iX.r - 1.5f * iX2.r, iX.i - 1.5f * iX2.i};
-        A = cmul(hx, ic2);
-        const Cx<T> chx = cmul(cc, hx);
-        B = cmul(Cx<T>{(-1.0f + chx.r) + TWO_RPI * sw.r,
-                       chx.i + TWO_RPI * sw.i},
-                 ic2);
-      }
-    } else {
-      // PART4, with the CPF3-vs-CPF sub-selection
-      const Cx<T> Z1 = {sxy.r - cy.r, sxy.i - cy.i};
-      const Cx<T> Z2 = {Z1.r + 2.0f * cy.r, Z1.i + 2.0f * cy.i};
-      const float sz1 = mag(Z1), sz2 = mag(Z2);
-      const bool use3 = fabsf(__fsub_rn(sz1, sz2)) <= 1.0f &&
-                        fmaxf(sz1, sz2) > 8.0f && fminf(sz1, sz2) <= 8.0f;
-      const Cx<T> w14 = use3 ? cpf3(-Z1.i, Z1.r) : w_of(Z1, wei, n_wei);
-      const Cx<T> w24 = use3 ? cpf3(-Z2.i, Z2.r) : w_of(Z2, wei, n_wei);
-      A = {rc * (w14.r - w24.r), rc * (w14.i - w24.i)};
-      const Cx<T> s1 = cmul(Z1, Z1), s2 = cmul(Z2, Z2);
-      const Cx<T> t1 = cmul(Cx<T>{1.0f - s1.r, -s1.i}, w14);
-      const Cx<T> t2 = cmul(Cx<T>{1.0f - s2.r, -s2.i}, w24);
-      const Cx<T> h = cmul(hc, Cx<T>{t1.r - t2.r, t1.i - t2.i});
-      B = cmul(Cx<T>{h.r - 1.0f, h.i}, ic2);
-    }
+    const Cx<T> zero = {cst<T>(0.0f), cst<T>(0.0f)};
+    h.ic2 = h.Y = h.cy = h.hc = zero;
+    h.absY = h.thr2 = 0.0f;
   }
-  // LS = (1/pi) A / (1 - d0 A + e2 B)
-  const Cx<T> dA = cmul(Cx<T>{k[7], k[8]}, A);
-  const Cx<T> eB = cmul(Cx<T>{k[9], k[10]}, B);
+  return h;
+}
+
+// PART1's B, |Z1| > 4e3
+template <class T>
+__device__ __forceinline__ Cx<T> ht_b1_big(const Cx<T>& z1, const Cx<T>& w1,
+                                           const HtPair<T>& h) {
+  const Cx<T> i1 = cinv(z1);
+  const Cx<T> i3 = cmul(i1, cmul(i1, i1));
+  return {h.cte * ((RPI * w1.r + 0.5f * i1.r) - 0.75f * i3.r),
+          h.cte * ((RPI * w1.i + 0.5f * i1.i) - 0.75f * i3.i)};
+}
+
+// PART1's B, |Z1| <= 4e3
+template <class T>
+__device__ __forceinline__ Cx<T> ht_b1_small(const Cx<T>& z1,
+                                             const Cx<T>& w1,
+                                             const HtPair<T>& h) {
+  const Cx<T> z2 = cmul(z1, z1);
+  const Cx<T> bw = cmul(Cx<T>{1.0f - z2.r, -z2.i}, w1);
+  return {h.rc * (bw.r + z1.r * INV_SQRT_PI), h.rc * (bw.i + z1.i * INV_SQRT_PI)};
+}
+
+// PART1 (Gamma2 = Shift2 = 0)
+template <class T>
+__device__ __forceinline__ void ht_part1(const Cx<T>& z1, const HtPair<T>& h,
+                                         const float* wei, int n_wei,
+                                         bool far, Cx<T>& A, Cx<T>& B) {
+  const Cx<T> w1 = w_of(z1, wei, n_wei, far);
+  A = {h.rc * w1.r, h.rc * w1.i};
+  B = mag(z1) > 4.0e3f ? ht_b1_big(z1, w1, h) : ht_b1_small(z1, w1, h);
+}
+
+// PART4, with the CPF3-vs-CPF sub-selection (none where `far`)
+template <class T>
+__device__ __forceinline__ void ht_part4(const Cx<T>& sxy, const HtPair<T>& h,
+                                         const float* wei, int n_wei,
+                                         bool far, Cx<T>& A, Cx<T>& B) {
+  const Cx<T>& cy = h.cy;
+  const Cx<T> Z1 = {sxy.r - cy.r, sxy.i - cy.i};
+  const Cx<T> Z2 = {Z1.r + 2.0f * cy.r, Z1.i + 2.0f * cy.i};
+  bool use3 = false;
+  if (!far) {
+    const float sz1 = mag(Z1), sz2 = mag(Z2);
+    use3 = fabsf(__fsub_rn(sz1, sz2)) <= 1.0f && fmaxf(sz1, sz2) > 8.0f &&
+           fminf(sz1, sz2) <= 8.0f;
+  }
+  const Cx<T> w14 = use3 ? cpf3(-Z1.i, Z1.r) : w_of(Z1, wei, n_wei, far);
+  const Cx<T> w24 = use3 ? cpf3(-Z2.i, Z2.r) : w_of(Z2, wei, n_wei, far);
+  A = {h.rc * (w14.r - w24.r), h.rc * (w14.i - w24.i)};
+  const Cx<T> s1 = cmul(Z1, Z1), s2 = cmul(Z2, Z2);
+  const Cx<T> t1 = cmul(Cx<T>{1.0f - s1.r, -s1.i}, w14);
+  const Cx<T> t2 = cmul(Cx<T>{1.0f - s2.r, -s2.i}, w24);
+  const Cx<T> hh = cmul(h.hc, Cx<T>{t1.r - t2.r, t1.i - t2.i});
+  B = cmul(Cx<T>{hh.r - 1.0f, hh.i}, h.ic2);
+}
+
+// PART2's and PART3's A and B (returned from their out-of-line functions)
+template <class T>
+struct AB {
+  Cx<T> A, B;
+};
+
+// PART2 (|X| tiny against |Y|): never for physical parameters, so out of
+// line (its operands by value: no local copies on the common path)
+template <class T>
+__device__ __noinline__ AB<T> ht_part2(Cx<T> z1, Cx<T> sxy,
+                                       const HtPair<T>& h, const float* wei,
+                                       int n_wei) {
+  const Cx<T> z2b = {sxy.r + h.cy.r, sxy.i + h.cy.i};
+  const Cx<T> w12 = w_of(z1, wei, n_wei, false);
+  const Cx<T> w22 = w_of(z2b, wei, n_wei, false);
+  AB<T> o;
+  o.A = {h.rc * (w12.r - w22.r), h.rc * (w12.i - w22.i)};
+  const Cx<T> s1 = cmul(z1, z1), s2 = cmul(z2b, z2b);
+  const Cx<T> u1 = cmul(Cx<T>{1.0f - s1.r, -s1.i}, w12);
+  const Cx<T> u2 = cmul(Cx<T>{1.0f - s2.r, -s2.i}, w22);
+  const Cx<T> h2 = cmul(h.hc, Cx<T>{u1.r - u2.r, u1.i - u2.i});
+  o.B = cmul(Cx<T>{h2.r - 1.0f, h2.i}, h.ic2);
+  return o;
+}
+
+// PART3 (|Y| tiny against |X|): never for physical parameters, out of line
+template <class T>
+__device__ __noinline__ AB<T> ht_part3(Cx<T> X, Cx<T> sxy,
+                                       const HtPair<T>& h, const float* wei,
+                                       int n_wei) {
+  const Cx<T>& Y = h.Y;
+  const Cx<T>& ic2 = h.ic2;
+  const Cx<T> wxy = w_of(sxy, wei, n_wei, false);
+  const Cx<T> sX = csqrt(X);
+  const Cx<T> cc = {(1.0f - X.r) - 2.0f * Y.r, (-X.i) - 2.0f * Y.i};
+  const Cx<T> sw = cmul(sxy, wxy);
+  AB<T> o;
+  if (mag(sX) <= 4.0e3f) {
+    const Cx<T> wx = w_of(sX, wei, n_wei, false);
+    const Cx<T> sxwx = cmul(sX, wx);
+    const Cx<T> g = {INV_SQRT_PI - sxwx.r, -sxwx.i};
+    o.A = cmul(Cx<T>{TWO_RPI * g.r, TWO_RPI * g.i}, ic2);
+    const Cx<T> cg = cmul(cc, g);
+    o.B = cmul(Cx<T>{(-1.0f + TWO_RPI * cg.r) + TWO_RPI * sw.r,
+                     TWO_RPI * cg.i + TWO_RPI * sw.i},
+               ic2);
+  } else {
+    const Cx<T> iX = cinv(X);
+    const Cx<T> iX2 = cmul(iX, iX);
+    const Cx<T> hx = {iX.r - 1.5f * iX2.r, iX.i - 1.5f * iX2.i};
+    o.A = cmul(hx, ic2);
+    const Cx<T> chx = cmul(cc, hx);
+    o.B = cmul(Cx<T>{(-1.0f + chx.r) + TWO_RPI * sw.r, chx.i + TWO_RPI * sw.i},
+               ic2);
+  }
+  return o;
+}
+
+// PART2-4 (Gamma2 or Shift2 live): X, sqrt(X + Y) and the part's A, B
+template <class T>
+__device__ __forceinline__ void ht_part234(const Cx<T>& t0, const Cx<T>& z1,
+                                           const HtPair<T>& h,
+                                           const float* wei, int n_wei,
+                                           bool far, Cx<T>& A, Cx<T>& B) {
+  const Cx<T> X = cmul(t0, h.ic2);
+  const float absX = mag(X);
+  const bool part2 = absX <= h.thr2;
+  const bool part3 = !part2 && h.absY <= __fmul_rn(1.0e-15f, absX);
+  const Cx<T> sxy = csqrt(Cx<T>{X.r + h.Y.r, X.i + h.Y.i});
+  if (part2 || part3) {
+    const AB<T> o = part2 ? ht_part2(z1, sxy, h, wei, n_wei)
+                          : ht_part3(X, sxy, h, wei, n_wei);
+    A = o.A;
+    B = o.B;
+  } else {
+    ht_part4(sxy, h, wei, n_wei, far, A, B);
+  }
+}
+
+// LS = (1/pi) A / (1 - d0 A + e2 B)
+template <class T>
+__device__ __forceinline__ T ht_ls(const Cx<T>& A, const Cx<T>& B,
+                                   const HtPair<T>& h) {
+  const Cx<T> dA = cmul(h.d0, A);
+  const Cx<T> eB = cmul(h.e2, B);
   const Cx<T> inv = cinv(Cx<T>{(1.0f - dA.r) + eB.r, (-dA.i) + eB.i});
   return (A.r * inv.r - A.i * inv.i) * INV_PI;
 }
 
-// ---- the kernels ------------------------------------------------------------
-
-struct Tile {
-  int tile_i, l0, nl, kg;
-  bool live;
-};
-
-__device__ __forceinline__ Tile tile_of(int tile, int sub_per_tile,
-                                        int n_lay_call, int n_out, int lc) {
-  Tile t;
-  t.tile_i = blockIdx.x / sub_per_tile;
-  const int sub = blockIdx.x - t.tile_i * sub_per_tile;
-  t.l0 = blockIdx.y * lc;
-  t.nl = min(lc, n_lay_call - t.l0);
-  const int kloc = sub * SPAN + threadIdx.x;
-  t.kg = t.tile_i * tile + kloc;
-  t.live = kloc < tile && t.kg < n_out;
-  return t;
+// Re LS of pcqsdhc at dnu for the pair h: the operations of
+// kernels/htp_real.py::pcqsdhc_real on the part the point selects
+template <class T>
+__device__ __forceinline__ T pcqsdhc(float dnu, const HtPair<T>& h,
+                                     const float* wei, int n_wei, bool far) {
+  const Cx<T> t0 = {h.k1, (-dnu) + h.k2};     // i(sg0 - sg) + c0t
+  const Cx<T> z1 = {t0.r * h.cte, t0.i * h.cte};
+  Cx<T> A, B;
+  if (h.part1)
+    ht_part1(z1, h, wei, n_wei, far, A, B);
+  else
+    ht_part234(t0, z1, h, wei, n_wei, far, A, B);
+  return ht_ls(A, B, h);
 }
 
-// K5: one CTA per (SPAN-point slice of a tile, LC layers)
+// ---- staging ------------------------------------------------------------------
+
+// The grid offsets d - k_line (a superset, within the window range win) at
+// which a CPF point of a pair with constants k (values) can take hum1_wei's
+// Weideman branch; all of win where that is not known in closed form. PART1:
+// |x| + y < 15 with x = (dnu - k2) cte, y = k1 cte, so |dnu - k2| < (15 -
+// y) / cte. PART4 with c2t and csqrtY = c real: Z = S -+ c, S = sqrt(X + Y)
+// = us + i vs, P = Re(X + Y) (computed as the point loop computes it) and
+// |Im(X + Y)| = |k2 - dnu| / |c2t|; Z lies in |Im Z| + Re Z < 15 where
+// us + |vs| < R = 15 +- c, and (us + |vs|)^2 = |X + Y| + |Im(X + Y)| grows
+// with |Im(X + Y)| from |P|: below R^2 exactly where |Im(X + Y)| < (R^4 -
+// P^2) / (2 R^2), nowhere if |P| >= R^2 (chip_smoke.py::cpf_radius; the
+// wider R = 15 + |c| bounds both points). Each radius is widened by 1e-4 of
+// itself and a grid step (window_range adds two more), as core_range's.
+__device__ __forceinline__ int2 ht_near_range(float f0, const float* k,
+                                              float dx, int2 win) {
+  const float cte = k[0], k1 = k[1], k2 = k[2], c2r = k[3], c2i = k[4];
+  const float cyr = k[5], cyi = k[6];
+  float r;
+  if (__fadd_rn(__fmul_rn(c2r, c2r), __fmul_rn(c2i, c2i)) == 0.0f) {
+    const float y = __fmul_rn(k1, cte);      // as the point loop rounds it
+    if (!(y < REGION_BOUND)) return make_int2(1, 0);
+    r = __fsub_rn(REGION_BOUND, y) / (dx * cte);
+  } else if (c2i == 0.0f && cyi == 0.0f &&
+             __fmul_rn(cyr, cyr) != 0.0f) {
+    // Re(X + Y) = k1 Re(1/c2t) + Re(y0)^2, y0 = 1/(2 cte c2t), as ht_pair
+    // and ht_part234 round it
+    const float ic2r = __fdiv_rn(c2r, fmaxf(__fmul_rn(c2r, c2r), FLT_MIN));
+    const float c2 = __fmul_rn(__fmul_rn(2.0f, cte), c2r);
+    const float y0r = __fdiv_rn(c2, fmaxf(__fmul_rn(c2, c2), FLT_MIN));
+    const float P = fabsf(__fadd_rn(__fmul_rn(k1, ic2r), __fmul_rn(y0r, y0r)));
+    const float R = REGION_BOUND + fabsf(cyr);
+    const float R2 = R * R;
+    if (!(P < R2 * 1.001f)) return make_int2(1, 0);
+    r = fmaxf((R2 - P) * (R2 + P), 0.0f) / (2.0f * R2) / (fabsf(ic2r) * dx);
+  } else {
+    return win;
+  }
+  const int2 cw = window_range(f0 + k2 / dx, r * 1.0001f + 1.0f);
+  return make_int2(max(win.x, cw.x), min(win.y, cw.y));
+}
+
+// the (nLay, L) parameter rows (strength, wing, the 11 constants) and, for
+// K6, the (n_dir, nLay, L) tangent rows (strength, the 11 constants)
+struct HtPtrs {
+  const float* p[NP];
+  const float* t[NT];
+};
+
+// A CTA's shared memory: K1's ring of slot data, the raw parameters (and
+// tangents) of the next chunk's (slot, row) pairs, and each row's kept
+// pairs in slot order: their ht_pair values, strength, wingu, (window lo,
+// hi, k_line, frac0 bits) and Weideman range (lo, hi; absolute)
+template <class T, int NRAW>
+struct HtSmem {
+  int k[RING][CH];
+  float f[RING][CH];
+  int line[RING][CH];
+  float cap[RING][CH];
+  float raw[NRAW][LC][CH];
+  HtPair<T> pair[LC][CH];
+  T s[LC][CH];
+  float wingu[LC][CH];
+  int4 meta[LC][CH];
+  int2 near[LC][CH];
+  int n[LC];
+};
+
+template <bool TAN> struct Scalar { using type = Rn; };
+template <> struct Scalar<true> { using type = Dual<1>; };
+
+// a constant index into a register array from a loop variable
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int i) {
+  float v = a[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = i == j ? a[j] : v;
+  return v;
+}
+template <int N>
+__device__ __forceinline__ void put(float (&a)[N], int i, float v) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = i == j ? v : a[j];
+}
+
+// K5: strength * LS added to the running sum
+__device__ __forceinline__ float accumulate(float sum, const Rn& s,
+                                            const Rn& ls) {
+  return sum + __fmul_rn(s.v, ls.v);
+}
+// K6: d(strength * LS) = strength_t LS + strength LS_t, non-finite dropped
+__device__ __forceinline__ float accumulate(float sum, const Dual<1>& s,
+                                            const Dual<1>& ls) {
+  const float v = __fadd_rn(__fmul_rn(s.t[0], ls.v), __fmul_rn(s.v, ls.t[0]));
+  return isfinite(v) ? sum + v : sum;
+}
+
+// K5 (TAN false): rows are the layers of the call, n_dir 1, live unused.
+// K6 (TAN true): rows (direction, layer), live the launch's (n_dir, n_lay)
+// table, out (n_dir, n_lay_call, n_out).
+template <bool TAN>
 __global__ void __launch_bounds__(THREADS)
 fused_ht_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
-                const int* __restrict__ k_line, const float* __restrict__ frac0,
-                const int* __restrict__ line, const float* __restrict__ wcap,
+                const int* __restrict__ k_line,
+                const float* __restrict__ frac0, const int* __restrict__ line,
+                const float* __restrict__ wcap,
                 const int* __restrict__ lay_idx, int n_lay_call,
-                const float* __restrict__ prm, int n_lay, int n_lines,
-                const float* __restrict__ wei_g, int n_wei, int tile,
-                int block, int sub_per_tile, int n_out, float dx,
-                float* __restrict__ out) {
-  __shared__ float s_p[LC][CH][NP];
-  __shared__ int s_k[CH];
-  __shared__ float s_f[CH];
+                const int* __restrict__ live, const HtPtrs ptr, int n_dir,
+                int n_lay, int n_lines, const float* __restrict__ wei_g,
+                int n_wei, int tile, int block, int sub_per_tile, int n_out,
+                float dx, float* __restrict__ out) {
+  using T = typename Scalar<TAN>::type;
+  constexpr int NRAW = TAN ? NP + NT : NP;
+  __shared__ HtSmem<T, NRAW> sm;
   __shared__ float s_wei[MAX_WEI + 1];
+
   const int tid = threadIdx.x;
-  const Tile t = tile_of(tile, sub_per_tile, n_lay_call, n_out, LC);
-  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
-  const size_t plane = static_cast<size_t>(n_lay) * n_lines;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tile_i = blockIdx.x / sub_per_tile;
+  const int sub = blockIdx.x - tile_i * sub_per_tile;
+  const int r0 = blockIdx.y * LC;
+  const int nr = min(LC, n_dir * n_lay_call - r0);
+  const int t0 = tile_i * tile;
+  const int kloc0 = sub * SPAN;
+  // a slice past the grid's end has no output: the whole CTA leaves
+  if (t0 + kloc0 >= n_out) return;
+  const int last = min(kloc0 + SPAN, tile) - 1;
+  const int r_lo = t0 + kloc0;                 // the slice's grid indices
+  const int r_hi = min(t0 + last, n_out - 1);
+  const int a = t0 + kloc0 + warp * 32;        // this warp's first point
+  const bool warp_live = kloc0 + warp * 32 <= last && a < n_out;
+  const int kg = a + lane;
+  const bool pt_live = kloc0 + warp * 32 + lane <= last && kg < n_out;
 
   float acc[LC];
 #pragma unroll
-  for (int l = 0; l < LC; ++l) acc[l] = 0.0f;
+  for (int i = 0; i < LC; ++i) acc[i] = 0.0f;
 
-  const int slot0 = starts[t.tile_i] * block;
-  const int n_slots = counts[t.tile_i] * block;
-  for (int c0 = 0; c0 < n_slots; c0 += CH) {
-    const int nc = min(CH, n_slots - c0);
-    __syncthreads();   // the previous chunk is consumed
-    for (int j = tid; j < nc; j += THREADS) {
-      s_k[j] = k_line[slot0 + c0 + j];
-      s_f[j] = frac0[slot0 + c0 + j];
-    }
-    for (int i = tid; i < t.nl * nc; i += THREADS) {
-      const int l = i / nc;
-      const int j = i - l * nc;
-      const int s = slot0 + c0 + j;
-      const int g = line[s];
-      float* p = s_p[l][j];
-      if (g >= 0) {
-        const size_t off = static_cast<size_t>(lay_idx[t.l0 + l]) * n_lines + g;
-        p[0] = prm[off];
-        p[1] = fminf(prm[plane + off], wcap[s]) / dx;
-#pragma unroll
-        for (int q = 0; q < NK; ++q) p[2 + q] = prm[(2 + q) * plane + off];
-      } else {
-        p[1] = 0.0f;   // padding: never in the window
-      }
-    }
-    __syncthreads();
-    if (!t.live) continue;
-    for (int j = 0; j < nc; ++j) {
-      const float u = static_cast<float>(t.kg - s_k[j]) - s_f[j];
-      const float dnu = __fmul_rn(u, dx);
-#pragma unroll
-      for (int l = 0; l < LC; ++l) {
-        if (l >= t.nl) break;
-        const float* p = s_p[l][j];
-        if (!(u > -p[1] && u <= p[1])) continue;
-        Rn k[NK];
-#pragma unroll
-        for (int q = 0; q < NK; ++q) k[q] = p[2 + q];
-        acc[l] += __fmul_rn(p[0], pcqsdhc<Rn>(dnu, k, s_wei, n_wei).v);
-      }
-    }
+  // the row this warp stages: its parameter and tangent offsets, liveness
+  bool row_live = false;
+  size_t p_off = 0, t_off = 0;
+  if (warp < nr) {
+    const int r = r0 + warp;
+    const int d = r / n_lay_call;
+    const int pl = lay_idx[r - d * n_lay_call];
+    row_live = !TAN || live[d * n_lay + pl] != 0;
+    p_off = static_cast<size_t>(pl) * n_lines;
+    t_off = static_cast<size_t>(d) * n_lay * n_lines + p_off;
   }
-  if (!t.live) return;
+
+  if (__syncthreads_or(row_live)) {
+    for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
+    const int slot0 = starts[tile_i] * block;
+    const int n_slots = counts[tile_i] * block;
+    const int n_chunks = (n_slots + CH - 1) / CH;
+
+    // slot data of chunk ch into its ring entry
+    auto issue_slots = [&](int ch) {
+      const int c0 = ch * CH;
+      const int nc = min(CH, n_slots - c0);
+      const int r = ch % RING;
+      for (int j = tid; j < nc; j += THREADS) {
+        const int s = slot0 + c0 + j;
+        cp_async4(&sm.k[r][j], k_line + s);
+        cp_async4(&sm.f[r][j], frac0 + s);
+        cp_async4(&sm.line[r][j], line + s);
+        cp_async4(&sm.cap[r][j], wcap + s);
+      }
+    };
+    // raw parameters (and tangents) of chunk ch's pairs of this warp's row
+    auto issue_params = [&](int ch) {
+      const int j = lane;
+      const int r = ch % RING;
+      if (!row_live || j >= min(CH, n_slots - ch * CH)) return;
+      const int g = sm.line[r][j];
+      if (g < 0) return;
 #pragma unroll
-  for (int l = 0; l < LC; ++l)
-    if (l < t.nl) out[static_cast<size_t>(t.l0 + l) * n_out + t.kg] = acc[l];
+      for (int q = 0; q < NP; ++q)
+        cp_async4(&sm.raw[q][warp][j], ptr.p[q] + p_off + g);
+      if constexpr (TAN) {
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+          cp_async4(&sm.raw[NP + q][warp][j], ptr.t[q] + t_off + g);
+      }
+    };
+
+    if (n_chunks > 0) issue_slots(0);
+    cp_async_commit();
+    if (n_chunks > 1) issue_slots(1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n_chunks > 0) issue_params(0);
+    cp_async_commit();
+
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int nc = min(CH, n_slots - ch * CH);
+      const int r = ch % RING;
+      cp_async_wait<0>();
+      __syncthreads();   // chunk ch's parameters and ch + 1's slots are in;
+                         // the previous chunk is consumed
+      // this warp's row: windows, Weideman ranges and the kept pairs
+      {
+        const int i = warp;
+        const int j = lane;
+        bool keep = false;
+        int2 win = make_int2(1, 0);
+        int kl = 0;
+        float f0 = 0.0f, wu = 0.0f;
+        if (row_live && j < nc && sm.line[r][j] >= 0) {
+          kl = sm.k[r][j];
+          f0 = sm.f[r][j];
+          wu = fminf(sm.raw[1][i][j], sm.cap[r][j]) / dx;
+          win = window_range(f0, wu);
+          bool tz = !TAN;
+          if constexpr (TAN) {
+#pragma unroll
+            for (int e = 0; e < NT; ++e) tz |= sm.raw[NP + e][i][j] != 0.0f;
+          }
+          keep = tz && win.x <= win.y && kl + win.y >= r_lo &&
+                 kl + win.x <= r_hi;
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        if (keep) {
+          float kv[NK];
+#pragma unroll
+          for (int e = 0; e < NK; ++e) kv[e] = sm.raw[2 + e][i][j];
+          const int2 nrg = ht_near_range(f0, kv, dx, win);
+          T kk[NK];
+          T sv = cst<T>(sm.raw[0][i][j]);
+#pragma unroll
+          for (int e = 0; e < NK; ++e) kk[e] = cst<T>(kv[e]);
+          if constexpr (TAN) {
+#pragma unroll
+            for (int e = 0; e < NK; ++e) kk[e].t[0] = sm.raw[NP + 1 + e][i][j];
+            sv.t[0] = sm.raw[NP][i][j];
+          }
+          const int pos = __popc(bal & ((1u << lane) - 1u));
+          sm.pair[i][pos] = ht_pair<T>(kk);
+          sm.s[i][pos] = sv;
+          sm.wingu[i][pos] = wu;
+          sm.meta[i][pos] = make_int4(kl + win.x, kl + win.y, kl,
+                                      __float_as_int(f0));
+          sm.near[i][pos] = make_int2(kl + nrg.x, kl + nrg.y);
+        }
+        if (lane == 0) sm.n[i] = __popc(bal);
+      }
+      __syncthreads();
+      if (ch + 1 < n_chunks) issue_params(ch + 1);
+      if (ch + 2 < n_chunks) issue_slots(ch + 2);
+      cp_async_commit();
+
+      if (warp_live) {
+#pragma unroll 1
+        for (int i = 0; i < nr; ++i) {
+          const int n = sm.n[i];
+          if (n == 0) continue;
+          float sum = pick(acc, i);
+          for (int k = 0; k < n; ++k) {
+            const int4 mt = sm.meta[i][k];
+            // warp-uniform: does the window meet this warp's span?
+            if (mt.y < a || mt.x > a + 31) continue;
+            const int2 nrg = sm.near[i][k];
+            // warp-uniform: the span lies outside every Weideman region
+            const bool far = nrg.y < a || nrg.x > a + 31;
+            const float u = static_cast<float>(kg - mt.z) -
+                            __int_as_float(mt.w);
+            const float wu = sm.wingu[i][k];
+            if (!pt_live || !(u > -wu && u <= wu)) continue;
+            const T ls = pcqsdhc<T>(__fmul_rn(u, dx), sm.pair[i][k], s_wei,
+                                    n_wei, far);
+            sum = accumulate(sum, sm.s[i][k], ls);
+          }
+          put(acc, i, sum);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  // every row of the CTA, live or not (a dead row's sums are zeros)
+  if (!pt_live) return;
+#pragma unroll
+  for (int i = 0; i < LC; ++i)
+    if (i < nr) out[static_cast<size_t>(r0 + i) * n_out + kg] = acc[i];
 }
 
-// K6: the tangents of ND directions; tan is (n_dir, NT, nLay, L)
-template <int ND>
-__global__ void __launch_bounds__(THREADS)
-fused_ht_jvp_kernel(const int* __restrict__ starts,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ k_line,
-                    const float* __restrict__ frac0,
-                    const int* __restrict__ line,
-                    const float* __restrict__ wcap,
-                    const int* __restrict__ lay_idx, int n_lay_call,
-                    const int* __restrict__ lay_live,
-                    const float* __restrict__ prm,
-                    const float* __restrict__ tan, int n_dir, int n_lay,
-                    int n_lines, const float* __restrict__ wei_g, int n_wei,
-                    int tile, int block, int sub_per_tile, int n_out, float dx,
-                    float* __restrict__ out) {
-  __shared__ float s_p[LC_T][CH_T][NP];
-  __shared__ float s_t[LC_T][CH_T][ND][NT];
-  __shared__ int s_pl[LC_T][CH_T];
-  __shared__ int s_k[CH_T];
-  __shared__ float s_f[CH_T];
-  __shared__ float s_wei[MAX_WEI + 1];
-  __shared__ int s_live[LC_T];
-  const int tid = threadIdx.x;
-  const Tile t = tile_of(tile, sub_per_tile, n_lay_call, n_out, LC_T);
-  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
-  if (tid < LC_T) s_live[tid] = tid < t.nl ? lay_live[lay_idx[t.l0 + tid]] : 0;
-  const size_t plane = static_cast<size_t>(n_lay) * n_lines;
-
-  float acc[LC_T][ND];
-#pragma unroll
-  for (int l = 0; l < LC_T; ++l)
-#pragma unroll
-    for (int d = 0; d < ND; ++d) acc[l][d] = 0.0f;
-
-  __syncthreads();
-  bool any_live = false;
-#pragma unroll
-  for (int l = 0; l < LC_T; ++l) any_live |= s_live[l] != 0;
-  const int slot0 = starts[t.tile_i] * block;
-  const int n_slots = any_live ? counts[t.tile_i] * block : 0;
-  for (int c0 = 0; c0 < n_slots; c0 += CH_T) {
-    const int nc = min(CH_T, n_slots - c0);
-    __syncthreads();
-    for (int j = tid; j < nc; j += THREADS) {
-      s_k[j] = k_line[slot0 + c0 + j];
-      s_f[j] = frac0[slot0 + c0 + j];
-    }
-    for (int i = tid; i < t.nl * nc; i += THREADS) {
-      const int l = i / nc;
-      const int j = i - l * nc;
-      const int s = slot0 + c0 + j;
-      const int g = line[s];
-      bool pair_live = false;
-      if (g >= 0 && s_live[l]) {
-        const size_t off = static_cast<size_t>(lay_idx[t.l0 + l]) * n_lines + g;
-        float* p = s_p[l][j];
-        p[0] = prm[off];
-        p[1] = fminf(prm[plane + off], wcap[s]) / dx;
-#pragma unroll
-        for (int q = 0; q < NK; ++q) p[2 + q] = prm[(2 + q) * plane + off];
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-#pragma unroll
-          for (int q = 0; q < NT; ++q) {
-            const float v = d < n_dir
-                                ? tan[(static_cast<size_t>(d) * NT + q) * plane + off]
-                                : 0.0f;
-            s_t[l][j][d][q] = v;
-            pair_live |= v != 0.0f;
-          }
-        }
-      }
-      s_pl[l][j] = pair_live;
-    }
-    __syncthreads();
-    if (!t.live) continue;
-    for (int j = 0; j < nc; ++j) {
-      const float u = static_cast<float>(t.kg - s_k[j]) - s_f[j];
-      const float dnu = __fmul_rn(u, dx);
-#pragma unroll
-      for (int l = 0; l < LC_T; ++l) {
-        if (l >= t.nl) break;
-        if (!s_pl[l][j]) continue;   // uniform across the CTA
-        const float* p = s_p[l][j];
-        if (!(u > -p[1] && u <= p[1])) continue;
-        Dual<ND> k[NK];
-#pragma unroll
-        for (int q = 0; q < NK; ++q) {
-          k[q].v = p[2 + q];
-#pragma unroll
-          for (int d = 0; d < ND; ++d) k[q].t[d] = s_t[l][j][d][1 + q];
-        }
-        const Dual<ND> ls = pcqsdhc<Dual<ND>>(dnu, k, s_wei, n_wei);
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          // d(strength * ls) = strength_t ls + strength ls_t
-          const float v = __fadd_rn(__fmul_rn(s_t[l][j][d][0], ls.v),
-                                    __fmul_rn(p[0], ls.t[d]));
-          if (isfinite(v)) acc[l][d] += v;
-        }
-      }
-    }
+int launch(bool tan, const void* starts, const void* counts,
+           const void* k_line, const void* frac0, const void* line,
+           const void* wcap, const void* lay_idx, int n_lay_call,
+           const void* live, const HtPtrs& ptr, int n_dir, int n_lay,
+           int n_lines, const void* wei, int n_wei, int tile, int block,
+           int n_tiles, int n_out, double dx, void* out, void* stream) {
+  const long long row_groups =
+      (static_cast<long long>(n_dir) * n_lay_call + LC - 1) / LC;
+  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
+      row_groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
+  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
+                  static_cast<unsigned>(row_groups));
+  if (grid.x == 0 || grid.y == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RADTXFR_LAUNCH(TAN)                                                   \
+  fused_ht_kernel<TAN><<<grid, THREADS, 0, s>>>(                              \
+      static_cast<const int*>(starts), static_cast<const int*>(counts),       \
+      static_cast<const int*>(k_line), static_cast<const float*>(frac0),      \
+      static_cast<const int*>(line), static_cast<const float*>(wcap),         \
+      static_cast<const int*>(lay_idx), n_lay_call,                           \
+      static_cast<const int*>(live), ptr, n_dir, n_lay, n_lines,              \
+      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile,       \
+      n_out, static_cast<float>(dx), static_cast<float*>(out))
+  if (tan) {
+    RADTXFR_LAUNCH(true);
+  } else {
+    RADTXFR_LAUNCH(false);
   }
-  if (!t.live) return;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    if (d >= n_dir) break;
-#pragma unroll
-    for (int l = 0; l < LC_T; ++l)
-      if (l < t.nl)
-        out[(static_cast<size_t>(d) * n_lay_call + t.l0 + l) * n_out + t.kg] =
-            acc[l][d];
-  }
+#undef RADTXFR_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// K5's entry: the (nLay, L) rows strength, wing and the 11 constants
+// (HT_CONST_KEYS order); out (n_lay_call, n_out)
 extern "C" int radtxfr_fused_ht(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* prm, int n_lay,
-    int n_lines, const void* wei, int n_wei, int tile, int block,
+    const void* lay_idx, int n_lay_call, const void* strength,
+    const void* wing, const void* c0, const void* c1, const void* c2,
+    const void* c3, const void* c4, const void* c5, const void* c6,
+    const void* c7, const void* c8, const void* c9, const void* c10,
+    int n_lay, int n_lines, const void* wei, int n_wei, int tile, int block,
     int n_tiles, int n_out, double dx, void* out, void* stream) {
-  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
-  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  (n_lay_call + LC - 1) / LC);
-  if (grid.x == 0 || grid.y == 0) return 0;
-  fused_ht_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const int*>(k_line), static_cast<const float*>(frac0),
-      static_cast<const int*>(line), static_cast<const float*>(wcap),
-      static_cast<const int*>(lay_idx), n_lay_call,
-      static_cast<const float*>(prm), n_lay, n_lines,
-      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out,
-      static_cast<float>(dx), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const HtPtrs ptr = {
+      {static_cast<const float*>(strength), static_cast<const float*>(wing),
+       static_cast<const float*>(c0), static_cast<const float*>(c1),
+       static_cast<const float*>(c2), static_cast<const float*>(c3),
+       static_cast<const float*>(c4), static_cast<const float*>(c5),
+       static_cast<const float*>(c6), static_cast<const float*>(c7),
+       static_cast<const float*>(c8), static_cast<const float*>(c9),
+       static_cast<const float*>(c10)},
+      {}};
+  return launch(false, starts, counts, k_line, frac0, line, wcap, lay_idx,
+                n_lay_call, nullptr, ptr, 1, n_lay, n_lines, wei, n_wei, tile,
+                block, n_tiles, n_out, dx, out, stream);
 }
 
+// K6's entry: live is the launch's (n_dir, n_lay) int32 table of the
+// directions' non-zero tangents per parameter layer; the parameter rows as
+// K5's, then the (n_dir, nLay, L) tangents of the strength and the 11
+// constants; out (n_dir, n_lay_call, n_out)
 extern "C" int radtxfr_fused_ht_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* lay_live,
-    const void* prm, const void* tan, int n_dir, int n_lay, int n_lines,
-    const void* wei, int n_wei, int tile, int block, int n_tiles, int n_out,
-    double dx, void* out, void* stream) {
-  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
-      n_dir > ND_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
-  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  (n_lay_call + LC_T - 1) / LC_T);
-  if (grid.x == 0 || grid.y == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RADTXFR_LAUNCH(ND)                                                   \
-  fused_ht_jvp_kernel<ND><<<grid, THREADS, 0, s>>>(                          \
-      static_cast<const int*>(starts), static_cast<const int*>(counts),      \
-      static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
-      static_cast<const int*>(line), static_cast<const float*>(wcap),        \
-      static_cast<const int*>(lay_idx), n_lay_call,                          \
-      static_cast<const int*>(lay_live), static_cast<const float*>(prm),     \
-      static_cast<const float*>(tan), n_dir, n_lay, n_lines,                 \
-      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile,      \
-      n_out, static_cast<float>(dx), static_cast<float*>(out))
-  if (n_dir == 1) {
-    RADTXFR_LAUNCH(1);
-  } else if (n_dir == 2) {
-    RADTXFR_LAUNCH(2);
-  } else {
-    RADTXFR_LAUNCH(4);
-  }
-#undef RADTXFR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+    const void* lay_idx, int n_lay_call, const void* live,
+    const void* strength, const void* wing, const void* c0, const void* c1,
+    const void* c2, const void* c3, const void* c4, const void* c5,
+    const void* c6, const void* c7, const void* c8, const void* c9,
+    const void* c10, const void* strength_t, const void* t0, const void* t1,
+    const void* t2, const void* t3, const void* t4, const void* t5,
+    const void* t6, const void* t7, const void* t8, const void* t9,
+    const void* t10, int n_dir, int n_lay, int n_lines, const void* wei,
+    int n_wei, int tile, int block, int n_tiles, int n_out, double dx,
+    void* out, void* stream) {
+  const HtPtrs ptr = {
+      {static_cast<const float*>(strength), static_cast<const float*>(wing),
+       static_cast<const float*>(c0), static_cast<const float*>(c1),
+       static_cast<const float*>(c2), static_cast<const float*>(c3),
+       static_cast<const float*>(c4), static_cast<const float*>(c5),
+       static_cast<const float*>(c6), static_cast<const float*>(c7),
+       static_cast<const float*>(c8), static_cast<const float*>(c9),
+       static_cast<const float*>(c10)},
+      {static_cast<const float*>(strength_t), static_cast<const float*>(t0),
+       static_cast<const float*>(t1), static_cast<const float*>(t2),
+       static_cast<const float*>(t3), static_cast<const float*>(t4),
+       static_cast<const float*>(t5), static_cast<const float*>(t6),
+       static_cast<const float*>(t7), static_cast<const float*>(t8),
+       static_cast<const float*>(t9), static_cast<const float*>(t10)}};
+  return launch(true, starts, counts, k_line, frac0, line, wcap, lay_idx,
+                n_lay_call, live, ptr, n_dir, n_lay, n_lines, wei, n_wei,
+                tile, block, n_tiles, n_out, dx, out, stream);
 }

@@ -30,20 +30,19 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._build import check_tensor
 from .faddeeva import weideman_coeffs
-from .fused_xsect import (LAUNCHES, DevicePlan, _check_call, _plain_steps,
-                          _weideman_table, diff_pass, live_layers)
+from .fused_xsect import (_JVP_MAX_DIRS, LAUNCHES, DevicePlan, _check_call,
+                          _plain_steps, _tangent_launches, _weideman_table,
+                          diff_pass)
 from .htp_real import HT_CONST_KEYS, pcqsdhc_real
 
 __all__ = ["xsect_ht", "xsect_ht_plain", "xsect_ht_jvp",
            "xsect_ht_jvp_plain", "xsect_ht_diff", "HT_JVP_DIRS"]
 
-#: tangent directions one K6 launch carries (csrc/fused_ht.cu: the largest
-#: ND the kernel instantiates; ptxas gives it 165 registers and no spills,
-#: chip_smoke.py phase 2, PERF.md); a batch of more runs in chunks of this
-#: many
-HT_JVP_DIRS = 4
+#: tangent directions one K6 launch carries at most, as K3's (K6's rows are
+#: (direction, layer) pairs, each evaluating one direction's tangent); a
+#: batch of more runs in chunks of this many
+HT_JVP_DIRS = _JVP_MAX_DIRS
 #: the plain versions keep a few hundred temporaries per element: their
 #: steps take this fraction of the Voigt plain version's elements (each
 #: step's operations are launched one by one, so steps are as large as the
@@ -164,13 +163,11 @@ def xsect_ht_jvp_plain(dplan: DevicePlan, lay_idx, strength, wing, consts,
     return out.reshape(nd, nl, -1)[:, :, :dplan.n_out]
 
 
-def _check_ht_call(dplan, lay_idx, strength, wing, consts, n_weideman):
-    _check_consts(dplan, consts)
-    params = dict(strength=strength, wing=wing,
-                  **dict(zip(HT_CONST_KEYS, consts)))
-    _check_call(dplan, lay_idx, params, n_weideman)
-    # the kernel reads one (13, nLay, L) block: strength, wing, constants
-    return torch.stack([strength, wing, *consts])
+def _ht_params(strength, wing, consts) -> dict:
+    """The kernels' (nLay, L) parameter rows, in the order of their C
+    entries: strength, wing, the 11 constants."""
+    return dict(strength=strength, wing=wing,
+                **dict(zip(HT_CONST_KEYS, consts)))
 
 
 def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
@@ -185,7 +182,9 @@ def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
     if strength.device.type == "cpu":
         return xsect_ht_plain(dplan, lay_idx, strength, wing, consts,
                               n_weideman)
-    prm = _check_ht_call(dplan, lay_idx, strength, wing, consts, n_weideman)
+    _check_consts(dplan, consts)
+    params = _ht_params(strength, wing, consts)
+    _check_call(dplan, lay_idx, params, n_weideman)
     dev = strength.device
     n_lay_call = lay_idx.numel()
     n_lay, n_lines = strength.shape
@@ -198,9 +197,10 @@ def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
         dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
         dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-        n_lay_call, prm.data_ptr(), n_lay, n_lines, wei.data_ptr(),
-        n_weideman, dplan.tile, dplan.block, dplan.n_tiles, dplan.n_out,
-        dplan.dx, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        n_lay_call, *(p.data_ptr() for p in params.values()), n_lay,
+        n_lines, wei.data_ptr(), n_weideman, dplan.tile, dplan.block,
+        dplan.n_tiles, dplan.n_out, dplan.dx, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ht kernel launch failed with CUDA error "
                            f"{err}")
@@ -214,48 +214,24 @@ def xsect_ht_jvp(dplan: DevicePlan, lay_idx, strength, wing, consts,
     n_out) float32 from (nd, nLay, L) tangents of the strength and the 11
     constants.
 
-    CPU tensors run :func:`xsect_ht_jvp_plain`. CUDA tensors launch K6 once
-    per :data:`HT_JVP_DIRS` directions on the current stream; anything it
-    does not take raises, as does a non-zero CUDA error from a launch.
+    CPU tensors run :func:`xsect_ht_jvp_plain`. CUDA tensors launch K6
+    (one CTA per (128-point slice, 4 (direction, layer) rows), the rows
+    whose direction has no non-zero tangent on their layer written as zeros
+    without staging) once per :data:`HT_JVP_DIRS` directions on the current
+    stream; anything it does not take raises, as does a non-zero CUDA error
+    from a launch.
     """
     if strength.device.type == "cpu":
         return xsect_ht_jvp_plain(dplan, lay_idx, strength, wing, consts,
                                   strength_t, consts_t, n_weideman)
-    prm = _check_ht_call(dplan, lay_idx, strength, wing, consts, n_weideman)
+    _check_consts(dplan, consts)
     _check_consts(dplan, consts_t)
-    dev = strength.device
-    nd = strength_t.shape[0] if strength_t.dim() == 3 else -1
-    tangents = [strength_t, *consts_t]
-    for name, t in zip(("strength_t",) + HT_CONST_KEYS, tangents):
-        check_tensor(name, t, torch.float32, dev,
-                     (nd,) + tuple(strength.shape))
-    n_lay_call = lay_idx.numel()
-    n_lay, n_lines = strength.shape
-    out = torch.empty((nd, n_lay_call, dplan.n_out), dtype=torch.float32,
-                      device=dev)
-    if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
-        return out
-    wei = _weideman_table(n_weideman, dev)
-    live = live_layers(tangents, n_lay)
-    # (nd, 12, nLay, L): each direction's strength and constant tangents
-    tan = torch.stack(tangents, dim=1)
-    per_dir = (1 + _N_CONST) * n_lay * n_lines * 4
-    for d0 in range(0, nd, HT_JVP_DIRS):
-        n = min(HT_JVP_DIRS, nd - d0)
-        err = _build.library().radtxfr_fused_ht_jvp(
-            dplan.starts.data_ptr(), dplan.counts.data_ptr(),
-            dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
-            dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-            n_lay_call, live.data_ptr(), prm.data_ptr(),
-            tan.data_ptr() + d0 * per_dir, n, n_lay, n_lines, wei.data_ptr(),
-            n_weideman, dplan.tile, dplan.block, dplan.n_tiles, dplan.n_out,
-            dplan.dx, out[d0].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused_ht_jvp kernel launch failed with CUDA "
-                               f"error {err}")
-        LAUNCHES["ht_jvp"] += 1
-    return out
+    return _tangent_launches(
+        "radtxfr_fused_ht_jvp", "ht_jvp", dplan, lay_idx,
+        _ht_params(strength, wing, consts),
+        dict(strength_t=strength_t,
+             **{f"{k}_t": t for k, t in zip(HT_CONST_KEYS, consts_t)}),
+        n_weideman, per_direction=True)
 
 
 # --------------------------------------------------------------------------

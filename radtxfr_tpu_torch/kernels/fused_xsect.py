@@ -1013,9 +1013,10 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
 def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
                       params: dict, tangents: dict, n_weideman: int,
                       per_direction: bool = False) -> torch.Tensor:
-    """Check the arguments of a Voigt-family tangent kernel (K3 or K4) and
-    launch it once per ``_JVP_MAX_DIRS`` directions on the current stream:
-    ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the order of
+    """Check the arguments of a tangent kernel (K3, K4 or the HT tangent
+    K6) and launch it once per ``_JVP_MAX_DIRS`` directions on the current
+    stream: ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the
+    order of
     the C function ``symbol``, which takes the (nLay,) table of
     :func:`live_layers`, or with ``per_direction`` the launch's rows of
     :func:`live_directions`; (nd, len(lay_idx), n_out) float32. Launches
@@ -1084,8 +1085,8 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
 
 def live_directions(tangents, n_lay) -> torch.Tensor:
     """(nd, n_lay) int32: 1 where any of the (nd, n_lay, ...) ``tangents``
-    of direction d is non-zero on layer l (K3 stages and evaluates only
-    those (direction, layer) rows), computed on their device."""
+    of direction d is non-zero on layer l (K3 and K6 stage and evaluate
+    only those (direction, layer) rows), computed on their device."""
     live = None
     for t in tangents:
         nz = (t != 0).reshape(t.shape[0], n_lay, -1).any(dim=2)
@@ -1095,8 +1096,8 @@ def live_directions(tangents, n_lay) -> torch.Tensor:
 
 def live_layers(tangents, n_lay) -> torch.Tensor:
     """(n_lay,) int32: 1 for the layers where any of the (nd, n_lay, ...)
-    ``tangents`` is non-zero (a K4 or K6 CTA whose layers are all dead
-    writes zeros without staging or evaluating anything)."""
+    ``tangents`` is non-zero (a K4 CTA whose layers are all dead writes
+    zeros without staging or evaluating anything)."""
     return live_directions(tangents, n_lay).amax(dim=0)
 
 

@@ -2,9 +2,12 @@
 
 :func:`disassemble` runs ``cuobjdump -xelf all`` and ``nvdisasm
 --print-line-info`` (the libraries are built with ``-lineinfo``) over a
-built library; :func:`parse` splits the listing into kernels, each a list
-of instructions with the innermost source line that produced it. The
-counts of the issue-slot bounds are taken from these listings.
+built library, or with ``inline`` ``--print-line-info-inline``, which
+prints before an instruction the whole chain of source lines it was
+inlined through, innermost first; :func:`parse` splits the listing into
+kernels, each a list of instructions with the innermost source line that
+produced it (and that chain). The counts of the issue-slot bounds are
+taken from these listings.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import tempfile
 
 from .. import _build
 
-__all__ = ["disassemble", "parse", "Instr"]
+__all__ = ["disassemble", "parse", "Instr", "ChainInstr"]
 
 _FUNC = re.compile(r"^\s*\.text\.(\S+?):?\s*$|^\s*(_Z\w+):\s*$")
 _LINE = re.compile(r'//##\s*File\s*"([^"]*)",\s*line\s*(\d+)')
@@ -38,8 +41,20 @@ class Instr(tuple):
     pred = property(lambda s: s[3])
 
 
-def disassemble(lib_path: str) -> str:
-    """The SASS listing of every kernel in the library, with line info."""
+class ChainInstr(Instr):
+    """An :class:`Instr` (equal to its four fields) that also carries
+    ``chain``: the (file basename, line) frames it was inlined through,
+    innermost first (one frame where the listing prints no inlining)."""
+
+    def __new__(cls, file, line, op, pred, chain):
+        obj = Instr.__new__(cls, file, line, op, pred)
+        obj.chain = chain
+        return obj
+
+
+def disassemble(lib_path: str, inline: bool = False) -> str:
+    """The SASS listing of every kernel in the library, with line info
+    (``inline``: with each instruction's chain of inlined call sites)."""
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([_build.tool("cuobjdump"), "-xelf", "all",
                         os.path.abspath(lib_path)], cwd=tmp, check=True,
@@ -47,30 +62,30 @@ def disassemble(lib_path: str) -> str:
         parts = []
         for cubin in sorted(glob.glob(os.path.join(tmp, "*.cubin"))):
             parts.append(subprocess.run(
-                [_build.tool("nvdisasm"), "--print-line-info",
-                 "--print-code", cubin], check=True, capture_output=True,
-                text=True).stdout)
+                [_build.tool("nvdisasm"), "--print-line-info-inline"
+                 if inline else "--print-line-info", "--print-code", cubin],
+                check=True, capture_output=True, text=True).stdout)
     return "\n".join(parts)
 
 
 def parse(listing: str) -> dict:
-    """{kernel (mangled name): [Instr, ...]} in listing order; each
-    instruction carries the innermost source location printed before it.
-    Code that runs only off the common path is left out: the subroutines
-    after the kernel's body (the IEEE division's and reciprocal's slow
-    paths, from their ``$__internal`` label on) and each call site's glue
-    (the instructions between the predicated branch that skips it and the
-    next label)."""
+    """{kernel (mangled name): [ChainInstr, ...]} in listing order; each
+    instruction carries the innermost source location printed before it,
+    and the chain of locations printed with it. Code that runs only off the
+    common path is left out: the subroutines after the kernel's body (the
+    IEEE division's and reciprocal's slow paths, from their ``$__internal``
+    label on) and each call site's glue (the instructions between the
+    predicated branch that skips it and the next label)."""
     out = {}
     cur = None
-    loc = ("", 0)
-    glue = []   # this block's instructions since its last predicated BRA
+    chain = (("", 0),)
+    frames = []  # the location lines since the last instruction
+    glue = []    # this block's instructions since its last predicated BRA
     for raw in listing.splitlines():
         m = _FUNC.match(raw)
         if m:
             cur = out.setdefault(m.group(1) or m.group(2), [])
-            loc = ("", 0)
-            glue = []
+            chain, frames, glue = (("", 0),), [], []
             continue
         if raw.lstrip().startswith("$__internal"):
             cur = None                       # a subroutine: off the path
@@ -80,12 +95,15 @@ def parse(listing: str) -> dict:
             continue
         m = _LINE.search(raw)
         if m:
-            loc = (os.path.basename(m.group(1)), int(m.group(2)))
+            frames.append((os.path.basename(m.group(1)), int(m.group(2))))
             continue
         m = _INSTR.search(raw)
         if not m or cur is None:
             continue
-        ins = Instr(loc[0], loc[1], m.group(2), bool(m.group(1)))
+        if frames:
+            chain, frames = tuple(frames), []
+        ins = ChainInstr(chain[0][0], chain[0][1], m.group(2),
+                         bool(m.group(1)), chain)
         if ins.op.startswith("BRA") and ins.pred:
             glue = []
             cur.append(ins)
@@ -251,3 +269,94 @@ def k2_instructions(instrs, src: str, n_mu: int, n_angles: int,
     per["total"] = (1 + per["source"] + n_mu * (per["step"] + 1)
                     + n_angles * per["step"])
     return per
+
+
+def _fns(src: str, ret: str, name: str) -> range:
+    """Source lines of every definition (overload) of ``name``."""
+    rows = src.splitlines()
+    head = f"__device__ __forceinline__ {ret} {name}("
+    lines = set()
+    for n, r in enumerate(rows):
+        if head in r:
+            lines.update(_brace_range(rows, n))
+    return sorted(lines)
+
+
+def ht_eval_instructions(instrs, src: str, n_wei: int) -> dict:
+    """Issue slots the pieces of a K5 or K6 evaluation need, from its
+    kernel's SASS read with inlining (``disassemble(inline=True)``): each
+    :data:`WORK` instruction belongs to the innermost function of
+    ``fused_ht.cu`` it was inlined through among the profile's own
+    (``pcqsdhc``, ``ht_part1``, ``ht_b1_big``, ``ht_b1_small``,
+    ``ht_part234``, ``ht_part4``, ``ht_ls``, ``voigt_w``, ``w_wei``,
+    ``w_asym``, ``cpf3``, ``ht_pair``, ``ht_pair234``, ``accumulate``).
+    Per evaluation: ``part4`` (pcqsdhc's prelude, X and sqrt(X + Y), PART4
+    but its w(Z) and its CPF3 test, the final LS), ``cpf3_test`` (|Z1|,
+    |Z2| and the test, skipped in spans outside the Weideman range),
+    ``part1`` and ``part1_big`` (its |Z1| <= 4e3 or > 4e3 form); per CPF
+    point ``w_wei`` (voigt_w's region test and the Weideman series, its
+    term taken ``n_wei - 1`` times) or ``w_asym``; per kept pair ``pair4``
+    and ``pair1`` (ht_pair); ``acc`` the accumulate. Copies of voigt_w's
+    forms are counted by their reciprocals (MUFU.RCP: two in w_wei, one in
+    w_asym); every other function has one call site, counted once. The
+    Weideman loop's terms are counted by the coefficients it loads (LDS,
+    LDS.64 two). CPF3 is not counted (the bounds charge it as Weideman)."""
+    names = {"pcq": ("T", "pcqsdhc"), "p1": ("void", "ht_part1"),
+             "b1big": ("Cx<T>", "ht_b1_big"),
+             "b1small": ("Cx<T>", "ht_b1_small"),
+             "p234": ("void", "ht_part234"), "p4": ("void", "ht_part4"),
+             "ls": ("T", "ht_ls"), "vw": ("Cx<T>", "voigt_w"),
+             "wei": ("Cx<T>", "w_wei"), "asym": ("Cx<T>", "w_asym"),
+             "cpf3": ("Cx<T>", "cpf3"), "pair": ("HtPair<T>", "ht_pair"),
+             "pair234": ("void", "ht_pair234"),
+             "acc": ("float", "accumulate")}
+    ranges = {k: set(_fns(src, *v)) for k, v in names.items()}
+    rows = src.splitlines()
+    p4 = sorted(ranges["p4"])
+    test = set(_brace_range(rows, next(
+        n - 1 for n in p4 if rows[n - 1].lstrip().startswith("if (!far)"))))
+    loop = set(_loop(src, sorted(ranges["wei"])))
+
+    def owner(i):
+        for f, ln in i.chain:
+            if f != "fused_ht.cu":
+                continue
+            for k, r in ranges.items():
+                if ln in r:
+                    return k, ln
+        return None, 0
+
+    work = dict.fromkeys(ranges, 0)
+    work["test"] = work["loop"] = 0
+    rcp = {"wei": 0, "asym": 0}
+    terms = 0
+    for i in instrs:
+        k, ln = owner(i)
+        if k is None:
+            continue
+        if i.op.startswith("MUFU.RCP") and k in rcp:
+            rcp[k] += 1
+        if not i.op.startswith(WORK):
+            continue
+        work[k] += 1
+        if k == "p4" and ln in test:
+            work["test"] += 1
+        if k == "wei" and any(f == "fused_ht.cu" and n in loop
+                              for f, n in i.chain):
+            work["loop"] += 1
+            if i.op.startswith("LDS"):
+                terms += {"LDS.64": 2, "LDS.128": 4}.get(i.op, 1)
+    n_wei_copies = max(rcp["wei"] / 2, 1)
+    n_asym_copies = max(rcp["asym"], 1)
+    per_term = work["loop"] / max(terms, 1)
+    region_test = work["vw"] / n_asym_copies
+    base = work["pcq"] + work["ls"]
+    return {"part4": base + work["p234"] + work["p4"] - work["test"],
+            "cpf3_test": work["test"],
+            "part1": base + work["p1"] + work["b1small"],
+            "part1_big": base + work["p1"] + work["b1big"],
+            "w_wei": region_test + (work["wei"] - work["loop"]) / n_wei_copies
+            + (n_wei - 1) * per_term,
+            "w_asym": region_test + work["asym"] / n_asym_copies,
+            "pair4": work["pair"] + work["pair234"], "pair1": work["pair"],
+            "acc": work["acc"], "weideman_term": per_term}

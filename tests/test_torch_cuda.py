@@ -603,3 +603,155 @@ def test_tangent_kernel_directions(dev, nd, kind):
         err = (got[d] - want[d]).abs().max()
         assert (own > 0.0) == bool(touched[d].any())
         assert err <= 2e-5 * own if own > 0 else err == 0, d
+
+
+def _ht_edge_case(dev, n_lay=5, n_lines=200, n_pts=6001,
+                  lines=(995.0, 1020.0), wings=(0.5, 3.0), kind="mixed",
+                  block=32):
+    """Random HT parameters on a 0.0025 grid from 1000 cm^-1 (n_pts points:
+    not a multiple of K5's 128-point slice), sorted lines over ``lines`` with
+    per-line wings drawn from ``wings`` [cm^-1] and the HT builders' packed
+    plan (tile 128, ``block`` slots: padding where a tile holds fewer
+    lines), on the card and on the CPU. ``kind``: 'part1' (Gamma2 = Shift2
+    = 0), 'part4' (Gamma2 live, Shift2 = 0, eta real: c2t and csqrtY real,
+    the kernels' closed-form Weideman ranges), 'complex' (Gamma2 live, a
+    complex eta) or 'mixed' (a third of each, Shift2 live on the complex
+    third). Returns (card args, CPU args) of the HT pass:
+    (dplan, lay_idx, strength, wing, consts)."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.kernels.htp_real import (HT_CONST_KEYS,
+                                                    ht_line_constants)
+
+    rng = np.random.default_rng(13)
+    g = fused_xsect.UniformGrid(x0=1000.0, dx=0.0025, n=n_pts)
+    nu0 = np.sort(rng.uniform(*lines, n_lines))
+    w = rng.uniform(*wings, n_lines)
+    plan = fused_xsect.plan_buckets_packed(nu0, g, w, tile=128, block=block)
+    part = {"part1": np.zeros(n_lines, int), "part4": np.ones(n_lines, int),
+            "complex": np.full(n_lines, 2)}.get(kind, rng.integers(0, 3,
+                                                                   n_lines))
+    mk = lambda lo, hi, m=1.0: torch.as_tensor(  # noqa: E731
+        rng.uniform(lo, hi, (n_lay, n_lines)) * m, dtype=torch.float64)
+    g0 = mk(0.002, 0.1)
+    k = ht_line_constants(mk(0.0005, 0.002), g0, g0 * mk(0.05, 0.15,
+                                                         part > 0),
+                          mk(-0.01, 0.01), mk(-5e-4, 5e-4, part == 2),
+                          mk(0.0, 0.05, part > 0), mk(0.0, 0.3, part > 0),
+                          mk(-0.05, 0.05, part == 2))
+    host = ([mk(0.5, 2.0), torch.as_tensor(np.tile(w, (n_lay, 1)))]
+            + [k[key] for key in HT_CONST_KEYS])
+    out = []
+    for d in (dev, torch.device("cpu")):
+        dp = fused_xsect.device_plan(plan, np.arange(n_lines), nu0, device=d)
+        s, wing, *consts = [t.to(device=d, dtype=torch.float32).contiguous()
+                            for t in host]
+        out.append((dp, torch.arange(n_lay, dtype=torch.int32, device=d), s,
+                    wing, consts))
+    return out
+
+
+#: K5's edge cases: layer counts that are not a multiple of its 4 rows a
+#: CTA, tiles that visit no block, padding slots, n_out not a multiple of
+#: the slice, each kind of pair
+HT_CASES = {
+    "5 layers, mixed": dict(n_lay=5),
+    "10 layers, PART4 real": dict(n_lay=10, kind="part4"),
+    "66 layers, PART1": dict(n_lay=66, n_lines=60, n_pts=3001,
+                             kind="part1"),
+    "66 layers, mixed": dict(n_lay=66, n_lines=60, n_pts=3001),
+    "tiles with no block, complex eta": dict(lines=(1003.0, 1006.0),
+                                             wings=(0.2, 1.0),
+                                             kind="complex"),
+}
+
+
+@pytest.mark.parametrize("case", HT_CASES)
+def test_ht_kernel_edge_cases(dev, case):
+    """K5 against its plain version on the edge cases of its grid, plan and
+    pairs: within 2e-6 of its own peak (test_ht_kernel_matches_plain); one
+    launch; two launches bit-identical; a tile that visits no block writes
+    zeros. The plain version runs on the card, as in
+    test_ht_kernel_matches_plain: torch's float32 square root on the CPU is
+    not correctly rounded at every near-tie (66.5029259518 in float64
+    rounds to 66.50292206 there, to 66.50292969 in IEEE), and csqrt's
+    Im sqrt(X + Y) = sqrt((|X + Y| - Re(X + Y))/2) cancels, so one such ulp
+    at one point of the PART4 case moves the CPU's output by 4.6e-5 of the
+    peak from both the kernel's and the card's plain version."""
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    (dp, lay, s, w, consts), _ = _ht_edge_case(dev, **HT_CASES[case])
+    n0 = fused_xsect.LAUNCHES["ht"]
+    got = fused_ht.xsect_ht(dp, lay, s, w, consts)
+    assert fused_xsect.LAUNCHES["ht"] == n0 + 1
+    assert torch.equal(got, fused_ht.xsect_ht(dp, lay, s, w, consts))
+    want = fused_ht.xsect_ht_plain(dp, lay, s, w, consts)
+    own = want.abs().max()
+    err = (got - want).abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    assert got.shape == (lay.numel(), dp.n_out)
+    assert err <= 2e-6 * own, float(err / own)
+    empty = (dp.counts == 0).repeat_interleave(dp.tile)[:dp.n_out]
+    if case.startswith("tiles with no block"):
+        assert bool(empty.any())
+    assert not got[:, empty].any()
+
+
+def _ht_tangents(prm, nd, kind, seed=17):
+    """(nd, nLay, L) tangents of the strength and the 11 HT constants, each
+    scaled like its parameter, as K3's (_k3_tangents): 'dense', 'one-hot'
+    (direction d live on layer d only, mod nLay) or 'zero' (dense,
+    direction 1 zero everywhere); float64 on the CPU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_lay = prm[0].shape[0]
+    mask = np.ones((nd, n_lay, 1))
+    if kind == "one-hot":
+        mask = np.zeros((nd, n_lay, 1))
+        mask[np.arange(nd), np.arange(nd) % n_lay] = 1.0
+    elif kind == "zero":
+        mask[1] = 0.0
+    return [torch.as_tensor(rng.standard_normal((nd,) + tuple(p.shape))
+                            * mask * p.abs().mean().item())
+            for p in prm]
+
+
+@pytest.mark.parametrize("nd,kind", [(1, "dense"), (1, "one-hot"),
+                                     (3, "dense"), (3, "zero"),
+                                     (8, "one-hot"), (8, "dense"),
+                                     (8, "zero")])
+def test_ht_tangent_kernel_directions(dev, nd, kind):
+    """K6 on random HT parameters (each kind of pair) for 1, 3 and 8
+    directions, one-hot, dense, or with a direction zero everywhere: each
+    direction within 2e-6 of its own peak against its plain version on the
+    card (test_ht_tangent_kernel_matches_plain; the CPU's float32 square
+    root is not correctly rounded at every near-tie,
+    test_ht_kernel_edge_cases), a zero direction and every layer a
+    direction does not touch exactly zero; one launch; two launches
+    bit-identical."""
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    (dp, lay, s, w, consts), (_, _, sc, _, cc) = _ht_edge_case(
+        dev, n_lay=5, n_lines=120, n_pts=4001, lines=(997.0, 1012.0))
+    tans = _ht_tangents([sc, *cc], nd, kind)
+    t_dev = [t.to(device=dev, dtype=torch.float32).contiguous()
+             for t in tans]
+    n0 = fused_xsect.LAUNCHES["ht_jvp"]
+    got = fused_ht.xsect_ht_jvp(dp, lay, s, w, consts, t_dev[0], t_dev[1:])
+    assert fused_xsect.LAUNCHES["ht_jvp"] == n0 + 1
+    assert torch.equal(got, fused_ht.xsect_ht_jvp(dp, lay, s, w, consts,
+                                                  t_dev[0], t_dev[1:]))
+    want = fused_ht.xsect_ht_jvp_plain(dp, lay, s, w, consts, t_dev[0],
+                                       t_dev[1:])
+    touched = torch.stack([(t != 0).any(dim=2) for t in tans]).any(dim=0)
+    for d in range(nd):
+        for li in range(lay.numel()):
+            if not touched[d, li]:
+                assert not got[d, li].any(), (d, li)
+        own = want[d].abs().max()
+        err = (got[d] - want[d]).abs().max()
+        assert bool(torch.isfinite(got[d]).all())
+        assert (own > 0.0) == bool(touched[d].any())
+        assert err <= 2e-6 * own if own > 0 else err == 0, \
+            (d, float(err / own) if own > 0 else float(err))

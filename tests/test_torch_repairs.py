@@ -22,6 +22,13 @@ rule against the plain version's window mask.
   not all zero: every pair and direction with a non-zero tangent whose
   float window passes must be kept, with its in-window (and in-core)
   indices inside its ranges.
+* K5 and K6 (``csrc/fused_ht.cu``) cull by the same window rule on the HT
+  builders' packed plans; a span outside a pair's Weideman range
+  (``ht_near_range``: closed forms for PART1 and for PART4 with c2t and
+  csqrtY real) runs both CPF points in the asymptotic form without
+  PART4's CPF3 test, so the range must hold every in-window point that
+  pcqsdhc's per-point test sends to Weideman, and no point outside it may
+  take CPF3. K6's rows are ``live_directions``' (direction, layer) rows.
 """
 
 import ast
@@ -331,6 +338,188 @@ def test_k3_keeps_every_live_pair_in_its_window(jacobian_passes, kind):
         for d in range(nd):
             rows = [li for li in lay.numpy() if live[d, li]]
             a, b, c = _check_cull(dp, prm, rows, "full",
+                                  live=lambda li, g: nz[d, li, g])
+            n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
+    assert n_in > 0 and n_kept - n_in <= 6 * n_pairs
+
+
+@pytest.fixture(scope="module")
+def ht_passes():
+    """The layered HT OD's ``ht`` passes (make_od_ht_fn, standard
+    atmosphere) on 800-805 cm^-1 at 0.0025 on the CPU in float32: 200
+    synthetic lines, 40% with live HT columns (eta real, nuVC), 40% with
+    SD_air = 0 (PART1 among the HT lines); the HT parameters, and the
+    line-parameter tangents of 8 one-hot T directions (layers 24-31) and
+    of a T direction over all layers."""
+    from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+    from radtxfr_tpu_torch.core.grid import arange_drift_free
+    from radtxfr_tpu_torch.lines.store import IsoTables
+    from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
+    from radtxfr_tpu_torch.products.od import make_od_ht_fn
+
+    f32 = torch.float32
+    store = synthetic_lines(200, nu_min=790.0, nu_max=815.0, seed=77,
+                            sd_zero_frac=0.4, device="cpu", dtype=f32)
+    rng = np.random.default_rng(5)
+    live = rng.random(200) < 0.4
+    extras = {"nu_HT_air": rng.uniform(0.01, 0.05, 200) * live,
+              "kappa_HT_air": rng.uniform(0.0, 1.0, 200) * live,
+              "eta_HT_air": rng.uniform(0.1, 0.3, 200) * live}
+    base = std_atmosphere(device="cpu", dtype=f32)
+    fn = make_od_ht_fn(store, IsoTables.load(device="cpu", dtype=f32),
+                       arange_drift_free(800.0, 805.0, 0.0025), base,
+                       extras=extras, differentiable=True)
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+
+    def prm_of(T_):
+        q = fn.line_params(T_, p, pl, vmr)
+        return (q.strength, *q.ht_consts)
+
+    n = base.n_layers
+    sets = {"one-hot": torch.eye(n)[24:32],
+            "dense": torch.linspace(0.5, 1.5, n)[None]}
+    tans = {k: torch.func.vmap(lambda v: torch.func.jvp(
+        prm_of, (T,), (v,))[1])(V) for k, V in sets.items()}
+    calls = [c for c in fn.calls if c[2] == "ht"]
+    assert calls
+    return calls, fn.line_params(T, p, pl, vmr), tans
+
+
+def _ht_near_range(f0, k, dx, lo, hi):
+    """csrc/fused_ht.cu::ht_near_range in float32: the grid offsets at which
+    a CPF point of each pair (constants ``k``, 11 arrays) can take the
+    Weideman branch, within the window range [lo, hi]; (lo', hi', kind):
+    kind 1 PART1, 4 PART4 with c2t and csqrtY real (closed forms), 0 the
+    whole window."""
+    f32 = np.float32
+    tiny = np.finfo(f32).tiny
+    cte, k1, k2, c2r, c2i, cyr, cyi = (np.asarray(a, dtype=f32)
+                                       for a in k[:7])
+    dx = f32(dx)
+    part1 = (c2r * c2r + c2i * c2i) == 0
+    real = ~part1 & (c2i == 0) & (cyi == 0) & (cyr * cyr != 0)
+    with np.errstate(all="ignore"):
+        y = k1 * cte
+        r1 = (f32(15.0) - y) / (dx * cte)
+        ic2r = c2r / np.maximum(c2r * c2r, tiny)
+        c2 = (f32(2.0) * cte) * c2r
+        y0r = c2 / np.maximum(c2 * c2, tiny)
+        P = np.abs(k1 * ic2r + y0r * y0r)
+        R = f32(15.0) + np.abs(cyr)
+        R2 = R * R
+        r4 = (np.maximum((R2 - P) * (R2 + P), f32(0.0)) / (f32(2.0) * R2)
+              / (np.abs(ic2r) * dx))
+    empty = np.where(part1, ~(y < 15.0), ~(P < R2 * f32(1.001)))
+    r = np.where(part1, r1, r4).astype(f32)
+    clo, chi = _window_range(f0 + k2 / dx, r * f32(1.0001) + f32(1.0))
+    closed = part1 | real
+    kind = np.where(part1, 1, np.where(real, 4, 0))
+    return (np.where(closed, np.where(empty, 1, np.maximum(lo, clo)), lo),
+            np.where(closed, np.where(empty, 0, np.minimum(hi, chi)), hi),
+            kind)
+
+
+def _ht_point_regions(dnu, k):
+    """pcqsdhc's per-point tests at ``dnu`` (float32, as the kernels round
+    them): (Z1 in |x| + y < 15, Z2 in it, CPF3 taken) for PART4 pairs, the
+    one w(Z) of PART1 pairs in the first; the HT constants ``k`` as float32
+    tensors broadcastable against ``dnu``."""
+    from radtxfr_tpu_torch.kernels.htp_real import _cinv, _cmul, _csqrt
+
+    cte, k1, k2, c2r, c2i, cyr, cyi = k[:7]
+    t0i = -dnu + k2
+    part1 = (c2r * c2r + c2i * c2i) == 0.0
+    in1 = (-(t0i * cte)).abs() + k1 * cte < 15.0
+    one = torch.ones_like(c2r)
+    ic2r, ic2i = _cinv(torch.where(part1, one, c2r),
+                       torch.where(part1, 0 * one, c2i))
+    Xr, Xi = _cmul(k1 + 0 * dnu, t0i, ic2r, ic2i)
+    c2x = 2.0 * cte
+    y0r, y0i = _cinv(c2x * c2r, c2x * c2i)
+    Yr, Yi = _cmul(y0r, y0i, y0r, y0i)
+    sr, si = _csqrt(Xr + Yr, Xi + Yi)
+    cy0 = (cyr * cyr + cyi * cyi) == 0.0
+    cr, ci = torch.where(cy0, one, cyr), torch.where(cy0, 0 * one, cyi)
+    Z1r, Z1i = sr - cr, si - ci
+    Z2r, Z2i = Z1r + 2.0 * cr, Z1i + 2.0 * ci
+    w1 = Z1i.abs() + Z1r < 15.0
+    w2 = Z2i.abs() + Z2r < 15.0
+    s1 = torch.sqrt(Z1r * Z1r + Z1i * Z1i)
+    s2 = torch.sqrt(Z2r * Z2r + Z2i * Z2i)
+    use3 = (((s1 - s2).abs() <= 1.0) & (torch.maximum(s1, s2) > 8.0)
+            & (torch.minimum(s1, s2) <= 8.0))
+    return (torch.where(part1, in1, w1), torch.where(part1, False, w2),
+            torch.where(part1, False, use3))
+
+
+def test_ht_window_and_weideman_ranges_hold_the_point_tests(ht_passes):
+    """K5's and K6's cull and span rule on the layered HT OD's packed plans:
+    every (slot, layer, point) whose float32 window test passes lies in the
+    pair's integer window; every such point that pcqsdhc's per-point test
+    sends to Weideman (PART1's w(Z), both CPF points of PART4) lies in the
+    pair's Weideman range where that range is closed-form; no in-window
+    point outside it takes CPF3; and the closed forms do cull (most
+    in-window points of the closed-form pairs lie outside them)."""
+    calls, prm, _ = ht_passes
+    consts = [c.numpy() for c in prm.ht_consts]
+    n_in = n_wei = n_far = 0
+    kinds = set()
+    for lay, dp, _ in calls:
+        line = dp.line.numpy()
+        k_line = dp.k_line.numpy().astype(np.int64)
+        frac0 = dp.frac0.numpy()
+        tile_of = np.repeat(np.arange(dp.n_tiles),
+                            dp.counts.numpy().astype(np.int64) * dp.block)
+        s = np.nonzero(line[:tile_of.size] >= 0)[0]
+        g, t = line[s], tile_of[s]
+        k = t[:, None] * dp.tile + np.arange(dp.tile)[None, :]
+        u = (k - k_line[s][:, None]).astype(np.float32) - frac0[s][:, None]
+        dnu = torch.as_tensor(u) * np.float32(dp.dx)
+        d = k - k_line[s][:, None]
+        for li in lay.numpy():
+            w = np.minimum(prm.wing.numpy()[li, g], dp.wcap.numpy()[s])
+            wingu = (torch.as_tensor(w) / dp.dx).numpy()[:, None]
+            mask = (u > -wingu) & (u <= wingu) & (k < dp.n_out)
+            lo, hi = _window_range(frac0[s], wingu[:, 0])
+            assert not (mask & ((d < lo[:, None]) | (d > hi[:, None]))).any()
+            kc = [c[li, g] for c in consts]
+            nlo, nhi, kind = _ht_near_range(frac0[s], kc, dp.dx, lo, hi)
+            kinds |= set(np.unique(kind).tolist())
+            near = (d >= nlo[:, None]) & (d <= nhi[:, None])
+            w1, w2, use3 = (a.numpy() for a in _ht_point_regions(
+                dnu, [torch.as_tensor(c)[:, None] for c in kc]))
+            closed = (kind > 0)[:, None] & mask
+            assert not (closed & (w1 | w2) & ~near).any(), li
+            assert not (mask & use3 & ~near).any(), li
+            n_in += int(closed.sum())
+            n_wei += int((closed & (w1 | w2)).sum())
+            n_far += int((closed & ~near).sum())
+    assert {1, 4} <= kinds
+    assert n_wei > 0 and n_far > n_in / 2, (n_in, n_wei, n_far)
+
+
+@pytest.mark.parametrize("kind", ("one-hot", "dense"))
+def test_k6_rows_are_the_live_directions(ht_passes, kind):
+    """K6's rows: a (direction, layer) row is live in live_directions
+    exactly where one of the direction's strength or HT-constant tangents
+    is non-zero on the layer (the one-hot batch: one live row a
+    direction), and every pair of a live row with a non-zero tangent keeps
+    its in-window indices inside its window range."""
+    from radtxfr_tpu_torch.kernels.fused_xsect import live_directions
+
+    calls, prm, tans = ht_passes
+    tans = tans[kind]
+    nd, n_lay = tans[0].shape[0], tans[0].shape[1]
+    live = live_directions(tans, n_lay).numpy()
+    nz = np.stack([(t != 0).numpy() for t in tans]).any(axis=0)
+    assert (live == nz.any(axis=2)).all()
+    if kind == "one-hot":
+        assert (live.sum(axis=1) == 1).all()
+    n_in = n_kept = n_pairs = 0
+    for lay, dp, _ in calls:
+        for d in range(nd):
+            rows = [li for li in lay.numpy() if live[d, li]]
+            a, b, c = _check_cull(dp, prm, rows, "asym",
                                   live=lambda li, g: nz[d, li, g])
             n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
     assert n_in > 0 and n_kept - n_in <= 6 * n_pairs

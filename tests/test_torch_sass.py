@@ -227,3 +227,164 @@ def test_lorentz_and_doppler_count_per_copy(mode, rows, per):
     # that scales and adds each evaluation
     assert sass.ld_eval_instructions(instrs, LD_SRC, mode) == {"in": per,
                                                                "out": per}
+
+
+HT_SRC = """\
+template <class T>
+__device__ __forceinline__ Cx<T> w_wei(const T& x, const T& y,
+                                       const float* wei, int n_wei) {
+  const T inv_e = recip(x);
+  for (int k = 2; k <= n_wei; ++k) {
+    const T t = pr * zr + wei[k];
+  }
+  return {recip(y), t};
+}
+template <class T>
+__device__ __forceinline__ Cx<T> w_asym(const T& x, const T& y) {
+  return {recip(x * y), y};
+}
+template <class T>
+__device__ __forceinline__ Cx<T> voigt_w(const T& x, const T& y, bool far) {
+  if (!far && x + y < 15) return w_wei(x, y);
+  return w_asym(x, y);
+}
+template <class T>
+__device__ __forceinline__ Cx<T> cpf3(const T& x, const T& y) {
+  return {x / y, y};
+}
+template <class T>
+__device__ __forceinline__ HtPair<T> ht_pair(const T* k) {
+  h.rc = RPI * k[0];
+  if (!h.part1) ht_pair234(h, k);
+}
+template <class T>
+__device__ __forceinline__ void ht_pair234(HtPair<T>& h, const T* k) {
+  h.ic2 = cinv(c2t);
+}
+template <class T>
+__device__ __forceinline__ Cx<T> ht_b1_big(const Cx<T>& z1) {
+  return cinv(z1);
+}
+template <class T>
+__device__ __forceinline__ Cx<T> ht_b1_small(const Cx<T>& z1) {
+  return cmul(z1, z1);
+}
+template <class T>
+__device__ __forceinline__ void ht_part1(const Cx<T>& z1, bool far) {
+  const Cx<T> w1 = voigt_w(z1.r, z1.i, far);
+  B = mag(z1) > 4.0e3f ? ht_b1_big(z1) : ht_b1_small(z1);
+}
+template <class T>
+__device__ __forceinline__ void ht_part4(const Cx<T>& sxy, bool far) {
+  bool use3 = false;
+  if (!far) {
+    use3 = mag(Z1) > 8.0f;
+  }
+  const Cx<T> w14 = voigt_w(Z1.r, Z1.i, far);
+  const Cx<T> w24 = voigt_w(Z2.r, Z2.i, far);
+  B = cmul(w14, w24);
+}
+template <class T>
+__device__ __forceinline__ void ht_part234(const Cx<T>& t0, bool far) {
+  const Cx<T> sxy = csqrt(X);
+  ht_part4(sxy, far);
+}
+template <class T>
+__device__ __forceinline__ T ht_ls(const Cx<T>& A) {
+  return A.r * INV_PI;
+}
+template <class T>
+__device__ __forceinline__ T pcqsdhc(float dnu, bool far) {
+  const Cx<T> t0 = {h.k1, (-dnu) + h.k2};
+  if (h.part1) ht_part1(z1, far);
+  else ht_part234(t0, z1, far);
+  return ht_ls(A);
+}
+__device__ __forceinline__ float accumulate(float sum, const Rn& s,
+                                            const Rn& ls) {
+  return sum + __fmul_rn(s.v, ls.v);
+}
+__device__ __forceinline__ float accumulate(float sum, const Dual<1>& s,
+                                            const Dual<1>& ls) {
+  return sum + v;
+}
+__global__ void k() {
+  sum = accumulate(sum, s, pcqsdhc(dnu, far));
+}
+"""
+
+
+def _gi_listing(kernel, rows):
+    """A listing of one kernel in ``nvdisasm --print-line-info-inline``'s
+    form from ``rows``: (chain of source lines, innermost first, opcode)."""
+    out = [f"\t.text.{kernel}:"]
+    for addr, (chain, op) in enumerate(rows):
+        for a, b in zip(chain, chain[1:]):
+            out.append(f'\t//## File "/src/fused_ht.cu", line {a} inlined '
+                       f'at "/src/fused_ht.cu", line {b}')
+        out.append(f'\t//## File "/src/fused_ht.cu", line {chain[-1]}')
+        out.append(f"        /*{16 * addr:04x}*/                   {op} ;")
+    return "\n".join(out)
+
+
+def _wei_copy(site):
+    """One Weideman copy inlined through voigt_w at ``site`` (a chain):
+    its two reciprocals and a loop of two coefficients (one LDS.64)."""
+    return [((4, 16) + site, "MUFU.RCP R1, R2"), ((4, 16) + site, "FFMA"),
+            ((6, 16) + site, "LDS.64 R4, [R5]"), ((6, 16) + site, "FFMA"),
+            ((6, 16) + site, "FFMA"), ((6, 16) + site, "FFMA"),
+            ((5, 16) + site, "IADD3 R6, R6, 0x2, RZ"),
+            ((8, 16) + site, "MUFU.RCP R7, R8"), ((8, 16) + site, "FMUL")]
+
+
+def _asym_copy(site):
+    """One asymptotic copy through voigt_w at ``site``, with the region
+    test (two work instructions) it follows."""
+    return [((16,) + site, "FADD"), ((16,) + site, "FSETP.GEU.AND P0"),
+            ((12, 17) + site, "FMUL"), ((12, 17) + site, "MUFU.RCP R1, R2"),
+            ((12, 17) + site, "FFMA")]
+
+
+P1, P4A, P4B = (42, 67, 80), (51, 58, 68, 80), (52, 58, 68, 80)
+HT_ROWS = ([((80,), "FFMA"), ((66, 80), "FADD")]
+           + _wei_copy(P1) + _asym_copy(P1)
+           + [((43, 67, 80), "FSETP.GT.AND P1"), ((200, 43, 67, 80), "FMUL"),
+              ((34, 43, 67, 80), "MUFU.RCP R9, R10"), ((34, 43, 67, 80),
+                                                       "FFMA"),
+              ((38, 43, 67, 80), "FMUL"),
+              ((57, 68, 80), "MUFU.RSQ R11, R12"), ((57, 68, 80), "FMUL"),
+              ((200, 49, 58, 68, 80), "FMUL"), ((49, 58, 68, 80), "FSETP"),
+              ((53, 58, 68, 80), "FMUL"), ((53, 58, 68, 80), "FFMA")]
+           + _wei_copy(P4A) + _asym_copy(P4A) + _asym_copy(P4B)
+           + [((62, 69, 80), "FMUL"), ((73, 80), "FMUL"), ((73, 80), "FADD"),
+              ((25, 90), "FMUL"), ((30, 26, 90), "MUFU.RCP R13, R14"),
+              ((30, 26, 90), "FFMA"), ((100, 90), "FADD")])
+
+
+def test_parse_keeps_the_inlining_chain():
+    kern = "_Z15fused_ht_kernelILb0EEv"
+    instrs = sass.parse(_gi_listing(kern, HT_ROWS))[kern]
+    assert len(instrs) == len(HT_ROWS)
+    # the innermost frame is the instruction's line; the chain the rest
+    i = instrs[2]
+    assert (i.file, i.line) == ("fused_ht.cu", 4)
+    assert i.chain == tuple(("fused_ht.cu", n) for n in (4, 16) + P1)
+    assert instrs[0].chain == (("fused_ht.cu", 80),)
+
+
+@pytest.mark.parametrize("n_wei", [16, 8])
+def test_ht_counts_each_piece_per_copy(n_wei):
+    kern = "_Z15fused_ht_kernelILb0EEv"
+    instrs = sass.parse(_gi_listing(kern, HT_ROWS))[kern]
+    c = sass.ht_eval_instructions(instrs, HT_SRC, n_wei)
+    # two Weideman copies (four reciprocals), three asymptotic ones; the
+    # loops' 8 work instructions load 4 coefficients (two LDS.64)
+    assert c["weideman_term"] == 2.0
+    # voigt_w's region test 2 a copy; Weideman's set-up and finish 4
+    assert c["w_wei"] == 2 + 4 + (n_wei - 1) * 2
+    assert c["w_asym"] == 2 + 3
+    # pcqsdhc 1 + ht_ls 1, ht_part234 2, ht_part4 2 (its CPF3 test apart)
+    assert c["part4"] == 6 and c["cpf3_test"] == 2
+    # ht_part1 2 (with its helper's FMUL), and b1_small 1 or b1_big 2
+    assert c["part1"] == 5 and c["part1_big"] == 6
+    assert c["pair4"] == 3 and c["pair1"] == 1 and c["acc"] == 2
