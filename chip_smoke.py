@@ -84,10 +84,10 @@ Phases, each printing its result on its own line:
    peak and of their own; K6 (``csrc/fused_ht.cu``), K4
    (``csrc/fused_xsect_jvp.cu``) and K3 for a T direction over all layers
    and a batch of 8 one-hot T directions, within ``HT_JVP_BOUND``,
-   ``K4_BOUND`` and ``K3_BOUND`` of each tangent's own peak; each K5 and
-   K6 pass's bound at 67 TFLOP/s and in issue slots (K6 also charging
-   every live pair all 8 directions), and the SASS lane-instructions of
-   each piece of their evaluations.
+   ``K4_BOUND`` and ``K3_BOUND`` of each tangent's own peak; each K5, K6
+   and K4 pass's bound at 67 TFLOP/s and in issue slots (K6 and K4 also
+   charging every live pair all the batch's directions), and the SASS
+   lane-instructions of each piece of their evaluations.
 9. The HT lattice at full width (the JAX bench's metric 5: 400,001 points,
    10 states) with the launch counts reset before and read after (K5 must
    have run): plan-build seconds, CUDA-event milliseconds, states and
@@ -103,9 +103,19 @@ Phases, each printing its result on its own line:
    memory; d OD / d T[3] on a small band on the card and on the CPU within
    1e-4 of its peak.
 9d. The differentiable SD-Voigt OD at full width (the bench's 20,000-line
-   list): a batch of 8 one-hot T directions, milliseconds and K4 launches.
+   list): a batch of 8 one-hot T directions, milliseconds and launches
+   (K4 must have run); then where its tangent time goes: the line
+   parameters with their tangents, K4 on the sdvoigt passes and K3 on the
+   full ones, milliseconds, launches and bounds (K4 and K3 also in issue
+   slots and charging every live pair all 8 directions); K4's output of
+   each sdvoigt pass (its 512-point tiles, four slices each) held against
+   its plain version on four tiles from 800 cm^-1, for the batch and for a
+   T direction over all layers, each direction within ``K4_BOUND`` of its
+   own peak, the band holding pairs of both Weideman-range forms (closed
+   form, and the whole window near tangency).
 10. Where the time of 9, 9b and 9c goes: CUDA-event milliseconds per kind
-   of pass, each with its bound (K5 and K6 also in issue slots).
+   of pass, each with its bound (K4, K5 and K6 also in issue slots), and
+   the tangent kernels' launches in the 9c batch.
 3e. K7, the unfused kernel (``csrc/fused_xsect.cu``), in each of its modes
    (full, asym, core, lorentz, doppler) against its plain version on
    ``make_od_plan``'s shared-block plan over the 700-740 cm^-1 sub-band at
@@ -128,12 +138,13 @@ Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
 exponentials also over the special-function units), with the evaluations
 the kernel needs recounted on the host from the plans and the line
-parameters (``window_counts``); K3's counts each live evaluation's
-(K, Kx, Ky) once and each live (pair, direction) product's term, the
-kernel skipping the rest (phase 3b also prints the count that charges every
-live pair all 8 directions). The JSON line also carries the bound at the
-measured FP32 peak (``bound_ms_measured_peak``), and for K1's production
-modes, ``full``, K3, each K7 mode and K2 in issue slots
+parameters (``window_counts``); K3's and K4's count each live
+evaluation's shared work once and each live (pair, direction) product's
+term, the kernels skipping the rest (phases 3b, 3d, 9d and 10 also print
+the count that charges every live pair all 8 directions). The JSON line
+also carries the bound at the measured FP32 peak
+(``bound_ms_measured_peak``), and for K1's production modes, ``full``,
+K3, K4, K5, K6, each K7 mode and K2 in issue slots
 (``bound_ms_issue``: the SASS lane-instructions that the needed work takes,
 the line shape's arithmetic of each needed evaluation (K7: K1's count of
 the same shape plus the compensated add's FADDs) or K2's source and carry
@@ -343,9 +354,10 @@ HT_PIECES = {"part4": (133, 3, 202), "cpf3_test": (18, 0, 0),
              "w_wei": (41 + 7 * N_WEI, 2, 65 + 14 * N_WEI),
              "w_asym": (25, 1, 40), "pair4": (63, 0, 81), "pair1": (5, 0, 1)}
 HT_ACC_DIR = 5
-# K4 (csrc/fused_xsect_jvp.cu): the window, dnu, xi, S and the denominator
-# 37, per CPF point a (K, Kx, Ky) after its 3-op region test (Weideman
-# 49 + 15 n_wei or the asymptotic form's 38), 32 per direction
+# K4 (csrc/fused_xsect_jvp.cu "Bound."): the window, dnu, xi, S and the
+# denominator 37 an evaluation, per CPF point a (K, Kx, Ky) after its 3-op
+# region test (Weideman 49 + 15 n_wei or the asymptotic form's 38), 32 per
+# live direction (its term with K1 - K2, and the add)
 K4_BASE, K4_DIR = 37, 32
 KG_WEI, KG_ASYM = 3 + 49 + 15 * N_WEI, 3 + 38
 
@@ -664,6 +676,17 @@ def ht_issue(tan):
         csrc_text("fused_ht"), N_WEI)
 
 
+@functools.lru_cache(maxsize=None)
+def k4_issue():
+    """SASS lane-instructions of a K4 evaluation's shared work, of a CPF
+    point inside and outside |x| + y < 15, and of a live direction's term
+    (``sass.k4_eval_instructions``)."""
+    return sass.k4_eval_instructions(
+        sass.kernel(sass_listing("fused_xsect_jvp", True),
+                    r"fused_sdvoigt_jvp_kernel"),
+        csrc_text("fused_xsect_jvp"), N_WEI)
+
+
 def k1_issue_work(mode, lay, dplan, prm, counts=None):
     """The lane-instructions one K1 pass needs: each in-window evaluation at
     its region's SASS count."""
@@ -877,14 +900,15 @@ def finish_stats(stats):
     return out
 
 
-def t_tangents(od_fn, base, V):
-    """Line-parameter tangents, each (nd, nLay, L), of the T directions
-    ``V`` (nd, nLay) at the state ``base``."""
+def t_tangents(od_fn, base, V,
+               keys=("shift0", "strength", "gamma_d", "gamma_0")):
+    """Line-parameter tangents of ``keys``, each (nd, nLay, L), of the T
+    directions ``V`` (nd, nLay) at the state ``base``."""
     T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
 
     def prm_of(T_):
         prm = od_fn.line_params(T_, p, pl, vmr)[0]
-        return prm.shift0, prm.strength, prm.gamma_d, prm.gamma_0
+        return tuple(getattr(prm, k) for k in keys)
 
     return torch.func.vmap(
         lambda v: torch.func.jvp(prm_of, (T,), (v,))[1])(V)
@@ -1767,17 +1791,28 @@ def ht_bound_str(ops, nbytes, instr, dense=None):
 
 
 def k4_bound_work(lay, dplan, prm, tangents):
-    """(lane-ops, bytes) of one K4 launch set for the (nd, nLay, L)
-    tangents: the live evaluations, each CPF point's (K, Kx, Ky) by its own
-    region."""
-    nd = tangents[0].shape[0]
-    n_win, n_in, n_lines = window_counts(lay, dplan, prm,
-                                         live_pairs(tangents), region="sd")
-    nl = lay.numel()
+    """(lane-ops, bytes, lane-instructions, lane-ops counting every
+    direction) of one K4 launch set for the (nd, nLay, L) tangents of
+    (shift0, strength, gamma_d, gamma_0, gamma_2), K3's convention: each
+    live (pair, point) evaluation's shared work once (K4_BASE, and each CPF
+    point's (K, Kx, Ky) by its own region) and each live direction's term of
+    it (K4_DIR: K4's rows evaluate only those); the same in the SASS
+    lane-instructions of ``k4_issue``; and the count that charges every
+    live pair all nd directions' terms, as a dense direction axis
+    would."""
+    live = live_directions(tangents)
+    n_win, n_in, n_lines = window_counts(lay, dplan, prm, live.any(axis=0),
+                                         region="sd")
+    n_dir = window_counts(lay, dplan, prm, live.sum(axis=0))[0]
+    nd, nl = len(live), lay.numel()
     nbytes = (4 * (6 + 5 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nd * nl * dplan.n_out)
-    return (n_win * (K4_BASE + K4_DIR * nd)
-            + cpf_pair_ops(n_win, n_in, KG_WEI, KG_ASYM)), nbytes
+    shared = n_win * K4_BASE + cpf_pair_ops(n_win, n_in, KG_WEI, KG_ASYM)
+    c = k4_issue()
+    instr = (n_win * c["base"] + cpf_pair_ops(n_win, n_in, c["in"], c["out"])
+             + n_dir * c["dir"])
+    return (shared + K4_DIR * n_dir, nbytes, instr,
+            shared + K4_DIR * nd * n_win)
 
 
 def ht_od_tangents(fn, base, V):
@@ -1829,6 +1864,88 @@ def ht_tangent(call, prm, tans, plain=False):
 
 
 HT_TANGENT_NAME = {"ht": "K6", "sdvoigt": "K4", "full": "K3"}
+# the SD-Voigt OD's line parameters with tangents (phase 9d)
+SD_KEYS = ("shift0", "strength", "gamma_d", "gamma_0", "gamma_2")
+# phase 9d holds K4 against its plain version on this many of its plans'
+# tiles from this wavenumber (cm^-1) on: each a tile of several slices
+SD_CHECK_TILES = (800.0, 4)
+
+
+def sub_plan(dplan, t0, t1):
+    """Tiles t0 .. t1 - 1 of ``dplan`` as a plan of their own: their slots,
+    with grid indices counted from tile t0's first point."""
+    starts = dplan.starts.cpu().numpy()[t0:t1].astype(np.int64)
+    counts = dplan.counts.cpu().numpy()[t0:t1].astype(np.int64)
+    blocks = np.concatenate([np.arange(s, s + c) for s, c in
+                             zip(starts, counts)] + [np.zeros(0, np.int64)])
+    slots = torch.as_tensor((blocks[:, None] * dplan.block
+                             + np.arange(dplan.block)).reshape(-1),
+                            device=dplan.line.device)
+    line = dplan.line[slots]
+    k_line = dplan.k_line[slots]
+    return dataclasses.replace(
+        dplan, n_tiles=t1 - t0, max_blocks=int(counts.max(initial=0)),
+        n_out=min(dplan.n_out, t1 * dplan.tile) - t0 * dplan.tile,
+        starts=torch.as_tensor(np.cumsum(counts) - counts, dtype=torch.int32,
+                               device=line.device),
+        counts=torch.as_tensor(counts, dtype=torch.int32, device=line.device),
+        k_line=torch.where(line >= 0, k_line - t0 * dplan.tile, k_line),
+        frac0=dplan.frac0[slots], line=line, wcap=dplan.wcap[slots])
+
+
+def sd_regimes(dplan, lay, prm):
+    """(closed form, whole window, empty): the (layer, line) pairs of the
+    plan's slots by the Weideman range that csrc/fused_xsect_jvp.cu::
+    sd_near_range gives them (its float32 P = |Re X + c^2| against R^2 =
+    (15 + c)^2, in sd_pair's operations)."""
+    g = dplan.line[dplan.line >= 0].long()
+    q = {k: getattr(prm, k)[lay.long()][:, g].float()
+         for k in ("gamma_d", "gamma_0", "gamma_2")}
+    cte = (1.0 / q["gamma_d"]) * SQRT_LN2
+    g2 = torch.maximum(q["gamma_2"], 1e-4 * q["gamma_0"] + 1e-12)
+    inv_g2 = 1.0 / g2
+    cc = (1.0 / (cte * g2)) * 0.5
+    P = ((q["gamma_0"] - 1.5 * g2) * inv_g2 + cc * cc).abs()
+    R2 = (15.0 + cc) * (15.0 + cc)
+    empty = P >= R2 * 1.001
+    whole = ~empty & ~(P <= 0.9 * R2)
+    return (int((~empty & ~whole).sum()), int(whole.sum()), int(empty.sum()))
+
+
+def k4_against_plain(call, prm, tans, out, card, label):
+    """K4's output ``out`` of one sdvoigt pass (all its layers, the whole
+    grid) against the plain version on SD_CHECK_TILES of the pass's plan,
+    direction by direction, each within K4_BOUND of its own peak (exactly
+    zero where the plain version is); returns the sd_regimes of the band's
+    pairs."""
+    lay, dplan, _ = call
+    nu0, dnu = HT_BAND[0], HT_BAND[2]
+    t0 = min(int((SD_CHECK_TILES[0] - nu0) / dnu) // dplan.tile,
+             max(0, dplan.n_tiles - SD_CHECK_TILES[1]))
+    t1 = min(t0 + SD_CHECK_TILES[1], dplan.n_tiles)
+    sp = sub_plan(dplan, t0, t1)
+    want = ht_tangent((lay, sp, "sdvoigt"), prm, tans, plain=True)
+    k0 = t0 * dplan.tile
+    got = out[:, :, k0:k0 + sp.n_out]
+    rels = []
+    for d in range(want.shape[0]):
+        err = (got[d] - want[d]).abs().max().item()
+        own = want[d].abs().max().item()
+        check(bool(torch.isfinite(got[d]).all()), f"9d K4 {label}: "
+              f"direction {d} not finite")
+        check(err <= K4_BOUND * own if own > 0.0 else err == 0.0,
+              f"9d K4 {label} direction {d}: max|kernel-plain| {err:.3e} "
+              f"against its own peak {own:.3e}")
+        rels.append(err / own if own > 0.0 else err)
+    reg = sd_regimes(sp, lay, prm)
+    print(f"[9d K4 vs plain] {label}: layers {lay.numel()}, tiles {t0}-"
+          f"{t1 - 1} of {dplan.n_tiles} (tile {dplan.tile}, "
+          f"{-(-dplan.tile // 128)} slices a tile), {want.shape[0]} "
+          f"directions: max|kernel-plain| of each direction's own peak "
+          f"{max(rels):.3e} (bound {K4_BOUND}); the band's (layer, line) "
+          f"pairs by Weideman range: closed form {reg[0]}, whole window "
+          f"{reg[1]}, none {reg[2]} [{card}]", flush=True)
+    return reg
 
 
 def phase_ht_sub(dev, card):
@@ -1914,12 +2031,18 @@ def phase_ht_sub(dev, card):
             if name.startswith("8"):
                 add_stats(stats, "ht_jvp", err, k_ms, p_ms, *work[:2],
                           instr=work[2])
-        elif name.startswith("8") and mode == "sdvoigt":
-            add_stats(stats, "sdvoigt_jvp", err, k_ms, p_ms,
-                      *k4_bound_work(lay, dplan, prm, tans[:5]))
+        elif mode == "sdvoigt":
+            work = k4_bound_work(lay, dplan, prm, tans[:5])
+            print(f"[3d {label}] {kname} bound {ht_bound_str(*work)} "
+                  f"[{card}]", flush=True)
+            if name.startswith("8"):
+                add_stats(stats, "sdvoigt_jvp", err, k_ms, p_ms, *work[:2],
+                          instr=work[2])
     for tan, kname in ((False, "K5"), (True, "K6")):
         print(f"[3d] {kname} SASS lane-instructions per piece: " + ", ".join(
             f"{k} {v:.2f}" for k, v in ht_issue(tan).items()), flush=True)
+    print("[3d] K4 SASS lane-instructions per piece: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in k4_issue().items()), flush=True)
     return finish_stats(stats)
 
 
@@ -2130,7 +2253,9 @@ def phase_ht_jacobian(dev, card):
 
 def phase_sdvoigt_jacobian(dev, card):
     """9d: the differentiable SD-Voigt OD at full width (the bench's
-    20,000-line list, seed 0), a batch of 8 one-hot T directions."""
+    20,000-line list, seed 0), a batch of 8 one-hot T directions; K4 held
+    against its plain version on SD_CHECK_TILES of each sdvoigt pass's
+    plan, for that batch and for a T direction over all layers."""
     store = synthetic_lines(HT_LINES["n_lines"], nu_min=HT_LINES["nu_min"],
                             nu_max=HT_LINES["nu_max"], seed=0, device=dev)
     X = arange_drift_free(*HT_BAND)
@@ -2160,6 +2285,46 @@ def phase_sdvoigt_jacobian(dev, card):
           f"8 one-hot T directions: {ms:.3f} ms (CUDA events, warm); "
           f"launches {dict((k, v) for k, v in launches.items() if v)} "
           f"[{card}]", flush=True)
+
+    # where the batch's tangent time goes: the line parameters and their
+    # tangents, then K4 on the sdvoigt passes and K3 on the full ones
+    prm = fn.line_params(base.T, p, pl, vmr)[0]
+    reads = [cuda_ms(lambda: t_tangents(fn, base, V, SD_KEYS), 1)[0]
+             for _ in range(3)]
+    tans = [t.contiguous() for t in t_tangents(fn, base, V, SD_KEYS)]
+    dense = [t.contiguous() for t in t_tangents(
+        fn, base, torch.linspace(0.5, 1.5, base.n_layers, device=dev)[None],
+        SD_KEYS)]
+    stage = {"line params + tangents": float(np.median(reads))}
+    work, n_launch = {}, collections.Counter()
+    regimes = np.zeros(3, dtype=np.int64)
+    for call in fn.calls:
+        name = HT_TANGENT_NAME[call[2]]
+        reset_launches()
+        out = ht_tangent(call, prm, tans)
+        n_launch[name] += sum(read_launches().values())
+        if call[2] == "sdvoigt":
+            # K4 against its plain version on a band of this pass's plan:
+            # the one-hot batch, and a T direction over all layers (the top
+            # layers' pairs near tangency take their whole window)
+            k4_against_plain(call, prm, tans, out, card, "8 one-hot T")
+            regimes += k4_against_plain(call, prm, dense,
+                                        ht_tangent(call, prm, dense), card,
+                                        "T linspace(0.5, 1.5)")
+        del out
+        t, _ = cuda_ms(lambda: ht_tangent(call, prm, tans), 2)
+        stage[name] = stage.get(name, 0.0) + t
+        add_work(work, name,
+                 k4_bound_work(call[0], call[1], prm, tans)
+                 if call[2] == "sdvoigt"
+                 else k3_bound_work(call[0], call[1], prm, tans[:4]))
+    check(regimes[0] > 0 and regimes[1] > 0, "9d: the K4 check's band holds "
+          f"no pair of the closed form or of the whole window: {regimes}")
+    print("[9d sdvoigt jacobian] ms per stage (line params + tangents: "
+          f"median of 3, range {min(reads):.3f}-{max(reads):.3f}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+          + "; launches " + ", ".join(f"{k} {v}" for k, v in n_launch.items())
+          + "; bound ms: " + work_str(work) + f" [{card}]", flush=True)
     return launches
 
 
@@ -2198,16 +2363,20 @@ def phase_ht_breakdown(dev, card):
             + work_str(work) + f" [{card}]", flush=True)
     prm = jac.line_params(base.T, base.p, base.pl, base.vmr)
     tans = ht_od_tangents(jac, base, one_hot_batch(dev))
-    ms, work = {}, {}
+    ms, work, n_launch = {}, {}, collections.Counter()
     reads = [cuda_ms(lambda: ht_od_tangents(jac, base, one_hot_batch(dev)),
                      1)[0] for _ in range(3)]
     ms["line params + tangents"] = float(np.median(reads))
     for call in jac.calls:
         mode = call[2]
+        name = HT_TANGENT_NAME[mode]
+        reset_launches()
+        ht_tangent(call, prm, tans)
+        n_launch[name] += sum(read_launches().values())
         t, _ = cuda_ms(lambda: ht_tangent(call, prm, tans), 2)
-        ms[HT_TANGENT_NAME[mode]] = ms.get(HT_TANGENT_NAME[mode], 0.0) + t
+        ms[name] = ms.get(name, 0.0) + t
         lay, dplan = call[0], call[1]
-        add_work(work, HT_TANGENT_NAME[mode],
+        add_work(work, name,
                  ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
                  if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
                  if mode == "sdvoigt" else
@@ -2215,20 +2384,22 @@ def phase_ht_breakdown(dev, card):
     print("[10 9c tangents] 8 one-hot T directions, ms per stage (line "
           f"params + tangents: median of 3, range {min(reads):.3f}-"
           f"{max(reads):.3f}): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + "; bound ms: "
-          + work_str(work) + f" [{card}]", flush=True)
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + "; launches "
+          + ", ".join(f"{k} {v}" for k, v in n_launch.items())
+          + "; bound ms: " + work_str(work) + f" [{card}]", flush=True)
 
 
 def add_work(work, name, w):
     """Add one pass's (ops, bytes[, instructions[, dense ops]]) to
-    ``work[name]`` (phase 10)."""
+    ``work[name]`` (phases 9d, 10)."""
     acc = work.setdefault(name, [0] * len(w))
     work[name] = [a + b for a, b in zip(acc, w)]
 
 
 def work_str(work):
-    """Phase 10's bounds: K5 and K6 with their issue-slot (and K6 its
-    every-direction) bounds (ht_bound_str), the others at the FP32 peak."""
+    """Phases 9d's and 10's bounds: K4, K5 and K6 with their issue-slot
+    (and K4 and K6 their every-direction) bounds (ht_bound_str), the others
+    at the FP32 peak."""
     return ", ".join(f"{m} " + (ht_bound_str(*w) if len(w) > 2
                                 else bound_str(*w))
                      for m, w in work.items())

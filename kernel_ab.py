@@ -1,6 +1,7 @@
 """This checkout's port against another checkout's, on one card.
 
     python3 kernel_ab.py --parent DIR [--out PATH] [--reps 5] [--rounds 1]
+                         [--only SECTION,...]
 
 Run from the repository root. ``DIR`` is another checkout (an unpacked
 ``git archive`` of an earlier commit). The measurements run in four
@@ -27,19 +28,29 @@ same seeds:
 * K3 on every pass of the differentiable OD builder for the production
   Jacobian's batch (8 one-hot T directions, ``chip_smoke.one_hot_batch``)
   and for one T direction over all layers, and on the HT Jacobian's
-  ``full`` passes for the one-hot batch (phase 9c's builder); K7 in each of its modes on ``make_od_plan``'s plan over phase
-  3e's 700-740 cm^-1 sub-band and in ``full`` at full width (phase 11's
-  plan and base state); each with a SHA-256 of each output;
+  ``full`` passes for the one-hot batch (phase 9c's builder); K7 in each
+  of its modes on ``make_od_plan``'s plan over phase 3e's 700-740 cm^-1
+  sub-band and in ``full`` at full width (phase 11's plan and base
+  state); each with a SHA-256 of each output;
+* K4 on the HT Jacobian's ``sdvoigt`` passes (phase 9c's builder) for its
+  one-hot batch, one T direction over all layers and d OD / d T[3]'s
+  direction, and on the ``sdvoigt`` passes of the differentiable SD-Voigt
+  OD at full width (phase 9d's) for its one-hot batch, each with a SHA-256
+  of each output;
 * K2 at the production shape in each mode the checkout has;
 * d OD / d T[3] of the HT Jacobian (phase 9c's), over twice the calls.
 
-For the member and d OD / d T[3] it also gives the milliseconds the card
-spends in kernels during one call ("on the card": torch.profiler's CUDA
-kernel times, summed); the rest of a call's time the card waits on the
-host.
+For the member, d OD / d T[3] and K4's passes it also gives the
+milliseconds the card spends in kernels during one call ("on the card":
+torch.profiler's CUDA kernel times, summed; for a K4 pass its liveness
+table's reductions and the kernel); the rest of a call's time the card
+waits on the host.
 
 Each time is the median of ``--reps`` calls, each timed on its own with
-CUDA events after a warm-up call.
+CUDA events after a warm-up call. ``--only`` measures only the named
+sections (``--help`` lists them): ``ht`` is d OD / d T[3], K3 and K6 of
+the HT Jacobian, ``xs`` the full-width and sub-band XS lattices; the
+others are named for their kernel or path.
 
 It prints each number as other -> this (each the mean of its
 processes), whether each kernel pass gave bit-identical outputs in all
@@ -54,6 +65,7 @@ import hashlib
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -98,8 +110,9 @@ def digest(t):
                           ).hexdigest()
 
 
-def child(out_path, reps):
-    """Measure the checkout in the working directory; write the JSON."""
+def child(out_path, reps, only=None):
+    """Measure the checkout in the working directory (the sections
+    ``only``, or all); write the JSON."""
     sys.path[0] = os.getcwd()
     import numpy as np
     import torch
@@ -129,15 +142,19 @@ def child(out_path, reps):
     cs.warm_up(dev)
     res = {"ms": {}, "passes": {}}
     ms = res["ms"]
+    want = lambda name: only is None or name in only  # noqa: E731
 
-    def record(key, fn):
-        """Time one kernel pass; its ms add up under ``key``."""
+    def record(key, fn, card=False):
+        """Time one kernel pass; its ms add up under ``key`` (``card``:
+        also the card's kernel time of one call, ``device_ms``)."""
         t, out = events_ms(fn, reps)
         r = res["passes"].setdefault(key, {"ms": 0.0, "passes": 0,
                                            "sha": []})
         r["ms"] += t
         r["passes"] += 1
         r["sha"].append(digest(out))
+        if card:
+            r["card_ms"] = r.get("card_ms", 0.0) + (device_ms(fn) or 0.0)
 
     def k1(case, fn, prm, calls, Y=None):
         """K1's passes of ``calls``, and K5's (``ht``) under their own key."""
@@ -147,185 +164,231 @@ def child(out_path, reps):
                    lambda c=call, ht=ht: cs.ht_primal(c, prm) if ht
                    else fn.run_call(c, prm, Y))
 
-    # d OD / d T[3] of the HT Jacobian (phase 9c), first: host-bound, so
-    # measured before the rest of the process's allocations
-    jac_store, extras = cs.ht_jac_case(dev)
-    b64 = std_atmosphere(device=dev)
-    fn = make_od_ht_fn(jac_store, IsoTables.load(device=dev),
-                       arange_drift_free(*cs.HT_JAC_BAND), b64,
-                       extras=extras, differentiable=True)
-    e3 = torch.zeros_like(b64.T)
-    e3[cs.HT_JAC_LAYER] = 1.0
-
-    def jvp3():
-        return torch.func.jvp(lambda T_: fn(T_, b64.p, b64.pl, b64.vmr),
-                              (b64.T,), (e3,))[1]
-
-    ms["ht jacobian dOD/dT[3]"], _ = events_ms(jvp3, 2 * reps)
-    ms["ht jacobian dOD/dT[3] on the card"] = device_ms(jvp3)
-    # K3 on its passes and K6 on the ht passes, for the batch of 8 one-hot
-    # T directions; K6 also for one T direction over all layers
-    hprm = fn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
-    htans = cs.ht_od_tangents(fn, b64, cs.one_hot_batch(dev))
-    hdense = cs.ht_od_tangents(fn, b64, torch.linspace(
-        0.5, 1.5, b64.n_layers, device=dev)[None])
-    h3 = cs.ht_od_tangents(fn, b64, e3[None])
-    for call in fn.calls:
-        if call[2] == "full":
-            record("K3 ht jacobian one-hot",
-                   lambda c=call: cs.ht_tangent(c, hprm, htans))
-        if call[2] == "ht":
-            record("K6 ht jacobian one-hot",
-                   lambda c=call: cs.ht_tangent(c, hprm, htans))
-            record("K6 ht jacobian dense T",
-                   lambda c=call: cs.ht_tangent(c, hprm, hdense))
-            record("K6 ht jacobian dOD/dT[3]",
-                   lambda c=call: cs.ht_tangent(c, hprm, h3))
-    del fn, jac_store, hprm, htans, hdense, h3
-
-    # K5 on the layered HT OD's ht passes (phase 9b)
-    lstore, lextras = cs.ht_layered_case(dev)
-    lfn = make_od_ht_fn(lstore, IsoTables.load(device=dev),
-                        arange_drift_free(*cs.HT_BAND), b64, extras=lextras)
-    lprm = lfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
-    k1("ht layered", lfn, lprm, [c for c in lfn.calls if c[2] == "ht"])
-    del lfn, lstore, lprm
-
-    # the production member (phase 6)
     iso = IsoTables.load(device=dev, dtype=f32)
+    b64 = std_atmosphere(device=dev)
+    if want("ht") or want("k4"):
+        # d OD / d T[3] of the HT Jacobian (phase 9c), first: host-bound,
+        # so measured before the rest of the process's allocations
+        jac_store, extras = cs.ht_jac_case(dev)
+        fn = make_od_ht_fn(jac_store, iso, arange_drift_free(*cs.HT_JAC_BAND),
+                           b64, extras=extras, differentiable=True)
+        e3 = torch.zeros_like(b64.T)
+        e3[cs.HT_JAC_LAYER] = 1.0
+
+        def jvp3():
+            return torch.func.jvp(lambda T_: fn(T_, b64.p, b64.pl, b64.vmr),
+                                  (b64.T,), (e3,))[1]
+
+        if want("ht"):
+            ms["ht jacobian dOD/dT[3]"], _ = events_ms(jvp3, 2 * reps)
+            ms["ht jacobian dOD/dT[3] on the card"] = device_ms(jvp3)
+        # K3, K6 and K4 on their passes for the batch of 8 one-hot T
+        # directions; K6 and K4 also for one T direction over all layers
+        # and for d OD / d T[3]'s direction
+        hprm = fn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
+        htans = cs.ht_od_tangents(fn, b64, cs.one_hot_batch(dev))
+        hdense = cs.ht_od_tangents(fn, b64, torch.linspace(
+            0.5, 1.5, b64.n_layers, device=dev)[None])
+        h3 = cs.ht_od_tangents(fn, b64, e3[None])
+        kname = {"full": "K3", "ht": "K6", "sdvoigt": "K4"}
+        for call in fn.calls:
+            k = kname[call[2]]
+            sets = {"one-hot": htans}
+            if call[2] != "full":
+                sets.update({"dense T": hdense, "dOD/dT[3]": h3})
+            if want("k4" if k == "K4" else "ht"):
+                for name, t in sets.items():
+                    record(f"{k} ht jacobian {name}",
+                           lambda c=call, t=t: cs.ht_tangent(c, hprm, t),
+                           card=k == "K4")
+        del fn, jac_store, hprm, htans, hdense, h3
+
+    if want("k4"):
+        # K4 on the differentiable SD-Voigt OD's sdvoigt passes at full
+        # width (phase 9d) for its batch of 8 one-hot T directions
+        sd_store = synthetic_lines(cs.HT_LINES["n_lines"],
+                                   nu_min=cs.HT_LINES["nu_min"],
+                                   nu_max=cs.HT_LINES["nu_max"], seed=0,
+                                   device=dev)
+        sfn = make_od_fn(sd_store, iso, arange_drift_free(*cs.HT_BAND), b64,
+                         profile="sdvoigt", differentiable=True)
+
+        def sd_prm(T_):
+            q = sfn.line_params(T_, b64.p, b64.pl, b64.vmr)[0]
+            return q.shift0, q.strength, q.gamma_d, q.gamma_0, q.gamma_2
+
+        sprm = sfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)[0]
+        stans = [t.contiguous() for t in torch.func.vmap(
+            lambda v: torch.func.jvp(sd_prm, (b64.T,), (v,))[1])(
+                cs.one_hot_batch(dev))]
+        for call in sfn.calls:
+            if call[2] == "sdvoigt":
+                record("K4 sdvoigt od one-hot",
+                       lambda c=call: cs.ht_tangent(c, sprm, stans),
+                       card=True)
+        del sfn, sd_store, sprm, stans
+
+    if want("ht_layered"):
+        # K5 on the layered HT OD's ht passes (phase 9b)
+        lstore, lextras = cs.ht_layered_case(dev)
+        lfn = make_od_ht_fn(lstore, iso, arange_drift_free(*cs.HT_BAND), b64,
+                            extras=lextras)
+        lprm = lfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
+        k1("ht layered", lfn, lprm, [c for c in lfn.calls if c[2] == "ht"])
+        del lfn, lstore, lprm
+
     base = std_atmosphere(device=dev, dtype=f32)
-    store = derived_lwir_linelist(cs.FULL_BAND[0] - cs.MARGIN,
-                                  cs.FULL_BAND[1] + cs.MARGIN, device=dev,
-                                  dtype=f32)
     X = arange_drift_free(*cs.FULL_BAND)
     T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
-    y = y_air_for_store(store.host_view())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    od_fn = make_od_fn(store, iso, X, base, continuum="mt_ckd",
-                       line_mixing={"y_air": y})
-    torch.cuda.synchronize()
-    ms["plan build"] = (time.perf_counter() - t0) * 1e3
-    ms["line_params"], (prm, Y) = events_ms(
-        lambda: od_fn.line_params(T, p, pl, vmr), reps)
-    k1("production", od_fn, prm, od_fn.calls, Y)
-    ms["continuum"], _ = events_ms(lambda: od_fn.cont(T, p, pl, vmr), reps)
-    ms["od total"], od = events_ms(lambda: od_fn(T, p, pl, vmr), reps)
-    tud_fn = make_tud_fn(base.z0.cpu().numpy(), cs.ALTITUDES, device=dev)
     x = torch.as_tensor(X, dtype=f32, device=dev)
-    ms["K2 tud"], tud = events_ms(lambda: tud_fn(x, od, T), reps)
-    op = reduce_operator(X, 0.25, device=dev)
-    ms["reduce"], _ = events_ms(lambda: (op(tud.tau[:, :, 0]),
-                                         op(tud.Lu[:, :, 0]), op(tud.Ld)),
-                                reps)
+    if want("production") or want("jacobian") or want("k7"):
+        store = derived_lwir_linelist(cs.FULL_BAND[0] - cs.MARGIN,
+                                      cs.FULL_BAND[1] + cs.MARGIN,
+                                      device=dev, dtype=f32)
+    if want("production"):
+        # the production member (phase 6)
+        y = y_air_for_store(store.host_view())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        od_fn = make_od_fn(store, iso, X, base, continuum="mt_ckd",
+                           line_mixing={"y_air": y})
+        torch.cuda.synchronize()
+        ms["plan build"] = (time.perf_counter() - t0) * 1e3
+        ms["line_params"], (prm, Y) = events_ms(
+            lambda: od_fn.line_params(T, p, pl, vmr), reps)
+        k1("production", od_fn, prm, od_fn.calls, Y)
+        ms["continuum"], _ = events_ms(lambda: od_fn.cont(T, p, pl, vmr),
+                                       reps)
+        ms["od total"], od = events_ms(lambda: od_fn(T, p, pl, vmr), reps)
+        tud_fn = make_tud_fn(base.z0.cpu().numpy(), cs.ALTITUDES, device=dev)
+        ms["K2 tud"], tud = events_ms(lambda: tud_fn(x, od, T), reps)
+        op = reduce_operator(X, 0.25, device=dev)
+        ms["reduce"], _ = events_ms(lambda: (op(tud.tau[:, :, 0]),
+                                             op(tud.Lu[:, :, 0]),
+                                             op(tud.Ld)), reps)
 
-    def member():
-        t = tud_fn(x, od_fn(T, p, pl, vmr), T)
-        return op(t.tau[:, :, 0]), op(t.Lu[:, :, 0]), op(t.Ld)
+        def member():
+            t = tud_fn(x, od_fn(T, p, pl, vmr), T)
+            return op(t.tau[:, :, 0]), op(t.Lu[:, :, 0]), op(t.Ld)
 
-    ms["member"], _ = events_ms(member, reps)
-    ms["member on the card"] = device_ms(member)
-    del od_fn, od, tud, prm, Y
+        ms["member"], _ = events_ms(member, reps)
+        ms["member on the card"] = device_ms(member)
+        del od_fn, od, tud, prm, Y
 
-    # the differentiable OD builder's full passes (the Jacobian path) and
-    # K3 on them for the production batch (8 one-hot T directions)
-    jac = make_od_fn(store, iso, X, base, continuum="mt_ckd",
-                     differentiable=True)
-    jprm = jac.line_params(T, p, pl, vmr)[0]
-    k1("jacobian", jac, jprm, jac.calls)
-    tans = [t.contiguous() for t in cs.t_tangents(jac, base,
-                                                  cs.one_hot_batch(dev))]
-    dense = [t.contiguous() for t in cs.t_tangents(
-        jac, base, torch.linspace(0.5, 1.5, base.n_layers, device=dev)[None])]
-    for lay, dplan, _ in jac.calls:
-        args = (dplan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
-                jprm.gamma_0, jprm.wing)
-        record("K3 jacobian one-hot", lambda args=args:
-               fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI))
-        record("K3 jacobian dense T", lambda args=args:
-               fused_xsect.xsect_fused_jvp(*args, *dense, cs.N_WEI))
-    del jac, jprm, tans, dense
+    if want("jacobian"):
+        # the differentiable OD builder's full passes (the Jacobian path)
+        # and K3 on them for the production batch (8 one-hot T directions)
+        jac = make_od_fn(store, iso, X, base, continuum="mt_ckd",
+                         differentiable=True)
+        jprm = jac.line_params(T, p, pl, vmr)[0]
+        k1("jacobian", jac, jprm, jac.calls)
+        tans = [t.contiguous() for t in cs.t_tangents(
+            jac, base, cs.one_hot_batch(dev))]
+        dense = [t.contiguous() for t in cs.t_tangents(
+            jac, base, torch.linspace(0.5, 1.5, base.n_layers,
+                                      device=dev)[None])]
+        for lay, dplan, _ in jac.calls:
+            args = (dplan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
+                    jprm.gamma_0, jprm.wing)
+            record("K3 jacobian one-hot", lambda args=args:
+                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI))
+            record("K3 jacobian dense T", lambda args=args:
+                   fused_xsect.xsect_fused_jvp(*args, *dense, cs.N_WEI))
+        del jac, jprm, tans, dense
 
-    # K7: full at full width (phase 11), each mode on the sub-band (3e)
-    cols = _line_species_cols(store.host_view(), base.mol_ids)
-    plan = make_od_plan(store, iso, X, base)
-    kprm = layer_line_params(store, iso, base, cols)
-    record("K7 full width full",
-           lambda: fused_xsect.xsect_unfused(plan, kprm))
-    del store, plan, kprm
-    sstore, siso, sX, sbase = cs.unfused_case(dev, cs.SUB_BAND)
-    splan = make_od_plan(sstore, siso, sX, sbase)
-    scols = _line_species_cols(sstore.host_view(), sbase.mol_ids)
-    sprm = {m: layer_line_params(sstore, siso, sbase, scols, profile=m)
-            for m in ("voigt", "lorentz", "doppler")}
-    for m in fused_xsect.UNFUSED_MODES:
-        record(f"K7 sub-band {m}", lambda m=m: fused_xsect.xsect_unfused(
-            splan, sprm.get(m, sprm["voigt"]), m))
-    del sstore, splan, sprm
+    if want("k7"):
+        # K7: full at full width (phase 11), each mode on the sub-band (3e)
+        cols = _line_species_cols(store.host_view(), base.mol_ids)
+        plan = make_od_plan(store, iso, X, base)
+        kprm = layer_line_params(store, iso, base, cols)
+        record("K7 full width full",
+               lambda: fused_xsect.xsect_unfused(plan, kprm))
+        del plan, kprm
+        sstore, siso, sX, sbase = cs.unfused_case(dev, cs.SUB_BAND)
+        splan = make_od_plan(sstore, siso, sX, sbase)
+        scols = _line_species_cols(sstore.host_view(), sbase.mol_ids)
+        sprm = {m: layer_line_params(sstore, siso, sbase, scols, profile=m)
+                for m in ("voigt", "lorentz", "doppler")}
+        for m in fused_xsect.UNFUSED_MODES:
+            record(f"K7 sub-band {m}", lambda m=m: fused_xsect.xsect_unfused(
+                splan, sprm.get(m, sprm["voigt"]), m))
+        del sstore, splan, sprm
+    if want("production") or want("jacobian") or want("k7"):
+        del store
 
-    # K2 at the production shape, in each mode this checkout has
-    gen = torch.Generator(device=dev).manual_seed(0)
-    od = 10.0 ** (5.0 * torch.rand((base.n_layers, X.size), generator=gen,
-                                   device=dev, dtype=f32) - 4.0)
-    inv_t = (1.0 / T).contiguous()
-    mus = torch.ones(1, dtype=f32, device=dev)
-    snap = torch.as_tensor(_layers_below(base.z0.cpu().numpy(),
-                                         cs.ALTITUDES),
-                           dtype=torch.int32, device=dev)
-    sec, w = (torch.as_tensor(a, dtype=f32, device=dev)
-              for a in downwelling_quadrature(30))
-    args = (od, x, inv_t, mus, snap, sec, w)
-    ms["K2 planck"], _ = events_ms(lambda: fused_tud.tud_compose(*args),
-                                   reps)
-    if "B" in inspect.signature(fused_tud.tud_compose).parameters:
-        nu = x * 100.0
-        B = (((nu * nu * nu) * (C1 * 1e4))[None, :] / torch.expm1(
-            (nu * C2)[None, :] * inv_t[:, None])).contiguous()
-        ms["K2 B read"], _ = events_ms(
-            lambda: fused_tud.tud_compose(*args, B=B), reps)
-        del B
-    del od, args
+    if want("k2"):
+        # K2 at the production shape, in each mode this checkout has
+        gen = torch.Generator(device=dev).manual_seed(0)
+        od = 10.0 ** (5.0 * torch.rand((base.n_layers, X.size),
+                                       generator=gen, device=dev,
+                                       dtype=f32) - 4.0)
+        inv_t = (1.0 / T).contiguous()
+        mus = torch.ones(1, dtype=f32, device=dev)
+        snap = torch.as_tensor(_layers_below(base.z0.cpu().numpy(),
+                                             cs.ALTITUDES),
+                               dtype=torch.int32, device=dev)
+        sec, w = (torch.as_tensor(a, dtype=f32, device=dev)
+                  for a in downwelling_quadrature(30))
+        args = (od, x, inv_t, mus, snap, sec, w)
+        ms["K2 planck"], _ = events_ms(lambda: fused_tud.tud_compose(*args),
+                                       reps)
+        if "B" in inspect.signature(fused_tud.tud_compose).parameters:
+            nu = x * 100.0
+            B = (((nu * nu * nu) * (C1 * 1e4))[None, :] / torch.expm1(
+                (nu * C2)[None, :] * inv_t[:, None])).contiguous()
+            ms["K2 B read"], _ = events_ms(
+                lambda: fused_tud.tud_compose(*args, B=B), reps)
+            del B
+        del od, args
 
-    # the full-width XS lattice (the CLI's)
-    a = cs.xs_args(cs.XS_CLI)
-    xs_store = synthetic_lines(a.synthetic, nu_min=a.numin - cs.XS_WING,
-                               nu_max=a.numax + cs.XS_WING, seed=a.seed,
-                               device=dev)
-    xs = make_xsect_fn(xs_store, iso, arange_drift_free(a.numin, a.numax,
-                                                        a.dv),
-                       cs.XS_T, np.ones_like(cs.XS_T), profile="sdvoigt",
-                       wing_abs=cs.XS_WING)
     Ts, ps = cs.xs_states(dev)
-    k1("xs lattice", xs, xs.line_params(Ts, ps), xs.all_calls())
-    del xs, xs_store
+    if want("xs"):
+        # the full-width XS lattice (the CLI's)
+        a = cs.xs_args(cs.XS_CLI)
+        xs_store = synthetic_lines(a.synthetic, nu_min=a.numin - cs.XS_WING,
+                                   nu_max=a.numax + cs.XS_WING, seed=a.seed,
+                                   device=dev)
+        xs = make_xsect_fn(xs_store, iso,
+                           arange_drift_free(a.numin, a.numax, a.dv),
+                           cs.XS_T, np.ones_like(cs.XS_T), profile="sdvoigt",
+                           wing_abs=cs.XS_WING)
+        k1("xs lattice", xs, xs.line_params(Ts, ps), xs.all_calls())
+        del xs, xs_store
 
-    # the 1000-1010 cm^-1 XS builders (phase 3c)
-    sub = cs.xs_lines(dev)
-    Xs = arange_drift_free(*cs.XS_SUB)
+        # the 1000-1010 cm^-1 XS builders (phase 3c)
+        sub = cs.xs_lines(dev)
+        Xs = arange_drift_free(*cs.XS_SUB)
 
-    def build(**kw):
-        return make_xsect_fn(sub, iso, Xs, cs.XS_T, np.ones_like(cs.XS_T),
-                             wing_abs=cs.XS_WING, tile=cs.XS_BENCH["tile"],
-                             **kw)
+        def build(**kw):
+            return make_xsect_fn(sub, iso, Xs, cs.XS_T, np.ones_like(cs.XS_T),
+                                 wing_abs=cs.XS_WING,
+                                 tile=cs.XS_BENCH["tile"], **kw)
 
-    main = build(profile="sdvoigt")
-    full_calls = [(c[0], c[1], c[2] + "full") for c in main.corr_calls[::3]]
-    k1("xs sub-band", main, main.line_params(Ts, ps),
-       main.all_calls() + full_calls)
-    for prof in ("lorentz", "doppler"):
-        fn = build(profile=prof)
-        k1("xs sub-band", fn, fn.line_params(Ts, ps), fn.all_calls())
-    del main, fn, sub
+        main = build(profile="sdvoigt")
+        full_calls = [(c[0], c[1], c[2] + "full")
+                      for c in main.corr_calls[::3]]
+        k1("xs sub-band", main, main.line_params(Ts, ps),
+           main.all_calls() + full_calls)
+        for prof in ("lorentz", "doppler"):
+            fn = build(profile=prof)
+            k1("xs sub-band", fn, fn.line_params(Ts, ps), fn.all_calls())
+        del main, fn, sub
 
-    # the HT lattice (phase 8)
-    ht_store, extras = cs.ht_lattice_case(dev)
-    ht = make_ht_fn(ht_store, iso, arange_drift_free(*cs.HT_BAND), cs.XS_T,
-                    np.ones_like(cs.XS_T), extras=extras)
-    k1("ht lattice", ht, ht.line_params(Ts, ps), ht.all_calls())
-    del ht, ht_store
+    if want("ht_lattice"):
+        # the HT lattice (phase 8)
+        ht_store, extras = cs.ht_lattice_case(dev)
+        ht = make_ht_fn(ht_store, iso, arange_drift_free(*cs.HT_BAND),
+                        cs.XS_T, np.ones_like(cs.XS_T), extras=extras)
+        k1("ht lattice", ht, ht.line_params(Ts, ps), ht.all_calls())
+        del ht, ht_store
 
     with open(out_path, "w") as f:
         json.dump(res, f)
+
+
+# the sections ``--only`` takes: the names ``child`` asks ``want`` about
+SECTIONS = tuple(dict.fromkeys(re.findall(r'want\("(\w+)"\)',
+                                          inspect.getsource(child))))
 
 
 def main(argv=None):
@@ -335,10 +398,15 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1,
                     help="repeat the four processes this many times")
+    ap.add_argument("--only", help="comma-separated sections to measure "
+                    f"(of {', '.join(SECTIONS)}; default all)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    only = None if a.only is None else a.only.split(",")
+    if only is not None and not set(only) <= set(SECTIONS):
+        ap.error(f"--only: unknown section in {a.only!r}")
     if a.child:
-        return child(a.child, a.reps)
+        return child(a.child, a.reps, only)
     if not a.parent:
         ap.error("--parent is required")
     import torch
@@ -358,7 +426,8 @@ def main(argv=None):
             path = os.path.join(tmp, f"{i}.json")
             t0 = time.perf_counter()
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", path, "--reps", str(a.reps)],
+                            "--child", path, "--reps", str(a.reps)]
+                           + (["--only", a.only] if a.only else []),
                            cwd=trees[who], check=True)
             with open(path) as f:
                 runs[who].append(json.load(f))
@@ -390,8 +459,14 @@ def main(argv=None):
         n = runs["this"][0]["passes"][key]["passes"]
         res["passes"][key] = {"other": o, "this": t, "identical": same,
                               "passes": n}
-        print(f"[ab] {key} ({n} passes): {fmt([o])} -> {fmt([t])} ms, "
-              f"bit-identical {same} [{card}]", flush=True)
+        on_card = ""
+        if "card_ms" in runs["this"][0]["passes"][key]:
+            oc, tc = (mean(r["passes"].get(key, {}).get("card_ms")
+                           for r in runs[who]) for who in ("other", "this"))
+            res["passes"][key].update(other_card=oc, this_card=tc)
+            on_card = f" (on the card {fmt([oc])} -> {fmt([tc])})"
+        print(f"[ab] {key} ({n} passes): {fmt([o])} -> {fmt([t])} ms"
+              f"{on_card}, bit-identical {same} [{card}]", flush=True)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

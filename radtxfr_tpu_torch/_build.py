@@ -64,9 +64,10 @@ _SIGNATURES = {
                                 P, P, P, I, I, I, P, I, I, I, I, I,
                                 ctypes.c_double, P, P],
     # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # lay_live, shift0, strength, gamma_d, gamma_0, gamma_2, wing, shift0_t,
-    # strength_t, gamma_d_t, gamma_0_t, gamma_2_t, n_dir, n_lay, n_lines,
-    # wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream
+    # live ((n_dir, n_lay) int32), shift0, strength, gamma_d, gamma_0,
+    # gamma_2, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t, gamma_2_t,
+    # n_dir, n_lay, n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx,
+    # out, stream
     "radtxfr_fused_sdvoigt_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P,
                                   P, P, P, P, P, P, I, I, I, P, I, I, I, I,
                                   I, ctypes.c_double, P, P],

@@ -50,11 +50,12 @@
 // PART1 (Gamma2 = Shift2 = 0) is uniform across a pair; PART2/3 never occur
 // for physical parameters but are carried, their w(Z) tested per point.
 //
-// Shape: K1's skeleton (fused_xsect.cu, k1_skeleton.cuh), over rows. The
-// output rows are K5's layers, or K6's (direction, layer) rows r = d *
-// n_lay_call + l (K3's design, fused_xsect_jvp.cu): one CTA per (128-point
-// slice of a tile, LC rows), four warps, each owning one 32-point span of
-// the slice and staging one row. A K6 row whose direction has no non-zero
+// Shape: K1's skeleton over rows, the row skeleton K4 shares
+// (k1_skeleton.cuh::row_skeleton, policy HtRows). The output rows are K5's
+// layers, or K6's (direction, layer) rows r = d * n_lay_call + l (K3's
+// design, fused_xsect_jvp.cu): one CTA per (128-point slice of a tile, 4
+// rows), four warps, each owning one 32-point span of the slice and
+// staging one row. A K6 row whose direction has no non-zero
 // tangent on its layer (the wrapper's (nd, nLay) table `live`) stages
 // nothing; a CTA without a live row writes its zeros and stops. The tile's
 // slots go through the cp.async ring (slot data two chunks ahead; the row's
@@ -117,12 +118,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;           // threads per CTA, one point each
-constexpr int NWARP = THREADS / 32;    // one 32-point span each
-constexpr int SPAN = THREADS;          // points per CTA
-constexpr int LC = NWARP;              // rows per CTA, one staged per warp
-constexpr int CH = 32;                 // line slots staged a chunk, a lane each
-static_assert(CH == 32 && LC == NWARP, "a warp stages one row, a lane a slot");
 constexpr int NK = 11;                 // HT constants per (layer, line)
 constexpr int NP = 2 + NK;             // strength, wing, constants
 constexpr int NT = 1 + NK;             // tangents per direction
@@ -634,41 +629,8 @@ struct HtPtrs {
   const float* t[NT];
 };
 
-// A CTA's shared memory: K1's ring of slot data, the raw parameters (and
-// tangents) of the next chunk's (slot, row) pairs, and each row's kept
-// pairs in slot order: their ht_pair values, strength, wingu, (window lo,
-// hi, k_line, frac0 bits) and Weideman range (lo, hi; absolute)
-template <class T, int NRAW>
-struct HtSmem {
-  int k[RING][CH];
-  float f[RING][CH];
-  int line[RING][CH];
-  float cap[RING][CH];
-  float raw[NRAW][LC][CH];
-  HtPair<T> pair[LC][CH];
-  T s[LC][CH];
-  float wingu[LC][CH];
-  int4 meta[LC][CH];
-  int2 near[LC][CH];
-  int n[LC];
-};
-
 template <bool TAN> struct Scalar { using type = Rn; };
 template <> struct Scalar<true> { using type = Dual<1>; };
-
-// a constant index into a register array from a loop variable
-template <int N>
-__device__ __forceinline__ float pick(const float (&a)[N], int i) {
-  float v = a[0];
-#pragma unroll
-  for (int j = 1; j < N; ++j) v = i == j ? a[j] : v;
-  return v;
-}
-template <int N>
-__device__ __forceinline__ void put(float (&a)[N], int i, float v) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) a[j] = i == j ? v : a[j];
-}
 
 // K5: strength * LS added to the running sum
 __device__ __forceinline__ float accumulate(float sum, const Rn& s,
@@ -682,195 +644,62 @@ __device__ __forceinline__ float accumulate(float sum, const Dual<1>& s,
   return isfinite(v) ? sum + v : sum;
 }
 
-// K5 (TAN false): rows are the layers of the call, n_dir 1, live unused.
-// K6 (TAN true): rows (direction, layer), live the launch's (n_dir, n_lay)
-// table, out (n_dir, n_lay_call, n_out).
+// K5's (TAN false) and K6's policy of the row skeleton
+// (k1_skeleton.cuh::row_skeleton): K5's rows are the layers of the call
+// (n_dir 1, no live table), K6's (direction, layer) rows
 template <bool TAN>
-__global__ void __launch_bounds__(THREADS)
-fused_ht_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
-                const int* __restrict__ k_line,
-                const float* __restrict__ frac0, const int* __restrict__ line,
-                const float* __restrict__ wcap,
-                const int* __restrict__ lay_idx, int n_lay_call,
-                const int* __restrict__ live, const HtPtrs ptr, int n_dir,
-                int n_lay, int n_lines, const float* __restrict__ wei_g,
-                int n_wei, int tile, int block, int sub_per_tile, int n_out,
-                float dx, float* __restrict__ out) {
+struct HtRows {
   using T = typename Scalar<TAN>::type;
-  constexpr int NRAW = TAN ? NP + NT : NP;
-  __shared__ HtSmem<T, NRAW> sm;
-  __shared__ float s_wei[MAX_WEI + 1];
+  static constexpr int N_PRM = NP, N_TAN = TAN ? NT : 0, I_WING = 1;
+  static constexpr int MAX_WEI = ::MAX_WEI;
+  using Ptrs = HtPtrs;
+  struct Kept {
+    HtPair<T> pair[ROW_LC][ROW_CH];
+    T s[ROW_LC][ROW_CH];
+    float wingu[ROW_LC][ROW_CH];
+  };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int tile_i = blockIdx.x / sub_per_tile;
-  const int sub = blockIdx.x - tile_i * sub_per_tile;
-  const int r0 = blockIdx.y * LC;
-  const int nr = min(LC, n_dir * n_lay_call - r0);
-  const int t0 = tile_i * tile;
-  const int kloc0 = sub * SPAN;
-  // a slice past the grid's end has no output: the whole CTA leaves
-  if (t0 + kloc0 >= n_out) return;
-  const int last = min(kloc0 + SPAN, tile) - 1;
-  const int r_lo = t0 + kloc0;                 // the slice's grid indices
-  const int r_hi = min(t0 + last, n_out - 1);
-  const int a = t0 + kloc0 + warp * 32;        // this warp's first point
-  const bool warp_live = kloc0 + warp * 32 <= last && a < n_out;
-  const int kg = a + lane;
-  const bool pt_live = kloc0 + warp * 32 + lane <= last && kg < n_out;
-
-  float acc[LC];
+  static __device__ __forceinline__ int2 stage(
+      Kept& kept, const float (*raw)[ROW_LC][ROW_CH], int i, int j, int pos,
+      float f0, float wu, int2 win, float dx) {
+    float kv[NK];
 #pragma unroll
-  for (int i = 0; i < LC; ++i) acc[i] = 0.0f;
-
-  // the row this warp stages: its parameter and tangent offsets, liveness
-  bool row_live = false;
-  size_t p_off = 0, t_off = 0;
-  if (warp < nr) {
-    const int r = r0 + warp;
-    const int d = r / n_lay_call;
-    const int pl = lay_idx[r - d * n_lay_call];
-    row_live = !TAN || live[d * n_lay + pl] != 0;
-    p_off = static_cast<size_t>(pl) * n_lines;
-    t_off = static_cast<size_t>(d) * n_lay * n_lines + p_off;
-  }
-
-  if (__syncthreads_or(row_live)) {
-    for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
-    const int slot0 = starts[tile_i] * block;
-    const int n_slots = counts[tile_i] * block;
-    const int n_chunks = (n_slots + CH - 1) / CH;
-
-    // slot data of chunk ch into its ring entry
-    auto issue_slots = [&](int ch) {
-      const int c0 = ch * CH;
-      const int nc = min(CH, n_slots - c0);
-      const int r = ch % RING;
-      for (int j = tid; j < nc; j += THREADS) {
-        const int s = slot0 + c0 + j;
-        cp_async4(&sm.k[r][j], k_line + s);
-        cp_async4(&sm.f[r][j], frac0 + s);
-        cp_async4(&sm.line[r][j], line + s);
-        cp_async4(&sm.cap[r][j], wcap + s);
-      }
-    };
-    // raw parameters (and tangents) of chunk ch's pairs of this warp's row
-    auto issue_params = [&](int ch) {
-      const int j = lane;
-      const int r = ch % RING;
-      if (!row_live || j >= min(CH, n_slots - ch * CH)) return;
-      const int g = sm.line[r][j];
-      if (g < 0) return;
+    for (int e = 0; e < NK; ++e) kv[e] = raw[2 + e][i][j];
+    const int2 nrg = ht_near_range(f0, kv, dx, win);
+    T kk[NK];
+    T sv = cst<T>(raw[0][i][j]);
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        cp_async4(&sm.raw[q][warp][j], ptr.p[q] + p_off + g);
-      if constexpr (TAN) {
+    for (int e = 0; e < NK; ++e) kk[e] = cst<T>(kv[e]);
+    if constexpr (TAN) {
 #pragma unroll
-        for (int q = 0; q < NT; ++q)
-          cp_async4(&sm.raw[NP + q][warp][j], ptr.t[q] + t_off + g);
-      }
-    };
-
-    if (n_chunks > 0) issue_slots(0);
-    cp_async_commit();
-    if (n_chunks > 1) issue_slots(1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (n_chunks > 0) issue_params(0);
-    cp_async_commit();
-
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int nc = min(CH, n_slots - ch * CH);
-      const int r = ch % RING;
-      cp_async_wait<0>();
-      __syncthreads();   // chunk ch's parameters and ch + 1's slots are in;
-                         // the previous chunk is consumed
-      // this warp's row: windows, Weideman ranges and the kept pairs
-      {
-        const int i = warp;
-        const int j = lane;
-        bool keep = false;
-        int2 win = make_int2(1, 0);
-        int kl = 0;
-        float f0 = 0.0f, wu = 0.0f;
-        if (row_live && j < nc && sm.line[r][j] >= 0) {
-          kl = sm.k[r][j];
-          f0 = sm.f[r][j];
-          wu = fminf(sm.raw[1][i][j], sm.cap[r][j]) / dx;
-          win = window_range(f0, wu);
-          bool tz = !TAN;
-          if constexpr (TAN) {
-#pragma unroll
-            for (int e = 0; e < NT; ++e) tz |= sm.raw[NP + e][i][j] != 0.0f;
-          }
-          keep = tz && win.x <= win.y && kl + win.y >= r_lo &&
-                 kl + win.x <= r_hi;
-        }
-        const unsigned bal = __ballot_sync(0xffffffffu, keep);
-        if (keep) {
-          float kv[NK];
-#pragma unroll
-          for (int e = 0; e < NK; ++e) kv[e] = sm.raw[2 + e][i][j];
-          const int2 nrg = ht_near_range(f0, kv, dx, win);
-          T kk[NK];
-          T sv = cst<T>(sm.raw[0][i][j]);
-#pragma unroll
-          for (int e = 0; e < NK; ++e) kk[e] = cst<T>(kv[e]);
-          if constexpr (TAN) {
-#pragma unroll
-            for (int e = 0; e < NK; ++e) kk[e].t[0] = sm.raw[NP + 1 + e][i][j];
-            sv.t[0] = sm.raw[NP][i][j];
-          }
-          const int pos = __popc(bal & ((1u << lane) - 1u));
-          sm.pair[i][pos] = ht_pair<T>(kk);
-          sm.s[i][pos] = sv;
-          sm.wingu[i][pos] = wu;
-          sm.meta[i][pos] = make_int4(kl + win.x, kl + win.y, kl,
-                                      __float_as_int(f0));
-          sm.near[i][pos] = make_int2(kl + nrg.x, kl + nrg.y);
-        }
-        if (lane == 0) sm.n[i] = __popc(bal);
-      }
-      __syncthreads();
-      if (ch + 1 < n_chunks) issue_params(ch + 1);
-      if (ch + 2 < n_chunks) issue_slots(ch + 2);
-      cp_async_commit();
-
-      if (warp_live) {
-#pragma unroll 1
-        for (int i = 0; i < nr; ++i) {
-          const int n = sm.n[i];
-          if (n == 0) continue;
-          float sum = pick(acc, i);
-          for (int k = 0; k < n; ++k) {
-            const int4 mt = sm.meta[i][k];
-            // warp-uniform: does the window meet this warp's span?
-            if (mt.y < a || mt.x > a + 31) continue;
-            const int2 nrg = sm.near[i][k];
-            // warp-uniform: the span lies outside every Weideman region
-            const bool far = nrg.y < a || nrg.x > a + 31;
-            const float u = static_cast<float>(kg - mt.z) -
-                            __int_as_float(mt.w);
-            const float wu = sm.wingu[i][k];
-            if (!pt_live || !(u > -wu && u <= wu)) continue;
-            const T ls = pcqsdhc<T>(__fmul_rn(u, dx), sm.pair[i][k], s_wei,
-                                    n_wei, far);
-            sum = accumulate(sum, sm.s[i][k], ls);
-          }
-          put(acc, i, sum);
-        }
-      }
+      for (int e = 0; e < NK; ++e) kk[e].t[0] = raw[NP + 1 + e][i][j];
+      sv.t[0] = raw[NP][i][j];
     }
-    cp_async_wait<0>();
+    kept.pair[i][pos] = ht_pair<T>(kk);
+    kept.s[i][pos] = sv;
+    kept.wingu[i][pos] = wu;
+    return nrg;
   }
 
-  // every row of the CTA, live or not (a dead row's sums are zeros)
-  if (!pt_live) return;
-#pragma unroll
-  for (int i = 0; i < LC; ++i)
-    if (i < nr) out[static_cast<size_t>(r0 + i) * n_out + kg] = acc[i];
+  static __device__ __forceinline__ float eval(float sum, const Kept& kept,
+                                               int i, int k, float u,
+                                               bool pt_live, bool far,
+                                               const float* wei, int n_wei,
+                                               float dx) {
+    const float wu = kept.wingu[i][k];
+    if (!pt_live || !(u > -wu && u <= wu)) return sum;
+    const T ls = pcqsdhc<T>(__fmul_rn(u, dx), kept.pair[i][k], wei, n_wei,
+                            far);
+    return accumulate(sum, kept.s[i][k], ls);
+  }
+};
+
+template <bool TAN>
+__global__ void __launch_bounds__(ROW_THREADS)
+fused_ht_kernel(const RowArgs<HtPtrs> args) {
+  __shared__ RowSmem<HtRows<TAN>> sm;
+  __shared__ float s_wei[MAX_WEI + 1];
+  row_skeleton<HtRows<TAN>>(args, sm, s_wei);
 }
 
 int launch(bool tan, const void* starts, const void* counts,
@@ -879,32 +708,13 @@ int launch(bool tan, const void* starts, const void* counts,
            const void* live, const HtPtrs& ptr, int n_dir, int n_lay,
            int n_lines, const void* wei, int n_wei, int tile, int block,
            int n_tiles, int n_out, double dx, void* out, void* stream) {
-  const long long row_groups =
-      (static_cast<long long>(n_dir) * n_lay_call + LC - 1) / LC;
-  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
-      row_groups > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
-  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  static_cast<unsigned>(row_groups));
-  if (grid.x == 0 || grid.y == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RADTXFR_LAUNCH(TAN)                                                   \
-  fused_ht_kernel<TAN><<<grid, THREADS, 0, s>>>(                              \
-      static_cast<const int*>(starts), static_cast<const int*>(counts),       \
-      static_cast<const int*>(k_line), static_cast<const float*>(frac0),      \
-      static_cast<const int*>(line), static_cast<const float*>(wcap),         \
-      static_cast<const int*>(lay_idx), n_lay_call,                           \
-      static_cast<const int*>(live), ptr, n_dir, n_lay, n_lines,              \
-      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile,       \
-      n_out, static_cast<float>(dx), static_cast<float*>(out))
-  if (tan) {
-    RADTXFR_LAUNCH(true);
-  } else {
-    RADTXFR_LAUNCH(false);
-  }
+  row_launch<HtRows<TAN>>(fused_ht_kernel<TAN>, starts, counts, k_line,       \
+                          frac0, line, wcap, lay_idx, n_lay_call, live, ptr,  \
+                          n_dir, n_lay, n_lines, wei, n_wei, tile, block,     \
+                          n_tiles, n_out, dx, out, stream)
+  return tan ? RADTXFR_LAUNCH(true) : RADTXFR_LAUNCH(false);
 #undef RADTXFR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

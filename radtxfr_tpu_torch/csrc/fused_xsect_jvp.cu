@@ -1,6 +1,10 @@
-// K3: the tangent of the layered Voigt line-shape accumulation (mode full)
-// for Hopper (sm_90a), for a batch of tangent directions; K4, the SD-Voigt
-// tangent (mode sdvoigt), follows below with its own note.
+// K3 and K4: the tangents of the layered Voigt (mode full) and SD-Voigt
+// (mode sdvoigt) line-shape accumulations for Hopper (sm_90a), for a batch
+// of tangent directions. Both run K1's CTA skeleton over (direction, layer)
+// output rows, cull and compact each row's (slot, row) pairs by integer
+// window and live direction, and evaluate spans outside every Weideman
+// region branch-free; FP32 issue bounds both. K3's note follows; K4's
+// precedes its kernel below.
 //
 // Replaces radtxfr_tpu/kernels/pallas_xsect.py::_make_fused_jvp_kernel
 // (launcher _xsect_fused_jvp_call, the JVP rule of xsect_fused_voigt_diff).
@@ -67,12 +71,8 @@
 
 namespace {
 
-constexpr int THREADS = 64;            // threads per CTA
-constexpr int PPT = 2;                 // K4: grid points per thread
-constexpr int SPAN = THREADS * PPT;    // K4: points per CTA
-constexpr int LC = 4;                  // K4: layers per CTA
-constexpr int CH = 32;                 // line slots staged per step
-constexpr int ND_MAX = 8;              // K4: directions per launch at most
+constexpr int THREADS = 64;            // K3: threads per CTA
+constexpr int CH = 32;                 // K3: line slots staged per step
 constexpr int MAX_WEI = 32;            // Weideman terms at most
 constexpr int K3_PPT = 2;              // K3: grid points per thread
 constexpr int K3_SPAN = THREADS * K3_PPT;   // K3: points per CTA
@@ -460,74 +460,120 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
 // (K, Kx, Ky) are the region-consistent derivatives of the Weideman or the
 // unguarded asymptotic form, also inside the primal's CPF3 sub-band (JAX's
 // kernel takes the blend's slope there; a dual-number K4 would take CPF3's
-// and differ from the reference). Per (line, layer) the kernel stages the
-// primal constants the point loop needs and, per direction, (num_r, dc,
-// shift0_t, g2e_t) and (strength_t A, gamma_d_t sA/gamma_d), the hoisted
-// per-line parts of the formula (the same operations on the same values as
-// the plain version's, so hoisting rounds nothing differently); each point
-// evaluates (K, Kx, Ky) at both CPF points once for all directions. The
-// point math is the non-contracting __f*_rn form in the plain version's
-// order: the w(Z1) - w(Z2) difference amplifies rounding, as in K1's
-// SD-Voigt block. Shape: one CTA per (SPAN-point slice of a tile, LC
-// layers), one thread per PPT points, the tile's slots staged CH at a time
-// in shared memory, registers holding LC x PPT x ND accumulators (64 at
-// ND = 8), every output written once by one thread (no atomics). Skipping:
-// a (layer, slot) pair whose coefficients are zero for every direction is
-// skipped, uniformly across the CTA; layers with no non-zero tangent
-// (lay_live, from the wrapper) are not staged, and a CTA without a live
-// layer writes zeros and returns. FP32 issue bounds it:
-// per evaluation 37 lane-ops (window, dnu, xi, the square root S, the
-// denominator, K1 - K2), per CPF point a (K, Kx, Ky) after its 3-op region
-// test (Weideman 49 + 15 n_wei, asymptotic 38) and 32 per direction
-// (chip_smoke.py K4_BASE, KG_WEI, KG_ASYM, K4_DIR; each CPF point counted
-// by its own region: Z2 = S + c leaves |x| + y < 15 before Z1 = S - c).
+// and differ from the reference). The point math is the non-contracting
+// __f*_rn form in the plain version's order: the w(Z1) - w(Z2) difference
+// amplifies rounding, as in K1's SD-Voigt block.
+//
+// Shape: K3's (direction, layer) rows on K1's skeleton, the row skeleton
+// K5 and K6 share (k1_skeleton.cuh::row_skeleton, policy SdRows): one CTA
+// per (128-point slice of a tile, 4 rows r = d * n_lay_call + l), four
+// warps, each owning one 32-point span of the slice and staging one row. A
+// row whose direction has no non-zero tangent on its layer (the wrapper's
+// (nd, nLay) table `live`) stages nothing; a CTA without a live row writes
+// its zeros and stops; each evaluation updates its row's one direction. The
+// tile's slots go through the cp.async ring (slot data two chunks ahead;
+// the row's 6 parameters and its direction's 5 tangents one chunk ahead).
+// Each staged (slot, row) pair gets its integer window (window_range on the
+// capped wing) and is kept, per row in slot order (ballot and prefix
+// count), only if one of its direction's tangents is non-zero and the
+// window meets the slice. A kept pair's point-independent values are
+// computed once then (sd_pair: 1/Gamma2, Re X + c^2, c, strength A and the
+// direction's (num_r, dc, shift0_t, g2e_t, strength_t A, gamma_d_t
+// sA/gamma_d), the same operations on the same values as the per-point
+// form, so hoisting rounds nothing differently), with its Weideman range
+// (sd_near_range: a superset of the grid offsets at which a CPF point can
+// take the Weideman branch). Each warp tests a kept pair's window against
+// its span with a warp-uniform compare; a span wholly outside the pair's
+// Weideman range evaluates both CPF points in the asymptotic form,
+// branch-free and masked by the window; a span that meets it keeps the
+// per-lane region rule (sd_k_grads). A culled pair holds only points whose
+// window test fails or whose terms are exact +-0 (its direction's five
+// tangents are zero there; adding +-0 to a sum begun at +0 leaves it as it
+// is), and a span sent to the asymptotic form holds only points the
+// per-lane test sends there, so each (direction, layer, point) adds the
+// same terms in slot order as a walk over every slot with every direction:
+// the outputs are that walk's bits. Every output is written once by one
+// thread: no atomics; the same inputs give bit-identical outputs.
+//
+// Bound. FP32 issue, as K3 and K6: the inner loop reads shared memory only,
+// and an evaluation is hundreds of lane-ops. Hand counts (a*b+c = 2, sqrt
+// 3, divide 4, a compare or a select 1, a negation free) per evaluation:
+// the window, dnu, xi, S and the denominator (sd_point) 37; per CPF point
+// its (K, Kx, Ky) after the 3-op region test (Weideman 49 + 15 n_wei, the
+// asymptotic form 38); per live direction its term (sd_term, with K1 - K2)
+// and the add, 32. chip_smoke.py counts the evaluations on the host (each
+// CPF point by its own region: Z2 = S + c leaves |x| + y < 15 before Z1 =
+// S - c) with the evaluation's shared work once per live (pair, point) and
+// the term once per live (pair, direction, point), K3's convention, and
+// the SASS instructions of each piece (tools/sass.py::k4_eval_instructions)
+// for the issue-slot bound.
+//
+// Occupancy: see K4_MIN_CTAS.
+//
+// Numerics: float32, IEEE division and square root, no contraction in the
+// point math (the __f*_rn wrappers below).
+
+constexpr int K4_NP = 6;   // shift0, strength, gamma_d, gamma_0, gamma_2, wing
+constexpr int K4_NT = 5;   // the tangents of the first five
+// Occupancy, chosen by timing each variant against the others in turns
+// (kernel_ab.py, the card's kernel time of each pass; PERF.md): a
+// register cap for 8 CTAs an SM, at which ptxas takes 62 registers without
+// spills (16.5 KB of shared memory a CTA). Uncapped (78 registers, 6
+// CTAs) was 2-3% slower on the SD-Voigt OD's passes; a cap for 10 CTAs (48
+// registers, 32 bytes of spills) 5-8% slower; 256 threads (8 rows,
+// 256-point slices, 4 CTAs) 7-22% slower on the HT Jacobian's 128-point
+// tiles; 64 threads (2 rows, 64-point slices) 12% slower.
+constexpr int K4_MIN_CTAS = 8;
 
 __device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float xa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float xs(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float xd(float a, float b) { return __fdiv_rn(a, b); }
 
-// (K, Kx, Ky) of the Weideman series or the unguarded asymptotic form by
-// hum1_wei's region rule, y elementwise, non-contracting
-// (fused_xsect.py::_voigt_k_grads)
-__device__ __forceinline__ KGrads k_grads_x(float x, float y, const float* wei,
-                                            int n_wei) {
+// (K, Kx, Ky) of the Weideman series, |x| + y < 15, non-contracting
+// (fused_xsect.py::_weideman_k_grads)
+__device__ __forceinline__ KGrads sd_k_wei(float x, float y, const float* wei,
+                                           int n_wei) {
   KGrads g;
-  if (xa(fabsf(x), y) < REGION_BOUND) {
-    const float L = wei[0];
-    const float er = xa(L, y), ei = -x;
-    const float inv_e = xd(1.0f, xa(xm(er, er), xm(ei, ei)));
-    const float ier = xm(er, inv_e), iei = xm(-ei, inv_e);
-    const float nr = xs(L, y), ni = x;
-    const float zr = xm(xa(xm(nr, er), xm(ni, ei)), inv_e);
-    const float zi = xm(xs(xm(ni, er), xm(nr, ei)), inv_e);
-    float pr = wei[1], pi = 0.0f, qr = 0.0f, qi = 0.0f;
-    for (int k = 2; k <= n_wei; ++k) {
-      const float tqr = xa(xs(xm(qr, zr), xm(qi, zi)), pr);
-      qi = xa(xa(xm(qr, zi), xm(qi, zr)), pi);
-      qr = tqr;
-      const float tpr = xa(xs(xm(pr, zr), xm(pi, zi)), wei[k]);
-      pi = xa(xm(pr, zi), xm(pi, zr));
-      pr = tpr;
-    }
-    const float i2r = xs(xm(ier, ier), xm(iei, iei));
-    const float i2i = xm(xm(2.0f, ier), iei);
-    const float i3r = xs(xm(i2r, ier), xm(i2i, iei));
-    const float i3i = xa(xm(i2r, iei), xm(i2i, ier));
-    const float i4r = xs(xm(i2r, i2r), xm(i2i, i2i));
-    const float i4i = xm(xm(2.0f, i2r), i2i);
-    const float c4 = xm(4.0f, L);
-    const float Qr = xa(xa(xm(c4, xs(xm(qr, i4r), xm(qi, i4i))),
-                           xm(4.0f, xs(xm(pr, i3r), xm(pi, i3i)))),
-                        xm(INV_SQRT_PI, i2r));
-    const float Qi = xa(xa(xm(c4, xa(xm(qr, i4i), xm(qi, i4r))),
-                           xm(4.0f, xa(xm(pr, i3i), xm(pi, i3r)))),
-                        xm(INV_SQRT_PI, i2i));
-    g.K = xa(xm(2.0f, xs(xm(pr, i2r), xm(pi, i2i))), xm(INV_SQRT_PI, ier));
-    g.Kx = -Qi;
-    g.Ky = -Qr;
-    return g;
+  const float L = wei[0];
+  const float er = xa(L, y), ei = -x;
+  const float inv_e = xd(1.0f, xa(xm(er, er), xm(ei, ei)));
+  const float ier = xm(er, inv_e), iei = xm(-ei, inv_e);
+  const float nr = xs(L, y), ni = x;
+  const float zr = xm(xa(xm(nr, er), xm(ni, ei)), inv_e);
+  const float zi = xm(xs(xm(ni, er), xm(nr, ei)), inv_e);
+  float pr = wei[1], pi = 0.0f, qr = 0.0f, qi = 0.0f;
+  for (int k = 2; k <= n_wei; ++k) {
+    const float tqr = xa(xs(xm(qr, zr), xm(qi, zi)), pr);
+    qi = xa(xa(xm(qr, zi), xm(qi, zr)), pi);
+    qr = tqr;
+    const float tpr = xa(xs(xm(pr, zr), xm(pi, zi)), wei[k]);
+    pi = xa(xm(pr, zi), xm(pi, zr));
+    pr = tpr;
   }
+  const float i2r = xs(xm(ier, ier), xm(iei, iei));
+  const float i2i = xm(xm(2.0f, ier), iei);
+  const float i3r = xs(xm(i2r, ier), xm(i2i, iei));
+  const float i3i = xa(xm(i2r, iei), xm(i2i, ier));
+  const float i4r = xs(xm(i2r, i2r), xm(i2i, i2i));
+  const float i4i = xm(xm(2.0f, i2r), i2i);
+  const float c4 = xm(4.0f, L);
+  const float Qr = xa(xa(xm(c4, xs(xm(qr, i4r), xm(qi, i4i))),
+                         xm(4.0f, xs(xm(pr, i3r), xm(pi, i3i)))),
+                      xm(INV_SQRT_PI, i2r));
+  const float Qi = xa(xa(xm(c4, xa(xm(qr, i4i), xm(qi, i4r))),
+                         xm(4.0f, xa(xm(pr, i3i), xm(pi, i3r)))),
+                      xm(INV_SQRT_PI, i2i));
+  g.K = xa(xm(2.0f, xs(xm(pr, i2r), xm(pi, i2i))), xm(INV_SQRT_PI, ier));
+  g.Kx = -Qi;
+  g.Ky = -Qr;
+  return g;
+}
+
+// (K, Kx, Ky) of the unguarded asymptotic form, non-contracting
+// (fused_xsect.py::_asym_k_grads)
+__device__ __forceinline__ KGrads sd_k_asym(float x, float y) {
+  KGrads g;
   const float dr = xs(xa(0.5f, xm(y, y)), xm(x, x));
   const float di = xm(xm(-2.0f, x), y);
   const float inv = xd(1.0f, xa(xm(dr, dr), xm(di, di)));
@@ -544,186 +590,164 @@ __device__ __forceinline__ KGrads k_grads_x(float x, float y, const float* wei,
   return g;
 }
 
-template <int ND>
-__global__ void __launch_bounds__(THREADS)
-fused_sdvoigt_jvp_kernel(const int* __restrict__ starts,
-                         const int* __restrict__ counts,
-                         const int* __restrict__ k_line,
-                         const float* __restrict__ frac0,
-                         const int* __restrict__ line,
-                         const float* __restrict__ wcap,
-                         const int* __restrict__ lay_idx, int n_lay_call,
-                         const int* __restrict__ lay_live,
-                         const float* __restrict__ shift0,
-                         const float* __restrict__ strength,
-                         const float* __restrict__ gamma_d,
-                         const float* __restrict__ gamma_0,
-                         const float* __restrict__ gamma_2,
-                         const float* __restrict__ wing,
-                         const float* __restrict__ shift0_t,
-                         const float* __restrict__ strength_t,
-                         const float* __restrict__ gamma_d_t,
-                         const float* __restrict__ gamma_0_t,
-                         const float* __restrict__ gamma_2_t, int n_dir,
-                         int n_lay, int n_lines,
-                         const float* __restrict__ wei_g, int n_wei, int tile,
-                         int block, int sub_per_tile, int n_out, float dx,
-                         float* __restrict__ out) {
-  // a = (s0, 1/g2, wingu, live), b = (xr + c^2, c, strength A, 0)
-  __shared__ LineConst s_c[LC][CH];
-  __shared__ float4 s_t4[LC][CH][ND];   // (num_r, dc, s0_t, g2e_t)
-  __shared__ float2 s_t2[LC][CH][ND];   // (s_t A, gd_t sA/gd)
-  __shared__ int s_k[CH];
-  __shared__ float s_f[CH];
+// (K, Kx, Ky) by hum1_wei's region rule (fused_xsect.py::_voigt_k_grads)
+__device__ __forceinline__ KGrads sd_k_grads(float x, float y,
+                                             const float* wei, int n_wei) {
+  if (xa(fabsf(x), y) < REGION_BOUND) return sd_k_wei(x, y, wei, n_wei);
+  return sd_k_asym(x, y);
+}
+
+// A kept (slot, row) pair's point-independent values
+struct SdPair {
+  float4 a;   // shift0, 1/Gamma2, Re X + c^2 (aa), c
+  float4 b;   // strength A, num_r, dc, shift0_t
+  float4 t;   // g2e_t, strength_t A, gamma_d_t sA/gamma_d, wingu
+};
+
+// From the (layer, line) parameters p (shift0, strength, gamma_d, gamma_0,
+// gamma_2) and the row direction's tangents t (of the same five): the
+// plain version's per-line algebra (a scalar divided by a tensor being its
+// reciprocal times the scalar)
+__device__ __forceinline__ SdPair sd_pair(const float* p, const float* t,
+                                          float wingu) {
+  const float gd = p[2], g0 = p[3], g2r = p[4];
+  const float cte = xm(1.0f / gd, SQRT_LN2);
+  const float clamp = xa(xm(1e-4f, g0), 1e-12f);
+  const float g2 = fmaxf(g2r, clamp);
+  const float inv_g2 = 1.0f / g2;
+  const float xr = xm(xs(g0, xm(1.5f, g2)), inv_g2);
+  const float cc = xm(1.0f / xm(cte, g2), 0.5f);
+  const float A = xm(INV_SQRT_PI, cte);
+  const float sA = xm(p[1], A);
+  const float k_gd = xd(sA, gd);
+  const float s0_t = t[0], s_t = t[1], gd_t = t[2], g0_t = t[3];
+  const float g2e_t = g2r >= clamp ? t[4] : xm(1e-4f, g0_t);
+  const float dXr = xm(inv_g2, xs(g0_t, xm(xa(1.5f, xr), g2e_t)));
+  const float dc = xm(cc, xs(xd(gd_t, gd), xm(inv_g2, g2e_t)));
+  SdPair q;
+  q.a = make_float4(p[0], inv_g2, xa(xr, xm(cc, cc)), cc);
+  q.b = make_float4(sA, xa(dXr, xm(xm(2.0f, cc), dc)), dc, s0_t);
+  q.t = make_float4(g2e_t, xm(s_t, A), xm(gd_t, k_gd), wingu);
+  return q;
+}
+
+// Re X + c^2 above this share of R^2 = (15 + c)^2 (the CPF points' Weideman
+// boundary near tangency) makes the float32 region test ill-conditioned:
+// the pair takes its whole window (sd_near_range)
+constexpr float K4_NEAR_P_MAX = 0.9f;
+
+// The grid offsets d - k_line (a superset, within the window range win) at
+// which a CPF point of the pair can take hum1_wei's Weideman branch: K5's
+// PART4 range (fused_ht.cu::ht_near_range) with c2t and csqrtY = c real.
+// S = sqrt(X + c^2) = us + i vs, P = |Re X + c^2| and |Im X| = |shift0 -
+// dnu| / Gamma2; Z1 = S - c lies in |Im Z| + Re Z < 15 where us + |vs| <
+// R = 15 + c (Z2 = S + c only inside that), and (us + |vs|)^2 = |X + c^2| +
+// |Im X| grows with |Im X| from P: below R^2 exactly where |Im X| < (R^4 -
+// P^2) / (2 R^2), nowhere if P >= R^2. The radius is widened by 1e-4 of
+// itself and a grid step (window_range adds two more), as core_range's.
+// Near tangency (P > 0.9 R^2, which large c or the Voigt-limit clamp
+// give) the float32 Im S = sqrt((|X + c^2| - P)/2) cancels enough to move
+// the test's boundary past that margin: the whole window (NaN likewise).
+__device__ __forceinline__ int2 sd_near_range(float f0, const SdPair& q,
+                                              float dx, int2 win) {
+  const float P = fabsf(q.a.z);
+  const float R = REGION_BOUND + q.a.w;
+  const float R2 = R * R;
+  if (P >= R2 * 1.001f) return make_int2(1, 0);
+  if (!(P <= K4_NEAR_P_MAX * R2)) return win;
+  const float r = (R2 - P) * (R2 + P) / (2.0f * R2) / (q.a.y * dx);
+  const int2 cw = window_range(f0 + q.a.x / dx, r * 1.0001f + 1.0f);
+  return make_int2(max(win.x, cw.x), min(win.y, cw.y));
+}
+
+// One point's S = sqrt(X + c^2) = us + i vs, Im X and the denominator 2 |S|^2
+struct SdPoint {
+  float xi, us, vs, den;
+};
+
+__device__ __forceinline__ SdPoint sd_point(float u, const SdPair& q,
+                                            float dx) {
+  const float inv_g2 = q.a.y, aa = q.a.z;
+  SdPoint s;
+  s.xi = xm(xs(q.a.x, xm(u, dx)), inv_g2);
+  const float r = __fsqrt_rn(xa(xm(aa, aa), xm(s.xi, s.xi)));
+  s.us = __fsqrt_rn(fmaxf(xm(xa(r, aa), 0.5f), 0.0f));
+  const float sv = __fsqrt_rn(fmaxf(xm(xs(r, aa), 0.5f), 0.0f));
+  s.vs = s.xi > 0.0f ? sv : (s.xi < 0.0f ? -sv : 0.0f);
+  s.den = xm(2.0f, fmaxf(xa(xm(s.us, s.us), xm(s.vs, s.vs)), 1e-30f));
+  return s;
+}
+
+// The row direction's term of one evaluation, from the two CPF points'
+// (K, Kx, Ky)
+__device__ __forceinline__ float sd_term(const SdPoint& s, const KGrads& g1,
+                                         const KGrads& g2, const SdPair& q) {
+  const float num_r = q.b.y, dc = q.b.z;
+  const float dK12 = xs(g1.K, g2.K);
+  const float dXi = xm(q.a.y, xs(q.b.w, xm(s.xi, q.t.x)));
+  const float dSr = xd(xa(xm(num_r, s.us), xm(dXi, s.vs)), s.den);
+  const float dSi = xd(xs(xm(dXi, s.us), xm(num_r, s.vs)), s.den);
+  const float dK1 = xa(xm(g1.Kx, -dSi), xm(g1.Ky, xs(dSr, dc)));
+  const float dK2 = xa(xm(g2.Kx, -dSi), xm(g2.Ky, xa(dSr, dc)));
+  return xa(xs(xm(q.t.y, dK12), xm(q.t.z, dK12)), xm(q.b.x, xs(dK1, dK2)));
+}
+
+// the (nLay, L) parameter rows and the (n_dir, nLay, L) tangent rows
+struct SdPtrs {
+  const float* p[K4_NP];
+  const float* t[K4_NT];
+};
+
+// K4's policy of the row skeleton (k1_skeleton.cuh::row_skeleton)
+struct SdRows {
+  static constexpr int N_PRM = K4_NP, N_TAN = K4_NT, I_WING = 5;
+  static constexpr int MAX_WEI = ::MAX_WEI;
+  using Ptrs = SdPtrs;
+  struct Kept {
+    SdPair pair[ROW_LC][ROW_CH];
+  };
+
+  static __device__ __forceinline__ int2 stage(
+      Kept& kept, const float (*raw)[ROW_LC][ROW_CH], int i, int j, int pos,
+      float f0, float wu, int2 win, float dx) {
+    float pv[K4_NP - 1], tv[K4_NT];
+#pragma unroll
+    for (int e = 0; e < K4_NP - 1; ++e) pv[e] = raw[e][i][j];
+#pragma unroll
+    for (int e = 0; e < K4_NT; ++e) tv[e] = raw[K4_NP + e][i][j];
+    const SdPair q = sd_pair(pv, tv, wu);
+    kept.pair[i][pos] = q;
+    return sd_near_range(f0, q, dx, win);
+  }
+
+  static __device__ __forceinline__ float eval(float sum, const Kept& kept,
+                                               int i, int k, float u,
+                                               bool pt_live, bool far,
+                                               const float* wei, int n_wei,
+                                               float dx) {
+    const SdPair q = kept.pair[i][k];
+    const bool in = pt_live && u > -q.t.w && u <= q.t.w;
+    if (far) {
+      // no point of the span in a Weideman region: branch-free
+      const SdPoint s = sd_point(u, q, dx);
+      const KGrads g1 = sd_k_asym(-s.vs, xs(s.us, q.a.w));
+      const KGrads g2 = sd_k_asym(-s.vs, xa(s.us, q.a.w));
+      const float v = sd_term(s, g1, g2, q);
+      return in ? sum + v : sum;
+    }
+    if (!in) return sum;
+    const SdPoint s = sd_point(u, q, dx);
+    const KGrads g1 = sd_k_grads(-s.vs, xs(s.us, q.a.w), wei, n_wei);
+    const KGrads g2 = sd_k_grads(-s.vs, xa(s.us, q.a.w), wei, n_wei);
+    return sum + sd_term(s, g1, g2, q);
+  }
+};
+
+__global__ void __launch_bounds__(ROW_THREADS, K4_MIN_CTAS)
+fused_sdvoigt_jvp_kernel(const RowArgs<SdPtrs> args) {
+  __shared__ RowSmem<SdRows> sm;
   __shared__ float s_wei[MAX_WEI + 1];
-  __shared__ int s_live[LC];
-
-  const int tid = threadIdx.x;
-  const int tile_i = blockIdx.x / sub_per_tile;
-  const int sub = blockIdx.x - tile_i * sub_per_tile;
-  const int l0 = blockIdx.y * LC;
-  const int nl = min(LC, n_lay_call - l0);
-
-  for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
-  if (tid < LC) s_live[tid] = tid < nl ? lay_live[lay_idx[l0 + tid]] : 0;
-
-  int kg[PPT];
-  bool live[PPT];
-#pragma unroll
-  for (int p = 0; p < PPT; ++p) {
-    const int kloc = sub * SPAN + p * THREADS + tid;
-    kg[p] = tile_i * tile + kloc;
-    live[p] = kloc < tile && kg[p] < n_out;
-  }
-
-  float acc[LC][PPT][ND];
-#pragma unroll
-  for (int l = 0; l < LC; ++l)
-#pragma unroll
-    for (int p = 0; p < PPT; ++p)
-#pragma unroll
-      for (int d = 0; d < ND; ++d) acc[l][p][d] = 0.0f;
-
-  __syncthreads();
-  bool any_live = false;
-#pragma unroll
-  for (int l = 0; l < LC; ++l) any_live |= s_live[l] != 0;
-
-  const int slot0 = starts[tile_i] * block;
-  const int n_slots = any_live ? counts[tile_i] * block : 0;
-  for (int c0 = 0; c0 < n_slots; c0 += CH) {
-    const int nc = min(CH, n_slots - c0);
-    __syncthreads();   // the previous chunk is consumed
-    for (int j = tid; j < nc; j += THREADS) {
-      s_k[j] = k_line[slot0 + c0 + j];
-      s_f[j] = frac0[slot0 + c0 + j];
-    }
-    for (int i = tid; i < nl * nc; i += THREADS) {
-      const int l = i / nc;
-      const int j = i - l * nc;
-      const int s = slot0 + c0 + j;
-      const int g = line[s];
-      LineConst c;
-      bool pair_live = false;
-      if (g >= 0 && s_live[l]) {
-        const size_t off = static_cast<size_t>(lay_idx[l0 + l]) * n_lines + g;
-        // the plain version's per-line algebra (a scalar divided by a
-        // tensor being its reciprocal times the scalar)
-        const float gd = gamma_d[off], g0 = gamma_0[off], g2r = gamma_2[off];
-        const float cte = xm(1.0f / gd, SQRT_LN2);
-        const float clamp = xa(xm(1e-4f, g0), 1e-12f);
-        const float g2 = fmaxf(g2r, clamp);
-        const float inv_g2 = 1.0f / g2;
-        const float xr = xm(xs(g0, xm(1.5f, g2)), inv_g2);
-        const float cc = xm(1.0f / xm(cte, g2), 0.5f);
-        const float A = xm(INV_SQRT_PI, cte);
-        const float sA = xm(strength[off], A);
-        const float k_gd = xd(sA, gd);
-        c.a = make_float4(shift0[off], inv_g2, fminf(wing[off], wcap[s]) / dx,
-                          0.0f);
-        c.b = make_float4(xa(xr, xm(cc, cc)), cc, sA, 0.0f);
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          float4 t4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          float2 t2 = make_float2(0.0f, 0.0f);
-          if (d < n_dir) {
-            const size_t toff = static_cast<size_t>(d) * n_lay * n_lines + off;
-            const float s_t = strength_t[toff], gd_t = gamma_d_t[toff];
-            const float g0_t = gamma_0_t[toff], s0_t = shift0_t[toff];
-            const float g2e_t = g2r >= clamp ? gamma_2_t[toff] : xm(1e-4f, g0_t);
-            const float dXr = xm(inv_g2, xs(g0_t, xm(xa(1.5f, xr), g2e_t)));
-            const float dc = xm(cc, xs(xd(gd_t, gd), xm(inv_g2, g2e_t)));
-            t4 = make_float4(xa(dXr, xm(xm(2.0f, cc), dc)), dc, s0_t, g2e_t);
-            t2 = make_float2(xm(s_t, A), xm(gd_t, k_gd));
-            pair_live |= s_t != 0.0f || gd_t != 0.0f || g0_t != 0.0f ||
-                         s0_t != 0.0f || gamma_2_t[toff] != 0.0f;
-          }
-          s_t4[l][j][d] = t4;
-          s_t2[l][j][d] = t2;
-        }
-      } else {
-        // padding slot or dead layer: never evaluated
-        c.a = make_float4(0.0f, 1.0f, 0.0f, 0.0f);
-        c.b = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
-      }
-      c.a.w = pair_live ? 1.0f : 0.0f;
-      s_c[l][j] = c;
-    }
-    __syncthreads();
-    for (int j = 0; j < nc; ++j) {
-      const int kl = s_k[j];
-      const float f0 = s_f[j];
-      float u[PPT];
-#pragma unroll
-      for (int p = 0; p < PPT; ++p) u[p] = static_cast<float>(kg[p] - kl) - f0;
-#pragma unroll
-      for (int l = 0; l < LC; ++l) {
-        if (l >= nl) continue;
-        const LineConst c = s_c[l][j];
-        if (c.a.w == 0.0f) continue;   // uniform across the CTA
-#pragma unroll
-        for (int p = 0; p < PPT; ++p) {
-          if (!(u[p] > -c.a.z && u[p] <= c.a.z)) continue;
-          const float inv_g2 = c.a.y, aa = c.b.x, cc = c.b.y;
-          const float xi = xm(xs(c.a.x, xm(u[p], dx)), inv_g2);
-          const float r = __fsqrt_rn(xa(xm(aa, aa), xm(xi, xi)));
-          const float us = __fsqrt_rn(fmaxf(xm(xa(r, aa), 0.5f), 0.0f));
-          const float sv = __fsqrt_rn(fmaxf(xm(xs(r, aa), 0.5f), 0.0f));
-          const float vs = xi > 0.0f ? sv : (xi < 0.0f ? -sv : 0.0f);
-          const KGrads g1 = k_grads_x(-vs, xs(us, cc), s_wei, n_wei);
-          const KGrads g2 = k_grads_x(-vs, xa(us, cc), s_wei, n_wei);
-          const float den = xm(2.0f, fmaxf(xa(xm(us, us), xm(vs, vs)), 1e-30f));
-          const float dK12 = xs(g1.K, g2.K);
-#pragma unroll
-          for (int d = 0; d < ND; ++d) {
-            const float4 t4 = s_t4[l][j][d];
-            const float2 t2 = s_t2[l][j][d];
-            const float dXi = xm(inv_g2, xs(t4.z, xm(xi, t4.w)));
-            const float dSr = xd(xa(xm(t4.x, us), xm(dXi, vs)), den);
-            const float dSi = xd(xs(xm(dXi, us), xm(t4.x, vs)), den);
-            const float dK1 = xa(xm(g1.Kx, -dSi), xm(g1.Ky, xs(dSr, t4.y)));
-            const float dK2 = xa(xm(g2.Kx, -dSi), xm(g2.Ky, xa(dSr, t4.y)));
-            acc[l][p][d] += xa(xs(xm(t2.x, dK12), xm(t2.y, dK12)),
-                               xm(c.b.z, xs(dK1, dK2)));
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    if (d >= n_dir) break;
-#pragma unroll
-    for (int l = 0; l < LC; ++l) {
-      if (l >= nl) break;
-#pragma unroll
-      for (int p = 0; p < PPT; ++p)
-        if (live[p])
-          out[(static_cast<size_t>(d) * n_lay_call + l0 + l) * n_out + kg[p]] =
-              acc[l][p][d];
-    }
-  }
+  row_skeleton<SdRows>(args, sm, s_wei);
 }
 
 }  // namespace
@@ -766,49 +790,30 @@ extern "C" int radtxfr_fused_xsect_jvp(
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's entry: live is the launch's (n_dir, n_lay) int32 table of the
+// directions' non-zero tangents per parameter layer; out (n_dir,
+// n_lay_call, n_out)
 extern "C" int radtxfr_fused_sdvoigt_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* lay_live,
+    const void* lay_idx, int n_lay_call, const void* live,
     const void* shift0, const void* strength, const void* gamma_d,
     const void* gamma_0, const void* gamma_2, const void* wing,
     const void* shift0_t, const void* strength_t, const void* gamma_d_t,
     const void* gamma_0_t, const void* gamma_2_t, int n_dir, int n_lay,
     int n_lines, const void* wei, int n_wei, int tile, int block, int n_tiles,
     int n_out, double dx, void* out, void* stream) {
-  if (n_wei < 1 || n_wei > MAX_WEI || tile < 1 || block < 1 || n_dir < 1 ||
-      n_dir > ND_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sub_per_tile = (tile + SPAN - 1) / SPAN;
-  const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
-                  (n_lay_call + LC - 1) / LC);
-  if (grid.x == 0 || grid.y == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RADTXFR_LAUNCH(ND)                                                     \
-  fused_sdvoigt_jvp_kernel<ND><<<grid, THREADS, 0, s>>>(                       \
-      static_cast<const int*>(starts), static_cast<const int*>(counts),        \
-      static_cast<const int*>(k_line), static_cast<const float*>(frac0),       \
-      static_cast<const int*>(line), static_cast<const float*>(wcap),          \
-      static_cast<const int*>(lay_idx), n_lay_call,                            \
-      static_cast<const int*>(lay_live), static_cast<const float*>(shift0),    \
-      static_cast<const float*>(strength), static_cast<const float*>(gamma_d), \
-      static_cast<const float*>(gamma_0), static_cast<const float*>(gamma_2),  \
-      static_cast<const float*>(wing), static_cast<const float*>(shift0_t),    \
-      static_cast<const float*>(strength_t),                                   \
-      static_cast<const float*>(gamma_d_t),                                    \
-      static_cast<const float*>(gamma_0_t),                                    \
-      static_cast<const float*>(gamma_2_t), n_dir, n_lay, n_lines,             \
-      static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out, \
-      static_cast<float>(dx), static_cast<float*>(out))
-  if (n_dir == 1) {
-    RADTXFR_LAUNCH(1);
-  } else if (n_dir == 2) {
-    RADTXFR_LAUNCH(2);
-  } else if (n_dir <= 4) {
-    RADTXFR_LAUNCH(4);
-  } else {
-    RADTXFR_LAUNCH(8);
-  }
-#undef RADTXFR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  const SdPtrs ptr = {
+      {static_cast<const float*>(shift0), static_cast<const float*>(strength),
+       static_cast<const float*>(gamma_d), static_cast<const float*>(gamma_0),
+       static_cast<const float*>(gamma_2), static_cast<const float*>(wing)},
+      {static_cast<const float*>(shift0_t),
+       static_cast<const float*>(strength_t),
+       static_cast<const float*>(gamma_d_t),
+       static_cast<const float*>(gamma_0_t),
+       static_cast<const float*>(gamma_2_t)}};
+  return row_launch<SdRows>(fused_sdvoigt_jvp_kernel, starts, counts, k_line,
+                            frac0, line, wcap, lay_idx, n_lay_call, live, ptr,
+                            n_dir, n_lay, n_lines, wei, n_wei, tile, block,
+                            n_tiles, n_out, dx, out, stream);
 }

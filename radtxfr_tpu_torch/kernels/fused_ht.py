@@ -231,7 +231,7 @@ def xsect_ht_jvp(dplan: DevicePlan, lay_idx, strength, wing, consts,
         _ht_params(strength, wing, consts),
         dict(strength_t=strength_t,
              **{f"{k}_t": t for k, t in zip(HT_CONST_KEYS, consts_t)}),
-        n_weideman, per_direction=True)
+        n_weideman)
 
 
 # --------------------------------------------------------------------------

@@ -1011,14 +1011,12 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
 
 
 def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
-                      params: dict, tangents: dict, n_weideman: int,
-                      per_direction: bool = False) -> torch.Tensor:
+                      params: dict, tangents: dict,
+                      n_weideman: int) -> torch.Tensor:
     """Check the arguments of a tangent kernel (K3, K4 or the HT tangent
     K6) and launch it once per ``_JVP_MAX_DIRS`` directions on the current
     stream: ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the
-    order of
-    the C function ``symbol``, which takes the (nLay,) table of
-    :func:`live_layers`, or with ``per_direction`` the launch's rows of
+    order of the C function ``symbol``, which takes the launch's rows of
     :func:`live_directions`; (nd, len(lay_idx), n_out) float32. Launches
     count under ``key``."""
     _check_call(dplan, lay_idx, params, n_weideman)
@@ -1035,8 +1033,7 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
     if nd == 0 or n_lay_call == 0 or dplan.n_out == 0:
         return out
     wei = _weideman_table(n_weideman, dev)
-    live = (live_directions if per_direction else live_layers)(
-        tangents.values(), n_lay)
+    live = live_directions(tangents.values(), n_lay)
     per_dir = n_lay * n_lines * 4
     for d0 in range(0, nd, _JVP_MAX_DIRS):
         n = min(_JVP_MAX_DIRS, nd - d0)
@@ -1044,7 +1041,7 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
             dplan.starts.data_ptr(), dplan.counts.data_ptr(),
             dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
             dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-            n_lay_call, (live[d0] if per_direction else live).data_ptr(),
+            n_lay_call, live[d0].data_ptr(),
             *(p.data_ptr() for p in params.values()),
             *(t.data_ptr() + d0 * per_dir for t in tangents.values()),
             n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
@@ -1080,25 +1077,19 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
              gamma_0=gamma_0, wing=wing),
         dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
-             gamma_0_t=gamma_0_t), n_weideman, per_direction=True)
+             gamma_0_t=gamma_0_t), n_weideman)
 
 
 def live_directions(tangents, n_lay) -> torch.Tensor:
     """(nd, n_lay) int32: 1 where any of the (nd, n_lay, ...) ``tangents``
-    of direction d is non-zero on layer l (K3 and K6 stage and evaluate
-    only those (direction, layer) rows), computed on their device."""
+    of direction d is non-zero on layer l (the tangent kernels K3, K4 and
+    K6 stage and evaluate only those (direction, layer) rows), computed on
+    their device."""
     live = None
     for t in tangents:
         nz = (t != 0).reshape(t.shape[0], n_lay, -1).any(dim=2)
         live = nz if live is None else live | nz
     return live.to(torch.int32)
-
-
-def live_layers(tangents, n_lay) -> torch.Tensor:
-    """(n_lay,) int32: 1 for the layers where any of the (nd, n_lay, ...)
-    ``tangents`` is non-zero (a K4 CTA whose layers are all dead writes
-    zeros without staging or evaluating anything)."""
-    return live_directions(tangents, n_lay).amax(dim=0)
 
 
 def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
@@ -1109,7 +1100,11 @@ def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
 
     CPU tensors run :func:`xsect_sdvoigt_jvp_plain`. CUDA tensors launch
-    K4 (``csrc/fused_xsect_jvp.cu``) once per ``_JVP_MAX_DIRS`` directions
+    K4 (``csrc/fused_xsect_jvp.cu``: one CTA per (128-point slice, 4
+    (direction, layer) rows), the rows whose direction has no non-zero
+    tangent on their layer written as zeros without staging, a live row's
+    line slots culled to those where its direction has a non-zero tangent
+    and whose window meets the slice) once per ``_JVP_MAX_DIRS`` directions
     on the current stream; anything it does not take raises, as does a
     non-zero CUDA error from a launch.
     """

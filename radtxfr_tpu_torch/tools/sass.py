@@ -282,6 +282,31 @@ def _fns(src: str, ret: str, name: str) -> range:
     return sorted(lines)
 
 
+def _owned(instrs, file: str, ranges: dict):
+    """(key, line, instruction) for each instruction inlined through one of
+    the functions of ``file`` whose source lines ``ranges`` ({key: lines})
+    holds: the innermost such function of its chain and its line there."""
+    for i in instrs:
+        for f, ln in i.chain:
+            if f != file:
+                continue
+            k = next((k for k, r in ranges.items() if ln in r), None)
+            if k is not None:
+                yield k, ln, i
+                break
+
+
+def _in_lines(i, file: str, lines) -> bool:
+    """Whether an instruction was inlined through one of ``lines``."""
+    return any(f == file and n in lines for f, n in i.chain)
+
+
+def _coefficients(i) -> int:
+    """The Weideman coefficients a loop's load instruction brings."""
+    return {"LDS.64": 2, "LDS.128": 4}.get(i.op, 1) if i.op.startswith(
+        "LDS") else 0
+
+
 def ht_eval_instructions(instrs, src: str, n_wei: int) -> dict:
     """Issue slots the pieces of a K5 or K6 evaluation need, from its
     kernel's SASS read with inlining (``disassemble(inline=True)``): each
@@ -317,23 +342,11 @@ def ht_eval_instructions(instrs, src: str, n_wei: int) -> dict:
         n - 1 for n in p4 if rows[n - 1].lstrip().startswith("if (!far)"))))
     loop = set(_loop(src, sorted(ranges["wei"])))
 
-    def owner(i):
-        for f, ln in i.chain:
-            if f != "fused_ht.cu":
-                continue
-            for k, r in ranges.items():
-                if ln in r:
-                    return k, ln
-        return None, 0
-
     work = dict.fromkeys(ranges, 0)
     work["test"] = work["loop"] = 0
     rcp = {"wei": 0, "asym": 0}
     terms = 0
-    for i in instrs:
-        k, ln = owner(i)
-        if k is None:
-            continue
+    for k, ln, i in _owned(instrs, "fused_ht.cu", ranges):
         if i.op.startswith("MUFU.RCP") and k in rcp:
             rcp[k] += 1
         if not i.op.startswith(WORK):
@@ -341,11 +354,9 @@ def ht_eval_instructions(instrs, src: str, n_wei: int) -> dict:
         work[k] += 1
         if k == "p4" and ln in test:
             work["test"] += 1
-        if k == "wei" and any(f == "fused_ht.cu" and n in loop
-                              for f, n in i.chain):
+        if k == "wei" and _in_lines(i, "fused_ht.cu", loop):
             work["loop"] += 1
-            if i.op.startswith("LDS"):
-                terms += {"LDS.64": 2, "LDS.128": 4}.get(i.op, 1)
+            terms += _coefficients(i)
     n_wei_copies = max(rcp["wei"] / 2, 1)
     n_asym_copies = max(rcp["asym"], 1)
     per_term = work["loop"] / max(terms, 1)
@@ -360,3 +371,50 @@ def ht_eval_instructions(instrs, src: str, n_wei: int) -> dict:
             "w_asym": region_test + work["asym"] / n_asym_copies,
             "pair4": work["pair"] + work["pair234"], "pair1": work["pair"],
             "acc": work["acc"], "weideman_term": per_term}
+
+
+def k4_eval_instructions(instrs, src: str, n_wei: int) -> dict:
+    """Issue slots the pieces of a K4 evaluation need, from its kernel's
+    SASS read with inlining (``disassemble(inline=True)``): each :data:`WORK`
+    instruction belongs to the innermost of K4's functions in
+    ``fused_xsect_jvp.cu`` it was inlined through (``sd_point``,
+    ``sd_k_grads``, ``sd_k_wei``, ``sd_k_asym``, ``sd_term``). Per
+    evaluation ``base`` (sd_point: dnu, Im X, S and the denominator); per
+    CPF point ``in`` (sd_k_grads' region test and the Weideman series, its
+    term taken ``n_wei - 1`` times) or ``out`` (the region test and the
+    asymptotic form); per live direction ``dir`` (sd_term and the FADD
+    that accumulates it). The kernel's window tests, staging and loop code
+    are not counted. Copies are counted by their special-function
+    instructions: sd_point's three square roots (MUFU.RSQ), sd_term's two
+    divisions, sd_k_wei's and sd_k_asym's one each (MUFU.RCP); sd_k_grads'
+    by sd_k_wei's. The Weideman loop's terms are counted by the
+    coefficients it loads (LDS, LDS.64 two)."""
+    file = "fused_xsect_jvp.cu"
+    names = {"point": ("SdPoint", "sd_point"), "kx": ("KGrads", "sd_k_grads"),
+             "wei": ("KGrads", "sd_k_wei"), "asym": ("KGrads", "sd_k_asym"),
+             "term": ("float", "sd_term")}
+    marker = {"point": ("MUFU.RSQ", 3), "term": ("MUFU.RCP", 2),
+              "wei": ("MUFU.RCP", 1), "asym": ("MUFU.RCP", 1)}
+    ranges = {k: set(_fns(src, *v)) for k, v in names.items()}
+    loop = set(_loop(src, sorted(ranges["wei"])))
+    work = dict.fromkeys(ranges, 0)
+    marks = dict.fromkeys(marker, 0)
+    loop_work = terms = 0
+    for k, _, i in _owned(instrs, file, ranges):
+        if k in marker and i.op.startswith(marker[k][0]):
+            marks[k] += 1
+        if not i.op.startswith(WORK):
+            continue
+        work[k] += 1
+        if k == "wei" and _in_lines(i, file, loop):
+            loop_work += 1
+            terms += _coefficients(i)
+    copies = {k: max(marks[k] / n, 1) for k, (_, n) in marker.items()}
+    per_term = loop_work / max(terms, 1)
+    test = work["kx"] / copies["wei"]
+    return {"base": work["point"] / copies["point"],
+            "in": test + (work["wei"] - loop_work) / copies["wei"]
+            + (n_wei - 1) * per_term,
+            "out": test + work["asym"] / copies["asym"],
+            "dir": work["term"] / copies["term"] + 1,
+            "weideman_term": per_term}

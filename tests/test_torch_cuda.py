@@ -553,11 +553,15 @@ def test_unfused_kernel_edge_cases(dev, case, mode):
     assert not got[:, empty[:plan.grid.n].to(dev)].any()
 
 
-def _k3_tangents(dev, prm, nd, kind, seed=5):
-    """(nd, nLay, L) tangents of (shift0, strength, gamma_d, gamma_0), each
-    scaled like its parameter: ``dense`` non-zero on every layer, ``one-hot``
-    direction d live on layer d only (mod nLay), ``zero`` dense but
-    direction 1 zero everywhere."""
+K3_KEYS = ("shift0", "strength", "gamma_d", "gamma_0")
+SD_KEYS = K3_KEYS + ("gamma_2",)
+
+
+def _k3_tangents(dev, prm, nd, kind, seed=5, keys=K3_KEYS):
+    """(nd, nLay, L) tangents of ``keys`` (K3's: shift0, strength, gamma_d,
+    gamma_0), each scaled like its parameter: ``dense`` non-zero on every
+    layer, ``one-hot`` direction d live on layer d only (mod nLay), ``zero``
+    dense but direction 1 zero everywhere."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -571,7 +575,24 @@ def _k3_tangents(dev, prm, nd, kind, seed=5):
     return [torch.as_tensor(rng.standard_normal((nd,) + tuple(
         prm[k].shape)) * mask * prm[k].abs().mean().item(),
         dtype=torch.float32, device=dev).contiguous()
-        for k in ("shift0", "strength", "gamma_d", "gamma_0")]
+        for k in keys]
+
+
+def _check_directions(got, want, tans, bound):
+    """Each direction of a tangent kernel's output ``got`` within ``bound``
+    of its own peak in ``want``; a direction with no non-zero tangent, and
+    every layer a direction does not touch, exactly zero."""
+    touched = torch.stack([(t != 0).any(dim=2) for t in tans]).any(dim=0)
+    for d in range(got.shape[0]):
+        for li in range(got.shape[1]):
+            if not touched[d, li]:
+                assert not got[d, li].any(), (d, li)
+        own = want[d].abs().max()
+        err = (got[d] - want[d]).abs().max()
+        assert bool(torch.isfinite(got[d]).all())
+        assert (own > 0.0) == bool(touched[d].any())
+        assert err <= bound * own if own > 0 else err == 0, \
+            (d, float(err / own) if own > 0 else float(err))
 
 
 @pytest.mark.parametrize("nd,kind", [(1, "dense"), (1, "one-hot"),
@@ -594,15 +615,7 @@ def test_tangent_kernel_directions(dev, nd, kind):
     assert fused_xsect.LAUNCHES["jvp"] == n0 + 1
     assert torch.equal(got, fused_xsect.xsect_fused_jvp(*args, *tans))
     want = fused_xsect.xsect_fused_jvp_plain(*args, *tans)
-    touched = torch.stack([(t != 0).any(dim=2) for t in tans]).any(dim=0)
-    for d in range(nd):
-        for li in range(lay.numel()):
-            if not touched[d, li]:
-                assert not got[d, li].any(), (d, li)
-        own = want[d].abs().max()
-        err = (got[d] - want[d]).abs().max()
-        assert (own > 0.0) == bool(touched[d].any())
-        assert err <= 2e-5 * own if own > 0 else err == 0, d
+    _check_directions(got, want, tans, 2e-5)
 
 
 def _ht_edge_case(dev, n_lay=5, n_lines=200, n_pts=6001,
@@ -744,14 +757,96 @@ def test_ht_tangent_kernel_directions(dev, nd, kind):
                                                   t_dev[0], t_dev[1:]))
     want = fused_ht.xsect_ht_jvp_plain(dp, lay, s, w, consts, t_dev[0],
                                        t_dev[1:])
-    touched = torch.stack([(t != 0).any(dim=2) for t in tans]).any(dim=0)
-    for d in range(nd):
-        for li in range(lay.numel()):
-            if not touched[d, li]:
-                assert not got[d, li].any(), (d, li)
-        own = want[d].abs().max()
-        err = (got[d] - want[d]).abs().max()
-        assert bool(torch.isfinite(got[d]).all())
-        assert (own > 0.0) == bool(touched[d].any())
-        assert err <= 2e-6 * own if own > 0 else err == 0, \
-            (d, float(err / own) if own > 0 else float(err))
+    _check_directions(got, want, tans, 2e-6)
+
+
+@pytest.mark.parametrize("nd,kind", [(1, "dense"), (1, "one-hot"),
+                                     (3, "dense"), (3, "zero"),
+                                     (8, "one-hot"), (8, "dense"),
+                                     (8, "zero")])
+def test_sdvoigt_tangent_kernel_directions(dev, nd, kind):
+    """K4 on random SD-Voigt parameters for 1, 3 and 8 directions, one-hot
+    (a direction live on one layer), dense, or with a direction zero
+    everywhere: each direction within 2e-5 of its own peak
+    (test_sdvoigt_tangent_kernel_matches_plain), a zero direction and every
+    layer a direction does not touch exactly zero; one launch; two launches
+    bit-identical."""
+    dp, lay, prm = _random_case(dev, n_pts=20000)
+    args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+            prm["gamma_0"], prm["gamma_2"], prm["wing"])
+    tans = _k3_tangents(dev, prm, nd, kind, keys=SD_KEYS)
+    n0 = fused_xsect.LAUNCHES["sdvoigt_jvp"]
+    got = fused_xsect.xsect_sdvoigt_jvp(*args, *tans)
+    assert fused_xsect.LAUNCHES["sdvoigt_jvp"] == n0 + 1
+    assert torch.equal(got, fused_xsect.xsect_sdvoigt_jvp(*args, *tans))
+    want = fused_xsect.xsect_sdvoigt_jvp_plain(*args, *tans)
+    _check_directions(got, want, tans, 2e-5)
+
+
+def _sd_edge_case(dev, n_lay=5, n_lines=200, n_pts=6001,
+                  lines=(995.0, 1020.0), wings=(0.5, 3.0), clamp=0.3,
+                  block=32, tile=128):
+    """Random SD-Voigt parameters (_random_case's ranges) on a 0.0025 grid
+    from 1000 cm^-1 (n_pts points: not a multiple of K4's 128-point slice),
+    sorted lines over ``lines`` with per-line wings drawn from ``wings``
+    [cm^-1] and a packed plan (``tile``, ``block`` slots: padding where a
+    tile holds fewer lines); a share ``clamp`` of the (layer, line) pairs
+    with Gamma2 below 1e-4 Gamma0, in the Voigt-limit clamp. Returns the
+    plan, the layer indices and the parameters."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    g = fused_xsect.UniformGrid(x0=1000.0, dx=0.0025, n=n_pts)
+    nu0 = np.sort(rng.uniform(*lines, n_lines))
+    w = rng.uniform(*wings, n_lines)
+    plan = fused_xsect.plan_buckets_packed(nu0, g, w, tile=tile, block=block)
+    dp = fused_xsect.device_plan(plan, np.arange(n_lines), nu0, device=dev)
+    shape = (n_lay, n_lines)
+    mk = lambda lo, hi: rng.uniform(lo, hi, shape)  # noqa: E731
+    g0 = mk(0.002, 0.1)
+    ratio = np.where(rng.random(shape) < clamp, mk(0.0, 5e-5),
+                     mk(0.05, 0.15))
+    host = dict(shift0=mk(-0.01, 0.01), strength=mk(0.5, 2.0),
+                gamma_d=mk(0.0005, 0.002), gamma_0=g0, gamma_2=g0 * ratio,
+                wing=np.tile(w, (n_lay, 1)))
+    prm = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+           for k, v in host.items()}
+    return dp, torch.arange(n_lay, dtype=torch.int32, device=dev), prm
+
+
+#: K4's edge cases: layer counts that are not a multiple of its 4 rows a
+#: CTA, tiles that visit no block, padding slots, n_out not a multiple of
+#: the slice, pairs in the Voigt-limit clamp, a shift0-only tangent
+SD_CASES = {
+    "5 layers, clamp": dict(n_lay=5),
+    "66 layers, tile 512": dict(n_lay=66, n_lines=60, n_pts=3001, tile=512),
+    "7 layers, 64-slot blocks": dict(n_lay=7, block=64, n_pts=4001),
+    "tiles with no block": dict(lines=(1003.0, 1006.0), wings=(0.2, 1.0)),
+    "all clamped, shift0 only": dict(n_lay=6, clamp=1.0),
+}
+
+
+@pytest.mark.parametrize("case", SD_CASES)
+def test_sdvoigt_tangent_kernel_edge_cases(dev, case):
+    """K4 against its plain version on the edge cases of its grid, plan,
+    pairs and tangents, 3 directions (one-hot, with the shift0 tangent
+    alone in the last case): each direction within 2e-5 of its own peak,
+    untouched rows exactly zero (_check_directions); one launch; two
+    launches bit-identical; a tile that visits no block writes zeros."""
+    dp, lay, prm = _sd_edge_case(dev, **SD_CASES[case])
+    args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+            prm["gamma_0"], prm["gamma_2"], prm["wing"])
+    tans = _k3_tangents(dev, prm, 3, "one-hot", seed=23, keys=SD_KEYS)
+    if case.endswith("shift0 only"):
+        tans = [tans[0]] + [torch.zeros_like(t) for t in tans[1:]]
+    n0 = fused_xsect.LAUNCHES["sdvoigt_jvp"]
+    got = fused_xsect.xsect_sdvoigt_jvp(*args, *tans)
+    assert fused_xsect.LAUNCHES["sdvoigt_jvp"] == n0 + 1
+    assert got.shape == (3, lay.numel(), dp.n_out)
+    assert torch.equal(got, fused_xsect.xsect_sdvoigt_jvp(*args, *tans))
+    want = fused_xsect.xsect_sdvoigt_jvp_plain(*args, *tans)
+    _check_directions(got, want, tans, 2e-5)
+    empty = (dp.counts == 0).repeat_interleave(dp.tile)[:dp.n_out]
+    if case.startswith("tiles with no block"):
+        assert bool(empty.any())
+    assert not got[:, :, empty].any()

@@ -29,6 +29,13 @@ rule against the plain version's window mask.
   PART4's CPF3 test, so the range must hold every in-window point that
   pcqsdhc's per-point test sends to Weideman, and no point outside it may
   take CPF3. K6's rows are ``live_directions``' (direction, layer) rows.
+* K4 (``csrc/fused_xsect_jvp.cu``) culls by the same window rule on the
+  HT Jacobian's and the differentiable SD-Voigt OD's ``sdvoigt`` passes;
+  a span outside a pair's Weideman range (``sd_near_range``: K5's PART4
+  closed form with P = Re X + c^2, R = 15 + c) runs both CPF points in the
+  asymptotic form, so the range must hold every in-window point at which
+  either CPF point's float32 region test takes Weideman. K4's rows are
+  ``live_directions``' (direction, layer) rows.
 """
 
 import ast
@@ -522,4 +529,223 @@ def test_k6_rows_are_the_live_directions(ht_passes, kind):
             a, b, c = _check_cull(dp, prm, rows, "asym",
                                   live=lambda li, g: nz[d, li, g])
             n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
+    assert n_in > 0 and n_kept - n_in <= 6 * n_pairs
+
+
+@pytest.fixture(scope="module")
+def sd_passes():
+    """The ``sdvoigt`` passes (CPU, float32, standard atmosphere) of the HT
+    Jacobian's builder (make_od_ht_fn(differentiable=True): its 2,000
+    synthetic lines over 780-840 cm^-1, seed 77, 40% SD_air = 0, 40% live
+    HT columns) on 800-805 cm^-1 and of the differentiable SD-Voigt OD at
+    full width's (make_od_fn(profile='sdvoigt'): the bench's 20,000 lines
+    over 480-1520 cm^-1, seed 0) on 800-802 cm^-1, both at 0.0025; each
+    with its line parameters and the (shift0, strength, gamma_d, gamma_0,
+    gamma_2) tangents of 8 one-hot T directions (layers 24-31) and of a T
+    direction over all layers."""
+    from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+    from radtxfr_tpu_torch.core.grid import arange_drift_free
+    from radtxfr_tpu_torch.lines.store import IsoTables
+    from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
+    from radtxfr_tpu_torch.products.od import make_od_fn, make_od_ht_fn
+
+    f32 = torch.float32
+    base = std_atmosphere(device="cpu", dtype=f32)
+    iso = IsoTables.load(device="cpu", dtype=f32)
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+    rng = np.random.default_rng(5)
+    rows = rng.random(2000) < 0.4
+    extras = {"nu_HT_air": rng.uniform(0.01, 0.05, 2000) * rows,
+              "kappa_HT_air": rng.uniform(0.0, 1.0, 2000) * rows,
+              "eta_HT_air": rng.uniform(0.1, 0.3, 2000) * rows}
+    ht = make_od_ht_fn(synthetic_lines(2000, nu_min=780.0, nu_max=840.0,
+                                       seed=77, sd_zero_frac=0.4,
+                                       device="cpu", dtype=f32),
+                       iso, arange_drift_free(800.0, 805.0, 0.0025), base,
+                       extras=extras, differentiable=True)
+    sd = make_od_fn(synthetic_lines(20_000, nu_min=480.0, nu_max=1520.0,
+                                    seed=0, device="cpu", dtype=f32),
+                    iso, arange_drift_free(800.0, 802.0, 0.0025), base,
+                    profile="sdvoigt", differentiable=True)
+    n = base.n_layers
+    sets = {"one-hot": torch.eye(n)[24:32],
+            "dense": torch.linspace(0.5, 1.5, n)[None]}
+    out = {}
+    for label, fn, params in (
+            ("ht jacobian", ht, lambda T_: ht.line_params(T_, p, pl, vmr)),
+            ("sdvoigt od", sd, lambda T_: sd.line_params(T_, p, pl,
+                                                         vmr)[0])):
+        def prm_of(T_, params=params):
+            q = params(T_)
+            return q.shift0, q.strength, q.gamma_d, q.gamma_0, q.gamma_2
+
+        tans = {k: torch.func.vmap(lambda v: torch.func.jvp(
+            prm_of, (T,), (v,))[1])(V) for k, V in sets.items()}
+        calls = [c for c in fn.calls if c[2] == "sdvoigt"]
+        assert calls
+        out[label] = (calls, params(T), tans)
+    return out
+
+
+def _sd_near_range(f0, prm, li, g, dx, lo, hi, shrink=1.0):
+    """csrc/fused_xsect_jvp.cu::sd_pair's constants and sd_near_range in
+    float32 for layer ``li``'s lines ``g``: the grid offsets at which a CPF
+    point can take the Weideman branch, within the window range [lo, hi]
+    (``shrink`` scales the radius); (lo', hi', kind, (s0, 1/Gamma2, aa,
+    c)): kind 1 the closed form, 0 the whole window (near tangency)."""
+    f32 = np.float32
+    s0, gd, g0, g2r = (getattr(prm, k)[li, g].numpy().astype(f32)
+                       for k in ("shift0", "gamma_d", "gamma_0", "gamma_2"))
+    dx = f32(dx)
+    with np.errstate(all="ignore"):
+        cte = (f32(1.0) / gd) * f32(0.8325546111576977)
+        g2 = np.maximum(g2r, f32(1e-4) * g0 + f32(1e-12))
+        inv_g2 = f32(1.0) / g2
+        xr = (g0 - f32(1.5) * g2) * inv_g2
+        cc = (f32(1.0) / (cte * g2)) * f32(0.5)
+        aa = xr + cc * cc
+        P = np.abs(aa)
+        R = f32(15.0) + cc
+        R2 = R * R
+        r = ((R2 - P) * (R2 + P) / (f32(2.0) * R2) / (inv_g2 * dx)
+             * f32(shrink))
+    empty = P >= R2 * f32(1.001)
+    whole = ~empty & ~(P <= f32(0.9) * R2)
+    clo, chi = _window_range(f0 + s0 / dx, r * f32(1.0001) + f32(1.0))
+    return (np.where(empty, 1, np.where(whole, lo, np.maximum(lo, clo))),
+            np.where(empty, 0, np.where(whole, hi, np.minimum(hi, chi))),
+            np.where(whole, 0, 1), (s0, inv_g2, aa, cc))
+
+
+def _sd_point_regions(u, dx, s0, inv_g2, aa, cc):
+    """sd_point's S and sd_k_grads' region tests in float32 at the offsets
+    ``u`` (points along axis 1) of pairs with the given constants: whether
+    Z1 = S - c and Z2 = S + c lie in |x| + y < 15."""
+    f32 = np.float32
+    col = lambda a: a[:, None]  # noqa: E731
+    with np.errstate(all="ignore"):
+        xi = (col(s0) - u * f32(dx)) * col(inv_g2)
+        r = np.sqrt(col(aa) * col(aa) + xi * xi)
+        us = np.sqrt(np.maximum((r + col(aa)) * f32(0.5), f32(0.0)))
+        vs = np.sqrt(np.maximum((r - col(aa)) * f32(0.5), f32(0.0)))
+        return ((vs + (us - col(cc))) < f32(15.0),
+                (vs + (us + col(cc))) < f32(15.0))
+
+
+@pytest.mark.parametrize("label", ("ht jacobian", "sdvoigt od"))
+def test_k4_window_and_weideman_ranges_hold_the_point_tests(sd_passes,
+                                                            label):
+    """K4's cull and span rule on the sdvoigt passes' plans: every (slot,
+    layer, point) whose float32 window test passes lies in the pair's
+    integer window; every such point at which either CPF point's float32
+    region test takes Weideman lies in the pair's Weideman range; the
+    closed form culls most in-window points of its pairs; and a radius 10%
+    tighter would miss some Weideman point."""
+    calls, prm, _ = sd_passes[label]
+    n_in = n_wei = n_far = n_tight = 0
+    kinds = set()
+    for lay, dp, _ in calls:
+        line = dp.line.numpy()
+        k_line = dp.k_line.numpy().astype(np.int64)
+        frac0 = dp.frac0.numpy()
+        tile_of = np.repeat(np.arange(dp.n_tiles),
+                            dp.counts.numpy().astype(np.int64) * dp.block)
+        s = np.nonzero(line[:tile_of.size] >= 0)[0]
+        g, t = line[s], tile_of[s]
+        k = t[:, None] * dp.tile + np.arange(dp.tile)[None, :]
+        u = (k - k_line[s][:, None]).astype(np.float32) - frac0[s][:, None]
+        d = k - k_line[s][:, None]
+        for li in lay.numpy():
+            w = np.minimum(prm.wing.numpy()[li, g], dp.wcap.numpy()[s])
+            wingu = (w.astype(np.float32) / np.float32(dp.dx))[:, None]
+            mask = (u > -wingu) & (u <= wingu) & (k < dp.n_out)
+            lo, hi = _window_range(frac0[s], wingu[:, 0])
+            assert not (mask & ((d < lo[:, None]) | (d > hi[:, None]))).any()
+            nlo, nhi, kind, q = _sd_near_range(frac0[s], prm, li, g, dp.dx,
+                                               lo, hi)
+            kinds |= set(np.unique(kind).tolist())
+            near = (d >= nlo[:, None]) & (d <= nhi[:, None])
+            w1, w2 = _sd_point_regions(u, dp.dx, *q)
+            wei = mask & (w1 | w2)
+            assert not (wei & ~near).any(), (label, li)
+            closed = (kind > 0)[:, None] & mask
+            n_in += int(closed.sum())
+            n_wei += int((closed & (w1 | w2)).sum())
+            n_far += int((closed & ~near).sum())
+            tlo, thi, _, _ = _sd_near_range(frac0[s], prm, li, g, dp.dx, lo,
+                                            hi, shrink=0.9)
+            n_tight += int((wei & ((d < tlo[:, None])
+                                   | (d > thi[:, None]))).sum())
+    assert 1 in kinds
+    assert n_wei > 0 and n_far > n_in / 2, (n_in, n_wei, n_far)
+    assert n_tight > 0
+
+
+def test_k4_weideman_range_takes_the_window_near_tangency():
+    """Pairs in Gamma2's Voigt-limit clamp at low pressure (c up to 3e8):
+    there Re X + c^2 lies within 1e-4 of R^2 = (15 + c)^2, the float32
+    Im S cancels, and points far outside K5's closed-form radius take
+    Weideman; sd_near_range gives such pairs their whole window, so every
+    Weideman point of a pair over +-4e6 grid steps lies in its range, and
+    the closed form alone would miss some."""
+    from types import SimpleNamespace
+
+    g0 = np.repeat(10.0 ** -np.arange(2.0, 9.0), 3)
+    g2 = g0 * np.tile([0.0, 1e-5, 0.05], 7)     # clamped, clamped, live
+    gd = np.full(g0.size, 1e-3)
+    prm = SimpleNamespace(**{k: torch.as_tensor(v[None], dtype=torch.float32)
+                             for k, v in (("shift0", 0.0 * g0),
+                                          ("gamma_d", gd), ("gamma_0", g0),
+                                          ("gamma_2", g2))})
+    u = np.unique(np.concatenate([np.arange(-20_000, 20_001),
+                                  np.round(np.geomspace(1, 4e6, 20_000)),
+                                  -np.round(np.geomspace(1, 4e6, 20_000))]))
+    u = u.astype(np.int64)[None, :]
+    n = g0.size
+    f0 = np.zeros(n, dtype=np.float32)
+    lo, hi = np.full(n, -(1 << 30)), np.full(n, 1 << 30)
+    nlo, nhi, kind, q = _sd_near_range(f0, prm, 0, np.arange(n), 0.0025,
+                                       lo, hi)
+    w1, w2 = _sd_point_regions(u.astype(np.float32), 0.0025, *q)
+    wei = w1 | w2
+    assert not (wei & ((u < nlo[:, None]) | (u > nhi[:, None]))).any()
+    assert (kind == 0).any() and (kind == 1).any()
+    # K5's radius alone (the closed form for every pair) misses points
+    s0, inv_g2, aa, cc = q
+    f32 = np.float32
+    R2 = (f32(15.0) + cc) ** 2
+    P = np.abs(aa)
+    r = (np.maximum((R2 - P) * (R2 + P), f32(0.0)) / (f32(2.0) * R2)
+         / (inv_g2 * f32(0.0025)))
+    clo, chi = _window_range(f0, r * f32(1.0001) + f32(1.0))
+    clo = np.where(P >= R2 * f32(1.001), 1, clo)
+    chi = np.where(P >= R2 * f32(1.001), 0, chi)
+    assert (wei & ((u < clo[:, None]) | (u > chi[:, None]))).any()
+
+
+@pytest.mark.parametrize("kind", ("one-hot", "dense"))
+def test_k4_rows_are_the_live_directions(sd_passes, kind):
+    """K4's rows: a (direction, layer) row is live in live_directions
+    exactly where one of the direction's (shift0, strength, gamma_d,
+    gamma_0, gamma_2) tangents is non-zero on the layer (the one-hot batch:
+    one live row a direction), and every pair of a live row with a non-zero
+    tangent keeps its in-window indices inside its window range, on both
+    builders' sdvoigt passes."""
+    from radtxfr_tpu_torch.kernels.fused_xsect import live_directions
+
+    n_in = n_kept = n_pairs = 0
+    for calls, prm, tans in sd_passes.values():
+        tans = tans[kind]
+        nd, n_lay = tans[0].shape[0], tans[0].shape[1]
+        live = live_directions(tans, n_lay).numpy()
+        nz = np.stack([(t != 0).numpy() for t in tans]).any(axis=0)
+        assert (live == nz.any(axis=2)).all()
+        if kind == "one-hot":
+            assert (live.sum(axis=1) == 1).all()
+        for lay, dp, _ in calls:
+            for d in range(nd):
+                rows = [li for li in lay.numpy() if live[d, li]]
+                a, b, c = _check_cull(dp, prm, rows, "asym",
+                                      live=lambda li, g: nz[d, li, g])
+                n_in, n_kept, n_pairs = n_in + a, n_kept + b, n_pairs + c
     assert n_in > 0 and n_kept - n_in <= 6 * n_pairs

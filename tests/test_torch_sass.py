@@ -314,15 +314,16 @@ __global__ void k() {
 """
 
 
-def _gi_listing(kernel, rows):
+def _gi_listing(kernel, rows, file="fused_ht.cu"):
     """A listing of one kernel in ``nvdisasm --print-line-info-inline``'s
-    form from ``rows``: (chain of source lines, innermost first, opcode)."""
+    form from ``rows``: (chain of source lines, innermost first, opcode),
+    all in ``file``."""
     out = [f"\t.text.{kernel}:"]
     for addr, (chain, op) in enumerate(rows):
         for a, b in zip(chain, chain[1:]):
-            out.append(f'\t//## File "/src/fused_ht.cu", line {a} inlined '
-                       f'at "/src/fused_ht.cu", line {b}')
-        out.append(f'\t//## File "/src/fused_ht.cu", line {chain[-1]}')
+            out.append(f'\t//## File "/src/{file}", line {a} inlined '
+                       f'at "/src/{file}", line {b}')
+        out.append(f'\t//## File "/src/{file}", line {chain[-1]}')
         out.append(f"        /*{16 * addr:04x}*/                   {op} ;")
     return "\n".join(out)
 
@@ -388,3 +389,101 @@ def test_ht_counts_each_piece_per_copy(n_wei):
     # ht_part1 2 (with its helper's FMUL), and b1_small 1 or b1_big 2
     assert c["part1"] == 5 and c["part1_big"] == 6
     assert c["pair4"] == 3 and c["pair1"] == 1 and c["acc"] == 2
+
+
+K4_SRC = """\
+__device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ KGrads sd_k_wei(float x, float y, const float* wei,
+                                           int n_wei) {
+  const float inv_e = xd(1.0f, x);
+  for (int k = 2; k <= n_wei; ++k) {
+    const float tpr = xa(xm(pr, zr), wei[k]);
+  }
+  return g;
+}
+__device__ __forceinline__ KGrads sd_k_asym(float x, float y) {
+  const float inv = xd(1.0f, xm(x, y));
+  return g;
+}
+__device__ __forceinline__ KGrads sd_k_grads(float x, float y,
+                                             const float* wei, int n_wei) {
+  if (xa(fabsf(x), y) < REGION_BOUND) return sd_k_wei(x, y, wei, n_wei);
+  return sd_k_asym(x, y);
+}
+__device__ __forceinline__ SdPoint sd_point(float u, const SdPair& q,
+                                            float dx) {
+  s.xi = xm(u, dx);
+  s.us = __fsqrt_rn(xm(s.xi, s.xi));
+  return s;
+}
+__device__ __forceinline__ float sd_term(const SdPoint& s, const KGrads& g1,
+                                         const KGrads& g2, const SdPair& q) {
+  const float dSr = xd(xm(s.xi, s.us), s.den);
+  return xa(dSr, q.b.x);
+}
+__global__ void k() {
+  const SdPoint s = sd_point(u, q, dx);
+  const KGrads g1 = sd_k_asym(-s.vs, xs(s.us, q.a.w));
+  sum = in ? sum + sd_term(s, g1, g2, q) : sum;
+  const SdPoint s = sd_point(u, q, dx);
+  const KGrads g1 = sd_k_grads(-s.vs, y1, s_wei, n_wei);
+  sum += sd_term(s, g1, g2, q);
+}
+"""
+
+
+def _k4_point(site):
+    """One sd_point copy at kernel line ``site``: its three square roots
+    and two more work instructions (one through xm)."""
+    return [((1, 21, site), "FMUL"), ((22, site), "MUFU.RSQ R1, R2"),
+            ((22, site), "MUFU.RSQ R3, R4"), ((22, site), "MUFU.RSQ R5, R6"),
+            ((22, site), "FFMA"), ((22, site), "IADD3 R7, R7, 0x1, RZ")]
+
+
+def _k4_asym(chain):
+    return [((11,) + chain, "MUFU.RCP R1, R2"), ((1, 11) + chain, "FMUL"),
+            ((11,) + chain, "FFMA")]
+
+
+def _k4_kx(site):
+    """One sd_k_grads copy at kernel line ``site``: the region test, a
+    Weideman copy (its loop unrolled by two: one LDS.64 for two
+    coefficients) and an asymptotic one."""
+    w = (16, site)
+    return ([((16, site), "FADD"), ((16, site), "FSETP.GEU.AND P0"),
+             ((4,) + w, "MUFU.RCP R1, R2"), ((4,) + w, "FFMA"),
+             ((6,) + w, "LDS.64 R4, [R5]"), ((1, 6) + w, "FMUL"),
+             ((1, 6) + w, "FMUL"), ((6,) + w, "FADD"),
+             ((5,) + w, "IADD3 R6, R6, 0x2, RZ"), ((8,) + w, "FMUL")]
+            + _k4_asym((17, site)))
+
+
+def _k4_term(site):
+    return [((27, site), "MUFU.RCP R1, R2"), ((27, site), "MUFU.RCP R3, R4"),
+            ((1, 27, site), "FMUL"), ((28, site), "FADD")]
+
+
+# the far span's evaluation (two asymptotic CPF points) and the near span's
+# (two region-tested ones), each with its sd_point and sd_term and the
+# kernel's own accumulate
+K4_ROWS = (_k4_point(31) + _k4_asym((32,)) + _k4_asym((32,)) + _k4_term(33)
+           + [((33,), "FADD"), ((33,), "FSEL")]
+           + _k4_point(34) + _k4_kx(35) + _k4_kx(35) + _k4_term(36)
+           + [((36,), "FADD")])
+
+
+@pytest.mark.parametrize("n_wei", [16, 8])
+def test_k4_counts_each_piece_per_copy(n_wei):
+    kern = "_ZN12_GLOBAL__N_124fused_sdvoigt_jvp_kernelEPKi"
+    instrs = sass.parse(_gi_listing(kern, K4_ROWS, "fused_xsect_jvp.cu"))[kern]
+    c = sass.k4_eval_instructions(instrs, K4_SRC, n_wei)
+    # two sd_point copies (six square roots), 5 work instructions each
+    assert c["base"] == 5
+    # two Weideman copies (their reciprocals), 3 outside the loop each; the
+    # loops' 8 work instructions load 4 coefficients; sd_k_grads' region
+    # test 2 a copy; four asymptotic copies, 3 each
+    assert c["weideman_term"] == 2.0
+    assert c["in"] == 2 + 3 + (n_wei - 1) * 2.0
+    assert c["out"] == 2 + 3
+    # two sd_term copies (two divisions each), 4 each, and the accumulate
+    assert c["dir"] == 4 + 1
