@@ -44,6 +44,31 @@ Phases, each printing its result on its own line:
    rounding amounts around zero); then a second, warm run for its times.
    Then the same path on a 5 cm^-1 band on the card and on the CPU (plain
    versions), whose reduced products must agree within 1e-5 of peak.
+5c. The checkpointed production command (``PRODUCTION --checkpoint DIR``
+   cut to 6 members in batches of 2) in child processes that this script
+   writes: an uninterrupted run; a run whose child kills itself with
+   SIGKILL right after its first ``batch_000000.npz`` is in place (a
+   wrapper around ``EnsembleCheckpoint.write_batch`` in the child's code),
+   then a fresh process that resumes it. Exactly one batch file and no
+   output before the resume; the two runs' outputs byte-identical (the
+   products streamed with ``np.save``, and the HDF5 files where h5py is
+   installed); their tau/La/Ld equal an in-process ``run_tud`` of the same
+   members without ``--checkpoint``; K1 ``asym``/``core``/``mix`` and K2
+   launched in the children (their own counts). Seconds a batch with and
+   without checkpoints and each ``.npz`` write.
+5d. The reference (jnp) engine on the card: ``xsect --engine jnp``
+   ``--profile sdvoigt`` and ``--profile ht`` on a 10 cm^-1 sub-band with
+   halfwidth wings, 3 states (float32, as the CLI runs it), against the
+   same on the CPU within 1e-5 of the peak; the kernel route's lattice (K1
+   ``sdvoigt`` and ``full``) against the engine in float64 on the card, and
+   ``compute_od_layers(profile="ht", ht_extras=...)`` on four layers on the
+   kernel route (K5) against the engine in float64, each within 1e-5 of
+   the peak (``tests/test_torch_xsect.py``'s SD-Voigt ``MODE_BOUND``; the
+   float32 engine keeps line centres in float32, about 4e-4 of the peak
+   from the kernel route, as the JAX package's two engines are, which is
+   printed); ``tud --engine jnp`` on phase 5's 718-723 cm^-1 two-member
+   case on the card against the CPU within ``SLICE_BOUND``, its gap to the
+   kernel route printed; the engine's seconds on the card.
 5b. The Jacobian path: ``run_tud`` on the production configuration with
    ``--jacobian`` (d tau/Lu/Ld / d T, H2O, O3: 198 directions) with the
    launch counts reset before and read after (K1 ``full`` and K3 must have
@@ -165,6 +190,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -194,7 +220,8 @@ from radtxfr_tpu_torch.core.constants import C1, C2  # noqa: E402
 from radtxfr_tpu_torch.core.planck import planckian  # noqa: E402
 from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
 from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
-    resolve_ht_columns)
+    resolve_ht_columns, xsect_ht)
+from radtxfr_tpu_torch.kernels.xsect import xsect_from_params  # noqa: E402
 from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
                                            _line_species_cols,
                                            compute_od_layers, ht_wing_bounds,
@@ -224,6 +251,18 @@ K3_BOUND = 2e-6
 K2_BOUND = 5e-6
 SLICE_BOUND = 1e-5
 JAC_SLICE_BOUND = 1e-4
+# phase 5c: the production command with checkpoints, cut to 6 members
+CHECKPOINTED = PRODUCTION.replace("--n-atmos 4", "--n-atmos 6")
+CHILD_TIMEOUT = 300
+# phase 5d: the reference engine's lattices (halfwidth wings) and layered
+# HT OD against the kernel route, within tests/test_torch_xsect.py's
+# SD-Voigt MODE_BOUND; its TUD on phase 5's small case, card against CPU
+JNP_XS = ("xsect --synthetic 2000 --numin 1000 --numax 1010 --dv 0.0025 "
+          "--T 280 --T-max 290 --T-step 5")
+JNP_BOUND = 1e-5
+JNP_HT_LAYERS = [0, 10, 25, 45]
+JNP_TUD = ("tud --derived --line-mixing --continuum mt_ckd --numin 718 "
+           "--numax 723 --dv 0.0005 --n-atmos 2 --batch 2")
 SUB_BAND = (700.0, 740.0, 0.0005)
 FULL_BAND = (690.0, 1410.0, 0.0005)
 MARGIN = 25.0           # cm^-1 of lines beyond each band edge (the CLI's)
@@ -1263,6 +1302,248 @@ def phase_main(card):
               f"{rel:.3e} of peak", flush=True)
         check(rel <= SLICE_BOUND, f"slice {k}: {rel:.3e} > {SLICE_BOUND}")
     return launches
+
+
+#: a child of phase 5c: the production command through run_tud on the
+#: card, its own launch counts, each batch file's write timed and, with
+#: ``kill``, SIGKILL right after the first is in place; the products
+#: streamed to ``<out>.bin`` with np.save (and ``<out>.h5`` where h5py is
+#: installed), the counts and times to ``<out>.json``
+CHECKPOINT_CHILD = """
+import collections, json, os, signal, sys, time
+sys.path.insert(0, {root!r})
+import numpy as np
+from radtxfr_tpu_torch.cli.main import _write_tud_h5, build_parser, run_tud
+from radtxfr_tpu_torch.dist.checkpoint import EnsembleCheckpoint
+from radtxfr_tpu_torch.kernels import fused_tud, fused_xsect
+write, writes = EnsembleCheckpoint.write_batch, []
+def timed_write(self, b, arrays):
+    t0 = time.perf_counter()
+    write(self, b, arrays)
+    writes.append(time.perf_counter() - t0)
+    if {kill!r}:
+        os.kill(os.getpid(), signal.SIGKILL)
+EnsembleCheckpoint.write_batch = timed_write
+fused_xsect.LAUNCHES.clear()
+for k in fused_tud.LAUNCHES:
+    fused_tud.LAUNCHES[k] = 0
+args = build_parser().parse_args({argv!r})
+timings = {{}}
+x_lo, out = run_tud(args, "cuda", timings)
+launches = collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
+with open({out!r} + ".bin", "wb") as f:
+    for a in (x_lo, out["tau"], out["Lu"], out["Ld"]):
+        np.save(f, np.ascontiguousarray(a))
+try:
+    import h5py  # noqa: F401
+    _write_tud_h5({out!r} + ".h5", x_lo, out, args.altitudes)
+except ImportError:
+    pass
+with open({out!r} + ".json", "w") as f:
+    json.dump(dict(launches=launches, timings=timings, writes=writes), f)
+"""
+
+
+def checkpoint_child(argv, out, kill=False):
+    """Run one phase-5c child; its exit code and output."""
+    code = CHECKPOINT_CHILD.format(
+        root=os.path.dirname(os.path.abspath(__file__)), argv=argv, out=out,
+        kill=kill)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=CHILD_TIMEOUT)
+    return run.returncode, run.stdout + run.stderr
+
+
+def read_products(path):
+    with open(path, "rb") as f:
+        return [np.load(f) for _ in range(4)]
+
+
+def phase_checkpoint(card):
+    """The production command with --checkpoint, killed after its first
+    batch and resumed, against an uninterrupted run and a run without
+    checkpoints."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    base = CHECKPOINTED.split()
+    t0 = time.perf_counter()
+    a = os.path.join(work, "a")
+    rc, log = checkpoint_child(base + ["--checkpoint",
+                                       os.path.join(work, "ck_a")], a)
+    check(rc == 0, f"uninterrupted checkpointed run failed ({rc}):\n"
+          f"{log[-3000:]}")
+    t1 = time.perf_counter()
+    b, ck_b = os.path.join(work, "b"), os.path.join(work, "ck_b")
+    argv = base + ["--checkpoint", ck_b]
+    rc, log = checkpoint_child(argv, b, kill=True)
+    check(rc == -9, f"the killed child ended with {rc}, not SIGKILL:\n"
+          f"{log[-3000:]}")
+    listing = sorted(f for f in os.listdir(ck_b))
+    check(listing == ["batch_000000.npz", "manifest.json"],
+          f"before the resume the checkpoint held {listing}")
+    check(not any(os.path.exists(b + ext) for ext in (".bin", ".h5")),
+          "the killed run wrote its output")
+    t2 = time.perf_counter()
+    rc, log = checkpoint_child(argv, b)
+    check(rc == 0, f"the resumed run failed ({rc}):\n{log[-3000:]}")
+    check("batch 1/3" not in log and "batch 3/3" in log,
+          "the resumed run recomputed the first batch")
+    t3 = time.perf_counter()
+    for ext in (".bin", ".h5"):
+        if os.path.exists(a + ext) or os.path.exists(b + ext):
+            with open(a + ext, "rb") as f, open(b + ext, "rb") as g:
+                check(f.read() == g.read(), f"a{ext} and b{ext} differ")
+    have_h5 = os.path.exists(a + ".h5")
+    args = build_parser().parse_args(base)
+    plain_t = {}
+    x_lo, out = run_tud(args, "cuda", plain_t)
+    got = read_products(b + ".bin")
+    for name, want, have in zip(("X", "tau", "Lu", "Ld"),
+                                (x_lo, out["tau"], out["Lu"], out["Ld"]),
+                                got):
+        check(np.array_equal(want, have), f"the resumed {name} differs "
+              "from run_tud without --checkpoint")
+    with open(a + ".json") as f:
+        ja = json.load(f)
+    with open(b + ".json") as f:
+        jb = json.load(f)
+    for k in (*PRODUCTION_MODES, "tud"):
+        check(ja["launches"].get(k, 0) > 0 and jb["launches"].get(k, 0) > 0,
+              f"kernel {k} was not launched in the checkpointed children")
+    print(f"[5c checkpoint] {CHECKPOINTED} --checkpoint: killed after batch "
+          f"1 of 3 (SIGKILL in the child), one batch file left, resumed in "
+          f"a fresh process; outputs byte-identical ("
+          f"{'HDF5 and ' if have_h5 else ''}np.save streams; h5py "
+          f"{'present' if have_h5 else 'absent'}), equal to run_tud "
+          "without --checkpoint", flush=True)
+    print(f"[5c checkpoint] launches, uninterrupted child: "
+          f"{ja['launches']}; resumed child: {jb['launches']}", flush=True)
+    print(f"[5c checkpoint] seconds a batch of 2 with checkpoints: "
+          f"{['%.4f' % c for c in ja['timings']['chunk_s']]} (resumed: "
+          f"{['%.4f' % c for c in jb['timings']['chunk_s']]}); without: "
+          f"{['%.4f' % c for c in plain_t['chunk_s']]}; .npz writes "
+          f"{['%.4f' % w for w in ja['writes']]} s; plan build "
+          f"{ja['timings']['build_s']:.3f} s in the child, "
+          f"{plain_t['build_s']:.3f} s here; child wall seconds: "
+          f"uninterrupted {t1 - t0:.1f}, killed {t2 - t1:.1f}, resumed "
+          f"{t3 - t2:.1f} [{card}]", flush=True)
+    shutil.rmtree(work)
+    return ja["launches"]
+
+
+def jnp_lattice64(args, xs, dev):
+    """The lattice of ``run_xsect``'s result ``xs`` by the reference engine
+    in float64 on ``dev``: the CLI's synthetic lines (its margin and seed)
+    as float64 tensors, one state at a time."""
+    margin = max(50.0, args.wing_abs)
+    lines = synthetic_lines(args.synthetic, nu_min=args.numin - margin,
+                            nu_max=args.numax + margin, seed=args.seed,
+                            device=dev, dtype=torch.float64)
+    iso = IsoTables.load(device=dev, dtype=torch.float64)
+    grid = torch.as_tensor(xs["X"], dtype=torch.float64, device=dev)
+    rows = []
+    for T, p in zip(xs["T"], xs["p"]):
+        if args.profile == "ht":
+            rows.append(xsect_ht(grid, lines, iso, float(T), float(p),
+                                 wing_hw=args.wing_hw))
+        else:
+            prm = compute_line_params(lines, iso, float(T), float(p),
+                                      wing_hw=args.wing_hw,
+                                      profile=args.profile)
+            rows.append(xsect_from_params(grid, prm, args.profile))
+    return torch.stack(rows).cpu().numpy()
+
+
+def phase_jnp(dev, card):
+    """The reference engine on the card: the CLI's (float32) against the
+    CPU's, the engine in float64 against the kernel route, its TUD against
+    the CPU's."""
+    for profile in ("sdvoigt", "ht"):
+        args = build_parser().parse_args(
+            (JNP_XS + f" --profile {profile}").split())
+        kern = run_xsect(args, "cuda")
+        args.engine = "jnp"
+        run_xsect(args, "cuda")                    # warm
+        t = {}
+        got = run_xsect(args, "cuda", t)
+        cpu = run_xsect(args, "cpu")
+        check(got["modes"] == [], "the jnp engine ran kernel passes")
+        check(np.isfinite(got["K"]).all(), f"jnp {profile}: non-finite")
+        rel = np.abs(got["K"] - cpu["K"]).max() / np.abs(cpu["K"]).max()
+        gap = np.abs(got["K"] - kern["K"]).max() / np.abs(kern["K"]).max()
+        t0 = time.perf_counter()
+        ref = jnp_lattice64(args, got, dev)
+        torch.cuda.synchronize()
+        secs64 = time.perf_counter() - t0
+        rel64 = np.abs(kern["K"] - ref).max() / np.abs(ref).max()
+        print(f"[5d jnp] xsect --engine jnp --profile {profile}, "
+              f"{ref.shape[0]} states x {ref.shape[1]} points: card vs CPU "
+              f"{rel:.3e} of peak, {t['run_s']:.3f} s on the card; the "
+              f"kernel route ({sorted(set(kern['modes']))}) against the "
+              f"engine in float64 on the card {rel64:.3e} ({secs64:.3f} s); "
+              f"the float32 engine against the kernel route {gap:.3e} (not "
+              f"bounded: its float32 line centres) [{card}]", flush=True)
+        check(rel <= JNP_BOUND, f"jnp {profile} card vs CPU: {rel:.3e} > "
+              f"{JNP_BOUND}")
+        check(rel64 <= JNP_BOUND, f"kernel route {profile} vs the float64 "
+              f"engine: {rel64:.3e} > {JNP_BOUND}")
+
+    X = arange_drift_free(1000.0, 1010.0, 0.0025)
+    store = synthetic_lines(2000, nu_min=950.0, nu_max=1060.0, seed=2,
+                            sd_zero_frac=0.4, device=dev)
+    extras = ht_extras(len(store), 5, 0.3)
+    layers = {}
+    for dt in (torch.float32, torch.float64):
+        atm = std_atmosphere(device=dev, dtype=dt)
+        layers[dt] = (
+            type(store).from_numpy(**store.host, device=dev, dtype=dt),
+            IsoTables.load(device=dev, dtype=dt),
+            dataclasses.replace(atm, **{f: getattr(atm, f)[JNP_HT_LAYERS]
+                                        for f in ("z0", "z1", "pl", "p",
+                                                  "T", "vmr")}))
+    lines32, iso32, atm32 = layers[torch.float32]
+    reset_launches()
+    want = compute_od_layers(lines32, iso32, X, atm32, profile="ht",
+                             engine="pallas", ht_extras=extras)
+    launches = read_launches()
+    check(launches["ht"] > 0, "K5 was not launched by the kernel route")
+    lines64, iso64, atm64 = layers[torch.float64]
+    compute_od_layers(lines64, iso64, X, atm64, profile="ht",
+                      ht_extras=extras)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compute_od_layers(lines64, iso64, X, atm64, profile="ht",
+                            ht_extras=extras)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rel = float((want.double() - got).abs().max() / got.abs().max())
+    print(f"[5d jnp] compute_od_layers(profile='ht', ht_extras) on "
+          f"{len(JNP_HT_LAYERS)} layers x {X.size} points: the kernel route "
+          f"(K5 {launches['ht']} launches) against the jnp engine in float64 "
+          f"on the card {rel:.3e} of peak; {secs:.3f} s on the card "
+          f"[{card}]", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= JNP_BOUND,
+          f"HT OD kernel route vs the float64 engine: {rel:.3e} > "
+          f"{JNP_BOUND}")
+
+    args = build_parser().parse_args((JNP_TUD + " --engine jnp").split())
+    run_tud(args, "cuda")                          # warm
+    t = {}
+    _, gpu = run_tud(args, "cuda", t)
+    t0 = time.perf_counter()
+    _, cpu = run_tud(args, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _, kern = run_tud(build_parser().parse_args(JNP_TUD.split()), "cuda")
+    for k in ("tau", "Lu", "Ld"):
+        rel = np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max()
+        gap = np.abs(gpu[k] - kern[k]).max() / np.abs(kern[k]).max()
+        print(f"[5d jnp] tud --engine jnp 718-723 cm^-1, 2 members, {k}: "
+              f"card vs CPU {rel:.3e} of peak; against the kernel route on "
+              f"the card {gap:.3e} (not bounded: float32 line centres and "
+              f"the members' unclamped wings)", flush=True)
+        check(rel <= SLICE_BOUND, f"jnp slice {k}: {rel:.3e} > "
+              f"{SLICE_BOUND}")
+    print(f"[5d jnp] tud --engine jnp: {t['members_s'] / 2:.3f} s a member "
+          f"on the card, {cpu_s / 2:.3f} s on the CPU [{card}]", flush=True)
 
 
 JAC_KEYS = [f"d{prod}_d{var}" for var in ("T", "H2O", "O3")
@@ -2714,6 +2995,8 @@ def main():
     k7, k7_launches = run(phase_unfused_sub, dev, card)
     k2 = run(phase_k2, dev, card)
     launches = run(phase_main, card)
+    run(phase_checkpoint, card)
+    run(phase_jnp, dev, card)
     jac_launches = run(phase_jacobian, card)
     xs_launches = {**run(phase_xs_main, dev, card),
                    **{m: full_launches[m] for m in ("corr:64:voigtfull",

@@ -1,11 +1,11 @@
 """radtxfr_tpu_torch — the PyTorch/CUDA port of ``radtxfr_tpu``.
 
 Same subpackage layout as the JAX package (``core``, ``lines``, ``kernels``,
-``atmos``, ``products``, ``sensor``, ``io``, ``cli``); each module here is
-the counterpart of the module at the same relative path there. Plain tensor
-code is PyTorch; the two line-by-line kernels of the production TUD path are
-hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
-use (:mod:`radtxfr_tpu_torch._build`), never at import.
+``atmos``, ``products``, ``sensor``, ``dist``, ``io``, ``cli``); each module
+here is the counterpart of the module at the same relative path there. Plain
+tensor code is PyTorch; the line-by-line kernels are hand-written CUDA C++
+for Hopper (``csrc/``), built with ``nvcc`` at first use
+(:mod:`radtxfr_tpu_torch._build`), never at import.
 
 Every public constructor and builder takes ``device`` and runs on the card
 (CUDA) unless the caller passes another device, e.g. ``device="cpu"`` for

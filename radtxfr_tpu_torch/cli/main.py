@@ -5,10 +5,11 @@ device).
     python -m radtxfr_tpu_torch.cli.main xsect --synthetic 30000 \\
         --numin 400 --numax 7100 --dv 0.0025 --profile sdvoigt \\
         --wing-abs 350 --T 275 --T-max 320 --T-step 5 --p 1.0 \\
-        [--device cuda] [--output DIR/xs]
+        [--engine auto|pallas|jnp] [--device cuda] [--output DIR/xs]
     python -m radtxfr_tpu_torch.cli.main tud --derived --line-mixing \\
         --continuum mt_ckd --numin 690 --numax 1410 --dv 0.0005 \\
-        --n-atmos N --batch B [--jacobian [--jacobian-wrt T,1,3]] \\
+        --n-atmos N --batch B [--checkpoint DIR] \\
+        [--jacobian [--jacobian-wrt T,1,3]] [--engine auto|pallas|jnp] \\
         [--device cuda] [--output tud.h5]
 
 ``xsect`` is configuration 2 of the reference (``RT_gen_AbsXS_files.py``):
@@ -16,37 +17,45 @@ absorption cross-sections of a (T, p) lattice on a fine grid, one AFIT_XS
 binary file per state. The states are the kernels' layers
 (:func:`~..products.od.make_xsect_fn`); absolute wings that dominate every
 halfwidth wing (the reference's 350 cm^-1) take the coarse-far route.
+``--profile ht`` runs the Hartmann-Tran lattice
+(:func:`~..products.od.make_ht_fn`); the CLI takes no HT columns, so its
+lines route to the SD-Voigt and Voigt degenerations of pcqsdhc.
 
 ``tud`` is configuration 3 of the reference (``Generate_LWIR_TUD.py``):
 66-layer multi-altitude transmittance / upwelling / downwelling over the
 LWIR band for an ensemble of perturbed standard atmospheres, reduced on the
-device to ``--dv-out``, written to HDF5. Members are processed in chunks of
-``--batch``; each chunk's reduced products are copied to the host once.
-``--jacobian`` adds d(tau, Lu, Ld)/d(T, H2O, O3) of the standard
-atmosphere by forward-mode autodiff (the reference's 199-profile finite
-differences), 8 directions at a time, each batch reduced on the device as
-soon as it exists.
+device to ``--dv-out`` (by ``reduce_resolution`` member by member where the
+banded operator does not apply, e.g. under 3 fine steps), written to HDF5.
+Members run in batches of ``--batch``; each batch's reduced products are
+copied to the host once. ``--checkpoint DIR`` persists each batch as
+``DIR/batch_%06d.npz`` as soon as it exists (:mod:`..dist.checkpoint`): a
+run that is killed and started again with the same arguments computes only
+the missing batches, and its products are bit-identical to an
+uninterrupted run's. ``--jacobian`` adds d(tau, Lu, Ld)/d(T, H2O, O3) of
+the standard atmosphere by forward-mode autodiff (the reference's
+199-profile finite differences), 8 directions at a time.
 
-Line data: ``--derived`` (the physics-derived LWIR list) or ``--synthetic
-N`` (the deterministic synthetic list; 20,000 lines when neither is given,
-as in the JAX CLI).
+Engines (``--engine``): ``auto`` and ``pallas`` (the JAX CLI's name) run
+the CUDA kernels on every device (their plain versions for ``--device
+cpu``); ``jnp`` runs the reference engine, plain PyTorch on the device
+asked for: ``xsect`` per state ``compute_line_params`` and
+``xsect_from_params`` (``xsect_ht`` for ``--profile ht``), ``tud`` per
+member ``compute_od_layers(engine="jnp")``, the Planck source and
+``tud_from_od``, and its Jacobian ``tud_with_jacobian(engine="jnp")``.
 
-``xsect --profile ht`` runs the Hartmann-Tran lattice
-(:func:`~..products.od.make_ht_fn`), as the JAX CLI's Pallas engine does;
-the CLI takes no HT columns, so its lines route to the SD-Voigt and Voigt
-degenerations of pcqsdhc.
+Line data: ``--par FILE`` (a HITRAN ``.par`` file, the native parser),
+``--derived`` (the physics-derived LWIR list) or ``--synthetic N`` (the
+deterministic synthetic list; 20,000 lines when none is given, as in the
+JAX CLI).
 
-Not ported yet (each raises ``NotImplementedError``): ``--par`` (parse_par
-and the native parser, ROADMAP M9), ``--engine jnp`` (the JAX package's
-jnp engine, whose SD-Voigt and HT profiles are pcqsdhc through ``htp.py``,
-M13; ROADMAP queue 1 item 3), ``--checkpoint`` (M9) and ``--mesh-*`` (M15,
-with the sharded Jacobian; ``tud --partition`` is accepted and matters only
-there).
+``--mesh-*`` (multi-GPU runs, ROADMAP M15) raises ``NotImplementedError``;
+``tud --partition`` is accepted and matters only there.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -55,13 +64,15 @@ import torch
 
 def _load_lines(args, device, margin=25.0):
     """The run's line list, ``margin`` cm^-1 beyond each band edge: the
-    derived list, or ``--synthetic`` lines (20,000 by default)."""
+    ``--par`` file's lines, the derived list, or ``--synthetic`` lines
+    (20,000 by default)."""
     from ..lines.derived import derived_lwir_linelist
+    from ..lines.store import parse_par
     from ..lines.synthetic import synthetic_lines
 
     if args.par:
-        raise NotImplementedError(
-            "--par: parse_par and the native .par parser are ROADMAP M9")
+        store = parse_par(args.par, device=device, dtype=torch.float32)
+        return store.select_band(args.numin, args.numax, margin=margin)
     if args.derived:
         return derived_lwir_linelist(args.numin - margin,
                                      args.numax + margin, device=device,
@@ -77,18 +88,15 @@ def run_xsect(args, device, timings: dict | None = None) -> dict:
     Returns ``{"X", "T", "p", "K", "mol_id", "modes"}``: the axis (nX,),
     the states' T [K] and p [atm] (nStates,), the NumPy float32
     cross-sections (nStates, nX) [cm^2/molec], the AFIT molecule id (the
-    list's one molecule, else 0) and the modes of the kernel passes run.
-    ``timings``, when given, receives ``build_s`` (lines and plans) and
-    ``run_s`` (the lattice, on the host).
+    list's one molecule, else 0) and the modes of the kernel passes run
+    (none on the jnp engine). ``timings``, when given, receives
+    ``build_s`` (lines and plans) and ``run_s`` (the lattice, on the
+    host).
     """
     from ..core.grid import arange_drift_free
     from ..lines.store import IsoTables
     from ..products.od import make_ht_fn, make_xsect_fn
 
-    if args.engine == "jnp":
-        raise NotImplementedError(
-            "--engine jnp: the JAX package's jnp engine (SD-Voigt through "
-            "htp.py's pcqsdhc) is not ported; the port runs the kernels")
     device = torch.device(device)
     f32 = torch.float32
     t0 = time.perf_counter()
@@ -103,25 +111,52 @@ def run_xsect(args, device, timings: dict | None = None) -> dict:
                 if args.p_max else np.array([args.p]))
     TT, PP = [a.ravel() for a in np.meshgrid(T_states, p_states,
                                              indexing="ij")]
-    if args.profile == "ht":
-        # the CLI takes no HT columns: the lines resolve eta = nuVC = Shift2
-        # = 0 and route to pcqsdhc's SD-Voigt and Voigt degenerations
-        fn = make_ht_fn(store, iso, X, TT, PP, wing_abs=args.wing_abs,
-                        wing_hw=args.wing_hw)
-    else:
-        fn = make_xsect_fn(store, iso, X, TT, PP, profile=args.profile,
-                           wing_abs=args.wing_abs, wing_hw=args.wing_hw)
+    fn, modes = None, []
+    if args.engine != "jnp":
+        if args.profile == "ht":
+            # the CLI takes no HT columns: the lines resolve eta = nuVC =
+            # Shift2 = 0 and route to pcqsdhc's SD-Voigt and Voigt
+            # degenerations
+            fn = make_ht_fn(store, iso, X, TT, PP, wing_abs=args.wing_abs,
+                            wing_hw=args.wing_hw)
+        else:
+            fn = make_xsect_fn(store, iso, X, TT, PP, profile=args.profile,
+                               wing_abs=args.wing_abs, wing_hw=args.wing_hw)
+        modes = [c[2] for c in fn.all_calls()]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
-    K = fn(torch.as_tensor(TT, dtype=f32, device=device),
-           torch.as_tensor(PP, dtype=f32, device=device)).cpu().numpy()
+    if fn is None:
+        K = _xsect_jnp(args, store, iso, X, TT, PP)
+    else:
+        K = fn(torch.as_tensor(TT, dtype=f32, device=device),
+               torch.as_tensor(PP, dtype=f32, device=device))
+    K = K.cpu().numpy()
     if timings is not None:
         timings.update(build_s=t1 - t0, run_s=time.perf_counter() - t1)
     mols = np.unique(store.host["mol_id"])
     return {"X": X, "T": TT, "p": PP, "K": K,
-            "mol_id": int(mols[0]) if mols.size == 1 else 0,
-            "modes": [c[2] for c in fn.all_calls()]}
+            "mol_id": int(mols[0]) if mols.size == 1 else 0, "modes": modes}
+
+
+def _xsect_jnp(args, store, iso, X, TT, PP):
+    """The lattice (nStates, nX) by the reference engine, one state at a
+    time at its float64 (T, p), as the JAX CLI's jnp engine."""
+    from ..kernels.ht_driver import xsect_ht
+    from ..kernels.lineparams import compute_line_params
+    from ..kernels.xsect import xsect_from_params
+
+    grid = torch.as_tensor(X, dtype=torch.float32, device=store.sw.device)
+    kw = dict(wing_abs=args.wing_abs, wing_hw=args.wing_hw)
+
+    def one(T, p):
+        if args.profile == "ht":
+            return xsect_ht(grid, store, iso, T, p, **kw)
+        prm = compute_line_params(store, iso, T, p, profile=args.profile,
+                                  **kw)
+        return xsect_from_params(grid, prm, profile=args.profile)
+
+    return torch.stack([one(float(T), float(p)) for T, p in zip(TT, PP)])
 
 
 def write_xs(path, xs: dict, db_name: str) -> list:
@@ -176,28 +211,23 @@ def run_tud(args, device, timings: dict | None = None):
 
     Returns ``(x_lo, {"tau", "Lu", "Ld"})``: the reduced axis (n_out,) and
     NumPy products tau/Lu (n_atmos, n_out, nZs), Ld (n_atmos, n_out); with
-    ``--jacobian`` also ``d{tau,Lu}_d{T,H2O,O3}`` (n_out, nZs, nLay) and
-    ``dLd_d*`` (n_out, nLay), the JAX CLI's keys. ``timings``, when given,
+    ``--jacobian`` also ``d{tau,Lu}_d{T,H2O,O3}`` and ``dLd_d*``, the JAX
+    CLI's keys and shapes: reduced, (n_out, nZs, nLay) and (n_out, nLay),
+    where the banded operator applies, else at full resolution with the
+    mu axis, (nX, nZs, 1, nLay) and (nX, nLay). ``timings``, when given,
     receives ``build_s`` (lines, plans, operators), ``members_s`` (all
-    members, products on the host), ``chunk_s`` (the seconds of each
-    ``--batch`` chunk) and, with ``--jacobian``, ``jacobian_s``.
+    members computed in this call, products on the host), ``chunk_s`` (the
+    seconds of each batch computed) and, with ``--jacobian``,
+    ``jacobian_s``. With ``--checkpoint`` only the pending batches are
+    computed and the products are gathered from the batch files.
     """
     from ..atmos.profile import std_atmosphere
     from ..core.grid import arange_drift_free
+    from ..dist.checkpoint import EnsembleCheckpoint, run_batched
     from ..kernels.linemixing_data import y_air_for_store
     from ..lines.store import IsoTables
-    from ..products.od import make_od_fn
-    from ..products.tud import make_tud_fn
-    from ..sensor.resolution import reduce_operator
+    from ..sensor.resolution import reduce_operator, reduce_resolution
 
-    if args.engine == "jnp":
-        raise NotImplementedError(
-            "--engine jnp: the JAX package's reference engine for tud is "
-            "ROADMAP queue 1 item 3; the port runs the kernels")
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: resumable ensemble checkpoints (dist/checkpoint.py)"
-            " are ROADMAP M9")
     if args.mesh_spectrum * args.mesh_ensemble > 1:
         raise NotImplementedError("--mesh-*: multi-GPU runs are ROADMAP M15")
     if args.batch < 1 or args.n_atmos < 1:
@@ -221,39 +251,52 @@ def run_tud(args, device, timings: dict | None = None):
         line_mixing = {"y_air": y} if n_mix else None
         print(f"line mixing: derived Rosenkranz y_air on {n_mix} CO2 "
               f"branch lines (Sum S*Y = 0 enforced by construction)")
-    od_fn = make_od_fn(store, iso, X, base, continuum=args.continuum,
-                       line_mixing=line_mixing)
-    tud_fn = make_tud_fn(base.z0.cpu().numpy(), args.altitudes,
-                         n_angles=args.n_angles, device=device)
+    member = _member_fn(args, store, iso, X, grid, base, line_mixing, device)
+    # the banded operator where it applies (the default axis is interior);
+    # it refuses when there is nothing to reduce (under 3 fine steps), and
+    # each member is then reduced by reduce_resolution
     try:
         op = reduce_operator(X, args.dv_out, device=device)
-    except ValueError as e:
-        raise NotImplementedError(
-            f"{e}; the unfused reduce_resolution path is not ported yet "
-            "(ROADMAP M8)") from e
+        x_lo = op.x_out
+    except ValueError:
+        op = None
+        # the axis reduce_resolution gives every member (the values reduced
+        # here are discarded)
+        x_lo = reduce_resolution(X, grid, args.dv_out)[0]
+
+    def reduce(tau, Lu, Ld):
+        # all sensor altitudes, as the reference stores them
+        # (Generate_LWIR_TUD.py:96-132)
+        if op is not None:
+            return op(tau[:, :, 0]), op(Lu[:, :, 0]), op(Ld)
+        return tuple(reduce_resolution(X, a, args.dv_out, X_out=x_lo)
+                     for a in (tau[:, :, 0], Lu[:, :, 0], Ld))
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
 
-    t1 = time.perf_counter()
-    parts = {"tau": [], "Lu": [], "Ld": []}
     chunk_s = []
-    for lo in range(0, args.n_atmos, args.batch):
+
+    def compute_batch(indices):
         tc = time.perf_counter()
-        chunk = {"tau": [], "Lu": [], "Ld": []}
-        for i in range(lo, min(lo + args.batch, args.n_atmos)):
-            T, vmr = ensemble_member(base, draws, i)
-            od = od_fn(T, base.p, base.pl, vmr)
-            tud = tud_fn(grid, od, T)
-            # all sensor altitudes, as the reference stores them
-            # (Generate_LWIR_TUD.py:96-132)
-            chunk["tau"].append(op(tud.tau[:, :, 0]))
-            chunk["Lu"].append(op(tud.Lu[:, :, 0]))
-            chunk["Ld"].append(op(tud.Ld))
-        for k, v in chunk.items():
-            parts[k].append(torch.stack(v).cpu().numpy())
+        parts = {"tau": [], "Lu": [], "Ld": []}
+        for i in indices:
+            red = reduce(*member(*ensemble_member(base, draws, int(i))))
+            for k, v in zip(parts, red):
+                parts[k].append(v)
+        out = {k: torch.stack(v).cpu().numpy() for k, v in parts.items()}
         chunk_s.append(time.perf_counter() - tc)
-    out = {k: np.concatenate(v) for k, v in parts.items()}
+        return out
+
+    t1 = time.perf_counter()
+    if args.checkpoint:
+        ckpt = EnsembleCheckpoint(args.checkpoint, args.n_atmos, args.batch)
+        out = run_batched(ckpt, compute_batch)
+    else:
+        parts = [compute_batch(range(lo, min(lo + args.batch, args.n_atmos)))
+                 for lo in range(0, args.n_atmos, args.batch)]
+        out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     if timings is not None:
         timings.update(build_s=build_s, members_s=time.perf_counter() - t1,
                        chunk_s=chunk_s)
@@ -263,13 +306,46 @@ def run_tud(args, device, timings: dict | None = None):
                              device))
         if timings is not None:
             timings["jacobian_s"] = time.perf_counter() - t2
-    return op.x_out, out
+    return x_lo, out
+
+
+def _member_fn(args, store, iso, X, grid, base, line_mixing, device):
+    """``member(T, vmr) -> (tau, Lu, Ld)`` at full resolution, tau/Lu
+    (nX, nZs, 1) and Ld (nX,): the kernels' builders (``auto``,
+    ``pallas``) or the reference engine (``jnp``)."""
+    from ..core.planck import planckian
+    from ..products.od import compute_od_layers, make_od_fn
+    from ..products.tud import make_tud_fn, tud_from_od
+
+    if args.engine != "jnp":
+        od_fn = make_od_fn(store, iso, X, base, continuum=args.continuum,
+                           line_mixing=line_mixing)
+        tud_fn = make_tud_fn(base.z0.cpu().numpy(), args.altitudes,
+                             n_angles=args.n_angles, device=device)
+
+        def member(T, vmr):
+            tud = tud_fn(grid, od_fn(T, base.p, base.pl, vmr), T)
+            return tud.tau, tud.Lu, tud.Ld
+        return member
+
+    alts = torch.as_tensor(args.altitudes, dtype=grid.dtype, device=device)
+
+    def member(T, vmr):
+        od = compute_od_layers(store, iso, grid,
+                               dataclasses.replace(base, T=T, vmr=vmr),
+                               engine="jnp", continuum=args.continuum,
+                               line_mixing=line_mixing)
+        B = planckian(grid, T).transpose(0, 1).to(od.dtype)
+        tud = tud_from_od(grid, od, B, base.z0, alts, n_angles=args.n_angles)
+        return tud.tau, tud.Lu, tud.Ld
+    return member
 
 
 def _jacobian(args, store, iso, grid, base, op, line_mixing, device):
-    """The ``--jacobian`` products of the standard atmosphere, reduced like
-    tau/Lu/Ld (the singleton mu axis dropped), as NumPy arrays under the
-    JAX CLI's keys."""
+    """The ``--jacobian`` products of the standard atmosphere as NumPy
+    arrays under the JAX CLI's keys: reduced like tau/Lu/Ld, the singleton
+    mu axis dropped, where the banded operator ``op`` exists; at full
+    resolution otherwise, as the JAX CLI keeps them."""
     from ..products.jacobian import tud_with_jacobian
 
     wrt = tuple(w if w == "T" else int(w)
@@ -279,15 +355,17 @@ def _jacobian(args, store, iso, grid, base, op, line_mixing, device):
               "differentiable kernels; the Jacobian runs without mixing")
     alts = torch.as_tensor(args.altitudes, dtype=torch.float32,
                            device=device)
-    _, jac = tud_with_jacobian(store, iso, grid, base, alts, wrt=wrt,
-                               n_angles=args.n_angles, tangent_batch=8,
-                               continuum=args.continuum, reduce=op)
+    _, jac = tud_with_jacobian(
+        store, iso, grid, base, alts, wrt=wrt, n_angles=args.n_angles,
+        tangent_batch=8, continuum=args.continuum, reduce=op,
+        engine="jnp" if args.engine == "jnp" else "pallas")
     names = {"T": "T", 1: "H2O", 3: "O3"}
     out = {}
     for key in wrt:
         for prod in ("tau", "Lu", "Ld"):
             a = jac[str(key)][prod]
-            a = a[:, :, 0] if a.dim() == 4 else a
+            if op is not None and a.dim() == 4:
+                a = a[:, :, 0]
             out[f"d{prod}_d{names.get(key, str(key))}"] = a.cpu().numpy()
     print(f"jacobian: {sum(v.size for v in out.values())} elements")
     return out
@@ -328,7 +406,7 @@ def cmd_tud(args):
 
 
 def _add_common(p):
-    p.add_argument("--par", help="HITRAN .par line database (not ported)")
+    p.add_argument("--par", help="HITRAN .par line database")
     p.add_argument("--synthetic", type=int, default=0,
                    help="use N synthetic lines (default 20000 when neither "
                         "--synthetic nor --derived is given)")
@@ -345,7 +423,8 @@ def _add_common(p):
     p.add_argument("--engine", default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="'auto' and 'pallas' (the JAX CLI's name) run the "
-                        "kernels; 'jnp' is not ported")
+                        "CUDA kernels (their plain versions on the CPU); "
+                        "'jnp' runs the reference engine in plain PyTorch")
 
 
 def build_parser():
@@ -383,13 +462,14 @@ def build_parser():
     p3.add_argument("--altitudes", type=float, nargs="+",
                     default=[0.061, 0.305, 1.524, 3.048, 6.096, 9.144,
                              12.192, 15.24, 500.0])
-    p3.add_argument("--checkpoint", default=None, help="(not ported)")
+    p3.add_argument("--checkpoint", default=None,
+                    help="directory of resumable per-batch checkpoints")
     p3.add_argument("--line-mixing", dest="line_mixing", action="store_true",
                     help="first-order Rosenkranz CO2 Q-branch line coupling")
     p3.add_argument("--mesh-spectrum", dest="mesh_spectrum", type=int,
-                    default=1, help="(not ported)")
+                    default=1, help="multi-GPU runs (ROADMAP M15; raises)")
     p3.add_argument("--mesh-ensemble", dest="mesh_ensemble", type=int,
-                    default=1, help="(not ported)")
+                    default=1, help="multi-GPU runs (ROADMAP M15; raises)")
     p3.add_argument("--partition", default="weighted",
                     choices=["equal", "weighted"],
                     help="spectral-shard assignment of the --mesh-* path "

@@ -19,8 +19,12 @@ The selection runs on the host in NumPy over the concrete columns
 (:func:`resolve_ht_columns`); :func:`ht_params` scales them to (T, p) in
 torch, so tangents flow through it. eta is carried as the real pair
 (``eta_r``, ``eta_i``): its value is the JAX driver's complex eta, and
-``torch.func.jvp``/``vmap`` meet only real operations. ``xsect_ht`` and
-``ht_xsect_from_params`` (the JAX package's jnp HT engine) are not ported.
+``torch.func.jvp``/``vmap`` meet only real operations; with
+``complex_dtype`` the dict also holds the complex ``eta``.
+
+:func:`xsect_ht` and :func:`ht_xsect_from_params` are the reference (jnp)
+engine's HT line sum: the complex pcqsdhc of :mod:`.htp` over chunks of
+(lines x grid), with hapi's window mask.
 """
 
 from __future__ import annotations
@@ -29,9 +33,12 @@ import numpy as np
 import torch
 
 from ..core.constants import P_REF, T_REF
+from .htp import pcqsdhc
 from .lineparams import compute_line_params
+from .xsect import live_chunks
 
-__all__ = ["resolve_ht_columns", "ht_params"]
+__all__ = ["xsect_ht", "resolve_ht_columns", "ht_params",
+           "ht_xsect_from_params"]
 
 
 def _col(lines, extras, name, default=0.0):
@@ -82,7 +89,7 @@ def resolve_ht_columns(lines, extras, diluent) -> list:
 
 
 def ht_params(resolved, lines, iso, T, p_atm, wing_abs=0.0, wing_hw=50.0,
-              abun=None, strength_scale=1.0) -> dict:
+              complex_dtype=None, abun=None, strength_scale=1.0) -> dict:
     """Per-line HT parameters at (T [K], p [atm]) from resolved columns
     (``ht_driver.py:98-155``): strength, gamma_d, gamma0, shift0, gamma2,
     shift2, nuvc, eta_r, eta_i and wing, in the store's dtype on its device.
@@ -91,7 +98,9 @@ def ht_params(resolved, lines, iso, T, p_atm, wing_abs=0.0, wing_hw=50.0,
     (nLay, L). ``abun`` overrides the resolved abundances (one scalar or
     tensor per diluent: the layered OD passes [1 - x_self, x_self]);
     ``strength_scale`` multiplies the strengths (the species column
-    density, for OD units).
+    density, for OD units); ``complex_dtype`` (e.g. ``torch.complex128``)
+    adds the complex ``eta`` = eta_r + i eta_i in that dtype, the JAX
+    driver's eta.
     """
     dev, dt = lines.sw.device, lines.sw.dtype
     T = torch.as_tensor(T, dtype=dt, device=dev)
@@ -121,7 +130,52 @@ def ht_params(resolved, lines, iso, T, p_atm, wing_abs=0.0, wing_hw=50.0,
     shape = lp.strength.shape
     full = lambda x: torch.broadcast_to(  # noqa: E731
         torch.as_tensor(x, dtype=dt, device=dev), shape)
-    return dict(strength=lp.strength, gamma_d=lp.gamma_d,
-                gamma0=full(gamma0), shift0=full(shift0),
-                gamma2=full(gamma2), shift2=full(shift2), nuvc=full(nuvc),
-                eta_r=full(eta_r), eta_i=full(eta_i), wing=full(wing))
+    out = dict(strength=lp.strength, gamma_d=lp.gamma_d,
+               gamma0=full(gamma0), shift0=full(shift0),
+               gamma2=full(gamma2), shift2=full(shift2), nuvc=full(nuvc),
+               eta_r=full(eta_r), eta_i=full(eta_i), wing=full(wing))
+    if complex_dtype is not None:
+        out["eta"] = torch.complex(out["eta_r"], out["eta_i"]).to(
+            complex_dtype)
+    return out
+
+
+def _complex_of(dt):
+    return torch.complex128 if dt == torch.float64 else torch.complex64
+
+
+def xsect_ht(grid: torch.Tensor, lines, iso, T, p_atm, diluent=None,
+             extras=None, wing_abs: float = 0.0, wing_hw: float = 50.0,
+             chunk: int = 128) -> torch.Tensor:
+    """The HT cross-section (nX,) [cm^2/molec] at one (T [K], p [atm]) on
+    the ``grid`` tensor by the reference engine: hapi's column fallbacks
+    per diluent (default ``{'air': 1}``; ``extras`` the HT columns), then
+    :func:`ht_xsect_from_params`."""
+    resolved = resolve_ht_columns(lines, extras, diluent or {"air": 1.0})
+    prm = ht_params(resolved, lines, iso, T, p_atm, wing_abs=wing_abs,
+                    wing_hw=wing_hw, complex_dtype=_complex_of(grid.dtype))
+    return ht_xsect_from_params(grid, lines.nu0, prm, chunk=chunk)
+
+
+def ht_xsect_from_params(grid: torch.Tensor, nu0, prm: dict, chunk=128,
+                         strength_scale=None) -> torch.Tensor:
+    """The line sum (nX,) of pcqsdhc over chunks of ``chunk`` lines from an
+    :func:`ht_params` dict of (L,) columns (with the complex ``eta`` of
+    ``complex_dtype``), each line masked to its window
+    nu0 - wing < g <= nu0 + wing (hapi's); ``strength_scale`` multiplies
+    the strengths (the layered OD passes the species column density)."""
+    strength = prm["strength"]
+    if strength_scale is not None:
+        strength = strength * strength_scale
+    cols = (nu0, strength, prm["gamma_d"], prm["gamma0"], prm["gamma2"],
+            prm["shift0"], prm["shift2"], prm["nuvc"], prm["eta"],
+            prm["wing"])
+    g = grid[None, :]
+    acc = torch.zeros_like(grid)
+    for lo in live_chunks(grid, nu0, prm["wing"], chunk):
+        nu0c, sc, gdc, g0c, g2c, s0c, s2c, nvcc, etac, wc = (
+            c[lo:lo + chunk, None] for c in cols)
+        vals = pcqsdhc(nu0c, gdc, g0c, g2c, s0c, s2c, nvcc, etac, g)[0]
+        mask = (g > nu0c - wc) & (g <= nu0c + wc)
+        acc = acc + torch.where(mask, sc * vals, 0.0).sum(dim=0)
+    return acc

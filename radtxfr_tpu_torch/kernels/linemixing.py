@@ -17,6 +17,7 @@ import torch
 from ..core.constants import SQRT_LN2, T_REF
 from .faddeeva import wofz_real
 from .lineparams import LineParams
+from .xsect import live_chunks
 
 __all__ = ["mixing_coefficient", "xsect_voigt_mixing"]
 
@@ -36,13 +37,14 @@ def xsect_voigt_mixing(grid: torch.Tensor, params: LineParams,
                        Y: torch.Tensor, chunk: int = 512,
                        n_weideman: int = 24) -> torch.Tensor:
     """Voigt spectrum with first-order mixing; same contract as
-    :func:`.xsect.xsect_from_params` plus the per-line asymmetry ``Y``."""
+    :func:`.xsect.xsect_from_params` plus the per-line asymmetry ``Y``
+    (blocks of lines whose windows miss the grid skipped, as there)."""
     acc = torch.zeros_like(grid)
     g = grid[None, :]
     Y = torch.broadcast_to(torch.as_tensor(Y, dtype=grid.dtype,
                                            device=grid.device),
                            params.nu0.shape)
-    for lo in range(0, params.nu0.shape[0], chunk):
+    for lo in live_chunks(grid, params.nu0, params.wing, chunk):
         p = {k: v[lo:lo + chunk, None] for k, v in vars(params).items()}
         cte = SQRT_LN2 / p["gamma_d"]
         K, L = wofz_real((g - p["nu0_shifted"]) * cte, p["gamma_0"] * cte,

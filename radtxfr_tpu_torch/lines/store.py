@@ -7,8 +7,9 @@ column (``host``) for static planning: the bucket plans decompose line
 centres into exact (grid index, fraction) pairs in float64, which a float32
 copy would quantize by ~6e-5 cm^-1 at 1000 cm^-1.
 
-``parse_par`` and the native ``.par`` parser are not ported yet (ROADMAP
-queue 1, M9 remainder).
+Sources: :func:`parse_par` (the HITRAN 160-character ``.par`` records,
+files through the native parser of :mod:`.native_parser`) and
+:func:`from_arrays`.
 """
 
 from __future__ import annotations
@@ -101,6 +102,20 @@ class LineStore:
         """A LineStore whose columns are the host NumPy copies."""
         return dataclasses.replace(self, **self.host)
 
+    def subset(self, keep) -> "LineStore":
+        """The rows ``keep`` (a boolean mask or index array), on the same
+        device in the same dtype, the float64 host columns kept."""
+        return LineStore.from_numpy(
+            **{k: v[keep] for k, v in self.host.items()},
+            device=self.sw.device, dtype=self.sw.dtype)
+
+    def select_band(self, nu_min: float, nu_max: float,
+                    margin: float = 0.0) -> "LineStore":
+        """The lines within [nu_min - margin, nu_max + margin]."""
+        nu0 = self.host["nu0"]
+        return self.subset((nu0 >= nu_min - margin)
+                           & (nu0 <= nu_max + margin))
+
     @staticmethod
     def from_numpy(*, nu0, sw, elower, gamma_air, gamma_self, n_air,
                    delta_air, iso_row, mol_id, sd_air, device=None,
@@ -146,4 +161,68 @@ def from_arrays(nu0, sw, elower, gamma_air, gamma_self, n_air, delta_air,
         gamma_self=s(gamma_self), n_air=s(n_air), delta_air=s(delta_air),
         sd_air=s(sd_air), iso_row=iso_row[order],
         mol_id=np.asarray(mol_id, dtype=np.int64)[order],
+        device=device, dtype=dtype)
+
+
+# The fixed columns of the 160-character HITRAN2004+ .par record,
+# (start, width), as hapi's PARAMETER_META slices them
+# (misc/hapi.py:583ff) and native/par_parser.cpp reads them.
+_PAR_FIELDS = {
+    "molec_id": (0, 2),
+    "local_iso_id": (2, 1),
+    "nu": (3, 12),
+    "sw": (15, 10),
+    "a": (25, 10),
+    "gamma_air": (35, 5),
+    "gamma_self": (40, 5),
+    "elower": (45, 10),
+    "n_air": (55, 4),
+    "delta_air": (59, 8),
+}
+
+# hapi maps the local iso id '0' to 10; 'A'/'B' stand for 11/12 (as the
+# C++ parser)
+_ISO_CHAR = {**{str(d): d for d in range(10)}, "0": 10,
+             "A": 11, "a": 11, "B": 12, "b": 12}
+
+
+def parse_par(path_or_lines, device=None, dtype=torch.float32,
+              native: bool = True) -> LineStore:
+    """A :class:`LineStore` on ``device`` (None: the card) from a HITRAN
+    ``.par`` file or a list of its 160-character records.
+
+    A file goes through the native C++ parser
+    (:func:`~.native_parser.parse_par_native`) where it can be built, else
+    through the Python parser, as lists of records do.
+    """
+    if isinstance(path_or_lines, (str, os.PathLike)) and native:
+        from .native_parser import parse_par_native
+
+        cols = parse_par_native(str(path_or_lines))
+        if cols is not None:
+            return from_arrays(
+                nu0=cols["nu"], sw=cols["sw"], elower=cols["elower"],
+                gamma_air=cols["gamma_air"], gamma_self=cols["gamma_self"],
+                n_air=cols["n_air"], delta_air=cols["delta_air"],
+                mol_id=cols["mol"], local_iso_id=cols["iso"],
+                device=device, dtype=dtype)
+    if isinstance(path_or_lines, (str, os.PathLike)):
+        with open(path_or_lines) as f:
+            records = f.read().splitlines()
+    else:
+        records = list(path_or_lines)
+    records = [r for r in records if len(r) >= 67]
+
+    def col(name, conv):
+        s, w = _PAR_FIELDS[name]
+        return np.array([conv(r[s:s + w]) for r in records])
+
+    return from_arrays(
+        nu0=col("nu", float), sw=col("sw", float),
+        elower=col("elower", float), gamma_air=col("gamma_air", float),
+        gamma_self=col("gamma_self", float), n_air=col("n_air", float),
+        delta_air=col("delta_air", float),
+        mol_id=col("molec_id", int),
+        local_iso_id=np.array([_ISO_CHAR[r[2]] for r in records],
+                              dtype=np.int32),
         device=device, dtype=dtype)

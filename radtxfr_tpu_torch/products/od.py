@@ -46,9 +46,9 @@ prebuilt :func:`make_od_plan` (a shared-block plan, reused over an
 ensemble) runs :func:`layer_line_params` and the unfused kernel K7
 (:func:`~..kernels.fused_xsect.xsect_unfused`); without a plan the
 builders above; any other engine the reference engine layer by layer
-(:func:`compute_od_layer`), whose SD-Voigt and HT profiles are not ported
-yet (``NotImplementedError``, ROADMAP M13). Its continuum is the pointwise
-:func:`~..atmos.continuum.continuum_od`.
+(:func:`compute_od_layer` for Voigt, SD-Voigt, Lorentz and Doppler;
+:func:`~..kernels.ht_driver.ht_xsect_from_params` for HT). Its continuum
+is the pointwise :func:`~..atmos.continuum.continuum_od`.
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ from ..kernels.fused_xsect import (BucketPlan, UniformGrid,
                                    plan_buckets_packed, xsect_fused,
                                    xsect_fused_diff, xsect_fused_sdvoigt_diff,
                                    xsect_unfused)
-from ..kernels.ht_driver import ht_params, resolve_ht_columns
+from ..kernels.ht_driver import (_complex_of, ht_params,
+                                 ht_xsect_from_params, resolve_ht_columns)
 from ..kernels.htp_real import HT_CONST_KEYS, ht_line_constants
 from ..kernels.lineparams import LineParams, compute_line_params
 from ..kernels.linemixing import mixing_coefficient, xsect_voigt_mixing
@@ -827,8 +828,9 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
         # the JAX builder routes mixing Jacobians to its jnp engine
         raise NotImplementedError(
             "differentiable OD with line mixing: the differentiable kernels "
-            "have no mixing tangent (the JAX package's mixing Jacobians ride "
-            "its jnp engine, ROADMAP M11)")
+            "have no mixing tangent; mixing Jacobians are forward-mode AD "
+            "through compute_od_layers(engine='jnp', line_mixing=...), as in "
+            "the JAX package (ROADMAP queue 1 item 3)")
     if differentiable and profile not in ("voigt", "sdvoigt"):
         raise NotImplementedError(
             f"differentiable OD with profile {profile!r}: the tangent "
@@ -1296,11 +1298,14 @@ def compute_od_layers(lines, iso, grid, atmos, profile: str = "voigt",
     the state, ``pallas_opts`` passed to them. Any other engine (the
     default ``'jnp'``, ``'auto'``) runs the reference engine layer by layer
     (:func:`compute_od_layer`; with ``line_mixing``, the Voigt mixing
-    engine clamped at zero); its SD-Voigt and HT profiles are not ported
-    (ROADMAP M13). ``continuum`` adds :func:`~..atmos.continuum.continuum_od`
-    of that model ('mt_ckd' evaluated pointwise), ``continuum_factors`` the
-    7 TAPE5 record-1.2a scale factors. CUDA inputs run the kernels; CPU
-    inputs their plain versions.
+    engine clamped at zero; ``profile='ht'``, the complex pcqsdhc with
+    the air/self diluent mix [1 - x_self, x_self] of each layer and
+    ``ht_extras``' columns); it runs under forward-mode AD
+    (``torch.func.jvp``), line mixing included. ``continuum`` adds
+    :func:`~..atmos.continuum.continuum_od` of that model ('mt_ckd'
+    evaluated pointwise), ``continuum_factors`` the 7 TAPE5 record-1.2a
+    scale factors. CUDA inputs run the kernels; CPU inputs their plain
+    versions.
     """
     dev, dt = lines.sw.device, lines.sw.dtype
     if engine == "pallas":
@@ -1316,18 +1321,19 @@ def compute_od_layers(lines, iso, grid, atmos, profile: str = "voigt",
                                wing_abs=wing_abs, wing_hw=wing_hw, plan=plan,
                                **opts)
     else:
-        if profile == "ht":
-            raise NotImplementedError(
-                "profile 'ht' in the reference engine needs the complex "
-                "pcqsdhc of kernels/htp.py and ht_xsect_from_params, not "
-                "ported yet (ROADMAP M13); engine='pallas' runs "
-                "make_od_ht_fn")
         if line_mixing is not None and profile != "voigt":
             raise NotImplementedError("line mixing composes with Voigt only")
         cols = _line_species_cols(lines.host_view(), atmos.mol_ids)
         X = torch.as_tensor(_grid_values(grid), dtype=dt, device=dev)
         layers = zip(atmos.T, atmos.p, atmos.pl, atmos.vmr)
-        if line_mixing is None:
+        if profile == "ht":
+            resolved = resolve_ht_columns(lines, ht_extras,
+                                          {"air": 1.0, "self": 1.0})
+            od = torch.stack([
+                _ht_layer(lines, iso, X, resolved, T, p, pl, vmr, cols,
+                          wing_abs, wing_hw, chunk)
+                for T, p, pl, vmr in layers])
+        elif line_mixing is None:
             od = torch.stack([
                 compute_od_layer(lines, iso, X, T, p, pl, vmr, cols,
                                  profile=profile, wing_abs=wing_abs,
@@ -1347,6 +1353,22 @@ def compute_od_layers(lines, iso, grid, atmos, profile: str = "voigt",
                                continuum_factors=continuum_factors
                                ).to(od.dtype)
     return od
+
+
+def _ht_layer(lines, iso, X, resolved, T, p_pa, pl, vmr, cols, wing_abs,
+              wing_hw, chunk):
+    """One layer's HT OD by the reference engine (the HT branch of
+    ``compute_od_layers`` there): the diluent mix [1 - x_self, x_self],
+    the species column as the strength scale."""
+    cols_t = torch.as_tensor(cols, dtype=torch.long, device=X.device)
+    x_self = vmr[cols_t]
+    u = species_column(p_pa, T, pl, vmr)
+    prm = ht_params(resolved, lines, iso, T, p_pa / PA_PER_ATM,
+                    wing_abs=wing_abs, wing_hw=wing_hw,
+                    complex_dtype=_complex_of(X.dtype),
+                    abun=[1.0 - x_self, x_self])
+    return ht_xsect_from_params(X, lines.nu0, prm, chunk=chunk,
+                                strength_scale=u[cols_t])
 
 
 def _mixing_layer(lines, iso, X, T, p_pa, pl, vmr, cols, line_mixing,

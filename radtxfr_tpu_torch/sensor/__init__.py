@@ -1,3 +1,4 @@
 """Spectral resolution reduction (counterpart of ``radtxfr_tpu/sensor``)."""
 
-from .resolution import reduce_operator, ReduceOperator  # noqa: F401
+from .resolution import (smooth, reduce_resolution,  # noqa: F401
+                         reduce_operator, ReduceOperator)

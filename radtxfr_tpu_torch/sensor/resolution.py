@@ -1,14 +1,21 @@
-"""Resolution reduction as one static banded operator (counterpart of
-``radtxfr_tpu/sensor/resolution.py``: ``reduce_operator`` /
-``ReduceOperator``).
+"""Spectral smoothing and resolution reduction (counterpart of
+``radtxfr_tpu/sensor/resolution.py``).
 
-The reference's ``reduceResolution`` (``radiative_transfer.py:1327-1350``)
-is a symmetric window smooth followed by a 4-point cubic resample; both are
-linear with local support, so their composition is one banded operator:
-output i is a fixed-width dot product against fine-grid values starting at
-``starts[i]``. It is precomputed on the host in float64 and applied on the
-device, so only reduced spectra leave the device. Plain PyTorch: the JAX
-package also computes it outside its kernels.
+The reference's ``smooth`` (reflected-edge window convolution,
+``radiative_transfer.py:1266-1324``) and ``reduceResolution`` (a symmetric
+window smooth followed by a 4-point cubic resample onto a coarser axis,
+``:1327-1350``), in two forms:
+
+* :func:`reduce_resolution`: the smooth on the device (a 1-D convolution of
+  the reflected-edge signal) and the static host-built resample stencil
+  applied as a gather and a weighted sum; any axis, edges included;
+* :class:`ReduceOperator` (:func:`reduce_operator`): both steps are linear
+  with local support, so away from the edges their composition is one
+  banded operator: output i is a fixed-width dot product against fine-grid
+  values starting at ``starts[i]``. It is precomputed on the host in
+  float64 and applied on the device, so only reduced spectra leave it.
+
+Plain PyTorch: the JAX package also computes these outside its kernels.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["ReduceOperator", "reduce_operator", "cubic_resample_weights"]
+__all__ = ["smooth", "reduce_resolution", "cubic_resample_weights",
+           "apply_resample", "ReduceOperator", "reduce_operator"]
 
 _WINDOWS = {
     "flat": lambda n: np.ones(n),
@@ -27,6 +35,34 @@ _WINDOWS = {
     "bartlett": np.bartlett,
     "blackman": np.blackman,
 }
+
+
+def smooth(x: torch.Tensor, window_len: int = 11,
+           window: str = "hanning") -> torch.Tensor:
+    """Reflected-edge window smoothing with the reference's semantics
+    (``radiative_transfer.py:1298-1324``): a tensor of ``len(x)``; ``x``
+    itself when ``window_len`` is under 3 or over ``len(x)``."""
+    n = x.shape[0]
+    if window_len < 3 or n < window_len:
+        return x
+    if window not in _WINDOWS:
+        raise ValueError(f"window must be one of {sorted(_WINDOWS)}")
+    w = _WINDOWS[window](window_len)
+    w = torch.as_tensor(w / w.sum(), dtype=x.dtype, device=x.device)
+    s = torch.cat([x[1:window_len].flip(0), x,
+                   x[n - window_len:n - 1].flip(0)])
+    # conv1d correlates: the flipped window makes it numpy's convolution
+    y = torch.nn.functional.conv1d(s[None, None], w.flip(0)[None, None])[0, 0]
+    ix0 = int(np.ceil(window_len / 2 - 1))
+    ix1 = y.shape[0] - int(np.floor(window_len / 2))
+    return y[ix0:ix1]
+
+
+def _sym_smooth(y: torch.Tensor, window_len: int, window: str):
+    """0.5 (smooth(y) + smooth(y[::-1])[::-1])
+    (``radiative_transfer.py:1331``)."""
+    return 0.5 * (smooth(y, window_len, window)
+                  + smooth(y.flip(0), window_len, window).flip(0))
 
 
 def cubic_resample_weights(x_in: np.ndarray, x_out: np.ndarray):
@@ -48,6 +84,15 @@ def cubic_resample_weights(x_in: np.ndarray, x_out: np.ndarray):
     return idx.astype(np.int32), w
 
 
+def apply_resample(idx, w, y: torch.Tensor) -> torch.Tensor:
+    """Apply a static resample stencil (:func:`cubic_resample_weights`) to
+    ``y`` (nX[, ...]) along axis 0, on ``y``'s device."""
+    idx = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=y.device)
+    w = torch.as_tensor(np.asarray(w), dtype=y.dtype, device=y.device)
+    g = y[idx]                                    # (n_out, 4[, ...])
+    return torch.sum(g * w.reshape(w.shape + (1,) * (y.dim() - 1)), dim=1)
+
+
 def _np_sym_smooth(x, sm: int, window: str):
     """Host float64 forward+reverse reflected-edge smooth average, the
     reference's pre-smoothing (``radiative_transfer.py:1337-1340``)."""
@@ -60,6 +105,32 @@ def _np_sym_smooth(x, sm: int, window: str):
         return y[int(np.ceil(sm / 2 - 1)): y.size - int(np.floor(sm / 2))]
 
     return 0.5 * (one(x) + one(x[::-1])[::-1])
+
+
+def reduce_resolution(X, Y: torch.Tensor, dX, N: int = 4,
+                      window: str = "hanning", X_out=None):
+    """Smooth and resample ``Y`` (nX[, ...]) onto a coarser axis, the
+    reference's ``reduceResolution`` (``radiative_transfer.py:1327-1350``).
+
+    ``X`` is the static host axis; the axis is smoothed on the host in
+    float64 (smoothing it in float32 can give duplicate nodes that break
+    the stencil), ``Y`` on its device, each trailing column alone. Returns
+    ``(X_out, Y_out)``, or ``Y_out`` when ``X_out`` is given.
+    """
+    X = np.asarray(X, dtype=np.float64)
+    dx_in = float(np.mean(np.diff(X)))
+    sm = int(round(dX / dx_in))
+    x_sm = _np_sym_smooth(X, sm, window)
+    return_x = X_out is None
+    if X_out is None:
+        n_pts = int(np.ceil(N * (x_sm[-sm - 1] - x_sm[sm]) / dX)) + 1
+        X_out = np.linspace(x_sm[sm], x_sm[-sm - 1], n_pts)
+    idx, w = cubic_resample_weights(x_sm, np.asarray(X_out, dtype=np.float64))
+    cols = Y.reshape(Y.shape[0], -1)
+    y_sm = torch.stack([_sym_smooth(cols[:, j], sm, window)
+                        for j in range(cols.shape[1])], dim=1)
+    y_out = apply_resample(idx, w, y_sm.reshape(Y.shape))
+    return (X_out, y_out) if return_x else y_out
 
 
 class ReduceOperator:

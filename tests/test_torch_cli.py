@@ -168,10 +168,36 @@ def test_port_xsect_ht_matches_jax_cli(tmp_path, T_max):
         assert np.abs(Y - jY).max() <= 1e-5 * np.abs(jY).max(), name
 
 
-def test_port_xsect_unported_options_raise():
-    """The jnp engine (the JAX package's pcqsdhc through htp.py) and --par
-    raise; --profile ht runs (test_port_xsect_ht_matches_jax_cli)."""
-    with pytest.raises(NotImplementedError, match="jnp"):
-        main(XS_ARGS + ["--engine", "jnp", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="par"):
-        main(XS_ARGS + ["--par", "lines.par", "--device", "cpu"])
+def test_port_xsect_jnp_and_par_match_jax_cli(tmp_path):
+    """``--engine jnp`` (the reference engine) and ``--par`` (the native
+    .par parser), which raised before they were ported, through both CLIs
+    on the lattice's band: the lines of a .par file written from the
+    synthetic list (tests/test_lines.py's records), the JAX CLI on its jnp
+    engine; the same axis and header, within 2e-6 of each file's peak."""
+    from radtxfr_tpu.lines.synthetic import synthetic_lines as j_synthetic
+    from radtxfr_tpu.lines.tips import load_tips_tables
+
+    store = j_synthetic(200, nu_min=740.0, nu_max=880.0, seed=0)
+    iso_ids = load_tips_tables()[1]
+    par = str(tmp_path / "lines.par")
+    with open(par, "w") as f:
+        for k in range(200):
+            i = int(iso_ids[int(store.iso_row[k])])
+            f.write((f"{int(store.mol_id[k]):2d}{'0' if i == 10 else i}"
+                     f"{float(store.nu0[k]):12.6f}{float(store.sw[k]):10.3E}"
+                     f"{1.0:10.3E}{float(store.gamma_air[k]):5.3f}"
+                     f"{float(store.gamma_self[k]):5.3f}"
+                     f"{float(store.elower[k]):10.4f}"
+                     f"{float(store.n_air[k]):4.2f}"
+                     f"{float(store.delta_air[k]):8.5f}").ljust(160) + "\n")
+    args = ["xsect", "--par", par, "--numin", "800", "--numax", "820",
+            "--dv", "0.01", "--wing-abs", "60", "--T", "280",
+            "--engine", "jnp"]
+    main(args + ["--device", "cpu", "--output", str(tmp_path / "port")])
+    _run_jax_cli(args + ["--output", str(tmp_path / "jax")])
+    X, Y, meta = xs_read(str(tmp_path / "port"))
+    jX, jY, j_meta = xs_read(str(tmp_path / "jax"))
+    np.testing.assert_array_equal(X, jX)
+    assert meta == j_meta and meta["db_name"] == par[:128]
+    assert np.isfinite(Y).all() and np.abs(jY).max() > 0.0
+    assert np.abs(Y - jY).max() <= 2e-6 * np.abs(jY).max()

@@ -5,8 +5,11 @@ as the primal, K3 as its custom JVP) in interpret mode, as the JAX
 package's own tests run it on the CPU; the port side runs the same
 builder on CPU tensors, i.e. the kernels' plain versions
 (``xsect_fused_plain``, ``xsect_fused_jvp_plain``) through the same
-``torch.autograd.Function``. Sizes follow ``tests/test_products.py``: 40
-synthetic lines, the first 5 StdAtmos layers.
+``torch.autograd.Function`` (``engine='pallas'``, named explicitly: the
+default of ``tud_with_jacobian`` is the reference engine,
+``tests/test_torch_jnp_engine.py``). Sizes follow
+``tests/test_products.py``: 40 synthetic lines, the first 5 StdAtmos
+layers.
 """
 
 import jax
@@ -145,7 +148,8 @@ def test_tud_with_jacobian_matches_pallas_engine(case, iso_tables):
                               engine="pallas", continuum="mt_ckd")
     lines, iso, s = _port(case, iso_tables, torch.float32)
     tud, jac = tud_with_jacobian(lines, iso, AXIS, s, ALTS, wrt=("T", 1),
-                                 n_angles=6, continuum="mt_ckd")
+                                 n_angles=6, engine="pallas",
+                                 continuum="mt_ckd")
     for k in ("tau", "Lu", "Ld"):
         ref = np.asarray(tud_j[k])
         assert tud[k].shape == ref.shape
@@ -163,7 +167,7 @@ def test_jacobian_matches_finite_differences(case, iso_tables):
     its own forward on layer 2 (``test_products.py:140-151``)."""
     lines, iso, s = _port(case, iso_tables, torch.float64)
     tud, jac = tud_with_jacobian(lines, iso, AXIS, s, [100.0], wrt=("T", 1),
-                                 n_angles=8)
+                                 n_angles=8, engine="pallas")
     assert jac["T"]["tau"].shape == tud["tau"].shape + (5,)
     fn = make_od_fn(lines, iso, AXIS, s, differentiable=True)
     grid = torch.as_tensor(AXIS)
@@ -193,7 +197,7 @@ def test_tangent_batching_changes_no_value(case, iso_tables):
     """``tangent_batch`` streams the directions without changing values
     (``test_products.py:273``)."""
     lines, iso, s = _port(case, iso_tables, torch.float64)
-    kw = dict(wrt=("T", 1), n_angles=6)
+    kw = dict(wrt=("T", 1), n_angles=6, engine="pallas")
     _, full = tud_with_jacobian(lines, iso, AXIS, s, ALTS, **kw)
     _, bat = tud_with_jacobian(lines, iso, AXIS, s, ALTS, tangent_batch=2,
                                **kw)

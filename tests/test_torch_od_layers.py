@@ -327,15 +327,23 @@ def test_compute_od_layers_matches_jax(slice_case, slice_reference, route,
         np.abs(got - want).max() / np.abs(want).max()
 
 
-def test_compute_od_layers_unported_and_refused(slice_case):
-    """The reference engine's SD-Voigt and HT raise NotImplementedError
-    naming ROADMAP M13; a prebuilt plan takes Voigt and kernel options
-    only, as JAX's route refuses the rest."""
-    lines, iso, state = slice_case[2][torch.float32]
+def test_compute_od_layers_sdvoigt_ht_and_refused(slice_case, iso_tables):
+    """The reference engine's SD-Voigt and HT (``NotImplementedError``
+    naming ROADMAP M13 until they were ported) against JAX's jnp engine on
+    the slice band's 720-721 cm^-1, float64, within 1e-12 of the peak; a
+    prebuilt plan takes Voigt and kernel options only, as JAX's route
+    refuses the rest."""
+    store, atm, port = slice_case
+    lines, iso, state = port[torch.float64]
+    axis = SLICE_AXIS[800:1001]
     for profile in ("sdvoigt", "ht"):
-        with pytest.raises(NotImplementedError, match="ROADMAP M13"):
-            od.compute_od_layers(lines, iso, SLICE_AXIS, state,
-                                 profile=profile)
+        want = np.asarray(j_od.compute_od_layers(
+            store, iso_tables, jnp.asarray(axis), atm, profile=profile))
+        got = od.compute_od_layers(lines, iso, axis, state,
+                                   profile=profile).numpy()
+        assert got.shape == want.shape == (SLICE_LAYERS.size, axis.size)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    lines, iso, state = port[torch.float32]
     plan = od.make_od_plan(lines, iso, SLICE_AXIS, state)
     with pytest.raises(ValueError, match="Voigt only"):
         od.compute_od_layers(lines, iso, SLICE_AXIS, state, engine="pallas",
@@ -412,13 +420,14 @@ def test_xsect_from_params_profile_is_positional(synthetic, iso_tables):
     """JAX's (grid, params, profile, chunk) order: a positional profile
     reaches the profile (Voigt, Lorentz and Doppler differ), and each
     profile matches the JAX jnp engine, float64, within 1e-12 of peak on
-    570-580 cm^-1; SD-Voigt needs htp.py (ROADMAP M13)."""
+    570-580 cm^-1, SD-Voigt (pcqsdhc, on its own line parameters)
+    included."""
     j_store, _, store64 = synthetic
     axis = GRID_AXIS[8000:12001]
     grid = torch.as_tensor(axis)
     iso = IsoTables.load(**F64)
     outs = {}
-    for profile in ("voigt", "lorentz", "doppler"):
+    for profile in ("voigt", "lorentz", "doppler", "sdvoigt"):
         p = compute_line_params(store64, iso, 250.0, 0.5, profile=profile)
         outs[profile] = got = xsect_from_params(grid, p, profile, 256)
         want = np.asarray(j_xsect(jnp.asarray(axis),
@@ -426,10 +435,9 @@ def test_xsect_from_params_profile_is_positional(synthetic, iso_tables):
                                            profile=profile), profile))
         assert np.abs(got.numpy() - want).max() <= \
             1e-12 * np.abs(want).max()
-    assert torch.equal(outs["doppler"],
-                       xsect_from_params(grid, p, profile="doppler",
+    assert torch.equal(outs["sdvoigt"],
+                       xsect_from_params(grid, p, profile="sdvoigt",
                                          chunk=256))
     assert not torch.equal(outs["voigt"], outs["lorentz"])
     assert not torch.equal(outs["voigt"], outs["doppler"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M13"):
-        xsect_from_params(grid, p, "sdvoigt")
+    assert not torch.equal(outs["voigt"], outs["sdvoigt"])

@@ -6,7 +6,7 @@ rule against the plain version's window mask.
   subpackage, and importing them loads neither JAX nor ``radtxfr_tpu``
   (checked in a fresh interpreter: this process has JAX loaded).
 * ``tud`` takes the JAX CLI's ``--engine`` and ``--partition``; ``--engine
-  jnp`` raises, naming the ROADMAP item.
+  jnp`` runs the reference engine and matches the JAX CLI's.
 * K1 (``csrc/k1_skeleton.cuh::window_range``) keeps a staged (slot, layer)
   pair only where the integer range [k_line + floor(frac0 - wingu) - 2,
   k_line + ceil(frac0 + wingu) + 2] meets the CTA's points: that range must
@@ -53,7 +53,7 @@ from port_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ("core", "lines", "kernels", "atmos", "products", "sensor",
-               "io")
+               "io", "dist")
 
 
 def _jax_exports(rel):
@@ -134,11 +134,35 @@ def test_tud_takes_engine_and_partition(engine, partition):
     assert args.partition == (partition or "weighted")
 
 
-def test_tud_engine_jnp_raises():
-    args = build_parser().parse_args(["tud", "--derived", "--engine", "jnp",
-                                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        run_tud(args, "cpu")
+def test_tud_engine_jnp_runs(tmp_path):
+    """``tud --engine jnp`` (it raised, naming ROADMAP queue 1 item 3)
+    runs the reference engine: on 718-718.5 cm^-1, one member, against
+    the JAX CLI's ``--engine jnp`` (float32, x64 off) within the CLI's
+    1e-5 of each product's peak, and no kernel pass is planned."""
+    import h5py
+    import jax
+
+    from radtxfr_tpu.cli.main import build_parser as j_build_parser
+
+    argv = ["tud", "--derived", "--continuum", "mt_ckd", "--numin", "718",
+            "--numax", "718.5", "--dv", "0.005", "--n-atmos", "1",
+            "--batch", "1", "--engine", "jnp"]
+    x_lo, out = run_tud(build_parser().parse_args(argv + ["--device",
+                                                          "cpu"]), "cpu")
+    j_args = j_build_parser().parse_args(argv + ["--output",
+                                                 str(tmp_path / "j.h5")])
+    jax.config.update("jax_enable_x64", False)
+    try:
+        j_args.fn(j_args)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    with h5py.File(tmp_path / "j.h5", "r") as f:
+        np.testing.assert_array_equal(x_lo, f["X"][...])
+        for k, name in (("tau", "tau"), ("Lu", "La"), ("Ld", "Ld")):
+            want = f[name][...]
+            assert out[k].shape == want.shape, k
+            assert np.abs(out[k] - want).max() <= \
+                1e-5 * np.abs(want).max(), k
 
 
 def _window_range(f0, wingu):
