@@ -69,6 +69,33 @@ Phases, each printing its result on its own line:
    printed); ``tud --engine jnp`` on phase 5's 718-723 cm^-1 two-member
    case on the card against the CPU within ``SLICE_BOUND``, its gap to the
    kernel route printed; the engine's seconds on the card.
+5e. The scene path on phase 5's production products (4 members, 11,513
+   points reduced to 0.25 cm^-1 resolution on a 0.0625 cm^-1 axis, 9
+   altitudes; the K1 and K2 launches of the
+   ``tud`` that made them printed): ``run_planck`` against the CPU's
+   float64 within 1e-6 of peak, its brightness-temperature round trip
+   within ``PLANCK_BT_BOUND``; ``run_mako`` against the same call on
+   the CPU in float64 within 1e-6 of peak; ``run_radiance`` at the CLI
+   defaults (24 materials, dT -10..10 K by 0.5) on those products and on
+   the MAKO products tiled to 1000 atmospheres (the reference's
+   ``Compute_LWIR_Apparent_Radiance`` shape), each against the CPU's
+   float64 result on its first atmospheres within 1e-6 relative, L > 0;
+   ``run_hsi`` at the CLI defaults (100 pixels, 3 atmospheres) and on a
+   100 x 100 scene: fractions summing to 1, labels in range, L finite,
+   the card's draws re-composed on the CPU in float64 within 1e-6
+   relative; ``run_emis --mixtures --mako --features 16`` (its NMF core
+   on the card, float32, against the CPU's float64 from the same initial
+   factors within ``NMF_BOUND`` of the reconstruction's peak) and
+   ``run_atmosgen`` at the CLI defaults and at ``--n-ensemble 1000`` (the
+   variational fit's core on the card against the CPU from the same
+   initial indices, float64: weights and the rows' log-density within
+   ``BGMM_WEIGHT_BOUND`` and ``BGMM_LOGP_BOUND`` of peak; the profiles T > 0,
+   no supersaturated layer, counts and labels in range); the launch
+   counts are reset before the commands and read after them, and any
+   kernel launch fails the phase. Each command's
+   seconds (a second, warm call; host clock, results on the host), and
+   those of the fixed-count loops (NMF's 400 updates, FastICA's 200, the
+   variational fit's 500 steps and EM's 200).
 5b. The Jacobian path: ``run_tud`` on the production configuration with
    ``--jacobian`` (d tau/Lu/Ld / d T, H2O, O3: 198 directions) with the
    launch counts reset before and read after (K1 ``full`` and K3 must have
@@ -234,6 +261,17 @@ from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator  # noqa: E402
+from radtxfr_tpu_torch.atmos.profile import std_atmosphere_raw  # noqa: E402
+from radtxfr_tpu_torch.cli.main import (  # noqa: E402
+    atmosgen_ensemble, run_atmosgen, run_emis, run_hsi, run_mako,
+    run_planck, run_radiance)
+from radtxfr_tpu_torch.scene.emis_features import (  # noqa: E402
+    _fast_ica, _nmf, od_transform)
+from radtxfr_tpu_torch.scene.emissivity import synthetic_db  # noqa: E402
+from radtxfr_tpu_torch.scene.generative import (  # noqa: E402
+    _airmass_features, _bgmm_fit, _gmm_fit, gmm_log_prob, rh_filter)
+from radtxfr_tpu_torch.scene.hsi import _hsi_compose  # noqa: E402
+from radtxfr_tpu_torch.sensor.ils import mako_axis_wn  # noqa: E402
 
 ALTITUDES = [0.061, 0.305, 1.524, 3.048, 6.096, 9.144, 12.192, 15.24, 500.0]
 PRODUCTION = ("tud --derived --line-mixing --continuum mt_ckd --numin 690 "
@@ -1241,6 +1279,25 @@ def phase_k2(dev, card):
     return out
 
 
+# phase 5e: the scene path. The card's float32 against the CPU's float64:
+# of the peak (MAKO) or relative (radiance, HSI); the card's float32 NMF
+# core against the CPU's float64 from the same factors (the same run in
+# float32 on a CPU measured 8.9e-7 of the reconstruction's peak); the
+# variational fit in float64 on both (its near-empty components' means move
+# by 2.7e-7 under a 1e-15 input change, so the check holds the weights and
+# the data's log-density, which those means do not move)
+SCENE_BOUND = 1e-6
+NMF_BOUND = 1e-5
+BGMM_WEIGHT_BOUND = 1e-8
+BGMM_LOGP_BOUND = 1e-8
+# ``planck``'s float32 brightness-temperature round trip [K] (3.1e-5 K on
+# its 2,880 points in float32 on a CPU)
+PLANCK_BT_BOUND = 1e-3
+SCENE_ATMOS = 1000       # the MAKO products tiled to the reference's count
+HSI_SCENE = 10_000       # a 100 x 100 scene
+HSI_CHECK_PIXELS = 200   # its pixels per atmosphere re-composed on the CPU
+
+
 def reset_launches():
     fused_xsect.LAUNCHES.clear()
     for k in fused_tud.LAUNCHES:
@@ -1301,7 +1358,211 @@ def phase_main(card):
         print(f"[5 slice] 718-723 cm^-1, 2 members, {k}: card vs CPU plain "
               f"{rel:.3e} of peak", flush=True)
         check(rel <= SLICE_BOUND, f"slice {k}: {rel:.3e} > {SLICE_BOUND}")
-    return launches
+    return launches, x_lo, out
+
+
+def scene_args(cmd):
+    return build_parser().parse_args(cmd.split())
+
+
+def warm_s(fn):
+    """(seconds, result) of a second call of ``fn`` (the first warms it),
+    on the host clock; the scene commands return host arrays, so each
+    call ends synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def rel_err(got, want):
+    """The largest |got - want| / |want| over the elements."""
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.abs(want)))
+
+
+def check_hsi(label, args, out, data, n_db, card):
+    """The HSI cube's invariants and its re-composition from the card's
+    own labels, fractions and temperatures on the CPU in float64 (the
+    first ``HSI_CHECK_PIXELS`` pixels of each atmosphere)."""
+    n_atm = min(args.n_atm, data["tau"].shape[0])
+    n_x = data["X"].size
+    L = out["L"]
+    check(L.shape == (n_atm, args.n_pixels, n_x), f"{label}: L {L.shape}")
+    check(np.isfinite(L).all() and (L > 0).all(), f"{label}: L not finite")
+    check(np.abs(out["mix_frac"].sum(axis=2) - 1.0).max() <= 1e-6,
+          f"{label}: fractions do not sum to 1")
+    check(out["emis_labels"].min() >= 0 and out["emis_labels"].max() < n_db
+          and out["atmos_labels"].min() >= 0
+          and out["atmos_labels"].max() < data["tau"].shape[0],
+          f"{label}: labels out of range")
+    p = slice(0, HSI_CHECK_PIXELS)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    top = lambda a: a[:, :, -1] if a.ndim == 3 else a         # noqa: E731
+    emis = synthetic_db(args.n_materials, X=data["X"], seed=args.seed,
+                        device="cpu").emis
+    ref = _hsi_compose(t(data["X"]), t(top(data["tau"])), t(top(data["La"])),
+                       t(data["Ld"]), emis,
+                       torch.as_tensor(out["atmos_labels"]),
+                       torch.as_tensor(out["emis_labels"][:, p]),
+                       t(out["mix_frac"][:, p]), t(out["Ts_pix"][:, p]))
+    err = rel_err(L[:, p], ref.numpy())
+    print(f"[5e scene] {label}: L {L.shape} in [{L.min():.4g}, "
+          f"{L.max():.4g}]; the card's draws re-composed on the CPU in "
+          f"float64: {err:.3e} relative [{card}]", flush=True)
+    check(err <= SCENE_BOUND, f"{label}: {err:.3e} > {SCENE_BOUND}")
+
+
+def phase_scene(card, launches, x_lo, products):
+    """Phase 5e: ``tud`` -> ``mako`` -> ``radiance`` -> ``hsi`` on phase
+    5's products, then ``emis`` and ``atmosgen``; returns each command's
+    seconds."""
+    n = products["tau"].shape[0]
+    print(f"[5e scene] the feeding tud ({n} members, {x_lo.size} points at "
+          f"{x_lo[1] - x_lo[0]:.4g} cm^-1): K1 asym {launches['asym']}, "
+          f"core {launches['core']}, mix {launches['mix']}, K2 "
+          f"{launches['tud']} launches", flush=True)
+    reset_launches()
+    data = {"X": x_lo, "tau": products["tau"], "La": products["Lu"],
+            "Ld": products["Ld"]}
+    secs = {}
+
+    p = scene_args("planck")
+    secs["planck"], pl = warm_s(lambda: run_planck(p, "cuda"))
+    ref = run_planck(p, "cpu")
+    err = np.abs(pl["B"] - ref["B"]).max() / np.abs(ref["B"]).max()
+    print(f"[5e scene] planck: {pl['B'].size} points at T0 {pl['T0']:.2f} "
+          f"K, card float32 vs CPU float64 {err:.3e} of peak, BT round trip "
+          f"{pl['bt_err']:.3e} K", flush=True)
+    check(pl["B"].shape == ref["B"].shape and err <= SCENE_BOUND
+          and pl["bt_err"] <= PLANCK_BT_BOUND,
+          f"planck: {err:.3e} of peak, round trip {pl['bt_err']:.3e} K")
+
+    a = scene_args("mako --input -")
+    secs["mako"], mk = warm_s(lambda: run_mako(a, "cuda", data))
+    ref = run_mako(a, "cpu", data)
+    check(mk["X"].size == ref["X"].size == mako_axis_wn(x_lo).size >= 2,
+          "MAKO channels")
+    for k in ("tau", "La", "Ld"):
+        check(mk[k].shape == (n, mk["X"].size) and np.isfinite(mk[k]).all(),
+              f"MAKO {k} shape or values")
+        err = np.abs(mk[k] - ref[k]).max() / np.abs(ref[k]).max()
+        print(f"[5e scene] mako {k}: {mk['X'].size} channels, card vs CPU "
+              f"float64 {err:.3e} of peak", flush=True)
+        check(err <= SCENE_BOUND, f"MAKO {k}: {err:.3e} > {SCENE_BOUND}")
+
+    r = scene_args("radiance --input -")
+    n_t = np.arange(-10.0, 10.0 + r.dT_step, r.dT_step).size
+    mako_data = {"X": mk["X"], **{k: np.tile(mk[k], (SCENE_ATMOS // n, 1))
+                                  for k in ("tau", "La", "Ld")}}
+    for label, d in (("radiance", data), ("radiance_mako1000", mako_data)):
+        secs[label], rad = warm_s(lambda: run_radiance(r, "cuda", d))
+        L = rad["L"]
+        n_a = d["tau"].shape[0]
+        check(L.shape == (d["X"].size, r.n_materials, n_a, n_t)
+              and L.dtype == np.float32, f"{label}: L {L.shape} {L.dtype}")
+        check(np.isfinite(L).all() and L.min() > 0.0, f"{label}: L <= 0")
+        k = 1 if n_a == n else 2
+        ref = run_radiance(r, "cpu", {"X": d["X"], **{
+            q: d[q][:k] for q in ("tau", "La", "Ld")}})["L"]
+        err = rel_err(L[:, :, :k], ref)
+        print(f"[5e scene] {label}: L {L.shape} ({L.nbytes / 2**20:.1f} MiB "
+              f"float32) in [{L.min():.4g}, {L.max():.4g}]; card vs CPU "
+              f"float64 on {k} atmosphere(s) {err:.3e} relative", flush=True)
+        check(err <= SCENE_BOUND, f"{label}: {err:.3e} > {SCENE_BOUND}")
+
+    for label, cmd in (("hsi", "hsi --input -"),
+                       ("hsi_100x100",
+                        f"hsi --input - --n-pixels {HSI_SCENE}")):
+        h = scene_args(cmd)
+        secs[label], hs = warm_s(lambda: run_hsi(h, "cuda", data))
+        check_hsi(label, h, hs, data, h.n_materials, card)
+
+    e = scene_args("emis --mixtures --mako --features 16")
+    secs["emis"], em = warm_s(lambda: run_emis(e, "cuda"))
+    db = em["db"]
+    n_mix = 24 * 23 // 2 * e.n_fractions         # every pair, each fraction
+    check(db.n_materials == n_mix and em["db_mako"].emis.shape == (n_mix, 128)
+          and em["k"] == 16 and em["nmf_shape"] == (16, db.X.numel()),
+          "emis: DB, MAKO DB or feature shapes")
+    check(np.isfinite([em["err_pca"], em["err_spl"]]).all(),
+          "emis: feature errors not finite")
+    od = od_transform(db.emis.float())
+    rng = np.random.default_rng(0)
+    scale = float(torch.sqrt(od.mean() / 16))
+    W0 = scale * np.abs(rng.standard_normal((od.shape[0], 16)))
+    H0 = scale * np.abs(rng.standard_normal((16, od.shape[1])))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device="cuda")
+    loops = {}
+    loops["nmf 400 (3036 x 721, k 16, float32)"], got = warm_s(
+        lambda: _nmf(od, f32(W0), f32(H0)))
+    loops["fast_ica 200 (3036 x 721, k 16, float32)"], _ = warm_s(
+        lambda: _fast_ica(od, f32(rng.standard_normal((16, 16)))))
+    ref = _nmf(od.double().cpu(), torch.as_tensor(W0), torch.as_tensor(H0))
+    R = (ref.W @ ref.H).numpy()
+    err = np.abs((got.W @ got.H).double().cpu().numpy() - R).max() / \
+        np.abs(R).max()
+    print(f"[5e scene] emis: {db.n_materials} entries x {db.X.numel()} "
+          f"points, MAKO DB {tuple(em['db_mako'].emis.shape)}, PCA max err "
+          f"{em['err_pca']:.3e}, B-spline {em['err_spl']:.3e}; NMF core "
+          f"(400 updates, k 16) card float32 vs CPU float64 {err:.3e} of "
+          "the reconstruction's peak", flush=True)
+    check(err <= NMF_BOUND, f"NMF core: {err:.3e} > {NMF_BOUND}")
+
+    for label, cmd in (("atmosgen", "atmosgen"),
+                       ("atmosgen_1000", "atmosgen --n-ensemble 1000")):
+        g = scene_args(cmd)
+        secs[label], ag = warm_s(lambda: run_atmosgen(g, "cuda"))
+        n_in, n_gen = ag["T_in"].shape[0], ag["T"].shape[0]
+        ok = rh_filter(torch.as_tensor(ag["P"]), torch.as_tensor(ag["T"]),
+                       torch.as_tensor(ag["H2O"]))
+        check(0 < n_gen <= g.n_aug * n_in and ag["T"].shape == (n_gen, 66)
+              and ag["H2O"].shape == ag["O3"].shape == (n_gen, 66),
+              f"{label}: counts or shapes")
+        check((ag["T"] > 0).all() and bool(ok.all())
+              and np.isfinite(ag["loglik"]).all()
+              and ag["airmass"].min() >= 0
+              and ag["airmass"].max() < ag["n_air"],
+              f"{label}: T <= 0, a supersaturated layer or bad labels")
+        print(f"[5e scene] {label}: {n_in} -> {n_gen} profiles, "
+              f"{len(np.unique(ag['airmass']))} air masses; T in "
+              f"[{ag['T'].min():.2f}, {ag['T'].max():.2f}] K", flush=True)
+    scene_launches = +read_launches()
+    print(f"[5e scene] kernel launches of the six scene commands: "
+          f"{dict(scene_launches)}", flush=True)
+    check(not scene_launches, "the scene commands launched a kernel")
+    t = std_atmosphere_raw()
+    T, H2O, O3 = atmosgen_ensemble(1000, 0)
+    feats = [_airmass_features(*(torch.as_tensor(v, device=d)
+                                 for v in (t[:, 1], t[:, 4], T, H2O, O3)))
+             for d in ("cuda", "cpu")]
+    k0 = torch.as_tensor(np.random.default_rng(0).permutation(1000)[:5])
+    fits = [_bgmm_fit(f, k0.to(f.device), n_iter=300) for f in feats]
+    k0c = k0.to("cuda")
+    loops["bgmm 500 (1000 x 4, K 5, float64)"], _ = warm_s(
+        lambda: _bgmm_fit(feats[0], k0c, n_iter=500))
+    loops["gmm 200 (1000 x 4, K 5, float64)"], _ = warm_s(
+        lambda: _gmm_fit(feats[0], k0c, n_iter=200))
+    w = [m.weights.cpu().numpy() for m in fits]
+    lp = [gmm_log_prob(m, f).cpu().numpy() for m, f in zip(fits, feats)]
+    w_err = np.abs(w[0] - w[1]).max() / np.abs(w[1]).max()
+    # of the peak: a row's log-density can lie near zero
+    lp_err = np.abs(lp[0] - lp[1]).max() / np.abs(lp[1]).max()
+    print(f"[5e scene] variational fit core (1000 members, 5 components, "
+          f"300 steps, float64) card vs CPU: weights {w_err:.3e} and "
+          f"log-density {lp_err:.3e} of peak", flush=True)
+    check(w_err <= BGMM_WEIGHT_BOUND and lp_err <= BGMM_LOGP_BOUND,
+          f"variational fit core: {w_err:.3e}, {lp_err:.3e}")
+    print(f"[5e scene] fixed-count loops on the card (seconds, warm, "
+          "host clock): " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in loops.items())
+          + f" [{card}]", flush=True)
+    print(f"[5e scene] seconds (warm, host clock): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in secs.items()) + f" [{card}]", flush=True)
+    return secs
 
 
 #: a child of phase 5c: the production command through run_tud on the
@@ -2994,7 +3255,8 @@ def main():
     ht_stats = run(phase_ht_sub, dev, card)
     k7, k7_launches = run(phase_unfused_sub, dev, card)
     k2 = run(phase_k2, dev, card)
-    launches = run(phase_main, card)
+    launches, x_lo, products = run(phase_main, card)
+    run(phase_scene, card, launches, x_lo, products)
     run(phase_checkpoint, card)
     run(phase_jnp, dev, card)
     jac_launches = run(phase_jacobian, card)

@@ -1,8 +1,9 @@
 """radtxfr_tpu_torch — the PyTorch/CUDA port of ``radtxfr_tpu``.
 
 Same subpackage layout as the JAX package (``core``, ``lines``, ``kernels``,
-``atmos``, ``products``, ``sensor``, ``dist``, ``io``, ``cli``); each module
-here is the counterpart of the module at the same relative path there. Plain
+``atmos``, ``products``, ``sensor``, ``dist``, ``io``, ``scene``, ``cli``);
+each module here is the counterpart of the module at the same relative
+path there. Plain
 tensor code is PyTorch; the line-by-line kernels are hand-written CUDA C++
 for Hopper (``csrc/``), built with ``nvcc`` at first use
 (:mod:`radtxfr_tpu_torch._build`), never at import.
@@ -19,6 +20,7 @@ in JAX); it reads the packaged tables of ``radtxfr_tpu/data`` by file path.
 
 import os
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
@@ -45,20 +47,37 @@ _settle_cpu_exp()
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a :class:`torch.device`; ``None`` means the card
-    (``cuda``), and raises where torch sees none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    (``cuda``). A CUDA device, the default or named, raises where torch
+    sees none: nothing falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: radtxfr_tpu_torch runs on the card unless "
-            "asked otherwise; pass device='cpu' to run the kernels' plain "
-            "versions on the CPU")
-    return torch.device("cuda")
+            f"no CUDA device for {device}: radtxfr_tpu_torch runs on the "
+            "card unless asked otherwise; pass device='cpu' to run the "
+            "kernels' plain versions on the CPU")
+    return device
+
+
+def as_tensor_on(a, device=None, dtype=None) -> torch.Tensor:
+    """``a`` (array, scalar or tensor) as a tensor on ``device`` in
+    ``dtype``. ``device`` None keeps a tensor's own device and puts
+    anything else on the card (:func:`resolve_device`); ``dtype`` None
+    keeps the input's own dtype."""
+    if isinstance(a, torch.Tensor):
+        dev = a.device if device is None else torch.device(device)
+    else:
+        dev = resolve_device(device)
+        # a read-only array (a broadcast view) is copied: torch warns on it
+        a = torch.as_tensor(np.array(a) if isinstance(a, np.ndarray)
+                            and not a.flags.writeable else a)
+    return a.to(device=dev, dtype=dtype)
+
 
 #: packaged data tables shared with the JAX package (read by path only)
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "radtxfr_tpu", "data")
 
 # the top-level names of radtxfr_tpu/__init__.py that are ported
-from .core.planck import planckian  # noqa: E402,F401
-from .core.grid import arange_drift_free  # noqa: E402,F401
+from .core.planck import (planckian, brightness_temperature,  # noqa: E402,F401
+                          bt2l)
+from .core.grid import make_spectral_axis, arange_drift_free  # noqa: E402,F401

@@ -25,7 +25,7 @@ STD_ATMOS_MOL_IDS = (1, 2, 3, 4, 5, 6, 7, 22)
 
 @dataclasses.dataclass(frozen=True)
 class AtmosphericState:
-    """One layered atmospheric state."""
+    """One layered atmospheric state (or a batch, with leading axes)."""
 
     z0: torch.Tensor   # (nL,) layer bottom altitude [km]
     z1: torch.Tensor   # (nL,) layer top altitude [km]
@@ -38,6 +38,9 @@ class AtmosphericState:
     @property
     def n_layers(self) -> int:
         return int(self.T.shape[-1])
+
+    def replace(self, **kw) -> "AtmosphericState":
+        return dataclasses.replace(self, **kw)
 
     @staticmethod
     def from_numpy(z0, z1, pl, p, T, vmr, mol_ids=STD_ATMOS_MOL_IDS,
@@ -64,3 +67,8 @@ def std_atmosphere(device=None, dtype=torch.float32) -> AtmosphericState:
     return AtmosphericState.from_numpy(
         z0=t[:, 1], z1=t[:, 2], pl=t[:, 3], p=t[:, 4], T=t[:, 5],
         vmr=t[:, 6:14], device=device, dtype=dtype)
+
+
+def std_atmosphere_raw() -> np.ndarray:
+    """The raw (66, 15) StdAtmos table (for regridding code)."""
+    return _std_atmos_table().copy()

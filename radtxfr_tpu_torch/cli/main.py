@@ -1,6 +1,5 @@
 """Command-line entry point of the port (counterpart of
-``radtxfr_tpu/cli/main.py``; the ``xsect`` and ``tud`` commands, single
-device).
+``radtxfr_tpu/cli/main.py``; every command, single device).
 
     python -m radtxfr_tpu_torch.cli.main xsect --synthetic 30000 \\
         --numin 400 --numax 7100 --dv 0.0025 --profile sdvoigt \\
@@ -50,6 +49,36 @@ JAX CLI).
 
 ``--mesh-*`` (multi-GPU runs, ROADMAP M15) raises ``NotImplementedError``;
 ``tud --partition`` is accepted and matters only there.
+
+The scene and sensor commands turn ``tud``'s products into the reference's
+downstream data (``SURVEY.md`` §1, layers L2-L4), with the JAX CLI's flags,
+defaults and files:
+
+    python -m radtxfr_tpu_torch.cli.main planck [--numin/--numax/--dv]
+    python -m radtxfr_tpu_torch.cli.main mako --input tud.h5 \
+        [--sort-atmos] --output mako.h5
+    python -m radtxfr_tpu_torch.cli.main radiance --input tud.h5 \
+        --output radiance.h5
+    python -m radtxfr_tpu_torch.cli.main hsi --input tud.h5 --output hsi.h5
+    python -m radtxfr_tpu_torch.cli.main emis [--mixtures --mako \
+        --features K] --output DB
+    python -m radtxfr_tpu_torch.cli.main atmosgen [--input ens.npz] \
+        --output gen.npz
+
+``planck`` is configuration 1 (the StdAtmos Planck round trip), ``mako``
+configuration 4 (``Generate_LWIR_TUD_MAKO.py``: the ILS product on the
+card), ``radiance`` the apparent-radiance dataset
+(``Compute_LWIR_Apparent_Radiance.py``: one (nX, nE, nA, nT) broadcast on
+the card, copied to the host once), ``hsi`` configuration 5
+(``LWIR_HSI_Generator.py``), ``emis`` the emissivity DB build
+(``Generate_ASTER_emissivity_DB.py``, ``Generate_Emissivity_DB.py``) and
+``atmosgen`` the PCA+GMM ensemble augmentation
+(``GenerativeModel_AtmosInputs.py``). Each has ``run_<cmd>(args, device,
+data)``, which computes from arrays in memory (a host without h5py can
+drive it), and ``cmd_<cmd>(args)``, which reads and writes the files.
+They compute in float32 on the card and float64 on the CPU (``atmosgen``
+in float64 on both); their random draws come from a ``torch.Generator`` on
+the device seeded by ``--seed``.
 """
 
 from __future__ import annotations
@@ -60,6 +89,8 @@ import time
 
 import numpy as np
 import torch
+
+from .. import resolve_device
 
 
 def _load_lines(args, device, margin=25.0):
@@ -97,7 +128,7 @@ def run_xsect(args, device, timings: dict | None = None) -> dict:
     from ..lines.store import IsoTables
     from ..products.od import make_ht_fn, make_xsect_fn
 
-    device = torch.device(device)
+    device = resolve_device(device)
     f32 = torch.float32
     t0 = time.perf_counter()
     store = _load_lines(args, device, margin=max(50.0, args.wing_abs))
@@ -232,7 +263,7 @@ def run_tud(args, device, timings: dict | None = None):
         raise NotImplementedError("--mesh-*: multi-GPU runs are ROADMAP M15")
     if args.batch < 1 or args.n_atmos < 1:
         raise ValueError("--batch and --n-atmos must be positive")
-    device = torch.device(device)
+    device = resolve_device(device)
     f32 = torch.float32
 
     t0 = time.perf_counter()
@@ -405,6 +436,384 @@ def cmd_tud(args):
         _write_tud_h5(args.output, x_lo, out, args.altitudes)
 
 
+# --------------------------------------------------------------------------
+# The scene and sensor commands: run_<cmd> computes from arrays in memory,
+# cmd_<cmd> reads and writes the JAX CLI's files
+# --------------------------------------------------------------------------
+
+def _scene_device(device) -> tuple[torch.device, torch.dtype]:
+    """The scene commands' device (:func:`resolve_device`) and working
+    dtype: float32 on the card, float64 on the CPU (the JAX CLI's float64
+    under x64)."""
+    device = resolve_device(device)
+    return device, (torch.float64 if device.type == "cpu"
+                    else torch.float32)
+
+
+def run_planck(args, device, data=None) -> dict:
+    """Configuration 1: the Planck radiance of the StdAtmos ground
+    temperature on ``make_spectral_axis(numin, numax, max(dv, 0.25))`` and
+    its brightness-temperature round trip. Returns NumPy ``X``, ``B`` and
+    the round trip's largest error ``bt_err`` [K], with ``T0`` [K]."""
+    from ..atmos.profile import std_atmosphere
+    from ..core.grid import make_spectral_axis
+    from ..core.planck import brightness_temperature, planckian
+
+    device, dt = _scene_device(device)
+    T0 = std_atmosphere(device=device, dtype=dt).T[0]
+    X = make_spectral_axis(args.numin, args.numax, max(args.dv, 0.25))
+    Xt = torch.as_tensor(X, dtype=dt, device=T0.device)
+    B = planckian(Xt, T0)
+    err = torch.max(torch.abs(brightness_temperature(Xt, B) - T0))
+    return {"X": X, "B": B.cpu().numpy(), "T0": float(T0),
+            "bt_err": float(err)}
+
+
+def cmd_planck(args):
+    out = run_planck(args, args.device)
+    print(f"Planck @ ground T={out['T0']:.2f} K: L in "
+          f"[{out['B'].min():.3f}, {out['B'].max():.3f}] µW/(cm^2 sr "
+          f"cm^-1); BT round-trip max err {out['bt_err']:.2e} K")
+
+
+def _read_tud(path) -> tuple[dict, dict]:
+    """A TUD HDF5 file (``tud``'s output) as ({name: array}, {name: Var})."""
+    from ..io.h5 import read_h5
+
+    v = read_h5(path)
+    return {k: v[k].data for k in ("X", "tau", "La", "Ld")}, v
+
+
+def run_mako(args, device, data) -> dict:
+    """Configuration 4: the MAKO channels of a TUD (``data``: NumPy
+    ``X`` (nX,), ``tau``/``La`` (nA, nX[, nZs]) and ``Ld`` (nA, nX), the top
+    altitude taken where there are several, as
+    ``Generate_LWIR_TUD_MAKO.py:26-28``) by the ILS product on ``device``.
+    Returns NumPy ``X`` (channels) and ``tau``/``La``/``Ld`` (nA, n_chan),
+    with ``--sort-atmos`` in order of band-mean tau and ``atmos_order``."""
+    from ..sensor.ils import ils_mako
+
+    device, dt = _scene_device(device)
+    X = np.asarray(data["X"])
+    out = {}
+    for name in ("tau", "La", "Ld"):
+        Y = np.asarray(data[name])
+        if Y.ndim == 3:
+            Y = Y[:, :, -1]
+        Y = torch.as_tensor(Y.T if Y.ndim == 2 else Y[:, None], dtype=dt,
+                            device=device)
+        x_out, y = ils_mako(X, Y, fwhm_sf=args.fwhm_sf, shift=args.shift,
+                            scale=args.scale)
+        out[name] = y.T.cpu().numpy()
+    out["X"] = x_out
+    if args.sort_atmos:
+        # the reference sorts by band-mean transmittance
+        # (Generate_LWIR_TUD_MAKO.py:39-44)
+        order = np.argsort(out["tau"].mean(axis=1))
+        out.update({k: out[k][order] for k in ("tau", "La", "Ld")},
+                   atmos_order=order)
+    return out
+
+
+def cmd_mako(args):
+    from ..io.h5 import Var, write_h5
+
+    data, meta = _read_tud(args.input)
+    out = run_mako(args, args.device, data)
+    print(f"MAKO: {out['X'].size} channels")
+    if args.output:
+        res = {k: Var(out[k], units=meta[k].units,
+                      name=meta[k].name + " (MAKO)")
+               for k in ("tau", "La", "Ld")}
+        res["X"] = Var(out["X"], units="cm^{-1}", name="MAKO channel centers")
+        if "atmos_order" in out:
+            res["atmos_order"] = Var(
+                out["atmos_order"], units="none",
+                name="Atmosphere sort order (by mean tau)")
+        write_h5(args.output, res)
+        print(f"wrote {args.output}")
+
+
+def _spec_major(a):
+    """(nA, nX[, nZs]) -> (nX, nA), the top altitude where there are
+    several."""
+    a = np.asarray(a)
+    if a.ndim == 3:
+        a = a[:, :, -1]
+    return a.T if a.ndim == 2 else a
+
+
+def run_radiance(args, device, data) -> dict:
+    """The apparent-radiance ML dataset (``Compute_LWIR_Apparent_Radiance``):
+    the (nX, nE, nA, nT) broadcast of a TUD (``data`` as :func:`run_mako`'s)
+    over ``--n-materials`` synthetic emissivities and surface temperatures
+    296 K + (-10 .. 10 K by ``--dT-step``), computed on ``device`` and
+    copied to the host once. Returns NumPy ``X``, ``L`` (the working
+    dtype), ``dT``, ``emis`` (nX, nE) and the split ``ix_train``,
+    ``ix_test``, ``ix_val``."""
+    from ..io.h5 import gen_indices
+    from ..products.radiance import apparent_radiance
+    from ..scene.emissivity import synthetic_db
+
+    device, dt = _scene_device(device)
+    X = np.asarray(data["X"])
+    tau, Lu, Ld = (_spec_major(data[k]) for k in ("tau", "La", "Ld"))
+    n_atm = tau.shape[1]
+    emis = synthetic_db(args.n_materials, X=X, seed=args.seed, device="cpu"
+                        ).emis.numpy().T                        # (nX, nE)
+    dT = np.arange(-10.0, 10.0 + args.dT_step, args.dT_step)
+    L = apparent_radiance(X, emis, np.full(n_atm, 296.0), tau, Lu, Ld,
+                          dT=dT, device=device, dtype=dt).cpu().numpy()
+    n_samples = L.shape[1] * L.shape[2] * L.shape[3]
+    tr, te, va = gen_indices(n_samples, seed=args.seed)
+    return {"X": X, "L": L, "dT": dT, "emis": emis, "ix_train": tr,
+            "ix_test": te, "ix_val": va}
+
+
+def cmd_radiance(args):
+    from ..io.h5 import Var, write_h5
+
+    data, _ = _read_tud(args.input)
+    out = run_radiance(args, args.device, data)
+    L = out["L"]
+    print(f"radiance tensor {L.shape} -> {L[0].size} samples "
+          f"(train {len(out['ix_train'])}/test {len(out['ix_test'])}/val "
+          f"{len(out['ix_val'])})")
+    if args.output:
+        write_h5(args.output, {
+            "X": Var(out["X"], units="cm^{-1}", name="Wavenumbers"),
+            "L": Var(L.astype(np.float32), units="µW/(cm^2 sr cm^{-1})",
+                     name="At-sensor apparent spectral radiance",
+                     info="(nX, nE, nA, nT) broadcast tensor"),
+            "dT": Var(out["dT"], units="K", name="Surface temperature deltas"),
+            "emis": Var(out["emis"], units="none",
+                        name="Surface emissivities"),
+            "ix_train": Var(out["ix_train"]), "ix_test": Var(out["ix_test"]),
+            "ix_val": Var(out["ix_val"]),
+        })
+        print(f"wrote {args.output}")
+
+
+def run_hsi(args, device, data) -> dict:
+    """Configuration 5: mixed-pixel HSI cubes over a TUD ensemble
+    (``data`` as :func:`run_mako`'s; the top altitude of tau/La), with
+    ``--n-materials`` synthetic emissivities, 296 K surfaces and the draws
+    of a generator on ``device`` seeded by ``--seed``. Returns NumPy ``X``
+    and :func:`~..scene.hsi.hsi_generate`'s arrays."""
+    from ..scene.emissivity import synthetic_db
+    from ..scene.hsi import hsi_generate
+
+    device, dt = _scene_device(device)
+    X = np.asarray(data["X"])
+    top = lambda a: a[:, :, -1] if a.ndim == 3 else a   # noqa: E731
+    tau, Lu = (top(np.asarray(data[k])) for k in ("tau", "La"))
+    Ld = np.asarray(data["Ld"])
+    db = synthetic_db(args.n_materials, X=X, seed=args.seed, device=device,
+                      dtype=dt)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    out = hsi_generate(gen, X, tau, Lu, Ld, np.full(tau.shape[0], 296.0),
+                       db.emis, n_pixels=args.n_pixels, dT=args.dT,
+                       n_emis=args.n_emis, n_mix=args.n_mix,
+                       n_atm=min(args.n_atm, tau.shape[0]), device=device,
+                       dtype=dt)
+    return {"X": X, **{k: v.cpu().numpy() for k, v in out.items()}}
+
+
+def cmd_hsi(args):
+    from ..io.h5 import Var, write_h5
+
+    data, _ = _read_tud(args.input)
+    out = run_hsi(args, args.device, data)
+    L = out["L"]
+    print(f"HSI cube: {L.shape}, L in [{L.min():.3f}, {L.max():.3f}]")
+    if args.output:
+        write_h5(args.output, {
+            "L": Var(L, units="µW/(cm^2 sr cm^{-1})",
+                     name="At-sensor apparent spectral radiance"),
+            "X": Var(out["X"], units="cm^{-1}", name="Wavenumbers"),
+            "Ts_pix": Var(out["Ts_pix"], units="K",
+                          name="Pixel surface temperature"),
+            "mix_frac": Var(out["mix_frac"], units="none",
+                            name="Material mixing fractions"),
+            "emis_labels": Var(out["emis_labels"], units="none",
+                               name="End-member indices"),
+            "atmos_labels": Var(out["atmos_labels"], units="none",
+                                name="Atmosphere indices"),
+        })
+        print(f"wrote {args.output}")
+
+
+def run_emis(args, device, data=None) -> dict:
+    """The emissivity DB build (``Generate_ASTER_emissivity_DB.py`` +
+    ``Generate_Emissivity_DB.py``): ASTER exports (``--aster-dir``),
+    spectra (``data``: NumPy ``X`` (nX,) and ``emis`` (n_mat, nX), the
+    ``--input`` file's) or ``--n-materials`` synthetic ones; then
+    ``--mixtures``, the ``--mako`` channels (clamped to [0, 1]) and the
+    ``--features`` K compression (PCA, NMF from a generator on ``device``
+    seeded by ``--seed``, B-splines). Returns ``db``, ``db_mako`` (or
+    None), ``skipped`` files, ``n_base`` (the materials before mixing)
+    and, with features, ``k``, ``err_pca``, ``nmf_shape``, ``err_spl``."""
+    from ..scene.emissivity import (EmissivityDB, load_aster_dir,
+                                    synthetic_db)
+
+    device, dt = _scene_device(device)
+    skipped = []
+    if args.aster_dir:
+        db, skipped = load_aster_dir(args.aster_dir,
+                                     lambda_min_um=args.lambda_min,
+                                     lambda_max_um=args.lambda_max,
+                                     device=device)
+    elif data is not None:
+        X_in = np.asarray(data["X"])
+        spectra = [(X_in, e) for e in np.asarray(data["emis"])]
+        X_out = np.arange(np.ceil(X_in.min()), np.floor(X_in.max()) + 1.0)
+        db = EmissivityDB.from_spectra(spectra, X_out,
+                                       reflectance=args.reflectance,
+                                       device=device)
+    else:
+        db = synthetic_db(args.n_materials, seed=args.seed, device=device)
+    out = {"db": db, "db_mako": None, "skipped": skipped,
+           "n_base": db.n_materials}
+    if args.mixtures:
+        db = out["db"] = db.pairwise_mixtures(n_fractions=args.n_fractions)
+    if args.mako:
+        from ..sensor.ils import ils_mako
+
+        Xc, emis_c = ils_mako(db.X.cpu().numpy(), db.emis.T)
+        out["db_mako"] = EmissivityDB(
+            X=torch.as_tensor(Xc, dtype=db.X.dtype, device=db.X.device),
+            emis=torch.clamp(emis_c.T, 0.0, 1.0),
+            material_id=db.material_id, names=db.names)
+    if args.features:
+        from ..scene.emis_features import (bspline_fit_emissivity, nmf,
+                                           od_transform, pca_compress)
+
+        emis_t = db.emis.to(dt)                        # (n_mat, nX)
+        clipped = torch.clamp(emis_t, 1e-4, 1 - 1e-4)
+        k = min(args.features, db.n_materials - 1, int(db.X.numel()) - 1)
+        _, _, recon = pca_compress(emis_t, n_components=k)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        m = nmf(od_transform(emis_t), n_components=k, generator=gen)
+        fit = bspline_fit_emissivity(db.X.cpu().numpy(), emis_t.T,
+                                     n_knots=min(48, int(db.X.numel()) // 4))
+        out.update(
+            k=k, err_pca=float(torch.abs(recon - clipped).max()),
+            nmf_shape=tuple(m.H.shape),
+            err_spl=float(torch.abs(fit.reconstruct().T - clipped).max()))
+    return out
+
+
+def cmd_emis(args):
+    """The emissivity DB build, the JAX CLI's files: ``--output`` .npz,
+    .h5 and .csv (and ``--output``_MAKO with ``--mako``)."""
+    from ..scene.emissivity import save_db
+
+    data = None
+    if args.input and not args.aster_dir:
+        with np.load(args.input) as f:
+            data = {"X": np.asarray(f["X"]), "emis": np.asarray(f["emis"])}
+    out = run_emis(args, args.device, data)
+    db = out["db"]
+    if out["skipped"]:
+        print(f"skipped {len(out['skipped'])} export files (coverage "
+              f"filter)")
+    print(f"emissivity DB: {out['n_base']} materials x {db.X.numel()} "
+          f"points")
+    if args.mixtures:
+        print(f"with pairwise mixtures: {db.n_materials} entries "
+              f"({args.n_fractions} fractions)")
+    if args.output:
+        save_db(db, args.output)
+        print(f"wrote {args.output}.npz/.h5/.csv")
+    if out["db_mako"] is not None:
+        print(f"MAKO-channelized: {out['db_mako'].n_materials} x "
+              f"{out['db_mako'].X.numel()} channels")
+        if args.output:
+            save_db(out["db_mako"], args.output + "_MAKO")
+            print(f"wrote {args.output}_MAKO.npz/.h5/.csv")
+    if args.features:
+        print(f"feature compression (k={out['k']}): PCA max err "
+              f"{out['err_pca']:.2e}, NMF basis {out['nmf_shape']}, "
+              f"B-spline max err {out['err_spl']:.2e}")
+
+
+def atmosgen_ensemble(n: int, seed: int):
+    """The stand-in ensemble of ``atmosgen`` without ``--input``: ``n``
+    smooth perturbations of the 1976 StdAtmos T, H2O and O3 profiles
+    (the JAX CLI's NumPy draws, so they are equal), NumPy (n, 66) each."""
+    from ..atmos.profile import _std_atmos_table
+
+    t = _std_atmos_table()
+    z, T0, h2o, o3 = t[:, 1], t[:, 5], t[:, 6], t[:, 8]
+    rng = np.random.default_rng(seed)
+    zz = z / z.max()
+
+    def perturb(base, scale):
+        a = rng.normal(scale=scale, size=(n, 3))
+        mod = (1.0 + a[:, :1] * np.exp(-zz * 4) + a[:, 1:2] * np.exp(-zz)
+               + a[:, 2:] * zz)
+        return base[None, :] * np.clip(mod, 0.3, 3.0)
+
+    T = T0[None, :] * np.clip(
+        1.0 + rng.normal(scale=0.02, size=(n, 1))
+        * np.exp(-zz[None, :] * 3), 0.9, 1.1)
+    return T, perturb(h2o, 0.3), perturb(o3, 0.2)
+
+
+def run_atmosgen(args, device, data=None) -> dict:
+    """Atmosphere-ensemble augmentation (``GenerativeModel_AtmosInputs.py``):
+    air-mass clustering and a PCA+GMM model per air mass, on ``device``
+    with a generator seeded by ``--seed``, in float64 on every device: the
+    stand-in ensemble perturbs T by one amplitude, so its surface-T and
+    lapse features are collinear and the fits' covariance prior is
+    singular but for its 1e-6 regularisation, which float32 cannot resolve
+    (in float32 the air-mass fit ends NaN, as JAX's does). ``data`` holds
+    NumPy ``T``, ``H2O``, ``O3`` (n, 66) (the ``--input`` file's), else
+    :func:`atmosgen_ensemble` of ``--n-ensemble`` members. Returns NumPy
+    ``z``, ``P``, the inputs ``T_in``, ``H2O_in``, ``O3_in``, the
+    generated ``T``, ``H2O``, ``O3``, ``airmass`` labels and ``loglik``,
+    and ``n_air``."""
+    from ..atmos.profile import _std_atmos_table
+    from ..scene.generative import airmass_labels, gen_samples_per_airmass
+
+    device, _ = _scene_device(device)
+    dt = torch.float64
+    t = _std_atmos_table()
+    z, P = t[:, 1], t[:, 4]
+    if data is not None:
+        T, H2O, O3 = (np.asarray(data[k]) for k in ("T", "H2O", "O3"))
+    else:
+        T, H2O, O3 = atmosgen_ensemble(args.n_ensemble, args.seed)
+    dev = lambda a: torch.as_tensor(a, dtype=dt, device=device)  # noqa
+    Tt, Ht, Ot, zt, Pt = map(dev, (T, H2O, O3, z, P))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    n_air = min(args.n_airmass, T.shape[0])
+    labels = airmass_labels(gen, zt, Pt, Tt, Ht, Ot, n_airmass=n_air)
+    out = gen_samples_per_airmass(
+        gen, zt, Pt, Tt, Ht, Ot, labels,
+        n_pca=min(args.n_pca, T.shape[0] - 1, 3 * T.shape[1]),
+        n_gmm=args.n_gmm, n_aug=args.n_aug)
+    return {"z": z, "P": P, "T_in": T, "H2O_in": H2O, "O3_in": O3,
+            "T": out["T"], "H2O": out["H2O"], "O3": out["O3"],
+            "airmass": out["labels"], "loglik": out["ll"], "n_air": n_air}
+
+
+def cmd_atmosgen(args):
+    data = None
+    if args.input:
+        with np.load(args.input) as f:
+            data = {k: np.asarray(f[k]) for k in ("T", "H2O", "O3")}
+    out = run_atmosgen(args, args.device, data)
+    print(f"augmented ensemble: {out['T_in'].shape[0]} -> "
+          f"{out['T'].shape[0]} profiles ({out['n_air']} air masses, "
+          f"x{args.n_aug} target)")
+    if args.output:
+        np.savez(args.output, **{k: out[k] for k in (
+            "z", "P", "T", "H2O", "O3", "airmass", "loglik", "T_in",
+            "H2O_in", "O3_in")})
+        print(f"wrote {args.output}")
+
+
 def _add_common(p):
     p.add_argument("--par", help="HITRAN .par line database")
     p.add_argument("--synthetic", type=int, default=0,
@@ -484,6 +893,84 @@ def build_parser():
                          "HITRAN molecule ids (default T,1,3 = the "
                          "reference's 199-profile set)")
     p3.set_defaults(fn=cmd_tud)
+
+    p1 = sub.add_parser("planck", help="config 1: Planck sanity run")
+    _add_common(p1)
+    p1.set_defaults(fn=cmd_planck)
+
+    def scene(name, help):
+        q = sub.add_parser(name, help=help)
+        q.add_argument("--output", default=None)
+        q.add_argument("--device", default="cuda",
+                       help="torch device the run uses (e.g. cuda, cpu)")
+        return q
+
+    p4 = scene("mako", "config 4: MAKO-channelized TUD")
+    p4.add_argument("--input", required=True)
+    p4.add_argument("--fwhm-sf", dest="fwhm_sf", type=float, default=1.0)
+    p4.add_argument("--shift", type=float, default=0.0)
+    p4.add_argument("--scale", type=float, default=1.0)
+    p4.add_argument("--sort-atmos", dest="sort_atmos", action="store_true",
+                    help="sort atmospheres by band-mean transmittance")
+    p4.set_defaults(fn=cmd_mako)
+
+    p6 = scene("radiance", "apparent-radiance ML dataset "
+               "(Compute_LWIR_Apparent_Radiance path)")
+    p6.add_argument("--input", required=True, help="TUD HDF5 from 'tud'")
+    p6.add_argument("--seed", type=int, default=42)
+    p6.add_argument("--n-materials", type=int, default=24)
+    p6.add_argument("--dT-step", dest="dT_step", type=float, default=0.5)
+    p6.set_defaults(fn=cmd_radiance)
+
+    p5 = scene("hsi", "config 5: HSI radiance cubes")
+    p5.add_argument("--input", required=True)
+    p5.add_argument("--seed", type=int, default=0)
+    p5.add_argument("--n-pixels", type=int, default=100)
+    p5.add_argument("--n-materials", type=int, default=24)
+    p5.add_argument("--n-emis", type=int, default=6)
+    p5.add_argument("--n-mix", type=int, default=2)
+    p5.add_argument("--n-atm", type=int, default=3)
+    p5.add_argument("--dT", type=float, default=3.0)
+    p5.set_defaults(fn=cmd_hsi)
+
+    p7 = scene("emis", "emissivity DB build (ASTER-pipeline equivalent + "
+               "mixtures + MAKO + features)")
+    p7.add_argument("--input", default=None,
+                    help="npz with X (nX,) and emis (n_mat, nX); default: "
+                    "synthetic DB (ASTER 2.0 data is licensed)")
+    p7.add_argument("--aster-dir", dest="aster_dir", default=None,
+                    help="directory of ASTER/ECOSTRESS spectral-library "
+                    "ASCII exports (Generate_ASTER_emissivity_DB.py:58-117)")
+    p7.add_argument("--lambda-min", dest="lambda_min", type=float,
+                    default=6.75, help="band lower edge [µm]")
+    p7.add_argument("--lambda-max", dest="lambda_max", type=float,
+                    default=14.5, help="band upper edge [µm]")
+    p7.add_argument("--reflectance", action="store_true",
+                    help="input spectra are reflectance (emis = 1 - R)")
+    p7.add_argument("--n-materials", type=int, default=24)
+    p7.add_argument("--mixtures", action="store_true",
+                    help="add pairwise linear mixtures")
+    p7.add_argument("--n-fractions", type=int, default=11)
+    p7.add_argument("--mako", action="store_true",
+                    help="also write a MAKO-channelized DB")
+    p7.add_argument("--features", type=int, default=0, metavar="K",
+                    help="run PCA/NMF/B-spline feature compression at K "
+                    "components and report errors")
+    p7.add_argument("--seed", type=int, default=0)
+    p7.set_defaults(fn=cmd_emis)
+
+    p8 = scene("atmosgen", "atmosphere-ensemble augmentation (PCA+GMM "
+               "generative model, air-mass clustered)")
+    p8.add_argument("--input", default=None,
+                    help="npz with T/H2O/O3 (n, 66) profile ensembles; "
+                    "default: perturbed 1976 StdAtmos ensemble")
+    p8.add_argument("--n-ensemble", type=int, default=64)
+    p8.add_argument("--n-airmass", type=int, default=5)
+    p8.add_argument("--n-pca", type=int, default=15)
+    p8.add_argument("--n-gmm", type=int, default=10)
+    p8.add_argument("--n-aug", type=int, default=10)
+    p8.add_argument("--seed", type=int, default=0)
+    p8.set_defaults(fn=cmd_atmosgen)
     return p
 
 

@@ -53,10 +53,13 @@ class LineParams:
 
 def compute_line_params(lines: LineStore, iso: IsoTables, T, p_atm,
                         vmr_self=0.0, wing_abs=0.0, wing_hw=50.0,
-                        strength_scale=1.0,
+                        strength_scale=1.0, abundance_ratio=1.0,
                         profile: str = "voigt") -> LineParams:
     """Evaluate per-line parameters at (T [K], p [atm]) by the rules of
-    ``profile``'s driver ('voigt', 'sdvoigt', 'lorentz' or 'doppler')."""
+    ``profile``'s driver ('voigt', 'sdvoigt', 'lorentz' or 'doppler').
+    ``abundance_ratio`` (scalar or (L,)) is the ABUNDANCES /
+    NATURAL_ABUNDANCES factor folded into the strength (1 for natural
+    abundance, ``misc/hapi.py:11136-11137``)."""
     T = torch.as_tensor(T, dtype=lines.sw.dtype, device=lines.sw.device)
     p = torch.as_tensor(p_atm, dtype=T.dtype, device=T.device)
 
@@ -73,7 +76,8 @@ def compute_line_params(lines: LineStore, iso: IsoTables, T, p_atm,
           * (1.0 - torch.exp(-c2 * lines.nu0 / T)))
     zn = (torch.exp(-c2 * lines.elower / T_REF)
           * (1.0 - torch.exp(-c2 * lines.nu0 / T_REF)))
-    strength = lines.sw * (q_ref / q_t) * (ch / zn) * strength_scale
+    ar = torch.as_tensor(abundance_ratio, dtype=T.dtype, device=T.device)
+    strength = lines.sw * (q_ref / q_t) * (ch / zn) * ar * strength_scale
 
     if profile == "doppler":
         # the Doppler driver's SI constants and sqrt-mass factorisation

@@ -98,6 +98,10 @@ class LineStore:
     def __len__(self) -> int:
         return int(self.nu0.shape[0])
 
+    @property
+    def n_lines(self) -> int:
+        return int(self.nu0.shape[0])
+
     def host_view(self) -> "LineStore":
         """A LineStore whose columns are the host NumPy copies."""
         return dataclasses.replace(self, **self.host)
@@ -115,6 +119,11 @@ class LineStore:
         nu0 = self.host["nu0"]
         return self.subset((nu0 >= nu_min - margin)
                            & (nu0 <= nu_max + margin))
+
+    def select_molecules(self, mol_ids) -> "LineStore":
+        """The lines of the HITRAN molecules ``mol_ids``."""
+        return self.subset(np.isin(self.host["mol_id"],
+                                   np.asarray(list(mol_ids))))
 
     @staticmethod
     def from_numpy(*, nu0, sw, elower, gamma_air, gamma_self, n_air,

@@ -81,14 +81,9 @@ __all__ = ["species_column", "compute_od_layer", "compute_od_layers",
            "make_od_plan", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
            "CrossSectionFn", "wing_bound_matrix", "core_wing_per_line",
            "core_y_matrix", "sdvoigt_core_bound", "group_by_wing",
+           "group_layers_by_wing",
            "ht_wing_bounds", "make_ht_fn", "make_od_ht_fn",
            "HTCrossSectionFn", "HTOpticalDepthFn"]
-
-#: the coarse-far near zone's half-width floor [cm^-1] (the JAX builders'
-#: ``near_width`` default; ``_coarse_near_width``'s 41 R dx outweighs it at
-#: every grid the port runs)
-_NEAR_WIDTH = 4.0
-
 
 def species_column(p_pa, T, pl_km, vmr):
     """Species column density [molec/cm^2] for a homogeneous layer."""
@@ -262,6 +257,10 @@ def max_wing_bound(lines, iso, atmos, wing_abs=0.0, wing_hw=50.0) -> float:
                                     wing_hw).max())
 
 
+#: the JAX package's older name of :func:`group_by_wing`
+group_layers_by_wing = group_by_wing
+
+
 def _uniform_grid(grid) -> UniformGrid:
     return (grid if isinstance(grid, UniformGrid)
             else UniformGrid.from_axis(np.asarray(_host(grid))))
@@ -309,7 +308,8 @@ def _host_planning_views(lines, iso, atmos_class):
 def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
                     tile, group_ratio, core_block=16, mix_idx=None,
                     two_pass: bool = True, profile: str = "voigt",
-                    wing_passes: bool = True):
+                    wing_passes: bool = True, far_tile=None, far_block=None,
+                    core_tile=None):
     """The static (layer-group x pass) call decomposition of the JAX
     builders (``od.py:450-628`` there): a list of (layer indices, line
     indices, packed plan, mode).
@@ -324,6 +324,11 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     ``full`` pass over ``tile``-point tiles and no core passes.
     ``wing_passes=False`` plans the core passes only (the coarse-far route
     replaces the window passes; the JAX builders plan and then drop them).
+    ``far_tile``/``far_block`` size the Voigt window passes (default
+    ``2 * tile`` with ``two_pass``, else ``tile``, and a block capped at
+    ``block * tile <= 2**18``; a given block is not capped) and
+    ``core_tile`` the Voigt core passes (default: the power of two in
+    [256, 512] that spans a segment's widest core), as JAX's.
     """
     from ..kernels.faddeeva import REGION_BOUND
 
@@ -404,13 +409,15 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
                                ratio=group_ratio)
     # the asym far-wing passes get twice the tile of the flop-heavy passes;
     # the block cap keeps block * tile <= 2**18
-    f_tile = 2 * tile if two_pass else tile
+    f_tile = far_tile or (2 * tile if two_pass else tile)
+    f_block = far_block or "auto"
     f_cap = max(8, ((1 << 18) // f_tile) // 8 * 8)
     for lay_idx, _ in (lay_groups if wing_passes else []):
         lay_idx = np.sort(lay_idx)
         w_line = W_v[lay_idx].max(axis=0)
-        plan = plan_buckets_packed(nu0_v, g, w_line, tile=f_tile, block="auto")
-        if plan.block > f_cap:
+        plan = plan_buckets_packed(nu0_v, g, w_line, tile=f_tile,
+                                   block=f_block)
+        if f_block == "auto" and plan.block > f_cap:
             plan = plan_buckets_packed(nu0_v, g, w_line, tile=f_tile,
                                        block=f_cap)
         calls.append((lay_idx, v_idx, plan,
@@ -446,8 +453,9 @@ def _build_od_calls(lines, iso, atmos_class, g, wing_abs, wing_hw, max_groups,
     for lay_idx, m in segs:
         cls_local = np.nonzero(m)[0]
         w_sub = w_core_line[cls_local]
-        seg_tile = _pow2_tile(int(np.ceil(2.0 * float(w_sub.max()) / g.dx)),
-                              lo=256, hi=min(512, max(256, tile)))
+        seg_tile = core_tile or _pow2_tile(
+            int(np.ceil(2.0 * float(w_sub.max()) / g.dx)),
+            lo=256, hi=min(512, max(256, tile)))
         core_plan = plan_buckets_packed(nu0_v[cls_local], g, w_sub,
                                         tile=seg_tile, block=core_block)
         calls.append((np.sort(lay_idx), v_idx[cls_local], core_plan, "core"))
@@ -757,21 +765,23 @@ def _hw_wing_max(lines_h, iso_h, states_h, wing_hw, vmr_margin) -> float:
 
 
 def _coarse_route(lines_h, g, wing_abs, tile, far_method, coarse_r, allowed,
-                  hw_wing, profile, subsets=None):
+                  hw_wing, profile, subsets=None, near_width=4.0):
     """The coarse-far decomposition of a builder, or None for the classic
     route: ``far_method`` 'auto' takes it where it is statically exact
     (``hw_wing()``, the largest halfwidth wing over the class states, is
     within ``wing_abs``) and ``wing_abs`` clears both 16 coarse steps and
     the near/edge disjointness bound, 'coarse' requires it (raising where it
     is not), 'classic' never; ``allowed`` is the builder's own precondition
-    and ``subsets`` its routing (:func:`_build_coarse_far_calls`). The
+    and ``subsets`` its routing (:func:`_build_coarse_far_calls`);
+    ``near_width`` [cm^-1] floors the near zone's half-width
+    (:func:`_coarse_near_width`). The
     correction kernel's ``coarse_r`` must divide its 256-point slice and be
     at least 8 (:func:`~..kernels.fused_xsect.corr_r_supported`), on the CPU
     too."""
     if far_method not in ("auto", "coarse", "classic"):
         raise ValueError(f"far_method must be 'auto', 'coarse' or "
                          f"'classic', got {far_method!r}")
-    min_wing = _coarse_far_min_wing(g, coarse_r, _NEAR_WIDTH)
+    min_wing = _coarse_far_min_wing(g, coarse_r, near_width)
     use = (far_method != "classic" and allowed and float(wing_abs) > 0.0
            and corr_r_supported(coarse_r)
            and float(wing_abs) >= max(16.0 * coarse_r * g.dx, min_wing)
@@ -787,7 +797,7 @@ def _coarse_route(lines_h, g, wing_abs, tile, far_method, coarse_r, allowed,
             f"({min_wing:.3g} cm^-1 here); got wing_abs={wing_abs!r}")
     if not use:
         return None
-    nw = _coarse_near_width(coarse_r, g.dx, _NEAR_WIDTH)
+    nw = _coarse_near_width(coarse_r, g.dx, near_width)
     return _build_coarse_far_calls(
         lines_h, g, wing_abs, profile, coarse_r, nw,
         tile_coarse=min(tile, 512),
@@ -795,13 +805,33 @@ def _coarse_route(lines_h, g, wing_abs, tile, far_method, coarse_r, allowed,
         subsets=subsets)
 
 
+def _check_build_opts(fast_rcp, **sizes):
+    """Refuse what the CUDA builds cannot honour: ``fast_rcp=True`` (the
+    kernels divide in IEEE only) and tile or block sizes that are not
+    positive integers (None or 0 keeps the planner's own choice, as in
+    the JAX planner)."""
+    if fast_rcp:
+        raise NotImplementedError(
+            "fast_rcp=True: the port's kernels divide by IEEE division only "
+            "(pass fast_rcp=False)")
+    for name, v in sizes.items():
+        if v is not None and v != 0 and (isinstance(v, bool) or not isinstance(
+                v, (int, np.integer)) or v < 1):
+            raise ValueError(f"{name} must be a positive integer (a kernel "
+                             f"launch covers whole tiles of line-slot "
+                             f"blocks), got {v!r}")
+
+
 def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                max_groups: int = 8, tile: int = 512, n_weideman: int = 16,
-               group_ratio: float = 4.0, core_block: int = 16,
+               two_pass: bool = True, far_tile: int | None = None,
+               far_block: int | None = None, group_ratio: float = 4.0,
+               core_tile: int | None = None, core_block: int = 16,
+               fast_rcp: bool = False, profile: str = "voigt",
                continuum: str = "none", continuum_factors=None,
-               line_mixing: dict | None = None, profile: str = "voigt",
                differentiable: bool = False,
-               coarse_r: int = 64) -> OpticalDepthFn:
+               line_mixing: dict | None = None, far_method: str = "auto",
+               coarse_r: int = 64, near_width: float = 4.0) -> OpticalDepthFn:
     """Build the layer-OD function with static packed plans (the counterpart
     of ``make_od_pallas_fn``, with its defaults).
 
@@ -818,9 +848,20 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     ``sd_air != 0`` whose tangents go through K4 (no line mixing, as the
     JAX builder). Absolute wings (``wing_abs``) that
     dominate every halfwidth wing and clear the coarse-far disjointness
-    bound take the coarse-far route (the JAX builder's ``far_method='auto'``
-    with its near width; ``coarse_r``: see :func:`_build_coarse_far_calls`).
+    bound take the coarse-far route (``far_method`` 'auto'; 'coarse'
+    requires it, 'classic' never; ``coarse_r`` and ``near_width``: see
+    :func:`_build_coarse_far_calls`).
+
+    The planning options are the JAX builder's, with its defaults and
+    meaning: ``two_pass=False`` plans single ``full`` passes (no core
+    passes; ``differentiable`` implies it), ``far_tile``/``far_block`` size
+    the window passes and ``core_tile`` the core passes
+    (:func:`_build_od_calls`). ``fast_rcp`` must be False: the kernels
+    divide in IEEE only (True raises ``NotImplementedError``).
     """
+    _check_build_opts(fast_rcp, tile=tile, far_tile=far_tile,
+                      far_block=far_block, core_tile=core_tile,
+                      core_block=core_block)
     if profile == "ht":
         raise NotImplementedError(
             "profile 'ht': the layered Hartmann-Tran OD is make_od_ht_fn")
@@ -845,19 +886,22 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
     mol_ids = tuple(states_h[0].mol_ids)
     cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids), device=dev)
+    # the tangent kernels implement the single-pass blends
+    two_pass = two_pass and not differentiable
     coarse = _coarse_route(
-        lines_h, g, wing_abs, tile, "auto", coarse_r,
-        allowed=(profile in ("voigt", "sdvoigt") and not differentiable
+        lines_h, g, wing_abs, tile, far_method, coarse_r,
+        allowed=(profile in ("voigt", "sdvoigt") and two_pass
                  and line_mixing is None),
         hw_wing=lambda: _hw_wing_max(lines_h, iso_h, states_h, wing_hw, 1.5),
-        profile=profile)
+        profile=profile, near_width=near_width)
     # on the coarse-far route the wing passes give way to the coarse far
     # field and its corrections; the classic per-line-tight core passes stay
     calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
                             max_groups, tile, group_ratio,
                             core_block=core_block, mix_idx=mix_idx,
-                            two_pass=not differentiable, profile=profile,
-                            wing_passes=coarse is None)
+                            two_pass=two_pass, profile=profile,
+                            wing_passes=coarse is None, far_tile=far_tile,
+                            far_block=far_block, core_tile=core_tile)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
                             int(np.asarray(states_h[0].T).size), dev, dt)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
@@ -870,8 +914,9 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
                   profile: str = "voigt", wing_abs=0.0, wing_hw=50.0,
                   max_groups: int = 8, tile: int = 512, n_weideman: int = 16,
                   two_pass: bool = True, group_ratio: float = 4.0,
-                  far_method: str = "auto",
-                  coarse_r: int = 64) -> CrossSectionFn:
+                  fast_rcp: bool = False, far_method: str = "auto",
+                  coarse_r: int = 64,
+                  near_width: float = 4.0) -> CrossSectionFn:
     """Build the (T_states, p_atm_states) -> (nStates, nX) cross-section
     function [cm^2/molec] of a (T, p) lattice (the counterpart of
     ``make_xsect_pallas_fn``, with its defaults): the reference's
@@ -887,8 +932,11 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
     near line centres and window edges (~R x less wing work) and requires
     statically exact wings and a ``coarse_r`` that divides 256 and is at
     least 8; 'auto' takes it where those hold and ``wing_abs`` spans many
-    tiles; 'classic' never. ``profile`` 'ht' is :func:`make_ht_fn`.
+    tiles; 'classic' never; ``near_width`` floors the near zone's
+    half-width. ``fast_rcp=True`` raises ``NotImplementedError`` (IEEE
+    division only). ``profile`` 'ht' is :func:`make_ht_fn`.
     """
+    _check_build_opts(fast_rcp, tile=tile)
     if profile == "ht":
         raise NotImplementedError(
             "profile 'ht': the Hartmann-Tran lattice is make_ht_fn")
@@ -908,7 +956,7 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
         lines_h, g, wing_abs, tile, far_method, coarse_r,
         allowed=profile in ("voigt", "sdvoigt") and two_pass,
         hw_wing=lambda: _hw_wing_max(lines_h, iso_h, states_h, wing_hw, None),
-        profile=profile)
+        profile=profile, near_width=near_width)
     calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
                             max_groups, tile, group_ratio, two_pass=two_pass,
                             profile=profile, wing_passes=coarse is None)
@@ -1072,8 +1120,9 @@ class HTOpticalDepthFn(_Passes):
 def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
                extras=None, wing_abs=0.0, wing_hw=50.0, tile: int = 128,
                n_weideman: int = 16, max_groups: int = 4,
-               group_ratio: float = 4.0, far_method: str = "auto",
-               coarse_r: int = 64) -> HTCrossSectionFn:
+               group_ratio: float = 4.0, fast_rcp: bool = False,
+               far_method: str = "auto", coarse_r: int = 64,
+               near_width: float = 4.0) -> HTCrossSectionFn:
     """Build the (T_states, p_atm_states) -> (nStates, nX) Hartmann-Tran
     cross-section function [cm^2/molec] (the counterpart of
     ``make_ht_pallas_fn``, with its defaults): hapi's
@@ -1088,9 +1137,11 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
     dominates every halfwidth wing and clears the coarse-far disjointness
     bound, those two subsets take the coarse-far route (``far_method``
     'auto'; 'coarse' requires it, 'classic' never; ``coarse_r`` must divide
-    256 and be at least 8), while the live-HT lines keep their full
-    windows.
+    256 and be at least 8; ``near_width`` floors the near zone), while the
+    live-HT lines keep their full windows. ``fast_rcp=True`` raises
+    ``NotImplementedError`` (IEEE division only).
     """
+    _check_build_opts(fast_rcp, tile=tile)
     if diluent is None:
         diluent = {"air": 1.0}
     g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
@@ -1121,7 +1172,7 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
         hw_wing=lambda: float(ht_wing_bounds(
             resolved, lines_h, iso_h, T_c, p_c, wing_abs=0.0,
             wing_hw=wing_hw).max()),
-        profile="ht", subsets=cf_subsets)
+        profile="ht", subsets=cf_subsets, near_width=near_width)
     if not cf_subsets:
         coarse = None
     coarse_modes = ("sdvoigt", "full") if coarse else ()
@@ -1157,7 +1208,8 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
 def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
                   wing_hw=50.0, tile: int = 128, n_weideman: int = 16,
                   max_groups: int = 8, group_ratio: float = 4.0,
-                  continuum: str = "none", continuum_factors=None,
+                  fast_rcp: bool = False, continuum: str = "none",
+                  continuum_factors=None,
                   differentiable: bool = False) -> HTOpticalDepthFn:
     """Build the (T, p_pa, pl, vmr) -> (nLay, nX) Hartmann-Tran layer OD
     (the counterpart of ``make_od_ht_pallas_fn``, with its defaults): the
@@ -1169,7 +1221,9 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
     ``differentiable=True`` plans with the JAX builder's tangent-kernel
     block caps; the passes carry ``torch.func.jvp`` tangents through K6
     (``ht``), K4 (``sdvoigt``) and K3 (``full``) either way.
+    ``fast_rcp=True`` raises ``NotImplementedError`` (IEEE division only).
     """
+    _check_build_opts(fast_rcp, tile=tile)
     g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
         np.asarray(grid))
     dev, dt = lines.sw.device, lines.sw.dtype

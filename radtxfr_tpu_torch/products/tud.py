@@ -25,7 +25,8 @@ import torch
 from .. import resolve_device
 from ..kernels.fused_tud import tud_compose
 
-__all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_quadrature"]
+__all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_angles",
+           "downwelling_quadrature"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +37,22 @@ class TUD:
     tau: torch.Tensor  # (nX, nZs, nMu) transmittance (or path OD)
     Lu: torch.Tensor   # (nX, nZs, nMu) upwelling radiance [µW/(cm^2 sr cm^-1)]
     Ld: torch.Tensor   # (nX,) hemispherically averaged downwelling radiance
+
+    def squeezed(self) -> "TUD":
+        """Reference-style squeeze of singleton Zs/mu axes
+        (radiative_transfer.py:357-365)."""
+        tau, Lu = self.tau, self.Lu
+        for ax in (2, 1):
+            if tau.shape[ax] == 1:
+                tau, Lu = tau.squeeze(ax), Lu.squeeze(ax)
+        return dataclasses.replace(self, tau=tau, Lu=Lu)
+
+
+def downwelling_angles(n_angles: int, device=None, dtype=torch.float64):
+    """The reference's zenith quadrature: uniform [0, pi/2), endpoint
+    excluded (radiative_transfer.py:368); ``device`` None is the card."""
+    th = np.linspace(0.0, np.pi / 2.0, n_angles, endpoint=False)
+    return torch.as_tensor(th, dtype=dtype, device=resolve_device(device))
 
 
 def downwelling_quadrature(n_angles: int, kind: str = "uniform"):

@@ -441,3 +441,167 @@ def test_xsect_from_params_profile_is_positional(synthetic, iso_tables):
     assert not torch.equal(outs["voigt"], outs["lorentz"])
     assert not torch.equal(outs["voigt"], outs["doppler"])
     assert not torch.equal(outs["voigt"], outs["sdvoigt"])
+
+
+# The JAX planner's options (ROADMAP queue 3 item 1): each held integer-exact
+# against JAX's planner, through the planner and through make_od_fn
+PLAN_OPTS = [dict(two_pass=False), dict(far_tile=1536), dict(far_block=48),
+             dict(core_tile=384),
+             dict(far_tile=768, far_block=32, core_tile=256)]
+
+
+def _same_packed_plan(a, b):
+    assert (a.tile, a.block, a.n_tiles, a.n_blocks, a.max_blocks) == \
+        (b.tile, b.block, b.n_tiles, b.n_blocks, b.max_blocks)
+    for f in ("starts", "counts", "k_line", "frac0", "gather"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    assert a.max_wing == b.max_wing
+
+
+def _same_device_calls(got, want):
+    """A builder's device passes against JAX's host calls: layers, mode,
+    tile, block and the integer plan, slot for slot."""
+    assert [c[2] for c in got] == [c[3] for c in want]
+    for (lay, dplan, _), (j_lay, j_idx, j_plan, _) in zip(got, want):
+        np.testing.assert_array_equal(lay.numpy(), np.asarray(j_lay))
+        assert (dplan.tile, dplan.block, dplan.n_tiles) == \
+            (j_plan.tile, j_plan.block, j_plan.n_tiles)
+        for f in ("starts", "counts"):
+            np.testing.assert_array_equal(getattr(dplan, f).numpy(),
+                                          getattr(j_plan, f), err_msg=f)
+        np.testing.assert_array_equal(dplan.k_line.numpy(),
+                                      j_plan.k_line.reshape(-1))
+        gather = j_plan.gather.reshape(-1)
+        idx = np.asarray(j_idx)
+        np.testing.assert_array_equal(
+            dplan.line.numpy(),
+            np.where(gather >= 0, idx[np.maximum(gather, 0)], -1))
+
+
+@pytest.mark.parametrize("opts", PLAN_OPTS,
+                         ids=lambda o: ",".join(f"{k}={v}"
+                                                for k, v in o.items()))
+def test_planning_options_match_jax(slice_case, iso_tables, opts):
+    """``two_pass``, ``far_tile``, ``far_block`` and ``core_tile`` (which
+    ``make_od_fn`` refused with ``TypeError``) plan the JAX planner's calls:
+    the same passes, layers, lines and plans, integer-exact, in
+    ``_build_od_calls`` and in ``make_od_fn``'s device passes."""
+    store, atm, port = slice_case
+    lines, iso, state = port[torch.float64]
+    kw = dict(two_pass=True, far_tile=None, far_block=None,
+              core_tile=None) | opts
+    want = j_od._build_od_calls(
+        *j_od._host_planning_views(store, iso_tables, atm),
+        JGrid.from_axis(SLICE_AXIS), 0.0, 50.0, 8, 512, kw["two_pass"],
+        kw["far_tile"], kw["far_block"], 4.0, kw["core_tile"], 16, "voigt")
+    got = od._build_od_calls(
+        *od._host_planning_views(lines, iso, state),
+        UniformGrid.from_axis(SLICE_AXIS), 0.0, 50.0, 8, 512, 4.0,
+        core_block=16, **kw)
+    assert [c[3] for c in got] == [c[3] for c in want]
+    assert ("full" in [c[3] for c in got]) == (not kw["two_pass"])
+    for (lay, idx, plan, _), (j_lay, j_idx, j_plan, _) in zip(got, want):
+        np.testing.assert_array_equal(lay, np.asarray(j_lay))
+        np.testing.assert_array_equal(idx, np.asarray(j_idx))
+        _same_packed_plan(plan, j_plan)
+    fn = od.make_od_fn(lines, iso, SLICE_AXIS, state, fast_rcp=False,
+                       **opts)
+    _same_device_calls(fn.calls, want)
+
+
+def test_coarse_route_options_match_jax(iso_tables):
+    """``far_method`` and ``near_width`` in ``make_od_fn`` (25 cm^-1
+    absolute wings at 0.01 cm^-1, R = 16): 'auto' and 'coarse' plan JAX's
+    coarse-far calls with a near width of 10 cm^-1 (wider than the
+    41 R dx = 6.56 floor, so it sizes the plans) and the classic core
+    passes; 'classic' JAX's classic calls; 'coarse' where the wing does
+    not clear the disjointness bound raises ``ValueError``."""
+    j_store = j_synthetic(300, nu_min=470.0, nu_max=710.0, seed=9)
+    store = synthetic_lines(300, nu_min=470.0, nu_max=710.0, seed=9, **F64)
+    j_atm = j_std_atmosphere()
+    j_atm = j_atm.replace(**{f: getattr(j_atm, f)[SLICE_LAYERS]
+                             for f in STATE})
+    state = AtmosphericState.from_numpy(
+        **{f: np.asarray(getattr(j_atm, f)) for f in STATE},
+        mol_ids=j_atm.mol_ids, **F64)
+    iso = IsoTables.load(**F64)
+    axis = arange_drift_free(500.0, 680.0, 0.01)
+    jg = JGrid.from_axis(axis)
+    views = j_od._host_planning_views(j_store, iso_tables, j_atm)
+    nw = j_od._coarse_near_width(16, jg.dx, 10.0)
+    assert nw == 10.0
+    _, j_coarse, j_corr = j_od._build_coarse_far_calls(
+        views[0], jg, 25.0, "voigt", 16, nw, 512,
+        j_od._coarse_tile_corr(jg, 16, nw, 25.0))
+    j_classic = j_od._build_od_calls(*views, jg, 25.0, 50.0, 8, 512, True,
+                                     None, None, 4.0, None, 16, "voigt")
+    for method in ("auto", "coarse"):
+        fn = od.make_od_fn(store, iso, axis, state, wing_abs=25.0,
+                           coarse_r=16, near_width=10.0, far_method=method)
+        for got, want in ((fn.coarse_calls, j_coarse),
+                          (fn.corr_calls, j_corr)):
+            assert [c[2] for c in got] == [c[2] for c in want]
+            for (_, dplan, _), (j_idx, j_plan, _) in zip(got, want):
+                assert (dplan.tile, dplan.block, dplan.n_tiles) == \
+                    (j_plan.tile, j_plan.block, j_plan.n_tiles)
+                np.testing.assert_array_equal(dplan.starts.numpy(),
+                                              j_plan.starts)
+                np.testing.assert_array_equal(dplan.k_line.numpy(),
+                                              j_plan.k_line.reshape(-1))
+        _same_device_calls(fn.calls, [c for c in j_classic
+                                      if c[3] == "core"])
+    fn = od.make_od_fn(store, iso, axis, state, wing_abs=25.0, coarse_r=16,
+                       near_width=10.0, far_method="classic")
+    assert not fn.coarse_calls and not fn.corr_calls
+    _same_device_calls(fn.calls, j_classic)
+    with pytest.raises(ValueError, match="far_method='coarse'"):
+        od.make_od_fn(store, iso, axis, state, wing_abs=25.0, coarse_r=16,
+                      near_width=40.0, far_method="coarse")
+
+
+@pytest.mark.parametrize("opts", [dict(two_pass=False), dict(far_tile=1536),
+                                  dict(far_block=48), dict(core_tile=384),
+                                  dict(far_method="classic", near_width=8.0,
+                                       fast_rcp=False)],
+                         ids=lambda o: ",".join(o))
+def test_compute_od_layers_pallas_opts_match_jax(slice_case, slice_reference,
+                                                 opts):
+    """``compute_od_layers(engine='pallas', pallas_opts=...)`` passes each
+    planning option through to ``make_od_fn`` (a ``TypeError`` before) and
+    matches JAX's float64 jnp engine within 1e-12 of the peak (float64
+    plain versions, 24 Weideman terms; measured 7.65e-13)."""
+    lines, iso, state = slice_case[2][torch.float64]
+    want = slice_reference[0]["voigt"]
+    got = od.compute_od_layers(lines, iso, SLICE_AXIS, state, engine="pallas",
+                               continuum="mt_ckd",
+                               pallas_opts={"n_weideman": 24, **opts}).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_fast_rcp_and_bad_sizes_are_refused(slice_case):
+    """``fast_rcp=True`` (the TPU's approximate reciprocal) raises
+    ``NotImplementedError`` in every builder and through ``pallas_opts``;
+    ``fast_rcp=False`` is accepted; a tile or block that is not a positive
+    integer raises ``ValueError`` naming the constraint, while 0 keeps the
+    planner's choice, as JAX's ``far_tile or ...``."""
+    lines, iso, state = slice_case[2][torch.float32]
+    with pytest.raises(NotImplementedError, match="fast_rcp"):
+        od.make_od_fn(lines, iso, SLICE_AXIS, state, fast_rcp=True)
+    with pytest.raises(NotImplementedError, match="fast_rcp"):
+        od.compute_od_layers(lines, iso, SLICE_AXIS, state, engine="pallas",
+                             pallas_opts={"fast_rcp": True})
+    for build in (od.make_xsect_fn, od.make_ht_fn):
+        with pytest.raises(NotImplementedError, match="fast_rcp"):
+            build(lines, iso, SLICE_AXIS, [296.0], [1.0], fast_rcp=True)
+    with pytest.raises(NotImplementedError, match="fast_rcp"):
+        od.make_od_ht_fn(lines, iso, SLICE_AXIS, state, fast_rcp=True)
+    for bad in (dict(far_tile=-512), dict(core_tile=256.0),
+                dict(far_block=-8)):
+        with pytest.raises(ValueError, match="positive integer"):
+            od.make_od_fn(lines, iso, SLICE_AXIS, state, **bad)
+    fn = od.make_od_fn(lines, iso, SLICE_AXIS, state, fast_rcp=False)
+    zero = od.make_od_fn(lines, iso, SLICE_AXIS, state, far_tile=0,
+                         far_block=0, core_tile=0)
+    assert [(c[1].tile, c[1].block, c[2]) for c in zero.calls] == \
+        [(c[1].tile, c[1].block, c[2]) for c in fn.calls]
