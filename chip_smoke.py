@@ -185,6 +185,33 @@ Phases, each printing its result on its own line:
    the route on a 5 cm^-1 band on the card against the CPU's float64 plain
    run, and make_od_fn on the card against the same run, each within 2e-6
    of peak.
+12. The sharded production path (``dist/fused_ensemble.py``) at phase 5's
+   full width on a virtual (2 x 2) mesh whose entries are all the one
+   card (every shard plan, tile offset and gather runs; the shards run one
+   after another, so this is the cost of sharding on one card, never a
+   multi-card speed-up): ``make_tud_ensemble_fn`` on phase 5's 4 members
+   with the equal and the weighted partition, the launch counts reset
+   before and read after (K1 asym/core/mix with tile offsets, K2), tau,
+   Lu and Ld against the unsharded builder on the same padded grid, class
+   and options within K2's 5e-6 of peak, bit-identity stated; the
+   gathered OD against the unsharded OD within 2e-6 of peak; each shard's
+   K1 passes on ``SHARD_EDGE_TILES`` tiles at each end (their offsets
+   carried over) against their plain versions within K1's bounds and
+   equal to the whole shard's columns; where a sharded member's time goes
+   (line parameters, K1, continuum, K2, gather) beside the unsharded
+   member; one sharded Jacobian batch of 8 directions (K1 ``full`` and K3
+   with offsets) against the unsharded ``jvp`` within 1e-4 of each
+   tangent's peak; K4 with offsets on the differentiable SD-Voigt OD of
+   phase 9c's lines (8 one-hot T directions, 2 weighted shards) against
+   unsharded within ``K4_BOUND``; the line-sharded OD on 2 shards against
+   the replicated one within 2e-6 of peak; ``run_tud`` with ``--mesh-*``
+   on the virtual mesh against phase 5's ``run_tud`` products within
+   ``MESH_VS_MAIN_BOUND`` (its plans sized on each batch's envelope, phase
+   5's on the base state, whose wing bounds clamp the colder members'
+   wings), and with ``--checkpoint`` in phase 5c's child
+   processes (one killed with SIGKILL after its first batch, a fresh one
+   resuming it): the resumed products bit-identical to the in-process run
+   without checkpoints.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -207,7 +234,9 @@ special-function ops or bytes where those take longer;
 ``bound_ms_issue_measured``: the instructions over phase 2b's measured
 FMUL-chain rate).
 
-It ends with one JSON line of kernel results and, last, the device line.
+It ends with one JSON line of kernel results (K1's production modes,
+``full``, K3 and K4 also with ``offset_launches``: their launches with
+tile offsets in phase 12) and, last, the device line.
 Any failed check raises; the script then exits non-zero without the last
 line. There is no CPU fallback.
 """
@@ -725,7 +754,8 @@ def k1_issue(mode):
     arithmetic inside and outside |x| + y < 15
     (``sass.k1_eval_instructions``, ``sass.ld_eval_instructions``)."""
     code = fused_xsect.MODES.index(mode)
-    instrs = kernel_sass("fused_xsect", rf"fused_xsect_kernelILi{code}ELb0E")
+    instrs = kernel_sass("fused_xsect",
+                         rf"fused_xsect_kernelILi{code}ELb0ELb0E")
     if mode in SIMPLE_OPS:
         return sass.ld_eval_instructions(instrs, csrc_text("fused_xsect"),
                                          code)
@@ -1590,7 +1620,15 @@ for k in fused_tud.LAUNCHES:
     fused_tud.LAUNCHES[k] = 0
 args = build_parser().parse_args({argv!r})
 timings = {{}}
-x_lo, out = run_tud(args, "cuda", timings)
+mesh = None
+if args.mesh_ensemble * args.mesh_spectrum > 1:
+    # a virtual mesh: every entry the one card
+    import torch
+    from radtxfr_tpu_torch.dist.mesh import make_mesh
+    mesh = make_mesh(args.mesh_ensemble, args.mesh_spectrum,
+                     devices=[torch.device("cuda", 0)]
+                     * (args.mesh_ensemble * args.mesh_spectrum))
+x_lo, out = run_tud(args, "cuda", timings, mesh=mesh)
 launches = collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
 with open({out!r} + ".bin", "wb") as f:
     for a in (x_lo, out["tau"], out["Lu"], out["Ld"]):
@@ -3232,6 +3270,447 @@ def phase_od_layers(dev, card):
     return finish_stats(stats)["full"], launches
 
 
+# --------------------------------------------------------------------------
+# 12. the sharded production path on a virtual mesh of the one card
+# --------------------------------------------------------------------------
+
+SHARD_MESH = (2, 2)            # (ensemble, spectrum), every entry cuda:0
+SHARD_EDGE_TILES = 4           # tiles at each end of a shard held vs plain
+SHARD_OD_BOUND = 2e-6          # sharded vs unsharded OD, of peak (K1's)
+SHARD_JAC_BOUND = 1e-4         # sharded vs unsharded tangents, own peak
+#: tud --mesh-* (envelope plans) vs phase 5's run_tud (base-state plans),
+#: of peak: tests/test_torch_cli.py's bound for the same cause, the
+#: members' wings clamped by plans sized on the base state
+MESH_VS_MAIN_BOUND = 1e-3
+#: one Jacobian batch of 8 directions: T at layers 0, 30, 65; H2O at 5, 40;
+#: O3 at 10, 50; T at 20 (jacobian_directions' order: T, H2O, O3 by layer)
+SHARD_JAC_DIRS = [0, 30, 65, 66 + 5, 66 + 40, 132 + 10, 132 + 50, 20]
+
+
+def virtual_mesh(dev):
+    """The (2 x 2) mesh whose four entries are all ``dev``: every shard
+    plan, offset and gather runs; the shards run one after another."""
+    from radtxfr_tpu_torch.dist.mesh import make_mesh
+
+    return make_mesh(*SHARD_MESH,
+                     devices=[dev] * (SHARD_MESH[0] * SHARD_MESH[1]))
+
+
+def shard_columns(local_fn, s, n_local):
+    """Shard s's global grid indices in its local order."""
+    if local_fn.point_index is not None:
+        return torch.as_tensor(local_fn.point_index[s])
+    return torch.arange(s * n_local, (s + 1) * n_local)
+
+
+def shard_calls(local_fn, spec, s, n_local, dev):
+    """Shard s's (starts, counts, tile offsets) for each call of
+    ``local_fn`` on ``dev`` (a contiguous shard's scalar offset spread
+    over its tiles)."""
+    from radtxfr_tpu_torch.products.od import shard_slice
+
+    loc = shard_slice(spec, s, dev)
+    if isinstance(loc, dict):
+        return loc["calls"]
+    out = []
+    for (st, ct), (_, dplan, _) in zip(loc, local_fn.calls):
+        nt = n_local // dplan.tile
+        out.append((st, ct, torch.full((nt,), s * n_local,
+                                       dtype=torch.int32, device=dev)))
+    return out
+
+
+def edge_passes(local_fn, spec, n_spec, prm, Y, line_od, dev, label,
+                card):
+    """Each shard's K1 passes with offsets on SHARD_EDGE_TILES tiles at
+    each end of the shard (the tiles whose windows cross its edges) against
+    their plain versions with the same overrides: within K1_BOUND of the
+    line OD of the pass's layers at those points and K1_OWN_BOUND of the
+    pass's own peak; and each such launch bit-identical to the same
+    columns of the whole shard's launch (local addressing, global
+    offsets)."""
+    from radtxfr_tpu_torch.kernels.fused_xsect import shard_plan
+
+    n_local = local_fn.n_local
+    worst = {}
+    for s in range(n_spec):
+        cols_all = shard_columns(local_fn, s, n_local).to(dev)
+        for (lay, dplan, mode), (st, ct, off) in zip(
+                local_fn.calls, shard_calls(local_fn, spec, s, n_local,
+                                            dev)):
+            t = dplan.tile
+            nt = n_local // t
+            k = min(SHARD_EDGE_TILES, nt)
+            sel = torch.as_tensor(sorted({*range(k), *range(nt - k, nt)}),
+                                  dtype=torch.long, device=dev)
+            new = torch.arange(sel.numel(), device=dev)
+            over = dict(starts=st[sel], counts=ct[sel],
+                        k_offset=(off[sel] + (sel - new) * t).to(torch.int32),
+                        n_tiles=sel.numel(), n_out=sel.numel() * t)
+            whole = dict(starts=st, counts=ct, k_offset=off, n_tiles=nt,
+                         n_out=n_local)
+            call = (lay, shard_plan(dplan, **over), mode)
+            got = local_fn.run_call(call, prm, Y)
+            full = local_fn.run_call((lay, shard_plan(dplan, **whole), mode),
+                                     prm, Y)
+            loc_cols = (sel[:, None] * t + torch.arange(t, device=dev)
+                        ).reshape(-1)
+            check(torch.equal(got, full[:, loc_cols]),
+                  f"{label} shard {s} {mode}: the edge tiles' launch differs "
+                  "from the whole shard's columns")
+            want = local_fn.run_call(call, prm, Y,
+                                     kernel=fused_xsect.xsect_fused_plain)
+            err = float((got - want).abs().max())
+            peak = float(line_od[lay.long()][:, cols_all[loc_cols]]
+                         .abs().max())
+            own = float(want.abs().max())
+            check(err <= K1_BOUND * peak,
+                  f"{label} shard {s} {mode}: {err:.3e} > {K1_BOUND} x "
+                  f"line OD peak {peak:.3e}")
+            check(err <= K1_OWN_BOUND[mode] * own,
+                  f"{label} shard {s} {mode}: {err:.3e} > "
+                  f"{K1_OWN_BOUND[mode]} x own peak {own:.3e}")
+            w = worst.setdefault(mode, [0.0, 0.0])
+            w[0] = max(w[0], err / peak if peak else 0.0)
+            w[1] = max(w[1], err / own if own else 0.0)
+    print(f"[12 {label}] each shard's K1 passes on {2 * SHARD_EDGE_TILES} "
+          "edge tiles with offsets vs plain (worst, of the line OD peak / of "
+          "the pass's own peak): " + ", ".join(
+              f"{m} {a:.3e} / {b:.3e}" for m, (a, b) in worst.items())
+          + f"; each equal to the whole shard's columns [{card}]",
+          flush=True)
+
+
+def rel_peak(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_sharded(dev, card, x_main, main_products):
+    """12: the sharded production path (``dist/fused_ensemble.py``) at full
+    production width on a virtual (2 x 2) mesh of the one card: the
+    ensemble (equal and weighted partitions) against the unsharded builder
+    on the same padded grid and plans, each shard's K1 passes with offsets
+    against their plain versions, one sharded Jacobian batch against the
+    unsharded tangents, K4 with offsets, the line-sharded OD, ``run_tud``
+    with the mesh and ``--checkpoint`` (and against phase 5's products),
+    and the cost of sharding on one card (not a multi-card speed-up)."""
+    from radtxfr_tpu_torch.dist.ensemble import gather_shards, stack_states
+    from radtxfr_tpu_torch.dist.fused_ensemble import (
+        _envelope, jacobian_directions, make_tud_ensemble_fn,
+        make_tud_jacobian_fn)
+    from radtxfr_tpu_torch.kernels.fused_xsect import shard_plan
+    from radtxfr_tpu_torch.products.od import make_od_local_fn, shard_slice
+    from radtxfr_tpu_torch.products.od_sharded_lines import (
+        make_od_sharded_lines_fn)
+
+    f32 = torch.float32
+    args = build_parser().parse_args(PRODUCTION.split())
+    store = derived_lwir_linelist(args.numin - MARGIN, args.numax + MARGIN,
+                                  device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    X = arange_drift_free(args.numin, args.numax, args.dv)
+    lm = {"y_air": y_air_for_store(store.host_view())}
+    draws = ensemble_draws(args.n_atmos, args.seed)
+    states = []
+    for i in range(args.n_atmos):
+        T, vmr = ensemble_member(base, draws, i)
+        states.append(dataclasses.replace(base, T=T, vmr=vmr))
+    batch = stack_states(states)
+    env = _envelope(batch)
+    mesh = virtual_mesh(dev)
+    n_spec = SHARD_MESH[1]
+    out, launches, offsets, times = {}, {}, {}, {}
+    for part in ("equal", "weighted"):
+        t0 = time.perf_counter()
+        gpad, run = make_tud_ensemble_fn(
+            store, iso, X, batch, ALTITUDES, mesh, continuum="mt_ckd",
+            line_mixing=lm, partition=part)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_launches()
+        fused_xsect.OFFSET_LAUNCHES.clear()
+        out[part] = run(batch)
+        torch.cuda.synchronize()
+        launches[part] = read_launches()
+        offsets[part] = dict(fused_xsect.OFFSET_LAUNCHES)
+        for k in (*PRODUCTION_MODES, "tud"):
+            check(launches[part][k] > 0, f"kernel {k} was not launched by "
+                  f"the sharded ensemble ({part})")
+        for k in PRODUCTION_MODES:
+            check(offsets[part].get(k, 0) > 0, f"K1 {k} was not launched "
+                  f"with tile offsets by the sharded ensemble ({part})")
+        times[part], _ = cuda_ms(lambda: run(batch), 2)
+        print(f"[12 ensemble] {part}: {args.n_atmos} members on a "
+              f"{SHARD_MESH} virtual mesh, {gpad.n} padded points; plan "
+              f"build {build_s:.3f} s; launches {dict(launches[part])}, with "
+              f"offsets {offsets[part]} [{card}]", flush=True)
+
+    # the unsharded builder on the same padded grid, class and options
+    t0 = time.perf_counter()
+    od_fn = make_od_fn(store, iso, gpad, env, continuum="mt_ckd",
+                       line_mixing=lm, group_ratio=1.6, far_method="classic")
+    torch.cuda.synchronize()
+    build_u = time.perf_counter() - t0
+    x_pad = torch.as_tensor(gpad.values(), dtype=f32, device=dev)
+    tud_fn = make_tud_fn(base.z0.cpu().numpy(), ALTITUDES, device=dev)
+
+    def unsharded(st):
+        return tud_fn(x_pad, od_fn(st.T, st.p, st.pl, st.vmr), st.T)
+
+    errs = {part: [0.0, 0.0, 0.0] for part in out}
+    same = {part: True for part in out}
+    for i, st in enumerate(states):
+        ref = unsharded(st)
+        for part, prods in out.items():
+            for j, (got, want) in enumerate(zip(prods, (ref.tau, ref.Lu,
+                                                        ref.Ld))):
+                errs[part][j] = max(errs[part][j], rel_peak(got[i], want))
+                same[part] &= bool(torch.equal(got[i], want))
+    for part in out:
+        for j, name in enumerate(("tau", "Lu", "Ld")):
+            check(errs[part][j] <= K2_BOUND, f"sharded {part} {name}: "
+                  f"{errs[part][j]:.3e} of peak > {K2_BOUND}")
+        print(f"[12 ensemble] {part} vs the unsharded builder on the same "
+              f"padded grid (K1 + K2), 4 members: tau/Lu/Ld "
+              + "/".join(f"{e:.3e}" for e in errs[part]) + " of peak; "
+              + ("bit-identical" if same[part] else "NOT bit-identical")
+              + f" [{card}]", flush=True)
+    unsh_ms, _ = cuda_ms(lambda: [unsharded(st) for st in states], 2)
+
+    # the OD itself, each shard's passes against plain, and the breakdown
+    st0 = states[0]
+    T, p, pl, vmr = st0.T, st0.p, st0.pl, st0.vmr
+    od_ref = od_fn(T, p, pl, vmr)
+    line_od = od_fn.line_sum(*od_fn.line_params(T, p, pl, vmr))
+    for part in ("equal", "weighted"):
+        local_fn, spec, g = make_od_local_fn(
+            store, iso, X, env, n_spec, continuum="mt_ckd", line_mixing=lm,
+            partition=part)
+        n_local = g.n // n_spec
+        specs = [shard_slice(spec, s, dev) for s in range(n_spec)]
+        shards = [local_fn(T, p, pl, vmr, specs[s], s * n_local)
+                  for s in range(n_spec)]
+        od = torch.empty_like(od_ref)
+        for s in range(n_spec):
+            od[:, shard_columns(local_fn, s, n_local).to(dev)] = shards[s]
+        err = rel_peak(od, od_ref)
+        check(err <= SHARD_OD_BOUND, f"sharded OD ({part}) {err:.3e} of "
+              f"peak > {SHARD_OD_BOUND}")
+        print(f"[12 od] {part}: the gathered sharded OD vs the unsharded "
+              f"make_od_fn on the same padded grid and options: {err:.3e} "
+              f"of peak, " + ("bit-identical" if torch.equal(od, od_ref)
+                              else "NOT bit-identical") + f" [{card}]",
+              flush=True)
+        prm, Y = local_fn.line_params(T, p, pl, vmr)
+        edge_passes(local_fn, spec, n_spec, prm, Y, line_od, dev,
+                    f"{part} K1 edges", card)
+        # where a sharded member's time goes (both shards, one card)
+        ms = {"line params": 0.0, "K1": 0.0, "continuum": 0.0, "K2": 0.0}
+        parts = {}
+        for s in range(n_spec):
+            ms["line params"] += cuda_ms(
+                lambda: local_fn.line_params(T, p, pl, vmr), 3)[0]
+            for (lay, dplan, mode), (st_, ct, off) in zip(
+                    local_fn.calls, shard_calls(local_fn, spec, s, n_local,
+                                                dev)):
+                sp = shard_plan(dplan, starts=st_, counts=ct, k_offset=off,
+                                n_tiles=n_local // dplan.tile, n_out=n_local)
+                ms["K1"] += cuda_ms(lambda: local_fn.run_call(
+                    (lay, sp, mode), prm, Y), 3)[0]
+            kw = (dict(k_index=specs[s]["point_idx"]) if part == "weighted"
+                  else dict(k_offset=s * n_local))
+            ms["continuum"] += cuda_ms(lambda: local_fn.cont(
+                T, p, pl, vmr, **kw), 3)[0]
+            xs = x_pad[shard_columns(local_fn, s, n_local).to(dev)]
+            k2_ms, tud = cuda_ms(lambda: tud_fn(xs, shards[s], T), 3)
+            ms["K2"] += k2_ms
+            parts[(0, s)] = tuple(a[None] for a in (tud.tau, tud.Lu,
+                                                    tud.Ld))
+        ms["gather"], _ = cuda_ms(lambda: gather_shards(
+            parts, dev, 1, g.n, local_fn.point_index), 3)
+        print(f"[12 breakdown] {part}, one member on the virtual mesh (the "
+              f"cost of sharding on one card, not a multi-card speed-up): "
+              f"the ensemble {times[part] / len(states):.3f} ms a member, "
+              f"the unsharded builder {unsh_ms / len(states):.3f} ms a "
+              f"member (plan build {build_u:.3f} s); sharded stages: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f" ms [{card}]", flush=True)
+
+    # one sharded Jacobian batch (K1 full, K3 with offsets) vs unsharded
+    t0 = time.perf_counter()
+    gj, run_j = make_tud_jacobian_fn(store, iso, X, base, ALTITUDES, mesh,
+                                     continuum="mt_ckd")
+    V_T, V_vmr, labels = jacobian_directions(base)
+    V_T, V_vmr = V_T[SHARD_JAC_DIRS], V_vmr[SHARD_JAC_DIRS]
+    reset_launches()
+    fused_xsect.OFFSET_LAUNCHES.clear()
+    prim, tan = run_j(base.T, base.vmr, V_T, V_vmr)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    jac_launches = read_launches()
+    jac_off = dict(fused_xsect.OFFSET_LAUNCHES)
+    for k in ("full", "jvp"):
+        check(jac_launches[k] > 0 and jac_off.get(k, 0) > 0,
+              f"kernel {k} was not launched with offsets by the sharded "
+              "Jacobian")
+    fn_d = make_od_fn(store, iso, gj, base, continuum="mt_ckd",
+                      differentiable=True, group_ratio=1.6,
+                      far_method="classic")
+    x_j = torch.as_tensor(gj.values(), dtype=f32, device=dev)
+    alts = torch.as_tensor(ALTITUDES, dtype=f32, device=dev)
+
+    def forward(T_, vmr_):
+        od = fn_d(T_, base.p, base.pl, vmr_)
+        B = planckian(x_j, T_).transpose(0, 1).to(od.dtype)
+        t = tud_from_od(x_j, od, B, base.z0, alts, n_angles=30)
+        return t.tau, t.Lu, t.Ld
+
+    vt = torch.as_tensor(V_T, device=dev)
+    vv = torch.as_tensor(V_vmr, device=dev)
+    want_p = forward(base.T, base.vmr)
+    want_t = torch.func.vmap(lambda a, b: torch.func.jvp(
+        forward, (base.T, base.vmr), (a, b))[1])(vt, vv)
+    worst = worst_p = 0.0
+    for j, name in enumerate(("tau", "Lu", "Ld")):
+        err = rel_peak(prim[name], want_p[j])
+        check(err <= SHARD_JAC_BOUND, f"sharded Jacobian primal {name}: "
+              f"{err:.3e} > {SHARD_JAC_BOUND}")
+        worst_p = max(worst_p, err)
+        for d in range(len(SHARD_JAC_DIRS)):
+            e = rel_peak(tan[name][d], want_t[j][d])
+            check(e <= SHARD_JAC_BOUND, f"sharded tangent {name} "
+                  f"{labels[SHARD_JAC_DIRS[d]]}: {e:.3e} > {SHARD_JAC_BOUND}")
+            worst = max(worst, e)
+    del want_t
+    print(f"[12 jacobian] 8 directions on the virtual mesh (directions over "
+          f"the ensemble axis, weighted spectrum shards): {jac_s:.3f} s "
+          f"with the plan build; vs the unsharded jvp: primal within "
+          f"{worst_p:.3e}, tangents within {worst:.3e} of each one's peak; "
+          f"launches {dict(jac_launches)}, "
+          f"with offsets {jac_off} [{card}]", flush=True)
+
+    # K4 with offsets: the differentiable SD-Voigt OD on 2 weighted shards
+    sd_store = synthetic_lines(**{**HT_JAC_LINES, "device": dev})
+    X_sd = arange_drift_free(*HT_JAC_BAND)
+    sd_fn, sd_spec, g_sd = make_od_local_fn(
+        sd_store, iso, X_sd, base, n_spec, profile="sdvoigt",
+        differentiable=True, partition="weighted")
+    sd_ref = make_od_fn(sd_store, iso, g_sd, base, profile="sdvoigt",
+                        differentiable=True, group_ratio=1.6)
+    V = one_hot_batch(dev)
+    fused_xsect.OFFSET_LAUNCHES.clear()
+    n_sd = g_sd.n // n_spec
+    sd_tan = torch.empty((V.shape[0], base.n_layers, g_sd.n), device=dev)
+    for s in range(n_spec):
+        # bound outside the transforms: their wrapped tensors have no
+        # storage to hand a kernel
+        shard = sd_fn.bind(shard_slice(sd_spec, s, dev), 0)
+        sd_tan[:, :, shard_columns(sd_fn, s, n_sd).to(dev)] = \
+            torch.func.vmap(lambda v: torch.func.jvp(
+                lambda T_: shard(T_, base.p, base.pl, base.vmr),
+                (base.T,), (v,))[1])(V)
+    sd_off = dict(fused_xsect.OFFSET_LAUNCHES)
+    check(sd_off.get("sdvoigt_jvp", 0) > 0,
+          "K4 was not launched with offsets")
+    sd_want = torch.func.vmap(lambda v: torch.func.jvp(
+        lambda T_: sd_ref(T_, base.p, base.pl, base.vmr), (base.T,),
+        (v,))[1])(V)
+    sd_err = max(rel_peak(sd_tan[d], sd_want[d]) for d in range(V.shape[0]))
+    check(sd_err <= K4_BOUND, f"sharded SD-Voigt tangents {sd_err:.3e}")
+    same = "bit-identical" if torch.equal(sd_tan, sd_want) else \
+        "NOT bit-identical"
+    print(f"[12 sdvoigt] {HT_JAC_LINES['n_lines']} lines, 8 one-hot T "
+          f"directions on 2 weighted shards (K4 and K3 with offsets "
+          f"{sd_off}) vs unsharded: {sd_err:.3e} of each direction's peak, "
+          f"{same} [{card}]", flush=True)
+
+    # the line-sharded OD on 2 shards against the replicated one
+    fused_xsect.OFFSET_LAUNCHES.clear()
+    ls_fn, ls_data, g_ls = make_od_sharded_lines_fn(store, iso, X, base,
+                                                    n_spec)
+    n_ls = g_ls.n // n_spec
+    ls_od = torch.cat([ls_fn(base.T, base.p, base.pl, base.vmr,
+                             shard_slice(ls_data, s, dev), s * n_ls)
+                       for s in range(n_spec)], dim=1)
+    rep_fn, rep_spec, _ = make_od_local_fn(store, iso, g_ls, base, 1)
+    rep = rep_fn(base.T, base.p, base.pl, base.vmr,
+                 shard_slice(rep_spec, 0, dev), 0)
+    n = X.size
+    ls_err = rel_peak(ls_od[:, :n], rep[:, :n])
+    check(ls_err <= SHARD_OD_BOUND, f"line-sharded OD {ls_err:.3e}")
+    print(f"[12 line-sharded] 2 shards of {ls_data['lines']['nu0'].shape[1]}"
+          f" line slots each (of {store.n_lines} lines) vs the replicated "
+          f"OD: {ls_err:.3e} of peak; K1 with offsets "
+          f"{dict(fused_xsect.OFFSET_LAUNCHES)} [{card}]", flush=True)
+
+    # run_tud with the virtual mesh and --checkpoint in child processes
+    # (phase 5c's): one killed after its first batch, a fresh one resumes
+    # it; its products bit-identical to an in-process run without
+    # --checkpoint
+    margs = PRODUCTION.split() + ["--mesh-spectrum", "2", "--mesh-ensemble",
+                                  "2"]
+    timings = {}
+    x_lo, full = run_tud(build_parser().parse_args(margs), "cuda", timings,
+                         mesh=mesh)
+    # against phase 5's single-device run_tud: its plans are sized on the
+    # base state, whose wing bounds clamp the perturbed members' wings;
+    # the mesh run's on the envelope of each batch, which clamps none.
+    # The same cause as the jnp engine's gap to both production builders
+    # in tests/test_torch_cli.py, held to that test's bound
+    check(np.array_equal(x_lo, x_main), "the mesh run_tud's axis differs "
+          "from phase 5's")
+    gaps = {k: float(np.abs(full[k] - main_products[k]).max()
+                     / np.abs(main_products[k]).max())
+            for k in ("tau", "Lu", "Ld")}
+    for k, gap in gaps.items():
+        check(gap <= MESH_VS_MAIN_BOUND, f"the mesh run_tud {k} lies "
+              f"{gap:.3e} of peak from phase 5's > {MESH_VS_MAIN_BOUND}")
+    print(f"[12 run_tud] --mesh-* (envelope plans) vs phase 5's run_tud "
+          f"(base-state plans), {args.n_atmos} members at production width: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" of peak [{card}]", flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    out_b, ck = os.path.join(work, "b"), os.path.join(work, "ck")
+    argv = margs + ["--checkpoint", ck]
+    t0 = time.perf_counter()
+    rc, log = checkpoint_child(argv, out_b, kill=True)
+    check(rc == -9, f"the killed mesh child ended with {rc}, not SIGKILL:\n"
+          f"{log[-3000:]}")
+    listing = sorted(os.listdir(ck))
+    check(listing == ["batch_000000.npz", "manifest.json"],
+          f"before the resume the mesh checkpoint held {listing}")
+    t1 = time.perf_counter()
+    rc, log = checkpoint_child(argv, out_b)
+    check(rc == 0, f"the resumed mesh run failed ({rc}):\n{log[-3000:]}")
+    check("batch 1/2" not in log and "batch 2/2" in log,
+          "the resumed mesh run recomputed the first batch")
+    t2 = time.perf_counter()
+    got = read_products(out_b + ".bin")
+    for name, want, have in zip(("X", "tau", "Lu", "Ld"),
+                                (x_lo, full["tau"], full["Lu"], full["Ld"]),
+                                got):
+        check(np.array_equal(want, have), f"the resumed mesh {name} "
+              "differs from run_tud without --checkpoint")
+        check(np.isfinite(have).all(), f"mesh run_tud {name} not finite")
+    with open(out_b + ".json") as f:
+        child = json.load(f)
+    for k in (*PRODUCTION_MODES, "tud"):
+        check(child["launches"].get(k, 0) > 0, f"kernel {k} was not "
+              "launched in the resumed mesh child")
+    shutil.rmtree(work)
+    print(f"[12 run_tud] --mesh-spectrum 2 --mesh-ensemble 2 (virtual mesh):"
+          f" {args.n_atmos} members, plan build {timings['build_s']:.3f} s, "
+          f"{timings['members_s'] / args.n_atmos:.4f} s a member; with "
+          f"--checkpoint in child processes, killed after batch 1 of 2 and "
+          f"resumed in a fresh one (wall {t1 - t0:.1f} s, {t2 - t1:.1f} s): "
+          f"products bit-identical to the run without checkpoints; the "
+          f"resumed child's launches {child['launches']} [{card}]",
+          flush=True)
+    return {"ensemble": offsets["weighted"], "jacobian": jac_off,
+            "sdvoigt": sd_off}
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3268,6 +3747,7 @@ def main():
     ht_jac_launches = run(phase_ht_jacobian, dev, card)
     run(phase_sdvoigt_jacobian, dev, card)
     k7["full"], route_launches = run(phase_od_layers, dev, card)
+    sharded = run(phase_sharded, dev, card, x_lo, products)
     run(phase_breakdown, dev, card)
     run(phase_jac_breakdown, dev, card)
     run(phase_xs_breakdown, dev, card)
@@ -3322,6 +3802,16 @@ def main():
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",
                     **k2["tud_b"]})
+    # the launches with per-tile grid offsets (phase 12): K1's production
+    # modes in the sharded ensemble, K1 full and K3 in the sharded Jacobian,
+    # K4 (and K3) in the sharded SD-Voigt tangents
+    for entry in kernels:
+        key = entry["name"].replace("fused_xsect_", "", 1)
+        for path in ("ensemble", "jacobian", "sdvoigt"):
+            if sharded[path].get(key):
+                entry["offset_launches"] = sharded[path][key]
+                entry["offset_path"] = f"phase 12 sharded {path}"
+                break
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

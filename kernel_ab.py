@@ -38,13 +38,19 @@ same seeds:
   OD at full width (phase 9d's) for its one-hot batch, each with a SHA-256
   of each output;
 * K2 at the production shape in each mode the checkout has;
-* d OD / d T[3] of the HT Jacobian (phase 9c's), over twice the calls.
+* d OD / d T[3] of the HT Jacobian (phase 9c's), over twice the calls;
+* ``sharded``: K1 on the production member's passes, K3 on the
+  Jacobian's one-hot batch and K4 on phase 9d's, each on plans of a grid
+  padded for two spectral shards: unsharded (no tile offsets), with
+  explicit zero offsets, and as the two shards with their tiles' offsets
+  (the yardstick of the offset launch; a checkout whose plans take no
+  offsets gives the unsharded launch only).
 
-For the member, d OD / d T[3] and K4's passes it also gives the
-milliseconds the card spends in kernels during one call ("on the card":
-torch.profiler's CUDA kernel times, summed; for a K4 pass its liveness
-table's reductions and the kernel); the rest of a call's time the card
-waits on the host.
+For the member, d OD / d T[3], K5's passes and the HT Jacobian's K3, K6
+and K4 passes it also gives the milliseconds the card spends in kernels
+during one call ("on the card": torch.profiler's CUDA kernel times,
+summed; for a tangent pass its liveness table's reductions and the
+kernel); the rest of a call's time the card waits on the host.
 
 Each time is the median of ``--reps`` calls, each timed on its own with
 CUDA events after a warm-up call. ``--only`` measures only the named
@@ -157,12 +163,13 @@ def child(out_path, reps, only=None):
             r["card_ms"] = r.get("card_ms", 0.0) + (device_ms(fn) or 0.0)
 
     def k1(case, fn, prm, calls, Y=None):
-        """K1's passes of ``calls``, and K5's (``ht``) under their own key."""
+        """K1's passes of ``calls``, and K5's (``ht``, also on the card)
+        under their own key."""
         for call in calls:
             ht = call[2] == "ht"
             record(f"K5 {case}" if ht else f"K1 {case} {call[2]}",
                    lambda c=call, ht=ht: cs.ht_primal(c, prm) if ht
-                   else fn.run_call(c, prm, Y))
+                   else fn.run_call(c, prm, Y), card=ht)
 
     iso = IsoTables.load(device=dev, dtype=f32)
     b64 = std_atmosphere(device=dev)
@@ -200,7 +207,7 @@ def child(out_path, reps, only=None):
                 for name, t in sets.items():
                     record(f"{k} ht jacobian {name}",
                            lambda c=call, t=t: cs.ht_tangent(c, hprm, t),
-                           card=k == "K4")
+                           card=True)
         del fn, jac_store, hprm, htans, hdense, h3
 
     if want("k4"):
@@ -241,7 +248,8 @@ def child(out_path, reps, only=None):
     X = arange_drift_free(*cs.FULL_BAND)
     T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
     x = torch.as_tensor(X, dtype=f32, device=dev)
-    if want("production") or want("jacobian") or want("k7"):
+    if want("production") or want("jacobian") or want("k7") \
+            or want("sharded"):
         store = derived_lwir_linelist(cs.FULL_BAND[0] - cs.MARGIN,
                                       cs.FULL_BAND[1] + cs.MARGIN,
                                       device=dev, dtype=f32)
@@ -313,7 +321,10 @@ def child(out_path, reps, only=None):
             record(f"K7 sub-band {m}", lambda m=m: fused_xsect.xsect_unfused(
                 splan, sprm.get(m, sprm["voigt"]), m))
         del sstore, splan, sprm
-    if want("production") or want("jacobian") or want("k7"):
+    if want("sharded"):
+        sharded_section(cs, record, store, iso, base, b64, dev)
+    if want("production") or want("jacobian") or want("k7") \
+            or want("sharded"):
         del store
 
     if want("k2"):
@@ -386,6 +397,106 @@ def child(out_path, reps, only=None):
         json.dump(res, f)
 
 
+def shard_variants(dplan, n_spec=2):
+    """A padded-grid plan's launches for the ``sharded`` section: the
+    unsharded call (no tile offsets), and, where the checkout's plans take
+    offsets, the same call with explicit zero offsets and each of
+    ``n_spec`` equal shards with its tiles' offsets (a tensor for every
+    shard, so the kernel reads them); (label, plan) pairs."""
+    import dataclasses
+
+    import torch
+
+    from radtxfr_tpu_torch.kernels import fused_xsect
+
+    out = [("unsharded", dplan)]
+    if "tile_off" not in {f.name for f in
+                          dataclasses.fields(fused_xsect.DevicePlan)}:
+        return out
+    dev = dplan.starts.device
+    nt = dplan.n_tiles // n_spec
+    zeros = torch.zeros(dplan.n_tiles, dtype=torch.int32, device=dev)
+    out.append(("zero offsets", dataclasses.replace(dplan, tile_off=zeros)))
+    for s in range(n_spec):
+        out.append(("shards", fused_xsect.shard_plan(
+            dplan, starts=dplan.starts[s * nt:(s + 1) * nt],
+            counts=dplan.counts[s * nt:(s + 1) * nt],
+            k_offset=torch.full((nt,), s * nt * dplan.tile,
+                                dtype=torch.int32, device=dev),
+            n_tiles=nt, n_out=nt * dplan.tile)))
+    return out
+
+
+def sharded_section(cs, record, store, iso, base, b64, dev):
+    """K1 (the production member's passes), K3 (the Jacobian's one-hot
+    batch) and K4 (phase 9d's one-hot batch) on plans of a grid padded for
+    2 spectral shards: unsharded, with zero offsets, and as the two shards
+    with their offsets (their milliseconds summed under one key)."""
+    import torch
+
+    from radtxfr_tpu_torch.core.grid import arange_drift_free
+    from radtxfr_tpu_torch.kernels import fused_xsect
+    from radtxfr_tpu_torch.kernels.fused_xsect import UniformGrid
+    from radtxfr_tpu_torch.kernels.linemixing_data import y_air_for_store
+    from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
+    from radtxfr_tpu_torch.products.od import make_od_fn
+
+    def padded(band):
+        # make_od_local_fn's alignment for 2 shards: max(2 tile, tile,
+        # 512) x 2 points at the default tile of 512
+        g = UniformGrid.from_axis(arange_drift_free(*band))
+        return UniformGrid(g.x0, g.dx, -(-g.n // 2048) * 2048)
+
+    T, p, pl, vmr = base.T, base.p, base.pl, base.vmr
+    g = padded(cs.FULL_BAND)
+    od_fn = make_od_fn(store, iso, g, base, continuum="mt_ckd",
+                       line_mixing={"y_air": y_air_for_store(
+                           store.host_view())},
+                       group_ratio=1.6, far_method="classic")
+    prm, Y = od_fn.line_params(T, p, pl, vmr)
+    for lay, dplan, mode in od_fn.calls:
+        for label, plan in shard_variants(dplan):
+            record(f"K1 sharded {mode} {label}", lambda c=(lay, plan, mode):
+                   od_fn.run_call(c, prm, Y), card=True)
+    del od_fn, prm, Y
+    jac = make_od_fn(store, iso, g, base, continuum="mt_ckd",
+                     differentiable=True, group_ratio=1.6,
+                     far_method="classic")
+    jprm = jac.line_params(T, p, pl, vmr)[0]
+    tans = [t.contiguous() for t in cs.t_tangents(jac, base,
+                                                   cs.one_hot_batch(dev))]
+    for lay, dplan, _ in jac.calls:
+        for label, plan in shard_variants(dplan):
+            args = (plan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
+                    jprm.gamma_0, jprm.wing)
+            record(f"K3 sharded one-hot {label}", lambda args=args:
+                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI),
+                   card=True)
+    del jac, jprm, tans
+    sd_store = synthetic_lines(cs.HT_LINES["n_lines"],
+                               nu_min=cs.HT_LINES["nu_min"],
+                               nu_max=cs.HT_LINES["nu_max"], seed=0,
+                               device=dev)
+    sfn = make_od_fn(sd_store, iso, padded(cs.HT_BAND), b64,
+                     profile="sdvoigt", differentiable=True, group_ratio=1.6)
+
+    def sd_prm(T_):
+        q = sfn.line_params(T_, b64.p, b64.pl, b64.vmr)[0]
+        return q.shift0, q.strength, q.gamma_d, q.gamma_0, q.gamma_2
+
+    sprm = sfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)[0]
+    stans = [t.contiguous() for t in torch.func.vmap(
+        lambda v: torch.func.jvp(sd_prm, (b64.T,), (v,))[1])(
+            cs.one_hot_batch(dev))]
+    for lay, dplan, mode in sfn.calls:
+        if mode == "sdvoigt":
+            for label, plan in shard_variants(dplan):
+                record(f"K4 sharded one-hot {label}",
+                       lambda c=(lay, plan, mode): cs.ht_tangent(c, sprm,
+                                                                 stans),
+                       card=True)
+
+
 # the sections ``--only`` takes: the names ``child`` asks ``want`` about
 SECTIONS = tuple(dict.fromkeys(re.findall(r'want\("(\w+)"\)',
                                           inspect.getsource(child))))
@@ -451,9 +562,12 @@ def main(argv=None):
               f"{fmt(per['other'])} -> {fmt(per['this'])}) [{card}]",
               flush=True)
     for key in runs["this"][0]["passes"]:
+        # a pass the other checkout does not have has no bit-identity
+        # to report: None, printed "n/a (this side only)"
         shas = [r["passes"].get(key, {}).get("sha") for r in
                 runs["other"] + runs["this"]]
-        same = all(s == shas[0] for s in shas)
+        same = (None if None in shas
+                else all(s == shas[0] for s in shas))
         o = mean(r["passes"].get(key, {}).get("ms") for r in runs["other"])
         t = mean(r["passes"][key]["ms"] for r in runs["this"])
         n = runs["this"][0]["passes"][key]["passes"]
@@ -466,7 +580,9 @@ def main(argv=None):
             res["passes"][key].update(other_card=oc, this_card=tc)
             on_card = f" (on the card {fmt([oc])} -> {fmt([tc])})"
         print(f"[ab] {key} ({n} passes): {fmt([o])} -> {fmt([t])} ms"
-              f"{on_card}, bit-identical {same} [{card}]", flush=True)
+              f"{on_card}, bit-identical "
+              f"{'n/a (this side only)' if same is None else same} "
+              f"[{card}]", flush=True)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

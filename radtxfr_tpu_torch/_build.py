@@ -10,7 +10,8 @@ writes each kernel's registers, shared memory and spills into a log beside
 the library (:func:`build_log`). Nothing here runs at import. A missing
 ``nvcc`` or a failed build raises: no kernel falls back to anything else.
 :func:`check_tensor` is the argument check the kernel wrappers run before
-they pass raw pointers.
+they pass raw pointers, and :func:`launch_stream` the stream they launch
+on, the current one of the tensors' device, which must be current.
 """
 
 from __future__ import annotations
@@ -42,13 +43,13 @@ F = ctypes.c_float
 
 #: argument types of every C entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
-    # mode, R, starts, counts, k_line, frac0, line, wcap, lay_idx,
-    # n_lay_call, shift0, strength, gamma_d, gamma_0, wing, ymix, gamma_2,
-    # n_lines, wei, n_wei, tile, block, n_tiles, max_blocks, n_out, dx, out,
-    # stream
-    "radtxfr_fused_xsect": [I, I, P, P, P, P, P, P, P, I, P, P, P, P, P, P,
-                            P, I, P, I, I, I, I, I, I, ctypes.c_double, P,
-                            P],
+    # mode, R, starts, counts, k_line, frac0, line, wcap, tile_off (the
+    # tiles' int32 grid offsets, or None), lay_idx, n_lay_call, shift0,
+    # strength, gamma_d, gamma_0, wing, ymix, gamma_2, n_lines, wei, n_wei,
+    # tile, block, n_tiles, max_blocks, n_out, dx, out, stream
+    "radtxfr_fused_xsect": [I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+                            P, P, I, P, I, I, I, I, I, I, ctypes.c_double,
+                            P, P],
     # mode, starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay,
     # shift0, strength, gamma_d, gamma_0, wing, n_lines, wei, n_wei, tile,
     # block, n_tiles, n_out, dx, out, stream
@@ -56,31 +57,32 @@ _SIGNATURES = {
                               P, I, I, I, I, I, ctypes.c_double, P, P],
     # op, n_chains, depth, y0, a, b, iters, n, out, stream
     "radtxfr_fp32_probe": [I, I, I, P, F, F, I, I, P, P],
-    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # live ((n_dir, n_lay) int32), shift0, strength, gamma_d, gamma_0, wing,
-    # shift0_t, strength_t, gamma_d_t, gamma_0_t, n_dir, n_lay, n_lines,
-    # wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream
-    "radtxfr_fused_xsect_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
-                                P, P, P, I, I, I, P, I, I, I, I, I,
+    # starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
+    # n_lay_call, live ((n_dir, n_lay) int32), shift0, strength, gamma_d,
+    # gamma_0, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t, n_dir,
+    # n_lay, n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx, out,
+    # stream
+    "radtxfr_fused_xsect_jvp": [P, P, P, P, P, P, P, P, I, P, P, P, P, P, P,
+                                P, P, P, P, I, I, I, P, I, I, I, I, I,
                                 ctypes.c_double, P, P],
-    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # live ((n_dir, n_lay) int32), shift0, strength, gamma_d, gamma_0,
-    # gamma_2, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t, gamma_2_t,
-    # n_dir, n_lay, n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx,
-    # out, stream
-    "radtxfr_fused_sdvoigt_jvp": [P, P, P, P, P, P, P, I, P, P, P, P, P, P,
-                                  P, P, P, P, P, P, I, I, I, P, I, I, I, I,
-                                  I, ctypes.c_double, P, P],
-    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # strength, wing, the 11 HT constants, n_lay, n_lines, wei, n_wei, tile,
-    # block, n_tiles, n_out, dx, out, stream
-    "radtxfr_fused_ht": [P] * 7 + [I] + [P] * 13 + [I, I, P, I, I, I, I, I,
-                                                    ctypes.c_double, P, P],
-    # starts, counts, k_line, frac0, line, wcap, lay_idx, n_lay_call,
-    # live ((n_dir, n_lay) int32), strength, wing, the 11 HT constants,
-    # strength_t, the 11 constants' tangents, n_dir, n_lay, n_lines, wei,
+    # starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
+    # n_lay_call, live ((n_dir, n_lay) int32), shift0, strength, gamma_d,
+    # gamma_0, gamma_2, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t,
+    # gamma_2_t, n_dir, n_lay, n_lines, wei, n_wei, tile, block, n_tiles,
+    # n_out, dx, out, stream
+    "radtxfr_fused_sdvoigt_jvp": [P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+                                  P, P, P, P, P, P, P, I, I, I, P, I, I, I,
+                                  I, I, ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
+    # n_lay_call, strength, wing, the 11 HT constants, n_lay, n_lines, wei,
     # n_wei, tile, block, n_tiles, n_out, dx, out, stream
-    "radtxfr_fused_ht_jvp": [P] * 7 + [I] + [P] * 26 + [I, I, I, P, I, I, I,
+    "radtxfr_fused_ht": [P] * 8 + [I] + [P] * 13 + [I, I, P, I, I, I, I, I,
+                                                    ctypes.c_double, P, P],
+    # starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
+    # n_lay_call, live ((n_dir, n_lay) int32), strength, wing, the 11 HT
+    # constants, strength_t, the 11 constants' tangents, n_dir, n_lay,
+    # n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream
+    "radtxfr_fused_ht_jvp": [P] * 8 + [I] + [P] * 26 + [I, I, I, P, I, I, I,
                                                         I, I, ctypes.c_double,
                                                         P, P],
     # od, src (x or B), inv_t, planck, n_lay, n_x, mus, n_mu, snap, n_zs,
@@ -206,6 +208,20 @@ def check_tensor(name, t, dtype, device, shape=None):
     if shape is not None and tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
+
+
+def launch_stream(device) -> int:
+    """The handle of the current stream of ``device``, the CUDA device the
+    kernel's tensors lie on, for a launch; raises unless ``device`` is the
+    current device (a launch goes to the current device, so its pointers
+    would belong to another one: run a mesh shard's work under
+    ``torch.cuda.device(device)``)."""
+    cur = torch.cuda.current_device()
+    if device.index != cur:
+        raise ValueError(f"the kernel's tensors are on {device} but the "
+                         f"current device is cuda:{cur}; launch under "
+                         f"torch.cuda.device({device})")
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def tool(name: str) -> str:

@@ -374,7 +374,8 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     (None: the card) in ``dtype``; the returned
     ``fn(T, p_pa, pl_km, vmr, cf) -> (nLay, nX)``
     does one exp per (layer, point) for the H2O temperature law plus
-    broadcast algebra. The formulas of
+    broadcast algebra; ``fn(..., k=idx)`` evaluates only the points ``idx``
+    (int64 indices into ``nu``: a spectral shard's). The formulas of
     ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``, each written once
     with the pointwise models (the OD helpers ``_self_foreign_od``,
     ``_co2_od``, ``_cia_od``, ``_rayleigh_od`` and the coefficients of
@@ -401,21 +402,24 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     sigmaj, abs_nuj = row(_rayleigh_sigma(nu_h)), row(np.abs(nu_h))
     d_o2j, core_o2j = row(d_o2), row(core_o2)
 
-    def fn(T, p_pa, pl_km, vmr, cf):
+    def fn(T, p_pa, pl_km, vmr, cf, k=None):
+        def sel(a):
+            return a if k is None else a[..., k]
+
         Tc, pc, plc = T[:, None], p_pa[:, None], pl_km[:, None]
         out = 0.0
         x = _mol_x(vmr, mol_ids, 1)
         if x is not None:
-            cs = torch.exp(L296j + (296.0 - Tc) / 36.0 * dLj)
-            out = out + _self_foreign_od(cs, cforj, x, Tc, pc, plc, cf)
+            cs = torch.exp(sel(L296j) + (296.0 - Tc) / 36.0 * sel(dLj))
+            out = out + _self_foreign_od(cs, sel(cforj), x, Tc, pc, plc, cf)
         x = _mol_x(vmr, mol_ids, 2)
         if x is not None:
-            out = out + _co2_od(_co2_rows(T, t_tabj, ctabj), x, Tc, pc, plc,
-                                cf)
-        out = out + _cia_od(cia_n2_rototranslational(abs_nuj, Tc),
-                            cia_o2_band(d_o2j, core_o2j, Tc), Tc, pc, vmr,
-                            mol_ids, plc, cf)
-        return out + _rayleigh_od(sigmaj, Tc, pc, plc, cf)
+            out = out + _co2_od(_co2_rows(T, t_tabj, sel(ctabj)), x, Tc, pc,
+                                plc, cf)
+        out = out + _cia_od(cia_n2_rototranslational(sel(abs_nuj), Tc),
+                            cia_o2_band(sel(d_o2j), sel(core_o2j), Tc), Tc,
+                            pc, vmr, mol_ids, plc, cf)
+        return out + _rayleigh_od(sel(sigmaj), Tc, pc, plc, cf)
 
     return fn
 

@@ -1,5 +1,5 @@
 """Command-line entry point of the port (counterpart of
-``radtxfr_tpu/cli/main.py``; every command, single device).
+``radtxfr_tpu/cli/main.py``; every command).
 
     python -m radtxfr_tpu_torch.cli.main xsect --synthetic 30000 \\
         --numin 400 --numax 7100 --dv 0.0025 --profile sdvoigt \\
@@ -9,6 +9,7 @@
         --continuum mt_ckd --numin 690 --numax 1410 --dv 0.0005 \\
         --n-atmos N --batch B [--checkpoint DIR] \\
         [--jacobian [--jacobian-wrt T,1,3]] [--engine auto|pallas|jnp] \\
+        [--mesh-spectrum S --mesh-ensemble E [--partition equal]] \\
         [--device cuda] [--output tud.h5]
 
 ``xsect`` is configuration 2 of the reference (``RT_gen_AbsXS_files.py``):
@@ -47,8 +48,17 @@ Line data: ``--par FILE`` (a HITRAN ``.par`` file, the native parser),
 deterministic synthetic list; 20,000 lines when none is given, as in the
 JAX CLI).
 
-``--mesh-*`` (multi-GPU runs, ROADMAP M15) raises ``NotImplementedError``;
-``tud --partition`` is accepted and matters only there.
+``tud --mesh-spectrum S --mesh-ensemble E`` runs the sharded production
+path of the JAX CLI: an (E x S) mesh of the visible cards
+(:func:`~..dist.mesh.make_mesh`; too few raise), the members of a batch
+(``--batch`` a multiple of E) split over the ensemble axis and the padded
+grid over the spectrum axis with ``--partition`` ('weighted': tiles dealt
+by op-weighted work; 'equal': contiguous slices), through
+:func:`~..dist.fused_ensemble.make_tud_ensemble_fn` (the kernels, whatever
+``--engine`` says), with ``--checkpoint`` and ``--jacobian``
+(:func:`~..dist.fused_ensemble.make_tud_jacobian_fn`: directions over the
+ensemble axis) as above. ``run_tud(..., mesh=...)`` takes a mesh of its
+own, e.g. a virtual one that lists one card several times.
 
 The scene and sensor commands turn ``tud``'s products into the reference's
 downstream data (``SURVEY.md`` §1, layers L2-L4), with the JAX CLI's flags,
@@ -237,7 +247,38 @@ def ensemble_member(base, draws, i: int):
     return T, vmr
 
 
-def run_tud(args, device, timings: dict | None = None):
+def _reducer(X, dv_out, device):
+    """``(x_lo, reduce, op)``: the reduced axis, ``reduce(a)`` of an (nX,
+    ...) tensor on ``device`` and the banded operator ``op`` where it
+    applies (the default axis is interior; it refuses when there is nothing
+    to reduce, under 3 fine steps: ``op`` None and ``reduce`` by
+    ``reduce_resolution``)."""
+    from ..sensor.resolution import reduce_operator, reduce_resolution
+
+    try:
+        op = reduce_operator(X, dv_out, device=device)
+        return op.x_out, op, op
+    except ValueError:
+        x_lo = reduce_resolution(X, torch.as_tensor(X, device=device),
+                                 dv_out)[0]
+        return x_lo, (lambda a: reduce_resolution(X, a, dv_out,
+                                                  X_out=x_lo)), None
+
+
+def _run_batches(args, compute_batch):
+    """The ensemble in batches of ``--batch``: through the checkpoint
+    directory (only the pending batches computed) or all in memory."""
+    from ..dist.checkpoint import EnsembleCheckpoint, run_batched
+
+    if args.checkpoint:
+        ckpt = EnsembleCheckpoint(args.checkpoint, args.n_atmos, args.batch)
+        return run_batched(ckpt, compute_batch)
+    parts = [compute_batch(range(lo, min(lo + args.batch, args.n_atmos)))
+             for lo in range(0, args.n_atmos, args.batch)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def run_tud(args, device, timings: dict | None = None, mesh=None):
     """The ``tud`` production path on ``device``.
 
     Returns ``(x_lo, {"tau", "Lu", "Ld"})``: the reduced axis (n_out,) and
@@ -251,16 +292,23 @@ def run_tud(args, device, timings: dict | None = None):
     seconds of each batch computed) and, with ``--jacobian``,
     ``jacobian_s``. With ``--checkpoint`` only the pending batches are
     computed and the products are gathered from the batch files.
+
+    ``--mesh-*`` runs the sharded path on ``mesh`` (None: an (E x S) mesh
+    of the visible cards; a mesh given must have the flags' shape), its
+    products joined on ``device``.
     """
     from ..atmos.profile import std_atmosphere
     from ..core.grid import arange_drift_free
-    from ..dist.checkpoint import EnsembleCheckpoint, run_batched
+    from ..dist.mesh import ENSEMBLE, SPECTRUM, make_mesh
     from ..kernels.linemixing_data import y_air_for_store
     from ..lines.store import IsoTables
-    from ..sensor.resolution import reduce_operator, reduce_resolution
 
-    if args.mesh_spectrum * args.mesh_ensemble > 1:
-        raise NotImplementedError("--mesh-*: multi-GPU runs are ROADMAP M15")
+    shape = {ENSEMBLE: args.mesh_ensemble, SPECTRUM: args.mesh_spectrum}
+    if mesh is None and args.mesh_spectrum * args.mesh_ensemble > 1:
+        mesh = make_mesh(args.mesh_ensemble, args.mesh_spectrum)
+    if mesh is not None and mesh.shape != shape:
+        raise ValueError(f"the mesh {mesh.shape} is not the --mesh-* "
+                         f"flags' {shape}")
     if args.batch < 1 or args.n_atmos < 1:
         raise ValueError("--batch and --n-atmos must be positive")
     device = resolve_device(device)
@@ -282,26 +330,30 @@ def run_tud(args, device, timings: dict | None = None):
         line_mixing = {"y_air": y} if n_mix else None
         print(f"line mixing: derived Rosenkranz y_air on {n_mix} CO2 "
               f"branch lines (Sum S*Y = 0 enforced by construction)")
-    member = _member_fn(args, store, iso, X, grid, base, line_mixing, device)
-    # the banded operator where it applies (the default axis is interior);
-    # it refuses when there is nothing to reduce (under 3 fine steps), and
-    # each member is then reduced by reduce_resolution
-    try:
-        op = reduce_operator(X, args.dv_out, device=device)
-        x_lo = op.x_out
-    except ValueError:
-        op = None
-        # the axis reduce_resolution gives every member (the values reduced
-        # here are discarded)
-        x_lo = reduce_resolution(X, grid, args.dv_out)[0]
+    if mesh is not None:
+        members, X_red, jac_fn = _mesh_members(args, store, iso, X, base,
+                                               draws, line_mixing, mesh,
+                                               device)
+    else:
+        member = _member_fn(args, store, iso, X, grid, base, line_mixing,
+                            device)
+        X_red = X
+
+        def members(indices):
+            return [member(*ensemble_member(base, draws, int(i)))
+                    for i in indices]
+
+        def jac_fn(op):
+            return _jacobian(args, store, iso, grid, base, op, line_mixing,
+                             device)
+    x_lo, reduce_one, op = _reducer(X_red, args.dv_out, device)
+    n = X.size
 
     def reduce(tau, Lu, Ld):
         # all sensor altitudes, as the reference stores them
         # (Generate_LWIR_TUD.py:96-132)
-        if op is not None:
-            return op(tau[:, :, 0]), op(Lu[:, :, 0]), op(Ld)
-        return tuple(reduce_resolution(X, a, args.dv_out, X_out=x_lo)
-                     for a in (tau[:, :, 0], Lu[:, :, 0], Ld))
+        return tuple(reduce_one(a[:n]) for a in (tau[:, :, 0], Lu[:, :, 0],
+                                                 Ld))
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -312,32 +364,115 @@ def run_tud(args, device, timings: dict | None = None):
     def compute_batch(indices):
         tc = time.perf_counter()
         parts = {"tau": [], "Lu": [], "Ld": []}
-        for i in indices:
-            red = reduce(*member(*ensemble_member(base, draws, int(i))))
-            for k, v in zip(parts, red):
+        for prod in members(indices):
+            for k, v in zip(parts, reduce(*prod)):
                 parts[k].append(v)
         out = {k: torch.stack(v).cpu().numpy() for k, v in parts.items()}
         chunk_s.append(time.perf_counter() - tc)
         return out
 
     t1 = time.perf_counter()
-    if args.checkpoint:
-        ckpt = EnsembleCheckpoint(args.checkpoint, args.n_atmos, args.batch)
-        out = run_batched(ckpt, compute_batch)
-    else:
-        parts = [compute_batch(range(lo, min(lo + args.batch, args.n_atmos)))
-                 for lo in range(0, args.n_atmos, args.batch)]
-        out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    out = _run_batches(args, compute_batch)
     if timings is not None:
         timings.update(build_s=build_s, members_s=time.perf_counter() - t1,
                        chunk_s=chunk_s)
     if args.jacobian:
         t2 = time.perf_counter()
-        out.update(_jacobian(args, store, iso, grid, base, op, line_mixing,
-                             device))
+        out.update(jac_fn(op))
         if timings is not None:
             timings["jacobian_s"] = time.perf_counter() - t2
     return x_lo, out
+
+
+def _mesh_members(args, store, iso, X, base, draws, line_mixing, mesh,
+                  device):
+    """The ``--mesh-*`` path's parts: ``members(indices)`` giving each
+    member's full-resolution (tau, Lu, Ld) on the padded grid (a batch of
+    ``--batch`` through the sharded builder, a short last batch padded
+    with its first member), the padded axis's first len(X) points (the
+    reduction's fine axis, as the JAX CLI's) and ``jac_fn(op)``, the
+    sharded Jacobian."""
+    from ..dist.ensemble import stack_states
+    from ..dist.fused_ensemble import make_tud_ensemble_fn
+    from ..dist.mesh import ENSEMBLE
+
+    n_ens = mesh.shape[ENSEMBLE]
+    if args.batch % n_ens:
+        raise SystemExit(f"--batch ({args.batch}) must be divisible by "
+                         f"--mesh-ensemble ({n_ens})")
+
+    def state(i):
+        T, vmr = ensemble_member(base, draws, int(i))
+        return dataclasses.replace(base, T=T, vmr=vmr)
+
+    probe = stack_states([state(i % args.n_atmos)
+                          for i in range(args.batch)])
+    gpad, run = make_tud_ensemble_fn(
+        store, iso, X, probe, args.altitudes, mesh, n_angles=args.n_angles,
+        continuum=args.continuum, line_mixing=line_mixing,
+        partition=args.partition)
+
+    def members(indices):
+        idx = [int(i) for i in indices]
+        keep = len(idx)
+        idx += [idx[0]] * (args.batch - keep)
+        tau, Lu, Ld = run(stack_states([state(i) for i in idx]))
+        return [(tau[k], Lu[k], Ld[k]) for k in range(keep)]
+
+    def jac_fn(op):
+        return _mesh_jacobian(args, store, iso, X, base, line_mixing, mesh,
+                              op)
+
+    return members, gpad.values()[:X.size], jac_fn
+
+
+def _mesh_jacobian(args, store, iso, X, base, line_mixing, mesh, op):
+    """The sharded ``--jacobian``: one-hot directions in batches of
+    ``max(E, 8 // E * E)`` over the ensemble axis, the padded grid over the
+    spectrum axis; each batch's tangents reduced by ``op`` before the next
+    (the JAX CLI's keys and shapes)."""
+    from ..dist.fused_ensemble import (jacobian_directions,
+                                       make_tud_jacobian_fn)
+    from ..dist.mesh import ENSEMBLE
+
+    if op is None:
+        raise ValueError("--mesh-* --jacobian reduces each direction batch "
+                         "by the banded operator, which needs --dv-out of "
+                         "at least 3 fine steps")
+    if line_mixing is not None:
+        print("jacobian: line-mixing tangents are not supported by the "
+              "differentiable kernels; the Jacobian runs without mixing")
+    n_ens = mesh.shape[ENSEMBLE]
+    _, run_j = make_tud_jacobian_fn(store, iso, X, base, args.altitudes,
+                                    mesh, n_angles=args.n_angles,
+                                    continuum=args.continuum,
+                                    partition=args.partition)
+    wrt = tuple(w if w == "T" else int(w)
+                for w in args.jacobian_wrt.split(","))
+    V_T, V_vmr, _ = jacobian_directions(base, wrt=wrt)
+    n, n_dirs = X.size, V_T.shape[0]
+    dbatch = max(n_ens, (8 // n_ens) * n_ens)
+    parts = []
+    for lo in range(0, n_dirs, dbatch):
+        idx = [min(i, n_dirs - 1) for i in range(lo, lo + dbatch)]
+        _, tan = run_j(base.T, base.vmr, V_T[idx], V_vmr[idx])
+        keep = min(dbatch, n_dirs - lo)
+        parts.append({k: torch.stack([op(a[d, :n]) for d in range(keep)])
+                      .cpu().numpy() for k, a in tan.items()})
+    tan_all = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    n_lay = int(base.T.numel())
+    names = {"T": "T", 1: "H2O", 3: "O3"}
+    out = {}
+    for vi, key in enumerate(wrt):
+        sl = slice(vi * n_lay, (vi + 1) * n_lay)
+        for prod in ("tau", "Lu", "Ld"):
+            a = tan_all[prod][sl]
+            a = a[..., 0] if a.ndim == 4 else a
+            out[f"d{prod}_d{names.get(key, str(key))}"] = np.moveaxis(a, 0,
+                                                                      -1)
+    print(f"jacobian: {n_dirs} sharded directions "
+          f"({sum(v.size for v in out.values())} elements)")
+    return out
 
 
 def _member_fn(args, store, iso, X, grid, base, line_mixing, device):
@@ -876,13 +1011,12 @@ def build_parser():
     p3.add_argument("--line-mixing", dest="line_mixing", action="store_true",
                     help="first-order Rosenkranz CO2 Q-branch line coupling")
     p3.add_argument("--mesh-spectrum", dest="mesh_spectrum", type=int,
-                    default=1, help="multi-GPU runs (ROADMAP M15; raises)")
+                    default=1, help="spectral shards of the device mesh")
     p3.add_argument("--mesh-ensemble", dest="mesh_ensemble", type=int,
-                    default=1, help="multi-GPU runs (ROADMAP M15; raises)")
+                    default=1, help="ensemble shards of the device mesh")
     p3.add_argument("--partition", default="weighted",
                     choices=["equal", "weighted"],
-                    help="spectral-shard assignment of the --mesh-* path "
-                         "(accepted; matters only with --mesh-*)")
+                    help="spectral-shard assignment of the --mesh-* path")
     p3.add_argument("--jacobian", action="store_true",
                     help="also write d(tau,Lu,Ld)/d(T,H2O,O3) for the "
                          "standard atmosphere (forward-mode autodiff; "

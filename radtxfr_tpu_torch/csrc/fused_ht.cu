@@ -704,13 +704,15 @@ fused_ht_kernel(const RowArgs<HtPtrs> args) {
 
 int launch(bool tan, const void* starts, const void* counts,
            const void* k_line, const void* frac0, const void* line,
-           const void* wcap, const void* lay_idx, int n_lay_call,
+           const void* wcap, const void* tile_off, const void* lay_idx,
+           int n_lay_call,
            const void* live, const HtPtrs& ptr, int n_dir, int n_lay,
            int n_lines, const void* wei, int n_wei, int tile, int block,
            int n_tiles, int n_out, double dx, void* out, void* stream) {
 #define RADTXFR_LAUNCH(TAN)                                                   \
   row_launch<HtRows<TAN>>(fused_ht_kernel<TAN>, starts, counts, k_line,       \
-                          frac0, line, wcap, lay_idx, n_lay_call, live, ptr,  \
+                          frac0, line, wcap, tile_off, lay_idx, n_lay_call,   \
+                          live, ptr,                                          \
                           n_dir, n_lay, n_lines, wei, n_wei, tile, block,     \
                           n_tiles, n_out, dx, out, stream)
   return tan ? RADTXFR_LAUNCH(true) : RADTXFR_LAUNCH(false);
@@ -724,7 +726,7 @@ int launch(bool tan, const void* starts, const void* counts,
 extern "C" int radtxfr_fused_ht(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* strength,
+    const void* tile_off, const void* lay_idx, int n_lay_call, const void* strength,
     const void* wing, const void* c0, const void* c1, const void* c2,
     const void* c3, const void* c4, const void* c5, const void* c6,
     const void* c7, const void* c8, const void* c9, const void* c10,
@@ -739,8 +741,8 @@ extern "C" int radtxfr_fused_ht(
        static_cast<const float*>(c8), static_cast<const float*>(c9),
        static_cast<const float*>(c10)},
       {}};
-  return launch(false, starts, counts, k_line, frac0, line, wcap, lay_idx,
-                n_lay_call, nullptr, ptr, 1, n_lay, n_lines, wei, n_wei, tile,
+  return launch(false, starts, counts, k_line, frac0, line, wcap, tile_off,
+                lay_idx, n_lay_call, nullptr, ptr, 1, n_lay, n_lines, wei, n_wei, tile,
                 block, n_tiles, n_out, dx, out, stream);
 }
 
@@ -751,7 +753,7 @@ extern "C" int radtxfr_fused_ht(
 extern "C" int radtxfr_fused_ht_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* live,
+    const void* tile_off, const void* lay_idx, int n_lay_call, const void* live,
     const void* strength, const void* wing, const void* c0, const void* c1,
     const void* c2, const void* c3, const void* c4, const void* c5,
     const void* c6, const void* c7, const void* c8, const void* c9,
@@ -775,7 +777,7 @@ extern "C" int radtxfr_fused_ht_jvp(
        static_cast<const float*>(t5), static_cast<const float*>(t6),
        static_cast<const float*>(t7), static_cast<const float*>(t8),
        static_cast<const float*>(t9), static_cast<const float*>(t10)}};
-  return launch(true, starts, counts, k_line, frac0, line, wcap, lay_idx,
-                n_lay_call, live, ptr, n_dir, n_lay, n_lines, wei, n_wei,
+  return launch(true, starts, counts, k_line, frac0, line, wcap, tile_off,
+                lay_idx, n_lay_call, live, ptr, n_dir, n_lay, n_lines, wei, n_wei,
                 tile, block, n_tiles, n_out, dx, out, stream);
 }

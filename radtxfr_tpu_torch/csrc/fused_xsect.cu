@@ -26,7 +26,11 @@
 //     out[l, i*tile + k] = sum over the tile's packed line slots of
 //                          mask(u) * f_mode(u)        (corr: - interp(k)),
 //     u = (k_grid - k_line) - frac0   (int32 difference, then float),
-// with hapi's window mask -wingu < u <= wingu. The correction passes mask by
+//     k_grid = i*tile + k + tile_off[i]
+// (tile_off: the tiles' global grid offsets of a spectrum-sharded call,
+// pallas_xsect.py's scalar-prefetch off_ref; nullptr is zero; the output is
+// addressed by the local index i*tile + k and bounded by n_out), with
+// hapi's window mask -wingu < u <= wingu. The correction passes mask by
 // the TRUE window (wing / dx, no wing cap): their plans place lines only
 // near their centres and at their window edges.
 //
@@ -506,7 +510,7 @@ __host__ __device__ constexpr int k1_min_ctas() {
   return is_corr(MODE) ? 13 : is_sd(MODE) ? 18 : MODE == CORE ? 18 : 16;
 }
 
-template <int MODE, bool SPLIT>
+template <int MODE, bool SPLIT, bool OFF>
 __global__ void __launch_bounds__(THREADS, k1_min_ctas<MODE>())
 fused_xsect_kernel(const int* __restrict__ starts,
                    const int* __restrict__ counts,
@@ -514,6 +518,7 @@ fused_xsect_kernel(const int* __restrict__ starts,
                    const float* __restrict__ frac0,
                    const int* __restrict__ line,
                    const float* __restrict__ wcap,
+                   const int* __restrict__ tile_off,
                    const int* __restrict__ lay_idx, int n_lay_call,
                    const float* __restrict__ shift0,
                    const float* __restrict__ strength,
@@ -556,6 +561,14 @@ fused_xsect_kernel(const int* __restrict__ starts,
   // a slice past the grid's end (the last tile of a short grid) has no
   // output: the whole CTA leaves
   if (t0 + sub * SPAN >= n_out) return;
+  // the tile's grid offset (OFF: tile_off given): its points' global
+  // grid indices are their local ones (t0 + k, which address the output)
+  // plus goff. A staged k_line is shifted by -goff, so every window, node
+  // and point below works in local indices and u = (k_local + goff) -
+  // k_line - frac0 is the same int32 difference as with global indices.
+  // Without offsets the kernel is instantiated apart (OFF false: goff is
+  // the constant 0), so an unsharded launch runs the code it ran before
+  const int goff = OFF ? tile_off[tile_i] : 0;
 
   if (MODE != ASYM) {
     for (int i = tid; i <= n_wei; i += THREADS) s_wei[i] = wei_g[i];
@@ -684,7 +697,7 @@ fused_xsect_kernel(const int* __restrict__ starts,
         int kl = 0;
         float f0 = 0.0f;
         if (l < nl && j < nc && sm.line[r][j] >= 0) {
-          kl = sm.k[r][j];
+          kl = sm.k[r][j] - goff;
           f0 = sm.f[r][j];
           const float wg = sm.raw[4][l][j];
           const float wv = CORR ? wg : fminf(wg, sm.cap[r][j]);
@@ -1201,7 +1214,8 @@ extern "C" int radtxfr_unfused_xsect(
 extern "C" int radtxfr_fused_xsect(
     int mode, int R, const void* starts, const void* counts,
     const void* k_line, const void* frac0, const void* line,
-    const void* wcap, const void* lay_idx, int n_lay_call,
+    const void* wcap, const void* tile_off, const void* lay_idx,
+    int n_lay_call,
     const void* shift0, const void* strength, const void* gamma_d,
     const void* gamma_0, const void* wing, const void* ymix,
     const void* gamma_2, int n_lines, const void* wei, int n_wei, int tile,
@@ -1223,21 +1237,33 @@ extern "C" int radtxfr_fused_xsect(
   // the correction passes' node buffer
   const size_t nv_bytes =
       is_corr(mode) ? sizeof(float) * LC * KCH * (SPAN / R + 3) : 0;
-#define RADTXFR_LAUNCH_SPLIT(M, SPLIT)                                       \
-  fused_xsect_kernel<M, SPLIT><<<grid, THREADS, nv_bytes, s>>>(              \
+#define RADTXFR_LAUNCH_K(M, SPLIT, OFF)                                      \
+  fused_xsect_kernel<M, SPLIT, OFF><<<grid, THREADS, nv_bytes, s>>>(         \
       static_cast<const int*>(starts), static_cast<const int*>(counts),      \
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
       static_cast<const int*>(line), static_cast<const float*>(wcap),        \
-      static_cast<const int*>(lay_idx), n_lay_call,                          \
+      static_cast<const int*>(tile_off), static_cast<const int*>(lay_idx),   \
+      n_lay_call,                                                            \
       static_cast<const float*>(shift0), static_cast<const float*>(strength), \
       static_cast<const float*>(gamma_d), static_cast<const float*>(gamma_0), \
       static_cast<const float*>(wing), static_cast<const float*>(ymix),      \
       static_cast<const float*>(gamma_2), n_lines,                           \
       static_cast<const float*>(wei), n_wei, R, tile, block, sub_per_tile,   \
       n_out, dxf, static_cast<float*>(out))
+#define RADTXFR_LAUNCH_SPLIT(M, SPLIT)                                       \
+  do {                                                                       \
+    if (tile_off != nullptr)                                                 \
+      RADTXFR_LAUNCH_K(M, SPLIT, true);                                      \
+    else                                                                     \
+      RADTXFR_LAUNCH_K(M, SPLIT, false);                                     \
+  } while (0)
 #define RADTXFR_LAUNCH(M)                                                    \
-  if (split) RADTXFR_LAUNCH_SPLIT(M, true);                                  \
-  else RADTXFR_LAUNCH_SPLIT(M, false)
+  do {                                                                       \
+    if (split)                                                               \
+      RADTXFR_LAUNCH_SPLIT(M, true);                                         \
+    else                                                                     \
+      RADTXFR_LAUNCH_SPLIT(M, false);                                        \
+  } while (0)
   switch (mode) {
     case ASYM: RADTXFR_LAUNCH(ASYM); break;
     case CORE: RADTXFR_LAUNCH(CORE); break;
@@ -1257,5 +1283,6 @@ extern "C" int radtxfr_fused_xsect(
   }
 #undef RADTXFR_LAUNCH
 #undef RADTXFR_LAUNCH_SPLIT
+#undef RADTXFR_LAUNCH_K
   return static_cast<int>(cudaGetLastError());
 }

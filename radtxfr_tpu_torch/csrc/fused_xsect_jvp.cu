@@ -11,6 +11,8 @@
 // For each nu-tile i, layer l and direction d it computes
 //     tan[d, l, i*tile + k] = sum over the tile's packed line slots of
 //         mask(u) * (cs_d K - cgd_d (K + x Kx + y Ky) + cg0_d Ky - cds_d Kx)
+// with u as in K1, at the global grid index i*tile + k + tile_off[i]
+// (fused_xsect.cu; K4 likewise, through row_skeleton),
 // with x = (u - ds) dx cte, y = gamma_0 cte, cte = sqrt(ln2)/gamma_d,
 // A = cte/sqrt(pi), sA = strength A and the per-(line, layer, direction)
 // coefficients
@@ -195,6 +197,7 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
                        const float* __restrict__ frac0,
                        const int* __restrict__ line,
                        const float* __restrict__ wcap,
+                       const int* __restrict__ tile_off,
                        const int* __restrict__ lay_idx, int n_lay_call,
                        const int* __restrict__ live,
                        const float* __restrict__ shift0,
@@ -232,6 +235,8 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
   const int nr = min(NL, n_rows - r0);
   const int t0 = tile_i * tile;
   if (t0 + sub * K3_SPAN >= n_out) return;
+  // the tile's grid offset (K1's convention: staged k_line shifted by it)
+  const int goff = tile_off != nullptr ? tile_off[tile_i] : 0;
 
   const int kloc0 = sub * K3_SPAN;
   const int last = min(kloc0 + K3_SPAN, tile) - 1;
@@ -361,7 +366,7 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
           int kl = 0;
           float f0 = 0.0f;
           if (row_live[t] && j < nc && sm.line[r][j] >= 0) {
-            kl = sm.k[r][j];
+            kl = sm.k[r][j] - goff;
             f0 = sm.f[r][j];
             // the per-(line, layer) constants and coefficients
             const float gd = sm.raw[2][i][j];
@@ -757,7 +762,8 @@ fused_sdvoigt_jvp_kernel(const RowArgs<SdPtrs> args) {
 extern "C" int radtxfr_fused_xsect_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* live,
+    const void* tile_off, const void* lay_idx, int n_lay_call,
+    const void* live,
     const void* shift0, const void* strength, const void* gamma_d,
     const void* gamma_0, const void* wing, const void* shift0_t,
     const void* strength_t, const void* gamma_d_t, const void* gamma_0_t,
@@ -777,8 +783,9 @@ extern "C" int radtxfr_fused_xsect_jvp(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),
       static_cast<const int*>(line), static_cast<const float*>(wcap),
-      static_cast<const int*>(lay_idx), n_lay_call,
-      static_cast<const int*>(live), static_cast<const float*>(shift0),
+      static_cast<const int*>(tile_off), static_cast<const int*>(lay_idx),
+      n_lay_call, static_cast<const int*>(live),
+      static_cast<const float*>(shift0),
       static_cast<const float*>(strength), static_cast<const float*>(gamma_d),
       static_cast<const float*>(gamma_0), static_cast<const float*>(wing),
       static_cast<const float*>(shift0_t),
@@ -796,7 +803,8 @@ extern "C" int radtxfr_fused_xsect_jvp(
 extern "C" int radtxfr_fused_sdvoigt_jvp(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
-    const void* lay_idx, int n_lay_call, const void* live,
+    const void* tile_off, const void* lay_idx, int n_lay_call,
+    const void* live,
     const void* shift0, const void* strength, const void* gamma_d,
     const void* gamma_0, const void* gamma_2, const void* wing,
     const void* shift0_t, const void* strength_t, const void* gamma_d_t,
@@ -813,7 +821,8 @@ extern "C" int radtxfr_fused_sdvoigt_jvp(
        static_cast<const float*>(gamma_0_t),
        static_cast<const float*>(gamma_2_t)}};
   return row_launch<SdRows>(fused_sdvoigt_jvp_kernel, starts, counts, k_line,
-                            frac0, line, wcap, lay_idx, n_lay_call, live, ptr,
+                            frac0, line, wcap, tile_off, lay_idx, n_lay_call,
+                            live, ptr,
                             n_dir, n_lay, n_lines, wei, n_wei, tile, block,
                             n_tiles, n_out, dx, out, stream);
 }

@@ -80,7 +80,9 @@ __device__ __forceinline__ void put(float (&a)[N], int i, float v) {
 // ---- the row skeleton of K4, K5 and K6 ---------------------------------------
 //
 // One CTA per (ROW_SPAN-point slice of a tile, ROW_LC output rows r = d *
-// n_lay_call + l: a direction's layer, or K5's layer), four warps, each
+// n_lay_call + l: a direction's layer, or K5's layer; a tile's points at
+// the global grid indices t0 + k + tile_off[tile], K1's convention), four
+// warps, each
 // owning one 32-point span of the slice and staging one row. A row whose
 // direction has no non-zero tangent on its layer (the (n_dir, n_lay) table
 // `live`) stages nothing; a CTA without a live row writes its zeros and
@@ -128,6 +130,7 @@ struct RowArgs {
   const float* frac0;
   const int* line;
   const float* wcap;
+  const int* tile_off;
   const int* lay_idx;
   int n_lay_call;
   const int* live;
@@ -173,6 +176,11 @@ __device__ __forceinline__ void row_skeleton(
   const int kloc0 = sub * ROW_SPAN;
   // a slice past the grid's end has no output: the whole CTA leaves
   if (t0 + kloc0 >= A.n_out) return;
+  // the tile's grid offset (nullptr: zero): staged k_line values are
+  // shifted by -goff, so the windows, the culling and u below work in the
+  // local indices that address the output, and u = (k_local + goff) -
+  // k_line - frac0 is the int32 difference of the global index
+  const int goff = A.tile_off != nullptr ? A.tile_off[tile_i] : 0;
   const int last = min(kloc0 + ROW_SPAN, A.tile) - 1;
   const int r_lo = t0 + kloc0;                 // the slice's grid indices
   const int r_hi = min(t0 + last, A.n_out - 1);
@@ -257,7 +265,7 @@ __device__ __forceinline__ void row_skeleton(
         int kl = 0;
         float f0 = 0.0f, wu = 0.0f;
         if (row_live && j < nc && sm.line[r][j] >= 0) {
-          kl = sm.k[r][j];
+          kl = sm.k[r][j] - goff;
           f0 = sm.f[r][j];
           wu = fminf(sm.raw[P::I_WING][i][j], sm.cap[r][j]) / A.dx;
           win = window_range(f0, wu);
@@ -324,7 +332,8 @@ template <class P>
 int row_launch(void (*kernel)(RowArgs<typename P::Ptrs>),
                const void* starts, const void* counts, const void* k_line,
                const void* frac0, const void* line, const void* wcap,
-               const void* lay_idx, int n_lay_call, const void* live,
+               const void* tile_off, const void* lay_idx, int n_lay_call,
+               const void* live,
                const typename P::Ptrs& ptr, int n_dir, int n_lay, int n_lines,
                const void* wei, int n_wei, int tile, int block, int n_tiles,
                int n_out, double dx, void* out, void* stream) {
@@ -341,7 +350,8 @@ int row_launch(void (*kernel)(RowArgs<typename P::Ptrs>),
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),
       static_cast<const int*>(line), static_cast<const float*>(wcap),
-      static_cast<const int*>(lay_idx), n_lay_call,
+      static_cast<const int*>(tile_off), static_cast<const int*>(lay_idx),
+      n_lay_call,
       static_cast<const int*>(live), ptr, n_dir, n_lay, n_lines,
       static_cast<const float*>(wei), n_wei, tile, block, sub_per_tile, n_out,
       static_cast<float>(dx), static_cast<float*>(out)};

@@ -12,7 +12,8 @@ shared storage cannot race on manifest state), and a restarted job
 recomputes only the missing batches. The JSON manifest holds only the
 immutable plan (sizes and meta) for restart validation. Host NumPy only:
 the files and the manifest are those of the JAX package, which reads a
-directory written here and the reverse.
+directory written here and the reverse. :func:`host_gather` joins the
+pieces of a ``torch.distributed`` group's processes on the host.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import uuid
 import numpy as np
 
 __all__ = ["EnsembleCheckpoint", "run_batched", "TiledCheckpoint",
-           "run_tiled"]
+           "run_tiled", "host_gather"]
 
 
 class EnsembleCheckpoint:
@@ -196,6 +197,27 @@ def run_tiled(ckpt: TiledCheckpoint, compute_tile, log=print,
             log(f"checkpoint: tile (batch {b + 1}/{ckpt.n_batches}, "
                 f"shard {s}) done")
     return None if ckpt.pending else ckpt.gather(shard_axes=shard_axes)
+
+
+def host_gather(arr):
+    """``arr`` as a host ndarray: a tensor held in one process as it is
+    (copied to the host), and, in a ``torch.distributed`` group of several
+    processes, every process's piece all-gathered and joined along the
+    leading axis, so each process receives the whole (the counterpart of
+    ``process_allgather(..., tiled=True)``; every process calls it with
+    pieces of one shape). The group is :func:`~.init.init_multihost`'s
+    gloo group, which carries host tensors."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.as_tensor(arr).detach()
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return t.cpu().numpy()
+    t = t.cpu().contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return torch.cat(parts).numpy()
 
 
 def run_batched(ckpt: EnsembleCheckpoint, compute_batch, log=print,

@@ -31,9 +31,9 @@ import torch
 
 from .. import _build
 from .faddeeva import weideman_coeffs
-from .fused_xsect import (_JVP_MAX_DIRS, LAUNCHES, DevicePlan, _check_call,
-                          _plain_steps, _tangent_launches, _weideman_table,
-                          diff_pass)
+from .fused_xsect import (_JVP_MAX_DIRS, DevicePlan, _check_call, _count,
+                          _off_ptr, _plain_steps, _tangent_launches,
+                          _weideman_table, diff_pass)
 from .htp_real import HT_CONST_KEYS, pcqsdhc_real
 
 __all__ = ["xsect_ht", "xsect_ht_plain", "xsect_ht_jvp",
@@ -196,15 +196,16 @@ def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
     err = _build.library().radtxfr_fused_ht(
         dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
-        dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-        n_lay_call, *(p.data_ptr() for p in params.values()), n_lay,
+        dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
+        lay_idx.data_ptr(), n_lay_call,
+        *(p.data_ptr() for p in params.values()), n_lay,
         n_lines, wei.data_ptr(), n_weideman, dplan.tile, dplan.block,
         dplan.n_tiles, dplan.n_out, dplan.dx, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.launch_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_ht kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES["ht"] += 1
+    _count("ht", dplan)
     return out
 
 

@@ -145,7 +145,7 @@ def tud_compose(od, x, inv_t, mus, snap, sec, w, return_od=False, B=None):
         n_lay, n_x, mus.data_ptr(), n_mu, snap.data_ptr(), n_zs,
         sec.data_ptr(), w.data_ptr(), n_a, int(bool(return_od)),
         tau.data_ptr(), lu.data_ptr(), ld.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.launch_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_tud kernel launch failed with CUDA error "
                            f"{err}")

@@ -68,6 +68,15 @@ a line centre is (k_grid - k_line) in int32, converted to float, minus the
 float32 fraction ``frac0`` of the centre's grid position, so dnu carries
 ~1e-7 relative error; padding slots park at ``k_line = -2**30`` and never
 pass the window mask.
+
+Spectral shards: a plan's tiles may carry global grid offsets
+(``DevicePlan.tile_off``, the kernels' ``off_ref``): tile i's point k lies
+at grid index i*tile + k + tile_off[i], which every window and node test
+uses, and is written at the local index i*tile + k. :func:`shard_plan`
+applies ``xsect_pallas``'s shard-local overrides (``starts``, ``counts``,
+``k_line``, ``frac0``, ``k_offset``, ``n_tiles``, ``n_out``), which K1's,
+K3's and K4's entry points, plain versions and differentiable passes also
+take as keywords; :data:`OFFSET_LAUNCHES` counts the launches with offsets.
 """
 
 from __future__ import annotations
@@ -90,7 +99,8 @@ __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
            "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
            "xsect_fused_diff", "xsect_sdvoigt_jvp", "xsect_sdvoigt_jvp_plain",
            "xsect_fused_sdvoigt_diff", "xsect_unfused", "xsect_unfused_plain",
-           "cubic_weights", "corr_r_supported", "LAUNCHES", "MODES",
+           "cubic_weights", "corr_r_supported", "shard_plan", "LAUNCHES",
+           "OFFSET_LAUNCHES", "MODES",
            "UNFUSED_MODES", "CORR_VARIANTS", "SD_MODES"]
 
 #: K1's modes other than the correction passes, in the CUDA switch's order
@@ -104,6 +114,9 @@ SD_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core")
 #: ("unfused_<mode>"), K3 ("jvp"), K4 ("sdvoigt_jvp"), and of K5 and K6
 #: ("ht", "ht_jvp", counted by :mod:`.fused_ht`); plain runs are not counted
 LAUNCHES = collections.Counter()
+#: the launches of :data:`LAUNCHES` whose plan carried tile offsets
+#: (``DevicePlan.tile_off``: a spectrum shard's tiles), under the same keys
+OFFSET_LAUNCHES = collections.Counter()
 
 _SQRT_LN2 = math.sqrt(math.log(2.0))
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
@@ -365,6 +378,80 @@ class DevicePlan:
     frac0: torch.Tensor    # (n_slots,) float32 (float64 for float64 runs)
     line: torch.Tensor     # (n_slots,) int32 global line index, -1 padding
     wcap: torch.Tensor     # (n_slots,) float32 per-slot wing cap [cm^-1]
+    #: (n_tiles,) int32 global grid offset of each tile (a tile's point k
+    #: lies at grid index i*tile + k + tile_off[i]; the output at the local
+    #: index i*tile + k); None is zero (``pallas_xsect.py``'s ``off_ref``)
+    tile_off: torch.Tensor | None = None
+
+
+def _offsets(k_offset, n_tiles: int, device):
+    """``k_offset`` (a scalar or one int per tile) as the (n_tiles,) int32
+    tile offsets on ``device``; None for a Python zero (the kernels' zero
+    offset, no tensor)."""
+    if isinstance(k_offset, (int, np.integer)):
+        if k_offset == 0:
+            return None
+        return torch.full((n_tiles,), int(k_offset), dtype=torch.int32,
+                          device=device)
+    t = torch.as_tensor(np.asarray(k_offset) if not isinstance(
+        k_offset, torch.Tensor) else k_offset)
+    t = t.to(device=device, dtype=torch.int32).reshape(-1)
+    if t.numel() == 1:
+        return t.expand(n_tiles).contiguous()
+    if t.numel() != n_tiles:
+        raise ValueError(f"k_offset has {t.numel()} entries for {n_tiles} "
+                         f"tiles")
+    return t.contiguous()
+
+
+def shard_plan(dplan: DevicePlan, starts=None, counts=None, k_line=None,
+               frac0=None, k_offset=None, n_tiles=None,
+               n_out=None) -> DevicePlan:
+    """``dplan`` with the shard-local overrides of ``xsect_pallas``
+    (``pallas_xsect.py:1740-1800``): the shard's ``starts``/``counts`` (one
+    per shard tile), its slots' ``k_line``/``frac0``, its tiles'
+    ``k_offset`` (a scalar for a contiguous shard or one global grid offset
+    per tile), ``n_tiles`` and ``n_out`` (the shard's points). Arrays go to
+    the plan's device without a host round trip; ``dplan`` itself when
+    nothing is overridden."""
+    if all(v is None for v in (starts, counts, k_line, frac0, k_offset,
+                               n_tiles, n_out)):
+        return dplan
+    dev = dplan.k_line.device
+    i32 = lambda a: torch.as_tensor(a).to(  # noqa: E731
+        device=dev, dtype=torch.int32).reshape(-1).contiguous()
+    nt = dplan.n_tiles if n_tiles is None else int(n_tiles)
+    kw = dict(n_tiles=nt)
+    if starts is not None:
+        kw["starts"] = i32(starts)
+    if counts is not None:
+        kw["counts"] = i32(counts)
+    if k_line is not None:
+        kw["k_line"] = i32(k_line)
+    if frac0 is not None:
+        kw["frac0"] = torch.as_tensor(frac0).to(
+            device=dev, dtype=dplan.frac0.dtype).reshape(-1).contiguous()
+    if n_out is not None:
+        kw["n_out"] = int(n_out)
+    if k_offset is not None:
+        kw["tile_off"] = _offsets(k_offset, nt, dev)
+    elif nt != dplan.n_tiles and dplan.tile_off is not None:
+        raise ValueError("n_tiles changes the tiles of a plan with offsets; "
+                         "pass their k_offset")
+    return dataclasses.replace(dplan, **kw)
+
+
+def _shardable(fn):
+    """``fn(dplan, ...)`` that also takes the shard-local overrides of
+    :func:`shard_plan` as keywords, applied to ``dplan`` first."""
+
+    @functools.wraps(fn)
+    def wrapped(dplan, *args, starts=None, counts=None, k_line=None,
+                frac0=None, k_offset=None, n_tiles=None, n_out=None, **kw):
+        return fn(shard_plan(dplan, starts, counts, k_line, frac0, k_offset,
+                             n_tiles, n_out), *args, **kw)
+
+    return wrapped
 
 
 def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
@@ -683,11 +770,19 @@ def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
     return c
 
 
+def _tile_start(dplan, t_i):
+    """(n_t,) int32 global grid index of the first point of tiles
+    ``t_i``: i*tile plus the tile's offset."""
+    k0 = t_i.to(torch.int32) * dplan.tile
+    return k0 if dplan.tile_off is None else k0 + dplan.tile_off[t_i]
+
+
 def _plain_steps(dplan, n_rows, dt):
     """The plain versions' walk over a plan: for each block position j, the
     tiles with more than j blocks, in chunks of about ``_PLAIN_MAX_ELEMS``
     (row, slot, point) elements; yields (tile indices, (n_t, block) slot
-    indices, (1, n_t, block, tile) u in grid units)."""
+    indices, (1, n_t, block, tile) u in grid units, at the tiles' global
+    grid indices)."""
     dev, tile, block = dplan.k_line.device, dplan.tile, dplan.block
     kk = torch.arange(tile, dtype=torch.int32, device=dev)
     bb = torch.arange(block, dtype=torch.int64, device=dev)
@@ -698,7 +793,7 @@ def _plain_steps(dplan, n_rows, dt):
         for lo in range(0, tiles.numel(), chunk):
             t_i = tiles[lo:lo + chunk]
             slots = (dplan.starts.long()[t_i] + j)[:, None] * block + bb
-            k_grid = (t_i.to(torch.int32)[:, None] * tile + kk)[:, None, :]
+            k_grid = (_tile_start(dplan, t_i)[:, None] + kk)[:, None, :]
             rel = (k_grid - dplan.k_line[slots][:, :, None]).to(dt)
             u = rel - dplan.frac0.to(dt)[slots][:, :, None]
             yield t_i, slots, u[None]
@@ -719,6 +814,7 @@ def cubic_weights(n, R, dt, dev):
                  (t * (t * t - 1.0) * (1.0 / 6.0)))
 
 
+@_shardable
 def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                       gamma_0, wing, ymix=None, mode: str = "asym",
                       n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
@@ -746,6 +842,7 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         if dplan.tile % R:
             raise ValueError(f"{mode}: the tile ({dplan.tile}) must be a "
                              f"multiple of R")
+        _check_corr_offsets(dplan, mode, R)
         sd = variant.startswith("sd")
         pt_kind = {"voigt": "asym", "voigtfull": "voigtfull",
                    "sdvoigt": "sdvoigt_asym",
@@ -762,7 +859,7 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
             val = _value(mode, u, s, a_w, L_w)
             out[:, t_i] += torch.where(win(u), val, 0.0).sum(dim=2)
             continue
-        k_nodes = (t_i.to(torch.int32)[:, None] * dplan.tile
+        k_nodes = (_tile_start(dplan, t_i)[:, None]
                    + nodes.to(torch.int32))[:, None, :]
         u_n = ((k_nodes - dplan.k_line[slots][:, :, None]).to(dt)
                - dplan.frac0.to(dt)[slots][:, :, None])[None]
@@ -774,6 +871,16 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     return out.reshape(nl, -1)[:, :dplan.n_out]
 
 
+def _check_corr_offsets(dplan, mode, R):
+    """A correction pass's node rows lie every R points from each tile's
+    global first point: raise unless every tile offset is a multiple of R
+    (so that they stay on the global coarse grid the far field lives on;
+    every builder's offsets are multiples of the tile)."""
+    if dplan.tile_off is not None and bool((dplan.tile_off % R).ne(0).any()):
+        raise ValueError(f"{mode}: tile offsets must be multiples of R "
+                         f"({R}), or the node rows leave the coarse grid")
+
+
 def _check_mode_args(mode, ymix, gamma_2):
     """Raise on an unknown mode or a mode's missing extra parameters."""
     parse_mode(mode)
@@ -783,6 +890,7 @@ def _check_mode_args(mode, ymix, gamma_2):
         raise ValueError(f"mode {mode!r} needs the SD widths gamma_2")
 
 
+@_shardable
 def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
                           gamma_d, gamma_0, wing, shift0_t, strength_t,
                           gamma_d_t, gamma_0_t,
@@ -831,6 +939,7 @@ def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
     return out.reshape(nd, nl, -1)[:, :, :dplan.n_out]
 
 
+@_shardable
 def xsect_sdvoigt_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
                             gamma_d, gamma_0, gamma_2, wing, shift0_t,
                             strength_t, gamma_d_t, gamma_0_t, gamma_2_t,
@@ -920,6 +1029,19 @@ def _weideman_table(n: int, device) -> torch.Tensor:
     return torch.tensor([L, *a], dtype=torch.float32, device=device)
 
 
+def _off_ptr(dplan: DevicePlan):
+    """The tile offsets' pointer for a launch (None: the kernels' zero)."""
+    return None if dplan.tile_off is None else dplan.tile_off.data_ptr()
+
+
+def _count(key: str, dplan: DevicePlan):
+    """Count a launch under ``key`` (and under ``OFFSET_LAUNCHES`` when
+    its tiles carry grid offsets)."""
+    LAUNCHES[key] += 1
+    if dplan.tile_off is not None:
+        OFFSET_LAUNCHES[key] += 1
+
+
 def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
     """Raise unless the arguments are what the kernels' raw pointers
     assume: float32 (nLay, L) parameters, int32 layer indices and a
@@ -938,6 +1060,9 @@ def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
         check_tensor(name, getattr(dplan, name), torch.int32, dev)
     for name in ("frac0", "wcap"):
         check_tensor(name, getattr(dplan, name), torch.float32, dev)
+    if dplan.tile_off is not None:
+        check_tensor("tile_off", dplan.tile_off, torch.int32, dev,
+                     (dplan.n_tiles,))
     n_slots = dplan.k_line.numel()
     if (dplan.starts.numel() != dplan.n_tiles
             or dplan.counts.numel() != dplan.n_tiles
@@ -951,6 +1076,7 @@ def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
         raise ValueError(f"n_weideman must be in [1, {_MAX_WEIDEMAN}]")
 
 
+@_shardable
 def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                 gamma_0, wing, ymix=None, mode: str = "asym",
                 n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
@@ -982,6 +1108,8 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         raise ValueError(f"{mode}: the CUDA correction pass needs an R that "
                          f"divides its {_SPAN}-point slice and the tile "
                          f"({dplan.tile}) and is at least {_CORR_MIN_R}")
+    if fam == "corr":
+        _check_corr_offsets(dplan, mode, R)
     dev = strength.device
     n_lay_call = lay_idx.numel()
     n_lines = strength.shape[1]
@@ -995,18 +1123,19 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     err = _build.library().radtxfr_fused_xsect(
         code, R, dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
-        dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-        n_lay_call, shift0.data_ptr(), strength.data_ptr(),
+        dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
+        lay_idx.data_ptr(), n_lay_call, shift0.data_ptr(),
+        strength.data_ptr(),
         gamma_d.data_ptr(), gamma_0.data_ptr(), wing.data_ptr(),
         params.get("ymix", strength).data_ptr(),
         params.get("gamma_2", strength).data_ptr(), n_lines,
         wei.data_ptr(), n_weideman, dplan.tile, dplan.block, dplan.n_tiles,
         dplan.max_blocks, dplan.n_out, dplan.dx, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.launch_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_xsect kernel ({mode}) launch failed with "
                            f"CUDA error {err}")
-    LAUNCHES[mode] += 1
+    _count(mode, dplan)
     return out
 
 
@@ -1040,20 +1169,21 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
         err = getattr(_build.library(), symbol)(
             dplan.starts.data_ptr(), dplan.counts.data_ptr(),
             dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
-            dplan.line.data_ptr(), dplan.wcap.data_ptr(), lay_idx.data_ptr(),
-            n_lay_call, live[d0].data_ptr(),
+            dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
+            lay_idx.data_ptr(), n_lay_call, live[d0].data_ptr(),
             *(p.data_ptr() for p in params.values()),
             *(t.data_ptr() + d0 * per_dir for t in tangents.values()),
             n, n_lay, n_lines, wei.data_ptr(), n_weideman, dplan.tile,
             dplan.block, dplan.n_tiles, dplan.n_out, dplan.dx,
-            out[d0].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out[d0].data_ptr(), _build.launch_stream(dev))
         if err != 0:
             raise RuntimeError(f"{symbol} kernel launch failed with CUDA "
                                f"error {err}")
-        LAUNCHES[key] += 1
+        _count(key, dplan)
     return out
 
 
+@_shardable
 def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                     gamma_0, wing, shift0_t, strength_t, gamma_d_t,
                     gamma_0_t, n_weideman: int = 16) -> torch.Tensor:
@@ -1092,6 +1222,7 @@ def live_directions(tangents, n_lay) -> torch.Tensor:
     return live.to(torch.int32)
 
 
+@_shardable
 def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                       gamma_0, gamma_2, wing, shift0_t, strength_t,
                       gamma_d_t, gamma_0_t, gamma_2_t,
@@ -1212,6 +1343,7 @@ _SDVOIGT = diff_pass(
     diff=(0, 1, 2, 3, 4))
 
 
+@_shardable
 def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                      gamma_0, wing, n_weideman: int = 16) -> torch.Tensor:
     """The ``full`` pass, differentiable in forward mode: K1 ``full`` for
@@ -1221,6 +1353,7 @@ def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                        gamma_0, wing)
 
 
+@_shardable
 def xsect_fused_sdvoigt_diff(dplan: DevicePlan, lay_idx, shift0, strength,
                              gamma_d, gamma_0, gamma_2, wing,
                              n_weideman: int = 16) -> torch.Tensor:
@@ -1328,7 +1461,7 @@ def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
             n_lines, _weideman_table(n_weideman, dev).data_ptr(),
             n_weideman, dplan.tile, dplan.block, dplan.n_tiles, dplan.n_out,
             dplan.dx, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _build.launch_stream(dev))
         if err != 0:
             raise RuntimeError(f"unfused_xsect kernel ({mode}) launch failed "
                                f"with CUDA error {err}")

@@ -31,6 +31,13 @@ builders'; each pass is one launch of the fused kernel K1
 ``torch.func.jvp`` tangents of the OD go through the tangent kernels K3 and
 K4.
 
+:func:`make_od_local_fn` (``make_od_pallas_local_fn`` there) is the
+spectrum-sharded builder: the same plans on a grid padded so that no tile
+straddles a shard, each shard running its slice of the tiles (contiguous,
+or dealt by op-weighted work) at their global grid offsets
+(:class:`LocalOpticalDepthFn`, :class:`ShardOD`); the sharded ensemble and
+Jacobian builders of :mod:`..dist.fused_ensemble` run it per mesh entry.
+
 The Hartmann-Tran builders :func:`make_ht_fn` (a (T, p) lattice,
 ``make_ht_pallas_fn``) and :func:`make_od_ht_fn` (a layered atmosphere,
 ``make_od_ht_pallas_fn``) resolve the HT columns with hapi's fallbacks and
@@ -66,7 +73,8 @@ from ..kernels.fused_ht import xsect_ht_diff, xsect_ht_plain
 from ..kernels.fused_xsect import (BucketPlan, UniformGrid,
                                    corr_r_supported, cubic_weights,
                                    device_plan, is_sd_mode, plan_buckets,
-                                   plan_buckets_packed, xsect_fused,
+                                   plan_buckets_packed, shard_plan,
+                                   xsect_fused,
                                    xsect_fused_diff, xsect_fused_sdvoigt_diff,
                                    xsect_unfused)
 from ..kernels.ht_driver import (_complex_of, ht_params,
@@ -78,7 +86,8 @@ from ..kernels.xsect import xsect_from_params
 
 __all__ = ["species_column", "compute_od_layer", "compute_od_layers",
            "layer_line_params", "max_wing_per_layer", "max_wing_bound",
-           "make_od_plan", "make_od_fn", "OpticalDepthFn", "make_xsect_fn",
+           "make_od_plan", "make_od_fn", "OpticalDepthFn", "make_od_local_fn",
+           "LocalOpticalDepthFn", "ShardOD", "shard_slice", "make_xsect_fn",
            "CrossSectionFn", "wing_bound_matrix", "core_wing_per_line",
            "core_y_matrix", "sdvoigt_core_bound", "group_by_wing",
            "group_layers_by_wing",
@@ -556,10 +565,15 @@ def _build_coarse_far_calls(lines_h, g, wing_abs, profile, coarse_r,
 
 
 def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
-                         dtype):
-    """Per-layer continuum-OD term fn(T, p_pa, pl, vmr) -> (nLay, nX), or
-    None for ``continuum='none'``: 'mt_ckd' through its layer-hoisted
-    evaluator, the other models of ``CONTINUUM_MODELS`` pointwise."""
+                         dtype, n_local=None):
+    """Per-layer continuum-OD term ``fn(T, p_pa, pl, vmr, k_offset=0,
+    k_index=None) -> (nLay, n_local or nX)``, or None for
+    ``continuum='none'``: 'mt_ckd' through its layer-hoisted evaluator, the
+    other models of ``CONTINUUM_MODELS`` pointwise. ``n_local`` and
+    ``k_offset`` select a contiguous slice of the grid (a spectral shard's
+    width and first point), ``k_index`` explicit global point indices (the
+    weighted partition's permuted shard): only those points are evaluated,
+    at the values the whole grid has there."""
     from ..atmos.continuum import (CONTINUUM_MODELS,
                                    LAYERED_CONTINUUM_FACTORIES,
                                    check_h2o_table_coverage,
@@ -572,18 +586,32 @@ def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
     cf = continuum_factors_tensor(continuum_factors, continuum, dtype,
                                   device)
     mol_ids = tuple(mol_ids)
+    n = g.n if n_local is None else int(n_local)
+
+    def points(k_offset, k_index):
+        # the global grid indices to evaluate (None: the whole grid)
+        if k_index is not None:
+            return torch.as_tensor(k_index).to(device=device,
+                                               dtype=torch.long).reshape(-1)
+        if n_local is None and isinstance(k_offset, int) and k_offset == 0:
+            return None
+        return k_offset + torch.arange(n, device=device)
+
     factory = LAYERED_CONTINUUM_FACTORIES.get(continuum)
     if factory is not None:
         layered = factory(g.values(), mol_ids, device=device, dtype=dtype)
 
-        def term(T, p_pa, pl, vmr):
-            return layered(T, p_pa, pl, vmr, cf).to(dtype)
+        def term(T, p_pa, pl, vmr, k_offset=0, k_index=None):
+            return layered(T, p_pa, pl, vmr, cf,
+                           k=points(k_offset, k_index)).to(dtype)
 
         return term
     cfn = CONTINUUM_MODELS[continuum]
-    nu = torch.as_tensor(g.values(), dtype=dtype, device=device)
+    nu_all = torch.as_tensor(g.values(), dtype=dtype, device=device)
 
-    def term(T, p_pa, pl, vmr):
+    def term(T, p_pa, pl, vmr, k_offset=0, k_index=None):
+        k = points(k_offset, k_index)
+        nu = nu_all if k is None else nu_all[k]
         return cfn(nu, T[:, None], p_pa[:, None], vmr, mol_ids, pl[:, None],
                    cf).to(dtype)
 
@@ -908,6 +936,278 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                                 dev, dt)
     return OpticalDepthFn(lines, iso, passes, cols, profile, wing_abs,
                           wing_hw, line_mixing, cont)
+
+
+def _ops_per_eval(n_wei: int, mode: str) -> int:
+    """Hand-counted lane-ops per (line slot, grid point) evaluation of the
+    local builder's modes, the weights of the weighted partition: the
+    counts of ``pallas_xsect.py::_ops_per_eval`` (its conventions: a*b+c
+    = 2, sqrt 3, divide 4, exp 6), copied so that the chunk assignment is
+    the JAX builder's integer for integer."""
+    n = int(n_wei)
+    counts = {
+        "asym": 11 + 17, "lorentz": 11 + 7, "doppler": 11 + 9,
+        "mix": 11 + (65 + 7 * n) + 2,
+        "full": 11 + 3 + (30 + 7 * n) + 16 + 1,
+        "core": 11 + 3 + (30 + 7 * n) + 17 + 2,
+        "sdvoigt_asym": 11 + 2 + 19 + 3 + 2 * 19 + 2,
+        "sdvoigt": 57 + 2 * (227 + 7 * n),
+        "sdvoigt_core": 57 + 2 * (227 + 7 * n) + 2 * 20,
+    }
+    if mode not in counts:
+        raise ValueError(f"unknown mode {mode!r}")
+    return counts[mode]
+
+
+def _weighted_chunk_assignment(calls, n_pad, n_shards, n_weideman):
+    """(n_shards, chunks_per_shard) chunk ids balancing op-weighted work
+    (``od.py:1812-1845`` there): chunks span the largest call tile, a
+    chunk's work sums each call's ``counts x block x tile x n_lay x
+    ops_per_eval(mode)`` over its tiles, and chunks go by greedy
+    longest-processing-time (the same stable argsort) under equal
+    cardinality, so every shard runs the same number of tiles."""
+    A = max(plan.tile for _, _, plan, _ in calls)
+    nc = n_pad // A
+    if nc % n_shards:
+        raise AssertionError("chunk count not divisible by shard count")
+    work = np.zeros(nc, dtype=np.float64)
+    for lay_idx, _, plan, mode in calls:
+        t = plan.tile
+        per_tile = (plan.counts.astype(np.float64) * plan.block * t
+                    * len(lay_idx) * _ops_per_eval(n_weideman, mode))
+        work += per_tile.reshape(nc, A // t).sum(axis=1)
+    cap = nc // n_shards
+    loads = np.zeros(n_shards)
+    fill = np.zeros(n_shards, dtype=np.int64)
+    assign = np.empty((n_shards, cap), dtype=np.int64)
+    for c in np.argsort(-work, kind="stable"):
+        open_s = np.nonzero(fill < cap)[0]
+        s = open_s[np.argmin(loads[open_s])]
+        assign[s, fill[s]] = c
+        fill[s] += 1
+        loads[s] += work[c]
+    assign.sort(axis=1)
+    return assign
+
+
+def shard_slice(tree, s: int, device=None):
+    """Shard ``s``'s slice of a sharded builder's per-shard data (every
+    tensor of the dicts, lists and tuples of ``tree`` indexed by ``s`` on
+    its leading shard axis: what ``shard_map`` hands each device there), on
+    ``device`` (None: where it lies)."""
+    if isinstance(tree, dict):
+        return {k: shard_slice(v, s, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_slice(v, s, device) for v in tree)
+    return tree[s] if device is None else tree[s].to(device)
+
+
+class LocalOpticalDepthFn(OpticalDepthFn):
+    """One spectral shard's layer OD (see :func:`make_od_local_fn`):
+    ``fn(T, p_pa, pl, vmr, local_spec, k_offset) -> (nLay, n_local)``, the
+    shard's points in local order (a contiguous slice from global index
+    ``k_offset``, or, for the weighted partition, ``point_index[s]``).
+    ``bind(local_spec, k_offset)`` makes the shard's plans once
+    (:class:`ShardOD`): bind before ``torch.func`` transforms, whose
+    wrapped tensors have no storage to hand a kernel. ``to(device)`` gives
+    the same function on another device (its plans, lines and tables moved
+    there, the host planning reused)."""
+
+    def __init__(self, *args, n_local, partition, point_index, rebuild):
+        super().__init__(*args)
+        self.n_local = n_local
+        self.partition = partition
+        #: (n_shards, n_local) global grid index of each shard's points
+        #: (the weighted partition), else None
+        self.point_index = point_index
+        self._rebuild = rebuild
+
+    def to(self, device) -> "LocalOpticalDepthFn":
+        device = torch.device(device)
+        if device == self.lines.sw.device:
+            return self
+        return self._rebuild(device)
+
+    def bind(self, local_spec, k_offset=0) -> "ShardOD":
+        return ShardOD(self, local_spec, k_offset)
+
+    def __call__(self, T, p_pa, pl, vmr, local_spec, k_offset=0):
+        return self.bind(local_spec, k_offset)(T, p_pa, pl, vmr)
+
+
+class ShardOD:
+    """A :class:`LocalOpticalDepthFn` bound to one shard:
+    ``fn(T, p_pa, pl, vmr) -> (nLay, n_local)``. ``calls`` are the passes
+    on the shard's plans (:func:`~..kernels.fused_xsect.shard_plan`: its
+    tiles' blocks and global grid offsets), summed as the unsharded
+    builder sums them; the continuum evaluates the shard's points."""
+
+    def __init__(self, fn: LocalOpticalDepthFn, local_spec, k_offset=0):
+        self.fn = fn
+        n = fn.n_local
+        if isinstance(local_spec, dict):
+            call_spec = list(local_spec["calls"])
+            self.cont_kw = dict(k_index=local_spec["point_idx"])
+        else:
+            call_spec = [(st, ct, k_offset) for st, ct in local_spec]
+            self.cont_kw = dict(k_offset=k_offset)
+        self.calls = [(lay, shard_plan(dplan, starts=st, counts=ct,
+                                       k_offset=off, n_tiles=n // dplan.tile,
+                                       n_out=n), mode)
+                      for (lay, dplan, mode), (st, ct, off)
+                      in zip(fn.calls, call_spec)]
+
+    def __call__(self, T, p_pa, pl, vmr):
+        fn = self.fn
+        prm, Y = fn.line_params(T, p_pa, pl, vmr)
+        out = torch.zeros((T.shape[0], fn.n_local), dtype=prm.strength.dtype,
+                          device=prm.strength.device)
+        for call in self.calls:
+            out.index_add_(0, call[0], fn.run_call(call, prm, Y))
+        if Y is not None:
+            # first-order mixing's negative excursions, clamped before the
+            # continuum (as the unsharded builder)
+            out = torch.clamp(out, min=0.0)
+        if fn.cont is not None:
+            out = out + fn.cont(T, p_pa, pl, vmr, **self.cont_kw)
+        return out
+
+
+def _lines_on(lines, iso, device):
+    """``lines`` and ``iso`` with every tensor on ``device`` (the float64
+    host columns shared)."""
+    mv = lambda obj, names: dataclasses.replace(obj, **{  # noqa: E731
+        f: getattr(obj, f).to(device) for f in names})
+    return (mv(lines, [f.name for f in dataclasses.fields(lines)
+                       if f.name != "host"]),
+            mv(iso, [f.name for f in dataclasses.fields(iso)]))
+
+
+def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
+                     wing_abs=0.0, wing_hw=50.0, max_groups: int = 8,
+                     tile: int = 512, n_weideman: int = 16,
+                     two_pass: bool = True, far_tile: int | None = None,
+                     far_block: int | None = None, group_ratio: float = 1.6,
+                     fast_rcp: bool = False, profile: str = "voigt",
+                     continuum: str = "none", continuum_factors=None,
+                     line_mixing: dict | None = None,
+                     partition: str = "equal",
+                     differentiable: bool = False):
+    """Per-shard OD over a spectrum-sharded grid (the counterpart of
+    ``make_od_pallas_local_fn``, with its arguments and defaults but
+    ``fast_rcp``, which must be False).
+
+    Every shard runs the same static plans, built on a padded global grid
+    whose tiles never straddle a shard boundary; what differs per shard is
+    data: its slice of the per-tile block ranges and its tiles' global grid
+    offsets (K1, K3 and K4 take them per tile, ``DevicePlan.tile_off``).
+    Returns ``(local_fn, spec_data, padded_grid)``:
+
+    * ``local_fn(T, p_pa, pl, vmr, local_spec, k_offset) -> (nLay,
+      n_local)`` (:class:`LocalOpticalDepthFn`), ``local_spec`` shard s's
+      slice of ``spec_data`` (:func:`shard_slice`), ``k_offset`` its first
+      global point ``s * n_local`` (unused by the weighted partition);
+    * ``spec_data``: for ``partition='equal'`` (contiguous equal slices) a
+      list over the kernel calls of (starts, counts), each (n_shards,
+      local tiles) int32; for ``'weighted'`` (chunks of the largest call
+      tile dealt to shards by greedy longest-processing-time on each
+      call's op-weighted work, equal chunk counts) ``{"calls": [(starts,
+      counts, tile offsets), ...], "point_idx": (n_shards, n_local)}``,
+      the shards' points then a permutation of the global grid
+      (``local_fn.point_index``: ``out_global[:, point_index[s]] =
+      out_shard_s``);
+    * ``padded_grid``: the :class:`UniformGrid` padded to a multiple of
+      ``max(far tile or 2 tile, tile, 512) * n_shards`` points
+      (``n_local = padded_grid.n // n_shards``; slice the trailing padding
+      off after gathering).
+
+    The continuum evaluates only the shard's points. ``differentiable``
+    builds single-pass plans whose passes carry ``torch.func.jvp`` tangents
+    through K3 and K4 (Voigt and SD-Voigt, no line mixing).
+    """
+    _check_build_opts(fast_rcp, tile=tile, far_tile=far_tile,
+                      far_block=far_block)
+    g0 = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
+        np.asarray(grid))
+    # pad so that every call's tile divides the shard's points: the far
+    # pass uses far_tile (2 tile with two_pass), the core pass <= max(512,
+    # tile), all powers of two; the alignment is taken before
+    # differentiable drops two_pass, as in the JAX builder
+    f_tile_eff = far_tile or (2 * tile if two_pass else tile)
+    align = max(f_tile_eff, tile, 512) * n_shards
+    n_pad = -(-g0.n // align) * align
+    g = UniformGrid(x0=g0.x0, dx=g0.dx, n=n_pad)
+    n_local = n_pad // n_shards
+    if differentiable:
+        if profile not in ("voigt", "sdvoigt") or line_mixing is not None:
+            raise NotImplementedError(
+                "differentiable sharded OD supports the Voigt and SD-Voigt "
+                "profiles without line mixing")
+        two_pass = False
+    mix_idx = None
+    if line_mixing is not None:
+        mix_idx = np.nonzero(np.asarray(line_mixing["y_air"]) != 0.0)[0]
+    lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
+    mol_ids = tuple(states_h[0].mol_ids)
+    calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
+                            max_groups, tile, group_ratio, mix_idx=mix_idx,
+                            two_pass=two_pass, profile=profile,
+                            far_tile=far_tile, far_block=far_block)
+    for _, _, plan, _ in calls:
+        if n_local % plan.tile:
+            raise AssertionError(
+                f"plan tile {plan.tile} does not divide the per-shard point "
+                f"count {n_local}; alignment bug")
+
+    point_index = None
+    if partition == "equal":
+        host_spec = [(plan.starts.reshape(n_shards, -1),
+                      plan.counts.reshape(n_shards, -1))
+                     for _, _, plan, _ in calls]
+    elif partition == "weighted":
+        assign = _weighted_chunk_assignment(calls, n_pad, n_shards,
+                                            n_weideman)
+        A = n_pad // (assign.shape[0] * assign.shape[1])
+        host_calls = []
+        for _, _, plan, _ in calls:
+            t = plan.tile
+            tpc, nt_loc = A // t, n_local // t
+            gt = (assign[:, :, None] * tpc
+                  + np.arange(tpc)).reshape(n_shards, nt_loc)
+            offs = (gt * t - np.arange(nt_loc) * t).astype(np.int32)
+            host_calls.append((plan.starts[gt], plan.counts[gt], offs))
+        point_index = (assign[:, :, None] * A
+                       + np.arange(A)).reshape(n_shards, n_local)
+        host_spec = {"calls": host_calls,
+                     "point_idx": point_index.astype(np.int32)}
+    else:
+        raise ValueError(f"unknown partition {partition!r}")
+
+    def build(device):
+        lines_d, iso_d = _lines_on(lines, iso, device)
+        dt = lines_d.sw.dtype
+        cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids),
+                               device=device)
+        passes = _device_passes(calls, None, lines_h, g, 1, n_weideman,
+                                int(np.asarray(states_h[0].T).size), device,
+                                dt)
+        cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
+                                    device, dt, n_local=n_local)
+        return LocalOpticalDepthFn(
+            lines_d, iso_d, passes, cols, profile, wing_abs, wing_hw,
+            line_mixing, cont, n_local=n_local, partition=partition,
+            point_index=point_index, rebuild=build)
+
+    dev = lines.sw.device
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                    dtype=torch.int32, device=dev)
+    if isinstance(host_spec, dict):
+        spec_data = {"calls": [tuple(i32(a) for a in c)
+                               for c in host_spec["calls"]],
+                     "point_idx": i32(host_spec["point_idx"])}
+    else:
+        spec_data = [tuple(i32(a) for a in c) for c in host_spec]
+    return build(dev), spec_data, g
 
 
 def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,

@@ -122,7 +122,7 @@ def probe(op: str, depth: int, iters: int, y0: torch.Tensor, a=A,
     err = _build.library().radtxfr_fp32_probe(
         OPS.index(op), n_chains, depth, y0.data_ptr(), float(a), float(b),
         iters, n, out.data_ptr(),
-        torch.cuda.current_stream(y0.device).cuda_stream)
+        _build.launch_stream(y0.device))
     if err != 0:
         raise RuntimeError(f"peak probe kernel launch failed with CUDA "
                            f"error {err}")

@@ -850,3 +850,105 @@ def test_sdvoigt_tangent_kernel_edge_cases(dev, case):
     if case.startswith("tiles with no block"):
         assert bool(empty.any())
     assert not got[:, :, empty].any()
+
+
+#: a spectral shard of _random_case's tiles (512 points; 79 tiles, the last
+#: partial), in a weighted partition's non-contiguous order
+SHARD_TILES = (60, 3, 41, 42, 77)
+
+
+def _shard(dp, tiles=SHARD_TILES):
+    """The shard-local overrides of ``tiles``: their blocks, and the global
+    grid offset of each (its global first point minus its local one)."""
+    t = torch.as_tensor(tiles, device=dp.starts.device)
+    local = torch.arange(len(tiles), device=t.device)
+    return dict(starts=dp.starts[t], counts=dp.counts[t],
+                k_offset=((t - local) * dp.tile).to(torch.int32),
+                n_tiles=len(tiles), n_out=len(tiles) * dp.tile)
+
+
+def _columns(full, dp, tiles=SHARD_TILES):
+    idx = (torch.as_tensor(tiles, device=full.device)[:, None] * dp.tile
+           + torch.arange(dp.tile, device=full.device)).reshape(-1)
+    return full[..., idx]
+
+
+@pytest.mark.parametrize("mode", ("asym", "core", "mix", "full", "sdvoigt",
+                                  "corr:64:voigt"))
+def test_offset_kernel_matches_plain(dev, mode):
+    """K1 on a shard's tiles with their per-tile grid offsets against its
+    plain version with the same overrides (2e-6 of the pass's own peak; 5e-2
+    for core, chip_smoke.K1_OWN_BOUND), counted as an offset launch, and
+    bit-identical to the matching columns of the unsharded launch."""
+    dp, lay, prm = _random_case(dev)
+    g2 = prm.pop("gamma_2")
+    ymix = prm["gamma_0"] * 3.0 if mode == "mix" else None
+    sh = _shard(dp)
+    n0 = fused_xsect.OFFSET_LAUNCHES[mode]
+    got = fused_xsect.xsect_fused(dp, lay, *prm.values(), ymix, mode,
+                                  gamma_2=g2, **sh)
+    assert fused_xsect.OFFSET_LAUNCHES[mode] == n0 + 1
+    want = fused_xsect.xsect_fused_plain(dp, lay, *prm.values(), ymix, mode,
+                                         gamma_2=g2, **sh)
+    own = want.abs().max()
+    assert own > 0.0 and bool(torch.isfinite(got).all())
+    bound = 5e-2 if mode == "core" else 2e-6
+    assert (got - want).abs().max() <= bound * own, \
+        float((got - want).abs().max() / own)
+    full = fused_xsect.xsect_fused(dp, lay, *prm.values(), ymix, mode,
+                                   gamma_2=g2)
+    assert torch.equal(got, _columns(full, dp))
+
+
+@pytest.mark.parametrize("kernel", ("K3", "K4"))
+def test_offset_tangent_kernels_match_plain(dev, kernel):
+    """K3 and K4 on a shard's tiles with their offsets, 3 directions:
+    within 2e-5 of each direction's own peak of the plain version with the
+    same overrides, and bit-identical to the unsharded launch's columns."""
+    dp, lay, prm = _random_case(dev, n_pts=20000)
+    sh = _shard(dp, (30, 2, 17, 18, 38))
+    tans = _sd_tangents(dev, prm, 3)
+    if kernel == "K3":
+        args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+                prm["gamma_0"], prm["wing"])
+        tans = tans[:4]
+        run, plain = (fused_xsect.xsect_fused_jvp,
+                      fused_xsect.xsect_fused_jvp_plain)
+    else:
+        args = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+                prm["gamma_0"], prm["gamma_2"], prm["wing"])
+        run, plain = (fused_xsect.xsect_sdvoigt_jvp,
+                      fused_xsect.xsect_sdvoigt_jvp_plain)
+    got = run(*args, *tans, **sh)
+    want = plain(*args, *tans, **sh)
+    for d in range(3):
+        own = want[d].abs().max()
+        assert own > 0.0
+        assert (got[d] - want[d]).abs().max() <= 2e-5 * own
+    assert torch.equal(got, _columns(run(*args, *tans), dp,
+                                     (30, 2, 17, 18, 38)))
+
+
+def test_ht_kernels_zero_offset_bit_identical(dev):
+    """K5 and K6 take the row skeleton's tile offsets (every caller passes
+    none, as in JAX): a plan whose tiles carry zero offsets gives the bits
+    of the launch without; a tile_off of another dtype raises."""
+    import dataclasses
+
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    dp, lay, s, w, consts = _ht_case(dev, n_pts=8000)
+    z = dataclasses.replace(dp, tile_off=torch.zeros(
+        dp.n_tiles, dtype=torch.int32, device=dev))
+    assert torch.equal(fused_ht.xsect_ht(z, lay, s, w, consts),
+                       fused_ht.xsect_ht(dp, lay, s, w, consts))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s_t = (torch.randn((2,) + tuple(s.shape), generator=gen, device=dev)
+           * s.abs().mean()).contiguous()
+    c_t = [torch.zeros((2,) + tuple(c.shape), device=dev) for c in consts]
+    assert torch.equal(
+        fused_ht.xsect_ht_jvp(z, lay, s, w, consts, s_t, c_t),
+        fused_ht.xsect_ht_jvp(dp, lay, s, w, consts, s_t, c_t))
+    bad = dataclasses.replace(dp, tile_off=z.tile_off.long())
+    with pytest.raises(TypeError, match="int32"):
+        fused_ht.xsect_ht(bad, lay, s, w, consts)
