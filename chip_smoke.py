@@ -212,6 +212,31 @@ Phases, each printing its result on its own line:
    processes (one killed with SIGKILL after its first batch, a fresh one
    resuming it): the resumed products bit-identical to the in-process run
    without checkpoints.
+13. The cross-section serving path at the reference generator's width
+   (``misc/RT_gen_AbsXS_files.py:15-31``): for molecules 1 and 2 of the
+   ``XS_CLI`` list, one at a time, ``make_xsect_fn`` on the (T, p) lattice
+   275-320 K by 5 x 0.85-1.05 atm by 0.05 (50 states), 400-7100 cm^-1 at
+   0.0025, SD-Voigt with 350 cm^-1 wings, the launch counts reset before
+   and read after (K1 ``sdvoigt_asym``, ``corr:64:sdvoigt`` and
+   ``sdvoigt_core`` must have run); each molecule's 50 rows on the
+   1000-1010 cm^-1 sub-band: every K1 pass of the sub-band's lattice at
+   the same lines and 50 states, coarse-far and classic, against its plain
+   version (``XS_BOUND``, ``XS_OWN_BOUND``), and the rows within
+   ``COARSE_BOUND`` of that classic lattice; the 100 rows written with
+   ``xs_write``
+   and read back by ``xs_table_from_files``, equal to the kernel's rows bit
+   for bit; ``od_from_xs`` at a lattice node (300 K, 0.95 atm) within
+   2e-6 of peak of the column times the kernel's row; on phase 5's 4
+   members, composed by K2 (``make_tud_fn``, 9 altitudes, 30 angles; K2
+   launched once a member), the card's float32 OD within 1e-6 of peak of
+   a CPU float64 ``od_from_xs`` on the same table and inputs over
+   690-1410 cm^-1, K2 within 5e-6 of ``tud_from_od`` on the served OD,
+   products finite, 0 <= tau <= 1, La and Ld > 0; the lattice's, the
+   files', ``od_from_xs``'s (``"highest"`` and ``"default"``, against its
+   byte and FLOP bounds) and K2's times and a served member's wall
+   seconds.
+14. Each example of ``examples/torch/`` as a child process on the card
+   (``EXAMPLE_TIMEOUT`` seconds each): exit 0 and ``OK`` last.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -236,7 +261,9 @@ FMUL-chain rate).
 
 It ends with one JSON line of kernel results (K1's production modes,
 ``full``, K3 and K4 also with ``offset_launches``: their launches with
-tile offsets in phase 12) and, last, the device line.
+tile offsets in phase 12; K1's lattice modes and K2 also with
+``serving_launches``: their launches on phase 13's path) and, last, the
+device line.
 Any failed check raises; the script then exits non-zero without the last
 line. There is no CPU fallback.
 """
@@ -262,7 +289,7 @@ from radtxfr_tpu_torch.atmos.profile import std_atmosphere  # noqa: E402
 from radtxfr_tpu_torch.cli.main import (  # noqa: E402
     build_parser, ensemble_draws, ensemble_member, run_tud, run_xsect,
     write_xs)
-from radtxfr_tpu_torch.io.afit_xs import xs_read  # noqa: E402
+from radtxfr_tpu_torch.io.afit_xs import xs_read, xs_write  # noqa: E402
 from radtxfr_tpu_torch.kernels.lineparams import (  # noqa: E402
     compute_line_params)
 from radtxfr_tpu_torch.lines.synthetic import synthetic_lines  # noqa: E402
@@ -278,12 +305,16 @@ from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
 from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
     resolve_ht_columns, xsect_ht)
 from radtxfr_tpu_torch.kernels.xsect import xsect_from_params  # noqa: E402
+from radtxfr_tpu_torch.products.od_from_xs import (  # noqa: E402
+    XsTable, od_from_xs, xs_table_from_files)
+from radtxfr_tpu_torch.core.constants import PA_PER_ATM  # noqa: E402
 from radtxfr_tpu_torch.products.od import (_coarse_upsample,  # noqa: E402
                                            _line_species_cols,
                                            compute_od_layers, ht_wing_bounds,
                                            layer_line_params, make_ht_fn,
                                            make_od_fn, make_od_ht_fn,
-                                           make_od_plan, make_xsect_fn)
+                                           make_od_plan, make_xsect_fn,
+                                           species_column)
 from radtxfr_tpu_torch.atmos.continuum import continuum_od  # noqa: E402
 from radtxfr_tpu_torch.tools import fp32_peak, sass  # noqa: E402
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
@@ -1142,11 +1173,12 @@ def xs_states(dev):
     return T, torch.ones_like(T)
 
 
-def check_xs_passes(label, fn, prm, calls, card, stats=None):
+def check_xs_passes(label, fn, prm, calls, card, stats=None, tag="3c"):
     """Each of ``calls`` (state indices, plan, mode) through its kernel
     (all timed first) and its plain version: within XS_BOUND of the
     lattice's peak and XS_OWN_BOUND of its own; the per-mode errors, times
-    and bound work go into ``stats`` when given."""
+    and bound work go into ``stats`` when given; ``tag`` heads the printed
+    lines."""
     peak = fn.line_sum(prm).abs().max().item()
     timed = time_kernels((f"K1 {c[2]}", lambda c=c: fn.run_call(c, prm))
                          for c in calls)
@@ -1160,7 +1192,7 @@ def check_xs_passes(label, fn, prm, calls, card, stats=None):
         own = p_out.abs().max().item() or 1.0
         check(peak > 0.0 and bool(torch.isfinite(k_out).all()),
               f"{label} {mode}: zero lattice or non-finite pass")
-        print(f"[3c {label}] {mode} tile {dplan.tile} block {dplan.block} "
+        print(f"[{tag} {label}] {mode} tile {dplan.tile} block {dplan.block} "
               f"tiles {dplan.n_tiles} points {dplan.n_out}: max|kernel-plain|"
               f" {err:.3e} = {err / peak:.3e} of the lattice's peak "
               f"{peak:.4e} = {err / own:.3e} of the pass's own peak "
@@ -3711,6 +3743,258 @@ def phase_sharded(dev, card, x_main, main_products):
             "sdvoigt": sd_off}
 
 
+# phase 13: the cross-section serving path at the reference generator's
+# width (misc/RT_gen_AbsXS_files.py:15-31): H2O and CO2 (the XS_CLI list's
+# molecules 1 and 2, one at a time), 400-7100 cm^-1 at 0.0025, T 275-320 K
+# by 5, p 0.85-1.05 atm by 0.05, SD-Voigt with 350 cm^-1 wings: 100
+# (molecule, state) rows, written as AFIT_XS files, read back as the table
+# od_from_xs serves phase 5's members from, composed by K2. At a lattice
+# node the served OD is the column times the kernel's row (the product's
+# float32 rounding and the log-p node's); on the 690-1410 cm^-1 columns the
+# card's float32 product against the CPU's float64 on the same table and
+# inputs; K2 against tud_from_od on the served OD (K2's bound). The rows
+# themselves on the XS_SUB sub-band at all 50 states: each K1 pass there
+# against its plain version, and the rows against the classic route
+SERVE_MOLS = (1, 2)
+SERVE_T = np.arange(275.0, 321.0, 5.0)
+SERVE_P = np.round(np.arange(0.85, 1.051, 0.05), 2)
+SERVE_NODE = (300.0, 0.95)
+SERVE_MEMBERS = 4
+SERVE_NODE_BOUND = 2e-6
+SERVE_F64_BOUND = 1e-6
+SERVE_F64_BAND = (690.0, 1410.0)
+
+
+def serving_sub_band(store_m, iso, args, X, TT, PP, Tt, Pt, K, m, card):
+    """Molecule ``m``'s lattice rows ``K`` (50, nX) on the XS_SUB
+    sub-band: the sub-band's lattice on the same lines and states, coarse-
+    far and classic, each K1 pass against its plain version (K1's XS
+    bounds), and the rows within the coarse-far bound of the classic
+    lattice."""
+    Xs = arange_drift_free(*XS_SUB)
+    lo = int(round((Xs[0] - X[0]) / args.dv))
+    check(np.allclose(X[lo:lo + Xs.size], Xs, rtol=0.0, atol=1e-6),
+          "the sub-band is not on the lattice's axis")
+    fns = {far: make_xsect_fn(store_m, iso, Xs, TT, PP, profile="sdvoigt",
+                              wing_abs=XS_WING, wing_hw=args.wing_hw,
+                              far_method=far)
+           for far in ("auto", "classic")}
+    check(len(fns["auto"].corr_calls) > 0, f"molecule {m}: the sub-band "
+          "lattice did not take the coarse-far route")
+    for far, fn in fns.items():
+        check_xs_passes(f"molecule {m} {far}", fn, fn.line_params(Tt, Pt),
+                        fn.all_calls(), card, tag="13 serving")
+    rel = rel_peak(K[:, lo:lo + Xs.size], fns["classic"](Tt, Pt))
+    print(f"[13 serving] molecule {m}: the lattice's {TT.size} rows on "
+          f"{XS_SUB[0]:g}-{XS_SUB[1]:g} cm^-1 vs the sub-band's classic "
+          f"lattice {rel:.3e} of peak [{card}]", flush=True)
+    check(rel <= COARSE_BOUND["sdvoigt"], f"molecule {m}: rows vs the "
+          f"classic sub-band lattice {rel:.3e} > {COARSE_BOUND['sdvoigt']}")
+
+
+def phase_serving(dev, card):
+    """13: the lattice (K1's XS modes) for each molecule, its 100 rows
+    through AFIT_XS files into ``xs_table_from_files``, ``od_from_xs`` on
+    phase 5's members and K2 on the served OD; returns the launches of the
+    K1 modes and of K2 on this path."""
+    f32 = torch.float32
+    args = xs_args(XS_CLI)
+    X = arange_drift_free(args.numin, args.numax, args.dv)
+    store = synthetic_lines(args.synthetic, nu_min=args.numin - XS_WING,
+                            nu_max=args.numax + XS_WING, seed=args.seed,
+                            device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev)
+    TT, PP = (a.ravel() for a in np.meshgrid(SERVE_T, SERVE_P,
+                                             indexing="ij"))
+    Tt, Pt = (torch.as_tensor(a, dtype=f32, device=dev) for a in (TT, PP))
+    fns, rows, build_s, lattice_ms = {}, {}, {}, {}
+    reset_launches()
+    for m in SERVE_MOLS:
+        t0 = time.perf_counter()
+        fns[m] = make_xsect_fn(store.select_molecules([m]), iso, X, TT, PP,
+                               profile="sdvoigt", wing_abs=XS_WING,
+                               wing_hw=args.wing_hw)
+        build_s[m] = time.perf_counter() - t0
+        rows[m] = fns[m](Tt, Pt)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[13 serving] lattice launches (both molecules): "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for k in ("sdvoigt_asym", "corr:64:sdvoigt", "sdvoigt_core"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the "
+              "serving lattice")
+    for m in SERVE_MOLS:
+        lattice_ms[m], again = cuda_ms(lambda: fns[m](Tt, Pt), 2)
+        check(torch.equal(again, rows[m]), f"lattice of molecule {m}: two "
+              "runs differ")
+        K = rows[m]
+        check(K.shape == (TT.size, X.size) and bool(torch.isfinite(K).all())
+              and K.max().item() > 0.0, f"lattice of molecule {m}")
+        print(f"[13 serving] molecule {m}: {TT.size} states x {X.size} "
+              f"points (max {K.max().item():.4e} cm^2/molec); plan build "
+              f"{build_s[m]:.3f} s, lattice {lattice_ms[m]:.3f} ms (CUDA "
+              f"events, warm) [{card}]", flush=True)
+        serving_sub_band(store.select_molecules([m]), iso, args, X, TT, PP,
+                         Tt, Pt, K, m, card)
+    del fns, again
+
+    # the 100 rows through AFIT_XS files and back
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, nbytes = {}, 0
+        t0 = time.perf_counter()
+        for m in SERVE_MOLS:
+            K = rows[m].cpu().numpy()
+            paths[m] = []
+            for i, (T, p) in enumerate(zip(TT, PP)):
+                path = os.path.join(tmp, f"XS-{m:02d}-{i:02d}.bin")
+                xs_write(X, K[i], float(T), float(p) * PA_PER_ATM, m,
+                         "radtxfr_tpu synthetic", fname=path)
+                paths[m].append(path)
+                nbytes += os.path.getsize(path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = xs_table_from_files(paths, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    n_m, n_t, n_p, n_x = table.sigma.shape
+    check(table.mol_ids == SERVE_MOLS and (n_t, n_p, n_x)
+          == (SERVE_T.size, SERVE_P.size, X.size), "table shape")
+    for im, m in enumerate(SERVE_MOLS):
+        check(torch.equal(table.sigma[im].reshape(TT.size, n_x), rows[m]),
+              f"molecule {m}: the table read from the files is not the "
+              "kernel's rows")
+    print(f"[13 serving] {n_m * n_t * n_p} AFIT_XS files, {nbytes} B, "
+          f"written in {write_s:.3f} s, read into the table on the card in "
+          f"{read_s:.3f} s; the table ({table.sigma.numel() * 4} B float32) "
+          "equals the kernel's rows bit for bit", flush=True)
+
+    # at a lattice node: the column times the kernel's row
+    base = std_atmosphere(device=dev)
+    one = lambda v: torch.full((1,), v, dtype=f32, device=dev)
+    T0, p0 = SERVE_NODE
+    node = dataclasses.replace(base, T=one(T0), p=one(p0 * PA_PER_ATM),
+                               pl=one(1.0), z0=base.z0[:1], z1=base.z1[:1],
+                               vmr=base.vmr[:1])
+    got = od_from_xs(table, node)
+    k = int(np.nonzero((TT == T0) & (PP == p0))[0][0])
+    want = sum(species_column(node.p.double(), node.T.double(),
+                              node.pl.double(),
+                              node.vmr[:, base.mol_ids.index(m)].double())
+               * rows[m][k].double() for m in SERVE_MOLS)
+    rel = rel_peak(got[0].double(), want)
+    print(f"[13 serving] at the node (T {T0} K, p {p0} atm): served OD "
+          f"vs the column times the kernel's row {rel:.3e} of peak",
+          flush=True)
+    check(rel <= SERVE_NODE_BOUND, f"node: {rel:.3e} > {SERVE_NODE_BOUND}")
+
+    # phase 5's members: od_from_xs, then K2
+    states = members(base, SERVE_MEMBERS)
+    grid = torch.as_tensor(X, dtype=f32, device=dev)
+    tud_fn = make_tud_fn(base.z0.cpu().numpy(), ALTITUDES, n_angles=30,
+                         device=dev)
+    lo, hi = np.searchsorted(X, SERVE_F64_BAND[0]), \
+        np.searchsorted(X, SERVE_F64_BAND[1], side="right")
+    host = XsTable.from_numpy(table.sigma[..., lo:hi].cpu().numpy(),
+                              table.T_grid.cpu().numpy(),
+                              table.logp_grid.cpu().numpy(), table.x[lo:hi],
+                              table.mol_ids, device="cpu",
+                              dtype=torch.float64)
+    reset_launches()
+    err64, err_k2 = 0.0, {"tau": 0.0, "Lu": 0.0, "Ld": 0.0}
+    for s in states:
+        od = od_from_xs(table, s)
+        tud = tud_fn(grid, od, s.T)
+        s64 = dataclasses.replace(s, **{f: getattr(s, f).double().cpu()
+                                        for f in ("z0", "z1", "pl", "p", "T",
+                                                  "vmr")})
+        err64 = max(err64, rel_peak(od[:, lo:hi].double().cpu(),
+                                    od_from_xs(host, s64)))
+        B = planckian(grid, s.T).transpose(0, 1).to(f32)
+        ref = tud_from_od(grid, od, B, base.z0, ALTITUDES, n_angles=30)
+        for prod in err_k2:
+            err_k2[prod] = max(err_k2[prod], rel_peak(getattr(tud, prod),
+                                                      getattr(ref, prod)))
+        tau, Lu, Ld = tud.tau, tud.Lu, tud.Ld
+        check(bool(torch.isfinite(od).all() & torch.isfinite(tau).all()
+                   & torch.isfinite(Lu).all() & torch.isfinite(Ld).all()),
+              "served products not finite")
+        check(tau.min().item() >= 0.0 and tau.max().item() <= 1.0,
+              f"tau outside [0, 1]: [{tau.min().item()}, "
+              f"{tau.max().item()}]")
+        check(Lu.min().item() > 0.0 and Ld.min().item() > 0.0,
+              "La and Ld must be positive")
+        del ref, B
+    torch.cuda.synchronize()
+    serve_launches = read_launches()
+    print(f"[13 serving] {SERVE_MEMBERS} members x {X.size} points: "
+          f"launches {dict((k, v) for k, v in serve_launches.items() if v)}"
+          f"; the card's float32 OD vs the CPU's float64 od_from_xs on "
+          f"{SERVE_F64_BAND[0]:g}-{SERVE_F64_BAND[1]:g} cm^-1 {err64:.3e} "
+          f"of peak; K2 vs tud_from_od on the served OD: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err_k2.items())
+          + " of peak", flush=True)
+    check(serve_launches["tud"] == SERVE_MEMBERS, "K2 was not launched once "
+          "a served member")
+    check(err64 <= SERVE_F64_BOUND, f"served OD vs float64: {err64:.3e} > "
+          f"{SERVE_F64_BOUND}")
+    for prod, e in err_k2.items():
+        check(e <= K2_BOUND, f"K2 {prod} on the served OD: {e:.3e} > "
+              f"{K2_BOUND}")
+
+    s = states[0]
+    od_ms, od = cuda_ms(lambda: od_from_xs(table, s), 10)
+    dflt_ms, od_d = cuda_ms(lambda: od_from_xs(table, s,
+                                               precision="default"), 10)
+    rel_d = rel_peak(od_d, od)
+    k2_ms, _ = cuda_ms(lambda: tud_fn(grid, od, s.T), 5)
+    t0 = time.perf_counter()
+    tud = tud_fn(grid, od_from_xs(table, s), s.T)
+    torch.cuda.synchronize()
+    member_s = time.perf_counter() - t0
+    n_l, n_k = base.n_layers, n_m * n_t * n_p
+    od_bytes = 4 * (n_k * n_x + n_l * n_k + n_l * n_x)
+    od_flops = 2 * n_l * n_k * n_x
+    b_ms, b_by = bound(od_flops, od_bytes)
+    print(f"[13 serving] od_from_xs (one member, {n_l} x {n_k} @ {n_k} x "
+          f"{n_x}): {od_ms:.4f} ms 'highest' (TF32 off), {dflt_ms:.4f} ms "
+          f"'default' (TF32; {rel_d:.3e} of peak from 'highest'; CUDA "
+          f"events, warm); {od_bytes} B and {od_flops:.4g} FLOP: bound "
+          f"{b_ms:.4f} ms ({b_by}; bytes "
+          f"{od_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_PER_S:.4g} B/s, FLOP "
+          f"{od_flops / FP32_OPS_PER_S * 1e3:.4f} ms at "
+          f"{FP32_OPS_PER_S:.4g}/s); K2 {k2_ms:.4f} ms; a served member "
+          f"(od_from_xs + K2) {member_s:.4f} s wall [{card}]", flush=True)
+    del table, host, rows, od, od_d, tud
+    torch.cuda.empty_cache()
+    return {**{k: launches[k] for k in ("sdvoigt_asym", "corr:64:sdvoigt",
+                                        "sdvoigt_core")},
+            "tud": serve_launches["tud"]}
+
+
+# phase 14: each ported example as a child process on the card
+EXAMPLES = ("01_od_tud_quickstart.py", "02_production_tud_ensemble.py",
+            "04_xs_lattice_serving.py", "05_derived_physics.py")
+EXAMPLE_TIMEOUT = 240
+
+
+def phase_examples(card):
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name in EXAMPLES:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, os.path.join(
+                here, "examples", "torch", name)], cwd=tmp,
+                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT)
+            wall = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        check(r.returncode == 0 and lines and lines[-1] == "OK",
+              f"example {name} failed ({r.returncode}):\n{r.stdout[-3000:]}"
+              f"\n{r.stderr[-3000:]}")
+        print(f"[14 examples] {name} on the card: OK in {wall:.2f} s wall; "
+              f"{lines[-2] if len(lines) > 1 else ''} [{card}]", flush=True)
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3748,6 +4032,8 @@ def main():
     run(phase_sdvoigt_jacobian, dev, card)
     k7["full"], route_launches = run(phase_od_layers, dev, card)
     sharded = run(phase_sharded, dev, card, x_lo, products)
+    serving = run(phase_serving, dev, card)
+    run(phase_examples, card)
     run(phase_breakdown, dev, card)
     run(phase_jac_breakdown, dev, card)
     run(phase_xs_breakdown, dev, card)
@@ -3812,6 +4098,14 @@ def main():
                 entry["offset_launches"] = sharded[path][key]
                 entry["offset_path"] = f"phase 12 sharded {path}"
                 break
+    # the launches of the serving path (phase 13): K1's lattice modes and
+    # K2 on the served OD
+    for entry in kernels:
+        key = entry["name"].replace("fused_xsect_", "", 1).replace(
+            "fused_tud", "tud")
+        if key in serving and entry["name"] != "fused_tud_source_input":
+            entry["serving_launches"] = serving[key]
+            entry["serving_path"] = "phase 13 serving"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,9 @@
 """radtxfr_tpu_torch — the PyTorch/CUDA port of ``radtxfr_tpu``.
 
 Same subpackage layout as the JAX package (``core``, ``lines``, ``kernels``,
-``atmos``, ``products``, ``sensor``, ``dist``, ``io``, ``scene``, ``cli``);
-each module here is the counterpart of the module at the same relative
-path there. Plain
-tensor code is PyTorch; the line-by-line kernels are hand-written CUDA C++
+``atmos``, ``products``, ``sensor``, ``dist``, ``io``, ``scene``, ``utils``,
+``cli``); each module here is the counterpart of the module at the same
+relative path there. Plain tensor code is PyTorch; the line-by-line kernels are hand-written CUDA C++
 for Hopper (``csrc/``), built with ``nvcc`` at first use
 (:mod:`radtxfr_tpu_torch._build`), never at import.
 
@@ -71,6 +70,14 @@ def as_tensor_on(a, device=None, dtype=None) -> torch.Tensor:
         a = torch.as_tensor(np.array(a) if isinstance(a, np.ndarray)
                             and not a.flags.writeable else a)
     return a.to(device=dev, dtype=dtype)
+
+
+def as_numpy(a) -> np.ndarray:
+    """``a`` as a host NumPy array: a tensor is copied off its device,
+    anything else goes through ``np.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 #: packaged data tables shared with the JAX package (read by path only)

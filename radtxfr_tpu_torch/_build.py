@@ -31,7 +31,10 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(_HERE, "_build")
+DEFAULT_BUILD_DIR = os.path.join(_HERE, "_build")
+#: where the libraries are built and loaded from
+#: (:func:`~radtxfr_tpu_torch.utils.enable_persistent_cache` moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 # -lineinfo maps each SASS instruction to its source line (nvdisasm -g) and
 # leaves the generated code as it is
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,9 +12,10 @@ temperature law), the constructed CO2 far-wing continuum
 7-element TAPE5 record-1.2a scale factors ``cf``; 'none' (hapi parity),
 'h2o_empirical' (Roberts et al. 1976), 'rayleigh' and 'empirical' (the
 two). The H2O tables are the JAX package's literature-anchored
-reconstruction (see its module docstring for provenance); loading AER's
-coefficient file (``load_mt_ckd_tables``, ``set_h2o_tables``) is not
-ported yet.
+reconstruction (see its module docstring for provenance);
+:func:`load_mt_ckd_tables` reads AER's coefficient file and
+:func:`set_h2o_tables` installs it (or any other tables) for every
+'mt_ckd' evaluation that follows, pointwise and layered.
 
 The pointwise models take the layers as a batch dimension written out:
 ``fn(nu, T, p_pa, vmr, mol_ids, pl_km, cf)`` with ``nu`` (nX,), ``T``,
@@ -36,7 +37,8 @@ from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, K_BOLTZMANN_CGS,
 
 __all__ = ["H2OContinuumTables", "H2O_CONTINUUM_LWIR", "continuum_od",
            "register_continuum", "CONTINUUM_MODELS", "make_layered_mt_ckd",
-           "LAYERED_CONTINUUM_FACTORIES", "check_h2o_table_coverage"]
+           "LAYERED_CONTINUUM_FACTORIES", "check_h2o_table_coverage",
+           "set_h2o_tables", "load_mt_ckd_tables"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +137,81 @@ H2O_CONTINUUM_LWIR = H2OContinuumTables(
     cf=_ANCHOR_CF,
 )
 
+_ACTIVE_H2O_TABLES = H2O_CONTINUUM_LWIR
+
+
+def set_h2o_tables(tables: H2OContinuumTables) -> None:
+    """Install replacement water-continuum tables (e.g. real MT_CKD data
+    loaded via :func:`load_mt_ckd_tables`) for the ``'mt_ckd'`` model:
+    the pointwise model, :func:`make_layered_mt_ckd` and
+    :func:`check_h2o_table_coverage` read them at call time."""
+    global _ACTIVE_H2O_TABLES
+    _ACTIVE_H2O_TABLES = tables
+
+
+def load_mt_ckd_tables(path: str, radiation_temperature: float = 296.0
+                       ) -> H2OContinuumTables:
+    """Load AER's MT_CKD water-vapor coefficient file
+    (``absco-ref_wv-mt-ckd.nc``, netCDF4/HDF5; openly licensed at
+    github.com/AER-RC/MT_CKD).
+
+    The native tables store radiation-term-free coefficients C~ in
+    cm^3/molec; the absorption used here multiplies by the radiation term
+    nu*tanh(h c nu / 2 k T) and by the reference density n0 = p0/(k T0),
+    converting to the measured-coefficient convention (cm^2 molec^-1
+    atm^-1) of this module. The foreign table is converted at
+    ``radiation_temperature``. Each column binds the first exact dataset
+    name it finds, else the one dataset whose lowercased name holds all of
+    its substrings (with a warning naming the binding); else ``KeyError``.
+    """
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        names = set(f.keys())
+
+        def pick(*cands, substr=None):
+            for c in cands:
+                if c in names:
+                    return np.asarray(f[c][...], dtype=np.float64).ravel()
+            if substr:
+                hits = [n for n in names
+                        if all(t in n.lower() for t in substr)]
+                if len(hits) == 1:
+                    warnings.warn(
+                        f"load_mt_ckd_tables: no exact match among {cands}; "
+                        f"fuzzily bound dataset {hits[0]!r} (substrings "
+                        f"{substr})", stacklevel=3)
+                    return np.asarray(f[hits[0]][...],
+                                      dtype=np.float64).ravel()
+            raise KeyError(f"none of {cands} (or unique match for "
+                           f"{substr}) in {sorted(names)}")
+
+        nu = pick("wavenumbers", "wavenumber", "wvn", "wnum",
+                  substr=("wavenumber",))
+        cs296 = pick("self_absco_ref", "self_continuum", "cs296",
+                     substr=("self", "ref"))
+        cs260 = pick("self_absco_260", "cs260", substr=("self", "260"))
+        cf = pick("for_absco_ref", "foreign_continuum", "cf296",
+                  substr=("for", "absco"))
+        t_self = 296.0
+        if "ref_temp" in names:
+            t_self = float(np.asarray(f["ref_temp"][...]).ravel()[0])
+
+    c2 = 1.4387768775039337  # hc/k [cm K]
+
+    def n0(T):               # molec/cm^3 per atm
+        return BARYE_PER_ATM / (K_BOLTZMANN_CGS * T)
+
+    def rad(T):
+        return nu * np.tanh(0.5 * c2 * nu / T)
+
+    return H2OContinuumTables(
+        nu=nu,
+        cs296=cs296 * rad(t_self) * n0(t_self),
+        cs260=cs260 * rad(260.0) * n0(260.0),
+        cf=cf * rad(radiation_temperature) * n0(radiation_temperature),
+    )
+
 
 def _interp(x, xp, fp):
     """Piecewise-linear interpolation of ``fp`` (..., n) at ``x`` (nX,),
@@ -175,7 +252,7 @@ def _mt_ckd_h2o(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
     x = _mol_x(vmr, mol_ids, 1)
     if x is None:
         return _zeros(nu, T)
-    tab = H2O_CONTINUUM_LWIR
+    tab = _ACTIVE_H2O_TABLES
     cs296 = _interp_log(nu, tab.nu, tab.cs296)
     cs260 = _interp_log(nu, tab.nu, tab.cs260)
     cfor = _interp_log(nu, tab.nu, tab.cf)
@@ -365,7 +442,7 @@ def continuum_od(nu, atmos, model: str = "none", continuum_factors=None):
 
 
 def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
-                        tables: H2OContinuumTables = H2O_CONTINUUM_LWIR):
+                        tables: H2OContinuumTables | None = None):
     """Layer-hoisted evaluator of the 'mt_ckd' composite.
 
     Every nu-only quantity (the log-interpolated H2O tables, the (T, nu)
@@ -379,7 +456,8 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``, each written once
     with the pointwise models (the OD helpers ``_self_foreign_od``,
     ``_co2_od``, ``_cia_od``, ``_rayleigh_od`` and the coefficients of
-    :mod:`.far_wing`).
+    :mod:`.far_wing`). ``tables`` None means the installed tables
+    (:func:`set_h2o_tables`), read when this is called.
     """
     from .far_wing import (cia_n2_rototranslational, cia_o2_band,
                            cia_o2_gaussian, co2_continuum_table)
@@ -387,6 +465,7 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     device = resolve_device(device)
     nu_h = np.asarray(nu, dtype=np.float64)
     mol_ids = tuple(mol_ids)
+    tables = _ACTIVE_H2O_TABLES if tables is None else tables
     tn = tables.nu
     L296 = np.interp(nu_h, tn, np.log(tables.cs296))
     dL = np.interp(nu_h, tn, np.log(tables.cs260)) - L296
@@ -429,15 +508,18 @@ LAYERED_CONTINUUM_FACTORIES = {"mt_ckd": make_layered_mt_ckd}
 
 
 def check_h2o_table_coverage(nu_min: float, nu_max: float,
-                             tables: H2OContinuumTables = H2O_CONTINUUM_LWIR,
+                             tables: H2OContinuumTables | None = None,
                              stacklevel: int = 3) -> None:
-    """Warn when an evaluation range leaves the H2O continuum table (the
-    interpolation clamps at the table ends: a silently constant
-    coefficient orders of magnitude off)."""
+    """Warn when an evaluation range leaves the H2O continuum table
+    (``tables``; None: the installed ones, :func:`set_h2o_tables`): the
+    interpolation clamps at the table ends, a silently constant
+    coefficient orders of magnitude off."""
+    tables = _ACTIVE_H2O_TABLES if tables is None else tables
     lo, hi = float(tables.nu[0]), float(tables.nu[-1])
     if nu_min < lo - 1.0 or nu_max > hi + 1.0:
         warnings.warn(
             f"H2O continuum table covers {lo:.0f}-{hi:.0f} cm^-1 but the "
             f"evaluation spans {nu_min:.0f}-{nu_max:.0f}; coefficients "
-            "are clamped (held constant) outside the table",
+            "are clamped (held constant) outside the table; install a "
+            "wider table via set_h2o_tables/load_mt_ckd_tables",
             stacklevel=stacklevel)

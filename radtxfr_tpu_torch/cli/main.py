@@ -94,6 +94,7 @@ the device seeded by ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -287,11 +288,15 @@ def run_tud(args, device, timings: dict | None = None, mesh=None):
     CLI's keys and shapes: reduced, (n_out, nZs, nLay) and (n_out, nLay),
     where the banded operator applies, else at full resolution with the
     mu axis, (nX, nZs, 1, nLay) and (nX, nLay). ``timings``, when given,
-    receives ``build_s`` (lines, plans, operators), ``members_s`` (all
-    members computed in this call, products on the host), ``chunk_s`` (the
-    seconds of each batch computed) and, with ``--jacobian``,
-    ``jacobian_s``. With ``--checkpoint`` only the pending batches are
-    computed and the products are gathered from the batch files.
+    receives ``report``, the report of the :class:`~..utils.PhaseTimer`
+    charged the JAX CLI's phases (``build``; a batch's ``od+tud+reduce``
+    on the kernels, ``tud`` with ``--mesh-*``, or each member's ``od``,
+    ``tud`` and ``reduce`` with ``--engine jnp``; ``jacobian``), and the
+    seconds read from it: ``build_s`` (lines, plans, operators), ``chunk_s`` (each
+    batch computed) and, with ``--jacobian``, ``jacobian_s``; besides,
+    ``members_s`` (all members computed in this call, products on the
+    host). With ``--checkpoint`` only the pending batches are computed and
+    the products are gathered from the batch files.
 
     ``--mesh-*`` runs the sharded path on ``mesh`` (None: an (E x S) mesh
     of the visible cards; a mesh given must have the flags' shape), its
@@ -302,7 +307,9 @@ def run_tud(args, device, timings: dict | None = None, mesh=None):
     from ..dist.mesh import ENSEMBLE, SPECTRUM, make_mesh
     from ..kernels.linemixing_data import y_air_for_store
     from ..lines.store import IsoTables
+    from ..utils import PhaseTimer, device_sync
 
+    timer = PhaseTimer()
     shape = {ENSEMBLE: args.mesh_ensemble, SPECTRUM: args.mesh_spectrum}
     if mesh is None and args.mesh_spectrum * args.mesh_ensemble > 1:
         mesh = make_mesh(args.mesh_ensemble, args.mesh_spectrum)
@@ -314,73 +321,88 @@ def run_tud(args, device, timings: dict | None = None, mesh=None):
     device = resolve_device(device)
     f32 = torch.float32
 
-    t0 = time.perf_counter()
-    store = _load_lines(args, device)
-    iso = IsoTables.load(device=device, dtype=f32)
-    base = std_atmosphere(device=device, dtype=f32)
-    X = arange_drift_free(args.numin, args.numax, args.dv)
-    grid = torch.as_tensor(X, dtype=f32, device=device)
+    with timer.phase("build"):
+        store = _load_lines(args, device)
+        iso = IsoTables.load(device=device, dtype=f32)
+        base = std_atmosphere(device=device, dtype=f32)
+        X = arange_drift_free(args.numin, args.numax, args.dv)
+        grid = torch.as_tensor(X, dtype=f32, device=device)
 
-    draws = ensemble_draws(args.n_atmos, args.seed)
+        draws = ensemble_draws(args.n_atmos, args.seed)
 
-    line_mixing = None
-    if args.line_mixing:
-        y = y_air_for_store(store.host_view())
-        n_mix = int((y != 0.0).sum())
-        line_mixing = {"y_air": y} if n_mix else None
-        print(f"line mixing: derived Rosenkranz y_air on {n_mix} CO2 "
-              f"branch lines (Sum S*Y = 0 enforced by construction)")
-    if mesh is not None:
-        members, X_red, jac_fn = _mesh_members(args, store, iso, X, base,
-                                               draws, line_mixing, mesh,
-                                               device)
-    else:
-        member = _member_fn(args, store, iso, X, grid, base, line_mixing,
-                            device)
-        X_red = X
+        line_mixing = None
+        if args.line_mixing:
+            y = y_air_for_store(store.host_view())
+            n_mix = int((y != 0.0).sum())
+            line_mixing = {"y_air": y} if n_mix else None
+            print(f"line mixing: derived Rosenkranz y_air on {n_mix} CO2 "
+                  f"branch lines (Sum S*Y = 0 enforced by construction)")
+        if mesh is not None:
+            members, X_red, jac_fn = _mesh_members(
+                args, store, iso, X, base, draws, line_mixing, mesh, device)
+        else:
+            member = _member_fn(args, store, iso, X, grid, base,
+                                line_mixing, device, timer)
+            X_red = X
 
-        def members(indices):
-            return [member(*ensemble_member(base, draws, int(i)))
-                    for i in indices]
+            def members(indices):
+                return [member(*ensemble_member(base, draws, int(i)))
+                        for i in indices]
 
-        def jac_fn(op):
-            return _jacobian(args, store, iso, grid, base, op, line_mixing,
-                             device)
-    x_lo, reduce_one, op = _reducer(X_red, args.dv_out, device)
-    n = X.size
+            def jac_fn(op):
+                return _jacobian(args, store, iso, grid, base, op,
+                                 line_mixing, device)
+        x_lo, reduce_one, op = _reducer(X_red, args.dv_out, device)
+        n = X.size
 
-    def reduce(tau, Lu, Ld):
-        # all sensor altitudes, as the reference stores them
-        # (Generate_LWIR_TUD.py:96-132)
-        return tuple(reduce_one(a[:n]) for a in (tau[:, :, 0], Lu[:, :, 0],
-                                                 Ld))
+        def reduce(tau, Lu, Ld):
+            # all sensor altitudes, as the reference stores them
+            # (Generate_LWIR_TUD.py:96-132)
+            return tuple(reduce_one(a[:n])
+                         for a in (tau[:, :, 0], Lu[:, :, 0], Ld))
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    build_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     chunk_s = []
 
+    if mesh is not None:
+        batch_phase = ("tud", X.size)
+    elif args.engine != "jnp":
+        batch_phase = ("od+tud+reduce", store.n_lines * base.n_layers)
+    else:
+        batch_phase = None     # the engine's members: od, tud, reduce
+
+    def reduce_member(prod):
+        if batch_phase is not None:
+            return reduce(*prod)
+        with timer.phase("reduce"):
+            return device_sync(reduce(*prod))
+
     def compute_batch(indices):
-        tc = time.perf_counter()
-        parts = {"tau": [], "Lu": [], "Ld": []}
-        for prod in members(indices):
-            for k, v in zip(parts, reduce(*prod)):
-                parts[k].append(v)
-        out = {k: torch.stack(v).cpu().numpy() for k, v in parts.items()}
-        chunk_s.append(time.perf_counter() - tc)
+        charged = sum(timer.phases.values())
+        with (timer.phase(batch_phase[0],
+                          work_items=len(indices) * batch_phase[1])
+              if batch_phase else contextlib.nullcontext()):
+            parts = {"tau": [], "Lu": [], "Ld": []}
+            for prod in members(indices):
+                for k, v in zip(parts, reduce_member(prod)):
+                    parts[k].append(v)
+            out = {k: torch.stack(v).cpu().numpy() for k, v in parts.items()}
+        chunk_s.append(sum(timer.phases.values()) - charged)
         return out
 
     t1 = time.perf_counter()
     out = _run_batches(args, compute_batch)
-    if timings is not None:
-        timings.update(build_s=build_s, members_s=time.perf_counter() - t1,
-                       chunk_s=chunk_s)
+    members_s = time.perf_counter() - t1
     if args.jacobian:
-        t2 = time.perf_counter()
-        out.update(jac_fn(op))
-        if timings is not None:
-            timings["jacobian_s"] = time.perf_counter() - t2
+        with timer.phase("jacobian"):
+            out.update(jac_fn(op))
+    if timings is not None:
+        timings.update(report=timer.report(), build_s=timer.phases["build"],
+                       members_s=members_s, chunk_s=chunk_s)
+        if args.jacobian:
+            timings["jacobian_s"] = timer.phases["jacobian"]
     return x_lo, out
 
 
@@ -475,13 +497,15 @@ def _mesh_jacobian(args, store, iso, X, base, line_mixing, mesh, op):
     return out
 
 
-def _member_fn(args, store, iso, X, grid, base, line_mixing, device):
+def _member_fn(args, store, iso, X, grid, base, line_mixing, device, timer):
     """``member(T, vmr) -> (tau, Lu, Ld)`` at full resolution, tau/Lu
     (nX, nZs, 1) and Ld (nX,): the kernels' builders (``auto``,
-    ``pallas``) or the reference engine (``jnp``)."""
+    ``pallas``) or the reference engine (``jnp``, its ``od`` and ``tud``
+    charged to ``timer``)."""
     from ..core.planck import planckian
     from ..products.od import compute_od_layers, make_od_fn
     from ..products.tud import make_tud_fn, tud_from_od
+    from ..utils import device_sync
 
     if args.engine != "jnp":
         od_fn = make_od_fn(store, iso, X, base, continuum=args.continuum,
@@ -497,12 +521,15 @@ def _member_fn(args, store, iso, X, grid, base, line_mixing, device):
     alts = torch.as_tensor(args.altitudes, dtype=grid.dtype, device=device)
 
     def member(T, vmr):
-        od = compute_od_layers(store, iso, grid,
-                               dataclasses.replace(base, T=T, vmr=vmr),
-                               engine="jnp", continuum=args.continuum,
-                               line_mixing=line_mixing)
-        B = planckian(grid, T).transpose(0, 1).to(od.dtype)
-        tud = tud_from_od(grid, od, B, base.z0, alts, n_angles=args.n_angles)
+        with timer.phase("od", work_items=store.n_lines * base.n_layers):
+            od = device_sync(compute_od_layers(
+                store, iso, grid, dataclasses.replace(base, T=T, vmr=vmr),
+                engine="jnp", continuum=args.continuum,
+                line_mixing=line_mixing))
+        with timer.phase("tud", work_items=X.size):
+            B = planckian(grid, T).transpose(0, 1).to(od.dtype)
+            tud = device_sync(tud_from_od(grid, od, B, base.z0, alts,
+                                          n_angles=args.n_angles))
         return tud.tau, tud.Lu, tud.Ld
     return member
 
@@ -567,6 +594,7 @@ def cmd_tud(args):
           f"{timings['members_s']:.3f} s ({n / timings['members_s']:.3f} "
           f"spectra/s)" + (f"; jacobian {timings['jacobian_s']:.3f} s"
                            if args.jacobian else ""))
+    print(timings["report"])
     if args.output:
         _write_tud_h5(args.output, x_lo, out, args.altitudes)
 
@@ -1109,7 +1137,10 @@ def build_parser():
 
 
 def main(argv=None):
+    from ..utils import enable_persistent_cache
+
     args = build_parser().parse_args(argv)
+    enable_persistent_cache()
     args.fn(args)
 
 

@@ -89,7 +89,7 @@ import math
 import numpy as np
 import torch
 
-from .. import _build, resolve_device
+from .. import _build, as_numpy, resolve_device
 from .._build import check_tensor
 from ..core.constants import LN2, SQRT_LN2_DIV_SQRT_PI
 from .faddeeva import REGION_BOUND, weideman_coeffs
@@ -174,8 +174,9 @@ class UniformGrid:
     @staticmethod
     def from_axis(X) -> "UniformGrid":
         # tolerance scales with the input dtype: a float32 axis at
-        # nu ~ 1000 cm^-1 carries ~6e-5 cm^-1 of per-point rounding
-        X = np.asarray(X)
+        # nu ~ 1000 cm^-1 carries ~6e-5 cm^-1 of per-point rounding;
+        # a tensor is copied off its device
+        X = as_numpy(X)
         eps = np.finfo(X.dtype).eps if X.dtype.kind == "f" else 1e-16
         X = X.astype(np.float64)
         dx = float((X[-1] - X[0]) / (X.size - 1))

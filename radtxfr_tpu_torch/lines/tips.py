@@ -21,6 +21,10 @@ T_NODE0 = 60.0
 T_NODE_STEP = 25.0
 N_NODES = 119
 
+#: Valid temperature range enforced by the reference (misc/hapi.py:9571)
+T_MIN = 70.0
+T_MAX = 3000.0
+
 
 @functools.lru_cache(maxsize=1)
 def load_tips_tables():
@@ -74,3 +78,14 @@ def partition_sum(q_table: torch.Tensor, iso_row: torch.Tensor,
     q4 = w0_4 * b0 + w1_4 * b1 + w2_4 * b2 + w3_4 * b3
     q3 = w0_3 * b0 + w1_3 * b1 + w2_3 * b2
     return torch.where(use3, q3, q4)
+
+
+def partition_sum_ratio(q_table: torch.Tensor, iso_row, T,
+                        t_ref: float = 296.0) -> torch.Tensor:
+    """Q(T_ref)/Q(T): the factor entering HITRAN intensity scaling."""
+    T = torch.as_tensor(T, dtype=q_table.dtype, device=q_table.device)
+    q_t = partition_sum(q_table, iso_row, T)
+    q_ref = partition_sum(q_table, iso_row,
+                          torch.tensor(t_ref, dtype=T.dtype,
+                                       device=T.device))
+    return q_ref / q_t

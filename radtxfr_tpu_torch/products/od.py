@@ -65,6 +65,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import as_numpy
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
                               C_MASS_MOL, K_BOLTZMANN_CGS, P_REF, PA_PER_ATM,
                               T_REF)
@@ -272,7 +273,7 @@ group_layers_by_wing = group_by_wing
 
 def _uniform_grid(grid) -> UniformGrid:
     return (grid if isinstance(grid, UniformGrid)
-            else UniformGrid.from_axis(np.asarray(_host(grid))))
+            else UniformGrid.from_axis(grid))
 
 
 def make_od_plan(lines, iso, grid, atmos, wing_abs=0.0, wing_hw=50.0,
@@ -300,16 +301,14 @@ def _as_states(atmos_class):
             else [atmos_class])
 
 
-def _host(a):
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
-
-
 def _host_planning_views(lines, iso, atmos_class):
     """Host NumPy views of everything static planning reads."""
-    iso_h = dataclasses.replace(iso, **{f.name: _host(getattr(iso, f.name))
-                                        for f in dataclasses.fields(iso)})
+    iso_h = dataclasses.replace(iso, **{
+        f.name: as_numpy(getattr(iso, f.name))
+        for f in dataclasses.fields(iso)})
     states_h = [dataclasses.replace(s, **{
-        f: _host(getattr(s, f)) for f in ("z0", "z1", "pl", "p", "T", "vmr")})
+        f: as_numpy(getattr(s, f))
+        for f in ("z0", "z1", "pl", "p", "T", "vmr")})
         for s in _as_states(atmos_class)]
     return lines.host_view(), iso_h, states_h
 
@@ -905,8 +904,7 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
             f"differentiable OD with profile {profile!r}: the tangent "
             "kernels are the Voigt (K3) and SD-Voigt (K4) ones; the JAX "
             "package has no Lorentz or Doppler tangent")
-    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
     mix_idx = None
     if line_mixing is not None:
@@ -1127,8 +1125,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
     """
     _check_build_opts(fast_rcp, tile=tile, far_tile=far_tile,
                       far_block=far_block)
-    g0 = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g0 = _uniform_grid(grid)
     # pad so that every call's tile divides the shard's points: the far
     # pass uses far_tile (2 tile with two_pass), the core pass <= max(512,
     # tile), all powers of two; the alignment is taken before
@@ -1240,8 +1237,7 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
     if profile == "ht":
         raise NotImplementedError(
             "profile 'ht': the Hartmann-Tran lattice is make_ht_fn")
-    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
     T_c = np.asarray(T_class, dtype=np.float64).ravel()
     p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
@@ -1444,8 +1440,7 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
     _check_build_opts(fast_rcp, tile=tile)
     if diluent is None:
         diluent = {"air": 1.0}
-    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
     T_c = np.asarray(T_class, dtype=np.float64).ravel()
     p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
@@ -1524,8 +1519,7 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
     ``fast_rcp=True`` raises ``NotImplementedError`` (IEEE division only).
     """
     _check_build_opts(fast_rcp, tile=tile)
-    g = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
     mol_ids = tuple(states_h[0].mol_ids)
@@ -1576,7 +1570,7 @@ def compute_od_layer(lines, iso, grid, T, p_pa, pl_km, vmr_row, species_cols,
 def _grid_values(grid) -> np.ndarray:
     """The float64 host values of an axis or a :class:`UniformGrid`."""
     return (grid.values() if isinstance(grid, UniformGrid)
-            else np.asarray(_host(grid), dtype=np.float64))
+            else as_numpy(grid).astype(np.float64))
 
 
 #: the Pallas kernels' evaluation options that have no counterpart here

@@ -23,7 +23,7 @@ from ..kernels.fused_xsect import (DevicePlan, UniformGrid, plan_buckets,
                                    xsect_fused)
 from ..lines.store import LineStore
 from .od import (_build_od_calls, _check_build_opts, _host_planning_views,
-                 _layer_params, _line_species_cols)
+                 _layer_params, _line_species_cols, _uniform_grid)
 
 __all__ = ["make_od_sharded_lines_fn"]
 
@@ -57,8 +57,7 @@ def make_od_sharded_lines_fn(lines, iso, grid, atmos_class, n_shards: int,
       ``k_offset = s * n_local``.
     """
     _check_build_opts(fast_rcp, tile=tile)
-    g0 = grid if isinstance(grid, UniformGrid) else UniformGrid.from_axis(
-        np.asarray(grid))
+    g0 = _uniform_grid(grid)
     align = 1024 * n_shards
     n_pad = -(-g0.n // align) * align
     g = UniformGrid(x0=g0.x0, dx=g0.dx, n=n_pad)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import as_tensor_on
+from ..utils.precision import f32_matmuls as _f32_matmuls
 from .generative import PCAModel, pca_fit
 
 __all__ = [
@@ -54,6 +55,7 @@ def od_inverse(od):
     return -torch.expm1(-as_tensor_on(od))
 
 
+@_f32_matmuls
 def pca_compress(emis, n_components: int = 48, tol: float = 1e-4):
     """Whitened PCA of the OD-transformed emissivity matrix: returns
     ``(model, features, emis_recon)``, the features the whitened scores,
@@ -75,11 +77,13 @@ class ICAModel:
     unmix: torch.Tensor   # (k, k) rotation found by FastICA
     mixing: torch.Tensor  # (d, k) mixing matrix (sklearn's ``mixing_``)
 
+    @_f32_matmuls
     def transform(self, X):
         """Data -> independent sources (n, k)."""
         X = as_tensor_on(X, self.mean.device, self.mean.dtype)
         return ((X - self.mean) @ self.whiten.T) @ self.unmix.T
 
+    @_f32_matmuls
     def inverse_transform(self, S):
         """Sources -> data space (n, d)."""
         S = as_tensor_on(S, self.mean.device, self.mean.dtype)
@@ -117,6 +121,7 @@ def _fast_ica(X, W0, n_iter: int = 200) -> ICAModel:
     return ICAModel(mean=mean, whiten=whiten, unmix=W, mixing=mixing)
 
 
+@_f32_matmuls
 def fast_ica(X, n_components: int, generator: torch.Generator | None = None,
              n_iter: int = 200) -> ICAModel:
     """Parallel (symmetric) FastICA with the logcosh contrast (sklearn
@@ -141,6 +146,7 @@ class NMFModel:
     W: torch.Tensor  # (n, k) per-sample activations
     H: torch.Tensor  # (k, d) non-negative basis spectra
 
+    @_f32_matmuls
     def inverse_transform(self, W=None):
         W = self.W if W is None else as_tensor_on(W, self.H.device,
                                                   self.H.dtype)
@@ -157,6 +163,7 @@ def _nmf(X, W0, H0, n_iter: int = 400, eps: float = 1e-9) -> NMFModel:
     return NMFModel(W=W, H=H)
 
 
+@_f32_matmuls
 def nmf(X, n_components: int, generator: torch.Generator | None = None,
         n_iter: int = 400, eps: float = 1e-9) -> NMFModel:
     """Non-negative matrix factorization ``X ~= W H`` (Frobenius loss;
@@ -219,12 +226,14 @@ class BSplineFit:
     design: torch.Tensor  # (nX, n_coef) B-spline basis on the fit axis
     coefs: torch.Tensor   # (n_mat, n_coef) per-material spline coefficients
 
+    @_f32_matmuls
     def reconstruct(self):
         """emis = exp(-|B c|) per material (the reference's ``emisFcn``,
         ``Generate_Emissivity_DB.py:137-139``) -> (nX, n_mat)."""
         return torch.exp(-torch.abs(self.design @ self.coefs.T))
 
 
+@_f32_matmuls
 def bspline_fit_emissivity(X, emis, n_knots: int = 48, degree: int = 3,
                            tol: float = 1e-4) -> BSplineFit:
     """Fit ``-log(eps)`` of every material with one minimum-norm

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import as_tensor_on
+from ..utils.precision import f32_matmuls as _f32_matmuls
 
 __all__ = [
     "PCAModel", "pca_fit",
@@ -73,15 +74,18 @@ class PCAModel:
     scale: torch.Tensor       # (k,) sqrt(explained variance), for whitening
     explained_variance_ratio: torch.Tensor  # (k,)
 
+    @_f32_matmuls
     def transform(self, X):
         X = as_tensor_on(X, self.mean.device, self.mean.dtype)
         return ((X - self.mean) @ self.components.T) / self.scale
 
+    @_f32_matmuls
     def inverse_transform(self, Z):
         Z = as_tensor_on(Z, self.mean.device, self.mean.dtype)
         return (Z * self.scale) @ self.components + self.mean
 
 
+@_f32_matmuls
 def pca_fit(X, n_components: int) -> PCAModel:
     """Whitened PCA by SVD (sklearn ``PCA(whiten=True)`` semantics). The
     components' signs are the SVD's, so compare reconstructions, not
@@ -154,6 +158,7 @@ def _gmm_fit(X, k0, n_iter: int = 200, reg: float = 1e-6) -> GMMModel:
     return GMMModel(weights=w, means=mu, chols=ch)
 
 
+@_f32_matmuls
 def gmm_fit(generator: torch.Generator, X, n_components: int,
             n_iter: int = 200, reg: float = 1e-6) -> GMMModel:
     """EM fit of a full-covariance GMM (plain maximum likelihood), seeded
@@ -238,6 +243,7 @@ def _bgmm_fit(X, k0, n_iter: int = 500, reg: float = 1e-6,
     return GMMModel(weights=w, means=m, chols=_cholesky(cov))
 
 
+@_f32_matmuls
 def bgmm_fit(generator: torch.Generator, X, n_components: int,
              n_iter: int = 500, reg: float = 1e-6,
              weight_concentration_prior: float | None = None) -> GMMModel:
@@ -274,6 +280,7 @@ def gmm_prune(model: GMMModel, threshold: float = 1e-3) -> GMMModel:
                     means=model.means[keep_t], chols=model.chols[keep_t])
 
 
+@_f32_matmuls
 def gmm_log_prob(model: GMMModel, X):
     """Per-sample log density (sklearn ``score_samples``)."""
     X = as_tensor_on(X, model.means.device, model.means.dtype)
@@ -281,12 +288,14 @@ def gmm_log_prob(model: GMMModel, X):
     return torch.logsumexp(logp + torch.log(model.weights)[None, :], dim=1)
 
 
+@_f32_matmuls
 def gmm_predict(model: GMMModel, X):
     X = as_tensor_on(X, model.means.device, model.means.dtype)
     logp = _log_gauss(X, model.means, model.chols)
     return torch.argmax(logp + torch.log(model.weights)[None, :], dim=1)
 
 
+@_f32_matmuls
 def gmm_sample(generator: torch.Generator, model: GMMModel, n: int):
     """``n`` draws of the mixture: components by weight, then
     mean + chol @ standard normal."""

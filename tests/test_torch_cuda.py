@@ -952,3 +952,58 @@ def test_ht_kernels_zero_offset_bit_identical(dev):
     bad = dataclasses.replace(dp, tile_off=z.tile_off.long())
     with pytest.raises(TypeError, match="int32"):
         fused_ht.xsect_ht(bad, lay, s, w, consts)
+
+
+def test_builders_take_a_grid_tensor_on_the_card(dev):
+    """``compute_od_layers(engine="pallas")`` (through ``make_od_fn``) and
+    ``make_xsect_fn`` take the grid as a tensor on the card, as the JAX
+    builders take a device array, with the bits of a host grid."""
+    from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
+    from radtxfr_tpu_torch.products.od import (compute_od_layers,
+                                               make_xsect_fn)
+
+    X = arange_drift_free(800.0, 805.0, 0.005)
+    grid = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    lines = synthetic_lines(200, nu_min=790.0, nu_max=815.0, seed=2,
+                            device=dev)
+    iso = IsoTables.load(device=dev)
+    atm = std_atmosphere(device=dev)
+    assert torch.equal(
+        compute_od_layers(lines, iso, grid, atm, engine="pallas"),
+        compute_od_layers(lines, iso, X, atm, engine="pallas"))
+    T = torch.tensor([250.0, 290.0], device=dev)
+    p = torch.tensor([0.5, 1.0], device=dev)
+    assert torch.equal(make_xsect_fn(lines, iso, grid, T.cpu(), p.cpu())(T, p),
+                       make_xsect_fn(lines, iso, X, T.cpu(), p.cpu())(T, p))
+
+
+def test_od_from_xs_on_the_card(dev):
+    """``od_from_xs`` on the card (float32) against the CPU's float64 on
+    the same table and states within 1e-6 of peak (the standard atmosphere
+    leaves the lattice on both axes: the clamped edges too); TF32 for
+    ``precision="default"`` only, the package's setting (off) restored."""
+    import dataclasses
+
+    import numpy as np
+
+    from radtxfr_tpu_torch.products.od_from_xs import XsTable, od_from_xs
+
+    rng = np.random.default_rng(4)
+    sigma = rng.uniform(0.0, 1e-21, (2, 4, 3, 50001)).astype(np.float32)
+    T = np.array([230.0, 260.0, 290.0, 320.0])
+    logp = np.log(np.array([0.2, 0.6, 1.0]))
+    x = np.linspace(800.0, 1300.0, 50001)
+    card = XsTable.from_numpy(sigma, T, logp, x, (1, 2), device=dev)
+    host = XsTable.from_numpy(sigma, T, logp, x, (1, 2), device="cpu",
+                              dtype=torch.float64)
+    atm = std_atmosphere(device=dev)
+    atm64 = dataclasses.replace(atm, **{
+        f: getattr(atm, f).double().cpu()
+        for f in ("z0", "z1", "pl", "p", "T", "vmr")})
+    got = od_from_xs(card, atm)
+    want = od_from_xs(host, atm64)
+    assert got.shape == (66, 50001) and got.device.type == "cuda"
+    assert (got.double().cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+    fast = od_from_xs(card, atm, precision="default")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert (fast - got).abs().max() <= 1e-2 * got.abs().max()

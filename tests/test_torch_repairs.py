@@ -34,6 +34,11 @@ rule against the plain version's window mask.
   PART4's CPF3 test, so the range must hold every in-window point that
   pcqsdhc's per-point test sends to Weideman, and no point outside it may
   take CPF3. K6's rows are ``live_directions``' (direction, layer) rows.
+* The single-device modules ported last: ``partition_sum_ratio`` over
+  70-3000 K for every isotopologue row, ``load_mt_ckd_tables`` on an HDF5
+  file and ``set_h2o_tables`` moving both packages' ``mt_ckd`` continuum
+  (pointwise and layered) the same way, ``branch_profile_full_w`` and
+  ``lines.golden``'s anchors, against JAX's.
 * K4 (``csrc/fused_xsect_jvp.cu``) culls by the same window rule on the
   HT Jacobian's and the differentiable SD-Voigt OD's ``sdvoigt`` passes;
   a span outside a pair's Weideman range (``sd_near_range``: K5's PART4
@@ -48,6 +53,7 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -58,7 +64,7 @@ from port_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBPACKAGES = ("core", "lines", "kernels", "atmos", "products", "sensor",
-               "io", "dist", "scene")
+               "io", "dist", "scene", "utils")
 
 
 def _jax_exports(rel):
@@ -911,3 +917,174 @@ def test_group_layers_by_wing_alias():
     for (i, w), (j_i, j_w) in zip(got, want):
         np.testing.assert_array_equal(i, j_i)
         assert w == j_w
+
+
+# ---------------------------------------------------------------------------
+# The single-device modules: TIPS ratio, MT_CKD tables, the resolvent
+# oracle, the golden anchors
+# ---------------------------------------------------------------------------
+
+def test_partition_sum_ratio_matches_jax():
+    """``partition_sum_ratio`` (and ``T_MIN``/``T_MAX``) against JAX's
+    within 1e-12 relative over 70-3000 K for every isotopologue row, at
+    the default and another reference temperature."""
+    import jax.numpy as jnp
+    from radtxfr_tpu.lines import tips as j_tips
+    from radtxfr_tpu_torch.lines import partition_sum_ratio, tips
+
+    assert (tips.T_MIN, tips.T_MAX) == (j_tips.T_MIN, j_tips.T_MAX)
+    q = tips.load_tips_tables()[3]
+    rows = np.arange(q.shape[0])[:, None]
+    T = np.linspace(tips.T_MIN, tips.T_MAX, 397)[None, :]
+    for t_ref in (296.0, 250.0):
+        want = np.asarray(j_tips.partition_sum_ratio(
+            jnp.asarray(q), jnp.asarray(rows), jnp.asarray(T), t_ref=t_ref))
+        got = partition_sum_ratio(torch.as_tensor(q), torch.as_tensor(rows),
+                                  torch.as_tensor(T), t_ref=t_ref).numpy()
+        assert got.shape == want.shape == (q.shape[0], 397)
+        # where a row's table holds zeros (the reference's tables of some
+        # isotopologues) the ratio is NaN or infinite in both packages
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+        assert np.isfinite(got).mean() > 0.9
+
+
+@pytest.fixture
+def h2o_tables_restored():
+    """Both packages' installed H2O continuum tables, put back after the
+    test."""
+    from radtxfr_tpu.atmos import continuum as j_cont
+    from radtxfr_tpu_torch.atmos import continuum as cont
+
+    before = (j_cont._ACTIVE_H2O_TABLES, cont._ACTIVE_H2O_TABLES)
+    yield j_cont, cont
+    j_cont.set_h2o_tables(before[0])
+    cont.set_h2o_tables(before[1])
+
+
+def _mt_ckd_file(path, names):
+    """An AER-style MT_CKD coefficient file: smooth coefficients over
+    400-7100 cm^-1 under the dataset ``names``."""
+    import h5py
+
+    nu = np.linspace(400.0, 7100.0, 1341)
+    base = 1e-26 * np.exp(-(nu - 400.0) / 900.0) + 1e-29
+    with h5py.File(path, "w") as f:
+        f[names[0]] = nu
+        f[names[1]] = 3.0 * base
+        f[names[2]] = 5.0 * base
+        f[names[3]] = 0.2 * base
+        f["ref_temp"] = np.array([296.0])
+
+
+def test_mt_ckd_tables_and_set_h2o_tables_match_jax(tmp_path,
+                                                    h2o_tables_restored):
+    """``load_mt_ckd_tables`` on a file the test writes gives JAX's arrays
+    (exact dataset names, and the fuzzy binding with its warning); after
+    ``set_h2o_tables`` in both packages the ``mt_ckd`` continuum, pointwise
+    (``continuum_od``) and layered (``make_layered_mt_ckd``, its default
+    ``tables`` read at call time), agrees with JAX's within 1e-12 relative
+    and differs from the packaged tables' in both packages."""
+    import jax.numpy as jnp
+    from radtxfr_tpu.atmos import std_atmosphere as j_std_atmosphere
+    from radtxfr_tpu_torch.atmos.profile import std_atmosphere
+
+    j_cont, cont = h2o_tables_restored
+    exact = str(tmp_path / "exact.nc")
+    _mt_ckd_file(exact, ("wavenumbers", "self_absco_ref", "self_absco_260",
+                         "for_absco_ref"))
+    fuzzy = str(tmp_path / "fuzzy.nc")
+    _mt_ckd_file(fuzzy, ("Wavenumber_grid", "Self_Ref_296", "self_at_260K",
+                         "for_absco_296"))
+    for path in (exact, fuzzy):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = cont.load_mt_ckd_tables(path)
+            want = j_cont.load_mt_ckd_tables(path)
+        # four bindings each, the port's and JAX's
+        assert sum("fuzzily bound" in str(w.message) for w in caught) \
+            == (8 if path == fuzzy else 0)
+        for f in ("nu", "cs296", "cs260", "cf"):
+            np.testing.assert_array_equal(getattr(got, f),
+                                          getattr(want, f))
+    bad = str(tmp_path / "bad.nc")
+    _mt_ckd_file(bad, ("a", "b", "c", "d"))
+    with pytest.raises(KeyError):
+        cont.load_mt_ckd_tables(bad)
+
+    nu = np.linspace(700.0, 1300.0, 301)
+    atm = std_atmosphere(device="cpu", dtype=torch.float64)
+    j_atm = j_std_atmosphere()
+    cf = torch.ones(7, dtype=torch.float64)
+
+    def port():
+        layered = cont.make_layered_mt_ckd(nu, atm.mol_ids, device="cpu",
+                                           dtype=torch.float64)
+        return (cont.continuum_od(torch.as_tensor(nu), atm, "mt_ckd").numpy(),
+                layered(atm.T, atm.p, atm.pl, atm.vmr, cf).numpy())
+
+    def jax():
+        layered = j_cont.make_layered_mt_ckd(nu, j_atm.mol_ids)
+        return (np.asarray(j_cont.continuum_od(jnp.asarray(nu), j_atm,
+                                               "mt_ckd")),
+                np.asarray(layered(j_atm.T, j_atm.p, j_atm.pl, j_atm.vmr,
+                                   jnp.ones(7))))
+
+    packaged = port()
+    j_cont.set_h2o_tables(j_cont.load_mt_ckd_tables(exact))
+    cont.set_h2o_tables(cont.load_mt_ckd_tables(exact))
+    assert cont._ACTIVE_H2O_TABLES is not cont.H2O_CONTINUUM_LWIR
+    installed, j_installed = port(), jax()
+    for got, want, before in zip(installed, j_installed, packaged):
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+        assert np.abs(got - before).max() > 1e-3 * np.abs(before).max()
+    # an explicit table still wins over the installed one
+    explicit = cont.make_layered_mt_ckd(
+        nu, atm.mol_ids, device="cpu", dtype=torch.float64,
+        tables=cont.H2O_CONTINUUM_LWIR)(atm.T, atm.p, atm.pl, atm.vmr, cf)
+    np.testing.assert_array_equal(explicit.numpy(), packaged[1])
+    # the coverage check reads the installed table too
+    cont.set_h2o_tables(cont.H2OContinuumTables(
+        nu=[800.0, 900.0], cs296=[1e-22, 1e-22], cs260=[2e-22, 2e-22],
+        cf=[1e-24, 1e-24]))
+    with pytest.warns(UserWarning, match="covers 800-900"):
+        cont.check_h2o_table_coverage(700.0, 1000.0)
+
+
+def test_branch_profile_full_w_matches_jax():
+    """The exact resolvent oracle on a derived CO2 Q branch equals JAX's
+    (both float64 NumPy on the host)."""
+    from radtxfr_tpu.kernels import linemixing_data as j_lm
+    from radtxfr_tpu_torch.kernels import linemixing_data as lm
+    from radtxfr_tpu_torch.lines.derived import co2_lwir_lines
+
+    rows = co2_lwir_lines()
+    m = (rows["band"] == rows["band"][0]) & (rows["dJ"] == 0)
+    k = np.nonzero(m)[0][:12]
+    args = [rows[c][k] for c in ("nu0", "sw", "gamma_air", "elower")]
+    grid = np.linspace(args[0].min() - 1.0, args[0].max() + 1.0, 120)
+    for p_atm in (0.5, 1.0):
+        got = lm.branch_profile_full_w(grid, *args, 260.0, p_atm)
+        want = j_lm.branch_profile_full_w(grid, *args, 260.0, p_atm)
+        np.testing.assert_array_equal(got, want)
+        assert np.abs(got).max() > 0.0
+    assert "branch_profile_full_w" in lm.__all__
+
+
+def test_golden_anchors_match_jax():
+    """``co2_laser_golden``, ``match_golden_positions`` and
+    ``band_intensity_residuals`` equal JAX's, on the port's derived list."""
+    from radtxfr_tpu.lines import golden as j_golden
+    from radtxfr_tpu_torch.lines import golden
+
+    for got, want in zip(golden.co2_laser_golden(),
+                         j_golden.co2_laser_golden()):
+        np.testing.assert_array_equal(got, want)
+    got, want = golden.match_golden_positions(), \
+        j_golden.match_golden_positions()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] and np.isfinite(got[1]).all()
+    assert golden.LITERATURE_BAND_INTENSITIES == \
+        j_golden.LITERATURE_BAND_INTENSITIES
+    assert golden.band_intensity_residuals() == \
+        j_golden.band_intensity_residuals()
