@@ -235,8 +235,33 @@ Phases, each printing its result on its own line:
    files', ``od_from_xs``'s (``"highest"`` and ``"default"``, against its
    byte and FLOP bounds) and K2's times and a served member's wall
    seconds.
-14. Each example of ``examples/torch/`` as a child process on the card
-   (``EXAMPLE_TIMEOUT`` seconds each): exit 0 and ``OK`` last.
+14. Each example of ``examples/torch/`` (01-05; 03 the hapi drop-in) as a
+   child process on the card (``EXAMPLE_TIMEOUT`` seconds each): exit 0 and
+   ``OK`` last.
+15. The hapi drop-in and the reference-signature layer. (a)
+   ``compat.compute_TUD(690, 1410, lines=<the derived list on the card>,
+   engine="pallas", continuum="mt_ckd")`` at ``DVOUT`` 5e-4 (66
+   ``StdAtmos`` layers, ``Altitudes`` [500], ``N_angle`` 30) with the
+   launch counts reset before and read after (K1 ``asym`` and ``core`` must
+   have run, K2 not: ``tud_from_od`` is plain torch) and the peak device
+   memory: finite, 0 <= tau <= 1, Lu and Ld > 0, bit-identical to
+   ``compute_od_layers(engine="pallas")`` + ``tud_from_od`` on the same
+   inputs and to a second call, whose wall seconds it prints. (b)
+   ``compat.compute_OD`` on the reference engine (float64) over 1000-1010
+   cm^-1 at 0.0025, card against CPU within 1e-10 of peak. (c) The reference
+   generator's hapi call (``misc/RT_gen_AbsXS_files.py:87-92``) in hapi's
+   names: the ``XS_CLI`` list written as a hapi table with its ``SD_air``
+   column, opened by ``db_begin(dir, device=...)``, and
+   ``absorptionCoefficient_SDVoigt(Components=[(M, 1)], OmegaStep=0.0025,
+   OmegaWing=350, HITRAN_units=True)`` for H2O and CO2 at the generator's
+   corner states (275 and 320 K; 0.85 and 1.05 atm), cut to 1000-1010
+   cm^-1, then the Voigt, Lorentz, Doppler and HT drivers once: card
+   against CPU (both float64; the SD-Voigt call at one corner a molecule,
+   ``HAPI_CPU_STATES``) within 1e-7 of peak (SD-Voigt and HT, pcqsdhc's
+   cancellation) or 1e-10; the seconds of each call on each device; the gap to the K1 lattice (``make_xsect_fn``, float32) on the
+   same lines and states, printed without a bound. (d)
+   ``radianceSpectrum`` and ``convolveSpectrum`` with each of the seven
+   slits on (c)'s output, card against CPU within 1e-12 of peak.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -262,8 +287,9 @@ FMUL-chain rate).
 It ends with one JSON line of kernel results (K1's production modes,
 ``full``, K3 and K4 also with ``offset_launches``: their launches with
 tile offsets in phase 12; K1's lattice modes and K2 also with
-``serving_launches``: their launches on phase 13's path) and, last, the
-device line.
+``serving_launches``: their launches on phase 13's path; K1 ``asym`` and
+``core`` also with ``compat_launches``: their launches in phase 15's
+``compat.compute_TUD``) and, last, the device line.
 Any failed check raises; the script then exits non-zero without the last
 line. There is no CPU fallback.
 """
@@ -332,6 +358,11 @@ from radtxfr_tpu_torch.scene.generative import (  # noqa: E402
     _airmass_features, _bgmm_fit, _gmm_fit, gmm_log_prob, rh_filter)
 from radtxfr_tpu_torch.scene.hsi import _hsi_compose  # noqa: E402
 from radtxfr_tpu_torch.sensor.ils import mako_axis_wn  # noqa: E402
+import radtxfr_tpu_torch.compat as rt  # noqa: E402
+from radtxfr_tpu_torch import hapi_compat as hc  # noqa: E402
+from radtxfr_tpu_torch.atmos.profile import AtmosphericState  # noqa: E402
+from radtxfr_tpu_torch.lines.hapi_db import save_table  # noqa: E402
+from radtxfr_tpu_torch.lines.store import LineStore  # noqa: E402
 
 ALTITUDES = [0.061, 0.305, 1.524, 3.048, 6.096, 9.144, 12.192, 15.24, 500.0]
 PRODUCTION = ("tud --derived --line-mixing --continuum mt_ckd --numin 690 "
@@ -3974,7 +4005,8 @@ def phase_serving(dev, card):
 
 # phase 14: each ported example as a child process on the card
 EXAMPLES = ("01_od_tud_quickstart.py", "02_production_tud_ensemble.py",
-            "04_xs_lattice_serving.py", "05_derived_physics.py")
+            "03_hapi_dropin.py", "04_xs_lattice_serving.py",
+            "05_derived_physics.py")
 EXAMPLE_TIMEOUT = 240
 
 
@@ -3993,6 +4025,251 @@ def phase_examples(card):
               f"\n{r.stderr[-3000:]}")
         print(f"[14 examples] {name} on the card: OK in {wall:.2f} s wall; "
               f"{lines[-2] if len(lines) > 1 else ''} [{card}]", flush=True)
+
+
+# phase 15: the hapi drop-in (hapi_compat) and the reference-signature
+# layer (compat). (a) compat.compute_TUD on the kernels at the production
+# width, bit-identical to the direct route; (b) compat.compute_OD on the
+# reference engine, card against CPU (float64); (c) the reference
+# generator's hapi call (misc/RT_gen_AbsXS_files.py:87-92) on the XS_CLI
+# list, cut to 1000-1010 cm^-1, at its corner states, and the other four
+# drivers once, card against CPU (float64; SD-Voigt and HT at pcqsdhc's
+# cancellation bound); (d) the spectra and the seven slits on (c)'s output
+HAPI_BAND = (1000.0, 1010.0)
+HAPI_STEP = 0.0025
+HAPI_T = (275.0, 320.0)
+HAPI_P = (0.85, 1.05)
+HAPI_MOLS = (1, 2)
+#: the SD-Voigt states also run on the CPU (its reference engine takes
+#: seconds a call there): one corner a molecule
+HAPI_CPU_STATES = ((1, 275.0, 0.85), (2, 320.0, 1.05))
+HAPI_SD_BOUND = 1e-7       # pcqsdhc: up to 1.6e-8 of peak an ulp (ROADMAP)
+HAPI_BOUND = 1e-10
+SPECTRA_BOUND = 1e-12
+COMPAT_OD = dict(DVOUT=0.0025, T=280.0, P=90000.0, PL=1.0,
+                 MF_ID=np.array([1, 2, 3]),
+                 MF_VAL=np.array([10000.0, 400.0, 0.05]), continuum="mt_ckd")
+HAPI_SLIT_NAMES = ("SLIT_RECTANGULAR", "SLIT_TRIANGULAR", "SLIT_GAUSSIAN",
+                   "SLIT_DISPERSION", "SLIT_COSINUS", "SLIT_DIFFRACTION",
+                   "SLIT_MICHELSON")
+
+
+def save_sd_table(store, directory, name):
+    """``save_table``'s hapi table of ``store`` with an ``SD_air`` column
+    appended (the column hapi's 'sdvoigt' parameter group fetches; the
+    standard ``.data`` columns carry none, so the drivers would see 0)."""
+    data = save_table(store, directory, name)
+    header_path = os.path.splitext(data)[0] + ".header"
+    with open(data) as f:
+        rows = f.read().splitlines()
+    with open(data, "w") as f:
+        for row, sd in zip(rows, store.host["sd_air"]):
+            f.write(row + "%9.6f" % sd + "\n")
+    with open(header_path) as f:
+        header = json.load(f)
+    header["order"].append("SD_air")
+    header["format"]["SD_air"] = "%9.6f"
+    header["default"]["SD_air"] = 0
+    header["size_in_bytes"] = os.path.getsize(data)
+    with open(header_path, "w") as f:
+        json.dump(header, f, indent=2)
+
+
+def hapi_on(where, directory, calls):
+    """Open ``directory`` with ``hapi_compat.db_begin`` on ``where`` and run
+    ``calls`` ((label, driver name, kwargs) ...): {label: (nu, k, s)}."""
+    for reg in (hc._TABLES, hc._EXTRAS, hc._META):
+        reg.clear()
+    hc.db_begin(directory, device=where)
+    out = {}
+    for label, name, kw in calls:
+        t0 = time.perf_counter()
+        nu, k = getattr(hc, name)(**kw)
+        out[label] = (nu, k, time.perf_counter() - t0)
+    return out
+
+
+def phase_hapi(dev, card):
+    """15: the hapi drop-in and compat (see HAPI_* above); returns the K1
+    launches of compat.compute_TUD by mode."""
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    # (a) the reference-signature TUD on the kernels at the production width
+    lines = derived_lwir_linelist(FULL_BAND[0] - MARGIN,
+                                  FULL_BAND[1] + MARGIN, device=dev,
+                                  dtype=f32)
+    kw = dict(lines=lines, engine="pallas", continuum="mt_ckd",
+              DVOUT=FULL_BAND[2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    X, tau, Lu, Ld = rt.compute_TUD(FULL_BAND[0], FULL_BAND[1], **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[15a compat] compute_TUD({FULL_BAND[0]:g}, {FULL_BAND[1]:g}, "
+          f"engine='pallas', continuum='mt_ckd', DVOUT {FULL_BAND[2]:g}): "
+          f"{X.size} points, 66 layers, Altitudes [500], N_angle 30; "
+          f"launches {dict((k, v) for k, v in launches.items() if v)}; "
+          f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+    for k in ("asym", "core"):
+        check(launches[k] > 0, f"compat.compute_TUD did not launch K1 {k}")
+    check(launches["tud"] == 0, "compat.compute_TUD composes in plain torch")
+    check(tau.shape == Lu.shape == Ld.shape == X.shape, "compat shapes")
+    for name, a in (("tau", tau), ("Lu", Lu), ("Ld", Ld)):
+        check(np.isfinite(a).all(), f"compat {name} not finite")
+    check(tau.min() >= 0.0 and tau.max() <= 1.0,
+          f"compat tau outside [0, 1]: [{tau.min()}, {tau.max()}]")
+    check(Lu.min() > 0.0 and Ld.min() > 0.0, "compat Lu and Ld must be > 0")
+    t0 = time.perf_counter()
+    again = rt.compute_TUD(FULL_BAND[0], FULL_BAND[1], **kw)
+    compat_s = time.perf_counter() - t0
+    # the same inputs through the port's own route
+    o = rt.DEFAULT_OPTIONS
+    atm = AtmosphericState.from_numpy(
+        z0=o["Zs"], z1=o["Zs"], pl=o["PLs"], p=o["Ps"], T=o["Ts"],
+        vmr=np.asarray(o["MFs_VAL"], dtype=np.float64) * 1e-6,
+        mol_ids=tuple(int(m) for m in o["MFs_ID"]), device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev)
+    t0 = time.perf_counter()
+    od = compute_od_layers(lines, iso, X, atm, engine="pallas",
+                           continuum="mt_ckd")
+    B = planckian(torch.as_tensor(X, device=dev),
+                  atm.T.double()).transpose(0, 1).to(f32)
+    ref = tud_from_od(torch.as_tensor(X, dtype=f32, device=dev), od, B,
+                      atm.z0, torch.tensor([500.0], dtype=f32, device=dev),
+                      mu=1.0, n_angles=30).squeezed()
+    ref = [a.cpu().numpy() for a in (ref.tau, ref.Lu, ref.Ld)]
+    direct_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip((tau, Lu, Ld), ref))
+    same_again = all(np.array_equal(a, b)
+                     for a, b in zip((tau, Lu, Ld), again[1:]))
+    print(f"[15a compat] tau in [{tau.min():.4g}, {tau.max():.4g}], Lu in "
+          f"[{Lu.min():.4g}, {Lu.max():.4g}], Ld in [{Ld.min():.4g}, "
+          f"{Ld.max():.4g}]; bit-identical to compute_od_layers(engine="
+          f"'pallas') + tud_from_od: {same}; to a second call: "
+          f"{same_again}; warm wall {compat_s:.3f} s a call (plans built "
+          f"each call), the direct route {direct_s:.3f} s [{card}]",
+          flush=True)
+    check(same, "compat.compute_TUD differs from the direct route")
+    check(same_again, "two compat.compute_TUD calls differ")
+    del lines, od, B, ref, again, tau, Lu, Ld
+    torch.cuda.empty_cache()
+
+    # (b) compat.compute_OD on the reference engine, float64
+    out = []
+    for where in (dev, cpu, dev):           # the card's second call warm
+        lines64 = derived_lwir_linelist(HAPI_BAND[0] - MARGIN,
+                                        HAPI_BAND[1] + MARGIN,
+                                        device=where, dtype=f64)
+        t0 = time.perf_counter()
+        Xo, od = rt.compute_OD(*HAPI_BAND, lines=lines64, **COMPAT_OD)
+        out.append((od, time.perf_counter() - t0))
+    out = {"card": out[2], "cpu": out[1]}
+    rel = np.abs(out["card"][0] - out["cpu"][0]).max() / \
+        np.abs(out["cpu"][0]).max()
+    print(f"[15b compat] compute_OD({HAPI_BAND[0]:g}, {HAPI_BAND[1]:g}, "
+          f"engine='jnp', float64, {Xo.size} points, {lines64.n_lines} "
+          f"lines): card vs CPU {rel:.3e} of peak; {out['card'][1]:.3f} s "
+          f"(warm) on the card, {out['cpu'][1]:.3f} s on the CPU [{card}]",
+          flush=True)
+    check(rel <= HAPI_BOUND, f"compute_OD card vs CPU {rel:.3e} > "
+          f"{HAPI_BOUND}")
+
+    # (c) the reference generator's hapi call, spelled in hapi names
+    args = xs_args(XS_CLI)
+    store = synthetic_lines(args.synthetic, nu_min=args.numin - XS_WING,
+                            nu_max=args.numax + XS_WING, seed=args.seed,
+                            device="cpu", dtype=f64)
+    base = dict(SourceTables="XS_CLI", OmegaStep=HAPI_STEP,
+                OmegaRange=HAPI_BAND, OmegaWing=XS_WING, HITRAN_units=True)
+    calls = [((m, T, p), "absorptionCoefficient_SDVoigt",
+              dict(Components=[(m, 1)], Environment={"T": T, "p": p},
+                   **base))
+             for m in HAPI_MOLS for T in HAPI_T for p in HAPI_P]
+    one = dict(Components=[(1, 1)], Environment={"T": HAPI_T[0],
+                                                 "p": HAPI_P[0]}, **base)
+    calls += [(name, f"absorptionCoefficient_{name}", one)
+              for name in ("Voigt", "Lorentz", "Doppler", "HT")]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_sd_table(store, tmp, "XS_CLI")
+        res = {"card": hapi_on(dev, tmp, calls),
+               "cpu": hapi_on(cpu, tmp, [
+                   c for c in calls if not isinstance(c[0], tuple)
+                   or c[0] in HAPI_CPU_STATES])}
+        table = hc._get_table("XS_CLI")
+    for label, _, _ in calls:
+        nu, k, s_c = res["card"][label]
+        what = (f"SDVoigt molecule {label[0]} T {label[1]:g} K p "
+                f"{label[2]:g} atm" if isinstance(label, tuple) else label)
+        check(nu.size == 4001 and np.isfinite(k).all() and k.max() > 0.0,
+              f"{what}: k")
+        if label not in res["cpu"]:
+            print(f"[15c hapi] {what}: {s_c:.3f} s on the card [{card}]",
+                  flush=True)
+            continue
+        nu_h, k_h, s_h = res["cpu"][label]
+        check(np.array_equal(nu, nu_h), "driver axes")
+        rel = np.abs(k - k_h).max() / np.abs(k_h).max()
+        bound = (HAPI_BOUND if label in ("Voigt", "Lorentz", "Doppler")
+                 else HAPI_SD_BOUND)
+        print(f"[15c hapi] {what}: card vs CPU {rel:.3e} of peak (bound "
+              f"{bound:g}); {s_c:.3f} s on the card, {s_h:.3f} s on the "
+              f"CPU [{card}]", flush=True)
+        check(rel <= bound, f"{what}: {rel:.3e} > {bound}")
+    # the gap to run_xsect's K1 lattice on the same lines at the same states
+    lat_lines = LineStore.from_numpy(**table.host, device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev)
+    Xs = arange_drift_free(HAPI_BAND[0], HAPI_BAND[1], HAPI_STEP)
+    TT, PP = (a.ravel() for a in np.meshgrid(HAPI_T, HAPI_P,
+                                             indexing="ij"))
+    for m in HAPI_MOLS:
+        fn = make_xsect_fn(lat_lines.select_molecules([m]), iso, Xs, TT, PP,
+                           profile="sdvoigt", wing_abs=XS_WING,
+                           wing_hw=args.wing_hw)
+        K = fn(torch.as_tensor(TT, dtype=f32, device=dev),
+               torch.as_tensor(PP, dtype=f32, device=dev)).cpu().numpy()
+        gaps = [np.abs(K[i] - res["card"][(m, T, p)][1]).max()
+                / np.abs(res["card"][(m, T, p)][1]).max()
+                for i, (T, p) in enumerate(zip(TT, PP))]
+        print(f"[15c hapi] molecule {m}: the K1 lattice (make_xsect_fn, "
+              f"float32, coarse-far) vs the driver at the 4 states: "
+              + ", ".join(f"{g:.3e}" for g in gaps) + " of peak (no bound)",
+              flush=True)
+
+    # (d) spectra and the seven slits on (c)'s output, card against CPU
+    T0, p0 = HAPI_T[0], HAPI_P[0]
+    nu, k, _ = res["card"][(1, T0, p0)]
+    k_cm = k * hc.volumeConcentration(p0, T0)
+    spec = {}
+    t0 = time.perf_counter()
+    for label, where in (("card", dev), ("cpu", cpu)):
+        nu_t = torch.as_tensor(nu, device=where)
+        _, rad = hc.radianceSpectrum(nu_t, torch.as_tensor(k_cm, device=where),
+                                     Environment={"T": T0, "l": 100.0})
+        spec[label] = {"radiance": rad}
+        for slit in HAPI_SLIT_NAMES:
+            spec[label][slit] = hc.convolveSpectrum(
+                nu_t, torch.as_tensor(rad, device=where), Resolution=0.1,
+                AF_wing=1.0, SlitFunction=getattr(hc, slit))[1]
+    spec_s = time.perf_counter() - t0
+    errs = {}
+    for key, want in spec["cpu"].items():
+        got = spec["card"][key]
+        check(isinstance(got, np.ndarray) and got.shape == want.shape
+              and np.isfinite(got).all(), f"{key} shape")
+        errs[key] = np.abs(got - want).max() / np.abs(want).max()
+    print(f"[15d spectra] radianceSpectrum and convolveSpectrum (Resolution "
+          f"0.1, AF_wing 1.0) with each slit, card vs CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" of peak; both devices {spec_s:.3f} s [{card}]", flush=True)
+    for key, e in errs.items():
+        check(e <= SPECTRA_BOUND, f"{key}: card vs CPU {e:.3e} > "
+              f"{SPECTRA_BOUND}")
+    for reg in (hc._TABLES, hc._EXTRAS, hc._META):
+        reg.clear()
+    hc._DEVICE = None
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("asym", "core")}
 
 
 def main():
@@ -4034,6 +4311,7 @@ def main():
     sharded = run(phase_sharded, dev, card, x_lo, products)
     serving = run(phase_serving, dev, card)
     run(phase_examples, card)
+    compat = run(phase_hapi, dev, card)
     run(phase_breakdown, dev, card)
     run(phase_jac_breakdown, dev, card)
     run(phase_xs_breakdown, dev, card)
@@ -4106,6 +4384,12 @@ def main():
         if key in serving and entry["name"] != "fused_tud_source_input":
             entry["serving_launches"] = serving[key]
             entry["serving_path"] = "phase 13 serving"
+    # the launches of compat.compute_TUD (phase 15): K1 asym and core
+    for entry in kernels:
+        key = entry["name"].replace("fused_xsect_", "", 1)
+        if entry["name"].startswith("fused_xsect_") and key in compat:
+            entry["compat_launches"] = compat[key]
+            entry["compat_path"] = "phase 15 compat.compute_TUD"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

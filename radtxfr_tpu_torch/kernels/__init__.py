@@ -9,3 +9,7 @@ from .htp import (  # noqa: F401
 from .lineparams import LineParams, compute_line_params  # noqa: F401
 from .xsect import xsect_from_params  # noqa: F401
 from .ht_driver import xsect_ht  # noqa: F401
+from .spectra import (  # noqa: F401
+    transmittance_spectrum, absorption_spectrum, radiance_spectrum,
+    convolve_spectrum,
+)

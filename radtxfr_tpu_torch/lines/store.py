@@ -106,12 +106,15 @@ class LineStore:
         """A LineStore whose columns are the host NumPy copies."""
         return dataclasses.replace(self, **self.host)
 
-    def subset(self, keep) -> "LineStore":
+    def subset(self, keep, require_sorted: bool = True) -> "LineStore":
         """The rows ``keep`` (a boolean mask or index array), on the same
-        device in the same dtype, the float64 host columns kept."""
+        device in the same dtype, the float64 host columns kept.
+        ``require_sorted=False`` allows an order other than by ``nu0`` (the
+        hapi ``sort`` verb's; the engines' plans need sorted centres)."""
         return LineStore.from_numpy(
             **{k: v[keep] for k, v in self.host.items()},
-            device=self.sw.device, dtype=self.sw.dtype)
+            device=self.sw.device, dtype=self.sw.dtype,
+            require_sorted=require_sorted)
 
     def select_band(self, nu_min: float, nu_max: float,
                     margin: float = 0.0) -> "LineStore":
@@ -128,10 +131,12 @@ class LineStore:
     @staticmethod
     def from_numpy(*, nu0, sw, elower, gamma_air, gamma_self, n_air,
                    delta_air, iso_row, mol_id, sd_air, device=None,
-                   dtype=torch.float32) -> "LineStore":
+                   dtype=torch.float32,
+                   require_sorted: bool = True) -> "LineStore":
         """Build from NumPy columns already sorted by ``nu0`` (e.g. the
         fields of the JAX ``LineStore.host_view()``); ``device`` None is
-        the card."""
+        the card. Unsorted centres raise unless ``require_sorted`` is
+        False."""
         device = resolve_device(device)
         host = {k: np.array(v, dtype=np.float64) for k, v in dict(
             nu0=nu0, sw=sw, elower=elower, gamma_air=gamma_air,
@@ -139,7 +144,7 @@ class LineStore:
             sd_air=sd_air).items()}
         host.update(iso_row=np.array(iso_row, dtype=np.int64),
                     mol_id=np.array(mol_id, dtype=np.int64))
-        if np.any(np.diff(host["nu0"]) < 0):
+        if require_sorted and np.any(np.diff(host["nu0"]) < 0):
             raise ValueError("line centers must be sorted")
         cols = {k: torch.as_tensor(host[k], dtype=dtype, device=device)
                 for k in _FLOAT_FIELDS}

@@ -2,8 +2,8 @@
 ``radtxfr_tpu/lines/synthetic.py``: ``synthetic_lines``).
 
 The same seed gives the JAX package's list draw for draw: every column is
-drawn by one NumPy generator in the same order. ``to_hapi_cache`` (the hapi
-oracle's mirror) is not ported yet (ROADMAP M14).
+drawn by one NumPy generator in the same order. ``to_hapi_cache`` mirrors a
+store into hapi's table cache, so that hapi computes on the same lines.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from .store import LineStore, from_arrays
+from .tips import load_tips_tables
 
-__all__ = ["synthetic_lines"]
+__all__ = ["synthetic_lines", "to_hapi_cache"]
 
 # (mol_id, local_iso_id) choices: H2O, CO2, O3 principal isotopologues
 _DEFAULT_SPECIES = ((1, 1), (2, 1), (3, 1))
@@ -48,3 +49,39 @@ def synthetic_lines(n_lines: int, nu_min: float = 500.0,
     return from_arrays(nu0, sw, elower, gamma_air, gamma_self, n_air,
                        delta_air, mol_id, iso_id, sd_air=sd_air,
                        device=device, dtype=dtype)
+
+
+def to_hapi_cache(store: LineStore, table_name: str, hapi_module) -> None:
+    """Mirror a :class:`LineStore` into hapi's ``LOCAL_TABLE_CACHE`` from
+    its float64 host columns (hapi table format:
+    ``misc/hapi.py:1615-1672``), so that the reference's
+    ``absorptionCoefficient_*`` run on exactly the same line list."""
+    h = store.host
+    data = {
+        "nu": np.asarray(h["nu0"], dtype=np.float64),
+        "sw": np.asarray(h["sw"], dtype=np.float64),
+        "elower": np.asarray(h["elower"], dtype=np.float64),
+        "gamma_air": np.asarray(h["gamma_air"], dtype=np.float64),
+        "gamma_self": np.asarray(h["gamma_self"], dtype=np.float64),
+        "n_air": np.asarray(h["n_air"], dtype=np.float64),
+        "delta_air": np.asarray(h["delta_air"], dtype=np.float64),
+        "molec_id": np.asarray(h["mol_id"], dtype=np.int64),
+        "local_iso_id": np.asarray(_iso_local_ids(store), dtype=np.int64),
+        "SD_air": np.asarray(h["sd_air"], dtype=np.float64),
+    }
+    hapi_module.LOCAL_TABLE_CACHE[table_name] = {
+        "header": {
+            "number_of_rows": store.n_lines,
+            "order": list(data.keys()),
+            "format": {},
+            "default": {},
+        },
+        "data": data,
+    }
+
+
+def _iso_local_ids(store: LineStore):
+    """The HITRAN local isotopologue numbers of the store's compact
+    ``iso_row`` indices."""
+    _mol, iso, _, _ = load_tips_tables()
+    return iso[store.host["iso_row"]]

@@ -1,14 +1,13 @@
-"""What of ``radtxfr_tpu``'s public surface the port still lacks.
+"""The port covers ``radtxfr_tpu``'s whole public surface.
 
 Every public name of JAX's ``utils.help.api_index()`` (the names each
 subpackage exports) must be in the port's ``api_index()`` under the same
 subpackage, its name mapped through the port's renames (the Pallas entry
-points are the fused CUDA ones), except exactly the names listed in
-``MISSING``; and every module file of ``radtxfr_tpu`` must have a
-counterpart at the same relative path (renamed likewise), except exactly
-``MISSING_MODULES``. Both lists are the hapi surface (ROADMAP M14): a
-slice that ports part of it shrinks them, and a name that goes missing
-elsewhere fails here.
+points are the fused CUDA ones), and every module file of ``radtxfr_tpu``
+must have a counterpart at the same relative path (renamed likewise).
+``MISSING`` and ``MISSING_MODULES`` list what the port still lacks: both
+are empty since the hapi surface (ROADMAP M14) was ported, and a name or
+module that goes missing fails here.
 """
 
 import glob
@@ -29,21 +28,9 @@ MODULE_RENAMES = {"kernels/pallas_xsect.py": "kernels/fused_xsect.py",
                   "kernels/pallas_tud.py": "kernels/fused_tud.py",
                   "dist/pallas_ensemble.py": "dist/fused_ensemble.py"}
 
-#: the hapi surface, not ported yet (ROADMAP M14)
-MISSING = {
-    # lines/synthetic.py
-    "lines": ["to_hapi_cache",
-              # lines/query.py
-              "select", "sort", "evaluate", "filter_mask", "group",
-              "extract_columns", "stick_xy",
-              # lines/hapi_db.py
-              "HapiDatabase", "load_table", "save_table", "write_par"],
-    # kernels/spectra.py
-    "kernels": ["absorption_spectrum", "transmittance_spectrum",
-                "radiance_spectrum", "convolve_spectrum"],
-}
-MISSING_MODULES = ["compat.py", "hapi_compat.py", "kernels/spectra.py",
-                   "lines/fetch.py", "lines/hapi_db.py", "lines/query.py"]
+#: nothing of the JAX package's surface is missing from the port
+MISSING = {}
+MISSING_MODULES = []
 
 
 def test_public_names_missing_from_the_port_are_the_hapi_surface():

@@ -1007,3 +1007,62 @@ def test_od_from_xs_on_the_card(dev):
     fast = od_from_xs(card, atm, precision="default")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert (fast - got).abs().max() <= 1e-2 * got.abs().max()
+
+
+@pytest.mark.parametrize("af_wing", [2.0, 2.0025])      # 802 and 803 taps
+def test_convolve_spectrum_on_the_card(dev, af_wing):
+    """``convolve_spectrum`` (float64 ``conv1d`` with NumPy's 'same'
+    centring) on the card against the CPU within 1e-12 of peak, at an even
+    and an odd slit length, with each hapi slit."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.kernels.spectra import (HAPI_SLITS,
+                                                   convolve_spectrum)
+
+    omega = np.arange(4001) * 0.005 + 800.0
+    y = np.exp(-0.5 * ((omega - 810.0) / 0.5) ** 2) + 0.1 * np.sin(omega)
+    for slit in HAPI_SLITS:
+        got = convolve_spectrum(omega, torch.as_tensor(y, device=dev),
+                                resolution=0.4, af_wing=af_wing, slit=slit)
+        want = convolve_spectrum(omega, torch.as_tensor(y),
+                                 resolution=0.4, af_wing=af_wing, slit=slit)
+        assert got[1].device.type == "cuda" and got[2:4] == want[2:4]
+        err = (got[1].cpu() - want[1]).abs().max()
+        assert err <= 1e-12 * want[1].abs().max(), slit
+
+
+def test_hapi_sdvoigt_driver_on_the_card(dev, tmp_path):
+    """``absorptionCoefficient_SDVoigt`` with the database on the card
+    against the same call on the CPU (both float64) within 1e-7 of peak
+    (pcqsdhc's cancellation beside its PART4 thresholds, ROADMAP
+    caveat); NumPy out, the intensity threshold's mask the same on both."""
+    import numpy as np
+
+    from radtxfr_tpu_torch import hapi_compat as hc
+    from radtxfr_tpu_torch.lines.hapi_db import save_table
+    from radtxfr_tpu_torch.lines.synthetic import synthetic_lines
+
+    save_table(synthetic_lines(300, 995.0, 1015.0, seed=3, device="cpu"),
+               str(tmp_path), "t")
+    kw = dict(SourceTables="t", Components=[(1, 1), (2, 1)],
+              Environment={"T": 275.0, "p": 0.85}, OmegaStep=0.0025,
+              OmegaRange=(1000.0, 1010.0), OmegaWing=5.0,
+              IntensityThreshold=1e-24)
+    out = {}
+    saved = hc._DEVICE
+    try:
+        for where in ("cpu", dev):
+            hc._TABLES.clear()
+            hc._EXTRAS.clear()
+            hc.db_begin(str(tmp_path), device=where)
+            assert hc._get_table("t").sw.device.type == \
+                torch.device(where).type
+            out[str(where)] = hc.absorptionCoefficient_SDVoigt(**kw)
+    finally:
+        hc._TABLES.clear()
+        hc._EXTRAS.clear()
+        hc._DEVICE = saved
+    (nu, k), (nu_c, k_c) = out["cpu"], out[str(dev)]
+    assert isinstance(k_c, np.ndarray) and k_c.max() > 0
+    np.testing.assert_array_equal(nu, nu_c)
+    assert np.abs(k_c - k).max() <= 1e-7 * np.abs(k).max()

@@ -19,7 +19,8 @@ from port_fixtures import one_torch_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch", "*.py")))
 NAMES = ["01_od_tud_quickstart.py", "02_production_tud_ensemble.py",
-         "04_xs_lattice_serving.py", "05_derived_physics.py"]
+         "03_hapi_dropin.py", "04_xs_lattice_serving.py",
+         "05_derived_physics.py"]
 
 
 def _imports(path):
