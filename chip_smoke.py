@@ -208,10 +208,11 @@ Phases, each printing its result on its own line:
    on the virtual mesh against phase 5's ``run_tud`` products within
    ``MESH_VS_MAIN_BOUND`` (its plans sized on each batch's envelope, phase
    5's on the base state, whose wing bounds clamp the colder members'
-   wings), and with ``--checkpoint`` in phase 5c's child
-   processes (one killed with SIGKILL after its first batch, a fresh one
-   resuming it): the resumed products bit-identical to the in-process run
-   without checkpoints.
+   wings), and with ``--checkpoint`` (in this process; phase 5c kills and
+   resumes the single-device command in child processes): the
+   checkpointed products, and those of a run resumed after the second
+   batch file was removed (only that batch computed, through K1 and K2),
+   bit-identical to the run without checkpoints.
 13. The cross-section serving path at the reference generator's width
    (``misc/RT_gen_AbsXS_files.py:15-31``): for molecules 1 and 2 of the
    ``XS_CLI`` list, one at a time, ``make_xsect_fn`` on the (T, p) lattice
@@ -262,6 +263,26 @@ Phases, each printing its result on its own line:
    same lines and states, printed without a bound. (d)
    ``radianceSpectrum`` and ``convolveSpectrum`` with each of the seven
    slits on (c)'s output, card against CPU within 1e-12 of peak.
+16. The sharded production path on a mesh that spans two processes
+   (``span_child``): two child processes, both on cuda:0, join one gloo
+   group (``init_multihost`` on 127.0.0.1) once the kernels are built. (a)
+   ``make_tud_ensemble_fn`` on phase 12's production batch at full width,
+   on the (2 x 2) mesh whose ensemble row e belongs to process e, both
+   partitions: each process computes its two entries and receives the
+   others' through the group; its gathered tau/Lu/Ld bit-identical (SHA-256)
+   to phase 12's one-process virtual mesh and to the other process's copy.
+   (b) ``make_mesh(2, 1)`` without devices: one card a process, its
+   ensemble on 718-723 cm^-1 bit-identical to a one-process virtual mesh;
+   ``make_mesh(2, 2)`` raises. (c) One Jacobian batch of phase 12's 8
+   directions, 4 a process, bit-identical to phase 12's. (d) K1 ``asym``,
+   ``core``, ``mix`` and K2 (and K1 ``full``, K3 in (c)) launched in each
+   process, with tile offsets. (e) Each process's ms a batch, the ms at
+   which its own entries were done (synchronised) and the exchange's
+   (``share_parts``, timed after a barrier of both), beside phase 12's
+   one-process ms: the cost of spanning processes on one card, not a
+   multi-card speed-up.
+   Either child failing or past its timeout fails the phase; process 0
+   alone writes the records.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the card's rate for them (67 TFLOP/s FP32; K2's
@@ -289,17 +310,23 @@ It ends with one JSON line of kernel results (K1's production modes,
 tile offsets in phase 12; K1's lattice modes and K2 also with
 ``serving_launches``: their launches on phase 13's path; K1 ``asym`` and
 ``core`` also with ``compat_launches``: their launches in phase 15's
-``compat.compute_TUD``) and, last, the device line.
+``compat.compute_TUD``; K1's production modes, ``full``, K3 and K2 also
+with ``span_launches``: their launches in each of phase 16's two
+processes) and, last, the device line.
 Any failed check raises; the script then exits non-zero without the last
 line. There is no CPU fallback.
 """
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import hashlib
+import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1683,15 +1710,7 @@ for k in fused_tud.LAUNCHES:
     fused_tud.LAUNCHES[k] = 0
 args = build_parser().parse_args({argv!r})
 timings = {{}}
-mesh = None
-if args.mesh_ensemble * args.mesh_spectrum > 1:
-    # a virtual mesh: every entry the one card
-    import torch
-    from radtxfr_tpu_torch.dist.mesh import make_mesh
-    mesh = make_mesh(args.mesh_ensemble, args.mesh_spectrum,
-                     devices=[torch.device("cuda", 0)]
-                     * (args.mesh_ensemble * args.mesh_spectrum))
-x_lo, out = run_tud(args, "cuda", timings, mesh=mesh)
+x_lo, out = run_tud(args, "cuda", timings)
 launches = collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
 with open({out!r} + ".bin", "wb") as f:
     for a in (x_lo, out["tau"], out["Lu"], out["Ld"]):
@@ -3448,6 +3467,39 @@ def rel_peak(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def tensor_digest(t):
+    """SHA-256 of a tensor's dtype, shape and bytes (on the host): equal
+    digests, bit-identical tensors."""
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
+def sharded_inputs(dev):
+    """Phase 12's production inputs on ``dev`` (the derived lines, the
+    isotope tables, the standard atmosphere, the axis, the mixing
+    coefficients, the 4 members and their batch), made from the
+    PRODUCTION command's seed (phase 16's processes make the same)."""
+    from radtxfr_tpu_torch.dist.ensemble import stack_states
+
+    f32 = torch.float32
+    args = build_parser().parse_args(PRODUCTION.split())
+    store = derived_lwir_linelist(args.numin - MARGIN, args.numax + MARGIN,
+                                  device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    draws = ensemble_draws(args.n_atmos, args.seed)
+    states = []
+    for i in range(args.n_atmos):
+        T, vmr = ensemble_member(base, draws, i)
+        states.append(dataclasses.replace(base, T=T, vmr=vmr))
+    return dict(args=args, store=store,
+                iso=IsoTables.load(device=dev, dtype=f32), base=base,
+                X=arange_drift_free(args.numin, args.numax, args.dv),
+                lm={"y_air": y_air_for_store(store.host_view())},
+                states=states, batch=stack_states(states))
+
+
 def phase_sharded(dev, card, x_main, main_products):
     """12: the sharded production path (``dist/fused_ensemble.py``) at full
     production width on a virtual (2 x 2) mesh of the one card: the
@@ -3457,7 +3509,7 @@ def phase_sharded(dev, card, x_main, main_products):
     unsharded tangents, K4 with offsets, the line-sharded OD, ``run_tud``
     with the mesh and ``--checkpoint`` (and against phase 5's products),
     and the cost of sharding on one card (not a multi-card speed-up)."""
-    from radtxfr_tpu_torch.dist.ensemble import gather_shards, stack_states
+    from radtxfr_tpu_torch.dist.ensemble import gather_shards
     from radtxfr_tpu_torch.dist.fused_ensemble import (
         _envelope, jacobian_directions, make_tud_ensemble_fn,
         make_tud_jacobian_fn)
@@ -3467,23 +3519,14 @@ def phase_sharded(dev, card, x_main, main_products):
         make_od_sharded_lines_fn)
 
     f32 = torch.float32
-    args = build_parser().parse_args(PRODUCTION.split())
-    store = derived_lwir_linelist(args.numin - MARGIN, args.numax + MARGIN,
-                                  device=dev, dtype=f32)
-    iso = IsoTables.load(device=dev, dtype=f32)
-    base = std_atmosphere(device=dev, dtype=f32)
-    X = arange_drift_free(args.numin, args.numax, args.dv)
-    lm = {"y_air": y_air_for_store(store.host_view())}
-    draws = ensemble_draws(args.n_atmos, args.seed)
-    states = []
-    for i in range(args.n_atmos):
-        T, vmr = ensemble_member(base, draws, i)
-        states.append(dataclasses.replace(base, T=T, vmr=vmr))
-    batch = stack_states(states)
+    inp = sharded_inputs(dev)
+    args, store, iso, base, X, lm, states, batch = (
+        inp[k] for k in ("args", "store", "iso", "base", "X", "lm", "states",
+                         "batch"))
     env = _envelope(batch)
     mesh = virtual_mesh(dev)
     n_spec = SHARD_MESH[1]
-    out, launches, offsets, times = {}, {}, {}, {}
+    out, launches, offsets, times, digests = {}, {}, {}, {}, {}
     for part in ("equal", "weighted"):
         t0 = time.perf_counter()
         gpad, run = make_tud_ensemble_fn(
@@ -3497,6 +3540,7 @@ def phase_sharded(dev, card, x_main, main_products):
         torch.cuda.synchronize()
         launches[part] = read_launches()
         offsets[part] = dict(fused_xsect.OFFSET_LAUNCHES)
+        digests[part] = [tensor_digest(t) for t in out[part]]
         for k in (*PRODUCTION_MODES, "tud"):
             check(launches[part][k] > 0, f"kernel {k} was not launched by "
                   f"the sharded ensemble ({part})")
@@ -3613,6 +3657,8 @@ def phase_sharded(dev, card, x_main, main_products):
     jac_s = time.perf_counter() - t0
     jac_launches = read_launches()
     jac_off = dict(fused_xsect.OFFSET_LAUNCHES)
+    digests["jacobian"] = [tensor_digest(d[k]) for d in (prim, tan)
+                           for k in ("tau", "Lu", "Ld")]
     for k in ("full", "jvp"):
         check(jac_launches[k] > 0 and jac_off.get(k, 0) > 0,
               f"kernel {k} was not launched with offsets by the sharded "
@@ -3733,45 +3779,322 @@ def phase_sharded(dev, card, x_main, main_products):
           f"(base-state plans), {args.n_atmos} members at production width: "
           + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
           + f" of peak [{card}]", flush=True)
+    # with --checkpoint in this process (phase 5c kills and resumes the
+    # checkpointed command in child processes): a checkpointed run, then
+    # its second batch file removed and the run resumed; both bit-identical
+    # to the run without --checkpoint, the resume computing only the
+    # missing batch through K1 and K2
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
-    out_b, ck = os.path.join(work, "b"), os.path.join(work, "ck")
-    argv = margs + ["--checkpoint", ck]
+    ck = os.path.join(work, "ck")
+    cargs = build_parser().parse_args(margs + ["--checkpoint", ck])
     t0 = time.perf_counter()
-    rc, log = checkpoint_child(argv, out_b, kill=True)
-    check(rc == -9, f"the killed mesh child ended with {rc}, not SIGKILL:\n"
-          f"{log[-3000:]}")
-    listing = sorted(os.listdir(ck))
-    check(listing == ["batch_000000.npz", "manifest.json"],
-          f"before the resume the mesh checkpoint held {listing}")
+    _, first = run_tud(cargs, "cuda", mesh=mesh)
     t1 = time.perf_counter()
-    rc, log = checkpoint_child(argv, out_b)
-    check(rc == 0, f"the resumed mesh run failed ({rc}):\n{log[-3000:]}")
-    check("batch 1/2" not in log and "batch 2/2" in log,
-          "the resumed mesh run recomputed the first batch")
+    listing = sorted(os.listdir(ck))
+    check(listing == ["batch_000000.npz", "batch_000001.npz",
+                      "manifest.json"], f"the mesh checkpoint held {listing}")
+    os.remove(os.path.join(ck, "batch_000001.npz"))
+    reset_launches()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, again = run_tud(cargs, "cuda", mesh=mesh)
+    resumed = read_launches()
     t2 = time.perf_counter()
-    got = read_products(out_b + ".bin")
-    for name, want, have in zip(("X", "tau", "Lu", "Ld"),
-                                (x_lo, full["tau"], full["Lu"], full["Ld"]),
-                                got):
-        check(np.array_equal(want, have), f"the resumed mesh {name} "
-              "differs from run_tud without --checkpoint")
-        check(np.isfinite(have).all(), f"mesh run_tud {name} not finite")
-    with open(out_b + ".json") as f:
-        child = json.load(f)
+    check("batch 1/2" not in log.getvalue()
+          and "batch 2/2" in log.getvalue(),
+          f"the resumed mesh run computed other batches:\n{log.getvalue()}")
     for k in (*PRODUCTION_MODES, "tud"):
-        check(child["launches"].get(k, 0) > 0, f"kernel {k} was not "
-              "launched in the resumed mesh child")
+        check(resumed[k] > 0, f"kernel {k} was not launched by the resumed "
+              "mesh run")
+    for name in ("tau", "Lu", "Ld"):
+        for label, got in (("checkpointed", first), ("resumed", again)):
+            check(np.array_equal(got[name], full[name]), f"the {label} "
+                  f"mesh {name} differs from run_tud without --checkpoint")
+            check(np.isfinite(got[name]).all(), f"mesh run_tud {name} not "
+                  "finite")
     shutil.rmtree(work)
     print(f"[12 run_tud] --mesh-spectrum 2 --mesh-ensemble 2 (virtual mesh):"
           f" {args.n_atmos} members, plan build {timings['build_s']:.3f} s, "
           f"{timings['members_s'] / args.n_atmos:.4f} s a member; with "
-          f"--checkpoint in child processes, killed after batch 1 of 2 and "
-          f"resumed in a fresh one (wall {t1 - t0:.1f} s, {t2 - t1:.1f} s): "
-          f"products bit-identical to the run without checkpoints; the "
-          f"resumed child's launches {child['launches']} [{card}]",
-          flush=True)
+          f"--checkpoint ({t1 - t0:.1f} s) and resumed after its second "
+          f"batch file was removed ({t2 - t1:.1f} s): products "
+          f"bit-identical to the run without checkpoints; the resumed run's "
+          f"launches {dict(resumed)} [{card}]", flush=True)
     return {"ensemble": offsets["weighted"], "jacobian": jac_off,
-            "sdvoigt": sd_off}
+            "sdvoigt": sd_off, "digests": digests, "ms": times}
+
+
+# --------------------------------------------------------------------------
+# 16. the sharded production path on a mesh that spans two processes
+# --------------------------------------------------------------------------
+
+SPAN_CHILD_TIMEOUT = 300
+#: (b)'s band: the default global (2 x 1) mesh (one card a process, one
+#: member each) against this process's own virtual (2 x 1) mesh
+SPAN_SMALL = (718.0, 723.0, 0.0005)
+SPAN_REPS = 3
+#: a child of phase 16: joins the group and runs span_child
+SPAN_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.span_child({coord!r}, {rank}, {out!r}, {want!r})
+"""
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def span_child(coord, rank, out_path, want):
+    """One of phase 16's two processes, both on cuda:0, in one gloo group
+    (``init_multihost``). (a) The sharded ensemble on the (2 x 2) mesh whose
+    ensemble row e belongs to process e, both partitions: the gathered
+    products' digests against phase 12's (``want``) and the other
+    process's; each batch's wall ms and the exchange's
+    (``share_parts``, timed after a synchronise). (b) The default global
+    mesh ``make_mesh(2, 1)``: one card a process, and its ensemble on
+    SPAN_SMALL bit-identical to this process's own virtual mesh; a (2 x 2)
+    default mesh raises. (c) One sharded Jacobian batch (SHARD_JAC_DIRS,
+    four directions a process) against phase 12's digests. (d) Each run's
+    launch counts (reset before, read after) and offset launches. A failed
+    check is recorded and the run goes on, so that neither process waits
+    on a collective the other never reaches; at the end process 0 writes
+    both processes' records to ``out_path`` and both raise if any check
+    failed."""
+    import torch.distributed as dist
+
+    from radtxfr_tpu_torch.dist import fused_ensemble as fe
+    from radtxfr_tpu_torch.dist.ensemble import stack_states
+    from radtxfr_tpu_torch.dist.init import init_multihost
+    from radtxfr_tpu_torch.dist.mesh import make_mesh
+
+    init_multihost(coord, 2, rank)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    fails = []
+
+    def need(ok, msg):
+        if not ok:
+            fails.append(f"process {rank}: {msg}")
+
+    def agree(label, digests):
+        """The digests against phase 12's and the other process's."""
+        both = [None, None]
+        dist.all_gather_object(both, digests)
+        need(both[0] == both[1], f"{label}: the two processes' copies "
+             "differ")
+        need(digests == want[label], f"{label}: not bit-identical to the "
+             "one-process mesh of phase 12")
+
+    # the exchange timed apart: this process's entries finished
+    # (synchronised), then both processes at a barrier, then share_parts
+    shared, own = [0.0], []
+    share = fe.share_parts
+
+    def timed_share(parts, mesh, rows=None):
+        torch.cuda.synchronize()
+        own.append(time.perf_counter())
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = share(parts, mesh, rows)
+        shared[0] += time.perf_counter() - t0
+        return got
+
+    fe.share_parts = timed_share
+    inp = sharded_inputs(dev)
+    store, iso, base, X, lm, batch = (
+        inp[k] for k in ("store", "iso", "base", "X", "lm", "batch"))
+    rec = {"rank": rank, "members": int(batch.T.shape[0])}
+
+    # (a) the ensemble, row e of the mesh in process e
+    mesh = make_mesh(*SHARD_MESH, devices=[(e, dev) for e in range(2)
+                                           for _ in range(2)])
+    need(mesh.owned() == [(rank, 0), (rank, 1)],
+         f"the (2 x 2) mesh gives this process {mesh.owned()}")
+    for part in ("equal", "weighted"):
+        t0 = time.perf_counter()
+        _, run = fe.make_tud_ensemble_fn(store, iso, X, batch, ALTITUDES,
+                                         mesh, continuum="mt_ckd",
+                                         line_mixing=lm, partition=part)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_launches()
+        fused_xsect.OFFSET_LAUNCHES.clear()
+        prods = run(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        offsets = dict(fused_xsect.OFFSET_LAUNCHES)
+        for k in (*PRODUCTION_MODES, "tud"):
+            need(launches[k] > 0, f"kernel {k} was not launched by the "
+                 f"ensemble ({part})")
+        for k in PRODUCTION_MODES:
+            need(offsets.get(k, 0) > 0, f"K1 {k} was not launched with "
+                 f"tile offsets by the ensemble ({part})")
+        for t in prods:
+            need(bool(torch.isfinite(t).all()), f"{part}: non-finite "
+                 "products")
+        agree(part, [tensor_digest(t) for t in prods])
+        del prods
+        ms, own_ms, gather_ms = [], [], []
+        for _ in range(SPAN_REPS):
+            shared[0] = 0.0
+            own.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            own_ms.append((own[0] - t0) * 1e3)
+            gather_ms.append(shared[0] * 1e3)
+        rec[part] = dict(build_s=build_s, launches=dict(launches),
+                         offsets=offsets, ms=ms, own_ms=own_ms,
+                         gather_ms=gather_ms)
+        del run
+
+    # (b) the default global mesh: one card a process
+    gmesh = make_mesh(2, 1)
+    need(gmesh.pairs() == [(0, dev), (1, dev)] and gmesh.owned()
+         == [(rank, 0)], f"make_mesh(2, 1) gave {gmesh.pairs()}, this "
+         f"process {gmesh.owned()}")
+    try:
+        make_mesh(2, 2)
+        need(False, "make_mesh(2, 2) over two processes of one card each "
+             "did not raise")
+    except ValueError as e:
+        need(str(e) == "need 4 devices, have 2", f"make_mesh(2, 2): {e}")
+    small = stack_states(inp["states"][:2])
+    X_s = arange_drift_free(*SPAN_SMALL)
+    _, run_g = fe.make_tud_ensemble_fn(store, iso, X_s, small, ALTITUDES,
+                                       gmesh, continuum="mt_ckd",
+                                       line_mixing=lm)
+    got = run_g(small)
+    _, run_l = fe.make_tud_ensemble_fn(store, iso, X_s, small, ALTITUDES,
+                                       make_mesh(2, 1, devices=[dev, dev]),
+                                       continuum="mt_ckd", line_mixing=lm)
+    mine = run_l(small)
+    need(all(torch.equal(a, b) for a, b in zip(got, mine)),
+         "the default global (2 x 1) mesh differs from this process's own")
+    rec["global_points"] = int(got[0].shape[1])
+    del got, mine, run_g, run_l
+
+    # (c) one Jacobian batch, its directions split over the processes
+    t0 = time.perf_counter()
+    _, run_j = fe.make_tud_jacobian_fn(store, iso, X, base, ALTITUDES, mesh,
+                                       continuum="mt_ckd")
+    V_T, V_vmr, _ = fe.jacobian_directions(base)
+    torch.cuda.synchronize()
+    jac_build_s = time.perf_counter() - t0
+    reset_launches()
+    fused_xsect.OFFSET_LAUNCHES.clear()
+    shared[0] = 0.0
+    own.clear()
+    t0 = time.perf_counter()
+    prim, tan = run_j(base.T, base.vmr, V_T[SHARD_JAC_DIRS],
+                      V_vmr[SHARD_JAC_DIRS])
+    torch.cuda.synchronize()
+    jac_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    offsets = dict(fused_xsect.OFFSET_LAUNCHES)
+    for k in ("full", "jvp"):
+        need(launches[k] > 0 and offsets.get(k, 0) > 0, f"kernel {k} was "
+             "not launched with offsets by the Jacobian")
+    agree("jacobian", [tensor_digest(d[k]) for d in (prim, tan)
+                       for k in ("tau", "Lu", "Ld")])
+    rec["jacobian"] = dict(build_s=jac_build_s, ms=jac_ms,
+                           own_ms=(own[0] - t0) * 1e3,
+                           gather_ms=shared[0] * 1e3,
+                           launches=dict(launches), offsets=offsets)
+    del prim, tan, run_j
+
+    recs = [None, None]
+    dist.all_gather_object(recs, (rec, fails))
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump([r for r, _ in recs], f)
+    dist.destroy_process_group()
+    every = [m for _, fl in recs for m in fl]
+    check(not every, "; ".join(every))
+
+
+def phase_span(card, sharded):
+    """16: the sharded production path on a mesh that spans two processes
+    (``span_child``), both on the one card; the kernels are built (phase
+    2) before the children start. Either child failing, killed or past
+    SPAN_CHILD_TIMEOUT fails the phase; nothing carries on in one
+    process. Returns each production kernel's launches in the two
+    processes."""
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_span_")
+    out = os.path.join(work, "records.json")
+    coord = f"127.0.0.1:{free_port()}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SPAN_CHILD.format(
+            root=root, coord=coord, rank=r, out=out,
+            want=sharded["digests"])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, SPAN_CHILD_TIMEOUT - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    # a child killed at the time limit: what it printed until then
+    logs += [p.communicate()[0] for p in procs[len(logs):]]
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"phase 16 process {r} ended with "
+              f"{p.returncode} after {wall:.1f} s (limit "
+              f"{SPAN_CHILD_TIMEOUT} s):\n{log[-4000:]}")
+    with open(out) as f:
+        recs = json.load(f)
+    shutil.rmtree(work)
+    for part in ("equal", "weighted"):
+        per = [r[part] for r in recs]
+        print(f"[16 ensemble] {part}: {len(recs)} processes on one card, "
+              f"the (2 x 2) mesh's row e in process e, {recs[0]['members']} "
+              "members: each process's gathered tau/Lu/Ld bit-identical to "
+              "phase 12's one-process mesh and to the other process's; "
+              + "; ".join(
+                  f"process {r['rank']}: plan build {p['build_s']:.3f} s, a "
+                  f"batch {'/'.join('%.3f' % v for v in p['ms'])} ms, its "
+                  f"own entries done at "
+                  f"{'/'.join('%.3f' % v for v in p['own_ms'])} ms, the "
+                  f"exchange {'/'.join('%.3f' % v for v in p['gather_ms'])} "
+                  "ms, "
+                  f"launches {p['launches']}, with offsets {p['offsets']}"
+                  for r, p in zip(recs, per))
+              + f"; one process (phase 12) {sharded['ms'][part]:.3f} ms a "
+              f"batch [{card}]", flush=True)
+    print(f"[16 global mesh] make_mesh(2, 1) over the two processes: "
+          f"one card a process, its ensemble on {SPAN_SMALL[0]}-"
+          f"{SPAN_SMALL[1]} cm^-1 ({recs[0]['global_points']} padded "
+          f"points, 2 members) bit-identical to a one-process virtual "
+          f"mesh; make_mesh(2, 2) raises [{card}]", flush=True)
+    print(f"[16 jacobian] {len(SHARD_JAC_DIRS)} directions, 4 a process: "
+          f"bit-identical to phase 12's; " + "; ".join(
+              f"process {r['rank']}: plan build "
+              f"{r['jacobian']['build_s']:.3f} s, the batch "
+              f"{r['jacobian']['ms']:.3f} ms, its own entries done at "
+              f"{r['jacobian']['own_ms']:.3f} ms, the exchanges "
+              f"{r['jacobian']['gather_ms']:.3f} ms, launches "
+              f"{r['jacobian']['launches']}, with offsets "
+              f"{r['jacobian']['offsets']}" for r in recs)
+          + f"; the two processes' wall {wall:.1f} s [{card}]", flush=True)
+    return {k: [r["weighted"]["launches"].get(k, 0) for r in recs]
+            for k in (*PRODUCTION_MODES, "tud")} | {
+        k: [r["jacobian"]["launches"].get(k, 0) for r in recs]
+        for k in ("full", "jvp")}
 
 
 # phase 13: the cross-section serving path at the reference generator's
@@ -4309,6 +4632,7 @@ def main():
     run(phase_sdvoigt_jacobian, dev, card)
     k7["full"], route_launches = run(phase_od_layers, dev, card)
     sharded = run(phase_sharded, dev, card, x_lo, products)
+    span = run(phase_span, card, sharded)
     serving = run(phase_serving, dev, card)
     run(phase_examples, card)
     compat = run(phase_hapi, dev, card)
@@ -4376,6 +4700,14 @@ def main():
                 entry["offset_launches"] = sharded[path][key]
                 entry["offset_path"] = f"phase 12 sharded {path}"
                 break
+    # the launches in each of phase 16's two processes (the weighted
+    # ensemble's, the Jacobian's)
+    for entry in kernels:
+        key = entry["name"].replace("fused_xsect_", "", 1).replace(
+            "fused_tud", "tud")
+        if key in span and entry["name"] != "fused_tud_source_input":
+            entry["span_launches"] = span[key]
+            entry["span_path"] = "phase 16 mesh over two processes"
     # the launches of the serving path (phase 13): K1's lattice modes and
     # K2 on the served OD
     for entry in kernels:

@@ -185,7 +185,10 @@ def run_tiled(ckpt: TiledCheckpoint, compute_tile, log=print,
               owned_shards=None) -> dict | None:
     """Run ``compute_tile(indices, shard) -> dict`` over the pending tiles
     of ``owned_shards`` (default: all) and gather; None while tiles of
-    other writers are missing."""
+    other writers are missing. Several processes writing one directory
+    each run their own shards, then meet at a barrier (e.g.
+    ``torch.distributed.barrier()``) and call :meth:`TiledCheckpoint.gather`
+    (``tests/test_torch_dist_multiprocess.py``)."""
     owned = set(range(ckpt.n_shards) if owned_shards is None
                 else owned_shards)
     for b, s in ckpt.pending:

@@ -8,7 +8,9 @@ its members' TUD on its sub-band on its own device, the line list
 replicated (every spectral shard evaluates its sub-band exactly). This is
 the plain PyTorch path, layer by layer through
 :func:`~..products.od.compute_od_layer`; the kernels' path is
-:mod:`.fused_ensemble`.
+:mod:`.fused_ensemble`. On a mesh over several processes each process
+computes the entries it owns, and :func:`share_parts` hands every process
+the others' (JAX's global array and ``host_gather``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..products.tud import tud_from_od
 from .mesh import ENSEMBLE, SPECTRUM
 
 __all__ = ["stack_states", "tud_ensemble_sharded", "gather_shards",
-           "shard_context"]
+           "share_parts", "shard_context"]
 
 
 def stack_states(states) -> AtmosphericState:
@@ -80,6 +82,39 @@ def gather_shards(parts, out_device, n_members: int, n_x: int,
     return tau, Lu, Ld
 
 
+def share_parts(parts, mesh, rows=None) -> dict:
+    """Every entry's part in every process: ``parts`` holds this process's
+    entries (e, s) of the ensemble ``rows`` (default: all), each a tuple of
+    tensors; on a mesh over several processes each entry's owner
+    broadcasts its tensors through the group, entry by entry in mesh order,
+    and the others receive them on the host. The bits are moved as they
+    are: nothing is reduced across processes (line data are replicated and
+    shards cover disjoint sub-bands). Every process of the group calls it
+    with the same ``rows``; elsewhere ``parts`` is returned as it is."""
+    if not mesh.spans_group:
+        return parts
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    n_ens, n_spec = mesh.devices.shape
+    out = {}
+    for e in range(n_ens) if rows is None else rows:
+        for s in range(n_spec):
+            src = mesh.owner(e, s)
+            if src == rank:
+                host = [a.detach().cpu().contiguous() for a in parts[(e, s)]]
+                head = [[(tuple(a.shape), a.dtype) for a in host]]
+            else:
+                head = [None]
+            dist.broadcast_object_list(head, src=src)
+            if src != rank:
+                host = [torch.empty(shape, dtype=dt) for shape, dt in head[0]]
+            for a in host:
+                dist.broadcast(a, src=src)
+            out[(e, s)] = parts[(e, s)] if src == rank else tuple(host)
+    return out
+
+
 def tud_ensemble_sharded(lines, iso, grid, batch: AtmosphericState,
                          altitudes, mesh, mu=1.0, n_angles: int = 30,
                          quadrature: str = "uniform", return_od: bool = False,
@@ -90,7 +125,9 @@ def tud_ensemble_sharded(lines, iso, grid, batch: AtmosphericState,
     ``batch`` carries a leading batch axis on every tensor (its size a
     multiple of the ensemble axis) and ``len(grid)`` must be a multiple of
     the spectrum axis. Returns (tau, Lu, Ld), (B, nX, nZs, nMu), (B, nX,
-    nZs, nMu) and (B, nX), on the device of ``batch``.
+    nZs, nMu) and (B, nX), on the device of ``batch``. On a mesh over
+    several processes, every process of the group calls it with the same
+    inputs, computes its own entries and receives the whole.
     """
     grid = torch.as_tensor(grid)
     n_spec, n_ens = mesh.shape[SPECTRUM], mesh.shape[ENSEMBLE]
@@ -110,30 +147,27 @@ def tud_ensemble_sharded(lines, iso, grid, batch: AtmosphericState,
                    torch.atleast_1d(torch.as_tensor(altitudes, device=dev)),
                    torch.atleast_1d(torch.as_tensor(mu, device=dev)))
     parts = {}
-    for e in range(n_ens):
-        for s in range(n_spec):
-            dev = mesh.devices[e, s]
-            lines_d, iso_d, alts, mu_d = on[dev]
-            with shard_context(dev):
-                x = grid[s * n_loc:(s + 1) * n_loc].to(dev)
-                outs = []
-                for i in range(e * m, (e + 1) * m):
-                    st = member(batch, i, dev)
-                    od = torch.stack([
-                        compute_od_layer(lines_d, iso_d, x, T_l, p_l, pl_l,
-                                         vmr_l, cols, chunk=chunk)
-                        for T_l, p_l, pl_l, vmr_l in zip(st.T, st.p, st.pl,
-                                                         st.vmr)])
-                    if continuum != "none":
-                        od = od + continuum_od(
-                            x, st, model=continuum,
-                            continuum_factors=continuum_factors
-                        ).to(od.dtype)
-                    B = planckian(x, st.T).transpose(0, 1).to(od.dtype)
-                    tud = tud_from_od(x, od, B, st.z0, alts,
-                                      mu=mu_d.to(od.dtype),
-                                      n_angles=n_angles, return_od=return_od,
-                                      quadrature=quadrature)
-                    outs.append((tud.tau, tud.Lu, tud.Ld))
-                parts[(e, s)] = tuple(torch.stack(a) for a in zip(*outs))
-    return gather_shards(parts, batch.T.device, n_b, n_x)
+    for e, s in mesh.owned():
+        dev = mesh.devices[e, s]
+        lines_d, iso_d, alts, mu_d = on[dev]
+        with shard_context(dev):
+            x = grid[s * n_loc:(s + 1) * n_loc].to(dev)
+            outs = []
+            for i in range(e * m, (e + 1) * m):
+                st = member(batch, i, dev)
+                od = torch.stack([
+                    compute_od_layer(lines_d, iso_d, x, T_l, p_l, pl_l,
+                                     vmr_l, cols, chunk=chunk)
+                    for T_l, p_l, pl_l, vmr_l in zip(st.T, st.p, st.pl,
+                                                     st.vmr)])
+                if continuum != "none":
+                    od = od + continuum_od(
+                        x, st, model=continuum,
+                        continuum_factors=continuum_factors).to(od.dtype)
+                B = planckian(x, st.T).transpose(0, 1).to(od.dtype)
+                tud = tud_from_od(x, od, B, st.z0, alts,
+                                  mu=mu_d.to(od.dtype), n_angles=n_angles,
+                                  return_od=return_od, quadrature=quadrature)
+                outs.append((tud.tau, tud.Lu, tud.Ld))
+            parts[(e, s)] = tuple(torch.stack(a) for a in zip(*outs))
+    return gather_shards(share_parts(parts, mesh), batch.T.device, n_b, n_x)

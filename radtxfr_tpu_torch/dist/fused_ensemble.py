@@ -5,14 +5,19 @@
 Every mesh entry (e, s) runs the same static plans on its data: its
 members (or tangent directions) of ensemble slice e, and spectral shard s
 of the padded grid, whose tiles carry their global grid offsets
-(:func:`~..products.od.make_od_local_fn`). One controller walks the
-entries on the host and runs each under its device (kernels launch on that
+(:func:`~..products.od.make_od_local_fn`). Each process walks the entries
+it owns on the host and runs each under its device (kernels launch on that
 device's current stream, asynchronously, so distinct cards overlap; on a
 repeated device the entries run one after another); nothing synchronises
-inside the walk, and the parts are joined on the caller's device in the
-layout of JAX's ``out_specs``. Line-wing spill across shard boundaries is
-the bucketing's: line data are replicated and each shard's tiles hold every
-line whose wing reaches them.
+inside the walk. On a mesh over several processes (JAX's multi-controller
+``shard_map``) every process builds the same plans from the same inputs,
+checks through the group that they are the same, binds only its own
+shards, and calls ``run`` with the same inputs as the others; the other
+processes' parts reach it through the group
+(:func:`~.ensemble.share_parts`), and every process joins the whole on its
+caller's device in the layout of JAX's ``out_specs``. Line-wing spill
+across shard boundaries is the bucketing's: line data are replicated and
+each shard's tiles hold every line whose wing reaches them.
 
 Composition is pointwise in nu, so a weighted partition's permuted points
 go through it as they are and are put back in grid order at the gather.
@@ -32,7 +37,7 @@ from ..atmos.profile import AtmosphericState
 from ..core.planck import planckian
 from ..products.od import make_od_local_fn, shard_slice
 from ..products.tud import make_tud_fn, tud_from_od
-from .ensemble import gather_shards, member, shard_context
+from .ensemble import gather_shards, member, shard_context, share_parts
 from .mesh import ENSEMBLE, SPECTRUM
 
 __all__ = ["make_tud_ensemble_fn", "tud_ensemble_fused",
@@ -55,11 +60,29 @@ def _envelope(batch: AtmosphericState) -> list:
             mk({f: (lo if f in dense else hi)[f] for f in _FIELDS})]
 
 
+def _check_same_plans(local_fn, mesh):
+    """Raise unless every process of a mesh's group built the same host
+    plans (a mismatch would gather wrong columns without a word); every
+    process raises alike, so none is left waiting on the others."""
+    if not mesh.spans_group:
+        return
+    import torch.distributed as dist
+
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, local_fn.plan_digest)
+    if len(set(digests)) > 1:
+        raise ValueError("the processes of the mesh built different plans "
+                         f"(SHA-256 by rank: {digests}); every process must "
+                         "build from the same inputs")
+
+
 class _Shards:
-    """A local OD function's per-device copies, each spectral shard's spec
-    and (possibly permuted) wavenumbers on each device of a mesh."""
+    """A local OD function's copies on this process's devices of a mesh,
+    and the spec and (possibly permuted) wavenumbers of each spectral shard
+    that this process's entries run."""
 
     def __init__(self, local_fn, spec_data, gpad, mesh, dtype):
+        _check_same_plans(local_fn, mesh)
         self.mesh = mesh
         self.n_spec = mesh.shape[SPECTRUM]
         self.n_local = gpad.n // self.n_spec
@@ -68,18 +91,17 @@ class _Shards:
         if self.point_index is not None:
             x = x[np.asarray(self.point_index).reshape(-1)]
         fns, self.shard, self.x = {}, {}, {}
-        for e in range(mesh.shape[ENSEMBLE]):
-            for s in range(self.n_spec):
-                dev = mesh.devices[e, s]
-                if dev not in fns:
-                    fns[dev] = local_fn.to(dev)
-                if (s, dev) not in self.shard:
-                    # bound here, outside any torch.func transform
-                    self.shard[(s, dev)] = fns[dev].bind(
-                        shard_slice(spec_data, s, dev), s * self.n_local)
-                    self.x[(s, dev)] = torch.as_tensor(
-                        x[s * self.n_local:(s + 1) * self.n_local],
-                        dtype=dtype, device=dev)
+        for e, s in mesh.owned():
+            dev = mesh.devices[e, s]
+            if dev not in fns:
+                fns[dev] = local_fn.to(dev)
+            if (s, dev) not in self.shard:
+                # bound here, outside any torch.func transform
+                self.shard[(s, dev)] = fns[dev].bind(
+                    shard_slice(spec_data, s, dev), s * self.n_local)
+                self.x[(s, dev)] = torch.as_tensor(
+                    x[s * self.n_local:(s + 1) * self.n_local],
+                    dtype=dtype, device=dev)
 
     def od(self, s, dev, T, p, pl, vmr):
         """Shard s's layer OD of one state, on ``dev``."""
@@ -105,7 +127,10 @@ def make_tud_ensemble_fn(lines, iso, grid, batch: AtmosphericState,
 
     Returns ``(padded_grid, run)``: ``run(batch) -> (tau, Lu, Ld)``, tau/Lu
     (B, nXp, nZs, nMu) and Ld (B, nXp) on the device of ``batch``'s
-    tensors, on the padded grid (slice to the original ``len(grid)``).
+    tensors, on the padded grid (slice to the original ``len(grid)``). On a
+    mesh over several processes every process of the group builds and
+    calls ``run`` with the same inputs, computes its own entries and
+    receives the whole.
     """
     n_spec, n_ens = mesh.shape[SPECTRUM], mesh.shape[ENSEMBLE]
     if batch.T.shape[0] % n_ens:
@@ -154,18 +179,18 @@ def make_tud_ensemble_fn(lines, iso, grid, batch: AtmosphericState,
         z0 = np.ascontiguousarray(b.z0.detach().cpu().numpy(),
                                   dtype=np.float64)
         parts = {}
-        for e in range(n_ens):
-            for s in range(n_spec):
-                dev = mesh.devices[e, s]
-                with shard_context(dev):
-                    outs = []
-                    for i in range(e * m, (e + 1) * m):
-                        st = member(b, i, dev)
-                        od = sh.od(s, dev, st.T, st.p, st.pl, st.vmr)
-                        outs.append(compose(sh.x[(s, dev)], od, st,
-                                            z0[i].tobytes(), dev))
-                    parts[(e, s)] = tuple(torch.stack(a) for a in zip(*outs))
-        return gather_shards(parts, b.T.device, n_b, gpad.n, sh.point_index)
+        for e, s in mesh.owned():
+            dev = mesh.devices[e, s]
+            with shard_context(dev):
+                outs = []
+                for i in range(e * m, (e + 1) * m):
+                    st = member(b, i, dev)
+                    od = sh.od(s, dev, st.T, st.p, st.pl, st.vmr)
+                    outs.append(compose(sh.x[(s, dev)], od, st,
+                                        z0[i].tobytes(), dev))
+                parts[(e, s)] = tuple(torch.stack(a) for a in zip(*outs))
+        return gather_shards(share_parts(parts, mesh), b.T.device, n_b,
+                             gpad.n, sh.point_index)
 
     return gpad, run
 
@@ -221,7 +246,9 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
     tangent)``: dicts of tau (nXp, nZs, nMu), Lu and Ld (nXp,), the
     tangent's with a leading (n_dirs,) axis; ``V_T`` is (n_dirs, nLay) and
     ``V_vmr`` (n_dirs, nLay, nSpecies), n_dirs a multiple of the ensemble
-    axis. Outputs lie on the device of ``T``.
+    axis. Outputs lie on the device of ``T``. On a mesh over several
+    processes every process of the group builds and calls ``run`` with the
+    same inputs; the owner of entry (0, s) computes shard s's primal.
     """
     n_spec, n_ens = mesh.shape[SPECTRUM], mesh.shape[ENSEMBLE]
     od_opts.setdefault("partition", "weighted")
@@ -243,35 +270,35 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
                              f"the ensemble mesh axis {n_ens}")
         m = n_dirs // n_ens
         prim, tan = {}, {}
-        for e in range(n_ens):
-            for s in range(n_spec):
-                dev = mesh.devices[e, s]
-                fx, x = fixed[dev], sh.x[(s, dev)]
-                alts = torch.as_tensor(alts_np, device=dev)
-                mu_d = torch.as_tensor(mu_np, dtype=T.dtype, device=dev)
+        for e, s in mesh.owned():
+            dev = mesh.devices[e, s]
+            fx, x = fixed[dev], sh.x[(s, dev)]
+            alts = torch.as_tensor(alts_np, device=dev)
+            mu_d = torch.as_tensor(mu_np, dtype=T.dtype, device=dev)
 
-                def forward(T_, vmr_, s=s, dev=dev, fx=fx, x=x, alts=alts,
-                            mu_d=mu_d):
-                    od = sh.od(s, dev, T_, fx["p"], fx["pl"], vmr_)
-                    B = planckian(x, T_).transpose(0, 1).to(od.dtype)
-                    tud = tud_from_od(x, od, B, fx["z0"], alts, mu=mu_d,
-                                      n_angles=n_angles,
-                                      quadrature=quadrature)
-                    return (tud.tau, tud.Lu, tud.Ld)
+            def forward(T_, vmr_, s=s, dev=dev, fx=fx, x=x, alts=alts,
+                        mu_d=mu_d):
+                od = sh.od(s, dev, T_, fx["p"], fx["pl"], vmr_)
+                B = planckian(x, T_).transpose(0, 1).to(od.dtype)
+                tud = tud_from_od(x, od, B, fx["z0"], alts, mu=mu_d,
+                                  n_angles=n_angles, quadrature=quadrature)
+                return (tud.tau, tud.Lu, tud.Ld)
 
-                with shard_context(dev):
-                    T_d, vmr_d = T.to(dev), vmr.to(dev)
-                    if e == 0:
-                        prim[(0, s)] = tuple(a[None] for a in
-                                             forward(T_d, vmr_d))
-                    tan[(e, s)] = torch.func.vmap(
-                        lambda vT, vv: torch.func.jvp(
-                            forward, (T_d, vmr_d), (vT, vv))[1])(
-                        V_T[e * m:(e + 1) * m].to(dev),
-                        V_vmr[e * m:(e + 1) * m].to(dev))
+            with shard_context(dev):
+                T_d, vmr_d = T.to(dev), vmr.to(dev)
+                if e == 0:
+                    prim[(0, s)] = tuple(a[None] for a in
+                                         forward(T_d, vmr_d))
+                tan[(e, s)] = torch.func.vmap(
+                    lambda vT, vv: torch.func.jvp(
+                        forward, (T_d, vmr_d), (vT, vv))[1])(
+                    V_T[e * m:(e + 1) * m].to(dev),
+                    V_vmr[e * m:(e + 1) * m].to(dev))
         names = ("tau", "Lu", "Ld")
-        p = gather_shards(prim, T.device, 1, gpad.n, sh.point_index)
-        t = gather_shards(tan, T.device, n_dirs, gpad.n, sh.point_index)
+        p = gather_shards(share_parts(prim, mesh, rows=[0]), T.device, 1,
+                          gpad.n, sh.point_index)
+        t = gather_shards(share_parts(tan, mesh), T.device, n_dirs, gpad.n,
+                          sh.point_index)
         return ({k: a[0] for k, a in zip(names, p)}, dict(zip(names, t)))
 
     return gpad, run

@@ -5,9 +5,14 @@ The reference has no distributed backend (a single-host ``multiprocessing``
 pool, ``Generate_LWIR_TUD.py:98-149``). Processes here join one
 ``torch.distributed`` group: call :func:`init_multihost` once per process;
 the JAX coordinator address, process count and process id map to a
-``tcp://`` init method, the world size and the rank. A mesh stays within
-one process (:mod:`.mesh`); the group carries host-side gathers
-(:func:`~.checkpoint.host_gather`).
+``tcp://`` init method, the world size and the rank. As JAX's meshes
+after ``jax.distributed.initialize``, a mesh then spans every process's
+cards (:func:`~.mesh.make_mesh`): each process computes the entries it owns,
+and the group carries the other entries' parts to it
+(:func:`~.ensemble.share_parts`) and the host-side gathers
+(:func:`~.checkpoint.host_gather`). The backend is gloo, which moves host
+tensors: NCCL refuses two ranks on one card, and the parts are gathered on
+the host anyway.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import os
 
 import torch
 
-__all__ = ["init_multihost", "runtime_info"]
+__all__ = ["init_multihost", "runtime_info", "group_layout"]
 
 
 def init_multihost(coordinator_address: str | None = None,
@@ -45,19 +50,28 @@ def init_multihost(coordinator_address: str | None = None,
     dist.init_process_group("gloo", init_method=init, **kwargs)
 
 
+def group_layout() -> tuple:
+    """(this process's rank, the group's size): (0, 1) without a group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def runtime_info() -> dict:
     """Process/device layout summary for logs."""
     import torch.distributed as dist
 
-    on = dist.is_available() and dist.is_initialized()
+    rank, world = group_layout()
     n_local = torch.cuda.device_count()
     counts = [n_local]
-    if on:
-        counts = [None] * dist.get_world_size()
+    if dist.is_available() and dist.is_initialized():
+        counts = [None] * world
         dist.all_gather_object(counts, n_local)
     return {
-        "process_index": dist.get_rank() if on else 0,
-        "process_count": dist.get_world_size() if on else 1,
+        "process_index": rank,
+        "process_count": world,
         "local_devices": n_local,
         "global_devices": int(sum(counts)),
         "backend": "cuda" if n_local else "cpu",

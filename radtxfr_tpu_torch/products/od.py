@@ -61,6 +61,7 @@ is the pointwise :func:`~..atmos.continuum.continuum_od`.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -1011,13 +1012,17 @@ class LocalOpticalDepthFn(OpticalDepthFn):
     the same function on another device (its plans, lines and tables moved
     there, the host planning reused)."""
 
-    def __init__(self, *args, n_local, partition, point_index, rebuild):
+    def __init__(self, *args, n_local, partition, point_index, rebuild,
+                 plan_digest):
         super().__init__(*args)
         self.n_local = n_local
         self.partition = partition
         #: (n_shards, n_local) global grid index of each shard's points
         #: (the weighted partition), else None
         self.point_index = point_index
+        #: SHA-256 of the host plans (:func:`_plan_digest`): processes
+        #: sharing one mesh compare it before they split the work
+        self.plan_digest = plan_digest
         self._rebuild = rebuild
 
     def to(self, device) -> "LocalOpticalDepthFn":
@@ -1079,6 +1084,34 @@ def _lines_on(lines, iso, device):
     return (mv(lines, [f.name for f in dataclasses.fields(lines)
                        if f.name != "host"]),
             mv(iso, [f.name for f in dataclasses.fields(iso)]))
+
+
+def _plan_digest(calls, host_spec) -> str:
+    """SHA-256 of a sharded builder's host plans: every call's layers,
+    lines, mode and bucket plan (grid, sizes, block ranges, slots, wing
+    bounds) and the shards' spec (block ranges, tile offsets, the weighted
+    partition's point index)."""
+    h = hashlib.sha256()
+
+    def add(v):
+        if isinstance(v, (dict, list, tuple)):
+            items = v.items() if isinstance(v, dict) else enumerate(v)
+            h.update(f"{type(v).__name__}{len(v)}".encode())
+            for k, x in items:
+                h.update(repr(k).encode())
+                add(x)
+        elif isinstance(v, BucketPlan):
+            add({f.name: getattr(v, f.name) for f in dataclasses.fields(v)})
+        elif isinstance(v, np.ndarray) or torch.is_tensor(v):
+            a = np.ascontiguousarray(as_numpy(v))
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(v).encode())
+
+    add([(lay, idx, plan, mode) for lay, idx, plan, mode in calls])
+    add(host_spec)
+    return h.hexdigest()
 
 
 def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
@@ -1179,6 +1212,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
                      "point_idx": point_index.astype(np.int32)}
     else:
         raise ValueError(f"unknown partition {partition!r}")
+    digest = _plan_digest(calls, host_spec)
 
     def build(device):
         lines_d, iso_d = _lines_on(lines, iso, device)
@@ -1193,7 +1227,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
         return LocalOpticalDepthFn(
             lines_d, iso_d, passes, cols, profile, wing_abs, wing_hw,
             line_mixing, cont, n_local=n_local, partition=partition,
-            point_index=point_index, rebuild=build)
+            point_index=point_index, rebuild=build, plan_digest=digest)
 
     dev = lines.sw.device
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731

@@ -574,6 +574,29 @@ def test_make_mesh_and_helpers():
     assert pad_axis_to(x, 5) is x
 
 
+def test_make_mesh_process_pairs():
+    """Without a process group the mesh of plain devices is this process's
+    alone (no owner array, every entry its own, as before meshes could
+    span processes); its ``(process, device)`` pairs give the same mesh
+    back, now with process 0 owning every entry; a pair naming process 1
+    lies outside the group of one and raises."""
+    mesh = _cpu_mesh(2, 2)
+    assert mesh.processes is None and not mesh.spans_group
+    assert mesh.owned() == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    pairs = mesh.pairs()
+    assert pairs == [(0, torch.device("cpu"))] * 4
+    again = make_mesh(2, 2, devices=pairs)
+    assert again.devices.tolist() == mesh.devices.tolist()
+    assert again.processes.tolist() == [[0, 0], [0, 0]]
+    assert again.owned() == mesh.owned() and not again.spans_group
+    assert again.pairs() == pairs and again.shape == mesh.shape
+    assert make_mesh(1, 2, devices=[(0, "cpu"), [0, "cpu"]]).pairs() == \
+        pairs[:2]
+    with pytest.raises(ValueError, match="process 1 is outside the group "
+                                         "of 1"):
+        make_mesh(1, 2, devices=[(0, "cpu"), (1, "cpu")])
+
+
 TUD_CLI = ["tud", "--derived", "--line-mixing", "--continuum", "mt_ckd",
            "--numin", "790", "--numax", "792", "--dv", "0.005", "--n-atmos",
            "3", "--batch", "2", "--n-angles", "8", "--altitudes", "0.35",
