@@ -95,7 +95,15 @@ Phases, each printing its result on its own line:
    kernel launch fails the phase. Each command's
    seconds (a second, warm call; host clock, results on the host), and
    those of the fixed-count loops (NMF's 400 updates, FastICA's 200, the
-   variational fit's 500 steps and EM's 200).
+   variational fit's 500 steps and EM's 200). Then the products chained
+   on the card as JAX's chain on a device: one production member at full
+   width (standard atmosphere, line mixing, MT_CKD; its K1 and K2
+   launches counted) composed by ``make_tud_fn`` on the state's card
+   ``z0`` and card altitudes, ``ils_mako(t.X, t.tau)``,
+   ``reduce_operator(t.X, 0.25)`` on ``t.tau``, ``write_h5`` (a recording
+   stand-in for h5py where it is not installed) and
+   ``EnsembleCheckpoint.write_batch``, every step fed card tensors and
+   bit-identical to the same call on host copies; each step's seconds.
 5b. The Jacobian path: ``run_tud`` on the production configuration with
    ``--jacobian`` (d tau/Lu/Ld / d T, H2O, O3: 198 directions) with the
    launch counts reset before and read after (K1 ``full`` and K3 must have
@@ -103,7 +111,11 @@ Phases, each printing its result on its own line:
    device memory. Then the same on a 5 cm^-1 band (at 5e-3 cm^-1) on the
    card and on the CPU: each Jacobian within 1e-4 of its own peak.
 6. Where one member's time goes (CUDA events per stage), with each K1
-   mode's bound at the production width.
+   mode's bound at the production width; beside each pass's in-window
+   evaluations (``window_counts``: what the kernels evaluate after
+   culling), its builder's ``work_report`` entry (the plan's dense
+   (layer x slot x point) work, JAX's ``plan_executed_evals``), each
+   labelled, and the per-mode totals of both.
 6b. Where one 8-direction tangent batch of the Jacobian goes.
 3c. The XS lattice's K1 modes (``sdvoigt*``, ``lorentz``, ``doppler``,
    ``corr:64:*``) against their plain versions on every pass of
@@ -147,7 +159,10 @@ Phases, each printing its result on its own line:
    within 1e-5 of peak; ``xsect --profile ht`` through the CLI on the
    coarse-far route, AFIT files written and one read back.
 9b. The layered HT OD at full width (metric 5b: 66 layers): milliseconds,
-   window evaluations per second, the K5 and K1 launch counts.
+   window evaluations per second, the K5 and K1 launch counts. The window
+   evaluations of 9 and 9b come from ``ht_wing_bounds`` on the card's
+   isotopologue tables and states, held equal to the call on host
+   copies.
 9c. The HT Jacobian (``ht_jacobian_jvp_per_s``: 2,000 lines, 790-830
    cm^-1): d OD / d T[3], then all 66 one-hot T directions through ``vmap``
    of ``jvp`` with the counts reset before and read after (K3, K4 and K6
@@ -331,6 +346,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -358,6 +374,8 @@ from radtxfr_tpu_torch.kernels import fused_ht  # noqa: E402
 from radtxfr_tpu_torch.kernels.ht_driver import (  # noqa: E402
     resolve_ht_columns, xsect_ht)
 from radtxfr_tpu_torch.kernels.xsect import xsect_from_params  # noqa: E402
+from radtxfr_tpu_torch.kernels.fused_xsect import (  # noqa: E402
+    _ops_per_eval, plan_executed_evals)
 from radtxfr_tpu_torch.products.od_from_xs import (  # noqa: E402
     XsTable, od_from_xs, xs_table_from_files)
 from radtxfr_tpu_torch.core.constants import PA_PER_ATM  # noqa: E402
@@ -374,6 +392,9 @@ from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator  # noqa: E402
+from radtxfr_tpu_torch.dist.checkpoint import EnsembleCheckpoint  # noqa: E402
+from radtxfr_tpu_torch.io.h5 import Var, read_h5, write_h5  # noqa: E402
+from radtxfr_tpu_torch.sensor.ils import ils_mako  # noqa: E402
 from radtxfr_tpu_torch.atmos.profile import std_atmosphere_raw  # noqa: E402
 from radtxfr_tpu_torch.cli.main import (  # noqa: E402
     atmosgen_ensemble, run_atmosgen, run_emis, run_hsi, run_mako,
@@ -1682,7 +1703,153 @@ def phase_scene(card, launches, x_lo, products):
           + f" [{card}]", flush=True)
     print(f"[5e scene] seconds (warm, host clock): " + ", ".join(
         f"{k} {v:.4f}" for k, v in secs.items()) + f" [{card}]", flush=True)
+    scene_chain(card)
     return secs
+
+
+class RecordingH5:
+    """A stand-in for ``h5py`` where it is not installed (the card's
+    machine): ``File(name, "w")`` records each dataset's array and
+    attributes under ``name``, so ``write_h5``'s host copies can be held
+    bit for bit (real files' bytes are held on the CPU,
+    ``tests/test_torch_faults_q3.py``)."""
+
+    def __init__(self):
+        self.files = {}
+
+    def File(self, name, mode):  # noqa: N802 (h5py's name)
+        rec = self.files.setdefault(name, {"": types.SimpleNamespace(
+            data=None, attrs={})})
+
+        def create_dataset(key, data):
+            rec[key] = types.SimpleNamespace(data=data, attrs={})
+            return rec[key]
+
+        return contextlib.nullcontext(types.SimpleNamespace(
+            attrs=rec[""].attrs, create_dataset=create_dataset))
+
+
+H5_ATTRS = ("units", "name", "info", "label")
+
+
+def recorded_h5(path, variables):
+    """{dataset: (array, (units, name, info, label))} of ``write_h5(path,
+    variables)``: read back with h5py, or recorded by :class:`RecordingH5`
+    where h5py is absent (also ``tests/test_torch_cuda.py``'s)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        write_h5(path, variables)
+        return {k: (v.data, tuple(getattr(v, a) for a in H5_ATTRS))
+                for k, v in read_h5(path).items()}
+    stand_in, saved = RecordingH5(), sys.modules.get("h5py")
+    sys.modules["h5py"] = stand_in
+    try:
+        write_h5(path, variables)
+    finally:
+        sys.modules.pop("h5py")
+        if saved is not None:
+            sys.modules["h5py"] = saved
+    return {k: (n.data, tuple(str(n.attrs.get(a, "")) for a in H5_ATTRS))
+            for k, n in stand_in.files[path].items() if k}
+
+
+def same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def scene_chain(card):
+    """Phase 5e's chain: one production member at full width on the card,
+    its products passed on as card tensors through ``make_tud_fn`` ->
+    ``ils_mako`` -> ``reduce_operator`` -> ``write_h5`` ->
+    ``EnsembleCheckpoint.write_batch``, each step against the same call on
+    host copies (bit for bit)."""
+    f32, dev = torch.float32, torch.device("cuda")
+    store = derived_lwir_linelist(FULL_BAND[0] - MARGIN, FULL_BAND[1] + MARGIN,
+                                  device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    X = arange_drift_free(*FULL_BAND)
+    secs = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32), X, base,
+                       continuum="mt_ckd",
+                       line_mixing={"y_air": y_air_for_store(store)})
+    od = od_fn(base.T, base.p, base.pl, base.vmr)
+    x = torch.as_tensor(X, dtype=f32, device=dev)
+    alts = torch.as_tensor(ALTITUDES, device=dev)
+    t = make_tud_fn(base.z0, alts, device=dev)(x, od, base.T)
+    torch.cuda.synchronize()
+    secs["member (plan, od, tud)"] = time.perf_counter() - t0
+    launches = read_launches()
+    for k in (*PRODUCTION_MODES, "tud"):
+        check(launches[k] > 0, f"chain: kernel {k} was not launched")
+    t_h = make_tud_fn(base.z0.cpu().numpy(), ALTITUDES, device=dev)(
+        x, od, base.T)
+    for k in ("X", "tau", "Lu", "Ld"):
+        check(getattr(t, k).is_cuda and torch.equal(getattr(t, k),
+                                                    getattr(t_h, k)),
+              f"chain: make_tud_fn on card z0/altitudes, {k} differs")
+    host_x = t.X.cpu().numpy()
+    t0 = time.perf_counter()
+    mx, my = ils_mako(t.X, t.tau)
+    torch.cuda.synchronize()
+    secs["ils_mako"] = time.perf_counter() - t0
+    hx, hy = ils_mako(host_x, t.tau)
+    check(my.is_cuda and np.array_equal(mx, hx) and torch.equal(my, hy),
+          "chain: ils_mako on t.X differs from the host copy's")
+    t0 = time.perf_counter()
+    op = reduce_operator(t.X, 0.25)
+    red = [op(a) for a in (t.tau, t.Lu, t.Ld)]
+    torch.cuda.synchronize()
+    secs["reduce_operator"] = time.perf_counter() - t0
+    op_h = reduce_operator(host_x, 0.25)
+    check(np.array_equal(op.x_out, op_h.x_out)
+          and all(r.is_cuda and torch.equal(r, op_h(a))
+                  for r, a in zip(red, (t.tau, t.Lu, t.Ld))),
+          "chain: reduce_operator on t.X differs from the host copy's")
+    work = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    card_vars = {"X": Var(torch.as_tensor(op.x_out), units="cm^{-1}"),
+                 "tau": Var(red[0], units="none"), "La": red[1],
+                 "Ld": red[2], "mako_tau": my}
+    host_vars = {k: (Var(v.data.cpu().numpy(), units=v.units)
+                     if isinstance(v, Var) else v.cpu().numpy())
+                 for k, v in card_vars.items()}
+    t0 = time.perf_counter()
+    got = recorded_h5(os.path.join(work, "card.h5"), card_vars)
+    secs["write_h5"] = time.perf_counter() - t0
+    want = recorded_h5(os.path.join(work, "host.h5"), host_vars)
+    check(set(got) == set(want) == set(card_vars)
+          and all(same_bits(got[k][0], want[k][0]) and got[k][1] == want[k][1]
+                  for k in got), "chain: write_h5 of card tensors differs")
+    arrays = {"tau": red[0], "La": red[1], "Ld": red[2]}
+    t0 = time.perf_counter()
+    EnsembleCheckpoint(os.path.join(work, "card"), 1, 1).write_batch(
+        0, arrays)
+    secs["write_batch"] = time.perf_counter() - t0
+    EnsembleCheckpoint(os.path.join(work, "host"), 1, 1).write_batch(
+        0, {k: v.cpu().numpy() for k, v in arrays.items()})
+    got, want = (EnsembleCheckpoint(os.path.join(work, n), 1, 1)
+                 .read_batch(0) for n in ("card", "host"))
+    check(all(same_bits(got[k], want[k]) for k in arrays),
+          "chain: write_batch of card tensors differs")
+    shutil.rmtree(work)
+    print(f"[5e chain] one production member ({X.size} points, 66 layers, "
+          f"{len(ALTITUDES)} altitudes; launches "
+          f"{ {k: v for k, v in launches.items() if v} }) -> make_tud_fn(card "
+          f"z0, card altitudes) -> ils_mako(t.X, t.tau) ({mx.size} "
+          f"channels) -> reduce_operator(t.X, 0.25) ({op.x_out.size} "
+          f"points) -> write_h5 (h5py "
+          f"{'present' if 'h5py' in sys.modules else 'absent: recorded'}) "
+          f"-> write_batch: every step on card tensors, bit-identical to "
+          f"the host copies' route", flush=True)
+    print("[5e chain] seconds (host clock, first calls): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in secs.items())
+        + f"; chain total {sum(secs.values()):.4f} [{card}]", flush=True)
 
 
 #: a child of phase 5c: the production command through run_tud on the
@@ -2224,16 +2391,35 @@ def phase_breakdown(dev, card):
     work = {m: [0, 0] for m in PRODUCTION_MODES}
     issue = {m: 0.0 for m in PRODUCTION_MODES}
     prm, _ = od_fn.line_params(T, p, pl, vmr)
-    for lay, dplan, mode in od_fn.calls:
-        slot_points[mode] += (lay.numel() * int(dplan.counts.sum())
-                              * dplan.block * dplan.tile)
+    # each pass's plan work as its builder's work_report gives it (JAX's
+    # plan_executed_evals: dense slots, padding included), beside the
+    # in-window evaluations the kernels run after culling
+    culled = {m: 0 for m in PRODUCTION_MODES}
+    check(len(od_fn.work_report) == len(od_fn.calls), "work_report entries")
+    for (lay, dplan, mode), rep in zip(od_fn.calls, od_fn.work_report):
+        evals = plan_executed_evals(dplan, lay.numel())
+        check(rep["mode"] == mode and rep["evals"] == evals,
+              f"work_report entry {rep} against its {mode} pass")
+        slot_points[mode] += evals
         counts = window_counts(lay, dplan, prm)
         n_win, (n_core,), _ = counts
+        culled[mode] += n_win
         ops, nbytes = k1_bound_work(mode, lay, dplan, prm, counts)
         work[mode] = [work[mode][0] + ops, work[mode][1] + nbytes]
         issue[mode] += k1_issue_work(mode, lay, dplan, prm, counts)
         print(f"[6 evaluations] {mode} pass, {lay.numel()} layers: "
-              f"in-window {n_win:.4g}, in-core {n_core:.4g}", flush=True)
+              f"in-window {n_win:.4g}, in-core {n_core:.4g} (window_counts, "
+              f"after culling); plan evals {evals} (work_report, JAX's "
+              f"plan_executed_evals); in-window / plan "
+              f"{n_win / evals:.4f}", flush=True)
+    plan_ops = sum(r["evals"] * _ops_per_eval(r["n_weideman"], r["mode"])
+                   for r in od_fn.work_report)
+    print("[6 work_report] per member, plan evals (work_report) / in-window "
+          "(window_counts): " + ", ".join(
+              f"{m} {slot_points[m]} / {culled[m]} "
+              f"({culled[m] / slot_points[m]:.4f})" for m in PRODUCTION_MODES)
+          + f"; the plan's lane operations (JAX's _ops_per_eval) "
+          f"{plan_ops:.6e} [{card}]", flush=True)
     print(f"[6 breakdown] full-width plan build {build_s:.3f} s; one member "
           f"(std atmosphere), ms per stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
@@ -2375,6 +2561,16 @@ def ht_window_evals(store, extras, diluent, X, T, p_atm):
                        IsoTables.load(device="cpu", dtype=torch.float64),
                        np.asarray(T, dtype=np.float64),
                        np.asarray(p_atm, dtype=np.float64))
+    # as the JAX bench calls it (bench.py:574,654): the isotopologue
+    # tables and the states on the card
+    dev = store.sw.device
+    on_card = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, dtype=np.float64), device=dev)
+    W_card = ht_wing_bounds(resolved, store.host_view(),
+                            IsoTables.load(device=dev, dtype=torch.float64),
+                            on_card(T), on_card(p_atm))
+    check(np.array_equal(W_card, W), "ht_wing_bounds on card tensors "
+          "differs from the host call")
     nu0 = np.broadcast_to(store.host["nu0"], W.shape)
     lo = np.searchsorted(X, (nu0 - W).ravel(), side="right")
     hi = np.searchsorted(X, (nu0 + W).ravel(), side="right")

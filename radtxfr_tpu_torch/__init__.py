@@ -72,12 +72,13 @@ def as_tensor_on(a, device=None, dtype=None) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype)
 
 
-def as_numpy(a) -> np.ndarray:
-    """``a`` as a host NumPy array: a tensor is copied off its device,
-    anything else goes through ``np.asarray``."""
+def as_numpy(a, dtype=None) -> np.ndarray:
+    """``a`` as a host NumPy array (in ``dtype`` where given, as
+    ``np.asarray(a, dtype)``): a tensor is copied off its device (a card's
+    refuses ``np.asarray``), anything else goes through ``np.asarray``."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=dtype)
 
 
 #: packaged data tables shared with the JAX package (read by path only)

@@ -31,7 +31,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import as_numpy, resolve_device
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, K_BOLTZMANN_CGS,
                               PA_PER_ATM)
 
@@ -57,7 +57,7 @@ class H2OContinuumTables:
 
     def __post_init__(self):
         for f in ("nu", "cs296", "cs260", "cf"):
-            object.__setattr__(self, f, np.asarray(getattr(self, f), dtype=np.float64))
+            object.__setattr__(self, f, as_numpy(getattr(self, f), np.float64))
         if not (self.nu.shape == self.cs296.shape == self.cs260.shape == self.cf.shape):
             raise ValueError("table columns must share one shape")
         if np.any(np.diff(self.nu) <= 0):
@@ -353,9 +353,9 @@ def _cia(nu, T, p_pa, vmr, mol_ids, pl_km, cf):
     (TAPE5 slots 6 and 5), amagat-squared density scaling."""
     from .far_wing import cia_n2_rototranslational, cia_o2_fundamental
 
-    return _cia_od(cia_n2_rototranslational(nu, T),
-                   cia_o2_fundamental(nu, T), T, p_pa, vmr, mol_ids, pl_km,
-                   cf)
+    return _cia_od(cia_n2_rototranslational(nu, T, xp=torch),
+                   cia_o2_fundamental(nu, T, xp=torch), T, p_pa, vmr, mol_ids,
+                   pl_km, cf)
 
 
 def _cia_od(c_n2, c_o2, T, p_pa, vmr, mol_ids, pl_km, cf):
@@ -411,7 +411,7 @@ def continuum_factors_tensor(continuum_factors, model, dtype, device):
     an O3 factor, whose slot it leaves at zero."""
     if continuum_factors is None:
         return torch.ones(7, dtype=dtype, device=device)
-    cf_host = np.asarray(continuum_factors, dtype=np.float64)
+    cf_host = as_numpy(continuum_factors, np.float64)
     if cf_host.shape != (7,):
         raise ValueError(
             f"continuum_factors must have exactly 7 elements (TAPE5 record "
@@ -463,7 +463,7 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
                            cia_o2_gaussian, co2_continuum_table)
 
     device = resolve_device(device)
-    nu_h = np.asarray(nu, dtype=np.float64)
+    nu_h = as_numpy(nu, np.float64)
     mol_ids = tuple(mol_ids)
     tables = _ACTIVE_H2O_TABLES if tables is None else tables
     tn = tables.nu
@@ -495,7 +495,8 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
         if x is not None:
             out = out + _co2_od(_co2_rows(T, t_tabj, sel(ctabj)), x, Tc, pc,
                                 plc, cf)
-        out = out + _cia_od(cia_n2_rototranslational(sel(abs_nuj), Tc),
+        out = out + _cia_od(cia_n2_rototranslational(sel(abs_nuj), Tc,
+                                                     xp=torch),
                             cia_o2_band(sel(d_o2j), sel(core_o2j), Tc), Tc,
                             pc, vmr, mol_ids, plc, cf)
         return out + _rayleigh_od(sel(sigmaj), Tc, pc, plc, cf)
@@ -508,8 +509,9 @@ LAYERED_CONTINUUM_FACTORIES = {"mt_ckd": make_layered_mt_ckd}
 
 
 def check_h2o_table_coverage(nu_min: float, nu_max: float,
-                             tables: H2OContinuumTables | None = None,
-                             stacklevel: int = 3) -> None:
+                             stacklevel: int = 3,
+                             tables: H2OContinuumTables | None = None
+                             ) -> None:
     """Warn when an evaluation range leaves the H2O continuum table
     (``tables``; None: the installed ones, :func:`set_h2o_tables`): the
     interpolation clamps at the table ends, a silently constant

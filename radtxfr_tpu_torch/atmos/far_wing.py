@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import as_numpy
 from ..core.constants import C2_CM_K, T_REF
 
 __all__ = ["chi_factor_co2", "co2_continuum_table",
@@ -82,17 +83,31 @@ def co2_continuum_table(nu_min=400.0, nu_max=1500.0, dnu_grid=2.0,
     return nu, np.asarray(t_grid, dtype=np.float64), C
 
 
-def cia_n2_rototranslational(nu, T):
+def _xp_inputs(nu, T, xp):
+    """``nu`` and ``T`` for ``xp``: a host NumPy ``nu`` (a tensor copied
+    off its device) and ``T`` as given, or a tensor ``nu`` and a tensor
+    ``T`` (a number on ``nu``'s device in its dtype)."""
+    if xp is np:
+        return as_numpy(nu), T
+    nu = torch.as_tensor(nu)
+    if not isinstance(T, torch.Tensor):
+        T = torch.as_tensor(T, dtype=nu.dtype, device=nu.device)
+    return nu, T
+
+
+def cia_n2_rototranslational(nu, T=T_REF, xp=np):
     """N2-N2 (+N2-O2, folded) rototranslational CIA coefficient
     [cm^-1 amagat^-2]: a (nu/nu_p)^2 exp(-nu/nu_p) with the peak near
-    2 nu_p ~ 110 cm^-1 scaling ~T^-1.5 (Borysow & Frommhold 1986 class);
-    tensors ``nu`` and ``T`` broadcast."""
-    nu = torch.abs(nu)
-    nu_p = 55.0 * torch.sqrt(T / 296.0)
+    2 nu_p ~ 110 cm^-1 scaling ~T^-1.5 (Borysow & Frommhold 1986 class).
+    ``xp=np`` takes and returns NumPy, as JAX's; ``xp=torch`` tensors
+    (``nu`` and ``T`` broadcast)."""
+    nu, T = _xp_inputs(nu, T, xp)
+    nu = xp.abs(nu)
+    nu_p = 55.0 * xp.sqrt(T / 296.0)
     amp = 1.1e-6 * (296.0 / T) ** 1.5
     x = nu / nu_p
     # normalised so the maximum of x^2 e^-x (at x = 2) equals amp
-    return amp * x * x * torch.exp(-x) * (np.e ** 2 / 4.0)
+    return amp * x * x * xp.exp(-x) * (np.e ** 2 / 4.0)
 
 
 def cia_o2_gaussian(nu, xp=np):
@@ -105,16 +120,20 @@ def cia_o2_gaussian(nu, xp=np):
 
 def cia_o2_band(d, gaussian, T):
     """The O2 CIA coefficient from :func:`cia_o2_gaussian`'s ``d`` and
-    ``gaussian``: amplitude 2e-7 (296/T) with the detailed-balance wing
-    ratio exp(-c2 |d| / 2T) on the red side."""
-    red = torch.where(d < 0, torch.exp(C2_CM_K * d / (2.0 * T)),
-                      torch.ones((), dtype=d.dtype, device=d.device))
+    ``gaussian`` (NumPy or tensors): amplitude 2e-7 (296/T) with the
+    detailed-balance wing ratio exp(-c2 |d| / 2T) on the red side."""
+    if isinstance(d, torch.Tensor):
+        red = torch.where(d < 0, torch.exp(C2_CM_K * d / (2.0 * T)),
+                          torch.ones((), dtype=d.dtype, device=d.device))
+    else:
+        red = np.where(d < 0, np.exp(C2_CM_K * d / (2.0 * T)), 1.0)
     return 2.0e-7 * (296.0 / T) * gaussian * red
 
 
-def cia_o2_fundamental(nu, T):
+def cia_o2_fundamental(nu, T=T_REF, xp=np):
     """O2 fundamental-band CIA coefficient [cm^-1 amagat^-2]: a Gaussian at
     1556 cm^-1 with the detailed-balance wing ratio exp(-c2 dnu / T) on the
-    red side (Thibault et al. 1997 class); tensors ``nu`` and ``T``
-    broadcast."""
-    return cia_o2_band(*cia_o2_gaussian(nu, torch), T)
+    red side (Thibault et al. 1997 class). ``xp=np`` takes and returns
+    NumPy, as JAX's; ``xp=torch`` tensors (``nu`` and ``T`` broadcast)."""
+    nu, T = _xp_inputs(nu, T, xp)
+    return cia_o2_band(*cia_o2_gaussian(nu, xp), T)

@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR, resolve_device
+from .. import DATA_DIR, as_numpy, resolve_device
 
 #: HITRAN molecule numbers of the StdAtmos VMR columns (H2O CO2 O3 N2O CO
 #: CH4 O2 N2); reference ``MFs_ID`` (radiative_transfer.py:177).
@@ -48,8 +48,8 @@ class AtmosphericState:
         """Build from NumPy fields (e.g. those of the JAX state); ``device``
         None is the card."""
         device = resolve_device(device)
-        f = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
-                                   dtype=dtype, device=device)
+        f = lambda a: torch.tensor(as_numpy(a, np.float64), dtype=dtype,
+                                   device=device)
         return AtmosphericState(z0=f(z0), z1=f(z1), pl=f(pl), p=f(p), T=f(T),
                                 vmr=f(vmr), mol_ids=tuple(mol_ids))
 
@@ -60,7 +60,7 @@ def _std_atmos_table() -> np.ndarray:
         return f["table"].copy()
 
 
-def std_atmosphere(device=None, dtype=torch.float32) -> AtmosphericState:
+def std_atmosphere(dtype=torch.float32, device=None) -> AtmosphericState:
     """The 66-layer 1976 US Standard Atmosphere of the reference
     (``device`` None is the card)."""
     t = _std_atmos_table()

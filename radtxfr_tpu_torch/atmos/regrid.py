@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import as_numpy
 from .profile import AtmosphericState, std_atmosphere
 
 __all__ = ["load_tigr_mat", "regrid_profiles", "jacobian_inputs"]
@@ -52,7 +53,7 @@ def _interp_cubic(x_src, y_src, x_out):
 
 
 def regrid_profiles(z_src, T=None, h2o=None, o3=None, base=None,
-                    device=None, dtype=torch.float32) -> AtmosphericState:
+                    dtype=torch.float32, device=None) -> AtmosphericState:
     """Cubic-regrid ensemble profiles onto ``base``'s altitude levels and
     return a batched :class:`AtmosphericState` (leading axis = member).
 
@@ -72,15 +73,15 @@ def regrid_profiles(z_src, T=None, h2o=None, o3=None, base=None,
     given = [a for a in (T, h2o, o3) if a is not None]
     if not given:
         raise ValueError("provide at least one of T, h2o, o3")
-    n_atm = np.atleast_2d(np.asarray(given[0])).shape[0]
-    z_src = np.asarray(z_src, dtype=np.float64)
+    n_atm = np.atleast_2d(as_numpy(given[0])).shape[0]
+    z_src = as_numpy(z_src, np.float64)
     if z_src.ndim == 1:
         z_src = np.broadcast_to(z_src, (n_atm, z_src.size))
 
     def regrid(a):
         if a is None:
             return None
-        a = np.atleast_2d(np.asarray(a, dtype=np.float64))
+        a = np.atleast_2d(as_numpy(a, np.float64))
         return np.stack([_interp_cubic(z_src[i], a[i], z_out)
                          for i in range(n_atm)])
 
@@ -106,8 +107,7 @@ def jacobian_inputs(T_mean, h2o_mean, o3_mean, rel_step: float = 1e-3):
     turn with step ``rel_step * max|x|`` (``JacIn``,
     ``Generate_LWIR_TUD.py:55-71``). Returns NumPy (T, h2o, o3), each
     (3·nL+1, nL)."""
-    prof = [np.asarray(a, dtype=np.float64)
-            for a in (T_mean, h2o_mean, o3_mean)]
+    prof = [as_numpy(a, np.float64) for a in (T_mean, h2o_mean, o3_mean)]
     nL = prof[0].size
     out = [np.tile(a, (3 * nL + 1, 1)) for a in prof]
     for q in range(3):

@@ -101,7 +101,7 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import as_numpy, resolve_device
 
 
 def _load_lines(args, device, margin=25.0):
@@ -657,10 +657,10 @@ def run_mako(args, device, data) -> dict:
     from ..sensor.ils import ils_mako
 
     device, dt = _scene_device(device)
-    X = np.asarray(data["X"])
+    X = as_numpy(data["X"])
     out = {}
     for name in ("tau", "La", "Ld"):
-        Y = np.asarray(data[name])
+        Y = as_numpy(data[name])
         if Y.ndim == 3:
             Y = Y[:, :, -1]
         Y = torch.as_tensor(Y.T if Y.ndim == 2 else Y[:, None], dtype=dt,
@@ -700,7 +700,7 @@ def cmd_mako(args):
 def _spec_major(a):
     """(nA, nX[, nZs]) -> (nX, nA), the top altitude where there are
     several."""
-    a = np.asarray(a)
+    a = as_numpy(a)
     if a.ndim == 3:
         a = a[:, :, -1]
     return a.T if a.ndim == 2 else a
@@ -719,7 +719,7 @@ def run_radiance(args, device, data) -> dict:
     from ..scene.emissivity import synthetic_db
 
     device, dt = _scene_device(device)
-    X = np.asarray(data["X"])
+    X = as_numpy(data["X"])
     tau, Lu, Ld = (_spec_major(data[k]) for k in ("tau", "La", "Ld"))
     n_atm = tau.shape[1]
     emis = synthetic_db(args.n_materials, X=X, seed=args.seed, device="cpu"
@@ -767,10 +767,10 @@ def run_hsi(args, device, data) -> dict:
     from ..scene.hsi import hsi_generate
 
     device, dt = _scene_device(device)
-    X = np.asarray(data["X"])
+    X = as_numpy(data["X"])
     top = lambda a: a[:, :, -1] if a.ndim == 3 else a   # noqa: E731
-    tau, Lu = (top(np.asarray(data[k])) for k in ("tau", "La"))
-    Ld = np.asarray(data["Ld"])
+    tau, Lu = (top(as_numpy(data[k])) for k in ("tau", "La"))
+    Ld = as_numpy(data["Ld"])
     db = synthetic_db(args.n_materials, X=X, seed=args.seed, device=device,
                       dtype=dt)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -827,8 +827,8 @@ def run_emis(args, device, data=None) -> dict:
                                      lambda_max_um=args.lambda_max,
                                      device=device)
     elif data is not None:
-        X_in = np.asarray(data["X"])
-        spectra = [(X_in, e) for e in np.asarray(data["emis"])]
+        X_in = as_numpy(data["X"])
+        spectra = [(X_in, e) for e in as_numpy(data["emis"])]
         X_out = np.arange(np.ceil(X_in.min()), np.floor(X_in.max()) + 1.0)
         db = EmissivityDB.from_spectra(spectra, X_out,
                                        reflectance=args.reflectance,
@@ -944,7 +944,7 @@ def run_atmosgen(args, device, data=None) -> dict:
     t = _std_atmos_table()
     z, P = t[:, 1], t[:, 4]
     if data is not None:
-        T, H2O, O3 = (np.asarray(data[k]) for k in ("T", "H2O", "O3"))
+        T, H2O, O3 = (as_numpy(data[k]) for k in ("T", "H2O", "O3"))
     else:
         T, H2O, O3 = atmosgen_ensemble(args.n_ensemble, args.seed)
     dev = lambda a: torch.as_tensor(a, dtype=dt, device=device)  # noqa

@@ -177,12 +177,12 @@ def BT2L(X, T, wavelength=False, bad_value=np.nan, spectral_dim=0):
 def _atmos_from_opts(o) -> AtmosphericState:
     """The layered state of the TUD options on the store's device in its
     dtype."""
-    mf = np.asarray(o["MFs_VAL"], dtype=np.float64) * 1e-6  # ppmv -> fraction
-    z0 = np.asarray(o["Zs"], dtype=np.float64)
+    mf = as_numpy(o["MFs_VAL"], np.float64) * 1e-6  # ppmv -> fraction
+    z0 = as_numpy(o["Zs"], np.float64)
     return AtmosphericState.from_numpy(
         z0=z0, z1=z0,  # layer tops not used by the engine
         pl=o["PLs"], p=o["Ps"], T=o["Ts"], vmr=mf,
-        mol_ids=tuple(int(m) for m in np.asarray(o["MFs_ID"]).ravel()),
+        mol_ids=tuple(int(m) for m in as_numpy(o["MFs_ID"]).ravel()),
         device=o["lines"].sw.device, dtype=o["lines"].sw.dtype)
 
 
@@ -203,8 +203,8 @@ def compute_OD(Xmin, Xmax, opts=None, **kwargs):
     """
     o = _opts(opts, kwargs)
     X = make_spectral_axis(Xmin, Xmax, o["DVOUT"])
-    mf_ids = tuple(int(m) for m in np.asarray(o["MF_ID"]).ravel())
-    mf_val = np.asarray(o["MF_VAL"], dtype=np.float64).ravel() * 1e-6
+    mf_ids = tuple(int(m) for m in as_numpy(o["MF_ID"]).ravel())
+    mf_val = as_numpy(o["MF_VAL"], np.float64).ravel() * 1e-6
     atmos = AtmosphericState.from_numpy(
         z0=[0.0], z1=[0.0], pl=[float(o["PL"])], p=[float(o["P"])],
         T=[float(o["T"])], vmr=mf_val[None, :], mol_ids=mf_ids,
@@ -278,8 +278,8 @@ def write_tape5(fname="TAPE5", opts=None, **kwargs):
     _lblrtm_io.write_tape5(
         fname, float(o["V1"]), float(o["V2"]), T=float(o["T"]),
         P_pa=float(o["P"]), PL_km=float(o["PL"]),
-        mf_ppmv=np.asarray(o["MF_VAL"], dtype=np.float64).ravel(),
-        mf_ids=np.asarray(o["MF_ID"]).ravel(), dvout=float(o["DVOUT"]),
+        mf_ppmv=as_numpy(o["MF_VAL"], np.float64).ravel(),
+        mf_ids=as_numpy(o["MF_ID"]).ravel(), dvout=float(o["DVOUT"]),
         continuum_factors=o.get("continuum_factors"),
         continuum_override=bool(o.get("continuum_override", False)),
     )

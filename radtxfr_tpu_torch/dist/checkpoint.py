@@ -25,6 +25,8 @@ import uuid
 
 import numpy as np
 
+from .. import as_numpy
+
 __all__ = ["EnsembleCheckpoint", "run_batched", "TiledCheckpoint",
            "run_tiled", "host_gather"]
 
@@ -86,7 +88,7 @@ class EnsembleCheckpoint:
 
     def write_batch(self, b: int, arrays: dict) -> None:
         tmp = f"{self._batch_path(b)}.tmp.{uuid.uuid4().hex}.npz"
-        np.savez(tmp, **{k: np.asarray(v) for k, v in arrays.items()})
+        np.savez(tmp, **{k: as_numpy(v) for k, v in arrays.items()})
         os.replace(tmp, self._batch_path(b))
 
     def read_batch(self, b: int) -> dict:
@@ -153,7 +155,7 @@ class TiledCheckpoint:
 
     def write_tile(self, b: int, s: int, arrays: dict) -> None:
         tmp = f"{self._tile_path(b, s)}.tmp.{uuid.uuid4().hex}.npz"
-        np.savez(tmp, **{k: np.asarray(v) for k, v in arrays.items()})
+        np.savez(tmp, **{k: as_numpy(v) for k, v in arrays.items()})
         os.replace(tmp, self._tile_path(b, s))
 
     def read_tile(self, b: int, s: int) -> dict:

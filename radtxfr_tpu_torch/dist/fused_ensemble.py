@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import as_numpy
 from ..atmos.profile import AtmosphericState
 from ..core.planck import planckian
 from ..products.od import make_od_local_fn, shard_slice
@@ -144,8 +145,8 @@ def make_tud_ensemble_fn(lines, iso, grid, batch: AtmosphericState,
         lines, iso, grid, atmos_class, n_spec, **od_opts)
     dt = lines.sw.dtype
     sh = _Shards(local_fn, spec_data, gpad, mesh, dt)
-    alts_np = np.atleast_1d(np.asarray(altitudes, dtype=np.float64))
-    mu_np = np.atleast_1d(np.asarray(mu, dtype=np.float64))
+    alts_np = np.atleast_1d(as_numpy(altitudes, np.float64))
+    mu_np = np.atleast_1d(as_numpy(mu, np.float64))
     fused = compose_engine == "pallas" or (compose_engine == "auto"
                                            and dt == torch.float32)
     k2 = {}
@@ -255,8 +256,8 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
     local_fn, spec_data, gpad = make_od_local_fn(
         lines, iso, grid, atmos, n_spec, differentiable=True, **od_opts)
     sh = _Shards(local_fn, spec_data, gpad, mesh, lines.sw.dtype)
-    alts_np = np.atleast_1d(np.asarray(altitudes, dtype=np.float64))
-    mu_np = np.atleast_1d(np.asarray(mu, dtype=np.float64))
+    alts_np = np.atleast_1d(as_numpy(altitudes, np.float64))
+    mu_np = np.atleast_1d(as_numpy(mu, np.float64))
     fixed = {dev: {f: getattr(atmos, f).to(dev) for f in ("p", "pl", "z0")}
              for dev in mesh.distinct()}
 

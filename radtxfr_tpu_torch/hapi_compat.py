@@ -222,7 +222,7 @@ def _with_column(store: LineStore, name: str, values) -> LineStore:
     """``store`` with its host and device column ``name`` replaced by
     ``values`` (same rows, device and dtype)."""
     host = dict(store.host)
-    host[name] = np.asarray(values, dtype=host[name].dtype)
+    host[name] = as_numpy(values, host[name].dtype)
     return LineStore.from_numpy(**host, device=store.sw.device,
                                 dtype=store.sw.dtype)
 
@@ -377,7 +377,7 @@ def arrangeTable(TableName, DestinationTableName=None, RowIDList=None):
     dest = DestinationTableName or TableName
     if RowIDList is None:
         RowIDList = np.arange(_get_table(TableName).n_lines)
-    return _take_rows(TableName, dest, np.asarray(RowIDList, dtype=np.int64))
+    return _take_rows(TableName, dest, as_numpy(RowIDList, np.int64))
 
 
 def addColumn(TableName, ParameterName, Before=None, Expression=None,
@@ -1559,10 +1559,10 @@ def AtoB(aa, A, B, npt):
     ``aa`` (hapi ``AtoB``, ``misc/hapi.py:5311``; the TIPS-2011
     interpolator): 3-point at the table edges (I < 3 or I == npt), 4-point
     in the interior. Vectorized over ``aa``, host NumPy."""
-    A = np.asarray(A, dtype=np.float64)[:npt]
-    B = np.asarray(B, dtype=np.float64)[:npt]
+    A = as_numpy(A, np.float64)[:npt]
+    B = as_numpy(B, np.float64)[:npt]
     scalar = np.ndim(aa) == 0
-    aa = np.atleast_1d(np.asarray(aa, dtype=np.float64))
+    aa = np.atleast_1d(as_numpy(aa, np.float64))
     i = np.searchsorted(A, aa, side="left") + 1          # hapi's 1-based I
     edge = (i < 3) | (i >= npt)
     j3 = np.clip(i, 3, npt) - 1                          # 3-point J (0-based)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import as_numpy
+
 __all__ = ["xs_write", "xs_read", "xs_default_filename"]
 
 
@@ -24,8 +26,9 @@ def xs_default_filename(mol_id: int, T: float, P_pa: float) -> str:
 
 def xs_write(X, Y, T, P_pa, mol_id, db_name: str,
              fname: str | None = None) -> str:
-    X = np.asarray(X, dtype=np.float64)
-    Y = np.asarray(Y, dtype=np.float64)
+    X = as_numpy(X, np.float64)
+    Y = as_numpy(Y, np.float64)
+    T, P_pa, mol_id = float(T), float(P_pa), float(mol_id)
     if fname is None:
         fname = xs_default_filename(mol_id, T, P_pa)
     with open(fname, "wb") as f:

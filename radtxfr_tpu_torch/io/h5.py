@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from .. import as_numpy
+
 __all__ = ["Var", "write_h5", "read_h5", "gen_indices"]
 
 
@@ -36,8 +38,8 @@ def write_h5(fname: str, variables: dict, attrs: dict | None = None) -> None:
     with h5py.File(fname, "w") as f:
         for k, v in variables.items():
             if not isinstance(v, Var):
-                v = Var(np.asarray(v))
-            d = f.create_dataset(k, data=np.asarray(v.data))
+                v = Var(as_numpy(v))
+            d = f.create_dataset(k, data=as_numpy(v.data))
             for a in ("units", "name", "info", "label"):
                 val = getattr(v, a)
                 if val:

@@ -99,8 +99,8 @@ def xsect_ht_plain(dplan: DevicePlan, lay_idx, strength, wing, consts,
     for t_i, slots, u in _plain_steps(dplan, nl * _PLAIN_SHRINK, s.dtype):
         kk = {key: v[:, slots][..., None] for key, v in k.items()}
         wu = wingu[:, slots][..., None]
-        val = s[:, slots][..., None] * pcqsdhc_real(u * dplan.dx, kk, a_w,
-                                                    L_w)
+        val = s[:, slots][..., None] * pcqsdhc_real(u * dplan.dx, kk,
+                                                    wei_a=a_w, wei_L=L_w)
         mask = (u > -wu) & (u <= wu)
         out[:, t_i] += torch.where(mask, val, 0.0).sum(dim=2)
     return out.reshape(nl, -1)[:, :dplan.n_out]
@@ -148,8 +148,8 @@ def xsect_ht_jvp_plain(dplan: DevicePlan, lay_idx, strength, wing, consts,
         wu = wingu[:, slots][..., None]
 
         def f(sc, cv):
-            return sc * pcqsdhc_real(dnu, dict(zip(HT_CONST_KEYS, cv)), a_w,
-                                     L_w)
+            return sc * pcqsdhc_real(dnu, dict(zip(HT_CONST_KEYS, cv)),
+                                     wei_a=a_w, wei_L=L_w)
 
         prim = (s[:, slots][..., None],
                 tuple(k[key][:, slots][..., None] for key in HT_CONST_KEYS))

@@ -95,7 +95,8 @@ from ..core.constants import LN2, SQRT_LN2_DIV_SQRT_PI
 from .faddeeva import REGION_BOUND, weideman_coeffs
 
 __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
-           "plan_buckets", "plan_buckets_packed", "device_plan", "xsect_fused",
+           "plan_buckets", "plan_buckets_packed", "plan_executed_evals",
+           "device_plan", "xsect_fused",
            "xsect_fused_plain", "xsect_fused_jvp", "xsect_fused_jvp_plain",
            "xsect_fused_diff", "xsect_sdvoigt_jvp", "xsect_sdvoigt_jvp_plain",
            "xsect_fused_sdvoigt_diff", "xsect_unfused", "xsect_unfused_plain",
@@ -215,7 +216,7 @@ class BucketPlan:
 def auto_block(nu0, grid: UniformGrid, max_wing: float, tile: int,
                lo: int = 8, hi: int = 256) -> int:
     """Line-block size near the 75th-percentile per-tile line count."""
-    nu0 = np.asarray(nu0, dtype=np.float64)
+    nu0 = as_numpy(nu0, np.float64)
     n_tiles = -(-grid.n // tile)
     edges = grid.x0 + grid.dx * tile * np.arange(n_tiles + 1)
     lo_i = np.searchsorted(nu0, edges[:-1] - max_wing, side="left")
@@ -235,7 +236,7 @@ def plan_buckets(nu0, grid: UniformGrid, max_wing: float, tile: int = 1024,
     visiting the block range that holds every line within ``max_wing`` of
     it. ``max_wing`` must bound every runtime wing: the kernel clamps
     wings to it. Padding slots park at ``k_line = -2**30``."""
-    nu0 = np.asarray(nu0, dtype=np.float64)
+    nu0 = as_numpy(nu0, np.float64)
     if nu0.size == 0:
         raise ValueError("empty line list")
     if np.any(np.diff(nu0) < 0):
@@ -288,17 +289,17 @@ def plan_buckets_packed(nu0, grid: UniformGrid, max_wing, tile: int = 1024,
     as the coarse-far correction passes place their window-edge bands at
     nu0 +- wing; ``k_line`` and ``frac0`` always come from ``nu0``.
     """
-    nu0 = np.asarray(nu0, dtype=np.float64)
+    nu0 = as_numpy(nu0, np.float64)
     if nu0.size == 0:
         raise ValueError("empty line list")
     if np.any(np.diff(nu0) < 0):
         raise ValueError("line centers must be sorted")
 
-    w = np.asarray(max_wing, dtype=np.float64)
+    w = as_numpy(max_wing, np.float64)
     per_line = w.ndim > 0
     w = np.broadcast_to(w, nu0.shape)
     pc = (nu0 if place_center is None
-          else np.broadcast_to(np.asarray(place_center, dtype=np.float64),
+          else np.broadcast_to(as_numpy(place_center, np.float64),
                                nu0.shape))
 
     n_tiles = -(-grid.n // tile)
@@ -361,6 +362,56 @@ def plan_buckets_packed(nu0, grid: UniformGrid, max_wing, tile: int = 1024,
         max_wing=float(w.max()), gather=gather,
         wing_line=(w.astype(np.float64) if per_line else None),
     )
+
+
+def plan_executed_evals(plan: "BucketPlan | DevicePlan", n_lay: int) -> int:
+    """(layer, line slot, grid point) evaluations of ONE pass by the plan
+    (a host plan or its :class:`DevicePlan`, whose ``counts`` live on the
+    card), ``pallas_xsect.py::plan_executed_evals``'s definition: the
+    ``sum(counts)`` blocks the tiles visit (the padded grid's skipped
+    blocks excluded), each a dense (n_lay, block, tile) evaluation with
+    the padding slots of a tile's last block included.
+
+    This is the plan's dense work, the numerator of JAX's utilization
+    figures. The CUDA kernels do less: they cull the slots whose window
+    misses a CTA's slice and the points outside each line's window, which
+    only a recount from the line parameters gives (``chip_smoke.py``'s
+    ``window_counts``)."""
+    return int(n_lay) * int(plan.counts.sum()) * plan.block * plan.tile
+
+
+def _ops_per_eval(n_wei: int, mode: str) -> int:
+    """Hand-counted lane operations per (line slot, grid point) evaluation
+    of each mode, ``pallas_xsect.py::_ops_per_eval``'s counts and
+    conventions (a*b+c = 2, sqrt 3, divide and reciprocal 4, exp 6; the
+    per-line algebra excluded): the weights of the op-weighted partition
+    (``products/od.py::_weighted_chunk_assignment``) and the operation
+    count of a builder's ``work_report``. Building blocks at n = n_wei:
+    PRE 11, ASYM 17 guarded (19 with y elementwise), WEI 30 + 7n, W_KL
+    65 + 7n; a correction pass adds 24 for its mask, subtraction and
+    amortised cubic weights (the upsample's product is not counted)."""
+    n = int(n_wei)
+    counts = {
+        "asym": 11 + 17, "lorentz": 11 + 7, "doppler": 11 + 9,
+        "mix": 11 + (65 + 7 * n) + 2,
+        "full": 11 + 3 + (30 + 7 * n) + 16 + 1,
+        "core": 11 + 3 + (30 + 7 * n) + 17 + 2,
+        "sdvoigt_asym": 11 + 2 + 19 + 3 + 2 * 19 + 2,
+        "sdvoigt": 57 + 2 * (227 + 7 * n),
+        "sdvoigt_core": 57 + 2 * (227 + 7 * n) + 2 * 20,
+        "ht": 1312 + 42 * n,
+    }
+    if mode in counts:
+        return counts[mode]
+    if mode.startswith("corr:"):
+        overhead = 8 + 1 + 1 + 1 + 1 + 12
+        variant = mode.split(":")[2]
+        point = {"voigt": 17, "voigtfull": 3 + (30 + 7 * n) + 16 + 1,
+                 "sdvoigt": 64 + 1,
+                 "sdvoigtfull": (57 - 11) + 2 * (227 + 7 * n)}
+        if variant in point:
+            return overhead + point[variant]
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,7 +520,7 @@ def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
     float32 rounding (~3e-8 grid units) either.
     """
     device = resolve_device(device)
-    line_idx = np.asarray(line_idx, dtype=np.int64)
+    line_idx = as_numpy(line_idx, np.int64)
     if plan.gather is None:
         g = np.arange(plan.n_blocks * plan.block, dtype=np.int64)
         g = np.where(g < line_idx.size, g, -1)
@@ -482,7 +533,7 @@ def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
            else plan.wing_line[safe])
     frac0 = plan.frac0.reshape(-1)
     if dtype == torch.float64:
-        u = (np.asarray(nu0, dtype=np.float64)[np.maximum(gl, 0)]
+        u = (as_numpy(nu0, np.float64)[np.maximum(gl, 0)]
              - plan.grid.x0) / plan.grid.dx
         frac0 = np.where(valid, u - np.floor(u), 0.0)
     t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import as_numpy
 from ..core.constants import P_REF, T_REF
 from .htp import pcqsdhc
 from .lineparams import compute_line_params
@@ -47,7 +48,7 @@ def _col(lines, extras, name, default=0.0):
             "n_air": "n_air", "delta_air": "delta_air",
             "SD_air": "sd_air"}.get(name)
     if extras and name in extras:
-        return np.asarray(extras[name], dtype=np.float64)
+        return as_numpy(extras[name], np.float64)
     if attr is not None and attr in lines.host:
         return np.asarray(lines.host[attr], dtype=np.float64)
     return np.full(lines.host["nu0"].shape[0], default)

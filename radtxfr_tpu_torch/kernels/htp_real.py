@@ -121,11 +121,18 @@ def ht_line_constants(gamma_d, gamma0, gamma2, shift0, shift2, anuvc,
 # the profile
 # ---------------------------------------------------------------------------
 
-def pcqsdhc_real(dnu, k, a, L):
+def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False):
     """Re LS of pcqsdhc at ``dnu = sg - sg0`` from the constants ``k`` of
     :func:`ht_line_constants` (each broadcastable against ``dnu``);
-    ``a``/``L`` are the Weideman coefficients. The operations are those of
-    ``htp_real.py::pcqsdhc_real``, in its order."""
+    ``wei_a``/``wei_L`` are the Weideman coefficients. The operations are
+    those of ``htp_real.py::pcqsdhc_real``, in its order. ``fast=True``
+    (JAX's approximate reciprocals) raises ``NotImplementedError``: the
+    port divides in IEEE only, as the builders' ``fast_rcp``."""
+    if fast:
+        raise NotImplementedError(
+            "fast=True: the port's pcqsdhc divides by IEEE division only "
+            "(pass fast=False)")
+    a, L = wei_a, wei_L
     cte = k["cte"]
     c0tr, c0ti = k["c0tr"], k["c0ti"]
     c2tr, c2ti = k["c2tr"], k["c2ti"]

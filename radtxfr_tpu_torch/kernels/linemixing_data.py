@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import as_numpy
 from ..core.constants import C2_CM_K, T_REF
 
 __all__ = ["co2_q_branch_y", "y_air_for_store", "branch_profile_full_w",
@@ -187,9 +188,12 @@ def co2_q_branch_y(T: float = T_REF, min_lines: int = 4,
 def y_air_for_store(store, T: float = T_REF, **kw):
     """Full-length ``y_air`` aligned with a :class:`LineStore` (zeros for
     non-CO2 / non-branch lines), ready for ``line_mixing={'y_air': ...}``.
-    Lines are matched by (float64) line-center identity."""
+    Lines are matched by (float64) line-center identity: a
+    :class:`~..lines.store.LineStore`'s float64 host centres, so a store on
+    the card in float32 matches too."""
     nu_q, y_q, _ = co2_q_branch_y(T=T, **kw)
-    nu_s = np.asarray(store.nu0, dtype=np.float64)
+    host = getattr(store, "host", None)
+    nu_s = as_numpy(store.nu0 if host is None else host["nu0"], np.float64)
     y = np.zeros(nu_s.size)
     idx = np.searchsorted(nu_s, nu_q)
     for i, (k, yv) in enumerate(zip(idx, y_q)):
@@ -220,9 +224,10 @@ def branch_profile_full_w(grid, nu, sw, gamma, el, T, p_atm):
     # normalize amplitudes so the no-mixing limit integrates to sum(sw)
     amp = d * np.sqrt(rho)
     amp = amp * np.sqrt(s_tot / np.sum(amp * amp))
-    out = np.empty(np.asarray(grid).size)
+    grid = as_numpy(grid)
+    out = np.empty(grid.size)
     eye = np.eye(nu.size)
-    for i, x in enumerate(np.asarray(grid)):
+    for i, x in enumerate(grid):
         r = np.linalg.solve(G - x * eye, amp)
         out[i] = (1.0 / np.pi) * np.imag(amp @ r)
     return out

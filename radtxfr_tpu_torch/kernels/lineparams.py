@@ -47,8 +47,8 @@ class LineParams:
     gamma_d: torch.Tensor      # Doppler HWHM [cm^-1]
     gamma_0: torch.Tensor      # collisional HWHM [cm^-1]
     wing: torch.Tensor         # wing cutoff [cm^-1]
-    shift0: torch.Tensor       # pressure shift [cm^-1]
     gamma_2: torch.Tensor      # speed-dependent width [cm^-1] (SD-Voigt)
+    shift0: torch.Tensor       # pressure shift [cm^-1]
 
 
 def compute_line_params(lines: LineStore, iso: IsoTables, T, p_atm,

@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR, resolve_device
+from .. import DATA_DIR, as_numpy, resolve_device
 from .tips import iso_row_index, load_tips_tables
 
 _FLOAT_FIELDS = ("nu0", "sw", "elower", "gamma_air", "gamma_self", "n_air",
@@ -56,15 +56,14 @@ class IsoTables:
         """Build from NumPy columns (e.g. the JAX ``IsoTables`` fields);
         ``device`` None is the card."""
         device = resolve_device(device)
-        f = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
-                                   dtype=dtype, device=device)
-        i = lambda a: torch.tensor(np.asarray(a, dtype=np.int64),
+        f = lambda a: torch.tensor(as_numpy(a, np.float64), dtype=dtype,
                                    device=device)
+        i = lambda a: torch.tensor(as_numpy(a, np.int64), device=device)
         return IsoTables(q=f(q), abundance=f(abundance),
                          molar_mass=f(molar_mass), mol=i(mol), iso=i(iso))
 
     @staticmethod
-    def load(device=None, dtype=torch.float32) -> "IsoTables":
+    def load(dtype=torch.float32, device=None) -> "IsoTables":
         mol, iso, _gsi, q = load_tips_tables()
         reg = _iso_registry()
         miss = (np.nan, np.nan)
@@ -138,12 +137,12 @@ class LineStore:
         the card. Unsorted centres raise unless ``require_sorted`` is
         False."""
         device = resolve_device(device)
-        host = {k: np.array(v, dtype=np.float64) for k, v in dict(
+        host = {k: np.array(as_numpy(v), dtype=np.float64) for k, v in dict(
             nu0=nu0, sw=sw, elower=elower, gamma_air=gamma_air,
             gamma_self=gamma_self, n_air=n_air, delta_air=delta_air,
             sd_air=sd_air).items()}
-        host.update(iso_row=np.array(iso_row, dtype=np.int64),
-                    mol_id=np.array(mol_id, dtype=np.int64))
+        host.update(iso_row=np.array(as_numpy(iso_row), dtype=np.int64),
+                    mol_id=np.array(as_numpy(mol_id), dtype=np.int64))
         if require_sorted and np.any(np.diff(host["nu0"]) < 0):
             raise ValueError("line centers must be sorted")
         cols = {k: torch.as_tensor(host[k], dtype=dtype, device=device)
@@ -154,22 +153,22 @@ class LineStore:
 
 
 def from_arrays(nu0, sw, elower, gamma_air, gamma_self, n_air, delta_air,
-                mol_id, local_iso_id, sd_air=None, device=None,
-                dtype=torch.float32) -> LineStore:
+                mol_id, local_iso_id, sd_air=None, dtype=torch.float32,
+                device=None) -> LineStore:
     """Build a sorted :class:`LineStore` from NumPy columns.
 
     ``mol_id``/``local_iso_id`` are HITRAN numbers, mapped to the compact
     ``iso_row`` index of :class:`IsoTables`; ``sd_air`` defaults to zero.
     """
     row_of = iso_row_index()
-    nu0 = np.asarray(nu0, dtype=np.float64)
+    nu0 = as_numpy(nu0, np.float64)
+    mol_id, local_iso_id = as_numpy(mol_id), as_numpy(local_iso_id)
     order = np.argsort(nu0, kind="stable")
     iso_row = np.array([row_of[(int(m), int(i))] for m, i in
-                        zip(np.asarray(mol_id), np.asarray(local_iso_id))],
-                       dtype=np.int64)
+                        zip(mol_id, local_iso_id)], dtype=np.int64)
     if sd_air is None:
         sd_air = np.zeros_like(nu0)
-    s = lambda a: np.asarray(a, dtype=np.float64)[order]
+    s = lambda a: as_numpy(a, np.float64)[order]  # noqa: E731
     return LineStore.from_numpy(
         nu0=nu0[order], sw=s(sw), elower=s(elower), gamma_air=s(gamma_air),
         gamma_self=s(gamma_self), n_air=s(n_air), delta_air=s(delta_air),
@@ -200,8 +199,8 @@ _ISO_CHAR = {**{str(d): d for d in range(10)}, "0": 10,
              "A": 11, "a": 11, "B": 12, "b": 12}
 
 
-def parse_par(path_or_lines, device=None, dtype=torch.float32,
-              native: bool = True) -> LineStore:
+def parse_par(path_or_lines, dtype=torch.float32, native: bool = True,
+              device=None) -> LineStore:
     """A :class:`LineStore` on ``device`` (None: the card) from a HITRAN
     ``.par`` file or a list of its 160-character records.
 

@@ -22,8 +22,8 @@ _DEFAULT_SPECIES = ((1, 1), (2, 1), (3, 1))
 
 def synthetic_lines(n_lines: int, nu_min: float = 500.0,
                     nu_max: float = 1500.0, species=_DEFAULT_SPECIES,
-                    seed: int = 0, device=None, dtype=torch.float32,
-                    sd_zero_frac: float = 0.0) -> LineStore:
+                    seed: int = 0, dtype=torch.float32,
+                    sd_zero_frac: float = 0.0, device=None) -> LineStore:
     """``n_lines`` synthetic lines with HITRAN-plausible parameters
     (``device`` None is the card).
 

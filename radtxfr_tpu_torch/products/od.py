@@ -74,8 +74,9 @@ from ..atmos.profile import AtmosphericState
 from ..kernels.fused_ht import xsect_ht_diff, xsect_ht_plain
 from ..kernels.fused_xsect import (BucketPlan, UniformGrid,
                                    corr_r_supported, cubic_weights,
-                                   device_plan, is_sd_mode, plan_buckets,
-                                   plan_buckets_packed, shard_plan,
+                                   _ops_per_eval, device_plan, is_sd_mode,
+                                   plan_buckets, plan_buckets_packed,
+                                   plan_executed_evals, shard_plan,
                                    xsect_fused,
                                    xsect_fused_diff, xsect_fused_sdvoigt_diff,
                                    xsect_unfused)
@@ -106,7 +107,7 @@ def species_column(p_pa, T, pl_km, vmr):
 def _line_species_cols(lines, mol_ids) -> np.ndarray:
     """Host-side: map each line's molecule id to its vmr column index."""
     lut = {m: i for i, m in enumerate(mol_ids)}
-    line_mols = np.asarray(lines.mol_id)
+    line_mols = as_numpy(lines.mol_id)
     missing = set(np.unique(line_mols).tolist()) - set(lut)
     if missing:
         raise ValueError(f"lines contain molecules with no vmr column: "
@@ -116,8 +117,8 @@ def _line_species_cols(lines, mol_ids) -> np.ndarray:
 
 def _gd_coeff(lines, iso) -> np.ndarray:
     """Per-line Doppler-width coefficient: gamma_D = sqrt(T) * _gd_coeff."""
-    nu0 = np.asarray(lines.nu0, dtype=np.float64)
-    mass = np.asarray(iso.molar_mass)[np.asarray(lines.iso_row)]
+    nu0 = as_numpy(lines.nu0, np.float64)
+    mass = as_numpy(iso.molar_mass)[as_numpy(lines.iso_row)]
     mass_g = mass * C_MASS_MOL * 1000.0
     return (np.sqrt(2.0 * K_BOLTZMANN_CGS * np.log(2.0) / mass_g)
             / C_LIGHT_CGS * nu0)
@@ -132,19 +133,19 @@ def wing_bound_matrix(lines, iso, atmos, wing_abs=0.0, wing_hw=50.0,
     by ``vmr_margin`` (``None`` for the fully conservative vmr = 1 bound).
     Runtime wings beyond the bound are clamped to it by the kernel.
     """
-    nu0 = np.asarray(lines.nu0, dtype=np.float64)
-    g_air = np.asarray(lines.gamma_air, dtype=np.float64)
-    g_self = np.asarray(lines.gamma_self, dtype=np.float64)
-    n_air = np.asarray(lines.n_air, dtype=np.float64)
+    nu0 = as_numpy(lines.nu0, np.float64)
+    g_air = as_numpy(lines.gamma_air, np.float64)
+    g_self = as_numpy(lines.gamma_self, np.float64)
+    n_air = as_numpy(lines.n_air, np.float64)
     gd_coeff = _gd_coeff(lines, iso)
 
-    T = np.asarray(atmos.T, dtype=np.float64)
-    p_atm = np.asarray(atmos.p, dtype=np.float64) / PA_PER_ATM
+    T = as_numpy(atmos.T, np.float64)
+    p_atm = as_numpy(atmos.p, np.float64) / PA_PER_ATM
     if vmr_margin is None:
         g_mix = np.broadcast_to(np.maximum(g_air, g_self), (T.size, nu0.size))
     else:
         cols = _line_species_cols(lines, atmos.mol_ids)
-        x = np.asarray(atmos.vmr, dtype=np.float64)[:, cols]
+        x = as_numpy(atmos.vmr, np.float64)[:, cols]
         x = np.minimum(x * vmr_margin, 1.0)
         g_mix = g_air[None, :] * (1.0 - x) + g_self[None, :] * x
         g_mix = np.maximum(g_mix, g_air[None, :])  # n_self != n_air safety
@@ -159,22 +160,22 @@ def core_wing_per_line(lines, iso, atmos) -> np.ndarray:
     |x| + y < 15 around the shifted centre plus the pressure-shift bound."""
     from ..kernels.faddeeva import REGION_BOUND
 
-    t_max = float(np.asarray(atmos.T).max())
+    t_max = float(as_numpy(atmos.T).max())
     gd_max = np.sqrt(t_max) * _gd_coeff(lines, iso)
-    p_max = float(np.asarray(atmos.p).max()) / PA_PER_ATM
-    shift_max = np.abs(np.asarray(lines.delta_air, dtype=np.float64)) * p_max
+    p_max = float(as_numpy(atmos.p).max()) / PA_PER_ATM
+    shift_max = np.abs(as_numpy(lines.delta_air, np.float64)) * p_max
     return REGION_BOUND / np.sqrt(np.log(2.0)) * gd_max + shift_max
 
 
 def core_y_matrix(lines, iso, atmos) -> np.ndarray:
     """Host-side (nLay, nLines) lower bound on the Voigt y parameter
     (a pair with y >= 15 has no Weideman core anywhere)."""
-    g_lo = np.minimum(np.asarray(lines.gamma_air, dtype=np.float64),
-                      np.asarray(lines.gamma_self, dtype=np.float64))
-    n_air = np.asarray(lines.n_air, dtype=np.float64)
+    g_lo = np.minimum(as_numpy(lines.gamma_air, np.float64),
+                      as_numpy(lines.gamma_self, np.float64))
+    n_air = as_numpy(lines.n_air, np.float64)
     gd_coeff = _gd_coeff(lines, iso)
-    T = np.asarray(atmos.T, dtype=np.float64)
-    p_atm = np.asarray(atmos.p, dtype=np.float64) / PA_PER_ATM
+    T = as_numpy(atmos.T, np.float64)
+    p_atm = as_numpy(atmos.p, np.float64) / PA_PER_ATM
     t_pow = (T_REF / T)[:, None] ** n_air[None, :]
     g0 = p_atm[:, None] * t_pow * g_lo[None, :]
     gd = np.sqrt(T)[:, None] * gd_coeff[None, :]
@@ -191,11 +192,11 @@ def sdvoigt_core_bound(lines, iso, atmos, margin: float = 1.15) -> np.ndarray:
     the nominal Gamma2 (the self-diluent mix shrinks it), the larger bound
     kept; ``margin`` pads for states moderately outside the envelope.
     """
-    sd = np.asarray(lines.sd_air, dtype=np.float64)
-    ga = np.asarray(lines.gamma_air, dtype=np.float64)
-    p_atm = np.asarray(atmos.p, dtype=np.float64)[:, None] / PA_PER_ATM
+    sd = as_numpy(lines.sd_air, np.float64)
+    ga = as_numpy(lines.gamma_air, np.float64)
+    p_atm = as_numpy(atmos.p, np.float64)[:, None] / PA_PER_ATM
     g2_nom = np.maximum(sd * ga, 1e-30)[None, :] * p_atm
-    k = (np.sqrt(np.asarray(atmos.T, dtype=np.float64))[:, None]
+    k = (np.sqrt(as_numpy(atmos.T, np.float64))[:, None]
          * _gd_coeff(lines, iso)[None, :]) / (2.0 * np.sqrt(np.log(2.0)))
 
     def radius(g2):
@@ -203,7 +204,7 @@ def sdvoigt_core_bound(lines, iso, atmos, margin: float = 1.15) -> np.ndarray:
         return g2 * (2.0 * c * c + 30.0 * c + 225.0)
 
     b = np.maximum(radius(g2_nom), radius(0.5 * g2_nom))
-    shift = (np.abs(np.asarray(lines.delta_air, dtype=np.float64))[None, :]
+    shift = (np.abs(as_numpy(lines.delta_air, np.float64))[None, :]
              * p_atm)
     return margin * (shift + b)
 
@@ -247,7 +248,7 @@ def layer_line_params(lines, iso, atmos, species_cols, wing_abs=0.0,
     ``strength`` includes the species column density x path length, on the
     device and in the dtype of ``lines``; ``species_cols`` maps each line to
     its vmr column (:func:`_line_species_cols`)."""
-    cols = torch.as_tensor(np.asarray(species_cols), dtype=torch.long,
+    cols = torch.as_tensor(as_numpy(species_cols), dtype=torch.long,
                            device=lines.sw.device)
     return _layer_params(lines, iso, atmos.T, atmos.p, atmos.pl, atmos.vmr,
                          cols, wing_abs, wing_hw, profile)
@@ -624,7 +625,8 @@ class _Passes:
     ``calls`` are the classic passes, ``coarse_calls`` and ``corr_calls``
     the coarse-far route's (empty off it), each (layer or state indices
     int32, :class:`~..kernels.fused_xsect.DevicePlan`, mode); the coarse
-    plans lie on ``grid_coarse``.
+    plans lie on ``grid_coarse``. The four builders set ``work_report``,
+    the passes' plan work as JAX's builders list it (:func:`_work_report`).
     """
 
     def __init__(self, calls, coarse_calls, corr_calls, grid, grid_coarse,
@@ -706,11 +708,11 @@ class OpticalDepthFn(_Passes):
         self.y_air = self.y_self = None
         self.n_T = 0.0
         if line_mixing is not None:
-            self.y_air = torch.as_tensor(np.asarray(line_mixing["y_air"]),
+            self.y_air = torch.as_tensor(as_numpy(line_mixing["y_air"]),
                                          dtype=dt, device=dev)
             if line_mixing.get("y_self") is not None:
                 self.y_self = torch.as_tensor(
-                    np.asarray(line_mixing["y_self"]), dtype=dt, device=dev)
+                    as_numpy(line_mixing["y_self"]), dtype=dt, device=dev)
             self.n_T = float(line_mixing.get("n_T", 0.0))
 
     def line_params(self, T, p_pa, pl, vmr):
@@ -782,6 +784,24 @@ def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
                     for idx, plan, mode in corr_calls],
         grid=g, grid_coarse=g_c, coarse_r=int(coarse_r),
         n_weideman=n_weideman)
+
+
+def _work_report(calls, coarse, n_weideman, n_lay):
+    """The builder's ``work_report`` (``od.py:884-908`` there): one
+    ``{"mode", "evals", "n_weideman"}`` entry per kernel pass, the classic
+    passes first, then the coarse and the correction passes, with ``evals``
+    the plan's dense (layer x slot x point) work
+    (:func:`~..kernels.fused_xsect.plan_executed_evals`; the coarse-far
+    passes run over all ``n_lay`` layers or states). Those are JAX's
+    figures, integer for integer; what the CUDA kernels evaluate after
+    culling is less (``chip_smoke.py``'s ``window_counts``)."""
+    _, coarse_calls, corr_calls = coarse or (None, [], [])
+    entry = lambda mode, plan, n: {  # noqa: E731
+        "mode": mode, "evals": plan_executed_evals(plan, n),
+        "n_weideman": n_weideman}
+    return ([entry(mode, plan, len(lay)) for lay, _, plan, mode in calls]
+            + [entry(mode, plan, n_lay)
+               for _, plan, mode in [*coarse_calls, *corr_calls]])
 
 
 def _hw_wing_max(lines_h, iso_h, states_h, wing_hw, vmr_margin) -> float:
@@ -909,7 +929,7 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     dev, dt = lines.sw.device, lines.sw.dtype
     mix_idx = None
     if line_mixing is not None:
-        mix_idx = np.nonzero(np.asarray(line_mixing["y_air"]) != 0.0)[0]
+        mix_idx = np.nonzero(as_numpy(line_mixing["y_air"]) != 0.0)[0]
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
     mol_ids = tuple(states_h[0].mol_ids)
     cols = torch.as_tensor(_line_species_cols(lines_h, mol_ids), device=dev)
@@ -929,33 +949,15 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                             two_pass=two_pass, profile=profile,
                             wing_passes=coarse is None, far_tile=far_tile,
                             far_block=far_block, core_tile=core_tile)
+    n_lay = int(states_h[0].T.size)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
-                            int(np.asarray(states_h[0].T).size), dev, dt)
+                            n_lay, dev, dt)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
-    return OpticalDepthFn(lines, iso, passes, cols, profile, wing_abs,
-                          wing_hw, line_mixing, cont)
-
-
-def _ops_per_eval(n_wei: int, mode: str) -> int:
-    """Hand-counted lane-ops per (line slot, grid point) evaluation of the
-    local builder's modes, the weights of the weighted partition: the
-    counts of ``pallas_xsect.py::_ops_per_eval`` (its conventions: a*b+c
-    = 2, sqrt 3, divide 4, exp 6), copied so that the chunk assignment is
-    the JAX builder's integer for integer."""
-    n = int(n_wei)
-    counts = {
-        "asym": 11 + 17, "lorentz": 11 + 7, "doppler": 11 + 9,
-        "mix": 11 + (65 + 7 * n) + 2,
-        "full": 11 + 3 + (30 + 7 * n) + 16 + 1,
-        "core": 11 + 3 + (30 + 7 * n) + 17 + 2,
-        "sdvoigt_asym": 11 + 2 + 19 + 3 + 2 * 19 + 2,
-        "sdvoigt": 57 + 2 * (227 + 7 * n),
-        "sdvoigt_core": 57 + 2 * (227 + 7 * n) + 2 * 20,
-    }
-    if mode not in counts:
-        raise ValueError(f"unknown mode {mode!r}")
-    return counts[mode]
+    fn = OpticalDepthFn(lines, iso, passes, cols, profile, wing_abs, wing_hw,
+                        line_mixing, cont)
+    fn.work_report = _work_report(calls, coarse, n_weideman, n_lay)
+    return fn
 
 
 def _weighted_chunk_assignment(calls, n_pad, n_shards, n_weideman):
@@ -1176,7 +1178,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
         two_pass = False
     mix_idx = None
     if line_mixing is not None:
-        mix_idx = np.nonzero(np.asarray(line_mixing["y_air"]) != 0.0)[0]
+        mix_idx = np.nonzero(as_numpy(line_mixing["y_air"]) != 0.0)[0]
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
     mol_ids = tuple(states_h[0].mol_ids)
     calls = _build_od_calls(lines_h, iso_h, states_h, g, wing_abs, wing_hw,
@@ -1273,8 +1275,8 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
             "profile 'ht': the Hartmann-Tran lattice is make_ht_fn")
     g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
-    T_c = np.asarray(T_class, dtype=np.float64).ravel()
-    p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
+    T_c = as_numpy(T_class, np.float64).ravel()
+    p_c = as_numpy(p_atm_class, np.float64).ravel()
     mol_ids = tuple(int(m) for m in np.unique(lines.host["mol_id"]))
     n = T_c.size
     pseudo = AtmosphericState.from_numpy(
@@ -1292,7 +1294,9 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
                             profile=profile, wing_passes=coarse is None)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
                             n, dev, dt)
-    return CrossSectionFn(lines, iso, passes, profile, wing_abs, wing_hw)
+    fn = CrossSectionFn(lines, iso, passes, profile, wing_abs, wing_hw)
+    fn.work_report = _work_report(calls, coarse, n_weideman, n)
+    return fn
 
 
 # --------------------------------------------------------------------------
@@ -1331,21 +1335,22 @@ def _ht_line_params(resolved, lines, iso, T, p_atm, wing_abs, wing_hw,
                     ht_consts=tuple(c(k[key]) for key in HT_CONST_KEYS))
 
 
-def ht_wing_bounds(resolved, lines_h, iso_h, T_states, p_atm_states,
+def ht_wing_bounds(resolved, lines_h, iso, T_states, p_atm_states,
                    wing_abs=0.0, wing_hw=50.0) -> np.ndarray:
     """(nStates, nLines) hapi wing bounds from resolved HT columns
     (``od.py:1193-1214``): max(wing_abs, wing_hw max(Gamma0(T, p),
-    GammaD(T))) with the diluent-summed Gamma0, in NumPy on the host views
-    of the lines and isotopologue tables."""
-    gd_coeff = _gd_coeff(lines_h, iso_h)
-    T_c = np.asarray(T_states, dtype=np.float64).ravel()
-    p_c = np.asarray(p_atm_states, dtype=np.float64).ravel()
-    W = np.zeros((T_c.size, np.asarray(lines_h.nu0).size))
+    GammaD(T))) with the diluent-summed Gamma0, in NumPy on the host. The
+    isotopologue tables, the lines and the states may lie on any device
+    (copied to the host, as JAX's ``jax.device_get(iso)``)."""
+    gd_coeff = _gd_coeff(lines_h, iso)
+    T_c = as_numpy(T_states, np.float64).ravel()
+    p_c = as_numpy(p_atm_states, np.float64).ravel()
+    W = np.zeros((T_c.size, as_numpy(lines_h.nu0).size))
     for r, (T_s, p_s) in enumerate(zip(T_c, p_c)):
         g0 = np.zeros_like(W[0])
         for abun, g0db, ndb, *_ in resolved:
-            g0 = g0 + abun * np.asarray(g0db) * (p_s / P_REF) \
-                * (T_REF / T_s) ** np.asarray(ndb)
+            g0 = g0 + abun * as_numpy(g0db) * (p_s / P_REF) \
+                * (T_REF / T_s) ** as_numpy(ndb)
         gd = np.sqrt(T_s) * gd_coeff
         W[r] = np.maximum(wing_abs, wing_hw * np.maximum(g0, gd))
     return W
@@ -1476,8 +1481,8 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
         diluent = {"air": 1.0}
     g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
-    T_c = np.asarray(T_class, dtype=np.float64).ravel()
-    p_c = np.asarray(p_atm_class, dtype=np.float64).ravel()
+    T_c = as_numpy(T_class, np.float64).ravel()
+    p_c = as_numpy(p_atm_class, np.float64).ravel()
     mol_ids = tuple(int(m) for m in np.unique(lines.host["mol_id"]))
     n = T_c.size
     pseudo = AtmosphericState.from_numpy(
@@ -1531,7 +1536,9 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
                                  group_ratio)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
                             n, dev, dt)
-    return HTCrossSectionFn(lines, iso, passes, resolved, wing_abs, wing_hw)
+    fn = HTCrossSectionFn(lines, iso, passes, resolved, wing_abs, wing_hw)
+    fn.work_report = _work_report(calls, coarse, n_weideman, n)
+    return fn
 
 
 def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
@@ -1571,12 +1578,15 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
         if idx.size:
             calls += _ht_group_calls(nu0, g, W, mode, idx, cap, tile,
                                      max_groups, group_ratio)
-    passes = _device_passes(calls, None, lines_h, g, 64, n_weideman,
-                            int(np.asarray(states_h[0].T).size), dev, dt)
+    n_lay = int(states_h[0].T.size)
+    passes = _device_passes(calls, None, lines_h, g, 64, n_weideman, n_lay,
+                            dev, dt)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
-    return HTOpticalDepthFn(lines, iso, passes, resolved, cols, wing_abs,
-                            wing_hw, cont)
+    fn = HTOpticalDepthFn(lines, iso, passes, resolved, cols, wing_abs,
+                          wing_hw, cont)
+    fn.work_report = _work_report(calls, None, n_weideman, n_lay)
+    return fn
 
 
 # --------------------------------------------------------------------------
@@ -1591,7 +1601,7 @@ def compute_od_layer(lines, iso, grid, T, p_pa, pl_km, vmr_row, species_cols,
     ``T``, ``p_pa`` and ``pl_km`` scalars, ``vmr_row`` (nM,), and
     ``species_cols`` (L,) each line's vmr column. ``profile`` reaches both
     the parameter rules and the line shape."""
-    cols = torch.as_tensor(np.asarray(species_cols), dtype=torch.long,
+    cols = torch.as_tensor(as_numpy(species_cols), dtype=torch.long,
                            device=vmr_row.device)
     u = species_column(p_pa, T, pl_km, vmr_row)
     params = compute_line_params(lines, iso, T, p_pa / PA_PER_ATM,
@@ -1762,7 +1772,7 @@ def _mixing_layer(lines, iso, X, T, p_pa, pl, vmr, cols, line_mixing,
     dt, dev = X.dtype, X.device
     cols_t = torch.as_tensor(cols, dtype=torch.long, device=dev)
     as_t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
-        np.asarray(a), dtype=dt, device=dev)
+        as_numpy(a), dtype=dt, device=dev)
     p_atm = p_pa / PA_PER_ATM
     u = species_column(p_pa, T, pl, vmr)
     prm = compute_line_params(lines, iso, T, p_atm, vmr_self=vmr[cols_t],

@@ -55,10 +55,10 @@ class XsTable:
         """A table from NumPy arrays (e.g. a JAX table's), on ``device``
         (None: the card) in ``dtype``."""
         device = resolve_device(device)
-        t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)
+        t = lambda a: torch.as_tensor(as_numpy(a), device=device).to(dtype)
         return XsTable(sigma=t(sigma), T_grid=t(T_grid),
                        logp_grid=t(logp_grid),
-                       x=np.asarray(x, dtype=np.float64),
+                       x=as_numpy(x, np.float64),
                        mol_ids=tuple(int(m) for m in mol_ids))
 
 
@@ -78,8 +78,8 @@ def build_xs_table(lines: LineStore, iso: IsoTables, grid, T_grid,
     grid = as_numpy(grid)
     if mol_ids is None:
         mol_ids = tuple(int(m) for m in np.unique(lines.host["mol_id"]))
-    T_grid = np.asarray(T_grid, dtype=np.float64)
-    p_grid = np.asarray(p_grid_atm, dtype=np.float64)
+    T_grid = as_numpy(T_grid, np.float64)
+    p_grid = as_numpy(p_grid_atm, np.float64)
     dev = lines.sw.device
     gx = torch.as_tensor(grid, device=dev).to(lines.sw.dtype)
 

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import as_numpy, resolve_device
 from ..kernels.fused_tud import tud_compose
 
 __all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_angles",
@@ -48,7 +48,7 @@ class TUD:
         return dataclasses.replace(self, tau=tau, Lu=Lu)
 
 
-def downwelling_angles(n_angles: int, device=None, dtype=torch.float64):
+def downwelling_angles(n_angles: int, dtype=torch.float64, device=None):
     """The reference's zenith quadrature: uniform [0, pi/2), endpoint
     excluded (radiative_transfer.py:368); ``device`` None is the card."""
     th = np.linspace(0.0, np.pi / 2.0, n_angles, endpoint=False)
@@ -76,8 +76,8 @@ def downwelling_quadrature(n_angles: int, kind: str = "uniform"):
 
 def _layers_below(z0, altitudes) -> np.ndarray:
     """Number of layers whose bottom lies at or below each altitude."""
-    z0 = np.asarray(z0, dtype=np.float64)
-    alts = np.atleast_1d(np.asarray(altitudes, dtype=np.float64))
+    z0 = as_numpy(z0, np.float64)
+    alts = np.atleast_1d(as_numpy(altitudes, np.float64))
     return (z0[None, :] <= alts[:, None]).sum(axis=1)
 
 
@@ -142,7 +142,7 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
     device = resolve_device(device)
     snap = torch.as_tensor(_layers_below(z0, altitudes), dtype=torch.int32,
                            device=device)
-    mus = torch.as_tensor(np.atleast_1d(np.asarray(mu, dtype=np.float64)),
+    mus = torch.as_tensor(np.atleast_1d(as_numpy(mu, np.float64)),
                           dtype=f32, device=device)
     sec_np, w_np = downwelling_quadrature(n_angles, quadrature)
     sec = torch.as_tensor(sec_np, dtype=f32, device=device)

@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import as_tensor_on
+from .. import as_numpy, as_tensor_on
 from ..utils.precision import f32_matmuls as _f32_matmuls
 from .generative import PCAModel, pca_fit
 
@@ -195,7 +195,7 @@ def bspline_design(x, n_knots: int, degree: int = 3) -> np.ndarray:
     (the reference's ``np.linspace(X.min(), X.max(), N)[1:-1]`` passed to
     ``splrep``, ``Generate_Emissivity_DB.py:127``), clamped end knots,
     Cox–de Boor recursion."""
-    x = np.asarray(x, dtype=np.float64)
+    x = as_numpy(x, np.float64)
     lo, hi = float(x.min()), float(x.max())
     interior = np.linspace(lo, hi, n_knots)[1:-1]
     t = np.concatenate([np.full(degree + 1, lo), interior,

@@ -26,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from .. import as_tensor_on
+from .. import as_numpy, as_tensor_on
 from ..sensor.resolution import apply_resample, cubic_resample_weights
 
 __all__ = ["EmissivityDB", "synthetic_db", "save_db", "load_db",
@@ -64,11 +64,11 @@ class EmissivityDB:
         (``Generate_ASTER_emissivity_DB.py:81-117``): optional
         reflectance -> emissivity, µm -> cm^-1, sort + dedup, cubic
         resample onto ``X_out``, clamp to [0, 1] (host float64)."""
-        X_out = np.asarray(X_out, dtype=np.float64)
+        X_out = as_numpy(X_out, np.float64)
         rows = []
         for x, y in spectra:
-            x = np.asarray(x, dtype=np.float64)
-            y = np.asarray(y, dtype=np.float64)
+            x = as_numpy(x, np.float64)
+            y = as_numpy(y, np.float64)
             if reflectance:
                 y = 1.0 - y / 100.0 if y.max() > 1.5 else 1.0 - y
             if wavelength_um:
@@ -88,7 +88,7 @@ class EmissivityDB:
 
     def resample(self, X_new) -> "EmissivityDB":
         """The spectra cubic-resampled onto ``X_new``, clamped to [0, 1]."""
-        X_new = np.asarray(X_new, dtype=np.float64)
+        X_new = as_numpy(X_new, np.float64)
         idx, w = cubic_resample_weights(
             self.X.double().cpu().numpy(), X_new)
         emis = torch.clamp(apply_resample(idx, w, self.emis.T).T, 0.0, 1.0)
@@ -157,7 +157,7 @@ def synthetic_db(n_materials: int = 24, X=None, seed: int = 0, device=None,
     (``X`` default 690-1410 cm^-1 at 1 cm^-1)."""
     if X is None:
         X = np.arange(690.0, 1411.0, 1.0)
-    X = np.asarray(X, dtype=np.float64)
+    X = as_numpy(X, np.float64)
     rng = np.random.default_rng(seed)
     rows = []
     for _ in range(n_materials):

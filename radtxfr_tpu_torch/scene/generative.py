@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from .. import as_tensor_on
+from .. import as_numpy, as_tensor_on
 from ..utils.precision import f32_matmuls as _f32_matmuls
 
 __all__ = [
@@ -573,7 +573,7 @@ def gen_samples_per_airmass(generator: torch.Generator, z, P, T, H2O, O3,
     NumPy arrays T, H2O, O3 (n_gen, nL), labels and ll (n_gen,)."""
     T = as_tensor_on(T)
     P, H2O, O3 = (_like(a, T) for a in (P, H2O, O3))
-    labels = np.asarray(labels)
+    labels = as_numpy(labels)
     outs = {k: [] for k in ("T", "H2O", "O3", "labels", "ll")}
     for lab in np.unique(labels):
         ix = torch.as_tensor(labels == lab, device=T.device)

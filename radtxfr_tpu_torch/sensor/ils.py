@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR, resolve_device
+from .. import DATA_DIR, as_numpy, resolve_device
 
 __all__ = [
     "ils_mako_simple",
@@ -50,7 +50,7 @@ def mako_axis_wn(X, res_factor=None) -> np.ndarray:
     (``radiative_transfer.py:1226-1233``): optional upsampling by linear
     interpolation in channel index, µm -> cm^-1, sort, trim to the open
     interval (X.min(), X.max())."""
-    X = np.asarray(X)
+    X = as_numpy(X)
     x_um = _mako_table()
     if res_factor is not None:
         t0 = np.linspace(0.0, 1.0, x_um.size)
@@ -117,9 +117,9 @@ def ils_matrix(X, centers, widths, shape: str = "triangle",
     """Dense (nX, n_chan) float64 ILS weight matrix on the host,
     column-normalized; the effective centre is ``scale * center + shift``
     (``ILS_MAKO``'s calibration parameters, ``radiative_transfer.py:1242``)."""
-    X = np.asarray(X, dtype=np.float64)
-    centers = np.asarray(centers, dtype=np.float64)
-    widths = np.broadcast_to(np.asarray(widths, dtype=np.float64),
+    X = as_numpy(X, np.float64)
+    centers = as_numpy(centers, np.float64)
+    widths = np.broadcast_to(as_numpy(widths, np.float64),
                              centers.shape)
     d = X[:, None] - (scale * centers[None, :] + shift)
     W = SLIT_SHAPES[shape](d, widths[None, :])
@@ -140,7 +140,7 @@ def apply_ils(W, Y, device=None) -> torch.Tensor:
     Y = torch.as_tensor(Y, device=resolve_device(device))
     if not Y.is_floating_point():
         Y = Y.to(torch.float64)
-    W = torch.as_tensor(np.asarray(W), dtype=Y.dtype, device=Y.device)
+    W = torch.as_tensor(as_numpy(W), dtype=Y.dtype, device=Y.device)
     return torch.tensordot(W, Y, dims=([0], [0]))
 
 
@@ -152,7 +152,7 @@ def ils_mako(X, Y, res_factor=None, return_x: bool = True,
     ``shape='gaussian'`` is the commented-out alternative, ``:1245-1248``).
     ``Y`` (nX[, nS]) on ``device`` as :func:`apply_ils`. Returns
     (x_out NumPy (n_chan,), y_out tensor), or y_out alone."""
-    X = np.asarray(X)
+    X = as_numpy(X)
     x_out = mako_axis_wn(X, res_factor)
     if x_out.size < 2:
         raise ValueError(
@@ -169,7 +169,7 @@ def ils_mako_simple(X, Y, device=None):
     """The standalone Gaussian MAKO ILS (``ILS_MAKO.py:2-35``): sigma =
     |gradient(X_out)| (no 1.6, no calibration parameters), no in-band
     trim, the matrix normalized by its column sums. Returns (X_out, Y_out)."""
-    X = np.asarray(X, dtype=np.float64)
+    X = as_numpy(X, np.float64)
     x_out = np.sort(10000.0 / _mako_table())
     sigma = np.abs(np.gradient(x_out))
     W = ils_matrix(X, x_out, sigma, shape="gaussian", normalize=True)

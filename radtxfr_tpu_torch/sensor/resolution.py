@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import as_numpy, resolve_device
 
 __all__ = ["smooth", "reduce_resolution", "cubic_resample_weights",
            "apply_resample", "ReduceOperator", "reduce_operator"]
@@ -68,8 +68,8 @@ def _sym_smooth(y: torch.Tensor, window_len: int, window: str):
 def cubic_resample_weights(x_in: np.ndarray, x_out: np.ndarray):
     """Static 4-point Lagrange interpolation stencil (idx (n_out, 4) int32,
     weights (n_out, 4) float64); edge stencils extrapolate."""
-    x_in = np.asarray(x_in, dtype=np.float64)
-    x_out = np.asarray(x_out, dtype=np.float64)
+    x_in = as_numpy(x_in, np.float64)
+    x_out = as_numpy(x_out, np.float64)
     n = x_in.size
     j = np.searchsorted(x_in, x_out, side="right") - 1
     base = np.clip(j - 1, 0, n - 4)
@@ -87,8 +87,8 @@ def cubic_resample_weights(x_in: np.ndarray, x_out: np.ndarray):
 def apply_resample(idx, w, y: torch.Tensor) -> torch.Tensor:
     """Apply a static resample stencil (:func:`cubic_resample_weights`) to
     ``y`` (nX[, ...]) along axis 0, on ``y``'s device."""
-    idx = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=y.device)
-    w = torch.as_tensor(np.asarray(w), dtype=y.dtype, device=y.device)
+    idx = torch.as_tensor(as_numpy(idx, np.int64), device=y.device)
+    w = torch.as_tensor(as_numpy(w), dtype=y.dtype, device=y.device)
     g = y[idx]                                    # (n_out, 4[, ...])
     return torch.sum(g * w.reshape(w.shape + (1,) * (y.dim() - 1)), dim=1)
 
@@ -117,7 +117,8 @@ def reduce_resolution(X, Y: torch.Tensor, dX, N: int = 4,
     the stencil), ``Y`` on its device, each trailing column alone. Returns
     ``(X_out, Y_out)``, or ``Y_out`` when ``X_out`` is given.
     """
-    X = np.asarray(X, dtype=np.float64)
+    X = as_numpy(X, np.float64)
+    dX = float(dX)
     dx_in = float(np.mean(np.diff(X)))
     sm = int(round(dX / dx_in))
     x_sm = _np_sym_smooth(X, sm, window)
@@ -125,7 +126,7 @@ def reduce_resolution(X, Y: torch.Tensor, dX, N: int = 4,
     if X_out is None:
         n_pts = int(np.ceil(N * (x_sm[-sm - 1] - x_sm[sm]) / dX)) + 1
         X_out = np.linspace(x_sm[sm], x_sm[-sm - 1], n_pts)
-    idx, w = cubic_resample_weights(x_sm, np.asarray(X_out, dtype=np.float64))
+    idx, w = cubic_resample_weights(x_sm, X_out)
     cols = Y.reshape(Y.shape[0], -1)
     y_sm = torch.stack([_sym_smooth(cols[:, j], sm, window)
                         for j in range(cols.shape[1])], dim=1)
@@ -143,15 +144,14 @@ class ReduceOperator:
 
     def __init__(self, x_out: np.ndarray, starts: np.ndarray,
                  weights: np.ndarray, device=None):
-        self.x_out = np.asarray(x_out)
+        self.x_out = as_numpy(x_out)
+        starts, weights = as_numpy(starts, np.int64), as_numpy(weights)
         self.n_out, self.width = weights.shape
         self.device = device = resolve_device(device)
-        self.starts = torch.as_tensor(np.asarray(starts, dtype=np.int64),
-                                      device=device)
+        self.starts = torch.as_tensor(starts, device=device)
         self.weights = torch.as_tensor(weights, device=device)
         self._offsets = torch.arange(self.width, device=device)
-        self._affine = self._build_affine(np.asarray(starts, dtype=np.int64),
-                                          np.asarray(weights), device)
+        self._affine = self._build_affine(starts, weights, device)
 
     @staticmethod
     def _build_affine(starts, weights, device, max_jitter: int = 8):
@@ -215,7 +215,8 @@ def reduce_operator(X, dX, N: int = 4, window: str = "hanning", X_out=None,
     matching the reference's ``reduceResolution(X, Y, dX, N, window)`` for
     interior stencils; raises ValueError when there is nothing to reduce or
     a stencil would cross the grid edge. ``device`` None is the card."""
-    X = np.asarray(X, dtype=np.float64)
+    X = as_numpy(X, np.float64)
+    dX = float(dX)
     n = X.size
     dx_in = float(np.mean(np.diff(X)))
     sm = int(round(dX / dx_in))
@@ -228,7 +229,7 @@ def reduce_operator(X, dX, N: int = 4, window: str = "hanning", X_out=None,
     if X_out is None:
         n_pts = int(np.ceil(N * (x_sm[-sm - 1] - x_sm[sm]) / dX)) + 1
         X_out = np.linspace(x_sm[sm], x_sm[-sm - 1], n_pts)
-    X_out = np.asarray(X_out, dtype=np.float64)
+    X_out = as_numpy(X_out, np.float64)
     idx, w = cubic_resample_weights(x_sm, X_out)
 
     # interior symmetric-smooth impulse response (half-width sm // 2)

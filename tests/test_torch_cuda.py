@@ -1066,3 +1066,78 @@ def test_hapi_sdvoigt_driver_on_the_card(dev, tmp_path):
     assert isinstance(k_c, np.ndarray) and k_c.max() > 0
     np.testing.assert_array_equal(nu, nu_c)
     assert np.abs(k_c - k).max() <= 1e-7 * np.abs(k).max()
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, whose ``recorded_h5``
+    (h5py, or a recording stand-in where it is absent) this file shares."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_products_chain_on_card_tensors(dev, tmp_path):
+    """The port's products chained on the card as JAX's chain on a device:
+    ``make_tud_fn`` on the state's card ``z0`` and card altitudes ->
+    ``ils_mako(t.X, t.tau)`` -> ``reduce_operator(t.X, 0.25)`` on
+    ``t.tau`` -> ``write_h5`` -> ``EnsembleCheckpoint.write_batch``, every
+    step fed card tensors and bit-identical to the same call on host
+    copies."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.dist.checkpoint import EnsembleCheckpoint
+    from radtxfr_tpu_torch.io.h5 import Var
+    from radtxfr_tpu_torch.sensor.ils import ils_mako
+
+    f32 = torch.float32
+    store = derived_lwir_linelist(755.0, 825.0, device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    X = arange_drift_free(780.0, 800.0, 0.0005)
+    od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32), X, base,
+                       continuum="mt_ckd")
+    od = od_fn(base.T, base.p, base.pl, base.vmr)
+    x = torch.as_tensor(X, dtype=f32, device=dev)
+    alts = [1.0, 500.0]
+    t = make_tud_fn(base.z0, torch.tensor(alts, device=dev), device=dev)(
+        x, od, base.T)
+    t_h = make_tud_fn(base.z0.cpu().numpy(), alts, device=dev)(x, od, base.T)
+    for k in ("X", "tau", "Lu", "Ld"):
+        assert getattr(t, k).device.type == dev.type
+        assert torch.equal(getattr(t, k), getattr(t_h, k)), k
+    host_x = t.X.cpu().numpy()
+    (cx, cy), (hx, hy) = ils_mako(t.X, t.tau), ils_mako(host_x, t.tau)
+    assert cy.device.type == dev.type and cx.size >= 2
+    np.testing.assert_array_equal(cx, hx)
+    assert torch.equal(cy, hy)
+    op = reduce_operator(t.X, 0.25, device=dev)
+    op_h = reduce_operator(host_x, 0.25, device=dev)
+    np.testing.assert_array_equal(op.x_out, op_h.x_out)
+    red = op(t.tau)
+    assert red.device.type == dev.type and torch.equal(red, op_h(t.tau))
+    card = {"X": Var(torch.as_tensor(op.x_out), units="cm^{-1}"),
+            "tau": Var(red, units="none"), "Ld": t.Ld, "mako": cy}
+    host = {k: (Var(v.data.cpu().numpy(), units=v.units)
+                if isinstance(v, Var) else v.cpu().numpy())
+            for k, v in card.items()}
+    smoke = _chip_smoke()
+    got = smoke.recorded_h5(str(tmp_path / "card.h5"), card)
+    want = smoke.recorded_h5(str(tmp_path / "host.h5"), host)
+    assert set(got) == set(want) == set(card)
+    for k in got:
+        assert smoke.same_bits(got[k][0], want[k][0]), k
+        assert got[k][1] == want[k][1]
+    arrays = {"tau": red, "Lu": op(t.Lu), "Ld": op(t.Ld)}
+    for name, a in (("card", arrays),
+                    ("host", {k: v.cpu().numpy() for k, v in arrays.items()})):
+        EnsembleCheckpoint(str(tmp_path / name), 1, 1).write_batch(0, a)
+    got, want = (EnsembleCheckpoint(str(tmp_path / n), 1, 1).read_batch(0)
+                 for n in ("card", "host"))
+    for k in arrays:
+        assert got[k].dtype == want[k].dtype
+        assert got[k].tobytes() == want[k].tobytes(), k

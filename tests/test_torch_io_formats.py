@@ -10,6 +10,8 @@ against ``radtxfr_tpu.io``'s on the CPU.
   and ``default_continuum_factors`` its defaulting.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -33,7 +35,11 @@ def cube():
 
 @pytest.mark.parametrize("ext", ["bsq", "bip"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_mbi_bytes_and_cross_read(tmp_path, cube, ext, dtype):
+def test_mbi_bytes_and_cross_read(tmp_path, cube, ext, dtype, monkeypatch):
+    # the MAT header carries scipy's time.asctime(): one clock for both
+    # writers, so a second that ticks between them changes no byte
+    monkeypatch.setattr(time, "asctime",
+                        lambda *a: "Sun Oct 18 00:00:00 2026")
     data = cube.astype(dtype)
     rows, bands = np.arange(4) * 0.5, np.linspace(8.0, 12.0, 5)
     hdr = dict(Units="W", Scale=2.0, Sensor="test")
