@@ -391,7 +391,9 @@ from radtxfr_tpu_torch.tools import fp32_peak, sass  # noqa: E402
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
                                             make_tud_fn, tud_from_od)
-from radtxfr_tpu_torch.sensor.resolution import reduce_operator  # noqa: E402
+from radtxfr_tpu_torch.sensor.resolution import (  # noqa: E402
+    reduce_operator, reduce_resolution)
+from radtxfr_tpu_torch.tools import e2e_drive  # noqa: E402
 from radtxfr_tpu_torch.dist.checkpoint import EnsembleCheckpoint  # noqa: E402
 from radtxfr_tpu_torch.io.h5 import Var, read_h5, write_h5  # noqa: E402
 from radtxfr_tpu_torch.sensor.ils import ils_mako  # noqa: E402
@@ -1850,6 +1852,102 @@ def scene_chain(card):
     print("[5e chain] seconds (host clock, first calls): " + ", ".join(
         f"{k} {v:.4f}" for k, v in secs.items())
         + f"; chain total {sum(secs.values()):.4f} [{card}]", flush=True)
+    t0 = time.perf_counter()
+    numpy_member(card, base, od_fn, od, x, t, op)
+    e2e_on_card(card)
+    print(f"[5e numpy] the NumPy-input checks took "
+          f"{time.perf_counter() - t0:.2f} s (host clock) [{card}]",
+          flush=True)
+
+
+def numpy_member(card, base, od_fn, od, x, t, op):
+    """The chain's production member from host NumPy inputs: ``base``'s
+    columns into ``od_fn``, the axis into ``make_tud_fn``'s function and
+    ``tud_from_od``, tau/Lu/Ld into the reduction operator and
+    ``reduce_resolution``. Each result on the card and bit-identical to
+    the same call on the card tensors."""
+    dev = torch.device("cuda")
+    host = lambda a: a.cpu().numpy()  # noqa: E731
+    secs, same = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    on_card = lambda *a: all(v.is_cuda for v in a)  # noqa: E731
+    od_np = timed("od_fn", lambda: od_fn(*(host(getattr(base, f)) for f in
+                                           ("T", "p", "pl", "vmr"))))
+    same["od_fn"] = on_card(od_np) and torch.equal(od_np, od)
+    tud_fn = make_tud_fn(base.z0, torch.as_tensor(ALTITUDES, device=dev),
+                         device=dev)
+    t_np = timed("make_tud_fn", lambda: tud_fn(host(x), od, host(base.T)))
+    same["make_tud_fn"] = all(
+        on_card(getattr(t_np, k)) and torch.equal(getattr(t_np, k),
+                                                  getattr(t, k))
+        for k in ("X", "tau", "Lu", "Ld"))
+    # tud_from_od on the tensor route and on the host axis (float32, the
+    # card tensor's copy), the reference engine's composition
+    B = planckian(x, base.T).transpose(0, 1).to(od.dtype)
+    alts = torch.as_tensor(ALTITUDES, dtype=od.dtype, device=dev)
+    ref = tud_from_od(x, od, B, base.z0, alts, n_angles=30)
+    got = timed("tud_from_od", lambda: tud_from_od(host(x), od, B, base.z0,
+                                                   alts, n_angles=30))
+    same["tud_from_od"] = all(
+        on_card(getattr(got, k)) and torch.equal(getattr(got, k),
+                                                 getattr(ref, k))
+        for k in ("X", "tau", "Lu", "Ld"))
+    prods = (t.tau, t.Lu, t.Ld)
+    red = timed("reduce_operator", lambda: [op(host(a)) for a in prods])
+    same["reduce_operator"] = all(
+        on_card(r) and torch.equal(r, op(a)) for r, a in zip(red, prods))
+    x64 = host(x).astype(np.float64)
+    rr = timed("reduce_resolution",
+               lambda: [reduce_resolution(x64, host(a), 0.25)[1]
+                        for a in prods])
+    same["reduce_resolution"] = all(
+        on_card(r) and torch.equal(r, reduce_resolution(x64, a, 0.25)[1])
+        for r, a in zip(rr, prods))
+    for k, ok in same.items():
+        check(ok, f"numpy member: {k} on NumPy inputs is not on the card or "
+                  "differs from the tensor route")
+    print(f"[5e numpy] one production member from host NumPy inputs "
+          f"({x.numel()} points, 66 layers): od_fn(base's columns), "
+          f"make_tud_fn(...)(X, od, T) and tud_from_od(X, ...), "
+          f"reduce_operator(tau/Lu/Ld) and reduce_resolution(X, tau/Lu/Ld): "
+          f"each on the card and bit-identical to the tensor route "
+          f"({ {k: bool(v) for k, v in same.items()} }); seconds (host "
+          f"clock): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+          + f" [{card}]", flush=True)
+
+
+def e2e_on_card(card):
+    """``tools/e2e_drive.py``'s steps at its own size (2000 synthetic
+    lines, 690-1410 cm^-1 at 0.05, the 66-layer standard atmosphere) on
+    the card through the port (``radtxfr_tpu_torch/tools/e2e_drive.py``),
+    the layer OD on the K1 route, its NumPy hand-offs kept."""
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = e2e_drive.drive("cuda", dtype=torch.float32, engine="pallas",
+                              **e2e_drive.FULL)
+    except (AssertionError, ValueError, RuntimeError) as e:
+        check(False, f"e2e drive on the card: {type(e).__name__}: {e}")
+        return
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    check(sum(fused_xsect.LAUNCHES.values()) > 0,
+          "e2e drive: compute_od_layers(engine='pallas') launched no K1 pass")
+    check(np.isfinite(out["tau"]).all() and out["tau"].shape ==
+          (out["grid"].size, 4, 1), "e2e drive: tau is not finite or shaped")
+    print(f"[5e e2e] tools/e2e_drive.py's steps on the card: "
+          f"{out['grid'].size} points, 2000 lines, 66 layers, K1 launches "
+          f"{launches}; steps (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items())
+          + f"; skipped {out['skipped']}; probe: {out['probe_error']}; "
+          f"total {secs:.2f} s [{card}]", flush=True)
 
 
 #: a child of phase 5c: the production command through run_tud on the

@@ -72,6 +72,24 @@ def as_tensor_on(a, device=None, dtype=None) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype)
 
 
+def arrays_on(*arrays, device=None, dtype=None, lead=False) -> tuple:
+    """A call's array arguments as its tensors, on the call's device: its
+    first tensor argument's, else ``device`` (None: the card). Each NumPy
+    array or NumPy scalar goes there through :func:`as_tensor_on`, in
+    ``dtype`` (None: its own); with ``lead`` the first argument does too,
+    whatever it is (a Python scalar or list in torch's default float32).
+    Anything else (tensors, scalars, lists, None) is returned as given, so
+    a call without NumPy arguments keeps its bits."""
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+               device)
+    return tuple(
+        as_tensor_on(a, dev, dtype)
+        if isinstance(a, (np.ndarray, np.generic))
+        or (lead and i == 0 and a is not None
+            and not isinstance(a, torch.Tensor)) else a
+        for i, a in enumerate(arrays))
+
+
 def as_numpy(a, dtype=None) -> np.ndarray:
     """``a`` as a host NumPy array (in ``dtype`` where given, as
     ``np.asarray(a, dtype)``): a tensor is copied off its device (a card's

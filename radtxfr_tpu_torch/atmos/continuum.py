@@ -31,7 +31,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import as_numpy, resolve_device
+from .. import arrays_on, as_numpy, resolve_device
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, K_BOLTZMANN_CGS,
                               PA_PER_ATM)
 
@@ -452,7 +452,8 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     ``fn(T, p_pa, pl_km, vmr, cf) -> (nLay, nX)``
     does one exp per (layer, point) for the H2O temperature law plus
     broadcast algebra; ``fn(..., k=idx)`` evaluates only the points ``idx``
-    (int64 indices into ``nu``: a spectral shard's). The formulas of
+    (int64 indices into ``nu``: a spectral shard's); its NumPy arguments
+    go to ``device`` in their own dtype. The formulas of
     ``radtxfr_tpu.atmos.continuum.make_layered_mt_ckd``, each written once
     with the pointwise models (the OD helpers ``_self_foreign_od``,
     ``_co2_od``, ``_cia_od``, ``_rayleigh_od`` and the coefficients of
@@ -482,6 +483,9 @@ def make_layered_mt_ckd(nu, mol_ids, device=None, dtype=torch.float32,
     d_o2j, core_o2j = row(d_o2), row(core_o2)
 
     def fn(T, p_pa, pl_km, vmr, cf, k=None):
+        T, p_pa, pl_km, vmr, cf = arrays_on(T, p_pa, pl_km, vmr, cf,
+                                            device=device)
+
         def sel(a):
             return a if k is None else a[..., k]
 

@@ -21,7 +21,8 @@ keep their scripts, with two deliberate differences:
   ``kwargs`` functionally.
 
 Every function returns host NumPy arrays, as the JAX module does; inputs
-that are tensors are computed on their device, other arrays on the card.
+that are tensors are computed on their device, other arrays on ``device=``
+(None: the card).
 """
 
 from __future__ import annotations
@@ -122,18 +123,18 @@ def _opts(opts, kwargs):
     return o
 
 
-def rs1D(y):
-    a, dims = rs1d(y)
+def rs1D(y, device=None):
+    a, dims = rs1d(y, device)
     return as_numpy(a), dims
 
 
-def rs2D(y):
-    a, dims = rs2d(y)
+def rs2D(y, device=None):
+    a, dims = rs2d(y, device)
     return as_numpy(a), dims
 
 
-def rsND(y, dims):
-    return as_numpy(rsnd(y, dims))
+def rsND(y, dims, device=None):
+    return as_numpy(rsnd(y, dims, device))
 
 
 def make_spectral_axis(Xmin, Xmax, DVOUT):
@@ -145,9 +146,9 @@ def _wavelength_mode(X, wavelength):
     return wavelength or (float(np.mean(as_numpy(X))) < 50.0)
 
 
-def planckian(X, T, wavelength=False):
+def planckian(X, T, wavelength=False, device=None):
     return as_numpy(_planck.planckian(
-        X, T, wavelength=_wavelength_mode(X, wavelength)))
+        X, T, wavelength=_wavelength_mode(X, wavelength), device=device))
 
 
 def _spectral_first(a, spectral_dim):
@@ -160,17 +161,20 @@ def _spectral_first(a, spectral_dim):
 
 
 def brightnessTemperature(X, L, wavelength=False, bad_value=np.nan,
-                          spectral_dim=0):
+                          spectral_dim=0, device=None):
     T = as_numpy(_planck.brightness_temperature(
         X, _spectral_first(L, spectral_dim),
-        wavelength=_wavelength_mode(X, wavelength), bad_value=bad_value))
+        wavelength=_wavelength_mode(X, wavelength), bad_value=bad_value,
+        device=device))
     return _spectral_first(T, spectral_dim)
 
 
-def BT2L(X, T, wavelength=False, bad_value=np.nan, spectral_dim=0):
+def BT2L(X, T, wavelength=False, bad_value=np.nan, spectral_dim=0,
+         device=None):
     L = as_numpy(_planck.bt2l(
         X, _spectral_first(T, spectral_dim),
-        wavelength=_wavelength_mode(X, wavelength), bad_value=bad_value))
+        wavelength=_wavelength_mode(X, wavelength), bad_value=bad_value,
+        device=device))
     return _spectral_first(L, spectral_dim)
 
 
@@ -236,26 +240,28 @@ def compute_TUD(Xmin, Xmax, opts=None, **kwargs):
 
 
 def compute_LWIR_apparent_radiance(X, emis, Ts, tau, La, Ld, dT=None,
-                                   return_Ls=False):
+                                   return_Ls=False, device=None):
     out = apparent_radiance(X, emis, Ts, tau, La, Ld, dT=dT,
-                            return_Ls=return_Ls)
+                            return_Ls=return_Ls, device=device)
     if return_Ls:
         return as_numpy(out[0]), as_numpy(out[1])
     return as_numpy(out)
 
 
 def ILS_MAKO(X, Y, resFactor=None, returnX=True, fwhm_sf=1.0, shift=0.0,
-             scale=1.0):
+             scale=1.0, device=None):
     out = ils_mako(X, Y, res_factor=resFactor, return_x=returnX,
                    fwhm_sf=fwhm_sf, shift=shift, scale=scale,
-                   device=Y.device if isinstance(Y, torch.Tensor) else None)
+                   device=Y.device if isinstance(Y, torch.Tensor) else device)
     if returnX:
         return out[0], as_numpy(out[1])
     return as_numpy(out)
 
 
-def reduceResolution(X, Y, dX, N=4, window="hanning", X_out=None):
-    Y = as_tensor_on(Y if isinstance(Y, torch.Tensor) else np.asarray(Y))
+def reduceResolution(X, Y, dX, N=4, window="hanning", X_out=None,
+                     device=None):
+    Y = as_tensor_on(Y if isinstance(Y, torch.Tensor) else np.asarray(Y),
+                     None if isinstance(Y, torch.Tensor) else device)
     out = reduce_resolution(X, Y, dX, N=N, window=window, X_out=X_out)
     if X_out is None:
         return out[0], as_numpy(out[1])

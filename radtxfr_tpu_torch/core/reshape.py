@@ -1,7 +1,8 @@
 """Array shape utilities, spectral axis first (counterpart of
 ``radtxfr_tpu/core/reshape.py``): the reference's ``rs1D``/``rs2D``/``rsND``
 (``radiative_transfer.py:186-248``) collapse trailing dimensions for 2-D
-batched spectral math and restore them afterwards.
+batched spectral math and restore them afterwards. A tensor stays on its
+device; any other array goes to ``device`` (None: the card).
 """
 
 from __future__ import annotations
@@ -10,21 +11,23 @@ import math
 
 import torch
 
+from .. import as_tensor_on
+
 __all__ = ["rs1d", "rs2d", "rsnd"]
 
 
-def rs1d(y):
+def rs1d(y, device=None):
     """Flatten to 1-D; return (flat, original_shape)."""
-    y = torch.as_tensor(y)
+    y = as_tensor_on(y, device) if not torch.is_tensor(y) else y
     return y.reshape(-1), tuple(y.shape)
 
 
-def rs2d(y):
+def rs2d(y, device=None):
     """Collapse to 2-D with the spectral (first) axis kept; 1-D and 0-D
     inputs become a row vector, as ``rs2D``
     (``radiative_transfer.py:222-225``). Returns (2-D tensor, shape to
     restore)."""
-    y = torch.as_tensor(y)
+    y = as_tensor_on(y, device) if not torch.is_tensor(y) else y
     if y.dim() < 2:
         y = y.reshape(1, -1)
         return y, tuple(y.shape)
@@ -32,6 +35,7 @@ def rs2d(y):
     return y.reshape(dims[0], math.prod(dims[1:])), dims
 
 
-def rsnd(y, dims):
+def rsnd(y, dims, device=None):
     """Restore a tensor collapsed by :func:`rs1d`/:func:`rs2d`."""
-    return torch.as_tensor(y).reshape(dims)
+    y = as_tensor_on(y, device) if not torch.is_tensor(y) else y
+    return y.reshape(dims)

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import as_numpy
+from .. import arrays_on, as_numpy
 from ..atmos.profile import AtmosphericState
 from ..core.planck import planckian
 from ..products.od import make_od_local_fn, shard_slice
@@ -262,6 +262,9 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
              for dev in mesh.distinct()}
 
     def run(T, vmr, V_T, V_vmr):
+        # NumPy inputs join a tensor input's device, else the store's
+        T, vmr, V_T, V_vmr = arrays_on(T, vmr, V_T, V_vmr,
+                                       device=lines.sw.device)
         T, vmr = torch.as_tensor(T), torch.as_tensor(vmr)
         V_T = torch.as_tensor(V_T).to(T.dtype)
         V_vmr = torch.as_tensor(V_vmr).to(vmr.dtype)

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import arrays_on
 from .init import group_layout
 
 __all__ = ["Mesh", "make_mesh", "ENSEMBLE", "SPECTRUM", "pad_axis_to"]
@@ -137,9 +138,10 @@ def make_mesh(n_ensemble: int, n_spectrum: int, devices=None) -> Mesh:
     return Mesh(dev.reshape(n_ensemble, n_spectrum), processes=procs)
 
 
-def pad_axis_to(x, multiple: int, axis: int = 0, fill=0.0):
+def pad_axis_to(x, multiple: int, axis: int = 0, fill=0.0, device=None):
     """Pad ``axis`` of the tensor ``x`` up to a multiple (for even
-    sharding)."""
+    sharding); a NumPy ``x`` goes to ``device`` (None: the card)."""
+    x, = arrays_on(x, device=device, lead=True)
     n = x.shape[axis]
     pad = (-n) % multiple
     if pad == 0:

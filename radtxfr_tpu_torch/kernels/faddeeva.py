@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import arrays_on, as_tensor_on
+
 __all__ = ["weideman_coeffs", "wofz_real", "WEIDEMAN_N", "REGION_BOUND",
            "cpf3", "cpf_humlicek", "cef", "wofz_real_series_only"]
 
@@ -46,8 +48,12 @@ def weideman_coeffs(n: int = WEIDEMAN_N):
     return float(L), a
 
 
-def wofz_real(x: torch.Tensor, y: torch.Tensor, n: int = WEIDEMAN_N):
-    """Faddeeva w(x + iy) -> (Re w, Im w), branchless, real arithmetic."""
+def wofz_real(x: torch.Tensor, y: torch.Tensor, n: int = WEIDEMAN_N,
+              device=None):
+    """Faddeeva w(x + iy) -> (Re w, Im w), branchless, real arithmetic.
+    NumPy arguments join a tensor argument's device, else ``device``
+    (None: the card)."""
+    x, y = arrays_on(x, y, device=device)
     L, a = weideman_coeffs(n)
     inv_sqrt_pi = 1.0 / np.sqrt(np.pi)
 
@@ -121,27 +127,27 @@ def _asym_series(x, y, guard=0.0):
     return sr * fr - si * fi, sr * fi + si * fr
 
 
-def _pair(x, y):
-    x = torch.as_tensor(x)
-    y = torch.as_tensor(y, device=x.device)
+def _pair(x, y, device=None):
+    x, y = arrays_on(x, y, device=device, lead=True)
+    y = as_tensor_on(y, x.device)
     dt = torch.promote_types(torch.promote_types(x.dtype, y.dtype),
                              torch.float32)
     return torch.broadcast_tensors(x.to(dt), y.to(dt))
 
 
-def cpf3(x, y):
+def cpf3(x, y, device=None):
     """hapi's 'naive' CPF (``cpf3``, ``misc/hapi.py:9645-9670``): the bare
     15-term asymptotic series, for large |z| only -> (Re w, Im w)."""
-    return _asym_series(*_pair(x, y))
+    return _asym_series(*_pair(x, y, device))
 
 
-def cpf_humlicek(x, y):
+def cpf_humlicek(x, y, device=None):
     """The 3-region Humlicek CPF (hapi ``cpf``, ``misc/hapi.py:9677-9790``)
     -> (Re w, Im w), branchless: |z| > 8 the asymptotic series, else the
     6-term rational sums, region 2's where y <= 0.85 and
     |x| >= 18.1 y + 1.65. Region 1 uses the actual y where hapi reads it
     from X (``misc/hapi.py:9757``), as the JAX package does."""
-    x, y = _pair(x, y)
+    x, y = _pair(x, y, device)
     in3 = torch.sqrt(x * x + y * y) > 8.0
     in2 = (~in3) & (y <= 0.85) & (torch.abs(x) >= 18.1 * y + 1.65)
 
@@ -175,18 +181,18 @@ def cpf_humlicek(x, y):
     return wr, wi
 
 
-def cef(x, y, n: int = WEIDEMAN_N):
+def cef(x, y, n: int = WEIDEMAN_N, device=None):
     """The Weideman rational series w(z) with ``n`` terms (hapi ``cef``,
     ``misc/hapi.py:9812-9827``), complex (complex64 for float32 inputs,
     complex128 for float64); assumes Im z >= 0."""
-    wr, wi = wofz_real_series_only(x, y, n)
+    wr, wi = wofz_real_series_only(x, y, n, device)
     return torch.complex(wr, wi)
 
 
-def wofz_real_series_only(x, y, n: int = WEIDEMAN_N):
+def wofz_real_series_only(x, y, n: int = WEIDEMAN_N, device=None):
     """The Weideman series leg of :func:`wofz_real` alone, with no
     asymptotic blend -> (Re, Im): ``cef`` in real arithmetic."""
-    x, y = _pair(x, y)
+    x, y = _pair(x, y, device)
     L, a = weideman_coeffs(n)
     inv_sqrt_pi = 1.0 / np.sqrt(np.pi)
     nr, ni = L - y, x

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import as_numpy
+from .. import arrays_on, as_numpy
 from ..core.constants import P_REF, T_REF
 from .htp import pcqsdhc
 from .lineparams import compute_line_params
@@ -101,11 +101,16 @@ def ht_params(resolved, lines, iso, T, p_atm, wing_abs=0.0, wing_hw=50.0,
     ``strength_scale`` multiplies the strengths (the species column
     density, for OD units); ``complex_dtype`` (e.g. ``torch.complex128``)
     adds the complex ``eta`` = eta_r + i eta_i in that dtype, the JAX
-    driver's eta.
+    driver's eta. NumPy ``T``, ``p_atm``, ``abun`` and
+    ``strength_scale`` join the store's device in its dtype.
     """
     dev, dt = lines.sw.device, lines.sw.dtype
     T = torch.as_tensor(T, dtype=dt, device=dev)
     p = torch.as_tensor(p_atm, dtype=dt, device=dev)
+    # NumPy abundances and scales join the store's device in its dtype
+    if abun is not None:
+        abun = list(arrays_on(*abun, device=dev, dtype=dt))
+    strength_scale, = arrays_on(strength_scale, device=dev, dtype=dt)
     lp = compute_line_params(lines, iso, T, p, strength_scale=strength_scale)
     t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
     gamma0 = shift0 = gamma2 = shift2 = nuvc = eta_nr = eta_ni = 0.0
@@ -151,7 +156,9 @@ def xsect_ht(grid: torch.Tensor, lines, iso, T, p_atm, diluent=None,
     """The HT cross-section (nX,) [cm^2/molec] at one (T [K], p [atm]) on
     the ``grid`` tensor by the reference engine: hapi's column fallbacks
     per diluent (default ``{'air': 1}``; ``extras`` the HT columns), then
-    :func:`ht_xsect_from_params`."""
+    :func:`ht_xsect_from_params`. A NumPy ``grid`` joins the store's
+    device."""
+    grid, = arrays_on(grid, device=lines.sw.device)
     resolved = resolve_ht_columns(lines, extras, diluent or {"air": 1.0})
     prm = ht_params(resolved, lines, iso, T, p_atm, wing_abs=wing_abs,
                     wing_hw=wing_hw, complex_dtype=_complex_of(grid.dtype))
@@ -164,7 +171,10 @@ def ht_xsect_from_params(grid: torch.Tensor, nu0, prm: dict, chunk=128,
     :func:`ht_params` dict of (L,) columns (with the complex ``eta`` of
     ``complex_dtype``), each line masked to its window
     nu0 - wing < g <= nu0 + wing (hapi's); ``strength_scale`` multiplies
-    the strengths (the layered OD passes the species column density)."""
+    the strengths (the layered OD passes the species column density).
+    NumPy ``grid``, ``nu0`` and ``strength_scale`` join ``prm``'s device."""
+    grid, nu0, strength_scale = arrays_on(
+        grid, nu0, strength_scale, device=prm["strength"].device)
     strength = prm["strength"]
     if strength_scale is not None:
         strength = strength * strength_scale

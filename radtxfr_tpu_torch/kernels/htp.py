@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from .. import arrays_on
 from .faddeeva import wofz_real
 
 __all__ = ["pcqsdhc", "profile_ht", "profile_sdvoigt", "profile_sdrautian",
@@ -57,15 +58,19 @@ def _cpf3_of(Z):
     return zsum * 1j * zm1 * (1.0 / _RPI)
 
 
-def pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta, sg):
+def pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta, sg,
+            device=None):
     """The complex-normalized pCqSDHC line shape, branchless.
 
     Every parameter broadcasts against ``sg`` (the wavenumber axis, a
     tensor); ``eta`` may be complex (the HT driver's correlation
-    parameter). Returns the (real, imaginary) parts [cm], hapi's return
-    convention.
+    parameter). NumPy arguments join a tensor argument's device, else
+    ``device`` (None: the card). Returns the (real, imaginary) parts [cm],
+    hapi's return convention.
     """
-    sg = torch.as_tensor(sg)
+    sg, sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta = arrays_on(
+        sg, sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta,
+        device=device, lead=True)
     dev = sg.device
     dt = torch.promote_types(sg.dtype, torch.float32)
     if isinstance(gamma_d, torch.Tensor):
@@ -173,24 +178,28 @@ def pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta, sg):
 
 # hapi's PROFILE_* wrappers (misc/hapi.py:10034-10152)
 
-def profile_ht(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta, sg):
+def profile_ht(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta, sg,
+               device=None):
     """PROFILE_HT (misc/hapi.py:10034)."""
     return pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta,
-                   sg)
+                   sg, device)
 
 
-def profile_sdvoigt(sg0, gamma_d, gamma0, gamma2, shift0, shift2, sg):
+def profile_sdvoigt(sg0, gamma_d, gamma0, gamma2, shift0, shift2, sg,
+                    device=None):
     """PROFILE_SDVOIGT (misc/hapi.py:10117)."""
-    return pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, 0.0, 0.0, sg)
+    return pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, 0.0, 0.0, sg,
+                   device)
 
 
 def profile_sdrautian(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc,
-                      sg):
+                      sg, device=None):
     """PROFILE_SDRAUTIAN (misc/hapi.py:10089)."""
     return pcqsdhc(sg0, gamma_d, gamma0, gamma2, shift0, shift2, anuvc, 0.0,
-                   sg)
+                   sg, device)
 
 
-def profile_rautian(sg0, gamma_d, gamma0, shift0, anuvc, sg):
+def profile_rautian(sg0, gamma_d, gamma0, shift0, anuvc, sg, device=None):
     """PROFILE_RAUTIAN (misc/hapi.py:10104)."""
-    return pcqsdhc(sg0, gamma_d, gamma0, 0.0, shift0, 0.0, anuvc, 0.0, sg)
+    return pcqsdhc(sg0, gamma_d, gamma0, 0.0, shift0, 0.0, anuvc, 0.0, sg,
+                   device)

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from .. import arrays_on
 from .fused_xsect import _cpf3_pair, _voigt_w_KL
 
 __all__ = ["ht_line_constants", "pcqsdhc_real", "HT_CONST_KEYS"]
@@ -90,10 +91,15 @@ def _cpf_select_pair(zr, zi, use3, a, L):
 # ---------------------------------------------------------------------------
 
 def ht_line_constants(gamma_d, gamma0, gamma2, shift0, shift2, anuvc,
-                      eta_r, eta_i) -> dict:
+                      eta_r, eta_i, device=None) -> dict:
     """The 11 real constants pcqsdhc needs (``htp_real.py:109-142``):
     ``cte`` = sqrt(ln2)/gamma_d, c0t, c2t and csqrtY as pairs, d0 = anuvc -
-    eta (c0 - 1.5 c2) and e2 = eta c2; every entry shaped like the inputs."""
+    eta (c0 - 1.5 c2) and e2 = eta c2; every entry shaped like the inputs.
+    NumPy arguments join a tensor argument's device, else ``device``
+    (None: the card)."""
+    gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta_r, eta_i = arrays_on(
+        gamma_d, gamma0, gamma2, shift0, shift2, anuvc, eta_r, eta_i,
+        device=device)
     cte = _SQRT_LN2 / gamma_d
     c0r, c0i = gamma0, shift0
     c2r, c2i = gamma2, shift2
@@ -121,18 +127,24 @@ def ht_line_constants(gamma_d, gamma0, gamma2, shift0, shift2, anuvc,
 # the profile
 # ---------------------------------------------------------------------------
 
-def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False):
+def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
     """Re LS of pcqsdhc at ``dnu = sg - sg0`` from the constants ``k`` of
     :func:`ht_line_constants` (each broadcastable against ``dnu``);
     ``wei_a``/``wei_L`` are the Weideman coefficients. The operations are
     those of ``htp_real.py::pcqsdhc_real``, in its order. ``fast=True``
     (JAX's approximate reciprocals) raises ``NotImplementedError``: the
-    port divides in IEEE only, as the builders' ``fast_rcp``."""
+    port divides in IEEE only, as the builders' ``fast_rcp``. NumPy
+    ``dnu`` and constants join a tensor's device, else ``device`` (None:
+    the card)."""
     if fast:
         raise NotImplementedError(
             "fast=True: the port's pcqsdhc divides by IEEE division only "
             "(pass fast=False)")
-    a, L = wei_a, wei_L
+    names = sorted(k)
+    dnu, L, *vals = arrays_on(dnu, wei_L, *(k[n] for n in names),
+                              device=device)
+    k = dict(zip(names, vals))
+    a = wei_a
     cte = k["cte"]
     c0tr, c0ti = k["c0tr"], k["c0ti"]
     c2tr, c2ti = k["c2tr"], k["c2ti"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import arrays_on
 from ..core.constants import SQRT_LN2, T_REF
 from .faddeeva import wofz_real
 from .lineparams import LineParams
@@ -25,9 +26,12 @@ _INV_SQRT_PI = 0.5641895835477563
 
 
 def mixing_coefficient(y_air, p_atm, T, y_self=None, x_self=0.0,
-                       n_T: float = 0.0):
+                       n_T: float = 0.0, device=None):
     """Per-line first-order mixing coefficient Y(p, T); ``y_self``
-    defaults to ``y_air``."""
+    defaults to ``y_air``. NumPy arguments join a tensor argument's
+    device, else ``device`` (None: the card)."""
+    y_air, p_atm, T, y_self, x_self = arrays_on(y_air, p_atm, T, y_self,
+                                                x_self, device=device)
     y_s = y_air if y_self is None else y_self
     y_mix = (1.0 - x_self) * y_air + x_self * y_s
     return p_atm * y_mix * (T_REF / T) ** n_T
@@ -38,7 +42,9 @@ def xsect_voigt_mixing(grid: torch.Tensor, params: LineParams,
                        n_weideman: int = 24) -> torch.Tensor:
     """Voigt spectrum with first-order mixing; same contract as
     :func:`.xsect.xsect_from_params` plus the per-line asymmetry ``Y``
-    (blocks of lines whose windows miss the grid skipped, as there)."""
+    (blocks of lines whose windows miss the grid skipped, as there); a
+    NumPy ``grid`` joins ``params``' device."""
+    grid, = arrays_on(grid, device=params.nu0.device)
     acc = torch.zeros_like(grid)
     g = grid[None, :]
     Y = torch.broadcast_to(torch.as_tensor(Y, dtype=grid.dtype,

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import arrays_on
 from ..core.constants import (C2_CM_K, C_LIGHT_CGS, C_MASS_MOL,
                               K_BOLTZMANN_CGS, P_REF, SQRT_2LN2, T_REF)
 from ..lines.store import IsoTables, LineStore
@@ -62,6 +63,10 @@ def compute_line_params(lines: LineStore, iso: IsoTables, T, p_atm,
     abundance, ``misc/hapi.py:11136-11137``)."""
     T = torch.as_tensor(T, dtype=lines.sw.dtype, device=lines.sw.device)
     p = torch.as_tensor(p_atm, dtype=T.dtype, device=T.device)
+    # NumPy factors join the store's device in its dtype (tensors and
+    # scalars as given)
+    vmr_self, strength_scale = arrays_on(vmr_self, strength_scale,
+                                         device=T.device, dtype=T.dtype)
 
     # Q(T) once per isotopologue (a ~143-row table), gathered per line
     all_rows = torch.arange(iso.q.shape[0], device=iso.q.device)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import as_numpy, as_tensor_on
+from .. import arrays_on, as_numpy, as_tensor_on
 from ..core.constants import C_LIGHT_CGS, H_PLANCK_CGS, K_BOLTZMANN_CGS
 from ..core.grid import arange_drift_free
 
@@ -84,21 +84,26 @@ HAPI_SLITS = {
 }
 
 
-def transmittance_spectrum(omegas, abscoef, path_cm: float = 100.0):
-    """exp(-k l); the default 100 cm environment length of the reference."""
-    return torch.exp(-as_tensor_on(abscoef) * path_cm)
+def transmittance_spectrum(omegas, abscoef, path_cm: float = 100.0,
+                           device=None):
+    """exp(-k l); the default 100 cm environment length of the reference.
+    A NumPy ``abscoef`` goes to ``device`` (None: the card)."""
+    abscoef, = arrays_on(abscoef, device=device, lead=True)
+    return torch.exp(-abscoef * path_cm)
 
 
-def absorption_spectrum(omegas, abscoef, path_cm: float = 100.0):
+def absorption_spectrum(omegas, abscoef, path_cm: float = 100.0,
+                        device=None):
     """1 - exp(-k l)."""
-    return 1.0 - torch.exp(-as_tensor_on(abscoef) * path_cm)
+    abscoef, = arrays_on(abscoef, device=device, lead=True)
+    return 1.0 - torch.exp(-abscoef * path_cm)
 
 
 def radiance_spectrum(omegas, abscoef, path_cm: float = 100.0,
-                      T: float = 296.0):
+                      T: float = 296.0, device=None):
     """Single-temperature emission spectrum [W/sr/cm^2/cm^-1]
     (``misc/hapi.py:11644-11680``), on the coefficient's device."""
-    k = as_tensor_on(abscoef)
+    k, omegas = arrays_on(abscoef, omegas, device=device, lead=True)
     omegas = as_tensor_on(omegas, k.device)
     LBBTw = (
         2.0 * H_PLANCK_CGS * C_LIGHT_CGS**2 * omegas**3
@@ -129,7 +134,8 @@ def convolve_1d(y: torch.Tensor, w: np.ndarray,
 
 
 def convolve_spectrum(omega, cross_section, resolution: float = 0.1,
-                      af_wing: float = 10.0, slit="rectangular"):
+                      af_wing: float = 10.0, slit="rectangular",
+                      device=None):
     """Low-resolution convolution with a slit function.
 
     Exact ``convolveSpectrum`` semantics (``misc/hapi.py:11826-11866``):
@@ -138,10 +144,11 @@ def convolve_spectrum(omega, cross_section, resolution: float = 0.1,
     trimmed by the slit half-length. ``slit`` is a name from
     :data:`HAPI_SLITS` or a callable (x, g) -> weights. Returns
     (omega_trim NumPy, y_trim tensor on the spectrum's device, i1, i2,
-    slit_vals NumPy).
+    slit_vals NumPy); a NumPy spectrum goes to ``device`` (None: the
+    card).
     """
     omega = as_numpy(omega).astype(np.float64)
-    y = as_tensor_on(cross_section)
+    y, = arrays_on(cross_section, device=device, lead=True)
     step = float(omega[1] - omega[0])
     if step >= resolution:
         raise ValueError("step must be less than resolution")

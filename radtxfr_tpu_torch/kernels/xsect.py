@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import arrays_on
 from .htp import profile_sdvoigt
 from .lineparams import LineParams
 from .profiles import doppler, lorentz, voigt
@@ -60,7 +61,9 @@ def xsect_from_params(grid: torch.Tensor, params: LineParams,
     'voigt' (``n_weideman`` Weideman terms), 'lorentz', 'doppler' or
     'sdvoigt' (pcqsdhc with the speed dependence ``gamma_2``, whose
     parameters :func:`~.lineparams.compute_line_params` gives with
-    ``profile='sdvoigt'``)."""
+    ``profile='sdvoigt'``). A NumPy ``grid`` joins ``params``' device in
+    its own dtype."""
+    grid, = arrays_on(grid, device=params.nu0.device)
     if profile not in ("voigt", "lorentz", "doppler", "sdvoigt"):
         raise ValueError(profile)
     acc = torch.zeros_like(grid)

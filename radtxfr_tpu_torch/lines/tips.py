@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from .. import DATA_DIR
+from .. import DATA_DIR, arrays_on
 
 T_NODE0 = 60.0
 T_NODE_STEP = 25.0
@@ -41,12 +41,15 @@ def iso_row_index() -> dict[tuple[int, int], int]:
 
 
 def partition_sum(q_table: torch.Tensor, iso_row: torch.Tensor,
-                  T: torch.Tensor) -> torch.Tensor:
+                  T: torch.Tensor, device=None) -> torch.Tensor:
     """Q(T) via the reference's 3/4-point Lagrange rule, vectorized.
 
     ``iso_row`` and ``T`` broadcast together; T <= 85 K uses the bottom
     3-point stencil, T at the top node the top one (``misc/hapi.py:5311``).
+    NumPy arguments join ``q_table``'s device (``T`` in its dtype), or a
+    tensor argument's, else ``device`` (None: the card).
     """
+    q_table, iso_row, T = arrays_on(q_table, iso_row, T, device=device)
     T = torch.as_tensor(T, dtype=q_table.dtype, device=q_table.device)
     i = torch.ceil((T - T_NODE0) / T_NODE_STEP).to(torch.int64)
     i = torch.clamp(i, 1, N_NODES - 1)
@@ -81,8 +84,9 @@ def partition_sum(q_table: torch.Tensor, iso_row: torch.Tensor,
 
 
 def partition_sum_ratio(q_table: torch.Tensor, iso_row, T,
-                        t_ref: float = 296.0) -> torch.Tensor:
+                        t_ref: float = 296.0, device=None) -> torch.Tensor:
     """Q(T_ref)/Q(T): the factor entering HITRAN intensity scaling."""
+    q_table, iso_row, T = arrays_on(q_table, iso_row, T, device=device)
     T = torch.as_tensor(T, dtype=q_table.dtype, device=q_table.device)
     q_t = partition_sum(q_table, iso_row, T)
     q_ref = partition_sum(q_table, iso_row,

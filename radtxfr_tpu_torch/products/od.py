@@ -66,7 +66,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import as_numpy
+from .. import arrays_on, as_numpy
 from ..core.constants import (BARYE_PER_ATM, CM_PER_KM, C_LIGHT_CGS,
                               C_MASS_MOL, K_BOLTZMANN_CGS, P_REF, PA_PER_ATM,
                               T_REF)
@@ -97,8 +97,11 @@ __all__ = ["species_column", "compute_od_layer", "compute_od_layers",
            "ht_wing_bounds", "make_ht_fn", "make_od_ht_fn",
            "HTCrossSectionFn", "HTOpticalDepthFn"]
 
-def species_column(p_pa, T, pl_km, vmr):
-    """Species column density [molec/cm^2] for a homogeneous layer."""
+def species_column(p_pa, T, pl_km, vmr, device=None):
+    """Species column density [molec/cm^2] for a homogeneous layer; NumPy
+    arguments join a tensor argument's device, else ``device`` (None: the
+    card)."""
+    p_pa, T, pl_km, vmr = arrays_on(p_pa, T, pl_km, vmr, device=device)
     p_barye = (p_pa / PA_PER_ATM) * BARYE_PER_ATM
     n_total = p_barye / (K_BOLTZMANN_CGS * T)  # [molec/cm^3]
     return vmr * n_total * pl_km * CM_PER_KM
@@ -729,6 +732,11 @@ class OpticalDepthFn(_Passes):
         return prm, Y
 
     def __call__(self, T, p_pa, pl, vmr):
+        # NumPy columns join the store in its dtype, as the line parameters
+        # cast the tensor route's
+        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                     device=self.lines.sw.device,
+                                     dtype=self.lines.sw.dtype)
         prm, Y = self.line_params(T, p_pa, pl, vmr)
         out = self.line_sum(prm, Y)
         if Y is not None:
@@ -1064,6 +1072,9 @@ class ShardOD:
 
     def __call__(self, T, p_pa, pl, vmr):
         fn = self.fn
+        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                     device=fn.lines.sw.device,
+                                     dtype=fn.lines.sw.dtype)
         prm, Y = fn.line_params(T, p_pa, pl, vmr)
         out = torch.zeros((T.shape[0], fn.n_local), dtype=prm.strength.dtype,
                           device=prm.strength.device)
@@ -1446,6 +1457,9 @@ class HTOpticalDepthFn(_Passes):
                                strength_scale=u[:, self.cols])
 
     def __call__(self, T, p_pa, pl, vmr):
+        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                     device=self.lines.sw.device,
+                                     dtype=self.lines.sw.dtype)
         out = self.line_sum(self.line_params(T, p_pa, pl, vmr))
         if self.cont is not None:
             out = out + self.cont(T, p_pa, pl, vmr)
@@ -1600,7 +1614,11 @@ def compute_od_layer(lines, iso, grid, T, p_pa, pl_km, vmr_row, species_cols,
     (:func:`~..kernels.xsect.xsect_from_params`) on the ``grid`` tensor:
     ``T``, ``p_pa`` and ``pl_km`` scalars, ``vmr_row`` (nM,), and
     ``species_cols`` (L,) each line's vmr column. ``profile`` reaches both
-    the parameter rules and the line shape."""
+    the parameter rules and the line shape. NumPy values join the
+    store's device in its dtype."""
+    T, p_pa, pl_km, vmr_row = arrays_on(T, p_pa, pl_km, vmr_row,
+                                        device=lines.sw.device,
+                                        dtype=lines.sw.dtype)
     cols = torch.as_tensor(as_numpy(species_cols), dtype=torch.long,
                            device=vmr_row.device)
     u = species_column(p_pa, T, pl_km, vmr_row)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import arrays_on
 from ..kernels.fused_xsect import (DevicePlan, UniformGrid, plan_buckets,
                                    xsect_fused)
 from ..lines.store import LineStore
@@ -166,6 +167,9 @@ def make_od_sharded_lines_fn(lines, iso, grid, atmos_class, n_shards: int,
     }
 
     def local_fn(T, p_pa, pl, vmr, local, k_offset):
+        # NumPy state columns join the shard's data in the store's dtype
+        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr, dtype=dt,
+                                     device=local["lines"]["nu0"].device)
         dv = T.device
         lc = {k: v.reshape(-1) for k, v in local["lines"].items()}
         store = LineStore(**{k: lc[k] for k in f_cols},

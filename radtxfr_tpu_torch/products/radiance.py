@@ -10,9 +10,10 @@ deltas]), as the reference's ``compute_LWIR_apparent_radiance``
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import as_tensor_on, resolve_device
 from ..core.planck import planckian
 
 __all__ = ["apparent_radiance"]
@@ -26,15 +27,22 @@ def apparent_radiance(X, emis, Ts, tau, Lu, Ld, dT=None,
     ``Ts`` (nA,) surface temperatures [K]; ``tau``, ``Lu``, ``Ld`` (nX, nA)
     transmittance, upwelling and downwelling radiance per atmosphere;
     ``dT`` optional (nT,) surface-temperature deltas [K]. Arrays or
-    tensors; they are computed on ``device`` in ``dtype`` (None: ``tau``'s
-    device and dtype where it is a tensor, else the card and float64).
+    tensors; they are computed on ``device`` in ``dtype`` (None: the
+    device of the first tensor among ``tau``, ``X``, ``emis``, ``Ts``,
+    ``Lu``, ``Ld``, else the card; ``tau``'s dtype where it is a tensor or
+    a NumPy float array, else float64).
 
     Returns L (nX, nE, nA) or (nX, nE, nA, nT) [µW/(cm^2 sr cm^-1)]
     (with ``return_Ls``, also the surface-leaving radiance).
     """
+    if device is None:
+        device = next((a.device for a in (tau, X, emis, Ts, Lu, Ld)
+                       if isinstance(a, torch.Tensor)), None)
     if isinstance(tau, torch.Tensor):
-        device = tau.device if device is None else device
         dtype = tau.dtype if dtype is None else dtype
+    elif isinstance(tau, np.ndarray) and tau.dtype.kind == "f" \
+            and dtype is None:
+        dtype = as_tensor_on(tau.ravel()[:0], "cpu").dtype
     device = resolve_device(device)
     dtype = torch.float64 if dtype is None else dtype
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import as_numpy, resolve_device
+from .. import arrays_on, as_numpy, resolve_device
 from ..kernels.fused_tud import tud_compose
 
 __all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_angles",
@@ -82,13 +82,18 @@ def _layers_below(z0, altitudes) -> np.ndarray:
 
 
 def tud_from_od(grid, od, B, z0, altitudes, mu=1.0, n_angles: int = 30,
-                return_od: bool = False, quadrature: str = "uniform") -> TUD:
+                return_od: bool = False, quadrature: str = "uniform",
+                device=None) -> TUD:
     """Compose TUD products from a layer OD tensor (plain PyTorch).
 
     ``od``/``B`` (nL, nX) optical depth and Planck radiance per layer
     (ground first); ``z0`` (nL,) layer bottoms [km]; ``altitudes`` (nZs,)
-    sensor altitudes [km]; ``mu`` scalar or (nMu,) slant secants.
+    sensor altitudes [km]; ``mu`` scalar or (nMu,) slant secants. NumPy
+    arrays join the tensors' device, or ``device`` (None: the card) when
+    there is no tensor; the products are in ``od``'s dtype.
     """
+    od, grid, B, z0, altitudes, mu = arrays_on(od, grid, B, z0, altitudes,
+                                               mu, device=device, lead=True)
     dt, dev = od.dtype, od.device
     n_layers = od.shape[0]
     z0 = torch.as_tensor(z0, device=dev)

@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import as_numpy, as_tensor_on
+from .. import arrays_on, as_numpy, as_tensor_on
 from ..utils.precision import f32_matmuls as _f32_matmuls
 from .generative import PCAModel, pca_fit
 
@@ -43,24 +43,27 @@ __all__ = [
 ]
 
 
-def od_transform(emis, tol: float = 1e-4):
+def od_transform(emis, tol: float = 1e-4, device=None):
     """Emissivity -> optical depth ``-log(1 - eps)`` with the reference's
     TOL clamp (``Generate_Emissivity_DB.py:105-107,111``)."""
-    eps = torch.clamp(as_tensor_on(emis), tol, 1.0 - tol)
+    emis, = arrays_on(emis, device=device, lead=True)
+    eps = torch.clamp(emis, tol, 1.0 - tol)
     return -torch.log1p(-eps)
 
 
-def od_inverse(od):
+def od_inverse(od, device=None):
     """Optical depth -> emissivity ``1 - exp(-OD)`` (``:116,122``)."""
-    return -torch.expm1(-as_tensor_on(od))
+    od, = arrays_on(od, device=device, lead=True)
+    return -torch.expm1(-od)
 
 
 @_f32_matmuls
-def pca_compress(emis, n_components: int = 48, tol: float = 1e-4):
+def pca_compress(emis, n_components: int = 48, tol: float = 1e-4,
+                 device=None):
     """Whitened PCA of the OD-transformed emissivity matrix: returns
     ``(model, features, emis_recon)``, the features the whitened scores,
     the reconstruction through :func:`od_inverse`."""
-    od = od_transform(emis, tol)
+    od = od_transform(emis, tol, device)
     model: PCAModel = pca_fit(od, n_components)
     feats = model.transform(od)
     return model, feats, od_inverse(model.inverse_transform(feats))
@@ -123,13 +126,13 @@ def _fast_ica(X, W0, n_iter: int = 200) -> ICAModel:
 
 @_f32_matmuls
 def fast_ica(X, n_components: int, generator: torch.Generator | None = None,
-             n_iter: int = 200) -> ICAModel:
+             n_iter: int = 200, device=None) -> ICAModel:
     """Parallel (symmetric) FastICA with the logcosh contrast (sklearn
     ``FastICA`` as ``Generate_Emissivity_DB.py:114`` uses it): PCA-whiten
     to ``n_components``, then ``n_iter`` fixed-point iterations
     ``W <- E[g(WX) X^T] - E[g'(WX)] W`` with symmetric decorrelation, from a
     standard-normal ``W0`` drawn from ``generator`` (seed 0 when None)."""
-    X = as_tensor_on(X)
+    X, = arrays_on(X, device=device, lead=True)
     if generator is None:
         generator = torch.Generator(device=X.device).manual_seed(0)
     W0 = torch.randn((n_components, n_components), generator=generator,
@@ -165,13 +168,13 @@ def _nmf(X, W0, H0, n_iter: int = 400, eps: float = 1e-9) -> NMFModel:
 
 @_f32_matmuls
 def nmf(X, n_components: int, generator: torch.Generator | None = None,
-        n_iter: int = 400, eps: float = 1e-9) -> NMFModel:
+        n_iter: int = 400, eps: float = 1e-9, device=None) -> NMFModel:
     """Non-negative matrix factorization ``X ~= W H`` (Frobenius loss;
     sklearn ``NMF`` as ``Generate_Emissivity_DB.py:120`` uses it) by
     multiplicative updates from |standard normal| factors, scaled by
     sqrt(mean(X) / k), drawn from ``generator`` (seed 0 when None). ``X``
     must be non-negative (OD space)."""
-    X = as_tensor_on(X)
+    X, = arrays_on(X, device=device, lead=True)
     n, d = X.shape
     k = n_components
     if generator is None:
@@ -235,12 +238,13 @@ class BSplineFit:
 
 @_f32_matmuls
 def bspline_fit_emissivity(X, emis, n_knots: int = 48, degree: int = 3,
-                           tol: float = 1e-4) -> BSplineFit:
+                           tol: float = 1e-4, device=None) -> BSplineFit:
     """Fit ``-log(eps)`` of every material with one minimum-norm
     least-squares solve (the reference's per-material ``splrep`` loop,
     ``Generate_Emissivity_DB.py:130-134``). ``emis`` is (nX, n_mat) on
     axis ``X``, spectral axis first."""
-    emis = torch.clamp(as_tensor_on(emis), tol, 1.0 - tol)
+    emis, = arrays_on(emis, device=device, lead=True)
+    emis = torch.clamp(emis, tol, 1.0 - tol)
     y = -torch.log(emis)                              # (nX, n_mat)
     B = as_tensor_on(bspline_design(X, n_knots, degree), y.device, y.dtype)
     coefs = torch.linalg.pinv(B) @ y                  # (n_coef, n_mat)

@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from .. import as_numpy, as_tensor_on
+from .. import arrays_on, as_numpy, as_tensor_on
 from ..utils.precision import f32_matmuls as _f32_matmuls
 
 __all__ = [
@@ -86,11 +86,11 @@ class PCAModel:
 
 
 @_f32_matmuls
-def pca_fit(X, n_components: int) -> PCAModel:
+def pca_fit(X, n_components: int, device=None) -> PCAModel:
     """Whitened PCA by SVD (sklearn ``PCA(whiten=True)`` semantics). The
     components' signs are the SVD's, so compare reconstructions, not
     components, across implementations."""
-    X = as_tensor_on(X)
+    X, = arrays_on(X, device=device, lead=True)
     mean = X.mean(dim=0)
     _, s, Vt = torch.linalg.svd(X - mean, full_matrices=False)
     var = s**2 / (X.shape[0] - 1)
@@ -160,11 +160,11 @@ def _gmm_fit(X, k0, n_iter: int = 200, reg: float = 1e-6) -> GMMModel:
 
 @_f32_matmuls
 def gmm_fit(generator: torch.Generator, X, n_components: int,
-            n_iter: int = 200, reg: float = 1e-6) -> GMMModel:
+            n_iter: int = 200, reg: float = 1e-6, device=None) -> GMMModel:
     """EM fit of a full-covariance GMM (plain maximum likelihood), seeded
     at ``n_components`` rows of ``X`` drawn from ``generator`` (with
     replacement when ``X`` has fewer rows)."""
-    X = as_tensor_on(X)
+    X, = arrays_on(X, device=device, lead=True)
     k0 = _init_indices(generator, X.shape[0], n_components, X.device)
     return _gmm_fit(X, k0, n_iter=n_iter, reg=reg)
 
@@ -246,7 +246,8 @@ def _bgmm_fit(X, k0, n_iter: int = 500, reg: float = 1e-6,
 @_f32_matmuls
 def bgmm_fit(generator: torch.Generator, X, n_components: int,
              n_iter: int = 500, reg: float = 1e-6,
-             weight_concentration_prior: float | None = None) -> GMMModel:
+             weight_concentration_prior: float | None = None,
+             device=None) -> GMMModel:
     """Variational GMM with Dirichlet-process weights and Normal-Wishart
     component posteriors — the behaviour of sklearn's
     ``BayesianGaussianMixture`` the reference relies on
@@ -261,7 +262,7 @@ def bgmm_fit(generator: torch.Generator, X, n_components: int,
     expected weights (near zero for pruned components; :func:`gmm_prune`
     drops them) and the posterior-expected covariances W^-1/(nu - d - 1).
     """
-    X = as_tensor_on(X)
+    X, = arrays_on(X, device=device, lead=True)
     k0 = _init_indices(generator, X.shape[0], n_components, X.device)
     return _bgmm_fit(X, k0, n_iter=n_iter, reg=reg,
                      weight_concentration_prior=weight_concentration_prior)
@@ -321,16 +322,17 @@ def _like(a, ref):
     return as_tensor_on(a, ref.device, ref.dtype)
 
 
-def mf2mol_cum(x, P, T):
+def mf2mol_cum(x, P, T, device=None):
     """Cumulative column moles (reference ``mf2mol_cum``, ``:61-66``)."""
-    x = as_tensor_on(x)
+    x, P, T = arrays_on(x, P, T, device=device, lead=True)
     rho = (_like(P, x)[None, :] / _like(T, x)) / _R_GAS
     return torch.cumsum(rho * x, dim=1)
 
 
-def mol_cum2mf(c, P, T):
+def mol_cum2mf(c, P, T, device=None):
     """Inverse of :func:`mf2mol_cum` with negativity clamps (``:68-77``)."""
-    c = torch.clamp(as_tensor_on(c), min=0.0)
+    c, P, T = arrays_on(c, P, T, device=device, lead=True)
+    c = torch.clamp(c, min=0.0)
     c_diff = torch.clamp(torch.diff(c, dim=1), min=0.0)
     x = torch.cat([c[:, :1], c_diff], dim=1)
     rho = (_like(P, c)[None, :] / _like(T, c)) / _R_GAS
@@ -344,9 +346,10 @@ def _saturation_vapor_pressure(T):
     return 611.2 * torch.exp(17.67 * Tc / (Tc + 243.5))
 
 
-def mf2rh(P, T, mf):
+def mf2rh(P, T, mf, device=None):
     """Relative humidity [%] from H2O volume mixing fraction (``:52-59``)."""
-    W = torch.clamp(as_tensor_on(mf), min=0.0)
+    mf, P, T = arrays_on(mf, P, T, device=device, lead=True)
+    W = torch.clamp(mf, min=0.0)
     P = _like(P, W)
     # zero above the reference's pressure cutoff (101325 e^-3 Pa)
     W = torch.where(P[None, :] < 101325.0 * np.exp(-3.0),
@@ -357,9 +360,9 @@ def mf2rh(P, T, mf):
     return torch.where((rh < 0) | (W == 0), torch.zeros_like(rh), rh)
 
 
-def rh_filter(P, T, H2O, rh_max: float = 96.0):
+def rh_filter(P, T, H2O, rh_max: float = 96.0, device=None):
     """Boolean mask of profiles with no supersaturated layer (``:79-84``)."""
-    return ~torch.any(mf2rh(P, T, H2O) > rh_max, dim=1)
+    return ~torch.any(mf2rh(P, T, H2O, device) > rh_max, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +373,8 @@ def _append_max3(w):
     return torch.cat([w, 3.0 * w.max()[None]])
 
 
-def trans_T(T, P, Tm=None):
-    T_ = as_tensor_on(T)
+def trans_T(T, P, Tm=None, device=None):
+    T_, P, Tm = arrays_on(T, P, Tm, device=device, lead=True)
     if Tm is not None:
         T_ = T_ - _like(Tm, T_)[None, :]
     Tg = T_[:, 0]
@@ -387,7 +390,10 @@ def trans_T(T, P, Tm=None):
     return feats, (Tgm, Tgs, Trm, Trs), w
 
 
-def itrans_T(feats, trans_vars, T=None, q: float = 0.1, Tm=None):
+def itrans_T(feats, trans_vars, T=None, q: float = 0.1, Tm=None,
+             device=None):
+    feats, T, Tm, *trans_vars = arrays_on(feats, T, Tm, *trans_vars,
+                                          device=device, lead=True)
     Tgm, Tgs, Trm, Trs = trans_vars
     Tg = feats[:, -1] * Tgs + Tgm
     Tr = feats[:, :-1] * Trs + Trm + Tg[:, None]
@@ -410,8 +416,8 @@ def itrans_T(feats, trans_vars, T=None, q: float = 0.1, Tm=None):
     return T_, ok
 
 
-def trans_C(x, P, T):
-    c = mf2mol_cum(x, P, T)
+def trans_C(x, P, T, device=None):
+    c = mf2mol_cum(x, P, T, device)
     cp = c[:, -1]
     pos_min = torch.min(torch.where(cp > 0, cp, torch.full_like(cp, math.inf)))
     cp = torch.where(cp == 0, pos_min, cp)
@@ -426,7 +432,10 @@ def trans_C(x, P, T):
     return feats, (crm, crs, cpm, cps), w
 
 
-def itrans_C(feats, trans_vars, P, T, c=None, q: float = 0.05):
+def itrans_C(feats, trans_vars, P, T, c=None, q: float = 0.05,
+             device=None):
+    feats, P, T, c, *trans_vars = arrays_on(feats, P, T, c, *trans_vars,
+                                            device=device, lead=True)
     crm, crs, cpm, cps = trans_vars
     cp = feats[:, -1] * cps + cpm
     cr = feats[:, :-1] * crs + crm
@@ -451,8 +460,10 @@ def itrans_C(feats, trans_vars, P, T, c=None, q: float = 0.05):
     return x_, ~bad
 
 
-def atmos_to_features(P, T, H2O, O3, transform: bool = True, Tm=None):
-    T = as_tensor_on(T)
+def atmos_to_features(P, T, H2O, O3, transform: bool = True, Tm=None,
+                      device=None):
+    T, P, H2O, O3, Tm = arrays_on(T, P, H2O, O3, Tm, device=device,
+                                  lead=True)
     H2O, O3 = _like(H2O, T), _like(O3, T)
     ixT = np.arange(T.shape[1])
     ixH2O = 1 + ixT[-1] + np.arange(H2O.shape[1])
@@ -477,7 +488,10 @@ def atmos_to_features(P, T, H2O, O3, transform: bool = True, Tm=None):
     return X, trans_vars, wX / wX.sum()
 
 
-def features_to_atmos(X, trans_vars, P, T=None, cH2O=None, cO3=None):
+def features_to_atmos(X, trans_vars, P, T=None, cH2O=None, cO3=None,
+                      device=None):
+    X, P, T, cH2O, cO3 = arrays_on(X, P, T, cH2O, cO3, device=device,
+                                   lead=True)
     vars_T, ixT, vars_H2O, ixH2O, vars_O3, ixO3, Tm = trans_vars
     col = lambda ix: X[:, torch.as_tensor(ix, device=X.device)]  # noqa: E731
     T_, H2O_, O3_ = col(ixT), col(ixH2O), col(ixO3)
@@ -499,7 +513,8 @@ def features_to_atmos(X, trans_vars, P, T=None, cH2O=None, cO3=None):
 def atmos_generator(generator: torch.Generator, P, T, H2O, O3,
                     n_pca: int = 15, n_gmm: int = 20, transform: bool = True,
                     weight: bool = True, filt: bool = True,
-                    rh_max: float = 96.0, variational: bool = True):
+                    rh_max: float = 96.0, variational: bool = True,
+                    device=None):
     """Fit the PCA+GMM model; return (sample_fn, diagnostics).
 
     ``sample_fn(generator, n)`` draws 5n candidates, applies the
@@ -509,7 +524,7 @@ def atmos_generator(generator: torch.Generator, P, T, H2O, O3,
     :func:`bgmm_fit` (the reference's ``BayesianGaussianMixture``),
     ``False`` plain EM (:func:`gmm_fit`), both seeded from ``generator``.
     """
-    T = as_tensor_on(T)
+    T, P, H2O, O3 = arrays_on(T, P, H2O, O3, device=device, lead=True)
     P, H2O, O3 = (_like(a, T) for a in (P, H2O, O3))
     X, trans_vars, wX = atmos_to_features(P, T, H2O, O3, transform=transform,
                                           Tm=T.mean(dim=0))
@@ -556,10 +571,12 @@ def _airmass_features(z, P, T, H2O, O3):
 
 
 def airmass_labels(generator: torch.Generator, z, P, T, H2O, O3,
-                   n_airmass: int = 5, variational: bool = True):
+                   n_airmass: int = 5, variational: bool = True,
+                   device=None):
     """Cluster profiles into air masses on (T_surf, lapse, total H2O, total
     O3) features (reference ``airmass_labels``, ``:391-419``; a BGM fit,
     ``:401``, so surplus air-mass slots prune themselves); NumPy labels."""
+    T, z, P, H2O, O3 = arrays_on(T, z, P, H2O, O3, device=device)
     feats = _airmass_features(z, P, T, H2O, O3)
     fit = bgmm_fit if variational else gmm_fit
     gmm = fit(generator, feats, n_airmass, n_iter=300)
@@ -568,10 +585,11 @@ def airmass_labels(generator: torch.Generator, z, P, T, H2O, O3,
 
 def gen_samples_per_airmass(generator: torch.Generator, z, P, T, H2O, O3,
                             labels, n_pca: int = 15, n_gmm: int = 10,
-                            n_aug: int = 100):
+                            n_aug: int = 100, device=None):
     """Per-air-mass model fit and n_aug-fold augmentation (``:421-443``):
     NumPy arrays T, H2O, O3 (n_gen, nL), labels and ll (n_gen,)."""
-    T = as_tensor_on(T)
+    T, z, P, H2O, O3 = arrays_on(T, z, P, H2O, O3, device=device,
+                                 lead=True)
     P, H2O, O3 = (_like(a, T) for a in (P, H2O, O3))
     labels = as_numpy(labels)
     outs = {k: [] for k in ("T", "H2O", "O3", "labels", "ll")}

@@ -65,13 +65,17 @@ def hsi_generate(generator: torch.Generator, X, tau, Lu, Ld, Ts, emis,
     (atmosphere-major); ``Ts`` (nA,) surface temperatures; ``emis`` (nE, nX)
     DB on the same axis; ``n_pixels``, ``dT``, ``n_emis``, ``n_mix``,
     ``n_atm`` the reference's N, dT, N_emis, N_mix, N_atm. The inputs are
-    used on ``device`` in ``dtype`` (None: ``tau``'s where it is a tensor,
-    else the card and the input's dtype); the draws come from
-    ``generator`` on its own device.
+    used on ``device`` in ``dtype`` (None: the device of the first tensor
+    among ``tau``, ``X``, ``Lu``, ``Ld``, ``Ts``, ``emis``, else the card;
+    ``tau``'s dtype); the draws come from ``generator`` on its own
+    device.
 
     Returns a dict: L (n_atm, N, nX), atmos_labels (n_atm,), Ts_pix
     (n_atm, N), emis_labels (n_atm, N, n_mix), mix_frac (n_atm, N, n_mix).
     """
+    if device is None and not isinstance(tau, torch.Tensor):
+        device = next((a.device for a in (X, Lu, Ld, Ts, emis)
+                       if isinstance(a, torch.Tensor)), None)
     tau = as_tensor_on(tau, device, dtype)
     dev, dt = tau.device, tau.dtype
     X, Lu, Ld, Ts, emis = (as_tensor_on(a, dev, dt)

@@ -9,19 +9,20 @@ from __future__ import annotations
 
 import torch
 
-from .. import as_tensor_on
+from .. import arrays_on, as_tensor_on
 from ..core.planck import planckian
 
 __all__ = ["fit_planck"]
 
 
 def fit_planck(X, L, t_min: float = 150.0, t_max: float = 400.0,
-               n_coarse: int = 128, n_refine: int = 3):
+               n_coarse: int = 128, n_refine: int = 3, device=None):
     """Fit eps B(nu, T) to a spectrum ``L`` (nX,) on axis ``X``; returns
     (T, eps, residual) as 0-d tensors. A grid search over T with the
     optimal scale per candidate (eps = <L, B>/<B, B>), then ``n_refine``
-    bracket refinements of 32 points."""
-    L = as_tensor_on(L)
+    bracket refinements of 32 points. NumPy arguments join a tensor
+    argument's device, else ``device`` (None: the card)."""
+    L, X = arrays_on(L, X, device=device, lead=True)
     X = as_tensor_on(X, L.device, L.dtype)
 
     def scan_range(lo, hi, n):

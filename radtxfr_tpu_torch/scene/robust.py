@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import as_tensor_on
+from .. import arrays_on
 
 __all__ = ["mad", "robust_z", "qn_scale", "estimate_tau"]
 
@@ -28,16 +28,16 @@ def _median(x, dim=None, keepdim=False):
     return torch.quantile(x, 0.5, dim=dim, keepdim=keepdim)
 
 
-def mad(x, axis=None, scale: float = 1.4826):
+def mad(x, axis=None, scale: float = 1.4826, device=None):
     """Median absolute deviation (scaled to sigma for normal data)."""
-    x = as_tensor_on(x)
+    x, = arrays_on(x, device=device, lead=True)
     med = _median(x, axis, keepdim=True)
     return scale * _median(torch.abs(x - med), axis)
 
 
-def robust_z(x, axis=None):
+def robust_z(x, axis=None, device=None):
     """(x - median) / MAD robust z-scores."""
-    x = as_tensor_on(x)
+    x, = arrays_on(x, device=device, lead=True)
     med = _median(x, axis, keepdim=True)
     s = mad(x, axis=axis)
     if axis is not None:
@@ -45,11 +45,12 @@ def robust_z(x, axis=None):
     return (x - med) / s
 
 
-def qn_scale(x):
+def qn_scale(x, device=None):
     """Rousseeuw-Croux Qn scale estimator (1-D): 2.2219 times the
     C(h, 2)-th smallest pairwise distance, h = floor(n/2) + 1 (the O(n^2)
     pairwise form, for subsampled scene vectors)."""
-    x = as_tensor_on(x).reshape(-1)
+    x, = arrays_on(x, device=device, lead=True)
+    x = x.reshape(-1)
     n = x.shape[0]
     iu = torch.triu_indices(n, n, offset=1, device=x.device)
     pair = torch.abs(x[iu[0]] - x[iu[1]])
@@ -58,12 +59,12 @@ def qn_scale(x):
     return 2.2219 * torch.sort(pair).values[k - 1]
 
 
-def estimate_tau(L, n_iter: int = 5, smooth_window: int = 31):
+def estimate_tau(L, n_iter: int = 5, smooth_window: int = 31, device=None):
     """Relative transmittance shape from the scene statistics of an
     (n_pixels, nX) radiance array: the normalized robust scene std, lightly
     smoothed (``n_iter`` half-steps towards a ``smooth_window`` box mean,
     zero-padded like ``np.convolve(mode='same')``), in [0, 1]."""
-    L = as_tensor_on(L)
+    L, = arrays_on(L, device=device, lead=True)
     sigma = mad(L, axis=0)
     est = sigma / torch.max(sigma)
     w = torch.ones(smooth_window, dtype=est.dtype,

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import as_numpy, resolve_device
+from .. import arrays_on, as_numpy, resolve_device
 
 __all__ = ["smooth", "reduce_resolution", "cubic_resample_weights",
            "apply_resample", "ReduceOperator", "reduce_operator"]
@@ -38,10 +38,12 @@ _WINDOWS = {
 
 
 def smooth(x: torch.Tensor, window_len: int = 11,
-           window: str = "hanning") -> torch.Tensor:
+           window: str = "hanning", device=None) -> torch.Tensor:
     """Reflected-edge window smoothing with the reference's semantics
     (``radiative_transfer.py:1298-1324``): a tensor of ``len(x)``; ``x``
-    itself when ``window_len`` is under 3 or over ``len(x)``."""
+    itself when ``window_len`` is under 3 or over ``len(x)``. A NumPy
+    ``x`` goes to ``device`` (None: the card)."""
+    x, = arrays_on(x, device=device, lead=True)
     n = x.shape[0]
     if window_len < 3 or n < window_len:
         return x
@@ -84,9 +86,11 @@ def cubic_resample_weights(x_in: np.ndarray, x_out: np.ndarray):
     return idx.astype(np.int32), w
 
 
-def apply_resample(idx, w, y: torch.Tensor) -> torch.Tensor:
+def apply_resample(idx, w, y: torch.Tensor, device=None) -> torch.Tensor:
     """Apply a static resample stencil (:func:`cubic_resample_weights`) to
-    ``y`` (nX[, ...]) along axis 0, on ``y``'s device."""
+    ``y`` (nX[, ...]) along axis 0, on ``y``'s device (a NumPy ``y`` on
+    ``device``, None: the card)."""
+    y, = arrays_on(y, device=device, lead=True)
     idx = torch.as_tensor(as_numpy(idx, np.int64), device=y.device)
     w = torch.as_tensor(as_numpy(w), dtype=y.dtype, device=y.device)
     g = y[idx]                                    # (n_out, 4[, ...])
@@ -108,15 +112,17 @@ def _np_sym_smooth(x, sm: int, window: str):
 
 
 def reduce_resolution(X, Y: torch.Tensor, dX, N: int = 4,
-                      window: str = "hanning", X_out=None):
+                      window: str = "hanning", X_out=None, device=None):
     """Smooth and resample ``Y`` (nX[, ...]) onto a coarser axis, the
     reference's ``reduceResolution`` (``radiative_transfer.py:1327-1350``).
 
     ``X`` is the static host axis; the axis is smoothed on the host in
     float64 (smoothing it in float32 can give duplicate nodes that break
-    the stencil), ``Y`` on its device, each trailing column alone. Returns
-    ``(X_out, Y_out)``, or ``Y_out`` when ``X_out`` is given.
+    the stencil), ``Y`` on its device (a NumPy ``Y`` on ``device``, None:
+    the card), each trailing column alone. Returns ``(X_out, Y_out)``, or
+    ``Y_out`` when ``X_out`` is given.
     """
+    Y, = arrays_on(Y, device=device, lead=True)
     X = as_numpy(X, np.float64)
     dX = float(dX)
     dx_in = float(np.mean(np.diff(X)))
@@ -202,6 +208,9 @@ class ReduceOperator:
         return torch.sum(f * w, dim=1)
 
     def __call__(self, Y: torch.Tensor) -> torch.Tensor:
+        """``Y`` (nX[, ...]) reduced along axis 0; a NumPy ``Y`` goes to
+        the operator's device in its own dtype."""
+        Y, = arrays_on(Y, device=self.device, lead=True)
         if self._affine is not None:
             return self._apply_affine(Y)
         g = Y[self.starts[:, None] + self._offsets[None, :]]

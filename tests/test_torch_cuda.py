@@ -1141,3 +1141,55 @@ def test_products_chain_on_card_tensors(dev, tmp_path):
     for k in arrays:
         assert got[k].dtype == want[k].dtype
         assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def test_production_member_from_numpy_inputs(dev):
+    """``chip_smoke.py``'s NumPy-input member (phase 5e) on a 20 cm^-1
+    band: the state's columns as host NumPy into the OD function, the host
+    axis into ``make_tud_fn``'s function and ``tud_from_od``, host
+    tau/Lu/Ld into the reduction operator and ``reduce_resolution``; each
+    result on the card and bit-identical to the same call on the card
+    tensors."""
+    f32 = torch.float32
+    store = derived_lwir_linelist(755.0, 825.0, device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    X = arange_drift_free(780.0, 800.0, 0.0005)
+    od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32), X, base,
+                       continuum="mt_ckd")
+    od = od_fn(base.T, base.p, base.pl, base.vmr)
+    x = torch.as_tensor(X, dtype=f32, device=dev)
+    smoke = _chip_smoke()
+    t = make_tud_fn(base.z0, torch.as_tensor(smoke.ALTITUDES, device=dev),
+                    device=dev)(x, od, base.T)
+    op = reduce_operator(t.X, 0.25, device=dev)
+    smoke.numpy_member(str(dev), base, od_fn, od, x, t, op)
+
+
+def test_scalar_and_list_arguments_follow_the_call(dev):
+    """A Python scalar or list where an array may stand goes where a NumPy
+    array would: onto the card by default, or onto a tensor argument's
+    device; ``device="cpu"`` keeps the call on the CPU."""
+    import numpy as np
+
+    from radtxfr_tpu_torch.kernels import faddeeva, htp
+    from radtxfr_tpu_torch.scene import robust
+
+    y = np.linspace(0.01, 3.0, 64)
+    for name in ("cpf3", "cpf_humlicek", "cef", "wofz_real_series_only"):
+        fn = getattr(faddeeva, name)
+        for args in ((1.5, y), (1.5, 0.25), (1.5, torch.as_tensor(y,
+                                                                device=dev))):
+            out = fn(*args)
+            for leaf in out if isinstance(out, tuple) else (out,):
+                assert leaf.device.type == "cuda", (name, leaf.device)
+        out = fn(1.5, y, device="cpu")
+        assert (out[0] if isinstance(out, tuple) else out).device.type == \
+            "cpu"
+    params = [1000.0, 0.0012, 0.07, 0.007, -0.002, 1e-4, 0.02, 0.15]
+    for p in (params, [np.array(v) for v in params]):
+        re, im = htp.pcqsdhc(*p, 1000.01)
+        assert re.device.type == im.device.type == "cuda"
+    re, _ = htp.pcqsdhc(*params, 1000.01, device="cpu")
+    assert re.device.type == "cpu"
+    assert robust.mad([1.0, 2.0, 5.0]).device.type == "cuda"
+    assert robust.mad([1.0, 2.0, 5.0], device="cpu").device.type == "cpu"
