@@ -24,7 +24,16 @@ Phases, each printing its result on its own line:
    of the peak of the line OD of the pass's layers (the float32 bound of
    the JAX package's Pallas OD, README.md "≤2e-6 of peak"), and within
    ``K1_OWN_BOUND`` of the pass's own output peak, so a pass that writes
-   zeros or a wrong shape fails whatever the other passes add.
+   zeros or a wrong shape fails whatever the other passes add. Phases 3,
+   3b, 3c, 3d and 3e run each pass in both instantiations of its kernel:
+   FAST (``csrc/*_fast.cu``, the fast reciprocal, the builders' default,
+   JAX's ``fast_rcp=True``) and IEEE (``fast_rcp=False``), each against
+   the plain version at the same bound, printing the largest FAST - IEEE
+   difference as a share of the peak. Each also counts the IEEE
+   instantiations' launches on a user's path: the builders called with
+   ``fast_rcp=False`` on the sub-band (the main path, phases 5-16, runs
+   FAST and fails if an IEEE instantiation of a kernel with a FAST one is
+   launched on it).
 3b. K1 ``full`` and K3 (``csrc/fused_xsect_jvp.cu``) against their plain
    versions on every pass of the differentiable builder on the same
    sub-band: the primal within 2e-6 of its own peak; the tangent within
@@ -66,9 +75,9 @@ Phases, each printing its result on its own line:
    the peak (``tests/test_torch_xsect.py``'s SD-Voigt ``MODE_BOUND``; the
    float32 engine keeps line centres in float32, about 4e-4 of the peak
    from the kernel route, as the JAX package's two engines are, which is
-   printed); ``tud --engine jnp`` on phase 5's 718-723 cm^-1 two-member
-   case on the card against the CPU within ``SLICE_BOUND``, its gap to the
-   kernel route printed; the engine's seconds on the card.
+   printed); ``tud --engine jnp`` on two members of phase 5's case cut to
+   718-720 cm^-1 on the card against the CPU within ``SLICE_BOUND``, its
+   gap to the kernel route printed; the engine's seconds on the card.
 5e. The scene path on phase 5's production products (4 members, 11,513
    points reduced to 0.25 cm^-1 resolution on a 0.0625 cm^-1 axis, 9
    altitudes; the K1 and K2 launches of the
@@ -108,8 +117,9 @@ Phases, each printing its result on its own line:
    ``--jacobian`` (d tau/Lu/Ld / d T, H2O, O3: 198 directions) with the
    launch counts reset before and read after (K1 ``full`` and K3 must have
    run); the six Jacobians' shapes, finite values, wall seconds and peak
-   device memory. Then the same on a 5 cm^-1 band (at 5e-3 cm^-1) on the
-   card and on the CPU: each Jacobian within 1e-4 of its own peak.
+   device memory. Then the same on a 2 cm^-1 band (718-720 at 5e-3
+   cm^-1) on the card and on the CPU: each Jacobian within 1e-4 of its
+   own peak.
 6. Where one member's time goes (CUDA events per stage), with each K1
    mode's bound at the production width; beside each pass's in-window
    evaluations (``window_counts``: what the kernels evaluate after
@@ -196,7 +206,9 @@ Phases, each printing its result on its own line:
    and K2 not); finite, >= 0; plan-build seconds and seconds a member;
    against ``make_od_fn(continuum="mt_ckd")`` on the base state within
    5e-6 of peak; where a member's time goes (line parameters, K7 with its
-   bound, the continuum) and K7 against its plain version at full width;
+   bound, the continuum) and K7 (IEEE, the route's default, and FAST)
+   against its plain version at full width; the route with
+   ``pallas_opts={'fast_rcp': True}`` once, its K7 FAST launch counted;
    the route on a 5 cm^-1 band on the card against the CPU's float64 plain
    run, and make_od_fn on the card against the same run, each within 2e-6
    of peak.
@@ -320,15 +332,31 @@ special-function ops or bytes where those take longer;
 ``bound_ms_issue_measured``: the instructions over phase 2b's measured
 FMUL-chain rate).
 
-It ends with one JSON line of kernel results (K1's production modes,
+It ends with one JSON line of kernel results, each kernel with a FAST
+instantiation listed twice: ``<name>_fast`` (``"fast_rcp": true``, its
+launches on the main path) and ``<name>`` (the IEEE one, its launches on
+the ``launch_path`` named: a builder with ``fast_rcp=False`` on phase 3's
+sub-bands, K7's phase 11 route and phase 3e's direct launches) (K1's
+production modes,
 ``full``, K3 and K4 also with ``offset_launches``: their launches with
 tile offsets in phase 12; K1's lattice modes and K2 also with
 ``serving_launches``: their launches on phase 13's path; K1 ``asym`` and
 ``core`` also with ``compat_launches``: their launches in phase 15's
 ``compat.compute_TUD``; K1's production modes, ``full``, K3 and K2 also
 with ``span_launches``: their launches in each of phase 16's two
-processes) and, last, the device line.
-Any failed check raises; the script then exits non-zero without the last
+processes), and, last, the device line.
+Each instantiation is held against the plain version of its own
+arithmetic at the pass's bound: the IEEE one against the plain version
+with IEEE division, the FAST one against the plain version with
+``fast=True``, which on the card takes the FAST instantiation's reciprocal
+at the same sites (``fused_xsect.card_fast_rcp``: the card's
+``rcp.approx.f32`` table and the Newton step, in PyTorch). The SD-Voigt
+passes sdvoigt_asym, sdvoigt_core and corr:64:sdvoigt (3c, 13) and K4 (9d)
+are also held against their plain versions in float64 on the same
+parameters, beside the IEEE instantiation and the float32 plain version
+with IEEE division (the ``[float64]`` lines): FAST no further from the
+float64 result than that float32 plain version is, plus the pass's bound.
+A failed check raises at once: the script exits non-zero without the last
 line. There is no CPU fallback.
 """
 
@@ -435,13 +463,15 @@ CHECKPOINTED = PRODUCTION.replace("--n-atmos 4", "--n-atmos 6")
 CHILD_TIMEOUT = 300
 # phase 5d: the reference engine's lattices (halfwidth wings) and layered
 # HT OD against the kernel route, within tests/test_torch_xsect.py's
-# SD-Voigt MODE_BOUND; its TUD on phase 5's small case, card against CPU
+# SD-Voigt MODE_BOUND; its TUD on phase 5's small case cut to 718-720
+# cm^-1 (the CPU's engine takes about a minute a member at 718-723 on a
+# slow host), card against CPU
 JNP_XS = ("xsect --synthetic 2000 --numin 1000 --numax 1010 --dv 0.0025 "
           "--T 280 --T-max 290 --T-step 5")
 JNP_BOUND = 1e-5
 JNP_HT_LAYERS = [0, 10, 25, 45]
 JNP_TUD = ("tud --derived --line-mixing --continuum mt_ckd --numin 718 "
-           "--numax 723 --dv 0.0005 --n-atmos 2 --batch 2")
+           "--numax 720 --dv 0.0005 --n-atmos 2 --batch 2")
 SUB_BAND = (700.0, 740.0, 0.0005)
 FULL_BAND = (690.0, 1410.0, 0.0005)
 MARGIN = 25.0           # cm^-1 of lines beyond each band edge (the CLI's)
@@ -494,6 +524,9 @@ XS_OWN_BOUND = {"asym": 2e-6, "core": 5e-2, "full": 2e-6, "sdvoigt": 2e-6,
                 "corr:64:sdvoigtfull": 1e-5}
 COARSE_BOUND = {"sdvoigt": 1e-5, "voigt": 1e-6}
 XS_SLICE_BOUND = 1e-5
+# the SD-Voigt passes that also run against a float64 plain version on the
+# same line parameters (check_xs_passes, float64 line)
+F64_MODES = ("sdvoigt_asym", "sdvoigt_core", "corr:64:sdvoigt")
 # SD-Voigt lane-ops per evaluation, from the building blocks in the header
 # of csrc/fused_xsect.cu ("Bound."): the per-evaluation part of each mode,
 # and per CPF point the branch it takes (sdvoigt, sdvoigt_core): Weideman
@@ -603,6 +636,39 @@ KAHAN_ADDS = 3
 def check(ok, msg):
     if not ok:
         raise AssertionError(msg)
+
+
+def fk(key):
+    """The launch key of ``key``'s FAST instantiation (the fast
+    reciprocal): what the builders launch at their default, JAX's
+    ``fast_rcp=True``."""
+    return fused_xsect.launch_key(key, True)
+
+
+def params64(prm):
+    """``prm`` (line parameters) in float64: the same float32 values, for a
+    plain version that rounds nothing of the kernel's arithmetic."""
+    return dataclasses.replace(prm, **{
+        f.name: getattr(prm, f.name).double()
+        for f in dataclasses.fields(prm)})
+
+
+def f64_gaps(outs, ref, peak):
+    """Each of ``outs`` (name -> output) against the float64 ``ref``, as a
+    share of ``peak``: the FAST instantiation's next to the IEEE one's and
+    the float32 plain version's, to tell a kernel at fault from a bound
+    that asks the FAST one to replay the plain version's rounding."""
+    return {k: (v.double() - ref).abs().max().item() / peak
+            for k, v in outs.items()}
+
+
+def fast_gap(label, fast_out, ieee_out, peak, card):
+    """Print the FAST instantiation's largest difference from the IEEE
+    one's on the same inputs, as a share of ``peak``; returns it."""
+    gap = (fast_out - ieee_out).abs().max().item() / peak
+    print(f"[fast_rcp] {label}: max|FAST - IEEE| {gap:.3e} of the peak "
+          f"{peak:.4e} [{card}]", flush=True)
+    return gap
 
 
 def cuda_ms(fn, reps):
@@ -851,23 +917,32 @@ def csrc_text(stem):
         return f.read()
 
 
-def kernel_sass(stem, pattern):
+def kernel_sass(stem, pattern, fast=False):
     """The SASS of the one kernel of ``csrc/<stem>.cu`` whose mangled name
-    matches ``pattern``, without the instructions of included headers (their
-    line numbers are another file's)."""
-    return [i for i in sass.kernel(sass_listing(stem), pattern)
-            if i.file == f"{stem}.cu"]
+    matches ``pattern`` (``fast``: in the library of its FAST build,
+    ``csrc/<stem>_fast.cu``), each instruction at its innermost source line
+    in ``<stem>.cu`` (an included header's own code, such as the reciprocal
+    of k1_skeleton.cuh::rcp, at the line that calls it), the instructions of
+    included headers called from nowhere in it left out."""
+    out = []
+    for i in sass.kernel(sass_listing(f"{stem}_fast" if fast else stem,
+                                      True), pattern):
+        at = next((ln for f, ln in i.chain if f == f"{stem}.cu"), None)
+        if at is not None:
+            out.append(sass.Instr(f"{stem}.cu", at, i.op, i.pred))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def k1_issue(mode):
+def k1_issue(mode, fast=False):
     """SASS lane-instructions one K1 evaluation in ``mode`` (asym, core, mix,
     full, lorentz, doppler; the pass without SPLIT) needs: its line shape's
     arithmetic inside and outside |x| + y < 15
-    (``sass.k1_eval_instructions``, ``sass.ld_eval_instructions``)."""
+    (``sass.k1_eval_instructions``, ``sass.ld_eval_instructions``); ``fast``
+    of the FAST instantiation."""
     code = fused_xsect.MODES.index(mode)
     instrs = kernel_sass("fused_xsect",
-                         rf"fused_xsect_kernelILi{code}ELb0ELb0E")
+                         rf"fused_xsect_kernelILi{code}ELb0ELb0E", fast)
     if mode in SIMPLE_OPS:
         return sass.ld_eval_instructions(instrs, csrc_text("fused_xsect"),
                                          code)
@@ -876,41 +951,45 @@ def k1_issue(mode):
 
 
 @functools.lru_cache(maxsize=None)
-def k3_issue():
+def k3_issue(fast=False):
     """SASS lane-instructions a K3 evaluation needs inside and outside
-    |x| + y < 15, and per live direction (``sass.k3_eval_instructions``)."""
+    |x| + y < 15, and per live direction (``sass.k3_eval_instructions``);
+    ``fast`` of the FAST instantiation."""
     return sass.k3_eval_instructions(
-        kernel_sass("fused_xsect_jvp", r"fused_xsect_jvp_kernel"),
+        kernel_sass("fused_xsect_jvp", r"fused_xsect_jvp_kernel", fast),
         csrc_text("fused_xsect_jvp"), N_WEI)
 
 
 @functools.lru_cache(maxsize=None)
-def ht_issue(tan):
+def ht_issue(tan, fast=False):
     """SASS lane-instructions of each piece of a K5 (``tan`` False) or K6
     evaluation, per kept pair and to accumulate
-    (``sass.ht_eval_instructions``)."""
+    (``sass.ht_eval_instructions``); ``fast`` of K5's FAST
+    instantiation."""
     return sass.ht_eval_instructions(
-        sass.kernel(sass_listing("fused_ht", True),
-                    rf"fused_ht_kernelILb{int(tan)}E"),
+        sass.kernel(sass_listing("fused_ht_fast" if fast else "fused_ht",
+                                 True),
+                    rf"fused_ht_kernelILb{int(tan)}ELb{int(fast)}E"),
         csrc_text("fused_ht"), N_WEI)
 
 
 @functools.lru_cache(maxsize=None)
-def k4_issue():
+def k4_issue(fast=False):
     """SASS lane-instructions of a K4 evaluation's shared work, of a CPF
     point inside and outside |x| + y < 15, and of a live direction's term
-    (``sass.k4_eval_instructions``)."""
+    (``sass.k4_eval_instructions``); ``fast`` of the FAST instantiation."""
     return sass.k4_eval_instructions(
-        sass.kernel(sass_listing("fused_xsect_jvp", True),
+        sass.kernel(sass_listing("fused_xsect_jvp_fast" if fast
+                                 else "fused_xsect_jvp", True),
                     r"fused_sdvoigt_jvp_kernel"),
         csrc_text("fused_xsect_jvp"), N_WEI)
 
 
-def k1_issue_work(mode, lay, dplan, prm, counts=None):
+def k1_issue_work(mode, lay, dplan, prm, counts=None, fast=False):
     """The lane-instructions one K1 pass needs: each in-window evaluation at
-    its region's SASS count."""
+    its region's SASS count (``fast``: the FAST instantiation's)."""
     n_win, (n_core,), _ = counts or window_counts(lay, dplan, prm)
-    c = k1_issue(mode)
+    c = k1_issue(mode, fast)
     return n_core * c["in"] + (n_win - n_core) * c["out"]
 
 
@@ -998,12 +1077,13 @@ def live_pairs(tangents):
     return live_directions(tangents).any(axis=0)
 
 
-def k3_bound_work(lay, dplan, prm, tangents):
+def k3_bound_work(lay, dplan, prm, tangents, fast=False):
     """(lane-ops, bytes, lane-instructions, lane-ops counting every
     direction) of one K3 launch set for the (nd, nLay, L) tangents: each
     live (pair, point) evaluation's (K, Kx, Ky) once, at its region's count,
     and each live direction's term of it (the kernel evaluates only those);
-    the same in the SASS lane-instructions of ``k3_issue``; and the count
+    the same in the SASS lane-instructions of ``k3_issue`` (``fast``: the
+    FAST instantiation's); and the count
     that charges every pair all nd directions' terms, as a dense direction
     axis would."""
     live = live_directions(tangents)
@@ -1015,13 +1095,17 @@ def k3_bound_work(lay, dplan, prm, tangents):
     nbytes = (4 * (5 + 4 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nd * nl * dplan.n_out)
     ops = n_core * ops_in + (n_win - n_core) * ops_out
-    c = k3_issue()
+    c = k3_issue(fast)
     instr = (n_core * c["in"] + (n_win - n_core) * c["out"]
              + n_dir * c["dir"])
     return ops + per_dir * n_dir, nbytes, instr, ops + per_dir * nd * n_win
 
 
 def phase_k1(dev, card):
+    """3: every pass of the production OD builder on the sub-band in both
+    instantiations against its plain version; returns the passes' JSON
+    fields (IEEE under the mode, FAST under ``fk(mode)``) and the IEEE
+    instantiations' launches of make_od_fn(fast_rcp=False) there."""
     f32 = torch.float32
     store = derived_lwir_linelist(SUB_BAND[0] - MARGIN, SUB_BAND[1] + MARGIN,
                                   device=dev, dtype=f32)
@@ -1029,47 +1113,84 @@ def phase_k1(dev, card):
     base = std_atmosphere(device=dev, dtype=f32)
     X = arange_drift_free(*SUB_BAND)
     y = y_air_for_store(store.host_view())
+    # the builder's default, JAX's fast_rcp=True (the FAST instantiation),
+    # and the same plans with fast_rcp=False (the IEEE one)
     od_fn = make_od_fn(store, iso, X, base, continuum="mt_ckd",
                        line_mixing={"y_air": y})
+    od_ieee = make_od_fn(store, iso, X, base, continuum="mt_ckd",
+                         line_mixing={"y_air": y}, fast_rcp=False)
+    check(od_fn.fast_rcp and not od_ieee.fast_rcp
+          and [c[2] for c in od_fn.calls] == [c[2] for c in od_ieee.calls],
+          "3: the two builders must plan the same passes")
     prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)
     line_od = torch.zeros((base.n_layers, X.size), dtype=f32, device=dev)
     runs = []
-    timed = time_kernels(
-        (f"K1 {call[2]}", lambda call=call: od_fn.run_call(call, prm, Y))
-        for call in od_fn.calls)
-    for call, (k_ms, k_out) in zip(od_fn.calls, timed):
+    launches = []
+    for call, call_i in zip(od_fn.calls, od_ieee.calls):
+        launches += [
+            (f"K1 {call[2]} FAST", lambda c=call: od_fn.run_call(c, prm, Y)),
+            (f"K1 {call[2]}", lambda c=call_i: od_ieee.run_call(c, prm, Y))]
+    timed = iter(time_kernels(launches))
+    for call, call_i in zip(od_fn.calls, od_ieee.calls):
+        (f_ms, f_out), (i_ms, i_out) = next(timed), next(timed)
+        # each instantiation against the plain version of its own
+        # arithmetic (fast: the card's fast reciprocal)
         p_ms, p_out = cuda_ms(lambda: od_fn.run_call(
             call, prm, Y, kernel=fused_xsect.xsect_fused_plain), 1)
-        line_od[call[0].long()] += p_out
-        runs.append((call, k_ms, p_ms, (k_out - p_out).abs().max().item(),
-                     p_out.abs().max().item()))
+        pi_ms, pi_out = cuda_ms(lambda: od_ieee.run_call(
+            call_i, prm, Y, kernel=fused_xsect.xsect_fused_plain), 1)
+        line_od[call[0].long()] += pi_out
+        own = pi_out.abs().max().item()
+        runs.append((call, [
+            (True, f_ms, (f_out - p_out).abs().max().item(), p_ms),
+            (False, i_ms, (i_out - pi_out).abs().max().item(), pi_ms)],
+            own, (f_out - i_out).abs().max().item()))
     stats = {}
-    for (lay, dplan, mode), k_ms, p_ms, err, own in runs:
+    for (lay, dplan, mode), variants, own, gap in runs:
         check(own > 0.0, f"K1 {mode}: the plain pass is zero on the band")
         peak = line_od[lay.long()].abs().max().item()
-        rel, rel_own = err / peak, err / own
-        print(f"[3 K1 {mode}] layers {lay.numel()} tile {dplan.tile} block "
-              f"{dplan.block} tiles {dplan.n_tiles}: max|kernel-plain| "
-              f"{err:.3e} = {rel:.3e} of the layers' line-OD peak "
-              f"{peak:.4e} = {rel_own:.3e} of the pass's own peak "
-              f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
-              f"[{card}]", flush=True)
-        check(rel <= K1_BOUND, f"K1 {mode}: {rel:.3e} of the line-OD peak "
-              f"> {K1_BOUND}")
-        check(rel_own <= K1_OWN_BOUND[mode], f"K1 {mode}: {rel_own:.3e} of "
-              f"the pass's own peak > {K1_OWN_BOUND[mode]}")
         counts = window_counts(lay, dplan, prm)
-        add_stats(stats, mode, err, k_ms, p_ms,
-                  *k1_bound_work(mode, lay, dplan, prm, counts),
-                  instr=k1_issue_work(mode, lay, dplan, prm, counts))
+        for fast, k_ms, err, p_ms in variants:
+            name = f"K1 {mode}{' FAST' if fast else ''}"
+            rel, rel_own = err / peak, err / own
+            print(f"[3 {name}] layers {lay.numel()} tile {dplan.tile} block "
+                  f"{dplan.block} tiles {dplan.n_tiles}: max|kernel-plain| "
+                  f"{err:.3e} = {rel:.3e} of the layers' line-OD peak "
+                  f"{peak:.4e} = {rel_own:.3e} of the pass's own peak "
+                  f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+                  f"[{card}]", flush=True)
+            check(rel <= K1_BOUND, f"{name}: {rel:.3e} of the "
+                        f"line-OD peak > {K1_BOUND}")
+            check(rel_own <= K1_OWN_BOUND[mode], f"{name}: "
+                        f"{rel_own:.3e} of the pass's own peak > "
+                        f"{K1_OWN_BOUND[mode]}")
+            add_stats(stats, fk(mode) if fast else mode, err, k_ms, p_ms,
+                      *k1_bound_work(mode, lay, dplan, prm, counts),
+                      instr=k1_issue_work(mode, lay, dplan, prm, counts,
+                                          fast))
+        print(f"[fast_rcp] 3 K1 {mode} layers {lay.numel()}: max|FAST - "
+              f"IEEE| {gap / peak:.3e} of the line-OD peak, "
+              f"{gap / own:.3e} of the pass's own peak [{card}]", flush=True)
     for mode in PRODUCTION_MODES:
-        c = k1_issue(mode)
-        print(f"[3 K1 {mode}] SASS lane-instructions an evaluation needs: "
-              f"{c['in']:.2f} inside |x| + y < 15, {c['out']:.2f} outside; "
-              f"Weideman {c['weideman_term']:.2f} a term", flush=True)
-    check(set(stats) == set(PRODUCTION_MODES),
+        for fast in (False, True):
+            c = k1_issue(mode, fast)
+            print(f"[3 K1 {mode}{' FAST' if fast else ''}] SASS "
+                  f"lane-instructions an evaluation needs: {c['in']:.2f} "
+                  f"inside |x| + y < 15, {c['out']:.2f} outside; Weideman "
+                  f"{c['weideman_term']:.2f} a term", flush=True)
+    check(set(stats) == {*PRODUCTION_MODES, *map(fk, PRODUCTION_MODES)},
           f"K1 sub-band exercised modes {sorted(stats)}")
-    return finish_stats(stats)
+    # the IEEE instantiations' launches on a user's path: the builder with
+    # fast_rcp=False called on the sub-band (the main path runs FAST)
+    reset_launches()
+    od_ieee(base.T, base.p, base.pl, base.vmr)
+    torch.cuda.synchronize()
+    ieee = read_launches()
+    check(all(ieee[m] > 0 and ieee[fk(m)] == 0 for m in PRODUCTION_MODES),
+          f"3: make_od_fn(fast_rcp=False) launched {dict(ieee)}")
+    print(f"[3 K1] make_od_fn(fast_rcp=False) on the sub-band: launches "
+          f"{dict(ieee)}", flush=True)
+    return finish_stats(stats), ieee
 
 
 def add_stats(stats, name, err, k_ms, p_ms, ops, nbytes, sfu=0,
@@ -1134,8 +1255,10 @@ def t_tangents(od_fn, base, V,
 
 
 def phase_k1_diff(dev, card):
-    """K1 'full' and K3 against their plain versions on every pass of the
-    differentiable builder on the sub-band."""
+    """3b: K1 'full' and K3, both instantiations, against their plain
+    versions on every pass of the differentiable builder on the sub-band;
+    returns their JSON fields and the IEEE instantiations' launches of a
+    jvp of the builder with fast_rcp=False."""
     f32 = torch.float32
     store = derived_lwir_linelist(SUB_BAND[0] - MARGIN, SUB_BAND[1] + MARGIN,
                                   device=dev, dtype=f32)
@@ -1167,78 +1290,120 @@ def phase_k1_diff(dev, card):
                                                  one_hot_batch(dev)),
     }
     sets = {k: [t.contiguous() for t in v] for k, v in sets.items()}
+    # each pass in the FAST instantiation (the builder's default) and the
+    # IEEE one (fast_rcp=False)
     launches = []
     for lay, dplan, _ in od_fn.calls:
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                 prm.gamma_0, prm.wing)
-        launches.append(("K1 full", lambda args=args: fused_xsect.xsect_fused(
-            *args, None, "full", N_WEI)))
-        launches += [(f"K3 {name}", lambda args=args, tans=tans:
-                      fused_xsect.xsect_fused_jvp(*args, *tans, N_WEI))
-                     for name, tans in sets.items()]
+        for fast in (True, False):
+            launches.append(("K1 full", lambda args=args, fast=fast:
+                             fused_xsect.xsect_fused(*args, None, "full",
+                                                     N_WEI, fast=fast)))
+            launches += [(f"K3 {name}", lambda args=args, tans=tans,
+                          fast=fast: fused_xsect.xsect_fused_jvp(
+                              *args, *tans, N_WEI, fast))
+                         for name, tans in sets.items()]
     timed = iter(time_kernels(launches))
-    stats, jvp_err, k3_dense = {}, 0.0, 0
+    stats, jvp_err, k3_dense = {}, {}, {}
     for call in od_fn.calls:
         lay, dplan, _ = call
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                 prm.gamma_0, prm.wing)
-        k_ms, k_out = next(timed)
-        p_ms, p_out = cuda_ms(lambda: fused_xsect.xsect_fused_plain(
-            *args, None, "full", N_WEI), 1)
-        err = (k_out - p_out).abs().max().item()
-        own = p_out.abs().max().item()
-        check(own > 0.0, "K1 full: the plain pass is zero on the band")
-        print(f"[3b K1 full] layers {lay.numel()} tile {dplan.tile} block "
-              f"{dplan.block} tiles {dplan.n_tiles}: max|kernel-plain| "
-              f"{err:.3e} = {err / own:.3e} of the pass's peak {own:.4e}; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]",
-              flush=True)
-        check(err / own <= K1_OWN_BOUND["full"],
-              f"K1 full: {err / own:.3e} of peak > {K1_OWN_BOUND['full']}")
+        outs = {}
         counts = window_counts(lay, dplan, prm)
-        add_stats(stats, "full", err, k_ms, p_ms,
-                  *k1_bound_work("full", lay, dplan, prm, counts),
-                  instr=k1_issue_work("full", lay, dplan, prm, counts))
-        for name, tans in sets.items():
-            k_ms, k_t = next(timed)
-            p_ms, p_t = cuda_ms(lambda: fused_xsect.xsect_fused_jvp_plain(
-                *args, *tans, N_WEI), 1)
-            err = (k_t - p_t).abs().max().item()
-            own = p_t.abs().max().item()
-            # a pass none of whose layers the directions touch is zero
-            touched = any(bool((t != 0).any(dim=0).any(dim=1)[lay.long()]
-                               .any()) for t in tans)
-            check((own > 0.0) == touched, f"K3 {name}: the plain tangent "
-                  f"is {'zero' if touched else 'non-zero'}")
-            rel = err / own if touched else err
-            print(f"[3b K3 {name}] layers {lay.numel()}, {k_t.shape[0]} "
-                  f"direction(s): max|kernel-plain| {err:.3e} = "
-                  f"{rel:.3e} of the tangent's peak {own:.4e}; kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]", flush=True)
-            check(rel <= K3_BOUND if touched else err == 0.0,
-                  f"K3 {name}: {rel:.3e} of peak > {K3_BOUND}")
-            jvp_err = max(jvp_err, err)
-            if name.startswith("8"):
-                # the Jacobian's batch shape carries the times and bound
-                ops, nbytes, instr, dense = k3_bound_work(lay, dplan, prm,
-                                                          tans)
-                add_stats(stats, "jvp", err, k_ms, p_ms, ops, nbytes,
-                          instr=instr)
-                k3_dense += dense
-    stats["jvp"]["max_abs_err"] = jvp_err
-    s = stats["jvp"]
-    c = k3_issue()
-    b_live = bound_str(s["ops"], s["bytes"])
-    print(f"[3b K3] 8 one-hot T directions: bound ms {b_live} (live "
-          "(pair, direction) products), "
-          f"{bound(k3_dense, s['bytes'])[0]:.4f} charging each live "
-          f"pair all 8 directions; issue slots "
-          "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
-          "measured FMUL rate)".format(**issue_bounds(s["instr"], s["bytes"]))
-          + f"; SASS lane-instructions an evaluation needs: {c['in']:.2f} "
-          f"inside |x| + y < 15, {c['out']:.2f} outside, {c['dir']:.2f} a "
-          f"live direction [{card}]", flush=True)
-    return finish_stats(stats)
+        for fast in (True, False):
+            # the plain versions of this instantiation's arithmetic
+            p_ms, p_out = cuda_ms(lambda: fused_xsect.xsect_fused_plain(
+                *args, None, "full", N_WEI, fast=fast), 1)
+            own = p_out.abs().max().item()
+            check(own > 0.0, "K1 full: the plain pass is zero on the band")
+            plain_t = {name: cuda_ms(lambda tans=tans:
+                                     fused_xsect.xsect_fused_jvp_plain(
+                                         *args, *tans, N_WEI, fast), 1)
+                       for name, tans in sets.items()}
+            tag = " FAST" if fast else ""
+            k_ms, k_out = next(timed)
+            outs[fast, "full"] = k_out
+            err = (k_out - p_out).abs().max().item()
+            print(f"[3b K1 full{tag}] layers {lay.numel()} tile {dplan.tile} "
+                  f"block {dplan.block} tiles {dplan.n_tiles}: "
+                  f"max|kernel-plain| {err:.3e} = {err / own:.3e} of the "
+                  f"pass's peak {own:.4e}; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.3f} ms [{card}]", flush=True)
+            check(err / own <= K1_OWN_BOUND["full"],
+                        f"3b K1 full{tag}: {err / own:.3e} of peak > "
+                        f"{K1_OWN_BOUND['full']}")
+            key = fk("full") if fast else "full"
+            add_stats(stats, key, err, k_ms, p_ms,
+                      *k1_bound_work("full", lay, dplan, prm, counts),
+                      instr=k1_issue_work("full", lay, dplan, prm, counts,
+                                          fast))
+            for name, tans in sets.items():
+                k_ms, k_t = next(timed)
+                outs[fast, name] = k_t
+                tp_ms, p_t = plain_t[name]
+                err = (k_t - p_t).abs().max().item()
+                t_own = p_t.abs().max().item()
+                # a pass none of whose layers the directions touch is zero
+                touched = any(bool((t != 0).any(dim=0).any(dim=1)[
+                    lay.long()].any()) for t in tans)
+                check((t_own > 0.0) == touched, f"K3 {name}: the plain "
+                      f"tangent is {'zero' if touched else 'non-zero'}")
+                rel = err / t_own if touched else err
+                print(f"[3b K3{tag} {name}] layers {lay.numel()}, "
+                      f"{k_t.shape[0]} direction(s): max|kernel-plain| "
+                      f"{err:.3e} = {rel:.3e} of the tangent's peak "
+                      f"{t_own:.4e}; kernel {k_ms:.4f} ms, plain "
+                      f"{tp_ms:.3f} ms [{card}]", flush=True)
+                check(rel <= K3_BOUND if touched else err == 0.0,
+                            f"3b K3{tag} {name}: {rel:.3e} of peak > "
+                            f"{K3_BOUND}")
+                jkey = fk("jvp") if fast else "jvp"
+                jvp_err[jkey] = max(jvp_err.get(jkey, 0.0), err)
+                if name.startswith("8"):
+                    # the Jacobian's batch shape carries the times and bound
+                    ops, nbytes, instr, dense = k3_bound_work(
+                        lay, dplan, prm, tans, fast)
+                    add_stats(stats, jkey, err, k_ms, tp_ms, ops, nbytes,
+                              instr=instr)
+                    k3_dense[jkey] = k3_dense.get(jkey, 0) + dense
+        for what in ("full", *sets):
+            peak = (own if what == "full"
+                    else max(plain_t[what][1].abs().max().item(), 1e-30))
+            fast_gap(f"3b {'K1' if what == 'full' else 'K3'} {what} layers "
+                     f"{lay.numel()}", outs[True, what], outs[False, what],
+                     peak, card)
+    for jkey in ("jvp", fk("jvp")):
+        stats[jkey]["max_abs_err"] = jvp_err[jkey]
+        s = stats[jkey]
+        c = k3_issue(jkey != "jvp")
+        b_live = bound_str(s["ops"], s["bytes"])
+        print(f"[3b K3 {jkey}] 8 one-hot T directions: bound ms {b_live} "
+              "(live (pair, direction) products), "
+              f"{bound(k3_dense[jkey], s['bytes'])[0]:.4f} charging each "
+              "live pair all 8 directions; issue slots "
+              "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
+              "measured FMUL rate)".format(**issue_bounds(s["instr"],
+                                                           s["bytes"]))
+              + f"; SASS lane-instructions an evaluation needs: "
+              f"{c['in']:.2f} inside |x| + y < 15, {c['out']:.2f} outside, "
+              f"{c['dir']:.2f} a live direction [{card}]", flush=True)
+    # the IEEE instantiations' launches on a user's path: one jvp of the
+    # differentiable builder with fast_rcp=False on the sub-band
+    od_ieee = make_od_fn(store, iso, X, base, continuum="mt_ckd",
+                         differentiable=True, fast_rcp=False)
+    reset_launches()
+    torch.func.jvp(lambda T_: od_ieee(T_, p, pl, vmr), (T,),
+                   (torch.linspace(0.5, 1.5, n_lay, device=dev),))
+    torch.cuda.synchronize()
+    ieee = read_launches()
+    check(ieee["full"] > 0 and ieee["jvp"] > 0 and ieee[fk("full")] == 0
+          and ieee[fk("jvp")] == 0,
+          f"3b: the IEEE differentiable builder launched {dict(ieee)}")
+    print(f"[3b] jvp of make_od_fn(differentiable=True, fast_rcp=False) on "
+          f"the sub-band: launches {dict(ieee)}", flush=True)
+    return finish_stats(stats), ieee
 
 
 def xs_lines(dev):
@@ -1254,44 +1419,112 @@ def xs_states(dev):
     return T, torch.ones_like(T)
 
 
-def check_xs_passes(label, fn, prm, calls, card, stats=None, tag="3c"):
-    """Each of ``calls`` (state indices, plan, mode) through its kernel
-    (all timed first) and its plain version: within XS_BOUND of the
-    lattice's peak and XS_OWN_BOUND of its own; the per-mode errors, times
-    and bound work go into ``stats`` when given; ``tag`` heads the printed
-    lines."""
+@contextlib.contextmanager
+def ieee_passes(fn):
+    """``fn``'s passes in their IEEE instantiations (fast_rcp=False) while
+    open: the plans do not depend on fast_rcp, so this is the builder
+    called with fast_rcp=False."""
+    was, fn.fast_rcp = fn.fast_rcp, False
+    try:
+        yield fn
+    finally:
+        fn.fast_rcp = was
+
+
+def check_xs_passes(label, fn, prm, calls, card, stats=None, tag="3c",
+                    both=False):
+    """Each of ``calls`` (state indices, plan, mode) through its kernel at
+    the builder's fast_rcp (all timed first; ``both``: and in the IEEE
+    instantiation) and its plain version: within XS_BOUND of the lattice's
+    peak and XS_OWN_BOUND of its own; the per-mode errors, times and bound
+    work go into ``stats`` when given (FAST under ``fk(mode)``); ``tag``
+    heads the printed lines."""
     peak = fn.line_sum(prm).abs().max().item()
-    timed = time_kernels((f"K1 {c[2]}", lambda c=c: fn.run_call(c, prm))
-                         for c in calls)
-    for call, (k_ms, k_out) in zip(calls, timed):
+    variants = (fn.fast_rcp, False) if both else (fn.fast_rcp,)
+    launches = []
+    for c in calls:
+        for fast in variants:
+            def run(c=c, fast=fast):
+                if fast:
+                    return fn.run_call(c, prm)
+                with ieee_passes(fn):
+                    return fn.run_call(c, prm)
+            launches.append((f"K1 {c[2]}", run))
+    timed = iter(time_kernels(launches))
+    for call in calls:
         lay, dplan, mode = call
-        p_ms, p_out = cuda_ms(lambda: fn.run_call(
-            call, prm, kernel=fused_xsect.xsect_fused_plain), 1)
-        err = (k_out - p_out).abs().max().item()
-        # a window-edge band may hold no line on the sub-band: then both
-        # are zero
-        own = p_out.abs().max().item() or 1.0
-        check(peak > 0.0 and bool(torch.isfinite(k_out).all()),
-              f"{label} {mode}: zero lattice or non-finite pass")
-        print(f"[{tag} {label}] {mode} tile {dplan.tile} block {dplan.block} "
-              f"tiles {dplan.n_tiles} points {dplan.n_out}: max|kernel-plain|"
-              f" {err:.3e} = {err / peak:.3e} of the lattice's peak "
-              f"{peak:.4e} = {err / own:.3e} of the pass's own peak "
-              f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
-              f"[{card}]", flush=True)
-        check(err <= XS_BOUND * peak, f"{label} {mode}: {err / peak:.3e} of "
-              f"the lattice's peak > {XS_BOUND}")
-        check(err <= XS_OWN_BOUND[mode] * own, f"{label} {mode}: "
-              f"{err / own:.3e} of its own peak > {XS_OWN_BOUND[mode]}")
-        if stats is not None:
-            add_stats(stats, mode, err, k_ms, p_ms,
-                      *xs_bound_work(mode, lay, dplan, prm))
+        outs = {}
+        for fast in variants:
+            # the plain version of this instantiation's arithmetic
+            with contextlib.ExitStack() as ctx:
+                if not fast:
+                    ctx.enter_context(ieee_passes(fn))
+                p_ms, p_out = cuda_ms(lambda: fn.run_call(
+                    call, prm, kernel=fused_xsect.xsect_fused_plain), 1)
+            # a window-edge band may hold no line on the sub-band: then
+            # both are zero
+            own = p_out.abs().max().item() or 1.0
+            k_ms, k_out = next(timed)
+            outs[fast] = k_out
+            name = f"{mode}{' FAST' if fast else ''}"
+            err = (k_out - p_out).abs().max().item()
+            check(peak > 0.0 and bool(torch.isfinite(k_out).all()),
+                  f"{label} {name}: zero lattice or non-finite pass")
+            print(f"[{tag} {label}] {name} tile {dplan.tile} block "
+                  f"{dplan.block} tiles {dplan.n_tiles} points {dplan.n_out}:"
+                  f" max|kernel-plain| {err:.3e} = {err / peak:.3e} of the "
+                  f"lattice's peak {peak:.4e} = {err / own:.3e} of the "
+                  f"pass's own peak {own:.4e}; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.3f} ms [{card}]", flush=True)
+            check(err <= XS_BOUND * peak, f"{tag} {label} "
+                        f"{name}: {err / peak:.3e} of the lattice's peak > "
+                        f"{XS_BOUND}")
+            check(err <= XS_OWN_BOUND[mode] * own, f"{tag} "
+                        f"{label} {name}: {err / own:.3e} of its own peak > "
+                        f"{XS_OWN_BOUND[mode]}")
+            if stats is not None:
+                add_stats(stats, fk(mode) if fast else mode, err, k_ms, p_ms,
+                          *xs_bound_work(mode, lay, dplan, prm))
+        if both:
+            fast_gap(f"{tag} {label} {mode}", outs[True], outs[False], peak,
+                     card)
+        if fn.fast_rcp and mode in F64_MODES:
+            xs_f64_reading(f"{tag} {label} {mode}", fn, call, prm, outs,
+                           peak, card)
+
+
+def xs_f64_reading(name, fn, call, prm, outs, peak, card):
+    """One SD-Voigt pass of ``fn`` (FAST) against its plain version in
+    float64 on the same line parameters, beside the IEEE instantiation and
+    the float32 plain version (IEEE division), of the lattice's peak and
+    of the pass's own float64 peak; FAST no further from the float64
+    result than the float32 plain version is, plus XS_BOUND of the
+    lattice's peak."""
+    with ieee_passes(fn):
+        if False not in outs:
+            outs[False] = fn.run_call(call, prm)
+        p_out = fn.run_call(call, prm, kernel=fused_xsect.xsect_fused_plain)
+    ref = fn.run_call(call, params64(prm),
+                      kernel=fused_xsect.xsect_fused_plain)
+    own = ref.abs().max().item() or 1.0
+    runs = {"FAST": outs[True], "IEEE": outs[False], "plain float32": p_out}
+    gaps = f64_gaps(runs, ref, peak)
+    print(f"[float64] {name}: against the plain version in float64, of the "
+          "lattice's peak / of the pass's own peak: " + ", ".join(
+              f"{k} {v:.3e} / {v * peak / own:.3e}" for k, v in gaps.items())
+          + f" [{card}]", flush=True)
+    limit = gaps["plain float32"] + XS_BOUND
+    check(gaps["FAST"] <= limit, f"{name} FAST vs float64: "
+          f"{gaps['FAST']:.3e} of the lattice's peak > the float32 "
+          f"plain version's + {XS_BOUND} = {limit:.3e}")
 
 
 def phase_xs_sub(dev, card):
     """3c: every pass of the lattice builders on the 1000-1010 cm^-1
-    sub-band; returns the new modes' JSON fields and the launches of the
-    direct corr:64:*full runs."""
+    sub-band, the timed ones in both instantiations; returns the new modes'
+    JSON fields (both), the launches of the direct corr:64:*full runs
+    (FAST) and the IEEE instantiations' launches (the builders with
+    fast_rcp=False, and the direct *full runs)."""
     store = xs_lines(dev)
     iso = IsoTables.load(device=dev, dtype=torch.float32)
     X = arange_drift_free(*XS_SUB)
@@ -1324,7 +1557,8 @@ def phase_xs_sub(dev, card):
         prm = fn.line_params(T, p)
         calls = timed.get(label) or fn.all_calls()
         check_xs_passes(label, fn, prm, calls, card,
-                        stats if label in timed else None)
+                        stats if label in timed else None,
+                        both=label in timed)
     for prof in ("sdvoigt", "voigt"):
         a = fns[f"{prof} classic"](T, p)
         b = fns[f"{prof} coarse"](T, p)
@@ -1340,7 +1574,26 @@ def phase_xs_sub(dev, card):
         main.run_call(c, prm)
     torch.cuda.synchronize()
     full_launches = read_launches()
-    return finish_stats({m: stats[m] for m in XS_MODES}), full_launches
+    # the IEEE instantiations' launches on a user's path: the builders
+    # called with fast_rcp=False on the sub-band, and the direct '*full'
+    # runs (the main path runs FAST)
+    reset_launches()
+    for kw in (dict(profile="sdvoigt"), dict(profile="sdvoigt",
+                                             two_pass=False),
+               dict(profile="lorentz"), dict(profile="doppler")):
+        build(fast_rcp=False, **kw)(T, p)
+    with ieee_passes(main):
+        for c in full_calls:
+            main.run_call(c, prm)
+    torch.cuda.synchronize()
+    ieee = read_launches()
+    check(all(ieee[m] > 0 and ieee[fk(m)] == 0 for m in XS_MODES),
+          f"3c: the IEEE lattices launched {dict(ieee)}")
+    print(f"[3c] make_xsect_fn(fast_rcp=False) lattices and the direct "
+          f"*full runs on the sub-band: launches {dict(ieee)}", flush=True)
+    return (finish_stats({m: stats[m] for m in
+                          (*XS_MODES, *map(fk, XS_MODES))}),
+            full_launches, ieee)
 
 
 def phase_k2(dev, card):
@@ -1452,13 +1705,34 @@ def read_launches():
     return collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
 
 
+#: launch keys of kernels without a FAST instantiation: K2 (both modes), K6
+#: (JAX's tangent kernel forces fast=False) and the probe
+NO_FAST = ("tud", "tud_b", "ht_jvp", "fp32_peak_probe")
+
+
+def fast_path(launches, where):
+    """A path's launch counts (or tile-offset launch counts) keyed by
+    kernel, each FAST instantiation's under its kernel's key: the path runs
+    the builders at their default, JAX's fast_rcp=True, so it fails if an
+    IEEE instantiation of a kernel that has a FAST one was launched (nothing
+    falls back to it)."""
+    suffix = fk("")
+    ieee = {k: v for k, v in launches.items()
+            if v and not k.endswith(suffix) and k not in NO_FAST}
+    check(not ieee, f"{where}: IEEE instantiations launched on a "
+          f"fast_rcp=True path: {ieee}")
+    return collections.Counter({k[:-len(suffix)] if k.endswith(suffix)
+                                else k: v for k, v in launches.items()})
+
+
 def phase_main(card):
     args = build_parser().parse_args(PRODUCTION.split())
     timings = {}
     reset_launches()
     x_lo, out = run_tud(args, "cuda", timings)
-    launches = read_launches()
-    print(f"[5 main] launches during run_tud: {dict(launches)}", flush=True)
+    launches = fast_path(read_launches(), "5 main")
+    print(f"[5 main] launches during run_tud (every K1 launch in its FAST "
+          f"instantiation): {dict(launches)}", flush=True)
     for k in (*PRODUCTION_MODES, "tud"):
         check(launches[k] > 0, f"kernel {k} was not launched by the main "
               "path")
@@ -1500,7 +1774,8 @@ def phase_main(card):
         rel = np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max()
         print(f"[5 slice] 718-723 cm^-1, 2 members, {k}: card vs CPU plain "
               f"{rel:.3e} of peak", flush=True)
-        check(rel <= SLICE_BOUND, f"slice {k}: {rel:.3e} > {SLICE_BOUND}")
+        check(rel <= SLICE_BOUND, f"slice {k}: {rel:.3e} > "
+              f"{SLICE_BOUND}")
     return launches, x_lo, out
 
 
@@ -1787,7 +2062,7 @@ def scene_chain(card):
     t = make_tud_fn(base.z0, alts, device=dev)(x, od, base.T)
     torch.cuda.synchronize()
     secs["member (plan, od, tud)"] = time.perf_counter() - t0
-    launches = read_launches()
+    launches = fast_path(read_launches(), "5e chain")
     for k in (*PRODUCTION_MODES, "tud"):
         check(launches[k] > 0, f"chain: kernel {k} was not launched")
     t_h = make_tud_fn(base.z0.cpu().numpy(), ALTITUDES, device=dev)(
@@ -2052,8 +2327,10 @@ def phase_checkpoint(card):
         ja = json.load(f)
     with open(b + ".json") as f:
         jb = json.load(f)
+    la, lb = (fast_path(collections.Counter(j["launches"]), "5c child")
+              for j in (ja, jb))
     for k in (*PRODUCTION_MODES, "tud"):
-        check(ja["launches"].get(k, 0) > 0 and jb["launches"].get(k, 0) > 0,
+        check(la[k] > 0 and lb[k] > 0,
               f"kernel {k} was not launched in the checkpointed children")
     print(f"[5c checkpoint] {CHECKPOINTED} --checkpoint: killed after batch "
           f"1 of 3 (SIGKILL in the child), one batch file left, resumed in "
@@ -2130,8 +2407,8 @@ def phase_jnp(dev, card):
               f"bounded: its float32 line centres) [{card}]", flush=True)
         check(rel <= JNP_BOUND, f"jnp {profile} card vs CPU: {rel:.3e} > "
               f"{JNP_BOUND}")
-        check(rel64 <= JNP_BOUND, f"kernel route {profile} vs the float64 "
-              f"engine: {rel64:.3e} > {JNP_BOUND}")
+        check(rel64 <= JNP_BOUND, f"kernel route {profile} vs the "
+              f"float64 engine: {rel64:.3e} > {JNP_BOUND}")
 
     X = arange_drift_free(1000.0, 1010.0, 0.0025)
     store = synthetic_lines(2000, nu_min=950.0, nu_max=1060.0, seed=2,
@@ -2150,7 +2427,7 @@ def phase_jnp(dev, card):
     reset_launches()
     want = compute_od_layers(lines32, iso32, X, atm32, profile="ht",
                              engine="pallas", ht_extras=extras)
-    launches = read_launches()
+    launches = fast_path(read_launches(), "5d kernel route")
     check(launches["ht"] > 0, "K5 was not launched by the kernel route")
     lines64, iso64, atm64 = layers[torch.float64]
     compute_od_layers(lines64, iso64, X, atm64, profile="ht",
@@ -2167,9 +2444,10 @@ def phase_jnp(dev, card):
           f"(K5 {launches['ht']} launches) against the jnp engine in float64 "
           f"on the card {rel:.3e} of peak; {secs:.3f} s on the card "
           f"[{card}]", flush=True)
-    check(bool(torch.isfinite(got).all()) and rel <= JNP_BOUND,
-          f"HT OD kernel route vs the float64 engine: {rel:.3e} > "
-          f"{JNP_BOUND}")
+    check(bool(torch.isfinite(want).all()), "HT OD kernel route: "
+          "non-finite")
+    check(rel <= JNP_BOUND, f"HT OD kernel route vs the float64 "
+          f"engine: {rel:.3e} > {JNP_BOUND}")
 
     args = build_parser().parse_args((JNP_TUD + " --engine jnp").split())
     run_tud(args, "cuda")                          # warm
@@ -2182,7 +2460,7 @@ def phase_jnp(dev, card):
     for k in ("tau", "Lu", "Ld"):
         rel = np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max()
         gap = np.abs(gpu[k] - kern[k]).max() / np.abs(kern[k]).max()
-        print(f"[5d jnp] tud --engine jnp 718-723 cm^-1, 2 members, {k}: "
+        print(f"[5d jnp] tud --engine jnp 718-720 cm^-1, 2 members, {k}: "
               f"card vs CPU {rel:.3e} of peak; against the kernel route on "
               f"the card {gap:.3e} (not bounded: float32 line centres and "
               f"the members' unclamped wings)", flush=True)
@@ -2203,7 +2481,7 @@ def phase_jacobian(card):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     x_lo, out = run_tud(args, "cuda", timings)
-    launches = read_launches()
+    launches = fast_path(read_launches(), "5b Jacobian path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[5b jacobian] launches during run_tud --jacobian: "
           f"{dict(launches)}", flush=True)
@@ -2228,9 +2506,11 @@ def phase_jacobian(card):
                                     for k in JAC_KEYS) + f" [{card}]",
           flush=True)
 
+    # 2 cm^-1: the CPU's 198 directions take about two minutes at 718-723
+    # on a slow host
     small = build_parser().parse_args(
         "tud --derived --line-mixing --continuum mt_ckd --numin 718 "
-        "--numax 723 --dv 0.005 --n-atmos 1 --batch 1 --jacobian".split())
+        "--numax 720 --dv 0.005 --n-atmos 1 --batch 1 --jacobian".split())
     t0 = time.perf_counter()
     _, gpu = run_tud(small, "cuda")
     t1 = time.perf_counter()
@@ -2238,7 +2518,7 @@ def phase_jacobian(card):
     t2 = time.perf_counter()
     for k in JAC_KEYS:
         rel = np.abs(gpu[k] - cpu[k]).max() / np.abs(cpu[k]).max()
-        print(f"[5b slice] 718-723 cm^-1 at 5e-3, {k}: card vs CPU plain "
+        print(f"[5b slice] 718-720 cm^-1 at 5e-3, {k}: card vs CPU plain "
               f"{rel:.3e} of peak", flush=True)
         check(rel <= JAC_SLICE_BOUND, f"slice {k}: {rel:.3e} > "
               f"{JAC_SLICE_BOUND}")
@@ -2277,7 +2557,7 @@ def phase_xs_main(dev, card):
     timings = {}
     reset_launches()
     xs = run_xsect(args, dev, timings)
-    launches = read_launches()
+    launches = fast_path(read_launches(), "7 xsect")
     print(f"[7 xsect] launches during run_xsect: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     # the CLI's list has sd_air != 0 on every line: the SD-Voigt passes
@@ -2344,7 +2624,7 @@ def phase_xs_main(dev, card):
     reset_launches()
     out = fn(T, p)
     torch.cuda.synchronize()
-    bench_launches = read_launches()
+    bench_launches = fast_path(read_launches(), "7 bench")
     # a quarter of the bench's lines have sd_air = 0: the Voigt passes too
     for k in ("sdvoigt_asym", "asym", "corr:64:sdvoigt", "corr:64:voigt",
               "sdvoigt_core"):
@@ -2370,7 +2650,7 @@ def phase_xs_main(dev, card):
     for prof in ("lorentz", "doppler"):
         reset_launches()
         r = run_xsect(xs_args(sub + prof), dev)
-        path_launches[prof] = read_launches()[prof]
+        path_launches[prof] = fast_path(read_launches(), "7 paths")[prof]
         check(path_launches[prof] > 0 and np.isfinite(r["K"]).all(),
               f"xsect --profile {prof} did not run its kernel")
     fn1 = make_xsect_fn(store_b, IsoTables.load(device=dev),
@@ -2379,7 +2659,8 @@ def phase_xs_main(dev, card):
     reset_launches()
     check(bool(torch.isfinite(fn1(T, p)).all()), "two_pass=False lattice")
     torch.cuda.synchronize()
-    path_launches["sdvoigt"] = read_launches()["sdvoigt"]
+    path_launches["sdvoigt"] = fast_path(read_launches(),
+                                         "7 two_pass=False")["sdvoigt"]
     check(path_launches["sdvoigt"] > 0, "two_pass=False ran no sdvoigt pass")
     print(f"[7 paths] launches: lorentz and doppler CLI runs, the "
           f"two_pass=False lattice: {path_launches}", flush=True)
@@ -2504,7 +2785,8 @@ def phase_breakdown(dev, card):
         culled[mode] += n_win
         ops, nbytes = k1_bound_work(mode, lay, dplan, prm, counts)
         work[mode] = [work[mode][0] + ops, work[mode][1] + nbytes]
-        issue[mode] += k1_issue_work(mode, lay, dplan, prm, counts)
+        issue[mode] += k1_issue_work(mode, lay, dplan, prm, counts,
+                                     od_fn.fast_rcp)
         print(f"[6 evaluations] {mode} pass, {lay.numel()} layers: "
               f"in-window {n_win:.4g}, in-core {n_core:.4g} (window_counts, "
               f"after culling); plan evals {evals} (work_report, JAX's "
@@ -2563,19 +2845,22 @@ def phase_jac_breakdown(dev, card):
     for lay, dplan, _ in od_fn.calls:
         args = (dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                 prm.gamma_0, prm.wing)
+        # the path's instantiations: the builder's fast_rcp (the default)
         t, _ = cuda_ms(lambda: fused_xsect.xsect_fused(
-            *args, None, "full", N_WEI), 3)
+            *args, None, "full", N_WEI, fast=od_fn.fast_rcp), 3)
         ms["K1 full"] += t
         t, _ = cuda_ms(lambda: fused_xsect.xsect_fused_jvp(
-            *args, *tans, N_WEI), 3)
+            *args, *tans, N_WEI, od_fn.fast_rcp), 3)
         ms["K3 (8 dirs)"] += t
-        o3, b3, instr, dense = k3_bound_work(lay, dplan, prm, tans)
+        o3, b3, instr, dense = k3_bound_work(lay, dplan, prm, tans,
+                                             od_fn.fast_rcp)
         k3_instr += instr
         k3_dense += dense
         for k, (o, b) in (("full", k1_bound_work("full", lay, dplan, prm)),
                           ("jvp", (o3, b3))):
             work[k] = [work[k][0] + o, work[k][1] + b]
-        full_issue += k1_issue_work("full", lay, dplan, prm)
+        full_issue += k1_issue_work("full", lay, dplan, prm,
+                                    fast=od_fn.fast_rcp)
     ms["continuum + tangents"], _ = cuda_ms(
         lambda: vjvp(lambda T_: od_fn.cont(T_, p, pl, vmr), T), 3)
     ms["OD + tangents"], (od, od_t) = cuda_ms(
@@ -2693,22 +2978,22 @@ def ht_evals(lay, dplan, prm, mask):
             "pair4": p4, "pair1": p1}, n_lines
 
 
-def ht_bound_work(lay, dplan, prm, tangents=None):
+def ht_bound_work(lay, dplan, prm, tangents=None, fast=False):
     """(lane-ops, bytes, lane-instructions) of one K5 pass, or of one K6
     launch set for the (nd, nLay, L) ``tangents``: each piece (ht_evals) at
     its HT_PIECES value count, once for the pairs a tangent is live on, and
     (K6) at its per-direction count once per live (pair, direction),
     K6's rows evaluating each live direction alone; the same in the SASS
     lane-instructions of ``ht_issue`` (a direction's: K6's count less
-    K5's). The bound charging every live pair all nd directions' tangent
-    work, as the dense direction axis of PR 4's K6 did, is the fourth
-    element (K6 only)."""
+    K5's IEEE one; ``fast``: K5's FAST instantiation's). The bound
+    charging every live pair all nd directions' tangent work, as the dense
+    direction axis of an earlier K6 did, is the fourth element (K6 only)."""
     live = None if tangents is None else live_directions(tangents)
     mask = (np.ones(tuple(prm.strength.shape), dtype=bool) if live is None
             else live.any(axis=0))
     ev, n_lines = ht_evals(lay, dplan, prm, mask)
     n_eval = ev["part4"] + ev["part1"] + ev["part1_big"]
-    c5 = ht_issue(False)
+    c5 = ht_issue(False, fast and tangents is None)
     ops = sum(n * HT_PIECES[k][0] for k, n in ev.items())
     instr = sum(n * c5[k] for k, n in ev.items()) + n_eval * c5["acc"]
     nl = lay.numel()
@@ -2746,14 +3031,15 @@ def ht_bound_str(ops, nbytes, instr, dense=None):
     return out
 
 
-def k4_bound_work(lay, dplan, prm, tangents):
+def k4_bound_work(lay, dplan, prm, tangents, fast=False):
     """(lane-ops, bytes, lane-instructions, lane-ops counting every
     direction) of one K4 launch set for the (nd, nLay, L) tangents of
     (shift0, strength, gamma_d, gamma_0, gamma_2), K3's convention: each
     live (pair, point) evaluation's shared work once (K4_BASE, and each CPF
     point's (K, Kx, Ky) by its own region) and each live direction's term of
     it (K4_DIR: K4's rows evaluate only those); the same in the SASS
-    lane-instructions of ``k4_issue``; and the count that charges every
+    lane-instructions of ``k4_issue`` (``fast``: the FAST instantiation's);
+    and the count that charges every
     live pair all nd directions' terms, as a dense direction axis
     would."""
     live = live_directions(tangents)
@@ -2764,7 +3050,7 @@ def k4_bound_work(lay, dplan, prm, tangents):
     nbytes = (4 * (6 + 5 * nd) * nl * n_lines + 16 * dplan.k_line.numel()
               + 4 * nd * nl * dplan.n_out)
     shared = n_win * K4_BASE + cpf_pair_ops(n_win, n_in, KG_WEI, KG_ASYM)
-    c = k4_issue()
+    c = k4_issue(fast)
     instr = (n_win * c["base"] + cpf_pair_ops(n_win, n_in, c["in"], c["out"])
              + n_dir * c["dir"])
     return (shared + K4_DIR * n_dir, nbytes, instr,
@@ -2786,22 +3072,27 @@ def ht_od_tangents(fn, base, V):
     return [t.contiguous() for t in tans]
 
 
-def ht_primal(call, prm, plain=False):
-    """One pass of an HT builder through its kernel or its plain version."""
+def ht_primal(call, prm, plain=False, fast=True):
+    """One pass of an HT builder through its kernel (``fast``: in its FAST
+    instantiation, the builders' default) or its plain version (``fast``:
+    of the FAST instantiation's arithmetic)."""
     lay, dplan, mode = call
     if mode == "ht":
         f = fused_ht.xsect_ht_plain if plain else fused_ht.xsect_ht
-        return f(dplan, lay, prm.strength, prm.wing, prm.ht_consts, N_WEI)
+        return f(dplan, lay, prm.strength, prm.wing, prm.ht_consts, N_WEI,
+                 fast)
     f = fused_xsect.xsect_fused_plain if plain else fused_xsect.xsect_fused
     return f(dplan, lay, prm.shift0, prm.strength, prm.gamma_d, prm.gamma_0,
              prm.wing, None, mode, N_WEI,
-             gamma_2=prm.gamma_2 if mode == "sdvoigt" else None)
+             gamma_2=prm.gamma_2 if mode == "sdvoigt" else None, fast=fast)
 
 
-def ht_tangent(call, prm, tans, plain=False):
-    """The tangent of one pass of the differentiable HT builder: K6 (ht),
-    K4 (sdvoigt) or K3 (full), or its plain version; ``tans`` as
-    :func:`ht_od_tangents` gives them."""
+def ht_tangent(call, prm, tans, plain=False, fast=True):
+    """The tangent of one pass of the differentiable HT builder: K6 (ht,
+    IEEE whatever ``fast``), K4 (sdvoigt) or K3 (full), in their FAST
+    instantiations with ``fast`` (the builders' default), or its plain
+    version (of the same arithmetic); ``tans`` as :func:`ht_od_tangents`
+    gives them."""
     lay, dplan, mode = call
     s0_t, s_t, gd_t, g0_t, g2_t, *c_t = tans
     if mode == "ht":
@@ -2813,10 +3104,10 @@ def ht_tangent(call, prm, tans, plain=False):
         f = (fused_xsect.xsect_sdvoigt_jvp_plain if plain
              else fused_xsect.xsect_sdvoigt_jvp)
         return f(*args, prm.gamma_2, prm.wing, s0_t, s_t, gd_t, g0_t, g2_t,
-                 N_WEI)
+                 N_WEI, fast)
     f = (fused_xsect.xsect_fused_jvp_plain if plain
          else fused_xsect.xsect_fused_jvp)
-    return f(*args, prm.wing, s0_t, s_t, gd_t, g0_t, N_WEI)
+    return f(*args, prm.wing, s0_t, s_t, gd_t, g0_t, N_WEI, fast)
 
 
 HT_TANGENT_NAME = {"ht": "K6", "sdvoigt": "K4", "full": "K3"}
@@ -2883,6 +3174,7 @@ def k4_against_plain(call, prm, tans, out, card, label):
     want = ht_tangent((lay, sp, "sdvoigt"), prm, tans, plain=True)
     k0 = t0 * dplan.tile
     got = out[:, :, k0:k0 + sp.n_out]
+    k4_f64_reading(label, (lay, sp, "sdvoigt"), prm, tans, got, card)
     rels = []
     for d in range(want.shape[0]):
         err = (got[d] - want[d]).abs().max().item()
@@ -2890,8 +3182,8 @@ def k4_against_plain(call, prm, tans, out, card, label):
         check(bool(torch.isfinite(got[d]).all()), f"9d K4 {label}: "
               f"direction {d} not finite")
         check(err <= K4_BOUND * own if own > 0.0 else err == 0.0,
-              f"9d K4 {label} direction {d}: max|kernel-plain| {err:.3e} "
-              f"against its own peak {own:.3e}")
+              f"9d K4 {label} direction {d}: max|kernel-plain| "
+              f"{err:.3e} against its own peak {own:.3e}")
         rels.append(err / own if own > 0.0 else err)
     reg = sd_regimes(sp, lay, prm)
     print(f"[9d K4 vs plain] {label}: layers {lay.numel()}, tiles {t0}-"
@@ -2904,12 +3196,44 @@ def k4_against_plain(call, prm, tans, out, card, label):
     return reg
 
 
+def k4_f64_reading(label, call, prm, tans, got, card):
+    """K4's FAST output ``got`` on ``call``'s band against the plain
+    version in float64 on the same parameters and tangents, beside the IEEE
+    instantiation and the float32 plain version (IEEE division), each
+    direction of its own float64 peak (the worst printed); FAST no further
+    from the float64 result than the float32 plain version is, plus
+    K4_BOUND."""
+    ieee = ht_tangent(call, prm, tans, fast=False)
+    want = ht_tangent(call, prm, tans, plain=True, fast=False)
+    ref = ht_tangent(call, params64(prm), [t.double() for t in tans],
+                     plain=True)
+    worst = dict.fromkeys(("FAST", "IEEE", "plain float32"), 0.0)
+    for d in range(ref.shape[0]):
+        own = ref[d].abs().max().item()
+        if own == 0.0:
+            continue
+        gaps = f64_gaps({"FAST": got[d], "IEEE": ieee[d],
+                         "plain float32": want[d]}, ref[d], own)
+        worst = {k: max(v, gaps[k]) for k, v in worst.items()}
+        limit = gaps["plain float32"] + K4_BOUND
+        check(gaps["FAST"] <= limit, f"9d K4 {label} direction {d} "
+              f"FAST vs float64: {gaps['FAST']:.3e} of its own peak > "
+              f"the float32 plain version's + {K4_BOUND} = "
+              f"{limit:.3e}")
+    print(f"[float64] 9d K4 {label}: against the plain version in float64, "
+          "the worst direction's share of its own peak: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()) + f" [{card}]",
+          flush=True)
+
+
 def phase_ht_sub(dev, card):
     """3d: every pass of make_ht_fn and make_od_ht_fn(differentiable=True)
     over 800-810 cm^-1 against its plain version (K5, K1 sdvoigt and full),
     and each tangent pass of the latter (K6, K4, K3) for a T direction over
-    all layers and 8 one-hot T directions; returns the JSON fields of K5,
-    K6 and K4 (times and bound from the 8-direction batch)."""
+    all layers and 8 one-hot T directions, each in both instantiations but
+    K6 (IEEE only); returns the JSON fields of K5, K6 and K4 (times and
+    bound from the 8-direction batch; K5 and K4 also FAST) and the IEEE
+    instantiations' launches of both builders with fast_rcp=False."""
     iso = IsoTables.load(device=dev)
     X = arange_drift_free(*HT_SUB)
     T, p = xs_states(dev)
@@ -2929,33 +3253,48 @@ def phase_ht_sub(dev, card):
                 odf, base, torch.linspace(0.5, 1.5, n_lay, device=dev)[None]),
             "8 one-hot T (layers 24-31)": ht_od_tangents(odf, base,
                                                          one_hot_batch(dev))}
-    runs = [("lattice", lat, prm_l, c, None, None) for c in lat.calls]
-    runs += [("layered OD", odf, prm_o, c, None, None) for c in odf.calls]
-    runs += [("layered OD", odf, prm_o, c, name, tans) for c in odf.calls
-             for name, tans in sets.items()]
+    # each pass in its FAST instantiation (the builders' default) and its
+    # IEEE one (K6: IEEE only, as JAX's tangent kernel)
+    runs = [("lattice", lat, prm_l, c, None, None, f) for c in lat.calls
+            for f in (True, False)]
+    runs += [("layered OD", odf, prm_o, c, None, None, f) for c in odf.calls
+             for f in (True, False)]
+    runs += [("layered OD", odf, prm_o, c, name, tans, f) for c in odf.calls
+             for name, tans in sets.items()
+             for f in ((False,) if c[2] == "ht" else (True, False))]
     timed = time_kernels(
-        (f"3d {c[2]}", (lambda c=c, prm=prm, tans=tans:
-                        ht_primal(c, prm) if tans is None
-                        else ht_tangent(c, prm, tans)))
-        for _, _, prm, c, _, tans in runs)
+        (f"3d {c[2]}", (lambda c=c, prm=prm, tans=tans, f=f:
+                        ht_primal(c, prm, fast=f) if tans is None
+                        else ht_tangent(c, prm, tans, fast=f)))
+        for _, _, prm, c, _, tans, f in runs)
     peaks = {"lattice": lat.line_sum(prm_l).abs().max().item(),
              "layered OD": odf.line_sum(prm_o).abs().max().item()}
-    stats = {}
-    for (label, fn, prm, call, name, tans), (k_ms, k_out) in zip(runs, timed):
+    stats, plain, outs = {}, {}, {}
+    for (label, fn, prm, call, name, tans, fast), (k_ms, k_out) in zip(
+            runs, timed):
         lay, dplan, mode = call
+        at = (label, id(call), name)
+        # the plain version of this instantiation's arithmetic
+        if (at, fast) not in plain:
+            plain[at, fast] = (
+                cuda_ms(lambda: ht_primal(call, prm, plain=True, fast=fast),
+                        1) if tans is None else
+                cuda_ms(lambda: ht_tangent(call, prm, tans, plain=True,
+                                           fast=fast), 1))
+        p_ms, p_out = plain[at, fast]
         if tans is None:
-            p_ms, p_out = cuda_ms(lambda: ht_primal(call, prm, plain=True), 1)
             kname = "K5" if mode == "ht" else f"K1 {mode}"
             bound_own = HT_OWN_BOUND if mode == "ht" else XS_OWN_BOUND[mode]
             touched = True
         else:
-            p_ms, p_out = cuda_ms(lambda: ht_tangent(call, prm, tans,
-                                                     plain=True), 1)
             kname = f"{HT_TANGENT_NAME[mode]} {name}"
             bound_own = {"ht": HT_JVP_BOUND, "sdvoigt": K4_BOUND,
                          "full": K3_BOUND}[mode]
             touched = any(bool((t != 0).any(dim=0).any(dim=1)[lay.long()]
                                .any()) for t in tans)
+        if fast:
+            kname = kname.replace(" ", " FAST ", 1) if " " in kname \
+                else kname + " FAST"
         err = (k_out - p_out).abs().max().item()
         own = p_out.abs().max().item()
         check(bool(torch.isfinite(k_out).all()) and (own > 0.0) == touched,
@@ -2969,16 +3308,22 @@ def phase_ht_sub(dev, card):
               + f"; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]",
               flush=True)
         check(rel <= bound_own if touched else err == 0.0,
-              f"3d {label} {kname}: {rel:.3e} of its own peak > {bound_own}")
+                    f"3d {label} {kname}: {rel:.3e} of its own peak > "
+                    f"{bound_own}")
+        outs[at, fast] = k_out
+        if not fast and (at, True) in outs:
+            fast_gap(f"3d {label} {kname} layers {lay.numel()}",
+                     outs[at, True], k_out, max(own, 1e-30), card)
+        key = (lambda k: fk(k) if fast else k)
         if tans is None:
-            check(err <= XS_BOUND * peaks[label], f"3d {label} {kname}: "
-                  f"{err / peaks[label]:.3e} of the {label}'s peak > "
-                  f"{XS_BOUND}")
+            check(err <= XS_BOUND * peaks[label],
+                        f"3d {label} {kname}: {err / peaks[label]:.3e} of the "
+                        f"{label}'s peak > {XS_BOUND}")
             if mode == "ht":
-                work = ht_bound_work(lay, dplan, prm)
-                print(f"[3d {label}] K5 bound {ht_bound_str(*work)} "
+                work = ht_bound_work(lay, dplan, prm, fast=fast)
+                print(f"[3d {label}] {kname} bound {ht_bound_str(*work)} "
                       f"[{card}]", flush=True)
-                add_stats(stats, "ht", err, k_ms, p_ms, *work[:2],
+                add_stats(stats, key("ht"), err, k_ms, p_ms, *work[:2],
                           instr=work[2])
         elif mode == "ht":
             work = ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
@@ -2988,18 +3333,40 @@ def phase_ht_sub(dev, card):
                 add_stats(stats, "ht_jvp", err, k_ms, p_ms, *work[:2],
                           instr=work[2])
         elif mode == "sdvoigt":
-            work = k4_bound_work(lay, dplan, prm, tans[:5])
+            work = k4_bound_work(lay, dplan, prm, tans[:5], fast)
             print(f"[3d {label}] {kname} bound {ht_bound_str(*work)} "
                   f"[{card}]", flush=True)
             if name.startswith("8"):
-                add_stats(stats, "sdvoigt_jvp", err, k_ms, p_ms, *work[:2],
-                          instr=work[2])
-    for tan, kname in ((False, "K5"), (True, "K6")):
+                add_stats(stats, key("sdvoigt_jvp"), err, k_ms, p_ms,
+                          *work[:2], instr=work[2])
+    for tan, fast, kname in ((False, False, "K5"), (False, True, "K5 FAST"),
+                             (True, False, "K6")):
         print(f"[3d] {kname} SASS lane-instructions per piece: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in ht_issue(tan).items()), flush=True)
-    print("[3d] K4 SASS lane-instructions per piece: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in k4_issue().items()), flush=True)
-    return finish_stats(stats)
+            f"{k} {v:.2f}" for k, v in ht_issue(tan, fast).items()),
+            flush=True)
+    for fast in (False, True):
+        print(f"[3d] K4{' FAST' if fast else ''} SASS lane-instructions per "
+              "piece: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                    k4_issue(fast).items()), flush=True)
+    # the IEEE instantiations' launches on a user's path: the lattice and a
+    # jvp of the layered OD, both built with fast_rcp=False, on the sub-band
+    lat_i = make_ht_fn(store, iso, X, XS_T, np.ones_like(XS_T),
+                       extras=extras, fast_rcp=False)
+    odf_i = make_od_ht_fn(jstore, iso, X, base, extras=jextras,
+                          differentiable=True, fast_rcp=False)
+    reset_launches()
+    lat_i(T, p)
+    torch.func.jvp(lambda T_: odf_i(T_, base.p, base.pl, base.vmr),
+                   (base.T,), (torch.linspace(0.5, 1.5, n_lay, device=dev),))
+    torch.cuda.synchronize()
+    ieee = read_launches()
+    check(all(ieee[k] > 0 and ieee[fk(k)] == 0
+              for k in ("ht", "sdvoigt_jvp", "jvp", "sdvoigt", "full")),
+          f"3d: the IEEE HT builders launched {dict(ieee)}")
+    print(f"[3d] make_ht_fn and a jvp of make_od_ht_fn(differentiable=True), "
+          f"both fast_rcp=False, on the sub-band: launches {dict(ieee)}",
+          flush=True)
+    return finish_stats(stats), ieee
 
 
 def phase_ht_lattice(dev, card):
@@ -3018,7 +3385,7 @@ def phase_ht_lattice(dev, card):
     reset_launches()
     out = fn(T, p)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = fast_path(read_launches(), "9 HT lattice")
     check(launches["ht"] > 0, "kernel ht was not launched by the HT "
           "lattice")
     check(out.shape == (XS_T.size, X.size) and bool(torch.isfinite(out).all())
@@ -3051,14 +3418,15 @@ def phase_ht_lattice(dev, card):
     rel = np.abs(res[dev] - res["cpu"]).max() / np.abs(res["cpu"]).max()
     print(f"[9 slice] 300 lines, 800-810 cm^-1, 10 states: card vs CPU "
           f"plain {rel:.3e} of peak", flush=True)
-    check(rel <= XS_SLICE_BOUND, f"HT slice: {rel:.3e} > {XS_SLICE_BOUND}")
+    check(rel <= XS_SLICE_BOUND, f"HT slice: {rel:.3e} > "
+          f"{XS_SLICE_BOUND}")
 
     # the CLI: no HT columns, so the SD-Voigt route, coarse-far
     args = xs_args(HT_CLI)
     timings = {}
     reset_launches()
     xs = run_xsect(args, dev, timings)
-    cli = read_launches()
+    cli = fast_path(read_launches(), "9 xsect --profile ht")
     check(cli["sdvoigt_asym"] > 0 and cli["corr:64:sdvoigt"] > 0,
           f"xsect --profile ht did not take the coarse-far route: {cli}")
     check(np.isfinite(xs["K"]).all() and xs["K"].max() > 0.0,
@@ -3091,7 +3459,7 @@ def phase_ht_layered(dev, card):
     reset_launches()
     od = fn(*args)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = fast_path(read_launches(), "9b layered HT OD")
     for k in ("ht", "sdvoigt", "full"):
         check(launches[k] > 0, f"kernel {k} was not launched by the layered "
               "HT OD")
@@ -3162,7 +3530,7 @@ def phase_ht_jacobian(dev, card):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if rep == 0:
-            launches = read_launches()
+            launches = fast_path(read_launches(), "9c HT Jacobian")
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for k in ("jvp", "sdvoigt_jvp", "ht_jvp"):
         check(launches[k] > 0, f"kernel {k} was not launched by the HT "
@@ -3230,7 +3598,7 @@ def phase_sdvoigt_jacobian(dev, card):
     reset_launches()
     tan = batch()
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = fast_path(read_launches(), "9d SD-Voigt tangents")
     check(launches["sdvoigt_jvp"] > 0, "kernel sdvoigt_jvp was not launched "
           "by the differentiable SD-Voigt OD")
     check(bool(torch.isfinite(tan).all()) and tan.abs().max().item() > 0.0,
@@ -3271,9 +3639,9 @@ def phase_sdvoigt_jacobian(dev, card):
         t, _ = cuda_ms(lambda: ht_tangent(call, prm, tans), 2)
         stage[name] = stage.get(name, 0.0) + t
         add_work(work, name,
-                 k4_bound_work(call[0], call[1], prm, tans)
+                 k4_bound_work(call[0], call[1], prm, tans, True)
                  if call[2] == "sdvoigt"
-                 else k3_bound_work(call[0], call[1], prm, tans[:4]))
+                 else k3_bound_work(call[0], call[1], prm, tans[:4], True))
     check(regimes[0] > 0 and regimes[1] > 0, "9d: the K4 check's band holds "
           f"no pair of the closed form or of the whole window: {regimes}")
     print("[9d sdvoigt jacobian] ms per stage (line params + tangents: "
@@ -3311,7 +3679,8 @@ def phase_ht_breakdown(dev, card):
             t, _ = cuda_ms(lambda: ht_primal(call, prm), 2)
             mode = call[2]
             ms[mode] = ms.get(mode, 0.0) + t
-            add_work(work, mode, ht_bound_work(call[0], call[1], prm)
+            add_work(work, mode, ht_bound_work(call[0], call[1], prm,
+                                               fast=True)
                      if mode == "ht"
                      else xs_bound_work(mode, call[0], call[1], prm))
         print(f"[10 {label}] ms per stage: " + ", ".join(
@@ -3334,9 +3703,10 @@ def phase_ht_breakdown(dev, card):
         lay, dplan = call[0], call[1]
         add_work(work, name,
                  ht_bound_work(lay, dplan, prm, [tans[1], *tans[5:]])
-                 if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5])
+                 if mode == "ht" else k4_bound_work(lay, dplan, prm, tans[:5],
+                                                    True)
                  if mode == "sdvoigt" else
-                 k3_bound_work(lay, dplan, prm, tans[:4])[:2])
+                 k3_bound_work(lay, dplan, prm, tans[:4], True)[:2])
     print("[10 9c tangents] 8 one-hot T directions, ms per stage (line "
           f"params + tangents: median of 3, range {min(reads):.3f}-"
           f"{max(reads):.3f}): "
@@ -3427,15 +3797,16 @@ def unfused_case(dev, band, dtype=torch.float32):
     return store, iso, X, base
 
 
-def k7_bound_work(mode, plan, prm):
+def k7_bound_work(mode, plan, prm, fast=False):
     """(lane-ops, bytes, lane-instructions) one K7 launch needs on these
     inputs: the in-window evaluations of every (layer, line) pair over the
     whole grid (every tile a window touches visits the line's block), at
     their region's hand count (the header of csrc/fused_xsect.cu), as for
     K1; each parameter of each line, each slot and each output element
     once; in issue slots, each needed evaluation at K1's SASS count of the
-    same line shape (``k1_issue``) plus the compensated add's
-    ``KAHAN_ADDS`` FADDs (core: the evaluations inside |x| + y < 15)."""
+    same line shape (``k1_issue``; ``fast``: the FAST instantiation's)
+    plus the compensated add's ``KAHAN_ADDS`` FADDs (core: the evaluations
+    inside |x| + y < 15)."""
     n_lay, n_lines = prm.strength.shape
     dplan = fused_xsect.device_plan(plan, np.arange(n_lines), None,
                                     device="cpu")
@@ -3449,10 +3820,10 @@ def k7_bound_work(mode, plan, prm):
     if mode in SIMPLE_OPS:
         ops, nbytes = n_win * SIMPLE_OPS[mode], k1_bound_work(
             "asym", lay, whole, prm, counts)[1]
-        instr = n_win * (k1_issue(mode)["in"] + KAHAN_ADDS)
+        instr = n_win * (k1_issue(mode, fast)["in"] + KAHAN_ADDS)
     else:
         ops, nbytes = k1_bound_work(mode, lay, whole, prm, counts)
-        instr = (k1_issue_work(mode, lay, whole, prm, counts)
+        instr = (k1_issue_work(mode, lay, whole, prm, counts, fast)
                  + KAHAN_ADDS * (n_core if mode == "core" else n_win))
     return ops, nbytes, instr
 
@@ -3470,57 +3841,67 @@ def event_ms(fn):
 
 
 def phase_unfused_sub(dev, card):
-    """3e: K7 in each mode against its plain version on make_od_plan's
-    shared-block plan over the sub-band (derived list, 66 layers); a packed
-    plan against the shared one."""
+    """3e: K7 in each mode and both instantiations (IEEE, FAST) against its
+    plain version on make_od_plan's shared-block plan over the sub-band
+    (derived list, 66 layers); a packed plan against the shared one."""
     store, iso, X, base = unfused_case(dev, SUB_BAND)
     plan = make_od_plan(store, iso, X, base)
     cols = _line_species_cols(store.host_view(), base.mol_ids)
     prm = {p: layer_line_params(store, iso, base, cols, profile=p)
            for p in ("voigt", "lorentz", "doppler")}
     prm_of = lambda m: prm[m if m in SIMPLE_OPS else "voigt"]  # noqa
-    launch = lambda m: fused_xsect.xsect_unfused(plan, prm_of(m), m)  # noqa
-    reset_launches()        # one counted direct launch of each mode
-    for m in K7_MODES:
+    launch = lambda m, f=False: fused_xsect.xsect_unfused(  # noqa
+        plan, prm_of(m), m, fast=f)
+    reset_launches()        # one counted direct launch of each mode and
+    for m in K7_MODES:      # instantiation
         launch(m)
+        launch(m, True)
     torch.cuda.synchronize()
     launches = read_launches()
-    timed = time_kernels((f"K7 {m}", lambda m=m: launch(m))
-                         for m in K7_MODES)
+    timed = iter(time_kernels((f"K7 {m}{' FAST' if f else ''}",
+                               lambda m=m, f=f: launch(m, f))
+                              for m in K7_MODES for f in (False, True)))
     runs = {}
-    for m, (k_ms, k_out) in zip(K7_MODES, timed):
-        p_ms, p_out = event_ms(lambda m=m: fused_xsect.xsect_unfused_plain(
-            plan, prm_of(m), m))
-        runs[m] = (k_ms, k_out, p_ms, p_out)
-    od_peak = runs["full"][3].abs().max().item()
+    for m in K7_MODES:
+        for f in (False, True):
+            # the plain version of this instantiation's arithmetic
+            p_ms, p_out = event_ms(lambda m=m, f=f: (
+                fused_xsect.xsect_unfused_plain(plan, prm_of(m), m, fast=f)))
+            k_ms, k_out = next(timed)
+            runs[m, f] = (k_ms, k_out, p_ms, p_out)
+    od_peak = runs["full", False][3].abs().max().item()
     stats = {}
-    for m, (k_ms, k_out, p_ms, p_out) in runs.items():
+    for (m, f), (k_ms, k_out, p_ms, p_out) in runs.items():
+        name = f"K7 {m}{' FAST' if f else ''}"
         own = p_out.abs().max().item()
-        check(own > 0.0, f"K7 {m}: the plain pass is zero on the band")
+        check(own > 0.0, f"{name}: the plain pass is zero on the band")
         err = (k_out - p_out).abs().max().item()
         peak = own if m in SIMPLE_OPS else od_peak
         rel, rel_own = err / peak, err / own
-        print(f"[3e K7 {m}] 66 layers x {X.size} points, tile {plan.tile} "
+        print(f"[3e {name}] 66 layers x {X.size} points, tile {plan.tile} "
               f"block {plan.block}, {plan.n_tiles} tiles, max blocks "
               f"{plan.max_blocks}: max|kernel-plain| {err:.3e} = {rel:.3e} "
               f"of the OD peak {peak:.4e} = {rel_own:.3e} of its own peak "
               f"{own:.4e}; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
               f"[{card}]", flush=True)
-        check(rel <= K1_BOUND, f"K7 {m}: {rel:.3e} of the OD peak > "
-              f"{K1_BOUND}")
-        check(rel_own <= XS_OWN_BOUND[m], f"K7 {m}: {rel_own:.3e} of its own "
-              f"peak > {XS_OWN_BOUND[m]}")
-        ops, nbytes, instr = k7_bound_work(m, plan, prm_of(m))
-        add_stats(stats, m, err, k_ms, p_ms, ops, nbytes, instr=instr)
-        print(f"[3e K7 {m}] bound ms {bound_str(ops, nbytes)}; issue slots "
+        check(rel <= K1_BOUND, f"3e {name}: {rel:.3e} of the OD "
+                    f"peak > {K1_BOUND}")
+        check(rel_own <= XS_OWN_BOUND[m], f"3e {name}: "
+                    f"{rel_own:.3e} of its own peak > {XS_OWN_BOUND[m]}")
+        ops, nbytes, instr = k7_bound_work(m, plan, prm_of(m), f)
+        add_stats(stats, fk(m) if f else m, err, k_ms, p_ms, ops, nbytes,
+                  instr=instr)
+        print(f"[3e {name}] bound ms {bound_str(ops, nbytes)}; issue slots "
               "{bound_ms_issue:.4f} ({bound_ms_issue_measured:.4f} at the "
               "measured FMUL rate) [{card}]".format(
                   card=card, **issue_bounds(instr, nbytes)), flush=True)
+        if f:
+            fast_gap(f"3e K7 {m}", k_out, runs[m, False][1], peak, card)
     packed = fused_xsect.plan_buckets_packed(
         store.host_view().nu0, plan.grid, plan.max_wing, tile=plan.tile,
         block="auto")
     got = fused_xsect.xsect_unfused(packed, prm["voigt"])
-    rel = (got - runs["full"][1]).abs().max().item() / od_peak
+    rel = (got - runs["full", False][1]).abs().max().item() / od_peak
     print(f"[3e K7 packed] full on a packed plan (block {packed.block}, "
           f"{packed.n_blocks} blocks) against the shared one: {rel:.3e} of "
           f"peak", flush=True)
@@ -3587,8 +3968,8 @@ def phase_od_layers(dev, card):
     rel = (od_route - od_b).abs().max().item() / od_b.abs().max().item()
     print(f"[11 route] base state against make_od_fn(continuum='mt_ckd'): "
           f"{rel:.3e} of peak {od_b.abs().max().item():.4e}", flush=True)
-    check(rel <= ROUTE_VS_BUILDER, f"route vs make_od_fn: {rel:.3e} > "
-          f"{ROUTE_VS_BUILDER}")
+    check(rel <= ROUTE_VS_BUILDER, f"route vs "
+                f"make_od_fn: {rel:.3e} > {ROUTE_VS_BUILDER}")
     del od_route, od_b, od_fn
 
     # where a member's time goes, K7 against its plain version
@@ -3598,6 +3979,8 @@ def phase_od_layers(dev, card):
         lambda: layer_line_params(store, iso, base, cols), 3)
     ms["K7 full"], k_out = cuda_ms(
         lambda: fused_xsect.xsect_unfused(plan, prm), 3)
+    ms["K7 full FAST"], kf_out = cuda_ms(
+        lambda: fused_xsect.xsect_unfused(plan, prm, fast=True), 3)
     nu = torch.as_tensor(X, dtype=torch.float32, device=dev)
     ms["continuum"], _ = cuda_ms(lambda: continuum_od(nu, base, "mt_ckd"), 3)
     ms["route"], _ = cuda_ms(lambda: route(base), 3)
@@ -3607,7 +3990,18 @@ def phase_od_layers(dev, card):
     rel = err / p_out.abs().max().item()
     check(rel <= K1_BOUND, f"K7 full at full width: {rel:.3e} of peak > "
           f"{K1_BOUND}")
-    del p_out
+    # the FAST instantiation against the plain version of its arithmetic
+    pf_ms, pf_out = event_ms(lambda: fused_xsect.xsect_unfused_plain(
+        plan, prm, fast=True))
+    err_f = (kf_out - pf_out).abs().max().item()
+    rel_f = err_f / pf_out.abs().max().item()
+    print(f"[11 breakdown] K7 full FAST vs plain at full width {rel_f:.3e} "
+          f"of peak, plain {pf_ms:.3f} ms [{card}]", flush=True)
+    check(rel_f <= K1_BOUND, f"K7 full FAST at full width: {rel_f:.3e} of "
+          f"peak > {K1_BOUND}")
+    fast_gap("11 K7 full at full width", kf_out, k_out,
+             p_out.abs().max().item(), card)
+    del p_out, pf_out, kf_out
     ops, nbytes, instr = k7_bound_work("full", plan, prm)
     print(f"[11 breakdown] base state, ms per stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
@@ -3619,6 +4013,28 @@ def phase_od_layers(dev, card):
     stats = {}
     add_stats(stats, "full", err, ms["K7 full"], p_ms, ops, nbytes,
               instr=instr)
+    add_stats(stats, fk("full"), err_f, ms["K7 full FAST"], pf_ms, ops,
+              nbytes, instr=k7_bound_work("full", plan, prm, True)[2])
+    # the route with the fast reciprocal (pallas_opts={'fast_rcp': True},
+    # JAX's evaluation option; the route's default is False, as
+    # xsect_pallas's): one call on the base state, its launches counted
+    reset_launches()
+    od_fast = compute_od_layers(store, iso, X, base, engine="pallas",
+                                plan=plan, continuum="mt_ckd",
+                                pallas_opts={"fast_rcp": True})
+    torch.cuda.synchronize()
+    fast_launches = read_launches()
+    check(fast_launches[fk("unfused_full")] == 1
+          and not [k for k, v in fast_launches.items()
+                   if v and k != fk("unfused_full")],
+          f"the route with fast_rcp=True launched {dict(fast_launches)}")
+    check(bool(torch.isfinite(od_fast).all()), "the fast route's OD is not "
+          "finite")
+    del od_fast
+    print(f"[11 route] compute_od_layers(plan=..., pallas_opts={{'fast_rcp': "
+          f"True}}) on the base state: launches {dict(fast_launches)}",
+          flush=True)
+    launches = launches + fast_launches
 
     # a 5 cm^-1 band: the card against the CPU's float64 plain run, and the
     # production builder against the same float64 reference
@@ -3641,9 +4057,10 @@ def phase_od_layers(dev, card):
           f"against it {rel_b:.3e}", flush=True)
     check(rel <= K1_BOUND, f"route card vs CPU float64: {rel:.3e} > "
           f"{K1_BOUND}")
-    check(rel_b <= K1_BOUND, f"make_od_fn card vs CPU float64: {rel_b:.3e} "
-          f"> {K1_BOUND}")
-    return finish_stats(stats)["full"], launches
+    check(rel_b <= K1_BOUND, f"make_od_fn card vs CPU float64: "
+          f"{rel_b:.3e} > {K1_BOUND}")
+    fin = finish_stats(stats)
+    return {"full": fin["full"], fk("full"): fin[fk("full")]}, launches
 
 
 # --------------------------------------------------------------------------
@@ -3741,11 +4158,11 @@ def edge_passes(local_fn, spec, n_spec, prm, Y, line_od, dev, label,
                          .abs().max())
             own = float(want.abs().max())
             check(err <= K1_BOUND * peak,
-                  f"{label} shard {s} {mode}: {err:.3e} > {K1_BOUND} x "
-                  f"line OD peak {peak:.3e}")
+                        f"{label} shard {s} {mode}: {err:.3e} > {K1_BOUND} "
+                        f"x line OD peak {peak:.3e}")
             check(err <= K1_OWN_BOUND[mode] * own,
-                  f"{label} shard {s} {mode}: {err:.3e} > "
-                  f"{K1_OWN_BOUND[mode]} x own peak {own:.3e}")
+                        f"{label} shard {s} {mode}: {err:.3e} > "
+                        f"{K1_OWN_BOUND[mode]} x own peak {own:.3e}")
             w = worst.setdefault(mode, [0.0, 0.0])
             w[0] = max(w[0], err / peak if peak else 0.0)
             w[1] = max(w[1], err / own if own else 0.0)
@@ -3832,8 +4249,9 @@ def phase_sharded(dev, card, x_main, main_products):
         fused_xsect.OFFSET_LAUNCHES.clear()
         out[part] = run(batch)
         torch.cuda.synchronize()
-        launches[part] = read_launches()
-        offsets[part] = dict(fused_xsect.OFFSET_LAUNCHES)
+        launches[part] = fast_path(read_launches(), f"12 ensemble {part}")
+        offsets[part] = dict(fast_path(fused_xsect.OFFSET_LAUNCHES,
+                                       f"12 ensemble {part} offsets"))
         digests[part] = [tensor_digest(t) for t in out[part]]
         for k in (*PRODUCTION_MODES, "tud"):
             check(launches[part][k] > 0, f"kernel {k} was not launched by "
@@ -3949,8 +4367,9 @@ def phase_sharded(dev, card, x_main, main_products):
     prim, tan = run_j(base.T, base.vmr, V_T, V_vmr)
     torch.cuda.synchronize()
     jac_s = time.perf_counter() - t0
-    jac_launches = read_launches()
-    jac_off = dict(fused_xsect.OFFSET_LAUNCHES)
+    jac_launches = fast_path(read_launches(), "12 sharded Jacobian")
+    jac_off = dict(fast_path(fused_xsect.OFFSET_LAUNCHES,
+                             "12 sharded Jacobian offsets"))
     digests["jacobian"] = [tensor_digest(d[k]) for d in (prim, tan)
                            for k in ("tau", "Lu", "Ld")]
     for k in ("full", "jvp"):
@@ -4013,7 +4432,8 @@ def phase_sharded(dev, card, x_main, main_products):
             torch.func.vmap(lambda v: torch.func.jvp(
                 lambda T_: shard(T_, base.p, base.pl, base.vmr),
                 (base.T,), (v,))[1])(V)
-    sd_off = dict(fused_xsect.OFFSET_LAUNCHES)
+    sd_off = dict(fast_path(fused_xsect.OFFSET_LAUNCHES,
+                            "12 sharded SD-Voigt offsets"))
     check(sd_off.get("sdvoigt_jvp", 0) > 0,
           "K4 was not launched with offsets")
     sd_want = torch.func.vmap(lambda v: torch.func.jvp(
@@ -4092,7 +4512,7 @@ def phase_sharded(dev, card, x_main, main_products):
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         _, again = run_tud(cargs, "cuda", mesh=mesh)
-    resumed = read_launches()
+    resumed = fast_path(read_launches(), "12 resumed mesh run")
     t2 = time.perf_counter()
     check("batch 1/2" not in log.getvalue()
           and "batch 2/2" in log.getvalue(),
@@ -4219,8 +4639,9 @@ def span_child(coord, rank, out_path, want):
         fused_xsect.OFFSET_LAUNCHES.clear()
         prods = run(batch)
         torch.cuda.synchronize()
-        launches = read_launches()
-        offsets = dict(fused_xsect.OFFSET_LAUNCHES)
+        launches = fast_path(read_launches(), f"16 ensemble {part}")
+        offsets = dict(fast_path(fused_xsect.OFFSET_LAUNCHES,
+                                 f"16 ensemble {part} offsets"))
         for k in (*PRODUCTION_MODES, "tud"):
             need(launches[k] > 0, f"kernel {k} was not launched by the "
                  f"ensemble ({part})")
@@ -4290,8 +4711,9 @@ def span_child(coord, rank, out_path, want):
                       V_vmr[SHARD_JAC_DIRS])
     torch.cuda.synchronize()
     jac_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_launches()
-    offsets = dict(fused_xsect.OFFSET_LAUNCHES)
+    launches = fast_path(read_launches(), "16 Jacobian")
+    offsets = dict(fast_path(fused_xsect.OFFSET_LAUNCHES,
+                             "16 Jacobian offsets"))
     for k in ("full", "jvp"):
         need(launches[k] > 0 and offsets.get(k, 0) > 0, f"kernel {k} was "
              "not launched with offsets by the Jacobian")
@@ -4465,7 +4887,7 @@ def phase_serving(dev, card):
         build_s[m] = time.perf_counter() - t0
         rows[m] = fns[m](Tt, Pt)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = fast_path(read_launches(), "13 serving lattice")
     print(f"[13 serving] lattice launches (both molecules): "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     for k in ("sdvoigt_asym", "corr:64:sdvoigt", "sdvoigt_core"):
@@ -4573,7 +4995,7 @@ def phase_serving(dev, card):
               "La and Ld must be positive")
         del ref, B
     torch.cuda.synchronize()
-    serve_launches = read_launches()
+    serve_launches = fast_path(read_launches(), "13 served members")
     print(f"[13 serving] {SERVE_MEMBERS} members x {X.size} points: "
           f"launches {dict((k, v) for k, v in serve_launches.items() if v)}"
           f"; the card's float32 OD vs the CPU's float64 od_from_xs on "
@@ -4583,8 +5005,8 @@ def phase_serving(dev, card):
           + " of peak", flush=True)
     check(serve_launches["tud"] == SERVE_MEMBERS, "K2 was not launched once "
           "a served member")
-    check(err64 <= SERVE_F64_BOUND, f"served OD vs float64: {err64:.3e} > "
-          f"{SERVE_F64_BOUND}")
+    check(err64 <= SERVE_F64_BOUND, f"served OD vs float64: "
+          f"{err64:.3e} > {SERVE_F64_BOUND}")
     for prod, e in err_k2.items():
         check(e <= K2_BOUND, f"K2 {prod} on the served OD: {e:.3e} > "
               f"{K2_BOUND}")
@@ -4721,7 +5143,7 @@ def phase_hapi(dev, card):
     reset_launches()
     X, tau, Lu, Ld = rt.compute_TUD(FULL_BAND[0], FULL_BAND[1], **kw)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = fast_path(read_launches(), "15 compat.compute_TUD")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[15a compat] compute_TUD({FULL_BAND[0]:g}, {FULL_BAND[1]:g}, "
           f"engine='pallas', continuum='mt_ckd', DVOUT {FULL_BAND[2]:g}): "
@@ -4906,10 +5328,10 @@ def main():
     run(phase_build)
     warm_up(dev)
     probe = run(phase_probe, dev, card)
-    k1 = run(phase_k1, dev, card)
-    k1d = run(phase_k1_diff, dev, card)
-    xs_stats, full_launches = run(phase_xs_sub, dev, card)
-    ht_stats = run(phase_ht_sub, dev, card)
+    k1, k1_ieee = run(phase_k1, dev, card)
+    k1d, k1d_ieee = run(phase_k1_diff, dev, card)
+    xs_stats, full_launches, xs_ieee = run(phase_xs_sub, dev, card)
+    ht_stats, ht_ieee = run(phase_ht_sub, dev, card)
     k7, k7_launches = run(phase_unfused_sub, dev, card)
     k2 = run(phase_k2, dev, card)
     launches, x_lo, products = run(phase_main, card)
@@ -4918,13 +5340,14 @@ def main():
     run(phase_jnp, dev, card)
     jac_launches = run(phase_jacobian, card)
     xs_launches = {**run(phase_xs_main, dev, card),
-                   **{m: full_launches[m] for m in ("corr:64:voigtfull",
-                                                    "corr:64:sdvoigtfull")}}
+                   **{m: full_launches[fk(m)]
+                      for m in ("corr:64:voigtfull", "corr:64:sdvoigtfull")}}
     ht_launches = run(phase_ht_lattice, dev, card)
     run(phase_ht_layered, dev, card)
     ht_jac_launches = run(phase_ht_jacobian, dev, card)
     run(phase_sdvoigt_jacobian, dev, card)
-    k7["full"], route_launches = run(phase_od_layers, dev, card)
+    k7_full, route_launches = run(phase_od_layers, dev, card)
+    k7.update(k7_full)
     sharded = run(phase_sharded, dev, card, x_lo, products)
     span = run(phase_span, card, sharded)
     serving = run(phase_serving, dev, card)
@@ -4936,39 +5359,70 @@ def main():
     run(phase_ht_breakdown, dev, card)
     src = "radtxfr_tpu_torch/csrc/"
     xs = "radtxfr_tpu/kernels/pallas_xsect.py:"
-    kernels = [
-        {"name": f"fused_xsect_{m}", "route": "cuda",
-         "source": src + "fused_xsect.cu", "replaces": xs + "710",
-         "launches": launches[m], **k1[m]}
-        for m in PRODUCTION_MODES]
-    kernels.append({"name": "fused_xsect_full", "route": "cuda",
-                    "source": src + "fused_xsect.cu", "replaces": xs + "710",
-                    "launches": jac_launches["full"], **k1d["full"]})
-    kernels.append({"name": "fused_xsect_jvp", "route": "cuda",
-                    "source": src + "fused_xsect_jvp.cu",
-                    "replaces": xs + "1212",
-                    "launches": jac_launches["jvp"], **k1d["jvp"]})
-    kernels += [{"name": f"fused_xsect_{m}", "route": "cuda",
-                 "source": src + "fused_xsect.cu", "replaces": xs + "710",
-                 "launches": xs_launches[m], **xs_stats[m]}
-                for m in XS_MODES]
-    kernels.append({"name": "fused_ht", "route": "cuda",
-                    "source": src + "fused_ht.cu", "replaces": xs + "929",
-                    "launches": ht_launches["ht"], **ht_stats["ht"]})
+
+    def pair(name, source, line, key, fast_n, fast_path, ieee_n, ieee_path,
+             stats):
+        """A kernel's FAST entry (``<name>_fast``: the main path's, the
+        builders' default fast_rcp=True) and its IEEE entry (``name``:
+        fast_rcp=False, on the path named), each with its phase-3 numbers
+        (``stats`` keyed by ``key`` and ``fk(key)``)."""
+        cu = src + source + ".cu"
+        return [{"name": f"{name}_fast", "route": "cuda",
+                 "source": src + source + "_fast.cu", "replaces": xs + line,
+                 "fast_rcp": True, "launches": fast_n,
+                 "launch_path": fast_path, **stats[fk(key)]},
+                {"name": name, "route": "cuda", "source": cu,
+                 "replaces": xs + line, "fast_rcp": False,
+                 "launches": ieee_n, "launch_path": ieee_path,
+                 **stats[key]}]
+
+    sub3 = "make_od_fn(fast_rcp=False) on phase 3's sub-band"
+    kernels = []
+    for m in PRODUCTION_MODES:
+        kernels += pair(f"fused_xsect_{m}", "fused_xsect", "710", m,
+                        launches[m], "phase 5 run_tud (production)",
+                        k1_ieee[m], sub3, k1)
+    kernels += pair("fused_xsect_full", "fused_xsect", "710", "full",
+                    jac_launches["full"], "phase 5b run_tud --jacobian",
+                    k1d_ieee["full"], "jvp of make_od_fn(differentiable="
+                    "True, fast_rcp=False) on phase 3b's sub-band", k1d)
+    kernels += pair("fused_xsect_jvp", "fused_xsect_jvp", "1212", "jvp",
+                    jac_launches["jvp"], "phase 5b run_tud --jacobian",
+                    k1d_ieee["jvp"], "jvp of make_od_fn(differentiable="
+                    "True, fast_rcp=False) on phase 3b's sub-band", k1d)
+    for m in XS_MODES:
+        kernels += pair(f"fused_xsect_{m}", "fused_xsect", "710", m,
+                        xs_launches[m], "phase 7 (xsect CLI, bench, "
+                        "single-pass lattices; *full: direct runs)",
+                        xs_ieee[m], "make_xsect_fn(fast_rcp=False) on phase "
+                        "3c's sub-band (*full: direct runs)", xs_stats)
+    kernels += pair("fused_ht", "fused_ht", "929", "ht", ht_launches["ht"],
+                    "phase 9 HT lattice", ht_ieee["ht"],
+                    "make_ht_fn and a jvp of make_od_ht_fn(differentiable="
+                    "True), both fast_rcp=False, on phase 3d's sub-band",
+                    ht_stats)
     kernels.append({"name": "fused_ht_jvp", "route": "cuda",
                     "source": src + "fused_ht.cu", "replaces": xs + "1058",
+                    "fast_rcp": False,
                     "launches": ht_jac_launches["ht_jvp"],
+                    "launch_path": "phase 9c HT Jacobian",
                     **ht_stats["ht_jvp"]})
-    kernels.append({"name": "fused_xsect_sdvoigt_jvp", "route": "cuda",
-                    "source": src + "fused_xsect_jvp.cu",
-                    "replaces": xs + "1324",
-                    "launches": ht_jac_launches["sdvoigt_jvp"],
-                    **ht_stats["sdvoigt_jvp"]})
-    kernels += [{"name": f"unfused_xsect_{m}", "route": "cuda",
-                 "source": src + "fused_xsect.cu", "replaces": xs + "659",
-                 "launches": (route_launches if m == "full"
-                              else k7_launches)[f"unfused_{m}"], **k7[m]}
-                for m in K7_MODES]
+    kernels += pair("fused_xsect_sdvoigt_jvp", "fused_xsect_jvp", "1324",
+                    "sdvoigt_jvp", ht_jac_launches["sdvoigt_jvp"],
+                    "phase 9c HT Jacobian", ht_ieee["sdvoigt_jvp"],
+                    "jvp of make_od_ht_fn(differentiable=True, fast_rcp="
+                    "False) on phase 3d's sub-band", ht_stats)
+    for m in K7_MODES:
+        k = f"unfused_{m}"
+        full = m == "full"
+        kernels += pair(
+            f"unfused_xsect_{m}", "fused_xsect", "659", m,
+            (route_launches if full else k7_launches)[fk(k)],
+            "phase 11 compute_od_layers(plan=..., pallas_opts={'fast_rcp': "
+            "True})" if full else "phase 3e direct launch",
+            (route_launches if full else k7_launches)[k],
+            "phase 11 compute_od_layers(plan=...) (its default, as JAX's "
+            "xsect_pallas)" if full else "phase 3e direct launch", k7)
     kernels.append({"name": "fp32_peak_probe", "route": "cuda",
                     "source": src + "peak_probe.cu",
                     "replaces": "bench.py:193, tools/vpu_peak_probe.py:62",
@@ -4984,35 +5438,43 @@ def main():
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",
                     **k2["tud_b"]})
+
+    def path_key(entry):
+        """The kernel key of an entry that the fast_rcp=True paths below
+        (phases 12, 13, 15, 16) launch: a FAST entry's, or one without a
+        FAST instantiation; None for an IEEE entry."""
+        if entry.get("fast_rcp") is False and entry["name"] != "fused_ht_jvp":
+            return None
+        return entry["name"].replace("fused_xsect_", "", 1).replace(
+            "fused_tud", "tud").removesuffix("_fast")
+
     # the launches with per-tile grid offsets (phase 12): K1's production
     # modes in the sharded ensemble, K1 full and K3 in the sharded Jacobian,
     # K4 (and K3) in the sharded SD-Voigt tangents
     for entry in kernels:
-        key = entry["name"].replace("fused_xsect_", "", 1)
+        key = path_key(entry)
         for path in ("ensemble", "jacobian", "sdvoigt"):
-            if sharded[path].get(key):
+            if key and sharded[path].get(key):
                 entry["offset_launches"] = sharded[path][key]
                 entry["offset_path"] = f"phase 12 sharded {path}"
                 break
     # the launches in each of phase 16's two processes (the weighted
     # ensemble's, the Jacobian's)
     for entry in kernels:
-        key = entry["name"].replace("fused_xsect_", "", 1).replace(
-            "fused_tud", "tud")
+        key = path_key(entry)
         if key in span and entry["name"] != "fused_tud_source_input":
             entry["span_launches"] = span[key]
             entry["span_path"] = "phase 16 mesh over two processes"
     # the launches of the serving path (phase 13): K1's lattice modes and
     # K2 on the served OD
     for entry in kernels:
-        key = entry["name"].replace("fused_xsect_", "", 1).replace(
-            "fused_tud", "tud")
+        key = path_key(entry)
         if key in serving and entry["name"] != "fused_tud_source_input":
             entry["serving_launches"] = serving[key]
             entry["serving_path"] = "phase 13 serving"
     # the launches of compat.compute_TUD (phase 15): K1 asym and core
     for entry in kernels:
-        key = entry["name"].replace("fused_xsect_", "", 1)
+        key = path_key(entry)
         if entry["name"].startswith("fused_xsect_") and key in compat:
             entry["compat_launches"] = compat[key]
             entry["compat_path"] = "phase 15 compat.compute_TUD"

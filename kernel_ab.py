@@ -1,12 +1,19 @@
-"""This checkout's port against another checkout's, on one card.
+"""This checkout's port against another checkout's, on one card, or its
+kernels' IEEE instantiations against their FAST ones (the fast reciprocal).
 
     python3 kernel_ab.py --parent DIR [--out PATH] [--reps 5] [--rounds 1]
+                         [--only SECTION,...]
+    python3 kernel_ab.py --fast-ab [--out PATH] [--reps 5] [--rounds 1]
                          [--only SECTION,...]
 
 Run from the repository root. ``DIR`` is another checkout (an unpacked
 ``git archive`` of an earlier commit). The measurements run in four
 processes, in turns: the other checkout's, this one's, this one's, the
-other's (``--rounds`` times). Each process runs from its own checkout, imports that checkout's
+other's (``--rounds`` times). With ``--fast-ab`` all four are this
+checkout's: the "other" side runs every builder with ``fast_rcp=False``
+and every direct kernel call with ``fast=False`` (the IEEE
+instantiations), "this" side with True (the FAST ones, the builders'
+default), on the same inputs. Each process runs from its own checkout, imports that checkout's
 ``radtxfr_tpu_torch`` and ``chip_smoke.py`` (for the configurations),
 builds that checkout's kernels there, and measures on inputs made from the
 same seeds:
@@ -116,9 +123,12 @@ def digest(t):
                           ).hexdigest()
 
 
-def child(out_path, reps, only=None):
+def child(out_path, reps, only=None, rcp=None):
     """Measure the checkout in the working directory (the sections
-    ``only``, or all); write the JSON."""
+    ``only``, or all); write the JSON. ``rcp`` ("ieee" or "fast", with
+    ``--fast-ab``) sets every builder's ``fast_rcp`` and every direct
+    kernel call's ``fast``; None leaves the checkout's defaults (an older
+    checkout's kernels take neither)."""
     sys.path[0] = os.getcwd()
     import numpy as np
     import torch
@@ -149,6 +159,9 @@ def child(out_path, reps, only=None):
     res = {"ms": {}, "passes": {}}
     ms = res["ms"]
     want = lambda name: only is None or name in only  # noqa: E731
+    # the builders' fast_rcp and the direct calls' fast, where asked
+    bo = {} if rcp is None else {"fast_rcp": rcp == "fast"}
+    ko = {} if rcp is None else {"fast": rcp == "fast"}
 
     def record(key, fn, card=False):
         """Time one kernel pass; its ms add up under ``key`` (``card``:
@@ -168,7 +181,7 @@ def child(out_path, reps, only=None):
         for call in calls:
             ht = call[2] == "ht"
             record(f"K5 {case}" if ht else f"K1 {case} {call[2]}",
-                   lambda c=call, ht=ht: cs.ht_primal(c, prm) if ht
+                   lambda c=call, ht=ht: cs.ht_primal(c, prm, **ko) if ht
                    else fn.run_call(c, prm, Y), card=ht)
 
     iso = IsoTables.load(device=dev, dtype=f32)
@@ -178,7 +191,7 @@ def child(out_path, reps, only=None):
         # so measured before the rest of the process's allocations
         jac_store, extras = cs.ht_jac_case(dev)
         fn = make_od_ht_fn(jac_store, iso, arange_drift_free(*cs.HT_JAC_BAND),
-                           b64, extras=extras, differentiable=True)
+                           b64, extras=extras, differentiable=True, **bo)
         e3 = torch.zeros_like(b64.T)
         e3[cs.HT_JAC_LAYER] = 1.0
 
@@ -206,7 +219,8 @@ def child(out_path, reps, only=None):
             if want("k4" if k == "K4" else "ht"):
                 for name, t in sets.items():
                     record(f"{k} ht jacobian {name}",
-                           lambda c=call, t=t: cs.ht_tangent(c, hprm, t),
+                           lambda c=call, t=t: cs.ht_tangent(c, hprm, t,
+                                                             **ko),
                            card=True)
         del fn, jac_store, hprm, htans, hdense, h3
 
@@ -218,7 +232,7 @@ def child(out_path, reps, only=None):
                                    nu_max=cs.HT_LINES["nu_max"], seed=0,
                                    device=dev)
         sfn = make_od_fn(sd_store, iso, arange_drift_free(*cs.HT_BAND), b64,
-                         profile="sdvoigt", differentiable=True)
+                         profile="sdvoigt", differentiable=True, **bo)
 
         def sd_prm(T_):
             q = sfn.line_params(T_, b64.p, b64.pl, b64.vmr)[0]
@@ -231,7 +245,7 @@ def child(out_path, reps, only=None):
         for call in sfn.calls:
             if call[2] == "sdvoigt":
                 record("K4 sdvoigt od one-hot",
-                       lambda c=call: cs.ht_tangent(c, sprm, stans),
+                       lambda c=call: cs.ht_tangent(c, sprm, stans, **ko),
                        card=True)
         del sfn, sd_store, sprm, stans
 
@@ -239,7 +253,7 @@ def child(out_path, reps, only=None):
         # K5 on the layered HT OD's ht passes (phase 9b)
         lstore, lextras = cs.ht_layered_case(dev)
         lfn = make_od_ht_fn(lstore, iso, arange_drift_free(*cs.HT_BAND), b64,
-                            extras=lextras)
+                            extras=lextras, **bo)
         lprm = lfn.line_params(b64.T, b64.p, b64.pl, b64.vmr)
         k1("ht layered", lfn, lprm, [c for c in lfn.calls if c[2] == "ht"])
         del lfn, lstore, lprm
@@ -259,7 +273,7 @@ def child(out_path, reps, only=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         od_fn = make_od_fn(store, iso, X, base, continuum="mt_ckd",
-                           line_mixing={"y_air": y})
+                           line_mixing={"y_air": y}, **bo)
         torch.cuda.synchronize()
         ms["plan build"] = (time.perf_counter() - t0) * 1e3
         ms["line_params"], (prm, Y) = events_ms(
@@ -287,7 +301,7 @@ def child(out_path, reps, only=None):
         # the differentiable OD builder's full passes (the Jacobian path)
         # and K3 on them for the production batch (8 one-hot T directions)
         jac = make_od_fn(store, iso, X, base, continuum="mt_ckd",
-                         differentiable=True)
+                         differentiable=True, **bo)
         jprm = jac.line_params(T, p, pl, vmr)[0]
         k1("jacobian", jac, jprm, jac.calls)
         tans = [t.contiguous() for t in cs.t_tangents(
@@ -299,9 +313,11 @@ def child(out_path, reps, only=None):
             args = (dplan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
                     jprm.gamma_0, jprm.wing)
             record("K3 jacobian one-hot", lambda args=args:
-                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI))
+                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI,
+                                               **ko))
             record("K3 jacobian dense T", lambda args=args:
-                   fused_xsect.xsect_fused_jvp(*args, *dense, cs.N_WEI))
+                   fused_xsect.xsect_fused_jvp(*args, *dense, cs.N_WEI,
+                                               **ko))
         del jac, jprm, tans, dense
 
     if want("k7"):
@@ -310,7 +326,7 @@ def child(out_path, reps, only=None):
         plan = make_od_plan(store, iso, X, base)
         kprm = layer_line_params(store, iso, base, cols)
         record("K7 full width full",
-               lambda: fused_xsect.xsect_unfused(plan, kprm))
+               lambda: fused_xsect.xsect_unfused(plan, kprm, **ko))
         del plan, kprm
         sstore, siso, sX, sbase = cs.unfused_case(dev, cs.SUB_BAND)
         splan = make_od_plan(sstore, siso, sX, sbase)
@@ -319,10 +335,10 @@ def child(out_path, reps, only=None):
                 for m in ("voigt", "lorentz", "doppler")}
         for m in fused_xsect.UNFUSED_MODES:
             record(f"K7 sub-band {m}", lambda m=m: fused_xsect.xsect_unfused(
-                splan, sprm.get(m, sprm["voigt"]), m))
+                splan, sprm.get(m, sprm["voigt"]), m, **ko))
         del sstore, splan, sprm
     if want("sharded"):
-        sharded_section(cs, record, store, iso, base, b64, dev)
+        sharded_section(cs, record, store, iso, base, b64, dev, bo, ko)
     if want("production") or want("jacobian") or want("k7") \
             or want("sharded"):
         del store
@@ -362,7 +378,7 @@ def child(out_path, reps, only=None):
         xs = make_xsect_fn(xs_store, iso,
                            arange_drift_free(a.numin, a.numax, a.dv),
                            cs.XS_T, np.ones_like(cs.XS_T), profile="sdvoigt",
-                           wing_abs=cs.XS_WING)
+                           wing_abs=cs.XS_WING, **bo)
         k1("xs lattice", xs, xs.line_params(Ts, ps), xs.all_calls())
         del xs, xs_store
 
@@ -373,7 +389,7 @@ def child(out_path, reps, only=None):
         def build(**kw):
             return make_xsect_fn(sub, iso, Xs, cs.XS_T, np.ones_like(cs.XS_T),
                                  wing_abs=cs.XS_WING,
-                                 tile=cs.XS_BENCH["tile"], **kw)
+                                 tile=cs.XS_BENCH["tile"], **kw, **bo)
 
         main = build(profile="sdvoigt")
         full_calls = [(c[0], c[1], c[2] + "full")
@@ -389,7 +405,7 @@ def child(out_path, reps, only=None):
         # the HT lattice (phase 8)
         ht_store, extras = cs.ht_lattice_case(dev)
         ht = make_ht_fn(ht_store, iso, arange_drift_free(*cs.HT_BAND),
-                        cs.XS_T, np.ones_like(cs.XS_T), extras=extras)
+                        cs.XS_T, np.ones_like(cs.XS_T), extras=extras, **bo)
         k1("ht lattice", ht, ht.line_params(Ts, ps), ht.all_calls())
         del ht, ht_store
 
@@ -427,11 +443,12 @@ def shard_variants(dplan, n_spec=2):
     return out
 
 
-def sharded_section(cs, record, store, iso, base, b64, dev):
+def sharded_section(cs, record, store, iso, base, b64, dev, bo, ko):
     """K1 (the production member's passes), K3 (the Jacobian's one-hot
     batch) and K4 (phase 9d's one-hot batch) on plans of a grid padded for
     2 spectral shards: unsharded, with zero offsets, and as the two shards
-    with their offsets (their milliseconds summed under one key)."""
+    with their offsets (their milliseconds summed under one key); ``bo``
+    and ``ko`` the builders' and the direct calls' options (``child``)."""
     import torch
 
     from radtxfr_tpu_torch.core.grid import arange_drift_free
@@ -452,7 +469,7 @@ def sharded_section(cs, record, store, iso, base, b64, dev):
     od_fn = make_od_fn(store, iso, g, base, continuum="mt_ckd",
                        line_mixing={"y_air": y_air_for_store(
                            store.host_view())},
-                       group_ratio=1.6, far_method="classic")
+                       group_ratio=1.6, far_method="classic", **bo)
     prm, Y = od_fn.line_params(T, p, pl, vmr)
     for lay, dplan, mode in od_fn.calls:
         for label, plan in shard_variants(dplan):
@@ -461,7 +478,7 @@ def sharded_section(cs, record, store, iso, base, b64, dev):
     del od_fn, prm, Y
     jac = make_od_fn(store, iso, g, base, continuum="mt_ckd",
                      differentiable=True, group_ratio=1.6,
-                     far_method="classic")
+                     far_method="classic", **bo)
     jprm = jac.line_params(T, p, pl, vmr)[0]
     tans = [t.contiguous() for t in cs.t_tangents(jac, base,
                                                    cs.one_hot_batch(dev))]
@@ -470,7 +487,8 @@ def sharded_section(cs, record, store, iso, base, b64, dev):
             args = (plan, lay, jprm.shift0, jprm.strength, jprm.gamma_d,
                     jprm.gamma_0, jprm.wing)
             record(f"K3 sharded one-hot {label}", lambda args=args:
-                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI),
+                   fused_xsect.xsect_fused_jvp(*args, *tans, cs.N_WEI,
+                                               **ko),
                    card=True)
     del jac, jprm, tans
     sd_store = synthetic_lines(cs.HT_LINES["n_lines"],
@@ -478,7 +496,8 @@ def sharded_section(cs, record, store, iso, base, b64, dev):
                                nu_max=cs.HT_LINES["nu_max"], seed=0,
                                device=dev)
     sfn = make_od_fn(sd_store, iso, padded(cs.HT_BAND), b64,
-                     profile="sdvoigt", differentiable=True, group_ratio=1.6)
+                     profile="sdvoigt", differentiable=True, group_ratio=1.6,
+                     **bo)
 
     def sd_prm(T_):
         q = sfn.line_params(T_, b64.p, b64.pl, b64.vmr)[0]
@@ -492,8 +511,8 @@ def sharded_section(cs, record, store, iso, base, b64, dev):
         if mode == "sdvoigt":
             for label, plan in shard_variants(dplan):
                 record(f"K4 sharded one-hot {label}",
-                       lambda c=(lay, plan, mode): cs.ht_tangent(c, sprm,
-                                                                 stans),
+                       lambda c=(lay, plan, mode): cs.ht_tangent(
+                           c, sprm, stans, **ko),
                        card=True)
 
 
@@ -505,6 +524,11 @@ SECTIONS = tuple(dict.fromkeys(re.findall(r'want\("(\w+)"\)',
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
+    ap.add_argument("--fast-ab", action="store_true",
+                    help="this checkout's IEEE instantiations (other) "
+                    "against its FAST ones (this)")
+    ap.add_argument("--rcp", choices=("ieee", "fast"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", help="write the results there as JSON")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1,
@@ -517,9 +541,9 @@ def main(argv=None):
     if only is not None and not set(only) <= set(SECTIONS):
         ap.error(f"--only: unknown section in {a.only!r}")
     if a.child:
-        return child(a.child, a.reps, only)
-    if not a.parent:
-        ap.error("--parent is required")
+        return child(a.child, a.reps, only, a.rcp)
+    if not a.parent and not a.fast_ab:
+        ap.error("--parent or --fast-ab is required")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -529,7 +553,10 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    trees = {"other": os.path.abspath(a.parent), "this": here}
+    trees = {"other": here if a.fast_ab else os.path.abspath(a.parent),
+             "this": here}
+    rcp = {"other": ["--rcp", "ieee"], "this": ["--rcp", "fast"]} \
+        if a.fast_ab else {"other": [], "this": []}
     runs = {"other": [], "this": []}
     with tempfile.TemporaryDirectory() as tmp:
         order = ("other", "this", "this", "other") * a.rounds
@@ -538,14 +565,18 @@ def main(argv=None):
             t0 = time.perf_counter()
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child", path, "--reps", str(a.reps)]
-                           + (["--only", a.only] if a.only else []),
+                           + (["--only", a.only] if a.only else [])
+                           + rcp[who],
                            cwd=trees[who], check=True)
             with open(path) as f:
                 runs[who].append(json.load(f))
             print(f"[ab] {who} ({trees[who]}) measured in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-    res = {"card": card, "other": trees["other"], "runs": runs,
-           "ms": {}, "passes": {}}
+    res = {"card": card, "other": ("IEEE instantiations (fast_rcp=False)"
+                                   if a.fast_ab else trees["other"]),
+           "this": ("FAST instantiations (fast_rcp=True)" if a.fast_ab
+                    else "this checkout"),
+           "runs": runs, "ms": {}, "passes": {}}
 
     def mean(vals):
         vals = [v for v in vals if v is not None]

@@ -2,6 +2,8 @@
 
 At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a
 shared library of its own with a plain C interface under ``_build/``
+(``*_fast.cu`` include another source with ``RADTXFR_FAST`` set: its
+kernels' FAST instantiations, entries named with ``_fast``, :func:`entry`)
 (listed in ``.gitignore``), all sources at once in parallel processes; each
 library is named by the hash of the flags, its source and the headers it
 includes (``#include "..."``, followed into the headers' own), so an edited
@@ -60,6 +62,8 @@ _SIGNATURES = {
                               P, I, I, I, I, I, ctypes.c_double, P, P],
     # op, n_chains, depth, y0, a, b, iters, n, out, stream
     "radtxfr_fp32_probe": [I, I, I, P, F, F, I, I, P, P],
+    # out (2^23 float32), stream
+    "radtxfr_rcp_approx_table": [P, P],
     # starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
     # n_lay_call, live ((n_dir, n_lay) int32), shift0, strength, gamma_d,
     # gamma_0, wing, shift0_t, strength_t, gamma_d_t, gamma_0_t, n_dir,
@@ -93,6 +97,13 @@ _SIGNATURES = {
     "radtxfr_fused_tud": [P, P, P, I, I, I, P, I, P, I, P, P, I, I, P, P, P,
                           P],
 }
+#: the entries whose kernels also have a FAST build (``csrc/*_fast.cu``:
+#: the TPU kernels' fast reciprocal, JAX's ``fast_rcp=True``), each with
+#: ``_fast`` at the end of its name and the same arguments
+FAST_ENTRIES = ("radtxfr_fused_xsect", "radtxfr_unfused_xsect",
+                "radtxfr_fused_xsect_jvp", "radtxfr_fused_sdvoigt_jvp",
+                "radtxfr_fused_ht")
+_SIGNATURES.update({f"{n}_fast": _SIGNATURES[n] for n in FAST_ENTRIES})
 
 
 def _find_nvcc() -> str:
@@ -231,6 +242,15 @@ def tool(name: str) -> str:
     """A CUDA toolkit program beside ``nvcc`` (``cuobjdump``,
     ``nvdisasm``)."""
     return os.path.join(os.path.dirname(_find_nvcc()), name)
+
+
+def entry(name: str, fast: bool = False):
+    """The built C entry ``name``, or with ``fast`` its FAST build's
+    (``name`` + ``_fast``: the kernels' fast reciprocal); raises for an
+    entry that has no FAST build."""
+    if fast and name not in FAST_ENTRIES:
+        raise ValueError(f"{name} has no FAST build")
+    return getattr(library(), f"{name}_fast" if fast else name)
 
 
 @functools.lru_cache(maxsize=1)

@@ -33,6 +33,11 @@
 // own, so that where the real-pair square root's tangent is ill-conditioned
 // (Im(X + Y) crossing zero) K6 rounds as the plain version does; division is
 // exact (JAX's tangent kernel forces fast=False, pallas_xsect.py:1143-1147).
+// K5's FAST instantiation (fused_ht_fast.cu, fast_rcp=True) takes the fast
+// reciprocal (k1_skeleton.cuh::rcp_fast) at the w(Z) forms' three
+// reciprocals (w_wei's 1/|e|^2 and 1/|e^2|^2, w_asym's 1/|0.5 - z^2|^2),
+// where pallas_xsect.py::_voigt_w_KL calls _rcp(., fast); every other
+// division of pcqsdhc stays IEEE, as in JAX; that build holds no K6.
 // A Dual<N>'s tangent lanes are computed independently by the same
 // intrinsics whatever N, so Dual<1> gives each direction the bits its lane
 // of a wider dual number would.
@@ -265,6 +270,22 @@ __device__ __forceinline__ Dual<N> floor_(const Dual<N>& a, float g) {
 
 template <class T> __device__ __forceinline__ T cst(float x) { return T(x); }
 
+// 1/a at the reciprocals of the w(Z) forms, where JAX calls _rcp(., fast)
+// (_voigt_w_KL): the fast reciprocal in K5's FAST instantiation; K6's dual
+// numbers always divide exactly (JAX's tangent kernel forces fast=False)
+template <bool FAST>
+__device__ __forceinline__ Rn wrecip(Rn a) {
+  if constexpr (FAST)
+    return rcp_fast(a.v);
+  else
+    return recip(a);
+}
+template <bool FAST, int N>
+__device__ __forceinline__ Dual<N> wrecip(const Dual<N>& a) {
+  static_assert(!FAST, "K6 has no fast reciprocal");
+  return recip(a);
+}
+
 // ---- real-pair complex helpers (kernels/htp_real.py) ------------------------
 
 template <class T>
@@ -294,13 +315,13 @@ __device__ __forceinline__ Cx<T> csqrt(const Cx<T>& a) {
 
 // (Re w, Im w) of the Weideman series, |x| + y < 15
 // (fused_xsect.py::_voigt_w_KL)
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ Cx<T> w_wei(const T& x, const T& y,
                                        const float* wei, int n_wei) {
   const float L = wei[0];
   const T nr = L - y, ni = x;
   const T er = L + y, ei = -x;
-  const T inv_e = recip(er * er + ei * ei);
+  const T inv_e = wrecip<FAST>(er * er + ei * ei);
   const T zr = (nr * er + ni * ei) * inv_e;
   const T zi = (ni * er - nr * ei) * inv_e;
   T pr = cst<T>(wei[1]), pi = cst<T>(0.0f);
@@ -311,29 +332,29 @@ __device__ __forceinline__ Cx<T> w_wei(const T& x, const T& y,
   }
   const T sr = er * er - ei * ei;
   const T si = (2.0f * er) * ei;
-  const T inv_s = recip(sr * sr + si * si);
+  const T inv_s = wrecip<FAST>(sr * sr + si * si);
   return {(2.0f * (pr * sr + pi * si)) * inv_s + (INV_SQRT_PI * er) * inv_e,
           (2.0f * (pi * sr - pr * si)) * inv_s - (INV_SQRT_PI * ei) * inv_e};
 }
 
 // (Re w, Im w) of the unguarded asymptotic form, outside |x| + y < 15
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ Cx<T> w_asym(const T& x, const T& y) {
   const T dr = (0.5f + y * y) - x * x;
   const T di = (-2.0f * x) * y;
-  const T inv = INV_SQRT_PI * recip(dr * dr + di * di);
+  const T inv = INV_SQRT_PI * wrecip<FAST>(dr * dr + di * di);
   return {(y * dr - x * di) * inv, (-(x * dr + y * di)) * inv};
 }
 
 // (Re w, Im w) by hum1_wei's region rule; `far` (uniform across the warp):
 // the caller knows the point lies outside |x| + y < 15
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ Cx<T> voigt_w(const T& x, const T& y,
                                          const float* wei, int n_wei,
                                          bool far) {
   if (!far && __fadd_rn(fabsf(x.v), y.v) < REGION_BOUND)
-    return w_wei(x, y, wei, n_wei);
-  return w_asym(x, y);
+    return w_wei<FAST>(x, y, wei, n_wei);
+  return w_asym<FAST>(x, y);
 }
 
 // hapi's 15-term asymptotic CPF (fused_xsect.py::_cpf3_pair), |z|^2 >= 9
@@ -358,10 +379,10 @@ __device__ __forceinline__ Cx<T> cpf3(const T& x, const T& y) {
 }
 
 // hapi's CPF convention: w at (x, y) = (-Im Z, Re Z)
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ Cx<T> w_of(const Cx<T>& z, const float* wei,
                                       int n_wei, bool far) {
-  return voigt_w(-z.i, z.r, wei, n_wei, far);
+  return voigt_w<FAST>(-z.i, z.r, wei, n_wei, far);
 }
 
 // |z| on the values only (it decides branches)
@@ -443,17 +464,17 @@ __device__ __forceinline__ Cx<T> ht_b1_small(const Cx<T>& z1,
 }
 
 // PART1 (Gamma2 = Shift2 = 0)
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ void ht_part1(const Cx<T>& z1, const HtPair<T>& h,
                                          const float* wei, int n_wei,
                                          bool far, Cx<T>& A, Cx<T>& B) {
-  const Cx<T> w1 = w_of(z1, wei, n_wei, far);
+  const Cx<T> w1 = w_of<FAST>(z1, wei, n_wei, far);
   A = {h.rc * w1.r, h.rc * w1.i};
   B = mag(z1) > 4.0e3f ? ht_b1_big(z1, w1, h) : ht_b1_small(z1, w1, h);
 }
 
 // PART4, with the CPF3-vs-CPF sub-selection (none where `far`)
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ void ht_part4(const Cx<T>& sxy, const HtPair<T>& h,
                                          const float* wei, int n_wei,
                                          bool far, Cx<T>& A, Cx<T>& B) {
@@ -466,8 +487,10 @@ __device__ __forceinline__ void ht_part4(const Cx<T>& sxy, const HtPair<T>& h,
     use3 = fabsf(__fsub_rn(sz1, sz2)) <= 1.0f && fmaxf(sz1, sz2) > 8.0f &&
            fminf(sz1, sz2) <= 8.0f;
   }
-  const Cx<T> w14 = use3 ? cpf3(-Z1.i, Z1.r) : w_of(Z1, wei, n_wei, far);
-  const Cx<T> w24 = use3 ? cpf3(-Z2.i, Z2.r) : w_of(Z2, wei, n_wei, far);
+  const Cx<T> w14 =
+      use3 ? cpf3(-Z1.i, Z1.r) : w_of<FAST>(Z1, wei, n_wei, far);
+  const Cx<T> w24 =
+      use3 ? cpf3(-Z2.i, Z2.r) : w_of<FAST>(Z2, wei, n_wei, far);
   A = {h.rc * (w14.r - w24.r), h.rc * (w14.i - w24.i)};
   const Cx<T> s1 = cmul(Z1, Z1), s2 = cmul(Z2, Z2);
   const Cx<T> t1 = cmul(Cx<T>{1.0f - s1.r, -s1.i}, w14);
@@ -484,13 +507,13 @@ struct AB {
 
 // PART2 (|X| tiny against |Y|): never for physical parameters, so out of
 // line (its operands by value: no local copies on the common path)
-template <class T>
+template <bool FAST, class T>
 __device__ __noinline__ AB<T> ht_part2(Cx<T> z1, Cx<T> sxy,
                                        const HtPair<T>& h, const float* wei,
                                        int n_wei) {
   const Cx<T> z2b = {sxy.r + h.cy.r, sxy.i + h.cy.i};
-  const Cx<T> w12 = w_of(z1, wei, n_wei, false);
-  const Cx<T> w22 = w_of(z2b, wei, n_wei, false);
+  const Cx<T> w12 = w_of<FAST>(z1, wei, n_wei, false);
+  const Cx<T> w22 = w_of<FAST>(z2b, wei, n_wei, false);
   AB<T> o;
   o.A = {h.rc * (w12.r - w22.r), h.rc * (w12.i - w22.i)};
   const Cx<T> s1 = cmul(z1, z1), s2 = cmul(z2b, z2b);
@@ -502,19 +525,19 @@ __device__ __noinline__ AB<T> ht_part2(Cx<T> z1, Cx<T> sxy,
 }
 
 // PART3 (|Y| tiny against |X|): never for physical parameters, out of line
-template <class T>
+template <bool FAST, class T>
 __device__ __noinline__ AB<T> ht_part3(Cx<T> X, Cx<T> sxy,
                                        const HtPair<T>& h, const float* wei,
                                        int n_wei) {
   const Cx<T>& Y = h.Y;
   const Cx<T>& ic2 = h.ic2;
-  const Cx<T> wxy = w_of(sxy, wei, n_wei, false);
+  const Cx<T> wxy = w_of<FAST>(sxy, wei, n_wei, false);
   const Cx<T> sX = csqrt(X);
   const Cx<T> cc = {(1.0f - X.r) - 2.0f * Y.r, (-X.i) - 2.0f * Y.i};
   const Cx<T> sw = cmul(sxy, wxy);
   AB<T> o;
   if (mag(sX) <= 4.0e3f) {
-    const Cx<T> wx = w_of(sX, wei, n_wei, false);
+    const Cx<T> wx = w_of<FAST>(sX, wei, n_wei, false);
     const Cx<T> sxwx = cmul(sX, wx);
     const Cx<T> g = {INV_SQRT_PI - sxwx.r, -sxwx.i};
     o.A = cmul(Cx<T>{TWO_RPI * g.r, TWO_RPI * g.i}, ic2);
@@ -535,7 +558,7 @@ __device__ __noinline__ AB<T> ht_part3(Cx<T> X, Cx<T> sxy,
 }
 
 // PART2-4 (Gamma2 or Shift2 live): X, sqrt(X + Y) and the part's A, B
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ void ht_part234(const Cx<T>& t0, const Cx<T>& z1,
                                            const HtPair<T>& h,
                                            const float* wei, int n_wei,
@@ -546,12 +569,12 @@ __device__ __forceinline__ void ht_part234(const Cx<T>& t0, const Cx<T>& z1,
   const bool part3 = !part2 && h.absY <= __fmul_rn(1.0e-15f, absX);
   const Cx<T> sxy = csqrt(Cx<T>{X.r + h.Y.r, X.i + h.Y.i});
   if (part2 || part3) {
-    const AB<T> o = part2 ? ht_part2(z1, sxy, h, wei, n_wei)
-                          : ht_part3(X, sxy, h, wei, n_wei);
+    const AB<T> o = part2 ? ht_part2<FAST>(z1, sxy, h, wei, n_wei)
+                          : ht_part3<FAST>(X, sxy, h, wei, n_wei);
     A = o.A;
     B = o.B;
   } else {
-    ht_part4(sxy, h, wei, n_wei, far, A, B);
+    ht_part4<FAST>(sxy, h, wei, n_wei, far, A, B);
   }
 }
 
@@ -567,16 +590,16 @@ __device__ __forceinline__ T ht_ls(const Cx<T>& A, const Cx<T>& B,
 
 // Re LS of pcqsdhc at dnu for the pair h: the operations of
 // kernels/htp_real.py::pcqsdhc_real on the part the point selects
-template <class T>
+template <bool FAST, class T>
 __device__ __forceinline__ T pcqsdhc(float dnu, const HtPair<T>& h,
                                      const float* wei, int n_wei, bool far) {
   const Cx<T> t0 = {h.k1, (-dnu) + h.k2};     // i(sg0 - sg) + c0t
   const Cx<T> z1 = {t0.r * h.cte, t0.i * h.cte};
   Cx<T> A, B;
   if (h.part1)
-    ht_part1(z1, h, wei, n_wei, far, A, B);
+    ht_part1<FAST>(z1, h, wei, n_wei, far, A, B);
   else
-    ht_part234(t0, z1, h, wei, n_wei, far, A, B);
+    ht_part234<FAST>(t0, z1, h, wei, n_wei, far, A, B);
   return ht_ls(A, B, h);
 }
 
@@ -646,8 +669,9 @@ __device__ __forceinline__ float accumulate(float sum, const Dual<1>& s,
 
 // K5's (TAN false) and K6's policy of the row skeleton
 // (k1_skeleton.cuh::row_skeleton): K5's rows are the layers of the call
-// (n_dir 1, no live table), K6's (direction, layer) rows
-template <bool TAN>
+// (n_dir 1, no live table), K6's (direction, layer) rows; FAST: the fast
+// reciprocal in the w(Z) forms (K5 only)
+template <bool TAN, bool FAST>
 struct HtRows {
   using T = typename Scalar<TAN>::type;
   static constexpr int N_PRM = NP, N_TAN = TAN ? NT : 0, I_WING = 1;
@@ -688,42 +712,39 @@ struct HtRows {
                                                float dx) {
     const float wu = kept.wingu[i][k];
     if (!pt_live || !(u > -wu && u <= wu)) return sum;
-    const T ls = pcqsdhc<T>(__fmul_rn(u, dx), kept.pair[i][k], wei, n_wei,
-                            far);
+    const T ls = pcqsdhc<FAST>(__fmul_rn(u, dx), kept.pair[i][k], wei,
+                               n_wei, far);
     return accumulate(sum, kept.s[i][k], ls);
   }
 };
 
-template <bool TAN>
+template <bool TAN, bool FAST>
 __global__ void __launch_bounds__(ROW_THREADS)
 fused_ht_kernel(const RowArgs<HtPtrs> args) {
-  __shared__ RowSmem<HtRows<TAN>> sm;
+  __shared__ RowSmem<HtRows<TAN, FAST>> sm;
   __shared__ float s_wei[MAX_WEI + 1];
-  row_skeleton<HtRows<TAN>>(args, sm, s_wei);
+  row_skeleton<HtRows<TAN, FAST>>(args, sm, s_wei);
 }
 
-int launch(bool tan, const void* starts, const void* counts,
-           const void* k_line, const void* frac0, const void* line,
-           const void* wcap, const void* tile_off, const void* lay_idx,
-           int n_lay_call,
+// K5 (TAN false, this build's FAST) or K6 (TAN true, IEEE only)
+template <bool TAN, bool FAST>
+int launch(const void* starts, const void* counts, const void* k_line,
+           const void* frac0, const void* line, const void* wcap,
+           const void* tile_off, const void* lay_idx, int n_lay_call,
            const void* live, const HtPtrs& ptr, int n_dir, int n_lay,
            int n_lines, const void* wei, int n_wei, int tile, int block,
            int n_tiles, int n_out, double dx, void* out, void* stream) {
-#define RADTXFR_LAUNCH(TAN)                                                   \
-  row_launch<HtRows<TAN>>(fused_ht_kernel<TAN>, starts, counts, k_line,       \
-                          frac0, line, wcap, tile_off, lay_idx, n_lay_call,   \
-                          live, ptr,                                          \
-                          n_dir, n_lay, n_lines, wei, n_wei, tile, block,     \
-                          n_tiles, n_out, dx, out, stream)
-  return tan ? RADTXFR_LAUNCH(true) : RADTXFR_LAUNCH(false);
-#undef RADTXFR_LAUNCH
+  return row_launch<HtRows<TAN, FAST>>(
+      fused_ht_kernel<TAN, FAST>, starts, counts, k_line, frac0, line, wcap,
+      tile_off, lay_idx, n_lay_call, live, ptr, n_dir, n_lay, n_lines, wei,
+      n_wei, tile, block, n_tiles, n_out, dx, out, stream);
 }
 
 }  // namespace
 
 // K5's entry: the (nLay, L) rows strength, wing and the 11 constants
 // (HT_CONST_KEYS order); out (n_lay_call, n_out)
-extern "C" int radtxfr_fused_ht(
+extern "C" int RADTXFR_ENTRY(radtxfr_fused_ht)(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
     const void* tile_off, const void* lay_idx, int n_lay_call, const void* strength,
@@ -741,10 +762,13 @@ extern "C" int radtxfr_fused_ht(
        static_cast<const float*>(c8), static_cast<const float*>(c9),
        static_cast<const float*>(c10)},
       {}};
-  return launch(false, starts, counts, k_line, frac0, line, wcap, tile_off,
-                lay_idx, n_lay_call, nullptr, ptr, 1, n_lay, n_lines, wei, n_wei, tile,
-                block, n_tiles, n_out, dx, out, stream);
+  return launch<false, BUILD_FAST>(
+      starts, counts, k_line, frac0, line, wcap, tile_off, lay_idx,
+      n_lay_call, nullptr, ptr, 1, n_lay, n_lines, wei, n_wei, tile, block,
+      n_tiles, n_out, dx, out, stream);
 }
+
+#if !RADTXFR_FAST
 
 // K6's entry: live is the launch's (n_dir, n_lay) int32 table of the
 // directions' non-zero tangents per parameter layer; the parameter rows as
@@ -777,7 +801,9 @@ extern "C" int radtxfr_fused_ht_jvp(
        static_cast<const float*>(t5), static_cast<const float*>(t6),
        static_cast<const float*>(t7), static_cast<const float*>(t8),
        static_cast<const float*>(t9), static_cast<const float*>(t10)}};
-  return launch(true, starts, counts, k_line, frac0, line, wcap, tile_off,
-                lay_idx, n_lay_call, live, ptr, n_dir, n_lay, n_lines, wei, n_wei,
-                tile, block, n_tiles, n_out, dx, out, stream);
+  return launch<true, false>(starts, counts, k_line, frac0, line, wcap,
+                             tile_off, lay_idx, n_lay_call, live, ptr, n_dir,
+                             n_lay, n_lines, wei, n_wei, tile, block, n_tiles,
+                             n_out, dx, out, stream);
 }
+#endif  // !RADTXFR_FAST

@@ -125,9 +125,16 @@
 // window test fails; PERF.md).
 //
 // Numerics follow the Pallas kernel op for op, in float32: dx*cte, g0*cte
-// and strength*(1/sqrt(pi)*cte) per (line, layer); IEEE division and square
-// root everywhere (the TPU path's approximate reciprocal plus Newton step is
-// not carried over; do not build with --use_fast_math). nvcc contracts
+// and strength*(1/sqrt(pi)*cte) per (line, layer); IEEE square root, and
+// IEEE division except where the Pallas kernel calls _rcp(., fast): the
+// Lorentz denominator and the Doppler 1/gamma_d (_simple_profile), the
+// asymptotic forms' denominators (_asym_re_w, _voigt_w_KL's) and the
+// Weideman series' 1/|e|^2 and 1/|e^2|^2 (_weideman_re_w, _voigt_w_KL's),
+// in the Voigt and the SD-Voigt blocks alike. There each kernel takes rcp<
+// FAST>: IEEE division in this file's build, the fast reciprocal
+// (k1_skeleton.cuh::rcp_fast) in fused_xsect_fast.cu's, as JAX's fast_rcp.
+// cpf3's x / |z|^2 and the per-line constants stay IEEE in both, as in
+// JAX. Do not build with --use_fast_math. nvcc contracts
 // a*b+c into FMA, a float-rounding-level difference from XLA, except in the
 // SD-Voigt block: its w(Z1) - w(Z2) difference amplifies each evaluation's
 // rounding 20-50x, so that block is written with the non-contracting
@@ -185,7 +192,7 @@ __device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); 
 __device__ __forceinline__ float xa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float xs(float a, float b) { return __fsub_rn(a, b); }
 
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ LineConst line_const(float shift0, float strength,
                                                 float gd, float g0, float g2,
                                                 float wingu, float ymix,
@@ -206,7 +213,7 @@ __device__ __forceinline__ LineConst line_const(float shift0, float strength,
     c.a = make_float4(shift0 / dx, dx, wingu, strength * g0);
     c.b = make_float4(g0 * g0, 0.0f, 0.0f, 0.0f);
   } else if (MODE == DOPPLER) {
-    const float inv_gd = 1.0f / gd;
+    const float inv_gd = rcp<FAST>(gd);
     c.a = make_float4(shift0 / dx, dx, wingu,
                       (strength * SQRT_LN2_DIV_SQRT_PI) * inv_gd);
     c.b = make_float4(inv_gd, 0.0f, 0.0f, 0.0f);
@@ -222,23 +229,24 @@ __device__ __forceinline__ LineConst line_const(float shift0, float strength,
 
 // Humlicek region-1 asymptotic Re w with the denominator clamp
 // (pallas_xsect.py::_asym_re_w, guard = 0.25), y per line.
+template <bool FAST>
 __device__ __forceinline__ float asym_re_w(float x, const float4& b) {
   const float dr = b.y - x * x;        // 0.5 + y^2 - x^2
   const float di = b.z * x;            // -2 x y
   const float dmag = fmaxf(dr * dr + di * di, GUARD);
-  return INV_SQRT_PI * (b.x * dr - x * di) * (1.0f / dmag);
+  return INV_SQRT_PI * (b.x * dr - x * di) * rcp<FAST>(dmag);
 }
 
 // Weideman rational series w = 2 P(Z)/(L - iz)^2 + (1/sqrt(pi))/(L - iz),
 // Z = (L + iz)/(L - iz); wei = [L, a_0 .. a_{n-1}] (faddeeva.weideman_coeffs).
-template <bool WANT_IM>
+template <bool WANT_IM, bool FAST>
 __device__ __forceinline__ void weideman_w(float x, float y,
                                            const float* wei, int n_wei,
                                            float* re, float* im) {
   const float L = wei[0];
   const float nr = L - y, ni = x;
   const float er = L + y, ei = -x;
-  const float inv_e = 1.0f / (er * er + ei * ei);
+  const float inv_e = rcp<FAST>(er * er + ei * ei);
   const float zr = (nr * er + ni * ei) * inv_e;
   const float zi = (ni * er - nr * ei) * inv_e;
   float pr = wei[1], pi = 0.0f;
@@ -249,7 +257,7 @@ __device__ __forceinline__ void weideman_w(float x, float y,
   }
   const float sr = er * er - ei * ei;
   const float si = 2.0f * er * ei;
-  const float inv_s = 1.0f / (sr * sr + si * si);
+  const float inv_s = rcp<FAST>(sr * sr + si * si);
   *re = 2.0f * (pr * sr + pi * si) * inv_s + INV_SQRT_PI * er * inv_e;
   if (WANT_IM)
     *im = 2.0f * (pi * sr - pr * si) * inv_s - INV_SQRT_PI * ei * inv_e;
@@ -258,20 +266,22 @@ __device__ __forceinline__ void weideman_w(float x, float y,
 // ---- the SD-Voigt block, non-contracting, in the plain version's order ----
 
 // guarded (guard = 0.25) or unguarded asymptotic Re w at an elementwise y
+template <bool FAST>
 __device__ __forceinline__ float asym_x(float x, float y, bool guard) {
   const float dr = xs(xa(0.5f, xm(y, y)), xm(x, x));
   const float di = xm(xm(-2.0f, x), y);
   float dmag = xa(xm(dr, dr), xm(di, di));
   if (guard) dmag = fmaxf(dmag, GUARD);
-  return xm(xm(INV_SQRT_PI, xs(xm(y, dr), xm(x, di))), 1.0f / dmag);
+  return xm(xm(INV_SQRT_PI, xs(xm(y, dr), xm(x, di))), rcp<FAST>(dmag));
 }
 
+template <bool FAST>
 __device__ __forceinline__ float weideman_x(float x, float y,
                                             const float* wei, int n_wei) {
   const float L = wei[0];
   const float nr = xs(L, y), ni = x;
   const float er = xa(L, y), ei = -x;
-  const float inv_e = 1.0f / xa(xm(er, er), xm(ei, ei));
+  const float inv_e = rcp<FAST>(xa(xm(er, er), xm(ei, ei)));
   const float zr = xm(xa(xm(nr, er), xm(ni, ei)), inv_e);
   const float zi = xm(xs(xm(ni, er), xm(nr, ei)), inv_e);
   float pr = wei[1], pi = 0.0f;
@@ -282,7 +292,7 @@ __device__ __forceinline__ float weideman_x(float x, float y,
   }
   const float sr = xs(xm(er, er), xm(ei, ei));
   const float si = xm(xm(2.0f, er), ei);
-  const float inv_s = 1.0f / xa(xm(sr, sr), xm(si, si));
+  const float inv_s = rcp<FAST>(xa(xm(sr, sr), xm(si, si)));
   return xa(xm(xm(2.0f, xa(xm(pr, sr), xm(pi, si))), inv_s),
             xm(xm(INV_SQRT_PI, er), inv_e));
 }
@@ -309,17 +319,18 @@ __device__ __forceinline__ float cpf3_x(float x, float y) {
 }
 
 // hum1_wei's region rule (pallas_xsect.py::_re_w_select)
+template <bool FAST>
 __device__ __forceinline__ float select_x(float x, float y, const float* wei,
                                           int n_wei) {
-  return xa(fabsf(x), y) < REGION_BOUND ? weideman_x(x, y, wei, n_wei)
-                                        : asym_x(x, y, false);
+  return xa(fabsf(x), y) < REGION_BOUND ? weideman_x<FAST>(x, y, wei, n_wei)
+                                        : asym_x<FAST>(x, y, false);
 }
 
 enum SdVariant { SD_FULL = 0, SD_ASYM, SD_CORE };
 
 // strength * SD-Voigt profile at grid offset u (the grid shift is zero;
 // the shift s0 rides inside the profile)
-template <int V>
+template <int V, bool FAST>
 __device__ __forceinline__ float sdvoigt(float u, const LineConst& c,
                                          float dx, const float* wei,
                                          int n_wei) {
@@ -335,36 +346,38 @@ __device__ __forceinline__ float sdvoigt(float u, const LineConst& c,
   const float y2 = xa(uu, c.b.y);
   float w1, w2;
   if (V == SD_ASYM) {
-    w1 = asym_x(x12, y1, true);
-    w2 = asym_x(x12, y2, true);
+    w1 = asym_x<FAST>(x12, y1, true);
+    w2 = asym_x<FAST>(x12, y2, true);
   } else {
     const float sz1 = sqrtf(xa(xm(v, v), xm(y1, y1)));
     const float sz2 = sqrtf(xa(xm(v, v), xm(y2, y2)));
     const bool use3 = fabsf(xs(sz1, sz2)) <= 1.0f && fmaxf(sz1, sz2) > 8.0f &&
                       fminf(sz1, sz2) <= 8.0f;
-    w1 = use3 ? cpf3_x(x12, y1) : select_x(x12, y1, wei, n_wei);
-    w2 = use3 ? cpf3_x(x12, y2) : select_x(x12, y2, wei, n_wei);
+    w1 = use3 ? cpf3_x(x12, y1) : select_x<FAST>(x12, y1, wei, n_wei);
+    w2 = use3 ? cpf3_x(x12, y2) : select_x<FAST>(x12, y2, wei, n_wei);
     if (V == SD_CORE) {
-      w1 = xs(w1, asym_x(x12, y1, true));
-      w2 = xs(w2, asym_x(x12, y2, true));
+      w1 = xs(w1, asym_x<FAST>(x12, y1, true));
+      w2 = xs(w2, asym_x<FAST>(x12, y2, true));
     }
   }
   return xm(c.a.w, xm(c.b.z, xs(w1, w2)));
 }
 
 // unguarded asymptotic Re w (pallas_xsect.py::_voigt_wr, mode 'full')
+template <bool FAST>
 __device__ __forceinline__ float far_re_w(float x, float y, const float4& b) {
   const float dr = b.y - x * x;
   const float di = b.z * x;
-  return INV_SQRT_PI * (y * dr - x * di) * (1.0f / (dr * dr + di * di));
+  return INV_SQRT_PI * (y * dr - x * di) * rcp<FAST>(dr * dr + di * di);
 }
 
 // unguarded asymptotic K and L (pallas_xsect.py::_voigt_w_KL)
+template <bool FAST>
 __device__ __forceinline__ void far_kl(float x, float y, const float4& b,
                                        float* K, float* Lw) {
   const float dr = b.y - x * x;
   const float di = b.z * x;
-  const float inv = INV_SQRT_PI * (1.0f / (dr * dr + di * di));
+  const float inv = INV_SQRT_PI * rcp<FAST>(dr * dr + di * di);
   *K = (y * dr - x * di) * inv;
   *Lw = -(x * dr + y * di) * inv;
 }
@@ -372,55 +385,56 @@ __device__ __forceinline__ void far_kl(float x, float y, const float4& b,
 // a Voigt mode's masked-in contribution at grid offset u before the line's
 // scale c.a.w (eval multiplies; K1's asym adds c.a.w * value to its sum
 // with one FMA)
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ float voigt_value(float u, const LineConst& c,
                                              const float* wei, int n_wei) {
   const float x = (u - c.a.x) * c.a.y;
   const float y = c.b.x;
-  if (MODE == ASYM) return asym_re_w(x, c.b);
+  if (MODE == ASYM) return asym_re_w<FAST>(x, c.b);
   const bool in_core = fabsf(x) + y < REGION_BOUND;
   if (MODE == CORE) {
     if (!in_core) return 0.0f;
     float re, im;
-    weideman_w<false>(x, y, wei, n_wei, &re, &im);
-    return re - asym_re_w(x, c.b);
+    weideman_w<false, FAST>(x, y, wei, n_wei, &re, &im);
+    return re - asym_re_w<FAST>(x, c.b);
   }
   if (MODE == FULL) {
     float re, im;
     if (in_core)
-      weideman_w<false>(x, y, wei, n_wei, &re, &im);
+      weideman_w<false, FAST>(x, y, wei, n_wei, &re, &im);
     else
-      re = far_re_w(x, y, c.b);
+      re = far_re_w<FAST>(x, y, c.b);
     return re;
   }
   float K, Lw;
   if (in_core)
-    weideman_w<true>(x, y, wei, n_wei, &K, &Lw);
+    weideman_w<true, FAST>(x, y, wei, n_wei, &K, &Lw);
   else
-    far_kl(x, y, c.b, &K, &Lw);
+    far_kl<FAST>(x, y, c.b, &K, &Lw);
   return K + c.b.w * Lw;
 }
 
 // the Lorentz or Doppler shape at grid offset u before the line's scale
 // c.a.w
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ float ld_value(float u, const LineConst& c) {
   const float x = (u - c.a.x) * c.a.y;
-  if (MODE == LORENTZ) return INV_PI * (1.0f / (c.b.x + x * x));
+  if (MODE == LORENTZ) return INV_PI * rcp<FAST>(c.b.x + x * x);
   const float t = x * c.b.x;
   return expf((-LN2_HAPI * t) * t);
 }
 
 // the masked-in contribution of one slot at grid offset u (all modes but
 // the correction passes)
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ float eval(float u, const LineConst& c,
                                       const float* wei, int n_wei, float dx) {
-  if (MODE == SDV) return sdvoigt<SD_FULL>(u, c, dx, wei, n_wei);
-  if (MODE == SDV_ASYM) return sdvoigt<SD_ASYM>(u, c, dx, wei, n_wei);
-  if (MODE == SDV_CORE) return sdvoigt<SD_CORE>(u, c, dx, wei, n_wei);
-  if (MODE == LORENTZ || MODE == DOPPLER) return c.a.w * ld_value<MODE>(u, c);
-  const float r = voigt_value<MODE>(u, c, wei, n_wei);
+  if (MODE == SDV) return sdvoigt<SD_FULL, FAST>(u, c, dx, wei, n_wei);
+  if (MODE == SDV_ASYM) return sdvoigt<SD_ASYM, FAST>(u, c, dx, wei, n_wei);
+  if (MODE == SDV_CORE) return sdvoigt<SD_CORE, FAST>(u, c, dx, wei, n_wei);
+  if (MODE == LORENTZ || MODE == DOPPLER)
+    return c.a.w * ld_value<MODE, FAST>(u, c);
+  const float r = voigt_value<MODE, FAST>(u, c, wei, n_wei);
   // core: a point outside |x| + y < 15 adds an exact 0, not c.a.w * 0
   // (so the add is not contracted with the scale)
   if (MODE == CORE) return r == 0.0f ? 0.0f : c.a.w * r;
@@ -429,30 +443,31 @@ __device__ __forceinline__ float eval(float u, const LineConst& c,
 
 // a correction pass's node term: the guarded asymptotic far field the
 // coarse pass evaluated
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ float corr_node(float u, const LineConst& c,
                                            float dx, const float* wei,
                                            int n_wei) {
-  if (is_sd(MODE)) return sdvoigt<SD_ASYM>(u, c, dx, wei, n_wei);
-  return c.a.w * asym_re_w((u - c.a.x) * c.a.y, c.b);
+  if (is_sd(MODE)) return sdvoigt<SD_ASYM, FAST>(u, c, dx, wei, n_wei);
+  return c.a.w * asym_re_w<FAST>((u - c.a.x) * c.a.y, c.b);
 }
 
 // ... and its point term: the node form, or the exact blend for '*full'
-template <int MODE>
+template <int MODE, bool FAST>
 __device__ __forceinline__ float corr_point(float u, const LineConst& c,
                                             float dx, const float* wei,
                                             int n_wei) {
-  if (MODE == CORR_SDVFULL) return sdvoigt<SD_FULL>(u, c, dx, wei, n_wei);
+  if (MODE == CORR_SDVFULL)
+    return sdvoigt<SD_FULL, FAST>(u, c, dx, wei, n_wei);
   if (MODE == CORR_VOIGTFULL) {
     const float x = (u - c.a.x) * c.a.y;
     if (fabsf(x) + c.b.x < REGION_BOUND) {
       float re, im;
-      weideman_w<false>(x, c.b.x, wei, n_wei, &re, &im);
+      weideman_w<false, FAST>(x, c.b.x, wei, n_wei, &re, &im);
       return c.a.w * re;
     }
-    return c.a.w * asym_re_w(x, c.b);
+    return c.a.w * asym_re_w<FAST>(x, c.b);
   }
-  return corr_node<MODE>(u, c, dx, wei, n_wei);
+  return corr_node<MODE, FAST>(u, c, dx, wei, n_wei);
 }
 
 // ---- K1's staging pipeline: cp.async, window culling, compaction ----
@@ -510,7 +525,7 @@ __host__ __device__ constexpr int k1_min_ctas() {
   return is_corr(MODE) ? 13 : is_sd(MODE) ? 18 : MODE == CORE ? 18 : 16;
 }
 
-template <int MODE, bool SPLIT, bool OFF>
+template <int MODE, bool SPLIT, bool OFF, bool FAST>
 __global__ void __launch_bounds__(THREADS, k1_min_ctas<MODE>())
 fused_xsect_kernel(const int* __restrict__ starts,
                    const int* __restrict__ counts,
@@ -701,10 +716,12 @@ fused_xsect_kernel(const int* __restrict__ starts,
           f0 = sm.f[r][j];
           const float wg = sm.raw[4][l][j];
           const float wv = CORR ? wg : fminf(wg, sm.cap[r][j]);
-          c = line_const<MODE>(sm.raw[0][l][j], sm.raw[1][l][j],
-                               sm.raw[2][l][j], sm.raw[3][l][j],
-                               is_sd(MODE) ? sm.raw[5][l][j] : 1.0f, wv / dx,
-                               MODE == MIX ? sm.raw[5][l][j] : 0.0f, dx);
+          c = line_const<MODE, FAST>(sm.raw[0][l][j], sm.raw[1][l][j],
+                                     sm.raw[2][l][j], sm.raw[3][l][j],
+                                     is_sd(MODE) ? sm.raw[5][l][j] : 1.0f,
+                                     wv / dx,
+                                     MODE == MIX ? sm.raw[5][l][j] : 0.0f,
+                                     dx);
           win = window_range(f0, c.a.z);
           if (MODE == CORE) win = core_range(f0, c, win);
           keep = win.x <= win.y && kl + win.y >= r_lo && kl + win.x <= r_hi;
@@ -739,7 +756,7 @@ fused_xsect_kernel(const int* __restrict__ starts,
           const LineConst c = sm.c[l][j];
           s_nv[(l * NCH + j) * nv_row + m] =
               (un > -c.a.z && un <= c.a.z)
-                  ? corr_node<MODE>(un, c, dx, s_wei, n_wei)
+                  ? corr_node<MODE, FAST>(un, c, dx, s_wei, n_wei)
                   : 0.0f;
         }
       }
@@ -775,17 +792,18 @@ fused_xsect_kernel(const int* __restrict__ starts,
               const float interp = q[0] * w[p][0] + q[1] * w[p][1] +
                                    q[2] * w[p][2] + q[3] * w[p][3];
               const float fm =
-                  in ? corr_point<MODE>(u, c, dx, s_wei, n_wei) : 0.0f;
+                  in ? corr_point<MODE, FAST>(u, c, dx, s_wei, n_wei)
+                     : 0.0f;
               sum += fm - interp;
             } else if constexpr (DENSE) {
               float v;
               if constexpr (MODE == ASYM)
-                v = voigt_value<MODE>(u, c, s_wei, n_wei);
+                v = voigt_value<MODE, FAST>(u, c, s_wei, n_wei);
               else
-                v = ld_value<MODE>(u, c);
+                v = ld_value<MODE, FAST>(u, c);
               sum = fmaf(c.a.w, in ? v : 0.0f, sum);
             } else if (in) {
-              sum += eval<MODE>(u, c, s_wei, n_wei, dx);
+              sum += eval<MODE, FAST>(u, c, s_wei, n_wei, dx);
             }
           }
         }
@@ -892,9 +910,10 @@ __device__ __forceinline__ void kahan_add_if(bool in, float& s, float& c,
 
 // eval<FULL> outside |x| + y < 15: voigt_value<FULL>'s far branch, scaled
 // as eval scales it
+template <bool FAST>
 __device__ __forceinline__ float full_far(float u, const LineConst& c) {
   const float x = (u - c.a.x) * c.a.y;
-  return c.a.w * far_re_w(x, c.b.x, c.b);
+  return c.a.w * far_re_w<FAST>(x, c.b.x, c.b);
 }
 
 constexpr int K7_LC = 2;   // layers per K7 CTA
@@ -921,7 +940,7 @@ __host__ __device__ constexpr int k7_min_ctas() {
   return MODE == FULL || MODE == CORE ? 12 : 16;
 }
 
-template <int MODE>
+template <int MODE, bool FAST>
 __global__ void __launch_bounds__(THREADS, k7_min_ctas<MODE>())
 unfused_xsect_kernel(const int* __restrict__ starts,
                      const int* __restrict__ counts,
@@ -1077,10 +1096,11 @@ unfused_xsect_kernel(const int* __restrict__ starts,
         if (l < nl && j < nc && sm.line[r][j] >= 0) {
           kl = sm.k[r][j];
           f0 = sm.f[r][j];
-          c = line_const<MODE>(sm.raw[0][l][j], sm.raw[1][l][j],
-                               sm.raw[2][l][j], sm.raw[3][l][j], 1.0f,
-                               fminf(sm.raw[4][l][j], sm.cap[r][j]) / dx,
-                               0.0f, dx);
+          c = line_const<MODE, FAST>(sm.raw[0][l][j], sm.raw[1][l][j],
+                                     sm.raw[2][l][j], sm.raw[3][l][j], 1.0f,
+                                     fminf(sm.raw[4][l][j], sm.cap[r][j]) /
+                                         dx,
+                                     0.0f, dx);
           win = window_range(f0, c.a.z);
           if (MODE == CORE) win = core_range(f0, c, win);
           if (MODE == FULL) cr = core_range(f0, c, win);
@@ -1131,13 +1151,14 @@ unfused_xsect_kernel(const int* __restrict__ starts,
             const bool in = u > -c.a.z && u <= c.a.z;
             if constexpr (DENSE) {
               kahan_add_if(in, part[l][p], part_c[l][p],
-                           eval<MODE>(u, c, s_wei, n_wei, dx));
+                           eval<MODE, FAST>(u, c, s_wei, n_wei, dx));
             } else if (MODE == FULL && (cr.y < a || cr.x > a + 31)) {
               // no point of the span in |x| + y < 15
-              kahan_add_if(in, part[l][p], part_c[l][p], full_far(u, c));
+              kahan_add_if(in, part[l][p], part_c[l][p],
+                           full_far<FAST>(u, c));
             } else if (in) {
               kahan_add(part[l][p], part_c[l][p],
-                        eval<MODE>(u, c, s_wei, n_wei, dx));
+                        eval<MODE, FAST>(u, c, s_wei, n_wei, dx));
             }
           }
         }
@@ -1170,7 +1191,7 @@ unfused_xsect_kernel(const int* __restrict__ starts,
 // K7's entry: mode is K1's code (asym 0, core 1, full 3, lorentz 7,
 // doppler 8); lay_idx maps the n_lay output rows to parameter rows (at most
 // 65535 x K7_LC of them: the grid's second dimension)
-extern "C" int radtxfr_unfused_xsect(
+extern "C" int RADTXFR_ENTRY(radtxfr_unfused_xsect)(
     int mode, const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
     const void* lay_idx, int n_lay, const void* shift0, const void* strength,
@@ -1188,7 +1209,7 @@ extern "C" int radtxfr_unfused_xsect(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float dxf = static_cast<float>(dx);
 #define RADTXFR_LAUNCH_UNFUSED(M)                                            \
-  unfused_xsect_kernel<M><<<grid, THREADS, 0, s>>>(                          \
+  unfused_xsect_kernel<M, BUILD_FAST><<<grid, THREADS, 0, s>>>(                          \
       static_cast<const int*>(starts), static_cast<const int*>(counts),      \
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
       static_cast<const int*>(line), static_cast<const float*>(wcap),        \
@@ -1211,7 +1232,7 @@ extern "C" int radtxfr_unfused_xsect(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int radtxfr_fused_xsect(
+extern "C" int RADTXFR_ENTRY(radtxfr_fused_xsect)(
     int mode, int R, const void* starts, const void* counts,
     const void* k_line, const void* frac0, const void* line,
     const void* wcap, const void* tile_off, const void* lay_idx,
@@ -1238,7 +1259,8 @@ extern "C" int radtxfr_fused_xsect(
   const size_t nv_bytes =
       is_corr(mode) ? sizeof(float) * LC * KCH * (SPAN / R + 3) : 0;
 #define RADTXFR_LAUNCH_K(M, SPLIT, OFF)                                      \
-  fused_xsect_kernel<M, SPLIT, OFF><<<grid, THREADS, nv_bytes, s>>>(         \
+  fused_xsect_kernel<M, SPLIT, OFF, BUILD_FAST>                              \
+      <<<grid, THREADS, nv_bytes, s>>>(                                      \
       static_cast<const int*>(starts), static_cast<const int*>(counts),      \
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),     \
       static_cast<const int*>(line), static_cast<const float*>(wcap),        \
@@ -1286,3 +1308,23 @@ extern "C" int radtxfr_fused_xsect(
 #undef RADTXFR_LAUNCH_K
   return static_cast<int>(cudaGetLastError());
 }
+
+#if !RADTXFR_FAST
+// rcp.approx.f32 (k1_skeleton.cuh::rcp_approx, the first step of rcp_fast)
+// of the 2^23 floats of [1, 2), in mantissa order. With the exponent
+// taken off the entry's bits it is the card's approximate reciprocal of
+// every normal float below 2^126: the table from which the plain versions
+// rebuild rcp_fast in PyTorch (fused_xsect.py::card_fast_rcp), to hold
+// the FAST instantiations against.
+__global__ void rcp_approx_table_kernel(float* out) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < (1u << 23)) out[i] = rcp_approx(__uint_as_float(0x3f800000u | i));
+}
+
+extern "C" int radtxfr_rcp_approx_table(void* out, void* stream) {
+  rcp_approx_table_kernel<<<(1 << 23) / 256, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // !RADTXFR_FAST

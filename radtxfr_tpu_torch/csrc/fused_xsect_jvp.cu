@@ -64,7 +64,10 @@
 // live (evaluation, direction) products on the host, and the issue slots
 // from this file's SASS (tools/sass.py::k3_eval_instructions).
 //
-// Numerics: float32, IEEE division (no --use_fast_math); nvcc contracts
+// Numerics: float32, IEEE division (no --use_fast_math) but at the two
+// reciprocals where JAX's kernel calls _rcp(., fast) (asym_k_grads' 1/|0.5
+// - z^2|^2, weideman_k_grads' 1/|e|^2): rcp<FAST>, IEEE in this file's
+// build, the fast reciprocal in fused_xsect_jvp_fast.cu's; nvcc contracts
 // a*b+c into FMA, a float-rounding-level difference from XLA.
 
 #include <cuda_runtime.h>
@@ -92,11 +95,12 @@ struct KGrads {
 
 // (K, dK/dx, dK/dy) of the unguarded asymptotic form
 // (pallas_xsect.py::_asym_K_grads).
+template <bool FAST>
 __device__ __forceinline__ KGrads asym_k_grads(float x, float y,
                                                const float4& b) {
   const float dr = b.y - x * x;        // 0.5 + y^2 - x^2
   const float di = b.z * x;            // -2 x y
-  const float inv = 1.0f / (dr * dr + di * di);
+  const float inv = rcp<FAST>(dr * dr + di * di);
   KGrads g;
   g.K = INV_SQRT_PI * (y * dr - x * di) * inv;
   const float nr = 0.5f + x * x - y * y;
@@ -113,12 +117,13 @@ __device__ __forceinline__ KGrads asym_k_grads(float x, float y,
 
 // (K, dK/dx, dK/dy) of the Weideman series (|x| + y < 15;
 // pallas_xsect.py::_weideman_K_grads); wei = [L, a_0 .. a_{n-1}].
+template <bool FAST>
 __device__ __forceinline__ KGrads weideman_k_grads(float x, float y,
                                                    const float* wei,
                                                    int n_wei) {
   const float L = wei[0];
   const float er = L + y, ei = -x;
-  const float inv_e = 1.0f / (er * er + ei * ei);
+  const float inv_e = rcp<FAST>(er * er + ei * ei);
   const float ier = er * inv_e, iei = -ei * inv_e;
   const float nr = L - y, ni = x;
   const float zr = (nr * er + ni * ei) * inv_e;
@@ -151,15 +156,15 @@ __device__ __forceinline__ KGrads weideman_k_grads(float x, float y,
 // hum1_wei's region rule (CORE false: the caller knows the point lies
 // outside |x| + y < 15, the asymptotic form's), combined with the
 // direction's coefficients t = (cs, cgd, cg0, cds)
-template <bool CORE>
+template <bool CORE, bool FAST>
 __device__ __forceinline__ float tangent_term(float u, const LineConst& c,
                                               const float4& t,
                                               const float* wei, int n_wei) {
   const float x = (u - c.a.x) * c.a.y;
   const float y = c.b.x;
   const KGrads g = CORE && fabsf(x) + y < REGION_BOUND
-                       ? weideman_k_grads(x, y, wei, n_wei)
-                       : asym_k_grads(x, y, c.b);
+                       ? weideman_k_grads<FAST>(x, y, wei, n_wei)
+                       : asym_k_grads<FAST>(x, y, c.b);
   const float G = g.K + x * g.Kx + y * g.Ky;
   return t.x * g.K - t.y * G + t.z * g.Ky - t.w * g.Kx;
 }
@@ -190,6 +195,7 @@ struct K3Smem {
 // evaluation-bound and slows with fewer CTAs or larger slices (PERF.md)
 constexpr int K3_MIN_CTAS = 14;
 
+template <bool FAST>
 __global__ void __launch_bounds__(THREADS, K3_MIN_CTAS)
 fused_xsect_jvp_kernel(const int* __restrict__ starts,
                        const int* __restrict__ counts,
@@ -427,10 +433,12 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
               const bool in = u > -c.a.z && u <= c.a.z;
               if (cr.y < a || cr.x > a + 31) {
                 // no point of the span in |x| + y < 15: branch-free
-                const float v = tangent_term<false>(u, c, tc, s_wei, n_wei);
+                const float v =
+                    tangent_term<false, FAST>(u, c, tc, s_wei, n_wei);
                 acc[i][p] = in ? acc[i][p] + v : acc[i][p];
               } else if (in) {
-                acc[i][p] += tangent_term<true>(u, c, tc, s_wei, n_wei);
+                acc[i][p] += tangent_term<true, FAST>(u, c, tc, s_wei,
+                                                      n_wei);
               }
             }
           }
@@ -516,7 +524,9 @@ fused_xsect_jvp_kernel(const int* __restrict__ starts,
 // Occupancy: see K4_MIN_CTAS.
 //
 // Numerics: float32, IEEE division and square root, no contraction in the
-// point math (the __f*_rn wrappers below).
+// point math (the __f*_rn wrappers below), but at sd_k_wei's 1/|e|^2 and
+// sd_k_asym's 1/|0.5 - z^2|^2, where JAX's kernel calls _rcp(., fast): the
+// fast reciprocal in the FAST build (xr).
 
 constexpr int K4_NP = 6;   // shift0, strength, gamma_d, gamma_0, gamma_2, wing
 constexpr int K4_NT = 5;   // the tangents of the first five
@@ -534,15 +544,25 @@ __device__ __forceinline__ float xm(float a, float b) { return __fmul_rn(a, b); 
 __device__ __forceinline__ float xa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float xs(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float xd(float a, float b) { return __fdiv_rn(a, b); }
+// 1/a at the sites where JAX's K4 calls _rcp(., fast) (_voigt_K_grads):
+// the fast reciprocal in a FAST instantiation, else xd(1, a)
+template <bool FAST>
+__device__ __forceinline__ float xr(float a) {
+  if constexpr (FAST)
+    return rcp_fast(a);
+  else
+    return xd(1.0f, a);
+}
 
 // (K, Kx, Ky) of the Weideman series, |x| + y < 15, non-contracting
 // (fused_xsect.py::_weideman_k_grads)
+template <bool FAST>
 __device__ __forceinline__ KGrads sd_k_wei(float x, float y, const float* wei,
                                            int n_wei) {
   KGrads g;
   const float L = wei[0];
   const float er = xa(L, y), ei = -x;
-  const float inv_e = xd(1.0f, xa(xm(er, er), xm(ei, ei)));
+  const float inv_e = xr<FAST>(xa(xm(er, er), xm(ei, ei)));
   const float ier = xm(er, inv_e), iei = xm(-ei, inv_e);
   const float nr = xs(L, y), ni = x;
   const float zr = xm(xa(xm(nr, er), xm(ni, ei)), inv_e);
@@ -577,11 +597,12 @@ __device__ __forceinline__ KGrads sd_k_wei(float x, float y, const float* wei,
 
 // (K, Kx, Ky) of the unguarded asymptotic form, non-contracting
 // (fused_xsect.py::_asym_k_grads)
+template <bool FAST>
 __device__ __forceinline__ KGrads sd_k_asym(float x, float y) {
   KGrads g;
   const float dr = xs(xa(0.5f, xm(y, y)), xm(x, x));
   const float di = xm(xm(-2.0f, x), y);
-  const float inv = xd(1.0f, xa(xm(dr, dr), xm(di, di)));
+  const float inv = xr<FAST>(xa(xm(dr, dr), xm(di, di)));
   g.K = xm(xm(INV_SQRT_PI, xs(xm(y, dr), xm(x, di))), inv);
   const float nr = xs(xa(0.5f, xm(x, x)), xm(y, y));
   const float ni = -di;
@@ -596,10 +617,12 @@ __device__ __forceinline__ KGrads sd_k_asym(float x, float y) {
 }
 
 // (K, Kx, Ky) by hum1_wei's region rule (fused_xsect.py::_voigt_k_grads)
+template <bool FAST>
 __device__ __forceinline__ KGrads sd_k_grads(float x, float y,
                                              const float* wei, int n_wei) {
-  if (xa(fabsf(x), y) < REGION_BOUND) return sd_k_wei(x, y, wei, n_wei);
-  return sd_k_asym(x, y);
+  if (xa(fabsf(x), y) < REGION_BOUND)
+    return sd_k_wei<FAST>(x, y, wei, n_wei);
+  return sd_k_asym<FAST>(x, y);
 }
 
 // A kept (slot, row) pair's point-independent values
@@ -704,6 +727,7 @@ struct SdPtrs {
 };
 
 // K4's policy of the row skeleton (k1_skeleton.cuh::row_skeleton)
+template <bool FAST>
 struct SdRows {
   static constexpr int N_PRM = K4_NP, N_TAN = K4_NT, I_WING = 5;
   static constexpr int MAX_WEI = ::MAX_WEI;
@@ -735,31 +759,32 @@ struct SdRows {
     if (far) {
       // no point of the span in a Weideman region: branch-free
       const SdPoint s = sd_point(u, q, dx);
-      const KGrads g1 = sd_k_asym(-s.vs, xs(s.us, q.a.w));
-      const KGrads g2 = sd_k_asym(-s.vs, xa(s.us, q.a.w));
+      const KGrads g1 = sd_k_asym<FAST>(-s.vs, xs(s.us, q.a.w));
+      const KGrads g2 = sd_k_asym<FAST>(-s.vs, xa(s.us, q.a.w));
       const float v = sd_term(s, g1, g2, q);
       return in ? sum + v : sum;
     }
     if (!in) return sum;
     const SdPoint s = sd_point(u, q, dx);
-    const KGrads g1 = sd_k_grads(-s.vs, xs(s.us, q.a.w), wei, n_wei);
-    const KGrads g2 = sd_k_grads(-s.vs, xa(s.us, q.a.w), wei, n_wei);
+    const KGrads g1 = sd_k_grads<FAST>(-s.vs, xs(s.us, q.a.w), wei, n_wei);
+    const KGrads g2 = sd_k_grads<FAST>(-s.vs, xa(s.us, q.a.w), wei, n_wei);
     return sum + sd_term(s, g1, g2, q);
   }
 };
 
+template <bool FAST>
 __global__ void __launch_bounds__(ROW_THREADS, K4_MIN_CTAS)
 fused_sdvoigt_jvp_kernel(const RowArgs<SdPtrs> args) {
-  __shared__ RowSmem<SdRows> sm;
+  __shared__ RowSmem<SdRows<FAST>> sm;
   __shared__ float s_wei[MAX_WEI + 1];
-  row_skeleton<SdRows>(args, sm, s_wei);
+  row_skeleton<SdRows<FAST>>(args, sm, s_wei);
 }
 
 }  // namespace
 
 // K3's entry: live is the (n_dir, n_lay) int32 table of the directions'
 // non-zero tangents per parameter layer; out (n_dir, n_lay_call, n_out)
-extern "C" int radtxfr_fused_xsect_jvp(
+extern "C" int RADTXFR_ENTRY(radtxfr_fused_xsect_jvp)(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
     const void* tile_off, const void* lay_idx, int n_lay_call,
@@ -778,8 +803,8 @@ extern "C" int radtxfr_fused_xsect_jvp(
   const dim3 grid(static_cast<unsigned>(n_tiles) * sub_per_tile,
                   static_cast<unsigned>(row_groups));
   if (grid.x == 0 || grid.y == 0) return 0;
-  fused_xsect_jvp_kernel<<<grid, THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  fused_xsect_jvp_kernel<BUILD_FAST><<<grid, THREADS, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const int*>(k_line), static_cast<const float*>(frac0),
       static_cast<const int*>(line), static_cast<const float*>(wcap),
@@ -800,7 +825,7 @@ extern "C" int radtxfr_fused_xsect_jvp(
 // K4's entry: live is the launch's (n_dir, n_lay) int32 table of the
 // directions' non-zero tangents per parameter layer; out (n_dir,
 // n_lay_call, n_out)
-extern "C" int radtxfr_fused_sdvoigt_jvp(
+extern "C" int RADTXFR_ENTRY(radtxfr_fused_sdvoigt_jvp)(
     const void* starts, const void* counts, const void* k_line,
     const void* frac0, const void* line, const void* wcap,
     const void* tile_off, const void* lay_idx, int n_lay_call,
@@ -820,9 +845,8 @@ extern "C" int radtxfr_fused_sdvoigt_jvp(
        static_cast<const float*>(gamma_d_t),
        static_cast<const float*>(gamma_0_t),
        static_cast<const float*>(gamma_2_t)}};
-  return row_launch<SdRows>(fused_sdvoigt_jvp_kernel, starts, counts, k_line,
-                            frac0, line, wcap, tile_off, lay_idx, n_lay_call,
-                            live, ptr,
-                            n_dir, n_lay, n_lines, wei, n_wei, tile, block,
-                            n_tiles, n_out, dx, out, stream);
+  return row_launch<SdRows<BUILD_FAST>>(
+      fused_sdvoigt_jvp_kernel<BUILD_FAST>, starts, counts, k_line, frac0,
+      line, wcap, tile_off, lay_idx, n_lay_call, live, ptr, n_dir, n_lay,
+      n_lines, wei, n_wei, tile, block, n_tiles, n_out, dx, out, stream);
 }

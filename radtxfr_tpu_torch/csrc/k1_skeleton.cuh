@@ -6,15 +6,65 @@
 // the whole row skeleton that K4, K5 and K6 instantiate (row_skeleton).
 // _build.py hashes this header into the name of every library whose source
 // includes it, so an edit rebuilds them.
+//
+// It also holds the fast reciprocal (rcp_fast, rcp) and the switch between
+// a source's two builds: fused_xsect.cu, fused_xsect_jvp.cu and fused_ht.cu
+// build their kernels with IEEE division at the line shape's reciprocals;
+// fused_xsect_fast.cu, fused_xsect_jvp_fast.cu and fused_ht_fast.cu define
+// RADTXFR_FAST 1 and include them, which instantiates the kernels with
+// FAST true (the TPU kernels' fast_rcp=True) in libraries of their own,
+// their C entries named with _fast at the end (RADTXFR_ENTRY). One nvcc a
+// source, all started together, so the FAST variants cost the build no
+// wall time of its own.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#ifndef RADTXFR_FAST
+#define RADTXFR_FAST 0
+#endif
+#if RADTXFR_FAST
+#define RADTXFR_ENTRY(name) name##_fast
+#else
+#define RADTXFR_ENTRY(name) name
+#endif
+
 namespace {
+
+// the FAST value this build instantiates its kernels with
+constexpr bool BUILD_FAST = RADTXFR_FAST != 0;
 
 constexpr float REGION_BOUND = 15.0f;   // hum1_wei's |x| + y < 15
 constexpr int RING = 3;                 // chunks of slot data in flight
+
+// The TPU kernels' fast reciprocal (pallas_xsect.py::_rcp with fast=True:
+// pl.reciprocal(x, approx=True), then one Newton step r (2 - x r)): the
+// approximate reciprocal rcp.approx.f32 (not .ftz, so that subnormals stay
+// as in the kernels' other arithmetic) and the Newton step in JAX's order,
+// each operation rounded on its own (__fmul_rn, __fsub_rn: no contraction
+// into an FMA). Within an ulp or two of 1/x; x = 0 or +-inf gives NaN
+// (0 * inf), as on the TPU. Hand-written PTX, not a library call and not
+// --use_fast_math.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float rcp_fast(float x) {
+  const float r = rcp_approx(x);
+  return __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(x, r)));
+}
+
+// 1/x at a site where JAX calls _rcp(., fast): the fast reciprocal in a
+// FAST instantiation, else IEEE division
+template <bool FAST>
+__device__ __forceinline__ float rcp(float x) {
+  if constexpr (FAST)
+    return rcp_fast(x);
+  else
+    return 1.0f / x;
+}
 
 // Staged per-(line, layer) constants (each mode's layout:
 // fused_xsect.cu::line_const, fused_xsect_jvp.cu's K3 and K4): a.z is the

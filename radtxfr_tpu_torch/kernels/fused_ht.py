@@ -16,7 +16,12 @@ for CPU tensors; :func:`xsect_ht_jvp` likewise K6 or
 :func:`xsect_ht_jvp_plain`, the directional derivative w.r.t. the strength
 and the 11 constants for a batch of directions, non-finite tangents zeroed
 (``pallas_xsect.py:1127``). Launches count in
-:data:`~.fused_xsect.LAUNCHES` under ``"ht"`` and ``"ht_jvp"``.
+:data:`~.fused_xsect.LAUNCHES` under ``"ht"`` (``"ht+fast"``: K5's FAST
+instantiation, ``fast=True``, JAX's ``fast_rcp``) and ``"ht_jvp"``; K6 has
+no FAST instantiation (JAX's tangent kernel forces ``fast=False``). On
+the CPU the plain versions divide in IEEE, as JAX's interpret mode; on
+the card :func:`xsect_ht_plain` with ``fast`` takes K5's FAST reciprocal
+(``fused_xsect.plain_rcp``), to hold that instantiation against.
 
 :func:`xsect_ht_diff` is the differentiable pass (a
 :class:`torch.autograd.Function` in the ``setup_context`` form, like
@@ -33,8 +38,8 @@ from .. import _build
 from .faddeeva import weideman_coeffs
 from .fused_xsect import (_JVP_MAX_DIRS, DevicePlan, _check_call, _count,
                           _off_ptr, _plain_steps, _tangent_launches,
-                          _weideman_table, diff_pass)
-from .htp_real import HT_CONST_KEYS, pcqsdhc_real
+                          _weideman_table, diff_pass, launch_key, plain_rcp)
+from .htp_real import HT_CONST_KEYS, _pcqsdhc_terms, pcqsdhc_real
 
 __all__ = ["xsect_ht", "xsect_ht_plain", "xsect_ht_jvp",
            "xsect_ht_jvp_plain", "xsect_ht_diff", "HT_JVP_DIRS"]
@@ -85,22 +90,25 @@ def _check_consts(dplan, consts):
 
 
 def xsect_ht_plain(dplan: DevicePlan, lay_idx, strength, wing, consts,
-                   n_weideman: int = 16) -> torch.Tensor:
+                   n_weideman: int = 16, fast: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K5, in the parameters' dtype on their
     device: (len(lay_idx), n_out). ``strength``, ``wing`` and the 11
     ``consts`` are (nLay, L) rows over the full line list; the plan's slots
-    index them through ``dplan.line``."""
+    index them through ``dplan.line``. ``fast``: the FAST instantiation's
+    reciprocal at the w(Z) forms on float32 card tensors, IEEE division
+    otherwise (``fused_xsect.plain_rcp``)."""
     _check_consts(dplan, consts)
     s, wingu, k = _slot_params(dplan, lay_idx, strength, wing, consts)
     nl = s.shape[0]
     L_w, a_w = weideman_coeffs(n_weideman)
+    rcp = plain_rcp(fast, s)
     out = torch.zeros((nl, dplan.n_tiles, dplan.tile), dtype=s.dtype,
                       device=s.device)
     for t_i, slots, u in _plain_steps(dplan, nl * _PLAIN_SHRINK, s.dtype):
         kk = {key: v[:, slots][..., None] for key, v in k.items()}
         wu = wingu[:, slots][..., None]
-        val = s[:, slots][..., None] * pcqsdhc_real(u * dplan.dx, kk,
-                                                    wei_a=a_w, wei_L=L_w)
+        val = s[:, slots][..., None] * _pcqsdhc_terms(u * dplan.dx, kk,
+                                                      a_w, L_w, rcp)
         mask = (u > -wu) & (u <= wu)
         out[:, t_i] += torch.where(mask, val, 0.0).sum(dim=2)
     return out.reshape(nl, -1)[:, :dplan.n_out]
@@ -171,17 +179,18 @@ def _ht_params(strength, wing, consts) -> dict:
 
 
 def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
-             n_weideman: int = 16) -> torch.Tensor:
+             n_weideman: int = 16, fast: bool = False) -> torch.Tensor:
     """One HT pass: (len(lay_idx), n_out) float32 (``xsect_ht_pallas``).
 
     CPU tensors run :func:`xsect_ht_plain`. CUDA tensors launch K5 on the
-    current stream; anything it does not take (another dtype than float32,
-    non-contiguous or mismatched shapes, mixed devices) raises, as does a
-    non-zero CUDA error from the launch.
+    current stream (``fast``: its FAST instantiation, JAX's ``fast_rcp``);
+    anything it does not take (another dtype than float32, non-contiguous
+    or mismatched shapes, mixed devices) raises, as does a non-zero CUDA
+    error from the launch.
     """
     if strength.device.type == "cpu":
         return xsect_ht_plain(dplan, lay_idx, strength, wing, consts,
-                              n_weideman)
+                              n_weideman, fast)
     _check_consts(dplan, consts)
     params = _ht_params(strength, wing, consts)
     _check_call(dplan, lay_idx, params, n_weideman)
@@ -193,7 +202,7 @@ def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
     if n_lay_call == 0 or dplan.n_out == 0:
         return out
     wei = _weideman_table(n_weideman, dev)
-    err = _build.library().radtxfr_fused_ht(
+    err = _build.entry("radtxfr_fused_ht", fast)(
         dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
         dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
@@ -203,9 +212,9 @@ def xsect_ht(dplan: DevicePlan, lay_idx, strength, wing, consts,
         dplan.n_tiles, dplan.n_out, dplan.dx, out.data_ptr(),
         _build.launch_stream(dev))
     if err != 0:
-        raise RuntimeError(f"fused_ht kernel launch failed with CUDA error "
-                           f"{err}")
-    _count("ht", dplan)
+        raise RuntimeError(f"fused_ht kernel (fast={fast}) launch failed "
+                           f"with CUDA error {err}")
+    _count(launch_key("ht", fast), dplan)
     return out
 
 
@@ -239,21 +248,24 @@ def xsect_ht_jvp(dplan: DevicePlan, lay_idx, strength, wing, consts,
 # the differentiable pass (torch.func.jvp / vmap)
 # --------------------------------------------------------------------------
 
-# K5 with K6; prm (strength, wing, the 11 constants)
+# K5 with K6 (IEEE whatever fast, as JAX's); prm (strength, wing, the 11
+# constants)
 _HT = diff_pass(
     "HT",
-    lambda dplan, lay, n, s, w, *consts: xsect_ht(dplan, lay, s, w, consts,
-                                                 n),
-    lambda dplan, lay, n, prm, tans: xsect_ht_jvp(
+    lambda dplan, lay, n, fast, s, w, *consts: xsect_ht(
+        dplan, lay, s, w, consts, n, fast),
+    lambda dplan, lay, n, fast, prm, tans: xsect_ht_jvp(
         dplan, lay, prm[0], prm[1], prm[2:], tans[0], tans[1:], n),
     diff=(0, *range(2, 2 + _N_CONST)))
 
 
 def xsect_ht_diff(dplan: DevicePlan, lay_idx, strength, wing, consts,
-                  n_weideman: int = 16) -> torch.Tensor:
-    """The HT pass, differentiable in forward mode: K5 for the value, K6
-    for ``torch.func.jvp`` tangents through the strength and the 11
-    constants (a ``vmap`` over directions becomes K6's direction axis).
+                  n_weideman: int = 16, fast: bool = False) -> torch.Tensor:
+    """The HT pass, differentiable in forward mode: K5 for the value (its
+    FAST instantiation with ``fast``), K6 for ``torch.func.jvp`` tangents
+    through the strength and the 11 constants (a ``vmap`` over directions
+    becomes K6's direction axis; IEEE division, as JAX's tangent kernel).
     (len(lay_idx), n_out)."""
     _check_consts(dplan, consts)
-    return _HT.apply(dplan, lay_idx, n_weideman, strength, wing, *consts)
+    return _HT.apply(dplan, lay_idx, n_weideman, fast, strength, wing,
+                     *consts)

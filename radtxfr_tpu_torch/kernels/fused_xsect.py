@@ -69,6 +69,21 @@ float32 fraction ``frac0`` of the centre's grid position, so dnu carries
 ~1e-7 relative error; padding slots park at ``k_line = -2**30`` and never
 pass the window mask.
 
+The fast reciprocal: every launch wrapper (and its plain version) takes
+``fast``, JAX's ``fast_rcp`` (False, as ``xsect_pallas``; the builders of
+``products/od.py`` default to True, as JAX's). ``fast=True`` launches the
+kernel's FAST instantiation (``csrc/*_fast.cu``: the approximate reciprocal
+plus one Newton step where ``pallas_xsect.py`` calls ``_rcp(., fast)``),
+counted under ``launch_key(key, True)``, ``key + "+fast"``; a build or
+launch failure raises, and the IEEE instantiation never runs in its place.
+The plain versions take ``fast`` at the same sites (the helpers' ``rcp``):
+on float32 card tensors it is :func:`card_fast_rcp`, the FAST
+instantiation's reciprocal rebuilt in PyTorch from the card's
+``rcp.approx.f32`` table, so that they replay that instantiation's
+arithmetic; on the CPU, which has no such reciprocal, and in float64 they
+divide in IEEE, as JAX's interpret mode does (``fast_rcp and not
+interpret``), so the CPU's results do not depend on ``fast``.
+
 Spectral shards: a plan's tiles may carry global grid offsets
 (``DevicePlan.tile_off``, the kernels' ``off_ref``): tile i's point k lies
 at grid index i*tile + k + tile_off[i], which every window and node test
@@ -101,7 +116,8 @@ __all__ = ["UniformGrid", "BucketPlan", "DevicePlan", "auto_block",
            "xsect_fused_diff", "xsect_sdvoigt_jvp", "xsect_sdvoigt_jvp_plain",
            "xsect_fused_sdvoigt_diff", "xsect_unfused", "xsect_unfused_plain",
            "cubic_weights", "corr_r_supported", "shard_plan", "LAUNCHES",
-           "OFFSET_LAUNCHES", "MODES",
+           "OFFSET_LAUNCHES", "launch_key", "plain_rcp", "card_fast_rcp",
+           "fast_rcp_table", "MODES",
            "UNFUSED_MODES", "CORR_VARIANTS", "SD_MODES"]
 
 #: K1's modes other than the correction passes, in the CUDA switch's order
@@ -113,15 +129,88 @@ CORR_VARIANTS = ("voigt", "voigtfull", "sdvoigt", "sdvoigtfull")
 SD_MODES = ("sdvoigt", "sdvoigt_asym", "sdvoigt_core")
 #: kernel launches since the last reset, per K1 mode string, of K7
 #: ("unfused_<mode>"), K3 ("jvp"), K4 ("sdvoigt_jvp"), and of K5 and K6
-#: ("ht", "ht_jvp", counted by :mod:`.fused_ht`); plain runs are not counted
+#: ("ht", "ht_jvp", counted by :mod:`.fused_ht`); a FAST instantiation's
+#: under :func:`launch_key` (``"<key>+fast"``); plain runs are not counted
 LAUNCHES = collections.Counter()
 #: the launches of :data:`LAUNCHES` whose plan carried tile offsets
 #: (``DevicePlan.tile_off``: a spectrum shard's tiles), under the same keys
 OFFSET_LAUNCHES = collections.Counter()
 
+
+
+def launch_key(key: str, fast: bool) -> str:
+    """The :data:`LAUNCHES` key of a launch of ``key`` (a K1 mode,
+    ``"unfused_<mode>"``, ``"jvp"``, ``"sdvoigt_jvp"``, ``"ht"``) in the
+    IEEE (``fast`` False) or the FAST instantiation."""
+    return f"{key}+fast" if fast else key
+
+
 _SQRT_LN2 = math.sqrt(math.log(2.0))
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
 _INV_PI = 1.0 / math.pi
+#: float32's mantissa field and sign bit
+_MANT = 1 << 23
+_SIGN = -(1 << 31)
+
+
+def _ieee_rcp(x):
+    """1/x by IEEE division."""
+    return 1.0 / x
+
+
+def fast_rcp_table(device) -> torch.Tensor:
+    """The card's ``rcp.approx.f32`` of the 2^23 floats of [1, 2) in
+    mantissa order, as int32 bits on CUDA ``device`` (one launch of
+    ``radtxfr_rcp_approx_table``, kept per device; not counted: no builder
+    runs it). A build or launch failure raises."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return _rcp_table(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _rcp_table(device) -> torch.Tensor:
+    """:func:`fast_rcp_table` on a device with an index."""
+    out = torch.empty(_MANT, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = _build.library().radtxfr_rcp_approx_table(
+            out.data_ptr(), _build.launch_stream(device))
+    if err:
+        raise RuntimeError(f"rcp.approx table launch failed (CUDA error "
+                           f"{err})")
+    return out.view(torch.int32)
+
+
+def card_fast_rcp(x: torch.Tensor, table=None) -> torch.Tensor:
+    """``k1_skeleton.cuh::rcp_fast`` in plain PyTorch, for float32 ``x``:
+    the approximate reciprocal from ``table`` (:func:`fast_rcp_table` of
+    ``x``'s card by default: the mantissa's entry, the exponent taken off
+    its bits), then the Newton step r (2 - x r), each operation rounded on
+    its own. Bit for bit the card's ``rcp_fast`` for every normal x below
+    2^126 in magnitude (every such float32, checked on an H100); for 0,
+    subnormals, larger magnitudes, inf and NaN the step starts from IEEE
+    1/x."""
+    tb = fast_rcp_table(x.device) if table is None else table
+    b = x.view(torch.int32)
+    e = ((b >> 23) & 0xFF) - 127
+    r0 = ((tb[(b & (_MANT - 1)).long()] - (e << 23))
+          | (b & _SIGN)).view(torch.float32)
+    ax = x.abs()
+    normal = (ax >= torch.finfo(torch.float32).tiny) & (ax < 2.0 ** 126)
+    r0 = torch.where(normal, r0, 1.0 / x)
+    return r0 * (2.0 - x * r0)
+
+
+def plain_rcp(fast: bool, like: torch.Tensor):
+    """The reciprocal a plain version takes where its kernel calls
+    ``rcp<FAST>``: :func:`card_fast_rcp` for ``fast`` on float32 card
+    tensors (the FAST instantiation's arithmetic), else IEEE division (the
+    CPU has no approximate reciprocal, and JAX's interpret mode drops
+    ``fast_rcp``)."""
+    if fast and like.is_cuda and like.dtype == torch.float32:
+        return card_fast_rcp
+    return _ieee_rcp
 #: the asym form's denominator clamp (``pallas_xsect.py:378-397``)
 _GUARD = 0.25
 #: Weideman terms the CUDA kernel stages in shared memory at most
@@ -553,22 +642,24 @@ def device_plan(plan: BucketPlan, line_idx, nu0, device=None,
 # the plain PyTorch version
 # --------------------------------------------------------------------------
 
-def _asym_re_w(x, y, guard=0.0):
+def _asym_re_w(x, y, guard=0.0, rcp=_ieee_rcp):
     """Humlicek region-1 asymptotic Re w, (1/sqrt(pi)) Re[t/(0.5 + t^2)]
-    with t = y - ix; ``guard`` clamps the denominator magnitude."""
+    with t = y - ix; ``guard`` clamps the denominator magnitude; ``rcp``
+    (here and below) is the reciprocal at the kernels' ``rcp<FAST>`` sites
+    (:func:`plain_rcp`)."""
     dr = 0.5 + y * y - x * x
     di = -2.0 * x * y
     dmag = dr * dr + di * di
     if guard:
         dmag = torch.clamp(dmag, min=guard)
-    return _INV_SQRT_PI * (y * dr - x * di) * (1.0 / dmag)
+    return _INV_SQRT_PI * (y * dr - x * di) * rcp(dmag)
 
 
-def _weideman_w(x, y, a, L):
+def _weideman_w(x, y, a, L, rcp=_ieee_rcp):
     """(Re w, Im w) of the Weideman rational series (|x| + y < 15)."""
     nr, ni = L - y, x
     er, ei = L + y, -x
-    inv_e = 1.0 / (er * er + ei * ei)
+    inv_e = rcp(er * er + ei * ei)
     zr = (nr * er + ni * ei) * inv_e
     zi = (ni * er - nr * ei) * inv_e
     pr = torch.full_like(zr, float(a[0]))
@@ -577,7 +668,7 @@ def _weideman_w(x, y, a, L):
         pr, pi_ = pr * zr - pi_ * zi + float(c), pr * zi + pi_ * zr
     sr = er * er - ei * ei
     si = 2.0 * er * ei
-    inv_s = 1.0 / (sr * sr + si * si)
+    inv_s = rcp(sr * sr + si * si)
     K = 2.0 * (pr * sr + pi_ * si) * inv_s + _INV_SQRT_PI * er * inv_e
     Lw = 2.0 * (pi_ * sr - pr * si) * inv_s - _INV_SQRT_PI * ei * inv_e
     return K, Lw
@@ -610,28 +701,30 @@ def _cpf3_re_w(x, y):
     return _cpf3_pair(x, y)[0]
 
 
-def _voigt_w_KL(x, y, a, L):
+def _voigt_w_KL(x, y, a, L, rcp=_ieee_rcp):
     """(Re w, Im w) with hum1_wei's region blend, y elementwise
     (``pallas_xsect.py::_voigt_w_KL``): the Weideman series inside
     |x| + y < 15, the unguarded asymptotic form outside."""
     dr = 0.5 + y * y - x * x
     di = -2.0 * x * y
-    inv = _INV_SQRT_PI * (1.0 / (dr * dr + di * di))
+    inv = _INV_SQRT_PI * rcp(dr * dr + di * di)
     Ka = (y * dr - x * di) * inv
     La = -(x * dr + y * di) * inv
-    Kw, Lw = _weideman_w(x, y, a, L)
+    Kw, Lw = _weideman_w(x, y, a, L, rcp)
     in_core = (torch.abs(x) + y) < REGION_BOUND
     return torch.where(in_core, Kw, Ka), torch.where(in_core, Lw, La)
 
 
-def _re_w_select(x, y, a, L):
+def _re_w_select(x, y, a, L, rcp=_ieee_rcp):
     """Re w by hum1_wei's region rule (Weideman inside |x| + y < 15, the
     unguarded asymptotic form outside)."""
     return torch.where(torch.abs(x) + y < REGION_BOUND,
-                       _weideman_w(x, y, a, L)[0], _asym_re_w(x, y))
+                       _weideman_w(x, y, a, L, rcp)[0],
+                       _asym_re_w(x, y, rcp=rcp))
 
 
-def _sdvoigt_block(dnu, gd, g0, g2, s0, a, L, variant="full"):
+def _sdvoigt_block(dnu, gd, g0, g2, s0, a, L, variant="full",
+                   rcp=_ieee_rcp):
     """SD-Voigt profile (``pallas_xsect.py::_sdvoigt_block``): pcqsdhc with
     anuVC = eta = Shift2 = 0 and Gamma2 real, op for op. ``variant``
     'full' is hapi's CPF3-vs-CPF selection, 'asym' both CPF points in the
@@ -651,33 +744,35 @@ def _sdvoigt_block(dnu, gd, g0, g2, s0, a, L, variant="full"):
     y1 = u - c
     y2 = u + c
     if variant == "asym":
-        return cte * _INV_SQRT_PI * (_asym_re_w(x12, y1, _GUARD)
-                                     - _asym_re_w(x12, y2, _GUARD))
+        return cte * _INV_SQRT_PI * (_asym_re_w(x12, y1, _GUARD, rcp)
+                                     - _asym_re_w(x12, y2, _GUARD, rcp))
     sz1 = torch.sqrt(v * v + y1 * y1)
     sz2 = torch.sqrt(v * v + y2 * y2)
     szmx = torch.maximum(sz1, sz2)
     szmn = torch.minimum(sz1, sz2)
     use3 = (torch.abs(sz1 - sz2) <= 1.0) & (szmx > 8.0) & (szmn <= 8.0)
-    w1 = torch.where(use3, _cpf3_re_w(x12, y1), _re_w_select(x12, y1, a, L))
-    w2 = torch.where(use3, _cpf3_re_w(x12, y2), _re_w_select(x12, y2, a, L))
+    w1 = torch.where(use3, _cpf3_re_w(x12, y1),
+                     _re_w_select(x12, y1, a, L, rcp))
+    w2 = torch.where(use3, _cpf3_re_w(x12, y2),
+                     _re_w_select(x12, y2, a, L, rcp))
     if variant == "core":
-        w1 = w1 - _asym_re_w(x12, y1, _GUARD)
-        w2 = w2 - _asym_re_w(x12, y2, _GUARD)
+        w1 = w1 - _asym_re_w(x12, y1, _GUARD, rcp)
+        w2 = w2 - _asym_re_w(x12, y2, _GUARD, rcp)
     return cte * _INV_SQRT_PI * (w1 - w2)
 
 
-def _simple_profile(mode, dnu, gd, g0, strength):
+def _simple_profile(mode, dnu, gd, g0, strength, rcp=_ieee_rcp):
     """Lorentz or Doppler contribution, hapi's forms with its truncated
     Doppler constants (``pallas_xsect.py::_simple_profile``)."""
     if mode == "lorentz":
-        return strength * g0 * (_INV_PI * (1.0 / (g0 * g0 + dnu * dnu)))
-    inv_gd = 1.0 / gd
+        return strength * g0 * (_INV_PI * rcp(g0 * g0 + dnu * dnu))
+    inv_gd = rcp(gd)
     t = dnu * inv_gd
     return ((strength * SQRT_LN2_DIV_SQRT_PI) * inv_gd
             * torch.exp(-LN2 * t * t))
 
 
-def _value(kind, u, s, a, L):
+def _value(kind, u, s, a, L, rcp=_ieee_rcp):
     """One slot's contribution at grid offsets ``u`` before the window
     mask: ``kind`` is a mode of :data:`MODES` or 'voigtfull' (the
     correction passes' blend, guarded outside the core); ``s`` holds the
@@ -687,41 +782,41 @@ def _value(kind, u, s, a, L):
                    "sdvoigt_core": "core"}[kind]
         return s["s"] * _sdvoigt_block((u - s["ds"]) * s["dx"], s["gd"],
                                        s["g0"], s["g2"], s["s0"], a, L,
-                                       variant)
+                                       variant, rcp)
     if kind in ("lorentz", "doppler"):
         return _simple_profile(kind, (u - s["ds"]) * s["dx"], s["gd"],
-                               s["g0"], s["s"])
+                               s["g0"], s["s"], rcp)
     x, y = (u - s["ds"]) * s["xs"], s["y"]
     if kind == "asym":
-        return s["scale"] * _asym_re_w(x, y, _GUARD)
+        return s["scale"] * _asym_re_w(x, y, _GUARD, rcp)
     if kind == "full":
         return s["scale"] * _select_core(
-            x, y, lambda xc, yc: _weideman_w(xc, yc, a, L),
-            lambda xf, yf: (_asym_re_w(xf, yf),))[0]
+            x, y, lambda xc, yc: _weideman_w(xc, yc, a, L, rcp),
+            lambda xf, yf: (_asym_re_w(xf, yf, rcp=rcp),))[0]
     in_core = (torch.abs(x) + y) < REGION_BOUND
-    Kw, Lw = _weideman_w(x, y, a, L)
+    Kw, Lw = _weideman_w(x, y, a, L, rcp)
     if kind == "core":
-        return s["scale"] * torch.where(in_core, Kw - _asym_re_w(x, y, _GUARD),
-                                        0.0)
+        return s["scale"] * torch.where(
+            in_core, Kw - _asym_re_w(x, y, _GUARD, rcp), 0.0)
     if kind == "voigtfull":
         return s["scale"] * torch.where(in_core, Kw,
-                                        _asym_re_w(x, y, _GUARD))
+                                        _asym_re_w(x, y, _GUARD, rcp))
     dr = 0.5 + y * y - x * x
     di = -2.0 * x * y
-    inv = _INV_SQRT_PI * (1.0 / (dr * dr + di * di))
+    inv = _INV_SQRT_PI * rcp(dr * dr + di * di)
     Ka = (y * dr - x * di) * inv
     La = -(x * dr + y * di) * inv
     return s["scale"] * (torch.where(in_core, Kw, Ka)
                          + s["ymix"] * torch.where(in_core, Lw, La))
 
 
-def _asym_k_grads(x, y):
+def _asym_k_grads(x, y, rcp=_ieee_rcp):
     """(K, dK/dx, dK/dy) of the unguarded asymptotic form: the derivative
     of the approximation (``pallas_xsect.py::_asym_K_grads``), not the
     exact-Faddeeva identity, which cancels ~4 digits in the far wing."""
     dr = 0.5 + y * y - x * x
     di = -2.0 * x * y
-    inv = 1.0 / (dr * dr + di * di)
+    inv = rcp(dr * dr + di * di)
     K = _INV_SQRT_PI * (y * dr - x * di) * inv
     nr = 0.5 + x * x - y * y
     ni = -di
@@ -733,11 +828,11 @@ def _asym_k_grads(x, y):
     return K, _INV_SQRT_PI * mi * inv2, _INV_SQRT_PI * mr * inv2
 
 
-def _weideman_k_grads(x, y, a, L):
+def _weideman_k_grads(x, y, a, L, rcp=_ieee_rcp):
     """(K, dK/dx, dK/dy) of the Weideman series, P' by a second Horner
     accumulator (``pallas_xsect.py::_weideman_K_grads``)."""
     er, ei = L + y, -x
-    inv_e = 1.0 / (er * er + ei * ei)
+    inv_e = rcp(er * er + ei * ei)
     ier, iei = er * inv_e, -ei * inv_e
     nr, ni = L - y, x
     zr = (nr * er + ni * ei) * inv_e
@@ -774,11 +869,11 @@ def _select_core(x, y, core_fn, far_fn):
     return out
 
 
-def _voigt_k_grads(x, y, a, L):
+def _voigt_k_grads(x, y, a, L, rcp=_ieee_rcp):
     """(K, dK/dx, dK/dy) with the hum1_wei region blend ('full' mode)."""
     return _select_core(x, y,
-                        lambda xc, yc: _weideman_k_grads(xc, yc, a, L),
-                        _asym_k_grads)
+                        lambda xc, yc: _weideman_k_grads(xc, yc, a, L, rcp),
+                        lambda xf, yf: _asym_k_grads(xf, yf, rcp))
 
 
 def _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0, wing,
@@ -869,9 +964,12 @@ def cubic_weights(n, R, dt, dev):
 @_shardable
 def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                       gamma_0, wing, ymix=None, mode: str = "asym",
-                      n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
+                      n_weideman: int = 16, gamma_2=None,
+                      fast: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, in the parameters' dtype
-    (float32 or float64) on their device.
+    (float32 or float64) on their device. ``fast``: the FAST
+    instantiation's reciprocal on float32 card tensors, IEEE division
+    otherwise (:func:`plain_rcp`).
 
     Parameters are (nLay, L) rows over the full line list; ``lay_idx``
     selects this call's layers. For each tile and each of its blocks it
@@ -889,6 +987,7 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                         wing, ymix, mode, gamma_2)
     nl = c["xs"].shape[0]
     L_w, a_w = weideman_coeffs(n_weideman)
+    rcp = plain_rcp(fast, strength)
     keys = [k for k, v in c.items() if isinstance(v, torch.Tensor)]
     if fam == "corr":
         if dplan.tile % R:
@@ -908,17 +1007,18 @@ def xsect_fused_plain(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         s["dx"] = c["dx"]
         win = lambda uu: (uu > -s["wingu"]) & (uu <= s["wingu"])  # noqa
         if fam != "corr":
-            val = _value(mode, u, s, a_w, L_w)
+            val = _value(mode, u, s, a_w, L_w, rcp)
             out[:, t_i] += torch.where(win(u), val, 0.0).sum(dim=2)
             continue
         k_nodes = (_tile_start(dplan, t_i)[:, None]
                    + nodes.to(torch.int32))[:, None, :]
         u_n = ((k_nodes - dplan.k_line[slots][:, :, None]).to(dt)
                - dplan.frac0.to(dt)[slots][:, :, None])[None]
-        v_n = torch.where(win(u_n), _value(nd_kind, u_n, s, a_w, L_w), 0.0)
+        v_n = torch.where(win(u_n), _value(nd_kind, u_n, s, a_w, L_w, rcp),
+                          0.0)
         interp = (v_n[..., seg] * wts[0] + v_n[..., seg + 1] * wts[1]
                   + v_n[..., seg + 2] * wts[2] + v_n[..., seg + 3] * wts[3])
-        fm = torch.where(win(u), _value(pt_kind, u, s, a_w, L_w), 0.0)
+        fm = torch.where(win(u), _value(pt_kind, u, s, a_w, L_w, rcp), 0.0)
         out[:, t_i] += (fm - interp).sum(dim=2)
     return out.reshape(nl, -1)[:, :dplan.n_out]
 
@@ -945,11 +1045,11 @@ def _check_mode_args(mode, ymix, gamma_2):
 @_shardable
 def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
                           gamma_d, gamma_0, wing, shift0_t, strength_t,
-                          gamma_d_t, gamma_0_t,
-                          n_weideman: int = 16) -> torch.Tensor:
+                          gamma_d_t, gamma_0_t, n_weideman: int = 16,
+                          fast: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the tangent kernel K3, in the parameters'
     dtype on their device: the directional derivative of the ``full`` pass
-    for each of nd directions.
+    for each of nd directions (``fast``: as in :func:`xsect_fused_plain`).
 
     The primal parameters are (nLay, L) rows as in :func:`xsect_fused_plain`;
     the tangents ``*_t`` are (nd, nLay, L). With A = cte/sqrt(pi), cte =
@@ -962,6 +1062,7 @@ def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
     dt, dev = strength.dtype, strength.device
     c = _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0,
                         wing, None, "full")
+    rcp = plain_rcp(fast, strength)
     nd, nl = strength_t.shape[0], c["xs"].shape[0]
     lay = lay_idx.long()
     valid = dplan.line >= 0
@@ -982,7 +1083,7 @@ def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
     for t_i, slots, u in _plain_steps(dplan, nl * (nd + 1), dt):
         s = {k: c[k][:, slots][..., None] for k in ("ds", "xs", "y", "wingu")}
         x, y = (u - s["ds"]) * s["xs"], s["y"]
-        K, Kx, Ky = _voigt_k_grads(x, y, a_w, L_w)
+        K, Kx, Ky = _voigt_k_grads(x, y, a_w, L_w, rcp)
         G = K + x * Kx + y * Ky
         t = {k: v[:, :, slots][..., None] for k, v in co.items()}
         tan = t["s"] * K - t["gd"] * G + t["g0"] * Ky - t["ds"] * Kx
@@ -995,12 +1096,14 @@ def xsect_fused_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
 def xsect_sdvoigt_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
                             gamma_d, gamma_0, gamma_2, wing, shift0_t,
                             strength_t, gamma_d_t, gamma_0_t, gamma_2_t,
-                            n_weideman: int = 16) -> torch.Tensor:
+                            n_weideman: int = 16,
+                            fast: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the SD-Voigt tangent kernel K4, in the
     parameters' dtype on their device: the directional derivative of the
     single-pass ``sdvoigt`` pass w.r.t. (strength, gamma_d, gamma_0,
     gamma_2, shift0) for each of nd directions, by the analytic formula of
-    ``pallas_xsect.py:1382-1421`` in its order of operations.
+    ``pallas_xsect.py:1382-1421`` in its order of operations (``fast``:
+    as in :func:`xsect_fused_plain`).
 
     With X = (Gamma0 - 1.5 Gamma2 + i (Shift0 - dnu))/Gamma2, c = GammaD /
     (2 sqrt(ln2) Gamma2), S = sqrt(X + c^2) = us + i vs and the CPF points
@@ -1016,6 +1119,7 @@ def xsect_sdvoigt_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
     dt, dev = strength.dtype, strength.device
     c = _slot_constants(dplan, lay_idx, shift0, strength, gamma_d, gamma_0,
                         wing, None, "sdvoigt", gamma_2)
+    rcp = plain_rcp(fast, strength)
     nd, nl = strength_t.shape[0], c["xs"].shape[0]
     lay = lay_idx.long()
     valid = dplan.line >= 0
@@ -1050,8 +1154,8 @@ def xsect_sdvoigt_jvp_plain(dplan: DevicePlan, lay_idx, shift0, strength,
         vs = torch.sign(xi) * torch.sqrt(torch.clamp((r - aa) * 0.5,
                                                      min=0.0))
         x12 = -vs
-        K1, Kx1, Ky1 = _voigt_k_grads(x12, us - cc, a_w, L_w)
-        K2, Kx2, Ky2 = _voigt_k_grads(x12, us + cc, a_w, L_w)
+        K1, Kx1, Ky1 = _voigt_k_grads(x12, us - cc, a_w, L_w, rcp)
+        K2, Kx2, Ky2 = _voigt_k_grads(x12, us + cc, a_w, L_w, rcp)
         dXr = inv_g2 * (t["g0"] - (1.5 + xr) * g2e_t)
         dXi = inv_g2 * (t["s0"] - xi * g2e_t)
         dc = cc * (t["gd"] / p["gd"] - inv_g2 * g2e_t)
@@ -1131,7 +1235,8 @@ def _check_call(dplan: DevicePlan, lay_idx, params: dict, n_weideman: int):
 @_shardable
 def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                 gamma_0, wing, ymix=None, mode: str = "asym",
-                n_weideman: int = 16, gamma_2=None) -> torch.Tensor:
+                n_weideman: int = 16, gamma_2=None,
+                fast: bool = False) -> torch.Tensor:
     """One fused line-shape pass: (len(lay_idx), n_out) float32.
 
     ``mode`` is one of :data:`MODES` or ``corr:R:<variant>``; ``mix`` needs
@@ -1141,13 +1246,14 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     (another dtype than float32, non-contiguous or mismatched shapes, mixed
     devices, a correction pass whose R does not divide the kernel's
     256-point slice and the tile, or is below 8) raises, as does a non-zero
-    CUDA error from the launch.
+    CUDA error from the launch. ``fast`` launches the FAST instantiation
+    (the fast reciprocal, JAX's ``fast_rcp``); the plain version ignores it.
     """
     _check_mode_args(mode, ymix, gamma_2)
     if strength.device.type == "cpu":
         return xsect_fused_plain(dplan, lay_idx, shift0, strength, gamma_d,
                                  gamma_0, wing, ymix, mode, n_weideman,
-                                 gamma_2)
+                                 gamma_2, fast)
     fam, R, variant = parse_mode(mode)
     params = dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
                   gamma_0=gamma_0, wing=wing)
@@ -1172,7 +1278,7 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     wei = _weideman_table(n_weideman, dev)
     code = (len(MODES) + CORR_VARIANTS.index(variant) if fam == "corr"
             else MODES.index(mode))
-    err = _build.library().radtxfr_fused_xsect(
+    err = _build.entry("radtxfr_fused_xsect", fast)(
         code, R, dplan.starts.data_ptr(), dplan.counts.data_ptr(),
         dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
         dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
@@ -1185,21 +1291,22 @@ def xsect_fused(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
         dplan.max_blocks, dplan.n_out, dplan.dx, out.data_ptr(),
         _build.launch_stream(dev))
     if err != 0:
-        raise RuntimeError(f"fused_xsect kernel ({mode}) launch failed with "
-                           f"CUDA error {err}")
-    _count(mode, dplan)
+        raise RuntimeError(f"fused_xsect kernel ({mode}, fast={fast}) launch "
+                           f"failed with CUDA error {err}")
+    _count(launch_key(mode, fast), dplan)
     return out
 
 
 def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
-                      params: dict, tangents: dict,
-                      n_weideman: int) -> torch.Tensor:
+                      params: dict, tangents: dict, n_weideman: int,
+                      fast: bool = False) -> torch.Tensor:
     """Check the arguments of a tangent kernel (K3, K4 or the HT tangent
     K6) and launch it once per ``_JVP_MAX_DIRS`` directions on the current
     stream: ``params`` (nLay, L) and ``tangents`` (nd, nLay, L), each in the
-    order of the C function ``symbol``, which takes the launch's rows of
-    :func:`live_directions`; (nd, len(lay_idx), n_out) float32. Launches
-    count under ``key``."""
+    order of the C function ``symbol`` (with ``fast``, its FAST build's),
+    which takes the launch's rows of :func:`live_directions`; (nd,
+    len(lay_idx), n_out) float32. Launches count under
+    ``launch_key(key, fast)``."""
     _check_call(dplan, lay_idx, params, n_weideman)
     strength, strength_t = params["strength"], tangents["strength_t"]
     dev = strength.device
@@ -1218,7 +1325,7 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
     per_dir = n_lay * n_lines * 4
     for d0 in range(0, nd, _JVP_MAX_DIRS):
         n = min(_JVP_MAX_DIRS, nd - d0)
-        err = getattr(_build.library(), symbol)(
+        err = _build.entry(symbol, fast)(
             dplan.starts.data_ptr(), dplan.counts.data_ptr(),
             dplan.k_line.data_ptr(), dplan.frac0.data_ptr(),
             dplan.line.data_ptr(), dplan.wcap.data_ptr(), _off_ptr(dplan),
@@ -1229,16 +1336,17 @@ def _tangent_launches(symbol: str, key: str, dplan: DevicePlan, lay_idx,
             dplan.block, dplan.n_tiles, dplan.n_out, dplan.dx,
             out[d0].data_ptr(), _build.launch_stream(dev))
         if err != 0:
-            raise RuntimeError(f"{symbol} kernel launch failed with CUDA "
-                               f"error {err}")
-        _count(key, dplan)
+            raise RuntimeError(f"{symbol} kernel (fast={fast}) launch failed "
+                               f"with CUDA error {err}")
+        _count(launch_key(key, fast), dplan)
     return out
 
 
 @_shardable
 def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                     gamma_0, wing, shift0_t, strength_t, gamma_d_t,
-                    gamma_0_t, n_weideman: int = 16) -> torch.Tensor:
+                    gamma_0_t, n_weideman: int = 16,
+                    fast: bool = False) -> torch.Tensor:
     """The tangent of one ``full`` pass for nd directions:
     (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
 
@@ -1246,20 +1354,21 @@ def xsect_fused_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     tangent kernel (``csrc/fused_xsect_jvp.cu``, one CTA per (128-point
     slice, 4 (direction, layer) rows), the rows whose direction has no
     non-zero tangent on their layer written as zeros without staging) once
-    per ``_JVP_MAX_DIRS`` directions on the current stream; anything it
-    does not take raises, as does a non-zero CUDA error from a launch.
+    per ``_JVP_MAX_DIRS`` directions on the current stream (``fast``: its
+    FAST instantiation); anything it does not take raises, as does a
+    non-zero CUDA error from a launch.
     """
     if strength.device.type == "cpu":
         return xsect_fused_jvp_plain(dplan, lay_idx, shift0, strength,
                                      gamma_d, gamma_0, wing, shift0_t,
                                      strength_t, gamma_d_t, gamma_0_t,
-                                     n_weideman)
+                                     n_weideman, fast)
     return _tangent_launches(
         "radtxfr_fused_xsect_jvp", "jvp", dplan, lay_idx,
         dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
              gamma_0=gamma_0, wing=wing),
         dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
-             gamma_0_t=gamma_0_t), n_weideman)
+             gamma_0_t=gamma_0_t), n_weideman, fast)
 
 
 def live_directions(tangents, n_lay) -> torch.Tensor:
@@ -1277,8 +1386,8 @@ def live_directions(tangents, n_lay) -> torch.Tensor:
 @_shardable
 def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
                       gamma_0, gamma_2, wing, shift0_t, strength_t,
-                      gamma_d_t, gamma_0_t, gamma_2_t,
-                      n_weideman: int = 16) -> torch.Tensor:
+                      gamma_d_t, gamma_0_t, gamma_2_t, n_weideman: int = 16,
+                      fast: bool = False) -> torch.Tensor:
     """The tangent of one single-pass ``sdvoigt`` pass for nd directions:
     (nd, len(lay_idx), n_out) float32 from (nd, nLay, L) tangents.
 
@@ -1288,20 +1397,21 @@ def xsect_sdvoigt_jvp(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
     tangent on their layer written as zeros without staging, a live row's
     line slots culled to those where its direction has a non-zero tangent
     and whose window meets the slice) once per ``_JVP_MAX_DIRS`` directions
-    on the current stream; anything it does not take raises, as does a
-    non-zero CUDA error from a launch.
+    on the current stream (``fast``: its FAST instantiation); anything it
+    does not take raises, as does a non-zero CUDA error from a launch.
     """
     if strength.device.type == "cpu":
         return xsect_sdvoigt_jvp_plain(dplan, lay_idx, shift0, strength,
                                        gamma_d, gamma_0, gamma_2, wing,
                                        shift0_t, strength_t, gamma_d_t,
-                                       gamma_0_t, gamma_2_t, n_weideman)
+                                       gamma_0_t, gamma_2_t, n_weideman,
+                                       fast)
     return _tangent_launches(
         "radtxfr_fused_sdvoigt_jvp", "sdvoigt_jvp", dplan, lay_idx,
         dict(shift0=shift0, strength=strength, gamma_d=gamma_d,
              gamma_0=gamma_0, gamma_2=gamma_2, wing=wing),
         dict(shift0_t=shift0_t, strength_t=strength_t, gamma_d_t=gamma_d_t,
-             gamma_0_t=gamma_0_t, gamma_2_t=gamma_2_t), n_weideman)
+             gamma_0_t=gamma_0_t, gamma_2_t=gamma_2_t), n_weideman, fast)
 
 
 # --------------------------------------------------------------------------
@@ -1318,58 +1428,60 @@ def _unbatched(name, in_dims):
 def diff_pass(name: str, primal, tangent, diff):
     """A pass differentiable in forward mode, as a
     :class:`torch.autograd.Function` in the ``setup_context`` form applied
-    as ``(dplan, lay_idx, n_weideman, *prm)``: ``primal(dplan, lay_idx,
-    n_weideman, *prm)`` gives the value, ``tangent(dplan, lay_idx,
-    n_weideman, prm, tans)`` the (nd, nl, n_out) tangents of a batch of
-    directions from the (nd, nLay, L) tangents ``tans`` of ``prm[i]`` for i
-    in ``diff`` (a missing tangent is zero; the other parameters', the
-    wing's, are dropped: the window is piecewise constant). Under ``vmap``
+    as ``(dplan, lay_idx, n_weideman, fast, *prm)``: ``primal(dplan,
+    lay_idx, n_weideman, fast, *prm)`` gives the value, ``tangent(dplan,
+    lay_idx, n_weideman, fast, prm, tans)`` the (nd, nl, n_out) tangents of
+    a batch of directions from the (nd, nLay, L) tangents ``tans`` of
+    ``prm[i]`` for i in ``diff`` (a missing tangent is zero; the other
+    parameters', the wing's, are dropped: the window is piecewise constant;
+    ``fast``: JAX's ``fast_rcp``, handed to both). Under ``vmap``
     the tangent pass makes the batch of directions its kernel's direction
     axis; a batch of the parameters themselves raises."""
 
     class Tangent(torch.autograd.Function):
         @staticmethod
-        def forward(dplan, lay_idx, n_weideman, n_prm, *tensors):
+        def forward(dplan, lay_idx, n_weideman, fast, n_prm, *tensors):
             tans = [t[None].contiguous() for t in tensors[n_prm:]]
-            return tangent(dplan, lay_idx, n_weideman, tensors[:n_prm],
-                           tans)[0]
+            return tangent(dplan, lay_idx, n_weideman, fast,
+                           tensors[:n_prm], tans)[0]
 
         @staticmethod
         def setup_context(ctx, inputs, output):
             pass
 
         @staticmethod
-        def vmap(info, in_dims, dplan, lay_idx, n_weideman, n_prm, *tensors):
-            _unbatched(f"the {name} tangent pass", in_dims[:4 + n_prm])
+        def vmap(info, in_dims, dplan, lay_idx, n_weideman, fast, n_prm,
+                 *tensors):
+            _unbatched(f"the {name} tangent pass", in_dims[:5 + n_prm])
             tans = [t.expand((info.batch_size,) + t.shape) if d is None
                     else t.movedim(d, 0)
-                    for t, d in zip(tensors[n_prm:], in_dims[4 + n_prm:])]
-            return tangent(dplan, lay_idx, n_weideman, tensors[:n_prm],
+                    for t, d in zip(tensors[n_prm:], in_dims[5 + n_prm:])]
+            return tangent(dplan, lay_idx, n_weideman, fast, tensors[:n_prm],
                            [t.contiguous() for t in tans]), 0
 
     class Pass(torch.autograd.Function):
         @staticmethod
-        def forward(dplan, lay_idx, n_weideman, *prm):
-            return primal(dplan, lay_idx, n_weideman, *prm)
+        def forward(dplan, lay_idx, n_weideman, fast, *prm):
+            return primal(dplan, lay_idx, n_weideman, fast, *prm)
 
         @staticmethod
         def setup_context(ctx, inputs, output):
-            dplan, lay_idx, n_weideman, *prm = inputs
+            dplan, lay_idx, n_weideman, fast, *prm = inputs
             ctx.save_for_forward(lay_idx, *prm)
-            ctx.dplan, ctx.n_weideman = dplan, n_weideman
+            ctx.dplan, ctx.n_weideman, ctx.fast = dplan, n_weideman, fast
 
         @staticmethod
-        def jvp(ctx, _dplan_t, _lay_t, _n_t, *prm_t):
+        def jvp(ctx, _dplan_t, _lay_t, _n_t, _fast_t, *prm_t):
             lay_idx, *prm = ctx.saved_tensors
             tans = [torch.zeros_like(prm[i]) if prm_t[i] is None else prm_t[i]
                     for i in diff]
-            return Tangent.apply(ctx.dplan, lay_idx, ctx.n_weideman, len(prm),
-                                 *prm, *tans)
+            return Tangent.apply(ctx.dplan, lay_idx, ctx.n_weideman, ctx.fast,
+                                 len(prm), *prm, *tans)
 
         @staticmethod
-        def vmap(info, in_dims, dplan, lay_idx, n_weideman, *prm):
+        def vmap(info, in_dims, dplan, lay_idx, n_weideman, fast, *prm):
             _unbatched(f"the {name} pass", in_dims)
-            return primal(dplan, lay_idx, n_weideman, *prm), None
+            return primal(dplan, lay_idx, n_weideman, fast, *prm), None
 
     Pass.__name__ = Pass.__qualname__ = f"_{name}Pass"
     Tangent.__name__ = Tangent.__qualname__ = f"_{name}Tangent"
@@ -1379,42 +1491,46 @@ def diff_pass(name: str, primal, tangent, diff):
 # K1 full with K3; prm (shift0, strength, gamma_d, gamma_0, wing)
 _FULL = diff_pass(
     "full",
-    lambda dplan, lay, n, s0, s, gd, g0, w: xsect_fused(
-        dplan, lay, s0, s, gd, g0, w, None, "full", n),
-    lambda dplan, lay, n, prm, tans: xsect_fused_jvp(dplan, lay, *prm, *tans,
-                                                     n),
+    lambda dplan, lay, n, fast, s0, s, gd, g0, w: xsect_fused(
+        dplan, lay, s0, s, gd, g0, w, None, "full", n, fast=fast),
+    lambda dplan, lay, n, fast, prm, tans: xsect_fused_jvp(
+        dplan, lay, *prm, *tans, n, fast),
     diff=(0, 1, 2, 3))
 # K1 sdvoigt (zero grid shift) with K4; prm (shift0, strength, gamma_d,
 # gamma_0, gamma_2, wing)
 _SDVOIGT = diff_pass(
     "sdvoigt",
-    lambda dplan, lay, n, s0, s, gd, g0, g2, w: xsect_fused(
-        dplan, lay, s0, s, gd, g0, w, None, "sdvoigt", n, g2),
-    lambda dplan, lay, n, prm, tans: xsect_sdvoigt_jvp(dplan, lay, *prm,
-                                                       *tans, n),
+    lambda dplan, lay, n, fast, s0, s, gd, g0, g2, w: xsect_fused(
+        dplan, lay, s0, s, gd, g0, w, None, "sdvoigt", n, g2, fast),
+    lambda dplan, lay, n, fast, prm, tans: xsect_sdvoigt_jvp(
+        dplan, lay, *prm, *tans, n, fast),
     diff=(0, 1, 2, 3, 4))
 
 
 @_shardable
 def xsect_fused_diff(dplan: DevicePlan, lay_idx, shift0, strength, gamma_d,
-                     gamma_0, wing, n_weideman: int = 16) -> torch.Tensor:
+                     gamma_0, wing, n_weideman: int = 16,
+                     fast: bool = False) -> torch.Tensor:
     """The ``full`` pass, differentiable in forward mode: K1 ``full`` for
     the value, K3 for ``torch.func.jvp`` tangents (a ``vmap`` over
-    directions becomes K3's direction axis). (len(lay_idx), n_out)."""
-    return _FULL.apply(dplan, lay_idx, n_weideman, shift0, strength, gamma_d,
-                       gamma_0, wing)
+    directions becomes K3's direction axis), both their FAST
+    instantiations with ``fast``. (len(lay_idx), n_out)."""
+    return _FULL.apply(dplan, lay_idx, n_weideman, fast, shift0, strength,
+                       gamma_d, gamma_0, wing)
 
 
 @_shardable
 def xsect_fused_sdvoigt_diff(dplan: DevicePlan, lay_idx, shift0, strength,
                              gamma_d, gamma_0, gamma_2, wing,
-                             n_weideman: int = 16) -> torch.Tensor:
+                             n_weideman: int = 16,
+                             fast: bool = False) -> torch.Tensor:
     """The single-pass ``sdvoigt`` pass, differentiable in forward mode
     (the counterpart of ``xsect_fused_sdvoigt_diff``): K1 ``sdvoigt`` for
     the value, K4 for ``torch.func.jvp`` tangents through (strength,
-    gamma_d, gamma_0, gamma_2, shift0); a ``vmap`` over directions becomes
-    K4's direction axis. (len(lay_idx), n_out)."""
-    return _SDVOIGT.apply(dplan, lay_idx, n_weideman, shift0, strength,
+    gamma_d, gamma_0, gamma_2, shift0), both their FAST instantiations with
+    ``fast``; a ``vmap`` over directions becomes K4's direction axis.
+    (len(lay_idx), n_out)."""
+    return _SDVOIGT.apply(dplan, lay_idx, n_weideman, fast, shift0, strength,
                           gamma_d, gamma_0, gamma_2, wing)
 
 
@@ -1460,24 +1576,26 @@ def _unfused_args(plan: BucketPlan, params, mode: str, n_weideman: int,
 
 
 def xsect_unfused_plain(plan: BucketPlan, params, mode: str = "full",
-                        n_weideman: int = 24) -> torch.Tensor:
+                        n_weideman: int = 24,
+                        fast: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K7 in the parameters' dtype on their device
     (the counterpart of ``xsect_pallas(plan, params,
     fused_layers=False)``): ``params`` holds (nLay, L) or (L,) tensors of
     the plan's sorted lines; (nLay, n) spectra, squeezed to (n,) for 1-D
     input. The sum is K1's (:func:`xsect_fused_plain`: per tile, block by
-    block) with the wing capped at the plan's bound."""
+    block) with the wing capped at the plan's bound; ``fast`` as in
+    :func:`xsect_fused_plain`."""
     rows, single, dplan = _unfused_args(plan, params, mode, n_weideman)
     lay = torch.arange(rows["strength"].shape[0], dtype=torch.int32,
                        device=rows["strength"].device)
     out = xsect_fused_plain(dplan, lay, rows["shift0"], rows["strength"],
                             rows["gamma_d"], rows["gamma_0"], rows["wing"],
-                            None, mode, n_weideman)
+                            None, mode, n_weideman, fast=fast)
     return out[0] if single else out
 
 
 def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
-                  n_weideman: int = 24) -> torch.Tensor:
+                  n_weideman: int = 24, fast: bool = False) -> torch.Tensor:
     """Layered spectra through the unfused kernel K7 (``csrc/fused_xsect.cu``,
     the counterpart of ``xsect_pallas(..., fused_layers=False)``): ``plan``
     a :class:`BucketPlan` (shared-block from :func:`plan_buckets`, or
@@ -1490,11 +1608,12 @@ def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
     tensors are taken as float32 (the Pallas wrapper's cast) and launch K7
     on the current stream, one CTA per (256-point slice, 2 layers), each
     staged (slot, layer) pair culled by its integer window; a non-zero CUDA
-    error from the launch raises. Launches count under
-    ``"unfused_<mode>"`` in :data:`LAUNCHES`.
+    error from the launch raises. ``fast`` (JAX's ``fast_rcp``, False as
+    in ``xsect_pallas``) launches its FAST instantiation. Launches count
+    under ``launch_key("unfused_<mode>", fast)`` in :data:`LAUNCHES`.
     """
     if params.strength.device.type == "cpu":
-        return xsect_unfused_plain(plan, params, mode, n_weideman)
+        return xsect_unfused_plain(plan, params, mode, n_weideman, fast)
     rows, single, dplan = _unfused_args(plan, params, mode, n_weideman,
                                         torch.float32)
     n_lay, n_lines = rows["strength"].shape
@@ -1503,7 +1622,7 @@ def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
     dev = rows["strength"].device
     out = torch.empty((n_lay, dplan.n_out), dtype=torch.float32, device=dev)
     if dplan.n_out:
-        err = _build.library().radtxfr_unfused_xsect(
+        err = _build.entry("radtxfr_unfused_xsect", fast)(
             MODES.index(mode), dplan.starts.data_ptr(),
             dplan.counts.data_ptr(), dplan.k_line.data_ptr(),
             dplan.frac0.data_ptr(), dplan.line.data_ptr(),
@@ -1515,7 +1634,7 @@ def xsect_unfused(plan: BucketPlan, params, mode: str = "full",
             dplan.dx, out.data_ptr(),
             _build.launch_stream(dev))
         if err != 0:
-            raise RuntimeError(f"unfused_xsect kernel ({mode}) launch failed "
-                               f"with CUDA error {err}")
-        LAUNCHES[f"unfused_{mode}"] += 1
+            raise RuntimeError(f"unfused_xsect kernel ({mode}, fast={fast}) "
+                               f"launch failed with CUDA error {err}")
+        LAUNCHES[launch_key(f"unfused_{mode}", fast)] += 1
     return out[0] if single else out

@@ -26,7 +26,7 @@ import math
 import torch
 
 from .. import arrays_on
-from .fused_xsect import _cpf3_pair, _voigt_w_KL
+from .fused_xsect import _cpf3_pair, _ieee_rcp, _voigt_w_KL
 
 __all__ = ["ht_line_constants", "pcqsdhc_real", "HT_CONST_KEYS"]
 
@@ -73,15 +73,16 @@ def _csqrt(ar, ai):
     return u, torch.where(ai >= 0.0, v_mag, -v_mag)
 
 
-def _w_of_pair(zr, zi, a, L):
-    """hapi's CPF convention: w at (x, y) = (-Im Z, Re Z)."""
-    return _voigt_w_KL(-zi, zr, a, L)
+def _w_of_pair(zr, zi, a, L, rcp):
+    """hapi's CPF convention: w at (x, y) = (-Im Z, Re Z); ``rcp``: the
+    reciprocal of the w(Z) forms (``fused_xsect.plain_rcp``)."""
+    return _voigt_w_KL(-zi, zr, a, L, rcp)
 
 
-def _cpf_select_pair(zr, zi, use3, a, L):
+def _cpf_select_pair(zr, zi, use3, a, L, rcp):
     """w(Z) with PART4's CPF3-vs-CPF sub-selection."""
     x, y = -zi, zr
-    Kw, Lw = _voigt_w_KL(x, y, a, L)
+    Kw, Lw = _voigt_w_KL(x, y, a, L, rcp)
     K3, L3 = _cpf3_pair(x, y)
     return torch.where(use3, K3, Kw), torch.where(use3, L3, Lw)
 
@@ -132,14 +133,24 @@ def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
     :func:`ht_line_constants` (each broadcastable against ``dnu``);
     ``wei_a``/``wei_L`` are the Weideman coefficients. The operations are
     those of ``htp_real.py::pcqsdhc_real``, in its order. ``fast=True``
-    (JAX's approximate reciprocals) raises ``NotImplementedError``: the
-    port divides in IEEE only, as the builders' ``fast_rcp``. NumPy
+    (JAX's approximate reciprocals) raises ``NotImplementedError``, as
+    JAX's does outside a kernel (``pl.reciprocal`` has no evaluation rule
+    there): the fast reciprocal is K5's (``xsect_ht(..., fast=True)``,
+    the builders' ``fast_rcp``), and this function divides in IEEE. NumPy
     ``dnu`` and constants join a tensor's device, else ``device`` (None:
     the card)."""
     if fast:
         raise NotImplementedError(
             "fast=True: the port's pcqsdhc divides by IEEE division only "
             "(pass fast=False)")
+    return _pcqsdhc_terms(dnu, k, wei_a, wei_L, _ieee_rcp, device)
+
+
+def _pcqsdhc_terms(dnu, k, wei_a, wei_L, rcp, device=None):
+    """:func:`pcqsdhc_real` with ``rcp`` at the reciprocals of the w(Z)
+    forms, the sites of K5's ``wrecip<FAST>`` (K5's plain version passes
+    ``fused_xsect.plain_rcp``: on the card, the FAST instantiation's
+    reciprocal); every other division is IEEE."""
     names = sorted(k)
     dnu, L, *vals = arrays_on(dnu, wei_L, *(k[n] for n in names),
                               device=device)
@@ -156,7 +167,7 @@ def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
 
     # PART1
     z1ar, z1ai = t0r * cte, t0i * cte
-    w1r, w1i = _w_of_pair(z1ar, z1ai, a, L)
+    w1r, w1i = _w_of_pair(z1ar, z1ai, a, L, rcp)
     A1r, A1i = _RPI * cte * w1r, _RPI * cte * w1i
     z2_r, z2_i = _cmul(z1ar, z1ai, z1ar, z1ai)
     bw_r, bw_i = _cmul(1.0 - z2_r, -z2_i, w1r, w1i)
@@ -194,8 +205,8 @@ def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
     SZ2 = torch.sqrt(Z2r * Z2r + Z2i * Z2i)
     use3 = ((torch.abs(SZ1 - SZ2) <= 1.0) & (torch.maximum(SZ1, SZ2) > 8.0)
             & (torch.minimum(SZ1, SZ2) <= 8.0))
-    w14r, w14i = _cpf_select_pair(Z1r, Z1i, use3, a, L)
-    w24r, w24i = _cpf_select_pair(Z2r, Z2i, use3, a, L)
+    w14r, w14i = _cpf_select_pair(Z1r, Z1i, use3, a, L, rcp)
+    w24r, w24i = _cpf_select_pair(Z2r, Z2i, use3, a, L, rcp)
     A4r = _RPI * cte * (w14r - w24r)
     A4i = _RPI * cte * (w14i - w24i)
     z1sq_r, z1sq_i = _cmul(Z1r, Z1i, Z1r, Z1i)
@@ -208,8 +219,8 @@ def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
 
     # PART2
     Z2br, Z2bi = sxyr + cy_sr, sxyi + cy_si
-    w12r, w12i = _w_of_pair(z1ar, z1ai, a, L)
-    w22r, w22i = _w_of_pair(Z2br, Z2bi, a, L)
+    w12r, w12i = _w_of_pair(z1ar, z1ai, a, L, rcp)
+    w22r, w22i = _w_of_pair(Z2br, Z2bi, a, L, rcp)
     A2r = _RPI * cte * (w12r - w22r)
     A2i = _RPI * cte * (w12i - w22i)
     z1bsq_r, z1bsq_i = _cmul(z1ar, z1ai, z1ar, z1ai)
@@ -221,9 +232,9 @@ def pcqsdhc_real(dnu, k, wei_a, wei_L, fast: bool = False, device=None):
     B2r, B2i = _cmul(h2r - 1.0, h2i, ic2r, ic2i)
 
     # PART3
-    wxyr, wxyi = _w_of_pair(sxyr, sxyi, a, L)
+    wxyr, wxyi = _w_of_pair(sxyr, sxyi, a, L, rcp)
     sXr, sXi = _csqrt(Xr, Xi)
-    wxr, wxi = _w_of_pair(sXr, sXi, a, L)
+    wxr, wxi = _w_of_pair(sXr, sXi, a, L, rcp)
     sxwx_r, sxwx_i = _cmul(sXr, sXi, wxr, wxi)
     g_r, g_i = _INV_SQRT_PI - sxwx_r, -sxwx_i
     A3s_r, A3s_i = _cmul(2.0 * _RPI * g_r, 2.0 * _RPI * g_i, ic2r, ic2i)

@@ -31,6 +31,14 @@ builders'; each pass is one launch of the fused kernel K1
 ``torch.func.jvp`` tangents of the OD go through the tangent kernels K3 and
 K4.
 
+``fast_rcp`` (True by default, as in JAX's builders) runs every kernel a
+builder launches in its FAST instantiation, the TPU kernels' approximate
+reciprocal plus one Newton step at the line shapes' reciprocals (K1, K3,
+K4, K5; K6 divides in IEEE, as JAX's tangent kernel); the plain versions
+that CPU tensors run divide in IEEE either way, as JAX's interpret mode.
+``compute_od_layers(engine='pallas', plan=...)`` takes it as an evaluation
+option for K7 (False unless given, as ``xsect_pallas``).
+
 :func:`make_od_local_fn` (``make_od_pallas_local_fn`` there) is the
 spectrum-sharded builder: the same plans on a grid padded so that no tile
 straddles a shard, each shard running its slice of the tiles (contiguous,
@@ -628,12 +636,13 @@ class _Passes:
     ``calls`` are the classic passes, ``coarse_calls`` and ``corr_calls``
     the coarse-far route's (empty off it), each (layer or state indices
     int32, :class:`~..kernels.fused_xsect.DevicePlan`, mode); the coarse
-    plans lie on ``grid_coarse``. The four builders set ``work_report``,
-    the passes' plan work as JAX's builders list it (:func:`_work_report`).
+    plans lie on ``grid_coarse``. ``fast_rcp`` goes to every kernel a pass
+    launches. The four builders set ``work_report``, the passes' plan work
+    as JAX's builders list it (:func:`_work_report`).
     """
 
     def __init__(self, calls, coarse_calls, corr_calls, grid, grid_coarse,
-                 coarse_r, n_weideman):
+                 coarse_r, n_weideman, fast_rcp):
         self.calls = calls
         self.coarse_calls = coarse_calls
         self.corr_calls = corr_calls
@@ -641,6 +650,7 @@ class _Passes:
         self.coarse_r = coarse_r
         self.n_x = grid.n
         self.n_weideman = n_weideman
+        self.fast_rcp = bool(fast_rcp)
 
     def all_calls(self):
         """Every pass: the coarse, correction and classic calls."""
@@ -651,25 +661,28 @@ class _Passes:
         ``sdvoigt`` and ``ht`` passes go through their differentiable calls
         (K1 or K5 for the value, K3, K4 or K6 for tangents), unless
         ``kernel`` names another function (the plain version, in the
-        checks: an ``ht`` pass then runs K5's plain version)."""
+        checks: an ``ht`` pass then runs K5's plain version), each with the
+        builder's ``fast_rcp``."""
         lay, dplan, mode = call
         plain = kernel is not xsect_fused
+        fast = self.fast_rcp
         if mode == "ht":
             fn = xsect_ht_plain if plain else xsect_ht_diff
             return fn(dplan, lay, prm.strength, prm.wing, prm.ht_consts,
-                      self.n_weideman)
+                      self.n_weideman, fast)
         if mode == "full" and not plain:
             return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
                                     prm.gamma_d, prm.gamma_0, prm.wing,
-                                    self.n_weideman)
+                                    self.n_weideman, fast)
         if mode == "sdvoigt" and not plain:
             return xsect_fused_sdvoigt_diff(
                 dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
-                prm.gamma_0, prm.gamma_2, prm.wing, self.n_weideman)
+                prm.gamma_0, prm.gamma_2, prm.wing, self.n_weideman, fast)
         return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
                       prm.gamma_0, prm.wing, Y if mode == "mix" else None,
                       mode, self.n_weideman,
-                      gamma_2=prm.gamma_2 if is_sd_mode(mode) else None)
+                      gamma_2=prm.gamma_2 if is_sd_mode(mode) else None,
+                      fast=fast)
 
     def line_sum(self, prm: LineParams, Y=None):
         """(nLay, nX) sum of the passes: the coarse far field upsampled,
@@ -773,10 +786,11 @@ class CrossSectionFn(_Passes):
 
 
 def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
-                   device, dtype):
+                   device, dtype, fast_rcp):
     """The host plans of :func:`_build_od_calls` (and of the coarse-far
     route, ``coarse`` = (coarse grid, coarse calls, correction calls) or
-    None) as :class:`_Passes` keyword arguments on ``device``."""
+    None) as :class:`_Passes` keyword arguments on ``device``, with the
+    builder's ``fast_rcp``."""
     dev_plan = lambda plan, idx: device_plan(  # noqa: E731
         plan, idx, lines_h.nu0, device=device, dtype=dtype)
     as_lay = lambda lay: torch.as_tensor(  # noqa: E731
@@ -791,7 +805,7 @@ def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
         corr_calls=[(as_lay(all_lay), dev_plan(plan, idx), mode)
                     for idx, plan, mode in corr_calls],
         grid=g, grid_coarse=g_c, coarse_r=int(coarse_r),
-        n_weideman=n_weideman)
+        n_weideman=n_weideman, fast_rcp=fast_rcp)
 
 
 def _work_report(calls, coarse, n_weideman, n_lay):
@@ -861,15 +875,9 @@ def _coarse_route(lines_h, g, wing_abs, tile, far_method, coarse_r, allowed,
         subsets=subsets)
 
 
-def _check_build_opts(fast_rcp, **sizes):
-    """Refuse what the CUDA builds cannot honour: ``fast_rcp=True`` (the
-    kernels divide in IEEE only) and tile or block sizes that are not
-    positive integers (None or 0 keeps the planner's own choice, as in
-    the JAX planner)."""
-    if fast_rcp:
-        raise NotImplementedError(
-            "fast_rcp=True: the port's kernels divide by IEEE division only "
-            "(pass fast_rcp=False)")
+def _check_build_opts(**sizes):
+    """Refuse tile or block sizes that are not positive integers (None
+    or 0 keeps the planner's own choice, as in the JAX planner)."""
     for name, v in sizes.items():
         if v is not None and v != 0 and (isinstance(v, bool) or not isinstance(
                 v, (int, np.integer)) or v < 1):
@@ -883,7 +891,7 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                two_pass: bool = True, far_tile: int | None = None,
                far_block: int | None = None, group_ratio: float = 4.0,
                core_tile: int | None = None, core_block: int = 16,
-               fast_rcp: bool = False, profile: str = "voigt",
+               fast_rcp: bool = True, profile: str = "voigt",
                continuum: str = "none", continuum_factors=None,
                differentiable: bool = False,
                line_mixing: dict | None = None, far_method: str = "auto",
@@ -912,12 +920,11 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
     meaning: ``two_pass=False`` plans single ``full`` passes (no core
     passes; ``differentiable`` implies it), ``far_tile``/``far_block`` size
     the window passes and ``core_tile`` the core passes
-    (:func:`_build_od_calls`). ``fast_rcp`` must be False: the kernels
-    divide in IEEE only (True raises ``NotImplementedError``).
+    (:func:`_build_od_calls`); ``fast_rcp`` runs every kernel with the fast
+    reciprocal (the CPU's plain versions divide in IEEE either way).
     """
-    _check_build_opts(fast_rcp, tile=tile, far_tile=far_tile,
-                      far_block=far_block, core_tile=core_tile,
-                      core_block=core_block)
+    _check_build_opts(tile=tile, far_tile=far_tile, far_block=far_block,
+                      core_tile=core_tile, core_block=core_block)
     if profile == "ht":
         raise NotImplementedError(
             "profile 'ht': the layered Hartmann-Tran OD is make_od_ht_fn")
@@ -959,7 +966,7 @@ def make_od_fn(lines, iso, grid, atmos_class, wing_abs=0.0, wing_hw=50.0,
                             far_block=far_block, core_tile=core_tile)
     n_lay = int(states_h[0].T.size)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
-                            n_lay, dev, dt)
+                            n_lay, dev, dt, fast_rcp)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
     fn = OpticalDepthFn(lines, iso, passes, cols, profile, wing_abs, wing_hw,
@@ -1132,14 +1139,13 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
                      tile: int = 512, n_weideman: int = 16,
                      two_pass: bool = True, far_tile: int | None = None,
                      far_block: int | None = None, group_ratio: float = 1.6,
-                     fast_rcp: bool = False, profile: str = "voigt",
+                     fast_rcp: bool = True, profile: str = "voigt",
                      continuum: str = "none", continuum_factors=None,
                      line_mixing: dict | None = None,
                      partition: str = "equal",
                      differentiable: bool = False):
     """Per-shard OD over a spectrum-sharded grid (the counterpart of
-    ``make_od_pallas_local_fn``, with its arguments and defaults but
-    ``fast_rcp``, which must be False).
+    ``make_od_pallas_local_fn``, with its arguments and defaults).
 
     Every shard runs the same static plans, built on a padded global grid
     whose tiles never straddle a shard boundary; what differs per shard is
@@ -1169,8 +1175,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
     builds single-pass plans whose passes carry ``torch.func.jvp`` tangents
     through K3 and K4 (Voigt and SD-Voigt, no line mixing).
     """
-    _check_build_opts(fast_rcp, tile=tile, far_tile=far_tile,
-                      far_block=far_block)
+    _check_build_opts(tile=tile, far_tile=far_tile, far_block=far_block)
     g0 = _uniform_grid(grid)
     # pad so that every call's tile divides the shard's points: the far
     # pass uses far_tile (2 tile with two_pass), the core pass <= max(512,
@@ -1234,7 +1239,7 @@ def make_od_local_fn(lines, iso, grid, atmos_class, n_shards: int,
                                device=device)
         passes = _device_passes(calls, None, lines_h, g, 1, n_weideman,
                                 int(np.asarray(states_h[0].T).size), device,
-                                dt)
+                                dt, fast_rcp)
         cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                     device, dt, n_local=n_local)
         return LocalOpticalDepthFn(
@@ -1258,7 +1263,7 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
                   profile: str = "voigt", wing_abs=0.0, wing_hw=50.0,
                   max_groups: int = 8, tile: int = 512, n_weideman: int = 16,
                   two_pass: bool = True, group_ratio: float = 4.0,
-                  fast_rcp: bool = False, far_method: str = "auto",
+                  fast_rcp: bool = True, far_method: str = "auto",
                   coarse_r: int = 64,
                   near_width: float = 4.0) -> CrossSectionFn:
     """Build the (T_states, p_atm_states) -> (nStates, nX) cross-section
@@ -1277,10 +1282,10 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
     statically exact wings and a ``coarse_r`` that divides 256 and is at
     least 8; 'auto' takes it where those hold and ``wing_abs`` spans many
     tiles; 'classic' never; ``near_width`` floors the near zone's
-    half-width. ``fast_rcp=True`` raises ``NotImplementedError`` (IEEE
-    division only). ``profile`` 'ht' is :func:`make_ht_fn`.
+    half-width. ``fast_rcp``: the kernels' fast reciprocal
+    (:func:`make_od_fn`). ``profile`` 'ht' is :func:`make_ht_fn`.
     """
-    _check_build_opts(fast_rcp, tile=tile)
+    _check_build_opts(tile=tile)
     if profile == "ht":
         raise NotImplementedError(
             "profile 'ht': the Hartmann-Tran lattice is make_ht_fn")
@@ -1304,7 +1309,7 @@ def make_xsect_fn(lines, iso, grid, T_class, p_atm_class,
                             max_groups, tile, group_ratio, two_pass=two_pass,
                             profile=profile, wing_passes=coarse is None)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
-                            n, dev, dt)
+                            n, dev, dt, fast_rcp)
     fn = CrossSectionFn(lines, iso, passes, profile, wing_abs, wing_hw)
     fn.work_report = _work_report(calls, coarse, n_weideman, n)
     return fn
@@ -1469,7 +1474,7 @@ class HTOpticalDepthFn(_Passes):
 def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
                extras=None, wing_abs=0.0, wing_hw=50.0, tile: int = 128,
                n_weideman: int = 16, max_groups: int = 4,
-               group_ratio: float = 4.0, fast_rcp: bool = False,
+               group_ratio: float = 4.0, fast_rcp: bool = True,
                far_method: str = "auto", coarse_r: int = 64,
                near_width: float = 4.0) -> HTCrossSectionFn:
     """Build the (T_states, p_atm_states) -> (nStates, nX) Hartmann-Tran
@@ -1487,10 +1492,10 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
     bound, those two subsets take the coarse-far route (``far_method``
     'auto'; 'coarse' requires it, 'classic' never; ``coarse_r`` must divide
     256 and be at least 8; ``near_width`` floors the near zone), while the
-    live-HT lines keep their full windows. ``fast_rcp=True`` raises
-    ``NotImplementedError`` (IEEE division only).
+    live-HT lines keep their full windows. ``fast_rcp``: the kernels'
+    fast reciprocal (:func:`make_od_fn`).
     """
-    _check_build_opts(fast_rcp, tile=tile)
+    _check_build_opts(tile=tile)
     if diluent is None:
         diluent = {"air": 1.0}
     g = _uniform_grid(grid)
@@ -1549,7 +1554,7 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
         calls += _ht_group_calls(nu0, g, W, mode, idx, cap, tile, max_groups,
                                  group_ratio)
     passes = _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman,
-                            n, dev, dt)
+                            n, dev, dt, fast_rcp)
     fn = HTCrossSectionFn(lines, iso, passes, resolved, wing_abs, wing_hw)
     fn.work_report = _work_report(calls, coarse, n_weideman, n)
     return fn
@@ -1558,7 +1563,7 @@ def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,
 def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
                   wing_hw=50.0, tile: int = 128, n_weideman: int = 16,
                   max_groups: int = 8, group_ratio: float = 4.0,
-                  fast_rcp: bool = False, continuum: str = "none",
+                  fast_rcp: bool = True, continuum: str = "none",
                   continuum_factors=None,
                   differentiable: bool = False) -> HTOpticalDepthFn:
     """Build the (T, p_pa, pl, vmr) -> (nLay, nX) Hartmann-Tran layer OD
@@ -1571,9 +1576,10 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
     ``differentiable=True`` plans with the JAX builder's tangent-kernel
     block caps; the passes carry ``torch.func.jvp`` tangents through K6
     (``ht``), K4 (``sdvoigt``) and K3 (``full``) either way.
-    ``fast_rcp=True`` raises ``NotImplementedError`` (IEEE division only).
+    ``fast_rcp``: the kernels' fast reciprocal (K5, K4, K3 and K1; K6
+    divides in IEEE, as JAX's).
     """
-    _check_build_opts(fast_rcp, tile=tile)
+    _check_build_opts(tile=tile)
     g = _uniform_grid(grid)
     dev, dt = lines.sw.device, lines.sw.dtype
     lines_h, iso_h, states_h = _host_planning_views(lines, iso, atmos_class)
@@ -1594,7 +1600,7 @@ def make_od_ht_fn(lines, iso, grid, atmos_class, extras=None, wing_abs=0.0,
                                      max_groups, group_ratio)
     n_lay = int(states_h[0].T.size)
     passes = _device_passes(calls, None, lines_h, g, 64, n_weideman, n_lay,
-                            dev, dt)
+                            dev, dt, fast_rcp)
     cont = _make_continuum_term(g, mol_ids, continuum, continuum_factors,
                                 dev, dt)
     fn = HTOpticalDepthFn(lines, iso, passes, resolved, cols, wing_abs,
@@ -1637,7 +1643,6 @@ def _grid_values(grid) -> np.ndarray:
 
 #: the Pallas kernels' evaluation options that have no counterpart here
 _TPU_ONLY_OPTS = {
-    "fast_rcp": "the port's kernels divide by IEEE division only",
     "interpret": "the port runs a kernel's plain version for CPU inputs",
 }
 
@@ -1646,7 +1651,8 @@ def _od_layers_pallas(lines, iso, grid, atmos, profile="voigt",
                       wing_abs=0.0, wing_hw=50.0, plan=None, **pallas_opts):
     """``compute_od_layers(engine='pallas')`` (``_od_layers_pallas``
     there): a prebuilt ``plan`` runs the unfused kernel K7 on the layers'
-    line parameters (Voigt only, kernel options only); otherwise the
+    line parameters (Voigt only, kernel options only: ``n_weideman`` and
+    ``fast_rcp``, False unless given, as ``xsect_pallas``); otherwise the
     builders (:func:`make_od_fn`, :func:`make_od_ht_fn`) plan and run the
     state."""
     if profile == "ht":
@@ -1671,6 +1677,8 @@ def _od_layers_pallas(lines, iso, grid, atmos, profile="voigt",
     # would be silently ignored, so they are refused
     eval_opts = {k: pallas_opts.pop(k) for k in ("n_weideman",)
                  if k in pallas_opts}
+    if "fast_rcp" in pallas_opts:
+        eval_opts["fast"] = bool(pallas_opts.pop("fast_rcp"))
     for k, why in _TPU_ONLY_OPTS.items():
         if pallas_opts.pop(k, False):
             raise NotImplementedError(f"{k}: {why}")

@@ -42,9 +42,10 @@ def make_od_sharded_lines_fn(lines, iso, grid, atmos_class, n_shards: int,
                              wing_abs=0.0, wing_hw=50.0, max_groups: int = 8,
                              tile: int = 512, n_weideman: int = 16,
                              two_pass: bool = True, group_ratio: float = 1.6,
-                             fast_rcp: bool = False):
+                             fast_rcp: bool = True):
     """Build the line-sharded per-shard OD function (the JAX builder's
-    arguments and defaults, ``fast_rcp`` False).
+    arguments and defaults; ``fast_rcp``: K1's fast reciprocal, as in
+    :func:`~.od.make_od_fn`).
 
     Returns ``(local_fn, shard_data, padded_grid)``:
 
@@ -57,7 +58,7 @@ def make_od_sharded_lines_fn(lines, iso, grid, atmos_class, n_shards: int,
       (:func:`~.od.shard_slice`, on the device the state lies on) and
       ``k_offset = s * n_local``.
     """
-    _check_build_opts(fast_rcp, tile=tile)
+    _check_build_opts(tile=tile)
     g0 = _uniform_grid(grid)
     align = 1024 * n_shards
     n_pad = -(-g0.n // align) * align
@@ -195,7 +196,7 @@ def make_od_sharded_lines_fn(lines, iso, grid, atmos_class, n_shards: int,
             out.index_add_(0, lay_t, xsect_fused(
                 dplan, lay_t, prm.shift0, prm.strength, prm.gamma_d,
                 prm.gamma_0, prm.wing, None, mode, n_weideman,
-                k_offset=k_offset))
+                fast=fast_rcp, k_offset=k_offset))
         return out
 
     return local_fn, shard_data, g

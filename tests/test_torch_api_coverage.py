@@ -95,8 +95,6 @@ SIGNATURE_CONVENTIONS = {
     "t_lanes/interpret": "Pallas's lane width and interpret mode: the CUDA "
                          "kernels have neither, and CPU tensors run each "
                          "kernel's plain version",
-    "fast_rcp": "default False: the kernels divide in IEEE only, and True "
-                "raises NotImplementedError",
     "renames": "the builders and the fused entry points keep their roles "
                "under the port's names (SIG_RENAMES)",
 }
@@ -175,17 +173,14 @@ def _callables(name, obj):
 
 def _default_key(name, default, port):
     """What a default compares by: for the conventions, whether the port's
-    ``dtype`` default is a dtype (or None) and its ``fast_rcp``
-    default is False; a function's name; NaN as one value."""
+    ``dtype`` default is a dtype (or None); a function's name; NaN as one
+    value."""
     if default is _EMPTY:
         return _EMPTY
     if name == "dtype":
         return "convention" if not port or default is None or isinstance(
             default, torch.dtype) or (isinstance(default, type) and issubclass(
                 default, np.generic)) else ("not a dtype", default)
-    if name == "fast_rcp":
-        return "convention" if not port or default is False else (
-            "not False", default)
     if callable(default):
         return ("callable", default.__name__)
     if isinstance(default, float) and default != default:

@@ -34,14 +34,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _od_fn(dev):
+def _od_fn(dev, fast_rcp=True):
     f32 = torch.float32
     store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
     base = std_atmosphere(device=dev, dtype=f32)
     od_fn = make_od_fn(store, IsoTables.load(device=dev, dtype=f32),
                        arange_drift_free(716.0, 726.0, 0.0005), base,
                        line_mixing={"y_air": y_air_for_store(
-                           store.host_view())})
+                           store.host_view())}, fast_rcp=fast_rcp)
     return od_fn, base
 
 
@@ -55,22 +55,43 @@ def _tud_args(dev, od, x, base):
             torch.ones(1, dtype=f32, device=dev), snap, sec, w]
 
 
-def test_fused_xsect_kernel_matches_plain(dev):
-    od_fn, base = _od_fn(dev)
+@pytest.mark.parametrize("fast_rcp", (True, False))
+def test_fused_xsect_kernel_matches_plain(dev, fast_rcp):
+    """The production OD builder's passes (asym, core, mix) in the
+    instantiation ``fast_rcp`` picks (True: the FAST one, the builders'
+    default) against their plain versions, each launch counted under its
+    own key; with fast_rcp=True, the largest difference from the IEEE
+    instantiation is printed as a share of the line-OD peak."""
+    od_fn, base = _od_fn(dev, fast_rcp)
     prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)
     line_od = torch.zeros((base.n_layers, od_fn.n_x), device=dev)
     pairs = []
     for call in od_fn.calls:
+        key = fused_xsect.launch_key(call[2], fast_rcp)
+        other = fused_xsect.launch_key(call[2], not fast_rcp)
+        before = Counter(fused_xsect.LAUNCHES)
         got = od_fn.run_call(call, prm, Y)
+        torch.cuda.synchronize()
+        assert fused_xsect.LAUNCHES[key] == before[key] + 1, key
+        assert fused_xsect.LAUNCHES[other] == before[other], other
         assert torch.equal(got, od_fn.run_call(call, prm, Y))  # no atomics
         want = od_fn.run_call(call, prm, Y,
                               kernel=fused_xsect.xsect_fused_plain)
         line_od[call[0].long()] += want
-        pairs.append((call[0], call[2], got, want))
-    for lay, mode, got, want in pairs:
+        pairs.append((call, got, want))
+    for (lay, dplan, mode), got, want in pairs:
+        peak = line_od[lay.long()].abs().max()
         err = (got - want).abs().max()
+        if fast_rcp:
+            od_fn.fast_rcp = False
+            ieee = od_fn.run_call((lay, dplan, mode), prm, Y)
+            od_fn.fast_rcp = True
+            print(f"[fast_rcp] K1 {mode}: FAST vs plain "
+                  f"{float(err / peak):.3e}, FAST vs IEEE "
+                  f"{float((got - ieee).abs().max() / peak):.3e} of the "
+                  "line-OD peak")
         # <= 2e-6 of the line-OD peak of the pass's layers (chip_smoke.py)
-        assert err <= 2e-6 * line_od[lay.long()].abs().max()
+        assert err <= 2e-6 * peak
         # and of the pass's own peak: 2e-6 (asym, mix), 5e-2 (core, a
         # difference of near-equal float32 shapes; chip_smoke.K1_OWN_BOUND)
         own = want.abs().max()
@@ -409,8 +430,11 @@ def test_defaults_run_on_the_card():
     tud = make_tud_fn(base.z0.cpu().numpy(), [1.0, 500.0])(X, od, base.T)
     ld = reduce_operator(X, 0.25)(tud.Ld)
     assert ld.is_cuda and bool(torch.isfinite(ld).all())
+    # the builders' default is JAX's fast_rcp=True: the FAST instantiations
     for k in ("asym", "core"):
-        assert fused_xsect.LAUNCHES[k] > before[k], k
+        fk = fused_xsect.launch_key(k, True)
+        assert fused_xsect.LAUNCHES[fk] > before[fk], k
+        assert fused_xsect.LAUNCHES[k] == before[k], k
     assert fused_tud.LAUNCHES["tud"] > before["tud"]
 
 
@@ -1193,3 +1217,183 @@ def test_scalar_and_list_arguments_follow_the_call(dev):
     assert re.device.type == "cpu"
     assert robust.mad([1.0, 2.0, 5.0]).device.type == "cuda"
     assert robust.mad([1.0, 2.0, 5.0], device="cpu").device.type == "cpu"
+
+
+# ---- the fast reciprocal (fast=True, JAX's fast_rcp) ------------------------
+
+def _fast_check(label, fast, ieee, want, bound, peak=None):
+    """The FAST instantiation's output ``fast`` against the plain version
+    of its arithmetic ``want`` (``fast=True``: on the card, the FAST
+    instantiation's reciprocal, ``fused_xsect.card_fast_rcp``) within
+    ``bound`` of ``peak`` (the plain output's own peak by default), both
+    finite; its largest difference from the IEEE instantiation's output
+    ``ieee`` printed as a share of the same peak."""
+    peak = want.abs().max() if peak is None else peak
+    assert peak > 0.0 and bool(torch.isfinite(fast).all())
+    err = float((fast - want).abs().max() / peak)
+    gap = float((fast - ieee).abs().max() / peak)
+    print(f"[fast_rcp] {label}: FAST vs plain {err:.3e}, FAST vs IEEE "
+          f"{gap:.3e} of peak (bound {bound:g})")
+    assert err <= bound, (label, err)
+
+
+def _launched(before, key, n):
+    """``key`` launched n times since ``before`` in its FAST instantiation
+    and never in its IEEE one (no fallback)."""
+    fk = fused_xsect.launch_key(key, True)
+    assert fused_xsect.LAUNCHES[fk] - before[fk] == n, key
+    assert fused_xsect.LAUNCHES[key] == before[key], key
+
+
+def test_card_fast_rcp_table(dev):
+    """The card's rcp.approx.f32 table (``fused_xsect.fast_rcp_table``):
+    each entry within one ulp of IEEE 1/x on [1, 2); the plain versions'
+    fast reciprocal built from it (``card_fast_rcp``) within two ulps of
+    IEEE 1/x over random normal floats of every exponent, and equal to the
+    Newton step on the table's own entries in [1, 2)."""
+    tb = fused_xsect.fast_rcp_table(dev)
+    assert tb.shape == (1 << 23,) and tb.dtype == torch.int32
+    one = (torch.arange(1 << 23, dtype=torch.int32, device=dev)
+           | 0x3F800000).view(torch.float32)
+    ulps = (tb - (1.0 / one).view(torch.int32)).abs()
+    assert int(ulps.max()) <= 1
+    r0 = tb.view(torch.float32)
+    assert torch.equal(fused_xsect.card_fast_rcp(one), r0 * (2.0 - one * r0))
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(1 << 20, generator=g, device=dev) * torch.exp2(
+        torch.randint(-120, 120, (1 << 20,), generator=g, device=dev
+                      ).float())
+    x = x[x.abs() >= torch.finfo(torch.float32).tiny]
+    ulps = (fused_xsect.card_fast_rcp(x).view(torch.int32)
+            - (1.0 / x).view(torch.int32)).abs()
+    assert int(ulps.max()) <= 2
+
+
+@pytest.mark.parametrize("mode", ("full",) + NEW_MODES)
+def test_fast_k1_modes_match_plain(dev, mode):
+    """K1's FAST instantiation in ``full`` and each mode of the XS lattice
+    on random parameters against its plain version within 2e-6 of the
+    pass's own peak (test_xs_lattice_modes_match_plain's bound), launched
+    once under its FAST key; bit-identical reruns."""
+    dp, lay, prm = _random_case(dev)
+    g2 = prm.pop("gamma_2")
+    run = lambda fast: fused_xsect.xsect_fused(  # noqa: E731
+        dp, lay, *prm.values(), None, mode, gamma_2=g2, fast=fast)
+    before = Counter(fused_xsect.LAUNCHES)
+    got = run(True)
+    torch.cuda.synchronize()
+    _launched(before, mode, 1)
+    assert torch.equal(got, run(True))
+    want = fused_xsect.xsect_fused_plain(dp, lay, *prm.values(), None, mode,
+                                         gamma_2=g2, fast=True)
+    _fast_check(f"K1 {mode}", got, run(False), want, 2e-6)
+
+
+@pytest.mark.parametrize("mode", fused_xsect.UNFUSED_MODES)
+def test_fast_k7_matches_plain(dev, mode):
+    """K7's FAST instantiation in each mode against its plain version at
+    test_unfused_kernel_matches_plain's bounds, launched once under its
+    FAST key, and through compute_od_layers' prebuilt-plan route with
+    pallas_opts={'fast_rcp': True} (full), bit-identical to the direct
+    call."""
+    from radtxfr_tpu_torch.products.od import compute_od_layers
+
+    plan, prm = _unfused_case(dev)
+    p = prm[mode if mode in ("lorentz", "doppler") else "voigt"]
+    before = Counter(fused_xsect.LAUNCHES)
+    got = fused_xsect.xsect_unfused(plan, p, mode, fast=True)
+    torch.cuda.synchronize()
+    _launched(before, f"unfused_{mode}", 1)
+    assert torch.equal(got, fused_xsect.xsect_unfused(plan, p, mode,
+                                                      fast=True))
+    want = fused_xsect.xsect_unfused_plain(plan, p, mode, fast=True)
+    ieee = fused_xsect.xsect_unfused(plan, p, mode)
+    peak = (fused_xsect.xsect_unfused_plain(plan, p).abs().max()
+            if mode in ("asym", "core") else want.abs().max())
+    _fast_check(f"K7 {mode}", got, ieee, want, 2e-6, peak)
+    _fast_check(f"K7 {mode} (own peak)", got, ieee, want,
+                5e-2 if mode == "core" else 2e-6)
+    if mode == "full":
+        f32 = torch.float32
+        store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
+        base = std_atmosphere(device=dev, dtype=f32)
+        X = arange_drift_free(716.0, 726.0, 0.0005)
+        route = compute_od_layers(store, IsoTables.load(device=dev, dtype=f32),
+                                  X, base, engine="pallas", plan=plan,
+                                  pallas_opts={"fast_rcp": True})
+        assert torch.equal(route, got)
+
+
+def test_fast_tangent_and_ht_kernels_match_plain(dev):
+    """K3, K4 and K5 in their FAST instantiations on random parameters
+    against their plain versions (K3 and K4: each of 3 directions within
+    2e-5 of its own peak; K5 within 2e-6 of the pass's peak: the bounds of
+    their IEEE tests above), each launched under its FAST key; K6 has no
+    FAST build (its entry raises) and the differentiable HT pass with
+    fast=True runs K5 FAST and K6 IEEE, as JAX's."""
+    from radtxfr_tpu_torch import _build
+    from radtxfr_tpu_torch.kernels import fused_ht
+
+    dp, lay, prm = _random_case(dev, n_pts=20000)
+    tans = _sd_tangents(dev, prm, 3)
+    k3 = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+          prm["gamma_0"], prm["wing"])
+    k4 = (dp, lay, prm["shift0"], prm["strength"], prm["gamma_d"],
+          prm["gamma_0"], prm["gamma_2"], prm["wing"])
+    for name, key, fn, plain, args, t in (
+            ("K3", "jvp", fused_xsect.xsect_fused_jvp,
+             fused_xsect.xsect_fused_jvp_plain, k3, tans[:4]),
+            ("K4", "sdvoigt_jvp", fused_xsect.xsect_sdvoigt_jvp,
+             fused_xsect.xsect_sdvoigt_jvp_plain, k4, tans)):
+        before = Counter(fused_xsect.LAUNCHES)
+        got = fn(*args, *t, fast=True)
+        torch.cuda.synchronize()
+        _launched(before, key, 1)
+        assert torch.equal(got, fn(*args, *t, fast=True))
+        want, ieee = plain(*args, *t, fast=True), fn(*args, *t)
+        for d in range(3):
+            _fast_check(f"{name} direction {d}", got[d], ieee[d], want[d],
+                        2e-5)
+
+    dp, lay, s, w, consts = _ht_case(dev)
+    before = Counter(fused_xsect.LAUNCHES)
+    got = fused_ht.xsect_ht(dp, lay, s, w, consts, fast=True)
+    torch.cuda.synchronize()
+    _launched(before, "ht", 1)
+    assert torch.equal(got, fused_ht.xsect_ht(dp, lay, s, w, consts,
+                                              fast=True))
+    _fast_check("K5", got, fused_ht.xsect_ht(dp, lay, s, w, consts),
+                fused_ht.xsect_ht_plain(dp, lay, s, w, consts, fast=True),
+                2e-6)
+    with pytest.raises(ValueError, match="FAST"):
+        _build.entry("radtxfr_fused_ht_jvp", fast=True)
+    before = Counter(fused_xsect.LAUNCHES)
+    v = (torch.randn(s.shape, device=dev) * s.abs().mean()).contiguous()
+    val, _ = torch.func.jvp(lambda x: fused_ht.xsect_ht_diff(
+        dp, lay, x, w, consts, fast=True), (s,), (v,))
+    torch.cuda.synchronize()
+    assert torch.equal(val, got)
+    _launched(before, "ht", 1)
+    assert fused_xsect.LAUNCHES["ht_jvp"] == before["ht_jvp"] + 1
+
+
+def test_fast_launch_failure_raises(dev, monkeypatch):
+    """A FAST launch that returns a CUDA error raises, counts nothing and
+    never runs the IEEE instantiation or the plain version in its place."""
+    from radtxfr_tpu_torch import _build
+
+    dp, lay, prm = _random_case(dev, n_pts=4000)
+    g2 = prm.pop("gamma_2")
+    asked = []
+
+    def failing(name, fast=False):
+        asked.append((name, fast))
+        return lambda *a: 700     # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(_build, "entry", failing)
+    before = Counter(fused_xsect.LAUNCHES)
+    with pytest.raises(RuntimeError, match="fast=True"):
+        fused_xsect.xsect_fused(dp, lay, *prm.values(), None, "sdvoigt",
+                                gamma_2=g2, fast=True)
+    assert asked == [("radtxfr_fused_xsect", True)]
+    assert Counter(fused_xsect.LAUNCHES) == before

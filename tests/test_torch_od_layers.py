@@ -580,22 +580,31 @@ def test_compute_od_layers_pallas_opts_match_jax(slice_case, slice_reference,
 
 
 def test_fast_rcp_and_bad_sizes_are_refused(slice_case):
-    """``fast_rcp=True`` (the TPU's approximate reciprocal) raises
-    ``NotImplementedError`` in every builder and through ``pallas_opts``;
-    ``fast_rcp=False`` is accepted; a tile or block that is not a positive
+    """``fast_rcp`` (the TPU kernels' approximate reciprocal) is taken by
+    every builder, True by default as in JAX's, planning the same passes
+    either way (it selects the kernels' instantiation, not the plans), and
+    by the prebuilt-plan route's ``pallas_opts``, whose ``interpret`` still
+    raises ``NotImplementedError``; a tile or block that is not a positive
     integer raises ``ValueError`` naming the constraint, while 0 keeps the
     planner's choice, as JAX's ``far_tile or ...``."""
     lines, iso, state = slice_case[2][torch.float32]
-    with pytest.raises(NotImplementedError, match="fast_rcp"):
-        od.make_od_fn(lines, iso, SLICE_AXIS, state, fast_rcp=True)
-    with pytest.raises(NotImplementedError, match="fast_rcp"):
-        od.compute_od_layers(lines, iso, SLICE_AXIS, state, engine="pallas",
-                             pallas_opts={"fast_rcp": True})
+    plans = lambda fn: [(c[1].tile, c[1].block, c[2])  # noqa: E731
+                        for c in fn.all_calls()]
+    default = od.make_od_fn(lines, iso, SLICE_AXIS, state)
+    assert default.fast_rcp
+    assert not od.make_od_fn(lines, iso, SLICE_AXIS, state,
+                             fast_rcp=False).fast_rcp
+    assert plans(od.make_od_fn(lines, iso, SLICE_AXIS, state,
+                               fast_rcp=False)) == plans(default)
     for build in (od.make_xsect_fn, od.make_ht_fn):
-        with pytest.raises(NotImplementedError, match="fast_rcp"):
-            build(lines, iso, SLICE_AXIS, [296.0], [1.0], fast_rcp=True)
-    with pytest.raises(NotImplementedError, match="fast_rcp"):
-        od.make_od_ht_fn(lines, iso, SLICE_AXIS, state, fast_rcp=True)
+        for fast in (True, False):
+            assert build(lines, iso, SLICE_AXIS, [296.0], [1.0],
+                         fast_rcp=fast).fast_rcp is fast
+    assert od.make_od_ht_fn(lines, iso, SLICE_AXIS, state).fast_rcp
+    plan = od.make_od_plan(lines, iso, SLICE_AXIS, state)
+    with pytest.raises(NotImplementedError, match="interpret"):
+        od.compute_od_layers(lines, iso, SLICE_AXIS, state, engine="pallas",
+                             plan=plan, pallas_opts={"interpret": True})
     for bad in (dict(far_tile=-512), dict(core_tile=256.0),
                 dict(far_block=-8)):
         with pytest.raises(ValueError, match="positive integer"):
