@@ -1,0 +1,10 @@
+"""K1's share of its roofline in the SD-Voigt lattice: the least time of the
+coarse far field, the near-zone corrections and the cores (the benchmark's
+count from the inputs, bound by operations) over the traced time of the
+``fused_xsect_kernel`` launches."""
+
+from benchkit.readers import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "k1_bound_s", kernel="fused_xsect_kernel")
