@@ -38,6 +38,7 @@ from ..atmos.profile import AtmosphericState
 from ..core.planck import planckian
 from ..products.od import make_od_local_fn, shard_slice
 from ..products.tud import make_tud_fn, tud_from_od
+from ..utils.profiling import span
 from .ensemble import gather_shards, member, shard_context, share_parts
 from .mesh import ENSEMBLE, SPECTRUM
 
@@ -250,6 +251,9 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
     axis. Outputs lie on the device of ``T``. On a mesh over several
     processes every process of the group builds and calls ``run`` with the
     same inputs; the owner of entry (0, s) computes shard s's primal.
+    Spans (:func:`~..utils.profiling.span`): ``jacobian.primal``,
+    ``jacobian.tangent`` (the ``vmap(jvp)``) and ``jacobian.gather``, with
+    ``od``, ``planck`` and ``tud`` inside the first two.
     """
     n_spec, n_ens = mesh.shape[SPECTRUM], mesh.shape[ENSEMBLE]
     od_opts.setdefault("partition", "weighted")
@@ -283,7 +287,8 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
             def forward(T_, vmr_, s=s, dev=dev, fx=fx, x=x, alts=alts,
                         mu_d=mu_d):
                 od = sh.od(s, dev, T_, fx["p"], fx["pl"], vmr_)
-                B = planckian(x, T_).transpose(0, 1).to(od.dtype)
+                with span("planck"):
+                    B = planckian(x, T_).transpose(0, 1).to(od.dtype)
                 tud = tud_from_od(x, od, B, fx["z0"], alts, mu=mu_d,
                                   n_angles=n_angles, quadrature=quadrature)
                 return (tud.tau, tud.Lu, tud.Ld)
@@ -291,18 +296,21 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
             with shard_context(dev):
                 T_d, vmr_d = T.to(dev), vmr.to(dev)
                 if e == 0:
-                    prim[(0, s)] = tuple(a[None] for a in
-                                         forward(T_d, vmr_d))
-                tan[(e, s)] = torch.func.vmap(
-                    lambda vT, vv: torch.func.jvp(
-                        forward, (T_d, vmr_d), (vT, vv))[1])(
-                    V_T[e * m:(e + 1) * m].to(dev),
-                    V_vmr[e * m:(e + 1) * m].to(dev))
+                    with span("jacobian.primal"):
+                        prim[(0, s)] = tuple(a[None] for a in
+                                             forward(T_d, vmr_d))
+                with span("jacobian.tangent"):
+                    tan[(e, s)] = torch.func.vmap(
+                        lambda vT, vv: torch.func.jvp(
+                            forward, (T_d, vmr_d), (vT, vv))[1])(
+                        V_T[e * m:(e + 1) * m].to(dev),
+                        V_vmr[e * m:(e + 1) * m].to(dev))
         names = ("tau", "Lu", "Ld")
-        p = gather_shards(share_parts(prim, mesh, rows=[0]), T.device, 1,
-                          gpad.n, sh.point_index)
-        t = gather_shards(share_parts(tan, mesh), T.device, n_dirs, gpad.n,
-                          sh.point_index)
+        with span("jacobian.gather"):
+            p = gather_shards(share_parts(prim, mesh, rows=[0]), T.device, 1,
+                              gpad.n, sh.point_index)
+            t = gather_shards(share_parts(tan, mesh), T.device, n_dirs,
+                              gpad.n, sh.point_index)
         return ({k: a[0] for k, a in zip(names, p)}, dict(zip(names, t)))
 
     return gpad, run

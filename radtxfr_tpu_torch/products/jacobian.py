@@ -22,6 +22,10 @@ the linearization point (the hapi window mask is piecewise constant in
 line mixing here; mixing Jacobians are forward-mode AD through
 ``compute_od_layers(engine='jnp', line_mixing=...)``, as in the JAX
 package.
+
+Spans (:func:`~..utils.profiling.span`): ``jacobian.primal`` around the
+products at the state, ``jacobian.tangent`` around each batch's
+``vmap(jvp)``, and inside the forward ``od``, ``planck`` and ``tud``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.planck import planckian
+from ..utils.profiling import span
 from .od import _line_species_cols, compute_od_layer, make_od_fn
 from .tud import tud_from_od
 
@@ -85,25 +90,29 @@ def tud_with_jacobian(lines, iso, grid, atmos, altitudes, wrt=("T", 1, 3),
         cols = _line_species_cols(lines.host_view(), atmos.mol_ids)
 
         def od_fn(T, p, pl, vmr):
-            od = torch.stack([
-                compute_od_layer(lines, iso, grid, T_l, p_l, pl_l, vmr_l,
-                                 cols, chunk=chunk)
-                for T_l, p_l, pl_l, vmr_l in zip(T, p, pl, vmr)])
-            if continuum == "none":
-                return od
-            st = dataclasses.replace(atmos, T=T, vmr=vmr)
-            return od + continuum_od(grid, st, model=continuum,
-                                     continuum_factors=continuum_factors
-                                     ).to(od.dtype)
+            with span("od"):
+                od = torch.stack([
+                    compute_od_layer(lines, iso, grid, T_l, p_l, pl_l, vmr_l,
+                                     cols, chunk=chunk)
+                    for T_l, p_l, pl_l, vmr_l in zip(T, p, pl, vmr)])
+                if continuum == "none":
+                    return od
+                st = dataclasses.replace(atmos, T=T, vmr=vmr)
+                with span("od.continuum"):
+                    return od + continuum_od(
+                        grid, st, model=continuum,
+                        continuum_factors=continuum_factors).to(od.dtype)
 
     def forward(T, vmr):
         od = od_fn(T, atmos.p, atmos.pl, vmr)
-        B = planckian(grid, T).transpose(0, 1).to(od.dtype)
+        with span("planck"):
+            B = planckian(grid, T).transpose(0, 1).to(od.dtype)
         tud = tud_from_od(grid, od, B, atmos.z0, alts, mu=mu,
                           n_angles=n_angles)
         return {"tau": tud.tau, "Lu": tud.Lu, "Ld": tud.Ld}
 
-    tud = forward(atmos.T, atmos.vmr)
+    with span("jacobian.primal"):
+        tud = forward(atmos.T, atmos.vmr)
     n_lay = int(atmos.T.shape[0])
     batch = n_lay if tangent_batch is None else max(1, int(tangent_batch))
     eye = torch.eye(n_lay, dtype=dt, device=dev)
@@ -111,8 +120,10 @@ def tud_with_jacobian(lines, iso, grid, atmos, altitudes, wrt=("T", 1, 3),
     def jac_batched(f, x):
         parts = []
         for k in range(0, n_lay, batch):
-            tan = torch.func.vmap(lambda v: torch.func.jvp(f, (x,), (v,))[1])(
-                eye[k:k + batch])
+            with span("jacobian.tangent"):
+                tan = torch.func.vmap(
+                    lambda v: torch.func.jvp(f, (x,), (v,))[1])(
+                    eye[k:k + batch])
             tan = {name: a.movedim(0, -1) for name, a in tan.items()}
             if reduce is not None:
                 tan = {name: reduce(a) for name, a in tan.items()}

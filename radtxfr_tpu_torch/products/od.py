@@ -94,6 +94,7 @@ from ..kernels.htp_real import HT_CONST_KEYS, ht_line_constants
 from ..kernels.lineparams import LineParams, compute_line_params
 from ..kernels.linemixing import mixing_coefficient, xsect_voigt_mixing
 from ..kernels.xsect import xsect_from_params
+from ..utils.profiling import span
 
 __all__ = ["species_column", "compute_od_layer", "compute_od_layers",
            "layer_line_params", "max_wing_per_layer", "max_wing_bound",
@@ -630,6 +631,17 @@ def _make_continuum_term(g, mol_ids, continuum, continuum_factors, device,
     return term
 
 
+def _merge(out, part, layers=None):
+    """``out += part`` in place, or on ``layers`` only (``index_add_``):
+    the span ``k1.merge``. The pass ``part`` comes as an argument, so it
+    is freed as soon as it is added."""
+    with span("k1.merge"):
+        if layers is None:
+            out += part
+        else:
+            out.index_add_(0, layers, part)
+
+
 class _Passes:
     """The kernel passes of one set of static plans and how they sum.
 
@@ -662,46 +674,48 @@ class _Passes:
         (K1 or K5 for the value, K3, K4 or K6 for tangents), unless
         ``kernel`` names another function (the plain version, in the
         checks: an ``ht`` pass then runs K5's plain version), each with the
-        builder's ``fast_rcp``."""
+        builder's ``fast_rcp``. Span ``k1.<mode>``."""
         lay, dplan, mode = call
-        plain = kernel is not xsect_fused
-        fast = self.fast_rcp
-        if mode == "ht":
-            fn = xsect_ht_plain if plain else xsect_ht_diff
-            return fn(dplan, lay, prm.strength, prm.wing, prm.ht_consts,
-                      self.n_weideman, fast)
-        if mode == "full" and not plain:
-            return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
-                                    prm.gamma_d, prm.gamma_0, prm.wing,
-                                    self.n_weideman, fast)
-        if mode == "sdvoigt" and not plain:
-            return xsect_fused_sdvoigt_diff(
-                dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
-                prm.gamma_0, prm.gamma_2, prm.wing, self.n_weideman, fast)
-        return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
-                      prm.gamma_0, prm.wing, Y if mode == "mix" else None,
-                      mode, self.n_weideman,
-                      gamma_2=prm.gamma_2 if is_sd_mode(mode) else None,
-                      fast=fast)
+        with span("k1." + mode):
+            plain = kernel is not xsect_fused
+            fast = self.fast_rcp
+            if mode == "ht":
+                fn = xsect_ht_plain if plain else xsect_ht_diff
+                return fn(dplan, lay, prm.strength, prm.wing, prm.ht_consts,
+                          self.n_weideman, fast)
+            if mode == "full" and not plain:
+                return xsect_fused_diff(dplan, lay, prm.shift0, prm.strength,
+                                        prm.gamma_d, prm.gamma_0, prm.wing,
+                                        self.n_weideman, fast)
+            if mode == "sdvoigt" and not plain:
+                return xsect_fused_sdvoigt_diff(
+                    dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
+                    prm.gamma_0, prm.gamma_2, prm.wing, self.n_weideman, fast)
+            return kernel(dplan, lay, prm.shift0, prm.strength, prm.gamma_d,
+                          prm.gamma_0, prm.wing, Y if mode == "mix" else None,
+                          mode, self.n_weideman,
+                          gamma_2=prm.gamma_2 if is_sd_mode(mode) else None,
+                          fast=fast)
 
     def line_sum(self, prm: LineParams, Y=None):
         """(nLay, nX) sum of the passes: the coarse far field upsampled,
         plus the correction passes, plus each classic pass on its layers
         (``index_add_``: in place, one addition per element, and it
-        carries forward-mode tangents)."""
+        carries forward-mode tangents). Span ``k1.upsample``."""
         n = prm.strength.shape[0]
         dt, dev = prm.strength.dtype, prm.strength.device
         if self.coarse_calls:
             out_c = torch.zeros((n, self.grid_coarse.n), dtype=dt, device=dev)
             for call in self.coarse_calls:
-                out_c += self.run_call(call, prm)
-            out = _coarse_upsample(out_c, self.n_x, self.coarse_r)
+                _merge(out_c, self.run_call(call, prm))
+            with span("k1.upsample"):
+                out = _coarse_upsample(out_c, self.n_x, self.coarse_r)
             for call in self.corr_calls:
-                out += self.run_call(call, prm)
+                _merge(out, self.run_call(call, prm))
         else:
             out = torch.zeros((n, self.n_x), dtype=dt, device=dev)
         for call in self.calls:
-            out.index_add_(0, call[0], self.run_call(call, prm, Y))
+            _merge(out, self.run_call(call, prm, Y), call[0])
         return out
 
 
@@ -733,33 +747,41 @@ class OpticalDepthFn(_Passes):
 
     def line_params(self, T, p_pa, pl, vmr):
         """(nLay, L) line parameters with the OD strength scaling, and the
-        (nLay, L) mixing coefficients (None without line mixing)."""
-        prm = _layer_params(self.lines, self.iso, T, p_pa, pl, vmr,
-                            self.cols, self.wing_abs, self.wing_hw,
-                            self.profile)
-        Y = None
-        if self.y_air is not None:
-            Y = mixing_coefficient(self.y_air, (p_pa / PA_PER_ATM)[:, None],
-                                   T[:, None], y_self=self.y_self,
-                                   x_self=vmr[:, self.cols], n_T=self.n_T)
-        return prm, Y
+        (nLay, L) mixing coefficients (None without line mixing). Span
+        ``od.line_params``."""
+        with span("od.line_params"):
+            prm = _layer_params(self.lines, self.iso, T, p_pa, pl, vmr,
+                                self.cols, self.wing_abs, self.wing_hw,
+                                self.profile)
+            Y = None
+            if self.y_air is not None:
+                Y = mixing_coefficient(self.y_air,
+                                       (p_pa / PA_PER_ATM)[:, None],
+                                       T[:, None], y_self=self.y_self,
+                                       x_self=vmr[:, self.cols], n_T=self.n_T)
+            return prm, Y
 
     def __call__(self, T, p_pa, pl, vmr):
-        # NumPy columns join the store in its dtype, as the line parameters
-        # cast the tensor route's
-        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
-                                     device=self.lines.sw.device,
-                                     dtype=self.lines.sw.dtype)
-        prm, Y = self.line_params(T, p_pa, pl, vmr)
-        out = self.line_sum(prm, Y)
-        if Y is not None:
-            # first-order mixing can leave small negative excursions next
-            # to a Q branch (a truncation artefact; LTE absorption is
-            # nonnegative): clamp before the continuum, as the JAX builders
-            out = torch.clamp(out, min=0.0)
-        if self.cont is not None:
-            out = out + self.cont(T, p_pa, pl, vmr)
-        return out
+        """Span ``od``, holding ``od.line_params``, the passes' ``k1.*``
+        and ``od.continuum`` (the continuum term and its addition)."""
+        with span("od"):
+            # NumPy columns join the store in its dtype, as the line
+            # parameters cast the tensor route's
+            T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                         device=self.lines.sw.device,
+                                         dtype=self.lines.sw.dtype)
+            prm, Y = self.line_params(T, p_pa, pl, vmr)
+            out = self.line_sum(prm, Y)
+            if Y is not None:
+                # first-order mixing can leave small negative excursions
+                # next to a Q branch (a truncation artefact; LTE absorption
+                # is nonnegative): clamp before the continuum, as the JAX
+                # builders
+                out = torch.clamp(out, min=0.0)
+            if self.cont is not None:
+                with span("od.continuum"):
+                    out = out + self.cont(T, p_pa, pl, vmr)
+            return out
 
 
 class CrossSectionFn(_Passes):
@@ -775,14 +797,19 @@ class CrossSectionFn(_Passes):
 
     def line_params(self, T, p_atm):
         """(nStates, L) line parameters in HITRAN units (no column factor;
-        ``vmr_self = 0``: hapi's default Diluent {'air': 1})."""
-        return compute_line_params(self.lines, self.iso, T[:, None],
-                                   p_atm[:, None], vmr_self=0.0,
-                                   wing_abs=self.wing_abs,
-                                   wing_hw=self.wing_hw, profile=self.profile)
+        ``vmr_self = 0``: hapi's default Diluent {'air': 1}). Span
+        ``xsect.line_params``."""
+        with span("xsect.line_params"):
+            return compute_line_params(self.lines, self.iso, T[:, None],
+                                       p_atm[:, None], vmr_self=0.0,
+                                       wing_abs=self.wing_abs,
+                                       wing_hw=self.wing_hw,
+                                       profile=self.profile)
 
     def __call__(self, T, p_atm):
-        return self.line_sum(self.line_params(T, p_atm))
+        """Span ``xsect``."""
+        with span("xsect"):
+            return self.line_sum(self.line_params(T, p_atm))
 
 
 def _device_passes(calls, coarse, lines_h, g, coarse_r, n_weideman, n_lay,
@@ -1078,22 +1105,26 @@ class ShardOD:
                       in zip(fn.calls, call_spec)]
 
     def __call__(self, T, p_pa, pl, vmr):
+        """Span ``od``, with the unsharded builder's spans inside."""
         fn = self.fn
-        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
-                                     device=fn.lines.sw.device,
-                                     dtype=fn.lines.sw.dtype)
-        prm, Y = fn.line_params(T, p_pa, pl, vmr)
-        out = torch.zeros((T.shape[0], fn.n_local), dtype=prm.strength.dtype,
-                          device=prm.strength.device)
-        for call in self.calls:
-            out.index_add_(0, call[0], fn.run_call(call, prm, Y))
-        if Y is not None:
-            # first-order mixing's negative excursions, clamped before the
-            # continuum (as the unsharded builder)
-            out = torch.clamp(out, min=0.0)
-        if fn.cont is not None:
-            out = out + fn.cont(T, p_pa, pl, vmr, **self.cont_kw)
-        return out
+        with span("od"):
+            T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                         device=fn.lines.sw.device,
+                                         dtype=fn.lines.sw.dtype)
+            prm, Y = fn.line_params(T, p_pa, pl, vmr)
+            out = torch.zeros((T.shape[0], fn.n_local),
+                              dtype=prm.strength.dtype,
+                              device=prm.strength.device)
+            for call in self.calls:
+                _merge(out, fn.run_call(call, prm, Y), call[0])
+            if Y is not None:
+                # first-order mixing's negative excursions, clamped before
+                # the continuum (as the unsharded builder)
+                out = torch.clamp(out, min=0.0)
+            if fn.cont is not None:
+                with span("od.continuum"):
+                    out = out + fn.cont(T, p_pa, pl, vmr, **self.cont_kw)
+            return out
 
 
 def _lines_on(lines, iso, device):
@@ -1426,13 +1457,17 @@ class HTCrossSectionFn(_Passes):
         self.wing_abs, self.wing_hw = wing_abs, wing_hw
 
     def line_params(self, T, p_atm) -> HTParams:
-        """(nStates, L) HT parameters in HITRAN units."""
-        return _ht_line_params(self.resolved, self.lines, self.iso,
-                               T[:, None], p_atm[:, None], self.wing_abs,
-                               self.wing_hw)
+        """(nStates, L) HT parameters in HITRAN units. Span
+        ``xsect.line_params``."""
+        with span("xsect.line_params"):
+            return _ht_line_params(self.resolved, self.lines, self.iso,
+                                   T[:, None], p_atm[:, None], self.wing_abs,
+                                   self.wing_hw)
 
     def __call__(self, T, p_atm):
-        return self.line_sum(self.line_params(T, p_atm))
+        """Span ``xsect``."""
+        with span("xsect"):
+            return self.line_sum(self.line_params(T, p_atm))
 
 
 class HTOpticalDepthFn(_Passes):
@@ -1451,24 +1486,29 @@ class HTOpticalDepthFn(_Passes):
 
     def line_params(self, T, p_pa, pl, vmr) -> HTParams:
         """(nLay, L) HT parameters with the layer's air/self diluent mix
-        ``[1 - x_self, x_self]`` and column-density strengths."""
-        p_atm = p_pa / PA_PER_ATM
-        u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
-                           pl[:, None], vmr)
-        x_self = vmr[:, self.cols]
-        return _ht_line_params(self.resolved, self.lines, self.iso,
-                               T[:, None], p_atm[:, None], self.wing_abs,
-                               self.wing_hw, abun=[1.0 - x_self, x_self],
-                               strength_scale=u[:, self.cols])
+        ``[1 - x_self, x_self]`` and column-density strengths. Span
+        ``od.line_params``."""
+        with span("od.line_params"):
+            p_atm = p_pa / PA_PER_ATM
+            u = species_column((p_atm * PA_PER_ATM)[:, None], T[:, None],
+                               pl[:, None], vmr)
+            x_self = vmr[:, self.cols]
+            return _ht_line_params(self.resolved, self.lines, self.iso,
+                                   T[:, None], p_atm[:, None], self.wing_abs,
+                                   self.wing_hw, abun=[1.0 - x_self, x_self],
+                                   strength_scale=u[:, self.cols])
 
     def __call__(self, T, p_pa, pl, vmr):
-        T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
-                                     device=self.lines.sw.device,
-                                     dtype=self.lines.sw.dtype)
-        out = self.line_sum(self.line_params(T, p_pa, pl, vmr))
-        if self.cont is not None:
-            out = out + self.cont(T, p_pa, pl, vmr)
-        return out
+        """Span ``od``, as :class:`OpticalDepthFn`'s."""
+        with span("od"):
+            T, p_pa, pl, vmr = arrays_on(T, p_pa, pl, vmr,
+                                         device=self.lines.sw.device,
+                                         dtype=self.lines.sw.dtype)
+            out = self.line_sum(self.line_params(T, p_pa, pl, vmr))
+            if self.cont is not None:
+                with span("od.continuum"):
+                    out = out + self.cont(T, p_pa, pl, vmr)
+            return out
 
 
 def make_ht_fn(lines, iso, grid, T_class, p_atm_class, diluent=None,

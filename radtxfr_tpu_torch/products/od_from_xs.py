@@ -29,6 +29,7 @@ import torch
 from .. import as_numpy, resolve_device
 from ..core.constants import PA_PER_ATM
 from ..lines.store import IsoTables, LineStore
+from ..utils.profiling import span
 from .od import species_column
 
 __all__ = ["XsTable", "build_xs_table", "xs_table_from_files", "od_from_xs"]
@@ -181,6 +182,8 @@ def od_from_xs(table: XsTable, atmos, vmr_cols=None,
     the card's TF32 run inside this one product (about 1e-3 relative: the
     counterpart of the JAX package's bf16 ``Precision.DEFAULT``) and
     restores the setting afterwards. On the CPU the two agree.
+
+    Spans: ``od``, holding ``od.xs_weights`` (M) and ``od.xs_matmul``.
     """
     if precision not in ("highest", "default"):
         raise ValueError(f"precision must be 'highest' or 'default', got "
@@ -192,29 +195,34 @@ def od_from_xs(table: XsTable, atmos, vmr_cols=None,
         except KeyError as e:
             raise ValueError(
                 f"table molecule {e} has no vmr column in the atmosphere")
-    n_m, n_t, n_p, n_x = table.sigma.shape
-    sflat = table.sigma.reshape(n_m * n_t * n_p, n_x)
-    dev, dtype = table.sigma.device, table.sigma.dtype
-    T, p, pl, vmr = (a.to(dev) for a in (atmos.T, atmos.p, atmos.pl,
-                                          atmos.vmr))
-    cols = torch.as_tensor(vmr_cols, dtype=torch.int64, device=dev)
+    with span("od"):
+        n_m, n_t, n_p, n_x = table.sigma.shape
+        sflat = table.sigma.reshape(n_m * n_t * n_p, n_x)
+        dev, dtype = table.sigma.device, table.sigma.dtype
+        T, p, pl, vmr = (a.to(dev) for a in (atmos.T, atmos.p, atmos.pl,
+                                              atmos.vmr))
+        cols = torch.as_tensor(vmr_cols, dtype=torch.int64, device=dev)
 
-    it, ft = _lerp_axis(table.T_grid, T)                       # (nL,)
-    ip, fp = _lerp_axis(table.logp_grid, torch.log(p / PA_PER_ATM))
-    n_col = species_column(p[:, None], T[:, None], pl[:, None],
-                           vmr[:, cols]).to(dtype)             # (nL, nM)
-    base = torch.arange(n_m, device=dev)[None, :] * (n_t * n_p)
-    idx, val = [], []
-    for di, dj, c in ((0, 0, (1 - ft) * (1 - fp)), (0, 1, (1 - ft) * fp),
-                      (1, 0, ft * (1 - fp)), (1, 1, ft * fp)):
-        idx.append(base + ((it + di) * n_p + ip + dj)[:, None])
-        val.append(n_col * c.to(dtype)[:, None])
-    M = torch.zeros((T.shape[0], n_m * n_t * n_p), dtype=dtype, device=dev)
-    M.scatter_add_(1, torch.cat(idx, dim=1), torch.cat(val, dim=1))
+        with span("od.xs_weights"):
+            it, ft = _lerp_axis(table.T_grid, T)                   # (nL,)
+            ip, fp = _lerp_axis(table.logp_grid, torch.log(p / PA_PER_ATM))
+            n_col = species_column(p[:, None], T[:, None], pl[:, None],
+                                   vmr[:, cols]).to(dtype)         # (nL, nM)
+            base = torch.arange(n_m, device=dev)[None, :] * (n_t * n_p)
+            idx, val = [], []
+            for di, dj, c in ((0, 0, (1 - ft) * (1 - fp)),
+                              (0, 1, (1 - ft) * fp),
+                              (1, 0, ft * (1 - fp)), (1, 1, ft * fp)):
+                idx.append(base + ((it + di) * n_p + ip + dj)[:, None])
+                val.append(n_col * c.to(dtype)[:, None])
+            M = torch.zeros((T.shape[0], n_m * n_t * n_p), dtype=dtype,
+                            device=dev)
+            M.scatter_add_(1, torch.cat(idx, dim=1), torch.cat(val, dim=1))
 
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = precision == "default"
-    try:
-        return M @ sflat
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = precision == "default"
+        try:
+            with span("od.xs_matmul"):
+                return M @ sflat
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev

@@ -24,6 +24,7 @@ import torch
 
 from .. import arrays_on, as_numpy, resolve_device
 from ..kernels.fused_tud import tud_compose
+from ..utils.profiling import span
 
 __all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_angles",
            "downwelling_quadrature"]
@@ -91,44 +92,51 @@ def tud_from_od(grid, od, B, z0, altitudes, mu=1.0, n_angles: int = 30,
     sensor altitudes [km]; ``mu`` scalar or (nMu,) slant secants. NumPy
     arrays join the tensors' device, or ``device`` (None: the card) when
     there is no tensor; the products are in ``od``'s dtype.
+
+    Span ``tud``, holding ``tud.tau``, ``tud.lu`` and ``tud.ld`` (each
+    around its whole block, the layer loops included).
     """
-    od, grid, B, z0, altitudes, mu = arrays_on(od, grid, B, z0, altitudes,
-                                               mu, device=device, lead=True)
-    dt, dev = od.dtype, od.device
-    n_layers = od.shape[0]
-    z0 = torch.as_tensor(z0, device=dev)
-    alts = torch.atleast_1d(torch.as_tensor(altitudes, device=dev))
-    n_below = (z0[None, :] <= alts[:, None]).sum(dim=1)
-    gather_idx = torch.clamp(n_below - 1, 0, n_layers - 1)
-    valid = n_below > 0
-    mu = torch.atleast_1d(torch.as_tensor(mu, dtype=dt, device=dev))
+    with span("tud"):
+        od, grid, B, z0, altitudes, mu = arrays_on(
+            od, grid, B, z0, altitudes, mu, device=device, lead=True)
+        dt, dev = od.dtype, od.device
+        n_layers = od.shape[0]
+        z0 = torch.as_tensor(z0, device=dev)
+        alts = torch.atleast_1d(torch.as_tensor(altitudes, device=dev))
+        n_below = (z0[None, :] <= alts[:, None]).sum(dim=1)
+        gather_idx = torch.clamp(n_below - 1, 0, n_layers - 1)
+        valid = n_below > 0
+        mu = torch.atleast_1d(torch.as_tensor(mu, dtype=dt, device=dev))
 
-    cum_od = torch.cumsum(od, dim=0)
-    path_od = torch.where(valid[:, None], cum_od[gather_idx], 0.0)
-    slant = path_od[None, :, :] * mu[:, None, None]          # (nMu, nZs, nX)
-    tau = slant if return_od else torch.exp(-slant)
+        with span("tud.tau"):
+            cum_od = torch.cumsum(od, dim=0)
+            path_od = torch.where(valid[:, None], cum_od[gather_idx], 0.0)
+            slant = path_od[None, :, :] * mu[:, None, None]  # (nMu, nZs, nX)
+            tau = slant if return_od else torch.exp(-slant)
 
-    lu = torch.zeros((mu.shape[0], od.shape[1]), dtype=dt, device=dev)
-    lu_states = []
-    for k in range(n_layers):
-        t = torch.exp(-od[k][None, :] * mu[:, None])
-        lu = t * lu + (1.0 - t) * B[k][None, :]
-        lu_states.append(lu)
-    Lu = torch.stack(lu_states)[gather_idx]                   # (nZs, nMu, nX)
-    Lu = torch.where(valid[:, None, None], Lu, 0.0).transpose(0, 1)
+        with span("tud.lu"):
+            lu = torch.zeros((mu.shape[0], od.shape[1]), dtype=dt, device=dev)
+            lu_states = []
+            for k in range(n_layers):
+                t = torch.exp(-od[k][None, :] * mu[:, None])
+                lu = t * lu + (1.0 - t) * B[k][None, :]
+                lu_states.append(lu)
+            Lu = torch.stack(lu_states)[gather_idx]          # (nZs, nMu, nX)
+            Lu = torch.where(valid[:, None, None], Lu, 0.0).transpose(0, 1)
 
-    sec_np, w_np = downwelling_quadrature(n_angles, quadrature)
-    sec = torch.as_tensor(sec_np, dtype=dt, device=dev)
-    w = torch.as_tensor(w_np, dtype=dt, device=dev)
-    ld = torch.zeros((n_angles, od.shape[1]), dtype=dt, device=dev)
-    for k in range(n_layers - 1, -1, -1):
-        t = torch.exp(-od[k][None, :] * sec[:, None])
-        ld = t * ld + (1.0 - t) * B[k][None, :]
-    Ld = torch.sum(ld * w[:, None], dim=0)
+        with span("tud.ld"):
+            sec_np, w_np = downwelling_quadrature(n_angles, quadrature)
+            sec = torch.as_tensor(sec_np, dtype=dt, device=dev)
+            w = torch.as_tensor(w_np, dtype=dt, device=dev)
+            ld = torch.zeros((n_angles, od.shape[1]), dtype=dt, device=dev)
+            for k in range(n_layers - 1, -1, -1):
+                t = torch.exp(-od[k][None, :] * sec[:, None])
+                ld = t * ld + (1.0 - t) * B[k][None, :]
+            Ld = torch.sum(ld * w[:, None], dim=0)
 
-    # (nMu, nZs, nX) -> (nX, nZs, nMu)
-    return TUD(X=grid, tau=tau.permute(2, 1, 0), Lu=Lu.permute(2, 1, 0),
-               Ld=Ld)
+        # (nMu, nZs, nX) -> (nX, nZs, nMu)
+        return TUD(X=grid, tau=tau.permute(2, 1, 0), Lu=Lu.permute(2, 1, 0),
+                   Ld=Ld)
 
 
 def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
@@ -141,7 +149,8 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
     as small arrays. Returns ``fn(x, od, T_layers) -> TUD`` when ``planck``
     (the Planck source computed in-kernel), else ``fn(x, od, B) -> TUD``
     with ``B`` (nL, nX) the source per layer, as ``make_tud_pallas_fn``;
-    inputs are cast to float32, outputs have its shapes.
+    inputs are cast to float32, outputs have its shapes. ``fn`` is the
+    span ``tud``.
     """
     f32 = torch.float32
     device = resolve_device(device)
@@ -154,16 +163,17 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
     w = torch.as_tensor(w_np, dtype=f32, device=device)
 
     def fn(x, od, tb) -> TUD:
-        x = torch.as_tensor(x, dtype=f32, device=device).reshape(-1)
-        od = torch.as_tensor(od, dtype=f32, device=device).contiguous()
-        tb = torch.as_tensor(tb, dtype=f32, device=device)
-        if planck:
-            inv_t = (1.0 / tb.reshape(-1)).contiguous()
-            tau, lu, ld = tud_compose(od, x.contiguous(), inv_t, mus, snap,
-                                      sec, w, return_od)
-        else:
-            tau, lu, ld = tud_compose(od, None, None, mus, snap, sec, w,
-                                      return_od, B=tb.contiguous())
-        return TUD(X=x, tau=tau, Lu=lu, Ld=ld)
+        with span("tud"):
+            x = torch.as_tensor(x, dtype=f32, device=device).reshape(-1)
+            od = torch.as_tensor(od, dtype=f32, device=device).contiguous()
+            tb = torch.as_tensor(tb, dtype=f32, device=device)
+            if planck:
+                inv_t = (1.0 / tb.reshape(-1)).contiguous()
+                tau, lu, ld = tud_compose(od, x.contiguous(), inv_t, mus,
+                                          snap, sec, w, return_od)
+            else:
+                tau, lu, ld = tud_compose(od, None, None, mus, snap, sec, w,
+                                          return_od, B=tb.contiguous())
+            return TUD(X=x, tau=tau, Lu=lu, Ld=ld)
 
     return fn

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import arrays_on, as_numpy, resolve_device
+from ..utils.profiling import span
 
 __all__ = ["smooth", "reduce_resolution", "cubic_resample_weights",
            "apply_resample", "ReduceOperator", "reduce_operator"]
@@ -209,13 +210,15 @@ class ReduceOperator:
 
     def __call__(self, Y: torch.Tensor) -> torch.Tensor:
         """``Y`` (nX[, ...]) reduced along axis 0; a NumPy ``Y`` goes to
-        the operator's device in its own dtype."""
-        Y, = arrays_on(Y, device=self.device, lead=True)
-        if self._affine is not None:
-            return self._apply_affine(Y)
-        g = Y[self.starts[:, None] + self._offsets[None, :]]
-        w = self.weights.to(Y.dtype)
-        return torch.sum(g * w.reshape(w.shape + (1,) * (Y.dim() - 1)), dim=1)
+        the operator's device in its own dtype. Span ``reduce``."""
+        with span("reduce"):
+            Y, = arrays_on(Y, device=self.device, lead=True)
+            if self._affine is not None:
+                return self._apply_affine(Y)
+            g = Y[self.starts[:, None] + self._offsets[None, :]]
+            w = self.weights.to(Y.dtype)
+            return torch.sum(g * w.reshape(w.shape + (1,) * (Y.dim() - 1)),
+                             dim=1)
 
 
 def reduce_operator(X, dX, N: int = 4, window: str = "hanning", X_out=None,
