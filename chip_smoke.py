@@ -342,9 +342,10 @@ production modes,
 tile offsets in phase 12; K1's lattice modes and K2 also with
 ``serving_launches``: their launches on phase 13's path; K1 ``asym`` and
 ``core`` also with ``compat_launches``: their launches in phase 15's
-``compat.compute_TUD``; K1's production modes, ``full``, K3 and K2 also
-with ``span_launches``: their launches in each of phase 16's two
-processes), and, last, the device line.
+``compat.compute_TUD``; K1's production modes, ``full``, K3, K2 and K2's
+tangent mode also with ``span_launches``: their launches in each of phase
+16's two processes; K2's tangent mode also with ``cli_launches``, its
+launches in phase 5b), and, last, the device line.
 Each instantiation is held against the plain version of its own
 arithmetic at the pass's bound: the IEEE one against the plain version
 with IEEE division, the FAST one against the plain version with
@@ -418,7 +419,8 @@ from radtxfr_tpu_torch.atmos.continuum import continuum_od  # noqa: E402
 from radtxfr_tpu_torch.tools import fp32_peak, sass  # noqa: E402
 from radtxfr_tpu_torch.products.tud import (_layers_below,  # noqa: E402
                                             downwelling_quadrature,
-                                            make_tud_fn, tud_from_od)
+                                            make_tud_diff_fn, make_tud_fn,
+                                            tud_from_od)
 from radtxfr_tpu_torch.sensor.resolution import (  # noqa: E402
     reduce_operator, reduce_resolution)
 from radtxfr_tpu_torch.tools import e2e_drive  # noqa: E402
@@ -456,6 +458,10 @@ K1_OWN_BOUND = {"asym": 2e-6, "core": 5e-2, "mix": 2e-6, "full": 2e-6}
 # version on the card (PERF.md), so the check holds it to 2e-6
 K3_BOUND = 2e-6
 K2_BOUND = 5e-6
+# K2's tangent mode against its plain version, each direction's worst gap
+# over its own peak (the primal is K2's, held to K2_BOUND)
+K2_JVP_BOUND = 1e-5
+K2_JVP_DIRS = 8
 SLICE_BOUND = 1e-5
 JAC_SLICE_BOUND = 1e-4
 # phase 5c: the production command with checkpoints, cut to 6 members
@@ -1672,6 +1678,68 @@ def phase_k2(dev, card):
               f"{out[name]['bound_ms_issue']:.4f} ms, "
               f"{out[name]['bound_ms_issue_measured']:.4f} ms at the "
               f"measured FMUL rate [{card}]", flush=True)
+    out["tud_jvp"] = phase_k2_jvp(args, gen, card)
+    return out
+
+
+def phase_k2_jvp(args, gen, card):
+    """K2's tangent mode at the Jacobian cell's shape: K2_JVP_DIRS dense
+    directions (OD tangents a twentieth of the OD, temperature tangents of
+    1 K) in one launch, against its plain version."""
+    od, x, inv_t, mus, snap, sec, w = args
+    n_l, n_x = od.shape
+    n_d, n_zs, n_mu, n_a = K2_JVP_DIRS, snap.numel(), mus.numel(), sec.numel()
+    dod = 0.05 * od * torch.randn((n_d, n_l, n_x), generator=gen,
+                                  device=od.device)
+    dT = torch.randn((n_d, n_l), generator=gen, device=od.device)
+    jargs = (*args, dod, dT)
+
+    def kern():
+        return fused_tud.tud_compose_jvp(*jargs)
+
+    reset_launches()
+    kern()
+    out = {"launches": read_launches()["tud_jvp"]}
+    check(out["launches"] == 1, f"K2 tangent: {out['launches']} launches "
+          "for one batch")
+    k_ms, got = cuda_ms(kern, 5)
+    again = kern()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K2 tangent: two launches on the same inputs differ")
+    del again
+    p_ms, want = cuda_ms(lambda: fused_tud.tud_compose_jvp_plain(*jargs), 1)
+    err_max = 0.0
+    for prod, g, r in zip(("dtau", "dLu", "dLd"), got, want):
+        rel = max(((g[d] - r[d]).abs().max() / r[d].abs().max()).item()
+                  for d in range(n_d))
+        err_max = max(err_max, (g - r).abs().max().item())
+        print(f"[4 K2 tangent {prod}] shape {tuple(g.shape)}: "
+              f"max|kernel-plain| {rel:.3e} of the worst direction's own "
+              "peak", flush=True)
+        check(rel <= K2_JVP_BOUND, f"K2 tangent {prod}: {rel:.3e} > "
+              f"{K2_JVP_BOUND}")
+    del want
+    # the needed work: per column and layer one exp2 per downwelling angle
+    # (its transmittance to the ground) and per secant (the layer's), the
+    # source's expm1 and divide once, an expf a snapshot; FP32 operations
+    # (one an instruction, as K2's): the source and its slope ~33, 6 a
+    # downwelling angle (the sensitivities' sums), 3 a secant, 7 a
+    # direction (dB, dLu, dcum, dLd); bytes: od and dod read once, the
+    # tangents written once (the primal is K2's launch)
+    sfu = n_x * (n_l * (n_mu + n_a + 2) + n_zs * n_mu)
+    ops = n_x * n_l * (33 + 6 * n_a + 3 * n_mu + 7 * n_d)
+    nbytes = 4 * n_x * ((1 + n_d) * n_l + n_d * (2 * n_zs * n_mu + 1))
+    stats = {}
+    add_stats(stats, "tud_jvp", err_max, k_ms, p_ms, ops, nbytes, sfu)
+    out.update(finish_stats(stats)["tud_jvp"])
+    print(f"[4 K2 tangent] {n_x} points x {n_l} layers, {n_zs} altitudes, "
+          f"{n_a} angles, {n_d} directions in one launch: kernel "
+          f"{k_ms:.4f} ms ({k_ms / n_d:.4f} ms a direction), plain "
+          f"{p_ms:.3f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {sfu:.4g} special-function ops at "
+          f"{SFU_OPS_PER_S:.4g}/s, {ops:.4g} lane-ops at "
+          f"{FP32_OPS_PER_S:.4g}/s, {nbytes:.4g} B at {HBM_BYTES_PER_S:.4g}"
+          f" B/s) [{card}]", flush=True)
     return out
 
 
@@ -1705,9 +1773,9 @@ def read_launches():
     return collections.Counter(fused_xsect.LAUNCHES, **fused_tud.LAUNCHES)
 
 
-#: launch keys of kernels without a FAST instantiation: K2 (both modes), K6
-#: (JAX's tangent kernel forces fast=False) and the probe
-NO_FAST = ("tud", "tud_b", "ht_jvp", "fp32_peak_probe")
+#: launch keys of kernels without a FAST instantiation: K2 (its three
+#: modes), K6 (JAX's tangent kernel forces fast=False) and the probe
+NO_FAST = ("tud", "tud_b", "tud_jvp", "ht_jvp", "fp32_peak_probe")
 
 
 def fast_path(launches, where):
@@ -2485,7 +2553,7 @@ def phase_jacobian(card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[5b jacobian] launches during run_tud --jacobian: "
           f"{dict(launches)}", flush=True)
-    for k in ("full", "jvp"):
+    for k in ("full", "jvp", "tud", "tud_jvp"):
         check(launches[k] > 0, f"kernel {k} was not launched by the "
               "Jacobian path")
     n_out, n_zs, n_lay = x_lo.size, len(args.altitudes), 66
@@ -2865,23 +2933,19 @@ def phase_jac_breakdown(dev, card):
         lambda: vjvp(lambda T_: od_fn.cont(T_, p, pl, vmr), T), 3)
     ms["OD + tangents"], (od, od_t) = cuda_ms(
         lambda: vjvp(lambda T_: od_fn(T_, p, pl, vmr), T), 1)
-    B, B_t = vjvp(lambda T_: planckian(grid, T_).transpose(0, 1), T)
-
-    def tud3(o, b):
-        t = tud_from_od(grid, o, b, base.z0, alts, n_angles=30)
-        return t.tau, t.Lu, t.Ld
-
-    ms["tud_from_od primal"], _ = cuda_ms(lambda: tud3(od, B), 3)
-    ms["tud_from_od + tangents"], tan = cuda_ms(
-        lambda: torch.func.vmap(lambda ot, bt: torch.func.jvp(
-            tud3, (od, B), (ot, bt))[1])(od_t, B_t), 1)
+    # the Jacobians' composition: K2 and its tangent mode
+    compose = make_tud_diff_fn(base.z0, alts, n_angles=30, devices=[dev])
+    ms["K2 primal"], _ = cuda_ms(lambda: compose(grid, od, T), 3)
+    ms["K2 + tangent mode (8 dirs)"], tan = cuda_ms(
+        lambda: torch.func.vmap(lambda ot, tt: torch.func.jvp(
+            lambda o, t_: compose(grid, o, t_), (od, T), (ot, tt))[1])(
+            od_t, V), 1)
     op = reduce_operator(X, 0.25, device=dev)
     ms["reduce (8 dirs)"], _ = cuda_ms(
         lambda: [op(a.movedim(0, -1)) for a in tan], 3)
 
     def forward(T_):
-        o = od_fn(T_, p, pl, vmr)
-        return tud3(o, planckian(grid, T_).transpose(0, 1))
+        return compose(grid, od_fn(T_, p, pl, vmr), T_)
 
     torch.cuda.reset_peak_memory_stats()
     ms["batch (jvp of the forward + reduce)"], _ = cuda_ms(
@@ -4376,6 +4440,11 @@ def phase_sharded(dev, card, x_main, main_products):
         check(jac_launches[k] > 0 and jac_off.get(k, 0) > 0,
               f"kernel {k} was not launched with offsets by the sharded "
               "Jacobian")
+    # the composition: K2 for each shard's primal, its tangent mode once a
+    # mesh entry's batch of directions
+    for k in ("tud", "tud_jvp"):
+        check(jac_launches[k] > 0, f"kernel {k} was not launched by the "
+              "sharded Jacobian")
     fn_d = make_od_fn(store, iso, gj, base, continuum="mt_ckd",
                       differentiable=True, group_ratio=1.6,
                       far_method="classic")
@@ -4535,7 +4604,9 @@ def phase_sharded(dev, card, x_main, main_products):
           f"bit-identical to the run without checkpoints; the resumed run's "
           f"launches {dict(resumed)} [{card}]", flush=True)
     return {"ensemble": offsets["weighted"], "jacobian": jac_off,
-            "sdvoigt": sd_off, "digests": digests, "ms": times}
+            "sdvoigt": sd_off, "digests": digests, "ms": times,
+            "jacobian_launches": {k: jac_launches[k]
+                                  for k in ("tud", "tud_jvp")}}
 
 
 # --------------------------------------------------------------------------
@@ -4717,6 +4788,10 @@ def span_child(coord, rank, out_path, want):
     for k in ("full", "jvp"):
         need(launches[k] > 0 and offsets.get(k, 0) > 0, f"kernel {k} was "
              "not launched with offsets by the Jacobian")
+    # the tangent mode in each process, K2 where a primal is (row 0)
+    for k in ("tud_jvp",) + (("tud",) if rank == 0 else ()):
+        need(launches[k] > 0, f"kernel {k} was not launched by the "
+             "Jacobian")
     agree("jacobian", [tensor_digest(d[k]) for d in (prim, tan)
                        for k in ("tau", "Lu", "Ld")])
     rec["jacobian"] = dict(build_s=jac_build_s, ms=jac_ms,
@@ -4810,7 +4885,7 @@ def phase_span(card, sharded):
     return {k: [r["weighted"]["launches"].get(k, 0) for r in recs]
             for k in (*PRODUCTION_MODES, "tud")} | {
         k: [r["jacobian"]["launches"].get(k, 0) for r in recs]
-        for k in ("full", "jvp")}
+        for k in ("full", "jvp", "tud_jvp")}
 
 
 # phase 13: the cross-section serving path at the reference generator's
@@ -5438,6 +5513,18 @@ def main():
                     "source": src + "fused_tud.cu",
                     "replaces": "radtxfr_tpu/kernels/pallas_tud.py:81",
                     **k2["tud_b"]})
+    # the tangent mode (the Jacobians' composition): no TPU kernel, JAX
+    # differentiates its scan composition; its numbers are phase 4's, its
+    # launches the sharded Jacobian's (phase 12) and the CLI's (phase 5b)
+    kernels.append({"name": "fused_tud_jvp", "route": "cuda",
+                    "source": src + "fused_tud.cu",
+                    "replaces": "jvp of radtxfr_tpu/products/tud.py:"
+                                "tud_from_od", **k2["tud_jvp"],
+                    "launches": sharded["jacobian_launches"]["tud_jvp"],
+                    "launch_path": "phase 12 sharded Jacobian "
+                                   "(make_tud_jacobian_fn)",
+                    "cli_launches": jac_launches["tud_jvp"],
+                    "cli_path": "phase 5b run_tud --jacobian"})
 
     def path_key(entry):
         """The kernel key of an entry that the fast_rcp=True paths below

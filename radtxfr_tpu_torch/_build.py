@@ -96,6 +96,10 @@ _SIGNATURES = {
     # sec, w, n_angles, return_od, tau, lu, ld, stream
     "radtxfr_fused_tud": [P, P, P, I, I, I, P, I, P, I, P, P, I, I, P, P, P,
                           P],
+    # od, x, inv_t, n_lay, n_x, mus, n_mu, snap, n_zs, sec, w, n_angles,
+    # dod, dT, n_dirs, dtau, dlu, dld, stream
+    "radtxfr_fused_tud_jvp": [P, P, P, I, I, P, I, P, I, P, P, I, P, P, I, P,
+                              P, P, P],
 }
 #: the entries whose kernels also have a FAST build (``csrc/*_fast.cu``:
 #: the TPU kernels' fast reciprocal, JAX's ``fast_rcp=True``), each with

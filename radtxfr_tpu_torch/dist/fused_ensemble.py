@@ -37,7 +37,7 @@ from .. import arrays_on, as_numpy
 from ..atmos.profile import AtmosphericState
 from ..core.planck import planckian
 from ..products.od import make_od_local_fn, shard_slice
-from ..products.tud import make_tud_fn, tud_from_od
+from ..products.tud import make_tud_diff_fn, make_tud_fn, tud_from_od
 from ..utils.profiling import span
 from .ensemble import gather_shards, member, shard_context, share_parts
 from .mesh import ENSEMBLE, SPECTRUM
@@ -253,17 +253,24 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
     same inputs; the owner of entry (0, s) computes shard s's primal.
     Spans (:func:`~..utils.profiling.span`): ``jacobian.primal``,
     ``jacobian.tangent`` (the ``vmap(jvp)``) and ``jacobian.gather``, with
-    ``od``, ``planck`` and ``tud`` inside the first two.
+    ``od`` and ``tud`` inside the first two.
+
+    The composition is :func:`~..products.tud.make_tud_diff_fn`'s, which
+    follows the OD it is given: a CUDA float32 OD composes with K2 and its
+    tangent mode (one launch for a mesh entry's batch of directions), any
+    other (the CPU, float64) with ``planckian`` (span ``planck``) and
+    :func:`~..products.tud.tud_from_od` under ``jvp`` and ``vmap``.
     """
     n_spec, n_ens = mesh.shape[SPECTRUM], mesh.shape[ENSEMBLE]
     od_opts.setdefault("partition", "weighted")
     local_fn, spec_data, gpad = make_od_local_fn(
         lines, iso, grid, atmos, n_spec, differentiable=True, **od_opts)
     sh = _Shards(local_fn, spec_data, gpad, mesh, lines.sw.dtype)
-    alts_np = np.atleast_1d(as_numpy(altitudes, np.float64))
-    mu_np = np.atleast_1d(as_numpy(mu, np.float64))
-    fixed = {dev: {f: getattr(atmos, f).to(dev) for f in ("p", "pl", "z0")}
+    fixed = {dev: {f: getattr(atmos, f).to(dev) for f in ("p", "pl")}
              for dev in mesh.distinct()}
+    compose = make_tud_diff_fn(
+        atmos.z0, np.atleast_1d(as_numpy(altitudes, np.float64)), mu=mu,
+        n_angles=n_angles, quadrature=quadrature, devices=mesh.distinct())
 
     def run(T, vmr, V_T, V_vmr):
         # NumPy inputs join a tensor input's device, else the store's
@@ -281,17 +288,10 @@ def make_tud_jacobian_fn(lines, iso, grid, atmos: AtmosphericState,
         for e, s in mesh.owned():
             dev = mesh.devices[e, s]
             fx, x = fixed[dev], sh.x[(s, dev)]
-            alts = torch.as_tensor(alts_np, device=dev)
-            mu_d = torch.as_tensor(mu_np, dtype=T.dtype, device=dev)
 
-            def forward(T_, vmr_, s=s, dev=dev, fx=fx, x=x, alts=alts,
-                        mu_d=mu_d):
+            def forward(T_, vmr_, s=s, dev=dev, fx=fx, x=x):
                 od = sh.od(s, dev, T_, fx["p"], fx["pl"], vmr_)
-                with span("planck"):
-                    B = planckian(x, T_).transpose(0, 1).to(od.dtype)
-                tud = tud_from_od(x, od, B, fx["z0"], alts, mu=mu_d,
-                                  n_angles=n_angles, quadrature=quadrature)
-                return (tud.tau, tud.Lu, tud.Ld)
+                return compose(x, od, T_)
 
             with shard_context(dev):
                 T_d, vmr_d = T.to(dev), vmr.to(dev)

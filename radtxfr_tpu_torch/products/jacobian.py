@@ -5,9 +5,11 @@ The reference approximates Jacobians by brute force: 3*66+1 = 199 perturbed
 profiles with relative step 1e-3, each a full TUD run
 (``Generate_LWIR_TUD.py:55-71``). Here ``torch.func.jvp`` differentiates
 the physics instead, over the per-layer (T, vmr-column) state: the plain
-modules (line parameters, continuum, Planck, the scan composition
-:func:`~.tud.tud_from_od`) under PyTorch's forward mode, and the line OD by
-one of two engines, as in the JAX package:
+modules (line parameters, continuum) under PyTorch's forward mode, the
+composition of :func:`~.tud.make_tud_diff_fn` (K2 and its tangent mode for
+a CUDA float32 OD, else Planck and the scan composition
+:func:`~.tud.tud_from_od`), and the line OD by one of two engines, as in
+the JAX package:
 
 * ``engine='jnp'`` (the default there and here): the reference engine,
   :func:`~.od.compute_od_layer` layer by layer plus the pointwise
@@ -25,7 +27,8 @@ package.
 
 Spans (:func:`~..utils.profiling.span`): ``jacobian.primal`` around the
 products at the state, ``jacobian.tangent`` around each batch's
-``vmap(jvp)``, and inside the forward ``od``, ``planck`` and ``tud``.
+``vmap(jvp)``, and inside the forward ``od`` and ``tud`` (``planck`` too
+off K2).
 """
 
 from __future__ import annotations
@@ -35,10 +38,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.planck import planckian
 from ..utils.profiling import span
 from .od import _line_species_cols, compute_od_layer, make_od_fn
-from .tud import tud_from_od
+from .tud import make_tud_diff_fn
 
 __all__ = ["tud_with_jacobian"]
 
@@ -103,13 +105,12 @@ def tud_with_jacobian(lines, iso, grid, atmos, altitudes, wrt=("T", 1, 3),
                         grid, st, model=continuum,
                         continuum_factors=continuum_factors).to(od.dtype)
 
+    compose = make_tud_diff_fn(atmos.z0, alts, mu=mu, n_angles=n_angles,
+                               devices=[dev])
+
     def forward(T, vmr):
         od = od_fn(T, atmos.p, atmos.pl, vmr)
-        with span("planck"):
-            B = planckian(grid, T).transpose(0, 1).to(od.dtype)
-        tud = tud_from_od(grid, od, B, atmos.z0, alts, mu=mu,
-                          n_angles=n_angles)
-        return {"tau": tud.tau, "Lu": tud.Lu, "Ld": tud.Ld}
+        return dict(zip(("tau", "Lu", "Ld"), compose(grid, od, T)))
 
     with span("jacobian.primal"):
         tud = forward(atmos.T, atmos.vmr)

@@ -10,6 +10,10 @@ Two compositions, spectral axis first at the public boundary:
   float32, with the output shapes of ``make_tud_pallas_fn``: tau/Lu
   (nX, nZs, nMu) and Ld (nX,).
 
+:func:`make_tud_diff_fn` is the composition the Jacobians differentiate in
+forward mode: K2 and its tangent mode for a CUDA float32 OD, else the
+plain one.
+
 Downwelling always integrates all layers (the physically intended
 behaviour, identical to the reference whenever the last sensor altitude is
 the top of the atmosphere).
@@ -23,11 +27,12 @@ import numpy as np
 import torch
 
 from .. import arrays_on, as_numpy, resolve_device
-from ..kernels.fused_tud import tud_compose
+from ..core.planck import planckian
+from ..kernels.fused_tud import tud_compose, tud_compose_diff
 from ..utils.profiling import span
 
-__all__ = ["TUD", "tud_from_od", "make_tud_fn", "downwelling_angles",
-           "downwelling_quadrature"]
+__all__ = ["TUD", "tud_from_od", "make_tud_fn", "make_tud_diff_fn",
+           "downwelling_angles", "downwelling_quadrature"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,5 +180,63 @@ def make_tud_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
                 tau, lu, ld = tud_compose(od, None, None, mus, snap, sec, w,
                                           return_od, B=tb.contiguous())
             return TUD(X=x, tau=tau, Lu=lu, Ld=ld)
+
+    return fn
+
+
+def _k2_composes(od) -> bool:
+    """Whether :func:`make_tud_diff_fn` composes ``od`` with K2: a CUDA
+    float32 OD (what K2 takes), as K2's own wrapper decides."""
+    return od.device.type == "cuda" and od.dtype == torch.float32
+
+
+def make_tud_diff_fn(z0, altitudes, mu=1.0, n_angles: int = 30,
+                     quadrature: str = "uniform", devices=None):
+    """The TUD composition (transmittance) that the Jacobians differentiate
+    in forward mode, for a static geometry: ``fn(x, od, T) -> (tau, Lu,
+    Ld)`` from the layer ODs (nL, nX) and temperatures ``T`` (nL,), in
+    ``od``'s dtype, with the shapes of :func:`tud_from_od`.
+
+    The composition follows the OD it is given: a CUDA float32 OD composes
+    with K2 differentiable in forward mode
+    (:func:`~..kernels.fused_tud.tud_compose_diff`: K2 for the value, its
+    tangent mode for a whole ``vmap`` batch of directions in one launch,
+    the Planck source and its temperature derivative computed in the
+    kernels), span ``tud``; any other (the CPU, float64) with
+    :func:`~..core.planck.planckian` (span ``planck``) and
+    :func:`tud_from_od`. The geometry is placed here, outside any
+    ``torch.func`` transform, on each of ``devices`` (None: the card), the
+    devices the ODs may lie on.
+    """
+    snap = _layers_below(z0, altitudes)
+    mu_np = np.atleast_1d(as_numpy(mu, np.float64))
+    sec, w = downwelling_quadrature(n_angles, quadrature)
+    # per device (indexed, as a tensor's), the plain composition's (z0,
+    # altitudes, secants) and K2's (secants, snapshot layer counts,
+    # quadrature) in each float dtype an OD may have
+    devices = {torch.empty(0, device=resolve_device(d)).device
+               for d in devices or [None]}
+    placed = {dev: (
+        (torch.as_tensor(z0, device=dev),
+         torch.atleast_1d(torch.as_tensor(altitudes, device=dev)),
+         torch.as_tensor(mu_np, device=dev)),
+        {dt: (torch.as_tensor(mu_np, dtype=dt, device=dev),
+              torch.as_tensor(snap, dtype=torch.int32, device=dev),
+              torch.as_tensor(sec, dtype=dt, device=dev),
+              torch.as_tensor(w, dtype=dt, device=dev))
+         for dt in (torch.float32, torch.float64)})
+        for dev in devices}
+
+    def fn(x, od, T):
+        (z0_d, alts_d, mu_d), k2_geom = placed[od.device]
+        if _k2_composes(od):
+            with span("tud"):
+                return tud_compose_diff(od, x.to(od.dtype).contiguous(),
+                                        T.to(od.dtype), *k2_geom[od.dtype])
+        with span("planck"):
+            B = planckian(x, T).transpose(0, 1).to(od.dtype)
+        tud = tud_from_od(x, od, B, z0_d, alts_d, mu=mu_d,
+                          n_angles=n_angles, quadrature=quadrature)
+        return tud.tau, tud.Lu, tud.Ld
 
     return fn

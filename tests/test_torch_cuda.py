@@ -156,6 +156,147 @@ def test_fused_tud_raises_before_launch_outside_its_limits(dev):
     assert fused_tud.LAUNCHES == before
 
 
+#: the TUD Jacobian cell's altitudes (benchmark/configs/lwir_tud_prod.json)
+JAC_ALTITUDES = [0.061, 0.305, 1.524, 3.048, 6.096, 9.144, 12.192, 15.24,
+                 500.0]
+
+
+def _jvp_args(dev, n_x, n_dirs, seed, alts=JAC_ALTITUDES, mu=(1.0,),
+              n_angles=30):
+    """K2's Planck-mode arguments on the standard atmosphere (log-uniform
+    OD, 1e-4 to 10) at ``alts`` (the cell's altitudes), and ``n_dirs``
+    dense directions (OD tangents a twentieth of the OD, T tangents of
+    1 K)."""
+    f32 = torch.float32
+    base = std_atmosphere(device=dev, dtype=f32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    od = 10.0 ** (5.0 * torch.rand((base.n_layers, n_x), generator=gen,
+                                   device=dev) - 4.0)
+    x = torch.linspace(690.0, 1410.0, n_x, device=dev)
+    args = _tud_args(dev, od, x, base)
+    args[3] = torch.tensor(mu, dtype=f32, device=dev)
+    args[4] = torch.as_tensor(_layers_below(base.z0.cpu().numpy(), alts),
+                              dtype=torch.int32, device=dev)
+    args[5:7] = (torch.as_tensor(a, dtype=f32, device=dev)
+                 for a in downwelling_quadrature(n_angles))
+    dod = 0.05 * od * torch.randn((n_dirs,) + tuple(od.shape),
+                                  generator=gen, device=dev)
+    dT = torch.randn((n_dirs, base.n_layers), generator=gen, device=dev)
+    return args, base, dod, dT
+
+
+def _tangents_match_plain(args, dod, dT):
+    """One launch of K2's tangent mode against its plain version: each
+    direction's tangents within 1e-5 of their own peak, reruns
+    bit-identical."""
+    n_d = dod.shape[0]
+    before = fused_tud.LAUNCHES["tud_jvp"]
+    got = fused_tud.tud_compose_jvp(*args, dod, dT)
+    assert fused_tud.LAUNCHES["tud_jvp"] == before + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, fused_tud.tud_compose_jvp(*args, dod, dT)))
+    want = fused_tud.tud_compose_jvp_plain(*args, dod, dT)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.shape[0] == n_d
+        for d in range(n_d):
+            assert r[d].abs().max() > 0
+            assert (g[d] - r[d]).abs().max() <= 1e-5 * r[d].abs().max()
+
+
+def test_fused_tud_jvp_kernel_matches_plain(dev):
+    """K2's tangent mode at the Jacobian cell's shape (66 layers, 1,440,001
+    points, 9 altitudes, 1 secant, 30 angles, 8 directions) in one launch
+    against its plain version: each direction's tangents within 1e-5 of
+    their own peak, reruns bit-identical; the primal, K2's, within its
+    5e-6 of the plain composition."""
+    n_x = arange_drift_free(690.0, 1410.0, 0.0005).size
+    args, _, dod, dT = _jvp_args(dev, n_x, 8, seed=3)
+    _tangents_match_plain(args, dod, dT)
+    for g, r in zip(fused_tud.tud_compose(*args),
+                    fused_tud.tud_compose_plain(*args)):
+        assert (g - r).abs().max() <= 5e-6 * r.abs().max()   # of peak
+
+
+def test_fused_tud_jvp_kernel_chunks_match_plain(dev):
+    """K2's tangent mode beyond one chunk of each kind: 11 directions (two
+    chunks of 8, the second short), 40 angles (two chunks of 32, S_B apart
+    from the prefix OD), 2 secants and an altitude below the ground layer,
+    on 5,001 points (a short last CTA), against its plain version within
+    1e-5 of each direction's peak."""
+    args, _, dod, dT = _jvp_args(dev, 5001, 11, seed=5,
+                                 alts=[-1.0, 0.061, 3.048, 500.0],
+                                 mu=(1.0, 1.7), n_angles=40)
+    _tangents_match_plain(args, dod, dT)
+
+
+def test_fused_tud_diff_launches_once_a_batch(dev):
+    """``tud_compose_diff`` under ``vmap(jvp)``: K2 once for the value and
+    the tangent mode once for the whole batch of directions, its tangents
+    those of a direct launch; a direction's missing T tangent is zero."""
+    args, base, dod, dT = _jvp_args(dev, 3001, 5, seed=4)
+    od, x, _, *geom = args
+    T = base.T
+
+    def f(o, t):
+        return fused_tud.tud_compose_diff(o, x, t, *geom)
+
+    before = dict(fused_tud.LAUNCHES)
+    value, tan = torch.func.vmap(lambda a, b: torch.func.jvp(
+        f, (od, T), (a, b)))(dod, dT)
+    assert fused_tud.LAUNCHES["tud_jvp"] == before["tud_jvp"] + 1
+    assert fused_tud.LAUNCHES["tud"] == before["tud"] + 1
+    want = fused_tud.tud_compose_jvp(*args, dod, dT)
+    for g, r in zip(tan, want):
+        assert torch.equal(g, r)
+    for g, r in zip(value, fused_tud.tud_compose(*args)):
+        assert torch.equal(g[0], r)      # vmap's out_dims spread the value
+    _, od_only = torch.func.jvp(lambda o: f(o, T), (od,), (dod[0],))
+    zero_t = fused_tud.tud_compose_jvp(*args, dod[:1],
+                                       torch.zeros_like(dT[:1]))
+    for g, r in zip(od_only, zero_t):
+        assert torch.equal(g, r[0])
+
+
+def test_tud_jacobian_k2_matches_plain_composition(dev, monkeypatch):
+    """``make_tud_jacobian_fn`` on a (1 x 1) mesh in float32: with K2 and
+    its tangent mode (the default on the card) against its own plain
+    composition (``planckian`` and ``tud_from_od``), 8 one-hot T, H2O and
+    O3 directions: the primal and each direction's tangents within the
+    Jacobian cell's limits (tau 5e-4 absolute; Lu, Ld and every tangent
+    1e-3 of its peak)."""
+    from radtxfr_tpu_torch.products import tud
+    from radtxfr_tpu_torch.dist.fused_ensemble import (jacobian_directions,
+                                                       make_tud_jacobian_fn)
+    from radtxfr_tpu_torch.dist.mesh import make_mesh
+
+    f32 = torch.float32
+    store = derived_lwir_linelist(695.0, 745.0, device=dev, dtype=f32)
+    base = std_atmosphere(device=dev, dtype=f32)
+    iso = IsoTables.load(device=dev, dtype=f32)
+    X = arange_drift_free(716.0, 726.0, 0.0005)
+    V_T, V_vmr, _ = jacobian_directions(base)
+    pick = [0, 30, 65, 66 + 5, 66 + 40, 132 + 10, 132 + 50, 20]
+    outs, launches = [], []
+    for k2 in (True, False):
+        monkeypatch.setattr(tud, "_k2_composes",
+                            lambda od, k2=k2: k2)
+        _, run = make_tud_jacobian_fn(store, iso, X, base, JAC_ALTITUDES,
+                                      make_mesh(1, 1, devices=[dev]),
+                                      continuum="mt_ckd")
+        before = fused_tud.LAUNCHES["tud_jvp"]
+        outs.append(run(base.T, base.vmr, V_T[pick], V_vmr[pick]))
+        launches.append(fused_tud.LAUNCHES["tud_jvp"] - before)
+    assert launches == [1, 0]
+    (p1, t1), (p0, t0) = outs
+    assert (p1["tau"] - p0["tau"]).abs().max() <= 5e-4
+    for k in ("Lu", "Ld"):
+        assert (p1[k] - p0[k]).abs().max() <= 1e-3 * p0[k].abs().max()
+    for k in ("tau", "Lu", "Ld"):
+        for j in range(len(pick)):
+            assert (t1[k][j] - t0[k][j]).abs().max() <= \
+                1e-3 * t0[k][j].abs().max(), (k, j)
+
+
 def test_wrappers_raise_on_float64_and_non_contiguous(dev):
     od_fn, base = _od_fn(dev)
     prm, Y = od_fn.line_params(base.T, base.p, base.pl, base.vmr)

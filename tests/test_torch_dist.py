@@ -557,6 +557,39 @@ def test_tud_jacobian_matches_unsharded(voigt, iso_tables):
         run(st.T, st.vmr, V_T[:3], V_vmr[:3])
 
 
+@pytest.mark.parametrize("dtype,bound", [("f64", 1e-12), ("f32", 2e-5)])
+def test_tud_jacobian_k2_composition_matches_plain(voigt, monkeypatch, dtype,
+                                                   bound):
+    """``make_tud_jacobian_fn`` with the differentiable K2 composition
+    (what a CUDA float32 OD takes; forced here on the CPU, so its plain
+    versions run) against its plain composition (``planckian`` and
+    ``tud_from_od``) on a (2 x 2) virtual mesh: the primal and the tangents
+    of 4 one-hot directions (T, H2O, O3), each within ``bound`` of its
+    peak (float32: the plain versions' own orders of summation); nothing
+    is launched."""
+    from radtxfr_tpu_torch.products import tud
+    from radtxfr_tpu_torch.kernels import fused_tud
+
+    lines, iso, st = voigt[dtype]
+    mesh = _cpu_mesh(2, 2)
+    V_T, V_vmr, _ = jacobian_directions(st)
+    pick = [0, 3, N_LAY + 1, 2 * N_LAY + 4]
+    outs = []
+    for k2 in (False, True):
+        monkeypatch.setattr(tud, "_k2_composes",
+                            lambda od, k2=k2: k2)
+        _, run = make_tud_jacobian_fn(lines, iso, AXIS, st, [-1.0] + ALTS,
+                                      mesh, n_angles=6, group_ratio=4.0)
+        outs.append(run(st.T, st.vmr, V_T[pick], V_vmr[pick]))
+    assert fused_tud.LAUNCHES["tud_jvp"] == 0
+    (p0, t0), (p1, t1) = outs
+    for k in ("tau", "Lu", "Ld"):
+        assert _rel(p1[k].numpy(), p0[k].numpy()) <= bound, k
+        assert t1[k].shape == t0[k].shape
+        for j in range(len(pick)):
+            assert _rel(t1[k][j].numpy(), t0[k][j].numpy()) <= bound, (k, j)
+
+
 def test_make_mesh_and_helpers():
     """``make_mesh`` shapes the devices, raises with too few (and without
     a card when asked for the visible ones) and never falls back to the

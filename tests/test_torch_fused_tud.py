@@ -8,6 +8,7 @@ with the plain version is ``chip_smoke.py`` on the card). Cases follow
 ``tests/test_pallas_tud.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +21,9 @@ from radtxfr_tpu.sensor.resolution import reduce_operator as j_reduce_operator
 from radtxfr_tpu_torch.core.grid import arange_drift_free
 from radtxfr_tpu_torch.core.planck import planckian
 from radtxfr_tpu_torch.kernels import fused_tud
-from radtxfr_tpu_torch.products.tud import make_tud_fn, tud_from_od
+from radtxfr_tpu_torch.products.tud import (_layers_below,
+                                            downwelling_quadrature,
+                                            make_tud_fn, tud_from_od)
 from radtxfr_tpu_torch.sensor.resolution import reduce_operator
 from port_fixtures import one_torch_thread  # noqa: F401
 
@@ -184,3 +187,168 @@ def test_plain_composition_takes_any_altitude_count():
     tau, lu, ld = fused_tud.tud_compose(
         od_t, x_t, 1.0 / torch.as_tensor(T), torch.ones(1), snap, sec, w)
     assert tau.shape == (x.size, n, 1) and bool(torch.isfinite(lu).all())
+
+
+# --------------------------------------------------------------------------
+# K2's tangent mode (no JAX counterpart: JAX differentiates its scan
+# composition) and the differentiable Planck mode, on the CPU: their plain
+# versions against torch.func.jvp of the plain composition
+# --------------------------------------------------------------------------
+
+TANGENT_CASES = [
+    ([0.061, 1.524, 6.096, 500.0], [1.0], 30, "uniform"),
+    ([-1.0, 5.0, 500.0], [1.0, 1.7], 40, "uniform"),
+    ([-1.0, 2.0, 500.0], [1.0, 1.3], 8, "gauss"),
+]
+
+
+def _tangent_setup(alts, mu, n_angles, quad, n_x=400, n_lay=17, n_dirs=3,
+                   seed=5):
+    """float64 (od, x, T, geometry, dod, dT) with OD from transparent to
+    opaque, and n_dirs random directions."""
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    z0 = np.linspace(0.0, 65.0, n_lay)
+    od = torch.as_tensor(10.0 ** (4.0 * rng.random((n_lay, n_x)) - 3.0))
+    x = torch.linspace(690.0, 1410.0, n_x, dtype=f64)
+    T = torch.as_tensor(230.0 + 60.0 * rng.random(n_lay))
+    geom = (torch.tensor(mu, dtype=f64),
+            torch.as_tensor(_layers_below(z0, alts), dtype=torch.int32),
+            *(torch.as_tensor(a) for a in downwelling_quadrature(n_angles,
+                                                                 quad)))
+    dod = torch.as_tensor(rng.standard_normal((n_dirs, n_lay, n_x))) * od
+    dT = torch.as_tensor(rng.standard_normal((n_dirs, n_lay)))
+    return z0, od, x, T, geom, dod, dT
+
+
+def _of_peak(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("alts,mu,n_angles,quad", TANGENT_CASES)
+def test_tangent_plain_matches_jvp_of_tud_from_od(alts, mu, n_angles, quad):
+    """The tangent mode's plain version (the up pass's forward-mode carries,
+    Ld's sensitivities) against ``torch.func.jvp`` of ``planckian`` and
+    ``tud_from_od`` in float64, each direction's tangents within 1e-10 of
+    their peak, and the value of ``tud_compose_diff`` (K2's plain version)
+    within 1e-12 of its peak (an altitude below the ground layer, two
+    secants, two angle chunks and both quadratures among the cases)."""
+    z0, od, x, T, geom, dod, dT = _tangent_setup(alts, mu, n_angles, quad)
+
+    def ref(o, t):
+        B = planckian(x, t).transpose(0, 1)
+        r = tud_from_od(x, o, B, torch.as_tensor(z0), torch.tensor(alts),
+                        mu=geom[0], n_angles=n_angles, quadrature=quad)
+        return r.tau, r.Lu, r.Ld
+
+    got = fused_tud.tud_compose_jvp_plain(od, x, 1.0 / T, *geom, dod, dT)
+    for g, r in zip(fused_tud.tud_compose_diff(od, x, T, *geom), ref(od, T)):
+        assert _of_peak(g, r) <= 1e-12
+    for d in range(dod.shape[0]):
+        _, want = torch.func.jvp(ref, (od, T), (dod[d], dT[d]))
+        for g, r in zip(got, want):
+            assert g.shape[1:] == r.shape
+            assert _of_peak(g[d], r) <= 1e-10
+
+
+@pytest.mark.parametrize("alts,mu,n_angles,quad", TANGENT_CASES)
+def test_tangent_plain_matches_jax_jvp(alts, mu, n_angles, quad):
+    """The tangent mode's plain version against ``jax.jvp`` of JAX's own
+    ``planckian`` and scan composition ``tud_from_od`` (float64) on the
+    same (od, T) and directions: each direction's tangents within 1e-10
+    of their peak."""
+    z0, od, x, T, geom, dod, dT = _tangent_setup(alts, mu, n_angles, quad)
+    xj = jnp.asarray(x.numpy())
+
+    def ref(o, t):
+        B = jnp.swapaxes(j_planckian(xj, t), 0, 1)
+        r = j_tud_from_od(xj, o, B, jnp.asarray(z0), jnp.asarray(alts),
+                          mu=jnp.asarray(mu), n_angles=n_angles,
+                          quadrature=quad)
+        return r.tau, r.Lu, r.Ld
+
+    got = fused_tud.tud_compose_jvp_plain(od, x, 1.0 / T, *geom, dod, dT)
+    for d in range(dod.shape[0]):
+        _, want = jax.jvp(ref, (jnp.asarray(od.numpy()),
+                                jnp.asarray(T.numpy())),
+                          (jnp.asarray(dod[d].numpy()),
+                           jnp.asarray(dT[d].numpy())))
+        for g, r in zip(got, want):
+            r = np.array(r)
+            assert r.dtype == np.float64 and g.shape[1:] == r.shape
+            assert _of_peak(g[d], torch.as_tensor(r)) <= 1e-10
+
+
+@pytest.mark.parametrize("alts,mu,n_angles,quad", TANGENT_CASES[1:])
+def test_diff_vmap_is_the_per_direction_loop(alts, mu, n_angles, quad):
+    """``tud_compose_diff`` under ``vmap(jvp)``: the batch of directions
+    equals ``jvp`` direction by direction and the tangent mode's own
+    tangents; the value is K2's plain version's; on the CPU nothing is
+    launched."""
+    _, od, x, T, geom, dod, dT = _tangent_setup(alts, mu, n_angles, quad)
+    before = dict(fused_tud.LAUNCHES)
+
+    def f(o, t):
+        return fused_tud.tud_compose_diff(o, x, t, *geom)
+
+    batch = torch.func.vmap(lambda a, b: torch.func.jvp(
+        f, (od, T), (a, b))[1])(dod, dT)
+    want = fused_tud.tud_compose_jvp_plain(od, x, 1.0 / T, *geom, dod, dT)
+    for g, r in zip(batch, want):
+        assert torch.equal(g, r)
+    for d in range(dod.shape[0]):
+        value, one = torch.func.jvp(f, (od, T), (dod[d], dT[d]))
+        for g, r in zip(one, batch):
+            assert torch.equal(g, r[d])
+    for g, r in zip(value, fused_tud.tud_compose_plain(od, x, 1.0 / T,
+                                                       *geom)):
+        assert torch.equal(g, r)
+    assert fused_tud.LAUNCHES == before
+    assert fused_tud.LAUNCHES["tud_jvp"] == 0
+
+
+def test_diff_missing_tangent_is_zero():
+    """A ``jvp`` in the ODs alone (the temperature's tangent missing, as in
+    a direction without one) is the tangent with dT = 0, and one in the
+    temperatures alone is the tangent with dod = 0."""
+    _, od, x, T, geom, dod, dT = _tangent_setup(*TANGENT_CASES[0],
+                                                n_dirs=1)
+    _, od_only = torch.func.jvp(
+        lambda o: fused_tud.tud_compose_diff(o, x, T, *geom), (od,),
+        (dod[0],))
+    _, t_only = torch.func.jvp(
+        lambda t: fused_tud.tud_compose_diff(od, x, t, *geom), (T,),
+        (dT[0],))
+    zero_t = fused_tud.tud_compose_jvp_plain(od, x, 1.0 / T, *geom, dod,
+                                             torch.zeros_like(dT))
+    zero_od = fused_tud.tud_compose_jvp_plain(od, x, 1.0 / T, *geom,
+                                              torch.zeros_like(dod), dT)
+    for g, r in zip(od_only, zero_t):
+        assert torch.equal(g, r[0])
+    for g, r in zip(t_only, zero_od):
+        assert torch.equal(g, r[0])
+    assert od_only[0].abs().max() > 0 and t_only[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("n_lay,n_zs,n_mu,n_a,error", [
+    (66, 9, 1, 30, None),               # the production shape
+    (66, 64, 1, 30, None),
+    (290, 64, 8, 30, None),             # altitudes x secants take none
+    (290, 1, 1, 40, "shared memory"),   # a second angle chunk
+    (66, 65, 1, 30, "at most 64 sensor altitudes"),
+    (440, 1, 1, 30, "shared memory"),
+])
+def test_tangent_launch_shape_limits(n_lay, n_zs, n_mu, n_a, error):
+    """The tangent mode's limits: 64 altitudes, and a CTA's shared memory
+    (the prefix OD and the downwelling's sensitivities of its 64 columns
+    a layer, S_B apart only beyond one chunk of 32 angles, and a chunk's 8
+    temperature tangents a layer) within the card's 227 KB."""
+    need = fused_tud.smem_bytes_jvp(n_lay, n_a)
+    per = 3 if n_a > 32 else 2
+    assert need == 8 * (n_lay + 1) + 4 * (64 * per * n_lay + 8 * n_lay)
+    if error is None:
+        assert need <= fused_tud.MAX_SMEM
+        fused_tud.check_launch_shape(n_lay, n_zs, n_mu, jvp_angles=n_a)
+    else:
+        with pytest.raises(ValueError, match=error):
+            fused_tud.check_launch_shape(n_lay, n_zs, n_mu, jvp_angles=n_a)

@@ -206,3 +206,38 @@ def test_tangent_batching_changes_no_value(case, iso_tables):
             np.testing.assert_allclose(bat[key][prod].numpy(),
                                        full[key][prod].numpy(), rtol=1e-10,
                                        atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
+                                         (torch.float32, 2e-5)])
+def test_tud_with_jacobian_k2_composition_matches_plain(case, iso_tables,
+                                                        monkeypatch, dtype,
+                                                        bound):
+    """``tud_with_jacobian`` with the differentiable K2 composition (what a
+    CUDA float32 OD takes; forced here on the CPU, so its plain versions
+    run) against its plain composition (``planckian`` and
+    ``tud_from_od``), ``wrt=("T", 1)``, two secants: the products and
+    every Jacobian within ``bound`` of its peak (float32: the plain
+    versions' own orders of summation); nothing is launched."""
+    from radtxfr_tpu_torch.kernels import fused_tud
+    from radtxfr_tpu_torch.products import tud as tud_mod
+
+    lines, iso, s = _port(case, iso_tables, dtype)
+    before = dict(fused_tud.LAUNCHES)
+    outs = []
+    for k2 in (False, True):
+        monkeypatch.setattr(tud_mod, "_k2_composes", lambda od, k2=k2: k2)
+        outs.append(tud_with_jacobian(lines, iso, AXIS, s, ALTS,
+                                      wrt=("T", 1), mu=[1.0, 1.4],
+                                      n_angles=6, engine="pallas"))
+    assert fused_tud.LAUNCHES == before
+    (p0, j0), (p1, j1) = outs
+    for k in ("tau", "Lu", "Ld"):
+        assert p1[k].shape == p0[k].shape
+        assert (p1[k] - p0[k]).abs().max() <= bound * p0[k].abs().max(), k
+        for w in ("T", "1"):
+            got, want = j1[w][k], j0[w][k]
+            assert got.shape == want.shape == p0[k].shape + (5,)
+            peak = want.abs().max()
+            assert peak > 0.0
+            assert (got - want).abs().max() <= bound * peak, (k, w)
